@@ -1,0 +1,136 @@
+"""GraphDiT: the multi-conditional discrete graph diffusion decoder
+(sampling surface of llamole_tpu/models/graphdit/api.py).
+
+  * classifier-free guidance runs as ONE denoiser call per step on a
+    doubled batch whose second half carries NaN conditioning, which the
+    embedders read as "dropped" (api.py:118-135)
+  * the reverse loop is a Python loop over the strided time grid,
+    computed with numpy exactly as the JAX sampler does (api.py:179-185)
+  * graphs collapse to SMILES on the host through llamole_tpu.chem
+"""
+
+from typing import List, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from llamole_tpu.chem.assemble import check_valid as _check_valid
+from llamole_tpu.chem.assemble import graph_to_smiles as _graph_to_smiles
+from llamole_tpu.utils.constants import NO_LABEL_INDEX
+
+from .config import DataInfo, GraphDiTConfig
+from .denoiser import Denoiser
+from .diffusion import (NoiseSchedule, TransitionParts, one_hot_graph,
+                        posterior_unnormalized, sample_discrete_features,
+                        sample_limit_dist, sample_n_nodes)
+
+
+def time_grid(timesteps: int, sampling_steps: Optional[int]) -> np.ndarray:
+    """T = t_0 > t_1 > ... > t_n = 0; the sampler steps (t_k, t_k+1)."""
+    n_steps = max(1, min(sampling_steps or timesteps, timesteps))
+    return np.unique(np.round(np.linspace(timesteps, 0, n_steps + 1))
+                     .astype(np.int32))[::-1].copy()
+
+
+class GraphDiT(nn.Module):
+    """Denoiser parameters live in `self.denoiser`; the schedule and the
+    transition parts are plain f32 tensors on `device`."""
+
+    def __init__(self, cfg: GraphDiTConfig, data_info: DataInfo,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        cfg.Xdim = len(data_info.active_atoms)
+        cfg.max_n_nodes = data_info.max_n_nodes
+        self.cfg = cfg
+        self.denoiser = Denoiser(cfg, dtype, device)
+        self.schedule = NoiseSchedule.create(cfg.diffusion_steps, device)
+        self.parts = TransitionParts.from_data_info(data_info, device)
+        self.atom_decoder = list(data_info.active_atoms)
+        hist = np.asarray(data_info.n_nodes_dist, dtype=np.float64)
+        self._nodes_hist = torch.tensor(hist / max(hist.sum(), 1e-12),
+                                        dtype=torch.float32, device=device)
+        self.text_input_size = cfg.text_dim
+
+    @torch.no_grad()
+    def sample(self, generator: torch.Generator, y: torch.Tensor,
+               text_emb: torch.Tensor):
+        """Full reverse diffusion. y [B, ydim] f32 (NaN = absent),
+        text_emb [B, text_dim] -> (atom_idx [B,N] active-space,
+        edge_cls [B,N,N], n_nodes [B])."""
+        cfg, sched = self.cfg, self.schedule
+        dev = self._nodes_hist.device
+        b, n = y.shape[0], cfg.max_n_nodes
+        n_nodes = sample_n_nodes(generator, self._nodes_hist, b)
+        node_mask = torch.arange(n, device=dev)[None, :] < n_nodes[:, None]
+        Xc, Ec = sample_limit_dist(generator, self.parts, node_mask)
+        X, E = one_hot_graph(Xc, Ec, cfg.Xdim, cfg.Edim, node_mask)
+
+        use_cfg = cfg.guide_scale is not None and cfg.guide_scale != 1
+        if use_cfg:
+            # doubled batch: [conditioned || unconditioned (NaN)]
+            m2 = torch.cat([node_mask, node_mask], 0)
+            y2 = torch.cat([y, torch.full_like(y, float("nan"))], 0)
+            txt2 = torch.cat([text_emb, torch.full_like(text_emb,
+                                                        float("nan"))], 0)
+
+        def to_probs(X_t, E_t, lX, lE, beta_t, a_s, a_t):
+            pX = torch.softmax(lX.float(), -1)
+            pE = torch.softmax(lE.float(), -1)
+            uX, uE = posterior_unnormalized(X_t, E_t, pX, pE, beta_t, a_s,
+                                            a_t, self.parts)
+            uX = torch.where(uX.sum(-1, keepdim=True) == 0.0, 1e-5, uX)
+            uE = torch.where(uE.sum(-1, keepdim=True) == 0.0, 1e-5, uE)
+            return (uX / uX.sum(-1, keepdim=True),
+                    uE / uE.sum(-1, keepdim=True))
+
+        grid = time_grid(sched.timesteps, cfg.sampling_steps)
+        T = np.float32(sched.timesteps)
+        for t_int, s_int in zip(grid[:-1].tolist(), grid[1:].tolist()):
+            a_s = sched.alphas_bar[s_int].expand(b)
+            a_t = sched.alphas_bar[t_int].expand(b)
+            # effective one-jump noise t -> s: exact when s = t-1
+            beta_t = 1.0 - a_t / a_s.clamp_min(1e-12)
+            t_norm = torch.full((b,), float(np.float32(t_int) / T),
+                                dtype=torch.float32, device=dev)
+            if use_cfg:
+                lX, lE = self.denoiser(torch.cat([X, X], 0),
+                                       torch.cat([E, E], 0), m2, y2, txt2,
+                                       torch.cat([t_norm, t_norm], 0))
+                prob_X, prob_E = to_probs(X, E, lX[:b], lE[:b], beta_t,
+                                          a_s, a_t)
+                un_X, un_E = to_probs(X, E, lX[b:], lE[b:], beta_t, a_s,
+                                      a_t)
+                g = cfg.guide_scale
+                prob_X = un_X * (prob_X / un_X.clamp_min(1e-5)) ** g
+                prob_E = un_E * (prob_E / un_E.clamp_min(1e-5)) ** g
+                prob_X = prob_X / prob_X.sum(-1, keepdim=True).clamp_min(1e-5)
+                prob_E = prob_E / prob_E.sum(-1, keepdim=True).clamp_min(1e-5)
+            else:
+                lX, lE = self.denoiser(X, E, node_mask, y, text_emb, t_norm)
+                prob_X, prob_E = to_probs(X, E, lX, lE, beta_t, a_s, a_t)
+            Xs, Es = sample_discrete_features(generator, prob_X, prob_E,
+                                              node_mask)
+            X, E = one_hot_graph(Xs, Es, cfg.Xdim, cfg.Edim, node_mask)
+
+        atom_idx = torch.argmax(X, dim=-1)
+        edge_cls = torch.argmax(E, dim=-1)
+        pair = node_mask[:, :, None] & node_mask[:, None, :]
+        return atom_idx, torch.where(pair, edge_cls, 0), n_nodes
+
+    def generate(self, generator: torch.Generator, properties: torch.Tensor,
+                 text_emb: torch.Tensor) -> List[Optional[str]]:
+        """Sample molecules and assemble SMILES on the host. properties
+        [B, ydim]: NO_LABEL_INDEX or NaN = absent channel."""
+        y = torch.where(properties == NO_LABEL_INDEX, float("nan"),
+                        properties.float())
+        atom_idx, edge_cls, n_nodes = self.sample(generator, y, text_emb)
+        atom_idx = atom_idx.cpu().numpy()
+        edge_cls = edge_cls.cpu().numpy()
+        n_nodes = n_nodes.cpu().numpy()
+        mols = [(atom_idx[i, :int(k)], edge_cls[i, :int(k), :int(k)])
+                for i, k in enumerate(n_nodes)]
+        return _graph_to_smiles(mols, self.atom_decoder)
+
+    def check_valid(self, smiles: Optional[str]) -> bool:
+        return _check_valid(smiles)
