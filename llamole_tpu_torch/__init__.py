@@ -1,23 +1,30 @@
 """llamole_tpu_torch — the PyTorch + CUDA port of llamole_tpu.
 
-Phase-1 molecular design serving on an NVIDIA Hopper card: the LLM
-(+ LoRA) decodes an analysis with a KV cache, a query extension yields
-the design hidden, the lm_to_graph_decoder connector conditions the
-GraphDiT sampler, and host code assembles SMILES (with LLM rollback).
-The fused graph attention of every denoiser block is a hand-written
-CUDA kernel (csrc/fused_attention.cu).
+Molecular design and retrosynthesis serving on an NVIDIA Hopper card.
+Phase 1: the LLM (+ LoRA) decodes an analysis with a KV cache, a query
+extension yields the design hidden, the lm_to_graph_decoder connector
+conditions the GraphDiT sampler, and host code assembles SMILES (with LLM
+rollback). Phase 2: Retro* search (llamole_tpu.planner) expands products
+with GraphCLIP embeddings spliced into the prompt, an analysis decode, a
+retro query and the GIN template predictor, and values nodes with the
+base LLM's likert scores. Two hand-written CUDA kernels carry the graph
+modules: the fused graph attention of every denoiser block
+(csrc/fused_attention.cu) and the GIN aggregation of every GraphCLIP and
+predictor layer (csrc/gin_aggregate.cu).
 
 The JAX package `llamole_tpu` stays the reference. This package never
 imports JAX; it shares only the JAX-free host layers of llamole_tpu
-(chem, data.tokenizer, utils.constants, utils.logging).
+(chem, data, planner, utils.constants, utils.logging).
 
 Layering mirrors llamole_tpu:
-  ops/      nn blocks, attention, the fused-attention kernel wrapper
+  ops/      nn blocks, attention, GIN layers, the kernel wrappers
   csrc/     CUDA sources, built at first use (ops/cuda_lib.py)
-  models/   gllm (LLM + LoRA), graphdit (denoiser + sampler),
-            composite (GraphLM, Phase 1), loader
+  models/   gllm (LLM + LoRA), graphdit (denoiser + sampler), graphclip
+            (encoder), retro (template predictor, CostMLP), composite
+            (GraphLM, both phases), loader
   weights   bridge from llamole_tpu parameter trees (numpy) to state dicts
   serve     DesignServer + JSONL serving
+  eval      run_molqa, the MolQA dataset and its scores
 """
 
 __version__ = "0.1.0"
@@ -33,6 +40,7 @@ def __getattr__(name):
                            "build_graph_lm"),
         "DesignServer": ("llamole_tpu_torch.serve", "DesignServer"),
         "serve_jsonl": ("llamole_tpu_torch.serve", "serve_jsonl"),
+        "run_molqa": ("llamole_tpu_torch.eval.workflow", "run_molqa"),
     }
     if name in lazy:
         import importlib

@@ -36,6 +36,7 @@ class LoRALinear(nn.Module):
         self.lora_a = None
         self.lora_b = None
         self.lora_scale = 1.0
+        self.lora_enabled = True   # off: the base projection alone
 
     def add_lora(self, rank: int, scale: float,
                  dtype=torch.float32) -> None:
@@ -56,7 +57,7 @@ class LoRALinear(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.linear(x, self.weight)
-        if self.lora_a is not None:
+        if self.lora_a is not None and self.lora_enabled:
             xa = F.linear(x.to(self.lora_a.dtype), self.lora_a)
             y = y + (F.linear(xa, self.lora_b) * self.lora_scale).to(y.dtype)
         if self.bias is not None:

@@ -14,6 +14,7 @@ int8 KV cache, quantized weights, MoE, sliding-window, logit softcap,
 qk-norm and the other gemma-family knobs.
 """
 
+import contextlib
 import math
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -261,14 +262,30 @@ class LLM(nn.Module):
             if isinstance(m, LoRALinear) and m.lora_a is not None:
                 m.reset_lora(generator)
 
-    def forward(self, input_ids, attention_mask=None, positions=None,
+    @contextlib.contextmanager
+    def adapter_disabled(self):
+        """Run the base weights alone inside the block: the JAX package
+        passes no `lora` tree there (the likert value scoring)."""
+        mods = [m for m in self.modules() if isinstance(m, LoRALinear)]
+        for m in mods:
+            m.lora_enabled = False
+        try:
+            yield
+        finally:
+            for m in mods:
+                m.lora_enabled = True
+
+    def forward(self, input_ids=None, attention_mask=None, positions=None,
                 kv_cache: Optional[KVCache] = None, cache_index=None,
-                kv_valid=None, last_logits_only: bool = False):
+                kv_valid=None, last_logits_only: bool = False,
+                inputs_embeds: Optional[torch.Tensor] = None):
         """Returns (logits [B,S,V] f32, hidden [B,S,H], kv_cache).
-        With kv_cache, queries attend to the valid cache slots
-        (kv_valid [B,T]) at or before their own slot; the cache is
-        written in place and returned."""
-        x = self.embed(input_ids)
+        input_ids [B,S], or inputs_embeds [B,S,H] (the multimodal splice,
+        composite._splice_molecule_embeds; `self.embed(ids)` gives the
+        plain token embeddings). With kv_cache, queries attend to the
+        valid cache slots (kv_valid [B,T]) at or before their own slot;
+        the cache is written in place and returned."""
+        x = self.embed(input_ids) if inputs_embeds is None else inputs_embeds
         b, s, _ = x.shape
         dev = x.device
         if attention_mask is None:
@@ -315,13 +332,17 @@ class LLM(nn.Module):
                  repetition_penalty: float = 1.0,
                  spec_tokens: Optional[int] = None,
                  return_decode_state: bool = False,
-                 reserve_cache_slots: int = 0):
+                 reserve_cache_slots: int = 0,
+                 inputs_embeds: Optional[torch.Tensor] = None):
         """Returns (new_tokens [B, T] int64, done [B] bool) and, with
         return_decode_state, a third element {"cache", "kv_valid"} whose
         valid region per row is exactly prompt + emitted tokens (stop
         tokens are never written). input_ids [B, P] are left-padded.
         reserve_cache_slots leaves zero slots after the decode region for
-        a later query extension (composite._body_hidden_extend)."""
+        a later query extension (composite._body_hidden_extend).
+        inputs_embeds [B, P, H] replaces the prompt's token embeddings in
+        the prefill; the repetition-penalty history then starts empty,
+        as in the JAX package (the prompt ids are not read)."""
         if spec_tokens:
             raise NotImplementedError(
                 "speculative decoding (spec_tokens > 0) is not ported yet "
@@ -341,7 +362,8 @@ class LLM(nn.Module):
                                 attention_mask=attention_mask,
                                 positions=positions, kv_cache=cache,
                                 cache_index=0, kv_valid=kv_valid,
-                                last_logits_only=True)
+                                last_logits_only=True,
+                                inputs_embeds=inputs_embeds)
 
         use_rep = repetition_penalty != 1.0
         rows = torch.arange(b, device=dev)
@@ -349,8 +371,9 @@ class LLM(nn.Module):
         if use_rep:
             seen = torch.zeros((b, cfg.vocab_size), dtype=torch.bool,
                                device=dev)
-            r, c = torch.nonzero(attention_mask > 0, as_tuple=True)
-            seen[r, input_ids[r, c]] = True
+            if inputs_embeds is None:
+                r, c = torch.nonzero(attention_mask > 0, as_tuple=True)
+                seen[r, input_ids[r, c]] = True
 
         def pick(step_logits):
             if use_rep:

@@ -1,23 +1,28 @@
-"""Batch serving for Phase-1 molecular design (counterpart of
+"""Batch serving for molecular design and retrosynthesis (counterpart of
 llamole_tpu/serve.py DesignServer / serve_stream / serve_jsonl).
 
 A request queue and a scheduler thread assemble fixed-size batches:
 requests accumulate until `batch_size` wait or the oldest has waited
 `max_wait_s`; each flush pads the batch to exactly `batch_size` rows by
 repeating the last request, left-pads prompts to a shared 64-multiple,
-and runs GraphLM.design_molecule once.
+and runs GraphLM.design_molecule once. Design-only rows are answered at
+once; the rows that asked for "retro" then share ONE interleaved Retro*
+search (GraphLM.retrosynthesize_batch) over their designed molecules.
 
 Request (JSONL line / submit kwargs):
   {"prompt": str, "property": {name: value, ...}, "retro": bool}
+  {"stats": true} answers inline with the serving counters and latency
+  percentiles.
 Result:
-  {"id": n, "text": str, "smiles": str | null, "latency_s": float}
-Retrosynthesis ("retro": true) is Phase 2 and not ported yet: such a
-request is answered with an "error" naming Phase 2, never silently
-served as design-only.
+  {"id": n, "text": str, "smiles": str | null, "latency_s": float,
+   "retro": {"success": bool, "reactions": [...], "templates": [...],
+             "cost": [...]}}        # "retro" only when requested
 
-    python -m llamole_tpu_torch.serve <config.yaml>  < requests.jsonl
+    python -m llamole_tpu_torch.serve <config.yaml> [--device cuda|cpu] \
+        < requests.jsonl
 """
 
+import argparse
 import json
 import queue
 import sys
@@ -36,15 +41,11 @@ from .models.composite import GenerationSettings
 
 logger = get_logger(__name__)
 
-RETRO_NOT_PORTED = ("'retro': true asks for retrosynthesis, which is Phase 2 "
-                    "and not ported to llamole_tpu_torch yet (ROADMAP.md); "
-                    "send the request without 'retro' for design only")
-
-
 @dataclass
 class _Pending:
     prompt_ids: List[int]
     properties: np.ndarray
+    retro: bool = False
     event: threading.Event = field(default_factory=threading.Event)
     result: Optional[Dict[str, Any]] = None
     t_submit: float = field(default_factory=time.monotonic)
@@ -56,6 +57,34 @@ class _Pending:
         self.result = result
         self.event.set()
         return latency
+
+
+class _LatencyStats:
+    """Rolling window of request latencies."""
+
+    def __init__(self, window: int = 512):
+        self._window = window
+        self._lat: List[float] = []
+        self._lock = threading.Lock()
+
+    def record(self, latency: float) -> None:
+        with self._lock:
+            self._lat.append(latency)
+            if len(self._lat) > self._window:
+                del self._lat[:-self._window]
+
+    def summary(self) -> Dict[str, float]:
+        with self._lock:
+            lat = sorted(self._lat)
+        if not lat:
+            return {}
+
+        def pick(q):
+            return lat[min(int(q * len(lat)), len(lat) - 1)]
+
+        return {"latency_p50_s": round(pick(0.50), 4),
+                "latency_p95_s": round(pick(0.95), 4),
+                "latency_max_s": round(lat[-1], 4)}
 
 
 class DesignHandle:
@@ -81,19 +110,37 @@ def properties_vector(prop: Optional[Dict[str, float]]) -> np.ndarray:
     return vec
 
 
+def _retro_payload(plan: Dict[str, Any]) -> Dict[str, Any]:
+    """The result's "retro" block from a planner result ({} = no plan)."""
+    return {"success": bool(plan.get("success")),
+            "reactions": list(plan.get("reaction_list") or []),
+            "templates": list(plan.get("templates") or []),
+            "cost": [float(c) for c in (plan.get("cost") or [])]}
+
+
 class DesignServer:
-    """Batching scheduler over GraphLM.design_molecule."""
+    """Batching scheduler over GraphLM.design_molecule, with one
+    retrosynthesize_batch per batch for the rows that ask for a route
+    (retro_topk / retro_iterations / retro_max_time / retro_width are its
+    expansion top-k, per-molecule iteration cap, shared planning wall and
+    frontier width)."""
 
     def __init__(self, model, tokenizer, *, batch_size: int = 8,
                  max_wait_s: float = 0.05,
                  gen: GenerationSettings = GenerationSettings(),
-                 rollback: bool = True, seed: int = 0):
+                 rollback: bool = True, seed: int = 0,
+                 retro_topk: int = 50, retro_iterations: int = 100,
+                 retro_max_time: float = 30.0, retro_width: int = 8):
         self.model = model
         self.tokenizer = tokenizer
         self.batch_size = int(batch_size)
         self.max_wait_s = float(max_wait_s)
         self.gen = gen
         self.rollback = rollback
+        self.retro_topk = retro_topk
+        self.retro_iterations = retro_iterations
+        self.retro_max_time = retro_max_time
+        self.retro_width = retro_width
         self._generator = torch.Generator(device=model.device).manual_seed(
             seed)
         self._queue: "queue.Queue[_Pending]" = queue.Queue()
@@ -101,16 +148,15 @@ class DesignServer:
         self._thread: Optional[threading.Thread] = None
         self.batches_run = 0
         self.requests_served = 0
+        self._lat = _LatencyStats()
 
     def submit(self, prompt: str,
                properties: Optional[Dict[str, float]] = None,
                retro: bool = False) -> DesignHandle:
         pending = _Pending(prompt_ids=self.tokenizer.encode(prompt),
-                           properties=properties_vector(properties))
-        if retro:
-            pending.resolve({"text": "", "smiles": None,
-                             "error": RETRO_NOT_PORTED})
-        elif self._stop.is_set():
+                           properties=properties_vector(properties),
+                           retro=bool(retro))
+        if self._stop.is_set():
             pending.resolve({"text": "", "smiles": None,
                              "error": "server stopped"})
         else:
@@ -118,6 +164,14 @@ class DesignServer:
             if self._stop.is_set():   # raced stop()'s drain
                 self._drain()
         return DesignHandle(pending)
+
+    def stats(self) -> Dict[str, Any]:
+        """Serving counters + rolling latency percentiles."""
+        return {"requests_served": self.requests_served,
+                "batches_run": self.batches_run, **self._lat.summary()}
+
+    def _resolve(self, p: _Pending, result: Dict[str, Any]) -> None:
+        self._lat.record(p.resolve(result))
 
     def start(self) -> "DesignServer":
         self._thread = threading.Thread(target=self._loop, daemon=True)
@@ -137,8 +191,8 @@ class DesignServer:
             except queue.Empty:
                 return
             if not p.event.is_set():
-                p.resolve({"text": "", "smiles": None,
-                           "error": "server stopped"})
+                self._resolve(p, {"text": "", "smiles": None,
+                                  "error": "server stopped"})
 
     def _gather(self) -> List[_Pending]:
         """Block for the first request, then fill the batch until full or
@@ -169,9 +223,11 @@ class DesignServer:
             except Exception as e:  # a bad batch must not kill the server
                 logger.exception("design batch failed: %s", e)
                 for p in batch:
+                    # design-only rows answered before the retro phase
+                    # keep their results
                     if not p.event.is_set():
-                        p.resolve({"text": "", "smiles": None,
-                                   "error": str(e)})
+                        self._resolve(p, {"text": "", "smiles": None,
+                                          "error": str(e)})
 
     def _run_batch(self, batch: List[_Pending]) -> None:
         n_real = len(batch)
@@ -181,10 +237,30 @@ class DesignServer:
         analysis, smiles = self.model.design_molecule(
             ids, mask, props, gen=self.gen, rollback=self.rollback,
             generator=self._generator)
+        # design-only rows are answered at once, not after the (possibly
+        # long) retro search of the rows batched with them
+        retro_rows = []
         for i, p in enumerate(batch):
             text = self.tokenizer.decode(self.model._strip_pads(analysis[i]),
                                          skip_special_tokens=True)
-            p.resolve({"text": text, "smiles": smiles[i]})
+            result = {"text": text, "smiles": smiles[i]}
+            if p.retro and smiles[i] is not None:
+                p.result = result   # answered after the retro phase
+                retro_rows.append((i, p))
+                continue
+            if p.retro:   # nothing designed to plan for
+                result["retro"] = _retro_payload({})
+            self._resolve(p, result)
+        if retro_rows:
+            plans = self.model.retrosynthesize_batch(
+                [smiles[i] for i, _ in retro_rows],
+                generator=self._generator, expansion_topk=self.retro_topk,
+                iterations=self.retro_iterations,
+                max_planning_time=self.retro_max_time, rollback=False,
+                gen=self.gen, total_width=self.retro_width)
+            for i, p in retro_rows:
+                p.result["retro"] = _retro_payload(plans.get(smiles[i], {}))
+                self._resolve(p, p.result)
         self.batches_run += 1
         self.requests_served += n_real
 
@@ -216,6 +292,9 @@ def serve_stream(server, in_stream, out_stream,
             if not isinstance(req, dict):
                 raise ValueError(
                     f"expected a JSON object, got {type(req).__name__}")
+            if req.get("stats") is True:   # strict bool, like 'retro'
+                write({"id": n, **server.stats()})
+                continue
             retro = req.get("retro", False)
             if not isinstance(retro, bool):
                 raise ValueError(f"'retro' must be a JSON boolean, got "
@@ -232,9 +311,21 @@ def serve_stream(server, in_stream, out_stream,
         t.join(timeout=join_timeout)
 
 
-def _build_server(config_path: Optional[str]) -> DesignServer:
-    """Config YAML -> started DesignServer on the card when there is one.
+def resolve_device(device) -> torch.device:
+    """The serving device, as asked: a CUDA device without a card raises
+    (no silent CPU fallback); "cpu" must be asked for explicitly."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device} was asked for but CUDA is not available; "
+            "pass device='cpu' (--device cpu) to serve on the CPU")
+    return device
+
+
+def _build_server(config_path, device="cuda") -> DesignServer:
+    """Config YAML (or dict) -> started DesignServer on `device`.
     The YAML parser is llamole_tpu.config (JAX-free, needs PyYAML)."""
+    device = resolve_device(device)
     from llamole_tpu.config import get_infer_args
 
     from .models.loader import build_graph_lm
@@ -244,7 +335,6 @@ def _build_server(config_path: Optional[str]) -> DesignServer:
     if getattr(ga, "continuous_batching", False):
         raise NotImplementedError("continuous batching is not ported to "
                                   "llamole_tpu_torch yet (ROADMAP.md)")
-    device = "cuda" if torch.cuda.is_available() else "cpu"
     model, tok = build_graph_lm(
         model_args, data_args, finetuning_args, device=device,
         generate_mode=True, load_adapter=bool(model_args.adapter_name_or_path))
@@ -252,20 +342,35 @@ def _build_server(config_path: Optional[str]) -> DesignServer:
         max_new_tokens=ga.max_new_tokens, temperature=ga.temperature,
         top_p=ga.top_p, top_k=ga.top_k, do_sample=ga.do_sample,
         repetition_penalty=ga.repetition_penalty,
-        speculative_tokens=ga.speculative_tokens)
+        speculative_tokens=ga.speculative_tokens,
+        speculative_ngram=ga.speculative_ngram)
     return DesignServer(model, tok, gen=gen, batch_size=ga.serve_batch_size,
                         max_wait_s=ga.serve_max_wait_s).start()
 
 
 def serve_jsonl(config_path: Optional[str] = None, in_stream=None,
-                out_stream=None) -> None:
-    """JSONL stdin/stdout serving loop."""
-    server = _build_server(config_path)
+                out_stream=None, device="cuda") -> None:
+    """JSONL stdin/stdout serving loop on `device` (default the card;
+    without one it raises unless device="cpu")."""
+    server = _build_server(config_path, device)
     try:
         serve_stream(server, in_stream or sys.stdin, out_stream or sys.stdout)
     finally:
         server.stop()
 
 
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(
+        prog="python -m llamole_tpu_torch.serve",
+        description="JSONL design / retrosynthesis serving on stdin/stdout")
+    ap.add_argument("config", nargs="?", default=None,
+                    help="inference YAML (llamole_tpu.config)")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device (default cuda; 'cpu' to serve "
+                         "without a card)")
+    args = ap.parse_args(argv)
+    serve_jsonl(args.config, device=args.device)
+
+
 if __name__ == "__main__":
-    serve_jsonl(sys.argv[1] if len(sys.argv) > 1 else None)
+    main()

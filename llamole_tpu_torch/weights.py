@@ -95,15 +95,26 @@ def llm_state_dict(params: Dict, lora: Dict = None) -> StateDict:
     return out
 
 
-def graph_lm_state_dict(frozen: Dict, trainable: Dict) -> StateDict:
+def graph_lm_state_dict(frozen: Dict, trainable: Dict,
+                        cost_mlp: Dict = None) -> StateDict:
     """State of models.composite.GraphLM from the JAX (frozen, trainable)
     bundles: frozen["llm"] (or trainable["llm"] for full finetuning),
-    frozen["graph_decoder"], trainable["connectors"] and, for LoRA,
-    trainable["lora"]. The Phase-2 modules' params are not read."""
+    frozen["graph_decoder"], frozen["graph_encoder"],
+    frozen["graph_predictor"], trainable["connectors"] and, for LoRA,
+    trainable["lora"]; plus the CostMLP params when the model holds one."""
     llm = trainable.get("llm", frozen.get("llm"))
     out = {f"llm.{k}": v
            for k, v in llm_state_dict(llm, trainable.get("lora")).items()}
     out.update(state_dict_of(frozen["graph_decoder"],
                              "graph_decoder.denoiser."))
+    out.update(state_dict_of(frozen["graph_encoder"], "graph_encoder."))
+    out.update(state_dict_of(frozen["graph_predictor"], "graph_predictor."))
     out.update(state_dict_of(trainable["connectors"], "connectors."))
+    if cost_mlp is not None:
+        out.update(cost_mlp_state_dict(cost_mlp, "cost_mlp."))
     return out
+
+
+def cost_mlp_state_dict(params: Dict, prefix: str = "") -> StateDict:
+    """State of models.retro.CostMLP from the JAX {"layers": [dense...]}."""
+    return state_dict_of(params, prefix)

@@ -1,6 +1,7 @@
-"""The Phase-1 slice as a whole: llamole_tpu_torch's GraphLM.design_molecule
+"""The design slice as a whole: llamole_tpu_torch's GraphLM.design_molecule
 against llamole_tpu's on one tiny f32 stack (JAX params bridged into the
-port), plus the port's serving surface.
+port), plus the port's serving surface (design and retro requests, the
+explicit device). The retro half's parity is tests/test_torch_retro.py.
 """
 
 import io
@@ -27,11 +28,17 @@ from llamole_tpu.ops.nn import dense as jax_dense
 from llamole_tpu.utils.constants import SPECIAL_TOKENS
 from llamole_tpu_torch.models.composite import GenerationSettings, GraphLM
 from llamole_tpu_torch.models.gllm import LLM, LLMConfig
+from llamole_tpu_torch.models.graphclip import GraphCLIP as TorchCLIP
+from llamole_tpu_torch.models.graphclip import (
+    GraphCLIPConfig as TorchCLIPConfig)
 from llamole_tpu_torch.models.graphdit import (GraphDiT, GraphDiTConfig,
                                                build_data_info_from_smiles)
 from llamole_tpu_torch.models.loader import (build_graph_lm_from_configs,
+                                             make_fallback_predictor as
+                                             torch_predictor,
                                              offline_tokenizer)
-from llamole_tpu_torch.serve import DesignServer, serve_jsonl, serve_stream
+from llamole_tpu_torch.serve import (DesignServer, main as serve_main,
+                                     serve_jsonl, serve_stream)
 from llamole_tpu_torch.weights import graph_lm_state_dict
 
 CORPUS = ["CCO", "c1ccccc1", "CC(=O)O", "CCN", "C1CC1", "c1ccncc1"]
@@ -66,6 +73,8 @@ def stacks():
     tm = GraphLM(LLM(LLMConfig.tiny(), dtype=torch.float32),
                  GraphDiT(GraphDiTConfig(**DIT),
                           build_data_info_from_smiles(CORPUS, 10)),
+                 torch_predictor(),
+                 TorchCLIP(TorchCLIPConfig(num_layer=2, hidden_size=64)),
                  tok, ids, lora_rank=4)
     tm.load_state_dict(graph_lm_state_dict(frozen, trainable))
     return tok, jm, frozen, trainable, tm
@@ -125,6 +134,44 @@ def test_design_molecule_matches_jax(stacks):
     np.testing.assert_allclose(reforward[0].numpy(), j_hidden, atol=1e-4)
 
 
+def test_design_with_spliced_molecules_matches_jax(stacks):
+    """design_molecule(molecule_batch=...): the prompt's <molecule> slots
+    carry GraphCLIP embeddings through the analysis decode and the design
+    query extension."""
+    from llamole_tpu.chem.featurize import pad_graph_batch, smiles_to_graph
+    tok, jm, frozen, trainable, tm = stacks
+    mol = tm.token_id_dict["<molecule>"]
+    ids, mask = tm._left_pad([tok.encode("Like ") + [mol] + tok.encode("."),
+                              tok.encode("Improve ") + [mol]])
+    bank = pad_graph_batch([smiles_to_graph(s) for s in
+                            ("CC(=O)OCC", "c1ccncc1")], 8)
+    batch = {"mol_atoms": bank["atom_types"],
+             "mol_edges": bank["edge_classes"],
+             "mol_node_mask": bank["node_mask"],
+             "mol_valid": np.asarray([True, True]),
+             "mol_rows": np.asarray([0, 1], np.int32),
+             "mol_cols": np.asarray([int(np.flatnonzero(r == mol)[-1])
+                                     for r in ids], np.int32)}
+    props = np.full((2, 10), np.nan, np.float32)
+    j_seen, t_seen = _capture(jm), _capture(tm)
+    # the JAX splice runs eager ops on the params: device arrays
+    want, _ = jm.design_molecule(
+        jax.tree.map(jnp.asarray, frozen), jax.tree.map(jnp.asarray,
+                                                        trainable),
+        jax.random.PRNGKey(0), ids, mask, props,
+        gen=JaxGen(max_new_tokens=8, do_sample=False, speculative_tokens=0),
+        molecule_batch=batch)
+    gen = GenerationSettings(max_new_tokens=8, do_sample=False)
+    got, _ = tm.design_molecule(ids, mask, props, gen=gen,
+                                molecule_batch=batch)
+    np.testing.assert_array_equal(got, np.asarray(want))
+    spliced = t_seen["hidden"]
+    np.testing.assert_allclose(spliced.numpy(), np.asarray(j_seen["hidden"]),
+                               atol=1e-4)
+    # without the splice the <molecule> slots are plain tokens
+    tm.design_molecule(ids, mask, props, gen=gen)
+    assert not torch.allclose(spliced, t_seen["hidden"], atol=1e-4)
+
 def test_rollback_and_phase2_surface(stacks):
     tok, _, _, _, tm = stacks
     ds, body = tm.token_id_dict["<design_start>"], tm.token_id_dict[
@@ -134,10 +181,20 @@ def test_rollback_and_phase2_surface(stacks):
                              ["CCO", None],
                              GenerationSettings(max_new_tokens=4))
     assert out[0] == "CCO" and (out[1] is None or isinstance(out[1], str))
-    with pytest.raises(NotImplementedError, match="Phase 2"):
-        tm.retrosynthesize_batch()
-    with pytest.raises(NotImplementedError, match="Phase 2"):
-        tm.graph_encoder
+    # Phase 2 is served now: the graph modules are the model's, and an
+    # invalid target fails cleanly with rollback text
+    assert isinstance(tm.graph_encoder, TorchCLIP)
+    assert tm.graph_predictor.available
+    plans = tm.retrosynthesize_batch(
+        ["C1=C=C=1", None], generator=torch.Generator().manual_seed(0),
+        iterations=1, gen=GenerationSettings(max_new_tokens=4,
+                                             do_sample=False))
+    assert plans[None]["success"] is False
+    bad = plans["C1=C=C=1"]
+    assert bad["success"] is False and isinstance(bad["analysis_tokens"],
+                                                  list)
+    with pytest.raises(NotImplementedError, match="mesh"):
+        tm.retrosynthesize_batch(["CCO"], mesh=object())
 
 
 @pytest.fixture(scope="module")
@@ -151,9 +208,12 @@ def port_model():
 
 
 def test_server_answers_jsonl_and_rejects_retro(port_model):
+    """Design and retro requests are answered; malformed ones are
+    rejected; {"stats": true} reports the counters inline."""
     model, tok = port_model
     server = DesignServer(model, tok, batch_size=2, max_wait_s=0.2,
-                          gen=GenerationSettings(max_new_tokens=6)).start()
+                          gen=GenerationSettings(max_new_tokens=6),
+                          retro_iterations=1, retro_max_time=60.0).start()
     lines = [json.dumps({"prompt": "Design a molecule.",
                          "property": {"SA": 2.0}}),
              json.dumps({"prompt": "Another one.", "property": {"HIV": 1}}),
@@ -175,10 +235,18 @@ def test_server_answers_jsonl_and_rejects_retro(port_model):
         assert isinstance(results[i]["text"], str)
         assert results[i]["smiles"] is None or isinstance(
             results[i]["smiles"], str)
-    assert "Phase 2" in results[3]["error"]
+    assert "error" not in results[3], results[3]
+    retro = results[3]["retro"]
+    assert set(retro) == {"success", "reactions", "templates", "cost"}
+    assert isinstance(retro["success"], bool)
+    assert len(retro["reactions"]) == len(retro["cost"])
     assert "bad request" in results[4]["error"]
     assert "bad request" in results[5]["error"]
-    assert server.requests_served == 3 and server.batches_run == 2
+    assert server.requests_served == 4 and server.batches_run == 2
+    stats = io.StringIO()
+    serve_stream(server, io.StringIO('{"stats": true}\n'), stats)
+    (st,) = map(json.loads, stats.getvalue().splitlines())
+    assert st["requests_served"] == 4 and st["latency_p50_s"] > 0
 
 
 def test_serve_jsonl_from_config():
@@ -187,6 +255,17 @@ def test_serve_jsonl_from_config():
            "lora_rank": 4, "serve_batch_size": 2}
     out = io.StringIO()
     serve_jsonl(cfg, io.StringIO('{"prompt": "Design.", "property": '
-                                 '{"BBBP": 1.0}}\n\n'), out)
+                                 '{"BBBP": 1.0}}\n\n'), out, device="cpu")
     (result,) = map(json.loads, out.getvalue().splitlines())
     assert result["id"] == 0 and "error" not in result
+
+
+def test_serving_without_a_card_needs_an_explicit_cpu(monkeypatch):
+    """The default device is the card: with no CUDA, serve_jsonl and the
+    CLI raise instead of silently serving on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve_jsonl({"model_name_or_path": ""}, io.StringIO(""),
+                    io.StringIO())
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        serve_main(["config.yaml"])
