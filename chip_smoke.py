@@ -11,7 +11,12 @@
    4) and (8, 64, 256, 8), in f32 (tolerance 1e-4, the JAX kernel's
    contract) and bf16 (2e-2 absolute: the output is a convex combination
    of O(1) v rows and bf16 rounds at ~4e-3), on rows whose node is kept.
-   Median CUDA-event times of kernel and plain version at the main path.
+   At the main shape in bf16 (the tensor-core body): call time (CUDA
+   events), device time (torch.profiler, else CUDA-graph replay), the
+   same for the FMA body on the same inputs, the plain version's time,
+   the bound (bytes and operations from the shape, H100 peaks) and, as a
+   floor for the attention part only, F.scaled_dot_product_attention on
+   the already-normalised heads.
 4. Kernel B check: the GIN aggregation against its plain version at the
    path shapes (8, 56, 300) and (1, 24, 300) in f32 and at (3, 11, 40)
    and (2, 17, 64) in f32 and bf16, on random graphs, plus an empty
@@ -27,8 +32,10 @@
 6. Kernel D check: the pre-split graph attention against masked_attention
    at the JAX contract shapes (f32, 2e-5) and the denoiser's head shape
    (16, 16, 50, 64) in f32 (1e-4) and bf16 (2e-2, as A); timed there in
-   bf16. Kernel D is on no path of the JAX package or of the port: its
-   launches are those of this check.
+   bf16 as A is (both bodies), beside its bound and the one-call library
+   equivalent F.scaled_dot_product_attention with the key mask. Kernel D
+   is on no path of the JAX package or of the port: its launches are
+   those of this check.
 7. Design + retrosynthesis at full width through the serving entry
    point: Llama-3.1-8B shape (random bf16 weights drawn on the card from
    a seed, LoRA rank 8) + GraphDiT 1024 wide, 28 deep, 16 heads, 50
@@ -39,8 +46,10 @@
    width 8); 11 requests with the llama_drug.yaml generation settings,
    those with i % 3 == 0 asking for a route. Every answer must carry no
    "error", every retro request whose molecule was designed a "retro"
-   block; kernel A must have launched >= 28 x steps x design batches and
-   kernel B >= 5 x (expansion rounds + products scored).
+   block; kernel A must have launched >= 28 x steps x design batches, all
+   on its tensor-core body, and kernel B >= 5 x (expansion rounds +
+   products scored). Every kernel count is set to 0 just before and read
+   just after each of phases 7-9. Sampler ms per reverse step printed.
 8. run_molqa (the eval entry point) on the same model: 2 records of
    data/molqa_drug_examples.json, frontier width 8, one shared 30 s
    planning wall, scores on (FGD through GraphCLIP, kernel B).
@@ -59,8 +68,11 @@
    bond tables' gradients) on the card (kernel paths) against the same
    weights on the CPU (plain paths), max relative error < 1e-3.
 
-Prints, before the last line, one {"kernels": [...]} JSON line; the last
-line is {"ok": true, "device": {...}}. Any failure exits non-zero.
+Prints, before the last line, one {"kernels": [...]} JSON line (per
+kernel: launches on the main path, max_abs_err, ms, plain_ms, device_ms,
+bound_ms, bound_by, library_ms; for A and D the launches of each body
+and the FMA body's times); the last line is {"ok": true, "device":
+{...}}. Any failure exits non-zero.
 """
 
 import copy
@@ -123,6 +135,69 @@ def cuda_ms(fn, launches: int = 50, repeats: int = 21) -> float:
     return statistics.median(times)
 
 
+def graph_ms(fn, launches: int = 20, repeats: int = 11) -> float:
+    """Per-call time of `fn` replayed from one CUDA graph of `launches`
+    calls: no host work between the launches, so it is the device time
+    plus the gaps between kernels (an upper bound of the device time)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                  # allocations before capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    return cuda_ms(graph.replay, launches=1, repeats=repeats) / launches
+
+
+# H100 SXM datasheet peaks (700 W): HBM bytes/s and operations/s by type
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16_tensor": 989e12, "f32_tensor": 67e12, "f32": 67e12}
+
+
+def roofline(nbytes: float, ops: dict):
+    """(bound_ms, bound_by): the least time the card could take, the
+    larger of the bytes over the memory rate and the operations over the
+    peak rate of their type."""
+    mem = nbytes / HBM_BYTES_PER_S * 1e3
+    arith = sum(n / PEAK_OPS_PER_S[kind] for kind, n in ops.items()) * 1e3
+    return (mem, "bytes") if mem >= arith else (arith, "operations")
+
+
+def attention_bound(b, n, heads, dh, dtype, layernorm):
+    """Kernels A and D: q, k, v read once, the key mask (and A's four
+    [dh] norm vectors), the output written once; the two matrix products
+    on the tensor cores (bf16) or the f32 units, and ~6 f32 operations a
+    logit (scale + mask, max, subtract, exp, sum, divide) plus ~8 an
+    element of q and k for A's LayerNorm."""
+    size = torch.tensor([], dtype=dtype).element_size()
+    nbytes = 4 * b * n * heads * dh * size + b * n
+    ew = 6 * b * heads * n * n
+    if layernorm:
+        nbytes += 4 * dh * size
+        ew += 8 * 2 * b * n * heads * dh
+    mm = 4 * b * heads * n * n * dh
+    kind = "bf16_tensor" if dtype == torch.bfloat16 else "f32_tensor"
+    return roofline(nbytes, {kind: mm, "f32": ew})
+
+
+def gin_bound(args, backward: bool):
+    """Kernels B and C: every input read once, every output written once
+    (B: out [B, N, H]; C: dx [B, N, H] and dtable [5, H]); the work is
+    data-dependent: ~12 f32 operations (B: add, exact GELU, weighted sum)
+    or ~16 (C: add, GELU derivative, two weighted sums) per channel of
+    each pair whose adj is non-zero in this run's graphs."""
+    x, edge, adj, table = args[:4]
+    nbytes = sum(t.numel() * t.element_size() for t in args)
+    nbytes += x.numel() * x.element_size()          # out / dx
+    if backward:
+        nbytes += table.numel() * 4                 # dtable
+    pairs = int((adj != 0).sum())
+    return roofline(nbytes, {"f32": pairs * x.shape[-1] *
+                             (16 if backward else 12)})
+
+
 def device_ms(fn, kernel, launches: int = 20, attempts: int = 3):
     """Mean device time per call (ms) of the CUDA kernels whose names hold
     `kernel` (every kernel when it is None), read from a torch.profiler
@@ -148,8 +223,55 @@ def device_ms(fn, kernel, launches: int = 20, attempts: int = 3):
     return None
 
 
+def fma_body(kind, args):
+    """A call of kernel A's (kind "fused") or D's ("graph") FMA body on
+    the same inputs, bypassing the routing: the body every bf16 call took
+    before the tensor-core one (launches not counted)."""
+    from llamole_tpu_torch.ops.fused_attention import kernel_entry, launch
+    if kind == "fused":
+        qkv, mask, *norms, heads = args
+        b, n, three_h = qkv.shape
+        out = torch.empty(b, n, three_h // 3, dtype=qkv.dtype, device="cuda")
+        ptrs = [t.data_ptr() for t in (qkv, mask, *norms)]
+        tail = (b, n, three_h // 3, heads)
+    else:
+        q, k, v, mask = args
+        out = torch.empty_like(q)
+        ptrs = [t.data_ptr() for t in (q, k, v, mask)]
+        tail = (q.shape[0], q.shape[1], q.shape[2], q.shape[3])
+    fn = kernel_entry(kind, "fma", out.dtype)
+
+    def call():
+        launch(fn, out.device, f"{kind} fma body", *ptrs, out.data_ptr(),
+               *tail)
+        return out
+    return call
+
+
+def time_kernel(name, fn, plain, kernel_key, tag):
+    """CUDA-event call time, profiler device time (graph replay when the
+    trace holds none) and the plain version's call time, printed."""
+    ms = cuda_ms(fn)
+    plain_ms = cuda_ms(plain)
+    replay = graph_ms(fn)
+    dev = device_ms(fn, kernel_key)
+    if dev is None:
+        dev = replay
+    print(f"{name}: call {ms:.4f} ms (CUDA events over back-to-back calls),"
+          f" device {dev:.4f} ms (torch.profiler, else graph replay), graph "
+          f"replay {replay:.4f} ms; plain version {plain_ms:.4f} ms [{tag}]",
+          flush=True)
+    return {"ms": ms, "device_ms": dev, "graph_ms": replay,
+            "plain_ms": plain_ms}
+
+
 def check_kernel(fused, reference, tag):
-    """Phase 3 (kernel A). Returns (max bf16 error at the main shape, ms, plain ms)."""
+    """Phase 3 (kernel A). Returns the record of its JSON line: errors,
+    times and bound at the main shape in bf16 (tensor-core body), the FMA
+    body's times there, and SDPA on the normalised heads as a floor for
+    the attention part."""
+    import torch.nn.functional as F
+    from llamole_tpu_torch.ops.nn import layer_norm
     gen = torch.Generator(device="cuda").manual_seed(0)
     main_err = None
     for (b, n, h, heads) in CHECK_SHAPES:
@@ -174,19 +296,49 @@ def check_kernel(fused, reference, tag):
             if (b, n, h, heads) == MAIN_SHAPE and dt == torch.bfloat16:
                 main_err = err
                 args = (qkv, mask, *norms, heads)
-    ms = cuda_ms(lambda: fused(*args))
-    plain_ms = cuda_ms(lambda: reference(*args))
-    dev = device_ms(lambda: fused(*args), "attention_kernel")
-    print(f"fused attention at {MAIN_SHAPE} bf16: kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms per call (CUDA events); kernel device "
-          f"time {dev} ms (torch.profiler) [{tag}]", flush=True)
-    return main_err, ms, plain_ms
+    rec = time_kernel(f"fused attention at {MAIN_SHAPE} bf16, mma body",
+                      lambda: fused(*args), lambda: reference(*args),
+                      "attention_mma_kernel", tag)
+    old = fma_body("fused", args)
+    fma_err = float(((old().float() - reference(*args).float())
+                     * args[1][..., None]).abs().max())
+    fma = time_kernel(f"fused attention at {MAIN_SHAPE} bf16, fma body "
+                      f"(max_abs_err {fma_err:.3e})", old,
+                      lambda: reference(*args), "attention_fma_kernel", tag)
+    # SDPA on the already-normalised heads: a floor for the attention part
+    # of A (it has no LayerNorm); the port never calls it
+    qkv, mask, qs, qb, ks, kb, heads = args
+    b, n, three_h = qkv.shape
+    q, k, v = (t.contiguous() for t in qkv.reshape(
+        b, n, 3, heads, three_h // 3 // heads).permute(2, 0, 3, 1, 4))
+    q, k = layer_norm(q, qs, qb), layer_norm(k, ks, kb)
+    key_mask = mask[:, None, None, :]
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=key_mask)
+
+    floor = cuda_ms(sdpa)
+    floor_dev = device_ms(sdpa, None)
+    bound_ms, bound_by = attention_bound(b, n, heads, three_h // 3 // heads,
+                                         torch.bfloat16, layernorm=True)
+    print(f"fused attention bound {bound_ms * 1e3:.3f} us ({bound_by}); "
+          f"mma body at {100 * bound_ms / rec['device_ms']:.1f}% of it "
+          f"(fma body {100 * bound_ms / fma['device_ms']:.1f}%); SDPA on the "
+          f"normalised heads (a floor for the attention part, no LayerNorm)"
+          f" {floor:.4f} ms a call, device {floor_dev} ms [{tag}]",
+          flush=True)
+    return {"max_abs_err": main_err, **rec, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None,
+            "sdpa_floor_ms": floor, "sdpa_floor_device_ms": floor_dev,
+            "fma_ms": fma["ms"],
+            "fma_device_ms": fma["device_ms"]}
 
 
 def molecular_graphs(n_pad: int):
     """MOLECULES as a dense padded batch (atoms, int32 edges, mask) on the
     card."""
-    from llamole_tpu.chem.featurize import pad_graph_batch, smiles_to_graph
+    from llamole_tpu_torch.chem.featurize import (pad_graph_batch,
+                                                  smiles_to_graph)
     bank = pad_graph_batch([smiles_to_graph(s) for s in MOLECULES], n_pad)
     return (torch.as_tensor(bank["atom_types"], device="cuda"),
             torch.as_tensor(bank["edge_classes"], device="cuda"),
@@ -194,7 +346,8 @@ def molecular_graphs(n_pad: int):
 
 
 def check_gin(gin, reference, tag):
-    """Phase 4. Returns (max f32 error at GIN_MAIN, ms, plain ms)."""
+    """Phase 4. Returns the record of kernel B's JSON line (error at
+    GIN_MAIN in f32, times and bound on molecular graphs)."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     main_err = None
     for (b, n, h), dtypes in GIN_CHECKS:
@@ -244,14 +397,16 @@ def check_gin(gin, reference, tag):
     table = torch.randn(5, h, device="cuda", generator=gen)
     args = (x, edge.to(torch.int32).contiguous(), adj, table)
     with torch.no_grad():
-        ms = cuda_ms(lambda: gin(*args))
-        plain_ms = cuda_ms(lambda: reference(*args))
-        dev = device_ms(lambda: gin(*args), "gin_aggregate_kernel")
-    print(f"gin_aggregate at {GIN_MAIN} f32, molecular graphs: kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms per call (CUDA events); "
-          f"kernel device time {dev} ms (torch.profiler) [{tag}]",
+        rec = time_kernel(f"gin_aggregate at {GIN_MAIN} f32, molecular "
+                          "graphs", lambda: gin(*args),
+                          lambda: reference(*args), "gin_aggregate_kernel",
+                          tag)
+    bound_ms, bound_by = gin_bound(args, backward=False)
+    print(f"gin_aggregate bound {bound_ms * 1e3:.3f} us ({bound_by}), "
+          f"{100 * bound_ms / rec['device_ms']:.1f}% of it [{tag}]",
           flush=True)
-    return main_err, ms, plain_ms
+    return {"max_abs_err": main_err, **rec, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
 
 
 def build_slice():
@@ -362,6 +517,24 @@ class PathTimers:
               f"{self.seconds('retro'):.3f} s [{tag}]", flush=True)
 
 
+def reset_counts(*wrappers):
+    """Every launch count of these kernel wrappers to 0."""
+    for w in wrappers:
+        for key in ("launches", "launches_mma", "launches_fma"):
+            if hasattr(w, key):
+                setattr(w, key, 0)
+
+
+def check_mma_only(fused, what):
+    """Every main-path launch of kernel A went through the tensor-core
+    body."""
+    print(f"fused_block_attention bodies ({what}): mma "
+          f"{fused.launches_mma}, fma {fused.launches_fma}", flush=True)
+    if fused.launches_fma or fused.launches_mma != fused.launches:
+        fail(f"{what}: {fused.launches_fma} kernel-A launches took the FMA "
+             "body")
+
+
 def check_launches(name, launches, need, how):
     print(f"{name} launches {launches} (need >= {need} = {how})", flush=True)
     if launches < need:
@@ -375,9 +548,10 @@ def diffusion_steps(model) -> int:
     return len(time_grid(cfg.diffusion_steps, cfg.sampling_steps)) - 1
 
 
-def run_serving(model, tok, timers, fused, gin, tag):
-    """Phase 7. Returns (kernel A launches, kernel B launches) of the
-    main-path run."""
+def run_serving(model, tok, timers, kernels, tag):
+    """Phase 7. Returns the launch counts of kernels A (total, mma body,
+    fma body) and B in the main-path run."""
+    fused, gin = kernels[:2]
     from llamole_tpu_torch.models.composite import GenerationSettings
     from llamole_tpu_torch.serve import DesignServer
 
@@ -388,7 +562,7 @@ def run_serving(model, tok, timers, fused, gin, tag):
     wants_retro = [i % 3 == 0 for i in range(REQUESTS)]
     torch.cuda.reset_peak_memory_stats()
     timers.clear()
-    fused.launches = gin.launches = 0
+    reset_counts(*kernels)
     server.start()
     try:
         handles = [server.submit(f"Design a drug-like molecule, request {i}.",
@@ -398,7 +572,9 @@ def run_serving(model, tok, timers, fused, gin, tag):
         results = [h.result(timeout=900) for h in handles]
     finally:
         server.stop()
-    launches = fused.launches, gin.launches
+    launches = {"A": fused.launches, "A_mma": fused.launches_mma,
+                "A_fma": fused.launches_fma, "B": gin.launches}
+    check_mma_only(fused, "serving")
     peak = torch.cuda.max_memory_allocated()
 
     errors = [r["error"] for r in results if "error" in r]
@@ -414,12 +590,12 @@ def run_serving(model, tok, timers, fused, gin, tag):
     design_batches = timers.count("design")
     print(f"serving: {len(results)} answered ({sum(wants_retro)} asked for "
           f"a route), {server.batches_run} batches", flush=True)
-    check_launches("fused_block_attention", launches[0],
+    check_launches("fused_block_attention", launches["A"],
                    model.graph_decoder.cfg.depth * diffusion_steps(model)
                    * design_batches,
                    f"{model.graph_decoder.cfg.depth} x "
                    f"{diffusion_steps(model)} x {design_batches}")
-    check_launches("gin_aggregate", launches[1], timers.gin_floor(),
+    check_launches("gin_aggregate", launches["B"], timers.gin_floor(),
                    f"{GIN_LAYERS} x ({timers.count('splice')} rounds + "
                    f"{timers.count('predictor')} products)")
 
@@ -433,9 +609,12 @@ def run_serving(model, tok, timers, fused, gin, tag):
         print(f"design batch {i}: wall {t:.3f} s [{tag}]")
     print(f"decode: {dec_tokens} tokens in {dec_s:.3f} s over {len(decodes)} "
           f"generate calls = {dec_tokens / dec_s:.1f} tok/s [{tag}]")
-    print(f"sampler: {timers.count('sampler')} calls, "
-          f"{timers.seconds('sampler'):.3f} s total, per call "
-          f"{[round(t, 3) for t, _ in timers.log['sampler']]} [{tag}]")
+    steps = diffusion_steps(model)
+    calls = [t for t, _ in timers.log["sampler"]]
+    print(f"sampler: {len(calls)} calls, {sum(calls):.3f} s total, per call "
+          f"{[round(t, 3) for t in calls]}; ms per reverse step "
+          f"{[round(1e3 * t / steps, 2) for t in calls]} ({steps} steps a "
+          f"call) [{tag}]")
     timers.report_phase2(tag)
     retro_lat = [r["latency_s"] for r, w in zip(results, wants_retro) if w]
     design_lat = [r["latency_s"] for r, w in zip(results, wants_retro)
@@ -450,8 +629,9 @@ def run_serving(model, tok, timers, fused, gin, tag):
     return launches
 
 
-def run_eval(model, tok, timers, fused, gin, tag):
+def run_eval(model, tok, timers, kernels, tag):
     """Phase 8: run_molqa over 2 records with the prebuilt model."""
+    fused, gin = kernels[:2]
     from llamole_tpu_torch.eval.workflow import run_molqa
 
     data_dir = Path(__file__).resolve().parent / "data"
@@ -472,7 +652,7 @@ def run_eval(model, tok, timers, fused, gin, tag):
                 speculative_tokens=None, speculative_ngram=2,
                 frontier_width=8))
         timers.clear()
-        fused.launches = gin.launches = 0
+        reset_counts(*kernels)
         t0 = time.perf_counter()
         results = run_molqa(**args, max_records=2, prebuilt=(model, tok),
                             share_planning_wall=True, score=True)
@@ -480,6 +660,7 @@ def run_eval(model, tok, timers, fused, gin, tag):
         with open(Path(out_dir) / "molqa_results.json") as f:
             summary = json.load(f)["summary"]
     launches = fused.launches, gin.launches
+    check_mma_only(fused, "run_molqa")
     if len(results) != 2 or summary["num_records"] != 2:
         fail(f"run_molqa answered {len(results)} records")
     for r in results:
@@ -587,8 +768,8 @@ def path_graphs(rows: int, n: int):
 
 
 def check_gin_backward(bwd, reference, tag):
-    """Phase 5: kernel C against its plain version. Returns (max f32
-    error at the path shape, ms, plain ms)."""
+    """Phase 5: kernel C against its plain version. Returns the record of
+    its JSON line (error, times and bound at the path shape)."""
     gen = torch.Generator(device="cuda").manual_seed(3)
 
     def compare(args, dt, what):
@@ -645,22 +826,24 @@ def check_gin_backward(bwd, reference, tag):
     if not all(torch.equal(u, v) for u, v in zip(first, second)):
         fail("gin_aggregate_backward is not bit-identical across runs")
     print("gin backward: two runs bit-identical", flush=True)
-    ms = cuda_ms(lambda: bwd(*args))
-    plain_ms = cuda_ms(lambda: reference(*args))
-    dev = device_ms(lambda: bwd(*args), "gin_backward_kernel")
-    plain_dev = device_ms(lambda: reference(*args), None)
-    print(f"gin_aggregate_backward at {GIN_BWD_MAIN} f32, path graphs: "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms per call (CUDA "
-          f"events); device time kernel {dev} ms, plain {plain_dev} ms "
-          f"(torch.profiler) [{tag}]", flush=True)
-    return main_err, ms, plain_ms
+    rec = time_kernel(f"gin_aggregate_backward at {GIN_BWD_MAIN} f32, "
+                      "path graphs", lambda: bwd(*args),
+                      lambda: reference(*args), "gin_backward_kernel", tag)
+    bound_ms, bound_by = gin_bound(args, backward=True)
+    print(f"gin_aggregate_backward bound {bound_ms * 1e3:.3f} us "
+          f"({bound_by}), {100 * bound_ms / rec['device_ms']:.1f}% of it "
+          f"[{tag}]", flush=True)
+    return {"max_abs_err": main_err, **rec, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
 
 
 def check_graph_attention(attn, reference, tag):
-    """Phase 6: kernel D against masked_attention. Returns (max bf16
-    error at ATTN_MAIN, ms, plain ms, launches of this check)."""
+    """Phase 6: kernel D against masked_attention. Returns the record of
+    its JSON line (error, times and bound at ATTN_MAIN in bf16, the FMA
+    body's times, SDPA's as library_ms, the launches of this check)."""
+    import torch.nn.functional as F
     gen = torch.Generator(device="cuda").manual_seed(4)
-    before = attn.launches
+    before = attn.launches, attn.launches_mma, attn.launches_fma
     main_err = None
     cases = ([(s, torch.float32, 2e-5) for s in ATTN_CONTRACT]
              + [(ATTN_MAIN, torch.float32, 1e-4),
@@ -682,14 +865,42 @@ def check_graph_attention(attn, reference, tag):
             fail(f"graph_attention disagrees: {err} >= {tol}")
         if (b, h, n, dh) == ATTN_MAIN and dt == torch.bfloat16:
             main_err, args = err, (q, k, v, mask)
-    launches = attn.launches - before
-    ms = cuda_ms(lambda: attn(*args))
-    plain_ms = cuda_ms(lambda: reference(*args[:3], key_mask=args[3]))
-    dev = device_ms(lambda: attn(*args), "attention_kernel")
-    print(f"graph_attention at {ATTN_MAIN} bf16: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms per call (CUDA events); kernel device time "
-          f"{dev} ms (torch.profiler) [{tag}]", flush=True)
-    return main_err, ms, plain_ms, launches
+    launches = [now - was for now, was in zip(
+        (attn.launches, attn.launches_mma, attn.launches_fma), before)]
+
+    def plain():
+        return reference(*args[:3], key_mask=args[3])
+
+    rec = time_kernel(f"graph_attention at {ATTN_MAIN} bf16, mma body",
+                      lambda: attn(*args), plain, "attention_mma_kernel",
+                      tag)
+    old = fma_body("graph", args)
+    fma_err = float((old().float() - plain().float()).abs().max())
+    fma = time_kernel(f"graph_attention at {ATTN_MAIN} bf16, fma body "
+                      f"(max_abs_err {fma_err:.3e})", old, plain,
+                      "attention_fma_kernel", tag)
+    q, k, v, mask = args
+    key_mask = mask[:, None, None, :]
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=key_mask)
+
+    sdpa_err = float((sdpa().float() - plain().float()).abs().max())
+    library_ms = cuda_ms(sdpa)
+    library_dev = device_ms(sdpa, None)
+    b, h, n, dh = ATTN_MAIN
+    bound_ms, bound_by = attention_bound(b, n, h, dh, torch.bfloat16,
+                                         layernorm=False)
+    print(f"graph_attention bound {bound_ms * 1e3:.3f} us ({bound_by}); "
+          f"mma body at {100 * bound_ms / rec['device_ms']:.1f}% of it "
+          f"(fma body {100 * bound_ms / fma['device_ms']:.1f}%); "
+          f"F.scaled_dot_product_attention with the key mask: call "
+          f"{library_ms:.4f} ms, device {library_dev} ms, max_abs_err "
+          f"{sdpa_err:.3e} [{tag}]", flush=True)
+    return {"max_abs_err": main_err, **rec, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms,
+            "library_device_ms": library_dev, "fma_ms": fma["ms"],
+            "fma_device_ms": fma["device_ms"], "launches": launches}
 
 
 def check_predictor(model, tag):
@@ -784,7 +995,7 @@ def run_training(model, tok, kernels, tag):
     Returns the kernel-C launches of the run."""
     from llamole_tpu_torch.train.workflow import run_mmsft
 
-    fused, gin, gin_bwd = kernels
+    fused, gin, gin_bwd = kernels[:3]
     params = model.trainable_parameters()
     start = _snapshot(params)
     frozen = {
@@ -813,7 +1024,7 @@ def run_training(model, tok, kernels, tag):
 
     model.loss = watched     # an instance attribute over the method
     torch.cuda.reset_peak_memory_stats()
-    fused.launches = gin.launches = gin_bwd.launches = 0
+    reset_counts(*kernels)
     try:
         with tempfile.TemporaryDirectory() as out_dir:
             args = llama_lora_args(out_dir)
@@ -950,52 +1161,58 @@ def main() -> int:
         if "Used" in line or "spill" in line:
             print("  ptxas:", line.strip())
 
-    err, ms, plain_ms = check_kernel(fused_block_attention,
-                                     fused_attention_reference, tag)
-    gin_err, gin_ms, gin_plain_ms = check_gin(gin_aggregate,
-                                              gin_aggregate_reference, tag)
-    bwd_err, bwd_ms, bwd_plain_ms = check_gin_backward(
-        gin_aggregate_backward, gin_aggregate_backward_reference, tag)
-    attn_err, attn_ms, attn_plain_ms, attn_launches = check_graph_attention(
-        graph_attention, masked_attention, tag)
+    a = check_kernel(fused_block_attention, fused_attention_reference, tag)
+    b = check_gin(gin_aggregate, gin_aggregate_reference, tag)
+    c = check_gin_backward(gin_aggregate_backward,
+                           gin_aggregate_backward_reference, tag)
+    d = check_graph_attention(graph_attention, masked_attention, tag)
+    kernels = (fused_block_attention, gin_aggregate, gin_aggregate_backward,
+               graph_attention)
     t0 = time.perf_counter()
     model, tok = build_slice()
     torch.cuda.synchronize()
     print(f"slice built (random weights on the card) in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     timers = PathTimers(model)
-    launches, gin_launches = run_serving(model, tok, timers,
-                                         fused_block_attention,
-                                         gin_aggregate, tag)
-    run_eval(model, tok, timers, fused_block_attention, gin_aggregate, tag)
-    bwd_launches = run_training(
-        model, tok, (fused_block_attention, gin_aggregate,
-                     gin_aggregate_backward), tag)
+    launches = run_serving(model, tok, timers, kernels, tag)
+    run_eval(model, tok, timers, kernels, tag)
+    bwd_launches = run_training(model, tok, kernels, tag)
     check_denoiser(model, tag)
     check_graphclip(model, tag)
     check_predictor(model, tag)
 
-    print(json.dumps({"kernels": [{
-        "name": "fused_block_attention", "route": "cuda",
-        "source": "llamole_tpu_torch/csrc/fused_attention.cu",
-        "replaces": "llamole_tpu/ops/pallas/fused_attention.py:34",
-        "launches": launches, "max_abs_err": err, "ms": ms,
-        "plain_ms": plain_ms}, {
-        "name": "gin_aggregate", "route": "cuda",
-        "source": "llamole_tpu_torch/csrc/gin_aggregate.cu",
-        "replaces": "llamole_tpu/ops/pallas/gin_aggregate.py:40",
-        "launches": gin_launches, "max_abs_err": gin_err, "ms": gin_ms,
-        "plain_ms": gin_plain_ms}, {
-        "name": "gin_aggregate_backward", "route": "cuda",
-        "source": "llamole_tpu_torch/csrc/gin_aggregate.cu",
-        "replaces": "llamole_tpu/ops/pallas/gin_aggregate.py:114",
-        "launches": bwd_launches, "max_abs_err": bwd_err, "ms": bwd_ms,
-        "plain_ms": bwd_plain_ms}, {
-        "name": "graph_attention", "route": "cuda",
-        "source": "llamole_tpu_torch/csrc/fused_attention.cu",
-        "replaces": "llamole_tpu/ops/pallas/graph_attention.py:30",
-        "launches": attn_launches, "max_abs_err": attn_err, "ms": attn_ms,
-        "plain_ms": attn_plain_ms}]}))
+    def entry(name, source, replaces, rec, launches, **extra):
+        keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "device_ms")
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                **{k: rec[k] for k in keys}, **extra}
+
+    attn_src = "llamole_tpu_torch/csrc/fused_attention.cu"
+    gin_src = "llamole_tpu_torch/csrc/gin_aggregate.cu"
+    print(json.dumps({"kernels": [
+        entry("fused_block_attention", attn_src,
+              "llamole_tpu/ops/pallas/fused_attention.py:91", a,
+              launches["A"], launches_mma=launches["A_mma"],
+              launches_fma=launches["A_fma"],
+              sdpa_floor_ms=a["sdpa_floor_ms"],
+              sdpa_floor_device_ms=a["sdpa_floor_device_ms"],
+              fma_ms=a["fma_ms"],
+              fma_device_ms=a["fma_device_ms"]),
+        entry("gin_aggregate", gin_src,
+              "llamole_tpu/ops/pallas/gin_aggregate.py:85", b, launches["B"]),
+        entry("gin_aggregate_backward", gin_src,
+              "llamole_tpu/ops/pallas/gin_aggregate.py:163", c,
+              bwd_launches),
+        # kernel D is on no path of either package: its launches are
+        # those of its check (phase 6), all on the mma or fma body there
+        entry("graph_attention", attn_src,
+              "llamole_tpu/ops/pallas/graph_attention.py:69", d,
+              d["launches"][0], launches_mma=d["launches"][1],
+              launches_fma=d["launches"][2],
+              launches_from="its check (on no path)",
+              library_device_ms=d["library_device_ms"], fma_ms=d["fma_ms"],
+              fma_device_ms=d["fma_device_ms"])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -5,7 +5,7 @@ NVIDIA Hopper card.
 Phase 1: the LLM (+ LoRA) decodes an analysis with a KV cache, a query
 extension yields the design hidden, the lm_to_graph_decoder connector
 conditions the GraphDiT sampler, and host code assembles SMILES (with LLM
-rollback). Phase 2: Retro* search (llamole_tpu.planner) expands products
+rollback). Phase 2: Retro* search (planner/) expands products
 with GraphCLIP embeddings spliced into the prompt, an analysis decode, a
 retro query and the GIN template predictor, and values nodes with the
 base LLM's likert scores. Training (run_mmsft) fits the LoRA adapter and
@@ -16,11 +16,15 @@ attention (D) in csrc/fused_attention.cu, the GIN aggregation of every
 GraphCLIP and predictor layer (B) and its backward (C) in
 csrc/gin_aggregate.cu.
 
-The JAX package `llamole_tpu` stays the reference. This package never
-imports JAX; it shares only the JAX-free host layers of llamole_tpu
-(chem, data, planner, utils.constants, utils.logging).
+The JAX package `llamole_tpu` stays the reference. This package imports
+neither JAX nor anything of llamole_tpu: it keeps its own copies of the
+JAX-free host layers (chem, data, planner, config, utils), held to the
+JAX package's by tests/test_torch_hostlayers.py.
 
 Layering mirrors llamole_tpu:
+  chem/ data/ planner/ config/ utils/
+            host layers: SMILES, graphs, templates, tokenizer, chat
+            template, collator, Retro* search, YAML arguments, logging
   ops/      nn blocks, attention, GIN layers, the kernel wrappers
   csrc/     CUDA sources, built at first use (ops/cuda_lib.py)
   models/   gllm (LLM + LoRA), graphdit (denoiser + sampler), graphclip

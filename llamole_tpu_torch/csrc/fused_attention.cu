@@ -8,28 +8,49 @@
 // Kernel D replaces llamole_tpu/ops/pallas/graph_attention.py
 // `_attn_kernel` (launched by `_graph_attention_pallas`, wrapper
 // `graph_attention`): masked MHA over pre-split [B, heads, N, dh] heads,
-// no LayerNorm. It is the same kernel body with the compile-time flag
+// no LayerNorm. It is the same kernel bodies with the compile-time flag
 // kQkNorm = false and another layout, not a second copy.
 //
 // What bounds them on an H100: at the denoiser's shape (B = 16 CFG rows,
 // N = 50 nodes, H = 1024 = 16 heads x 64) one call reads 4.9 MB of q, k
-// and v and writes 1.6 MB, against ~0.1 GFLOP. They are bound by memory
-// traffic and, at this size, by launch latency -- never by arithmetic.
-// The TPU kernels existed to keep the head reshape/transposes, the two
-// LayerNorm round trips (A) and the [B, heads, N, N] softmax out of
-// device memory; these keep them out too: each input byte is read once
-// and each output byte written once.
+// and v and writes 1.6 MB, against ~0.16 GFLOP: 1.96 us of memory
+// traffic at 3.35 TB/s, 0.17 us of bf16 tensor-core work. Both kernels
+// are bound by memory and by latency, never by arithmetic. The TPU
+// kernels existed to keep the head reshape/transposes, the two LayerNorm
+// round trips (A) and the [B, heads, N, N] softmax out of device memory;
+// these keep them out too: each input byte is read once and each output
+// byte written once.
 //
-// Design: one thread block per (graph, head). Kernel A reads that head's
-// q, k and v columns straight out of the [B, N, 3H] projection (row
-// stride 3H, no transpose copies) and LayerNorms q and k in f32, rounding
-// them to the input type (as the JAX code casts them to v's dtype);
-// kernel D reads the head's contiguous [N, dh] rows. Both keep q, k, v
-// and the N x N f32 logits in shared memory, scale the logits by
-// 1/sqrt(dh), mask keys to -1e30, take the softmax per row (probabilities
-// rounded to the input type, as JAX casts p before p.v), multiply by v
-// with f32 sums and write the head's output rows. Plain FMA loops: wgmma
-// and TMA are later work.
+// Two bodies, one block per (graph, head) in both:
+//
+// * attention_mma_kernel, bf16 with N <= 64 and dh in {16, 32, 64, 128}
+//   (the denoiser's path). cp.async copies the head's q, k, v rows (16
+//   bytes a thread; A reads them at row stride 3H straight out of the
+//   [B, N, 3H] projection, D its contiguous [N, dh] rows) into bf16 tiles
+//   whose rows are padded by 16 bytes, so ldmatrix reads them without
+//   bank conflicts; q and k land first and A LayerNorms them (f32,
+//   two-pass mean/variance, one 16-byte chunk a lane, rounded to bf16 in
+//   place, as JAX casts them to v's dtype) while v is still in flight.
+//   All eight warps copy and normalise; four of them then take 16 query
+//   rows each: ldmatrix + mma.sync m16n8k16 (bf16 in, f32 sums) give the
+//   logits in registers, scaled by 1/sqrt(dh), masked keys at -1e30 and
+//   padded key columns (j >= N) at -inf so they add exactly 0; the row
+//   softmax runs on the registers with quad shuffles (one reciprocal a
+//   row), the probabilities are rounded to bf16 straight into the A
+//   fragments of the second product (P never touches shared memory), and
+//   P.V (keys padded to 16 with zero rows of v) sums in f32 registers
+//   that are rounded to bf16 and stored; padded query rows are never
+//   stored. ~28 KB of shared memory a block at dh = 64, so all 256 blocks
+//   of the main shape are resident at once on 132 SMs: one block per
+//   head keeps that parallelism, packing heads would only halve it.
+//
+// * attention_fma_kernel, f32 (the JAX f32 contract and the f32
+//   denoiser), and bf16 shapes outside the limits above: q, k, v and the
+//   N x N f32 logits in shared memory and plain FMA loops, with the same
+//   rounding points.
+//
+// The wrappers (ops/fused_attention.py, ops/graph_attention.py) route a
+// call by attention_body(N, dh, dtype) and count each body's launches.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -38,9 +59,16 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+using bf16 = __nv_bfloat16;
+
+constexpr int kThreads = 256;   // FMA body
 constexpr int kWarps = kThreads / 32;
+// tensor-core body: all eight warps copy and normalise, the first four
+// take 16 query rows each
+constexpr int kMmaThreads = 256;
+constexpr int kMmaMaxNodes = 64;
 constexpr float kNeg = -1e30f;
+constexpr size_t kDefaultShared = 48 * 1024;   // more needs an opt-in
 
 template <typename T> __device__ __forceinline__ float to_f32(T x);
 template <> __device__ __forceinline__ float to_f32<float>(float x) { return x; }
@@ -76,13 +104,14 @@ struct Layout {
 };
 
 template <typename T, bool kQkNorm>
-__global__ void __launch_bounds__(kThreads) attention_kernel(
+__global__ void __launch_bounds__(kThreads) attention_fma_kernel(
     const T* __restrict__ qs, const T* __restrict__ ks,
     const T* __restrict__ vs, const uint8_t* __restrict__ mask,
     const T* __restrict__ q_scale, const T* __restrict__ q_bias,
     const T* __restrict__ k_scale, const T* __restrict__ k_bias,
     T* __restrict__ out, Layout lay, int N, int dh, int heads, float eps) {
-  extern __shared__ float smem[];
+  extern __shared__ float smem_f32[];
+  float* smem = smem_f32;
   const int ld = dh + 1;  // padded rows: column walks hit distinct banks
   const int lp = N + 1;
   float* q = smem;        // [N][ld]
@@ -166,79 +195,438 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(
   }
 }
 
+// ---- the bf16 tensor-core body -----------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// four 8x8 bf16 matrices; lane l supplies the address of one row
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// d (16x8 f32) += a (16x16 bf16, row) * b (16x8 bf16, col)
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);  // .x = lo: the lower index
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// sum over aligned groups of kLanes lanes
+template <int kLanes>
+__device__ __forceinline__ float group_sum(float v) {
+#pragma unroll
+  for (int o = 1; o < kLanes; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Shared memory: q, k, v as [np][DH + 8] bf16 tiles (np = N rounded up to
+// 16; the 8-element pad staggers rows by 4 banks, so the 8 row addresses
+// of each ldmatrix hit 32 distinct banks), then the [np] f32 additive key
+// mask. Keep in step with ops/fused_attention.py shared_bytes.
+template <int DH>
+__host__ __device__ constexpr size_t mma_shared_bytes(int np) {
+  return (size_t)3 * np * (DH + 8) * sizeof(bf16) + (size_t)np * sizeof(float);
+}
+
+template <int DH, bool kQkNorm>
+__global__ void __launch_bounds__(kMmaThreads) attention_mma_kernel(
+    const bf16* __restrict__ qs, const bf16* __restrict__ ks,
+    const bf16* __restrict__ vs, const uint8_t* __restrict__ mask,
+    const bf16* __restrict__ q_scale, const bf16* __restrict__ q_bias,
+    const bf16* __restrict__ k_scale, const bf16* __restrict__ k_bias,
+    bf16* __restrict__ out, Layout lay, int N, int heads, float eps) {
+  static_assert(DH % 16 == 0 && DH <= 128, "head width");
+  constexpr int LD = DH + 8;      // tile row stride, elements
+  constexpr int CH = DH / 8;      // 16-byte chunks a row
+  constexpr int KT = kMmaMaxNodes / 16;  // 16-key tiles at most
+  extern __shared__ __align__(16) unsigned char smem_bf16[];
+  const int np = (N + 15) & ~15;
+  bf16* q = reinterpret_cast<bf16*>(smem_bf16);
+  bf16* k = q + np * LD;
+  bf16* v = k + np * LD;
+  float* key_add = reinterpret_cast<float*>(v + np * LD);
+
+  const int b = blockIdx.x / heads;
+  const int h = blockIdx.x % heads;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const long long in_off = b * lay.in_graph + h * lay.in_head;
+
+  // copy group 0: q and k rows; group 1: v rows (lands during the norm)
+  for (int e = tid; e < 2 * N * CH; e += kMmaThreads) {
+    const int is_k = e >= N * CH;
+    const int rc = e - is_k * N * CH;
+    const int r = rc / CH, c = rc % CH;
+    cp_async16((is_k ? k : q) + r * LD + c * 8,
+               (is_k ? ks : qs) + in_off + r * lay.in_row + c * 8);
+  }
+  cp_async_commit();
+  for (int e = tid; e < N * CH; e += kMmaThreads) {
+    const int r = e / CH, c = e % CH;
+    cp_async16(v + r * LD + c * 8, vs + in_off + r * lay.in_row + c * 8);
+  }
+  cp_async_commit();
+  // zero the padded rows (N <= r < np) of all three tiles: padded keys
+  // then add 0 * 0, where uninitialised memory could hold NaN
+  const int pad = np - N;
+  for (int e = tid; e < 3 * pad * CH; e += kMmaThreads) {
+    const int t = e / (pad * CH);
+    const int rc = e - t * pad * CH;
+    *reinterpret_cast<uint4*>(q + t * np * LD + (N + rc / CH) * LD + (rc % CH) * 8) =
+        make_uint4(0u, 0u, 0u, 0u);
+  }
+  // masked real keys at -1e30 (as JAX), padded key columns at -inf: they
+  // weigh exactly 0 even when every real key is masked
+  for (int j = tid; j < np; j += kMmaThreads)
+    key_add[j] = j < N ? (mask[(size_t)b * N + j] ? 0.f : kNeg) : -INFINITY;
+  cp_async_wait<1>();
+  __syncthreads();
+
+  if constexpr (kQkNorm) {
+    // LayerNorm over dh of every q and k row: DH / 8 lanes a row, each
+    // lane one 16-byte chunk of it; f32, two-pass mean/variance like
+    // jnp.var, rounded to bf16 in place
+    constexpr int L = DH / 8;
+    constexpr int kGroups = kMmaThreads / L;
+    const int part = lane % L;
+    const int group = tid / L;
+    float sq[8], bq[8], sk[8], bk[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      sq[i] = __bfloat162float(q_scale[part * 8 + i]);
+      bq[i] = __bfloat162float(q_bias[part * 8 + i]);
+      sk[i] = __bfloat162float(k_scale[part * 8 + i]);
+      bk[i] = __bfloat162float(k_bias[part * 8 + i]);
+    }
+    for (int r0 = 0; r0 < 2 * N; r0 += kGroups) {  // uniform trip count
+      const int r = r0 + group;
+      const bool live = r < 2 * N;
+      const bool is_q = r < N;
+      uint4* chunk = reinterpret_cast<uint4*>(
+          (is_q ? q + r * LD : k + (r - N) * LD) + part * 8);
+      uint4 raw = live ? *chunk : make_uint4(0u, 0u, 0u, 0u);
+      __nv_bfloat162* pair = reinterpret_cast<__nv_bfloat162*>(&raw);
+      float x[8];
+      float s = 0.f;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 f = __bfloat1622float2(pair[i]);
+        x[2 * i] = f.x;
+        x[2 * i + 1] = f.y;
+        s += f.x + f.y;
+      }
+      const float mean = group_sum<L>(s) / DH;
+      float s2 = 0.f;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float c = x[i] - mean;
+        s2 += c * c;
+      }
+      const float rstd = rsqrtf(group_sum<L>(s2) / DH + eps);
+      if (live) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int lo = 2 * i, hi = 2 * i + 1;
+          pair[i] = __floats2bfloat162_rn(
+              (x[lo] - mean) * rstd * (is_q ? sq[lo] : sk[lo]) + (is_q ? bq[lo] : bk[lo]),
+              (x[hi] - mean) * rstd * (is_q ? sq[hi] : sk[hi]) + (is_q ? bq[hi] : bk[hi]));
+        }
+        *chunk = raw;
+      }
+    }
+    __syncthreads();
+  }
+
+  const int g = lane >> 2;   // fragment row (and row + 8)
+  const int t4 = lane & 3;   // fragment column pair
+  const int m0 = warp * 16;  // this warp's query rows
+  const int nkt = np / 16;   // 16-key tiles
+  const bool active = m0 < N;  // warp-uniform; warps 4-7 never are
+  uint32_t pa[KT][4];          // bf16 probabilities as A fragments
+
+  if (active) {
+    uint32_t qa[DH / 16][4];
+#pragma unroll
+    for (int c = 0; c < DH / 16; ++c)
+      ldmatrix_x4(qa[c], q + (m0 + (lane & 15)) * LD + c * 16 + (lane >> 4) * 8);
+    float s[2 * KT][4];
+#pragma unroll
+    for (int nt = 0; nt < 2 * KT; ++nt)
+      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+#pragma unroll
+    for (int kt = 0; kt < KT; ++kt) {
+      if (kt < nkt) {
+        uint32_t kb[DH / 16][4];  // keys kt*16 + [0, 8) and [8, 16), dims c*16 + [0, 16)
+#pragma unroll
+        for (int c = 0; c < DH / 16; ++c)  // every load before the products
+          ldmatrix_x4(kb[c], k + (kt * 16 + (lane & 7) + (lane >> 4) * 8) * LD +
+                                 c * 16 + ((lane >> 3) & 1) * 8);
+#pragma unroll
+        for (int c = 0; c < DH / 16; ++c) {
+          mma_bf16(s[2 * kt], qa[c], kb[c][0], kb[c][1]);
+          mma_bf16(s[2 * kt + 1], qa[c], kb[c][2], kb[c][3]);
+        }
+      }
+    }
+    const float scale = 1.0f / sqrtf((float)DH);
+    float mx0 = -INFINITY, mx1 = -INFINITY;  // rows g and g + 8
+#pragma unroll
+    for (int nt = 0; nt < 2 * KT; ++nt) {
+      if (nt < 2 * nkt) {
+        const float a0 = key_add[nt * 8 + 2 * t4], a1 = key_add[nt * 8 + 2 * t4 + 1];
+        s[nt][0] = s[nt][0] * scale + a0;
+        s[nt][1] = s[nt][1] * scale + a1;
+        s[nt][2] = s[nt][2] * scale + a0;
+        s[nt][3] = s[nt][3] * scale + a1;
+        mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
+        mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
+      }
+    }
+    mx0 = quad_max(mx0);
+    mx1 = quad_max(mx1);
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < 2 * KT; ++nt) {
+      if (nt < 2 * nkt) {
+        s[nt][0] = expf(s[nt][0] - mx0);
+        s[nt][1] = expf(s[nt][1] - mx0);
+        s[nt][2] = expf(s[nt][2] - mx1);
+        s[nt][3] = expf(s[nt][3] - mx1);
+        sum0 += s[nt][0] + s[nt][1];
+        sum1 += s[nt][2] + s[nt][3];
+      }
+    }
+    // one division a row, then products: a division per probability was
+    // the costliest part of the body (p = e * (1 / sum) is within an f32
+    // ulp of e / sum before its rounding to bf16)
+    const float inv0 = 1.f / quad_sum(sum0);
+    const float inv1 = 1.f / quad_sum(sum1);
+#pragma unroll
+    for (int kt = 0; kt < KT; ++kt) {
+      if (kt < nkt) {
+        pa[kt][0] = pack_bf16(s[2 * kt][0] * inv0, s[2 * kt][1] * inv0);
+        pa[kt][1] = pack_bf16(s[2 * kt][2] * inv1, s[2 * kt][3] * inv1);
+        pa[kt][2] = pack_bf16(s[2 * kt + 1][0] * inv0, s[2 * kt + 1][1] * inv0);
+        pa[kt][3] = pack_bf16(s[2 * kt + 1][2] * inv1, s[2 * kt + 1][3] * inv1);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every thread's v rows have landed
+  if (!active) return;
+
+  float o[DH / 8][4];
+#pragma unroll
+  for (int nt = 0; nt < DH / 8; ++nt) o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
+#pragma unroll
+  for (int kt = 0; kt < KT; ++kt) {
+    if (kt < nkt) {
+      uint32_t vb[DH / 16][4];  // keys kt*16 + [0, 16), dims c*16 + [0, 8) and [8, 16)
+#pragma unroll
+      for (int c = 0; c < DH / 16; ++c)
+        ldmatrix_x4_trans(vb[c], v + (kt * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+                                     c * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int c = 0; c < DH / 16; ++c) {
+        mma_bf16(o[2 * c], pa[kt], vb[c][0], vb[c][1]);
+        mma_bf16(o[2 * c + 1], pa[kt], vb[c][2], vb[c][3]);
+      }
+    }
+  }
+  bf16* dst = out + b * lay.out_graph + h * lay.out_head;
+  const int r0 = m0 + g, r1 = m0 + g + 8;
+#pragma unroll
+  for (int nt = 0; nt < DH / 8; ++nt) {
+    const int d = nt * 8 + 2 * t4;
+    if (r0 < N)
+      *reinterpret_cast<__nv_bfloat162*>(dst + r0 * lay.out_row + d) =
+          __floats2bfloat162_rn(o[nt][0], o[nt][1]);
+    if (r1 < N)
+      *reinterpret_cast<__nv_bfloat162*>(dst + r1 * lay.out_row + d) =
+          __floats2bfloat162_rn(o[nt][2], o[nt][3]);
+  }
+}
+
+// ---- launchers -----------------------------------------------------------
+
 template <typename T, bool kQkNorm>
-int launch(const T* q, const T* k, const T* v, const void* mask,
-           const void* q_scale, const void* q_bias, const void* k_scale,
-           const void* k_bias, void* out, Layout lay, int B, int N, int dh,
-           int heads, void* stream) {
+int launch_fma(const T* q, const T* k, const T* v, const void* mask,
+               const void* q_scale, const void* q_bias, const void* k_scale,
+               const void* k_bias, void* out, Layout lay, int B, int N, int dh,
+               int heads, void* stream) {
   if (B <= 0 || N <= 0 || dh <= 0 || heads <= 0) return (int)cudaSuccess;
   const size_t smem = (size_t)(3 * N * (dh + 1) + N * (N + 1)) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      attention_kernel<T, kQkNorm>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  attention_kernel<T, kQkNorm><<<B * heads, kThreads, smem, (cudaStream_t)stream>>>(
+  if (smem > kDefaultShared) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        attention_fma_kernel<T, kQkNorm>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  attention_fma_kernel<T, kQkNorm><<<B * heads, kThreads, smem, (cudaStream_t)stream>>>(
       q, k, v, (const uint8_t*)mask, (const T*)q_scale, (const T*)q_bias,
       (const T*)k_scale, (const T*)k_bias, (T*)out, lay, N, dh, heads, 1e-5f);
   return (int)cudaGetLastError();
 }
 
+template <int DH, bool kQkNorm>
+int launch_mma_dh(const bf16* q, const bf16* k, const bf16* v, const void* mask,
+                  const void* q_scale, const void* q_bias, const void* k_scale,
+                  const void* k_bias, void* out, Layout lay, int B, int N,
+                  int heads, void* stream) {
+  const size_t smem = mma_shared_bytes<DH>((N + 15) & ~15);
+  if (smem > kDefaultShared) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        attention_mma_kernel<DH, kQkNorm>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  attention_mma_kernel<DH, kQkNorm><<<B * heads, kMmaThreads, smem, (cudaStream_t)stream>>>(
+      q, k, v, (const uint8_t*)mask, (const bf16*)q_scale, (const bf16*)q_bias,
+      (const bf16*)k_scale, (const bf16*)k_bias, (bf16*)out, lay, N, heads, 1e-5f);
+  return (int)cudaGetLastError();
+}
+
+// The tensor-core body takes N <= 64 and dh in {16, 32, 64, 128}, with
+// 16-byte aligned rows (the wrapper checks the base pointers); anything
+// else is refused here as well as by the wrapper's routing.
+template <bool kQkNorm>
+int launch_mma(const bf16* q, const bf16* k, const bf16* v, const void* mask,
+               const void* q_scale, const void* q_bias, const void* k_scale,
+               const void* k_bias, void* out, Layout lay, int B, int N, int dh,
+               int heads, void* stream) {
+  if (B <= 0 || heads <= 0) return (int)cudaSuccess;
+  if (N <= 0 || N > kMmaMaxNodes) return (int)cudaErrorInvalidValue;
+  switch (dh) {
+#define LLAMOLE_MMA_CASE(D)                                                       \
+  case D:                                                                         \
+    return launch_mma_dh<D, kQkNorm>(q, k, v, mask, q_scale, q_bias, k_scale,     \
+                                     k_bias, out, lay, B, N, heads, stream);
+    LLAMOLE_MMA_CASE(16)
+    LLAMOLE_MMA_CASE(32)
+    LLAMOLE_MMA_CASE(64)
+    LLAMOLE_MMA_CASE(128)
+#undef LLAMOLE_MMA_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
 // kernel A: raw [B, N, 3H] qkv -> head-concatenated [B, N, H]
-template <typename T>
-int launch_fused(const void* qkv, const void* mask, const void* q_scale,
-                 const void* q_bias, const void* k_scale, const void* k_bias,
-                 void* out, int B, int N, int H, int heads, void* stream) {
+Layout fused_layout(int N, int H, int heads) {
   const int dh = H / heads;
-  const Layout lay{(long long)N * 3 * H, dh, 3LL * H, (long long)N * H, dh, H};
-  const T* base = (const T*)qkv;
-  return launch<T, true>(base, base + H, base + 2 * H, mask, q_scale, q_bias,
-                         k_scale, k_bias, out, lay, B, N, dh, heads, stream);
+  return Layout{(long long)N * 3 * H, dh, 3LL * H, (long long)N * H, dh, H};
 }
 
 // kernel D: pre-split [B, heads, N, dh] q, k, v -> [B, heads, N, dh]
-template <typename T>
-int launch_split(const void* q, const void* k, const void* v, const void* mask,
-                 void* out, int B, int heads, int N, int dh, void* stream) {
+Layout split_layout(int N, int dh, int heads) {
   const long long head = (long long)N * dh;
-  const Layout lay{head * heads, head, dh, head * heads, head, dh};
-  return launch<T, false>((const T*)q, (const T*)k, (const T*)v, mask, nullptr,
-                          nullptr, nullptr, nullptr, out, lay, B, N, dh, heads,
-                          stream);
+  return Layout{head * heads, head, dh, head * heads, head, dh};
 }
 
 }  // namespace
 
 extern "C" {
 
-int llamole_fused_attention_f32(const void* qkv, const void* mask,
-                                const void* q_scale, const void* q_bias,
-                                const void* k_scale, const void* k_bias,
-                                void* out, int B, int N, int H, int heads,
-                                void* stream) {
-  return launch_fused<float>(qkv, mask, q_scale, q_bias, k_scale, k_bias, out,
-                             B, N, H, heads, stream);
+int llamole_fused_attention_fma_f32(const void* qkv, const void* mask,
+                                    const void* q_scale, const void* q_bias,
+                                    const void* k_scale, const void* k_bias,
+                                    void* out, int B, int N, int H, int heads,
+                                    void* stream) {
+  const float* x = (const float*)qkv;
+  return launch_fma<float, true>(x, x + H, x + 2 * H, mask, q_scale, q_bias,
+                                 k_scale, k_bias, out, fused_layout(N, H, heads),
+                                 B, N, H / heads, heads, stream);
 }
 
-int llamole_fused_attention_bf16(const void* qkv, const void* mask,
-                                 const void* q_scale, const void* q_bias,
-                                 const void* k_scale, const void* k_bias,
-                                 void* out, int B, int N, int H, int heads,
-                                 void* stream) {
-  return launch_fused<__nv_bfloat16>(qkv, mask, q_scale, q_bias, k_scale,
-                                     k_bias, out, B, N, H, heads, stream);
+int llamole_fused_attention_fma_bf16(const void* qkv, const void* mask,
+                                     const void* q_scale, const void* q_bias,
+                                     const void* k_scale, const void* k_bias,
+                                     void* out, int B, int N, int H, int heads,
+                                     void* stream) {
+  const bf16* x = (const bf16*)qkv;
+  return launch_fma<bf16, true>(x, x + H, x + 2 * H, mask, q_scale, q_bias,
+                                k_scale, k_bias, out, fused_layout(N, H, heads),
+                                B, N, H / heads, heads, stream);
 }
 
-int llamole_graph_attention_f32(const void* q, const void* k, const void* v,
-                                const void* mask, void* out, int B, int heads,
-                                int N, int dh, void* stream) {
-  return launch_split<float>(q, k, v, mask, out, B, heads, N, dh, stream);
+int llamole_fused_attention_mma_bf16(const void* qkv, const void* mask,
+                                     const void* q_scale, const void* q_bias,
+                                     const void* k_scale, const void* k_bias,
+                                     void* out, int B, int N, int H, int heads,
+                                     void* stream) {
+  const bf16* x = (const bf16*)qkv;
+  return launch_mma<true>(x, x + H, x + 2 * H, mask, q_scale, q_bias, k_scale,
+                          k_bias, out, fused_layout(N, H, heads), B, N,
+                          H / heads, heads, stream);
 }
 
-int llamole_graph_attention_bf16(const void* q, const void* k, const void* v,
-                                 const void* mask, void* out, int B, int heads,
-                                 int N, int dh, void* stream) {
-  return launch_split<__nv_bfloat16>(q, k, v, mask, out, B, heads, N, dh,
-                                     stream);
+int llamole_graph_attention_fma_f32(const void* q, const void* k, const void* v,
+                                    const void* mask, void* out, int B, int heads,
+                                    int N, int dh, void* stream) {
+  return launch_fma<float, false>((const float*)q, (const float*)k,
+                                  (const float*)v, mask, nullptr, nullptr,
+                                  nullptr, nullptr, out, split_layout(N, dh, heads),
+                                  B, N, dh, heads, stream);
+}
+
+int llamole_graph_attention_fma_bf16(const void* q, const void* k, const void* v,
+                                     const void* mask, void* out, int B, int heads,
+                                     int N, int dh, void* stream) {
+  return launch_fma<bf16, false>((const bf16*)q, (const bf16*)k, (const bf16*)v,
+                                 mask, nullptr, nullptr, nullptr, nullptr, out,
+                                 split_layout(N, dh, heads), B, N, dh, heads,
+                                 stream);
+}
+
+int llamole_graph_attention_mma_bf16(const void* q, const void* k, const void* v,
+                                     const void* mask, void* out, int B, int heads,
+                                     int N, int dh, void* stream) {
+  return launch_mma<false>((const bf16*)q, (const bf16*)k, (const bf16*)v, mask,
+                           nullptr, nullptr, nullptr, nullptr, out,
+                           split_layout(N, dh, heads), B, N, dh, heads, stream);
 }
 
 const char* llamole_cuda_error_string(int code) {

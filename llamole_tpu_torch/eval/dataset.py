@@ -5,8 +5,8 @@ from typing import Any, Dict, Sequence
 
 import numpy as np
 
-from llamole_tpu.data.template import Template
-from llamole_tpu.utils.constants import MOL_PROPERTIES
+from ..data.template import Template
+from ..utils.constants import MOL_PROPERTIES
 
 
 class MolQADataset:

@@ -1,6 +1,5 @@
 """Text-generation metrics: BLEU-4 and ROUGE-1/2/L over whitespace tokens
-(the text half of llamole_tpu/train/metric.py, which cannot be imported
-here: llamole_tpu.train loads JAX)."""
+(the text half of llamole_tpu/train/metric.py)."""
 
 import math
 from collections import Counter

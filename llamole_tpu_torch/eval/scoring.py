@@ -10,9 +10,9 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from llamole_tpu.chem.featurize import pad_graph_batch, smiles_to_graph
-from llamole_tpu.chem.smiles import canonical_smiles
-from llamole_tpu.data.aligner import extract_all_smiles
+from ..chem.featurize import pad_graph_batch, smiles_to_graph
+from ..chem.smiles import canonical_smiles
+from ..data.aligner import extract_all_smiles
 
 from .metric import compute_text_metrics
 

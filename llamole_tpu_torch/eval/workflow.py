@@ -19,12 +19,12 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
-from llamole_tpu.chem.assemble import check_valid
-from llamole_tpu.data.aligner import extract_all_smiles
-from llamole_tpu.data.loader import resolve_dataset_path
-from llamole_tpu.data.template import get_template
-from llamole_tpu.utils.constants import MOL_PROPERTIES
-from llamole_tpu.utils.logging import get_logger
+from ..chem.assemble import check_valid
+from ..data.aligner import extract_all_smiles
+from ..data.loader import resolve_dataset_path
+from ..data.template import get_template
+from ..utils.constants import MOL_PROPERTIES
+from ..utils.logging import get_logger
 
 from ..models.composite import GenerationSettings
 from .dataset import MolQADataset
@@ -38,7 +38,7 @@ def remove_extra_spaces(text: str) -> str:
 
 def run_eval(args: Any = None, device="cuda") -> List[Dict[str, Any]]:
     """Config (YAML path / dict / argv) -> run_molqa on `device`."""
-    from llamole_tpu.config import get_infer_args   # needs PyYAML
+    from ..config import get_infer_args   # needs PyYAML
 
     return run_molqa(*get_infer_args(args), device=device)
 

@@ -10,7 +10,7 @@ Phase 1, molecular design:
   4. GraphDiT reverse diffusion (CFG) -> SMILES on the host
   5. failed rows: optional diffusion redraws, then LLM rollback text
 
-Phase 2, retrosynthesis (Retro* from llamole_tpu.planner, JAX-free):
+Phase 2, retrosynthesis (Retro* from the port's planner/):
   1. the GraphCLIP embedding of each product (kernel B) passes
      graph_to_lm -> SiLU and replaces the <molecule> slot of its prompt
   2. the LLM decodes an analysis from those embeddings
@@ -49,11 +49,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from llamole_tpu.chem import canonical_smiles, recanonicalize
-from llamole_tpu.chem.featurize import smiles_to_graph
-from llamole_tpu.utils.constants import IGNORE_INDEX
-
+from ..chem import canonical_smiles, recanonicalize
+from ..chem.featurize import smiles_to_graph
 from ..ops.nn import init_dense_
+from ..utils.constants import IGNORE_INDEX
 from .gllm import LLM, lora_scale
 from .gllm.model import lm_loss
 from .graphclip import GraphCLIP
@@ -679,7 +678,7 @@ class GraphLM(nn.Module):
                          for ts in toks], axis=1)
 
     def _value_prompt(self, content: str, chat_template) -> List[int]:
-        from llamole_tpu.data.template import get_template
+        from ..data.template import get_template
         template = chat_template or get_template("default")
         return self.tokenizer.encode(template.render_prompt(
             [{"role": "user", "content": content}]))
@@ -789,7 +788,7 @@ class GraphLM(nn.Module):
     ) -> Dict[str, Any]:
         """Plan a route for one molecule. frontier_width > 1 expands the W
         best open nodes per iteration in one batch."""
-        from llamole_tpu.planner import retro_star_search
+        from ..planner import retro_star_search
 
         _no_mesh(mesh)
         starting_mols = self._starting_mols(starting_mols)
@@ -855,7 +854,7 @@ class GraphLM(nn.Module):
         the wall (PARITY.md, known divergence 6). Returns {target: result}
         keyed by the caller's spelling; "time" is the batch wall and
         "expansions" the tree's iterations."""
-        from llamole_tpu.planner import retro_star_search_multi
+        from ..planner import retro_star_search_multi
 
         _no_mesh(mesh)
         starting_mols = self._starting_mols(starting_mols)

@@ -6,7 +6,7 @@
     embedders read as "dropped" (api.py:118-135)
   * the reverse loop is a Python loop over the strided time grid,
     computed with numpy exactly as the JAX sampler does (api.py:179-185)
-  * graphs collapse to SMILES on the host through llamole_tpu.chem
+  * graphs collapse to SMILES on the host through chem/
 """
 
 from typing import List, Optional
@@ -15,9 +15,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from llamole_tpu.chem.assemble import check_valid as _check_valid
-from llamole_tpu.chem.assemble import graph_to_smiles as _graph_to_smiles
-from llamole_tpu.utils.constants import NO_LABEL_INDEX
+from ...chem.assemble import check_valid as _check_valid
+from ...chem.assemble import graph_to_smiles as _graph_to_smiles
+from ...utils.constants import NO_LABEL_INDEX
 
 from .config import DataInfo, GraphDiTConfig
 from .denoiser import Denoiser

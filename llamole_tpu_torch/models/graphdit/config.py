@@ -115,9 +115,9 @@ def build_data_info_from_smiles(
     smiles_list: Sequence[str], max_n_nodes: Optional[int] = None
 ) -> DataInfo:
     """DataInfo statistics from a molecule corpus (host side)."""
-    from llamole_tpu.chem.featurize import smiles_to_graph
-    from llamole_tpu.chem.periodic import Z_TO_SYMBOL
-    from llamole_tpu.utils.constants import (ATOM_TYPE_OFFSET,
+    from ...chem.featurize import smiles_to_graph
+    from ...chem.periodic import Z_TO_SYMBOL
+    from ...utils.constants import (ATOM_TYPE_OFFSET,
                                              WILDCARD_ATOM_TYPE)
 
     node_types = np.zeros(118, dtype=np.float64)

@@ -17,9 +17,9 @@ from typing import Optional
 
 import torch
 
-from llamole_tpu.data.tokenizer import ByteTokenizer, load_tokenizer
-from llamole_tpu.utils.constants import SPECIAL_TOKENS
-from llamole_tpu.utils.logging import get_logger
+from ..data.tokenizer import ByteTokenizer, load_tokenizer
+from ..utils.constants import SPECIAL_TOKENS
+from ..utils.logging import get_logger
 
 from .composite import GraphLM
 from .gllm import LLM, LLMConfig
@@ -134,7 +134,7 @@ def build_graph_lm_from_configs(
 def build_graph_lm(model_args, data_args, finetuning_args, *, device,
                    seed: int = 0, generate_mode: bool = False,
                    load_adapter: bool = False):
-    """Argument-driven build (llamole_tpu.config dataclasses).
+    """Argument-driven build (config/ dataclasses).
     Returns (model, tokenizer)."""
     if getattr(model_args, "quantization_bit", None) is not None:
         raise NotImplementedError("quantized LLM weights are not ported yet "

@@ -7,7 +7,7 @@ gate) modulates a non-affine LayerNorm of the GINConv output (kernel B),
 with virtual-node feedback between layers; add pool, then the
 fc1 -> LN -> GELU -> fc2 decoder over `out_dim` template labels.
 `sample_templates` applies the top-k templates to the product on the host
-(llamole_tpu.chem.reaction) exactly as the JAX package does.
+(chem/reaction.py) exactly as the JAX package does.
 
 CostMLP: Morgan fingerprint -> Linear(2048, 128) -> ReLU -> Linear(128, 1)
 -> softplus.
@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from llamole_tpu.chem import recanonicalize
+from ...chem import recanonicalize
 
 from ...ops.gin import (GINConv, NormMLP, dense_graph_inputs,
                         full_f32_matmuls, masked_add_pool, masked_max_pool)
@@ -139,7 +139,7 @@ class GraphPredictor(nn.Module):
         """Top-k template labels -> apply each to the product -> merged
         reactant proposals: per-outcome score split, duplicates merged by
         sorted reactant key, scores normalised (the JAX host logic)."""
-        from llamole_tpu.chem.reaction import apply_retro_template
+        from ...chem.reaction import apply_retro_template
 
         k = product_graph.n_nodes
         n = ((k + 7) // 8) * 8   # the JAX bucket: same padded shape
@@ -219,7 +219,7 @@ class CostMLP(nn.Module):
 
     @torch.no_grad()
     def estimate_cost(self, smiles: str) -> float:
-        from llamole_tpu.chem.fingerprint import morgan_fingerprint
+        from ...chem.fingerprint import morgan_fingerprint
         fp = morgan_fingerprint(smiles, radius=2, n_bits=self.fp_dim)
         if fp is None:
             raise ValueError(f"Invalid SMILES string: {smiles}")
@@ -230,7 +230,7 @@ class CostMLP(nn.Module):
     @torch.no_grad()
     def estimate_costs(self, smiles_list) -> List[float]:
         """One device call for all fingerprints; invalid SMILES cost 0."""
-        from llamole_tpu.chem.fingerprint import morgan_fingerprint
+        from ...chem.fingerprint import morgan_fingerprint
         fps, rows = [], []
         for i, s in enumerate(smiles_list):
             fp = morgan_fingerprint(s, radius=2, n_bits=self.fp_dim)

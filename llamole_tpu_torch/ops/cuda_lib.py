@@ -44,15 +44,17 @@ class KernelLibrary:
         self.build_log = build_log
         self.cdll = ctypes.CDLL(str(path))
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        for name in ("llamole_fused_attention_f32",
-                     "llamole_fused_attention_bf16"):
+        for name in ("llamole_fused_attention_fma_f32",
+                     "llamole_fused_attention_fma_bf16",
+                     "llamole_fused_attention_mma_bf16"):
             fn = getattr(self.cdll, name)
             # qkv, mask, q_scale, q_bias, k_scale, k_bias, out,
             # B, N, H, heads, stream
             fn.argtypes = [ptr] * 7 + [i32] * 4 + [ptr]
             fn.restype = i32
-        for name in ("llamole_graph_attention_f32",
-                     "llamole_graph_attention_bf16"):
+        for name in ("llamole_graph_attention_fma_f32",
+                     "llamole_graph_attention_fma_bf16",
+                     "llamole_graph_attention_mma_bf16"):
             fn = getattr(self.cdll, name)
             # q, k, v, mask, out, B, heads, N, dh, stream
             fn.argtypes = [ptr] * 5 + [i32] * 4 + [ptr]

@@ -7,7 +7,11 @@ every head and returns the head-concatenated [B, N, H] tensor.
 
 On a CUDA tensor it launches the hand-written kernel
 (csrc/fused_attention.cu, the port of llamole_tpu/ops/pallas/
-fused_attention.py `_kernel`) or raises; on a CPU tensor it runs
+fused_attention.py `_kernel`) or raises: `attention_body(N, dh, dtype)`
+picks its bf16 tensor-core body ("mma", the denoiser's path) or its FMA
+body ("fma": f32, and bf16 shapes outside the tensor-core limits), and
+the wrapper counts the launches of each (`launches_mma`,
+`launches_fma`; `launches` is their sum). On a CPU tensor it runs
 `fused_attention_reference`, the plain PyTorch version of the same
 function (counterpart of `_fused_attention_reference`), which the tests
 and chip_smoke.py also compare the kernel against. The kernel has no
@@ -22,13 +26,89 @@ from . import cuda_lib
 from .attention import masked_attention
 from .nn import layer_norm
 
-# one [B, heads] grid of blocks, each holding q/k/v [N, dh+1] and the
-# [N, N+1] logits in f32 shared memory (csrc/fused_attention.cu)
 MAX_SHARED_BYTES = 232_448   # what one H100 block may opt into
+# the tensor-core body: four warps of 16 query rows, mma.sync over dh in
+# steps of 16 (csrc/fused_attention.cu attention_mma_kernel)
+MMA_MAX_NODES = 64
+MMA_HEAD_DIMS = (16, 32, 64, 128)
 
 
-def shared_bytes(n: int, dh: int) -> int:
+def attention_body(n: int, dh: int, dtype: torch.dtype) -> str:
+    """The body a kernel A or D call launches on the card: "mma" (bf16
+    tensor cores) for bf16 with N <= 64 and dh in MMA_HEAD_DIMS, else
+    "fma" (plain FMA loops; f32, or bf16 outside those limits)."""
+    if (dtype == torch.bfloat16 and 1 <= n <= MMA_MAX_NODES
+            and dh in MMA_HEAD_DIMS):
+        return "mma"
+    return "fma"
+
+
+def shared_bytes(n: int, dh: int, body: str) -> int:
+    """Dynamic shared memory of one (graph, head) block. mma: q, k, v as
+    [N rounded up to 16, dh + 8] bf16 tiles and an f32 key-mask row; fma:
+    q, k, v as [N, dh + 1] and the [N, N + 1] logits, all f32."""
+    if body == "mma":
+        rows = -(-n // 16) * 16
+        return 3 * rows * (dh + 8) * 2 + rows * 4
     return (3 * n * (dh + 1) + n * (n + 1)) * 4
+
+
+_entry_points = {}
+
+
+def kernel_entry(kind: str, body: str, dtype: torch.dtype):
+    """The bound C entry point of kernel A (kind "fused") or D ("graph")
+    for a body and dtype, looked up once (builds the library on first
+    use)."""
+    key = (kind, body, dtype)
+    fn = _entry_points.get(key)
+    if fn is None:
+        suffix = "bf16" if dtype == torch.bfloat16 else "f32"
+        fn = getattr(cuda_lib.library().cdll,
+                     f"llamole_{kind}_attention_{body}_{suffix}")
+        _entry_points[key] = fn
+    return fn
+
+
+def launch(fn, device: torch.device, what: str, *args) -> None:
+    """Call a C entry point on `device`'s current stream; raise on a CUDA
+    error. The device is made current only when it is not already. The
+    stream pointer comes from torch's raw accessor (the one its own
+    generated kernels launch with): building a torch.cuda.Stream object
+    for it each call was a large share of the wrapper's host time."""
+    index = device.index
+    if index != torch.cuda.current_device():
+        with torch.cuda.device(device):
+            code = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        code = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    if code:
+        cuda_lib.library().check(code, what)
+
+
+def check_body(body: str, n: int, dh: int, tensors) -> None:
+    """Refuse what the chosen body cannot take: its shared memory, and for
+    the tensor-core body rows that are not 16-byte aligned."""
+    need = shared_bytes(n, dh, body)
+    if need > MAX_SHARED_BYTES:
+        raise ValueError(f"N={n}, dh={dh} needs {need} bytes of shared "
+                         f"memory; the kernel holds at most "
+                         f"{MAX_SHARED_BYTES}")
+    if body == "mma" and any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("the bf16 tensor-core body copies 16-byte rows: "
+                         "its inputs must start 16-byte aligned")
+
+
+def count_launch(wrapper, body: str) -> None:
+    wrapper.launches += 1
+    if body == "mma":
+        wrapper.launches_mma += 1
+    else:
+        wrapper.launches_fma += 1
+
+
+def reset_launches(wrapper) -> None:
+    wrapper.launches = wrapper.launches_mma = wrapper.launches_fma = 0
 
 
 def fused_attention_reference(qkv, node_mask, q_scale, q_bias, k_scale,
@@ -65,8 +145,9 @@ def fused_block_attention(qkv, node_mask, q_scale, q_bias, k_scale, k_bias,
                         "or bfloat16")
     if not qkv.is_contiguous():
         raise ValueError("qkv must be contiguous")
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (qkv, q_scale, q_bias, k_scale, k_bias)):
+    norms = (q_scale, q_bias, k_scale, k_bias)
+    if torch.is_grad_enabled() and (qkv.requires_grad or any(
+            t.requires_grad for t in norms)):
         raise RuntimeError("fused_block_attention on the card has no "
                            "backward; run it under torch.no_grad() (the "
                            "denoiser trains with train=True)")
@@ -75,29 +156,23 @@ def fused_block_attention(qkv, node_mask, q_scale, q_bias, k_scale, k_bias,
             or not node_mask.is_contiguous()):
         raise ValueError("node_mask must be a contiguous bool [B, N] tensor "
                          "on qkv's device")
-    for name, t in (("q_scale", q_scale), ("q_bias", q_bias),
-                    ("k_scale", k_scale), ("k_bias", k_bias)):
+    for name, t in zip(("q_scale", "q_bias", "k_scale", "k_bias"), norms):
         if (tuple(t.shape) != (dh,) or t.dtype != qkv.dtype
                 or t.device != qkv.device or not t.is_contiguous()):
             raise ValueError(f"{name} must be a contiguous [{dh}] "
                              f"{qkv.dtype} tensor on qkv's device")
-    if n < 1 or shared_bytes(n, dh) > MAX_SHARED_BYTES:
-        raise ValueError(f"N={n}, dh={dh} needs {shared_bytes(n, dh)} bytes "
-                         f"of shared memory; the kernel holds at most "
-                         f"{MAX_SHARED_BYTES}")
-    lib = cuda_lib.library()
-    fn = (lib.cdll.llamole_fused_attention_bf16
-          if qkv.dtype == torch.bfloat16
-          else lib.cdll.llamole_fused_attention_f32)
+    if n < 1:
+        raise ValueError("qkv holds no node")
+    body = attention_body(n, dh, qkv.dtype)
+    check_body(body, n, dh, (qkv,))
     out = torch.empty((b, n, h_total), dtype=qkv.dtype, device=qkv.device)
-    with torch.cuda.device(qkv.device):   # the C launch uses the current one
-        stream = torch.cuda.current_stream().cuda_stream
-        code = fn(qkv.data_ptr(), node_mask.data_ptr(), q_scale.data_ptr(),
-                  q_bias.data_ptr(), k_scale.data_ptr(), k_bias.data_ptr(),
-                  out.data_ptr(), b, n, h_total, num_heads, stream)
-    lib.check(code, "fused_block_attention launch")
-    fused_block_attention.launches += 1
+    launch(kernel_entry("fused", body, qkv.dtype), qkv.device,
+           "fused_block_attention launch", qkv.data_ptr(),
+           node_mask.data_ptr(), q_scale.data_ptr(), q_bias.data_ptr(),
+           k_scale.data_ptr(), k_bias.data_ptr(), out.data_ptr(), b, n,
+           h_total, num_heads)
+    count_launch(fused_block_attention, body)
     return out
 
 
-fused_block_attention.launches = 0
+reset_launches(fused_block_attention)

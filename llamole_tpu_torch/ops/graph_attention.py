@@ -8,7 +8,9 @@ dtype.
 
 On a CUDA tensor it launches kernel D (csrc/fused_attention.cu built with
 kQkNorm = false, the port of llamole_tpu/ops/pallas/graph_attention.py
-`_attn_kernel`) or raises; on a CPU tensor it runs the plain version,
+`_attn_kernel`) or raises, through the body that
+fused_attention.attention_body picks (launches counted per body as for
+kernel A); on a CPU tensor it runs the plain version,
 ops.attention.masked_attention, which the tests and chip_smoke.py also
 compare the kernel against. Like the TPU kernel it has no backward: on the
 card it refuses inputs that would record an autograd graph.
@@ -18,9 +20,9 @@ from typing import Optional
 
 import torch
 
-from . import cuda_lib
 from .attention import masked_attention
-from .fused_attention import MAX_SHARED_BYTES, shared_bytes
+from .fused_attention import (attention_body, check_body, count_launch,
+                              kernel_entry, launch, reset_launches)
 
 
 def graph_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -50,24 +52,18 @@ def graph_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             or key_mask.device != q.device or not key_mask.is_contiguous()):
         raise ValueError("key_mask must be a contiguous bool [B, N] tensor "
                          "on q's device")
-    if n < 1 or shared_bytes(n, dh) > MAX_SHARED_BYTES:
-        raise ValueError(f"N={n}, dh={dh} needs {shared_bytes(n, dh)} bytes "
-                         f"of shared memory; the kernel holds at most "
-                         f"{MAX_SHARED_BYTES}")
+    if n < 1:
+        raise ValueError("q holds no node")
+    body = attention_body(n, dh, q.dtype)
+    check_body(body, n, dh, (q, k, v))
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    lib = cuda_lib.library()
-    fn = (lib.cdll.llamole_graph_attention_bf16 if q.dtype == torch.bfloat16
-          else lib.cdll.llamole_graph_attention_f32)
-    with torch.cuda.device(q.device):   # the C launch uses the current one
-        stream = torch.cuda.current_stream().cuda_stream
-        code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  key_mask.data_ptr(), out.data_ptr(), b, heads, n, dh,
-                  stream)
-    lib.check(code, "graph_attention launch")
-    graph_attention.launches += 1
+    launch(kernel_entry("graph", body, q.dtype), q.device,
+           "graph_attention launch", q.data_ptr(), k.data_ptr(),
+           v.data_ptr(), key_mask.data_ptr(), out.data_ptr(), b, heads, n, dh)
+    count_launch(graph_attention, body)
     return out
 
 
-graph_attention.launches = 0
+reset_launches(graph_attention)

@@ -34,8 +34,8 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
-from llamole_tpu.utils.constants import MOL_PROPERTIES
-from llamole_tpu.utils.logging import get_logger
+from .utils.constants import MOL_PROPERTIES
+from .utils.logging import get_logger
 
 from .models.composite import GenerationSettings
 
@@ -324,9 +324,9 @@ def resolve_device(device) -> torch.device:
 
 def _build_server(config_path, device="cuda") -> DesignServer:
     """Config YAML (or dict) -> started DesignServer on `device`.
-    The YAML parser is llamole_tpu.config (JAX-free, needs PyYAML)."""
+    The YAML parser is config/ (needs PyYAML)."""
     device = resolve_device(device)
-    from llamole_tpu.config import get_infer_args
+    from .config import get_infer_args
 
     from .models.loader import build_graph_lm
 
@@ -364,7 +364,7 @@ def main(argv=None) -> None:
         prog="python -m llamole_tpu_torch.serve",
         description="JSONL design / retrosynthesis serving on stdin/stdout")
     ap.add_argument("config", nargs="?", default=None,
-                    help="inference YAML (llamole_tpu.config)")
+                    help="inference YAML (config/args.py)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; 'cpu' to serve "
                          "without a card)")

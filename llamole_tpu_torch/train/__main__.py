@@ -1,7 +1,7 @@
 """python -m llamole_tpu_torch.train <config.yaml> [--device cpu]
 
 Runs run_mmsft with the config's arguments (parsed by
-llamole_tpu.config.get_train_args, which needs PyYAML) on the card, or on
+config.get_train_args, which needs PyYAML) on the card, or on
 the CPU when --device cpu is given.
 """
 
@@ -15,7 +15,7 @@ def main(argv=None) -> int:
     parser.add_argument("--device", default="cuda",
                         help="cuda (default; raises without a card) or cpu")
     opts = parser.parse_args(argv)
-    from llamole_tpu.config import get_train_args
+    from ..config import get_train_args
 
     from .workflow import run_mmsft
     metrics = run_mmsft(*get_train_args(opts.config), device=opts.device)

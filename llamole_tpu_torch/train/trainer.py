@@ -30,8 +30,8 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
-from llamole_tpu.utils.constants import IGNORE_INDEX
-from llamole_tpu.utils.logging import JsonlLogger, get_logger
+from ..utils.constants import IGNORE_INDEX
+from ..utils.logging import JsonlLogger, get_logger
 
 from .optimizers import create_optimizer, global_norm
 

@@ -1,7 +1,7 @@
 """run_mmsft: multimodal supervised fine-tuning end to end (counterpart of
 llamole_tpu/train/workflow.py).
 
-Data (llamole_tpu.data, numpy and JAX-free, shared with the JAX package):
+Data (the port's data/, numpy only, a copy of the JAX package's):
 the MolQA records tokenised by the template, a val_size split off the
 front, SeqGraphCollator batches in a seeded per-epoch shuffle (a resumed
 run skips the batches it already consumed). The model trains on an
@@ -21,10 +21,10 @@ from typing import Any, Dict, Iterator, List
 import numpy as np
 import torch
 
-from llamole_tpu.data.collator import SeqGraphCollator
-from llamole_tpu.data.loader import get_dataset
-from llamole_tpu.utils.constants import IGNORE_INDEX
-from llamole_tpu.utils.logging import get_logger
+from ..data.collator import SeqGraphCollator
+from ..data.loader import get_dataset
+from ..utils.constants import IGNORE_INDEX
+from ..utils.logging import get_logger
 
 from .trainer import Trainer, find_last_checkpoint
 

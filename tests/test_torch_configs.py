@@ -1,8 +1,10 @@
 """llamole_tpu_torch's re-declared configs stay equal to the JAX ones, and
-the port never imports JAX."""
+the port never imports JAX nor anything of the JAX package."""
 
+import ast
 import dataclasses
 import os
+import pathlib
 import subprocess
 import sys
 
@@ -36,7 +38,8 @@ def test_port_imports_no_jax():
         "import importlib, pkgutil, sys\n"
         "import llamole_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
-        "'llamole_tpu_torch.')]\n"
+        "'llamole_tpu_torch.') if m.ispkg or m.module_finder.find_spec("
+        "m.name).origin.endswith('.py')]   # not the built chemkit.so\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "assert len(names) >= 15, names\n"
@@ -48,3 +51,102 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=root,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
+
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+# Installed first in the subprocess below: any import of the JAX package
+# (at module top or deferred inside a function) raises.
+_REFUSE_JAX_PACKAGE = """
+import importlib.abc, sys
+class _RefuseJaxPackage(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name == "llamole_tpu" or name.startswith("llamole_tpu."):
+            raise ImportError(f"the port imported {name}")
+        return None
+sys.meta_path.insert(0, _RefuseJaxPackage())
+"""
+
+_DRIVE_THE_PORT = r"""
+import dataclasses, importlib, io, json, pkgutil, tempfile
+import torch
+import llamole_tpu_torch as pkg
+for m in pkgutil.walk_packages(pkg.__path__, "llamole_tpu_torch."):
+    if m.ispkg or m.module_finder.find_spec(m.name).origin.endswith(".py"):
+        importlib.import_module(m.name)   # not the built chemkit.so
+
+from llamole_tpu_torch.config import get_infer_args, get_train_args
+from llamole_tpu_torch.models.composite import GenerationSettings
+from llamole_tpu_torch.models.loader import build_graph_lm
+from llamole_tpu_torch.serve import DesignServer, serve_stream
+from llamole_tpu_torch.train.workflow import run_mmsft
+
+torch.set_num_threads(1)
+model_args, data_args, _, ft_args, _ = get_infer_args(
+    "config/smoke/tiny_eval.yaml")
+model, tok = build_graph_lm(model_args, data_args, ft_args, device="cpu",
+                            generate_mode=True)
+gen = GenerationSettings(max_new_tokens=4)
+server = DesignServer(model, tok, batch_size=2, max_wait_s=0.1, gen=gen,
+                      retro_iterations=1, retro_max_time=60.0).start()
+out = io.StringIO()
+try:
+    serve_stream(server, io.StringIO(
+        json.dumps({"prompt": "Design.", "property": {"SA": 2.0}}) + "\n"
+        + json.dumps({"prompt": "Plan it.", "retro": True}) + "\n"), out,
+        join_timeout=300)
+finally:
+    server.stop()
+answers = [json.loads(line) for line in out.getvalue().splitlines()]
+assert len(answers) == 2 and not any("error" in a for a in answers), answers
+# a route search on an ester the built-in templates split: the planner,
+# the template predictor, template application and the fingerprints
+plans = model.retrosynthesize_batch(
+    ["CC(=O)OCC"], generator=torch.Generator().manual_seed(0),
+    iterations=1, gen=GenerationSettings(max_new_tokens=4, do_sample=False))
+assert plans["CC(=O)OCC"]["expansions"] >= 1, plans
+
+args = list(get_train_args("config/smoke/tiny_train.yaml"))
+with tempfile.TemporaryDirectory() as out_dir:
+    args[2] = dataclasses.replace(args[2], output_dir=out_dir, max_steps=1)
+    metrics = run_mmsft(*args, device="cpu")
+assert metrics["train_steps"] == 1, metrics
+bad = [m for m in sys.modules if m == "llamole_tpu"
+       or m.startswith("llamole_tpu.") or m in ("jax", "flax", "optax")]
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_port_runs_with_the_jax_package_refused():
+    """Every module of the port imports, and a design + retro request
+    through DesignServer and one training step on the smoke configs run,
+    with any import of llamole_tpu refused: deferred imports included."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _REFUSE_JAX_PACKAGE + _DRIVE_THE_PORT],
+        cwd=ROOT, capture_output=True, text=True, timeout=600,
+        env={**os.environ, "OMP_NUM_THREADS": "1"})
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.strip().endswith("ok")
+
+
+def _imports_of_the_jax_package(path):
+    tree = ast.parse(path.read_text(), str(path))
+    found = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        found += [f"{path.name}:{node.lineno} {n}" for n in names
+                  if n == "llamole_tpu" or n.startswith("llamole_tpu.")]
+    return found
+
+
+@pytest.mark.parametrize("path", sorted(
+    [p for p in (ROOT / "llamole_tpu_torch").rglob("*.py")]
+    + [ROOT / "chip_smoke.py"]), ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_source_of_the_port_imports_the_jax_package(path):
+    assert _imports_of_the_jax_package(path) == []

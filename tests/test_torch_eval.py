@@ -17,10 +17,8 @@ import numpy as np
 import pytest
 import torch
 
-from llamole_tpu.config import (DataArguments, FinetuningArguments,
-                                GeneratingArguments, ModelArguments,
-                                TrainingArguments)
-from llamole_tpu.data.template import get_template
+from llamole_tpu import config as jax_config
+from llamole_tpu.data.template import get_template as jax_get_template
 from llamole_tpu.data.tokenizer import ByteTokenizer
 from llamole_tpu.eval.dataset import MolQADataset as JaxDataset
 from llamole_tpu.eval.scoring import (
@@ -37,6 +35,10 @@ from llamole_tpu.models.graphdit.config import (
     build_data_info_from_smiles as jax_data_info)
 from llamole_tpu.models.loader import make_fallback_predictor
 from llamole_tpu.utils.constants import SPECIAL_TOKENS
+from llamole_tpu_torch import config as torch_config
+from llamole_tpu_torch.data.template import get_template
+from llamole_tpu_torch.data.tokenizer import \
+    ByteTokenizer as TorchByteTokenizer
 from llamole_tpu_torch.eval.dataset import MolQADataset
 from llamole_tpu_torch.eval.scoring import (frechet_graphclip_distance,
                                             generation_set_metrics,
@@ -51,6 +53,8 @@ from llamole_tpu_torch.models.graphdit import (GraphDiT, GraphDiTConfig,
                                                build_data_info_from_smiles)
 from llamole_tpu_torch.models.loader import (
     make_fallback_predictor as torch_predictor)
+from llamole_tpu_torch.utils.constants import \
+    SPECIAL_TOKENS as TORCH_SPECIAL_TOKENS
 from llamole_tpu_torch.weights import graph_lm_state_dict
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -79,12 +83,16 @@ def stacks():
         jax.random.PRNGKey(1), frozen_np))
     frozen = jax.tree.map(jnp.asarray, frozen_np)
     trainable = jax.tree.map(jnp.asarray, trainable_np)
+    # the port's model holds the port's own tokenizer (same ids)
+    ttok = TorchByteTokenizer(TORCH_SPECIAL_TOKENS)
+    ttok.padding_side = "left"
+    assert {t: ttok.token_to_id(t) for t in TORCH_SPECIAL_TOKENS} == ids
     tm = GraphLM(LLM(LLMConfig.tiny(), dtype=torch.float32),
                  GraphDiT(GraphDiTConfig(**DIT),
                           build_data_info_from_smiles(CORPUS, 10)),
                  torch_predictor(),
                  TorchCLIP(TorchCLIPConfig(num_layer=2, hidden_size=64)),
-                 tok, ids, lora_rank=4)
+                 ttok, ids, lora_rank=4)
     tm.load_state_dict(graph_lm_state_dict(frozen_np, trainable_np))
     # the same designs from both samplers (see the module docstring)
     jm.graph_decoder.generate = lambda *a, **k: list(DESIGNS)
@@ -98,10 +106,12 @@ def _records(n=2):
 
 
 def test_molqa_dataset_matches_jax(stacks):
-    tok = stacks[0]
-    template = get_template("default", tok)
-    ours = list(MolQADataset(_records(3), tok, template, 96).batches(2))
-    theirs = list(JaxDataset(_records(3), tok, template, 96).batches(2))
+    tok, ttok = stacks[0], stacks[4].tokenizer
+    ours = list(MolQADataset(_records(3), ttok, get_template("default", ttok),
+                             96).batches(2))
+    theirs = list(JaxDataset(_records(3), tok,
+                             jax_get_template("default", tok),
+                             96).batches(2))
     assert len(ours) == len(theirs) == 2
     for (a, sa), (b, sb) in zip(ours, theirs):
         assert sa == sb and a.keys() == b.keys()
@@ -132,23 +142,24 @@ def test_generation_scores_match_jax(stacks):
 
 def test_run_molqa_matches_jax(stacks, tmp_path):
     tok, jm, frozen, trainable, tm = stacks
-    data_args = DataArguments(dataset="molqa_drug_examples",
-                              dataset_dir=os.path.join(ROOT, "data"),
-                              template="default", cutoff_len=96,
-                              learned_query_size=8)
-    gen_args = GeneratingArguments(max_new_tokens=8, do_sample=False,
-                                   speculative_tokens=0)
     kw = dict(max_records=2, iterations=2, expansion_topk=16,
               max_planning_time=1e4, score=True)
     summaries = []
-    for name, run, prebuilt in (
-            ("jax", jax_run_molqa, (jm, frozen, trainable, tok)),
-            ("torch", run_molqa, (tm, tok))):
+    # each side gets its own package's argument objects and tokenizer
+    for name, run, prebuilt, cfg in (
+            ("jax", jax_run_molqa, (jm, frozen, trainable, tok), jax_config),
+            ("torch", run_molqa, (tm, tm.tokenizer), torch_config)):
         out = tmp_path / name
-        results = run(ModelArguments(model_name_or_path=""), data_args,
-                      TrainingArguments(per_device_eval_batch_size=2,
-                                        output_dir=str(out), seed=0),
-                      FinetuningArguments(lora_rank=4), gen_args,
+        data_args = cfg.DataArguments(
+            dataset="molqa_drug_examples",
+            dataset_dir=os.path.join(ROOT, "data"), template="default",
+            cutoff_len=96, learned_query_size=8)
+        gen_args = cfg.GeneratingArguments(max_new_tokens=8, do_sample=False,
+                                           speculative_tokens=0)
+        results = run(cfg.ModelArguments(model_name_or_path=""), data_args,
+                      cfg.TrainingArguments(per_device_eval_batch_size=2,
+                                            output_dir=str(out), seed=0),
+                      cfg.FinetuningArguments(lora_rank=4), gen_args,
                       prebuilt=prebuilt, **kw)
         with open(out / "molqa_results.json") as f:
             summaries.append((results, json.load(f)["summary"]))

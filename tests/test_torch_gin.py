@@ -23,6 +23,8 @@ from llamole_tpu.models.loader import _FALLBACK_TEMPLATES as JAX_TEMPLATES
 from llamole_tpu.models.loader import make_fallback_predictor as jax_predictor
 from llamole_tpu.models.retro.model import CostMLP as JaxCostMLP
 from llamole_tpu.ops.gin import gin_conv_apply, gin_conv_init
+from llamole_tpu_torch.chem.featurize import \
+    smiles_to_graph as torch_smiles_to_graph
 from llamole_tpu_torch.models.graphclip import GraphCLIP, GraphCLIPConfig
 from llamole_tpu_torch.models.loader import (_FALLBACK_TEMPLATES,
                                              make_fallback_predictor)
@@ -265,9 +267,10 @@ def test_sample_templates_and_inventory_match_jax(predictors):
     assert tm.available == jm.available
     c = np.random.default_rng(8).normal(size=24).astype(np.float32)
     for smi in ("CC(=O)OCC", "CC(=O)NCC", "c1ccccc1"):
-        g = smiles_to_graph(smi)
-        got = tm.sample_templates(g, _t(c), smi, topk=16)
-        want = jm.sample_templates(params, g, jnp.asarray(c), smi, topk=16)
+        got = tm.sample_templates(torch_smiles_to_graph(smi), _t(c), smi,
+                                  topk=16)
+        want = jm.sample_templates(params, smiles_to_graph(smi),
+                                   jnp.asarray(c), smi, topk=16)
         assert got[0] == want[0] and got[2] == want[2]
         np.testing.assert_allclose(got[1], want[1], atol=1e-5)
 

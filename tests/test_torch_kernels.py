@@ -12,7 +12,7 @@ import torch
 
 from llamole_tpu_torch.ops.attention import masked_attention
 from llamole_tpu_torch.ops.fused_attention import (
-    fused_attention_reference, fused_block_attention)
+    attention_body, fused_attention_reference, fused_block_attention)
 from llamole_tpu_torch.ops.gin_aggregate import (
     gin_aggregate, gin_aggregate_backward, gin_aggregate_backward_reference,
     gin_aggregate_reference)
@@ -50,10 +50,14 @@ def _inputs(dev, dtype, b, n, h, heads, seed=0):
 def test_kernel_matches_plain(cuda, shape, dtype, tol):
     b, n, h, heads = shape
     qkv, mask, norms = _inputs(cuda, dtype, *shape)
-    before = fused_block_attention.launches
+    counter = f"launches_{attention_body(n, h // heads, dtype)}"
+    before = (fused_block_attention.launches,
+              getattr(fused_block_attention, counter))
     out = fused_block_attention(qkv, mask, *norms, heads)
     torch.cuda.synchronize()
-    assert fused_block_attention.launches == before + 1
+    assert (fused_block_attention.launches,
+            getattr(fused_block_attention, counter)) == (before[0] + 1,
+                                                         before[1] + 1)
     ref = fused_attention_reference(qkv, mask, *norms, heads)
     assert out.shape == (b, n, h) and out.dtype == dtype
     err = float(((out.float() - ref.float()) * mask[..., None]).abs().max())
@@ -76,6 +80,47 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         fused_block_attention(qkv.clone().requires_grad_(), mask, *norms, 4)
     with torch.no_grad():
         fused_block_attention(qkv.clone().requires_grad_(), mask, *norms, 4)
+    # the tensor-core body copies 16-byte rows: a misaligned view is refused
+    x16, _, n16 = _inputs(cuda, torch.bfloat16, 2, 8, 64, 4)
+    shifted = torch.empty(x16.numel() + 1, dtype=torch.bfloat16,
+                          device=cuda)[1:].view(x16.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        fused_block_attention(shifted, mask, *n16, 4)
+
+
+def _padded_masks(dev, gen, b, n):
+    """Random key masks that keep node 0, with graph 0 a molecule padded
+    by its last 14 nodes and graph 1 (when there is one) masked entirely."""
+    mask = torch.rand(b, n, device=dev, generator=gen) > 0.3
+    mask[:, 0] = True
+    mask[0, max(n - 14, 1):] = False
+    if b > 1:
+        mask[1] = False
+    return mask
+
+
+@pytest.mark.parametrize("shape", [MAIN_SHAPE, (5, 17, 128, 4),
+                                   (8, 64, 256, 8),
+                                   (4, 9, 64, 4),       # dh 16
+                                   (3, 33, 512, 4)])    # dh 128
+def test_tensor_core_body_matches_plain(cuda, shape):
+    """Kernel A's bf16 tensor-core body on every row (masking is on the
+    key side only), padded and fully masked graphs included; the launch
+    counts on the mma body."""
+    b, n, h, heads = shape
+    assert attention_body(n, h // heads, torch.bfloat16) == "mma"
+    qkv, _, norms = _inputs(cuda, torch.bfloat16, *shape, seed=7)
+    mask = _padded_masks(cuda, torch.Generator(device=cuda).manual_seed(8),
+                         b, n)
+    before = (fused_block_attention.launches_mma,
+              fused_block_attention.launches_fma)
+    out = fused_block_attention(qkv, mask, *norms, heads)
+    torch.cuda.synchronize()
+    assert (fused_block_attention.launches_mma,
+            fused_block_attention.launches_fma) == (before[0] + 1, before[1])
+    ref = fused_attention_reference(qkv, mask, *norms, heads)
+    assert torch.isfinite(out).all()
+    assert float((out.float() - ref.float()).abs().max()) < 2e-2
 
 
 # kernel B (GIN aggregation): the path shapes (GraphCLIP splice of a width-8
@@ -239,10 +284,12 @@ def test_graph_attention_kernel_matches_plain(cuda, shape, dtype, tol):
                for _ in range(3))
     mask = torch.rand(shape[0], shape[2], device=cuda, generator=gen) > 0.3
     mask[:, 0] = True
-    before = graph_attention.launches
+    counter = f"launches_{attention_body(shape[2], shape[3], dtype)}"
+    before = graph_attention.launches, getattr(graph_attention, counter)
     out = graph_attention(q, k, v, mask)
     torch.cuda.synchronize()
-    assert graph_attention.launches == before + 1
+    assert (graph_attention.launches, getattr(graph_attention, counter)) == (
+        before[0] + 1, before[1] + 1)
     ref = masked_attention(q, k, v, key_mask=mask)
     assert out.shape == shape and out.dtype == dtype
     assert float((out.float() - ref.float()).abs().max()) < tol
@@ -265,3 +312,24 @@ def test_graph_attention_kernel_rejects_what_it_does_not_take(cuda):
     big = torch.randn(1, 1, 256, 256, device=cuda)
     with pytest.raises(ValueError, match="shared memory"):
         graph_attention(big, big, big)
+
+
+@pytest.mark.parametrize("shape", [(16, 16, 50, 64), (3, 2, 7, 16),
+                                   (2, 4, 64, 32), (2, 3, 40, 128)])
+def test_graph_attention_tensor_core_body_matches_plain(cuda, shape):
+    """Kernel D's bf16 tensor-core body at the denoiser's head shape and at
+    every head width it takes, with a padded and a fully masked graph, on
+    the mma counter."""
+    assert attention_body(shape[2], shape[3], torch.bfloat16) == "mma"
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    q, k, v = (torch.randn(shape, device=cuda, generator=gen).bfloat16()
+               for _ in range(3))
+    mask = _padded_masks(cuda, gen, shape[0], shape[2])
+    before = graph_attention.launches_mma, graph_attention.launches_fma
+    out = graph_attention(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert (graph_attention.launches_mma, graph_attention.launches_fma) == (
+        before[0] + 1, before[1])
+    ref = masked_attention(q, k, v, key_mask=mask)
+    assert torch.isfinite(out).all()
+    assert float((out.float() - ref.float()).abs().max()) < 2e-2

@@ -18,7 +18,8 @@ from llamole_tpu.ops.pallas.graph_attention import (
     graph_attention as jax_graph_attention)
 from llamole_tpu_torch.ops import nn as tnn
 from llamole_tpu_torch.ops.fused_attention import (
-    fused_attention_reference, fused_block_attention)
+    attention_body, fused_attention_reference, fused_block_attention,
+    shared_bytes)
 from llamole_tpu_torch.ops.graph_attention import graph_attention
 
 ATOL_NN = 1e-5      # f32, a handful of ops
@@ -136,3 +137,36 @@ def test_graph_attention_matches_jax_kernel(shape):
         np.testing.assert_allclose(got, want, atol=2e-5, rtol=2e-5)
     with pytest.raises(ValueError, match="unsupported device"):
         graph_attention(*(_t(a).to("meta") for a in (q, k, v)))
+
+
+@pytest.mark.parametrize("n,dh,dtype,body", [
+    (50, 64, torch.bfloat16, "mma"),    # the denoiser's path (A) and D's
+    (17, 32, torch.bfloat16, "mma"),
+    (64, 32, torch.bfloat16, "mma"),
+    (1, 16, torch.bfloat16, "mma"),
+    (9, 128, torch.bfloat16, "mma"),
+    (50, 64, torch.float32, "fma"),     # f32: the JAX contract, f32 denoiser
+    (13, 24, torch.bfloat16, "fma"),    # dh not a multiple of 16
+    (13, 24, torch.float32, "fma"),
+    (65, 64, torch.bfloat16, "fma"),    # more keys than four warps of 16
+    (50, 256, torch.bfloat16, "fma"),
+])
+def test_attention_body_routing(n, dh, dtype, body):
+    assert attention_body(n, dh, dtype) == body
+
+
+@pytest.mark.parametrize("n,dh,body,want", [
+    # mma: q, k, v as [16 * ceil(N / 16), dh + 8] bf16 + an f32 mask row
+    (50, 64, "mma", 3 * 64 * 72 * 2 + 64 * 4),
+    (17, 32, "mma", 3 * 32 * 40 * 2 + 32 * 4),
+    (16, 16, "mma", 3 * 16 * 24 * 2 + 16 * 4),
+    # fma: q, k, v as [N, dh + 1] and the [N, N + 1] logits, f32
+    (50, 64, "fma", (3 * 50 * 65 + 50 * 51) * 4),
+    (13, 24, "fma", (3 * 13 * 25 + 13 * 14) * 4),
+])
+def test_shared_bytes_layout(n, dh, body, want):
+    assert shared_bytes(n, dh, body) == want
+    # the tensor-core body of the main shape fits the default 48 KB and
+    # leaves room for eight blocks on an SM
+    assert shared_bytes(50, 64, "mma") < 48 * 1024 < shared_bytes(50, 64,
+                                                                 "fma")

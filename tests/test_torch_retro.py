@@ -35,6 +35,10 @@ from llamole_tpu_torch.models.graphdit import (GraphDiT, GraphDiTConfig,
                                                build_data_info_from_smiles)
 from llamole_tpu_torch.models.loader import (
     make_fallback_predictor as torch_predictor)
+from llamole_tpu_torch.data.tokenizer import \
+    ByteTokenizer as TorchByteTokenizer
+from llamole_tpu_torch.utils.constants import \
+    SPECIAL_TOKENS as TORCH_SPECIAL_TOKENS
 from llamole_tpu_torch.weights import graph_lm_state_dict
 
 ATOL = 1e-4
@@ -77,12 +81,16 @@ def stacks():
     frozen = jax.tree.map(jnp.asarray, frozen_np)
     trainable = jax.tree.map(jnp.asarray, trainable_np)
 
+    # the port's model holds the port's own tokenizer (same ids)
+    ttok = TorchByteTokenizer(TORCH_SPECIAL_TOKENS)
+    ttok.padding_side = "left"
+    assert {t: ttok.token_to_id(t) for t in TORCH_SPECIAL_TOKENS} == ids
     tm = GraphLM(LLM(LLMConfig.tiny(), dtype=torch.float32),
                  GraphDiT(GraphDiTConfig(**DIT),
                           build_data_info_from_smiles(CORPUS, 10)),
                  torch_predictor(),
                  TorchCLIP(TorchCLIPConfig(num_layer=2, hidden_size=64)),
-                 tok, ids, lora_rank=4)
+                 ttok, ids, lora_rank=4)
     tm.load_state_dict(graph_lm_state_dict(frozen_np, trainable_np))
     return tok, jm, frozen, trainable, tm
 

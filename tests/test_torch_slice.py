@@ -39,6 +39,10 @@ from llamole_tpu_torch.models.loader import (build_graph_lm_from_configs,
                                              offline_tokenizer)
 from llamole_tpu_torch.serve import (DesignServer, main as serve_main,
                                      serve_jsonl, serve_stream)
+from llamole_tpu_torch.data.tokenizer import \
+    ByteTokenizer as TorchByteTokenizer
+from llamole_tpu_torch.utils.constants import \
+    SPECIAL_TOKENS as TORCH_SPECIAL_TOKENS
 from llamole_tpu_torch.weights import graph_lm_state_dict
 
 CORPUS = ["CCO", "c1ccccc1", "CC(=O)O", "CCN", "C1CC1", "c1ccncc1"]
@@ -70,12 +74,16 @@ def stacks():
     frozen = jax.tree.map(np.asarray, frozen)
     trainable = jax.tree.map(np.asarray, trainable)
 
+    # the port's model holds the port's own tokenizer (same ids)
+    ttok = TorchByteTokenizer(TORCH_SPECIAL_TOKENS)
+    ttok.padding_side = "left"
+    assert {t: ttok.token_to_id(t) for t in TORCH_SPECIAL_TOKENS} == ids
     tm = GraphLM(LLM(LLMConfig.tiny(), dtype=torch.float32),
                  GraphDiT(GraphDiTConfig(**DIT),
                           build_data_info_from_smiles(CORPUS, 10)),
                  torch_predictor(),
                  TorchCLIP(TorchCLIPConfig(num_layer=2, hidden_size=64)),
-                 tok, ids, lora_rank=4)
+                 ttok, ids, lora_rank=4)
     tm.load_state_dict(graph_lm_state_dict(frozen, trainable))
     return tok, jm, frozen, trainable, tm
 

@@ -23,10 +23,10 @@ import optax
 import pytest
 import torch
 
-from llamole_tpu.config import TrainingArguments, get_train_args
-from llamole_tpu.data.collator import SeqGraphCollator
-from llamole_tpu.data.loader import get_dataset
-from llamole_tpu.data.tokenizer import ByteTokenizer
+from llamole_tpu.config import TrainingArguments as JaxTrainingArguments
+from llamole_tpu.data.collator import SeqGraphCollator as JaxCollator
+from llamole_tpu.data.loader import get_dataset as jax_get_dataset
+from llamole_tpu.data.tokenizer import ByteTokenizer as JaxByteTokenizer
 from llamole_tpu.models.composite import GraphLM as JaxGraphLM
 from llamole_tpu.models.gllm import LLM as JaxLLM
 from llamole_tpu.models.gllm import LLMConfig as JaxLLMConfig
@@ -40,6 +40,10 @@ from llamole_tpu.models.loader import make_fallback_predictor
 from llamole_tpu.train.trainer import Trainer as JaxTrainer
 from llamole_tpu.train.trainer import create_optimizer as jax_optimizer
 from llamole_tpu.utils.constants import SPECIAL_TOKENS
+from llamole_tpu_torch.config import TrainingArguments, get_train_args
+from llamole_tpu_torch.data.collator import SeqGraphCollator
+from llamole_tpu_torch.data.loader import get_dataset
+from llamole_tpu_torch.data.tokenizer import ByteTokenizer
 from llamole_tpu_torch.models.composite import GraphLM
 from llamole_tpu_torch.models.gllm import LLM, LLMConfig
 from llamole_tpu_torch.models.graphclip import GraphCLIP as TorchCLIP
@@ -52,6 +56,8 @@ from llamole_tpu_torch.models.loader import (
 from llamole_tpu_torch.train.optimizers import create_optimizer, make_schedule
 from llamole_tpu_torch.train.trainer import Trainer, token_accuracy
 from llamole_tpu_torch.train.workflow import run_mmsft
+from llamole_tpu_torch.utils.constants import \
+    SPECIAL_TOKENS as TORCH_SPECIAL_TOKENS
 from llamole_tpu_torch.weights import graph_lm_state_dict, trainable_state_dict
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -95,8 +101,10 @@ def _jax_model(tok, loss_weight_design=1.0):
         finetuning_type="lora", loss_weight_design=loss_weight_design)
 
 
-def _torch_model(tok, frozen, trainable, loss_weight_design=1.0):
-    ids = {t: tok.token_to_id(t) for t in SPECIAL_TOKENS}
+def _torch_model(frozen, trainable, loss_weight_design=1.0):
+    tok = ByteTokenizer(TORCH_SPECIAL_TOKENS)
+    tok.padding_side = "left"
+    ids = {t: tok.token_to_id(t) for t in TORCH_SPECIAL_TOKENS}
     tm = GraphLM(LLM(LLMConfig.tiny(), dtype=torch.float32),
                  GraphDiT(GraphDiTConfig(**DIT),
                           build_data_info_from_smiles(CORPUS, MAX_N)),
@@ -109,7 +117,7 @@ def _torch_model(tok, frozen, trainable, loss_weight_design=1.0):
 
 @pytest.fixture(scope="module")
 def setup():
-    tok = ByteTokenizer(SPECIAL_TOKENS)
+    tok = JaxByteTokenizer(SPECIAL_TOKENS)
     tok.padding_side = "left"
     jm = _jax_model(tok)
     frozen = jm.init_frozen(jax.random.PRNGKey(0))
@@ -123,11 +131,22 @@ def setup():
         dataset="molqa_train_examples", dataset_dir=os.path.join(ROOT, "data"),
         max_samples=None, template="default", learned_query_size=8,
         cutoff_len=768, train_on_prompt=False)
-    bank, inputs = get_dataset(None, data_args, None, tok)
-    collator = SeqGraphCollator(tokenizer=tok, mol_id_to_graph=bank,
-                                max_len=768, max_nodes=MAX_N, max_graphs=16,
-                                max_retro=16)
-    batches = [collator(inputs[i:i + 2]) for i in (0, 2)]
+    # the port's data pipeline makes the batches both models consume;
+    # they equal the JAX pipeline's
+    sides = []
+    for load, collate, t in (
+            (jax_get_dataset, JaxCollator, tok),
+            (get_dataset, SeqGraphCollator,
+             ByteTokenizer(TORCH_SPECIAL_TOKENS))):
+        bank, inputs = load(None, data_args, None, t)
+        collator = collate(tokenizer=t, mol_id_to_graph=bank, max_len=768,
+                           max_nodes=MAX_N, max_graphs=16, max_retro=16)
+        sides.append([collator(inputs[i:i + 2]) for i in (0, 2)])
+    jax_batches, batches = sides
+    for a, b in zip(jax_batches, batches):
+        assert a.keys() == b.keys()
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
     return tok, jm, frozen, trainable, batches
 
 
@@ -162,7 +181,7 @@ def test_loss_and_gradients_match_jax(setup):
         lambda tr: jm.loss_fn(tr, frozen, key, jb, train=False),
         has_aux=True)(jax.tree.map(jnp.asarray, trainable))
 
-    tm = _torch_model(tok, frozen, trainable)
+    tm = _torch_model(frozen, trainable)
     total, aux = tm.loss(batch, train=False,
                          noisy=_design_draw(jm, batch, key))
     total.backward()
@@ -192,7 +211,7 @@ def test_training_loss_draws_noise_and_runs_the_plain_attention(
     condition dropout, property noise), and the denoiser never reaches the
     kernel-A wrapper."""
     tok, jm, frozen, trainable, batches = setup
-    tm = _torch_model(tok, frozen, trainable)
+    tm = _torch_model(frozen, trainable)
     from llamole_tpu_torch.models.graphdit import denoiser
 
     def refuse(*args, **kwargs):
@@ -211,10 +230,10 @@ def test_training_loss_draws_noise_and_runs_the_plain_attention(
 def test_schedules_match_optax():
     for sched_type in ("cosine", "linear", "constant"):
         for steps, ratio in ((2, 0.1), (50, 0.1), (40, 0.0), (7, 0.5)):
-            args = TrainingArguments(learning_rate=3e-4, warmup_ratio=ratio,
-                                     lr_scheduler_type=sched_type)
-            _, want = jax_optimizer(args, steps)
-            got = make_schedule(args, steps)
+            kw = dict(learning_rate=3e-4, warmup_ratio=ratio,
+                      lr_scheduler_type=sched_type)
+            _, want = jax_optimizer(JaxTrainingArguments(**kw), steps)
+            got = make_schedule(TrainingArguments(**kw), steps)
             for count in range(steps + 3):
                 # optax evaluates in f32
                 np.testing.assert_allclose(got(count), float(want(count)),
@@ -233,15 +252,15 @@ def test_accumulated_clipped_update_matches_optax():
             for k, s in shapes.items()}
     grads = [{k: (rng.normal(size=s) * 3).astype(np.float32)
               for k, s in shapes.items()} for _ in range(4)]
-    args = TrainingArguments(learning_rate=1e-2, gradient_accumulation_steps=2,
-                             weight_decay=0.1, max_grad_norm=1.0,
-                             lr_scheduler_type="linear", warmup_steps=1)
-    tx, _ = jax_optimizer(args, 4)
+    kw = dict(learning_rate=1e-2, gradient_accumulation_steps=2,
+              weight_decay=0.1, max_grad_norm=1.0, lr_scheduler_type="linear",
+              warmup_steps=1)
+    tx, _ = jax_optimizer(JaxTrainingArguments(**kw), 4)
     j_params = {k: jnp.asarray(v) for k, v in init.items()}
     state = tx.init(j_params)
     params = {k: torch.nn.Parameter(torch.from_numpy(v.copy()))
               for k, v in init.items()}
-    opt, _ = create_optimizer(args, 4, params)
+    opt, _ = create_optimizer(TrainingArguments(**kw), 4, params)
     applied = []
     for g in grads:
         upd, state = tx.update({k: jnp.asarray(v) for k, v in g.items()},
@@ -264,13 +283,13 @@ def test_token_accuracy():
     assert float(token_accuracy(logits, labels)) == 0.5
 
 
-def _train_args(out_dir, **kw):
+def _train_args(cls, out_dir, **kw):
     base = dict(output_dir=str(out_dir), per_device_train_batch_size=2,
                 gradient_accumulation_steps=2, learning_rate=1e-3,
                 lr_scheduler_type="constant", logging_steps=1, save_steps=100,
                 num_train_epochs=2.0, seed=0, max_grad_norm=1.0)
     base.update(kw)
-    return TrainingArguments(**base)
+    return cls(**base)
 
 
 def test_four_trainer_steps_match_jax(setup, tmp_path):
@@ -281,13 +300,13 @@ def test_four_trainer_steps_match_jax(setup, tmp_path):
     jm = _jax_model(tok, loss_weight_design=0.0)
     stream = [batches[0], batches[1], batches[1], batches[0]]
 
-    j_args = _train_args(tmp_path / "jax")
+    j_args = _train_args(JaxTrainingArguments, tmp_path / "jax")
     jt = JaxTrainer(jm.loss_fn, jax.tree.map(jnp.asarray, frozen), j_args, 2)
     j_state = jt.init_state(jax.tree.map(jnp.asarray, trainable), 0)
     j_state, _ = jt.train(j_state, iter(stream), 4)
 
-    tm = _torch_model(tok, frozen, trainable, loss_weight_design=0.0)
-    t_args = _train_args(tmp_path / "torch")
+    tm = _torch_model(frozen, trainable, loss_weight_design=0.0)
+    t_args = _train_args(TrainingArguments, tmp_path / "torch")
     tt = Trainer(lambda b, g: tm.loss(b, g, train=True),
                  tm.trainable_parameters(), t_args, 2)
     t_state, metrics = tt.train(tt.init_state(0), iter(stream), 4)
