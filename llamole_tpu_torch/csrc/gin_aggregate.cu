@@ -41,18 +41,48 @@
 //   dx[b, j, h]   = sum_i w[b, i, j, h]
 //   dtable[c, h]  = sum over (b, i, j) with e_ij = c of w[b, i, j, h]
 //
-// with the exact gelu' = Phi(v) + v * phi(v) (erff / expf). Like the
-// forward it is bound by loads, not arithmetic, and skips adj == 0 pairs
-// (uniform across the block). Design: one block per (graph b, chunk of
-// kChunk source nodes j); threads stride over H and walk column j of adj
-// and edge (staged in shared memory, so directed graphs are right too),
-// reading g[b, i, :] coalesced. dx is summed in f32 registers and written
-// once; each thread also sums its five dtable rows over the chunk in
-// registers and writes them as one partial per block. The partials
-// [B, chunks, 5, H] are summed afterwards in a fixed order (the wrapper's
-// torch.sum, as JAX sums the TPU kernel's per-graph partials outside it):
-// no float atomics, so two runs give the same bits. Outputs are f32; the
-// wrapper casts them to x's and table's types.
+// with the exact gelu' = Phi(v) + v * phi(v) (erff / expf), f32 sums, dx
+// rounded once to x's type. It is a gather and sum over the bonded pairs
+// (~242 of them x 300 channels on the training path's bank of 80 graphs,
+// only 8 of which hold a molecule), with no matrix product in it, so what
+// bounds it on an H100 is latency and wasted work, not bandwidth: the rows
+// of x and g it needs are few and scattered, and most of the bank is
+// padding. The design:
+//
+// - One block per (graph b, slice of kSlice = 128 channels), 8 warps. In
+//   one round trip every thread starts its loads of the table's five rows
+//   and of the graph's adj and classes (coalesced, 16 bytes where aligned);
+//   it keeps each non-zero entry in shared memory at [i][j] and sets bit i
+//   of column j's mask (an integer atomicOr: the same bits in any order).
+//   The masks are the graph's pair list in CSC form, (j, i) order.
+// - A graph without a bond (the bank's padding rows, found in the same
+//   barrier) writes its zero dx rows and zero dtable partial and returns.
+// - Warps take columns j in turn, lanes take channels: four a lane, one
+//   float4 (f32) or 8-byte (bf16) access when H % 4 == 0 and the rows are
+//   aligned, else four coalesced scalar accesses 32 channels apart. A warp
+//   walks only column j's set bits, four pairs at a time with predication
+//   so that four g rows are in flight together, reads x[b, j] once (only
+//   for a column with a pair), and writes dx[b, j] once (zeros for a
+//   column without one).
+// - gelu' depends on the pair's class, not on i, so the walk sums
+//   S[c] = sum of a_ij g[i] over the column's pairs of class c, and takes
+//   gelu'(x[j] + table[c]) once per class the column has:
+//   dx[j] = sum_c gelu'(.) S[c], and the same products go to dtable row c.
+//   A molecule's column has ~3 pairs of 1-2 classes, so erff and expf run
+//   about half as often as one per pair.
+// - dtable: each warp keeps the five class rows of its channels in
+//   registers; the block sums the warps' rows in a fixed warp order through
+//   shared memory and writes one partial per graph, [B, 5, H] f32. The
+//   wrapper sums the partials over B in a fixed order: no float atomics
+//   anywhere, so two runs give the same bits.
+//
+// Limits: shared memory holds the kept entries (8 N^2 bytes), the masks
+// (4 N ceil(N / 32) bytes) and the warps' 20 KB of dtable rows, whatever H
+// is (H only adds channel slices to the grid). Within the 227 KB a block
+// may opt into that allows N <= 161; the wrapper raises ValueError past it
+// (ops/gin_aggregate.py GIN_BWD_MAX_NODES). Registers are held to 128 a
+// thread, so that two blocks share an SM and the path bank's 240 blocks
+// run in one wave.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -138,73 +168,293 @@ int launch(const void* x, const void* edge, const void* adj, const void* table,
   return (int)cudaGetLastError();
 }
 
-constexpr int kChunk = 8;  // source nodes j per backward block
-
 __device__ __forceinline__ float dgelu_exact(float v) {
   const float cdf = 0.5f * (1.0f + erff(v * 0.70710678118654752f));
   const float pdf = expf(-0.5f * v * v) * 0.39894228040143268f;
   return cdf + v * pdf;
 }
 
+constexpr int kBwdWarps = 8;
+constexpr int kBwdThreads = kBwdWarps * 32;
+constexpr int kSlice = 128;  // channels per block: 32 lanes x 4
+
+// Channel h = s0 + slot of a lane's q-th value: slot = 4 * lane + q on the
+// vector path (one 16- or 8-byte access), lane + 32 * q on the scalar one
+// (four coalesced accesses).
+template <bool kVec>
+__device__ __forceinline__ int slot_of(int lane, int q) {
+  return kVec ? 4 * lane + q : lane + 32 * q;
+}
+
+// Four consecutive elements from a 4 * sizeof(T)-byte aligned address.
 template <typename T>
-__global__ void __launch_bounds__(kMaxThreads) gin_backward_kernel(
+__device__ __forceinline__ void vec4_load(const T* __restrict__ p, float v[4]) {
+  if constexpr (sizeof(T) == 4) {
+    const float4 f = *reinterpret_cast<const float4*>(p);
+    v[0] = f.x, v[1] = f.y, v[2] = f.z, v[3] = f.w;
+  } else {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+    const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+    v[0] = lo.x, v[1] = lo.y, v[2] = hi.x, v[3] = hi.y;
+  }
+}
+
+template <typename T, bool kVec>
+__device__ __forceinline__ void load4(const T* __restrict__ row, int s0,
+                                      int lane, int H, float v[4]) {
+  if constexpr (kVec) {
+    const int h = s0 + 4 * lane;  // H % 4 == 0: all four in range or none
+    if (h < H) {
+      vec4_load<T>(row + h, v);
+    } else {
+      v[0] = v[1] = v[2] = v[3] = 0.f;
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int h = s0 + lane + 32 * q;
+      v[q] = h < H ? to_f32<T>(row[h]) : 0.f;
+    }
+  }
+}
+
+template <typename T, bool kVec>
+__device__ __forceinline__ void store4(T* __restrict__ row, int s0, int lane,
+                                       int H, const float v[4]) {
+  if constexpr (kVec) {
+    const int h = s0 + 4 * lane;
+    if (h >= H) return;
+    if constexpr (sizeof(T) == 4) {
+      *reinterpret_cast<float4*>(row + h) = make_float4(v[0], v[1], v[2], v[3]);
+    } else {
+      const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+      uint2 u;
+      u.x = *reinterpret_cast<const unsigned*>(&lo);
+      u.y = *reinterpret_cast<const unsigned*>(&hi);
+      *reinterpret_cast<uint2*>(row + h) = u;
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int h = s0 + lane + 32 * q;
+      if (h < H) row[h] = from_f32<T>(v[q]);
+    }
+  }
+}
+
+// Dynamic shared memory of one block, in 4-byte words (the wrapper's
+// gin_backward_shared_bytes is the same formula in bytes): adj's non-zero
+// values and their classes at [i][j] (only those entries are written and
+// read), 2 N^2; a bitmask of each column's non-zero rows, ceil(N / 32)
+// words a column; the warps' [kBwdWarps][5][kSlice] dtable rows.
+__host__ __device__ __forceinline__ int mask_words(int N) { return (N + 31) / 32; }
+
+__host__ __device__ __forceinline__ size_t backward_smem_bytes(int N) {
+  return 4 * (2 * (size_t)N * N + (size_t)N * mask_words(N) + kBwdWarps * 5 * kSlice);
+}
+
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kBwdThreads, 2) gin_backward_kernel(
     const T* __restrict__ x, const int32_t* __restrict__ edge,
     const T* __restrict__ adj, const T* __restrict__ table,
-    const T* __restrict__ g, float* __restrict__ dx,
+    const T* __restrict__ g, T* __restrict__ dx,
     float* __restrict__ dtable_part, int N, int H) {
   extern __shared__ float smem[];
-  float* a_col = smem;                                          // [N][kChunk]
-  int32_t* e_col = reinterpret_cast<int32_t*>(smem + N * kChunk);  // [N][kChunk]
+  const int NN = N * N, W = mask_words(N);
+  float* a_s = smem;                                            // [N][N]
+  int32_t* c_s = reinterpret_cast<int32_t*>(smem + NN);         // [N][N]
+  unsigned* mask = reinterpret_cast<unsigned*>(c_s + NN);       // [N][W]
+  float* rows = reinterpret_cast<float*>(mask + N * W);         // [kBwdWarps][5][kSlice]
 
   const int b = blockIdx.x;
-  const int chunk = blockIdx.y;
-  const int j0 = chunk * kChunk;
-  const int nj = min(kChunk, N - j0);
-  const size_t graph = (size_t)b * N * N;
-  for (int e = threadIdx.x; e < N * kChunk; e += blockDim.x) {
-    const int i = e / kChunk, jj = e % kChunk;
-    float a = 0.f;
-    int32_t c = 0;
-    if (jj < nj) {
-      const size_t at = graph + (size_t)i * N + j0 + jj;  // column j0 + jj
-      a = to_f32<T>(adj[at]);
-      c = edge[at];
-    }
-    a_col[e] = a;
-    e_col[e] = c;
-  }
-  __syncthreads();
+  const int s0 = blockIdx.y * kSlice;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const T* ab = adj + (size_t)b * NN;
+  const int32_t* eb = edge + (size_t)b * NN;
 
+  // 1. One round trip: every thread starts its loads of the table's five
+  //    rows (its channels) and of adj and the classes (coalesced; 16-byte
+  //    ones when the graph's block of them is aligned), clears the column
+  //    masks, and only then uses what arrived. Each non-zero entry is kept
+  //    at [i][j] and sets bit i of column j's mask (an integer OR: the same
+  //    bits in any order).
+  float tab[5][4];
+#pragma unroll
+  for (int c = 0; c < 5; ++c) load4<T, kVec>(table + (size_t)c * H, s0, lane, H, tab[c]);
+  bool bonded = false;
+  auto keep = [&](int k, float a, int c) {
+    if (a != 0.f) {
+      const int i = k / N, j = k - i * N;
+      a_s[k] = a;
+      c_s[k] = c;
+      atomicOr(&mask[j * W + (i >> 5)], 1u << (i & 31));
+      bonded = true;
+    }
+  };
+  constexpr int kLoads = 4;  // loads of 4 entries in flight per thread
+  const bool vec_stage = (NN & 3) == 0 && (uintptr_t)ab % (4 * sizeof(T)) == 0 &&
+                         (uintptr_t)eb % 16 == 0;
+  for (int k0 = 0; k0 < NN; k0 += 4 * kLoads * kBwdThreads) {
+    float a4[kLoads][4];
+    int4 e4[kLoads];
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u) {
+      const int k = k0 + 4 * (u * kBwdThreads + tid);
+      a4[u][0] = a4[u][1] = a4[u][2] = a4[u][3] = 0.f;
+      e4[u] = make_int4(0, 0, 0, 0);
+      if (vec_stage) {
+        if (k < NN) {
+          vec4_load<T>(ab + k, a4[u]);
+          e4[u] = *reinterpret_cast<const int4*>(eb + k);
+        }
+      } else {
+        if (k < NN) a4[u][0] = to_f32<T>(ab[k]), e4[u].x = eb[k];
+        if (k + 1 < NN) a4[u][1] = to_f32<T>(ab[k + 1]), e4[u].y = eb[k + 1];
+        if (k + 2 < NN) a4[u][2] = to_f32<T>(ab[k + 2]), e4[u].z = eb[k + 2];
+        if (k + 3 < NN) a4[u][3] = to_f32<T>(ab[k + 3]), e4[u].w = eb[k + 3];
+      }
+    }
+    if (k0 == 0) {
+      for (int k = tid; k < N * W; k += kBwdThreads) mask[k] = 0u;
+      __syncthreads();
+    }
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u) {
+      const int k = k0 + 4 * (u * kBwdThreads + tid);
+      keep(k, a4[u][0], e4[u].x);
+      keep(k + 1, a4[u][1], e4[u].y);
+      keep(k + 2, a4[u][2], e4[u].z);
+      keep(k + 3, a4[u][3], e4[u].w);
+    }
+  }
+
+  T* dxb = dx + (size_t)b * N * H;
+  float* part = dtable_part + (size_t)b * 5 * H;
+  const float zero[4] = {0.f, 0.f, 0.f, 0.f};
+  // 2. A graph without a bond (a padding row of the bank): zero dx rows
+  //    and a zero partial, nothing else.
+  if (!__syncthreads_or(bonded)) {
+    for (int r = warp; r < N + 5; r += kBwdWarps) {
+      if (r < N) {
+        store4<T, kVec>(dxb + (size_t)r * H, s0, lane, H, zero);
+      } else {
+        float* prow = part + (size_t)(r - N) * H;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int h = s0 + slot_of<kVec>(lane, q);
+          if (h < H) prow[h] = 0.f;
+        }
+      }
+    }
+    return;
+  }
+
+  // 3. Warps over columns, lanes over channels. Column j's pair list is
+  //    its mask: the set bits, in row order, walked four at a time so that
+  //    four g rows are in flight together. The term of pair (i, j) is
+  //    g[i] a_ij gelu'(x[j] + table[c_ij]), and gelu' depends on the class
+  //    and not on i, so the walk only sums S[c] = sum of a_ij g[i] over
+  //    the column's pairs of class c, and gelu' is taken once per class the
+  //    column has: dx[j] = sum_c gelu'(x[j] + table[c]) S[c], and the same
+  //    products go to dtable row c. (Classes are 0-4: a pair of another
+  //    class adds nothing.)
   const T* xb = x + (size_t)b * N * H;
   const T* gb = g + (size_t)b * N * H;
-  float* part = dtable_part + ((size_t)b * gridDim.y + chunk) * 5 * H;
-  for (int h = threadIdx.x; h < H; h += blockDim.x) {
-    float tab[5];
+  float dt[5][4];
 #pragma unroll
-    for (int k = 0; k < 5; ++k) tab[k] = to_f32<T>(table[k * H + h]);
-    float dt[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
-    for (int jj = 0; jj < nj; ++jj) {
-      const float xj = to_f32<T>(xb[(size_t)(j0 + jj) * H + h]);
-      float acc = 0.f;
-      for (int i = 0; i < N; ++i) {
-        const float a = a_col[i * kChunk + jj];
-        if (a == 0.f) continue;  // no edge: the term is zero
-        const int c = e_col[i * kChunk + jj];
-        float t = tab[0];
-        t = c == 1 ? tab[1] : t;
-        t = c == 2 ? tab[2] : t;
-        t = c == 3 ? tab[3] : t;
-        t = c == 4 ? tab[4] : t;
-        const float w = to_f32<T>(gb[(size_t)i * H + h]) * a * dgelu_exact(xj + t);
-        acc += w;
+  for (int c = 0; c < 5; ++c) {
 #pragma unroll
-        for (int k = 0; k < 5; ++k) dt[k] += c == k ? w : 0.f;
+    for (int q = 0; q < 4; ++q) dt[c][q] = 0.f;
+  }
+  for (int j = warp; j < N; j += kBwdWarps) {
+    float S[5][4], xj[4], acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int c = 0; c < 5; ++c) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) S[c][q] = 0.f;
+    }
+    unsigned present = 0;  // classes the column has, as bits 0-4
+    bool have_x = false;
+    for (int w = 0; w < W; ++w) {
+      unsigned m = mask[j * W + w];
+      if (m && !have_x) {  // x[b, j] is read only for a column with a pair
+        load4<T, kVec>(xb + (size_t)j * H, s0, lane, H, xj);
+        have_x = true;
       }
-      dx[((size_t)b * N + j0 + jj) * H + h] = acc;
+      while (m) {
+        float gv[4][4], av[4];
+        int cv[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {  // start every load before any use
+          const bool live = m != 0;
+          const int i = 32 * w + (live ? __ffs(m) - 1 : 0);
+          m &= m - 1;
+          av[u] = live ? a_s[i * N + j] : 0.f;  // a dead pair adds 0
+          cv[u] = live ? c_s[i * N + j] : 0;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) gv[u][q] = 0.f;
+          if (live) load4<T, kVec>(gb + (size_t)i * H, s0, lane, H, gv[u]);
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          present |= av[u] != 0.f && (unsigned)cv[u] < 5u ? 1u << cv[u] : 0u;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const float ag = av[u] * gv[u][q];
+#pragma unroll
+            for (int c = 0; c < 5; ++c) S[c][q] += cv[u] == c ? ag : 0.f;
+          }
+        }
+      }
     }
 #pragma unroll
-    for (int k = 0; k < 5; ++k) part[(size_t)k * H + h] = dt[k];
+    for (int c = 0; c < 5; ++c) {
+      if (!(present >> c & 1u)) continue;  // uniform across the warp
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float w = dgelu_exact(xj[q] + tab[c][q]) * S[c][q];
+        acc[q] += w;
+        dt[c][q] += w;
+      }
+    }
+    store4<T, kVec>(dxb + (size_t)j * H, s0, lane, H, acc);
   }
+
+  // 4. The warps' dtable rows summed in warp order: one partial per graph.
+  float* mine = rows + warp * 5 * kSlice;
+#pragma unroll
+  for (int c = 0; c < 5; ++c) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) mine[c * kSlice + slot_of<kVec>(lane, q)] = dt[c][q];
+  }
+  __syncthreads();
+  for (int r = tid; r < 5 * kSlice; r += kBwdThreads) {
+    const int c = r / kSlice, h = s0 + r % kSlice;
+    float sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < kBwdWarps; ++w) sum += rows[w * 5 * kSlice + r];
+    if (h < H) part[(size_t)c * H + h] = sum;
+  }
+}
+
+template <typename T, bool kVec>
+int launch_backward_as(const void* x, const void* edge, const void* adj,
+                       const void* table, const void* g, void* dx,
+                       void* dtable_part, int B, int N, int H, void* stream) {
+  const size_t smem = backward_smem_bytes(N);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        gin_backward_kernel<T, kVec>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 grid(B, (H + kSlice - 1) / kSlice);
+  gin_backward_kernel<T, kVec><<<grid, kBwdThreads, smem, (cudaStream_t)stream>>>(
+      (const T*)x, (const int32_t*)edge, (const T*)adj, (const T*)table,
+      (const T*)g, (T*)dx, (float*)dtable_part, N, H);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -212,20 +462,16 @@ int launch_backward(const void* x, const void* edge, const void* adj,
                     const void* table, const void* g, void* dx,
                     void* dtable_part, int B, int N, int H, void* stream) {
   if (B <= 0 || N <= 0 || H <= 0) return (int)cudaSuccess;
-  int threads = ((H + 31) / 32) * 32;
-  if (threads > kMaxThreads) threads = kMaxThreads;
-  const size_t smem = (size_t)N * kChunk * (sizeof(float) + sizeof(int32_t));
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        gin_backward_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const dim3 grid(B, (N + kChunk - 1) / kChunk);
-  gin_backward_kernel<T><<<grid, threads, smem, (cudaStream_t)stream>>>(
-      (const T*)x, (const int32_t*)edge, (const T*)adj, (const T*)table,
-      (const T*)g, (float*)dx, (float*)dtable_part, N, H);
-  return (int)cudaGetLastError();
+  // the vector path: four channels in one access, so H % 4 == 0 and every
+  // row it reads or writes aligned to that access
+  const uintptr_t align = 4 * sizeof(T);
+  const bool vec = H % 4 == 0 && (uintptr_t)x % align == 0 &&
+                   (uintptr_t)table % align == 0 && (uintptr_t)g % align == 0 &&
+                   (uintptr_t)dx % align == 0;
+  return vec ? launch_backward_as<T, true>(x, edge, adj, table, g, dx,
+                                           dtable_part, B, N, H, stream)
+             : launch_backward_as<T, false>(x, edge, adj, table, g, dx,
+                                            dtable_part, B, N, H, stream);
 }
 
 }  // namespace

@@ -43,6 +43,7 @@ def check_supported(cfg: LLMConfig) -> None:
         "logit softcap": (cfg.attn_logit_softcap is not None
                           or cfg.final_logit_softcap is not None),
         "qk-norm": cfg.qk_norm,
+        "S²-attn (shift_attn)": cfg.shift_attn,
         "gemma-family knobs": (cfg.hidden_act != "silu" or cfg.sandwich_norms
                                or cfg.rms_norm_unit_offset
                                or cfg.scale_embeddings

@@ -13,7 +13,7 @@ hold them raise.
 """
 
 import os
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -49,6 +49,9 @@ _FALLBACK_TEMPLATES = {
 
 _NOT_PORTED = ("loading {} from {} is not ported to llamole_tpu_torch yet "
                "(ROADMAP.md: checkpoint files)")
+_NOT_PORTED_FAMILY = ("the {} LLM family ({!r}) is not ported to "
+                      "llamole_tpu_torch yet (ROADMAP.md: other model "
+                      "families)")
 
 
 def offline_tokenizer():
@@ -60,17 +63,24 @@ def offline_tokenizer():
 
 
 def resolve_llm_config(model_args) -> LLMConfig:
-    """Family preset by model name; tiny (random init) when unnamed."""
+    """Family preset by model name, tested in the JAX loader's order;
+    tiny (random init) when unnamed. The qwen3 and gemma families are
+    not ported yet: their names raise rather than build another
+    family's preset."""
     path = model_args.model_name_or_path or ""
     if path and os.path.exists(os.path.join(path, "config.json")):
         raise NotImplementedError(_NOT_PORTED.format("an LLM config", path))
     name = path.lower()
     if "llama" in name:
         return LLMConfig.llama3_8b()
+    if "qwen3" in name:
+        raise NotImplementedError(_NOT_PORTED_FAMILY.format("qwen3", path))
     if "qwen" in name:
         return LLMConfig.qwen2_7b()
     if "mistral" in name:
         return LLMConfig.mistral_7b()
+    if "gemma" in name:     # gemma-3 and gemma-1/2 alike
+        raise NotImplementedError(_NOT_PORTED_FAMILY.format("gemma", path))
     logger.warning("No local weights/config for %r -- using tiny config "
                    "(random init)", path)
     return LLMConfig.tiny()
@@ -97,11 +107,13 @@ def build_graph_lm_from_configs(
     clip_cfg: Optional[GraphCLIPConfig] = None,
     predictor_cfg: Optional[GraphPredictorConfig] = None,
     loss_weights=(1.0, 1.0, 1.0),
+    special_tokens: Sequence[str] = SPECIAL_TOKENS,
 ) -> GraphLM:
     """Random-init GraphLM on `device` (weights drawn there, seeded).
     GraphCLIP and the predictor run in f32; their configs default to the
     JAX loader's random-init stand-ins (2 layers x 64). loss_weights:
-    the (lm, design, retro) weights of the training loss."""
+    the (lm, design, retro) weights of the training loss; special_tokens:
+    the control tokens whose ids the model looks up."""
     device = torch.device(device)
     llm_cfg.vocab_size = max(llm_cfg.vocab_size, tokenizer.vocab_size)
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -122,7 +134,7 @@ def build_graph_lm_from_configs(
     graph_predictor.reset_parameters(gen)
     model = GraphLM(
         llm, graph_decoder, graph_predictor, graph_encoder, tokenizer,
-        {t: tokenizer.token_to_id(t) for t in SPECIAL_TOKENS},
+        {t: tokenizer.token_to_id(t) for t in special_tokens},
         num_body_tokens=num_body_tokens, lora_rank=lora_rank,
         lora_alpha=lora_alpha, finetuning_type=finetuning_type,
         use_rslora=use_rslora, loss_weight_lm=loss_weights[0],
@@ -145,6 +157,7 @@ def build_graph_lm(model_args, data_args, finetuning_args, *, device,
                                   "(ROADMAP.md)")
     tokenizer = load_tokenizer(model_args, generate_mode=generate_mode)
     llm_cfg = resolve_llm_config(model_args)
+    llm_cfg.shift_attn = bool(getattr(model_args, "shift_attn", False))
     llm_cfg.kv_cache_dtype = getattr(model_args, "kv_cache_dtype",
                                      "compute") or "compute"
     if getattr(model_args, "num_experts", 0):
@@ -182,5 +195,6 @@ def build_graph_lm(model_args, data_args, finetuning_args, *, device,
         use_rslora=getattr(finetuning_args, "use_rslora", False),
         num_body_tokens=data_args.learned_query_size,
         loss_weights=tuple(getattr(finetuning_args, f"loss_weight_{k}", 1.0)
-                           for k in ("lm", "design", "retro")))
+                           for k in ("lm", "design", "retro")),
+        special_tokens=model_args.special_token_list() or SPECIAL_TOKENS)
     return model, tokenizer

@@ -20,6 +20,8 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -31,8 +33,12 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
+# the dynamic shared memory one H100 block may opt into
+MAX_SHARED_BYTES = 232_448
+
 _lock = threading.Lock()
 _library = None
+_entry_points = {}
 
 
 class KernelLibrary:
@@ -68,7 +74,8 @@ class KernelLibrary:
         for name in ("llamole_gin_backward_f32",
                      "llamole_gin_backward_bf16"):
             fn = getattr(self.cdll, name)
-            # x, edge, adj, table, g, dx, dtable_part, B, N, H, stream
+            # x, edge, adj, table, g, dx, dtable_part [B, 5, H], B, N, H,
+            # stream
             fn.argtypes = [ptr] * 7 + [i32] * 3 + [ptr]
             fn.restype = i32
         self.cdll.llamole_cuda_error_string.argtypes = [i32]
@@ -137,3 +144,33 @@ def library() -> KernelLibrary:
         if _library is None:
             _library = _build()
         return _library
+
+
+def dtype_suffix(dtype: torch.dtype) -> str:
+    """The suffix of an entry point's name for the kernel's input type."""
+    return "bf16" if dtype == torch.bfloat16 else "f32"
+
+
+def entry(name: str):
+    """The library's C entry point `name`, looked up once (builds the
+    library on first use)."""
+    fn = _entry_points.get(name)
+    if fn is None:
+        fn = _entry_points[name] = getattr(library().cdll, name)
+    return fn
+
+
+def launch(fn, device: torch.device, what: str, *args) -> None:
+    """Call a C entry point on `device`'s current stream; raise on a CUDA
+    error. The device is made current only when it is not already. The
+    stream pointer comes from torch's raw accessor (the one its own
+    generated kernels launch with): building a torch.cuda.Stream object
+    for it each call was a large share of a wrapper's host time."""
+    index = device.index
+    if index != torch.cuda.current_device():
+        with torch.cuda.device(index):
+            code = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    else:
+        code = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+    if code:
+        library().check(code, what)

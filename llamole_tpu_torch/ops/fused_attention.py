@@ -24,9 +24,9 @@ import torch
 
 from . import cuda_lib
 from .attention import masked_attention
+from .cuda_lib import MAX_SHARED_BYTES, launch
 from .nn import layer_norm
 
-MAX_SHARED_BYTES = 232_448   # what one H100 block may opt into
 # the tensor-core body: four warps of 16 query rows, mma.sync over dh in
 # steps of 16 (csrc/fused_attention.cu attention_mma_kernel)
 MMA_MAX_NODES = 64
@@ -53,37 +53,11 @@ def shared_bytes(n: int, dh: int, body: str) -> int:
     return (3 * n * (dh + 1) + n * (n + 1)) * 4
 
 
-_entry_points = {}
-
-
 def kernel_entry(kind: str, body: str, dtype: torch.dtype):
-    """The bound C entry point of kernel A (kind "fused") or D ("graph")
-    for a body and dtype, looked up once (builds the library on first
-    use)."""
-    key = (kind, body, dtype)
-    fn = _entry_points.get(key)
-    if fn is None:
-        suffix = "bf16" if dtype == torch.bfloat16 else "f32"
-        fn = getattr(cuda_lib.library().cdll,
-                     f"llamole_{kind}_attention_{body}_{suffix}")
-        _entry_points[key] = fn
-    return fn
-
-
-def launch(fn, device: torch.device, what: str, *args) -> None:
-    """Call a C entry point on `device`'s current stream; raise on a CUDA
-    error. The device is made current only when it is not already. The
-    stream pointer comes from torch's raw accessor (the one its own
-    generated kernels launch with): building a torch.cuda.Stream object
-    for it each call was a large share of the wrapper's host time."""
-    index = device.index
-    if index != torch.cuda.current_device():
-        with torch.cuda.device(device):
-            code = fn(*args, torch._C._cuda_getCurrentRawStream(index))
-    else:
-        code = fn(*args, torch._C._cuda_getCurrentRawStream(index))
-    if code:
-        cuda_lib.library().check(code, what)
+    """The C entry point of kernel A (kind "fused") or D ("graph") for a
+    body and dtype."""
+    return cuda_lib.entry(f"llamole_{kind}_attention_{body}_"
+                          f"{cuda_lib.dtype_suffix(dtype)}")
 
 
 def check_body(body: str, n: int, dh: int, tensors) -> None:

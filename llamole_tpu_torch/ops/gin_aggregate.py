@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from . import cuda_lib
+from .cuda_lib import MAX_SHARED_BYTES, launch
 
 NUM_EDGE_CLASSES = 5
 
@@ -103,16 +104,25 @@ def _forward(x, edge_classes, adj, table) -> torch.Tensor:
     out = torch.empty_like(x)
     if out.numel() == 0:
         return out
-    lib = cuda_lib.library()
-    fn = (lib.cdll.llamole_gin_aggregate_bf16 if x.dtype == torch.bfloat16
-          else lib.cdll.llamole_gin_aggregate_f32)
-    with torch.cuda.device(x.device):   # the C launch uses the current one
-        stream = torch.cuda.current_stream().cuda_stream
-        code = fn(x.data_ptr(), edge_classes.data_ptr(), adj.data_ptr(),
-                  table.data_ptr(), out.data_ptr(), b, n, h, stream)
-    lib.check(code, "gin_aggregate launch")
+    launch(cuda_lib.entry(f"llamole_gin_aggregate_"
+                          f"{cuda_lib.dtype_suffix(x.dtype)}"), x.device,
+           "gin_aggregate launch", x.data_ptr(), edge_classes.data_ptr(),
+           adj.data_ptr(), table.data_ptr(), out.data_ptr(), b, n, h)
     gin_aggregate.launches += 1
     return out
+
+
+def gin_backward_shared_bytes(n: int) -> int:
+    """Dynamic shared memory of one kernel-C block (csrc/gin_aggregate.cu
+    backward_smem_bytes): adj's non-zero values and classes at [i, j]
+    (8 N^2 bytes), a bitmask of each column's rows, and the 8 warps'
+    [5, 128] f32 dtable rows. H does not enter it."""
+    return 4 * (2 * n * n + n * -(-n // 32) + 8 * 5 * 128)
+
+
+# the largest N whose block fits the shared memory a block may opt into
+GIN_BWD_MAX_NODES = max(n for n in range(1, 512)
+                        if gin_backward_shared_bytes(n) <= MAX_SHARED_BYTES)
 
 
 def gin_aggregate_backward(x, edge_classes, adj, table, g):
@@ -128,27 +138,25 @@ def gin_aggregate_backward(x, edge_classes, adj, table, g):
         raise ValueError(f"g must be a contiguous {tuple(x.shape)} "
                          f"{x.dtype} tensor on x's device")
     b, n, h = x.shape
-    chunks = -(-n // 8)                 # kChunk source nodes per block
-    # the kernel writes every element of both
-    dx = torch.empty((b, n, h), dtype=torch.float32, device=x.device)
-    part = torch.empty((b, chunks, NUM_EDGE_CLASSES, h),
-                       dtype=torch.float32, device=x.device)
-    if x.numel():
-        lib = cuda_lib.library()
-        fn = (lib.cdll.llamole_gin_backward_bf16
-              if x.dtype == torch.bfloat16
-              else lib.cdll.llamole_gin_backward_f32)
-        with torch.cuda.device(x.device):
-            stream = torch.cuda.current_stream().cuda_stream
-            code = fn(x.data_ptr(), edge_classes.data_ptr(), adj.data_ptr(),
-                      table.data_ptr(), g.data_ptr(), dx.data_ptr(),
-                      part.data_ptr(), b, n, h, stream)
-        lib.check(code, "gin_aggregate_backward launch")
-        gin_aggregate_backward.launches += 1
-    # the per-block partials summed in a fixed order: no atomics, same bits
-    # on every run
-    dtable = part.sum(dim=(0, 1))
-    return dx.to(x.dtype), dtable.to(table.dtype)
+    if n > GIN_BWD_MAX_NODES:
+        raise ValueError(f"N={n} needs {gin_backward_shared_bytes(n)} bytes "
+                         f"of shared memory; kernel C holds at most "
+                         f"{MAX_SHARED_BYTES} (N <= {GIN_BWD_MAX_NODES})")
+    dx = torch.empty_like(x)
+    if not x.numel():
+        return dx, torch.zeros_like(table)
+    # one dtable partial per graph; the kernel writes every element of both
+    part = torch.empty((b, NUM_EDGE_CLASSES, h), dtype=torch.float32,
+                       device=x.device)
+    launch(cuda_lib.entry(f"llamole_gin_backward_"
+                          f"{cuda_lib.dtype_suffix(x.dtype)}"), x.device,
+           "gin_aggregate_backward launch", x.data_ptr(),
+           edge_classes.data_ptr(), adj.data_ptr(), table.data_ptr(),
+           g.data_ptr(), dx.data_ptr(), part.data_ptr(), b, n, h)
+    gin_aggregate_backward.launches += 1
+    # the partials summed in a fixed order: no atomics, the same bits on
+    # every run
+    return dx, part.sum(dim=0).to(table.dtype)
 
 
 class _GinAggregate(torch.autograd.Function):

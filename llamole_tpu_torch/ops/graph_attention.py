@@ -21,8 +21,9 @@ from typing import Optional
 import torch
 
 from .attention import masked_attention
+from .cuda_lib import launch
 from .fused_attention import (attention_body, check_body, count_launch,
-                              kernel_entry, launch, reset_launches)
+                              kernel_entry, reset_launches)
 
 
 def graph_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -150,3 +150,66 @@ def _imports_of_the_jax_package(path):
     + [ROOT / "chip_smoke.py"]), ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_source_of_the_port_imports_the_jax_package(path):
     assert _imports_of_the_jax_package(path) == []
+
+
+# the LLM family resolved by name: the port agrees with the JAX loader
+# where it has the family, and raises where it does not (never another
+# family's preset)
+@pytest.mark.parametrize("name", ["meta-llama/Meta-Llama-3.1-8B-Instruct",
+                                  "Qwen/Qwen2-7B-Instruct",
+                                  "mistralai/Mistral-7B-Instruct-v0.3", ""])
+def test_resolve_llm_config_equals_jax(name):
+    from types import SimpleNamespace
+
+    from llamole_tpu.models.loader import resolve_llm_config as jax_resolve
+    from llamole_tpu_torch.models.loader import resolve_llm_config
+    args = SimpleNamespace(model_name_or_path=name)
+    assert (dataclasses.asdict(resolve_llm_config(args))
+            == dataclasses.asdict(jax_resolve(args)))
+
+
+@pytest.mark.parametrize("name", ["Qwen/Qwen3-8B", "google/gemma-2-9b",
+                                  "google/gemma-3-12b"])
+def test_resolve_llm_config_refuses_unported_families(name):
+    from types import SimpleNamespace
+
+    from llamole_tpu_torch.models.loader import resolve_llm_config
+    with pytest.raises(NotImplementedError, match="family"):
+        resolve_llm_config(SimpleNamespace(model_name_or_path=name))
+
+
+_TINY_EVAL = {"model_name_or_path": "", "dataset": "molqa_drug_examples",
+              "dataset_dir": "data", "template": "default", "cutoff_len": 96,
+              "learned_query_size": 8, "output_dir": "unused",
+              "finetuning_type": "lora", "lora_rank": 4}
+
+
+def test_shift_attn_is_refused():
+    from llamole_tpu_torch.config import get_infer_args
+    from llamole_tpu_torch.models.loader import build_graph_lm
+    model_args, data_args, _, ft_args, _ = get_infer_args(
+        {**_TINY_EVAL, "shift_attn": True})
+    assert model_args.shift_attn
+    with pytest.raises(NotImplementedError, match="shift_attn"):
+        build_graph_lm(model_args, data_args, ft_args, device="cpu")
+
+
+def test_token_id_dict_follows_new_special_tokens():
+    """A config whose new_special_tokens differ from SPECIAL_TOKENS: the
+    model's token_id_dict has the keys of the JAX loader's
+    `model_args.special_token_list() or SPECIAL_TOKENS`."""
+    from llamole_tpu.config import ModelArguments as JaxModelArguments
+    from llamole_tpu.utils.constants import SPECIAL_TOKENS as JAX_SPECIALS
+    from llamole_tpu_torch.config import get_infer_args
+    from llamole_tpu_torch.models.loader import build_graph_lm
+    from llamole_tpu_torch.utils.constants import SPECIAL_TOKENS
+    listed = ",".join([*SPECIAL_TOKENS, "<scaffold_start>", "<scaffold_end>"])
+    model_args, data_args, _, ft_args, _ = get_infer_args(
+        {**_TINY_EVAL, "new_special_tokens": listed})
+    model, tok = build_graph_lm(model_args, data_args, ft_args, device="cpu")
+    jax_args = JaxModelArguments(model_name_or_path="",
+                                 new_special_tokens=listed)
+    want = jax_args.special_token_list() or JAX_SPECIALS
+    assert list(model.token_id_dict) == want != list(SPECIAL_TOKENS)
+    assert model.token_id_dict["<scaffold_end>"] == tok.token_to_id(
+        "<scaffold_end>")

@@ -203,9 +203,11 @@ def test_gin_kernel_rejects_what_it_does_not_take(cuda):
         gin_aggregate_backward(x, edge.long(), adj, table, g)
 
 
-# kernel C (GIN backward): the JAX contract shape, an odd one and the
-# training path's predictor batch
-GIN_BWD_SHAPES = [(2, 9, 24), (3, 11, 40), (80, 50, 300)]
+# kernel C (GIN backward): the JAX contract shape, an odd one, H not a
+# multiple of 4 (the scalar lane path) and the training path's predictor
+# batch
+GIN_BWD_SHAPES = [(2, 9, 24), (3, 11, 40), (3, 11, 42), (4, 50, 150),
+                  (80, 50, 300)]
 
 
 @pytest.mark.parametrize("shape", GIN_BWD_SHAPES)
@@ -248,6 +250,84 @@ def test_gin_backward_kernel_empty_graph_is_zero(cuda):
         torch.ones(1, 4, 8, device=cuda))
     torch.cuda.synchronize()
     assert not dx.any() and not dt.any()
+
+
+def test_gin_backward_kernel_all_empty_bank_is_zero(cuda):
+    """A bank of 80 graphs without a bond (the training bank's padding
+    rows, all of it) gives exact zeros, whatever x and g hold."""
+    b, n, h = 80, 50, 300
+    none = torch.zeros(b, n, n, device=cuda)
+    dx, dt = gin_aggregate_backward(
+        torch.randn(b, n, h, device=cuda), none.to(torch.int32), none,
+        torch.ones(5, h, device=cuda), torch.ones(b, n, h, device=cuda))
+    torch.cuda.synchronize()
+    assert not dx.any() and not dt.any()
+
+
+MOLECULES = ["CC(=O)Oc1ccccc1C(=O)O", "CN1C=NC2=C1C(=O)N(C(=O)N2C)C",
+             "CC(C)Cc1ccc(cc1)C(C)C(=O)O", "CC(=O)Nc1ccc(O)cc1"]
+
+
+@pytest.mark.parametrize("last", [False, True], ids=["first", "last"])
+def test_gin_backward_kernel_molecules_in_a_padded_bank(cuda, last):
+    """Molecules in the first or the last rows of an 80-graph bank, the
+    rest empty: the empty graphs' early exit must not disturb the rows
+    around it."""
+    from llamole_tpu_torch.chem.featurize import (pad_graph_batch,
+                                                  smiles_to_graph)
+    b, n, h = 80, 50, 300
+    mols = pad_graph_batch([smiles_to_graph(m) for m in MOLECULES], n)
+    edge = torch.zeros(b, n, n, dtype=torch.int32, device=cuda)
+    mask = torch.zeros(b, n, dtype=torch.bool, device=cuda)
+    at = slice(b - len(MOLECULES), b) if last else slice(0, len(MOLECULES))
+    edge[at] = torch.as_tensor(mols["edge_classes"], device=cuda).int()
+    mask[at] = torch.as_tensor(mols["node_mask"], device=cuda)
+    adj = ((edge > 0) & mask[:, :, None] & mask[:, None, :]).float()
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    x, g = (torch.randn(b, n, h, device=cuda, generator=gen)
+            for _ in range(2))
+    table = torch.randn(5, h, device=cuda, generator=gen)
+    dx, dt = gin_aggregate_backward(x, edge, adj, table, g)
+    torch.cuda.synchronize()
+    rdx, rdt = gin_aggregate_backward_reference(x, edge, adj, table, g)
+    torch.testing.assert_close(dx, rdx, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(dt, rdt, atol=1e-4, rtol=1e-4)
+    assert not dx[mask.logical_not().all(dim=1)].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gin_backward_kernel_at_its_largest_n(cuda, dtype):
+    """Dense random graphs (every node kept) at the largest N the kernel's
+    shared memory takes."""
+    from llamole_tpu_torch.ops.gin_aggregate import GIN_BWD_MAX_NODES
+    n = GIN_BWD_MAX_NODES
+    x, edge, adj, table = gin_inputs(cuda, dtype, 2, n, 64)
+    adj = (edge > 0).to(dtype)               # every node kept
+    g = torch.randn_like(x)
+    dx, dt = gin_aggregate_backward(x, edge, adj, table, g)
+    torch.cuda.synchronize()
+    rdx, rdt = gin_aggregate_backward_reference(x, edge, adj, table, g)
+    for got, ref, name in ((dx, rdx, "dx"), (dt, rdt, "dtable")):
+        err = float((got.float() - ref.float()).abs().max())
+        scale = float(ref.float().abs().max())
+        if dtype == torch.bfloat16:     # f32 sums rounded once to bf16
+            assert err <= 1e-2 * scale, (name, err)
+        elif name == "dtable":
+            # an entry sums ~2 * N^2 / 5 terms (~10^4): 1e-4 of its
+            # range, as for the dense (80, 50, 300) case
+            assert err <= 1e-4 * scale, (name, err, scale)
+        else:                           # the JAX kernel's contract
+            torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
+
+
+def test_gin_backward_kernel_refuses_n_past_its_limit(cuda):
+    from llamole_tpu_torch.ops.gin_aggregate import GIN_BWD_MAX_NODES
+    n = GIN_BWD_MAX_NODES + 1
+    x, edge, adj, table = gin_inputs(cuda, torch.float32, 1, n, 8)
+    before = gin_aggregate_backward.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        gin_aggregate_backward(x, edge, adj, table, torch.ones_like(x))
+    assert gin_aggregate_backward.launches == before
 
 
 def test_gin_autograd_on_the_card_matches_plain_autograd(cuda):
