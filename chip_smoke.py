@@ -18,11 +18,22 @@
    floor for the attention part only, F.scaled_dot_product_attention on
    the already-normalised heads.
 4. Kernel B check: the GIN aggregation against its plain version at the
-   path shapes (8, 56, 300) and (1, 24, 300) in f32 and at (3, 11, 40)
-   and (2, 17, 64) in f32 and bf16, on random graphs, plus an empty
-   graph; f32 within 1e-4 (abs and rel, the JAX contract), bf16 within
-   1e-2 x max|ref| (the output rounds once to bf16). Median CUDA-event
-   times at (8, 56, 300) f32 on molecular graphs.
+   path shapes (8, 56, 300) and (1, 24, 300) in f32, at (3, 11, 40) and
+   (2, 17, 64) in f32 and bf16, at H = 42 and 150 (the scalar lanes) and
+   on dense graphs at N = 200 and 512 (past kernel C's limit) in f32 and
+   bf16, each on symmetric and directed random graphs; an empty graph
+   and a bank of 80 empty graphs (exact zeros); the training bank (80,
+   50, 300) f32 with the 8 MOLECULES in the last, then the first rows
+   (padding graphs exactly 0); two runs bit-identical. f32 within 1e-4
+   (abs and rel, the JAX contract), bf16 within 1e-2 x max|ref| (the
+   output rounds once to bf16). Call time (CUDA events), device time
+   (torch.profiler), plain time, bound and share at both shapes the main
+   path launches it: (8, 56, 300) f32 on molecular graphs (the splice)
+   and the training bank (the molecules in the first rows, and times
+   again with them in the last rows). Run alone to iterate on the kernel (seconds):
+   python3 -c "import chip_smoke as s; from llamole_tpu_torch.ops import
+   cuda_lib, gin_aggregate as G; cuda_lib.library(); s.check_gin(
+   G.gin_aggregate, G.gin_aggregate_reference, s.card_tag())"
 5. Kernel C check: the GIN backward (dx and dtable) against its plain
    version at (2, 9, 24) (the JAX contract), (3, 11, 40) and (3, 11, 42)
    (H not a multiple of 4: the scalar lane path), symmetric and directed
@@ -81,8 +92,11 @@
 Prints, before the last line, one {"kernels": [...]} JSON line (per
 kernel: launches on the main path, max_abs_err, ms, plain_ms, device_ms,
 bound_ms, bound_by, library_ms; for A and D the launches of each body
-and the FMA body's times); the last line is {"ok": true, "device":
-{...}}. Any failure exits non-zero.
+and the FMA body's times; for B its launches in run_molqa and in
+training and its times, bound and share at the training bank under
+train_* keys, with the molecules in the last rows under train_last_*);
+the last line is {"ok": true, "device": {...}}. Any
+failure exits non-zero.
 """
 
 import copy
@@ -105,11 +119,22 @@ CORPUS = ["CCO", "c1ccccc1", "CC(=O)O", "CCN", "C1CC1", "c1ccncc1",
           "CC(N)C(=O)O", "COC", "CS", "C=CC=C", "c1cc[nH]c1"]
 REQUESTS = 11
 PROPERTIES = [{"HIV": 1.0}, {"BBBP": 1.0}, {"SA": 2.5}, None]
-GIN_MAIN = (8, 56, 300)      # GraphCLIP splice of a width-8 frontier
-GIN_CHECKS = ((GIN_MAIN, (torch.float32,)), ((1, 24, 300), (torch.float32,)),
-              ((3, 11, 40), (torch.float32, torch.bfloat16)),
-              ((2, 17, 64), (torch.float32, torch.bfloat16)))
+MAX_NODES = 50               # GraphDiT's max_n_nodes, the training banks' N
+GIN_HIDDEN = 300             # GraphCLIP and predictor width
 GIN_LAYERS = 5               # GraphCLIP and predictor depth (5 x 300)
+TRAIN_BATCH = 10             # llama_lora.yaml per_device_train_batch_size
+GIN_MAIN = (8, 56, GIN_HIDDEN)   # GraphCLIP splice of a width-8 frontier
+# run_mmsft's molecule and retro banks (train/workflow.py: max(8, 8 x
+# batch) graphs of max_n_nodes), where every training launch of B runs
+GIN_TRAIN = (max(8, 8 * TRAIN_BATCH), MAX_NODES, GIN_HIDDEN)
+F32, BOTH = (torch.float32,), (torch.float32, torch.bfloat16)
+# kernel B: (shape, dtypes, dense) on random graphs, each symmetric and
+# directed: the path shapes, two odd ones, H not a multiple of 4 (the
+# scalar lanes), and dense graphs with N past kernel C's limit
+GIN_CHECKS = ((GIN_MAIN, F32, False), ((1, 24, 300), F32, False),
+              ((3, 11, 40), BOTH, False), ((2, 17, 64), BOTH, False),
+              ((4, 50, 42), BOTH, False), ((4, 50, 150), F32, False),
+              ((2, 200, 300), BOTH, True), ((1, 512, 300), BOTH, True))
 MOLECULES = ["CC(=O)Oc1ccccc1C(=O)O", "CN1C=NC2=C1C(=O)N(C(=O)N2C)C",
              "CC(C)Cc1ccc(cc1)C(C)C(=O)O", "CC(=O)Nc1ccc(O)cc1",
              "COc1ccc2[nH]cc(CCN(C)C)c2c1", "O=C(O)c1ccccc1O",
@@ -195,14 +220,17 @@ def attention_bound(b, n, heads, dh, dtype, layernorm):
 def gin_bytes(args, backward: bool) -> int:
     """The bytes kernel B or C must move on this run's graphs. Row x[b, j]
     is read only where column j of adj has a non-zero (no term reads it
-    otherwise), and for C row g[b, i] only where row i has one; edge, adj
-    and table are read once in full, and every output is written once in
-    full (B: out [B, N, H]; C: dx [B, N, H] and dtable [5, H])."""
+    otherwise), for C row g[b, i] only where row i has one, and the class
+    edge[b, i, j] only where adj[b, i, j] is non-zero (the term is 0
+    elsewhere); adj and table are read once in full, and every output is
+    written once in full (B: out [B, N, H]; C: dx [B, N, H] and dtable
+    [5, H])."""
     x, edge, adj, table = args[:4]
     nz = adj != 0
     row = x.shape[-1] * x.element_size()
     nbytes = int(nz.any(dim=1).sum()) * row           # x rows of used columns
-    nbytes += sum(t.numel() * t.element_size() for t in (edge, adj, table))
+    nbytes += int(nz.sum()) * edge.element_size()     # the bonded pairs' classes
+    nbytes += sum(t.numel() * t.element_size() for t in (adj, table))
     nbytes += x.numel() * x.element_size()            # out / dx
     if backward:
         nbytes += int(nz.any(dim=2).sum()) * row      # g rows of used rows
@@ -358,79 +386,119 @@ def check_kernel(fused, reference, tag):
             "fma_device_ms": fma["device_ms"]}
 
 
-def molecular_graphs(n_pad: int):
-    """MOLECULES as a dense padded batch (atoms, int32 edges, mask) on the
-    card."""
+def molecular_graphs(n_pad: int, device="cuda"):
+    """MOLECULES as a dense padded batch (atoms, int32 edges, mask) on
+    `device`."""
     from llamole_tpu_torch.chem.featurize import (pad_graph_batch,
                                                   smiles_to_graph)
     bank = pad_graph_batch([smiles_to_graph(s) for s in MOLECULES], n_pad)
-    return (torch.as_tensor(bank["atom_types"], device="cuda"),
-            torch.as_tensor(bank["edge_classes"], device="cuda"),
-            torch.as_tensor(bank["node_mask"], device="cuda"))
+    return (torch.as_tensor(bank["atom_types"], device=device),
+            torch.as_tensor(bank["edge_classes"], device=device),
+            torch.as_tensor(bank["node_mask"], device=device))
 
 
 def check_gin(gin, reference, tag):
-    """Phase 4. Returns the record of kernel B's JSON line (error at
-    GIN_MAIN in f32, times and bound on molecular graphs)."""
+    """Phase 4. Returns the record of kernel B's JSON line: the error at
+    GIN_MAIN in f32, the times, bound and share at GIN_MAIN on molecular
+    graphs and, under train_* keys, at GIN_TRAIN on the training bank
+    with the molecules in the first rows (train_last_*: the last rows)."""
     gen = torch.Generator(device="cuda").manual_seed(2)
-    main_err = None
-    for (b, n, h), dtypes in GIN_CHECKS:
-        for dt in dtypes:
-            x = torch.randn(b, n, h, device="cuda", generator=gen).to(dt)
-            edge = torch.randint(0, 5, (b, n, n), device="cuda",
-                                 generator=gen).triu(1)
-            edge = (edge + edge.transpose(1, 2)).to(torch.int32)
-            valid = torch.arange(n, device="cuda")[None] < torch.randint(
-                1, n + 1, (b, 1), device="cuda", generator=gen)
-            adj = ((edge > 0) & valid[:, :, None] & valid[:, None, :]).to(dt)
-            table = torch.randn(5, h, device="cuda", generator=gen).to(dt)
-            with torch.no_grad():
-                out = gin(x, edge, adj, table)
-            torch.cuda.synchronize()
-            ref = reference(x, edge, adj, table)
-            if out.shape != ref.shape or not torch.isfinite(out).all():
-                fail(f"gin kernel output {tuple(out.shape)} not finite/shaped")
-            diff = (out.float() - ref.float()).abs()
-            err = float(diff.max())
+
+    def compare(args, dt, what):
+        """f32 within atol = rtol = 1e-4 (the JAX contract), bf16 within
+        1e-2 x max|ref| (the output rounds once to bf16)."""
+        with torch.no_grad():
+            out = gin(*args)
+        torch.cuda.synchronize()
+        ref = reference(*args)
+        if out.shape != ref.shape or not torch.isfinite(out).all():
+            fail(f"gin kernel output {tuple(out.shape)} not finite/shaped")
+        diff = (out.float() - ref.float()).abs()
+        err = float(diff.max())
+        if dt == torch.float32:
+            ok = bool((diff <= 1e-4 + 1e-4 * ref.float().abs()).all())
+            tol = "atol = rtol = 1e-4"
+        else:
             scale = float(ref.float().abs().max())
-            if dt == torch.float32:
-                ok = bool((diff <= 1e-4 + 1e-4 * ref.float().abs()).all())
-                tol = "atol = rtol = 1e-4"
-            else:
-                ok = err <= 1e-2 * scale
-                tol = f"1e-2 x max|ref| = {1e-2 * scale:.3e}"
-            print(f"gin check B,N,H={b},{n},{h} {dt}: max_abs_err={err:.3e} "
-                  f"({tol})", flush=True)
-            if not ok:
-                fail(f"gin_aggregate disagrees at {(b, n, h)} {dt}: {err}")
-            if (b, n, h) == GIN_MAIN:
-                main_err = err
-    empty = gin(torch.zeros(1, 4, 8, device="cuda"),
-                torch.zeros(1, 4, 4, dtype=torch.int32, device="cuda"),
-                torch.zeros(1, 4, 4, device="cuda"),
-                torch.ones(5, 8, device="cuda"))
-    torch.cuda.synchronize()
-    if not bool((empty == 0).all()):
-        fail("gin_aggregate of an empty graph is not 0")
-    print("gin check empty graph: 0", flush=True)
-    # time on molecular graphs (~2-3 bonds per atom), as the path sees them
+            ok = err <= 1e-2 * scale
+            tol = f"1e-2 x max|ref| = {1e-2 * scale:.3e}"
+        print(f"gin check {what}: max_abs_err={err:.3e} ({tol})", flush=True)
+        if not ok:
+            fail(f"gin_aggregate disagrees at {what}: {err}")
+        return out, err
+
+    main_err = None
+    for (b, n, h), dtypes, dense in GIN_CHECKS:
+        for dt in dtypes:
+            for sym in (True, False):
+                args = random_graphs(gen, b, n, h, dt, sym, dense)
+                _, err = compare(args, dt, (
+                    f"B,N,H={b},{n},{h} {dt} "
+                    f"{'symmetric' if sym else 'directed'}"
+                    f"{', dense' if dense else ''}"))
+                if (b, n, h) == GIN_MAIN and sym:
+                    main_err = err
+    for (b, n, h) in ((1, 4, 8), GIN_TRAIN):   # no bond anywhere
+        none = torch.zeros(b, n, n, device="cuda")
+        out = gin(torch.randn(b, n, h, device="cuda", generator=gen),
+                  none.to(torch.int32), none,
+                  torch.ones(5, h, device="cuda"))
+        torch.cuda.synchronize()
+        if out.any():
+            fail(f"gin_aggregate of {b} empty graphs is not 0")
+        print(f"gin check {b} empty graphs, N={n}, H={h}: exactly 0",
+              flush=True)
+
+    # the training bank: MOLECULES in the last, then the first rows
+    b, n, h = GIN_TRAIN
+    x = torch.randn(b, n, h, device="cuda", generator=gen)
+    table = torch.randn(5, h, device="cuda", generator=gen)
+    banks = {}
+    for last in (True, False):
+        _, edge, mask, adj = path_graphs(b, n, last)
+        args = (x, edge, adj, table)
+        out, train_err = compare(args, torch.float32, (
+            f"training bank B,N,H={b},{n},{h} f32, {len(MOLECULES)} "
+            f"molecules in the {'last' if last else 'first'} rows"))
+        if out[mask.logical_not().all(dim=1)].any():
+            fail("gin_aggregate wrote non-zeros into a padding graph")
+        banks[last] = args
+    with torch.no_grad():
+        if not torch.equal(gin(*args), gin(*args)):
+            fail("gin_aggregate is not bit-identical across runs")
+    print("gin check: two runs bit-identical", flush=True)
+
+    def timed(args, what):
+        """Call, device and plain times, the bound and the share."""
+        shape = tuple(args[0].shape)
+        with torch.no_grad():
+            rec = time_kernel(f"gin_aggregate at {shape} f32, {what}",
+                              lambda: gin(*args), lambda: reference(*args),
+                              "gin_aggregate_kernel", tag)
+        bound_ms, bound_by = gin_bound(args, backward=False)
+        share = bound_ms / rec["device_ms"]
+        print(f"gin_aggregate bound at {shape} {bound_ms * 1e3:.3f} us "
+              f"({bound_by}), {100 * share:.1f}% of it [{tag}]", flush=True)
+        return {**rec, "bound_ms": bound_ms, "bound_by": bound_by,
+                "share": share, "shape": list(shape)}
+
+    train, train_last = (
+        timed(banks[last], f"the training bank ({len(MOLECULES)} molecules "
+                           f"in the {'last' if last else 'first'} rows)")
+        for last in (False, True))
+    # molecular graphs (~2-3 bonds per atom), as the splice sees them
     b, n, h = GIN_MAIN
     _, edge, mask = molecular_graphs(n)
     adj = ((edge > 0) & mask[:, :, None] & mask[:, None, :]).float()
     x = torch.randn(b, n, h, device="cuda", generator=gen)
     table = torch.randn(5, h, device="cuda", generator=gen)
-    args = (x, edge.to(torch.int32).contiguous(), adj, table)
-    with torch.no_grad():
-        rec = time_kernel(f"gin_aggregate at {GIN_MAIN} f32, molecular "
-                          "graphs", lambda: gin(*args),
-                          lambda: reference(*args), "gin_aggregate_kernel",
-                          tag)
-    bound_ms, bound_by = gin_bound(args, backward=False)
-    print(f"gin_aggregate bound {bound_ms * 1e3:.3f} us ({bound_by}), "
-          f"{100 * bound_ms / rec['device_ms']:.1f}% of it [{tag}]",
-          flush=True)
-    return {"max_abs_err": main_err, **rec, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None}
+    serve = timed((x, edge.to(torch.int32).contiguous(), adj, table),
+                  "molecular graphs")
+    return {"max_abs_err": main_err, **serve, "library_ms": None,
+            "train_max_abs_err": train_err,
+            **{f"train_{k}": v for k, v in train.items()},
+            **{f"train_last_{k}": train_last[k]
+               for k in ("ms", "device_ms", "graph_ms", "share")}}
 
 
 def build_slice():
@@ -444,16 +512,17 @@ def build_slice():
     from llamole_tpu_torch.ops.nn import xavier_uniform_
 
     tok = offline_tokenizer()
-    info = build_data_info_from_smiles(CORPUS, max_n_nodes=50)
+    info = build_data_info_from_smiles(CORPUS, max_n_nodes=MAX_NODES)
     dit = GraphDiTConfig(hidden_size=1024, depth=28, num_heads=16,
                          diffusion_steps=100, text_dim=768, guide_scale=2.0)
     model = build_graph_lm_from_configs(
         LLMConfig.llama3_8b(), dit, info, tok, device="cuda",
         llm_dtype=torch.bfloat16, graph_dtype=torch.bfloat16, seed=0,
         finetuning_type="lora", lora_rank=8,
-        clip_cfg=GraphCLIPConfig(num_layer=GIN_LAYERS, hidden_size=300),
+        clip_cfg=GraphCLIPConfig(num_layer=GIN_LAYERS,
+                                 hidden_size=GIN_HIDDEN),
         predictor_cfg=GraphPredictorConfig(num_layer=GIN_LAYERS,
-                                           hidden_size=300, out_dim=16,
+                                           hidden_size=GIN_HIDDEN, out_dim=16,
                                            text_input_size=768))
     # the JAX init zero-gates every AdaLN block of the denoiser and of
     # the predictor (training starts from identity blocks); random
@@ -654,7 +723,8 @@ def run_serving(model, tok, timers, kernels, tag):
 
 
 def run_eval(model, tok, timers, kernels, tag):
-    """Phase 8: run_molqa over 2 records with the prebuilt model."""
+    """Phase 8: run_molqa over 2 records with the prebuilt model. Returns
+    the launches of kernels A and B in it."""
     fused, gin = kernels[:2]
     from llamole_tpu_torch.eval.workflow import run_molqa
 
@@ -702,6 +772,7 @@ def run_eval(model, tok, timers, kernels, tag):
                    timers.gin_floor() + GIN_LAYERS,
                    f"{GIN_LAYERS} x ({timers.count('splice')} rounds + "
                    f"{timers.count('predictor')} products + 1 FGD chunk)")
+    return launches
 
 
 def check_denoiser(model, tag):
@@ -755,10 +826,9 @@ def check_graphclip(model, tag):
 # kernel C: the JAX contract shape, an odd one and one whose H is not a
 # multiple of 4 (the scalar lane path), each in f32 and bf16; channel
 # widths on the vector and the scalar path in f32; and the training path's
-# predictor batch (collator max_retro = 8 x per_device_train_batch_size 10)
+# predictor batch (GIN_TRAIN)
 GIN_BWD_CHECKS = ((2, 9, 24), (3, 11, 40), (3, 11, 42))
 GIN_BWD_WIDTHS = ((4, 50, 300), (4, 50, 150))
-GIN_BWD_MAIN = (80, 50, 300)
 # kernel D: the JAX contract shapes (tests/test_pallas.py) and the
 # denoiser's head shape
 ATTN_CONTRACT = ((2, 4, 13, 24), (1, 2, 64, 64), (3, 8, 50, 32))
@@ -781,15 +851,15 @@ def random_graphs(gen, b, n, h, dt, symmetric=True, dense=False):
     return x, edge.to(torch.int32).contiguous(), adj, table
 
 
-def path_graphs(rows: int, n: int, last: bool = False):
+def path_graphs(rows: int, n: int, last: bool = False, device="cuda"):
     """MOLECULES in the first rows of a [rows, n] bank (the last rows with
-    `last`), the rest empty (padding rows), as the training path's retro
-    bank holds them: (atoms, int32 edges, node mask, f32 adj)."""
-    atoms, edges, mask = molecular_graphs(n)
+    `last`), the rest empty (padding rows), as the training path's banks
+    hold them: (atoms, int32 edges, node mask, f32 adj)."""
+    atoms, edges, mask = molecular_graphs(n, device)
     k = atoms.shape[0]
-    a = torch.zeros(rows, n, dtype=atoms.dtype, device="cuda")
-    e = torch.zeros(rows, n, n, dtype=torch.int32, device="cuda")
-    m = torch.zeros(rows, n, dtype=torch.bool, device="cuda")
+    a = torch.zeros(rows, n, dtype=atoms.dtype, device=device)
+    e = torch.zeros(rows, n, n, dtype=torch.int32, device=device)
+    m = torch.zeros(rows, n, dtype=torch.bool, device=device)
     at = slice(rows - k, rows) if last else slice(0, k)
     a[at], e[at], m[at] = atoms, edges.to(torch.int32), mask
     adj = ((e > 0) & m[:, :, None] & m[:, None, :]).float()
@@ -862,7 +932,7 @@ def check_gin_backward(bwd, reference, tag):
     print(f"gin backward check N={past}: ValueError, nothing launched "
           f"(largest N {GIN_BWD_MAX_NODES})", flush=True)
 
-    for (b, n, h) in ((1, 4, 8), GIN_BWD_MAIN):   # no bond anywhere
+    for (b, n, h) in ((1, 4, 8), GIN_TRAIN):   # no bond anywhere
         none = torch.zeros(b, n, n, device="cuda")
         dx, dtab = bwd(torch.randn(b, n, h, device="cuda", generator=gen),
                        none.to(torch.int32), none,
@@ -874,7 +944,7 @@ def check_gin_backward(bwd, reference, tag):
         print(f"gin backward check {b} empty graphs, N={n}, H={h}: "
               "exactly 0", flush=True)
 
-    b, n, h = GIN_BWD_MAIN
+    b, n, h = GIN_TRAIN
     x = torch.randn(b, n, h, device="cuda", generator=gen)
     g = torch.randn(b, n, h, device="cuda", generator=gen)
     table = torch.randn(5, h, device="cuda", generator=gen)
@@ -891,7 +961,7 @@ def check_gin_backward(bwd, reference, tag):
     if not all(torch.equal(u, v) for u, v in zip(first, second)):
         fail("gin_aggregate_backward is not bit-identical across runs")
     print("gin backward: two runs bit-identical", flush=True)
-    rec = time_kernel(f"gin_aggregate_backward at {GIN_BWD_MAIN} f32, "
+    rec = time_kernel(f"gin_aggregate_backward at {GIN_TRAIN} f32, "
                       "path graphs", lambda: bwd(*args),
                       lambda: reference(*args), "gin_backward_kernel", tag)
     bound_ms, bound_by = gin_bound(args, backward=True)
@@ -976,7 +1046,7 @@ def check_predictor(model, tag):
     gradients."""
     cards = copy.deepcopy(model.graph_predictor)
     cpu = copy.deepcopy(model.graph_predictor).cpu()
-    b, n = GIN_BWD_MAIN[:2]
+    b, n = GIN_TRAIN[:2]
     atoms, edges, mask, _ = path_graphs(b, n)
     w = torch.randn(b, cards.cfg.out_dim,
                     generator=torch.Generator().manual_seed(5))
@@ -1031,7 +1101,7 @@ def llama_lora_args(out_dir: str):
                    val_size=0.1, max_samples=None, train_on_prompt=False)
     training_args = ns(
         output_dir=out_dir, logging_steps=1, save_steps=2000, plot_loss=True,
-        overwrite_output_dir=True, per_device_train_batch_size=10,
+        overwrite_output_dir=True, per_device_train_batch_size=TRAIN_BATCH,
         gradient_accumulation_steps=2, learning_rate=1e-4,
         num_train_epochs=4.0, lr_scheduler_type="cosine", warmup_ratio=0.1,
         mesh="", per_device_eval_batch_size=6, warmup_steps=0, max_steps=-1,
@@ -1058,7 +1128,7 @@ def _checksum(tensors) -> float:
 
 def run_training(model, tok, kernels, tag):
     """Phase 9: run_mmsft at full width with llama_lora.yaml's settings.
-    Returns the kernel-C launches of the run."""
+    Returns the kernel-B and kernel-C launches of the run."""
     from llamole_tpu_torch.train.workflow import run_mmsft
 
     fused, gin, gin_bwd = kernels[:3]
@@ -1166,7 +1236,7 @@ def run_training(model, tok, kernels, tag):
           f"{metrics.get('eval_loss')}); peak memory {peak / 2**30:.2f} "
           f"GiB (torch.cuda.max_memory_allocated) [{tag}]", flush=True)
     profile_training_step(model, last_batch[0], tag)
-    return launches["C"]
+    return launches["B"], launches["C"]
 
 
 def profile_training_step(model, batch, tag):
@@ -1241,8 +1311,8 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     timers = PathTimers(model)
     launches = run_serving(model, tok, timers, kernels, tag)
-    run_eval(model, tok, timers, kernels, tag)
-    bwd_launches = run_training(model, tok, kernels, tag)
+    molqa = run_eval(model, tok, timers, kernels, tag)
+    b_training, c_training = run_training(model, tok, kernels, tag)
     check_denoiser(model, tag)
     check_graphclip(model, tag)
     check_predictor(model, tag)
@@ -1265,11 +1335,16 @@ def main() -> int:
               sdpa_floor_device_ms=a["sdpa_floor_device_ms"],
               fma_ms=a["fma_ms"],
               fma_device_ms=a["fma_device_ms"]),
+        # B: launches in serving, times at the splice's shape; the
+        # training path's launches and times under their own keys
         entry("gin_aggregate", gin_src,
-              "llamole_tpu/ops/pallas/gin_aggregate.py:85", b, launches["B"]),
+              "llamole_tpu/ops/pallas/gin_aggregate.py:85", b, launches["B"],
+              launches_molqa=molqa[1], launches_training=b_training,
+              **{k: v for k, v in b.items() if k.startswith("train_")},
+              shape=b["shape"], share=b["share"]),
         entry("gin_aggregate_backward", gin_src,
               "llamole_tpu/ops/pallas/gin_aggregate.py:163", c,
-              bwd_launches),
+              c_training),
         # kernel D is on no path of either package: its launches are
         # those of its check (phase 6), all on the mma or fma body there
         entry("graph_attention", attn_src,

@@ -15,22 +15,50 @@
 // with the TPU kernel on symmetric ones. Pallas spelled erf as a rational
 // polynomial because Mosaic has no erf; here it is `erff`.
 //
-// What bounds it on an H100: the reads of x. Taken literally the sum reads
-// N^2 * H values of x per graph (each destination i walks every source
-// row j), against ~N^2 * H * 20 flops of GELU, so it is load-bound, and
-// at the path shapes (N <= 56, H = 300, f32) one graph's x is 67 KB and
-// those reads hit L1/L2, not device memory. The design cuts the reads
-// themselves: pairs with adj == 0 contribute nothing and are skipped, and
-// a molecule has ~2-3 bonds per atom, so a destination reads ~3 rows of x
-// instead of N. The adj == 0 test is uniform across the block (every
-// thread walks the same j), so the skip costs no divergence.
+// What bounds it on an H100: latency and wasted work, not bandwidth. The
+// sum runs over the bonded pairs only (~2-3 a molecule's atom), so the
+// rows of x and the classes it needs are few, and the one output, written
+// once in full, sets the bound (4.8 MB on the training path's bank of 80
+// graphs x 50 nodes x 300 channels; with adj, ~1.72 us at 3.35 TB/s). Most
+// of that bank is padding: only ~8 of its 80 graphs hold a molecule, so
+// 3600 of its 4000 destination rows have no bond and only store zeros.
+// What the card pays is the launch, the round trips a row chains, the
+// exact GELUs of the bonded rows, and the zero rows' stores. The design:
 //
-// Design: one block per (graph b, destination node i); its threads stride
-// over H, so neighbouring threads read neighbouring addresses of row j
-// (coalesced). The block stages its adj and edge rows in shared memory,
-// each thread keeps the five table entries of its columns in registers,
-// and the loop over j adds adj * gelu(x[b, j, h] + table[e, h]) in f32.
-// No shared-memory tiling of x and no tensor cores: later work.
+// - One warp per (destination row b N + i, slice of kSlice = 128
+//   channels), four a lane; a row's slices in consecutive warps,
+//   kFwdWarps = 4 warps a block. The warps share nothing: no shared
+//   memory, no barrier. 12000 warps at (80, 50, 300), 1344 at
+//   (8, 56, 300). Giving a warp the whole row of 300 channels (12 a lane)
+//   measured slower at both shapes: the bonded rows' GELUs then run on a
+//   third as many warps, and holding their x rows in flight took ~124
+//   registers.
+// - Warps go node-major: node i of every graph before node i + 1 of any.
+//   A padded graph holds its atoms in its first nodes, so the bonded rows,
+//   which take longest, start in the first wave whichever graphs of a
+//   bank hold molecules (in row order, a bank with its molecules in the
+//   last graphs started them in a second wave, 40% slower). The index
+//   math is 32-bit: a warp's divisions come before its first load, and
+//   64-bit ones cost every warp, the empty rows' too.
+// - The row's pair list comes straight from its own row of adj and edge,
+//   which is the memory layout: no staging, no shared memory that grows
+//   with N, so N is free, and so is H. The warp reads the row 64 columns
+//   a round trip, one coalesced adj and class value a lane per 32
+//   columns; __ballot_sync(a != 0) turns them into a 64-bit mask of the
+//   set columns, and a pair's adj value and class reach the warp by
+//   __shfl_sync from the lane that loaded them.
+// - A row without a bond (the mask stays 0) stores its zeros: one round
+//   trip and one store.
+// - A row with bonds walks the mask's set bits in column order,
+//   kFwdPairs = 2 at a time: it starts the loads of both pairs' x rows and
+//   table rows (the table's [5, H] stays in L1 and L2; a class outside 0-4
+//   reads row 0) before it uses any, then adds a_ij * gelu(x[b, j] +
+//   table[c_ij]) in f32 with fmaf, in j order, and stores the row once in
+//   x's type. A lane's four channels are one float4 (f32) or 8-byte (bf16)
+//   access where H % 4 == 0 and the rows are aligned, else four coalesced
+//   scalar accesses 32 channels apart.
+// - Deterministic: each output element is summed by one lane in j order,
+//   with no atomics, so two runs give the same bits.
 //
 // The backward (kernel C) replaces `_gin_bwd_kernel` (launched by
 // `_gin_bwd_pallas` from the custom_vjp's `_gin_bwd`), which runs in every
@@ -91,8 +119,6 @@
 
 namespace {
 
-constexpr int kMaxThreads = 1024;
-
 template <typename T> __device__ __forceinline__ float to_f32(T x);
 template <> __device__ __forceinline__ float to_f32<float>(float x) { return x; }
 template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
@@ -109,65 +135,6 @@ __device__ __forceinline__ float gelu_exact(float v) {
   return 0.5f * v * (1.0f + erff(v * 0.70710678118654752f));
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kMaxThreads) gin_aggregate_kernel(
-    const T* __restrict__ x, const int32_t* __restrict__ edge,
-    const T* __restrict__ adj, const T* __restrict__ table,
-    T* __restrict__ out, int N, int H) {
-  extern __shared__ float smem[];
-  float* a_row = smem;                                 // [N]
-  int32_t* e_row = reinterpret_cast<int32_t*>(smem + N);  // [N]
-
-  const int bi = blockIdx.x;  // b * N + i
-  const int b = bi / N;
-  const size_t pair = (size_t)bi * N;
-  for (int j = threadIdx.x; j < N; j += blockDim.x) {
-    a_row[j] = to_f32<T>(adj[pair + j]);
-    e_row[j] = edge[pair + j];
-  }
-  __syncthreads();
-
-  const T* xb = x + (size_t)b * N * H;
-  T* dst = out + (size_t)bi * H;
-  for (int h = threadIdx.x; h < H; h += blockDim.x) {
-    float tab[5];
-#pragma unroll
-    for (int k = 0; k < 5; ++k) tab[k] = to_f32<T>(table[k * H + h]);
-    float acc = 0.f;
-    for (int j = 0; j < N; ++j) {
-      const float a = a_row[j];
-      if (a == 0.f) continue;  // no edge: the term is zero
-      const int e = e_row[j];
-      float t = tab[0];
-      t = e == 1 ? tab[1] : t;
-      t = e == 2 ? tab[2] : t;
-      t = e == 3 ? tab[3] : t;
-      t = e == 4 ? tab[4] : t;
-      acc = fmaf(a, gelu_exact(to_f32<T>(xb[(size_t)j * H + h]) + t), acc);
-    }
-    dst[h] = from_f32<T>(acc);
-  }
-}
-
-template <typename T>
-int launch(const void* x, const void* edge, const void* adj, const void* table,
-           void* out, int B, int N, int H, void* stream) {
-  if (B <= 0 || N <= 0 || H <= 0) return (int)cudaSuccess;
-  int threads = ((H + 31) / 32) * 32;
-  if (threads > kMaxThreads) threads = kMaxThreads;
-  const size_t smem = (size_t)N * (sizeof(float) + sizeof(int32_t));
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        gin_aggregate_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  gin_aggregate_kernel<T><<<B * N, threads, smem, (cudaStream_t)stream>>>(
-      (const T*)x, (const int32_t*)edge, (const T*)adj, (const T*)table,
-      (T*)out, N, H);
-  return (int)cudaGetLastError();
-}
-
 __device__ __forceinline__ float dgelu_exact(float v) {
   const float cdf = 0.5f * (1.0f + erff(v * 0.70710678118654752f));
   const float pdf = expf(-0.5f * v * v) * 0.39894228040143268f;
@@ -176,7 +143,7 @@ __device__ __forceinline__ float dgelu_exact(float v) {
 
 constexpr int kBwdWarps = 8;
 constexpr int kBwdThreads = kBwdWarps * 32;
-constexpr int kSlice = 128;  // channels per block: 32 lanes x 4
+constexpr int kSlice = 128;  // channels of a B warp, of a C block: 32 lanes x 4
 
 // Channel h = s0 + slot of a lane's q-th value: slot = 4 * lane + q on the
 // vector path (one 16- or 8-byte access), lane + 32 * q on the scalar one
@@ -242,6 +209,104 @@ __device__ __forceinline__ void store4(T* __restrict__ row, int s0, int lane,
       if (h < H) row[h] = from_f32<T>(v[q]);
     }
   }
+}
+
+constexpr int kFwdWarps = 4;                // warps a block
+constexpr int kFwdThreads = kFwdWarps * 32;
+constexpr int kFwdPairs = 2;                // pairs whose rows fly together
+
+// One warp per (destination row b N + i, slice of kSlice channels).
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kFwdThreads) gin_aggregate_kernel(
+    const T* __restrict__ x, const int32_t* __restrict__ edge,
+    const T* __restrict__ adj, const T* __restrict__ table,
+    T* __restrict__ out, int B, int N, int H) {
+  const int lane = threadIdx.x & 31;
+  // warps node-major (rk = i B + b), a row's slices side by side; the
+  // launch keeps the warp count within 32 bits
+  const unsigned slices = (H + kSlice - 1) / kSlice;
+  const unsigned w = blockIdx.x * kFwdWarps + (threadIdx.x >> 5);
+  const unsigned rk = w / slices;
+  if (rk >= (unsigned)B * (unsigned)N) return;  // warps share nothing: no barrier
+  const int s0 = (int)(w - rk * slices) * kSlice;
+  const unsigned gb = rk % (unsigned)B;
+  const size_t row = (size_t)gb * N + rk / (unsigned)B;
+  const T* arow = adj + row * N;
+  const int32_t* erow = edge + row * N;
+  const T* xb = x + (size_t)gb * N * H;
+
+  // The row's adj values and classes, 64 columns a round trip, two a lane.
+  float a_lo, a_hi;
+  int c_lo, c_hi;
+  auto load_window = [&](int j0) {
+    const int j = j0 + lane;
+    a_lo = j < N ? to_f32<T>(arow[j]) : 0.f;
+    c_lo = j < N ? erow[j] : 0;
+    a_hi = j + 32 < N ? to_f32<T>(arow[j + 32]) : 0.f;
+    c_hi = j + 32 < N ? erow[j + 32] : 0;
+  };
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int j0 = 0; j0 < N; j0 += 64) {
+    load_window(j0);
+    unsigned long long m = __ballot_sync(~0u, a_lo != 0.f) |
+        (unsigned long long)__ballot_sync(~0u, a_hi != 0.f) << 32;
+    // The set columns in order, kFwdPairs at a time: start the loads of
+    // their x rows and table rows, then add a_ij * gelu(x[b, j] +
+    // table[c_ij]). A row without a bond goes straight to its store.
+    while (m) {  // m is the same in every lane: no divergence
+      float av[kFwdPairs], xv[kFwdPairs][4], tv[kFwdPairs][4];
+      int live = 0;
+#pragma unroll
+      for (int u = 0; u < kFwdPairs; ++u) {
+        if (m) {
+          const int k = __ffsll((long long)m) - 1;
+          m &= m - 1;
+          av[u] = __shfl_sync(~0u, k < 32 ? a_lo : a_hi, k & 31);
+          const int c = __shfl_sync(~0u, k < 32 ? c_lo : c_hi, k & 31);
+          load4<T, kVec>(xb + (size_t)(j0 + k) * H, s0, lane, H, xv[u]);
+          load4<T, kVec>(table + (size_t)((unsigned)c < 5u ? c : 0) * H, s0,
+                         lane, H, tv[u]);
+          live = u + 1;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kFwdPairs; ++u) {
+        if (u < live) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            acc[q] = fmaf(av[u], gelu_exact(xv[u][q] + tv[u][q]), acc[q]);
+        }
+      }
+    }
+  }
+  store4<T, kVec>(out + row * (size_t)H, s0, lane, H, acc);
+}
+
+template <typename T, bool kVec>
+int launch_as(const void* x, const void* edge, const void* adj,
+              const void* table, void* out, int B, int N, int H, void* stream) {
+  const long long warps = (long long)B * N * ((H + kSlice - 1) / kSlice);
+  const long long blocks = (warps + kFwdWarps - 1) / kFwdWarps;
+  // the kernel counts warps in 32 bits; a bank past 2^32 warps would hold
+  // over 80 GB of inputs at N >= 4
+  if (blocks * kFwdWarps > 0xffffffffLL) return (int)cudaErrorInvalidConfiguration;
+  gin_aggregate_kernel<T, kVec><<<(unsigned)blocks, kFwdThreads, 0, (cudaStream_t)stream>>>(
+      (const T*)x, (const int32_t*)edge, (const T*)adj, (const T*)table,
+      (T*)out, B, N, H);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch(const void* x, const void* edge, const void* adj, const void* table,
+           void* out, int B, int N, int H, void* stream) {
+  if (B <= 0 || N <= 0 || H <= 0) return (int)cudaSuccess;
+  // the vector path: four channels in one access, so H % 4 == 0 and the
+  // rows of x, the table and out aligned to that access
+  const uintptr_t align = 4 * sizeof(T);
+  const bool vec = H % 4 == 0 && (uintptr_t)x % align == 0 &&
+                   (uintptr_t)table % align == 0 && (uintptr_t)out % align == 0;
+  return vec ? launch_as<T, true>(x, edge, adj, table, out, B, N, H, stream)
+             : launch_as<T, false>(x, edge, adj, table, out, B, N, H, stream);
 }
 
 // Dynamic shared memory of one block, in 4-byte words (the wrapper's

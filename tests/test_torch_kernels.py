@@ -124,14 +124,19 @@ def test_tensor_core_body_matches_plain(cuda, shape):
 
 
 # kernel B (GIN aggregation): the path shapes (GraphCLIP splice of a width-8
-# frontier, one predictor product) and two odd ones
-GIN_SHAPES = [(8, 56, 300), (1, 24, 300), (3, 11, 40), (2, 17, 64)]
+# frontier, one predictor product, the training bank's shape), two odd
+# ones, H not a multiple of 4 (the scalar lanes), and dense graphs with N
+# past kernel C's limit (the plain version forms [B, N, N, H]: 315 MB a
+# graph at N = 512)
+GIN_SHAPES = [(8, 56, 300), (1, 24, 300), (80, 50, 300), (3, 11, 40),
+              (2, 17, 64), (4, 50, 42), (4, 50, 150)]
+GIN_DENSE = [(2, 200, 300), (1, 512, 300)]
 
 
-def gin_inputs(dev, dtype, b, n, h, seed=0, symmetric=True):
+def gin_inputs(dev, dtype, b, n, h, seed=0, symmetric=True, dense=False):
     """Random graphs: edge classes 0-4 (symmetric like molecules unless
-    asked), the last nodes of each graph padded away, adj = edge > 0 on
-    valid pairs, a [5, H] bond table."""
+    asked), the last nodes of each graph padded away (every node kept with
+    dense), adj = edge > 0 on valid pairs, a [5, H] bond table."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     x = torch.randn(b, n, h, device=dev, generator=gen).to(dtype)
     edge = torch.randint(0, 5, (b, n, n), device=dev, generator=gen)
@@ -140,18 +145,21 @@ def gin_inputs(dev, dtype, b, n, h, seed=0, symmetric=True):
         edge = edge + edge.transpose(1, 2)
     valid = torch.arange(n, device=dev)[None] < torch.randint(
         1, n + 1, (b, 1), device=dev, generator=gen)
+    if dense:
+        valid = torch.ones_like(valid)
     pair = valid[:, :, None] & valid[:, None, :]
     adj = ((edge > 0) & pair).to(dtype)
     table = torch.randn(5, h, device=dev, generator=gen).to(dtype)
     return x, edge.to(torch.int32).contiguous(), adj, table
 
 
-@pytest.mark.parametrize("shape", GIN_SHAPES)
+@pytest.mark.parametrize("shape,dense", [(s, False) for s in GIN_SHAPES]
+                         + [(s, True) for s in GIN_DENSE])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("symmetric", [True, False])
-def test_gin_kernel_matches_plain(cuda, shape, dtype, symmetric):
+def test_gin_kernel_matches_plain(cuda, shape, dense, dtype, symmetric):
     x, edge, adj, table = gin_inputs(cuda, dtype, *shape,
-                                     symmetric=symmetric)
+                                     symmetric=symmetric, dense=dense)
     before = gin_aggregate.launches
     with torch.no_grad():
         out = gin_aggregate(x, edge, adj, table)
@@ -164,13 +172,20 @@ def test_gin_kernel_matches_plain(cuda, shape, dtype, symmetric):
     else:                           # the output rounds once to bf16
         err = float((out.float() - ref.float()).abs().max())
         assert err <= 1e-2 * float(ref.float().abs().max()), err
+    # no atomics: the same bits on every run
+    with torch.no_grad():
+        assert torch.equal(gin_aggregate(x, edge, adj, table), out)
 
 
-def test_gin_kernel_empty_graph_is_zero(cuda):
-    x = torch.zeros(1, 4, 8, device=cuda)
-    edge = torch.zeros(1, 4, 4, dtype=torch.int32, device=cuda)
-    adj = torch.zeros(1, 4, 4, device=cuda)
-    table = torch.ones(5, 8, device=cuda)
+@pytest.mark.parametrize("shape", [(1, 4, 8), (80, 50, 300)])
+def test_gin_kernel_empty_graph_is_zero(cuda, shape):
+    """One graph without a bond, and a bank of 80 (the training bank's
+    padding rows, all of it): exact zeros, whatever x holds."""
+    b, n, h = shape
+    x = torch.randn(b, n, h, device=cuda)
+    edge = torch.zeros(b, n, n, dtype=torch.int32, device=cuda)
+    adj = torch.zeros(b, n, n, device=cuda)
+    table = torch.ones(5, h, device=cuda)
     out = gin_aggregate(x, edge, adj, table)
     torch.cuda.synchronize()
     assert torch.equal(out, torch.zeros_like(out))
@@ -264,8 +279,31 @@ def test_gin_backward_kernel_all_empty_bank_is_zero(cuda):
     assert not dx.any() and not dt.any()
 
 
-MOLECULES = ["CC(=O)Oc1ccccc1C(=O)O", "CN1C=NC2=C1C(=O)N(C(=O)N2C)C",
-             "CC(C)Cc1ccc(cc1)C(C)C(=O)O", "CC(=O)Nc1ccc(O)cc1"]
+def padded_bank(dev, last):
+    """chip_smoke.py's MOLECULES in the first or the last rows of the
+    training path's 80-graph bank (80, 50, 300), the rest empty: (x, edge,
+    adj, table, g, node mask)."""
+    import chip_smoke
+    b, n, h = chip_smoke.GIN_TRAIN
+    _, edge, mask, adj = chip_smoke.path_graphs(b, n, last, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    x, g = (torch.randn(b, n, h, device=dev, generator=gen)
+            for _ in range(2))
+    table = torch.randn(5, h, device=dev, generator=gen)
+    return x, edge, adj, table, g, mask
+
+
+@pytest.mark.parametrize("last", [False, True], ids=["first", "last"])
+def test_gin_kernel_molecules_in_a_padded_bank(cuda, last):
+    """Kernel B on the training bank: the molecules' rows within the JAX
+    contract, every row of the empty graphs exactly 0."""
+    x, edge, adj, table, _, mask = padded_bank(cuda, last)
+    with torch.no_grad():
+        out = gin_aggregate(x, edge, adj, table)
+    torch.cuda.synchronize()
+    ref = gin_aggregate_reference(x, edge, adj, table)
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+    assert not out[mask.logical_not().all(dim=1)].any()
 
 
 @pytest.mark.parametrize("last", [False, True], ids=["first", "last"])
@@ -273,20 +311,7 @@ def test_gin_backward_kernel_molecules_in_a_padded_bank(cuda, last):
     """Molecules in the first or the last rows of an 80-graph bank, the
     rest empty: the empty graphs' early exit must not disturb the rows
     around it."""
-    from llamole_tpu_torch.chem.featurize import (pad_graph_batch,
-                                                  smiles_to_graph)
-    b, n, h = 80, 50, 300
-    mols = pad_graph_batch([smiles_to_graph(m) for m in MOLECULES], n)
-    edge = torch.zeros(b, n, n, dtype=torch.int32, device=cuda)
-    mask = torch.zeros(b, n, dtype=torch.bool, device=cuda)
-    at = slice(b - len(MOLECULES), b) if last else slice(0, len(MOLECULES))
-    edge[at] = torch.as_tensor(mols["edge_classes"], device=cuda).int()
-    mask[at] = torch.as_tensor(mols["node_mask"], device=cuda)
-    adj = ((edge > 0) & mask[:, :, None] & mask[:, None, :]).float()
-    gen = torch.Generator(device=cuda).manual_seed(2)
-    x, g = (torch.randn(b, n, h, device=cuda, generator=gen)
-            for _ in range(2))
-    table = torch.randn(5, h, device=cuda, generator=gen)
+    x, edge, adj, table, g, mask = padded_bank(cuda, last)
     dx, dt = gin_aggregate_backward(x, edge, adj, table, g)
     torch.cuda.synchronize()
     rdx, rdt = gin_aggregate_backward_reference(x, edge, adj, table, g)

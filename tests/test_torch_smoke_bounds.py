@@ -1,7 +1,10 @@
 """chip_smoke.py's byte count for kernels B and C (gin_bytes / gin_bound),
 on a hand-built bank on the CPU: it counts the x rows of adj's used
-columns, the g rows of its used rows, and every other input and output
-once in full."""
+columns, the g rows of its used rows, the classes of adj's non-zero
+entries, and every other input and output once in full. And the training shape chip_smoke.py times kernel B at is
+the bank run_mmsft builds under its llama_lora settings."""
+
+from types import SimpleNamespace
 
 import pytest
 import torch
@@ -32,7 +35,8 @@ def bank(empty: int):
 def hand_count(empty: int, backward: bool) -> int:
     b = 2 + empty
     x_rows = (3 + 2) * H * F32
-    edge = adj = b * N * N * F32
+    edge = (4 + 2) * F32                   # the classes of the 6 bonds
+    adj = b * N * N * F32
     table = 5 * H * F32
     out = b * N * H * F32                  # out (B) or dx (C)
     total = x_rows + edge + adj + table + out
@@ -57,7 +61,8 @@ def test_empty_graphs_add_only_adj_edge_and_output(backward):
     added = 5
     more = chip_smoke.gin_bytes(bank(3 + added), backward)
     fewer = chip_smoke.gin_bytes(bank(3), backward)
-    per_graph = N * N * F32 + N * N * F32 + N * H * F32   # adj, edge, out
+    # adj and out; edge adds nothing where adj has no non-zero
+    per_graph = N * N * F32 + N * H * F32
     assert more - fewer == added * per_graph
 
 
@@ -68,3 +73,58 @@ def test_b_and_c_differ_by_g_rows_dx_and_dtable():
     g_rows = (3 + 1) * H * F32
     dtable = 5 * H * F32
     assert c - b == g_rows + dx + dtable - out
+
+
+def test_training_shape_is_the_bank_run_mmsft_builds(tmp_path, monkeypatch):
+    """GIN_TRAIN is the molecule and retro bank that run_mmsft's collator
+    gets under llama_lora_args (max(8, 8 x batch) graphs of the graph
+    decoder's max_n_nodes) at the GIN width of the slice chip_smoke.py
+    builds."""
+    from llamole_tpu_torch.models.graphdit import build_data_info_from_smiles
+    from llamole_tpu_torch.models.loader import offline_tokenizer
+    from llamole_tpu_torch.train import workflow
+
+    class Built(Exception):
+        pass
+
+    seen = {}
+
+    def collator(**kwargs):
+        seen.update(kwargs)
+        raise Built
+
+    monkeypatch.setattr(workflow, "SeqGraphCollator", collator)
+    info = build_data_info_from_smiles(chip_smoke.CORPUS,
+                                       max_n_nodes=chip_smoke.MAX_NODES)
+    model = SimpleNamespace(graph_decoder=SimpleNamespace(
+        cfg=SimpleNamespace(max_n_nodes=info.max_n_nodes)))
+    with pytest.raises(Built):
+        workflow.run_mmsft(*chip_smoke.llama_lora_args(str(tmp_path)),
+                           prebuilt=(model, offline_tokenizer()))
+    rows, n, h = chip_smoke.GIN_TRAIN
+    assert (seen["max_graphs"], seen["max_nodes"]) == (rows, n)
+    assert (seen["max_retro"], seen["max_nodes"]) == (rows, n)
+    assert (rows, n, h) == (80, 50, chip_smoke.GIN_HIDDEN)
+
+
+def test_bound_at_the_training_bank_counts_the_output_once():
+    """gin_bound of kernel B at GIN_TRAIN on the training bank: the 4.8 MB
+    output once, adj once, the table, and only the molecules' bonds'
+    classes and the x rows of their bonded columns."""
+    rows, n, h = chip_smoke.GIN_TRAIN
+    _, edge, mask, adj = chip_smoke.path_graphs(rows, n, device="cpu")
+    x = torch.zeros(rows, n, h)
+    table = torch.zeros(5, h)
+    args = (x, edge, adj, table)
+    out = rows * n * h * F32
+    assert out == 4_800_000
+    bonded_columns = int((adj != 0).any(dim=1).sum())
+    assert 0 < bonded_columns < len(chip_smoke.MOLECULES) * n
+    bonds = int((adj != 0).sum())
+    assert bonded_columns < bonds < len(chip_smoke.MOLECULES) * n * n
+    want = (bonded_columns * h * F32 + bonds * F32 + rows * n * n * F32
+            + 5 * h * F32 + out)
+    assert chip_smoke.gin_bytes(args, backward=False) == want
+    bound_ms, bound_by = chip_smoke.gin_bound(args, backward=False)
+    assert bound_by == "bytes"
+    assert bound_ms == pytest.approx(want / chip_smoke.HBM_BYTES_PER_S * 1e3)
