@@ -88,19 +88,40 @@
    the predictor (forward and backward: logits, the condition's and the
    bond tables' gradients) on the card (kernel paths) against the same
    weights on the CPU (plain paths), max relative error < 1e-3.
+11. The learned-weights stack (llamole_tpu_torch/train/stack.py's stages)
+   after the slice's memory is freed: a synthetic corpus of 128 train and
+   4 eval records; pretraining at the reference widths, batch 64, f32
+   (STACK_SIZES: GraphDiT 1024 x 28, 16 heads, 100 diffusion steps, 10
+   steps; the predictor and GraphCLIP 5 x 300, the oracle 3 x 128 and
+   the CostMLP, 20 steps each), every loss finite and the predictor's,
+   oracle's and CostMLP's last 5 steps below their first 5; kernels B and
+   C >= layers x steps launches in each GIN pretraining and no call of
+   their plain versions; each module saved, reloaded through the port's
+   loader and its forward bit-identical; the stack's LLM config (256 x
+   6, tied embeddings) and run_mmsft with full finetuning for 4 steps
+   over the trained modules; run_molqa on the 4 eval records with the
+   oracle (64 new tokens, 2 iterations, 10 s walls), its summary carrying
+   property_accuracy / property_mae. Per stage: wall, first and last
+   loss, peak memory; B and C timed at the pretraining bank (64, n, 300)
+   and (64, n, 128) f32, n the largest corpus product rounded up to 8.
 
 Prints, before the last line, one {"kernels": [...]} JSON line (per
 kernel: launches on the main path, max_abs_err, ms, plain_ms, device_ms,
 bound_ms, bound_by, library_ms; for A and D the launches of each body
 and the FMA body's times; for B its launches in run_molqa and in
 training and its times, bound and share at the training bank under
-train_* keys, with the molecules in the last rows under train_last_*);
+train_* keys, with the molecules in the last rows under train_last_*;
+for B and C their launches in the phase-11 pretrainings and their
+times, bound and share at the pretraining bank under pretrain_* keys
+(H = 128 under pretrain_oracle_*);
 the last line is {"ok": true, "device": {...}}. Any
 failure exits non-zero.
 """
 
 import copy
+import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -1271,6 +1292,331 @@ def profile_training_step(model, batch, tag):
               f"{e.key[:90]}")
 
 
+# Phase 11, the learned-weights stack on the card: the reference widths
+# (GraphDiT 1024 x 28, 16 heads, 100 diffusion steps; the predictor and
+# GraphCLIP 5 x 300; the oracle at its defaults, 3 x 128), batch 64,
+# steps cut to 10 (GraphDiT) and 20 (the rest)
+STACK_SIZES = {
+    "train_records": 128, "eval_records": 4,
+    "graphdit": dict(hidden_size=1024, depth=28, num_heads=16,
+                     diffusion_steps=100, steps=10, batch_size=64),
+    "predictor": dict(hidden_size=GIN_HIDDEN, num_layer=GIN_LAYERS,
+                      steps=20, batch_size=64),
+    "cost_mlp": dict(steps=20, batch_size=64),
+    "graphclip": dict(hidden_size=GIN_HIDDEN, num_layer=GIN_LAYERS,
+                      steps=20, batch_size=64),
+    "oracle": dict(steps=20, batch_size=64),
+    "mmsft_steps": 4,
+    "eval": dict(per_device_eval_batch_size=4, max_new_tokens=64,
+                 expansion_topk=50, iterations=2, max_planning_time=10.0),
+}
+# the GIN layers of each pretraining (a step launches B and C once a layer)
+STACK_GIN_LAYERS = {"predictor": "num_layer", "graphclip": "num_layer",
+                    "oracle": 3}
+# (a fixed-label loss whose last 5 steps must average below its first 5)
+STACK_FALLING = ("predictor", "oracle", "cost_mlp")
+
+
+def _stack_batch(records, n_pad=None, device="cuda"):
+    """The first pretraining batch of the predictor (random.Random(0) over
+    its (product, label) rows, batch 64) padded to the pretraining bank's
+    N: the largest product rounded up to 8 (pretrain._bucket)."""
+    import random
+
+    from llamole_tpu_torch.train import pretrain
+    rows = pretrain._retro_rows(records)
+    n = n_pad or pretrain._bucket(rows)
+    rng = random.Random(0)
+    graphs = [rows[rng.randrange(len(rows))][0] for _ in range(64)]
+    return pretrain._graph_tensors(graphs, n, device)
+
+
+def time_pretrain_bank(gin, gin_bwd, records, tag):
+    """Kernels B and C at the pretraining bank (64, n, H) f32, H = 300
+    (predictor, GraphCLIP) and 128 (the oracle): call and device time,
+    the plain version's time, bound and share."""
+    from llamole_tpu_torch.ops.gin import dense_graph_inputs
+    from llamole_tpu_torch.ops.gin_aggregate import (
+        gin_aggregate_backward_reference, gin_aggregate_reference)
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    atoms, edges, mask = _stack_batch(records)
+    edge, adj = dense_graph_inputs(edges, mask, torch.float32)
+    out = {}
+    for h, prefix in ((GIN_HIDDEN, "pretrain"), (128, "pretrain_oracle")):
+        b, n = atoms.shape
+        x = torch.randn(b, n, h, device="cuda", generator=gen)
+        table = torch.randn(5, h, device="cuda", generator=gen)
+        g = torch.randn(b, n, h, device="cuda", generator=gen)
+        for name, fn, plain, key, bwd in (
+                ("gin_aggregate", lambda: gin(x, edge, adj, table),
+                 lambda: gin_aggregate_reference(x, edge, adj, table),
+                 "gin_aggregate_kernel", False),
+                ("gin_aggregate_backward",
+                 lambda: gin_bwd(x, edge, adj, table, g),
+                 lambda: gin_aggregate_backward_reference(x, edge, adj,
+                                                          table, g),
+                 "gin_backward_kernel", True)):
+            with torch.no_grad():
+                got, want = fn(), plain()
+                got = got if bwd else (got,)
+                want = want if bwd else (want,)
+                err = max(float((a - r).abs().max())
+                          for a, r in zip(got, want))
+                ok = all(bool(((a - r).abs() <= 1e-4 + 1e-4 * r.abs()).all())
+                         for a, r in zip(got, want))
+                if not ok:
+                    fail(f"{name} disagrees at the pretraining bank "
+                         f"({b}, {n}, {h}): {err}")
+                rec = time_kernel(f"{name} at the pretraining bank "
+                                  f"({b}, {n}, {h}) f32", fn, plain, key,
+                                  tag)
+            bound_ms, bound_by = gin_bound((x, edge, adj, table, g), bwd)
+            share = bound_ms / rec["device_ms"]
+            print(f"{name} bound at ({b}, {n}, {h}) {bound_ms * 1e3:.3f} us "
+                  f"({bound_by}), {100 * share:.1f}% of it; max_abs_err "
+                  f"{err:.3e} [{tag}]", flush=True)
+            out.setdefault(name, {}).update({
+                f"{prefix}_{k}": v for k, v in {
+                    **rec, "bound_ms": bound_ms, "bound_by": bound_by,
+                    "share": share, "shape": [b, n, h],
+                    "max_abs_err": err}.items()})
+    return out
+
+
+def _capture_saves(classes):
+    """Every module the pretraining loops save, by (class name, output
+    directory): each class's save_pretrained records its instance, then
+    saves. Returns (saved, the original methods)."""
+    saved, originals = {}, {}
+    for cls in classes:
+        originals[cls] = cls.save_pretrained
+
+        def save(self, output_dir, _orig=originals[cls]):
+            saved[(type(self).__name__, output_dir)] = self
+            _orig(self, output_dir)
+        cls.save_pretrained = save
+    return saved, originals
+
+
+def _reload_identical(saved, paths, records, device, tag):
+    """Each saved module read back through the port's loader
+    (models/loader.load_graph_modules; the oracle through its
+    from_pretrained, which eval/scoring uses) gives bit-identical
+    forwards on a corpus batch."""
+    from llamole_tpu_torch.chem.fingerprint import morgan_fingerprint
+    from llamole_tpu_torch.models.loader import load_graph_modules
+    from llamole_tpu_torch.models.oracle import PropertyOracle
+    from llamole_tpu_torch.train import stack
+
+    args = SimpleNamespace(**{k: v for k, v in stack.eval_args(
+        paths, STACK_SIZES["eval"], 0).items() if k.endswith("_path")},
+        diffusion_sampling_steps=None)
+    decoder, encoder, predictor, cost_mlp = load_graph_modules(args, device)
+    oracle = PropertyOracle.from_pretrained(paths["oracle"], device=device)
+    atoms, edges, mask = _stack_batch(records, device=device)
+    gen = torch.Generator(device=device).manual_seed(5)
+    fps = torch.as_tensor(np.stack([morgan_fingerprint(
+        "CC(=O)Oc1ccccc1C(=O)O", radius=2, n_bits=2048)] * 4),
+        dtype=torch.float32, device=device)
+    dcfg = decoder.cfg
+    b, n = 4, dcfg.max_n_nodes
+    X = torch.nn.functional.one_hot(torch.randint(
+        dcfg.Xdim, (b, n), device=device, generator=gen), dcfg.Xdim).float()
+    E = torch.nn.functional.one_hot(torch.randint(
+        dcfg.Edim, (b, n, n), device=device, generator=gen),
+        dcfg.Edim).float()
+    nmask = torch.ones(b, n, dtype=torch.bool, device=device)
+    y = torch.full((b, dcfg.ydim), float("nan"), device=device)
+    txt = torch.full((b, dcfg.text_dim), float("nan"), device=device)
+    t = torch.rand(b, device=device, generator=gen)
+    pairs = {
+        "graphdit": (saved["GraphDiT", paths["graphdit"]].denoiser,
+                     decoder.denoiser, (X, E, nmask, y, txt, t)),
+        "graphclip": (saved["GraphCLIP", paths["graphclip"]], encoder,
+                      (atoms, edges, mask)),
+        "predictor": (saved["GraphPredictor", paths["predictor"]],
+                      predictor, (atoms, edges, mask, None)),
+        "cost_mlp": (saved["CostMLP", paths["predictor"]], cost_mlp,
+                     (fps,)),
+        "oracle": (saved["PropertyOracle", paths["oracle"]], oracle,
+                   (atoms, edges, mask)),
+    }
+    for name, (before, after, inputs) in pairs.items():
+        with torch.no_grad():
+            a, r = before.eval()(*inputs), after.eval()(*inputs)
+        a, r = (a if isinstance(a, tuple) else (a,),
+                r if isinstance(r, tuple) else (r,))
+        if not all(torch.equal(u, v) for u, v in zip(a, r)):
+            fail(f"the reloaded {name} is not bit-identical to the saved")
+        print(f"stack: {name} saved, reloaded through the loader, forward "
+              f"bit-identical [{tag}]", flush=True)
+
+
+def run_stack(kernels, tag, device="cuda", sizes=None):
+    """Phase 11: the learned-weights stack (llamole_tpu_torch/train/
+    stack.py's stages) on the card. Returns the kernel-B and kernel-C
+    launches of the pretrainings and, on the card, their records at the
+    pretraining bank. On the CPU (device "cpu", small `sizes`: the CPU
+    test of this phase) the wrappers run their plain versions and no
+    launch is counted."""
+    from llamole_tpu_torch.config import get_infer_args, get_train_args
+    from llamole_tpu_torch.data.synthetic import write_corpus
+    from llamole_tpu_torch.eval.workflow import run_molqa
+    from llamole_tpu_torch.models.graphclip.model import GraphCLIP
+    from llamole_tpu_torch.models.graphdit import GraphDiT
+    from llamole_tpu_torch.models.oracle import PropertyOracle
+    from llamole_tpu_torch.models.retro import CostMLP, GraphPredictor
+    from llamole_tpu_torch.ops import gin_aggregate as G
+    from llamole_tpu_torch.train import pretrain, stack
+    from llamole_tpu_torch.train.workflow import run_mmsft
+
+    sizes = sizes or STACK_SIZES
+    on_card = device == "cuda"
+    gin, gin_bwd = kernels[1:3] if on_card else (None, None)
+    plain_calls = [0]
+    references = (G.gin_aggregate_reference,
+                  G.gin_aggregate_backward_reference)
+
+    def counted(fn):
+        def call(*args):
+            plain_calls[0] += 1
+            return fn(*args)
+        return call
+
+    def memory():
+        return (torch.cuda.max_memory_allocated() / 2**30 if on_card
+                else float("nan"))
+
+    with tempfile.TemporaryDirectory() as d:
+        paths = stack.stack_paths(d)
+        t0 = time.perf_counter()
+        m_train = write_corpus(paths["corpus_train"], sizes["train_records"],
+                               seed=0)
+        m_eval = write_corpus(paths["corpus_eval"], sizes["eval_records"],
+                              seed=100)
+        print(f"stack corpus: {sizes['train_records']} train + "
+              f"{sizes['eval_records']} eval records in "
+              f"{time.perf_counter() - t0:.2f} s ({m_train} / {m_eval}) "
+              f"[{tag}]", flush=True)
+        with open(paths["corpus_train"]) as f:
+            records = json.load(f)
+
+        saved, originals = _capture_saves((GraphDiT, GraphCLIP,
+                                           GraphPredictor, CostMLP,
+                                           PropertyOracle))
+        G.gin_aggregate_reference, G.gin_aggregate_backward_reference = (
+            counted(references[0]), counted(references[1]))
+        launches = {"B": 0, "C": 0}
+        try:
+            for stage, fn, out in (
+                    ("graphdit", pretrain.pretrain_graphdit, "graphdit"),
+                    ("predictor", pretrain.pretrain_predictor, "predictor"),
+                    ("cost_mlp", pretrain.pretrain_cost_mlp, "predictor"),
+                    ("graphclip", pretrain.pretrain_graphclip, "graphclip"),
+                    ("oracle", pretrain.pretrain_property_oracle,
+                     "oracle")):
+                kw = sizes[stage]
+                if on_card:
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    reset_counts(*kernels)
+                t0 = time.perf_counter()
+                m = fn(paths["corpus_train"], paths[out], seed=0,
+                       device=device, **kw)
+                if on_card:
+                    torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                losses = np.asarray(m["losses"])
+                if len(losses) != kw["steps"] or not np.isfinite(
+                        losses).all():
+                    fail(f"{stage} pretraining losses {losses}")
+                line = (f"stack {stage}: {kw['steps']} steps in {wall:.2f} "
+                        f"s, loss first {losses[0]:.4f} last "
+                        f"{losses[-1]:.4f} (mean of the first 5 "
+                        f"{losses[:5].mean():.4f}, last 5 "
+                        f"{losses[-5:].mean():.4f}), peak "
+                        f"{memory():.2f} GiB")
+                if stage in STACK_FALLING and not (
+                        losses[-5:].mean() < losses[:5].mean()):
+                    fail(f"{stage} pretraining loss did not fall: {losses}")
+                if on_card and stage in STACK_GIN_LAYERS:
+                    layers = STACK_GIN_LAYERS[stage]
+                    layers = kw[layers] if isinstance(layers, str) else layers
+                    need = layers * kw["steps"]
+                    line += (f"; kernel B {gin.launches}, kernel C "
+                             f"{gin_bwd.launches} launches (need >= {need} "
+                             f"= {layers} layers x {kw['steps']} steps)")
+                    if min(gin.launches, gin_bwd.launches) < need:
+                        fail(f"{stage}: B {gin.launches} / C "
+                             f"{gin_bwd.launches} launches < {need}")
+                    launches["B"] += gin.launches
+                    launches["C"] += gin_bwd.launches
+                print(line + f" [{tag}]", flush=True)
+        finally:
+            for cls, orig in originals.items():
+                cls.save_pretrained = orig
+            (G.gin_aggregate_reference,
+             G.gin_aggregate_backward_reference) = references
+        print(f"stack pretraining: kernel B {launches['B']}, kernel C "
+              f"{launches['C']} launches; plain-version calls "
+              f"{plain_calls[0]} [{tag}]", flush=True)
+        if on_card and plain_calls[0]:
+            fail(f"the pretraining path called a plain GIN version "
+                 f"{plain_calls[0]} times on the card")
+
+        _reload_identical(saved, paths, records, device, tag)
+        del saved
+        if on_card:
+            torch.cuda.empty_cache()
+
+        os.makedirs(paths["llm"], exist_ok=True)
+        llm_cfg = stack.llm_config(stack.sizes(False)["llm"])
+        with open(os.path.join(paths["llm"], "config.json"), "w") as f:
+            json.dump(llm_cfg, f, indent=1)
+        mmsft = {**stack.sizes(False)["mmsft"],
+                 "max_steps": sizes["mmsft_steps"]}
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        metrics = run_mmsft(*get_train_args(stack.mmsft_args(
+            paths, mmsft, 0)), device=device)
+        wall = time.perf_counter() - t0
+        if (metrics["train_steps"] != sizes["mmsft_steps"]
+                or not np.isfinite(metrics["train_loss"])
+                or not os.path.exists(os.path.join(paths["mmsft"],
+                                                   "llm.pt"))):
+            fail(f"stack mmsft: {metrics}")
+        print(f"stack mmsft (full finetuning, LLM {llm_cfg['hidden_size']}"
+              f" x {llm_cfg['num_hidden_layers']}, tied embeddings, over "
+              f"the trained graph modules): {metrics['train_steps']} steps "
+              f"in {wall:.2f} s, train loss {metrics['train_loss']:.4f}, "
+              f"peak {memory():.2f} GiB [{tag}]", flush=True)
+
+        ev = sizes["eval"]
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        results = run_molqa(*get_infer_args(stack.eval_args(paths, ev, 0)),
+                            expansion_topk=ev["expansion_topk"],
+                            iterations=ev["iterations"],
+                            max_planning_time=ev["max_planning_time"],
+                            share_planning_wall=False, device=device)
+        wall = time.perf_counter() - t0
+        with open(os.path.join(paths["eval"], "molqa_results.json")) as f:
+            summary = json.load(f)["summary"]
+        if (len(results) != sizes["eval_records"]
+                or "property_accuracy" not in summary
+                or "property_mae" not in summary):
+            fail(f"stack run_molqa summary {summary}")
+        print(f"stack run_molqa ({len(results)} records, oracle scored): "
+              f"{wall:.2f} s, peak {memory():.2f} GiB, summary "
+              f"{json.dumps(summary)} [{tag}]", flush=True)
+    records_out = time_pretrain_bank(gin, gin_bwd, records, tag) \
+        if on_card else {}
+    return launches, records_out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1316,6 +1662,13 @@ def main() -> int:
     check_denoiser(model, tag)
     check_graphclip(model, tag)
     check_predictor(model, tag)
+    # phase 11 starts from an empty card: the slice's memory goes first
+    del model, tok, timers
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"slice freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+          "still allocated", flush=True)
+    stack_launches, pretrain_bank = run_stack(kernels, tag)
 
     def entry(name, source, replaces, rec, launches, **extra):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -1341,10 +1694,14 @@ def main() -> int:
               "llamole_tpu/ops/pallas/gin_aggregate.py:85", b, launches["B"],
               launches_molqa=molqa[1], launches_training=b_training,
               **{k: v for k, v in b.items() if k.startswith("train_")},
-              shape=b["shape"], share=b["share"]),
+              shape=b["shape"], share=b["share"],
+              pretrain_launches=stack_launches["B"],
+              **pretrain_bank["gin_aggregate"]),
+        # C: launches in run_mmsft; the pretrainings' under pretrain_*
         entry("gin_aggregate_backward", gin_src,
               "llamole_tpu/ops/pallas/gin_aggregate.py:163", c,
-              c_training),
+              c_training, pretrain_launches=stack_launches["C"],
+              **pretrain_bank["gin_aggregate_backward"]),
         # kernel D is on no path of either package: its launches are
         # those of its check (phase 6), all on the mma or fma body there
         entry("graph_attention", attn_src,

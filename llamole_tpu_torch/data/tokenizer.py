@@ -154,18 +154,25 @@ class HFTokenizer:
                                  skip_special_tokens=skip_special_tokens)
 
 
+# the files an HF tokenizer directory holds (one is enough to try it)
+_HF_TOKENIZER_FILES = ("tokenizer.json", "tokenizer_config.json",
+                       "tokenizer.model", "vocab.json", "vocab.txt")
+
+
 def load_tokenizer(model_args, generate_mode: bool = False):
     """Load the tokenizer + register the 9 multimodal control tokens
     (parity: loader.py:88-138 — padding side right for train, left for
     generation; resize implied by added tokens).
 
     Falls back to ByteTokenizer when no HF tokenizer files exist (offline
-    environments, tests).
+    environments, tests, a from-scratch model directory that holds only
+    its config.json).
     """
     import os
     tok = None
     path = model_args.tokenizer_path or model_args.model_name_or_path
-    if path and os.path.isdir(path):
+    if path and any(os.path.exists(os.path.join(path, f))
+                    for f in _HF_TOKENIZER_FILES):
         try:
             from transformers import AutoTokenizer
             inner = AutoTokenizer.from_pretrained(path)

@@ -2,7 +2,8 @@
 llamole_tpu/eval/scoring.py): uniqueness, novelty against the gold
 molecules, BLEU-4 / ROUGE against the gold responses, and FGD, the
 Frechet distance between GraphCLIP-embedding Gaussians of the generated
-and the gold molecules (the encoder runs kernel B on the card).
+and the gold molecules (the encoder runs kernel B on the card), and the
+property oracle's per-channel fidelity of the generated molecules.
 """
 
 from typing import Any, Dict, List, Optional
@@ -13,6 +14,7 @@ import torch
 from ..chem.featurize import pad_graph_batch, smiles_to_graph
 from ..chem.smiles import canonical_smiles
 from ..data.aligner import extract_all_smiles
+from ..utils.constants import MOL_PROPERTIES
 
 from .metric import compute_text_metrics
 
@@ -100,8 +102,40 @@ def frechet_graphclip_distance(encoder, generated: List[str],
                             b.mean(0), np.cov(b, rowvar=False) + eps)
 
 
-def oracle_property_metrics(oracle_path: str, results) -> Dict[str, Any]:
-    raise NotImplementedError(
-        f"property-oracle scoring ({oracle_path}) needs the oracle model "
-        "and its checkpoint file, neither ported to llamole_tpu_torch yet "
-        "(ROADMAP.md)")
+def oracle_property_metrics(oracle_path: str, results: List[Dict[str, Any]],
+                            device=None) -> Dict[str, Any]:
+    """Generated molecules against their requested conditions through the
+    trained oracle (loaded on `device`, the CPU by default): accuracy at
+    0.5 for the binary channels, MAE in raw units for the continuous
+    ones. Only records that requested a channel count for it."""
+    from ..models.oracle import BINARY_CHANNELS, PropertyOracle
+
+    oracle = PropertyOracle.from_pretrained(oracle_path, device=device)
+    preds = oracle.predict_smiles([r.get("llm_smiles") or ""
+                                   for r in results])
+    per_channel: Dict[str, List] = {p: [] for p in MOL_PROPERTIES}
+    for r, pred in zip(results, preds):
+        if pred is None:
+            continue
+        for name, want in (r.get("property") or {}).items():
+            if name in per_channel:
+                per_channel[name].append(
+                    (float(pred[MOL_PROPERTIES.index(name)]), float(want)))
+
+    acc: Dict[str, float] = {}
+    mae: Dict[str, float] = {}
+    counts: Dict[str, int] = {}
+    binary_names = {MOL_PROPERTIES[c] for c in BINARY_CHANNELS}
+    for name, pairs in per_channel.items():
+        if not pairs:
+            continue
+        counts[name] = len(pairs)
+        p = np.asarray([x for x, _ in pairs])
+        w = np.asarray([y for _, y in pairs])
+        if name in binary_names:
+            acc[name] = float(((p > 0.5) == (w > 0.5)).mean())
+        else:
+            mae[name] = float(np.abs(p - w).mean())
+    return {"property_accuracy": acc or None,
+            "property_mae": mae or None,
+            "property_scored_counts": counts or None}

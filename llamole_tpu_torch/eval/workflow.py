@@ -181,7 +181,8 @@ def run_molqa(model_args, data_args, training_args, finetuning_args,
             [r["llm_smiles"] for r in results if r.get("llm_smiles")], gold)
         oracle_path = getattr(model_args, "property_oracle_path", None)
         if oracle_path:
-            summary.update(oracle_property_metrics(oracle_path, results))
+            summary.update(oracle_property_metrics(oracle_path, results,
+                                                   device=model.device))
     logger.info("molqa eval summary: %s", summary)
 
     if training_args.output_dir:

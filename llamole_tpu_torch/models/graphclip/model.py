@@ -6,8 +6,12 @@ Atom Embedding(118, H); per layer GINConv (kernel B) + affine LayerNorm +
 GELU (not on the last layer) + residual; virtual-node max-pool feedback
 MLP between layers; global add pool; projection head fc -> LN -> GELU ->
 fc; unit-norm output. Runs in f32 with full-f32 matmuls.
+save_pretrained / from_pretrained read and write the JAX package's
+directory (model.msgpack, model_config.json).
 """
 
+import json
+import os
 from dataclasses import dataclass
 
 import torch
@@ -16,6 +20,7 @@ from torch import nn
 from ...ops.gin import (GINConv, NormMLP, dense_graph_inputs,
                         full_f32_matmuls, masked_add_pool, masked_max_pool)
 from ...ops.nn import LayerNorm, gelu
+from ...weights import load_module, save_module
 
 NUM_ATOM_CODES = 118
 
@@ -96,8 +101,20 @@ class GraphCLIP(nn.Module):
         norm = x.float().norm(dim=-1, keepdim=True)
         return (x.float() / norm.clamp_min(1e-12)).to(x.dtype)
 
+    def save_pretrained(self, output_dir: str) -> None:
+        os.makedirs(output_dir, exist_ok=True)
+        save_module(self, os.path.join(output_dir, "model.msgpack"))
+        with open(os.path.join(output_dir, "model_config.json"), "w") as f:
+            json.dump({"graph_num_layer": self.cfg.num_layer,
+                       "graph_hidden_size": self.cfg.hidden_size,
+                       "dropout": self.cfg.dropout}, f, indent=2)
+
     @classmethod
-    def from_pretrained(cls, model_dir: str, **kwargs):
-        raise NotImplementedError(
-            f"loading GraphCLIP from {model_dir} is not ported to "
-            "llamole_tpu_torch yet (ROADMAP.md: checkpoint files)")
+    def from_pretrained(cls, model_dir: str, device=None) -> "GraphCLIP":
+        with open(os.path.join(model_dir, "model_config.json")) as f:
+            raw = json.load(f)
+        cfg = GraphCLIPConfig(num_layer=raw.get("graph_num_layer", 5),
+                              hidden_size=raw.get("graph_hidden_size", 300),
+                              dropout=raw.get("dropout", 0.0))
+        model = cls(cfg, device=device)
+        return load_module(model, os.path.join(model_dir, "model.msgpack"))

@@ -7,8 +7,13 @@
   * the reverse loop is a Python loop over the strided time grid,
     computed with numpy exactly as the JAX sampler does (api.py:179-185)
   * graphs collapse to SMILES on the host through chem/
+
+save_pretrained / from_pretrained read and write the JAX package's
+directory: model.msgpack (the denoiser tree), model_config.yaml and
+data.meta.json.
 """
 
+import os
 from typing import List, Optional
 
 import numpy as np
@@ -19,6 +24,7 @@ from ...chem.assemble import check_valid as _check_valid
 from ...chem.assemble import graph_to_smiles as _graph_to_smiles
 from ...utils.constants import NO_LABEL_INDEX
 
+from ...weights import load_module, save_module
 from .config import DataInfo, GraphDiTConfig
 from .denoiser import Denoiser
 from .diffusion import (NoiseSchedule, TransitionParts, apply_noise,
@@ -44,6 +50,7 @@ class GraphDiT(nn.Module):
         cfg.Xdim = len(data_info.active_atoms)
         cfg.max_n_nodes = data_info.max_n_nodes
         self.cfg = cfg
+        self.data_info = data_info
         self.denoiser = Denoiser(cfg, dtype, device)
         self.schedule = NoiseSchedule.create(cfg.diffusion_steps, device)
         self.parts = TransitionParts.from_data_info(data_info, device)
@@ -169,3 +176,17 @@ class GraphDiT(nn.Module):
 
     def check_valid(self, smiles: Optional[str]) -> bool:
         return _check_valid(smiles)
+
+    def save_pretrained(self, output_dir: str) -> None:
+        os.makedirs(output_dir, exist_ok=True)
+        save_module(self.denoiser, os.path.join(output_dir, "model.msgpack"))
+        self.cfg.to_yaml(os.path.join(output_dir, "model_config.yaml"))
+        self.data_info.save(output_dir)
+
+    @classmethod
+    def from_pretrained(cls, model_dir: str, device=None) -> "GraphDiT":
+        cfg = GraphDiTConfig.from_yaml(os.path.join(model_dir,
+                                                    "model_config.yaml"))
+        model = cls(cfg, DataInfo.load(model_dir), device=device)
+        load_module(model.denoiser, os.path.join(model_dir, "model.msgpack"))
+        return model

@@ -2,16 +2,23 @@
 
 `build_graph_lm_from_configs` builds the GraphLM from config objects
 alone (no YAML, no files): random weights drawn ON the target device from
-one seeded torch.Generator. The retro predictor carries the JAX loader's
-built-in template table and purchasable inventory (the trained template
-library is a checkpoint file). `build_graph_lm` mirrors the JAX loader's
-argument-driven path: tokenizer, resolve_llm_config, vocab = max(config,
-tokenizer), and the documented random-init fallbacks (GraphDiT 64 x 2,
-GraphCLIP 2 x 64, predictor 2 x 64 with 16 labels). Reading trained
-weights from checkpoint files is not ported yet (ROADMAP.md); paths that
-hold them raise.
+one seeded torch.Generator, except for graph modules passed in already
+built. The random-init retro predictor carries the JAX loader's built-in
+template table and purchasable inventory. `build_graph_lm` mirrors the
+JAX loader's argument-driven path: tokenizer, resolve_llm_config (a
+config.json through LLMConfig.from_hf_config), vocab = max(config,
+tokenizer); the graph decoder, predictor (with its CostMLP) and encoder
+load from their directories in the JAX package's layout, or fall back to
+the documented random inits (GraphDiT 64 x 2, GraphCLIP 2 x 64, predictor
+2 x 64 with 16 labels); the LLM is random-initialised when its directory
+holds no safetensors. Safetensors and the JAX package's trained adapters
+(adapter.msgpack / llm.msgpack) are not read yet (ROADMAP.md Queue 1
+item 2) and raise; the port's own adapters (GraphLM.save_pretrained's
+*.pt) load.
 """
 
+import glob
+import json
 import os
 from typing import Optional, Sequence
 
@@ -23,10 +30,11 @@ from ..utils.logging import get_logger
 
 from .composite import GraphLM
 from .gllm import LLM, LLMConfig
+from .gllm.model import check_supported
 from .graphclip import GraphCLIP, GraphCLIPConfig
 from .graphdit import GraphDiT, GraphDiTConfig
 from .graphdit.config import DataInfo, build_data_info_from_smiles
-from .retro import GraphPredictor, GraphPredictorConfig
+from .retro import CostMLP, GraphPredictor, GraphPredictorConfig
 
 logger = get_logger(__name__)
 
@@ -48,7 +56,8 @@ _FALLBACK_TEMPLATES = {
 }
 
 _NOT_PORTED = ("loading {} from {} is not ported to llamole_tpu_torch yet "
-               "(ROADMAP.md: checkpoint files)")
+               "(ROADMAP.md Queue 1 item 2: the JAX package's trainable "
+               "checkpoints and adapters, safetensors)")
 _NOT_PORTED_FAMILY = ("the {} LLM family ({!r}) is not ported to "
                       "llamole_tpu_torch yet (ROADMAP.md: other model "
                       "families)")
@@ -68,8 +77,12 @@ def resolve_llm_config(model_args) -> LLMConfig:
     not ported yet: their names raise rather than build another
     family's preset."""
     path = model_args.model_name_or_path or ""
-    if path and os.path.exists(os.path.join(path, "config.json")):
-        raise NotImplementedError(_NOT_PORTED.format("an LLM config", path))
+    cfg_file = os.path.join(path, "config.json") if path else ""
+    if cfg_file and os.path.exists(cfg_file):
+        with open(cfg_file) as f:
+            cfg = LLMConfig.from_hf_config(json.load(f))
+        check_supported(cfg)    # gemma, qwen3 qk-norm, MoE raise here
+        return cfg
     name = path.lower()
     if "llama" in name:
         return LLMConfig.llama3_8b()
@@ -108,39 +121,126 @@ def build_graph_lm_from_configs(
     predictor_cfg: Optional[GraphPredictorConfig] = None,
     loss_weights=(1.0, 1.0, 1.0),
     special_tokens: Sequence[str] = SPECIAL_TOKENS,
+    graph_decoder: Optional[GraphDiT] = None,
+    graph_encoder: Optional[GraphCLIP] = None,
+    graph_predictor: Optional[GraphPredictor] = None,
+    cost_mlp: Optional[CostMLP] = None,
 ) -> GraphLM:
     """Random-init GraphLM on `device` (weights drawn there, seeded).
     GraphCLIP and the predictor run in f32; their configs default to the
     JAX loader's random-init stand-ins (2 layers x 64). loss_weights:
     the (lm, design, retro) weights of the training loss; special_tokens:
-    the control tokens whose ids the model looks up."""
+    the control tokens whose ids the model looks up. graph_decoder /
+    graph_encoder / graph_predictor: modules already built (trained
+    weights, on `device`), used as they are in place of dit_cfg /
+    data_info / clip_cfg / predictor_cfg and their random draws;
+    cost_mlp: the planner's optional value model."""
     device = torch.device(device)
     llm_cfg.vocab_size = max(llm_cfg.vocab_size, tokenizer.vocab_size)
     gen = torch.Generator(device=device).manual_seed(seed)
     llm = LLM(llm_cfg, dtype=llm_dtype, device=device)
     llm.reset_parameters(gen)
-    graph_decoder = GraphDiT(dit_cfg, data_info, dtype=graph_dtype,
-                             device=device)
-    graph_decoder.denoiser.reset_parameters(gen)
-    graph_encoder = GraphCLIP(
-        clip_cfg or GraphCLIPConfig(num_layer=2, hidden_size=64),
-        device=device)
-    graph_encoder.reset_parameters(gen)
-    p = predictor_cfg or GraphPredictorConfig(num_layer=2, hidden_size=64,
-                                              out_dim=16)
-    graph_predictor = make_fallback_predictor(
-        p.num_layer, p.hidden_size, p.out_dim, p.text_input_size,
-        device=device)
-    graph_predictor.reset_parameters(gen)
+    if graph_decoder is None:
+        graph_decoder = GraphDiT(dit_cfg, data_info, dtype=graph_dtype,
+                                 device=device)
+        graph_decoder.denoiser.reset_parameters(gen)
+    if graph_encoder is None:
+        graph_encoder = GraphCLIP(
+            clip_cfg or GraphCLIPConfig(num_layer=2, hidden_size=64),
+            device=device)
+        graph_encoder.reset_parameters(gen)
+    if graph_predictor is None:
+        p = predictor_cfg or GraphPredictorConfig(num_layer=2,
+                                                  hidden_size=64, out_dim=16)
+        graph_predictor = make_fallback_predictor(
+            p.num_layer, p.hidden_size, p.out_dim, p.text_input_size,
+            device=device)
+        graph_predictor.reset_parameters(gen)
     model = GraphLM(
         llm, graph_decoder, graph_predictor, graph_encoder, tokenizer,
         {t: tokenizer.token_to_id(t) for t in special_tokens},
         num_body_tokens=num_body_tokens, lora_rank=lora_rank,
         lora_alpha=lora_alpha, finetuning_type=finetuning_type,
-        use_rslora=use_rslora, loss_weight_lm=loss_weights[0],
+        use_rslora=use_rslora, cost_mlp=cost_mlp,
+        loss_weight_lm=loss_weights[0],
         loss_weight_design=loss_weights[1], loss_weight_retro=loss_weights[2])
     model.init_trainable(gen)
     return model.eval()
+
+
+def _has_weights(path: Optional[str], weight_file: str) -> bool:
+    return bool(path) and os.path.exists(os.path.join(path, weight_file))
+
+
+def _check_llm_weights(path: str) -> None:
+    """No safetensors: the LLM is random-initialised (as the JAX loader
+    does); safetensors are not read yet and raise."""
+    if path and os.path.isdir(path) and glob.glob(
+            os.path.join(path, "*.safetensors")):
+        raise NotImplementedError(_NOT_PORTED.format("LLM safetensors",
+                                                     path))
+    if path and os.path.isdir(path):
+        logger.warning("No safetensors under %s; random init", path)
+
+
+def resolve_adapter_dir(adapter_dir: str) -> str:
+    """A trained-adapter directory, or, when the run died before its
+    final save, the newest committed checkpoint-N inside it (the same
+    save_pretrained layout)."""
+    if os.path.isdir(os.path.join(adapter_dir, "connector")):
+        return adapter_dir
+    from ..train.trainer import find_last_checkpoint
+    ckpt = find_last_checkpoint(adapter_dir)
+    if ckpt is None or not os.path.isdir(os.path.join(ckpt, "connector")):
+        raise FileNotFoundError(
+            f"no trained weights under {adapter_dir}: neither a final "
+            "save (connector/) nor a committed checkpoint-N")
+    logger.info("adapter dir has no final save; using %s", ckpt)
+    return ckpt
+
+
+def _check_port_adapter(adapter_dir: str) -> None:
+    """The port reads its own *.pt adapters; a directory holding only
+    the JAX package's msgpack files raises (never a silent random
+    init)."""
+    conn = os.path.join(adapter_dir, "connector")
+    if not glob.glob(os.path.join(conn, "*.pt")):
+        raise NotImplementedError(_NOT_PORTED.format(
+            "the JAX package's trained adapter", adapter_dir))
+
+
+def load_graph_modules(model_args, device):
+    """(graph_decoder, graph_encoder, graph_predictor, cost_mlp) from the
+    paths that hold trained weights; None for each path that does not
+    (the caller random-initialises those)."""
+    decoder = encoder = predictor = cost_mlp = None
+    gd_path = model_args.graph_decoder_path
+    if _has_weights(gd_path, "model.msgpack"):
+        decoder = GraphDiT.from_pretrained(gd_path, device=device)
+        stride = getattr(model_args, "diffusion_sampling_steps", None)
+        if stride:
+            decoder.cfg.sampling_steps = stride
+        logger.info("Loaded GraphDiT from %s", gd_path)
+    else:
+        logger.warning("graph_decoder_path missing (%s); tiny random init",
+                       gd_path)
+    ge_path = model_args.graph_encoder_path
+    if _has_weights(ge_path, "model.msgpack"):
+        encoder = GraphCLIP.from_pretrained(ge_path, device=device)
+        logger.info("Loaded GraphCLIP from %s", ge_path)
+    gp_path = model_args.graph_predictor_path
+    if _has_weights(gp_path, "model.msgpack"):
+        predictor = GraphPredictor.from_pretrained(gp_path, device=device)
+        logger.info("Loaded the retro predictor from %s", gp_path)
+    if _has_weights(gp_path, "cost_model.msgpack"):
+        try:
+            cost_mlp = CostMLP.from_pretrained(gp_path, device=device)
+            logger.info("Loaded CostMLP value model from %s", gp_path)
+        except ValueError as e:
+            # a foreign-feature sidecar must not take the build down: the
+            # planner runs without the molecule cost term
+            logger.warning("Ignoring cost model at %s: %s", gp_path, e)
+    return decoder, encoder, predictor, cost_mlp
 
 
 def build_graph_lm(model_args, data_args, finetuning_args, *, device,
@@ -148,6 +248,7 @@ def build_graph_lm(model_args, data_args, finetuning_args, *, device,
                    load_adapter: bool = False):
     """Argument-driven build (config/ dataclasses).
     Returns (model, tokenizer)."""
+    device = torch.device(device)
     if getattr(model_args, "quantization_bit", None) is not None:
         raise NotImplementedError("quantized LLM weights are not ported yet "
                                   "(ROADMAP.md)")
@@ -163,27 +264,21 @@ def build_graph_lm(model_args, data_args, finetuning_args, *, device,
     if getattr(model_args, "num_experts", 0):
         llm_cfg.num_experts = int(model_args.num_experts)
 
-    gd_path = model_args.graph_decoder_path
-    if gd_path and os.path.exists(os.path.join(gd_path, "model.msgpack")):
-        raise NotImplementedError(_NOT_PORTED.format("GraphDiT", gd_path))
-    logger.warning("graph_decoder_path missing (%s); tiny random init",
-                   gd_path)
+    _check_llm_weights(model_args.model_name_or_path or "")
+    adapter_dir = None
+    if load_adapter and model_args.adapter_name_or_path:
+        adapter_dir = model_args.adapter_name_or_path
+        if isinstance(adapter_dir, (list, tuple)):
+            adapter_dir = adapter_dir[0]
+        adapter_dir = resolve_adapter_dir(adapter_dir)
+        _check_port_adapter(adapter_dir)
+    decoder, encoder, predictor, cost_mlp = load_graph_modules(model_args,
+                                                               device)
     info = build_data_info_from_smiles(_FALLBACK_SMILES, max_n_nodes=16)
     dit_cfg = GraphDiTConfig(
         hidden_size=64, depth=2, num_heads=4, diffusion_steps=20,
         text_dim=768,
         sampling_steps=getattr(model_args, "diffusion_sampling_steps", None))
-    for what, path, weight_file in (
-            ("GraphCLIP", model_args.graph_encoder_path, "model.msgpack"),
-            ("the retro predictor", model_args.graph_predictor_path,
-             "model.msgpack"),
-            ("the CostMLP value model", model_args.graph_predictor_path,
-             "cost_model.msgpack")):
-        if path and os.path.exists(os.path.join(path, weight_file)):
-            raise NotImplementedError(_NOT_PORTED.format(what, path))
-    if load_adapter and model_args.adapter_name_or_path:
-        raise NotImplementedError(_NOT_PORTED.format(
-            "a trained adapter", model_args.adapter_name_or_path))
 
     model = build_graph_lm_from_configs(
         llm_cfg, dit_cfg, info, tokenizer, device=device,
@@ -196,5 +291,10 @@ def build_graph_lm(model_args, data_args, finetuning_args, *, device,
         num_body_tokens=data_args.learned_query_size,
         loss_weights=tuple(getattr(finetuning_args, f"loss_weight_{k}", 1.0)
                            for k in ("lm", "design", "retro")),
-        special_tokens=model_args.special_token_list() or SPECIAL_TOKENS)
+        special_tokens=model_args.special_token_list() or SPECIAL_TOKENS,
+        graph_decoder=decoder, graph_encoder=encoder,
+        graph_predictor=predictor, cost_mlp=cost_mlp)
+    if adapter_dir is not None:
+        model.load_trainable(adapter_dir)
+        logger.info("Loaded adapter + connectors from %s", adapter_dir)
     return model, tokenizer

@@ -11,8 +11,16 @@ fc1 -> LN -> GELU -> fc2 decoder over `out_dim` template labels.
 
 CostMLP: Morgan fingerprint -> Linear(2048, 128) -> ReLU -> Linear(128, 1)
 -> softplus.
+
+Both read and write the JAX package's directories: model.msgpack,
+model_config.json, label_to_template.csv.gz and available.csv.gz for the
+predictor; cost_model.msgpack and cost_config.json for the cost model.
 """
 
+import csv
+import gzip
+import json
+import os
 from collections import defaultdict
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
@@ -27,6 +35,7 @@ from ...chem import recanonicalize
 from ...ops.gin import (GINConv, NormMLP, dense_graph_inputs,
                         full_f32_matmuls, masked_add_pool, masked_max_pool)
 from ...ops.nn import gelu, init_dense_, layer_norm
+from ...weights import load_module, save_module
 from ..graphclip.model import NUM_ATOM_CODES
 
 
@@ -184,11 +193,61 @@ class GraphPredictor(nn.Module):
         total = sum(scores)
         return reactants, [s / total for s in scores], templates
 
+    def save_pretrained(self, output_dir: str) -> None:
+        os.makedirs(output_dir, exist_ok=True)
+        save_module(self, os.path.join(output_dir, "model.msgpack"))
+        with open(os.path.join(output_dir, "model_config.json"), "w") as f:
+            json.dump({"num_layer": self.cfg.num_layer,
+                       "hidden_size": self.cfg.hidden_size,
+                       "drop_ratio": self.cfg.drop_ratio,
+                       "num_task": self.cfg.out_dim,
+                       "text_input_size": self.cfg.text_input_size},
+                      f, indent=2)
+        if self.label_to_template:
+            with gzip.open(os.path.join(output_dir,
+                                        "label_to_template.csv.gz"),
+                           "wt") as f:
+                f.write("rule_label,retro_templates\n")
+                for k, v in self.label_to_template.items():
+                    f.write(f'{k},"{v}"\n')
+        if self.available is not None:
+            with gzip.open(os.path.join(output_dir, "available.csv.gz"),
+                           "wt") as f:
+                f.write("smiles\n")
+                for smi in self.available:
+                    f.write(smi + "\n")
+
     @classmethod
-    def from_pretrained(cls, model_dir: str, **kwargs):
-        raise NotImplementedError(
-            f"loading the retro predictor from {model_dir} is not ported to "
-            "llamole_tpu_torch yet (ROADMAP.md: checkpoint files)")
+    def from_pretrained(cls, model_dir: str,
+                        device=None) -> "GraphPredictor":
+        """The inventory is re-canonicalised on load (__init__)."""
+        with open(os.path.join(model_dir, "model_config.json")) as f:
+            raw = json.load(f)
+        cfg = GraphPredictorConfig(
+            num_layer=raw.get("num_layer", 5),
+            hidden_size=raw.get("hidden_size", 300),
+            drop_ratio=raw.get("drop_ratio", 0.0),
+            out_dim=raw.get("num_task", raw.get("out_dim", 100)),
+            text_input_size=raw.get("text_input_size", 768))
+        l2t = {}
+        l2t_path = os.path.join(model_dir, "label_to_template.csv.gz")
+        if os.path.exists(l2t_path):
+            with gzip.open(l2t_path, "rt") as f:
+                for row in csv.DictReader(f):
+                    l2t[int(row["rule_label"])] = row["retro_templates"]
+        available = None
+        av_path = os.path.join(model_dir, "available.csv.gz")
+        if os.path.exists(av_path):
+            with gzip.open(av_path, "rt") as f:
+                available = [row["smiles"] for row in csv.DictReader(f)]
+        model = cls(cfg, l2t, available, device=device)
+        return load_module(model, os.path.join(model_dir, "model.msgpack"))
+
+
+# provenance marker of CostMLP checkpoints: the first-party Morgan bits
+# (chem/fingerprint.py) are not RDKit's, so a cost model is only valid
+# with the feature scheme it was trained on (the JAX package's value)
+COST_FEATURE_SCHEME = "llamole-tpu-morgan-r2-v1"
 
 
 class CostMLP(nn.Module):
@@ -197,7 +256,8 @@ class CostMLP(nn.Module):
     def __init__(self, n_layers: int = 1, fp_dim: int = 2048,
                  latent_dim: int = 128, dtype=torch.float32, device=None):
         super().__init__()
-        self.fp_dim = fp_dim
+        self.n_layers, self.fp_dim, self.latent_dim = (n_layers, fp_dim,
+                                                      latent_dim)
         dims = [fp_dim] + [latent_dim] * n_layers + [1]
         self.layers = nn.ModuleList(
             nn.Linear(i, o, dtype=dtype, device=device)
@@ -244,3 +304,33 @@ class CostMLP(nn.Module):
             for i, v in zip(rows, vals.reshape(-1).cpu().numpy()):
                 out[i] = float(v)
         return out
+
+    def save_pretrained(self, output_dir: str) -> None:
+        os.makedirs(output_dir, exist_ok=True)
+        save_module(self, os.path.join(output_dir, "cost_model.msgpack"))
+        with open(os.path.join(output_dir, "cost_config.json"), "w") as f:
+            json.dump({"n_layers": self.n_layers, "fp_dim": self.fp_dim,
+                       "latent_dim": self.latent_dim,
+                       "feature_scheme": COST_FEATURE_SCHEME}, f, indent=2)
+
+    @classmethod
+    def from_pretrained(cls, model_dir: str, device=None) -> "CostMLP":
+        """Refuses a checkpoint without this package's feature scheme:
+        RDKit-feature weights would give wrong costs silently."""
+        cfg_path = os.path.join(model_dir, "cost_config.json")
+        raw = {}
+        if os.path.exists(cfg_path):
+            with open(cfg_path) as f:
+                raw = json.load(f)
+        scheme = raw.get("feature_scheme")
+        if scheme != COST_FEATURE_SCHEME:
+            raise ValueError(
+                f"cost model at {model_dir} was trained on feature scheme "
+                f"{scheme!r}, not the first-party Morgan bits "
+                f"({COST_FEATURE_SCHEME!r}); retrain it with "
+                "llamole_tpu_torch.train.pretrain.pretrain_cost_mlp")
+        model = cls(n_layers=raw.get("n_layers", 1),
+                    fp_dim=raw.get("fp_dim", 2048),
+                    latent_dim=raw.get("latent_dim", 128), device=device)
+        return load_module(model, os.path.join(model_dir,
+                                               "cost_model.msgpack"))

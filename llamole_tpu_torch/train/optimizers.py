@@ -57,6 +57,15 @@ def _join(first: Schedule, second: Schedule, boundary: int) -> Schedule:
     return f
 
 
+def warmup_cosine_decay_schedule(peak: float, warmup_steps: int,
+                                 decay_steps: int) -> Schedule:
+    """optax.warmup_cosine_decay_schedule(0, peak, warmup_steps,
+    decay_steps): linear warmup from 0, then cosine decay to 0."""
+    return _join(_linear(0.0, peak, warmup_steps),
+                 _cosine_decay(peak, max(decay_steps - warmup_steps, 1)),
+                 warmup_steps)
+
+
 def make_schedule(args, num_training_steps: int) -> Schedule:
     """The learning rate at each optimizer update (counted from 0), as
     create_optimizer builds it: warmup then cosine decay to 0, warmup
@@ -66,8 +75,8 @@ def make_schedule(args, num_training_steps: int) -> Schedule:
     if args.lr_scheduler_type == "cosine":
         # optax.warmup_cosine_decay_schedule(0, lr, w, max(n, w + 1))
         w = max(warmup, 1)
-        total = max(num_training_steps, w + 1)
-        return _join(_linear(0.0, lr, w), _cosine_decay(lr, total - w), w)
+        return warmup_cosine_decay_schedule(
+            lr, w, max(num_training_steps, w + 1))
     if args.lr_scheduler_type == "linear":
         w = max(warmup, 1)
         return _join(_linear(0.0, lr, w),

@@ -11,19 +11,30 @@ module names follow the JAX tree keys, so the mapping is structural:
   other leaves (embedding tables, null embeddings) copy as they are
 
 Stacked LLM layers ("layers_stacked", leading [L] axis) are unstacked.
-Quantized, MoE and DoRA leaves are not ported yet and raise. Reading
-checkpoint files (msgpack / safetensors) is a later step of the port.
+Quantized, MoE and DoRA leaves are not ported yet and raise.
+
+`jax_tree_of` is the inverse for the graph modules: a port module ->
+the JAX-layout tree (dense weights back to w [in, out], norms to
+scale / bias, ModuleLists to lists), so `save_module` / `load_module`
+read and write the JAX package's model.msgpack files
+(utils/serialization.py). Safetensors are a later step of the port.
 """
 
 from typing import Any, Dict, List
 
 import numpy as np
 import torch
+from torch import nn
+
+from .ops.nn import LayerNorm
+from .utils.serialization import load_pytree, save_pytree
 
 StateDict = Dict[str, torch.Tensor]
 
 
 def _tensor(a) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().clone()
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":   # ml_dtypes bf16: exact through f32
         return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
@@ -133,3 +144,39 @@ def trainable_state_dict(trainable: Dict) -> StateDict:
 def cost_mlp_state_dict(params: Dict, prefix: str = "") -> StateDict:
     """State of models.retro.CostMLP from the JAX {"layers": [dense...]}."""
     return state_dict_of(params, prefix)
+
+
+def jax_tree_of(module: nn.Module) -> Any:
+    """The JAX-layout tree of a port module whose names follow the JAX
+    tree keys (the inverse of state_dict_of): nn.Linear -> {"w": [in,
+    out], "b"}, LayerNorm -> {"scale", "bias"}, ModuleList -> list, other
+    modules -> dicts of their own parameters and children. Leaves are
+    detached tensors on the module's device; a module with no such
+    structure (e.g. LoRA) is not handled."""
+    if isinstance(module, nn.Linear):
+        out = {"w": module.weight.detach().T}
+        if module.bias is not None:
+            out["b"] = module.bias.detach()
+        return out
+    if isinstance(module, LayerNorm):
+        return {"scale": module.weight.detach(),
+                "bias": module.bias.detach()}
+    if isinstance(module, nn.ModuleList):
+        return [jax_tree_of(m) for m in module]
+    out = {name: p.detach()
+           for name, p in module.named_parameters(recurse=False)}
+    out.update({name: jax_tree_of(m)
+                for name, m in module.named_children()})
+    return out
+
+
+def save_module(module: nn.Module, path: str) -> None:
+    """module -> a msgpack file the JAX package's load_pytree reads."""
+    save_pytree(jax_tree_of(module), path)
+
+
+@torch.no_grad()
+def load_module(module: nn.Module, path: str) -> nn.Module:
+    """Fill `module` (strictly) from a JAX-layout msgpack file."""
+    module.load_state_dict(state_dict_of(load_pytree(path)))
+    return module

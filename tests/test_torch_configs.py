@@ -1,5 +1,6 @@
 """llamole_tpu_torch's re-declared configs stay equal to the JAX ones, and
-the port never imports JAX nor anything of the JAX package."""
+the port never imports JAX, flax, msgpack nor anything of the JAX
+package."""
 
 import ast
 import dataclasses
@@ -55,17 +56,22 @@ def test_port_imports_no_jax():
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
-# Installed first in the subprocess below: any import of the JAX package
+# what the port must never import: the JAX package, JAX, and the msgpack
+# stack flax checkpoints are otherwise read with
+REFUSED = ("llamole_tpu", "jax", "flax", "msgpack")
+
+# Installed first in the subprocess below: any import of a REFUSED package
 # (at module top or deferred inside a function) raises.
 _REFUSE_JAX_PACKAGE = """
 import importlib.abc, sys
+REFUSED = %r
 class _RefuseJaxPackage(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
-        if name == "llamole_tpu" or name.startswith("llamole_tpu."):
+        if name.split(".")[0] in REFUSED:
             raise ImportError(f"the port imported {name}")
         return None
 sys.meta_path.insert(0, _RefuseJaxPackage())
-"""
+""" % (REFUSED,)
 
 _DRIVE_THE_PORT = r"""
 import dataclasses, importlib, io, json, pkgutil, tempfile
@@ -111,17 +117,35 @@ with tempfile.TemporaryDirectory() as out_dir:
     args[2] = dataclasses.replace(args[2], output_dir=out_dir, max_steps=1)
     metrics = run_mmsft(*args, device="cpu")
 assert metrics["train_steps"] == 1, metrics
-bad = [m for m in sys.modules if m == "llamole_tpu"
-       or m.startswith("llamole_tpu.") or m in ("jax", "flax", "optax")]
+
+# a stack directory written by the port's own pretraining loads back
+from llamole_tpu_torch.eval.scoring import oracle_property_metrics
+from llamole_tpu_torch.train import stack
+with tempfile.TemporaryDirectory() as d:
+    stack.main(["--tiny", "--device", "cpu", "--stack-dir", d, "--stages",
+                "corpus,graphdit,predictor,cost_mlp,graphclip,oracle,"
+                "llm_config"])
+    paths = stack.stack_paths(d)
+    m_args, d_args, _, f_args, _ = get_infer_args(stack.eval_args(
+        paths, stack.sizes(True)["eval"], 0))
+    model, _ = build_graph_lm(m_args, d_args, f_args, device="cpu")
+    assert model.cost_mlp is not None and model.llm.cfg.hidden_size == 64
+    scores = oracle_property_metrics(paths["oracle"], [
+        {"llm_smiles": "CCO", "property": {"SA": 2.0, "HIV": 1.0}}])
+    assert scores["property_scored_counts"] == {"HIV": 1, "SA": 1}, scores
+bad = [m for m in sys.modules if m.split(".")[0] in
+       ("llamole_tpu", "jax", "flax", "msgpack", "optax")]
 assert not bad, bad
 print("ok")
 """
 
 
 def test_port_runs_with_the_jax_package_refused():
-    """Every module of the port imports, and a design + retro request
-    through DesignServer and one training step on the smoke configs run,
-    with any import of llamole_tpu refused: deferred imports included."""
+    """Every module of the port imports, a design + retro request through
+    DesignServer and one training step on the smoke configs run, and the
+    graph modules of a tiny stack pretrain, save and load back, with any
+    import of llamole_tpu, jax, flax or msgpack refused: deferred imports
+    included."""
     proc = subprocess.run(
         [sys.executable, "-c", _REFUSE_JAX_PACKAGE + _DRIVE_THE_PORT],
         cwd=ROOT, capture_output=True, text=True, timeout=600,
@@ -141,7 +165,7 @@ def _imports_of_the_jax_package(path):
         else:
             continue
         found += [f"{path.name}:{node.lineno} {n}" for n in names
-                  if n == "llamole_tpu" or n.startswith("llamole_tpu.")]
+                  if n.split(".")[0] in REFUSED]
     return found
 
 

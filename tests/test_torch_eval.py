@@ -23,7 +23,8 @@ from llamole_tpu.data.tokenizer import ByteTokenizer
 from llamole_tpu.eval.dataset import MolQADataset as JaxDataset
 from llamole_tpu.eval.scoring import (
     frechet_graphclip_distance as jax_fgd,
-    generation_set_metrics as jax_set_metrics)
+    generation_set_metrics as jax_set_metrics,
+    oracle_property_metrics as jax_oracle_metrics)
 from llamole_tpu.eval.workflow import run_molqa as jax_run_molqa
 from llamole_tpu.models.composite import GraphLM as JaxGraphLM
 from llamole_tpu.models.gllm import LLM as JaxLLM
@@ -119,7 +120,7 @@ def test_molqa_dataset_matches_jax(stacks):
             np.testing.assert_array_equal(a[k], b[k])
 
 
-def test_generation_scores_match_jax(stacks):
+def test_generation_scores_match_jax(stacks, tmp_path):
     tok, jm, frozen, _, tm = stacks
     records = _records(4)
     results = [{"llm_smiles": s, "llm_response": r} for s, r in [
@@ -136,8 +137,21 @@ def test_generation_scores_match_jax(stacks):
     np.testing.assert_allclose(got, want, rtol=1e-3)
     assert frechet_graphclip_distance(tm.graph_encoder, ["CCO"], gold) \
         is None
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        oracle_property_metrics("saves/oracle", results)
+    # a JAX-saved oracle scores these results in the port as in JAX
+    from llamole_tpu.models.oracle import PropertyOracle as JaxOracle
+    from llamole_tpu.models.oracle import PropertyOracleConfig as JaxOracleCfg
+    oracle = JaxOracle(JaxOracleCfg(num_layer=2, hidden_size=16))
+    oracle.save_pretrained(oracle.init(jax.random.PRNGKey(3)),
+                           str(tmp_path / "oracle"))
+    scored = [dict(r, property=p) for r, p in zip(results, [
+        {"HIV": 1.0, "SA": 2.5}, {"BBBP": 0.0}, {"SA": 3.0}, {"HIV": 0.0}])]
+    want = jax_oracle_metrics(str(tmp_path / "oracle"), scored)
+    got = oracle_property_metrics(str(tmp_path / "oracle"), scored)
+    assert got["property_scored_counts"] == want["property_scored_counts"]
+    assert got["property_accuracy"] == want["property_accuracy"]
+    assert got["property_mae"].keys() == want["property_mae"].keys()
+    for k, v in want["property_mae"].items():
+        np.testing.assert_allclose(got["property_mae"][k], v, rtol=1e-5)
 
 
 def test_run_molqa_matches_jax(stacks, tmp_path):

@@ -268,7 +268,7 @@ def _mol_batch(smiles, n=None):
     return atoms, edges, mask
 
 
-def test_graphclip_matches_jax(interpret_pallas):
+def test_graphclip_matches_jax(interpret_pallas, tmp_path):
     jm = JaxCLIP(JaxCLIPCfg(num_layer=3, hidden_size=32))
     params = _np(jm.init(jax.random.PRNGKey(1)))
     params["virtualnode"] = np.random.default_rng(5).normal(
@@ -284,8 +284,13 @@ def test_graphclip_matches_jax(interpret_pallas):
                                atol=ATOL, rtol=ATOL)
     np.testing.assert_allclose(emb, np.asarray(jm(params, *j_in)), atol=ATOL)
     np.testing.assert_allclose(np.linalg.norm(emb, axis=-1), 1.0, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        GraphCLIP.from_pretrained("saves/graph_encoder")
+    # the JAX package's saved directory loads in the port, bit for bit
+    jm.save_pretrained(params, str(tmp_path / "graph_encoder"))
+    loaded = GraphCLIP.from_pretrained(str(tmp_path / "graph_encoder"))
+    assert loaded.cfg == tm.cfg
+    with torch.no_grad():
+        np.testing.assert_array_equal(
+            loaded(_t(atoms), _t(edges), _t(mask)).numpy(), emb)
 
 
 @pytest.fixture(scope="module")

@@ -2,7 +2,8 @@
 on a hand-built bank on the CPU: it counts the x rows of adj's used
 columns, the g rows of its used rows, the classes of adj's non-zero
 entries, and every other input and output once in full. And the training shape chip_smoke.py times kernel B at is
-the bank run_mmsft builds under its llama_lora settings."""
+the bank run_mmsft builds under its llama_lora settings. And phase 11
+(the learned-weights stack) runs end to end on the CPU at small sizes."""
 
 from types import SimpleNamespace
 
@@ -128,3 +129,46 @@ def test_bound_at_the_training_bank_counts_the_output_once():
     bound_ms, bound_by = chip_smoke.gin_bound(args, backward=False)
     assert bound_by == "bytes"
     assert bound_ms == pytest.approx(want / chip_smoke.HBM_BYTES_PER_S * 1e3)
+
+
+# phase 11 at small sizes: the same stages, checks and reloads as on the
+# card (the GIN wrappers run their plain versions on the CPU, and no
+# launch is counted there)
+_STACK_CPU = {
+    "train_records": 24, "eval_records": 2,
+    "graphdit": dict(hidden_size=32, depth=2, num_heads=4,
+                     diffusion_steps=12, steps=4, batch_size=8),
+    "predictor": dict(hidden_size=32, num_layer=2, steps=10, batch_size=8),
+    "cost_mlp": dict(steps=10, batch_size=16),
+    "graphclip": dict(hidden_size=32, num_layer=2, steps=4, batch_size=8),
+    "oracle": dict(hidden_size=32, num_layer=2, steps=10, batch_size=8),
+    "mmsft_steps": 2,
+    "eval": dict(per_device_eval_batch_size=2, max_new_tokens=16,
+                 expansion_topk=10, iterations=2, max_planning_time=2.0),
+}
+
+
+def test_stack_phase_runs_on_the_cpu():
+    assert set(_STACK_CPU) == set(chip_smoke.STACK_SIZES)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        launches, bank_records = chip_smoke.run_stack(
+            (), "CPU", device="cpu", sizes=_STACK_CPU)
+    finally:
+        torch.set_num_threads(threads)
+    assert launches == {"B": 0, "C": 0} and bank_records == {}
+
+
+def test_stack_phase_sizes_are_the_reference_widths():
+    sizes = chip_smoke.STACK_SIZES
+    assert sizes["graphdit"] | {"steps": 0} == dict(
+        hidden_size=1024, depth=28, num_heads=16, diffusion_steps=100,
+        steps=0, batch_size=64)
+    for name in ("predictor", "graphclip"):
+        assert (sizes[name]["hidden_size"], sizes[name]["num_layer"]) == (
+            300, 5)
+    # the oracle at the JAX package's defaults (3 x 128)
+    assert "hidden_size" not in sizes["oracle"]
+    assert all(sizes[k]["batch_size"] == 64 for k in
+               ("graphdit", "predictor", "cost_mlp", "graphclip", "oracle"))
