@@ -82,8 +82,9 @@
    changed by the second; frozen checksums (LLM base, denoiser, bond
    tables) unchanged; kernel C >= 4 x 4 and kernel B >= 10 x 4 launches,
    kernel A none inside the training loss; the log, checkpoint-4 and the
-   predictions written. Per micro step wall, tokens/s and the forward /
-   backward / optimizer split, and the peak memory.
+   predictions written (kept for phase 12). Per micro step wall,
+   tokens/s and the forward / backward / optimizer split, and the peak
+   memory.
 10. Reference checks: f32 copies of the full-width denoiser, GraphCLIP and
    the predictor (forward and backward: logits, the condition's and the
    bond tables' gradients) on the card (kernel paths) against the same
@@ -104,6 +105,26 @@
    property_accuracy / property_mae. Per stage: wall, first and last
    loss, peak memory; B and C timed at the pretraining bank (64, n, 300)
    and (64, n, 128) f32, n the largest corpus product rounded up to 8.
+12. Weight interchange on the slice's Llama-3.1-8B shape (bf16). Before
+   the slice is freed: phase 9's output (adapter.msgpack, the connectors,
+   checkpoint-4's trainable.msgpack and opt_state.msgpack) reloads
+   bit-identically into the model and a new Trainer; the frozen base is
+   exported as an HF checkpoint in 5 GiB shards (timed, GB/s) and the
+   graph modules saved with save_pretrained(save_graph_modules=True);
+   the phase fails up front if the disk cannot hold what it writes
+   (~34 GiB). After phase 11, on an empty card: merge_adapter through its
+   normal entry (the base, phase 9's adapter, the graph modules ->
+   merged/: safetensors import, merge_lora, model.msgpack, the merged HF
+   export; each timed; model.msgpack streams into a byte counter that
+   keeps its size and sha256, as the machine's disk takes 45 GiB of
+   writes a run: WRITE_BUDGET), the unmerged (base + adapter) and the
+   merged export built through build_graph_lm, every merged tensor equal
+   to base + adapter bit for bit, the last-token logits within
+   MERGE_LOGIT_TOL and the reloaded LLM's msgpack, streamed again, of
+   model.msgpack's size and sha256, then 3 requests (64 new tokens, the first with a
+   route, 10 s retro wall) served from the merged model: no error, A >=
+   28 x reverse steps x design batches, B >= 5 x (rounds + products);
+   peak memory; base/ and merged/ deleted in a finally.
 
 Prints, before the last line, one {"kernels": [...]} JSON line (per
 kernel: launches on the main path, max_abs_err, ms, plain_ms, device_ms,
@@ -113,15 +134,19 @@ training and its times, bound and share at the training bank under
 train_* keys, with the molecules in the last rows under train_last_*;
 for B and C their launches in the phase-11 pretrainings and their
 times, bound and share at the pretraining bank under pretrain_* keys
-(H = 128 under pretrain_oracle_*);
+(H = 128 under pretrain_oracle_*); for A and B their launches in phase
+12's serving under launches_interchange (A per body too);
 the last line is {"ok": true, "device": {...}}. Any
 failure exits non-zero.
 """
 
+import contextlib
 import copy
 import gc
+import hashlib
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -561,12 +586,14 @@ def timed(obj, name, log):
     """Wrap obj.name so every call is timed between synchronizations;
     log gets (seconds, result) per call."""
     fn = getattr(obj, name)
+    sync = (torch.cuda.synchronize if torch.cuda.is_available()
+            else (lambda: None))
 
     def wrapper(*args, **kwargs):
-        torch.cuda.synchronize()
+        sync()
         t0 = time.perf_counter()
         out = fn(*args, **kwargs)
-        torch.cuda.synchronize()
+        sync()
         log.append((time.perf_counter() - t0, out))
         return out
 
@@ -1147,9 +1174,11 @@ def _checksum(tensors) -> float:
                  .double().sum())
 
 
-def run_training(model, tok, kernels, tag):
-    """Phase 9: run_mmsft at full width with llama_lora.yaml's settings.
-    Returns the kernel-B and kernel-C launches of the run."""
+def run_training(model, tok, kernels, tag, out_dir):
+    """Phase 9: run_mmsft at full width with llama_lora.yaml's settings,
+    its output (the trained adapter and checkpoint-4) kept in out_dir for
+    phase 12. Returns the kernel-B and kernel-C launches of the run and
+    what checkpoint-4 saved (capture_checkpoints)."""
     from llamole_tpu_torch.train.workflow import run_mmsft
 
     fused, gin, gin_bwd = kernels[:3]
@@ -1183,19 +1212,19 @@ def run_training(model, tok, kernels, tag):
     torch.cuda.reset_peak_memory_stats()
     reset_counts(*kernels)
     try:
-        with tempfile.TemporaryDirectory() as out_dir:
+        with capture_checkpoints() as saved:
             args = llama_lora_args(out_dir)
             t0 = time.perf_counter()
             metrics = run_mmsft(*args, prebuilt=(model, tok))
             wall = time.perf_counter() - t0
-            out = Path(out_dir)
-            with open(out / "trainer_log.jsonl") as f:
-                log = [json.loads(line) for line in f]
-            written = {name: (out / name).exists() for name in (
-                "trainer_log.jsonl", "checkpoint-4/trainer_state.json",
-                "checkpoint-4/trainable.pt", "adapter.pt",
-                "connector/lm_to_graph_decoder.pt",
-                "generated_predictions.jsonl")}
+        out = Path(out_dir)
+        with open(out / "trainer_log.jsonl") as f:
+            log = [json.loads(line) for line in f]
+        written = {name: (out / name).exists() for name in (
+            "trainer_log.jsonl", "checkpoint-4/trainer_state.json",
+            "checkpoint-4/trainable.msgpack", "checkpoint-4/opt_state.msgpack",
+            "adapter.msgpack", "connector/lm_to_graph_decoder.msgpack",
+            "generated_predictions.jsonl")}
     finally:
         del model.loss
     launches = {"A": a_in_training[0], "B": gin.launches,
@@ -1257,7 +1286,7 @@ def run_training(model, tok, kernels, tag):
           f"{metrics.get('eval_loss')}); peak memory {peak / 2**30:.2f} "
           f"GiB (torch.cuda.max_memory_allocated) [{tag}]", flush=True)
     profile_training_step(model, last_batch[0], tag)
-    return launches["B"], launches["C"]
+    return launches["B"], launches["C"], saved
 
 
 def profile_training_step(model, batch, tag):
@@ -1585,7 +1614,7 @@ def run_stack(kernels, tag, device="cuda", sizes=None):
         if (metrics["train_steps"] != sizes["mmsft_steps"]
                 or not np.isfinite(metrics["train_loss"])
                 or not os.path.exists(os.path.join(paths["mmsft"],
-                                                   "llm.pt"))):
+                                                   "llm.msgpack"))):
             fail(f"stack mmsft: {metrics}")
         print(f"stack mmsft (full finetuning, LLM {llm_cfg['hidden_size']}"
               f" x {llm_cfg['num_hidden_layers']}, tied embeddings, over "
@@ -1615,6 +1644,414 @@ def run_stack(kernels, tag, device="cuda", sizes=None):
     records_out = time_pretrain_bank(gin, gin_bwd, records, tag) \
         if on_card else {}
     return launches, records_out
+
+
+# Phase 12, weight interchange at the slice's width (the Llama-3.1-8B
+# shape, bf16): phase 9's adapter and checkpoint reload bit-identically,
+# the frozen base goes out as an HF checkpoint (5 GB shards), merge_adapter
+# merges the adapter into it through its normal entry, and the merged
+# export reloads and serves
+INTERCHANGE = {"shard_gb": 5.0, "requests": 3, "max_new_tokens": 64,
+               "retro_iterations": 5, "retro_max_time": 10.0}
+# The chip machine's disk takes at most 45 GiB of writes in one run,
+# deleted files included. The base export and the merged HF export are
+# 2 x 16.06 GB at 8B; merge_adapter's model.msgpack (16.06 GB more) would
+# pass the budget, so phase 12 streams it through the same writer into a
+# byte counter (timed, its size and sha256 kept) instead of onto the disk,
+# and holds it to a second stream of the reloaded merged LLM
+WRITE_BUDGET = 45 * 2 ** 30
+# merged against unmerged last-token logits in bf16: max |diff| over max
+# |logit| of the unmerged model. The same comparison at a small width on
+# the CPU (tests/test_torch_smoke_bounds.py, bf16, 2 layers) gives about
+# 1e-2, a few bf16 ulps of the largest logit (the logits leave the head
+# in bf16); the limit is 5x that, and the CPU test holds its value below
+# a third of it
+MERGE_LOGIT_TOL = 5e-2
+PROMPT = "Design a drug-like molecule with low synthetic accessibility."
+GIB = 2 ** 30
+
+
+@contextlib.contextmanager
+def capture_checkpoints():
+    """What each Trainer.save_checkpoint saved, by directory name: clones
+    of the trainable bundle, of the optimizer's state and of the
+    generator's state, with the trainer's arguments."""
+    from llamole_tpu_torch.train.trainer import Trainer
+
+    saved, orig = {}, Trainer.save_checkpoint
+
+    def save(self, state, path):
+        orig(self, state, path)
+        opt = self.optimizer
+        saved[os.path.basename(path)] = {
+            "params": _snapshot(self.params), "count": opt.count,
+            "mini_step": opt.mini_step, "step": state.step,
+            **{k: _snapshot(getattr(opt, k)) for k in ("mu", "nu", "acc")},
+            "generator": state.generator.get_state().clone(),
+            "args": self.args, "updates": self.num_training_steps}
+
+    Trainer.save_checkpoint = save
+    try:
+        yield saved
+    finally:
+        Trainer.save_checkpoint = orig
+
+
+class _ByteCounter:
+    """A file that keeps only the count and the sha256 of the bytes
+    written to it."""
+
+    def __init__(self):
+        self.nbytes = 0
+        self.sha = hashlib.sha256()
+
+    def write(self, data):
+        view = memoryview(data)
+        self.nbytes += view.nbytes
+        self.sha.update(view)
+
+
+def _msgpack_to_counter(tree, path=None):
+    """save_pytree's writer, leaf by leaf, into a byte counter: the size
+    and sha256 of what model.msgpack would hold, without the disk write
+    (WRITE_BUDGET)."""
+    from llamole_tpu_torch.utils import serialization
+
+    counter = _ByteCounter()
+    serialization._write(counter, tree)
+    return counter
+
+
+@contextlib.contextmanager
+def timed_calls(module, names, log):
+    """module.<name> timed (wall seconds between synchronizations) for
+    each name, appended to log[name]."""
+    origs = {n: getattr(module, n) for n in names}
+    for n in names:
+        log.setdefault(n, [])
+        timed(module, n, log[n])
+    try:
+        yield log
+    finally:
+        for n, fn in origs.items():
+            setattr(module, n, fn)
+
+
+def llm_base_bytes(llm) -> int:
+    return sum(p.numel() * p.element_size()
+               for n, p in llm.named_parameters() if "lora_" not in n)
+
+
+def check_reload(model, train_dir, saved, tag):
+    """Phase 12, step 1: phase 9's final save (adapter.msgpack and the
+    connectors) reloads into the model, and its last checkpoint-N into a
+    new Trainer, bit-identically: the bundle, the optimizer's count,
+    mini_step, mu, nu and acc, the step and the generator."""
+    from llamole_tpu_torch.train.trainer import Trainer
+
+    params = model.trainable_parameters()
+    before = _snapshot(params)
+    model.load_trainable(train_dir)
+    changed = [n for n in params if not torch.equal(params[n], before[n])]
+    name = max(saved, key=lambda k: saved[k]["step"])
+    rec = saved[name]
+    args = SimpleNamespace(**{**vars(rec["args"]), "output_dir": None})
+    trainer = Trainer(lambda batch, gen: None, params, args, rec["updates"])
+    state = trainer.load_checkpoint(trainer.init_state(1),
+                                    os.path.join(train_dir, name))
+    opt = trainer.optimizer
+    bad = [n for n in params if not torch.equal(params[n], rec["params"][n])]
+    bad += [f"{k}:{n}" for k in ("mu", "nu", "acc")
+            for n, t in getattr(opt, k).items()
+            if not torch.equal(t, rec[k][n])]
+    bad += [k for k, a, b in (("count", opt.count, rec["count"]),
+                              ("mini_step", opt.mini_step, rec["mini_step"]),
+                              ("step", state.step, rec["step"])) if a != b]
+    if not torch.equal(state.generator.get_state(), rec["generator"]):
+        bad.append("generator")
+    with torch.no_grad():
+        for n, p in params.items():
+            p.copy_(before[n])
+    if changed or bad:
+        fail(f"phase 9's output did not reload bit-identically: adapter "
+             f"{changed[:3]}, {name} {bad[:3]}")
+    print(f"interchange: phase 9's adapter.msgpack + connectors and {name} "
+          f"(trainable.msgpack, opt_state.msgpack: count {opt.count}, "
+          f"mini_step {opt.mini_step}, {len(params)} mu / nu / acc leaves) "
+          f"reload bit-identically [{tag}]", flush=True)
+
+
+def interchange_export(model, work, train_dir, saved, tag, sizes=None):
+    """Phase 12, step 1, before the slice is freed: the reload checks,
+    the frozen base exported as an HF checkpoint into work/base (timed),
+    the graph modules saved with save_pretrained(save_graph_modules=True)
+    into work/modules. Fails up front when the disk cannot hold what the
+    phase writes."""
+    from llamole_tpu_torch.models.gllm.convert import export_hf_weights
+
+    sizes = sizes or INTERCHANGE
+    check_reload(model, train_dir, saved, tag)
+    graph = sum(p.numel() * 4 for n, p in model.named_parameters()
+                if n.startswith(("graph_decoder.", "graph_encoder.",
+                                 "graph_predictor.")))
+    need = 2 * llm_base_bytes(model.llm) + graph + 2 * GIB
+    free = shutil.disk_usage(work).free
+    print(f"interchange disk: {free / GIB:.2f} GiB free under {work}, the "
+          f"phase writes up to {need / GIB:.2f} GiB (the base and the "
+          f"merged HF export, the graph modules; model.msgpack's "
+          f"{llm_base_bytes(model.llm) / GIB:.2f} GiB go to a byte counter:"
+          f" the machine takes {WRITE_BUDGET / GIB:.0f} GiB of writes a "
+          f"run) [{tag}]", flush=True)
+    if free < need:
+        raise RuntimeError(f"phase 12 needs {need} bytes of disk under "
+                           f"{work}; {free} are free")
+    base = os.path.join(work, "base")
+    sync = (torch.cuda.synchronize if model.device.type == "cuda"
+            else (lambda: None))
+    sync()
+    t0 = time.perf_counter()
+    nbytes = export_hf_weights(model.llm, base, shard_gb=sizes["shard_gb"])
+    wall = time.perf_counter() - t0
+    shards = sorted(f for f in os.listdir(base) if f.endswith(".safetensors"))
+    print(f"interchange export of the base: {nbytes} bytes in {wall:.3f} s "
+          f"= {nbytes / wall / 1e9:.3f} GB/s, {len(shards)} shard(s) of at "
+          f"most {sizes['shard_gb']} GiB [{tag}]", flush=True)
+    t0 = time.perf_counter()
+    model.save_pretrained(os.path.join(work, "modules"),
+                          save_graph_modules=True)
+    print(f"interchange: graph modules and connectors saved in "
+          f"{time.perf_counter() - t0:.3f} s [{tag}]", flush=True)
+    return {"export_bytes": nbytes, "export_s": wall, "shards": len(shards)}
+
+
+def _interchange_args(work, **extra):
+    mods = os.path.join(work, "modules")
+    return {"model_name_or_path": os.path.join(work, "base"),
+            "graph_decoder_path": os.path.join(mods, "graph_decoder"),
+            "graph_encoder_path": os.path.join(mods, "graph_encoder"),
+            "graph_predictor_path": os.path.join(mods, "graph_predictor"),
+            "template": "llama3", "finetuning_type": "lora", "lora_rank": 8,
+            "compute_dtype": "bfloat16", **extra}
+
+
+def _build(args, device):
+    from llamole_tpu_torch.config import get_infer_args
+    from llamole_tpu_torch.models.loader import build_graph_lm
+
+    m, d, _, f, _ = get_infer_args(args)
+    return build_graph_lm(m, d, f, device=device, generate_mode=True,
+                          load_adapter=bool(m.adapter_name_or_path))
+
+
+@torch.no_grad()
+def check_merged(unmerged, reloaded, tok, tag):
+    """Every LLM tensor of the reloaded merged export equals the merge of
+    the unmerged model's base and adapter (the f32 delta cast to bf16),
+    bit for bit; the last-token logits of one prompt agree within
+    MERGE_LOGIT_TOL. Returns the relative logit difference."""
+    from llamole_tpu_torch.models.gllm.lora import LoRALinear
+
+    got = dict(reloaded.llm.named_parameters())
+    base = {n: p for n, p in unmerged.llm.named_parameters()
+            if "lora_" not in n}
+    if set(got) != set(base):
+        fail(f"the merged export holds {sorted(set(got) ^ set(base))[:3]}"
+             " beside or in place of the base's tensors")
+    mods = dict(unmerged.llm.named_modules())
+    bad, n_merged = [], 0
+    for name, p in base.items():
+        want = p
+        owner = mods[name.rsplit(".", 1)[0]]
+        if (isinstance(owner, LoRALinear) and owner.lora_a is not None
+                and name.endswith("weight")):
+            delta = (owner.lora_b.float() @ owner.lora_a.float()) \
+                * owner.lora_scale
+            want = (p.float() + delta).to(p.dtype)
+            n_merged += 1
+        if not torch.equal(got[name], want):
+            bad.append(name)
+    if bad:
+        fail(f"merged tensors differ from base + adapter: {bad[:3]}")
+    ids = torch.tensor([tok.encode(PROMPT)], device=unmerged.device)
+    ref = unmerged.llm(ids, last_logits_only=True)[0][:, -1].float()
+    out = reloaded.llm(ids, last_logits_only=True)[0][:, -1].float()
+    rel = float((out - ref).abs().max() / ref.abs().max())
+    print(f"interchange: {len(got)} LLM tensors of the merged export equal "
+          f"base + adapter bit for bit ({n_merged} projections merged); "
+          f"last-token logits merged vs unmerged: max |diff| / max |logit| "
+          f"{rel:.3e} (limit {MERGE_LOGIT_TOL}) [{tag}]", flush=True)
+    if not rel <= MERGE_LOGIT_TOL:
+        fail(f"merged logits differ by {rel} > {MERGE_LOGIT_TOL}")
+    return rel
+
+
+def check_msgpack(reloaded, streamed, tag):
+    """merge_adapter's model.msgpack, streamed into the byte counter, is
+    the msgpack of the reloaded merged export's LLM: the same byte count
+    and sha256 (check_merged holds that LLM to base + adapter)."""
+    from llamole_tpu_torch.weights import llm_tree
+
+    t0 = time.perf_counter()
+    again = _msgpack_to_counter(llm_tree(reloaded.llm))
+    again = (again.nbytes, again.sha.hexdigest())
+    print(f"interchange: model.msgpack ({streamed[0]} bytes, sha256 "
+          f"{streamed[1][:16]}...) equals the msgpack of the reloaded "
+          f"merged LLM: {again == streamed} (second stream "
+          f"{time.perf_counter() - t0:.3f} s) [{tag}]", flush=True)
+    if again != streamed:
+        fail(f"model.msgpack {streamed} differs from the reloaded merged "
+             f"LLM's {again}")
+
+
+def serve_interchange(model, tok, kernels, tag, sizes):
+    """Phase 12, step 4: requests from the reloaded merged model through
+    DesignServer, the first asking for a route. Returns the launches of
+    kernels A and B (none on the CPU)."""
+    from llamole_tpu_torch.models.composite import GenerationSettings
+    from llamole_tpu_torch.serve import DesignServer
+
+    on_card = model.device.type == "cuda"
+    timers = PathTimers(model)
+    gen = GenerationSettings(max_new_tokens=sizes["max_new_tokens"],
+                             temperature=0.6, top_p=0.9, do_sample=True)
+    server = DesignServer(model, tok, batch_size=8, max_wait_s=0.5, gen=gen,
+                          rollback=True, seed=0,
+                          retro_iterations=sizes["retro_iterations"],
+                          retro_max_time=sizes["retro_max_time"])
+    reset_counts(*kernels)
+    t0 = time.perf_counter()
+    server.start()
+    try:
+        handles = [server.submit(f"Design a drug-like molecule, request {i}.",
+                                 PROPERTIES[i % len(PROPERTIES)],
+                                 retro=(i == 0))
+                   for i in range(sizes["requests"])]
+        results = [h.result(timeout=900) for h in handles]
+    finally:
+        server.stop()
+    wall = time.perf_counter() - t0
+    errors = [r["error"] for r in results if "error" in r]
+    if len(results) != sizes["requests"] or errors:
+        fail(f"interchange serving: {len(results)} answers, errors "
+             f"{errors[:3]}")
+    if results[0]["smiles"] is not None and not isinstance(
+            results[0].get("retro"), dict):
+        fail(f"interchange retro request without a retro block: "
+             f"{results[0]}")
+    print(f"interchange serving from the reloaded merged export: "
+          f"{len(results)} answered in {wall:.3f} s, smiles "
+          f"{[r['smiles'] for r in results]}, route found "
+          f"{bool(results[0].get('retro', {}).get('success'))} [{tag}]",
+          flush=True)
+    launches = {"A": 0, "B": 0}
+    if on_card:
+        fused, gin = kernels[:2]
+        launches = {"A": fused.launches, "A_mma": fused.launches_mma,
+                    "A_fma": fused.launches_fma, "B": gin.launches}
+        steps = diffusion_steps(model)
+        depth = model.graph_decoder.cfg.depth
+        batches = timers.count("design")
+        check_launches("fused_block_attention (interchange)", launches["A"],
+                       depth * steps * batches,
+                       f"{depth} x {steps} x {batches}")
+        check_launches("gin_aggregate (interchange)", launches["B"],
+                       timers.gin_floor(),
+                       f"{GIN_LAYERS} x ({timers.count('splice')} rounds + "
+                       f"{timers.count('predictor')} products)")
+    return launches
+
+
+def run_interchange(kernels, work, train_dir, tag, device="cuda",
+                    sizes=None):
+    """Phase 12, steps 2-6, on an empty card: merge_adapter through its
+    normal entry (work/base + phase 9's adapter + the graph modules ->
+    work/merged), the unmerged and the merged model built through
+    build_graph_lm, their tensors and logits held together, requests
+    served from the merged one. work/base and work/merged are deleted
+    whatever happens. Returns the A and B launches of the serving."""
+    from llamole_tpu_torch.models import loader
+    from llamole_tpu_torch.train import export
+    from llamole_tpu_torch.train.export import merge_adapter
+
+    sizes = sizes or INTERCHANGE
+    on_card = device == "cuda"
+    merged = os.path.join(work, "merged")
+    log = {}
+    try:
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        save_pytree, export.save_pytree = export.save_pytree, \
+            _msgpack_to_counter
+        try:
+            with timed_calls(loader, ["load_hf_weights"], log), \
+                    timed_calls(export, ["merge_lora", "save_pytree",
+                                         "export_hf_weights"], log):
+                merge_adapter(_interchange_args(
+                    work, adapter_name_or_path=train_dir,
+                    export_size=sizes["shard_gb"], export_dir=merged),
+                    device=device)
+        finally:
+            export.save_pytree = save_pytree
+        merge_wall = time.perf_counter() - t0
+        base_bytes = sum(os.path.getsize(os.path.join(work, "base", f))
+                         for f in os.listdir(os.path.join(work, "base"))
+                         if f.endswith(".safetensors"))
+        out_bytes = sum(os.path.getsize(os.path.join(merged, f))
+                        for f in os.listdir(merged)
+                        if f.endswith(".safetensors"))
+        (imp, _), = log["load_hf_weights"]
+        (mrg, n), = log["merge_lora"]
+        (pk, msgpack), = log["save_pytree"]
+        streamed = (msgpack.nbytes, msgpack.sha.hexdigest())
+        (hf, _), = log["export_hf_weights"]
+        print(f"interchange merge_adapter: {merge_wall:.3f} s wall; "
+              f"safetensors import {base_bytes} bytes in {imp:.3f} s = "
+              f"{base_bytes / imp / 1e9:.3f} GB/s, merge_lora {n} "
+              f"projections in {mrg:.3f} s, model.msgpack "
+              f"{msgpack.nbytes} bytes into the hashing byte counter in "
+              f"{pk:.3f} s = {msgpack.nbytes / pk / 1e9:.3f} GB/s, HF export "
+              f"{out_bytes} bytes in {hf:.3f} s = {out_bytes / hf / 1e9:.3f}"
+              f" GB/s; peak {_peak(on_card)} [{tag}]", flush=True)
+        log.clear()     # it holds what the calls returned: the merged LLM
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        unmerged, tok = _build(_interchange_args(
+            work, adapter_name_or_path=train_dir), device)
+        t1 = time.perf_counter()
+        reloaded, tok2 = _build(_interchange_args(
+            work, model_name_or_path=merged, adapter_name_or_path=merged,
+            finetuning_type="freeze"), device)
+        t2 = time.perf_counter()
+        print(f"interchange: unmerged model (base + adapter) built in "
+              f"{t1 - t0:.3f} s, merged export reloaded in {t2 - t1:.3f} s "
+              f"[{tag}]", flush=True)
+        rel = check_merged(unmerged, reloaded, tok, tag)
+        check_msgpack(reloaded, streamed, tag)
+        del unmerged
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        launches = serve_interchange(reloaded, tok2, kernels, tag, sizes)
+        print(f"interchange phase: peak {_peak(on_card)} over the two "
+              f"models and the serving [{tag}]", flush=True)
+        del reloaded
+    finally:
+        for d in ("base", "merged"):
+            shutil.rmtree(os.path.join(work, d), ignore_errors=True)
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+    return launches, rel
+
+
+def _peak(on_card) -> str:
+    return (f"{torch.cuda.max_memory_allocated() / GIB:.2f} GiB "
+            "(torch.cuda.max_memory_allocated)" if on_card
+            else "not measured (CPU)")
 
 
 def main() -> int:
@@ -1658,17 +2095,29 @@ def main() -> int:
     timers = PathTimers(model)
     launches = run_serving(model, tok, timers, kernels, tag)
     molqa = run_eval(model, tok, timers, kernels, tag)
-    b_training, c_training = run_training(model, tok, kernels, tag)
-    check_denoiser(model, tag)
-    check_graphclip(model, tag)
-    check_predictor(model, tag)
-    # phase 11 starts from an empty card: the slice's memory goes first
-    del model, tok, timers
-    gc.collect()
-    torch.cuda.empty_cache()
-    print(f"slice freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
-          "still allocated", flush=True)
-    stack_launches, pretrain_bank = run_stack(kernels, tag)
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        train_dir = os.path.join(work, "mmsft")
+        b_training, c_training, saved = run_training(model, tok, kernels,
+                                                     tag, train_dir)
+        check_denoiser(model, tag)
+        check_graphclip(model, tag)
+        check_predictor(model, tag)
+        exported = interchange_export(model, work, train_dir, saved, tag)
+        # phases 11 and 12 start from an empty card: the slice goes first
+        del model, tok, timers, saved
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"slice freed: {torch.cuda.memory_allocated() / 2**30:.2f} "
+              "GiB still allocated", flush=True)
+        stack_launches, pretrain_bank = run_stack(kernels, tag)
+        t0 = time.perf_counter()
+        inter, merge_rel = run_interchange(kernels, work, train_dir, tag)
+        print(f"interchange phase (steps 2-6): {time.perf_counter() - t0:.1f}"
+              f" s wall; base export {exported['export_s']:.3f} s [{tag}]",
+              flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
     def entry(name, source, replaces, rec, launches, **extra):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -1684,6 +2133,9 @@ def main() -> int:
               "llamole_tpu/ops/pallas/fused_attention.py:91", a,
               launches["A"], launches_mma=launches["A_mma"],
               launches_fma=launches["A_fma"],
+              launches_interchange=inter["A"],
+              launches_interchange_mma=inter["A_mma"],
+              launches_interchange_fma=inter["A_fma"],
               sdpa_floor_ms=a["sdpa_floor_ms"],
               sdpa_floor_device_ms=a["sdpa_floor_device_ms"],
               fma_ms=a["fma_ms"],
@@ -1693,6 +2145,7 @@ def main() -> int:
         entry("gin_aggregate", gin_src,
               "llamole_tpu/ops/pallas/gin_aggregate.py:85", b, launches["B"],
               launches_molqa=molqa[1], launches_training=b_training,
+              launches_interchange=inter["B"],
               **{k: v for k, v in b.items() if k.startswith("train_")},
               shape=b["shape"], share=b["share"],
               pretrain_launches=stack_launches["B"],

@@ -13,6 +13,7 @@ TPU; accepted-but-unused keys keep old configs loadable.
 """
 
 import dataclasses
+import json
 import sys
 from dataclasses import dataclass, fields
 from typing import Any, Dict, List, Optional, Tuple
@@ -245,13 +246,16 @@ def _read_args(args: Any) -> Dict[str, Any]:
         path = sys.argv[1]
     else:
         raise ValueError("Pass a dict of args or a path to a YAML/JSON config file.")
-    import yaml   # imported here: the package loads without PyYAML
+    from ..utils.flat_yaml import load_flat_yaml
 
     with open(path) as f:
+        text = f.read()
+    if path.endswith(".json"):
+        raw = json.loads(text)
+    else:
         try:
-            raw = yaml.safe_load(f)
-        except yaml.YAMLError as e:
-            # surface parser internals as the documented domain error
+            raw = load_flat_yaml(text) or None
+        except ValueError as e:
             raise ValueError(f"config file {path!r} is not valid YAML: "
                              f"{e}") from e
     if not isinstance(raw, dict):

@@ -53,6 +53,8 @@ from ..chem import canonical_smiles, recanonicalize
 from ..chem.featurize import smiles_to_graph
 from ..ops.nn import init_dense_
 from ..utils.constants import IGNORE_INDEX
+from ..utils.serialization import load_pytree, save_pytree
+from ..weights import trainable_tree, trainable_values
 from .gllm import LLM, lora_scale
 from .gllm.model import lm_loss
 from .graphclip import GraphCLIP
@@ -297,27 +299,30 @@ class GraphLM(nn.Module):
     _CONNECTORS = ("graph_to_lm", "lm_to_graph_decoder",
                    "lm_to_graph_predictor")
 
-    def _adapter_state(self, prefix: str) -> Dict[str, torch.Tensor]:
-        return {name[len(prefix):]: p.detach().cpu()
-                for name, p in self.named_parameters()
-                if name.startswith(prefix) and self._in_trainable_bundle(name)}
-
-    def save_pretrained(self, save_directory: str) -> None:
-        """The JAX package's directory layout in torch's format: adapter.pt
-        (LoRA) or llm.pt (full), connector/<name>.pt and
-        graphllm_config.json. The *.pt files are torch.save'd state dicts,
-        never read as the JAX package's msgpack."""
+    def save_pretrained(self, save_directory: str,
+                        save_graph_modules: bool = False) -> None:
+        """The JAX package's files: adapter.msgpack (LoRA) or llm.msgpack
+        (full finetuning), connector/<name>.msgpack and
+        graphllm_config.json; with save_graph_modules, the three graph
+        modules' directories (graph_decoder/, graph_predictor/,
+        graph_encoder/) as well."""
         os.makedirs(save_directory, exist_ok=True)
-        if self.finetuning_type in ("lora", "full"):
-            name = "adapter.pt" if self.finetuning_type == "lora" else "llm.pt"
-            torch.save(self._adapter_state("llm."),
-                       os.path.join(save_directory, name))
+        bundle = trainable_tree(self)
+        if "lora" in bundle:
+            save_pytree(bundle["lora"],
+                        os.path.join(save_directory, "adapter.msgpack"))
+        if "llm" in bundle:
+            save_pytree(bundle["llm"],
+                        os.path.join(save_directory, "llm.msgpack"))
         conn_dir = os.path.join(save_directory, "connector")
         os.makedirs(conn_dir, exist_ok=True)
-        for name in self._CONNECTORS:
-            torch.save({k: v.detach().cpu() for k, v in
-                        self.connectors[name].state_dict().items()},
-                       os.path.join(conn_dir, f"{name}.pt"))
+        for name, tree in bundle["connectors"].items():
+            save_pytree(tree, os.path.join(conn_dir, f"{name}.msgpack"))
+        if save_graph_modules:
+            for name in ("graph_decoder", "graph_predictor",
+                         "graph_encoder"):
+                getattr(self, name).save_pretrained(
+                    os.path.join(save_directory, name))
         config = {
             "token_id_dict": self.token_id_dict,
             "num_body_tokens": self.num_body_tokens,
@@ -332,22 +337,30 @@ class GraphLM(nn.Module):
 
     @torch.no_grad()
     def load_trainable(self, save_directory: str) -> None:
-        """Load what save_pretrained wrote into this model, in place."""
-        conn_dir = os.path.join(save_directory, "connector")
-        for name in self._CONNECTORS:
-            self.connectors[name].load_state_dict(torch.load(
-                os.path.join(conn_dir, f"{name}.pt"),
-                map_location=self.device, weights_only=True))
-        for fname in ("adapter.pt", "llm.pt"):
-            path = os.path.join(save_directory, fname)
-            if os.path.exists(path):
-                state = torch.load(path, map_location=self.device,
-                                   weights_only=True)
-                missing = set(state) - set(self.llm.state_dict())
-                if missing:
-                    raise ValueError(f"{path}: unknown keys "
-                                     f"{sorted(missing)[:3]}")
-                self.llm.load_state_dict(state, strict=False)
+        """Load what save_pretrained (either package's) wrote into this
+        model's trainable bundle, in place: the connectors, plus
+        adapter.msgpack for LoRA or llm.msgpack for full finetuning. A
+        missing file or leaf, or an unknown one, raises. With
+        finetuning_type 'freeze' only the connectors are read (the JAX
+        package would also apply an adapter.msgpack found there, which a
+        merged export carries beside its merged weights)."""
+        bundle = {"connectors": {
+            name: load_pytree(os.path.join(save_directory, "connector",
+                                           f"{name}.msgpack"))
+            for name in self._CONNECTORS}}
+        part = {"lora": "adapter.msgpack",
+                "full": "llm.msgpack"}.get(self.finetuning_type)
+        if part is not None:
+            key = "lora" if self.finetuning_type == "lora" else "llm"
+            bundle[key] = load_pytree(os.path.join(save_directory, part))
+        params = self.trainable_parameters()
+        values = trainable_values(bundle, params)
+        for name, p in params.items():
+            if p.shape != values[name].shape:
+                raise ValueError(f"{save_directory}: {name} has shape "
+                                 f"{tuple(values[name].shape)}, the model "
+                                 f"{tuple(p.shape)}")
+            p.copy_(values[name])
 
     # ------------------------------------------------------------------
     # Phase 1

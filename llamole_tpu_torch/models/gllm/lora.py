@@ -5,7 +5,8 @@ Every targeted projection computes y = x W^T + ((x A^T) B^T) * scale
 (+ bias), the adapter math in the adapter's dtype (f32) and the delta
 cast back to the activation dtype, as the JAX package does. A is
 [r, in] and B is [out, r] (nn.Linear layout); the weight bridge
-transposes the JAX [in, r] / [r, out] leaves.
+transposes the JAX [in, r] / [r, out] leaves. `merge_lora` folds the
+adapters into the base weights for export (JAX lora.merge_lora).
 """
 
 from typing import Optional
@@ -63,3 +64,24 @@ class LoRALinear(nn.Module):
         if self.bias is not None:
             y = y + self.bias
         return y
+
+
+@torch.no_grad()
+def merge_lora(model: nn.Module) -> int:
+    """Fold every adapter of `model` into its base weight, in place, and
+    drop the adapters (JAX merge_lora: the delta a @ b * scale in f32,
+    added to the base in f32, cast back to the base dtype). The base
+    weights are written where they are, so an 8B LLM is not copied.
+    Returns the number of projections merged. The port holds no DoRA
+    magnitude: a DoRA adapter is refused when it is loaded
+    (weights.state_dict_of)."""
+    merged = 0
+    for m in model.modules():
+        if not isinstance(m, LoRALinear) or m.lora_a is None:
+            continue
+        delta = (m.lora_b.float() @ m.lora_a.float()) * m.lora_scale
+        m.weight.copy_((m.weight.float() + delta).to(m.weight.dtype))
+        m.lora_a = None
+        m.lora_b = None
+        merged += 1
+    return merged

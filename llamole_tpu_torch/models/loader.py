@@ -1,23 +1,24 @@
 """Model assembly (counterpart of llamole_tpu/models/loader.py).
 
 `build_graph_lm_from_configs` builds the GraphLM from config objects
-alone (no YAML, no files): random weights drawn ON the target device from
-one seeded torch.Generator, except for graph modules passed in already
-built. The random-init retro predictor carries the JAX loader's built-in
-template table and purchasable inventory. `build_graph_lm` mirrors the
-JAX loader's argument-driven path: tokenizer, resolve_llm_config (a
-config.json through LLMConfig.from_hf_config), vocab = max(config,
-tokenizer); the graph decoder, predictor (with its CostMLP) and encoder
+alone: random weights drawn ON the target device from one seeded
+torch.Generator, except for graph modules passed in already built and an
+LLM whose HF checkpoint directory is given (loaded straight into its
+parameters, never drawn first). The random-init retro predictor carries
+the JAX loader's built-in template table and purchasable inventory.
+`build_graph_lm` mirrors the JAX loader's argument-driven path:
+tokenizer, resolve_llm_config (a config.json through
+LLMConfig.from_hf_config), vocab = max(config, tokenizer); the LLM loads
+from the directory's safetensors (gllm/convert.py; random init when it
+holds none); the graph decoder, predictor (with its CostMLP) and encoder
 load from their directories in the JAX package's layout, or fall back to
 the documented random inits (GraphDiT 64 x 2, GraphCLIP 2 x 64, predictor
-2 x 64 with 16 labels); the LLM is random-initialised when its directory
-holds no safetensors. Safetensors and the JAX package's trained adapters
-(adapter.msgpack / llm.msgpack) are not read yet (ROADMAP.md Queue 1
-item 2) and raise; the port's own adapters (GraphLM.save_pretrained's
-*.pt) load.
+2 x 64 with 16 labels); a trained adapter directory (either package's
+save_pretrained files, or its newest committed checkpoint-N) loads into
+the trainable bundle. Quantized LLMs, DoRA / PiSSA and the unported
+families raise, each naming its ROADMAP.md item.
 """
 
-import glob
 import json
 import os
 from typing import Optional, Sequence
@@ -27,9 +28,11 @@ import torch
 from ..data.tokenizer import ByteTokenizer, load_tokenizer
 from ..utils.constants import SPECIAL_TOKENS
 from ..utils.logging import get_logger
+from ..utils.safetensors import checkpoint_files
 
 from .composite import GraphLM
 from .gllm import LLM, LLMConfig
+from .gllm.convert import load_hf_weights
 from .gllm.model import check_supported
 from .graphclip import GraphCLIP, GraphCLIPConfig
 from .graphdit import GraphDiT, GraphDiTConfig
@@ -55,9 +58,6 @@ _FALLBACK_TEMPLATES = {
     5: "[C:1]-[C:2]-[OH;D1:3]>>[C:1]=[C:2].[OH2:3]",
 }
 
-_NOT_PORTED = ("loading {} from {} is not ported to llamole_tpu_torch yet "
-               "(ROADMAP.md Queue 1 item 2: the JAX package's trainable "
-               "checkpoints and adapters, safetensors)")
 _NOT_PORTED_FAMILY = ("the {} LLM family ({!r}) is not ported to "
                       "llamole_tpu_torch yet (ROADMAP.md: other model "
                       "families)")
@@ -125,6 +125,7 @@ def build_graph_lm_from_configs(
     graph_encoder: Optional[GraphCLIP] = None,
     graph_predictor: Optional[GraphPredictor] = None,
     cost_mlp: Optional[CostMLP] = None,
+    llm_weights: Optional[str] = None,
 ) -> GraphLM:
     """Random-init GraphLM on `device` (weights drawn there, seeded).
     GraphCLIP and the predictor run in f32; their configs default to the
@@ -134,12 +135,18 @@ def build_graph_lm_from_configs(
     graph_encoder / graph_predictor: modules already built (trained
     weights, on `device`), used as they are in place of dit_cfg /
     data_info / clip_cfg / predictor_cfg and their random draws;
-    cost_mlp: the planner's optional value model."""
+    cost_mlp: the planner's optional value model; llm_weights: an HF
+    checkpoint directory the LLM's base weights load from (in place of
+    their random draw)."""
     device = torch.device(device)
     llm_cfg.vocab_size = max(llm_cfg.vocab_size, tokenizer.vocab_size)
     gen = torch.Generator(device=device).manual_seed(seed)
     llm = LLM(llm_cfg, dtype=llm_dtype, device=device)
-    llm.reset_parameters(gen)
+    if llm_weights is None:
+        llm.reset_parameters(gen)
+    else:
+        load_hf_weights(llm_weights, llm)
+        logger.info("Loaded LLM weights from %s", llm_weights)
     if graph_decoder is None:
         graph_decoder = GraphDiT(dit_cfg, data_info, dtype=graph_dtype,
                                  device=device)
@@ -172,15 +179,17 @@ def _has_weights(path: Optional[str], weight_file: str) -> bool:
     return bool(path) and os.path.exists(os.path.join(path, weight_file))
 
 
-def _check_llm_weights(path: str) -> None:
-    """No safetensors: the LLM is random-initialised (as the JAX loader
-    does); safetensors are not read yet and raise."""
-    if path and os.path.isdir(path) and glob.glob(
-            os.path.join(path, "*.safetensors")):
-        raise NotImplementedError(_NOT_PORTED.format("LLM safetensors",
-                                                     path))
-    if path and os.path.isdir(path):
+def _llm_weights_dir(path: str) -> Optional[str]:
+    """`path` when it is a directory holding safetensors, else None (the
+    LLM is random-initialised, as the JAX loader does)."""
+    if not path or not os.path.isdir(path):
+        return None
+    try:
+        checkpoint_files(path)
+    except FileNotFoundError:
         logger.warning("No safetensors under %s; random init", path)
+        return None
+    return path
 
 
 def resolve_adapter_dir(adapter_dir: str) -> str:
@@ -197,16 +206,6 @@ def resolve_adapter_dir(adapter_dir: str) -> str:
             "save (connector/) nor a committed checkpoint-N")
     logger.info("adapter dir has no final save; using %s", ckpt)
     return ckpt
-
-
-def _check_port_adapter(adapter_dir: str) -> None:
-    """The port reads its own *.pt adapters; a directory holding only
-    the JAX package's msgpack files raises (never a silent random
-    init)."""
-    conn = os.path.join(adapter_dir, "connector")
-    if not glob.glob(os.path.join(conn, "*.pt")):
-        raise NotImplementedError(_NOT_PORTED.format(
-            "the JAX package's trained adapter", adapter_dir))
 
 
 def load_graph_modules(model_args, device):
@@ -251,11 +250,11 @@ def build_graph_lm(model_args, data_args, finetuning_args, *, device,
     device = torch.device(device)
     if getattr(model_args, "quantization_bit", None) is not None:
         raise NotImplementedError("quantized LLM weights are not ported yet "
-                                  "(ROADMAP.md)")
+                                  "(ROADMAP.md Queue 1 item 4)")
     if getattr(finetuning_args, "use_dora", False) or getattr(
             finetuning_args, "pissa_init", False):
         raise NotImplementedError("DoRA / PiSSA adapters are not ported yet "
-                                  "(ROADMAP.md)")
+                                  "(ROADMAP.md Queue 1 item 6)")
     tokenizer = load_tokenizer(model_args, generate_mode=generate_mode)
     llm_cfg = resolve_llm_config(model_args)
     llm_cfg.shift_attn = bool(getattr(model_args, "shift_attn", False))
@@ -264,14 +263,13 @@ def build_graph_lm(model_args, data_args, finetuning_args, *, device,
     if getattr(model_args, "num_experts", 0):
         llm_cfg.num_experts = int(model_args.num_experts)
 
-    _check_llm_weights(model_args.model_name_or_path or "")
+    weights = _llm_weights_dir(model_args.model_name_or_path or "")
     adapter_dir = None
     if load_adapter and model_args.adapter_name_or_path:
         adapter_dir = model_args.adapter_name_or_path
         if isinstance(adapter_dir, (list, tuple)):
             adapter_dir = adapter_dir[0]
         adapter_dir = resolve_adapter_dir(adapter_dir)
-        _check_port_adapter(adapter_dir)
     decoder, encoder, predictor, cost_mlp = load_graph_modules(model_args,
                                                                device)
     info = build_data_info_from_smiles(_FALLBACK_SMILES, max_n_nodes=16)
@@ -293,7 +291,7 @@ def build_graph_lm(model_args, data_args, finetuning_args, *, device,
                            for k in ("lm", "design", "retro")),
         special_tokens=model_args.special_token_list() or SPECIAL_TOKENS,
         graph_decoder=decoder, graph_encoder=encoder,
-        graph_predictor=predictor, cost_mlp=cost_mlp)
+        graph_predictor=predictor, cost_mlp=cost_mlp, llm_weights=weights)
     if adapter_dir is not None:
         model.load_trainable(adapter_dir)
         logger.info("Loaded adapter + connectors from %s", adapter_dir)

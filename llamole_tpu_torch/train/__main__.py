@@ -1,7 +1,7 @@
 """python -m llamole_tpu_torch.train <config.yaml> [--device cpu]
 
 Runs run_mmsft with the config's arguments (parsed by
-config.get_train_args, which needs PyYAML) on the card, or on
+config.get_train_args) on the card, or on
 the CPU when --device cpu is given.
 """
 

@@ -147,18 +147,6 @@ class AccumulatingAdamW:
                 update = update + self.weight_decay * p
             p.add_(update.to(p.dtype), alpha=-lr)
 
-    def state_dict(self) -> Dict:
-        return {"count": self.count, "mini_step": self.mini_step,
-                "acc": self.acc, "mu": self.mu, "nu": self.nu}
-
-    @torch.no_grad()
-    def load_state_dict(self, state: Dict) -> None:
-        self.count = int(state["count"])
-        self.mini_step = int(state["mini_step"])
-        for key in ("acc", "mu", "nu"):
-            for name, t in getattr(self, key).items():
-                t.copy_(state[key][name])
-
 
 def create_optimizer(args, num_training_steps: int,
                      params: Dict[str, torch.nn.Parameter],

@@ -9,7 +9,7 @@ finetuning of that LLM plus the connectors over the trained graph
 modules, through run_mmsft), then the two-phase MolQA eval (run_molqa,
 per-molecule planning wall, oracle property metrics) and
 OPERATING_POINT.json with every stage's metrics. Every module is saved
-in the JAX package's layout (the mmsft bundle in the port's *.pt).
+in the JAX package's layout, the mmsft bundle included.
 
     python -m llamole_tpu_torch.train.stack                 # full run, card
     python -m llamole_tpu_torch.train.stack --tiny --device cpu   # smoke

@@ -11,12 +11,15 @@ forward / backward / optimizer wall seconds and its token count.
 
 Randomness comes from one torch.Generator on the model's device, which
 the loss advances; a checkpoint stores its state, so a resumed run draws
-what the uninterrupted one would have. Not ported (they raise): the
-`mesh` argument (data / tensor / pipeline parallel training) and orbax
-checkpoints (LLAMOLE_ORBAX).
+what the uninterrupted one would have. Checkpoints are the JAX package's
+checkpoint-N layout (msgpack), so a run resumes across the packages.
+Not ported (they raise): the `mesh` argument (data / tensor / pipeline
+parallel training) and orbax checkpoints (LLAMOLE_ORBAX, backend
+"orbax").
 """
 
 import glob
+import hashlib
 import json
 import math
 import os
@@ -32,8 +35,11 @@ import torch
 
 from ..utils.constants import IGNORE_INDEX
 from ..utils.logging import JsonlLogger, get_logger
+from ..utils.serialization import (load_pytree, load_state, save_pytree,
+                                   save_state)
+from ..weights import bundle_tree, trainable_values
 
-from .optimizers import create_optimizer, global_norm
+from .optimizers import AccumulatingAdamW, create_optimizer, global_norm
 
 logger = get_logger(__name__)
 
@@ -198,41 +204,115 @@ class Trainer:
 
     # -- checkpointing ------------------------------------------------------
     def save_checkpoint(self, state: TrainState, path: str) -> None:
-        """trainable.pt (the bundle), opt_state.pt and trainer_state.json
-        (step and generator state) under path."""
+        """The JAX package's msgpack checkpoint under path:
+        trainable.msgpack (the bundle tree), opt_state.msgpack (the
+        optimizer's state under the keys of the optax state JAX's
+        create_optimizer builds) and trainer_state.json (step, backend,
+        a JAX key derived from the generator, and the generator's own
+        state under "torch_generator")."""
         os.makedirs(path, exist_ok=True)
-        torch.save({n: p.detach().cpu() for n, p in self.params.items()},
-                   os.path.join(path, "trainable.pt"))
-        torch.save(self.optimizer.state_dict(),
-                   os.path.join(path, "opt_state.pt"))
-        meta = {"step": state.step,
-                "generator": state.generator.get_state().tolist(),
-                "backend": "torch"}
+        save_pytree(bundle_tree(self.params),
+                    os.path.join(path, "trainable.msgpack"))
+        save_state(optax_state(self.optimizer),
+                   os.path.join(path, "opt_state.msgpack"))
+        gen_state = state.generator.get_state()
+        meta = {"step": state.step, "rng": jax_key_data(gen_state),
+                "backend": "msgpack",
+                "torch_generator": gen_state.tolist()}
         with open(os.path.join(path, "trainer_state.json"), "w") as f:
             json.dump(meta, f)
 
     @torch.no_grad()
     def load_checkpoint(self, state: TrainState, path: str) -> TrainState:
+        """Resume from a checkpoint-N either package wrote. A JAX one has
+        no generator state: the generator is seeded from its rng key
+        (random draws differ between the packages anyway)."""
         with open(os.path.join(path, "trainer_state.json")) as f:
             meta = json.load(f)
-        if meta.get("backend") != "torch":
+        backend = meta.get("backend", "msgpack")
+        if backend != "msgpack":
             raise NotImplementedError(
-                f"{path} was written by the JAX package (msgpack / orbax); "
-                "reading it is not ported (ROADMAP.md)")
-        saved = torch.load(os.path.join(path, "trainable.pt"),
-                           map_location=self.device, weights_only=True)
-        if set(saved) != set(self.params):
-            raise ValueError(f"{path}: the checkpoint's trainable bundle does "
-                             "not match the model's")
+                f"{path}: {backend} checkpoints are not read by "
+                "llamole_tpu_torch (ROADMAP.md Queue 1 item 6: orbax)")
+        saved = trainable_values(
+            load_pytree(os.path.join(path, "trainable.msgpack")),
+            self.params)
         for name, p in self.params.items():
             p.copy_(saved[name])
-        self.optimizer.load_state_dict(torch.load(
-            os.path.join(path, "opt_state.pt"), map_location=self.device,
-            weights_only=True))
-        state.generator.set_state(torch.tensor(meta["generator"],
-                                               dtype=torch.uint8))
+        load_optax_state(self.optimizer, load_state(
+            os.path.join(path, "opt_state.msgpack")))
+        if "torch_generator" in meta:
+            state.generator.set_state(torch.tensor(meta["torch_generator"],
+                                                   dtype=torch.uint8))
+        else:
+            hi, lo = (int(x) for x in meta["rng"])
+            state.generator.manual_seed((hi << 32) | lo)
         state.step = int(meta["step"])
         return state
+
+
+def jax_key_data(generator_state: torch.Tensor) -> List[int]:
+    """A threefry key's data (two uint32) derived from a generator state
+    without drawing from it: what JAX's load_checkpoint wraps into its
+    rng."""
+    digest = hashlib.sha256(generator_state.numpy().tobytes()).digest()
+    return [int(x) for x in np.frombuffer(digest[:8], dtype=">u4")]
+
+
+def _i32(v: int) -> torch.Tensor:
+    return torch.tensor(v, dtype=torch.int32)
+
+
+def optax_state(opt: AccumulatingAdamW) -> Dict[str, Any]:
+    """The optimizer's state in the state-dict form of the optax state
+    create_optimizer builds: chain(clip_by_global_norm, adamw) is
+    {"0": {}, "1": {"0": ScaleByAdamState(count, mu, nu), "1": {},
+    "2": ScaleByScheduleState(count)}}, wrapped at accumulation k > 1 in
+    MultiStepsState(mini_step, gradient_step, inner_opt_state,
+    acc_grads, skip_state). Moments are laid out as the bundle tree."""
+    inner = {"0": {}, "1": {
+        "0": {"count": _i32(opt.count), "mu": bundle_tree(opt.mu),
+              "nu": bundle_tree(opt.nu)},
+        "1": {}, "2": {"count": _i32(opt.count)}}}
+    if opt.k == 1:
+        return inner
+    return {"mini_step": _i32(opt.mini_step),
+            "gradient_step": _i32(opt.count), "inner_opt_state": inner,
+            "acc_grads": bundle_tree(opt.acc), "skip_state": {}}
+
+
+@torch.no_grad()
+def load_optax_state(opt: AccumulatingAdamW, state: Dict[str, Any]) -> None:
+    """optax_state's inverse: a state dict of JAX's opt_state.msgpack (or
+    the port's) into the optimizer; a state of another accumulation, or
+    with unknown or missing leaves, raises."""
+    multi = "inner_opt_state" in state
+    if multi != (opt.k > 1):
+        raise ValueError(f"opt_state is {'' if multi else 'not '}a "
+                         f"MultiSteps state; the optimizer accumulates "
+                         f"{opt.k} steps")
+    inner = state["inner_opt_state"] if multi else state
+    if set(inner) != {"0", "1"} or set(inner["1"]) != {"0", "1", "2"}:
+        raise ValueError(f"opt_state is not chain(clip_by_global_norm, "
+                         f"adamw): keys {sorted(inner)}")
+    adam = inner["1"]["0"]
+    counts = {int(adam["count"]), int(inner["1"]["2"]["count"])}
+    if multi:
+        counts.add(int(state["gradient_step"]))
+    if len(counts) != 1:
+        raise ValueError(f"opt_state counts disagree: {sorted(counts)}")
+    loaded = {"mu": adam["mu"], "nu": adam["nu"]}
+    if multi:
+        loaded["acc"] = state["acc_grads"]
+    for key, tree in loaded.items():
+        values = trainable_values(tree, opt.params)
+        for name, t in getattr(opt, key).items():
+            t.copy_(values[name])
+    opt.count = counts.pop()
+    opt.mini_step = int(state["mini_step"]) if multi else 0
+    if not multi:
+        for acc in opt.acc.values():
+            acc.zero_()
 
 
 def _prefetch(iterator, depth: int = 2):
@@ -284,10 +364,12 @@ def _checkpoint_complete(d: str) -> bool:
         return False
     try:
         with open(meta_file) as f:
-            json.load(f)
+            backend = json.load(f).get("backend", "msgpack")
     except (OSError, json.JSONDecodeError):
         return False
-    return os.path.exists(os.path.join(d, "trainable.pt"))
+    if backend == "orbax":   # discovered as JAX does; loading it raises
+        return os.path.isdir(os.path.join(d, "orbax_state"))
+    return os.path.exists(os.path.join(d, "trainable.msgpack"))
 
 
 def find_last_checkpoint(output_dir: str) -> Optional[str]:

@@ -15,11 +15,16 @@ The layout (flax.serialization.msgpack_serialize):
     "chunks": {"0": flat piece, ...}}
 
 `save_pytree` streams leaf by leaf to the file (a 2 GB tree never
-becomes one bytes object). `load_pytree` returns the tree with every
-array as a CPU torch.Tensor; bfloat16 arrays are read as 16-bit integers
-and viewed as torch.bfloat16 (no ml_dtypes needed).
+becomes one bytes object). `load_pytree` reads the file through mmap and
+returns the tree with every array as a CPU torch.Tensor; bfloat16 arrays
+are read as 16-bit integers and viewed as torch.bfloat16 (no ml_dtypes
+needed). `save_state` is flax's to_bytes: the tree goes through flax's
+state-dict form first (lists, tuples and namedtuples become maps keyed
+"0", "1", ... or by field name; an empty namedtuple such as optax's
+EmptyState becomes {}); `load_state` returns that state dict.
 """
 
+import mmap
 import os
 import struct
 from typing import Any, BinaryIO, Tuple
@@ -110,7 +115,9 @@ def _scalar(v) -> bytes:
 def _host_array(leaf) -> Tuple[Tuple[int, ...], str, np.ndarray]:
     """(shape, dtype name, flat C-order numpy view of the raw bytes)."""
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach().to("cpu").contiguous()
+        # made contiguous where it lives: a transposed view on the card is
+        # laid out there, not by a single host thread
+        t = leaf.detach().contiguous().to("cpu")
         if t.dtype == torch.bfloat16:
             return tuple(t.shape), "bfloat16", t.view(torch.int16).numpy()
         a = t.numpy()
@@ -157,21 +164,23 @@ def _write_chunked(f: BinaryIO, leaf) -> None:
         _write_array(f, piece)
 
 
-def _write(f: BinaryIO, node, chunk: bool = True) -> None:
+def _write(f: BinaryIO, node, chunk: bool = True,
+           sort_keys: bool = True) -> None:
     """flax chunks big arrays reached through dicts alone: never inside a
-    list, nor below one."""
+    list, nor below one. sort_keys: string keys sorted (save_pytree's
+    jax.tree.map sorts them), else in the dicts' own order (to_bytes)."""
     if isinstance(node, dict):
         keys = list(node)
-        if all(isinstance(k, str) for k in keys):
+        if sort_keys and all(isinstance(k, str) for k in keys):
             keys.sort()
         f.write(_map_header(len(keys)))
         for k in keys:
             f.write(_scalar(k))
-            _write(f, node[k], chunk)
+            _write(f, node[k], chunk, sort_keys)
     elif isinstance(node, (list, tuple)):
         f.write(_array_header(len(node)))
         for v in node:
-            _write(f, v, False)
+            _write(f, v, False, sort_keys)
     elif _is_array(node):
         if chunk and _nbytes(node) > MAX_CHUNK_SIZE:
             _write_chunked(f, node)
@@ -183,12 +192,12 @@ def _write(f: BinaryIO, node, chunk: bool = True) -> None:
         f.write(_scalar(node))
 
 
-def save_pytree(tree: Any, path: str) -> None:
+def save_pytree(tree: Any, path: str, sort_keys: bool = True) -> None:
     """Write `tree` (dicts / lists of torch tensors, numpy arrays and
     Python scalars) to `path` in flax's msgpack layout, leaf by leaf."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "wb") as f:
-        _write(f, tree)
+        _write(f, tree, sort_keys=sort_keys)
 
 
 # -- reader ------------------------------------------------------------------
@@ -294,11 +303,48 @@ def _unchunk(node):
 
 
 def load_pytree(path: str) -> Any:
-    """The tree a flax msgpack file holds, arrays as CPU torch tensors."""
+    """The tree a flax msgpack file holds, arrays as CPU torch tensors
+    (each copied once out of the mapped file)."""
+    size = os.path.getsize(path)
+    if not size:
+        raise ValueError(f"{path}: empty msgpack file")
     with open(path, "rb") as f:
-        data = f.read()
-    reader = _Reader(memoryview(data))
-    tree = reader.obj()
-    if reader.pos != len(data):
-        raise ValueError(f"{path}: {len(data) - reader.pos} trailing bytes")
-    return _unchunk(tree)
+        mm = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
+    view = memoryview(mm)
+    try:
+        reader = _Reader(view)
+        tree = _unchunk(reader.obj())
+        if reader.pos != size:
+            raise ValueError(f"{path}: {size - reader.pos} trailing bytes")
+        return tree
+    finally:
+        reader = None
+        view.release()
+        mm.close()
+
+
+# -- flax's state-dict form ----------------------------------------------------
+
+def to_state_dict(tree: Any) -> Any:
+    """flax.serialization.to_state_dict for dicts, lists, tuples and
+    namedtuples: containers become string-keyed maps, leaves stay."""
+    if isinstance(tree, dict):
+        return {str(k): to_state_dict(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return {f: to_state_dict(getattr(tree, f)) for f in tree._fields}
+    if isinstance(tree, (list, tuple)):
+        return {str(i): to_state_dict(v) for i, v in enumerate(tree)}
+    return tree
+
+
+def save_state(tree: Any, path: str) -> None:
+    """flax to_bytes: `tree` (tuples and namedtuples allowed, e.g. an
+    optimizer state) written in its state-dict form, keys in the order
+    the tree holds them."""
+    save_pytree(to_state_dict(tree), path, sort_keys=False)
+
+
+def load_state(path: str) -> Any:
+    """What save_state wrote, in its state-dict form (flax's
+    msgpack_restore); the caller checks the keys."""
+    return load_pytree(path)

@@ -13,28 +13,36 @@ module names follow the JAX tree keys, so the mapping is structural:
 Stacked LLM layers ("layers_stacked", leading [L] axis) are unstacked.
 Quantized, MoE and DoRA leaves are not ported yet and raise.
 
-`jax_tree_of` is the inverse for the graph modules: a port module ->
-the JAX-layout tree (dense weights back to w [in, out], norms to
-scale / bias, ModuleLists to lists), so `save_module` / `load_module`
-read and write the JAX package's model.msgpack files
-(utils/serialization.py). Safetensors are a later step of the port.
+`jax_tree_of` is the inverse: a port module -> the JAX-layout tree
+(dense weights back to w [in, out], norms to scale / bias, ModuleLists to
+lists, the LLM to {"embed", "layers", "final_norm", "lm_head"?}), so
+`save_module` / `load_module` read and write the JAX package's
+model.msgpack files (utils/serialization.py). `trainable_tree` gives a
+GraphLM's trainable bundle (or any {name: tensor} keyed like it, e.g. the
+optimizer's moments) as the tree JAX's GraphLM.init_trainable builds:
+{"connectors", "lora"} or {"connectors", "llm"}.
 """
 
-from typing import Any, Dict, List
+from typing import Any, Dict, Iterable, List, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
+from .models.gllm.lora import LoRALinear
+from .models.gllm.model import LLM, RMSNorm
 from .ops.nn import LayerNorm
 from .utils.serialization import load_pytree, save_pytree
 
 StateDict = Dict[str, torch.Tensor]
+# JAX leaves the port does not hold: (keys, what, ROADMAP.md Queue 1 item)
+_UNPORTED_LEAVES = (({"w_q", "w_qa", "w_q4"}, "quantized", 4),
+                    ({"m"}, "DoRA", 6), ({"router", "experts"}, "MoE", 7))
 
 
 def _tensor(a) -> torch.Tensor:
     if isinstance(a, torch.Tensor):
-        return a.detach().cpu().clone()
+        return a.detach().cpu()
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":   # ml_dtypes bf16: exact through f32
         return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
@@ -43,11 +51,12 @@ def _tensor(a) -> torch.Tensor:
 
 def _walk(tree: Any, prefix: str, out: StateDict) -> None:
     if isinstance(tree, dict):
-        unported = {"w_q", "w_qa", "w_q4", "m", "router", "experts"} & set(tree)
-        if unported:
-            raise NotImplementedError(
-                f"{prefix or 'tree'}: {sorted(unported)} leaves (quantized "
-                "/ DoRA / MoE) are not ported yet (ROADMAP.md)")
+        for keys, what, item in _UNPORTED_LEAVES:
+            if keys & set(tree):
+                raise NotImplementedError(
+                    f"{prefix or 'tree'}: {sorted(keys & set(tree))} leaves "
+                    f"({what}) are not ported yet (ROADMAP.md Queue 1 item "
+                    f"{item})")
         if "w" in tree:
             out[prefix + "weight"] = _tensor(tree["w"]).T.contiguous()
             if "b" in tree:
@@ -146,14 +155,112 @@ def cost_mlp_state_dict(params: Dict, prefix: str = "") -> StateDict:
     return state_dict_of(params, prefix)
 
 
+def _llm_path(name: str) -> Tuple[List[str], bool]:
+    """An LLM (or connector) parameter name -> (its key path in the JAX
+    tree, whether the JAX leaf is the transpose): projections and the
+    head -> w [in, out], biases -> b, RMSNorm weights -> scale, the
+    embedding -> weight, LoRA factors -> a [in, r] / b [r, out]."""
+    *owner, leaf = name.split(".")
+    if leaf in ("lora_a", "lora_b"):
+        return owner + [leaf[-1]], True
+    if leaf == "bias":
+        return owner + ["b"], False
+    if owner[-1] == "embed":
+        return owner + ["weight"], False
+    if owner[-1].endswith("norm"):
+        return owner + ["scale"], False
+    return owner + ["w"], True
+
+
+def _nest(items: Iterable[Tuple[List[str], Any]]) -> Dict:
+    """(key path, leaf) pairs -> nested dicts, a dict whose keys are
+    0..n-1 becoming a list."""
+    root: Dict = {}
+    for path, leaf in items:
+        node = root
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
+    return _listify(root)
+
+
+def _listify(node):
+    """Dict keys sorted (as a JAX tree map leaves them); 0..n-1 keys -> a
+    list."""
+    if not isinstance(node, dict):
+        return node
+    out = {k: _listify(v) for k, v in sorted(node.items())}
+    if out and all(k.isdigit() for k in out):
+        return [out[str(i)] for i in range(len(out))]
+    return out
+
+
+def _leaf(t: torch.Tensor, transposed: bool) -> torch.Tensor:
+    t = t.detach()
+    return t.T if transposed and t.dim() == 2 else t
+
+
+def llm_tree(llm: LLM) -> Dict:
+    """The JAX params tree of the LLM's base weights (no adapter)."""
+    return _nest((_llm_path(n)[0], _leaf(p, _llm_path(n)[1]))
+                 for n, p in llm.named_parameters() if "lora_" not in n)
+
+
+def _bundle_path(name: str) -> Tuple[List[str], bool]:
+    """A GraphLM trainable-bundle name -> (path in the JAX bundle,
+    transposed)."""
+    head, rest = name.split(".", 1)
+    path, transposed = _llm_path(rest)
+    if head == "connectors":
+        return ["connectors"] + path, transposed
+    return ["lora" if "lora_" in rest else "llm"] + path, transposed
+
+
+def bundle_tree(values: Dict[str, torch.Tensor]) -> Dict:
+    """Tensors keyed by GraphLM trainable-bundle names (the parameters,
+    or the optimizer's moments) laid out as the JAX bundle tree."""
+    return _nest((_bundle_path(n)[0], _leaf(t, _bundle_path(n)[1]))
+                 for n, t in values.items())
+
+
+def trainable_tree(model) -> Dict:
+    """The JAX trainable bundle of a GraphLM: {"connectors": {name: {"w",
+    "b"}}, plus "lora" (the adapter tree) or "llm" (the full LLM tree)
+    by finetuning type."""
+    return bundle_tree(model.trainable_parameters())
+
+
+def trainable_values(tree: Dict, names: Iterable[str]) -> StateDict:
+    """The inverse of trainable_tree: a JAX bundle-shaped tree -> tensors
+    keyed by `names` (the model's trainable names). Unknown or missing
+    leaves raise."""
+    unknown = set(tree) - {"connectors", "lora", "llm"}
+    if unknown:
+        raise ValueError(f"unknown parts {sorted(unknown)} of a trainable "
+                         "bundle")
+    got = trainable_state_dict(tree)
+    names = set(names)
+    if set(got) != names:
+        raise ValueError(
+            "the trainable bundle does not match the model's: unknown "
+            f"{sorted(set(got) - names)[:3]}, missing "
+            f"{sorted(names - set(got))[:3]}")
+    return got
+
+
 def jax_tree_of(module: nn.Module) -> Any:
     """The JAX-layout tree of a port module whose names follow the JAX
-    tree keys (the inverse of state_dict_of): nn.Linear -> {"w": [in,
-    out], "b"}, LayerNorm -> {"scale", "bias"}, ModuleList -> list, other
-    modules -> dicts of their own parameters and children. Leaves are
-    detached tensors on the module's device; a module with no such
-    structure (e.g. LoRA) is not handled."""
-    if isinstance(module, nn.Linear):
+    tree keys (the inverse of state_dict_of): nn.Linear and LoRALinear
+    -> {"w": [in, out], "b"} (the base weight; trainable_tree has the
+    adapter), LayerNorm -> {"scale", "bias"}, RMSNorm -> {"scale"}, the
+    LLM -> llm_tree, ModuleList -> list, other modules -> dicts of their
+    own parameters and children. Leaves are detached tensors on the
+    module's device."""
+    if isinstance(module, LLM):
+        return llm_tree(module)
+    if isinstance(module, RMSNorm):
+        return {"scale": module.weight.detach()}
+    if isinstance(module, (nn.Linear, LoRALinear)):
         out = {"w": module.weight.detach().T}
         if module.bias is not None:
             out["b"] = module.bias.detach()

@@ -1,6 +1,7 @@
-"""llamole_tpu_torch's re-declared configs stay equal to the JAX ones, and
-the port never imports JAX, flax, msgpack nor anything of the JAX
-package."""
+"""llamole_tpu_torch's re-declared configs stay equal to the JAX ones, its
+first-party YAML reads every config file as PyYAML does, and the port
+never imports JAX, flax, msgpack, safetensors, PyYAML nor anything of the
+JAX package."""
 
 import ast
 import dataclasses
@@ -56,9 +57,10 @@ def test_port_imports_no_jax():
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
-# what the port must never import: the JAX package, JAX, and the msgpack
-# stack flax checkpoints are otherwise read with
-REFUSED = ("llamole_tpu", "jax", "flax", "msgpack")
+# what the port must never import: the JAX package, JAX, the msgpack stack
+# flax checkpoints are otherwise read with, the safetensors package and
+# PyYAML (the port reads and writes both formats itself)
+REFUSED = ("llamole_tpu", "jax", "flax", "msgpack", "safetensors", "yaml")
 
 # Installed first in the subprocess below: any import of a REFUSED package
 # (at module top or deferred inside a function) raises.
@@ -133,8 +135,29 @@ with tempfile.TemporaryDirectory() as d:
     scores = oracle_property_metrics(paths["oracle"], [
         {"llm_smiles": "CCO", "property": {"SA": 2.0, "HIV": 1.0}}])
     assert scores["property_scored_counts"] == {"HIV": 1, "SA": 1}, scores
+
+# weight interchange: an HF export of the LLM, merge_adapter over it with
+# a save_pretrained adapter, and the merged export loaded back
+from llamole_tpu_torch.models.gllm.convert import export_hf_weights
+from llamole_tpu_torch.train.export import merge_adapter
+with tempfile.TemporaryDirectory() as d:
+    model, _ = build_graph_lm(model_args, data_args, ft_args, device="cpu")
+    export_hf_weights(model.llm, d + "/base", shard_gb=1e-4)
+    model.save_pretrained(d + "/adapter")
+    args = {"model_name_or_path": d + "/base", "template": "default",
+            "finetuning_type": "lora", "lora_rank": ft_args.lora_rank,
+            "compute_dtype": model_args.compute_dtype,
+            "adapter_name_or_path": d + "/adapter"}
+    merge_adapter(dict(args, export_dir=d + "/merged"), device="cpu")
+    m_args, d_args, _, f_args, _ = get_infer_args(dict(
+        args, model_name_or_path=d + "/merged", finetuning_type="freeze",
+        adapter_name_or_path=d + "/merged"))
+    merged, _ = build_graph_lm(m_args, d_args, f_args, device="cpu",
+                               load_adapter=True)
+    assert not any("lora_" in n for n, _ in merged.llm.named_parameters())
 bad = [m for m in sys.modules if m.split(".")[0] in
-       ("llamole_tpu", "jax", "flax", "msgpack", "optax")]
+       ("llamole_tpu", "jax", "flax", "msgpack", "optax", "safetensors",
+        "yaml")]
 assert not bad, bad
 print("ok")
 """
@@ -142,10 +165,11 @@ print("ok")
 
 def test_port_runs_with_the_jax_package_refused():
     """Every module of the port imports, a design + retro request through
-    DesignServer and one training step on the smoke configs run, and the
-    graph modules of a tiny stack pretrain, save and load back, with any
-    import of llamole_tpu, jax, flax or msgpack refused: deferred imports
-    included."""
+    DesignServer and one training step on the smoke configs run, the
+    graph modules of a tiny stack pretrain, save and load back, and an HF
+    export, merge_adapter and the merged export's reload run, with any
+    import of llamole_tpu, jax, flax, msgpack, safetensors or PyYAML
+    refused: deferred imports included."""
     proc = subprocess.run(
         [sys.executable, "-c", _REFUSE_JAX_PACKAGE + _DRIVE_THE_PORT],
         cwd=ROOT, capture_output=True, text=True, timeout=600,
@@ -237,3 +261,16 @@ def test_token_id_dict_follows_new_special_tokens():
     assert list(model.token_id_dict) == want != list(SPECIAL_TOKENS)
     assert model.token_id_dict["<scaffold_end>"] == tok.token_to_id(
         "<scaffold_end>")
+
+
+@pytest.mark.parametrize("path", sorted((ROOT / "config").rglob("*.yaml")),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_flat_yaml_reads_the_configs_as_pyyaml(path):
+    """The port's argument files are read without PyYAML: every config
+    file gives what yaml.safe_load gives."""
+    import yaml
+
+    from llamole_tpu_torch.utils.flat_yaml import load_flat_yaml
+
+    text = path.read_text()
+    assert load_flat_yaml(text) == yaml.safe_load(text)

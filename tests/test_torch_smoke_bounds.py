@@ -172,3 +172,111 @@ def test_stack_phase_sizes_are_the_reference_widths():
     assert "hidden_size" not in sizes["oracle"]
     assert all(sizes[k]["batch_size"] == 64 for k in
                ("graphdit", "predictor", "cost_mlp", "graphclip", "oracle"))
+
+
+# phase 12 (weight interchange) at a small width on the CPU: a tiny shard
+# budget so the export writes several shards and an index
+_INTERCHANGE_CPU = {"shard_gb": 2e-4, "requests": 3, "max_new_tokens": 8,
+                    "retro_iterations": 1, "retro_max_time": 5.0}
+
+
+def _tiny_slice():
+    """build_slice's composition at small widths on the CPU: the LLM in
+    bf16 with a rank-8 adapter, GraphDiT in bf16, f32 GIN modules."""
+    from llamole_tpu_torch.models.gllm import LLMConfig
+    from llamole_tpu_torch.models.graphclip import GraphCLIPConfig
+    from llamole_tpu_torch.models.graphdit import (
+        GraphDiTConfig, build_data_info_from_smiles)
+    from llamole_tpu_torch.models.loader import (
+        build_graph_lm_from_configs, offline_tokenizer)
+    from llamole_tpu_torch.models.retro import GraphPredictorConfig
+
+    tok = offline_tokenizer()
+    info = build_data_info_from_smiles(chip_smoke.CORPUS,
+                                       max_n_nodes=chip_smoke.MAX_NODES)
+    dit = GraphDiTConfig(hidden_size=32, depth=2, num_heads=4,
+                         diffusion_steps=4, text_dim=768, guide_scale=2.0)
+    model = build_graph_lm_from_configs(
+        LLMConfig.tiny(), dit, info, tok, device="cpu",
+        llm_dtype=torch.bfloat16, graph_dtype=torch.bfloat16, seed=0,
+        finetuning_type="lora", lora_rank=8,
+        clip_cfg=GraphCLIPConfig(num_layer=2, hidden_size=32),
+        predictor_cfg=GraphPredictorConfig(num_layer=2, hidden_size=32,
+                                           out_dim=16, text_input_size=768))
+    return model, tok
+
+
+def test_interchange_phase_runs_on_the_cpu(tmp_path, capsys):
+    """Phase 12 end to end at a small width: run_mmsft's output (adapter
+    and checkpoint-4) reloads bit-identically, the base exports in
+    several shards, merge_adapter merges it, the merged export reloads
+    with every tensor equal to base + adapter and last-token logits
+    within a third of MERGE_LOGIT_TOL of the unmerged model, the
+    model.msgpack merge_adapter streamed has the size and sha256 of the
+    reloaded LLM's msgpack, and three requests (one with a route) are
+    answered; base/ and merged/ are gone afterwards."""
+    from llamole_tpu_torch.train.workflow import run_mmsft
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        model, tok = _tiny_slice()
+        train_dir = str(tmp_path / "mmsft")
+        with chip_smoke.capture_checkpoints() as saved:
+            run_mmsft(*chip_smoke.llama_lora_args(train_dir),
+                      prebuilt=(model, tok))
+        assert "checkpoint-4" in saved
+        exported = chip_smoke.interchange_export(
+            model, str(tmp_path), train_dir, saved, "CPU",
+            sizes=_INTERCHANGE_CPU)
+        assert exported["shards"] > 1
+        assert (tmp_path / "base" / "model.safetensors.index.json").exists()
+        for name in ("graph_decoder", "graph_encoder", "graph_predictor"):
+            assert (tmp_path / "modules" / name / "model.msgpack").exists()
+        del model
+        launches, rel = chip_smoke.run_interchange(
+            (), str(tmp_path), train_dir, "CPU", device="cpu",
+            sizes=_INTERCHANGE_CPU)
+    finally:
+        torch.set_num_threads(threads)
+    assert "equals the msgpack of the reloaded merged LLM: True" in \
+        capsys.readouterr().out
+    print(f"merged vs unmerged logits (bf16, CPU): {rel:.3e}")
+    assert launches == {"A": 0, "B": 0}
+    assert rel <= chip_smoke.MERGE_LOGIT_TOL / 3
+    assert not (tmp_path / "base").exists()
+    assert not (tmp_path / "merged").exists()
+
+
+def test_interchange_phase_sizes_are_the_8b_shape(monkeypatch):
+    """Phase 12 runs on the slice's Llama-3.1-8B shape (vocab 128256,
+    bf16, LoRA rank 8) and exports it in 5 GiB shards (the JAX rule:
+    shard_gb x 1024^3 bytes): 3 shards and an index for the 16.06 GB of
+    base weights, planned on a meta-device LLM (nothing allocated)."""
+    from llamole_tpu_torch.models import loader
+    from llamole_tpu_torch.models.gllm import LLM, LLMConfig
+    from llamole_tpu_torch.models.gllm.convert import (hf_state_dict,
+                                                       shard_plan)
+
+    built = {}
+
+    def capture(llm_cfg, *args, **kwargs):
+        built.update(kwargs, llm_cfg=llm_cfg)
+        raise StopIteration
+
+    monkeypatch.setattr(loader, "build_graph_lm_from_configs", capture)
+    with pytest.raises(StopIteration):
+        chip_smoke.build_slice()
+    assert built["llm_cfg"] == LLMConfig.llama3_8b()
+    assert (built["llm_dtype"], built["lora_rank"]) == (torch.bfloat16, 8)
+    sizes = chip_smoke.INTERCHANGE
+    assert (sizes["shard_gb"], sizes["requests"],
+            sizes["max_new_tokens"]) == (5.0, 3, 64)
+    args = chip_smoke._interchange_args("w")
+    assert (args["compute_dtype"], args["lora_rank"]) == ("bfloat16", 8)
+    cfg = LLMConfig.llama3_8b()
+    assert cfg.vocab_size == 128256
+    llm = LLM(cfg, dtype=torch.bfloat16, device="meta")
+    shards, nbytes = shard_plan(hf_state_dict(llm), sizes["shard_gb"])
+    assert len(shards) == 3 and sum(nbytes) == 16060522496
+    assert max(nbytes) <= 5 * 2 ** 30

@@ -1,19 +1,21 @@
 """The port's learned-weights stack end to end on the CPU
 (`python -m llamole_tpu_torch.train.stack --tiny --device cpu`), its LLM
 config path (LLMConfig.from_hf_config against the JAX package's), and the
-loader reading what the stack wrote: the trained graph modules, the
-mmsft bundle, and the refusals that stay (the JAX package's adapters,
-safetensors)."""
+loader reading what the stack wrote: the trained graph modules and the
+mmsft bundle, and what the JAX package writes for the same stack (its
+full-LLM adapter directory, its HF safetensors export)."""
 
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
 from types import SimpleNamespace
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -117,8 +119,8 @@ def test_tiny_stack_end_to_end(tiny_stack):
                 "predictor/label_to_template.csv.gz",
                 "predictor/cost_model.msgpack", "graphclip/model.msgpack",
                 "graphclip/text_tower.msgpack", "oracle/model.msgpack",
-                "llm/config.json", "mmsft/llm.pt",
-                "mmsft/connector/graph_to_lm.pt",
+                "llm/config.json", "mmsft/llm.msgpack",
+                "mmsft/connector/graph_to_lm.msgpack",
                 "eval/molqa_results.json"):
         assert (d / rel).exists(), rel
     ev = stages["eval"]
@@ -128,6 +130,14 @@ def test_tiny_stack_end_to_end(tiny_stack):
     assert "property_accuracy" in ev and "property_mae" in ev
     assert stages["mmsft"]["train_loss"] == stages["mmsft"]["train_loss"]
     assert stages["llm_config"]["tie_word_embeddings"] is True
+
+
+def _assert_equal(port, jax_leaf):
+    """A port tensor equals a JAX leaf bit for bit (bf16 compared in f32,
+    which holds it exactly)."""
+    np.testing.assert_array_equal(port.float().numpy(),
+                                  np.asarray(jax_leaf, np.float32))
+    assert str(port.dtype).split(".")[-1] == np.asarray(jax_leaf).dtype.name
 
 
 def _stack_args(d, **extra):
@@ -157,15 +167,15 @@ def test_the_loader_reads_the_stack(tiny_stack):
         flat_w = jax.tree_util.tree_leaves(jax_load(str(d / path)))
         assert len(flat_g) == len(flat_w), path
         for g, w in zip(flat_g, flat_w):
-            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
-    llm_state = torch.load(d / "mmsft" / "llm.pt", weights_only=True)
-    for k, v in llm_state.items():
-        assert torch.equal(model.llm.state_dict()[k], v), k
-    conn = torch.load(d / "mmsft" / "connector" / "graph_to_lm.pt",
-                      weights_only=True)
-    for k, v in conn.items():
-        assert torch.equal(model.connectors["graph_to_lm"].state_dict()[k],
-                           v)
+            _assert_equal(g, w)
+    for module, path in ((model.llm, "mmsft/llm.msgpack"),
+                         (model.connectors["graph_to_lm"],
+                          "mmsft/connector/graph_to_lm.msgpack")):
+        flat_g = jax.tree_util.tree_leaves(jax_tree_of(module))
+        flat_w = jax.tree_util.tree_leaves(jax_load(str(d / path)))
+        assert len(flat_g) == len(flat_w), path
+        for g, w in zip(flat_g, flat_w):
+            _assert_equal(g, w)
     assert model.graph_predictor.label_to_template
     assert model.graph_predictor.available
 
@@ -210,32 +220,62 @@ def test_resolve_adapter_dir_checkpoint_fallback(tmp_path):
         (ck / "connector").mkdir(parents=True)
         if committed:
             (ck / "trainer_state.json").write_text("{}")
-            (ck / "trainable.pt").write_bytes(b"x")
+            (ck / "trainable.msgpack").write_bytes(b"x")
     assert resolve_adapter_dir(str(died)).endswith("checkpoint-500")
     with pytest.raises(FileNotFoundError):
         resolve_adapter_dir(str(tmp_path / "empty"))
 
 
 def test_jax_adapters_and_safetensors_still_raise(tiny_stack, tmp_path):
-    """A directory with only the JAX package's adapter files, or LLM
-    safetensors, raises naming ROADMAP Queue 1 item 2: never a silent
-    random init."""
+    """(Named when both raised.) A directory with the JAX package's
+    full-LLM adapter files and an LLM directory with the JAX package's
+    safetensors export now load: the port's model holds exactly the
+    weights the JAX package wrote. A DoRA adapter leaf still raises,
+    naming ROADMAP Queue 1 item 6: never a silent random init."""
+    from llamole_tpu.models.gllm.convert import export_hf_weights
+    from llamole_tpu.utils.serialization import save_pytree as jax_save
+
     d, _ = tiny_stack
+    llm = jax.tree.map(
+        lambda a: (np.asarray(a, np.float32) + 0.01).astype(
+            np.asarray(a).dtype), jax_load(str(d / "mmsft" / "llm.msgpack")))
+    conn = {n: jax_load(str(d / "mmsft" / "connector" / f"{n}.msgpack"))
+            for n in ("graph_to_lm", "lm_to_graph_decoder",
+                      "lm_to_graph_predictor")}
     jax_adapter = tmp_path / "jax_adapter"
-    (jax_adapter / "connector").mkdir(parents=True)
-    (jax_adapter / "llm.msgpack").write_bytes(b"\x80")
-    (jax_adapter / "connector" / "graph_to_lm.msgpack").write_bytes(b"\x80")
+    jax_save(llm, str(jax_adapter / "llm.msgpack"))
+    for n, tree in conn.items():
+        jax_save(tree, str(jax_adapter / "connector" / f"{n}.msgpack"))
     model_args, data_args, _, ft_args, _ = _stack_args(
         d, adapter_name_or_path=str(jax_adapter))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
+    model, _ = build_graph_lm(model_args, data_args, ft_args, device="cpu",
+                              load_adapter=True)
+    flat_g = jax.tree_util.tree_leaves(jax_tree_of(model.llm))
+    flat_w = jax.tree_util.tree_leaves(llm)
+    assert len(flat_g) == len(flat_w)
+    for g, w in zip(flat_g, flat_w):
+        _assert_equal(g, w)
+
+    raw = json.loads((d / "llm" / "config.json").read_text())
+    llm_dir = tmp_path / "llm"
+    export_hf_weights(jax.tree.map(jnp.asarray, llm),
+                      JaxLLMConfig.from_hf_config(raw), str(llm_dir))
+    model_args, data_args, _, ft_args, _ = _stack_args(
+        d, model_name_or_path=str(llm_dir), adapter_name_or_path=None)
+    model, _ = build_graph_lm(model_args, data_args, ft_args, device="cpu")
+    for g, w in zip(jax.tree_util.tree_leaves(jax_tree_of(model.llm)),
+                    flat_w):
+        _assert_equal(g, w)
+
+    dora = tmp_path / "dora"
+    (dora / "connector").mkdir(parents=True)
+    for n in conn:
+        shutil.copy(jax_adapter / "connector" / f"{n}.msgpack",
+                    dora / "connector" / f"{n}.msgpack")
+    llm["layers"][0]["attn"]["q"]["m"] = np.ones(4, np.float32)
+    jax_save(llm, str(dora / "llm.msgpack"))
+    model_args, data_args, _, ft_args, _ = _stack_args(
+        d, adapter_name_or_path=str(dora))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         build_graph_lm(model_args, data_args, ft_args, device="cpu",
                        load_adapter=True)
-    llm_dir = tmp_path / "llm"
-    llm_dir.mkdir()
-    (llm_dir / "config.json").write_text(
-        (d / "llm" / "config.json").read_text())
-    (llm_dir / "model.safetensors").write_bytes(b"")
-    model_args, data_args, _, ft_args, _ = _stack_args(
-        d, model_name_or_path=str(llm_dir))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        build_graph_lm(model_args, data_args, ft_args, device="cpu")

@@ -58,7 +58,9 @@ from llamole_tpu_torch.train.trainer import Trainer, token_accuracy
 from llamole_tpu_torch.train.workflow import run_mmsft
 from llamole_tpu_torch.utils.constants import \
     SPECIAL_TOKENS as TORCH_SPECIAL_TOKENS
-from llamole_tpu_torch.weights import graph_lm_state_dict, trainable_state_dict
+from llamole_tpu_torch.utils.serialization import load_pytree
+from llamole_tpu_torch.weights import (graph_lm_state_dict,
+                                       trainable_state_dict, trainable_values)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CORPUS = ["CCO", "c1ccccc1", "CC(=O)O", "CCN", "C1CC1", "c1ccncc1"]
@@ -363,7 +365,9 @@ def test_run_mmsft_writes_logs_checkpoints_and_resumes(tmp_path,
     assert [r["current_steps"] for r in recs if "eval_loss" in r] == [2]
     for d in ("checkpoint-1", "checkpoint-2"):
         assert (full / d / "trainer_state.json").exists()
-        assert (full / d / "adapter.pt").exists()
+        assert (full / d / "adapter.msgpack").exists()
+        assert (full / d / "trainable.msgpack").exists()
+        assert (full / d / "opt_state.msgpack").exists()
     assert (full / "generated_predictions.jsonl").exists()
     assert (full / "graphllm_config.json").exists()
 
@@ -371,8 +375,9 @@ def test_run_mmsft_writes_logs_checkpoints_and_resumes(tmp_path,
     fresh, _ = build_graph_lm(model_args, data_args, ft_args, device="cpu",
                               seed=1)
     fresh.load_trainable(str(full))
-    trained = torch.load(full / "checkpoint-2" / "trainable.pt",
-                         weights_only=True)
+    trained = trainable_values(
+        load_pytree(str(full / "checkpoint-2" / "trainable.msgpack")),
+        fresh.trainable_parameters())
     for name, p in fresh.trainable_parameters().items():
         torch.testing.assert_close(p.detach(), trained[name], rtol=0, atol=0)
 
@@ -381,11 +386,12 @@ def test_run_mmsft_writes_logs_checkpoints_and_resumes(tmp_path,
     resumed = run_mmsft(*_tiny_args(part, val, overwrite_output_dir=False),
                         device="cpu")
     assert resumed["train_steps"] == 2 and len(resumed["step_times"]) == 1
-    for name in ("adapter.pt", "connector/lm_to_graph_predictor.pt"):
-        a = torch.load(full / name, weights_only=True)
-        b = torch.load(part / name, weights_only=True)
-        for k in a:
-            torch.testing.assert_close(a[k], b[k], rtol=0, atol=1e-6)
+    for name in ("adapter.msgpack", "connector/lm_to_graph_predictor.msgpack"):
+        a = jax.tree_util.tree_leaves(load_pytree(str(full / name)))
+        b = jax.tree_util.tree_leaves(load_pytree(str(part / name)))
+        assert len(a) == len(b)
+        for x, y in zip(a, b):
+            torch.testing.assert_close(x, y, rtol=0, atol=1e-6)
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
