@@ -164,6 +164,8 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 CORPUS = ["CCO", "c1ccccc1", "CC(=O)O", "CCN", "C1CC1", "c1ccncc1",
           "CC(N)C(=O)O", "COC", "CS", "C=CC=C", "c1cc[nH]c1"]
 REQUESTS = 11
+# the header every serving request starts with: phase 13's shared prefix
+PROMPT_HEADER = "Design a drug-like molecule, request "
 PROPERTIES = [{"HIV": 1.0}, {"BBBP": 1.0}, {"SA": 2.5}, None]
 MAX_NODES = 50               # GraphDiT's max_n_nodes, the training banks' N
 GIN_HIDDEN = 300             # GraphCLIP and predictor width
@@ -298,9 +300,10 @@ def gin_bound(args, backward: bool):
 def device_ms(fn, kernel, launches: int = 20, attempts: int = 3):
     """Mean device time per call (ms) of the CUDA kernels whose names hold
     `kernel` (every kernel when it is None), read from a torch.profiler
-    trace of `launches` calls. A trace sometimes holds no device events
-    for kernels launched through ctypes: up to `attempts` traces are
-    taken, and None is returned when none holds device time for it."""
+    trace of `launches` calls. A trace sometimes holds no device events,
+    or only some, for kernels launched through ctypes: up to `attempts`
+    traces are taken, a named kernel's trace counts only when it holds
+    one event per call, and None is returned when none does."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -311,11 +314,12 @@ def device_ms(fn, kernel, launches: int = 20, attempts: int = 3):
             for _ in range(launches):
                 fn()
             torch.cuda.synchronize()
-        total_us = sum(
-            evt.device_time_total for evt in prof.key_averages()
-            if evt.device_type == DeviceType.CUDA
-            and (kernel is None or kernel in evt.key))
-        if total_us:
+        events = [evt for evt in prof.key_averages()
+                  if evt.device_type == DeviceType.CUDA
+                  and (kernel is None or kernel in evt.key)]
+        total_us = sum(evt.device_time_total for evt in events)
+        complete = kernel is None or sum(e.count for e in events) == launches
+        if total_us and complete:
             return total_us / launches / 1e3
     return None
 
@@ -582,12 +586,16 @@ def build_slice():
     return model, tok
 
 
-def timed(obj, name, log):
-    """Wrap obj.name so every call is timed between synchronizations;
-    log gets (seconds, result) per call."""
+def _sync_card():
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def timed(obj, name, log, sync=_sync_card):
+    """Wrap obj.name so every call is timed between calls of sync (a
+    synchronization of the card by default); log gets (seconds, result)
+    per call."""
     fn = getattr(obj, name)
-    sync = (torch.cuda.synchronize if torch.cuda.is_available()
-            else (lambda: None))
 
     def wrapper(*args, **kwargs):
         sync()
@@ -601,22 +609,32 @@ def timed(obj, name, log):
 
 
 class PathTimers:
-    """Timed wrappers around the stages of design and retrosynthesis."""
+    """Timed wrappers around the stages of design and retrosynthesis.
+    With `synced` (the default) each call is timed between
+    synchronizations of the card; phase 13 turns it off, so that the
+    timers add no wait to its threads (calls are still counted, their
+    seconds are then host dispatch times)."""
 
     def __init__(self, model):
+        self.synced = True
         self.log = {k: [] for k in (
             "design", "decode", "sampler", "rounds", "splice", "retro_query",
             "predictor", "value", "retro")}
-        timed(model, "design_molecule", self.log["design"])
-        timed(model.llm, "generate", self.log["decode"])
-        timed(model.graph_decoder, "generate", self.log["sampler"])
-        timed(model, "batched_one_step_reaction", self.log["rounds"])
-        timed(model, "_splice_molecule_embeds", self.log["splice"])
-        timed(model, "_body_hidden", self.log["retro_query"])
-        timed(model.graph_predictor, "sample_templates",
-              self.log["predictor"])
-        timed(model, "batched_estimate_complexity", self.log["value"])
-        timed(model, "retrosynthesize_batch", self.log["retro"])
+        for obj, name, key in (
+                (model, "design_molecule", "design"),
+                (model.llm, "generate", "decode"),
+                (model.graph_decoder, "generate", "sampler"),
+                (model, "batched_one_step_reaction", "rounds"),
+                (model, "_splice_molecule_embeds", "splice"),
+                (model, "_body_hidden", "retro_query"),
+                (model.graph_predictor, "sample_templates", "predictor"),
+                (model, "batched_estimate_complexity", "value"),
+                (model, "retrosynthesize_batch", "retro")):
+            timed(obj, name, self.log[key], self._sync)
+
+    def _sync(self):
+        if self.synced:
+            _sync_card()
 
     def clear(self):
         for calls in self.log.values():
@@ -649,7 +667,8 @@ class PathTimers:
               f"(walls {[round(t, 3) for t, _ in self.log['rounds']]} s), "
               f"expansions per molecule {exp}, routes found {found} "
               f"[{tag}]")
-        print(f"phase 2 split: expansion decode {decode:.3f} s, splice "
+        clock = "" if self.synced else " (host clock, calls not synced)"
+        print(f"phase 2 split{clock}: expansion decode {decode:.3f} s, splice "
               f"(GraphCLIP) {splice:.3f} s over {self.count('splice')} calls,"
               f" retro query re-forward {query:.3f} s, predictor + template "
               f"application {pred:.3f} s over {self.count('predictor')} "
@@ -661,7 +680,8 @@ class PathTimers:
 def reset_counts(*wrappers):
     """Every launch count of these kernel wrappers to 0."""
     for w in wrappers:
-        for key in ("launches", "launches_mma", "launches_fma"):
+        for key in ("launches", "launches_mma", "launches_fma",
+                    "launches_smem", "launches_global"):
             if hasattr(w, key):
                 setattr(w, key, 0)
 
@@ -691,7 +711,8 @@ def diffusion_steps(model) -> int:
 
 def run_serving(model, tok, timers, kernels, tag):
     """Phase 7. Returns the launch counts of kernels A (total, mma body,
-    fma body) and B in the main-path run."""
+    fma body) and B in the main-path run, and the latencies of the retro
+    and the design-only requests."""
     fused, gin = kernels[:2]
     from llamole_tpu_torch.models.composite import GenerationSettings
     from llamole_tpu_torch.serve import DesignServer
@@ -706,7 +727,7 @@ def run_serving(model, tok, timers, kernels, tag):
     reset_counts(*kernels)
     server.start()
     try:
-        handles = [server.submit(f"Design a drug-like molecule, request {i}.",
+        handles = [server.submit(f"{PROMPT_HEADER}{i}.",
                                  PROPERTIES[i % len(PROPERTIES)],
                                  retro=wants_retro[i])
                    for i in range(REQUESTS)]
@@ -767,7 +788,7 @@ def run_serving(model, tok, timers, kernels, tag):
     print(f"valid SMILES: {valid} of {len(results)}; peak memory "
           f"{peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated) [{tag}]",
           flush=True)
-    return launches
+    return launches, {"retro": retro_lat, "design": design_lat}
 
 
 def run_eval(model, tok, timers, kernels, tag):
@@ -820,6 +841,241 @@ def run_eval(model, tok, timers, kernels, tag):
                    timers.gin_floor() + GIN_LAYERS,
                    f"{GIN_LAYERS} x ({timers.count('splice')} rounds + "
                    f"{timers.count('predictor')} products + 1 FGD chunk)")
+    return launches
+
+
+# Phase 13, continuous serving behind the TCP transport: the pool and the
+# design group at phase 7's batch of 8, phase 7's generation settings and
+# retro defaults
+CONTINUOUS = {"slots": 8, "design_batch": 8, "chunk_steps": 8,
+              "cache_len": 1024, "max_new_tokens": 128,
+              "retro_iterations": 100, "retro_max_time": 30.0}
+
+
+def _percentiles(values):
+    """(p50, p95) of a list, as _LatencyStats picks them (None if empty)."""
+    if not values:
+        return None, None
+    lat = sorted(values)
+    return tuple(lat[min(int(q * len(lat)), len(lat) - 1)]
+                 for q in (0.50, 0.95))
+
+
+def _tcp_client(address, lines, timeout=900):
+    """Send JSONL lines on one connection; its answers by id."""
+    import socket
+
+    with socket.create_connection(address, timeout=timeout) as sock:
+        f = sock.makefile("rw", encoding="utf-8")
+        for line in lines:
+            f.write(line + "\n")
+        f.flush()
+        answers = [json.loads(f.readline()) for _ in lines]
+        f.write("\n")   # the end of this connection's stream
+        f.flush()
+    return {a["id"]: a for a in answers}
+
+
+def _pool_step_split(steps_log, busy):
+    """Wall and scheduler-thread CPU ms per pool decode step over all
+    scheduler steps, and split by what ran beside each on the workers (a
+    retro search, else a design group, else nothing), a step counted
+    where its midpoint falls."""
+    def within(t, spans):
+        return any(c["t0"] <= t <= c["t1"] for c in spans)
+
+    split = {k: [0.0, 0.0, 0] for k in (
+        "all", "alone", "beside a design group", "beside a retro search")}
+    for c in steps_log:
+        mid = (c["t0"] + c["t1"]) / 2
+        where = ("beside a retro search"
+                 if within(mid, busy["retrosynthesize_batch"])
+                 else "beside a design group"
+                 if within(mid, busy["design_from_analysis"]) else "alone")
+        for key in ("all", where):
+            split[key][0] += c["t1"] - c["t0"]
+            split[key][1] += c["cpu"]
+            split[key][2] += c["steps"]
+    return ", ".join(f"{k} {1e3 * s / n:.2f} ms per pool step (thread CPU "
+                     f"{1e3 * cpu / n:.2f} ms) over {n}"
+                     for k, (s, cpu, n) in split.items() if n)
+
+
+def _must_expand(model, smiles_list) -> bool:
+    """Whether a retro group holds a target its search has to expand: a
+    valid molecule that is not in the stock (retrosynthesize_batch's own
+    tests, which answer the others without a round)."""
+    from llamole_tpu_torch.chem import recanonicalize
+    stock = model._starting_mols(None)
+    for smi in smiles_list:
+        if smi is None:
+            continue
+        t = recanonicalize(smi.replace("*", "[H]"))
+        if model.graph_decoder.check_valid(t) and t not in stock:
+            return True
+    return False
+
+
+def run_continuous(model, tok, timers, kernels, tag, sizes=None,
+                   phase7=None):
+    """Phase 13: ContinuousDesignServer behind make_tcp_server on
+    127.0.0.1 (a free port), phase 7's 11 requests sent over two TCP
+    connections, then one {"stats": true} line. Returns the launches of
+    kernels A (per body) and B (none on the CPU, where the test of this
+    phase runs it at small sizes)."""
+    import threading
+
+    from llamole_tpu_torch.models.composite import GenerationSettings
+    from llamole_tpu_torch.serve import (ContinuousDesignServer,
+                                         make_tcp_server)
+
+    sizes = sizes or CONTINUOUS
+    on_card = model.device.type == "cuda"
+    gen = GenerationSettings(max_new_tokens=sizes["max_new_tokens"],
+                             temperature=0.6, top_p=0.9, do_sample=True)
+    server = ContinuousDesignServer(
+        model, tok, slots=sizes["slots"], design_batch=sizes["design_batch"],
+        chunk_steps=sizes["chunk_steps"], cache_len=sizes["cache_len"],
+        max_wait_s=0.5, gen=gen, rollback=True, seed=0,
+        shared_prefix_text=PROMPT_HEADER,
+        retro_iterations=sizes["retro_iterations"],
+        retro_max_time=sizes["retro_max_time"])
+    decoder = server.decoder
+    # host-clock intervals with the calling thread's CPU time (a thread
+    # waiting for the interpreter lock uses none; one waiting for the card
+    # spins): each scheduler step (it ends reading the stop flags, which
+    # waits for the card) with the pool decode steps it ran, and each
+    # design group and retro search on the workers, with its first
+    # argument
+    steps_log, busy = [], {"design_from_analysis": [],
+                           "design_rollback": [],
+                           "retrosynthesize_batch": []}
+
+    def interval(fn, log):
+        def call(*args, **kwargs):
+            t0, c0 = time.perf_counter(), time.thread_time()
+            n0 = decoder.steps_run
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                log.append({"t0": t0, "t1": time.perf_counter(),
+                            "cpu": time.thread_time() - c0,
+                            "steps": decoder.steps_run - n0,
+                            "arg": args[0] if args else None})
+        return call
+
+    decoder.step = interval(decoder.step, steps_log)
+    stages = {name: getattr(model, name) for name in busy}
+    for name, fn in stages.items():
+        setattr(model, name, interval(fn, busy[name]))
+    wants_retro = [i % 3 == 0 for i in range(REQUESTS)]
+    lines = [json.dumps({"prompt": f"{PROMPT_HEADER}{i}.",
+                         "property": PROPERTIES[i % len(PROPERTIES)],
+                         "retro": wants_retro[i]}) for i in range(REQUESTS)]
+    # requests 0, 2, 4, ... on connection 0, the rest on connection 1
+    conns = [list(range(0, REQUESTS, 2)), list(range(1, REQUESTS, 2))]
+    timers.clear()
+    timers.synced = False   # no card-wide waits added to the threads
+    reset_counts(*kernels)
+    answers = {}
+    t0 = time.perf_counter()
+    server.start()
+    tcp = make_tcp_server(server, "127.0.0.1", 0)
+    serving = threading.Thread(target=tcp.serve_forever, daemon=True)
+    serving.start()
+    try:
+        def client(k):
+            got = _tcp_client(tcp.server_address, [lines[i] for i in conns[k]])
+            for n, i in enumerate(conns[k]):
+                answers[i] = got.get(n)
+
+        clients = [threading.Thread(target=client, args=(k,))
+                   for k in range(len(conns))]
+        for th in clients:
+            th.start()
+        for th in clients:
+            th.join(timeout=900)
+        wall = time.perf_counter() - t0
+        idle = decoder.idle and len(decoder._free) == decoder.slots
+        stats = _tcp_client(tcp.server_address, ['{"stats": true}'])[0]
+    finally:
+        tcp.shutdown()
+        tcp.server_close()
+        server.stop()
+        timers.synced = True
+        for name, fn in stages.items():
+            setattr(model, name, fn)
+    results = [answers.get(i) for i in range(REQUESTS)]
+    errors = [r and r.get("error") for r in results if not r or "error" in r]
+    if errors:
+        fail(f"continuous serving: {sum(r is not None for r in results)} "
+             f"answers, errors {errors[:3]}")
+    for r, retro in zip(results, wants_retro):
+        if retro and r["smiles"] is not None and not isinstance(
+                r.get("retro"), dict):
+            fail(f"continuous retro request without a retro block: {r}")
+    if stats["requests_served"] != REQUESTS:
+        fail(f"continuous serving: stats {stats}")
+    if not decoder.prefix_admissions:
+        fail("continuous serving: no admission on the shared-prefix path")
+    if not idle:
+        fail(f"continuous serving: the decoder is not idle after the last "
+             f"answer (free slots {decoder._free})")
+    # a search that raised or never expanded leaves B's floor at 0: every
+    # retro group holding a target to expand must have run a round
+    searches = busy["retrosynthesize_batch"]
+    expanding = sum(_must_expand(model, c["arg"]) for c in searches)
+    if timers.count("retro") != len(searches) or \
+            timers.count("rounds") < expanding:
+        fail(f"continuous serving: {len(searches)} retro groups, "
+             f"{timers.count('retro')} returned, {expanding} with a target "
+             f"to expand, {timers.count('rounds')} expansion rounds")
+    retro_lat = [r["latency_s"] for r, w in zip(results, wants_retro) if w]
+    design_lat = [r["latency_s"] for r, w in zip(results, wants_retro)
+                  if not w]
+    steps = decoder.steps_run
+    valid = sum(model.graph_decoder.check_valid(r["smiles"])
+                for r in results)
+    print(f"continuous serving over TCP: {REQUESTS} answered in {wall:.3f} s"
+          f" over {len(conns)} connections, {server.batches_run} design "
+          f"groups, {decoder.chunks_run} chunks, {steps} pool decode steps, "
+          f"{decoder.prefix_admissions} of {REQUESTS} admissions on the "
+          f"shared prefix ({len(tok.encode(PROMPT_HEADER))} tokens); valid "
+          f"SMILES {valid} of {REQUESTS}; stats {json.dumps(stats)} [{tag}]",
+          flush=True)
+    if steps:
+        print(f"continuous decode: {_pool_step_split(steps_log, busy)}; "
+              f"{decoder.slots} slots, admissions included [{tag}]",
+              flush=True)
+    for name, calls in busy.items():
+        print(f"continuous {name}: walls "
+              f"{[round(c['t1'] - c['t0'], 3) for c in calls]} s, thread CPU"
+              f" {[round(c['cpu'], 3) for c in calls]} s [{tag}]",
+              flush=True)
+    for what, lat in (("design-only", design_lat), ("retro", retro_lat)):
+        p50, p95 = _percentiles(lat)
+        line = f"latency {what}: p50 {p50} s, p95 {p95} s (continuous)"
+        if phase7:
+            q50, q95 = _percentiles(phase7["design" if what == "design-only"
+                                           else "retro"])
+            line += f"; phase 7 (DesignServer) p50 {q50} s, p95 {q95} s"
+        print(line + f" [{tag}]", flush=True)
+    timers.report_phase2(tag)
+    launches = {"A": 0, "B": 0}
+    if on_card:
+        fused, gin = kernels[:2]
+        launches = {"A": fused.launches, "A_mma": fused.launches_mma,
+                    "A_fma": fused.launches_fma, "B": gin.launches}
+        check_mma_only(fused, "continuous serving")
+        depth = model.graph_decoder.cfg.depth
+        check_launches("fused_block_attention (continuous)", launches["A"],
+                       depth * diffusion_steps(model) * server.batches_run,
+                       f"{depth} x {diffusion_steps(model)} x "
+                       f"{server.batches_run} design groups")
+        check_launches("gin_aggregate (continuous)", launches["B"],
+                       timers.gin_floor(),
+                       f"{GIN_LAYERS} x ({timers.count('splice')} rounds + "
+                       f"{timers.count('predictor')} products)")
     return launches
 
 
@@ -877,6 +1133,11 @@ def check_graphclip(model, tag):
 # predictor batch (GIN_TRAIN)
 GIN_BWD_CHECKS = ((2, 9, 24), (3, 11, 40), (3, 11, 42))
 GIN_BWD_WIDTHS = ((4, 50, 300), (4, 50, 150))
+# kernel C's second body (N > 161): one past the staged body, the bank a
+# 162-atom molecule gives (pretrain._bucket rounds up to 8) and kernel B's
+# largest dense check
+GIN_BWD_LARGE_N = (162, 168, 512)
+BWD_COUNTS = ("launches", "launches_smem", "launches_global")
 # kernel D: the JAX contract shapes (tests/test_pallas.py) and the
 # denoiser's head shape
 ATTN_CONTRACT = ((2, 4, 13, 24), (1, 2, 64, 64), (3, 8, 50, 32))
@@ -914,10 +1175,35 @@ def path_graphs(rows: int, n: int, last: bool = False, device="cuda"):
     return a, e.contiguous(), m, adj
 
 
+def second_body_at(bwd, args, what, tag, timing=True):
+    """Kernel C's second body on a bank whose N the wrapper routes to the
+    staged body, launched past the routing (launches not counted): it must
+    give the staged body's bits (the bodies differ only in where a pair's
+    value and class are read). With `timing`, its call and device times
+    under second_body_* keys."""
+    from llamole_tpu_torch.ops.gin_aggregate import _launch_backward
+
+    def fn():
+        return _launch_backward(*args, "global")
+    if not all(torch.equal(u, v) for u, v in zip(fn(), bwd(*args))):
+        fail(f"kernel C's second body differs from the staged body at {what}")
+    if not timing:
+        print(f"gin backward {what}: the second body gives the staged "
+              "body's bits", flush=True)
+        return {}
+    ms = cuda_ms(fn)
+    dev = device_ms(fn, "gin_backward_kernel") or graph_ms(fn)
+    print(f"gin_aggregate_backward's second body at {what}: the staged "
+          f"body's bits; call {ms:.4f} ms, device {dev:.4f} ms [{tag}]",
+          flush=True)
+    return {"second_body_ms": ms, "second_body_device_ms": dev}
+
+
 def check_gin_backward(bwd, reference, tag):
     """Phase 5: kernel C against its plain version. Returns the record of
     its JSON line (error, times and bound at the path shape)."""
-    from llamole_tpu_torch.ops.gin_aggregate import GIN_BWD_MAX_NODES
+    from llamole_tpu_torch.ops.gin_aggregate import (GIN_BWD_SMEM_MAX_NODES,
+                                                     gin_backward_body)
     gen = torch.Generator(device="cuda").manual_seed(3)
 
     def compare(args, dt, what, dtable_of_range=False):
@@ -958,6 +1244,7 @@ def check_gin_backward(bwd, reference, tag):
                 f"B,N,H={b},{n},{h} {dt} "
                 f"{'symmetric' if sym else 'directed'}"
                 f"{', dense' if dense else ''}", dtable_of_range=dense)
+        return x, edge, adj, table, g
 
     for (b, n, h) in GIN_BWD_CHECKS:
         for dt in (torch.float32, torch.bfloat16):
@@ -965,22 +1252,37 @@ def check_gin_backward(bwd, reference, tag):
                 random_case(b, n, h, dt, sym)
     for (b, n, h) in GIN_BWD_WIDTHS:       # vector and scalar lane paths
         random_case(b, n, h, torch.float32)
-    for dt in (torch.float32, torch.bfloat16):  # the largest N it takes
-        random_case(2, GIN_BWD_MAX_NODES, 64, dt, dense=True)
-    past = GIN_BWD_MAX_NODES + 1
-    before = bwd.launches
-    try:
-        bwd(*random_graphs(gen, 1, past, 8, torch.float32),
-            torch.ones(1, past, 8, device="cuda"))
-        fail(f"gin_aggregate_backward took N={past}, past its limit")
-    except ValueError:
-        pass
-    if bwd.launches != before:
-        fail("gin_aggregate_backward launched past its N limit")
-    print(f"gin backward check N={past}: ValueError, nothing launched "
-          f"(largest N {GIN_BWD_MAX_NODES})", flush=True)
+    for dt in (torch.float32, torch.bfloat16):  # the staged body's largest N
+        args = random_case(2, GIN_BWD_SMEM_MAX_NODES, 64, dt, dense=True)
+        second_body_at(bwd, args, f"B,N,H=2,{GIN_BWD_SMEM_MAX_NODES},64 "
+                       f"{dt} dense", tag, timing=False)
+    # past it, the second body: every launch on the body its N routes to,
+    # two runs bit-identical
+    for n in GIN_BWD_LARGE_N:
+        for dt in (torch.float32, torch.bfloat16):
+            x, edge, adj, table = random_graphs(gen, 2, n, 64, dt,
+                                                dense=True)
+            g = torch.randn(2, n, 64, device="cuda", generator=gen).to(dt)
+            args = (x, edge, adj, table, g)
+            body = gin_backward_body(n)
+            before = {k: getattr(bwd, k) for k in BWD_COUNTS}
+            compare(args, dt, f"B,N,H=2,{n},64 {dt} dense, the {body} body",
+                    dtable_of_range=True)
+            first, second = bwd(*args), bwd(*args)
+            if not all(torch.equal(u, v) for u, v in zip(first, second)):
+                fail(f"gin_aggregate_backward at N={n} {dt} is not "
+                     "bit-identical across runs")
+            made = {k: getattr(bwd, k) - before[k] for k in BWD_COUNTS}
+            want = {k: 3 if k in ("launches", f"launches_{body}") else 0
+                    for k in BWD_COUNTS}
+            if made != want:
+                fail(f"gin_aggregate_backward at N={n}: launches {made}, "
+                     f"not 3 on the {body} body")
+            print(f"gin backward N={n} {dt}: two runs bit-identical, 3 "
+                  f"launches on the {body} body", flush=True)
 
-    for (b, n, h) in ((1, 4, 8), GIN_TRAIN):   # no bond anywhere
+    # no bond anywhere, on both bodies
+    for (b, n, h) in ((1, 4, 8), GIN_TRAIN, (4, GIN_BWD_LARGE_N[1], 300)):
         none = torch.zeros(b, n, n, device="cuda")
         dx, dtab = bwd(torch.randn(b, n, h, device="cuda", generator=gen),
                        none.to(torch.int32), none,
@@ -1017,8 +1319,11 @@ def check_gin_backward(bwd, reference, tag):
           f"({bound_by}, the rows the math reads), "
           f"{100 * bound_ms / rec['device_ms']:.1f}% of it [{tag}]",
           flush=True)
+    second = second_body_at(bwd, args, f"the training bank {GIN_TRAIN} f32",
+                            tag)
     return {"max_abs_err": main_err, **rec, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None}
+            "bound_by": bound_by, "library_ms": None, **second,
+            "second_body_share": bound_ms / second["second_body_device_ms"]}
 
 
 def check_graph_attention(attn, reference, tag):
@@ -1229,6 +1534,7 @@ def run_training(model, tok, kernels, tag, out_dir):
         del model.loss
     launches = {"A": a_in_training[0], "B": gin.launches,
                 "C": gin_bwd.launches}
+    c_bodies = {k: getattr(gin_bwd, k) for k in BWD_COUNTS}
     peak = torch.cuda.max_memory_allocated()
 
     missing = [k for k, ok in written.items() if not ok]
@@ -1286,7 +1592,7 @@ def run_training(model, tok, kernels, tag, out_dir):
           f"{metrics.get('eval_loss')}); peak memory {peak / 2**30:.2f} "
           f"GiB (torch.cuda.max_memory_allocated) [{tag}]", flush=True)
     profile_training_step(model, last_batch[0], tag)
-    return launches["B"], launches["C"], saved
+    return launches["B"], c_bodies, saved
 
 
 def profile_training_step(model, batch, tag):
@@ -1346,34 +1652,59 @@ STACK_GIN_LAYERS = {"predictor": "num_layer", "graphclip": "num_layer",
 STACK_FALLING = ("predictor", "oracle", "cost_mlp")
 
 
-def _stack_batch(records, n_pad=None, device="cuda"):
+# one molecule past kernel C's staged body (161 nodes): 162 heavy atoms,
+# which pretrain._bucket rounds up to a bank of 168
+LARGE_MOLECULE = "OC" + "C" * 159 + "N"
+
+
+def _stack_batch(records, n_pad=None, device="cuda", large=False):
     """The first pretraining batch of the predictor (random.Random(0) over
     its (product, label) rows, batch 64) padded to the pretraining bank's
-    N: the largest product rounded up to 8 (pretrain._bucket)."""
+    N: the largest product rounded up to 8 (pretrain._bucket). With
+    `large`, its last graph is LARGE_MOLECULE's, which sets N."""
     import random
 
+    from llamole_tpu_torch.chem.featurize import smiles_to_graph
     from llamole_tpu_torch.train import pretrain
     rows = pretrain._retro_rows(records)
-    n = n_pad or pretrain._bucket(rows)
     rng = random.Random(0)
     graphs = [rows[rng.randrange(len(rows))][0] for _ in range(64)]
+    if large:
+        graphs[-1] = smiles_to_graph(LARGE_MOLECULE)
+        rows = rows + [(graphs[-1], 0)]
+    n = n_pad or pretrain._bucket(rows)
     return pretrain._graph_tensors(graphs, n, device)
+
+
+def large_n_records(records):
+    """The corpus plus one record whose designed molecule is
+    LARGE_MOLECULE (a GraphCLIP row: a designed molecule and its prose)."""
+    big = {"instruction": "Design a long-chain amino alcohol.", "input": "",
+           "output": "The designed molecule is: <design_start><design_end>"
+                     f"<mol_start>{LARGE_MOLECULE}<mol_end>.",
+           "property": {}, "retro": []}
+    return list(records) + [big]
 
 
 def time_pretrain_bank(gin, gin_bwd, records, tag):
     """Kernels B and C at the pretraining bank (64, n, H) f32, H = 300
-    (predictor, GraphCLIP) and 128 (the oracle): call and device time,
-    the plain version's time, bound and share."""
+    (predictor, GraphCLIP) and 128 (the oracle), and at the bank one large
+    molecule widens (64, 168, 300) f32 (kernel C's second body): call and
+    device time, the plain version's time, bound and share."""
     from llamole_tpu_torch.ops.gin import dense_graph_inputs
     from llamole_tpu_torch.ops.gin_aggregate import (
-        gin_aggregate_backward_reference, gin_aggregate_reference)
+        gin_aggregate_backward_reference, gin_aggregate_reference,
+        gin_backward_body)
 
     gen = torch.Generator(device="cuda").manual_seed(11)
-    atoms, edges, mask = _stack_batch(records)
-    edge, adj = dense_graph_inputs(edges, mask, torch.float32)
     out = {}
-    for h, prefix in ((GIN_HIDDEN, "pretrain"), (128, "pretrain_oracle")):
+    for h, prefix, large in ((GIN_HIDDEN, "pretrain", False),
+                             (128, "pretrain_oracle", False),
+                             (GIN_HIDDEN, "large_n", True)):
+        atoms, edges, mask = _stack_batch(records, large=large)
+        edge, adj = dense_graph_inputs(edges, mask, torch.float32)
         b, n = atoms.shape
+        body = gin_backward_body(n)
         x = torch.randn(b, n, h, device="cuda", generator=gen)
         table = torch.randn(5, h, device="cuda", generator=gen)
         g = torch.randn(b, n, h, device="cuda", generator=gen)
@@ -1400,8 +1731,15 @@ def time_pretrain_bank(gin, gin_bwd, records, tag):
                 rec = time_kernel(f"{name} at the pretraining bank "
                                   f"({b}, {n}, {h}) f32", fn, plain, key,
                                   tag)
+                if bwd and body == "smem":
+                    rec.update(second_body_at(
+                        gin_bwd, (x, edge, adj, table, g),
+                        f"the pretraining bank ({b}, {n}, {h}) f32", tag))
             bound_ms, bound_by = gin_bound((x, edge, adj, table, g), bwd)
             share = bound_ms / rec["device_ms"]
+            if "second_body_device_ms" in rec:
+                rec["second_body_share"] = (bound_ms
+                                            / rec["second_body_device_ms"])
             print(f"{name} bound at ({b}, {n}, {h}) {bound_ms * 1e3:.3f} us "
                   f"({bound_by}), {100 * share:.1f}% of it; max_abs_err "
                   f"{err:.3e} [{tag}]", flush=True)
@@ -1409,7 +1747,8 @@ def time_pretrain_bank(gin, gin_bwd, records, tag):
                 f"{prefix}_{k}": v for k, v in {
                     **rec, "bound_ms": bound_ms, "bound_by": bound_by,
                     "share": share, "shape": [b, n, h],
-                    "max_abs_err": err}.items()})
+                    "max_abs_err": err,
+                    **({"body": body} if bwd else {})}.items()})
     return out
 
 
@@ -1480,6 +1819,48 @@ def _reload_identical(saved, paths, records, device, tag):
             fail(f"the reloaded {name} is not bit-identical to the saved")
         print(f"stack: {name} saved, reloaded through the loader, forward "
               f"bit-identical [{tag}]", flush=True)
+
+
+LARGE_N_STEPS = 3
+
+
+def _large_n_pretrain(records, work, kernels, sizes, device, tag):
+    """GraphCLIP's pretraining through its entry for LARGE_N_STEPS steps on
+    the corpus plus LARGE_MOLECULE: every bank is 168 wide, so on the card
+    each step's C launches take the second body, at least layers x steps
+    of them (and, run inside run_stack, no plain-version call). Returns
+    C's launches per body ({} on the CPU)."""
+    from llamole_tpu_torch.train import pretrain
+
+    path = os.path.join(work, "corpus_large_n.json")
+    with open(path, "w") as f:
+        json.dump(large_n_records(records), f)
+    kw = {**sizes["graphclip"], "steps": LARGE_N_STEPS}
+    if kernels:
+        reset_counts(*kernels)
+    t0 = time.perf_counter()
+    m = pretrain.pretrain_graphclip(path, os.path.join(work, "clip_large_n"),
+                                    seed=0, device=device, **kw)
+    wall = time.perf_counter() - t0
+    losses = np.asarray(m["losses"])
+    if len(losses) != LARGE_N_STEPS or not np.isfinite(losses).all():
+        fail(f"large-N graphclip pretraining losses {losses}")
+    line = (f"stack large N: graphclip on the corpus + one "
+            f"{len(LARGE_MOLECULE)}-atom molecule, {LARGE_N_STEPS} steps in "
+            f"{wall:.2f} s, losses {[round(float(v), 4) for v in losses]}")
+    if not kernels:
+        print(line + f" [{tag}]", flush=True)
+        return {}
+    gin_bwd = kernels[2]
+    need = kw["num_layer"] * LARGE_N_STEPS
+    counts = {k: getattr(gin_bwd, k) for k in BWD_COUNTS}
+    print(line + f"; kernel C {counts} (need >= {need} = {kw['num_layer']} "
+          f"layers x {LARGE_N_STEPS} steps on the global body) [{tag}]",
+          flush=True)
+    if counts["launches_global"] < need or counts["launches_smem"]:
+        fail(f"large-N pretraining: kernel C launches {counts}, need >= "
+             f"{need} on the global body and none on the staged one")
+    return counts
 
 
 def run_stack(kernels, tag, device="cuda", sizes=None):
@@ -1582,6 +1963,11 @@ def run_stack(kernels, tag, device="cuda", sizes=None):
                     launches["B"] += gin.launches
                     launches["C"] += gin_bwd.launches
                 print(line + f" [{tag}]", flush=True)
+            large_n = _large_n_pretrain(records, d,
+                                        kernels if on_card else (), sizes,
+                                        device, tag)
+            if large_n:
+                launches["large_n"] = large_n
         finally:
             for cls, orig in originals.items():
                 cls.save_pretrained = orig
@@ -1922,7 +2308,7 @@ def serve_interchange(model, tok, kernels, tag, sizes):
     t0 = time.perf_counter()
     server.start()
     try:
-        handles = [server.submit(f"Design a drug-like molecule, request {i}.",
+        handles = [server.submit(f"{PROMPT_HEADER}{i}.",
                                  PROPERTIES[i % len(PROPERTIES)],
                                  retro=(i == 0))
                    for i in range(sizes["requests"])]
@@ -2093,8 +2479,13 @@ def main() -> int:
     print(f"slice built (random weights on the card) in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     timers = PathTimers(model)
-    launches = run_serving(model, tok, timers, kernels, tag)
+    launches, phase7_latency = run_serving(model, tok, timers, kernels, tag)
     molqa = run_eval(model, tok, timers, kernels, tag)
+    t0 = time.perf_counter()
+    continuous = run_continuous(model, tok, timers, kernels, tag,
+                                phase7=phase7_latency)
+    print(f"continuous phase: {time.perf_counter() - t0:.1f} s wall [{tag}]",
+          flush=True)
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         train_dir = os.path.join(work, "mmsft")
@@ -2136,6 +2527,9 @@ def main() -> int:
               launches_interchange=inter["A"],
               launches_interchange_mma=inter["A_mma"],
               launches_interchange_fma=inter["A_fma"],
+              launches_continuous=continuous["A"],
+              launches_continuous_mma=continuous["A_mma"],
+              launches_continuous_fma=continuous["A_fma"],
               sdpa_floor_ms=a["sdpa_floor_ms"],
               sdpa_floor_device_ms=a["sdpa_floor_device_ms"],
               fma_ms=a["fma_ms"],
@@ -2146,14 +2540,24 @@ def main() -> int:
               "llamole_tpu/ops/pallas/gin_aggregate.py:85", b, launches["B"],
               launches_molqa=molqa[1], launches_training=b_training,
               launches_interchange=inter["B"],
+              launches_continuous=continuous["B"],
               **{k: v for k, v in b.items() if k.startswith("train_")},
               shape=b["shape"], share=b["share"],
               pretrain_launches=stack_launches["B"],
               **pretrain_bank["gin_aggregate"]),
-        # C: launches in run_mmsft; the pretrainings' under pretrain_*
+        # C: launches in run_mmsft, per body too; the pretrainings' under
+        # pretrain_*, the large-N bank's times and its pretraining's
+        # launches under large_n_*
+        # second_body_*: C's second body timed at the staged body's banks
         entry("gin_aggregate_backward", gin_src,
               "llamole_tpu/ops/pallas/gin_aggregate.py:163", c,
-              c_training, pretrain_launches=stack_launches["C"],
+              c_training["launches"],
+              **{k: v for k, v in c.items() if k.startswith("second_body")},
+              launches_smem=c_training["launches_smem"],
+              launches_global=c_training["launches_global"],
+              pretrain_launches=stack_launches["C"],
+              **{f"large_n_{k}": v
+                 for k, v in stack_launches["large_n"].items()},
               **pretrain_bank["gin_aggregate_backward"]),
         # kernel D is on no path of either package: its launches are
         # those of its check (phase 6), all on the mma or fma body there

@@ -107,10 +107,24 @@
 // Limits: shared memory holds the kept entries (8 N^2 bytes), the masks
 // (4 N ceil(N / 32) bytes) and the warps' 20 KB of dtable rows, whatever H
 // is (H only adds channel slices to the grid). Within the 227 KB a block
-// may opt into that allows N <= 161; the wrapper raises ValueError past it
-// (ops/gin_aggregate.py GIN_BWD_MAX_NODES). Registers are held to 128 a
-// thread, so that two blocks share an SM and the path bank's 240 blocks
-// run in one wave.
+// may opt into that allows N <= 161 (ops/gin_aggregate.py
+// GIN_BWD_SMEM_MAX_NODES); the wrapper routes larger graphs to the second
+// body below. Registers are held to 128 a thread, so that two blocks share
+// an SM and the path bank's 240 blocks run in one wave.
+//
+// The second body (the kernel's kStaged = false instantiation) takes
+// N > 161: a pretraining bank is as wide as its largest molecule, so one
+// molecule of 162 atoms or more makes every graph of the bank that wide.
+// It keeps no staged entries: shared memory holds only the column masks
+// (4 N ceil(N / 32) bytes: 32 KB at N = 512) and the warps' dtable rows,
+// and the walk reads each bonded pair's adj value and class from device
+// memory (the mask pass has just read that block of adj, so it is in L2;
+// the pairs are few, ~2-3 a molecule's atom). The masks keep it from
+// taking every N: 4 N ceil(N / 32) + 20 KB <= 227 KB allows N <= 1292
+// (GIN_BWD_MAX_NODES; kernel B's largest dense check is 512).
+// The rest is the first body's: no float atomics, one f32 [5, H] dtable
+// partial per graph summed by the wrapper in a fixed order, dx written
+// once in x's type, padding graphs storing zeros and returning.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -309,18 +323,23 @@ int launch(const void* x, const void* edge, const void* adj, const void* table,
              : launch_as<T, false>(x, edge, adj, table, out, B, N, H, stream);
 }
 
-// Dynamic shared memory of one block, in 4-byte words (the wrapper's
-// gin_backward_shared_bytes is the same formula in bytes): adj's non-zero
-// values and their classes at [i][j] (only those entries are written and
-// read), 2 N^2; a bitmask of each column's non-zero rows, ceil(N / 32)
-// words a column; the warps' [kBwdWarps][5][kSlice] dtable rows.
+// Dynamic shared memory of one block, in bytes (the wrapper's
+// gin_backward_shared_bytes): in the staged body, adj's non-zero values
+// and their classes at [i][j] (only those entries are written and read),
+// 8 N^2 bytes; in both, a bitmask of each column's non-zero rows,
+// ceil(N / 32) words a column, and the warps' [kBwdWarps][5][kSlice]
+// dtable rows.
 __host__ __device__ __forceinline__ int mask_words(int N) { return (N + 31) / 32; }
 
-__host__ __device__ __forceinline__ size_t backward_smem_bytes(int N) {
-  return 4 * (2 * (size_t)N * N + (size_t)N * mask_words(N) + kBwdWarps * 5 * kSlice);
+__host__ __device__ __forceinline__ size_t backward_smem_bytes(int N, bool staged) {
+  return 4 * ((staged ? 2 * (size_t)N * N : 0) + (size_t)N * mask_words(N) +
+              kBwdWarps * 5 * kSlice);
 }
 
-template <typename T, bool kVec>
+// kStaged: the pair values and classes kept in shared memory (N <= 161);
+// otherwise only the masks are, and the walk reads each bonded pair's adj
+// value and class from device memory. The bodies differ only there.
+template <typename T, bool kVec, bool kStaged>
 __global__ void __launch_bounds__(kBwdThreads, 2) gin_backward_kernel(
     const T* __restrict__ x, const int32_t* __restrict__ edge,
     const T* __restrict__ adj, const T* __restrict__ table,
@@ -328,9 +347,10 @@ __global__ void __launch_bounds__(kBwdThreads, 2) gin_backward_kernel(
     float* __restrict__ dtable_part, int N, int H) {
   extern __shared__ float smem[];
   const int NN = N * N, W = mask_words(N);
+  const int kept = kStaged ? NN : 0;
   float* a_s = smem;                                            // [N][N]
-  int32_t* c_s = reinterpret_cast<int32_t*>(smem + NN);         // [N][N]
-  unsigned* mask = reinterpret_cast<unsigned*>(c_s + NN);       // [N][W]
+  int32_t* c_s = reinterpret_cast<int32_t*>(smem + kept);       // [N][N]
+  unsigned* mask = reinterpret_cast<unsigned*>(c_s + kept);     // [N][W]
   float* rows = reinterpret_cast<float*>(mask + N * W);         // [kBwdWarps][5][kSlice]
 
   const int b = blockIdx.x;
@@ -340,11 +360,11 @@ __global__ void __launch_bounds__(kBwdThreads, 2) gin_backward_kernel(
   const int32_t* eb = edge + (size_t)b * NN;
 
   // 1. One round trip: every thread starts its loads of the table's five
-  //    rows (its channels) and of adj and the classes (coalesced; 16-byte
-  //    ones when the graph's block of them is aligned), clears the column
-  //    masks, and only then uses what arrived. Each non-zero entry is kept
-  //    at [i][j] and sets bit i of column j's mask (an integer OR: the same
-  //    bits in any order).
+  //    rows (its channels) and of adj and (staged) the classes (coalesced;
+  //    16-byte ones when the graph's block of them is aligned), clears the
+  //    column masks, and only then uses what arrived. Each non-zero entry
+  //    sets bit i of column j's mask (an integer OR: the same bits in any
+  //    order) and, staged, is kept at [i][j].
   float tab[5][4];
 #pragma unroll
   for (int c = 0; c < 5; ++c) load4<T, kVec>(table + (size_t)c * H, s0, lane, H, tab[c]);
@@ -352,15 +372,17 @@ __global__ void __launch_bounds__(kBwdThreads, 2) gin_backward_kernel(
   auto keep = [&](int k, float a, int c) {
     if (a != 0.f) {
       const int i = k / N, j = k - i * N;
-      a_s[k] = a;
-      c_s[k] = c;
+      if constexpr (kStaged) {
+        a_s[k] = a;
+        c_s[k] = c;
+      }
       atomicOr(&mask[j * W + (i >> 5)], 1u << (i & 31));
       bonded = true;
     }
   };
   constexpr int kLoads = 4;  // loads of 4 entries in flight per thread
   const bool vec_stage = (NN & 3) == 0 && (uintptr_t)ab % (4 * sizeof(T)) == 0 &&
-                         (uintptr_t)eb % 16 == 0;
+                         (!kStaged || (uintptr_t)eb % 16 == 0);
   for (int k0 = 0; k0 < NN; k0 += 4 * kLoads * kBwdThreads) {
     float a4[kLoads][4];
     int4 e4[kLoads];
@@ -372,13 +394,17 @@ __global__ void __launch_bounds__(kBwdThreads, 2) gin_backward_kernel(
       if (vec_stage) {
         if (k < NN) {
           vec4_load<T>(ab + k, a4[u]);
-          e4[u] = *reinterpret_cast<const int4*>(eb + k);
+          if constexpr (kStaged) e4[u] = *reinterpret_cast<const int4*>(eb + k);
         }
-      } else {
+      } else if constexpr (kStaged) {
         if (k < NN) a4[u][0] = to_f32<T>(ab[k]), e4[u].x = eb[k];
         if (k + 1 < NN) a4[u][1] = to_f32<T>(ab[k + 1]), e4[u].y = eb[k + 1];
         if (k + 2 < NN) a4[u][2] = to_f32<T>(ab[k + 2]), e4[u].z = eb[k + 2];
         if (k + 3 < NN) a4[u][3] = to_f32<T>(ab[k + 3]), e4[u].w = eb[k + 3];
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (k + q < NN) a4[u][q] = to_f32<T>(ab[k + q]);
       }
     }
     if (k0 == 0) {
@@ -418,7 +444,8 @@ __global__ void __launch_bounds__(kBwdThreads, 2) gin_backward_kernel(
 
   // 3. Warps over columns, lanes over channels. Column j's pair list is
   //    its mask: the set bits, in row order, walked four at a time so that
-  //    four g rows are in flight together. The term of pair (i, j) is
+  //    four g rows (and, unstaged, the pairs' adj values and classes) are
+  //    in flight together. The term of pair (i, j) is
   //    g[i] a_ij gelu'(x[j] + table[c_ij]), and gelu' depends on the class
   //    and not on i, so the walk only sums S[c] = sum of a_ij g[i] over
   //    the column's pairs of class c, and gelu' is taken once per class the
@@ -456,8 +483,13 @@ __global__ void __launch_bounds__(kBwdThreads, 2) gin_backward_kernel(
           const bool live = m != 0;
           const int i = 32 * w + (live ? __ffs(m) - 1 : 0);
           m &= m - 1;
-          av[u] = live ? a_s[i * N + j] : 0.f;  // a dead pair adds 0
-          cv[u] = live ? c_s[i * N + j] : 0;
+          if constexpr (kStaged) {
+            av[u] = live ? a_s[i * N + j] : 0.f;  // a dead pair adds 0
+            cv[u] = live ? c_s[i * N + j] : 0;
+          } else {
+            av[u] = live ? to_f32<T>(ab[i * N + j]) : 0.f;
+            cv[u] = live ? eb[i * N + j] : 0;
+          }
 #pragma unroll
           for (int q = 0; q < 4; ++q) gv[u][q] = 0.f;
           if (live) load4<T, kVec>(gb + (size_t)i * H, s0, lane, H, gv[u]);
@@ -504,28 +536,30 @@ __global__ void __launch_bounds__(kBwdThreads, 2) gin_backward_kernel(
   }
 }
 
-template <typename T, bool kVec>
+template <typename T, bool kVec, bool kStaged>
 int launch_backward_as(const void* x, const void* edge, const void* adj,
                        const void* table, const void* g, void* dx,
                        void* dtable_part, int B, int N, int H, void* stream) {
-  const size_t smem = backward_smem_bytes(N);
+  const size_t smem = backward_smem_bytes(N, kStaged);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        gin_backward_kernel<T, kVec>,
+        gin_backward_kernel<T, kVec, kStaged>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   const dim3 grid(B, (H + kSlice - 1) / kSlice);
-  gin_backward_kernel<T, kVec><<<grid, kBwdThreads, smem, (cudaStream_t)stream>>>(
+  gin_backward_kernel<T, kVec, kStaged><<<grid, kBwdThreads, smem, (cudaStream_t)stream>>>(
       (const T*)x, (const int32_t*)edge, (const T*)adj, (const T*)table,
       (const T*)g, (T*)dx, (float*)dtable_part, N, H);
   return (int)cudaGetLastError();
 }
 
+// staged picks the body; the wrapper routes by N (gin_backward_body).
 template <typename T>
 int launch_backward(const void* x, const void* edge, const void* adj,
                     const void* table, const void* g, void* dx,
-                    void* dtable_part, int B, int N, int H, void* stream) {
+                    void* dtable_part, int B, int N, int H, bool staged,
+                    void* stream) {
   if (B <= 0 || N <= 0 || H <= 0) return (int)cudaSuccess;
   // the vector path: four channels in one access, so H % 4 == 0 and every
   // row it reads or writes aligned to that access
@@ -533,10 +567,14 @@ int launch_backward(const void* x, const void* edge, const void* adj,
   const bool vec = H % 4 == 0 && (uintptr_t)x % align == 0 &&
                    (uintptr_t)table % align == 0 && (uintptr_t)g % align == 0 &&
                    (uintptr_t)dx % align == 0;
-  return vec ? launch_backward_as<T, true>(x, edge, adj, table, g, dx,
-                                           dtable_part, B, N, H, stream)
-             : launch_backward_as<T, false>(x, edge, adj, table, g, dx,
-                                            dtable_part, B, N, H, stream);
+  auto go = [&](auto fn) {
+    return fn(x, edge, adj, table, g, dx, dtable_part, B, N, H, stream);
+  };
+  if (staged)
+    return vec ? go(launch_backward_as<T, true, true>)
+               : go(launch_backward_as<T, false, true>);
+  return vec ? go(launch_backward_as<T, true, false>)
+             : go(launch_backward_as<T, false, false>);
 }
 
 }  // namespace
@@ -545,18 +583,18 @@ extern "C" {
 
 int llamole_gin_backward_f32(const void* x, const void* edge, const void* adj,
                              const void* table, const void* g, void* dx,
-                             void* dtable_part, int B, int N, int H,
+                             void* dtable_part, int B, int N, int H, int staged,
                              void* stream) {
   return launch_backward<float>(x, edge, adj, table, g, dx, dtable_part, B, N,
-                                H, stream);
+                                H, staged != 0, stream);
 }
 
 int llamole_gin_backward_bf16(const void* x, const void* edge, const void* adj,
                               const void* table, const void* g, void* dx,
-                              void* dtable_part, int B, int N, int H,
+                              void* dtable_part, int B, int N, int H, int staged,
                               void* stream) {
-  return launch_backward<__nv_bfloat16>(x, edge, adj, table, g, dx,
-                                        dtable_part, B, N, H, stream);
+  return launch_backward<__nv_bfloat16>(x, edge, adj, table, g, dx, dtable_part,
+                                        B, N, H, staged != 0, stream);
 }
 
 int llamole_gin_aggregate_f32(const void* x, const void* edge, const void* adj,

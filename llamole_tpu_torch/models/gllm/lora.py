@@ -9,11 +9,32 @@ transposes the JAX [in, r] / [r, out] leaves. `merge_lora` folds the
 adapters into the base weights for export (JAX lora.merge_lora).
 """
 
-from typing import Optional
+import contextlib
+import threading
+from typing import Iterable, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+
+# The projections whose adapter is off, per thread: the switch belongs to
+# the calling thread, so a forward on another thread (the continuous
+# server decodes on one thread while another scores values on the base
+# weights) keeps its adapter.
+_off = threading.local()
+
+
+@contextlib.contextmanager
+def adapters_off(modules: Iterable["LoRALinear"]):
+    """Inside the block, `modules` compute their base projection alone on
+    the calling thread; other threads see no change."""
+    before = getattr(_off, "ids", frozenset())
+    _off.ids = before | {id(m) for m in modules}
+    try:
+        yield
+    finally:
+        _off.ids = before
 
 
 def lora_scale(rank: int, alpha: Optional[int] = None,
@@ -37,7 +58,6 @@ class LoRALinear(nn.Module):
         self.lora_a = None
         self.lora_b = None
         self.lora_scale = 1.0
-        self.lora_enabled = True   # off: the base projection alone
 
     def add_lora(self, rank: int, scale: float,
                  dtype=torch.float32) -> None:
@@ -48,6 +68,12 @@ class LoRALinear(nn.Module):
         self.lora_b = nn.Parameter(torch.empty(self.weight.shape[0], rank,
                                                dtype=dtype, device=dev))
         self.lora_scale = scale
+
+    @property
+    def lora_enabled(self) -> bool:
+        """Whether the adapter applies on the calling thread (adapters_off
+        turns it off there alone)."""
+        return id(self) not in getattr(_off, "ids", ())
 
     @torch.no_grad()
     def reset_lora(self, generator: torch.Generator) -> None:

@@ -17,7 +17,6 @@ int8 KV cache, quantized weights, MoE, sliding-window, logit softcap,
 qk-norm and the other gemma-family knobs.
 """
 
-import contextlib
 import math
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -28,7 +27,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from .config import LLMConfig
-from .lora import LoRALinear
+from .lora import LoRALinear, adapters_off
 
 _NEG = -1e30
 _TOP_P_CANDIDATES = 256  # top-p nucleus cap; see _warped_candidates
@@ -267,18 +266,13 @@ class LLM(nn.Module):
             if isinstance(m, LoRALinear) and m.lora_a is not None:
                 m.reset_lora(generator)
 
-    @contextlib.contextmanager
     def adapter_disabled(self):
-        """Run the base weights alone inside the block: the JAX package
-        passes no `lora` tree there (the likert value scoring)."""
-        mods = [m for m in self.modules() if isinstance(m, LoRALinear)]
-        for m in mods:
-            m.lora_enabled = False
-        try:
-            yield
-        finally:
-            for m in mods:
-                m.lora_enabled = True
+        """Run the base weights alone inside the block, on the calling
+        thread only: the JAX package passes no `lora` tree there (the
+        likert value scoring). A forward on another thread keeps the
+        adapter."""
+        return adapters_off(m for m in self.modules()
+                            if isinstance(m, LoRALinear))
 
     def forward(self, input_ids=None, attention_mask=None, positions=None,
                 kv_cache: Optional[KVCache] = None, cache_index=None,

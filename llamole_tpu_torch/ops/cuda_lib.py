@@ -75,8 +75,8 @@ class KernelLibrary:
                      "llamole_gin_backward_bf16"):
             fn = getattr(self.cdll, name)
             # x, edge, adj, table, g, dx, dtable_part [B, 5, H], B, N, H,
-            # stream
-            fn.argtypes = [ptr] * 7 + [i32] * 3 + [ptr]
+            # staged (the body), stream
+            fn.argtypes = [ptr] * 7 + [i32] * 4 + [ptr]
             fn.restype = i32
         self.cdll.llamole_cuda_error_string.argtypes = [i32]
         self.cdll.llamole_cuda_error_string.restype = ctypes.c_char_p

@@ -14,7 +14,8 @@ the table, as the JAX custom_vjp gives them.
 On a CUDA tensor the forward launches kernel B (csrc/gin_aggregate.cu,
 the port of llamole_tpu/ops/pallas/gin_aggregate.py `_gin_kernel`) and
 the backward kernel C (`gin_aggregate_backward`, the port of
-`_gin_bwd_kernel`), or they raise; on a CPU tensor both directions run
+`_gin_bwd_kernel`, on one of two bodies by N: `gin_backward_body`), or
+they raise; on a CPU tensor both directions run
 their plain PyTorch versions, `gin_aggregate_reference` (the torch form of
 `_gin_reference`) and `gin_aggregate_backward_reference` (of
 `_gin_bwd_jnp`), which the tests and chip_smoke.py also compare the
@@ -112,23 +113,58 @@ def _forward(x, edge_classes, adj, table) -> torch.Tensor:
     return out
 
 
-def gin_backward_shared_bytes(n: int) -> int:
+def gin_backward_shared_bytes(n: int, body: str = "smem") -> int:
     """Dynamic shared memory of one kernel-C block (csrc/gin_aggregate.cu
-    backward_smem_bytes): adj's non-zero values and classes at [i, j]
-    (8 N^2 bytes), a bitmask of each column's rows, and the 8 warps'
-    [5, 128] f32 dtable rows. H does not enter it."""
-    return 4 * (2 * n * n + n * -(-n // 32) + 8 * 5 * 128)
+    backward_smem_bytes): a bitmask of each column's rows and the 8 warps'
+    [5, 128] f32 dtable rows, plus, in the "smem" body, adj's non-zero
+    values and classes at [i, j] (8 N^2 bytes). H does not enter it."""
+    staged = 2 * n * n if body == "smem" else 0
+    return 4 * (staged + n * -(-n // 32) + 8 * 5 * 128)
 
 
-# the largest N whose block fits the shared memory a block may opt into
-GIN_BWD_MAX_NODES = max(n for n in range(1, 512)
-                        if gin_backward_shared_bytes(n) <= MAX_SHARED_BYTES)
+def _largest_n(body: str) -> int:
+    """The largest N whose block fits the shared memory a block may opt
+    into."""
+    return max(n for n in range(1, 4096)
+               if gin_backward_shared_bytes(n, body) <= MAX_SHARED_BYTES)
+
+
+# 161: the staged body; 1292: the body that keeps only the masks
+GIN_BWD_SMEM_MAX_NODES = _largest_n("smem")
+GIN_BWD_MAX_NODES = _largest_n("global")
+
+
+def gin_backward_body(n: int) -> str:
+    """Kernel C's body for graphs of n nodes: "smem" (the pair values and
+    classes staged in shared memory) up to GIN_BWD_SMEM_MAX_NODES, else
+    "global" (read at the pairs from device memory)."""
+    return "smem" if n <= GIN_BWD_SMEM_MAX_NODES else "global"
+
+
+def _launch_backward(x, edge_classes, adj, table, g, body: str):
+    """Kernel C on the card on `body`, launched and not counted: (dx,
+    dtable). The caller has checked the inputs and that N fits the
+    body."""
+    b, n, h = x.shape
+    dx = torch.empty_like(x)
+    # one dtable partial per graph; the kernel writes every element of both
+    part = torch.empty((b, NUM_EDGE_CLASSES, h), dtype=torch.float32,
+                       device=x.device)
+    launch(cuda_lib.entry("llamole_gin_backward_"
+                          + cuda_lib.dtype_suffix(x.dtype)), x.device,
+           "gin_aggregate_backward launch", x.data_ptr(),
+           edge_classes.data_ptr(), adj.data_ptr(), table.data_ptr(),
+           g.data_ptr(), dx.data_ptr(), part.data_ptr(), b, n, h,
+           int(body == "smem"))
+    # the partials summed in a fixed order: no atomics, the same bits on
+    # every run
+    return dx, part.sum(dim=0).to(table.dtype)
 
 
 def gin_aggregate_backward(x, edge_classes, adj, table, g):
     """(dx, dtable) of gin_aggregate for the output gradient g [B, N, H]:
-    kernel C on the card (f32 sums, rounded to x's / table's dtype), the
-    plain version on the CPU."""
+    kernel C on the card (f32 sums, rounded to x's / table's dtype), on
+    the body gin_backward_body(N) picks; the plain version on the CPU."""
     if not _on_card(x, "gin_aggregate_backward"):
         return gin_aggregate_backward_reference(x, edge_classes, adj, table,
                                                 g)
@@ -137,26 +173,22 @@ def gin_aggregate_backward(x, edge_classes, adj, table, g):
             or not g.is_contiguous()):
         raise ValueError(f"g must be a contiguous {tuple(x.shape)} "
                          f"{x.dtype} tensor on x's device")
-    b, n, h = x.shape
+    n = x.shape[1]
     if n > GIN_BWD_MAX_NODES:
-        raise ValueError(f"N={n} needs {gin_backward_shared_bytes(n)} bytes "
-                         f"of shared memory; kernel C holds at most "
-                         f"{MAX_SHARED_BYTES} (N <= {GIN_BWD_MAX_NODES})")
-    dx = torch.empty_like(x)
+        raise ValueError(
+            f"N={n} needs {gin_backward_shared_bytes(n, 'global')} bytes of "
+            f"shared memory for its column masks; kernel C holds at most "
+            f"{MAX_SHARED_BYTES} (N <= {GIN_BWD_MAX_NODES})")
     if not x.numel():
-        return dx, torch.zeros_like(table)
-    # one dtable partial per graph; the kernel writes every element of both
-    part = torch.empty((b, NUM_EDGE_CLASSES, h), dtype=torch.float32,
-                       device=x.device)
-    launch(cuda_lib.entry(f"llamole_gin_backward_"
-                          f"{cuda_lib.dtype_suffix(x.dtype)}"), x.device,
-           "gin_aggregate_backward launch", x.data_ptr(),
-           edge_classes.data_ptr(), adj.data_ptr(), table.data_ptr(),
-           g.data_ptr(), dx.data_ptr(), part.data_ptr(), b, n, h)
+        return torch.empty_like(x), torch.zeros_like(table)
+    body = gin_backward_body(n)
+    out = _launch_backward(x, edge_classes, adj, table, g, body)
     gin_aggregate_backward.launches += 1
-    # the partials summed in a fixed order: no atomics, the same bits on
-    # every run
-    return dx, part.sum(dim=0).to(table.dtype)
+    if body == "smem":
+        gin_aggregate_backward.launches_smem += 1
+    else:
+        gin_aggregate_backward.launches_global += 1
+    return out
 
 
 class _GinAggregate(torch.autograd.Function):
@@ -181,4 +213,7 @@ def gin_aggregate(x, edge_classes, adj, table) -> torch.Tensor:
 
 
 gin_aggregate.launches = 0
+# launches per body beside the total, as fused_block_attention counts them
 gin_aggregate_backward.launches = 0
+gin_aggregate_backward.launches_smem = 0
+gin_aggregate_backward.launches_global = 0

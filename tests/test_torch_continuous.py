@@ -1,0 +1,241 @@
+"""llamole_tpu_torch's SlotDecoder (continuous decoding) against the JAX
+SlotDecoder and the port's own LLM.generate, on the tiny f32 LLM with a
+rank-4 adapter, JAX weights carried into the port through the weight
+bridge; prompts from seeded numpy.
+
+Tolerance: every comparison is an exact greedy token match (f32 on the
+CPU, argmax over logits that agree to ~1e-6 between the paths).
+"""
+
+from dataclasses import replace
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from llamole_tpu.models.gllm import LLM as JaxLLM
+from llamole_tpu.models.gllm import LLMConfig as JaxLLMConfig
+from llamole_tpu.models.gllm import init_lora
+from llamole_tpu.models.gllm.continuous import SlotDecoder as JaxSlotDecoder
+from llamole_tpu_torch.models.gllm import LLM, LLMConfig
+from llamole_tpu_torch.models.gllm.continuous import SlotDecoder, _bucket
+from llamole_tpu_torch.weights import llm_state_dict
+
+VOCAB = 97
+RANK, SCALE = 4, 2.0
+
+
+@pytest.fixture(scope="module")
+def tiny():
+    """(JAX LLM, params, lora, port LLM holding the same weights)."""
+    jllm = JaxLLM(JaxLLMConfig.tiny(VOCAB), dtype=jnp.float32)
+    params = jax.tree.map(np.asarray, jllm.init(jax.random.PRNGKey(0)))
+    rng = np.random.default_rng(1)
+    lora = jax.tree.map(   # random B too, so the adapter changes outputs
+        lambda a: rng.normal(size=np.shape(a)).astype(np.float32) * 0.05,
+        init_lora(jax.random.PRNGKey(2), JaxLLMConfig.tiny(VOCAB),
+                  rank=RANK))
+    llm = LLM(LLMConfig.tiny(VOCAB), dtype=torch.float32)
+    llm.add_lora(RANK, SCALE)
+    llm.load_state_dict(llm_state_dict(params, lora))
+    return jllm, params, lora, llm
+
+
+def _generate(llm, prompt, *, max_new, eos_ids):
+    """The full [max_new] greedy row of the port's generate() (pads after
+    a stop). Slot outputs are padded to the same shape to compare: token
+    0 is a real vocab token, so stripping pads would be ambiguous."""
+    ids = torch.tensor([prompt])
+    out, _ = llm.generate(ids, torch.ones_like(ids, dtype=torch.int32),
+                          max_new_tokens=max_new, do_sample=False,
+                          eos_ids=eos_ids, pad_id=0)
+    return out[0].numpy()
+
+
+def _padded(got, max_new):
+    full = np.zeros((max_new,), np.int64)
+    full[:len(got)] = got
+    return full
+
+
+def _decoder(llm, **kw):
+    base = dict(slots=2, cache_len=64, max_new_tokens=8, eos_ids=(9,),
+                pad_id=0, do_sample=False, chunk_steps=3,
+                prompt_buckets=(8,))
+    return SlotDecoder(llm, **{**base, **kw})
+
+
+def test_bucket_selection():
+    assert _bucket(3, (8, 16)) == 8
+    assert _bucket(8, (8, 16)) == 8
+    assert _bucket(9, (8, 16)) == 16
+    with pytest.raises(ValueError, match="exceeds"):
+        _bucket(17, (8, 16))
+
+
+def test_greedy_parity_with_jax_slot_decoder_and_generate(tiny):
+    """Every request through the pool emits exactly the JAX SlotDecoder's
+    tokens and the port's generate()'s, stops on eos and on the budget
+    included, whatever its slot-mates."""
+    jllm, params, lora, llm = tiny
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, VOCAB, size=n).tolist()
+               for n in (3, 7, 5, 11, 4)]
+    kw = dict(slots=2, cache_len=64, max_new_tokens=10, eos_ids=(9, 23),
+              pad_id=0, do_sample=False, chunk_steps=3,
+              prompt_buckets=(8, 16))
+    jdec = JaxSlotDecoder(jllm, params, lora=lora, lora_scale=SCALE, **kw)
+    jrids = [jdec.submit(p) for p in prompts]
+    want = jdec.drain()
+    dec = SlotDecoder(llm, **kw)
+    rids = [dec.submit(p) for p in prompts]
+    got = dec.drain()
+    assert set(got) == set(rids)
+    stops = 0
+    for rid, jrid, prompt in zip(rids, jrids, prompts):
+        toks, trig = got[rid]
+        np.testing.assert_array_equal(toks, np.asarray(want[jrid][0]))
+        assert trig == want[jrid][1]
+        np.testing.assert_array_equal(
+            _padded(toks, 10),
+            _generate(llm, prompt, max_new=10, eos_ids=(9, 23)))
+        stops += trig != -1
+    assert 0 < stops < len(prompts)   # stops on eos and on the budget
+    assert dec.idle and dec.chunks_run >= 3
+
+
+def test_staggered_admission_does_not_change_outputs(tiny):
+    """A request admitted mid-flight decodes the tokens it decodes in an
+    empty pool (slot isolation)."""
+    *_, llm = tiny
+    rng = np.random.default_rng(1)
+    a = rng.integers(1, VOCAB, size=6).tolist()
+    b = rng.integers(1, VOCAB, size=4).tolist()
+    dec = _decoder(llm, eos_ids=(), chunk_steps=2)
+    ra = dec.submit(a)
+    dec.step()          # a is mid-decode
+    rb = dec.submit(b)  # b joins a running pool
+    results = dec.drain()
+    solo = _decoder(llm, eos_ids=(), chunk_steps=2)
+    rb2 = solo.submit(b)
+    np.testing.assert_array_equal(results[rb][0], solo.drain()[rb2][0])
+    np.testing.assert_array_equal(
+        _padded(results[ra][0], 8), _generate(llm, a, max_new=8, eos_ids=()))
+
+
+def test_slot_reuse_and_chunks_run(tiny):
+    """More requests than slots: retirement frees slots for the queue and
+    every request completes (each slot's state rows rewritten for its new
+    occupant: the outputs still match generate())."""
+    *_, llm = tiny
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(1, VOCAB, size=rng.integers(2, 8)).tolist()
+               for _ in range(7)]
+    dec = _decoder(llm, cache_len=32, max_new_tokens=5, eos_ids=(),
+                   chunk_steps=5)
+    rids = [dec.submit(p) for p in prompts]
+    results = dec.drain()
+    assert set(results) == set(rids)
+    assert all(len(results[r][0]) == 5 for r in rids)
+    assert dec.idle and dec.chunks_run >= 4   # 7 requests / 2 slots
+    assert sorted(dec._free) == [0, 1]
+    for rid, prompt in zip(rids, prompts):
+        np.testing.assert_array_equal(
+            results[rid][0], _generate(llm, prompt, max_new=5, eos_ids=()))
+
+
+def test_shared_prefix_parity_and_fallback(tiny):
+    """Prefix admissions emit the full path's tokens (the prefix's KV rows
+    prefill once, suffixes attend over them); prompts that do not start
+    with the prefix, or equal it, take the full path."""
+    jllm, params, lora, llm = tiny
+    rng = np.random.default_rng(9)
+    prefix = rng.integers(1, VOCAB, size=6).tolist()
+    suffixes = [rng.integers(1, VOCAB, size=n).tolist() for n in (3, 5, 2)]
+    prompts = [prefix + s for s in suffixes]
+    other = rng.integers(1, VOCAB, size=7).tolist()   # no prefix match
+    dec = _decoder(llm, shared_prefix=prefix)
+    jdec = JaxSlotDecoder(jllm, params, lora=lora, lora_scale=SCALE,
+                          slots=2, cache_len=64, max_new_tokens=8,
+                          eos_ids=(9,), pad_id=0, do_sample=False,
+                          chunk_steps=3, prompt_buckets=(8,),
+                          shared_prefix=prefix)
+    rids = [dec.submit(p) for p in prompts + [other]]
+    jrids = [jdec.submit(p) for p in prompts + [other]]
+    results, want = dec.drain(), jdec.drain()
+    assert dec.prefix_admissions == len(prompts)
+    for rid, jrid, prompt in zip(rids, jrids, prompts + [other]):
+        np.testing.assert_array_equal(results[rid][0],
+                                      np.asarray(want[jrid][0]))
+        np.testing.assert_array_equal(
+            _padded(results[rid][0], 8),
+            _generate(llm, prompt, max_new=8, eos_ids=(9,)))
+    # prompt == prefix: no suffix token left for a first sample -> full
+    rid = dec.submit(list(prefix))
+    out = dec.drain()[rid][0]
+    assert dec.prefix_admissions == len(prompts)
+    np.testing.assert_array_equal(
+        _padded(out, 8), _generate(llm, prefix, max_new=8, eos_ids=(9,)))
+
+
+def test_oversized_prompt_refused_without_slot_leak(tiny):
+    """submit() refuses a prompt past every bucket before a slot is
+    claimed; the pool serves on afterwards."""
+    *_, llm = tiny
+    dec = _decoder(llm, cache_len=32, max_new_tokens=4, eos_ids=(),
+                   chunk_steps=2)
+    for _ in range(3):   # more refusals than slots: a leak would show
+        with pytest.raises(ValueError, match="exceeds"):
+            dec.submit(list(range(1, 20)))
+    rid = dec.submit([1, 2, 3])
+    results = dec.drain()
+    assert len(results[rid][0]) == 4
+    assert len(dec._free) == 2
+
+
+def test_cache_len_guard(tiny):
+    *_, llm = tiny
+    with pytest.raises(ValueError, match="cache_len"):
+        SlotDecoder(llm, slots=2, cache_len=16, max_new_tokens=16,
+                    prompt_buckets=(8,))
+    with pytest.raises(ValueError, match="shared prefix 4"):
+        SlotDecoder(llm, slots=2, cache_len=26, max_new_tokens=16,
+                    prompt_buckets=(8,), shared_prefix=[1, 2, 3, 4])
+
+
+def test_int8_kv_and_sliding_window_are_refused(tiny):
+    """The port has no int8 KV cache nor sliding-window attention: the LLM
+    refuses such configs, and so does the pool for an LLM whose config
+    asks for either."""
+    *_, llm = tiny
+    for change in ({"kv_cache_dtype": "int8"}, {"sliding_window": 4}):
+        cfg = replace(LLMConfig.tiny(VOCAB), **change)
+        with pytest.raises(NotImplementedError):
+            LLM(cfg, dtype=torch.float32)
+        odd = LLM(LLMConfig.tiny(VOCAB), dtype=torch.float32)
+        odd.cfg = cfg
+        with pytest.raises(NotImplementedError, match="not support"):
+            SlotDecoder(odd, slots=2, cache_len=64, max_new_tokens=8,
+                        prompt_buckets=(8,))
+
+
+def test_sampled_decoding_is_seeded(tiny):
+    """Sampling draws from the pool's own generator: one seed, one
+    output; every row keeps its budget."""
+    *_, llm = tiny
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(1, VOCAB, size=n).tolist() for n in (4, 6, 3)]
+
+    def run(seed):
+        dec = _decoder(llm, do_sample=True, temperature=1.0, top_p=0.9,
+                       eos_ids=(), seed=seed)
+        rids = [dec.submit(p) for p in prompts]
+        out = dec.drain()
+        return [out[r][0] for r in rids]
+
+    first, again = run(3), run(3)
+    for a, b in zip(first, again):
+        np.testing.assert_array_equal(a, b)
+        assert len(a) == 8 and ((0 <= a) & (a < VOCAB)).all()

@@ -349,3 +349,92 @@ def test_cost_mlp_matches_jax():
                                jm.estimate_cost(params, "CCO"), atol=1e-5)
     with pytest.raises(ValueError, match="Invalid SMILES"):
         tm.estimate_cost("not a molecule")
+
+
+# kernel C past the staged body's 161 nodes: one large molecule widens a
+# whole pretraining bank
+LARGE = "OC" + "C" * 159 + "N"   # 162 heavy atoms
+
+
+def test_gin_backward_plain_matches_jax_past_161_nodes():
+    """The plain C (what the CPU runs, and what the card's second body is
+    held to) at N = 170 against the JAX jnp backward, on sparse
+    molecule-like graphs (~3 bonds a node), atol = rtol = 1e-5."""
+    b, n, h = 2, 170, 16
+    rng = np.random.default_rng(12)
+    bonded = np.triu(rng.random((b, n, n)) < 3.0 / n, 1)
+    edges = (bonded * rng.integers(1, 5, (b, n, n))).astype(np.int32)
+    edges = edges + edges.transpose(0, 2, 1)
+    adj = (edges > 0).astype(np.float32)
+    x = rng.normal(size=(b, n, h)).astype(np.float32)
+    table = rng.normal(size=(5, h)).astype(np.float32)
+    g = _grad(b, n, h, 13)
+    dx, dt = gin_aggregate_backward(_t(x), _t(edges), _t(adj), _t(table),
+                                    _t(g))
+    want_dx, _, _, want_dt = jax_gin_mod._gin_bwd_jnp(
+        tuple(map(jnp.asarray, (x, edges, adj, table))), jnp.asarray(g))
+    np.testing.assert_allclose(dx.numpy(), np.asarray(want_dx), atol=1e-5,
+                               rtol=1e-5)
+    np.testing.assert_allclose(dt.numpy(), np.asarray(want_dt), atol=1e-5,
+                               rtol=1e-5)
+
+
+def test_gin_backward_body_routes_by_n():
+    from llamole_tpu_torch.ops.gin_aggregate import (
+        GIN_BWD_MAX_NODES, GIN_BWD_SMEM_MAX_NODES, gin_backward_body,
+        gin_backward_shared_bytes)
+    from llamole_tpu_torch.ops.cuda_lib import MAX_SHARED_BYTES
+    assert (GIN_BWD_SMEM_MAX_NODES, GIN_BWD_MAX_NODES) == (161, 1292)
+    assert [gin_backward_body(n) for n in (1, 161, 162, 512, 1292)] == [
+        "smem", "smem", "global", "global", "global"]
+    # each body's largest N is the last whose block fits shared memory
+    for body, n in (("smem", 161), ("global", 1292)):
+        assert gin_backward_shared_bytes(n, body) <= MAX_SHARED_BYTES
+        assert gin_backward_shared_bytes(n + 1, body) > MAX_SHARED_BYTES
+    # the second body keeps the masks alone: 32 KB of them at N = 512
+    assert gin_backward_shared_bytes(512, "global") == 4 * (512 * 16
+                                                            + 8 * 5 * 128)
+
+
+def test_both_packages_size_the_bank_by_a_162_atom_molecule(tmp_path,
+                                                            monkeypatch):
+    """GraphCLIP's pretraining bank in both packages is the largest
+    molecule rounded up to 8: 168 for a corpus holding one of 162 atoms,
+    past the staged body, so the port's steps take the second body."""
+    import json
+
+    import llamole_tpu.train.pretrain as jax_pretrain
+    import llamole_tpu_torch.train.pretrain as torch_pretrain
+    from llamole_tpu_torch.ops.gin_aggregate import gin_backward_body
+
+    assert torch_smiles_to_graph(LARGE).n_nodes == 162
+    records = [{"instruction": f"Design molecule {i}.", "input": "",
+                "output": f"It is <mol_start>{s}<mol_end>.", "property": {},
+                "retro": []}
+               for i, s in enumerate(MOLS + [LARGE])]
+    corpus = tmp_path / "corpus.json"
+    corpus.write_text(json.dumps(records))
+
+    class Padded(Exception):
+        pass
+
+    seen = {}
+
+    def capture(key):
+        def pad(graphs, n, *args, **kwargs):
+            seen[key] = n
+            raise Padded
+        return pad
+
+    monkeypatch.setattr(jax_pretrain, "pad_graph_batch", capture("jax"))
+    monkeypatch.setattr(torch_pretrain, "_graph_tensors", capture("torch"))
+    with pytest.raises(Padded):
+        jax_pretrain.pretrain_graphclip(str(corpus), str(tmp_path / "j"),
+                                        num_layer=2, hidden_size=16,
+                                        steps=1)
+    with pytest.raises(Padded):
+        torch_pretrain.pretrain_graphclip(str(corpus), str(tmp_path / "t"),
+                                          num_layer=2, hidden_size=16,
+                                          steps=1, device="cpu")
+    assert seen == {"jax": 168, "torch": 168}
+    assert gin_backward_body(seen["torch"]) == "global"

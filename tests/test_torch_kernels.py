@@ -320,32 +320,88 @@ def test_gin_backward_kernel_molecules_in_a_padded_bank(cuda, last):
     assert not dx[mask.logical_not().all(dim=1)].any()
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_gin_backward_kernel_at_its_largest_n(cuda, dtype):
-    """Dense random graphs (every node kept) at the largest N the kernel's
-    shared memory takes."""
-    from llamole_tpu_torch.ops.gin_aggregate import GIN_BWD_MAX_NODES
-    n = GIN_BWD_MAX_NODES
-    x, edge, adj, table = gin_inputs(cuda, dtype, 2, n, 64)
-    adj = (edge > 0).to(dtype)               # every node kept
-    g = torch.randn_like(x)
-    dx, dt = gin_aggregate_backward(x, edge, adj, table, g)
-    torch.cuda.synchronize()
-    rdx, rdt = gin_aggregate_backward_reference(x, edge, adj, table, g)
+def _check_dense_backward(dx, dt, rdx, rdt, dtype):
     for got, ref, name in ((dx, rdx, "dx"), (dt, rdt, "dtable")):
         err = float((got.float() - ref.float()).abs().max())
         scale = float(ref.float().abs().max())
         if dtype == torch.bfloat16:     # f32 sums rounded once to bf16
             assert err <= 1e-2 * scale, (name, err)
         elif name == "dtable":
-            # an entry sums ~2 * N^2 / 5 terms (~10^4): 1e-4 of its
-            # range, as for the dense (80, 50, 300) case
+            # an entry sums ~2 * N^2 / 5 terms (~10^4 and more): 1e-4 of
+            # its range, as for the dense (80, 50, 300) case
             assert err <= 1e-4 * scale, (name, err, scale)
         else:                           # the JAX kernel's contract
             torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-4)
 
 
+@pytest.mark.parametrize("body", ["smem", "global"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gin_backward_kernel_at_its_largest_n(cuda, body, dtype):
+    """Dense random graphs (every node kept) at the largest N each body's
+    shared memory takes: 161 staged, 1292 with the column masks alone."""
+    from llamole_tpu_torch.ops.gin_aggregate import (GIN_BWD_MAX_NODES,
+                                                     GIN_BWD_SMEM_MAX_NODES,
+                                                     gin_backward_body)
+    n = GIN_BWD_SMEM_MAX_NODES if body == "smem" else GIN_BWD_MAX_NODES
+    assert gin_backward_body(n) == body
+    x, edge, adj, table = gin_inputs(cuda, dtype, 2 if body == "smem" else 1,
+                                     n, 64)
+    adj = (edge > 0).to(dtype)               # every node kept
+    g = torch.randn_like(x)
+    before = getattr(gin_aggregate_backward, f"launches_{body}")
+    dx, dt = gin_aggregate_backward(x, edge, adj, table, g)
+    torch.cuda.synchronize()
+    assert getattr(gin_aggregate_backward, f"launches_{body}") == before + 1
+    rdx, rdt = gin_aggregate_backward_reference(x, edge, adj, table, g)
+    _check_dense_backward(dx, dt, rdx, rdt, dtype)
+
+
+@pytest.mark.parametrize("n", [162, 168, 512])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gin_backward_global_body_past_the_staged_limit(cuda, n, dtype):
+    """N past the staged body's 161 (one large molecule widens a whole
+    pretraining bank): dense graphs on the second body, within the
+    tolerances of the first, the same bits on two runs, and each launch
+    counted on the body its N routes to."""
+    from llamole_tpu_torch.ops.gin_aggregate import gin_backward_body
+    assert gin_backward_body(n) == "global"
+    x, edge, adj, table = gin_inputs(cuda, dtype, 2, n, 64)
+    adj = (edge > 0).to(dtype)
+    g = torch.randn_like(x)
+    counts = (gin_aggregate_backward.launches,
+              gin_aggregate_backward.launches_smem,
+              gin_aggregate_backward.launches_global)
+    dx, dt = gin_aggregate_backward(x, edge, adj, table, g)
+    again = gin_aggregate_backward(x, edge, adj, table, g)
+    torch.cuda.synchronize()
+    assert (gin_aggregate_backward.launches,
+            gin_aggregate_backward.launches_smem,
+            gin_aggregate_backward.launches_global) == (
+        counts[0] + 2, counts[1], counts[2] + 2)
+    assert torch.equal(again[0], dx) and torch.equal(again[1], dt)
+    rdx, rdt = gin_aggregate_backward_reference(x, edge, adj, table, g)
+    _check_dense_backward(dx, dt, rdx, rdt, dtype)
+
+
+@pytest.mark.parametrize("n", [24, 50, 161])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gin_backward_bodies_give_the_same_bits(cuda, n, dtype):
+    """The two bodies differ only in where a pair's adj value and class are
+    read, so at an N the staged body takes, the second body (launched past
+    the routing) returns the same bits."""
+    from llamole_tpu_torch.ops.gin_aggregate import _launch_backward
+    x, edge, adj, table = gin_inputs(cuda, dtype, 3, n, 300)
+    g = torch.randn_like(x)
+    staged = gin_aggregate_backward(x, edge, adj, table, g)
+    second = _launch_backward(x, edge, adj, table, g, "global")
+    torch.cuda.synchronize()
+    assert torch.equal(staged[0], second[0])
+    assert torch.equal(staged[1], second[1])
+
+
 def test_gin_backward_kernel_refuses_n_past_its_limit(cuda):
+    """Past the second body's 1292 the column masks outgrow shared memory:
+    a ValueError, nothing launched."""
     from llamole_tpu_torch.ops.gin_aggregate import GIN_BWD_MAX_NODES
     n = GIN_BWD_MAX_NODES + 1
     x, edge, adj, table = gin_inputs(cuda, torch.float32, 1, n, 8)

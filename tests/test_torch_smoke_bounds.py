@@ -280,3 +280,67 @@ def test_interchange_phase_sizes_are_the_8b_shape(monkeypatch):
     shards, nbytes = shard_plan(hf_state_dict(llm), sizes["shard_gb"])
     assert len(shards) == 3 and sum(nbytes) == 16060522496
     assert max(nbytes) <= 5 * 2 ** 30
+
+
+def test_large_n_bank_is_what_bucket_gives(tmp_path):
+    """The bank chip_smoke.py times kernel C's second body at is the
+    pretraining batch of 64 with LARGE_MOLECULE in it, as wide as
+    pretrain._bucket makes the bank of a corpus holding that molecule:
+    162 atoms rounded up to 168, past the staged body's 161."""
+    import json
+
+    from llamole_tpu_torch.data.synthetic import write_corpus
+    from llamole_tpu_torch.ops.gin_aggregate import gin_backward_body
+    from llamole_tpu_torch.train import pretrain
+
+    path = tmp_path / "corpus.json"
+    write_corpus(str(path), 24, seed=0)
+    records = json.loads(path.read_text())
+    atoms, edges, mask = chip_smoke._stack_batch(records, device="cpu",
+                                                 large=True)
+    clip_rows = pretrain._clip_rows(chip_smoke.large_n_records(records))
+    assert pretrain._bucket(clip_rows) == atoms.shape[1] == 168
+    assert atoms.shape == (64, 168) and int(mask[-1].sum()) == 162
+    assert int(mask[:-1].sum(dim=1).max()) <= 24   # corpus-sized molecules
+    assert gin_backward_body(168) == "global"
+    assert chip_smoke._stack_batch(records, device="cpu")[0].shape == (64,
+                                                                       24)
+
+
+# phase 13 (continuous serving over TCP) at small sizes on the CPU
+_CONTINUOUS_CPU = {"slots": 2, "design_batch": 2, "chunk_steps": 4,
+                   "cache_len": 256, "max_new_tokens": 8,
+                   "retro_iterations": 1, "retro_max_time": 5.0}
+
+
+def test_continuous_phase_runs_on_the_cpu(capsys):
+    """Phase 13 end to end at a small width: 11 requests over two TCP
+    connections to a ContinuousDesignServer, answered without an error,
+    every admission on the shared prefix, the decoder idle afterwards,
+    and the stats line counting 11 requests."""
+    assert set(_CONTINUOUS_CPU) == set(chip_smoke.CONTINUOUS)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        model, tok = _tiny_slice()
+        launches = chip_smoke.run_continuous(
+            model, tok, chip_smoke.PathTimers(model), (), "CPU",
+            sizes=_CONTINUOUS_CPU,
+            phase7={"retro": [1.0, 2.0], "design": [0.5]})
+    finally:
+        torch.set_num_threads(threads)
+    out = capsys.readouterr().out
+    assert launches == {"A": 0, "B": 0}
+    assert f"{chip_smoke.REQUESTS} of {chip_smoke.REQUESTS} admissions on " \
+        "the shared prefix" in out
+    assert '"requests_served": 11' in out
+    assert "phase 7 (DesignServer) p50 0.5 s" in out
+
+
+def test_continuous_phase_sizes_are_phase_7s():
+    """Phase 13 serves at phase 7's batch (8 slots, design groups of 8),
+    128 new tokens and the retro defaults, in a 1024-slot cache."""
+    assert chip_smoke.CONTINUOUS == {
+        "slots": 8, "design_batch": 8, "chunk_steps": 8, "cache_len": 1024,
+        "max_new_tokens": 128, "retro_iterations": 100,
+        "retro_max_time": 30.0}
