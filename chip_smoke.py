@@ -125,6 +125,33 @@
    route, 10 s retro wall) served from the merged model: no error, A >=
    28 x reverse steps x design batches, B >= 5 x (rounds + products);
    peak memory; base/ and merged/ deleted in a finally.
+13. Continuous serving (after phase 8, on the slice): see run_continuous.
+14. Quantized serving at the slice's Llama-3.1-8B shape, after phase 12
+   on an emptied card (QUANTIZED): (a) the LLM drawn straight into int8
+   weights with the int8 KV cache (as bench.py's molqa cell builds it),
+   the graph modules as in phase 7, 4 of phase 7's requests (the first
+   asking for a route) through DesignServer at phase 7's settings: no
+   "error", a "retro" block, A >= 28 x steps x design batches all on the
+   mma body, B >= 5 x (rounds + products), the LLM's weight bytes below
+   0.55x the bf16 LLM's, decode tok/s beside phase 7's, the peak, and
+   ms per decode step of its LLM with each cache, adapter on and off,
+   with one profiled run (decode_split); (e)
+   quantize_denoiser_params on a copy of its GraphDiT: one forward within
+   0.05 of bf16, a design batch of 8 at 100 steps on it (validity, A all
+   mma), ms per reverse step beside bf16's; (b) a bf16 8B LLM from a
+   seed, rebuilt and quantized in place per scheme (int8, W8A8, int4):
+   bytes (< 0.55x, 0.55x, 0.35x), every projection of the first and last
+   layers and the head on the bf16 activations within the scheme's bound
+   (QUANT_BOUNDS), the batch-8 prefill's last-position logits (relative
+   error, top-1 agreement) and ms per greedy decode step over 32 tokens
+   beside bf16's, every W8A8 projection through torch._int_mm (counted),
+   which is exact at the decode's shapes; (c) on the bf16 LLM, one decode
+   step with the int8 KV cache against the compute-dtype cache (logits;
+   the first layer's attention output within 0.02) and the greedy
+   agreement over 32 tokens; (d) run_mmsft with quantization_bit=8 over
+   the loader's int8 base (QLORA_DEVIATIONS): finite losses, the LoRA and
+   the connectors changed, the base's checksum unchanged, the peak beside
+   phase 9's.
 
 Prints, before the last line, one {"kernels": [...]} JSON line (per
 kernel: launches on the main path, max_abs_err, ms, plain_ms, device_ms,
@@ -135,13 +162,17 @@ train_* keys, with the molecules in the last rows under train_last_*;
 for B and C their launches in the phase-11 pretrainings and their
 times, bound and share at the pretraining bank under pretrain_* keys
 (H = 128 under pretrain_oracle_*); for A and B their launches in phase
-12's serving under launches_interchange (A per body too);
+12's serving under launches_interchange (A per body too); under
+launches_quantized, phase 14's: A's in its serving and int8-denoiser
+batch (per body too), B's in its serving and QLoRA training, C's in
+the latter;
 the last line is {"ok": true, "device": {...}}. Any
 failure exits non-zero.
 """
 
 import contextlib
 import copy
+import dataclasses
 import gc
 import hashlib
 import json
@@ -551,7 +582,7 @@ def check_gin(gin, reference, tag):
                for k in ("ms", "device_ms", "graph_ms", "share")}}
 
 
-def build_slice():
+def build_slice(llm=None):
     from llamole_tpu_torch.models.gllm import LLMConfig
     from llamole_tpu_torch.models.graphclip import GraphCLIPConfig
     from llamole_tpu_torch.models.graphdit import (
@@ -566,7 +597,7 @@ def build_slice():
     dit = GraphDiTConfig(hidden_size=1024, depth=28, num_heads=16,
                          diffusion_steps=100, text_dim=768, guide_scale=2.0)
     model = build_graph_lm_from_configs(
-        LLMConfig.llama3_8b(), dit, info, tok, device="cuda",
+        LLMConfig.llama3_8b(), dit, info, tok, device="cuda", llm=llm,
         llm_dtype=torch.bfloat16, graph_dtype=torch.bfloat16, seed=0,
         finetuning_type="lora", lora_rank=8,
         clip_cfg=GraphCLIPConfig(num_layer=GIN_LAYERS,
@@ -788,7 +819,8 @@ def run_serving(model, tok, timers, kernels, tag):
     print(f"valid SMILES: {valid} of {len(results)}; peak memory "
           f"{peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated) [{tag}]",
           flush=True)
-    return launches, {"retro": retro_lat, "design": design_lat}
+    return launches, {"retro": retro_lat, "design": design_lat,
+                      "decode_tok_s": dec_tokens / dec_s}
 
 
 def run_eval(model, tok, timers, kernels, tag):
@@ -1592,7 +1624,7 @@ def run_training(model, tok, kernels, tag, out_dir):
           f"{metrics.get('eval_loss')}); peak memory {peak / 2**30:.2f} "
           f"GiB (torch.cuda.max_memory_allocated) [{tag}]", flush=True)
     profile_training_step(model, last_batch[0], tag)
-    return launches["B"], c_bodies, saved
+    return launches["B"], c_bodies, saved, f"{peak / 2**30:.2f} GiB"
 
 
 def profile_training_step(model, batch, tag):
@@ -2440,6 +2472,602 @@ def _peak(on_card) -> str:
             else "not measured (CPU)")
 
 
+# Phase 14, quantized serving at the slice's Llama-3.1-8B shape on an
+# emptied card, as bench.py's molqa cell builds it: the LLM drawn straight
+# into int8 weights (quantize.init_quantized_) with the int8 KV cache,
+# GraphDiT / GraphCLIP / the predictor as in phase 7, phase 7's first 4
+# requests (the first asking for a route) through DesignServer with phase
+# 7's generation and retro settings; then the three schemes, the int8 KV
+# cache, LoRA over the int8 base through run_mmsft and the int8 denoiser
+QUANTIZED = {"requests": 4, "max_new_tokens": 128, "retro_iterations": 100,
+             "retro_max_time": 30.0, "prefill_batch": 8, "decode_tokens": 32,
+             "train_steps": 2, "design_batch": 8}
+# Bounds, from the CPU tests of the same scheme: int8 0.05, W8A8 0.10 and
+# int4 0.15 (tests/test_quantize.py's bounds for the three schemes), the
+# int8 KV cache 0.02 (tests/test_llm.py's one-step logit fidelity), the
+# int8 denoiser 0.05 (tests/test_graphdit.py), as relative errors. A
+# scheme's bound holds for each quantized projection of the first and
+# last layers and the head, on the bf16 model's own activations of the
+# prefill; the KV cache's for the first layer's attention output at a
+# decode step (the two runs' inputs there are equal, only the caches
+# differ); both as ||quantized - bf16|| / ||bf16|| over the whole output
+# (a max over one output's entries swings with its few largest ones).
+# The denoiser's is max |int8 - bf16| over max |bf16|, the JAX test's. A
+# random 32-layer stack carries each projection's error to the logits
+# several times over (PERF.md), so the logits' errors are printed beside.
+QUANT_BOUNDS = {"int8": 0.05, "w8a8": 0.10, "int4": 0.15}
+KV_BOUND = 0.02
+DENOISER_BOUND = 0.05
+# the quantized LLM's weight bytes over the bf16 LLM's (16.06 GB at 8B)
+BYTES_BOUNDS = {"int8": 0.55, "w8a8": 0.55, "int4": 0.35}
+SCHEME_ARGS = {"int8": (8, False), "w8a8": (8, True), "int4": (4, False)}
+QLORA_DEVIATIONS = {
+    "quantization_bit": "8: the LoRA and the connectors train over the "
+                        "int8 base",
+    "max_steps": "2 micro steps",
+    "gradient_accumulation_steps": "1, so that the second micro step is an "
+                                   "update with a learning rate above 0 (the "
+                                   "first, in warmup, has lr 0)",
+}
+
+
+def _rel(got, want) -> float:
+    """max |got - want| / max |want|."""
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp_min(1e-12))
+
+
+def _rel_l2(got, want) -> float:
+    """||got - want|| / ||want|| over every entry."""
+    return float((got.float() - want.float()).norm()
+                 / want.float().norm().clamp_min(1e-12))
+
+
+def quantized_llm(cfg, device, bits=8, act_int8=False, seed=0):
+    """cfg's LLM in bf16 drawn straight into the quantized layout (no bf16
+    tree), with the int8 KV cache."""
+    from llamole_tpu_torch.models.gllm import LLM
+    from llamole_tpu_torch.models.gllm.quantize import (
+        init_quantized_, llm_quant, quant_scheme)
+
+    cfg = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    llm = LLM(cfg, torch.bfloat16, device,
+              quant=llm_quant(quant_scheme(bits, act_int8), 128))
+    return init_quantized_(llm, torch.Generator(device=device)
+                           .manual_seed(seed), bits=bits,
+                           act_int8=act_int8)
+
+
+def check_bytes(llm, scheme, tag) -> int:
+    """The LLM's weight bytes against the bf16 LLM's of its config
+    (counted on the meta device), held to BYTES_BOUNDS."""
+    from llamole_tpu_torch.models.gllm import LLM
+    from llamole_tpu_torch.models.gllm.quantize import quantized_bytes
+
+    got = quantized_bytes(llm)
+    dense = quantized_bytes(LLM(llm.cfg, torch.bfloat16, "meta"))
+    print(f"quantized LLM ({scheme}): {got} weight bytes against the bf16 "
+          f"LLM's {dense} ({got / dense:.4f}x; bound "
+          f"{BYTES_BOUNDS[scheme]}x) [{tag}]", flush=True)
+    if not got < BYTES_BOUNDS[scheme] * dense:
+        fail(f"{scheme} LLM holds {got} bytes, not below "
+             f"{BYTES_BOUNDS[scheme]} x {dense}")
+    return got
+
+
+def serve_quantized(model, tok, kernels, tag, sizes, phase7):
+    """Phase 14 (a): the requests through DesignServer on the quantized
+    slice. Returns the A and B launches (on the card)."""
+    from llamole_tpu_torch.models.composite import GenerationSettings
+    from llamole_tpu_torch.serve import DesignServer
+
+    on_card = model.device.type == "cuda"
+    timers = PathTimers(model)
+    gen = GenerationSettings(max_new_tokens=sizes["max_new_tokens"],
+                             temperature=0.6, top_p=0.9, do_sample=True)
+    server = DesignServer(model, tok, batch_size=8, max_wait_s=0.5, gen=gen,
+                          rollback=True, seed=0,
+                          retro_iterations=sizes["retro_iterations"],
+                          retro_max_time=sizes["retro_max_time"])
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    reset_counts(*kernels)
+    t0 = time.perf_counter()
+    server.start()
+    try:
+        handles = [server.submit(f"{PROMPT_HEADER}{i}.",
+                                 PROPERTIES[i % len(PROPERTIES)],
+                                 retro=(i == 0))
+                   for i in range(sizes["requests"])]
+        results = [h.result(timeout=900) for h in handles]
+    finally:
+        server.stop()
+    wall = time.perf_counter() - t0
+    errors = [r["error"] for r in results if "error" in r]
+    if len(results) != sizes["requests"] or errors:
+        fail(f"quantized serving: {len(results)} answers, errors "
+             f"{errors[:3]}")
+    if results[0]["smiles"] is not None and not isinstance(
+            results[0].get("retro"), dict):
+        fail(f"quantized serving: retro request without a retro block: "
+             f"{results[0]}")
+    pad = tok.pad_token_id
+    decodes = timers.log["decode"]
+    dec_tokens = sum(int((out[0] != pad).sum()) for _, out in decodes)
+    rate = dec_tokens / timers.seconds("decode")
+    valid = sum(model.graph_decoder.check_valid(r["smiles"])
+                for r in results)
+    beside = (f"; phase 7 (bf16 weights, compute-dtype cache) "
+              f"{phase7['decode_tok_s']:.1f} tok/s in this run"
+              if phase7 else "")
+    print(f"quantized serving (int8 weights, int8 KV cache): "
+          f"{len(results)} answered in {wall:.3f} s, valid SMILES {valid}, "
+          f"route found {bool(results[0].get('retro', {}).get('success'))};"
+          f" decode {dec_tokens} tokens in {timers.seconds('decode'):.3f} s"
+          f" = {rate:.1f} tok/s{beside}; peak {_peak(on_card)} [{tag}]",
+          flush=True)
+    launches = {"A": 0, "A_mma": 0, "A_fma": 0, "B": 0}
+    if on_card:
+        fused, gin = kernels[:2]
+        launches = {"A": fused.launches, "A_mma": fused.launches_mma,
+                    "A_fma": fused.launches_fma, "B": gin.launches}
+        check_mma_only(fused, "quantized serving")
+        steps = diffusion_steps(model)
+        depth = model.graph_decoder.cfg.depth
+        batches = timers.count("design")
+        check_launches("fused_block_attention (quantized serving)",
+                       launches["A"], depth * steps * batches,
+                       f"{depth} x {steps} x {batches}")
+        check_launches("gin_aggregate (quantized serving)", launches["B"],
+                       timers.gin_floor(),
+                       f"{GIN_LAYERS} x ({timers.count('splice')} rounds + "
+                       f"{timers.count('predictor')} products)")
+    return launches
+
+
+@torch.no_grad()
+def decode_split(llm, tok, tag, sizes):
+    """Phase 14 (a), after serving: ms per greedy decode step of the
+    serving LLM (int8 weights, rank-8 LoRA) at batch 8 with its int8 KV
+    cache and with a compute-dtype one, each with the adapter on and off,
+    then one profiled run (int8 cache, adapter on): the device's busy
+    share of the wall, aten ops a step and the 5 costliest kernels. Splits
+    the serving decode's cost between the weights, the cache and the
+    adapter."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from llamole_tpu_torch.models.gllm.lora import adapters_off
+
+    steps = sizes["decode_tokens"]
+    ids, mask = _prompt_batch(tok, sizes["prefill_batch"], llm.device)
+    base = llm.cfg
+    adapted = [m for m in llm.modules() if getattr(m, "lora_a", None)
+               is not None]
+    ms = {}
+    llm.generate(ids, mask, max_new_tokens=2, do_sample=False)   # warm
+    try:
+        for kv in ("int8", "compute"):
+            llm.cfg = dataclasses.replace(base, kv_cache_dtype=kv)
+            for adapter in (True, False):
+                with (contextlib.nullcontext() if adapter
+                      else adapters_off(adapted)):
+                    ms[(kv, adapter)] = _timed_generate(llm, ids, mask,
+                                                        steps)[1]
+    finally:
+        llm.cfg = base
+    on_card = llm.device.type == "cuda"
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card
+                                     else [])
+    _sync_card()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        llm.generate(ids, mask, max_new_tokens=steps, do_sample=False)
+        _sync_card()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    ops = sum(e.count for e in events if e.key.startswith("aten::"))
+    kernels = sorted((e for e in events
+                      if e.device_type == DeviceType.CUDA),
+                     key=lambda e: -e.device_time_total)
+    busy = sum(e.device_time_total for e in kernels) / 1e3
+    top = [(e.key[:40], round(e.device_time_total / 1e3, 2))
+           for e in kernels[:5]]
+    device = (f"device busy {busy:.1f} of {1e3 * wall:.1f} ms wall over "
+              f"{sum(e.count for e in kernels)} kernel launches, top "
+              f"kernels (ms) {top}" if on_card
+              else "device time not measured (CPU)")
+    print(f"serving LLM decode, ms a greedy step at batch {ids.shape[0]}: "
+          + ", ".join(f"{kv} cache, adapter {'on' if a else 'off'} "
+                      f"{v:.3f}" for (kv, a), v in ms.items())
+          + f"; profiled (int8 cache, adapter on, {steps} steps): "
+          f"{ops / (steps + 1):.0f} aten calls (nested ones included) a "
+          f"forward, {device} [{tag}]", flush=True)
+    return ms
+
+
+@torch.no_grad()
+def check_int8_denoiser(model, kernels, tag, sizes):
+    """Phase 14 (e): quantize_denoiser_params on a copy of the slice's
+    GraphDiT denoiser: one forward against the bf16 one within
+    DENOISER_BOUND, a design batch at the full reverse steps on it (valid
+    SMILES; on the card kernel A all on the mma body) and the ms per
+    reverse step of both. Returns A's launches (on the card)."""
+    from llamole_tpu_torch.models.graphdit.denoiser import (
+        quantize_denoiser_params)
+
+    dit = model.graph_decoder
+    cfg = dit.cfg
+    dense = dit.denoiser
+    dev = model.device
+    int8 = quantize_denoiser_params(copy.deepcopy(dense))
+    b, n = sizes["design_batch"], cfg.max_n_nodes
+    g = torch.Generator().manual_seed(0)
+    X = torch.eye(cfg.Xdim)[torch.randint(0, cfg.Xdim, (b, n), generator=g)]
+    E = torch.eye(cfg.Edim)[torch.randint(0, cfg.Edim, (b, n, n),
+                                          generator=g)]
+    mask = torch.arange(n)[None] < torch.randint(8, n + 1, (b, 1),
+                                                 generator=g)
+    y = torch.full((b, cfg.ydim), float("nan"))
+    txt = torch.randn(b, cfg.text_dim, generator=g)
+    inputs = [a.to(dev) for a in (X, E, mask, y, txt, torch.full((b,), .5))]
+    rels = [_rel(q, d) for q, d in zip(int8(*inputs), dense(*inputs))]
+    print(f"int8 denoiser ({cfg.hidden_size} x {cfg.depth}) against bf16: "
+          f"max rel err atoms {rels[0]:.4e}, bonds {rels[1]:.4e} (bound "
+          f"{DENOISER_BOUND}) [{tag}]", flush=True)
+    if not max(rels) < DENOISER_BOUND:
+        fail(f"int8 denoiser off the bf16 one by {max(rels)}")
+    props = torch.full((b, cfg.ydim), float("nan"), device=dev)
+    text = torch.randn(b, cfg.text_dim, generator=g).to(dev)
+    steps = diffusion_steps(model)
+    step_ms, launches = {}, {"A": 0, "A_mma": 0, "A_fma": 0}
+    try:
+        for name, den in (("bf16", dense), ("int8", int8)):
+            dit.denoiser = den
+            reset_counts(*kernels)
+            _sync_card()
+            t0 = time.perf_counter()
+            smiles = dit.generate(torch.Generator(device=dev).manual_seed(1),
+                                  props, text)
+            _sync_card()
+            step_ms[name] = 1e3 * (time.perf_counter() - t0) / steps
+    finally:
+        dit.denoiser = dense
+    valid = sum(dit.check_valid(s) for s in smiles)
+    if dev.type == "cuda":
+        fused = kernels[0]
+        launches = {"A": fused.launches, "A_mma": fused.launches_mma,
+                    "A_fma": fused.launches_fma}
+        check_mma_only(fused, "int8 denoiser")
+        check_launches("fused_block_attention (int8 denoiser)",
+                       fused.launches, cfg.depth * steps,
+                       f"{cfg.depth} x {steps}")
+    print(f"int8 denoiser design batch of {b} at {steps} steps: valid "
+          f"SMILES {valid} of {b}; ms per reverse step (the batch, "
+          f"CFG-doubled, with the host's assembly) int8 "
+          f"{step_ms['int8']:.2f}, bf16 {step_ms['bf16']:.2f} in the same "
+          f"run [{tag}]", flush=True)
+    return launches
+
+
+def _prompt_batch(tok, rows, device):
+    """`rows` PROMPT_HEADER prompts, left-padded (ids, int32 mask)."""
+    seqs = [tok.encode(f"{PROMPT_HEADER}{i}.") for i in range(rows)]
+    width = max(map(len, seqs))
+    ids = [[tok.pad_token_id] * (width - len(s)) + s for s in seqs]
+    mask = [[0] * (width - len(s)) + [1] * len(s) for s in seqs]
+    return (torch.tensor(ids, device=device),
+            torch.tensor(mask, device=device, dtype=torch.int32))
+
+
+def _record_projections(llm):
+    """Forward hooks on the first and last layers' projections and the
+    head, each call's (name, input, output) appended to a list."""
+    mods = {f"layers.{i}.{group}.{k}": m
+            for i in (0, len(llm.layers) - 1)
+            for group in ("attn", "mlp")
+            for k, m in getattr(llm.layers[i], group).items()}
+    if llm.lm_head is not None:
+        mods["lm_head"] = llm.lm_head
+    seen = []
+    handles = [m.register_forward_hook(
+        lambda mod, inp, out, name=name: seen.append(
+            (name, inp[0].detach().clone(), out.detach().clone())))
+        for name, m in mods.items()]
+    return seen, handles
+
+
+def _timed_generate(llm, ids, mask, steps):
+    """(tokens, ms per decode step): a greedy generate's wall less a
+    prefill's, over its decode steps, between syncs of the card."""
+    _sync_card()
+    t0 = time.perf_counter()
+    llm(input_ids=ids, attention_mask=mask, last_logits_only=True)
+    _sync_card()
+    t1 = time.perf_counter()
+    out, _ = llm.generate(ids, mask, max_new_tokens=steps, do_sample=False)
+    _sync_card()
+    t2 = time.perf_counter()
+    return out, 1e3 * ((t2 - t1) - (t1 - t0)) / steps
+
+
+@torch.no_grad()
+def check_int_mm(device, cfg, tag):
+    """torch._int_mm (through int8_matmul) at the decode's shapes equals
+    the exact integer product (f64 sums of these products are exact)."""
+    from llamole_tpu_torch.ops.nn import int8_matmul
+
+    g = torch.Generator(device=device).manual_seed(0)
+    h, inter = cfg.hidden_size, cfg.intermediate_size
+    shapes = ((8, h, inter), (8, inter, h), (8, h, cfg.vocab_size))
+    for m, k, n in shapes:
+        a = torch.randint(-127, 128, (m, k), generator=g, device=device,
+                          dtype=torch.int8)
+        b = torch.randint(-127, 128, (n, k), generator=g, device=device,
+                          dtype=torch.int8)
+        got = int8_matmul(a, b.t())
+        if got.dtype != torch.int32 or not torch.equal(
+                got.double(), a.double() @ b.double().t()):
+            fail(f"torch._int_mm at ({m}, {k}, {n}) is not the exact "
+                 "integer product")
+    print(f"torch._int_mm exact at (rows, K, N) = {list(shapes)} [{tag}]",
+          flush=True)
+
+
+@torch.no_grad()
+def check_kv_cache(llm, ids, mask, steps, tag):
+    """Phase 14 (c): one decode step's logits with the int8 cache against
+    the compute-dtype cache on the same weights (the first layer's
+    attention output there held to KV_BOUND), and the greedy agreement
+    over `steps` tokens. Returns (logit rel err, layer-0 rel err,
+    agreement)."""
+    from llamole_tpu_torch.models.gllm.model import make_kv_cache
+
+    base = llm.cfg
+    b, p = ids.shape
+    positions = (mask.cumsum(-1) - 1).clamp_min(0)
+    kv_valid = torch.cat([mask > 0, torch.ones((b, 1), dtype=torch.bool,
+                                               device=ids.device)], 1)
+    logits, attn, tokens = {}, {}, {}
+    o_proj = llm.layers[0].attn["o"]
+    try:
+        for kv in ("compute", "int8"):
+            llm.cfg = dataclasses.replace(base, kv_cache_dtype=kv)
+            cache = make_kv_cache(llm.cfg, b, p + 1, llm.dtype, ids.device)
+            first, _, _ = llm(input_ids=ids, attention_mask=mask,
+                              positions=positions, kv_cache=cache,
+                              cache_index=0, kv_valid=kv_valid,
+                              last_logits_only=True)
+            if kv == "compute":     # both decode the compute cache's pick
+                step_tok = first[:, -1].argmax(-1)[:, None]
+            seen = []
+            hook = o_proj.register_forward_hook(
+                lambda m, inp, out: seen.append(inp[0].clone()))
+            try:
+                step, _, _ = llm(input_ids=step_tok,
+                                 positions=positions[:, -1:] + 1,
+                                 kv_cache=cache, cache_index=p,
+                                 kv_valid=kv_valid)
+            finally:
+                hook.remove()
+            if cache[0]["k"].dtype != (torch.int8 if kv == "int8"
+                                       else llm.dtype):
+                fail(f"the {kv} KV cache holds {cache[0]['k'].dtype}")
+            logits[kv], attn[kv] = step[:, -1], seen[0]
+            tokens[kv], _ = llm.generate(ids, mask, max_new_tokens=steps,
+                                         do_sample=False)
+    finally:
+        llm.cfg = base
+    rel = _rel(logits["int8"], logits["compute"])
+    layer0 = _rel_l2(attn["int8"], attn["compute"])
+    agree = float((tokens["int8"] == tokens["compute"]).float().mean())
+    print(f"int8 KV cache against the compute-dtype cache (bf16 weights): "
+          f"one decode step's logits max rel err {rel:.4e}; the first "
+          f"layer's attention output rel err (l2) {layer0:.4e} (bound "
+          f"{KV_BOUND}); "
+          f"greedy agreement over {steps} tokens x {b} rows {agree:.4f} "
+          f"[{tag}]", flush=True)
+    if not layer0 < KV_BOUND:
+        fail(f"int8 KV cache: the first layer's attention off by {layer0}")
+    return {"logits": rel, "layer0": layer0, "agreement": agree}
+
+
+@torch.no_grad()
+def run_schemes(cfg, tok, device, sizes, tag):
+    """Phase 14 (b) and (c): a bf16 LLM of cfg from seed 0, whose prefill
+    of a batch of PROMPT_HEADER prompts records the bf16 projections of
+    the first and last layers and the head, its last-position logits and
+    its greedy decode time; the int8 KV cache is checked on it (c). Then
+    per scheme the same LLM, rebuilt from the seed and quantized in place:
+    bytes, each recorded projection on its recorded input (QUANT_BOUNDS),
+    the prefill's last-position logits (max rel err, top-1 agreement) and
+    ms per greedy decode step; every W8A8 projection runs torch._int_mm.
+    Returns {scheme: record}."""
+    from llamole_tpu_torch.models.gllm import LLM
+    from llamole_tpu_torch.models.gllm.quantize import quantize_llm_params
+    from llamole_tpu_torch.ops.nn import int8_matmul
+
+    def dense():
+        llm = LLM(cfg, torch.bfloat16, device)
+        llm.reset_parameters(torch.Generator(device=device).manual_seed(0))
+        return llm
+
+    steps = sizes["decode_tokens"]
+    ids, mask = _prompt_batch(tok, sizes["prefill_batch"], device)
+    llm = dense()
+    seen, handles = _record_projections(llm)
+    ref, _, _ = llm(input_ids=ids, attention_mask=mask,
+                    last_logits_only=True)
+    for h in handles:
+        h.remove()
+    ref = ref[:, -1]
+    _, ref_ms = _timed_generate(llm, ids, mask, steps)
+    print(f"bf16 LLM: greedy decode {ref_ms:.3f} ms a step (batch "
+          f"{ids.shape[0]}, prompt {ids.shape[1]}) [{tag}]", flush=True)
+    out = {"bf16": {"ms": ref_ms},
+           "kv": check_kv_cache(llm, ids, mask, steps, tag)}
+    del llm
+    n_proj = 7 * cfg.num_layers + (0 if cfg.tie_word_embeddings else 1)
+    for scheme, (bits, a8) in SCHEME_ARGS.items():
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        llm = quantize_llm_params(dense(), bits=bits, act_int8=a8)
+        nbytes = check_bytes(llm, scheme, tag)
+        modules = dict(llm.named_modules())
+        proj = max(_rel_l2(modules[name](x), y) for name, x, y in seen)
+        logits, _, _ = llm(input_ids=ids, attention_mask=mask,
+                           last_logits_only=True)
+        rel = _rel(logits[:, -1], ref)
+        rel2 = _rel_l2(logits[:, -1], ref)
+        top1 = float((logits[:, -1].argmax(-1) == ref.argmax(-1)).float()
+                     .mean())
+        int8_matmul.launches = 0
+        _, ms = _timed_generate(llm, ids, mask, steps)
+        int_mm = int8_matmul.launches
+        print(f"{scheme}: the quantized projections of the first and last "
+              f"layers and the head on the bf16 activations, largest rel "
+              f"err (l2) {proj:.4e} (bound {QUANT_BOUNDS[scheme]}); the "
+              f"prefill's last-position logits max rel err {rel:.4e}, rel "
+              f"err (l2) {rel2:.4e}, top-1 "
+              f"agreement {top1:.3f} over {ids.shape[0]} rows; greedy "
+              f"decode {ms:.3f} ms a step against bf16's {ref_ms:.3f}; "
+              f"torch._int_mm calls {int_mm} [{tag}]", flush=True)
+        if not proj < QUANT_BOUNDS[scheme]:
+            fail(f"{scheme} projections off the bf16 ones by {proj}")
+        # a timed prefill, then generate's prefill and `steps` decodes
+        want_mm = n_proj * (2 + steps) if scheme == "w8a8" else 0
+        if int_mm != want_mm:
+            fail(f"{scheme}: {int_mm} torch._int_mm calls, expected "
+                 f"{want_mm}")
+        out[scheme] = {"bytes": nbytes, "proj": proj, "logits": rel,
+                       "logits_l2": rel2, "top1": top1, "ms": ms}
+        del llm, modules
+    gc.collect()
+    return out
+
+
+def qlora_args(out_dir, sizes):
+    """llama_lora_args' settings with QLORA_DEVIATIONS, as the dict
+    get_train_args reads (llama_lora.yaml's method and precision keys
+    included)."""
+    groups = llama_lora_args(out_dir)
+    args = {k: v for g in groups for k, v in vars(g).items()}
+    args.update(stage="mmsft", do_train=True, lora_target="all", bf16=True,
+                pure_bf16=True, quantization_bit=8,
+                gradient_accumulation_steps=1,
+                max_steps=sizes["train_steps"])
+    args.update({k: sizes[k] for k in ("model_name_or_path",) if k in sizes})
+    return args
+
+
+def run_qlora(kernels, tag, out_dir, sizes, device, phase9_peak=None):
+    """Phase 14 (d): the loader builds the GraphLM with quantization_bit=8
+    (the LLM drawn in bf16 from the seed, then quantized in place) and
+    run_mmsft trains it with phase 9's settings and QLORA_DEVIATIONS:
+    finite losses, the LoRA and the connectors changed, the int8 base's
+    checksum unchanged; the training peak beside phase 9's. Returns the
+    B and C launches of run_mmsft (on the card)."""
+    from llamole_tpu_torch.config import get_train_args
+    from llamole_tpu_torch.models.loader import build_graph_lm
+    from llamole_tpu_torch.train.workflow import run_mmsft
+
+    args = get_train_args(qlora_args(out_dir, sizes))
+    m_args, d_args, t_args, f_args, _ = args
+    model, tok = build_graph_lm(m_args, d_args, f_args, device=device,
+                                seed=t_args.seed)
+    if model.llm.quant != ("int8", 0):
+        fail(f"run_mmsft's LLM is {model.llm.quant}, not int8")
+    base = [t for n, t in (*model.llm.named_parameters(),
+                           *model.llm.named_buffers()) if "lora_" not in n]
+    base_sum = _checksum(base)
+    params = model.trainable_parameters()
+    start = _snapshot(params)
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    reset_counts(*kernels)
+    t0 = time.perf_counter()
+    metrics = run_mmsft(*args, prebuilt=(model, tok))
+    wall = time.perf_counter() - t0
+    peak = _peak(device == "cuda")
+    launches = ({"B": kernels[1].launches, "C": kernels[2].launches}
+                if device == "cuda" else {"B": 0, "C": 0})
+    with open(Path(out_dir) / "trainer_log.jsonl") as f:
+        log = [json.loads(line) for line in f]
+    if metrics["train_steps"] != sizes["train_steps"] or len(log) != \
+            sizes["train_steps"]:
+        fail(f"QLoRA: {metrics['train_steps']} micro steps")
+    for rec in log:
+        if not all(np.isfinite([rec[k] for k in ("loss", "lm_loss",
+                                                  "design_loss",
+                                                  "retro_loss")])):
+            fail(f"QLoRA: non-finite loss in {rec}")
+    changed = {g: any(not torch.equal(params[n], start[n]) for n in params
+                      if key in n)
+               for g, key in (("LoRA", "lora_"), ("connectors",
+                                                  "connectors."))}
+    if not all(changed.values()):
+        fail(f"QLoRA: unchanged after training: {changed}")
+    if _checksum(base) != base_sum:
+        fail("QLoRA: the int8 base changed in training")
+    beside = (f" against phase 9's {phase9_peak} (bf16 base) in this run"
+              if phase9_peak else "")
+    print(f"QLoRA (run_mmsft over the int8 base; {QLORA_DEVIATIONS}): "
+          f"{len(log)} micro steps in {wall:.3f} s wall, losses "
+          f"{[round(r['loss'], 4) for r in log]}, the LoRA and the "
+          f"connectors changed, the int8 base's checksum {base_sum} "
+          f"unchanged; B {launches['B']} and C {launches['C']} launches; "
+          f"peak {peak}{beside} [{tag}]", flush=True)
+    return launches
+
+
+def run_quantized(kernels, tag, device="cuda", sizes=None, build=None,
+                  llm_cfg=None, phase7=None, phase9_peak=None):
+    """Phase 14 on an empty card: (a) quantized serving and (e) the int8
+    denoiser on one slice, then (b) the three schemes with (c) the int8
+    KV cache, and (d) QLoRA through run_mmsft. build(llm) makes the slice
+    around a prebuilt LLM (build_slice by default); llm_cfg is the LLM's
+    config (Llama-3.1-8B's by default). Returns the A launches of (a) and
+    (e), the B launches of (a) and (d) and the C launches of (d), and the
+    schemes' records."""
+    from llamole_tpu_torch.models.gllm import LLMConfig
+    from llamole_tpu_torch.models.loader import offline_tokenizer
+
+    sizes = sizes or QUANTIZED
+    build = build or build_slice
+    llm_cfg = llm_cfg or LLMConfig.llama3_8b()
+    on_card = device == "cuda"
+    t0 = time.perf_counter()
+    model, tok = build(quantized_llm(llm_cfg, device))
+    check_bytes(model.llm, "int8", tag)
+    print(f"quantized slice built (int8 weights drawn on the {device}) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    served = serve_quantized(model, tok, kernels, tag, sizes, phase7)
+    decode_split(model.llm, tok, tag, sizes)
+    denoiser = check_int8_denoiser(model, kernels, tag, sizes)
+    del model
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    check_int_mm(device, llm_cfg, tag)
+    schemes = run_schemes(llm_cfg, offline_tokenizer(), device, sizes, tag)
+    if on_card:
+        torch.cuda.empty_cache()
+    work = tempfile.mkdtemp(prefix="chip_smoke_qlora_")
+    try:
+        qlora = run_qlora(kernels, tag, work, sizes, device, phase9_peak)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+    launches = {k: served[k] + denoiser.get(k, 0) + qlora.get(k, 0)
+                for k in ("A", "A_mma", "A_fma", "B")}
+    launches["C"] = qlora["C"]
+    return launches, schemes
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2489,8 +3117,8 @@ def main() -> int:
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         train_dir = os.path.join(work, "mmsft")
-        b_training, c_training, saved = run_training(model, tok, kernels,
-                                                     tag, train_dir)
+        b_training, c_training, saved, train_peak = run_training(
+            model, tok, kernels, tag, train_dir)
         check_denoiser(model, tag)
         check_graphclip(model, tag)
         check_predictor(model, tag)
@@ -2509,6 +3137,13 @@ def main() -> int:
               flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    quantized, _ = run_quantized(kernels, tag, phase7=phase7_latency,
+                                 phase9_peak=train_peak)
+    print(f"quantized phase: {time.perf_counter() - t0:.1f} s wall [{tag}]",
+          flush=True)
 
     def entry(name, source, replaces, rec, launches, **extra):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -2530,6 +3165,9 @@ def main() -> int:
               launches_continuous=continuous["A"],
               launches_continuous_mma=continuous["A_mma"],
               launches_continuous_fma=continuous["A_fma"],
+              launches_quantized=quantized["A"],
+              launches_quantized_mma=quantized["A_mma"],
+              launches_quantized_fma=quantized["A_fma"],
               sdpa_floor_ms=a["sdpa_floor_ms"],
               sdpa_floor_device_ms=a["sdpa_floor_device_ms"],
               fma_ms=a["fma_ms"],
@@ -2541,6 +3179,7 @@ def main() -> int:
               launches_molqa=molqa[1], launches_training=b_training,
               launches_interchange=inter["B"],
               launches_continuous=continuous["B"],
+              launches_quantized=quantized["B"],
               **{k: v for k, v in b.items() if k.startswith("train_")},
               shape=b["shape"], share=b["share"],
               pretrain_launches=stack_launches["B"],
@@ -2553,6 +3192,7 @@ def main() -> int:
               "llamole_tpu/ops/pallas/gin_aggregate.py:163", c,
               c_training["launches"],
               **{k: v for k, v in c.items() if k.startswith("second_body")},
+              launches_quantized=quantized["C"],
               launches_smem=c_training["launches_smem"],
               launches_global=c_training["launches_global"],
               pretrain_launches=stack_launches["C"],

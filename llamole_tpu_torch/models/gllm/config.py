@@ -38,7 +38,7 @@ class LLMConfig:
     flash_min_seq: int = 1024
     shift_attn: bool = False
     group_size_ratio: float = 0.25
-    # "compute" (model dtype) or "int8" (not ported yet)
+    # "compute" (model dtype) or "int8" (per-(token, head) scales)
     kv_cache_dtype: str = "compute"
     # sparse MoE (not ported yet)
     num_experts: int = 0

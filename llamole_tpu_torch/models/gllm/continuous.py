@@ -21,10 +21,12 @@ the JAX SlotDecoder: tests/test_torch_continuous.py). A shared prefix
 with it prefill only their suffix over its stored rows.
 
 The host reads one [S] bool tensor a step (which rows have stopped), as
-the JAX while_loop's condition stays on the device. Repetition penalty,
-speculative drafting, the int8 KV cache and sliding-window configs are not
-supported: check_supported refuses the last two, ContinuousDesignServer
-the first.
+the JAX while_loop's condition stays on the device. An int8 KV cache
+(cfg.kv_cache_dtype 'int8') works as in generate(): the staged prefill's
+int8 values and scale planes are copied into the slot verbatim, and each
+decode step quantizes the row it writes. Repetition penalty, speculative
+drafting and sliding-window configs are not supported: check_supported
+refuses the last two, ContinuousDesignServer the first.
 """
 
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -154,7 +156,7 @@ class SlotDecoder:
         P = len(self._prefix) if hit else 0
         if hit:
             zeros = make_kv_cache(self.llm.cfg, 1, L, self.llm.dtype, dev)
-            staged = [{k: torch.cat([pc[k], z[k]], dim=1) for k in ("k", "v")}
+            staged = [{k: torch.cat([pc[k], z[k]], dim=1) for k in pc}
                       for pc, z in zip(self._prefix_cache, zeros)]
             kvv = torch.cat([torch.ones((1, P), dtype=torch.bool,
                                         device=dev), mask > 0], dim=1)
@@ -170,8 +172,8 @@ class SlotDecoder:
         done = torch.isin(tok, self._eos)
         written = P + L
         for entry, small in zip(self.cache, staged):
-            entry["k"][slot, :written] = small["k"][0]
-            entry["v"][slot, :written] = small["v"][0]
+            for k in entry:     # k, v (and an int8 cache's scale planes)
+                entry[k][slot, :written] = small[k][0]
         st = self.state
         # every row of the slot: a stale kv_valid row of the slot's last
         # occupant would attend silently
@@ -193,13 +195,14 @@ class SlotDecoder:
         cidx = st["count"].clamp(0, self.max_new - 1)
         st["out"][rows, cidx] = torch.where(running, st["tok"],
                                             st["out"][rows, cidx])
-        # a stopped row's offset can reach cache_len: its write lands on
-        # the last slot, as JAX's dynamic_update_slice clamps it
+        # a stopped row's offset can reach cache_len: its cache write is
+        # dropped (JAX's mode="drop"), its kv_valid index clamped as JAX's
         widx = st["widx"].clamp(0, self.cache_len - 1)
         st["kv_valid"][rows, widx] |= running
         logits, _, _ = self.llm(input_ids=st["tok"][:, None],
                                 positions=st["pos"][:, None],
-                                kv_cache=self.cache, cache_index=widx,
+                                kv_cache=self.cache,
+                                cache_index=st["widx"],
                                 kv_valid=st["kv_valid"])
         nxt = sample_token(self._generator, logits[:, -1], self.temperature,
                            self.top_p, self.top_k, self.do_sample)

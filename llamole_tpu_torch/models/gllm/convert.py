@@ -46,7 +46,13 @@ EMBED, HEAD = "model.embed_tokens.weight", "lm_head.weight"
 
 def hf_names(llm: LLM) -> Dict[str, str]:
     """HF tensor name -> the LLM's parameter name, in hf_state_dict's
-    order (embedding, final norm, head, then each layer)."""
+    order (embedding, final norm, head, then each layer). A quantized LLM
+    raises (ValueError): HF checkpoints hold dense weights, which load
+    into a dense LLM that quantize.quantize_llm_params then quantizes."""
+    if llm.quant is not None:
+        raise ValueError(f"the LLM is quantized ({llm.quant}): HF "
+                         "checkpoints are read into and written from a "
+                         "dense LLM only")
     names = {EMBED: "embed.weight", "model.norm.weight": "final_norm.weight"}
     if llm.lm_head is not None:
         names[HEAD] = "lm_head.weight"
@@ -196,8 +202,8 @@ def export_hf_weights(llm: LLM, out_dir: str, shard_gb: float = 5.0) -> int:
     most shard_gb GiB (a tensor starts a new shard when it would overflow
     a non-empty one) with model.safetensors.index.json, and config.json.
     Returns the bytes of tensor data written."""
+    state = hf_state_dict(llm)      # a quantized LLM raises here
     os.makedirs(out_dir, exist_ok=True)
-    state = hf_state_dict(llm)
     shards, sizes = shard_plan(state, shard_gb)
     if len(shards) == 1:
         save_file(state, os.path.join(out_dir, SINGLE_FILE))

@@ -2,19 +2,21 @@
 (counterpart of llamole_tpu/models/gllm/model.py).
 
 RMSNorm + RoPE (incl. llama3.1 scaling) + GQA + SwiGLU, an optional LoRA
-overlay on every projection, a preallocated KV cache written in place,
-and `generate`: prefill, then a per-token decode loop that exits once
-every row has stopped, with temperature / top-k / top-p sampling over a
-bounded candidate set and repetition penalty. Matmuls run in the
+overlay on every projection, dense or quantized projections (int8, W8A8
+or int4: gllm/quantize.py, gllm/lora.py), a preallocated KV cache
+written in place (in the compute dtype, or int8 with per-(token, head)
+scales when cfg.kv_cache_dtype is 'int8'), and `generate`: prefill,
+then a per-token decode loop that exits once every row has stopped,
+with temperature / top-k / top-p sampling over a bounded candidate set
+and repetition penalty. Matmuls run in the
 parameters' dtype; norms, rope, attention logits and softmax in f32.
 Training is `forward` with autograd on plus `lm_loss`; cfg.remat
 recomputes each decoder layer in the backward pass
 (torch.utils.checkpoint) instead of keeping its activations.
 
 Not ported yet (each raises, each is listed in ROADMAP.md): speculative
-decoding (spec_tokens > 0; greedy output is identical without it), the
-int8 KV cache, quantized weights, MoE, sliding-window, logit softcap,
-qk-norm and the other gemma-family knobs.
+decoding (spec_tokens > 0; greedy output is identical without it), MoE,
+sliding-window, logit softcap, qk-norm and the other gemma-family knobs.
 """
 
 import math
@@ -28,6 +30,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .config import LLMConfig
 from .lora import LoRALinear, adapters_off
+from .quantize import empty_quantized_, projections
 
 _NEG = -1e30
 _TOP_P_CANDIDATES = 256  # top-p nucleus cap; see _warped_candidates
@@ -35,8 +38,10 @@ _TOP_P_CANDIDATES = 256  # top-p nucleus cap; see _warped_candidates
 
 def check_supported(cfg: LLMConfig) -> None:
     """Refuse the config features the port does not run yet."""
+    if cfg.kv_cache_dtype not in ("compute", "int8"):
+        raise ValueError(f"kv_cache_dtype must be 'compute' or 'int8', "
+                         f"got {cfg.kv_cache_dtype!r}")
     unsupported = {
-        "kv_cache_dtype='int8'": cfg.kv_cache_dtype != "compute",
         "MoE (num_experts > 0)": cfg.num_experts > 0,
         "sliding-window attention": cfg.sliding_window is not None,
         "logit softcap": (cfg.attn_logit_softcap is not None
@@ -136,32 +141,78 @@ KVCache = List[Dict[str, torch.Tensor]]
 
 def make_kv_cache(cfg: LLMConfig, batch: int, total: int, dtype,
                   device) -> KVCache:
-    """Per-layer {"k", "v"} of [B, T, KV, D] in the compute dtype."""
+    """Per-layer {"k", "v"} of [B, T, KV, D] in the compute dtype, or, when
+    cfg.kv_cache_dtype is 'int8', int8 {"k", "v"} plus f32 {"k_scale",
+    "v_scale"} of [B, T, KV] (JAX make_kv_cache)."""
     shape = (batch, total, cfg.num_kv_heads, cfg.head_dim_)
-    return [{"k": torch.zeros(shape, dtype=dtype, device=device),
-             "v": torch.zeros(shape, dtype=dtype, device=device)}
-            for _ in range(cfg.num_layers)]
+    int8 = cfg.kv_cache_dtype == "int8"
+
+    def entry():
+        e = {k: torch.zeros(shape, dtype=torch.int8 if int8 else dtype,
+                            device=device) for k in ("k", "v")}
+        if int8:
+            e.update({k: torch.zeros(shape[:3], dtype=torch.float32,
+                                     device=device)
+                      for k in ("k_scale", "v_scale")})
+        return e
+
+    return [entry() for _ in range(cfg.num_layers)]
+
+
+def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[B, S, KV, D] -> (int8 values, f32 per-(token, head) scales
+    [B, S, KV]): amax / 127 floored at 1e-8, round half-to-even, clip
+    +-127 (JAX _quantize_kv)."""
+    x32 = x.float()
+    scale = (x32.abs().amax(dim=-1) / 127.0).clamp_min(1e-8)
+    q = torch.clamp(torch.round(x32 / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
 
 
 def cache_append(entry, k, v, cache_index) -> None:
     """Write k/v [B, S, KV, D] at cache_index IN PLACE (the JAX version
     returns an updated copy; writing in place saves a cache-sized copy
-    per layer and step). cache_index: an int shared by all rows, or a
-    [B] tensor of per-row offsets (the design-query extension)."""
+    per layer and step), quantized first when the cache is int8.
+    cache_index: an int shared by all rows, or a [B] tensor of per-row
+    offsets (the design-query extension, the slot pool); per-row writes
+    past the cache's end are dropped, as JAX's mode="drop" drops them
+    (a finished slot's offset can reach it)."""
+    vals = {"k": k, "v": v}
+    if entry["k"].dtype == torch.int8:
+        vals["k"], vals["k_scale"] = quantize_kv(k)
+        vals["v"], vals["v_scale"] = quantize_kv(v)
     if isinstance(cache_index, torch.Tensor) and cache_index.dim() == 1:
         b, s = k.shape[:2]
-        rows = torch.arange(b, device=k.device)[:, None]
+        t = entry["k"].shape[1]
+        rows = torch.arange(b, device=k.device)[:, None].expand(b, s)
         cols = cache_index[:, None] + torch.arange(s, device=k.device)[None]
-        entry["k"][rows, cols] = k.to(entry["k"].dtype)
-        entry["v"][rows, cols] = v.to(entry["v"].dtype)
+        keep = cols < t
+        if s > 1:    # the extension's write: a mask (and a host sync)
+            rows, cols = rows[keep], cols[keep]
+            for name, val in vals.items():
+                entry[name][rows, cols] = val[keep].to(entry[name].dtype)
+            return
+        # one column a row (a decode step, no sync): a row past the end
+        # writes its last slot's own contents back
+        cols = cols.clamp_max(t - 1)
+        for name, val in vals.items():
+            buf = entry[name]
+            old = buf[rows, cols]
+            mask = keep.view(b, 1, *[1] * (old.dim() - 2))
+            buf[rows, cols] = torch.where(mask, val.to(buf.dtype), old)
     else:
         i = int(cache_index)
         s = k.shape[1]
-        entry["k"][:, i:i + s] = k
-        entry["v"][:, i:i + s] = v
+        for name, val in vals.items():
+            entry[name][:, i:i + s] = val
 
 
 def cache_read(entry, dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """k, v in `dtype`; an int8 cache is dequantized (values and scales
+    cast to `dtype`, then multiplied: JAX _cache_read)."""
+    if entry["k"].dtype == torch.int8:
+        return tuple(entry[n].to(dtype) * entry[f"{n}_scale"][..., None]
+                     .to(dtype) for n in ("k", "v"))
     return entry["k"].to(dtype), entry["v"].to(dtype)
 
 
@@ -212,10 +263,16 @@ class DecoderLayer(nn.Module):
 
 
 class LLM(nn.Module):
-    """Parameters are uninitialised until `reset_parameters(generator)`
-    or `load_state_dict` (weights.llm_state_dict) fills them."""
+    """Parameters are uninitialised until `reset_parameters(generator)`,
+    `load_state_dict` (weights.llm_state_dict) or, for a quantized LLM,
+    `quantize.init_quantized_` fills them. quant=(scheme, group_size)
+    (scheme 'int8', 'w8a8' or 'int4') builds the projections and the
+    lm_head quantized, never allocating their dense weights;
+    `quantize.quantize_llm_params` quantizes a dense LLM in place. Either
+    way `self.quant` says what the projections hold (None: dense)."""
 
-    def __init__(self, cfg: LLMConfig, dtype=torch.bfloat16, device=None):
+    def __init__(self, cfg: LLMConfig, dtype=torch.bfloat16, device=None,
+                 quant: Optional[Tuple[str, int]] = None):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
@@ -228,8 +285,12 @@ class LLM(nn.Module):
                                     for _ in range(cfg.num_layers))
         self.final_norm = RMSNorm(h, cfg.rms_norm_eps, dtype, meta)
         self.lm_head = (None if cfg.tie_word_embeddings
-                        else nn.Linear(h, cfg.vocab_size, bias=False,
-                                       dtype=dtype, device=meta))
+                        else LoRALinear(h, cfg.vocab_size, False, dtype,
+                                        meta))
+        self.quant = quant
+        if quant is not None:
+            for proj in projections(self):
+                empty_quantized_(proj, *quant)
         self.to_empty(device=device or torch.device("cpu"))
         self._inv_freq = torch.tensor(rope_frequencies(cfg),
                                       dtype=torch.float32, device=self.device)
@@ -242,7 +303,11 @@ class LLM(nn.Module):
     def reset_parameters(self, generator: torch.Generator) -> None:
         """The JAX init_params scheme: N(0, 1/in) projections, N(0, 0.02)
         embeddings, unit norms, zero biases; drawn on the parameters'
-        device (8B normals drawn on the CPU take minutes)."""
+        device (8B normals drawn on the CPU take minutes). A quantized
+        LLM is drawn by quantize.init_quantized_ instead."""
+        if self.quant is not None:
+            raise ValueError(f"the LLM is quantized ({self.quant}): draw it "
+                             "with quantize.init_quantized_")
         for name, p in self.named_parameters():
             if "lora_" in name:
                 continue

@@ -17,6 +17,10 @@ With train=True the blocks run the JAX package's training path inline
 every block), properties and text are dropped to their null embeddings
 with probability cfg.drop_condition, and every property embedding gets
 N(0, 1) noise, the draws taken from an explicit torch.Generator.
+
+`quantize_denoiser_params` turns the large dense layers int8 in place
+(JAX quantize_denoiser_params; ops.nn.Int8Dense): serving only, a forward
+under autograd then raises.
 """
 
 import math
@@ -27,7 +31,8 @@ from torch import nn
 
 from ...ops.attention import masked_attention
 from ...ops.fused_attention import fused_block_attention
-from ...ops.nn import (MLP, LayerNorm, init_dense_, layer_norm, softsign)
+from ...ops.nn import (MLP, Int8Dense, LayerNorm, init_dense_, layer_norm,
+                       quantize_dense, softsign)
 from .config import GraphDiTConfig
 
 
@@ -235,7 +240,9 @@ class Denoiser(nn.Module):
         t [B] normalized timestep -> (X_logits, E_logits), masked.
         train: the training path (plain attention, condition dropout and
         property noise drawn from `generator`)."""
-        dtype = self.x_embedder.linear.weight.dtype
+        emb = self.x_embedder
+        dtype = (emb.norm.weight.dtype if isinstance(emb.linear, Int8Dense)
+                 else emb.linear.weight.dtype)
         b, n, dx = X_in.shape
         de = E_in.shape[-1]
         X_in = X_in.to(dtype)
@@ -265,3 +272,24 @@ class Denoiser(nn.Module):
         bond_out = 0.5 * (bond_out + bond_out.transpose(1, 2))
         atom_out = torch.where(node_mask[:, :, None], atom_out, 0.0)
         return atom_out, bond_out
+
+
+@torch.no_grad()
+def quantize_denoiser_params(denoiser: Denoiser) -> Denoiser:
+    """int8-quantize the denoiser's large dense layers in place (JAX
+    quantize_denoiser_params): the x_embedder's linear, every block's qkv,
+    proj, fc1 and fc2, and the output decoder's fc1 and fc2, each an
+    ops.nn.Int8Dense (per-output-channel weight scales, per-row dynamic
+    activation scales). Serving only: not differentiable. Returns the
+    denoiser."""
+    emb = denoiser.x_embedder
+    emb.linear = quantize_dense(emb.linear)
+    for blk in denoiser.blocks:
+        blk.attn.qkv = quantize_dense(blk.attn.qkv)
+        blk.attn.proj = quantize_dense(blk.attn.proj)
+        blk.mlp.fc1 = quantize_dense(blk.mlp.fc1)
+        blk.mlp.fc2 = quantize_dense(blk.mlp.fc2)
+    dec = denoiser.output_layer.decoder
+    dec.fc1 = quantize_dense(dec.fc1)
+    dec.fc2 = quantize_dense(dec.fc2)
+    return denoiser

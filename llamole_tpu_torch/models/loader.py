@@ -15,8 +15,12 @@ load from their directories in the JAX package's layout, or fall back to
 the documented random inits (GraphDiT 64 x 2, GraphCLIP 2 x 64, predictor
 2 x 64 with 16 labels); a trained adapter directory (either package's
 save_pretrained files, or its newest committed checkpoint-N) loads into
-the trainable bundle. Quantized LLMs, DoRA / PiSSA and the unported
-families raise, each naming its ROADMAP.md item.
+the trainable bundle. quantization_bit (4 or 8; quantization_scheme
+'weight_only' or 'w8a8', which needs 8) quantizes the LLM's projections
+in place once its weights are loaded or drawn, and kv_cache_dtype
+('compute' or 'int8') picks the KV cache, with the JAX loader's errors
+for other values. DoRA / PiSSA and the unported families raise, each
+naming its ROADMAP.md item.
 """
 
 import json
@@ -34,6 +38,7 @@ from .composite import GraphLM
 from .gllm import LLM, LLMConfig
 from .gllm.convert import load_hf_weights
 from .gllm.model import check_supported
+from .gllm.quantize import quantize_llm_params
 from .graphclip import GraphCLIP, GraphCLIPConfig
 from .graphdit import GraphDiT, GraphDiTConfig
 from .graphdit.config import DataInfo, build_data_info_from_smiles
@@ -126,6 +131,7 @@ def build_graph_lm_from_configs(
     graph_predictor: Optional[GraphPredictor] = None,
     cost_mlp: Optional[CostMLP] = None,
     llm_weights: Optional[str] = None,
+    llm: Optional[LLM] = None,
 ) -> GraphLM:
     """Random-init GraphLM on `device` (weights drawn there, seeded).
     GraphCLIP and the predictor run in f32; their configs default to the
@@ -137,16 +143,25 @@ def build_graph_lm_from_configs(
     data_info / clip_cfg / predictor_cfg and their random draws;
     cost_mlp: the planner's optional value model; llm_weights: an HF
     checkpoint directory the LLM's base weights load from (in place of
-    their random draw)."""
+    their random draw); llm: an LLM built and filled already (e.g. drawn
+    straight into a quantized layout by quantize.init_quantized_), used
+    in place of llm_cfg's build, its vocabulary covering the
+    tokenizer's."""
     device = torch.device(device)
-    llm_cfg.vocab_size = max(llm_cfg.vocab_size, tokenizer.vocab_size)
     gen = torch.Generator(device=device).manual_seed(seed)
-    llm = LLM(llm_cfg, dtype=llm_dtype, device=device)
-    if llm_weights is None:
-        llm.reset_parameters(gen)
+    if llm is not None:
+        if llm.cfg.vocab_size < tokenizer.vocab_size:
+            raise ValueError(f"the LLM's vocabulary ({llm.cfg.vocab_size}) "
+                             f"is smaller than the tokenizer's "
+                             f"({tokenizer.vocab_size})")
     else:
-        load_hf_weights(llm_weights, llm)
-        logger.info("Loaded LLM weights from %s", llm_weights)
+        llm_cfg.vocab_size = max(llm_cfg.vocab_size, tokenizer.vocab_size)
+        llm = LLM(llm_cfg, dtype=llm_dtype, device=device)
+        if llm_weights is None:
+            llm.reset_parameters(gen)
+        else:
+            load_hf_weights(llm_weights, llm)
+            logger.info("Loaded LLM weights from %s", llm_weights)
     if graph_decoder is None:
         graph_decoder = GraphDiT(dit_cfg, data_info, dtype=graph_dtype,
                                  device=device)
@@ -242,15 +257,41 @@ def load_graph_modules(model_args, device):
     return decoder, encoder, predictor, cost_mlp
 
 
+def llm_quantization(model_args):
+    """(bits, act_int8) from quantization_bit / quantization_scheme, or
+    None; the JAX load_llm's argument checks and errors, kv_cache_dtype's
+    first."""
+    kv_dtype = getattr(model_args, "kv_cache_dtype", "compute") or "compute"
+    if kv_dtype not in ("compute", "int8"):
+        raise ValueError(f"kv_cache_dtype must be 'compute' or 'int8', "
+                         f"got {kv_dtype!r}")
+    qbit = getattr(model_args, "quantization_bit", None)
+    scheme = getattr(model_args, "quantization_scheme", "weight_only")
+    if scheme not in ("weight_only", "w8a8"):
+        raise ValueError(f"quantization_scheme={scheme!r} unsupported "
+                         "(weight_only or w8a8)")
+    if qbit in (4, 8):
+        if qbit == 4 and scheme == "w8a8":
+            raise ValueError("act_int8 (W8A8) requires bits=8")
+        return qbit, scheme == "w8a8"
+    if scheme == "w8a8":
+        raise ValueError("quantization_scheme=w8a8 requires "
+                         "quantization_bit=8")
+    if qbit is not None:
+        raise ValueError(
+            f"quantization_bit={qbit} unsupported (4 or 8; the reference's "
+            "bnb 2/3-bit and gptq/awq loaders are GPU-library paths, "
+            "model_utils/quantization.py:102-205)")
+    return None
+
+
 def build_graph_lm(model_args, data_args, finetuning_args, *, device,
                    seed: int = 0, generate_mode: bool = False,
                    load_adapter: bool = False):
     """Argument-driven build (config/ dataclasses).
     Returns (model, tokenizer)."""
     device = torch.device(device)
-    if getattr(model_args, "quantization_bit", None) is not None:
-        raise NotImplementedError("quantized LLM weights are not ported yet "
-                                  "(ROADMAP.md Queue 1 item 4)")
+    quant = llm_quantization(model_args)
     if getattr(finetuning_args, "use_dora", False) or getattr(
             finetuning_args, "pissa_init", False):
         raise NotImplementedError("DoRA / PiSSA adapters are not ported yet "
@@ -292,6 +333,10 @@ def build_graph_lm(model_args, data_args, finetuning_args, *, device,
         special_tokens=model_args.special_token_list() or SPECIAL_TOKENS,
         graph_decoder=decoder, graph_encoder=encoder,
         graph_predictor=predictor, cost_mlp=cost_mlp, llm_weights=weights)
+    if quant is not None:
+        quantize_llm_params(model.llm, bits=quant[0], act_int8=quant[1])
+        logger.info("LLM projections quantized to int%d (%s)", quant[0],
+                    "w8a8" if quant[1] else "weight_only")
     if adapter_dir is not None:
         model.load_trainable(adapter_dir)
         logger.info("Loaded adapter + connectors from %s", adapter_dir)

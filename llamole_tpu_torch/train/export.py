@@ -10,6 +10,8 @@ writes there: adapter.msgpack, connector/*.msgpack and
 graphllm_config.json (save_pretrained, before the merge), model.msgpack
 (the merged LLM's JAX tree), the merged HF checkpoint in export_size GB
 shards with config.json, and the tokenizer where it can save itself.
+A quantized base (quantization_bit set) is refused before anything is
+built or written.
 """
 
 import os
@@ -18,7 +20,7 @@ from typing import Any, Optional
 from ..config import get_infer_args
 from ..models.gllm.convert import export_hf_weights
 from ..models.gllm.lora import merge_lora
-from ..models.loader import build_graph_lm
+from ..models.loader import build_graph_lm, llm_quantization
 from ..utils.logging import get_logger
 from ..utils.serialization import save_pytree
 from ..weights import llm_tree
@@ -38,6 +40,9 @@ def merge_adapter(args: Any = None, export_dir: Optional[str] = None, *,
         export_dir = args.get("export_dir")
     if export_dir is None:
         raise ValueError("export_dir is required for export.")
+    if llm_quantization(model_args) is not None:
+        raise ValueError("merge_adapter: quantization_bit is set, and an "
+                         "adapter merges into a dense base only")
     model, tokenizer = build_graph_lm(
         model_args, data_args, finetuning_args, device=resolve_device(device),
         load_adapter=bool(model_args.adapter_name_or_path))

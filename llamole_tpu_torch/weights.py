@@ -6,16 +6,25 @@ dicts of CPU tensors for `Module.load_state_dict` (strict). The port's
 module names follow the JAX tree keys, so the mapping is structural:
 
   {"w": [in, out], "b"?}    dense      -> weight [out, in] (transposed), bias
+  {"w_q" | "w_qa": [in, out] int8, "scale": [out], "b"?}
+                            int8 / W8A8 -> w_q [out, in], scale, bias
+  {"w_q4": [in, out] int4, "scale": [G, out], "b"?}
+                            int4       -> w_q [out, in / 2] uint8 (packed
+                                          as gllm/lora.py pack_int4), scale
   {"scale", "bias"?}        norm       -> weight, bias
   {"a": [in, r], "b": [r, out]}  LoRA  -> lora_a [r, in], lora_b [out, r]
   other leaves (embedding tables, null embeddings) copy as they are
 
-Stacked LLM layers ("layers_stacked", leading [L] axis) are unstacked.
-Quantized, MoE and DoRA leaves are not ported yet and raise.
+Stacked LLM layers ("layers_stacked", leading [L] axis, as
+init_params_quantized returns them) are unstacked. A quantized tree loads
+into a module built quantized the same way (`llm_quant_of` gives an LLM's
+quant=(scheme, group_size)). MoE and DoRA leaves are not ported yet and
+raise.
 
 `jax_tree_of` is the inverse: a port module -> the JAX-layout tree
 (dense weights back to w [in, out], norms to scale / bias, ModuleLists to
-lists, the LLM to {"embed", "layers", "final_norm", "lm_head"?}), so
+lists, the LLM to {"embed", "layers", "final_norm", "lm_head"?}; a
+quantized module raises, as the JAX package never saves one), so
 `save_module` / `load_module` read and write the JAX package's
 model.msgpack files (utils/serialization.py). `trainable_tree` gives a
 GraphLM's trainable bundle (or any {name: tensor} keyed like it, e.g. the
@@ -29,15 +38,15 @@ import numpy as np
 import torch
 from torch import nn
 
-from .models.gllm.lora import LoRALinear
+from .models.gllm.lora import LoRALinear, pack_int4
 from .models.gllm.model import LLM, RMSNorm
-from .ops.nn import LayerNorm
+from .ops.nn import Int8Dense, LayerNorm
 from .utils.serialization import load_pytree, save_pytree
 
 StateDict = Dict[str, torch.Tensor]
 # JAX leaves the port does not hold: (keys, what, ROADMAP.md Queue 1 item)
-_UNPORTED_LEAVES = (({"w_q", "w_qa", "w_q4"}, "quantized", 4),
-                    ({"m"}, "DoRA", 6), ({"router", "experts"}, "MoE", 7))
+_UNPORTED_LEAVES = (({"m"}, "DoRA", 6), ({"router", "experts"}, "MoE", 7))
+_QUANTIZED = ("w_q", "w_qa", "w_q4")
 
 
 def _tensor(a) -> torch.Tensor:
@@ -57,8 +66,14 @@ def _walk(tree: Any, prefix: str, out: StateDict) -> None:
                     f"{prefix or 'tree'}: {sorted(keys & set(tree))} leaves "
                     f"({what}) are not ported yet (ROADMAP.md Queue 1 item "
                     f"{item})")
+        quant = [k for k in _QUANTIZED if k in tree]
         if "w" in tree:
             out[prefix + "weight"] = _tensor(tree["w"]).T.contiguous()
+            if "b" in tree:
+                out[prefix + "bias"] = _tensor(tree["b"])
+        elif quant:
+            out[prefix + "w_q"] = _quantized_values(quant[0], tree[quant[0]])
+            out[prefix + "scale"] = _tensor(tree["scale"])
             if "b" in tree:
                 out[prefix + "bias"] = _tensor(tree["b"])
         elif "a" in tree:
@@ -76,6 +91,48 @@ def _walk(tree: Any, prefix: str, out: StateDict) -> None:
             _walk(v, f"{prefix}{i}.", out)
     else:
         out[prefix[:-1]] = _tensor(tree)
+
+
+def _quantized_values(key: str, a) -> torch.Tensor:
+    """A JAX quantized leaf's [in, out] values -> the port's [out, in]
+    int8, or [out, in / 2] packed uint8 for int4 (an ml_dtypes int4
+    array, converted through int8)."""
+    a = np.asarray(a)
+    if key == "w_q4":
+        return pack_int4(torch.from_numpy(a.astype(np.int8)).T)
+    return torch.from_numpy(np.array(a)).T.contiguous()
+
+
+def _projection_leaves(tree: Dict):
+    """The projection leaves of a JAX LLM tree (layers and the head)."""
+    layers = tree.get("layers_stacked", tree.get("layers"))
+    for layer in (layers if isinstance(layers, list) else [layers]):
+        for group in ("attn", "mlp"):
+            yield from layer[group].values()
+    if "lm_head" in tree:
+        yield tree["lm_head"]
+
+
+def llm_quant_of(params: Dict):
+    """The LLM(quant=...) a JAX LLM tree loads into: None for a dense
+    tree, else (scheme, group_size) from its leaves ('int8' for w_q,
+    'w8a8' for w_qa, 'int4' for w_q4 with its group size read from the
+    scale groups; 0 for the int8 schemes and when every int4 leaf has one
+    group)."""
+    leaves = list(_projection_leaves(params))
+    keys = {k for leaf in leaves for k in _QUANTIZED if k in leaf}
+    if not keys:
+        return None
+    if len(keys) > 1:
+        raise ValueError(f"a tree with mixed quantized leaves {sorted(keys)}")
+    key = keys.pop()
+    scheme = {"w_q": "int8", "w_qa": "w8a8", "w_q4": "int4"}[key]
+    if scheme == "int4":
+        for leaf in leaves:
+            groups = np.shape(leaf["scale"])[-2]    # [(L,) G, out]
+            if groups > 1:
+                return scheme, np.shape(leaf[key])[-2] // groups
+    return scheme, 0
 
 
 def _unstack(stacked: Any, n: int) -> List[Any]:
@@ -201,7 +258,9 @@ def _leaf(t: torch.Tensor, transposed: bool) -> torch.Tensor:
 
 
 def llm_tree(llm: LLM) -> Dict:
-    """The JAX params tree of the LLM's base weights (no adapter)."""
+    """The JAX params tree of the LLM's base weights (no adapter). A
+    quantized LLM raises (ValueError)."""
+    _refuse_quantized(llm)
     return _nest((_llm_path(n)[0], _leaf(p, _llm_path(n)[1]))
                  for n, p in llm.named_parameters() if "lora_" not in n)
 
@@ -248,6 +307,16 @@ def trainable_values(tree: Dict, names: Iterable[str]) -> StateDict:
     return got
 
 
+def _refuse_quantized(module: nn.Module) -> None:
+    quantized = getattr(module, "quant", None) is not None or isinstance(
+        module, Int8Dense)
+    if quantized:
+        raise ValueError(
+            f"{type(module).__name__} is quantized: it has no JAX-layout "
+            "tree (the JAX package quantizes after it loads and saves "
+            "dense trees only)")
+
+
 def jax_tree_of(module: nn.Module) -> Any:
     """The JAX-layout tree of a port module whose names follow the JAX
     tree keys (the inverse of state_dict_of): nn.Linear and LoRALinear
@@ -258,6 +327,7 @@ def jax_tree_of(module: nn.Module) -> Any:
     module's device."""
     if isinstance(module, LLM):
         return llm_tree(module)
+    _refuse_quantized(module)
     if isinstance(module, RMSNorm):
         return {"scale": module.weight.detach()}
     if isinstance(module, (nn.Linear, LoRALinear)):

@@ -206,19 +206,79 @@ def test_cache_len_guard(tiny):
 
 
 def test_int8_kv_and_sliding_window_are_refused(tiny):
-    """The port has no int8 KV cache nor sliding-window attention: the LLM
-    refuses such configs, and so does the pool for an LLM whose config
-    asks for either."""
+    """Sliding-window attention is still refused, by the LLM and by the
+    pool for an LLM whose config asks for it. The int8 KV cache is not
+    any more (gllm/model.py): the pool over such an LLM holds int8 values
+    and f32 scale planes, and a kv_cache_dtype other than 'compute' or
+    'int8' is a ValueError, as in the JAX loader."""
     *_, llm = tiny
-    for change in ({"kv_cache_dtype": "int8"}, {"sliding_window": 4}):
-        cfg = replace(LLMConfig.tiny(VOCAB), **change)
-        with pytest.raises(NotImplementedError):
-            LLM(cfg, dtype=torch.float32)
-        odd = LLM(LLMConfig.tiny(VOCAB), dtype=torch.float32)
-        odd.cfg = cfg
-        with pytest.raises(NotImplementedError, match="not support"):
-            SlotDecoder(odd, slots=2, cache_len=64, max_new_tokens=8,
-                        prompt_buckets=(8,))
+    cfg = replace(LLMConfig.tiny(VOCAB), sliding_window=4)
+    with pytest.raises(NotImplementedError):
+        LLM(cfg, dtype=torch.float32)
+    odd = LLM(LLMConfig.tiny(VOCAB), dtype=torch.float32)
+    odd.cfg = cfg
+    with pytest.raises(NotImplementedError, match="not support"):
+        SlotDecoder(odd, slots=2, cache_len=64, max_new_tokens=8,
+                    prompt_buckets=(8,))
+    int8 = LLM(replace(LLMConfig.tiny(VOCAB), kv_cache_dtype="int8"),
+               dtype=torch.float32)
+    dec = SlotDecoder(int8, slots=2, cache_len=64, max_new_tokens=8,
+                      prompt_buckets=(8,))
+    entry = dec.cache[0]
+    assert entry["k"].dtype == entry["v"].dtype == torch.int8
+    assert entry["k_scale"].shape == entry["k"].shape[:3]
+    assert entry["v_scale"].dtype == torch.float32
+    with pytest.raises(ValueError, match="kv_cache_dtype"):
+        LLM(replace(LLMConfig.tiny(VOCAB), kv_cache_dtype="fp8"),
+            dtype=torch.float32)
+
+
+@pytest.fixture(scope="module")
+def tiny_int8(tiny):
+    """The tiny pair with kv_cache_dtype='int8' on both sides."""
+    _, params, lora, llm = tiny
+    jllm = JaxLLM(replace(JaxLLMConfig.tiny(VOCAB), kv_cache_dtype="int8"),
+                  dtype=jnp.float32)
+    llm8 = LLM(replace(LLMConfig.tiny(VOCAB), kv_cache_dtype="int8"),
+               dtype=torch.float32)
+    llm8.add_lora(RANK, SCALE)
+    llm8.load_state_dict(llm.state_dict())
+    return jllm, params, lora, llm8
+
+
+@pytest.mark.parametrize("prefixed", [False, True],
+                         ids=["full", "shared_prefix"])
+def test_int8_kv_pool_matches_jax_slot_decoder_and_generate(tiny_int8,
+                                                            prefixed):
+    """The JAX test_int8_kv_slot_parity on both packages: with an int8 KV
+    cache the staged prefill's int8 values and scale planes go into the
+    slot verbatim (also over the stored prefix rows) and every step
+    quantizes the row it writes, so the pool emits exactly the JAX
+    SlotDecoder's greedy tokens and the port's int8 generate()'s, one of
+    its slots finishing at the cache's end (cache_len = bucket + budget:
+    its next write falls past the end and is dropped)."""
+    jllm, params, lora, llm = tiny_int8
+    rng = np.random.default_rng(4)
+    prefix = rng.integers(1, VOCAB, size=5).tolist() if prefixed else None
+    prompts = [(prefix or []) + rng.integers(1, VOCAB, size=n).tolist()
+               for n in (3, 6, 9, 4)]
+    kw = dict(slots=2, cache_len=16 + 6 + (5 if prefixed else 0),
+              max_new_tokens=6, eos_ids=(9,), pad_id=0, do_sample=False,
+              chunk_steps=2, prompt_buckets=(8, 16), shared_prefix=prefix)
+    jdec = JaxSlotDecoder(jllm, params, lora=lora, lora_scale=SCALE, **kw)
+    jrids = [jdec.submit(p) for p in prompts]
+    want = jdec.drain()
+    dec = SlotDecoder(llm, **kw)
+    rids = [dec.submit(p) for p in prompts]
+    got = dec.drain()
+    assert dec.cache[0]["k"].dtype == torch.int8
+    assert dec.prefix_admissions == (len(prompts) if prefixed else 0)
+    for rid, jrid, prompt in zip(rids, jrids, prompts):
+        np.testing.assert_array_equal(got[rid][0], np.asarray(want[jrid][0]))
+        assert got[rid][1] == want[jrid][1]
+        np.testing.assert_array_equal(
+            _padded(got[rid][0], 6),
+            _generate(llm, prompt, max_new=6, eos_ids=(9,)))
 
 
 def test_sampled_decoding_is_seeded(tiny):

@@ -341,3 +341,51 @@ def _one_channel(embedder, y, train, p, gen):
         return embedder(y, False, torch.float32, train, p, gen)
     finally:
         embedder.mlps = mlps
+
+
+def test_int8_denoiser_matches_jax_and_refuses_autograd():
+    """quantize_denoiser_params on both packages (the JAX package's
+    test_int8_quantized_denoiser): the port's int8 leaves equal JAX's bit
+    for bit through the bridge; its logits are within 0.05 of JAX's int8
+    logits and of its own dense ones, relative to the largest logit
+    (tests/test_graphdit.py's bound); the sampler runs on it; and a
+    forward under autograd raises (the quantizer has no gradient)."""
+    from llamole_tpu.models.graphdit.denoiser import (
+        quantize_denoiser_params as jax_quantize)
+    from llamole_tpu_torch.models.graphdit.denoiser import (
+        quantize_denoiser_params)
+
+    jm, params, tm = _pair()
+    cfg = jm.cfg
+    b = 3
+    X, E, mask = _graph_inputs(cfg, b, seed=4)
+    rng = np.random.default_rng(5)
+    y = rng.normal(size=(b, cfg.ydim)).astype(np.float32)
+    txt = rng.normal(size=(b, cfg.text_dim)).astype(np.float32)
+    t = rng.random(b).astype(np.float32)
+    inputs = (X, E, mask, y, txt, t)
+    qparams = jax.tree.map(np.asarray, jax_quantize(params))
+    want = apply_denoiser(qparams, cfg, *map(jnp.asarray, inputs))
+    with torch.no_grad():
+        dense = tm.denoiser(*map(torch.from_numpy, inputs))
+    quantize_denoiser_params(tm.denoiser)
+    ours = tm.denoiser.state_dict()
+    theirs = state_dict_of(qparams)
+    assert set(ours) == set(theirs)
+    for name, v in theirs.items():
+        assert torch.equal(ours[name], v), name
+    assert tm.denoiser.blocks[0].attn.qkv.w_q.dtype == torch.int8
+    with torch.no_grad():
+        got = tm.denoiser(*map(torch.from_numpy, inputs))
+    for g, w, d in zip(got, want, dense):
+        w = np.asarray(w)
+        rel = np.abs(g.numpy() - w).max() / (np.abs(w).max() + 1e-9)
+        assert rel < 0.05, rel
+        rel = (g - d).abs().max().item() / (d.abs().max().item() + 1e-9)
+        assert rel < 0.05, rel
+    props = torch.full((2, cfg.ydim), float("nan"))
+    smiles = tm.generate(torch.Generator().manual_seed(0), props,
+                         torch.zeros(2, cfg.text_dim))
+    assert len(smiles) == 2
+    with pytest.raises(RuntimeError, match="no gradient"):
+        tm.denoiser(*map(torch.from_numpy, inputs))

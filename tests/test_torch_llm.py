@@ -242,3 +242,105 @@ def test_remat_gives_the_same_gradients():
     for name in grads[0]:
         torch.testing.assert_close(grads[1][name], grads[0][name],
                                    rtol=0, atol=1e-6)
+
+
+def _int8_pair():
+    """_pair()'s weights in an LLM with kv_cache_dtype='int8', and the JAX
+    config to match."""
+    jcfg, params, lora, scale, model = _pair()
+    int8 = LLM(replace(LLMConfig.tiny(), kv_cache_dtype="int8"),
+               dtype=torch.float32)
+    int8.add_lora(4, scale)
+    int8.load_state_dict(model.state_dict())
+    return (replace(jcfg, kv_cache_dtype="int8"), params, lora, scale,
+            model, int8)
+
+
+def test_int8_kv_cache_greedy_generate_matches_jax():
+    """tests/test_llm.py::test_int8_kv_cache_generation on both packages:
+    the cache leaves are int8 (f32 scale planes), and greedy tokens with
+    the int8 cache equal JAX's int8 generate (exact, left-padded prompts,
+    with the adapter) and the port's compute-dtype cache's."""
+    from llamole_tpu.models.gllm import LLM as JaxLLM
+
+    jcfg8, params, lora, scale, model, int8 = _int8_pair()
+    ids, mask = _tokens(s=9, seed=5)
+    jout, _ = JaxLLM(jcfg8, jnp.float32).generate(
+        params, jax.random.PRNGKey(0), jnp.asarray(ids), jnp.asarray(mask),
+        max_new_tokens=8, do_sample=False, pad_id=0, lora=lora,
+        lora_scale=scale, spec_tokens=0)
+    args = (torch.from_numpy(ids).long(), torch.from_numpy(mask))
+    out8, _, state = int8.generate(*args, max_new_tokens=8, do_sample=False,
+                                   pad_id=0, return_decode_state=True)
+    entry = state["cache"][0]
+    assert entry["k"].dtype == entry["v"].dtype == torch.int8
+    assert entry["k_scale"].dtype == entry["v_scale"].dtype == torch.float32
+    np.testing.assert_array_equal(out8.numpy(), np.asarray(jout))
+    out, _ = model.generate(*args, max_new_tokens=8, do_sample=False,
+                            pad_id=0)
+    np.testing.assert_array_equal(out.numpy(), out8.numpy())
+
+
+def test_int8_kv_cache_one_step_logit_fidelity():
+    """tests/test_llm.py::test_int8_kv_cache_logit_fidelity: the prefill's
+    last logits with an int8 cache stay within 2% (of the largest logit)
+    of the compute-dtype cache's, and equal JAX's int8-cache logits
+    within ATOL."""
+    jcfg8, params, lora, scale, model, int8 = _int8_pair()
+    ids, mask = _tokens(s=8, seed=6)
+    b, p, total = ids.shape[0], ids.shape[1], 12
+    kv_valid = np.concatenate([mask > 0, np.zeros((b, total - p), bool)], 1)
+    j_cache = [{k: jnp.zeros((b, total, jcfg8.num_kv_heads, 16), jnp.int8)
+                for k in ("k", "v")} | {
+               k: jnp.zeros((b, total, jcfg8.num_kv_heads), jnp.float32)
+               for k in ("k_scale", "v_scale")}
+               for _ in range(jcfg8.num_layers)]
+    want, _, _ = jax_forward(params, jcfg8, input_ids=jnp.asarray(ids),
+                             attention_mask=jnp.asarray(mask),
+                             kv_cache=j_cache, cache_index=jnp.asarray(0),
+                             kv_valid=jnp.asarray(kv_valid), lora=lora,
+                             lora_scale=scale)
+    last = {}
+    for name, llm in (("compute", model), ("int8", int8)):
+        cache = make_kv_cache(llm.cfg, b, total, torch.float32, "cpu")
+        with torch.no_grad():
+            logits, _, _ = llm(input_ids=torch.from_numpy(ids).long(),
+                               attention_mask=torch.from_numpy(mask),
+                               kv_cache=cache, cache_index=0,
+                               kv_valid=torch.from_numpy(kv_valid))
+        last[name] = logits[:, -1].numpy()
+    assert cache[0]["k"].dtype == torch.int8
+    denom = np.abs(last["compute"]).max() + 1e-9
+    assert np.abs(last["compute"] - last["int8"]).max() / denom < 0.02
+    np.testing.assert_allclose(last["int8"], np.asarray(want[:, -1]),
+                               atol=ATOL)
+
+
+@pytest.mark.parametrize("kv", ["compute", "int8"])
+@pytest.mark.parametrize("s", [1, 2])
+def test_per_row_cache_writes_past_the_end_are_dropped(kv, s):
+    """cache_append with per-row offsets against JAX _cache_append
+    (mode="drop"): rows whose columns fall past the cache's end keep what
+    they held, the rest are written (int8: quantized), exactly."""
+    from llamole_tpu.models.gllm.model import _cache_append
+    from llamole_tpu_torch.models.gllm.model import cache_append
+
+    cfg = replace(LLMConfig.tiny(), kv_cache_dtype=kv)
+    rng = np.random.default_rng(11)
+    b, t = 4, 6
+    cache = make_kv_cache(cfg, b, t, torch.float32, "cpu")[0]
+    for name, buf in cache.items():   # nonzero contents to keep
+        buf.copy_(torch.from_numpy(
+            rng.integers(-50, 50, size=buf.shape)).to(buf.dtype))
+    before = {k: v.numpy().copy() for k, v in cache.items()}
+    k = rng.normal(size=(b, s, 2, 16)).astype(np.float32)
+    v = rng.normal(size=(b, s, 2, 16)).astype(np.float32)
+    index = np.array([0, t - s, t - 1, t], np.int32)   # the last two spill
+    want = _cache_append({n: jnp.asarray(a) for n, a in before.items()},
+                         jnp.asarray(k), jnp.asarray(v), jnp.asarray(index))
+    cache_append(cache, torch.from_numpy(k), torch.from_numpy(v),
+                 torch.from_numpy(index).long())
+    for name in cache:
+        np.testing.assert_array_equal(cache[name].numpy(),
+                                      np.asarray(want[name]), err_msg=name)
+    np.testing.assert_array_equal(cache["k"][3].numpy(), before["k"][3])

@@ -142,6 +142,79 @@ def test_design_molecule_matches_jax(stacks):
     np.testing.assert_allclose(reforward[0].numpy(), j_hidden, atol=1e-4)
 
 
+def test_design_molecule_on_an_int8_cache_matches_jax(stacks):
+    """kv_cache_dtype='int8' on both packages (the JAX molqa default):
+    the decode and the design-query extension run on the int8 cache, its
+    reserved slots written quantized in place. Same analysis and design
+    hidden as JAX's int8 path (atol 1e-4, f32), and within quantization
+    error of the dense re-forward (median relative error < 0.05, as
+    tests/test_design_extension.py::test_extension_int8_kv)."""
+    tok, jm, frozen, trainable, tm = stacks
+    from dataclasses import replace
+    jm8 = JaxGraphLM(
+        llm=JaxLLM(replace(JaxLLMConfig.tiny(), kv_cache_dtype="int8"),
+                   dtype=jnp.float32),
+        graph_decoder=jm.graph_decoder, graph_predictor=jm.graph_predictor,
+        graph_encoder=jm.graph_encoder, tokenizer=tok,
+        token_id_dict=jm.token_id_dict, lora_rank=4, finetuning_type="lora")
+    tm8 = GraphLM(LLM(replace(LLMConfig.tiny(), kv_cache_dtype="int8"),
+                      dtype=torch.float32),
+                  tm.graph_decoder, tm.graph_predictor, tm.graph_encoder,
+                  tm.tokenizer, tm.token_id_dict, lora_rank=4)
+    tm8.load_state_dict(tm.state_dict())
+    ids, mask = tm8._left_pad([tok.encode(p) for p in PROMPTS])
+    props = np.full((3, 10), np.nan, np.float32)
+    caches = []
+    extend = tm8._body_hidden_extend
+    tm8._body_hidden_extend = lambda cache, kv_valid, ext: (
+        caches.append((cache, kv_valid.clone())) or
+        extend(cache, kv_valid, ext))
+    j_seen, t_seen = _capture(jm8), _capture(tm8)
+    j_analysis, _ = jm8.design_molecule(
+        frozen, trainable, jax.random.PRNGKey(3), ids, mask, props,
+        gen=JaxGen(max_new_tokens=12, do_sample=False, speculative_tokens=0))
+    t_analysis, _ = tm8.design_molecule(
+        ids, mask, props, gen=GenerationSettings(max_new_tokens=12,
+                                                 do_sample=False),
+        generator=torch.Generator().manual_seed(3))
+    np.testing.assert_array_equal(t_analysis, np.asarray(j_analysis))
+    np.testing.assert_allclose(t_seen["hidden"].numpy(),
+                               np.asarray(j_seen["hidden"]), atol=1e-4)
+    (cache, kv_before), = caches
+    entry = cache[0]
+    assert entry["k"].dtype == torch.int8
+    # the 1 + K extension slots after each row's last valid one: written
+    n_ext = 1 + tm8.num_body_tokens
+    idx = torch.arange(kv_before.shape[1])
+    write = torch.where(kv_before, idx + 1, 0).amax(dim=1)
+    for row, w in enumerate(write.tolist()):
+        assert bool((entry["k_scale"][row, w:w + n_ext] > 0).all())
+    dense = tm._body_hidden(*map(torch.from_numpy, _full_rows(
+        tm8, ids, mask, t_analysis)))
+    rel = (t_seen["hidden"] - dense).abs() / dense.abs().clamp_min(1e-3)
+    assert float(rel.median()) < 0.05
+
+
+def _full_rows(model, ids, mask, analysis):
+    """prompt + analysis (pads dropped) + <design_start> + K bodies per
+    row, left-padded: the re-forward the extension stands for."""
+    tid = model.token_id_dict
+    pad = model.tokenizer.pad_token_id
+    rows = []
+    for p_ids, p_mask, a in zip(ids, mask, analysis):
+        body = [t for t in a.tolist() if t != pad]
+        rows.append([int(t) for t, m in zip(p_ids, p_mask) if m] + body
+                    + [tid["<design_start>"]]
+                    + [tid["<design_body>"]] * model.num_body_tokens)
+    width = max(map(len, rows))
+    out_ids = np.full((len(rows), width), pad, np.int64)
+    out_mask = np.zeros((len(rows), width), np.int32)
+    for i, r in enumerate(rows):
+        out_ids[i, width - len(r):] = r
+        out_mask[i, width - len(r):] = 1
+    return out_ids, out_mask
+
+
 def test_design_with_spliced_molecules_matches_jax(stacks):
     """design_molecule(molecule_batch=...): the prompt's <molecule> slots
     carry GraphCLIP embeddings through the analysis decode and the design

@@ -180,9 +180,10 @@ _INTERCHANGE_CPU = {"shard_gb": 2e-4, "requests": 3, "max_new_tokens": 8,
                     "retro_iterations": 1, "retro_max_time": 5.0}
 
 
-def _tiny_slice():
+def _tiny_slice(llm=None):
     """build_slice's composition at small widths on the CPU: the LLM in
-    bf16 with a rank-8 adapter, GraphDiT in bf16, f32 GIN modules."""
+    bf16 with a rank-8 adapter (`llm` when given), GraphDiT in bf16, f32
+    GIN modules."""
     from llamole_tpu_torch.models.gllm import LLMConfig
     from llamole_tpu_torch.models.graphclip import GraphCLIPConfig
     from llamole_tpu_torch.models.graphdit import (
@@ -197,7 +198,7 @@ def _tiny_slice():
     dit = GraphDiTConfig(hidden_size=32, depth=2, num_heads=4,
                          diffusion_steps=4, text_dim=768, guide_scale=2.0)
     model = build_graph_lm_from_configs(
-        LLMConfig.tiny(), dit, info, tok, device="cpu",
+        LLMConfig.tiny(), dit, info, tok, device="cpu", llm=llm,
         llm_dtype=torch.bfloat16, graph_dtype=torch.bfloat16, seed=0,
         finetuning_type="lora", lora_rank=8,
         clip_cfg=GraphCLIPConfig(num_layer=2, hidden_size=32),
@@ -344,3 +345,84 @@ def test_continuous_phase_sizes_are_phase_7s():
         "slots": 8, "design_batch": 8, "chunk_steps": 8, "cache_len": 1024,
         "max_new_tokens": 128, "retro_iterations": 100,
         "retro_max_time": 30.0}
+
+
+# phase 14 (quantized serving) at small sizes on the CPU: a small LLM
+# whose projections outweigh its embedding as at 8B (4 layers, hidden 256,
+# so the byte bounds apply), the tiny slice's graph modules, the loader's
+# tiny LLM for QLoRA ("" names no family)
+_QUANTIZED_CPU = {"requests": 4, "max_new_tokens": 8, "retro_iterations": 1,
+                  "retro_max_time": 5.0, "prefill_batch": 8,
+                  "decode_tokens": 4, "train_steps": 2, "design_batch": 2,
+                  "model_name_or_path": ""}
+
+
+def test_quantized_phase_runs_on_the_cpu(capsys):
+    """Phase 14 end to end at a small width: 4 requests answered from the
+    int8 slice (int8 KV cache), the int8 denoiser within its bound and
+    its design batch, the three schemes' projections within their bounds
+    with every W8A8 projection through torch._int_mm, the KV check, and
+    QLoRA through run_mmsft changing the LoRA and the connectors, not the
+    int8 base."""
+    from llamole_tpu_torch.models.gllm import LLMConfig
+
+    assert set(_QUANTIZED_CPU) - {"model_name_or_path"} == set(
+        chip_smoke.QUANTIZED)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        launches, schemes = chip_smoke.run_quantized(
+            (), "CPU", device="cpu", sizes=_QUANTIZED_CPU,
+            build=_tiny_slice,
+            llm_cfg=LLMConfig(vocab_size=512, hidden_size=256,
+                              intermediate_size=512, num_layers=4,
+                              num_heads=4, num_kv_heads=2,
+                              rope_theta=10000.0),
+            phase7={"decode_tok_s": 1.0})
+    finally:
+        torch.set_num_threads(threads)
+    out = capsys.readouterr().out
+    assert launches == {"A": 0, "A_mma": 0, "A_fma": 0, "B": 0, "C": 0}
+    assert "quantized serving (int8 weights, int8 KV cache): 4 answered" \
+        in out
+    assert "int8 base's checksum" in out and "unchanged" in out
+    for scheme, bound in chip_smoke.QUANT_BOUNDS.items():
+        assert schemes[scheme]["proj"] < bound
+        assert schemes[scheme]["bytes"] < (
+            chip_smoke.BYTES_BOUNDS[scheme] * schemes["int8"]["bytes"] / 0.5)
+    assert schemes["kv"]["layer0"] < chip_smoke.KV_BOUND
+
+
+def test_quantized_phase_gates_and_sizes():
+    """Phase 14's gates are the CPU tests' bounds (int8 0.05, W8A8 0.10,
+    int4 0.15: tests/test_quantize.py; the int8 KV cache 0.02:
+    tests/test_llm.py; the int8 denoiser 0.05: tests/test_graphdit.py),
+    its requests phase 7's first 4 at phase 7's settings. At the 8B shape,
+    counted on the meta device (nothing allocated): the bf16 LLM is phase
+    12's 16060522496 bytes, int8 and W8A8 below 0.55x of it and packed
+    int4 below 0.35x."""
+    from llamole_tpu_torch.models.gllm import LLM, LLMConfig
+    from llamole_tpu_torch.models.gllm.quantize import quantized_bytes
+
+    assert chip_smoke.QUANT_BOUNDS == {"int8": 0.05, "w8a8": 0.10,
+                                       "int4": 0.15}
+    assert (chip_smoke.KV_BOUND, chip_smoke.DENOISER_BOUND) == (0.02, 0.05)
+    assert chip_smoke.BYTES_BOUNDS == {"int8": 0.55, "w8a8": 0.55,
+                                       "int4": 0.35}
+    assert chip_smoke.QUANTIZED == {
+        "requests": 4, "max_new_tokens": 128, "retro_iterations": 100,
+        "retro_max_time": 30.0, "prefill_batch": 8, "decode_tokens": 32,
+        "train_steps": 2, "design_batch": 8}
+    cfg = LLMConfig.llama3_8b()
+    dense = quantized_bytes(LLM(cfg, torch.bfloat16, "meta"))
+    assert dense == 16060522496
+    for scheme, group in (("int8", 0), ("w8a8", 0), ("int4", 128)):
+        got = quantized_bytes(LLM(cfg, torch.bfloat16, "meta",
+                                  quant=(scheme, group)))
+        assert got < chip_smoke.BYTES_BOUNDS[scheme] * dense, scheme
+    args = chip_smoke.qlora_args("out", chip_smoke.QUANTIZED)
+    assert (args["quantization_bit"], args["max_steps"],
+            args["gradient_accumulation_steps"]) == (8, 2, 1)
+    assert set(chip_smoke.QLORA_DEVIATIONS) == {
+        "quantization_bit", "max_steps", "gradient_accumulation_steps"}
+
