@@ -125,7 +125,9 @@
    route, 10 s retro wall) served from the merged model: no error, A >=
    28 x reverse steps x design batches, B >= 5 x (rounds + products);
    peak memory; base/ and merged/ deleted in a finally.
-13. Continuous serving (after phase 8, on the slice): see run_continuous.
+13. Continuous serving (after phase 8, on a slice of its own whose LLM
+   is Llama-3.1-8B's width at 8 of its 32 layers, CONTINUOUS_LAYERS):
+   see run_continuous.
 14. Quantized serving at the slice's Llama-3.1-8B shape, after phase 12
    on an emptied card (QUANTIZED): (a) the LLM drawn straight into int8
    weights with the int8 KV cache (as bench.py's molqa cell builds it),
@@ -152,6 +154,30 @@
    the loader's int8 base (QLORA_DEVIATIONS): finite losses, the LoRA and
    the connectors changed, the base's checksum unchanged, the peak beside
    phase 9's.
+15. The LLM's other families at full width, after phase 14 on an emptied
+   card (FAMILIES; bf16, random weights from seed 0, each model freed
+   before the next): (a) qwen3_8b (8.19B parameters): 8 prompts, 128
+   greedy tokens per-token and with drafts (K=2), on the compute-dtype
+   and on the int8 KV cache: tok/s each way, accepted drafts a verify
+   step, the guard; the cache against the no-cache forward of prompt +
+   tokens (teacher-forced; max |diff| / max |logit| < CACHE_LOGIT_TOL), and
+   each row where the drafted tokens part from the per-token ones must
+   part where the per-token path's top-2 gap is at most twice that
+   check's largest difference; (b) gemma2_9b (softcaps, sandwich norms,
+   GeGLU, sliding windows) serving 4 of phase 7's requests (the first
+   asking for a route) through DesignServer over phase 7's graph modules
+   at phase 7's settings: no "error", a "retro" block, A >= 28 x steps x
+   design batches all mma, B >= 5 x (rounds + products), latencies and
+   peak; (c) gemma3_12b on a 1280-token prompt: the cache against the
+   forward from slot 1024 on (past the 1024-token window of 40 of its 48
+   layers), and 32 greedy steps with drafts off (the auto rule under the
+   window); (d) Mixtral at full width (4096 / 14336, 8 experts, top-2),
+   8 of 32 layers: the units dropped for capacity at prefill and decode,
+   64 greedy tokens per-token and with drafts; at a capacity of 8 (no
+   drops) the cache and drafts checks of (a); one GraphLM.loss and
+   backward at batch 2 (two training records, the router term in the LM
+   loss, finite gradients on the attention LoRA and the connectors; B
+   and C counted).
 
 Prints, before the last line, one {"kernels": [...]} JSON line (per
 kernel: launches on the main path, max_abs_err, ms, plain_ms, device_ms,
@@ -165,7 +191,9 @@ times, bound and share at the pretraining bank under pretrain_* keys
 12's serving under launches_interchange (A per body too); under
 launches_quantized, phase 14's: A's in its serving and int8-denoiser
 batch (per body too), B's in its serving and QLoRA training, C's in
-the latter;
+the latter; under launches_families, phase 15's: A's in the gemma-2
+serving (per body too), B's there and in the Mixtral loss, C's in the
+latter;
 the last line is {"ok": true, "device": {...}}. Any
 failure exits non-zero.
 """
@@ -882,6 +910,11 @@ def run_eval(model, tok, timers, kernels, tag):
 CONTINUOUS = {"slots": 8, "design_batch": 8, "chunk_steps": 8,
               "cache_len": 1024, "max_new_tokens": 128,
               "retro_iterations": 100, "retro_max_time": 30.0}
+# its LLM's depth: Llama-3.1-8B's width cut to 8 of its 32 layers, on a
+# slice of its own, to keep the script within its time limit once phase 15
+# runs (with phase 13 at full depth the whole script took 1017-1169 s on
+# an H100 80GB HBM3 at 700 W)
+CONTINUOUS_LAYERS = 8
 
 
 def _percentiles(values):
@@ -2555,9 +2588,11 @@ def check_bytes(llm, scheme, tag) -> int:
     return got
 
 
-def serve_quantized(model, tok, kernels, tag, sizes, phase7):
+def serve_quantized(model, tok, kernels, tag, sizes, phase7,
+                    what="quantized serving (int8 weights, int8 KV cache)"):
     """Phase 14 (a): the requests through DesignServer on the quantized
-    slice. Returns the A and B launches (on the card)."""
+    slice (phase 15 (b): on the gemma-2 slice, `what` naming it). Returns
+    the A and B launches (on the card)."""
     from llamole_tpu_torch.models.composite import GenerationSettings
     from llamole_tpu_torch.serve import DesignServer
 
@@ -2585,12 +2620,10 @@ def serve_quantized(model, tok, kernels, tag, sizes, phase7):
     wall = time.perf_counter() - t0
     errors = [r["error"] for r in results if "error" in r]
     if len(results) != sizes["requests"] or errors:
-        fail(f"quantized serving: {len(results)} answers, errors "
-             f"{errors[:3]}")
+        fail(f"{what}: {len(results)} answers, errors {errors[:3]}")
     if results[0]["smiles"] is not None and not isinstance(
             results[0].get("retro"), dict):
-        fail(f"quantized serving: retro request without a retro block: "
-             f"{results[0]}")
+        fail(f"{what}: retro request without a retro block: {results[0]}")
     pad = tok.pad_token_id
     decodes = timers.log["decode"]
     dec_tokens = sum(int((out[0] != pad).sum()) for _, out in decodes)
@@ -2600,25 +2633,28 @@ def serve_quantized(model, tok, kernels, tag, sizes, phase7):
     beside = (f"; phase 7 (bf16 weights, compute-dtype cache) "
               f"{phase7['decode_tok_s']:.1f} tok/s in this run"
               if phase7 else "")
-    print(f"quantized serving (int8 weights, int8 KV cache): "
+    print(f"{what}: "
           f"{len(results)} answered in {wall:.3f} s, valid SMILES {valid}, "
           f"route found {bool(results[0].get('retro', {}).get('success'))};"
           f" decode {dec_tokens} tokens in {timers.seconds('decode'):.3f} s"
-          f" = {rate:.1f} tok/s{beside}; peak {_peak(on_card)} [{tag}]",
-          flush=True)
+          f" = {rate:.1f} tok/s{beside}; latency (s) retro request "
+          f"{results[0]['latency_s']:.3f}, design-only "
+          f"{[round(r['latency_s'], 3) for r in results[1:]]}; design "
+          f"batch walls {[round(t, 3) for t, _ in timers.log['design']]} s;"
+          f" peak {_peak(on_card)} [{tag}]", flush=True)
     launches = {"A": 0, "A_mma": 0, "A_fma": 0, "B": 0}
     if on_card:
         fused, gin = kernels[:2]
         launches = {"A": fused.launches, "A_mma": fused.launches_mma,
                     "A_fma": fused.launches_fma, "B": gin.launches}
-        check_mma_only(fused, "quantized serving")
+        check_mma_only(fused, what)
         steps = diffusion_steps(model)
         depth = model.graph_decoder.cfg.depth
         batches = timers.count("design")
-        check_launches("fused_block_attention (quantized serving)",
+        check_launches(f"fused_block_attention ({what})",
                        launches["A"], depth * steps * batches,
                        f"{depth} x {steps} x {batches}")
-        check_launches("gin_aggregate (quantized serving)", launches["B"],
+        check_launches(f"gin_aggregate ({what})", launches["B"],
                        timers.gin_floor(),
                        f"{GIN_LAYERS} x ({timers.count('splice')} rounds + "
                        f"{timers.count('predictor')} products)")
@@ -2645,7 +2681,8 @@ def decode_split(llm, tok, tag, sizes):
     adapted = [m for m in llm.modules() if getattr(m, "lora_a", None)
                is not None]
     ms = {}
-    llm.generate(ids, mask, max_new_tokens=2, do_sample=False)   # warm
+    llm.generate(ids, mask, max_new_tokens=2, do_sample=False,
+                 spec_tokens=0)   # warm
     try:
         for kv in ("int8", "compute"):
             llm.cfg = dataclasses.replace(base, kv_cache_dtype=kv)
@@ -2662,7 +2699,8 @@ def decode_split(llm, tok, tag, sizes):
     _sync_card()
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        llm.generate(ids, mask, max_new_tokens=steps, do_sample=False)
+        llm.generate(ids, mask, max_new_tokens=steps, do_sample=False,
+                     spec_tokens=0)
         _sync_card()
         wall = time.perf_counter() - t0
     events = prof.key_averages()
@@ -2785,7 +2823,8 @@ def _timed_generate(llm, ids, mask, steps):
     llm(input_ids=ids, attention_mask=mask, last_logits_only=True)
     _sync_card()
     t1 = time.perf_counter()
-    out, _ = llm.generate(ids, mask, max_new_tokens=steps, do_sample=False)
+    out, _ = llm.generate(ids, mask, max_new_tokens=steps, do_sample=False,
+                          spec_tokens=0)
     _sync_card()
     t2 = time.perf_counter()
     return out, 1e3 * ((t2 - t1) - (t1 - t0)) / steps
@@ -2855,7 +2894,7 @@ def check_kv_cache(llm, ids, mask, steps, tag):
                 fail(f"the {kv} KV cache holds {cache[0]['k'].dtype}")
             logits[kv], attn[kv] = step[:, -1], seen[0]
             tokens[kv], _ = llm.generate(ids, mask, max_new_tokens=steps,
-                                         do_sample=False)
+                                         do_sample=False, spec_tokens=0)
     finally:
         llm.cfg = base
     rel = _rel(logits["int8"], logits["compute"])
@@ -3068,6 +3107,478 @@ def run_quantized(kernels, tag, device="cuda", sizes=None, build=None,
     return launches, schemes
 
 
+# Phase 15, the LLM's other families at full width on an emptied card, in
+# bf16 with random weights from seed 0: (a) qwen3_8b, its cache against its
+# forward and 128 greedy tokens without and with drafts (K = 2), on the
+# compute-dtype and the int8 KV cache; (b) gemma2_9b serving phase 7's
+# first 4 requests through DesignServer over phase 7's graph modules; (c)
+# gemma3_12b on a 1280-token prompt, its cache against its forward across
+# the 1024-token window and 32 greedy steps with drafts off; (d) Mixtral at
+# full width (4096 / 14336, 8 experts, top-2), 8 of its 32 layers (46.7B
+# parameters take 93 GB in bf16, and no expert is quantized): the cache
+# against the forward, 64 greedy tokens without and with drafts, the
+# capacity drops, one loss and backward at batch 2 with the router term
+FAMILIES = {"prompts": 8, "greedy_tokens": 128, "spec_tokens": 2,
+            "requests": 4, "max_new_tokens": 128, "retro_iterations": 100,
+            "retro_max_time": 30.0, "long_prompt": 1280,
+            "long_prefill": 1024, "long_steps": 32, "moe_layers": 8,
+            "moe_tokens": 64, "train_batch": 2}
+# The cache-against-forward tolerance: max |cached - forward| over max
+# |forward| of the logits at every teacher-forced slot, in bf16: phase 12's
+# bound for two bf16 computations of the same logits (MERGE_LOGIT_TOL).
+# The greedy paths with and without drafts may part only where the
+# per-token path's top-2 logit gap is at most twice the largest difference
+# this check measured (each path within that of the forward's logits).
+CACHE_LOGIT_TOL = MERGE_LOGIT_TOL
+
+
+def family_llm(cfg, device, seed=0):
+    """cfg's LLM in bf16, random weights drawn on `device` from `seed`."""
+    from llamole_tpu_torch.models.gllm import LLM
+
+    llm = LLM(cfg, dtype=torch.bfloat16, device=device)
+    llm.reset_parameters(torch.Generator(device=device).manual_seed(seed))
+    return llm.eval()
+
+
+def _record_routes(llm, log):
+    """Forward pre-hooks on every MoE layer: each call's top-k expert ids
+    [B, S, k] (sorted) appended to log[layer]. Returns the handles."""
+    import torch.nn.functional as F
+
+    def hook(i):
+        def pre(mod, args):
+            probs = torch.softmax(F.linear(args[0], mod.router.weight)
+                                  .float(), dim=-1)
+            top = probs.topk(mod.cfg.num_experts_per_tok, dim=-1).indices
+            log.setdefault(i, []).append(top.sort(dim=-1).values)
+        return pre
+
+    return [layer.mlp.register_forward_pre_hook(hook(i))
+            for i, layer in enumerate(llm.layers) if layer.moe]
+
+
+@torch.no_grad()
+def cache_against_forward(llm, ids, mask, prefill, what, tag, gate=True):
+    """The first `prefill` slots prefilled into a KV cache, the rest fed
+    one a step (teacher-forced); the logits of the prefill's last slot
+    and of every fed slot against one no-cache forward of the whole
+    sequence. For an MoE LLM, also the (row, slot, layer) units the two
+    paths route to different experts. Fails past CACHE_LOGIT_TOL (with
+    `gate`); returns the largest absolute difference and the no-cache
+    logits of those slots."""
+    from llamole_tpu_torch.models.gllm.model import make_kv_cache
+
+    b, s = ids.shape
+    positions = (mask.cumsum(-1) - 1).clamp_min(0)
+    routes = ({}, {})
+    hooks = _record_routes(llm, routes[0])
+    try:
+        full = llm(input_ids=ids, attention_mask=mask)[0][:, prefill - 1:]
+    finally:
+        for h in hooks:
+            h.remove()
+    hooks = _record_routes(llm, routes[1])
+    cache = make_kv_cache(llm.cfg, b, s, llm.dtype, ids.device)
+    kv_valid = torch.zeros((b, s), dtype=torch.bool, device=ids.device)
+    kv_valid[:, :prefill] = mask[:, :prefill] > 0
+    pre = llm(input_ids=ids[:, :prefill], attention_mask=mask[:, :prefill],
+              positions=positions[:, :prefill], kv_cache=cache,
+              cache_index=0, kv_valid=kv_valid, last_logits_only=True)[0]
+    steps = [pre[:, -1]]
+    try:
+        for t in range(prefill, s):
+            kv_valid[:, t] = mask[:, t] > 0
+            steps.append(llm(input_ids=ids[:, t:t + 1],
+                             positions=positions[:, t:t + 1], kv_cache=cache,
+                             cache_index=t, kv_valid=kv_valid)[0][:, -1])
+    finally:
+        for h in hooks:
+            h.remove()
+    cached = torch.stack(steps, dim=1)
+    real = mask[:, prefill - 1:] > 0
+    diff = float((cached - full).abs()[real].max())
+    scale = float(full.abs()[real].max())
+    top1 = float((cached.argmax(-1) == full.argmax(-1))[real].float().mean())
+    routing = ""
+    if routes[0]:
+        real_all = mask > 0
+        flips = sum(int((torch.cat(routes[1][i], dim=1) != routes[0][i][0])
+                        .any(-1)[real_all].sum()) for i in routes[0])
+        routing = (f", routed to other experts at {flips} of "
+                   f"{int(real_all.sum()) * len(routes[0])} (row, slot, "
+                   f"layer) units")
+    bound = f"bound {CACHE_LOGIT_TOL}" if gate else "not gated"
+    print(f"{what}: cached against no-cache logits over {int(real.sum())} "
+          f"slots ({s - prefill} fed one a step after a {prefill}-slot "
+          f"prefill): max abs diff {diff:.4e}, over max |logit| "
+          f"{diff / scale:.4e} ({bound}), top-1 agreement {top1:.4f}"
+          f"{routing} [{tag}]", flush=True)
+    if gate and not diff / scale < CACHE_LOGIT_TOL:
+        fail(f"{what}: cached logits {diff / scale:.4e} off the forward's")
+    return diff, full
+
+
+@torch.no_grad()
+def _greedy_timed(llm, ids, mask, steps, spec):
+    """(tokens, decode tok/s, verify steps or None): a greedy generate's
+    wall less a prefill's, between syncs of the card."""
+    _sync_card()
+    t0 = time.perf_counter()
+    llm(input_ids=ids, attention_mask=mask, last_logits_only=True)
+    _sync_card()
+    t1 = time.perf_counter()
+    out, _, iters = llm.generate(ids, mask, max_new_tokens=steps,
+                                 do_sample=False, spec_tokens=spec,
+                                 return_spec_iters=True)
+    _sync_card()
+    t2 = time.perf_counter()
+    rate = ids.shape[0] * steps / max((t2 - t1) - (t1 - t0), 1e-9)
+    return out, rate, iters
+
+
+@torch.no_grad()
+def check_greedy_agreement(plain, drafted, logits, diff, what, tag):
+    """Rows whose drafted tokens part from the per-token path's: each first
+    difference must fall where the per-token path's top-2 logit gap (the
+    no-cache forward's logits of prompt + its tokens, from the last
+    prompt slot on) is at most 2 x diff. Returns the share of rows that
+    agree throughout."""
+    top2 = logits[:, :plain.shape[1]].topk(2, dim=-1).values
+    gap = (top2[..., 0] - top2[..., 1]).cpu()
+    differ = (plain != drafted).cpu()
+    firsts = []
+    for r in range(plain.shape[0]):
+        if differ[r].any():
+            t = int(differ[r].float().argmax())
+            firsts.append((r, t, round(float(gap[r, t]), 4)))
+            if float(gap[r, t]) > 2 * diff:
+                fail(f"{what}: row {r} parts from the per-token path at "
+                     f"step {t}, where its top-2 gap {float(gap[r, t]):.4f}"
+                     f" > 2 x {diff:.4e}")
+    agree = 1.0 - len(firsts) / plain.shape[0]
+    print(f"{what}: rows agreeing with the per-token path {agree:.4f}; "
+          f"first differences (row, step, top-2 gap) {firsts} (limit "
+          f"{2 * diff:.4e}) [{tag}]", flush=True)
+    return agree
+
+
+def _cache_and_drafts(llm, ids, mask, plain, drafted, what, tag):
+    """cache_against_forward over prompt + the per-token path's tokens,
+    then check_greedy_agreement on its logits: (diff, share agreeing)."""
+    seq = torch.cat([ids, plain], dim=1)
+    m = torch.cat([mask, torch.ones_like(plain, dtype=mask.dtype)], dim=1)
+    diff, logits = cache_against_forward(llm, seq, m, ids.shape[1], what,
+                                         tag)
+    return diff, check_greedy_agreement(plain, drafted, logits, diff, what,
+                                        tag)
+
+
+def _spec_report(llm):
+    st = getattr(llm, "spec_stats", None) or {}
+    acc = st.get("accepted", 0) / max(st.get("live_steps", 0), 1)
+    return (f"{acc:.3f} accepted drafts a verify step and row over "
+            f"{st.get('iterations')} verify steps, guard tripped "
+            f"{st.get('guard_tripped')}")
+
+
+def run_qwen3(tok, tag, device="cuda", sizes=None, cfg=None):
+    """Phase 15 (a). Returns its records."""
+    from llamole_tpu_torch.models.gllm import LLMConfig
+
+    sizes = sizes or FAMILIES
+    cfg = cfg or LLMConfig.qwen3_8b()
+    t0 = time.perf_counter()
+    llm = family_llm(cfg, device)
+    print(f"qwen3 LLM ({sum(p.numel() for p in llm.parameters())} "
+          f"parameters, bf16) drawn in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    ids, mask = _prompt_batch(tok, sizes["prompts"], device)
+    steps, k = sizes["greedy_tokens"], sizes["spec_tokens"]
+    records = {}
+    base = llm.cfg
+    try:
+        for kv in ("compute", "int8"):
+            llm.cfg = dataclasses.replace(base, kv_cache_dtype=kv)
+            what = f"qwen3 ({kv} KV cache)"
+            plain, plain_rate, _ = _greedy_timed(llm, ids, mask, steps, 0)
+            drafted, spec_rate, iters = _greedy_timed(llm, ids, mask, steps,
+                                                      k)
+            stats = dict(llm.spec_stats)
+            diff, agree = _cache_and_drafts(llm, ids, mask, plain, drafted,
+                                            what, tag)
+            print(f"{what}: greedy decode at batch {ids.shape[0]}, {steps} "
+                  f"tokens: {plain_rate:.1f} tok/s per-token, "
+                  f"{spec_rate:.1f} tok/s with drafts (K={k}); "
+                  f"{_spec_report(llm)} [{tag}]", flush=True)
+            records[kv] = {"tok_s": plain_rate, "spec_tok_s": spec_rate,
+                           "stats": stats, "agree": agree, "diff": diff}
+    finally:
+        llm.cfg = base
+    return records
+
+
+def long_prompt(tok, n, device):
+    """One row of exactly n tokens, PROMPT repeated."""
+    ids = []
+    while len(ids) < n:
+        ids += tok.encode(PROMPT + " ")
+    ids = torch.tensor([ids[:n]], device=device)
+    return ids, torch.ones_like(ids, dtype=torch.int32)
+
+
+@torch.no_grad()
+def run_gemma3(tok, tag, device="cuda", sizes=None, cfg=None):
+    """Phase 15 (c). Returns its records."""
+    from llamole_tpu_torch.models.gllm import LLMConfig
+
+    sizes = sizes or FAMILIES
+    cfg = cfg or LLMConfig.gemma3_12b()
+    llm = family_llm(cfg, device)
+    n, steps = sizes["long_prompt"], sizes["long_steps"]
+    ids, mask = long_prompt(tok, n, device)
+    if not n > cfg.sliding_window >= sizes["long_prefill"] - 1:
+        fail(f"gemma-3: a {n}-token prompt does not cross the "
+             f"{cfg.sliding_window}-token window after the prefill")
+    local = sum(not cfg.is_global_layer(i) for i in range(cfg.num_layers))
+    diff, _ = cache_against_forward(
+        llm, ids, mask, sizes["long_prefill"],
+        f"gemma-3 ({local} of {cfg.num_layers} layers windowed at "
+        f"{cfg.sliding_window})", tag)
+    _sync_card()
+    t0 = time.perf_counter()
+    out, _, iters, state = llm.generate(ids, mask, max_new_tokens=steps,
+                                        do_sample=False,
+                                        return_spec_iters=True,
+                                        return_decode_state=True)
+    _sync_card()
+    wall = time.perf_counter() - t0
+    slots = state["cache"][0]["k"].shape[1] if state else None
+    if iters != steps or state is None or slots != n + steps:
+        fail(f"gemma-3: drafts ran under the sliding window ({iters} "
+             f"steps, cache slots {slots})")
+    print(f"gemma-3: {steps} greedy steps on the {n}-token prompt in "
+          f"{wall:.3f} s (prefill included), drafts off (spec_tokens auto: "
+          f"{iters} per-token steps, a {slots}-slot cache) [{tag}]",
+          flush=True)
+    return {"diff": diff, "wall": wall}
+
+
+def _drop_counter(llm):
+    """Zero drop counters on every MoE layer; returns a reader of their
+    sum."""
+    for layer in llm.layers:
+        layer.mlp.drop_count = torch.zeros((), dtype=torch.long,
+                                           device=llm.device)
+    return lambda: sum(int(layer.mlp.drop_count) for layer in llm.layers)
+
+
+@torch.no_grad()
+def moe_drops(llm, ids, mask, steps):
+    """(greedy tokens, units dropped at prefill, at decode): one greedy
+    generate with every layer's drop counter on, the prefill's read by a
+    hook after the first forward."""
+    read = _drop_counter(llm)
+    after = []
+    hook = llm.register_forward_hook(lambda m, i, o: after.append(read()))
+    try:
+        out, _ = llm.generate(ids, mask, max_new_tokens=steps,
+                              do_sample=False, spec_tokens=0)
+    finally:
+        hook.remove()
+        for layer in llm.layers:
+            layer.mlp.drop_count = None
+    return out, after[0], after[-1] - after[0]
+
+
+def moe_train_batch(tok, rows, device):
+    """`rows` records of data/molqa_train_examples.json collated as
+    run_mmsft collates them (cutoff 768, MAX_NODES)."""
+    from llamole_tpu_torch.data.collator import SeqGraphCollator
+    from llamole_tpu_torch.data.loader import get_dataset
+
+    data_args = SimpleNamespace(
+        dataset="molqa_train_examples",
+        dataset_dir=str(Path(__file__).resolve().parent / "data"),
+        max_samples=None, template="default", learned_query_size=8,
+        cutoff_len=768, train_on_prompt=False)
+    bank, inputs = get_dataset(None, data_args, None, tok)
+    collate = SeqGraphCollator(tokenizer=tok, mol_id_to_graph=bank,
+                               max_len=768, max_nodes=MAX_NODES,
+                               max_graphs=16, max_retro=16)
+    return collate(inputs[:rows])
+
+
+def run_mixtral(kernels, tag, device="cuda", sizes=None, cfg=None,
+                build=None):
+    """Phase 15 (d). In bf16: the capacity drops at the preset's factor,
+    64 greedy tokens per-token and with drafts, the cache against the
+    forward at a capacity of E (not gated: there a router's top two
+    probabilities tie often enough in bf16 that the two paths send a
+    token to other experts, which changes its output wholesale; the
+    routing differences are printed), one loss and backward. Then in f32
+    (the same seed's weights before their bf16 rounding) at a capacity of
+    E: the gated cache and drafts checks of (a). Returns the B and C
+    launches of the loss and backward, and its records."""
+    from llamole_tpu_torch.models.gllm import LLMConfig
+
+    sizes = sizes or FAMILIES
+    cfg = cfg or dataclasses.replace(LLMConfig.mixtral_8x7b(),
+                                     num_layers=sizes["moe_layers"])
+    build = build or build_slice
+    on_card = device == "cuda"
+    from llamole_tpu_torch.models.loader import offline_tokenizer
+
+    llm = family_llm(cfg, device)
+    ids, mask = _prompt_batch(offline_tokenizer(), sizes["prompts"], device)
+    steps, k, e = sizes["moe_tokens"], sizes["spec_tokens"], cfg.num_experts
+    units = cfg.num_experts_per_tok * cfg.num_layers
+    plain, pre_drop, dec_drop = moe_drops(llm, ids, mask, steps)
+    _, rate, _ = _greedy_timed(llm, ids, mask, steps, 0)
+    drafted, spec_rate, _ = _greedy_timed(llm, ids, mask, steps, k)
+    agree = float((plain == drafted).all(1).float().mean())
+    print(f"Mixtral ({cfg.num_layers} of 32 layers, bf16, capacity factor "
+          f"{cfg.moe_capacity_factor}): units dropped for capacity at "
+          f"prefill {pre_drop} of {int(mask.sum()) * units}, over {steps} "
+          f"decode steps {dec_drop} of {ids.shape[0] * steps * units}; "
+          f"greedy decode at batch {ids.shape[0]}: {rate:.1f} tok/s "
+          f"per-token, {spec_rate:.1f} tok/s with drafts (K={k}); rows "
+          f"agreeing {agree:.4f} (a verify step routes {k + 1} tokens a "
+          f"row, so its drops differ); {_spec_report(llm)} [{tag}]",
+          flush=True)
+    factor = llm.cfg.moe_capacity_factor
+    llm.cfg.moe_capacity_factor = float(e)     # the layers share this cfg
+    try:
+        seq = torch.cat([ids, plain], dim=1)
+        cache_against_forward(
+            llm, seq, torch.cat([mask, torch.ones_like(plain, dtype=mask
+                                                        .dtype)], 1),
+            ids.shape[1], f"Mixtral (bf16, capacity factor {e}: no drops)",
+            tag, gate=False)
+    finally:
+        llm.cfg.moe_capacity_factor = factor
+
+    # one loss and backward through GraphLM.loss, the router term in it
+    model, tok = build(llm)
+    del llm
+    batch = moe_train_batch(tok, sizes["train_batch"], device)
+    aux = []
+    hook = model.llm.register_forward_hook(
+        lambda m, i, o: aux.append(o[3].detach()) if len(o) == 4 else None)
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    reset_counts(*kernels)
+    model.train()
+    t0 = time.perf_counter()
+    try:
+        total, parts = model.loss(batch, torch.Generator(
+            device=device).manual_seed(0), train=True)
+        total.backward()
+    finally:
+        hook.remove()
+        model.eval()
+    _sync_card()
+    wall = time.perf_counter() - t0
+    launches = ({"B": kernels[1].launches, "C": kernels[2].launches}
+                if on_card else {"B": 0, "C": 0})
+    params = model.trainable_parameters()
+    grads = [p.grad for p in params.values()]
+    if (len(aux) != 1 or not torch.isfinite(total.detach())
+            or not float(aux[0]) > 0
+            or any(g is None or not torch.isfinite(g).all() for g in grads)):
+        fail(f"Mixtral loss: total {float(total.detach())}, router aux "
+             f"{aux}, {sum(g is None for g in grads)} trainable tensors "
+             "without a gradient")
+    if any(".mlp." in n for n in params):
+        fail("Mixtral: the adapter covers MLP targets under MoE")
+    print(f"Mixtral loss + backward at batch {sizes['train_batch']} "
+          f"({tuple(batch['input_ids'].shape)} tokens): total "
+          f"{total.item():.4f}, lm (router term in) "
+          f"{parts['lm_loss'].item():.4f}, router aux {float(aux[0]):.4f} x "
+          f"coef {model.llm.cfg.moe_aux_loss_coef}, design "
+          f"{parts['design_loss'].item():.4f}, retro "
+          f"{parts['retro_loss'].item():.4f}; {len(grads)} trainable "
+          f"tensors with finite gradients (attention LoRA + connectors); B "
+          f"{launches['B']}, C {launches['C']} launches; {wall:.3f} s; "
+          f"peak {_peak(on_card)} [{tag}]", flush=True)
+    del model, total, parts, params, grads
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # the gated checks in f32 at a capacity of E
+    from llamole_tpu_torch.models.gllm import LLM
+    llm = LLM(dataclasses.replace(cfg, moe_capacity_factor=float(e)),
+              dtype=torch.float32, device=device)
+    llm.reset_parameters(torch.Generator(device=device).manual_seed(0))
+    llm.eval()
+    plain32, rate32, _ = _greedy_timed(llm, ids, mask, steps, 0)
+    drafted32, spec32, _ = _greedy_timed(llm, ids, mask, steps, k)
+    _, nodrop, _ = moe_drops(llm, ids, mask, 1)
+    if nodrop:
+        fail(f"Mixtral at capacity factor {e}: {nodrop} units dropped")
+    what = f"Mixtral (f32, capacity factor {e}: no drops)"
+    diff, agree32 = _cache_and_drafts(llm, ids, mask, plain32, drafted32,
+                                      what, tag)
+    print(f"{what}: greedy decode at batch {ids.shape[0]}, {steps} tokens: "
+          f"{rate32:.1f} tok/s per-token, {spec32:.1f} tok/s with drafts "
+          f"(K={k}); {_spec_report(llm)} [{tag}]", flush=True)
+    return launches, {"agree": agree, "agree_f32": agree32,
+                      "drops": (pre_drop, dec_drop), "diff": diff}
+
+
+def run_families(kernels, tag, device="cuda", sizes=None, build=None,
+                 cfgs=None, phase7=None):
+    """Phase 15 on an empty card: (a) qwen3, (b) gemma-2 serving, (c)
+    gemma-3, (d) Mixtral, each model freed before the next. cfgs: the
+    four LLM configs (the presets by default). Returns the A, B and C
+    launches of (b) and (d)."""
+    from llamole_tpu_torch.models.gllm import LLMConfig
+    from llamole_tpu_torch.models.loader import offline_tokenizer
+
+    sizes = sizes or FAMILIES
+    build = build or build_slice
+    cfgs = cfgs or {}
+    on_card = device == "cuda"
+    tok = offline_tokenizer()
+
+    def freed():
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    run_qwen3(tok, tag, device, sizes, cfgs.get("qwen3"))
+    freed()
+    print(f"phase 15 (a) qwen3: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    llm = family_llm(cfgs.get("gemma2") or LLMConfig.gemma2_9b(), device)
+    model, stok = build(llm)
+    del llm
+    served = serve_quantized(model, stok, kernels, tag, sizes, phase7,
+                             what="gemma-2 serving (bf16, compute-dtype "
+                                  "KV cache)")
+    del model
+    freed()
+    print(f"phase 15 (b) gemma-2: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    t0 = time.perf_counter()
+    run_gemma3(tok, tag, device, sizes, cfgs.get("gemma3"))
+    freed()
+    print(f"phase 15 (c) gemma-3: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    t0 = time.perf_counter()
+    trained, _ = run_mixtral(kernels, tag, device, sizes, cfgs.get("mixtral"),
+                             build)
+    freed()
+    print(f"phase 15 (d) Mixtral: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return {"A": served["A"], "A_mma": served["A_mma"],
+            "A_fma": served["A_fma"], "B": served["B"] + trained["B"],
+            "C": trained["C"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3110,10 +3621,17 @@ def main() -> int:
     launches, phase7_latency = run_serving(model, tok, timers, kernels, tag)
     molqa = run_eval(model, tok, timers, kernels, tag)
     t0 = time.perf_counter()
-    continuous = run_continuous(model, tok, timers, kernels, tag,
-                                phase7=phase7_latency)
-    print(f"continuous phase: {time.perf_counter() - t0:.1f} s wall [{tag}]",
-          flush=True)
+    from llamole_tpu_torch.models.gllm import LLMConfig
+    cmodel, ctok = build_slice(family_llm(dataclasses.replace(
+        LLMConfig.llama3_8b(), num_layers=CONTINUOUS_LAYERS), "cuda"))
+    # no latency comparison with phase 7: the depths differ
+    continuous = run_continuous(cmodel, ctok, PathTimers(cmodel), kernels,
+                                tag)
+    del cmodel, ctok
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"continuous phase ({CONTINUOUS_LAYERS} of 32 LLM layers): "
+          f"{time.perf_counter() - t0:.1f} s wall [{tag}]", flush=True)
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         train_dir = os.path.join(work, "mmsft")
@@ -3144,6 +3662,12 @@ def main() -> int:
                                  phase9_peak=train_peak)
     print(f"quantized phase: {time.perf_counter() - t0:.1f} s wall [{tag}]",
           flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    families = run_families(kernels, tag, phase7=phase7_latency)
+    print(f"families phase: {time.perf_counter() - t0:.1f} s wall [{tag}]",
+          flush=True)
 
     def entry(name, source, replaces, rec, launches, **extra):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -3168,6 +3692,9 @@ def main() -> int:
               launches_quantized=quantized["A"],
               launches_quantized_mma=quantized["A_mma"],
               launches_quantized_fma=quantized["A_fma"],
+              launches_families=families["A"],
+              launches_families_mma=families["A_mma"],
+              launches_families_fma=families["A_fma"],
               sdpa_floor_ms=a["sdpa_floor_ms"],
               sdpa_floor_device_ms=a["sdpa_floor_device_ms"],
               fma_ms=a["fma_ms"],
@@ -3180,6 +3707,7 @@ def main() -> int:
               launches_interchange=inter["B"],
               launches_continuous=continuous["B"],
               launches_quantized=quantized["B"],
+              launches_families=families["B"],
               **{k: v for k, v in b.items() if k.startswith("train_")},
               shape=b["shape"], share=b["share"],
               pretrain_launches=stack_launches["B"],
@@ -3193,6 +3721,7 @@ def main() -> int:
               c_training["launches"],
               **{k: v for k, v in c.items() if k.startswith("second_body")},
               launches_quantized=quantized["C"],
+              launches_families=families["C"],
               launches_smem=c_training["launches_smem"],
               launches_global=c_training["launches_global"],
               pretrain_launches=stack_launches["C"],

@@ -86,10 +86,10 @@ class GenerationSettings:
     top_k: int = 0
     do_sample: bool = True
     repetition_penalty: float = 1.0
-    # prompt-lookup drafts per step: None or 0 = the per-token loop;
-    # > 0 is not ported yet (raises)
+    # prompt-lookup drafts per verify step: None = auto (K=2 for greedy
+    # decode behind the acceptance guard, off when sampling), 0 = off
     speculative_tokens: Optional[int] = None
-    speculative_ngram: int = 2   # read by the speculative loop (not ported)
+    speculative_ngram: int = 2
     # design query extension on the decode cache instead of a full
     # re-forward (off = always re-forward; a parity knob)
     reuse_decode_cache: bool = True
@@ -251,9 +251,13 @@ class GraphLM(nn.Module):
             batch["input_ids"], batch["mol_atoms"], batch["mol_edges"],
             batch["mol_node_mask"], batch["mol_valid"], batch["mol_rows"],
             batch["mol_cols"])
-        logits, hidden, _ = self.llm(inputs_embeds=embeds,
-                                     attention_mask=batch["attention_mask"])
+        moe = self.llm.cfg.num_experts > 0
+        logits, hidden, _, *aux = self.llm(
+            inputs_embeds=embeds, attention_mask=batch["attention_mask"],
+            return_moe_aux=moe)
         lm = lm_loss(logits, batch["labels"], IGNORE_INDEX)
+        if moe:     # Mixtral's router load-balancing term rides the LM loss
+            lm = lm + self.llm.cfg.moe_aux_loss_coef * aux[0]
         del logits   # [B, L, vocab] f32 (1.2 GB at 8B); autograd keeps its own
 
         # design branch
@@ -376,11 +380,14 @@ class GraphLM(nn.Module):
             pad_id=self.tokenizer.pad_token_id,
             repetition_penalty=gen.repetition_penalty,
             spec_tokens=gen.speculative_tokens,
+            spec_ngram=gen.speculative_ngram,
             return_decode_state=want_state,
             # room for <start> + K body tokens: no grow-copy of the cache
             reserve_cache_slots=(1 + self.num_body_tokens) if want_state
             else 0, inputs_embeds=inputs_embeds)
         toks, done = outs[0].cpu().numpy(), outs[1].cpu().numpy()
+        # the state is None after speculative decoding (its cache has
+        # holes): callers re-forward, as the JAX package does
         return (toks, done, outs[2]) if want_state else (toks, done)
 
     def _splice_molecule_embeds(self, input_ids, mol_atoms, mol_edges,
@@ -392,7 +399,7 @@ class GraphLM(nn.Module):
         The write is out of place, so under autograd the gradient reaches
         graph_to_lm (an in-place write into the embedding output would
         not)."""
-        embeds = self.llm.embed(input_ids)
+        embeds = self.llm.embed_tokens(input_ids)
         mol = self.graph_encoder(mol_atoms, mol_edges, mol_node_mask)
         conn = self.connectors["graph_to_lm"]
         mol = F.silu(conn(mol.to(conn.weight.dtype))).to(embeds.dtype)
@@ -459,7 +466,7 @@ class GraphLM(nn.Module):
                                      inputs_embeds=inputs_embeds)
         analysis = outs[0]
         design_hidden = None
-        if gen.reuse_decode_cache:
+        if gen.reuse_decode_cache and outs[2] is not None:
             ext = np.full((analysis.shape[0], 1 + self.num_body_tokens),
                           self.token_id_dict["<design_body>"], np.int64)
             ext[:, 0] = self.token_id_dict["<design_start>"]

@@ -1,11 +1,13 @@
 """LLM configuration, re-declared from llamole_tpu/models/gllm/config.py
 (that package's __init__ imports JAX). The fields and their defaults are
 the JAX declaration's, kept equal by tests/test_torch_configs.py, so one
-config describes a model in both packages. The port runs the
-RoPE + GQA + RMSNorm + SwiGLU families (llama / qwen2 / mistral); the
-other families' fields are declared, and model.check_supported refuses
-configs that set them. from_hf_config is the JAX package's, copied whole
-(an HF config.json dict -> LLMConfig, every family it knows).
+config describes a model in both packages. The port runs every family
+the JAX package builds: llama / qwen2 / mistral, qwen3 (q/k norms),
+gemma-1 / 2 / 3 (GeGLU, unit-offset norms, sandwich norms, softcaps,
+alternating sliding windows, gemma-3's dual rope) and the Mixtral sparse
+MoE; model.check_supported refuses S²-attn (shift_attn) alone.
+from_hf_config is the JAX package's, copied whole (an HF config.json
+dict -> LLMConfig, every family it knows).
 """
 
 from dataclasses import dataclass
@@ -33,20 +35,22 @@ class LLMConfig:
     rope_original_max_position: int = 8192
     # recompute each decoder layer in the backward pass (training)
     remat: bool = False
-    # TPU-only / not-ported knobs of the JAX package (ignored here)
+    # the JAX package's TPU flash kernel (ignored here) and S²-attn
+    # (shift_attn: refused by model.check_supported, ROADMAP Queue 1 item 6)
     use_flash: bool = False
     flash_min_seq: int = 1024
     shift_attn: bool = False
     group_size_ratio: float = 0.25
     # "compute" (model dtype) or "int8" (per-(token, head) scales)
     kv_cache_dtype: str = "compute"
-    # sparse MoE (not ported yet)
+    # Mixtral sparse MoE: num_experts > 0 routes each token to its top-k
+    # experts through a static capacity (model.moe_mlp)
     num_experts: int = 0
     num_experts_per_tok: int = 2
     moe_capacity_factor: float = 1.25
     moe_aux_loss_coef: float = 0.02
-    # gemma / qwen3 family knobs (not ported yet)
-    hidden_act: str = "silu"
+    # gemma / qwen3 family knobs (HF Gemma2Config semantics)
+    hidden_act: str = "silu"              # "gelu_tanh" = GeGLU (gemma)
     attn_logit_softcap: Optional[float] = None
     final_logit_softcap: Optional[float] = None
     sandwich_norms: bool = False
@@ -57,6 +61,15 @@ class LLMConfig:
     sliding_window: Optional[int] = None
     sliding_window_pattern: int = 2
     rope_local_base_freq: Optional[float] = None
+
+    def is_global_layer(self, i: int) -> bool:
+        """Whether layer i uses full (global) attention: every layer
+        without a sliding window, else the last of each
+        sliding_window_pattern layers."""
+        if self.sliding_window is None:
+            return True
+        return i % self.sliding_window_pattern == \
+            self.sliding_window_pattern - 1
 
     @property
     def head_dim_(self) -> int:
@@ -80,12 +93,62 @@ class LLMConfig:
             num_layers=32, num_heads=32, num_kv_heads=8, rope_theta=1e6)
 
     @classmethod
+    def qwen3_8b(cls) -> "LLMConfig":
+        return cls(
+            vocab_size=151936, hidden_size=4096, intermediate_size=12288,
+            num_layers=36, num_heads=32, num_kv_heads=8, head_dim=128,
+            rope_theta=1e6, rms_norm_eps=1e-6, attention_bias=False,
+            max_position_embeddings=40960, qk_norm=True)
+
+    @classmethod
+    def gemma2_9b(cls) -> "LLMConfig":
+        return cls(
+            vocab_size=256000, hidden_size=3584, intermediate_size=14336,
+            num_layers=42, num_heads=16, num_kv_heads=8, head_dim=256,
+            rope_theta=10000.0, rms_norm_eps=1e-6,
+            max_position_embeddings=8192, tie_word_embeddings=True,
+            hidden_act="gelu_tanh", attn_logit_softcap=50.0,
+            final_logit_softcap=30.0, sandwich_norms=True,
+            rms_norm_unit_offset=True, scale_embeddings=True,
+            query_scale=256.0, sliding_window=4096)
+
+    @classmethod
+    def gemma3_12b(cls) -> "LLMConfig":
+        return cls(
+            vocab_size=262208, hidden_size=3840, intermediate_size=15360,
+            num_layers=48, num_heads=16, num_kv_heads=8, head_dim=256,
+            rope_theta=1e6, rms_norm_eps=1e-6,
+            max_position_embeddings=131072, tie_word_embeddings=True,
+            hidden_act="gelu_tanh", sandwich_norms=True,
+            rms_norm_unit_offset=True, scale_embeddings=True,
+            query_scale=256.0, qk_norm=True,
+            sliding_window=1024, sliding_window_pattern=6,
+            rope_local_base_freq=10000.0,
+            rope_scaling="linear", rope_scaling_factor=8.0)
+
+    @classmethod
     def tiny(cls, vocab_size: int = 512) -> "LLMConfig":
         """Toy config for tests / smoke runs."""
         return cls(
             vocab_size=vocab_size, hidden_size=64, intermediate_size=128,
             num_layers=2, num_heads=4, num_kv_heads=2, rope_theta=10000.0,
             max_position_embeddings=2048, rope_scaling=None)
+
+    @classmethod
+    def tiny_moe(cls, vocab_size: int = 512, num_experts: int = 4,
+                 top_k: int = 2) -> "LLMConfig":
+        cfg = cls.tiny(vocab_size)
+        cfg.num_experts = num_experts
+        cfg.num_experts_per_tok = top_k
+        return cfg
+
+    @classmethod
+    def mixtral_8x7b(cls) -> "LLMConfig":
+        return cls(
+            vocab_size=32000, hidden_size=4096, intermediate_size=14336,
+            num_layers=32, num_heads=32, num_kv_heads=8, rope_theta=1e6,
+            max_position_embeddings=32768,
+            num_experts=8, num_experts_per_tok=2)
 
     @classmethod
     def from_hf_config(cls, raw: dict) -> "LLMConfig":

@@ -24,9 +24,13 @@ The host reads one [S] bool tensor a step (which rows have stopped), as
 the JAX while_loop's condition stays on the device. An int8 KV cache
 (cfg.kv_cache_dtype 'int8') works as in generate(): the staged prefill's
 int8 values and scale planes are copied into the slot verbatim, and each
-decode step quantizes the row it writes. Repetition penalty, speculative
-drafting and sliding-window configs are not supported: check_supported
-refuses the last two, ContinuousDesignServer the first.
+decode step quantizes the row it writes. Every family of the LLM runs
+here, sliding-window configs included (a slot's rows keep slot distance
+equal to position distance); a shared prefix with sliding windows is
+refused, as in the JAX package (the suffix's left padding shifts its
+slots but not the prefix's). Speculative drafting stays off here, as in
+JAX (a batch-level optimisation), and ContinuousDesignServer refuses a
+repetition penalty.
 """
 
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -69,6 +73,13 @@ class SlotDecoder:
         Other prompts take the full path (same outputs either way)."""
         check_supported(llm.cfg)
         prefix_len = len(shared_prefix) if shared_prefix else 0
+        if prefix_len and llm.cfg.sliding_window is not None:
+            # suffix left-padding shifts suffix slots but not prefix
+            # slots, breaking the slot-distance == position-distance
+            # identity the sliding-window mask relies on
+            raise ValueError(
+                "shared_prefix is not supported with sliding-window "
+                "configs (gemma2) — admit full prompts instead")
         if max_new_tokens + max(prompt_buckets) + prefix_len > cache_len:
             raise ValueError(
                 f"cache_len={cache_len} cannot hold the largest prompt "

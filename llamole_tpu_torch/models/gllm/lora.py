@@ -42,6 +42,27 @@ from torch import nn
 from ...ops.nn import int8_matmul
 
 QUANT_SCHEMES = ("int8", "w8a8", "int4")
+TARGET_ALL = ("q", "k", "v", "o", "gate", "up", "down")
+_ATTN_TARGETS = ("q", "k", "v", "o")
+
+
+def lora_targets(cfg, targets=TARGET_ALL):
+    """The projections an adapter covers (JAX init_lora): under MoE
+    (cfg.num_experts > 0) the MLP targets go, since the experts have no
+    dense gate / up / down; a target list of MLP projections only raises
+    there (the adapter would be empty and training a silent no-op)."""
+    targets = tuple(targets)
+    if cfg.num_experts > 0:
+        filtered = tuple(t for t in targets if t in _ATTN_TARGETS)
+        if not filtered:
+            raise ValueError(
+                f"LoRA targets {targets} are all MLP projections, but MoE "
+                "configs route tokens through expert weights with no dense "
+                "gate/up/down -- the adapter would be empty and fine-tuning "
+                "a silent no-op. Target attention projections (q/k/v/o) for "
+                "MoE models.")
+        targets = filtered
+    return targets
 
 
 # The projections whose adapter is off, per thread: the switch belongs to

@@ -1,22 +1,34 @@
-"""Decoder-only LLM (llama / qwen2 / mistral families) in PyTorch
-(counterpart of llamole_tpu/models/gllm/model.py).
+"""Decoder-only LLM in PyTorch (counterpart of
+llamole_tpu/models/gllm/model.py): the llama / qwen2 / mistral, qwen3,
+gemma-1 / 2 / 3 and Mixtral sparse-MoE families, as LLMConfig selects.
 
-RMSNorm + RoPE (incl. llama3.1 scaling) + GQA + SwiGLU, an optional LoRA
-overlay on every projection, dense or quantized projections (int8, W8A8
-or int4: gllm/quantize.py, gllm/lora.py), a preallocated KV cache
-written in place (in the compute dtype, or int8 with per-(token, head)
-scales when cfg.kv_cache_dtype is 'int8'), and `generate`: prefill,
-then a per-token decode loop that exits once every row has stopped,
-with temperature / top-k / top-p sampling over a bounded candidate set
-and repetition penalty. Matmuls run in the
-parameters' dtype; norms, rope, attention logits and softmax in f32.
-Training is `forward` with autograd on plus `lm_loss`; cfg.remat
-recomputes each decoder layer in the backward pass
-(torch.utils.checkpoint) instead of keeping its activations.
+RMSNorm (gemma: stored zero-centred, y = x̂ · (1 + w)) + RoPE (llama3.1 /
+linear / dynamic scaling; gemma-3 spins its sliding layers on a second,
+unscaled table) + GQA (qwen3 / gemma-3: per-head q/k RMSNorm before rope;
+gemma: query_scale and the attention logit softcap, applied after the
+scale and before the mask; gemma-2/3: alternating sliding-window layers)
++ SwiGLU, GeGLU with tanh GELU (gemma) or the sparse MoE (`moe_mlp`:
+top-k routing in f32, a static capacity, the router's aux loss), the
+sandwich norms (gemma-2/3), embeddings scaled by sqrt(hidden) in the model
+dtype and the final logit softcap (gemma-2). An optional LoRA overlay on
+every attention and dense-MLP projection, dense or quantized projections
+(int8, W8A8 or int4: gllm/quantize.py, gllm/lora.py), a preallocated KV
+cache written in place (in the compute dtype, or int8 with per-(token,
+head) scales when cfg.kv_cache_dtype is 'int8'), and `generate`: prefill,
+then a per-token decode loop that exits once every row has stopped, or
+prompt-lookup speculative decoding (`_speculative_loop`: K drafts from the
+latest n-gram match in the history verified in one forward, delta-draft
+rejection sampling, an acceptance guard that falls back to the per-token
+loop), with temperature / top-k / top-p sampling over a bounded candidate
+set and repetition penalty. Matmuls run in the parameters' dtype; norms,
+rope, the router, attention logits and softmax in f32. Training is
+`forward` with autograd on plus `lm_loss` (and, for MoE, the aux loss of
+`forward(return_moe_aux=True)`); cfg.remat recomputes each decoder layer
+in the backward pass (torch.utils.checkpoint) instead of keeping its
+activations.
 
-Not ported yet (each raises, each is listed in ROADMAP.md): speculative
-decoding (spec_tokens > 0; greedy output is identical without it), MoE,
-sliding-window, logit softcap, qk-norm and the other gemma-family knobs.
+Not ported yet: LongLoRA S²-attn (cfg.shift_attn, ROADMAP.md Queue 1 item
+6), which raises.
 """
 
 import math
@@ -29,7 +41,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from .config import LLMConfig
-from .lora import LoRALinear, adapters_off
+from .lora import LoRALinear, adapters_off, lora_targets
 from .quantize import empty_quantized_, projections
 
 _NEG = -1e30
@@ -41,41 +53,35 @@ def check_supported(cfg: LLMConfig) -> None:
     if cfg.kv_cache_dtype not in ("compute", "int8"):
         raise ValueError(f"kv_cache_dtype must be 'compute' or 'int8', "
                          f"got {cfg.kv_cache_dtype!r}")
-    unsupported = {
-        "MoE (num_experts > 0)": cfg.num_experts > 0,
-        "sliding-window attention": cfg.sliding_window is not None,
-        "logit softcap": (cfg.attn_logit_softcap is not None
-                          or cfg.final_logit_softcap is not None),
-        "qk-norm": cfg.qk_norm,
-        "S²-attn (shift_attn)": cfg.shift_attn,
-        "gemma-family knobs": (cfg.hidden_act != "silu" or cfg.sandwich_norms
-                               or cfg.rms_norm_unit_offset
-                               or cfg.scale_embeddings
-                               or cfg.query_scale is not None
-                               or cfg.rope_local_base_freq is not None),
-    }
-    bad = [k for k, v in unsupported.items() if v]
-    if bad:
+    if cfg.shift_attn:
         raise NotImplementedError(
-            f"llamole_tpu_torch LLM does not support {', '.join(bad)} yet "
-            "(ROADMAP.md, 'still to port')")
+            "llamole_tpu_torch LLM does not support S²-attn (shift_attn) "
+            "yet (ROADMAP.md Queue 1 item 6)")
 
 
-def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float):
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float,
+             unit_offset: bool = False):
+    """RMSNorm in f32; unit_offset: the weight is stored zero-centred and
+    scales by (1 + w) (gemma)."""
     x32 = x.float()
     var = (x32 * x32).mean(dim=-1, keepdim=True)
-    return (x32 * torch.rsqrt(var + eps) * weight.float()).to(x.dtype)
+    w = weight.float()
+    if unit_offset:
+        w = 1.0 + w
+    return (x32 * torch.rsqrt(var + eps) * w).to(x.dtype)
 
 
 class RMSNorm(nn.Module):
-    def __init__(self, dim: int, eps: float, dtype, device):
+    def __init__(self, dim: int, eps: float, dtype, device,
+                 unit_offset: bool = False):
         super().__init__()
         self.eps = eps
+        self.unit_offset = unit_offset
         self.weight = nn.Parameter(torch.empty(dim, dtype=dtype,
                                                device=device))
 
     def forward(self, x):
-        return rms_norm(x, self.weight, self.eps)
+        return rms_norm(x, self.weight, self.eps, self.unit_offset)
 
 
 def rope_frequencies(cfg: LLMConfig) -> np.ndarray:
@@ -110,6 +116,17 @@ def rope_frequencies(cfg: LLMConfig) -> np.ndarray:
     return inv
 
 
+def rope_frequencies_local(cfg: LLMConfig) -> Optional[np.ndarray]:
+    """gemma-3's table for its sliding layers: plain inverse frequencies
+    at rope_local_base_freq, unscaled (the scaling applies to the global
+    table only); None when the config has one rope."""
+    if cfg.rope_local_base_freq is None:
+        return None
+    hd = cfg.head_dim_
+    return 1.0 / (cfg.rope_local_base_freq
+                  ** (np.arange(0, hd, 2, dtype=np.float64) / hd))
+
+
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                inv_freq: torch.Tensor) -> torch.Tensor:
     """x [B, S, H, Dh]; positions [B, S]; inv_freq [Dh/2] f32."""
@@ -121,15 +138,19 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                      dim=-1).to(x.dtype)
 
 
-def attention(q, k, v, mask_bst):
+def attention(q, k, v, mask_bst, scale: Optional[float] = None,
+              softcap: Optional[float] = None):
     """GQA attention. q [B,S,H,D], k/v [B,T,KV,D], mask [B,S,T] bool.
-    Logits in f32 (inputs upcast), masked to -1e30, probs cast to v's
-    dtype before the value product."""
+    Logits in f32 (inputs upcast), times `scale` (default 1/sqrt(D)),
+    soft-capped (cap * tanh(logits / cap)) when `softcap` is set, masked
+    to -1e30; probs cast to v's dtype before the value product."""
     b, s, h, d = q.shape
     kv = k.shape[2]
     q = q.reshape(b, s, kv, h // kv, d)
     logits = torch.einsum("bskgd,btkd->bkgst", q.float(), k.float())
-    logits = logits * (1.0 / math.sqrt(d))
+    logits = logits * (scale if scale is not None else 1.0 / math.sqrt(d))
+    if softcap is not None:
+        logits = softcap * torch.tanh(logits / softcap)
     logits = torch.where(mask_bst[:, None, None], logits, _NEG)
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     out = torch.einsum("bkgst,btkd->bskgd", probs, v)
@@ -216,12 +237,128 @@ def cache_read(entry, dtype) -> Tuple[torch.Tensor, torch.Tensor]:
     return entry["k"].to(dtype), entry["v"].to(dtype)
 
 
+# ---------------------------------------------------------------------------
+# the sparse MoE MLP
+# ---------------------------------------------------------------------------
+
+class Experts(nn.Module):
+    """E SwiGLU experts, each leaf [E, in, out] as the JAX package stores
+    them (gate, up [E, H, I]; down [E, I, H])."""
+
+    def __init__(self, cfg: LLMConfig, dtype, device):
+        super().__init__()
+        e, h, inter = cfg.num_experts, cfg.hidden_size, cfg.intermediate_size
+
+        def leaf(*shape):
+            return nn.Parameter(torch.empty(*shape, dtype=dtype,
+                                            device=device))
+
+        self.gate = leaf(e, h, inter)
+        self.up = leaf(e, h, inter)
+        self.down = leaf(e, inter, h)
+
+
+class MoEMLP(nn.Module):
+    """Mixtral's block: the router ([E, H], no bias, never adapted nor
+    quantized) and the experts. drop_count: set it to a scalar tensor and
+    each forward adds the valid (token, slot) units it dropped for
+    capacity, on the device (no sync)."""
+
+    def __init__(self, cfg: LLMConfig, dtype, device):
+        super().__init__()
+        self.cfg = cfg
+        self.router = nn.Linear(cfg.hidden_size, cfg.num_experts,
+                                bias=False, dtype=dtype, device=device)
+        self.experts = Experts(cfg, dtype, device)
+        self.drop_count: Optional[torch.Tensor] = None
+
+    def forward(self, x, token_valid=None):
+        y, aux, dropped = moe_mlp(self, x, self.cfg, token_valid)
+        if self.drop_count is not None:
+            self.drop_count += dropped
+        return y, aux
+
+
+def moe_dispatch(top_idx: torch.Tensor, valid: torch.Tensor, num_experts: int,
+                 capacity_factor: float):
+    """The static-capacity assignment of JAX _moe_mlp. top_idx [T, k]
+    expert per (token, slot) unit, valid [T] f32 (1 = a real token).
+    Units sort stably by expert id (invalid units to a virtual expert E
+    past every real one), so an expert's units keep their arrival order
+    and the first C = max(ceil(factor * T*k / E), 1) of them are kept.
+    Returns (order [U] the sort, slot [U] each sorted unit's row of the
+    [E*C (+1 junk)] buffer, keep [U] sorted units kept, C)."""
+    t, k = top_idx.shape
+    units = t * k
+    cap = max(int(math.ceil(capacity_factor * units / num_experts)), 1)
+    unit_valid = (valid[:, None] > 0).expand(t, k).reshape(units)
+    sort_key = torch.where(unit_valid, top_idx.reshape(units), num_experts)
+    order = torch.argsort(sort_key, stable=True)
+    sorted_e = sort_key[order]
+    counts = torch.zeros(num_experts + 1, dtype=torch.long,
+                         device=top_idx.device).scatter_add_(
+        0, sort_key, torch.ones_like(sort_key))   # bincount syncs on CUDA
+    starts = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(units, device=top_idx.device) - starts[sorted_e]
+    keep = (rank < cap) & (sorted_e < num_experts)
+    slot = torch.where(keep, sorted_e * cap + rank.clamp(0, cap - 1),
+                       num_experts * cap)
+    return order, slot, keep, cap
+
+
+def moe_mlp(mlp: MoEMLP, x: torch.Tensor, cfg: LLMConfig, token_valid=None):
+    """Sparse-MoE SwiGLU with static-capacity dispatch (JAX _moe_mlp):
+    returns (y [B, S, H], aux, dropped units). The router runs in the
+    model dtype and its softmax in f32; top-k weights are renormalised;
+    units over an expert's capacity drop with weight 0 (moe_dispatch);
+    token_valid [B*S] keeps pad tokens from taking capacity or counting
+    in the aux loss, HF's magnitude (about top_k at uniform routing):
+        aux = E * sum_e (sum_slots mean_valid mask_e) * mean_valid P_e.
+    Dispatch and combine go through an [E*C + 1, H] buffer (the last row
+    takes the dropped units and is never read); the products over the
+    experts are batched matmuls."""
+    b, s, h = x.shape
+    t = b * s
+    k, e = cfg.num_experts_per_tok, cfg.num_experts
+    xf = x.reshape(t, h)
+    probs = torch.softmax(F.linear(xf, mlp.router.weight).float(), dim=-1)
+    top_vals, top_idx = torch.topk(probs, k, dim=-1)
+    weights = top_vals / top_vals.sum(-1, keepdim=True).clamp_min(1e-9)
+    valid = (torch.ones(t, device=x.device) if token_valid is None
+             else token_valid.reshape(t).float())
+    n_valid = valid.sum().clamp_min(1.0)
+    sel = F.one_hot(top_idx, e).float() * valid[:, None, None]
+    f = sel.sum(dim=(0, 1)) / n_valid
+    p_mean = (probs * valid[:, None]).sum(dim=0) / n_valid
+    aux = e * (f * p_mean).sum()
+
+    order, slot, keep, cap = moe_dispatch(top_idx, valid, e,
+                                          cfg.moe_capacity_factor)
+    xu = xf.repeat_interleave(k, dim=0)                      # [U, H]
+    buf = x.new_zeros(e * cap + 1, h).index_put((slot,), xu[order])
+    xe = buf[:e * cap].view(e, cap, h)
+    ex = mlp.experts
+    hidden = F.silu(torch.bmm(xe, ex.gate)) * torch.bmm(xe, ex.up)
+    de = torch.bmm(hidden, ex.down).reshape(e * cap, h)
+    de = torch.cat([de, de.new_zeros(1, h)], dim=0)
+    yu_sorted = torch.where(keep[:, None], de[slot], 0.0).to(x.dtype)
+    yu = torch.empty_like(yu_sorted).index_put((order,), yu_sorted)
+    y = (yu * weights.reshape(-1, 1).to(x.dtype)).view(t, k, h).sum(dim=1)
+    dropped = (valid > 0).sum() * k - keep.sum()
+    return y.view(b, s, h), aux, dropped
+
+
 class DecoderLayer(nn.Module):
     def __init__(self, cfg: LLMConfig, dtype, device):
         super().__init__()
         hd, h = cfg.head_dim_, cfg.hidden_size
         self.cfg = cfg
-        self.input_norm = RMSNorm(h, cfg.rms_norm_eps, dtype, device)
+
+        def norm(dim):
+            return RMSNorm(dim, cfg.rms_norm_eps, dtype, device,
+                           cfg.rms_norm_unit_offset)
+
+        self.input_norm = norm(h)
         self.attn = nn.ModuleDict({
             "q": LoRALinear(h, cfg.num_heads * hd, cfg.attention_bias,
                             dtype, device),
@@ -231,16 +368,29 @@ class DecoderLayer(nn.Module):
                             dtype, device),
             "o": LoRALinear(cfg.num_heads * hd, h, False, dtype, device),
         })
-        self.post_norm = RMSNorm(h, cfg.rms_norm_eps, dtype, device)
-        inter = cfg.intermediate_size
-        self.mlp = nn.ModuleDict({
-            "gate": LoRALinear(h, inter, False, dtype, device),
-            "up": LoRALinear(h, inter, False, dtype, device),
-            "down": LoRALinear(inter, h, False, dtype, device),
-        })
+        if cfg.qk_norm:          # qwen3 / gemma-3: per-head q/k RMSNorm
+            self.q_norm = norm(hd)
+            self.k_norm = norm(hd)
+        self.post_norm = norm(h)     # the pre-MLP norm
+        if cfg.sandwich_norms:   # gemma-2/3: norms on both block outputs
+            self.post_attn_norm = norm(h)
+            self.post_mlp_norm = norm(h)
+        self.moe = cfg.num_experts > 0
+        if self.moe:
+            self.mlp = MoEMLP(cfg, dtype, device)
+        else:
+            inter = cfg.intermediate_size
+            self.mlp = nn.ModuleDict({
+                "gate": LoRALinear(h, inter, False, dtype, device),
+                "up": LoRALinear(h, inter, False, dtype, device),
+                "down": LoRALinear(inter, h, False, dtype, device),
+            })
+        self.attn_scale = (cfg.query_scale ** -0.5
+                           if cfg.query_scale is not None else None)
 
-    def forward(self, x, positions, inv_freq, mask, cache_entry=None,
-                cache_index=None):
+    def forward(self, x, positions, inv_freq, mask, attention_mask=None,
+                cache_entry=None, cache_index=None):
+        """Returns (x, the MoE aux loss; None for a dense MLP)."""
         cfg = self.cfg
         b, s, _ = x.shape
         hd = cfg.head_dim_
@@ -248,18 +398,32 @@ class DecoderLayer(nn.Module):
         q = self.attn["q"](h).reshape(b, s, cfg.num_heads, hd)
         k = self.attn["k"](h).reshape(b, s, cfg.num_kv_heads, hd)
         v = self.attn["v"](h).reshape(b, s, cfg.num_kv_heads, hd)
+        if cfg.qk_norm:
+            q = self.q_norm(q)
+            k = self.k_norm(k)
         q = apply_rope(q, positions, inv_freq)
         k = apply_rope(k, positions, inv_freq)
-        if cache_entry is None:
-            attn = attention(q, k, v, mask)
-        else:
+        if cache_entry is not None:
             cache_append(cache_entry, k, v, cache_index)
-            ck, cv = cache_read(cache_entry, x.dtype)
-            attn = attention(q, ck, cv, mask)
-        x = x + self.attn["o"](attn)
+            k, v = cache_read(cache_entry, x.dtype)
+        attn = self.attn["o"](attention(q, k, v, mask, self.attn_scale,
+                                        cfg.attn_logit_softcap))
+        if cfg.sandwich_norms:
+            attn = self.post_attn_norm(attn)
+        x = x + attn
         h = self.post_norm(x)
-        gated = F.silu(self.mlp["gate"](h)) * self.mlp["up"](h)
-        return x + self.mlp["down"](gated)
+        if self.moe:
+            token_valid = (attention_mask.reshape(-1) > 0
+                           if attention_mask is not None else None)
+            out, aux = self.mlp(h, token_valid)
+            return x + out, aux
+        act = (F.gelu(self.mlp["gate"](h), approximate="tanh")
+               if cfg.hidden_act == "gelu_tanh"
+               else F.silu(self.mlp["gate"](h)))
+        out = self.mlp["down"](act * self.mlp["up"](h))
+        if cfg.sandwich_norms:
+            out = self.post_mlp_norm(out)
+        return x + out, None
 
 
 class LLM(nn.Module):
@@ -269,7 +433,8 @@ class LLM(nn.Module):
     (scheme 'int8', 'w8a8' or 'int4') builds the projections and the
     lm_head quantized, never allocating their dense weights;
     `quantize.quantize_llm_params` quantizes a dense LLM in place. Either
-    way `self.quant` says what the projections hold (None: dense)."""
+    way `self.quant` says what the projections hold (None: dense). An MoE
+    LLM's router and experts stay in the compute dtype."""
 
     def __init__(self, cfg: LLMConfig, dtype=torch.bfloat16, device=None,
                  quant: Optional[Tuple[str, int]] = None):
@@ -283,7 +448,8 @@ class LLM(nn.Module):
                                   device=meta)
         self.layers = nn.ModuleList(DecoderLayer(cfg, dtype, meta)
                                     for _ in range(cfg.num_layers))
-        self.final_norm = RMSNorm(h, cfg.rms_norm_eps, dtype, meta)
+        self.final_norm = RMSNorm(h, cfg.rms_norm_eps, dtype, meta,
+                                  cfg.rms_norm_unit_offset)
         self.lm_head = (None if cfg.tie_word_embeddings
                         else LoRALinear(h, cfg.vocab_size, False, dtype,
                                         meta))
@@ -294,6 +460,13 @@ class LLM(nn.Module):
         self.to_empty(device=device or torch.device("cpu"))
         self._inv_freq = torch.tensor(rope_frequencies(cfg),
                                       dtype=torch.float32, device=self.device)
+        local = rope_frequencies_local(cfg)
+        self._inv_freq_local = (None if local is None else torch.tensor(
+            local, dtype=torch.float32, device=self.device))
+        # sqrt(hidden) rounded to the model dtype, as a Python number: a
+        # tensor made on the card every forward would copy from the host
+        self._embed_scale = (float(torch.tensor(h ** 0.5, dtype=dtype))
+                             if cfg.scale_embeddings else None)
 
     @property
     def device(self) -> torch.device:
@@ -301,18 +474,21 @@ class LLM(nn.Module):
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
-        """The JAX init_params scheme: N(0, 1/in) projections, N(0, 0.02)
-        embeddings, unit norms, zero biases; drawn on the parameters'
-        device (8B normals drawn on the CPU take minutes). A quantized
-        LLM is drawn by quantize.init_quantized_ instead."""
+        """The JAX init_params scheme: N(0, 1/in) projections, router and
+        experts ([E, in, out]: 1/in of each leaf), N(0, 0.02) embeddings,
+        norms at unit scale (stored as 0 under the unit offset), zero
+        biases; drawn on the parameters' device (8B normals drawn on the
+        CPU take minutes). A quantized LLM is drawn by
+        quantize.init_quantized_ instead."""
         if self.quant is not None:
             raise ValueError(f"the LLM is quantized ({self.quant}): draw it "
                              "with quantize.init_quantized_")
+        norm_value = 0.0 if self.cfg.rms_norm_unit_offset else 1.0
         for name, p in self.named_parameters():
             if "lora_" in name:
                 continue
             if name.endswith("norm.weight"):
-                p.fill_(1.0)
+                p.fill_(norm_value)
             elif name.endswith("bias"):
                 p.zero_()
             elif name == "embed.weight":
@@ -321,10 +497,13 @@ class LLM(nn.Module):
                 _normal_(p, p.shape[1] ** -0.5, generator)
 
     def add_lora(self, rank: int, scale: float) -> None:
-        """Adapters on every projection (the JAX TARGET_ALL)."""
+        """Adapters on every projection (the JAX TARGET_ALL); an MoE LLM
+        keeps the attention targets only (lora.lora_targets)."""
+        targets = lora_targets(self.cfg)
         for layer in self.layers:
-            for proj in (*layer.attn.values(), *layer.mlp.values()):
-                proj.add_lora(rank, scale)
+            for name in targets:
+                group = layer.attn if name in layer.attn else layer.mlp
+                group[name].add_lora(rank, scale)
 
     def reset_lora(self, generator: torch.Generator) -> None:
         for m in self.modules():
@@ -339,27 +518,24 @@ class LLM(nn.Module):
         return adapters_off(m for m in self.modules()
                             if isinstance(m, LoRALinear))
 
-    def forward(self, input_ids=None, attention_mask=None, positions=None,
-                kv_cache: Optional[KVCache] = None, cache_index=None,
-                kv_valid=None, last_logits_only: bool = False,
-                inputs_embeds: Optional[torch.Tensor] = None):
-        """Returns (logits [B,S,V] f32, hidden [B,S,H], kv_cache).
-        input_ids [B,S], or inputs_embeds [B,S,H] (the multimodal splice,
-        composite._splice_molecule_embeds; `self.embed(ids)` gives the
-        plain token embeddings). With kv_cache, queries attend to the
-        valid cache slots (kv_valid [B,T]) at or before their own slot;
-        the cache is written in place and returned."""
-        x = self.embed(input_ids) if inputs_embeds is None else inputs_embeds
-        b, s, _ = x.shape
-        dev = x.device
-        if attention_mask is None:
-            attention_mask = torch.ones((b, s), dtype=torch.int32, device=dev)
-        if positions is None:
-            positions = (attention_mask.cumsum(-1) - 1).clamp_min(0)
+    def embed_tokens(self, input_ids: torch.Tensor) -> torch.Tensor:
+        """Token embeddings, times sqrt(hidden) rounded to the model dtype
+        when cfg.scale_embeddings (gemma; JAX LLM.embed)."""
+        e = self.embed(input_ids)
+        return e if self._embed_scale is None else e * self._embed_scale
 
+    def _masks(self, b, s, attention_mask, positions, kv_cache, cache_index,
+               kv_valid, dev):
+        """(global mask [B, S, T], sliding-window mask or None). Without a
+        cache, queries attend causally to real keys and the window counts
+        position distance; with one, to the valid cache slots at or before
+        their own slot, and the window counts slot distance (left padding
+        keeps slot and position distances equal for every real pair)."""
+        cfg = self.cfg
         if kv_cache is None:
             causal = torch.ones((s, s), dtype=torch.bool, device=dev).tril()
             mask = causal[None] & (attention_mask[:, None, :] > 0)
+            dist = positions[:, :, None] - positions[:, None, :]
         else:
             t_len = kv_cache[0]["k"].shape[1]
             key_ok = (kv_valid if kv_valid is not None
@@ -368,30 +544,83 @@ class LLM(nn.Module):
             slots = torch.arange(t_len, device=dev)
             if isinstance(cache_index, torch.Tensor) and cache_index.dim():
                 q_pos = cache_index[:, None] + torch.arange(s, device=dev)
-                causal = slots[None, None, :] <= q_pos[:, :, None]
-                mask = key_ok[:, None, :] & causal
+                dist = q_pos[:, :, None] - slots[None, None, :]
+                mask = key_ok[:, None, :] & (dist >= 0)
             else:
                 q_pos = int(cache_index) + torch.arange(s, device=dev)
-                causal = slots[None, :] <= q_pos[:, None]
-                mask = key_ok[:, None, :] & causal[None]
+                dist = (q_pos[:, None] - slots[None, :])[None]
+                mask = key_ok[:, None, :] & (dist >= 0)
+        if cfg.sliding_window is None:
+            return mask, None
+        return mask, mask & (dist < cfg.sliding_window)
+
+    def forward(self, input_ids=None, attention_mask=None, positions=None,
+                kv_cache: Optional[KVCache] = None, cache_index=None,
+                kv_valid=None, last_logits_only: bool = False,
+                inputs_embeds: Optional[torch.Tensor] = None,
+                return_moe_aux: bool = False):
+        """Returns (logits [B,S,V] f32, hidden [B,S,H], kv_cache) and, with
+        return_moe_aux, the MoE aux loss summed over the layers and divided
+        by the depth (HF's pooled magnitude; 0 for a dense LLM and on the
+        cached path). input_ids [B,S], or inputs_embeds [B,S,H] (the
+        multimodal splice, composite._splice_molecule_embeds;
+        `embed_tokens(ids)` gives the plain token embeddings). With
+        kv_cache, queries attend to the valid cache slots (kv_valid [B,T])
+        at or before their own slot; the cache is written in place and
+        returned. Sliding-window layers (cfg.is_global_layer) take the
+        windowed mask and, on gemma-3, the local rope table."""
+        x = (self.embed_tokens(input_ids) if inputs_embeds is None
+             else inputs_embeds)
+        b, s, _ = x.shape
+        dev = x.device
+        if attention_mask is None:
+            attention_mask = torch.ones((b, s), dtype=torch.int32, device=dev)
+        if positions is None:
+            positions = (attention_mask.cumsum(-1) - 1).clamp_min(0)
+        mask, mask_local = self._masks(b, s, attention_mask, positions,
+                                       kv_cache, cache_index, kv_valid, dev)
 
         remat = (self.cfg.remat and kv_cache is None
                  and torch.is_grad_enabled())
+        aux_total = 0.0
         for i, layer in enumerate(self.layers):
+            local = not self.cfg.is_global_layer(i)
+            layer_mask = mask_local if local and mask_local is not None \
+                else mask
+            freq = (self._inv_freq_local
+                    if local and self._inv_freq_local is not None
+                    else self._inv_freq)
             if remat:
-                x = checkpoint(layer, x, positions, self._inv_freq, mask,
-                               use_reentrant=False)
+                x, aux = checkpoint(layer, x, positions, freq, layer_mask,
+                                    attention_mask, use_reentrant=False)
             else:
-                x = layer(x, positions, self._inv_freq, mask,
-                          None if kv_cache is None else kv_cache[i],
-                          cache_index)
+                x, aux = layer(x, positions, freq, layer_mask, attention_mask,
+                               None if kv_cache is None else kv_cache[i],
+                               cache_index)
+            if kv_cache is None and aux is not None:
+                aux_total = aux_total + aux
+        logits, hidden = self.finalize_hidden(x, last_logits_only)
+        if return_moe_aux:
+            aux_total = torch.as_tensor(aux_total, dtype=torch.float32,
+                                        device=dev)
+            return (logits, hidden, kv_cache,
+                    aux_total / max(self.cfg.num_layers, 1))
+        return logits, hidden, kv_cache
+
+    def finalize_hidden(self, x: torch.Tensor, last_only: bool = False):
+        """Final RMSNorm + vocab head (+ gemma-2's final logit softcap) ->
+        (logits f32, hidden)."""
         hidden = self.final_norm(x)
-        head_in = hidden[:, -1:] if last_logits_only else hidden
+        head_in = hidden[:, -1:] if last_only else hidden
         if self.lm_head is None:
             logits = F.linear(head_in, self.embed.weight)
         else:
             logits = self.lm_head(head_in)
-        return logits.float(), hidden, kv_cache
+        logits = logits.float()
+        cap = self.cfg.final_logit_softcap
+        if cap is not None:
+            logits = cap * torch.tanh(logits / cap)
+        return logits, hidden
 
     @torch.no_grad()
     def generate(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
@@ -400,28 +629,47 @@ class LLM(nn.Module):
                  top_p: float = 0.9, top_k: int = 0, do_sample: bool = True,
                  eos_ids: Sequence[int] = (), pad_id: int = 0,
                  repetition_penalty: float = 1.0,
-                 spec_tokens: Optional[int] = None,
+                 return_trigger: bool = False,
+                 spec_tokens: Optional[int] = None, spec_ngram: int = 2,
+                 spec_probe: int = 8, spec_min_accept: float = 0.5,
+                 return_spec_iters: bool = False,
                  return_decode_state: bool = False,
                  reserve_cache_slots: int = 0,
                  inputs_embeds: Optional[torch.Tensor] = None):
-        """Returns (new_tokens [B, T] int64, done [B] bool) and, with
-        return_decode_state, a third element {"cache", "kv_valid"} whose
-        valid region per row is exactly prompt + emitted tokens (stop
-        tokens are never written). input_ids [B, P] are left-padded.
+        """Returns (new_tokens [B, T] int64, done [B] bool), then, each when
+        asked: trigger [B] (the stop token that fired, -1 if none), the
+        iterations run (speculative verify steps, or per-token steps) and
+        the decode state {"cache", "kv_valid"}, whose valid region per
+        row is exactly prompt + emitted tokens (stop tokens are never
+        written); the speculative path returns None there, as JAX does
+        (callers re-forward). input_ids [B, P] are left-padded.
         reserve_cache_slots leaves zero slots after the decode region for
         a later query extension (composite._body_hidden_extend).
         inputs_embeds [B, P, H] replaces the prompt's token embeddings in
         the prefill; the repetition-penalty history then starts empty,
-        as in the JAX package (the prompt ids are not read)."""
-        if spec_tokens:
-            raise NotImplementedError(
-                "speculative decoding (spec_tokens > 0) is not ported yet "
-                "(ROADMAP.md); None or 0 runs the per-token loop, whose "
-                "greedy output equals the speculative one")
+        as in the JAX package (the prompt ids are not read).
+
+        spec_tokens: prompt-lookup drafts per verify step (K); None = the
+        JAX auto rule, K=2 for greedy decode and 0 when sampling. Drafts
+        stay off for sliding-window configs, a repetition penalty and
+        max_new_tokens <= 1. spec_ngram (clipped to 1..4) is the n-gram
+        matched; after spec_probe verify steps, a batch whose accepted
+        drafts per live row and step fall below spec_min_accept
+        finishes on the per-token loop. Greedy tokens, done and trigger
+        equal the per-token loop's; sampled outputs follow its
+        distribution (delta-draft rejection sampling)."""
         cfg = self.cfg
         dev = input_ids.device
         b, p = input_ids.shape
-        total = p + max_new_tokens + reserve_cache_slots
+        if spec_tokens is None:
+            spec_tokens = 0 if do_sample else 2
+        # the speculative cache has holes where drafts were rejected, so
+        # slot distance is not position distance: windows need drafts off
+        use_spec = (spec_tokens > 0 and max_new_tokens > 1
+                    and repetition_penalty == 1.0
+                    and cfg.sliding_window is None)
+        total = (p + max_new_tokens * ((spec_tokens + 1) if use_spec else 1)
+                 + reserve_cache_slots)
         eos = torch.tensor(list(eos_ids) or [-1], device=dev)
         positions = (attention_mask.cumsum(-1) - 1).clamp_min(0)
         cache = make_kv_cache(cfg, b, total, self.dtype, dev)
@@ -457,26 +705,262 @@ class LLM(nn.Module):
 
         tok = pick(logits[:, -1])
         done = torch.isin(tok, eos)
+        trigger = torch.where(done, tok, -1)
         tok = torch.where(done, pad_id, tok)
         pos = positions[:, -1] + 1
-        out = torch.full((b, max_new_tokens), pad_id, dtype=torch.long,
-                         device=dev)
-        for t in range(max_new_tokens):
-            if bool(done.all()):
-                break   # early exit: finished rows would only emit pad
-            out[:, t] = tok
-            kv_valid[:, p + t] = ~done
-            logits, _, cache = self(input_ids=tok[:, None],
-                                    positions=pos[:, None], kv_cache=cache,
-                                    cache_index=p + t, kv_valid=kv_valid)
-            nxt = pick(logits[:, -1])
-            now_done = done | torch.isin(nxt, eos)
-            tok = torch.where(now_done, pad_id, nxt)
-            done = now_done
-            pos = pos + 1
+        sampling = dict(temperature=temperature, top_p=top_p, top_k=top_k,
+                        do_sample=do_sample)
+
+        if use_spec:
+            out, done, trigger, iters = self._speculative_loop(
+                cache, kv_valid, tok, pos, done, trigger, generator,
+                input_ids, attention_mask, p=p,
+                max_new_tokens=max_new_tokens, K=spec_tokens,
+                ngram=max(1, min(spec_ngram, 4)), eos=eos, pad_id=pad_id,
+                probe_iters=spec_probe, min_accept=spec_min_accept,
+                **sampling)
+            state = None         # the cache has rejected-draft holes
+        else:
+            out = torch.full((b, max_new_tokens), pad_id, dtype=torch.long,
+                             device=dev)
+            iters = 0
+            for t in range(max_new_tokens):
+                if bool(done.all()):
+                    break   # early exit: finished rows would only emit pad
+                out[:, t] = tok
+                kv_valid[:, p + t] = ~done
+                logits, _, cache = self(input_ids=tok[:, None],
+                                        positions=pos[:, None],
+                                        kv_cache=cache, cache_index=p + t,
+                                        kv_valid=kv_valid)
+                nxt = pick(logits[:, -1])
+                stopped = ~done & torch.isin(nxt, eos)
+                trigger = torch.where(stopped, nxt, trigger)
+                done = done | stopped
+                tok = torch.where(done, pad_id, nxt)
+                pos = pos + 1
+                iters += 1
+            state = {"cache": cache, "kv_valid": kv_valid}
+        res = (out, done)
+        if return_trigger:
+            res += (trigger,)
+        if return_spec_iters:
+            res += (iters,)
         if return_decode_state:
-            return out, done, {"cache": cache, "kv_valid": kv_valid}
-        return out, done
+            res += (state,)
+        return res
+
+    def _speculative_loop(self, cache, kv_valid, x0, pos0, done0, trigger0,
+                          generator, input_ids, attention_mask, *, p: int,
+                          max_new_tokens: int, K: int, ngram: int, eos,
+                          pad_id: int, temperature: float, top_p: float,
+                          top_k: int, do_sample: bool, probe_iters: int,
+                          min_accept: float):
+        """Prompt-lookup speculative decoding (JAX _speculative_loop).
+        Each iteration proposes K drafts a row (ngram_drafts), verifies
+        [x, d1..dK] in one cached forward at the shared slots
+        [c, c + K], c = p + it * (K + 1), accepts the longest prefix by
+        delta-draft rejection sampling, emits the accepted drafts and one
+        sampled token, and marks the rejected slots invalid (holes, never
+        compacted). The host reads one flag an iteration (every row
+        stopped, or the acceptance guard tripped). Rows left when the
+        guard trips finish on the per-token loop in the cache's remaining
+        slots at one shared offset: every row still running has emitted at
+        least one token an iteration, so it needs at most max_new - it
+        more steps, and (max_new - it) * (K + 1) slots remain (JAX
+        compacts its cache there instead: its vector ops scale with the
+        cache's length). One difference from JAX: a row whose verify step
+        fills its budget without reaching the token after its last one
+        takes one forward of the continuation for that boundary token, so
+        that done and trigger are the per-token loop's (JAX's leave them
+        unset there). Returns (out [B, max_new], done, trigger,
+        iterations); self.spec_stats keeps the verify steps, the drafts
+        accepted over them, the live row-steps and whether the guard
+        tripped."""
+        dev = x0.device
+        b = x0.shape[0]
+        L = p + max_new_tokens          # history width (exact positions)
+        arK1 = torch.arange(K + 1, device=dev)
+        s_idx = arK1[None, :]
+        bidx = torch.arange(b, device=dev)[:, None]
+        greedy = not do_sample or temperature <= 0
+
+        # token history: the left-padded prompt and the generated tail,
+        # contiguous from column p; column L takes the masked writes
+        hist = torch.zeros((b, L + 1), dtype=torch.long, device=dev)
+        hist[:, :p] = input_ids
+        hvalid = torch.zeros((b, L + 1), dtype=torch.bool, device=dev)
+        hvalid[:, :p] = attention_mask > 0
+        hist[:, p] = x0
+        hvalid[:, p] = ~done0
+        out = torch.full((b, max_new_tokens + 1), pad_id, dtype=torch.long,
+                         device=dev)
+        out[:, 0] = x0
+        gen = torch.ones(b, dtype=torch.long, device=dev)
+        x, pos_x, done, trigger = x0, pos0, done0, trigger0
+        full = torch.zeros_like(done0)
+        boundary = torch.zeros_like(done0)
+        tot_acc = torch.zeros((), dtype=torch.long, device=dev)
+        tot_live = torch.zeros((), dtype=torch.long, device=dev)
+        it = 0
+        while it < max_new_tokens:
+            stop = (done | full).all()
+            if it >= probe_iters:   # the acceptance guard
+                stop = stop | (tot_acc.float()
+                               < min_accept * tot_live.float())
+            if bool(stop):
+                break
+            live = ~(done | full)
+            drafts = ngram_drafts(hist, hvalid, gen, p, L, ngram, K)
+            c = p + it * (K + 1)
+            block = torch.cat([x[:, None], drafts], dim=1)
+            kv_valid[:, c:c + K + 1] = live[:, None]
+            logits, _, cache = self(input_ids=block,
+                                    positions=pos_x[:, None] + s_idx,
+                                    kv_cache=cache, cache_index=c,
+                                    kv_valid=kv_valid)
+            vals, idxs = warped_candidates(logits.reshape(b * (K + 1), -1),
+                                           temperature, top_p, top_k,
+                                           do_sample)
+            kk = vals.shape[-1]
+            vals = vals.view(b, K + 1, kk)
+            if idxs is not None:
+                idxs = idxs.view(b, K + 1, kk)
+            if greedy:
+                # p_warped(draft) is 1 for the argmax and 0 otherwise:
+                # JAX's uniform() < p_draft accepts exactly the matches,
+                # and both draws return the argmax
+                accept = idxs[:, :K, 0] == drafts
+                fresh = idxs[:, :, 0]
+                resid = idxs[:, :K, 0]
+            else:
+                lse = torch.logsumexp(vals, dim=-1)            # [B, K+1]
+                if idxs is None:
+                    dvals = torch.gather(vals[:, :K], 2,
+                                         drafts[:, :, None])[..., 0]
+                    p_draft = torch.exp(dvals - lse[:, :K])
+                    excluded = (torch.arange(kk, device=dev)[None, None]
+                                == drafts[:, :, None])
+                else:
+                    excluded = idxs[:, :K] == drafts[:, :, None]
+                    p_draft = torch.where(
+                        excluded, torch.exp(vals[:, :K] - lse[:, :K, None]),
+                        0.0).sum(-1)
+                u = torch.rand((b, K), generator=generator, device=dev)
+                accept = u < p_draft
+                fresh = candidates_draw(generator, vals, idxs)  # [B, K+1]
+                resid = candidates_draw(
+                    generator, torch.where(excluded, _NEG, vals[:, :K]),
+                    None if idxs is None else idxs[:, :K])
+            n_acc = torch.cumprod(accept.long(), dim=1).sum(dim=1)
+            # the token at slot n_acc: the residual resample where a draft
+            # was rejected, a fresh draw after K accepted drafts
+            x_sel = torch.cat([resid, fresh[:, K:]], dim=1)
+            x_new = torch.gather(x_sel, 1, n_acc[:, None])[:, 0]
+
+            # emission: the accepted drafts and the sampled token; a stop
+            # token landing exactly on the budget boundary still sets
+            # done / trigger (as the per-token loop's last step does)
+            cand = torch.cat([drafts, x_new[:, None]], dim=1)
+            tok = torch.where(s_idx < n_acc[:, None], cand, x_new[:, None])
+            upto = (s_idx <= n_acc[:, None]) & live[:, None]
+            base = upto & ((gen[:, None] + s_idx) < max_new_tokens)
+            sig = upto & ((gen[:, None] + s_idx) <= max_new_tokens)
+            is_eos = torch.isin(tok, eos)
+            hit = (is_eos & sig).long()
+            prior = torch.cumsum(hit, dim=1) - hit
+            emit = base & (prior == 0)
+            hit = (hit > 0) & (prior == 0)
+            eos_row = hit.any(dim=1)
+            first_eos = torch.gather(tok, 1,
+                                     hit.long().argmax(dim=1)[:, None])[:, 0]
+            trigger = torch.where(eos_row, first_eos, trigger)
+            col_o = torch.where(emit, gen[:, None] + s_idx, max_new_tokens)
+            out[bidx, col_o] = torch.where(is_eos, pad_id, tok)
+            col_h = torch.where(emit, p + gen[:, None] + s_idx, L)
+            hist[bidx, col_h] = tok
+            hvalid[bidx, col_h] = emit
+
+            n_emit = emit.sum(dim=1)
+            # a row that fills its budget with x_new has not seen the
+            # token after it, which the per-token loop checks for a stop:
+            # it keeps x_new for one forward of the continuation (JAX
+            # retires it, leaving done / trigger unset)
+            unchecked = live & ~eos_row & (n_acc < max_new_tokens - gen)
+            gen = gen + n_emit
+            done = done | eos_row     # a stop token fired
+            filled = gen >= max_new_tokens
+            boundary = boundary | (unchecked & filled)
+            full = full | filled
+            # slot validity from here on: x and the accepted drafts stay,
+            # the rejected drafts are holes
+            kv_valid[:, c] = live
+            kv_valid[:, c + 1:c + K + 1] = live[:, None] & (
+                arK1[None, :K] < n_acc[:, None])
+            pos_x = pos_x + n_emit
+            x = torch.where(done | (full & ~boundary), pad_id, x_new)
+            tot_acc = tot_acc + torch.where(live, n_acc, 0).sum()
+            tot_live = tot_live + live.sum()
+            it += 1
+
+        # what the drafts did, for whoever measures them (chip_smoke.py)
+        self.spec_stats = {"iterations": it, "accepted": int(tot_acc),
+                           "live_steps": int(tot_live),
+                           "guard_tripped": bool((~(done | full)).any())}
+        # the guard's continuation: the per-token loop for the rows left.
+        # A row that fills its budget (here, or in a verify step that did
+        # not reach the next token) runs one more forward so that the
+        # never-emitted boundary token still sets done / trigger.
+        c0 = p + it * (K + 1)
+        rows = bidx[:, 0]
+        fin = full & ~boundary
+        for j in range(max_new_tokens + 1):
+            live = ~(done | fin)
+            if not bool(live.any()):
+                break
+            at_boundary = gen >= max_new_tokens
+            kv_valid[:, c0 + j] = live
+            logits, _, cache = self(input_ids=x[:, None],
+                                    positions=pos_x[:, None], kv_cache=cache,
+                                    cache_index=c0 + j, kv_valid=kv_valid)
+            nxt = sample_token(generator, logits[:, -1], temperature, top_p,
+                               top_k, do_sample)
+            stopped = live & torch.isin(nxt, eos)
+            trigger = torch.where(stopped, nxt, trigger)
+            emit = live & ~stopped & ~at_boundary
+            col = torch.where(emit, gen, max_new_tokens)
+            out[rows, col] = torch.where(emit, nxt, pad_id)
+            gen = gen + emit.long()
+            done = done | stopped
+            fin = fin | (live & at_boundary)
+            pos_x = pos_x + live.long()
+            x = torch.where(done | fin, pad_id, nxt)
+        return out[:, :max_new_tokens], done, trigger, it
+
+
+def ngram_drafts(hist: torch.Tensor, hvalid: torch.Tensor, gen: torch.Tensor,
+                 p: int, L: int, ngram: int, K: int) -> torch.Tensor:
+    """K draft tokens a row (JAX LLM._ngram_drafts): the continuation after
+    the most recent earlier occurrence of the trailing `ngram` tokens in
+    the history. hist / hvalid [B, L + 1] (column L is junk); gen [B] the
+    tokens generated so far (the tail ends at column p + gen - 1). A row
+    without a match gets whatever its low columns hold: the verify step
+    runs K + 1 positions regardless, and the drafts are then rejected."""
+    b = hist.shape[0]
+    dev = hist.device
+    tail = p + gen[:, None] - ngram + torch.arange(ngram, device=dev)[None]
+    gram = torch.gather(hist, 1, tail.clamp(0, L))
+    w = L - ngram + 1
+    m = torch.ones((b, w), dtype=torch.bool, device=dev)
+    for s in range(ngram):
+        m &= (hist[:, s:w + s] == gram[:, s:s + 1]) & hvalid[:, s:w + s]
+    jpos = torch.arange(w, device=dev)
+    # the tail always matches itself: the match must end before it does
+    m &= (jpos[None, :] + ngram) < (p + gen)[:, None]
+    j_star = torch.where(m, jpos[None, :], -1).amax(dim=1)
+    cols = (j_star[:, None] + ngram
+            + torch.arange(K, device=dev)[None]).clamp(0, L)
+    return torch.gather(hist, 1, cols)
 
 
 def lm_loss(logits: torch.Tensor, labels: torch.Tensor,
@@ -547,6 +1031,17 @@ def warped_candidates(logits, temperature: float, top_p: float, top_k: int,
     return vals, idxs
 
 
+def candidates_draw(generator, vals, idxs) -> torch.Tensor:
+    """A vocab id drawn from each row of a (vals, idxs) candidate set
+    ([..., kk]; idxs None: vals covers the vocabulary) -> [...]."""
+    lead = vals.shape[:-1]
+    choice = torch.multinomial(torch.softmax(vals.reshape(-1, vals.shape[-1]),
+                                             dim=-1), 1, generator=generator)
+    if idxs is not None:
+        choice = torch.gather(idxs.reshape(-1, idxs.shape[-1]), 1, choice)
+    return choice[:, 0].view(lead)
+
+
 def sample_token(generator, logits, temperature: float, top_p: float,
                  top_k: int, do_sample: bool) -> torch.Tensor:
     """One token per row: greedy, or a draw from the warped candidates."""
@@ -554,8 +1049,4 @@ def sample_token(generator, logits, temperature: float, top_p: float,
                                    do_sample)
     if not do_sample or temperature <= 0:
         return idxs[:, 0]
-    choice = torch.multinomial(torch.softmax(vals, dim=-1), 1,
-                               generator=generator)
-    if idxs is None:
-        return choice[:, 0]
-    return torch.gather(idxs, 1, choice)[:, 0]
+    return candidates_draw(generator, vals, idxs)

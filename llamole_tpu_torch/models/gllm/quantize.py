@@ -7,7 +7,8 @@ columns share one scale per output channel, the gptq / awq layout), values
 in [-7, 7] packed two a byte. W8A8: the int8 weights, run with activations
 quantized per token (gllm/lora.py). The attention and MLP projections and
 the lm_head are quantized; the embedding and the norms stay in the compute
-dtype. MoE is refused by the LLM itself (ROADMAP.md Queue 1 item 7).
+dtype, and so do an MoE LLM's router and experts (with the JAX
+package's warning: for Mixtral they are most of the weights).
 
 Everything works in place on an LLM's modules, one projection at a time
 on the parameters' device, so a dense tree and its quantized copy never
@@ -29,7 +30,10 @@ from typing import Iterator, Tuple
 import torch
 from torch import nn
 
+from ...utils.logging import get_logger
 from .lora import LoRALinear, pack_int4
+
+logger = get_logger(__name__)
 
 
 def quant_scheme(bits: int, act_int8: bool = False) -> str:
@@ -82,12 +86,22 @@ def quantize_int4(w: torch.Tensor, group_size: int = 128
 
 def projections(llm: nn.Module) -> Iterator[LoRALinear]:
     """The projections JAX quantize_llm_params quantizes: every layer's
-    attention and MLP projections, then the lm_head (when untied)."""
+    attention and dense-MLP projections, then the lm_head (when untied).
+    An MoE layer's router and experts are not among them: they stay in
+    the compute dtype, as in the JAX package."""
     for layer in llm.layers:
         yield from layer.attn.values()
-        yield from layer.mlp.values()
+        if not layer.moe:
+            yield from layer.mlp.values()
     if llm.lm_head is not None:
         yield llm.lm_head
+
+
+def _warn_moe(llm: nn.Module) -> None:
+    if llm.cfg.num_experts > 0:
+        logger.warning(
+            "MoE experts/router are NOT quantized (only the dense "
+            "attention projections are) -- expect little memory savings")
 
 
 @torch.no_grad()
@@ -109,6 +123,7 @@ def quantize_llm_params(llm: nn.Module, bits: int = 8, group_size: int = 128,
     projection at a time: each dense weight is released as its quantized
     copy is made. Returns the LLM."""
     scheme = quant_scheme(bits, act_int8)
+    _warn_moe(llm)
     for proj in projections(llm):
         if proj.quant is not None:
             raise ValueError(f"the LLM is quantized already ({proj.quant})")
@@ -140,9 +155,12 @@ def init_quantized_(llm: nn.Module, generator: torch.Generator,
     quantized layout (JAX init_params_quantized's scheme; module
     docstring). A dense LLM's projections are switched to quantized
     storage one at a time; one built with LLM(..., quant=llm_quant(
-    scheme, group_size)) is filled where it is. Norms are set to 1,
-    biases to 0. Returns the LLM."""
+    scheme, group_size)) is filled where it is. Norms are set to unit
+    scale (0 under the unit offset; the q/k norms to 1, as JAX draws
+    them), biases to 0, an MoE router and experts drawn dense as
+    reset_parameters draws them. Returns the LLM."""
     scheme = quant_scheme(bits, act_int8)
+    _warn_moe(llm)
     want = llm_quant(scheme, group_size)
     if llm.quant not in (None, want):
         raise ValueError(f"the LLM is quantized as {llm.quant}, not {want}")
@@ -167,9 +185,17 @@ def init_quantized_(llm: nn.Module, generator: torch.Generator,
     emb = llm.embed.weight
     emb.copy_(torch.empty(emb.shape, dtype=torch.float32, device=emb.device)
               .normal_(0.0, 0.02, generator=generator))
+    unit = 0.0 if llm.cfg.rms_norm_unit_offset else 1.0
     for name, p in llm.named_parameters():
-        if name.endswith("norm.weight"):
-            p.fill_(1.0)
+        if name.endswith(("q_norm.weight", "k_norm.weight")):
+            p.fill_(1.0)       # JAX draws the q/k norms as ones here
+        elif name.endswith("norm.weight"):
+            p.fill_(unit)
+        elif ".mlp.router." in name or ".mlp.experts." in name:
+            # unquantized; JAX's quantized init has no MoE leaves
+            p.copy_(torch.empty(p.shape, dtype=torch.float32,
+                                device=p.device)
+                    .normal_(0.0, p.shape[1] ** -0.5, generator=generator))
     return llm
 
 

@@ -19,8 +19,10 @@ the trainable bundle. quantization_bit (4 or 8; quantization_scheme
 'weight_only' or 'w8a8', which needs 8) quantizes the LLM's projections
 in place once its weights are loaded or drawn, and kv_cache_dtype
 ('compute' or 'int8') picks the KV cache, with the JAX loader's errors
-for other values. DoRA / PiSSA and the unported families raise, each
-naming its ROADMAP.md item.
+for other values; num_experts / num_experts_per_tok (a from-scratch MoE
+config) and moe_aux_loss_coef override the resolved config as in the JAX
+loader. DoRA / PiSSA and S²-attn raise, naming ROADMAP.md Queue 1 item
+6.
 """
 
 import json
@@ -63,11 +65,6 @@ _FALLBACK_TEMPLATES = {
     5: "[C:1]-[C:2]-[OH;D1:3]>>[C:1]=[C:2].[OH2:3]",
 }
 
-_NOT_PORTED_FAMILY = ("the {} LLM family ({!r}) is not ported to "
-                      "llamole_tpu_torch yet (ROADMAP.md: other model "
-                      "families)")
-
-
 def offline_tokenizer():
     """The byte-level tokenizer with the 9 control tokens, left-padding:
     what load_tokenizer gives when no HF tokenizer files exist."""
@@ -77,28 +74,27 @@ def offline_tokenizer():
 
 
 def resolve_llm_config(model_args) -> LLMConfig:
-    """Family preset by model name, tested in the JAX loader's order;
-    tiny (random init) when unnamed. The qwen3 and gemma families are
-    not ported yet: their names raise rather than build another
-    family's preset."""
+    """The directory's config.json (LLMConfig.from_hf_config), else the
+    family preset by model name, tested in the JAX loader's order; tiny
+    (random init) when unnamed."""
     path = model_args.model_name_or_path or ""
     cfg_file = os.path.join(path, "config.json") if path else ""
     if cfg_file and os.path.exists(cfg_file):
         with open(cfg_file) as f:
-            cfg = LLMConfig.from_hf_config(json.load(f))
-        check_supported(cfg)    # gemma, qwen3 qk-norm, MoE raise here
-        return cfg
+            return LLMConfig.from_hf_config(json.load(f))
     name = path.lower()
     if "llama" in name:
         return LLMConfig.llama3_8b()
     if "qwen3" in name:
-        raise NotImplementedError(_NOT_PORTED_FAMILY.format("qwen3", path))
+        return LLMConfig.qwen3_8b()
     if "qwen" in name:
         return LLMConfig.qwen2_7b()
     if "mistral" in name:
         return LLMConfig.mistral_7b()
-    if "gemma" in name:     # gemma-3 and gemma-1/2 alike
-        raise NotImplementedError(_NOT_PORTED_FAMILY.format("gemma", path))
+    if "gemma-3" in name or "gemma3" in name:
+        return LLMConfig.gemma3_12b()
+    if "gemma" in name:
+        return LLMConfig.gemma2_9b()
     logger.warning("No local weights/config for %r -- using tiny config "
                    "(random init)", path)
     return LLMConfig.tiny()
@@ -301,8 +297,13 @@ def build_graph_lm(model_args, data_args, finetuning_args, *, device,
     llm_cfg.shift_attn = bool(getattr(model_args, "shift_attn", False))
     llm_cfg.kv_cache_dtype = getattr(model_args, "kv_cache_dtype",
                                      "compute") or "compute"
-    if getattr(model_args, "num_experts", 0):
+    if getattr(model_args, "num_experts", 0) and llm_cfg.num_experts == 0:
+        # a from-scratch MoE config (checkpoints carry their own value)
         llm_cfg.num_experts = int(model_args.num_experts)
+        llm_cfg.num_experts_per_tok = int(model_args.num_experts_per_tok)
+    if getattr(model_args, "moe_aux_loss_coef", None) is not None:
+        llm_cfg.moe_aux_loss_coef = float(model_args.moe_aux_loss_coef)
+    check_supported(llm_cfg)     # S²-attn (shift_attn) raises here
 
     weights = _llm_weights_dir(model_args.model_name_or_path or "")
     adapter_dir = None

@@ -13,13 +13,16 @@ module names follow the JAX tree keys, so the mapping is structural:
                                           as gllm/lora.py pack_int4), scale
   {"scale", "bias"?}        norm       -> weight, bias
   {"a": [in, r], "b": [r, out]}  LoRA  -> lora_a [r, in], lora_b [out, r]
+  {"router": {"w": [H, E]}, "experts": {"gate", "up", "down"}}
+                            MoE        -> router.weight [E, H], experts.*
+                                          [E, in, out] as they are
   other leaves (embedding tables, null embeddings) copy as they are
 
 Stacked LLM layers ("layers_stacked", leading [L] axis, as
 init_params_quantized returns them) are unstacked. A quantized tree loads
 into a module built quantized the same way (`llm_quant_of` gives an LLM's
-quant=(scheme, group_size)). MoE and DoRA leaves are not ported yet and
-raise.
+quant=(scheme, group_size)). DoRA leaves are not ported yet and raise
+(ROADMAP.md Queue 1 item 6).
 
 `jax_tree_of` is the inverse: a port module -> the JAX-layout tree
 (dense weights back to w [in, out], norms to scale / bias, ModuleLists to
@@ -45,7 +48,7 @@ from .utils.serialization import load_pytree, save_pytree
 
 StateDict = Dict[str, torch.Tensor]
 # JAX leaves the port does not hold: (keys, what, ROADMAP.md Queue 1 item)
-_UNPORTED_LEAVES = (({"m"}, "DoRA", 6), ({"router", "experts"}, "MoE", 7))
+_UNPORTED_LEAVES = (({"m"}, "DoRA", 6),)
 _QUANTIZED = ("w_q", "w_qa", "w_q4")
 
 
@@ -104,11 +107,13 @@ def _quantized_values(key: str, a) -> torch.Tensor:
 
 
 def _projection_leaves(tree: Dict):
-    """The projection leaves of a JAX LLM tree (layers and the head)."""
+    """The projection leaves of a JAX LLM tree (layers and the head; an
+    MoE layer's router and experts are never quantized)."""
     layers = tree.get("layers_stacked", tree.get("layers"))
     for layer in (layers if isinstance(layers, list) else [layers]):
-        for group in ("attn", "mlp"):
-            yield from layer[group].values()
+        yield from layer["attn"].values()
+        if "experts" not in layer["mlp"]:
+            yield from layer["mlp"].values()
     if "lm_head" in tree:
         yield tree["lm_head"]
 
@@ -214,10 +219,13 @@ def cost_mlp_state_dict(params: Dict, prefix: str = "") -> StateDict:
 
 def _llm_path(name: str) -> Tuple[List[str], bool]:
     """An LLM (or connector) parameter name -> (its key path in the JAX
-    tree, whether the JAX leaf is the transpose): projections and the
-    head -> w [in, out], biases -> b, RMSNorm weights -> scale, the
-    embedding -> weight, LoRA factors -> a [in, r] / b [r, out]."""
+    tree, whether the JAX leaf is the transpose): projections, the MoE
+    router and the head -> w [in, out], biases -> b, RMSNorm weights ->
+    scale, the embedding -> weight, LoRA factors -> a [in, r] / b
+    [r, out], MoE experts -> their [E, in, out] leaves."""
     *owner, leaf = name.split(".")
+    if owner and owner[-1] == "experts":     # [E, in, out] on both sides
+        return owner + [leaf], False
     if leaf in ("lora_a", "lora_b"):
         return owner + [leaf[-1]], True
     if leaf == "bias":

@@ -201,11 +201,12 @@ def test_no_source_of_the_port_imports_the_jax_package(path):
 
 
 # the LLM family resolved by name: the port agrees with the JAX loader
-# where it has the family, and raises where it does not (never another
-# family's preset)
+# on every family it names
 @pytest.mark.parametrize("name", ["meta-llama/Meta-Llama-3.1-8B-Instruct",
                                   "Qwen/Qwen2-7B-Instruct",
-                                  "mistralai/Mistral-7B-Instruct-v0.3", ""])
+                                  "mistralai/Mistral-7B-Instruct-v0.3", "",
+                                  "Qwen/Qwen3-8B", "google/gemma-2-9b",
+                                  "google/gemma-3-12b"])
 def test_resolve_llm_config_equals_jax(name):
     from types import SimpleNamespace
 
@@ -214,16 +215,6 @@ def test_resolve_llm_config_equals_jax(name):
     args = SimpleNamespace(model_name_or_path=name)
     assert (dataclasses.asdict(resolve_llm_config(args))
             == dataclasses.asdict(jax_resolve(args)))
-
-
-@pytest.mark.parametrize("name", ["Qwen/Qwen3-8B", "google/gemma-2-9b",
-                                  "google/gemma-3-12b"])
-def test_resolve_llm_config_refuses_unported_families(name):
-    from types import SimpleNamespace
-
-    from llamole_tpu_torch.models.loader import resolve_llm_config
-    with pytest.raises(NotImplementedError, match="family"):
-        resolve_llm_config(SimpleNamespace(model_name_or_path=name))
 
 
 _TINY_EVAL = {"model_name_or_path": "", "dataset": "molqa_drug_examples",

@@ -206,20 +206,21 @@ def test_cache_len_guard(tiny):
 
 
 def test_int8_kv_and_sliding_window_are_refused(tiny):
-    """Sliding-window attention is still refused, by the LLM and by the
-    pool for an LLM whose config asks for it. The int8 KV cache is not
-    any more (gllm/model.py): the pool over such an LLM holds int8 values
-    and f32 scale planes, and a kv_cache_dtype other than 'compute' or
-    'int8' is a ValueError, as in the JAX loader."""
+    """A shared prefix with sliding windows is refused with the JAX
+    package's message (the suffix's left padding shifts its slots but not
+    the prefix's); the pool over a sliding-window LLM runs without one
+    (tests/test_torch_llm.py holds the windowed decode to JAX's). The int8
+    KV cache is not refused either (gllm/model.py): the pool over such an
+    LLM holds int8 values and f32 scale planes, and a kv_cache_dtype other
+    than 'compute' or 'int8' is a ValueError, as in the JAX loader."""
     *_, llm = tiny
     cfg = replace(LLMConfig.tiny(VOCAB), sliding_window=4)
-    with pytest.raises(NotImplementedError):
-        LLM(cfg, dtype=torch.float32)
-    odd = LLM(LLMConfig.tiny(VOCAB), dtype=torch.float32)
-    odd.cfg = cfg
-    with pytest.raises(NotImplementedError, match="not support"):
-        SlotDecoder(odd, slots=2, cache_len=64, max_new_tokens=8,
-                    prompt_buckets=(8,))
+    windowed = LLM(cfg, dtype=torch.float32)
+    with pytest.raises(ValueError, match="shared_prefix is not supported"):
+        SlotDecoder(windowed, slots=2, cache_len=64, max_new_tokens=8,
+                    prompt_buckets=(8,), shared_prefix=[5, 6, 7])
+    SlotDecoder(windowed, slots=2, cache_len=64, max_new_tokens=8,
+                prompt_buckets=(8,))
     int8 = LLM(replace(LLMConfig.tiny(VOCAB), kv_cache_dtype="int8"),
                dtype=torch.float32)
     dec = SlotDecoder(int8, slots=2, cache_len=64, max_new_tokens=8,
@@ -299,3 +300,52 @@ def test_sampled_decoding_is_seeded(tiny):
     for a, b in zip(first, again):
         np.testing.assert_array_equal(a, b)
         assert len(a) == 8 and ((0 <= a) & (a < VOCAB)).all()
+
+
+_GEMMA = dict(hidden_act="gelu_tanh", rms_norm_unit_offset=True,
+              scale_embeddings=True, tie_word_embeddings=True)
+POOL_FAMILIES = {
+    "qwen3": dict(qk_norm=True),
+    "gemma2": dict(_GEMMA, sandwich_norms=True, attn_logit_softcap=5.0,
+                   final_logit_softcap=3.0, query_scale=24.0,
+                   sliding_window=4),
+    "gemma3": dict(_GEMMA, sandwich_norms=True, qk_norm=True,
+                   query_scale=24.0, sliding_window=4,
+                   sliding_window_pattern=3, rope_local_base_freq=1e4,
+                   rope_scaling="linear", num_layers=3),
+    "moe": dict(num_experts=4, num_experts_per_tok=2),
+}
+
+
+@pytest.mark.parametrize("family", list(POOL_FAMILIES))
+def test_every_family_runs_in_the_pool(family):
+    """The pool over a qwen3, gemma-2 (window 4, shorter than the
+    prompts plus their decode), gemma-3 or MoE LLM emits the JAX
+    SlotDecoder's tokens and triggers, request for request."""
+    from llamole_tpu.models.gllm.model import init_params
+
+    overrides = POOL_FAMILIES[family]
+    jcfg = replace(JaxLLMConfig.tiny(VOCAB), **overrides)
+    noise = np.random.default_rng(8)
+    params = jax.tree_util.tree_map_with_path(
+        lambda path, a: (a + noise.normal(size=a.shape).astype(np.float32)
+                         * 0.1) if path[-1].key == "scale" else a,
+        jax.tree.map(np.asarray, init_params(jax.random.PRNGKey(0), jcfg,
+                                             jnp.float32)))
+    llm = LLM(replace(LLMConfig.tiny(VOCAB), **overrides),
+              dtype=torch.float32)
+    llm.load_state_dict(llm_state_dict(params))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, VOCAB, size=n).tolist() for n in (3, 7, 5, 6)]
+    kw = dict(slots=2, cache_len=64, max_new_tokens=10, eos_ids=(9, 23),
+              pad_id=0, do_sample=False, chunk_steps=3, prompt_buckets=(8,))
+    jdec = JaxSlotDecoder(JaxLLM(jcfg, dtype=jnp.float32), params, **kw)
+    jrids = [jdec.submit(p) for p in prompts]
+    want = jdec.drain()
+    dec = SlotDecoder(llm, **kw)
+    rids = [dec.submit(p) for p in prompts]
+    got = dec.drain()
+    for rid, jrid in zip(rids, jrids):
+        np.testing.assert_array_equal(got[rid][0],
+                                      np.asarray(want[jrid][0]))
+        assert got[rid][1] == want[jrid][1]

@@ -3,8 +3,10 @@ unless stated): the port's first-party safetensors against the
 `safetensors` package and the JAX export, HF import (logits 1e-5, the
 padded vocabulary rows) and export (transformers loads it: logits 2e-4 /
 2e-3 as tests/test_hf_export.py), merge_lora against JAX's,
-refconvert's trees against the JAX converters', and the refusals (MoE /
-qwen3 / gemma tensors, a missing tensor, DoRA and MoE leaves). The
+refconvert's trees against the JAX converters', every family's HF
+directory both ways (qwen3, gemma-1/2/3, Mixtral), an MoE tree through the
+bridge, and the refusals (another family's tensor, a missing tensor, DoRA
+leaves). The
 adapter directories, training checkpoints and merge_adapter are in
 tests/test_torch_checkpoint.py."""
 
@@ -167,9 +169,9 @@ def test_vocabulary_padding_equals_jax(tmp_path, tied):
 
 
 def test_hf_import_refusals(tmp_path):
-    """MoE / qwen3 / gemma tensors raise naming ROADMAP Queue 1 item 7; a
-    missing tensor and a tensor with no place raise; nothing is left to a
-    random init."""
+    """Another family's tensors (MoE / qwen3 / gemma) in a llama
+    checkpoint have no place in a llama LLM and raise; a missing tensor
+    and a tensor with no place raise; nothing is left to a random init."""
     cfg, params = _jax_llm()
     jax_export(params, cfg, str(tmp_path / "ok"))
     state = safetensors.torch.load_file(str(tmp_path / "ok" /
@@ -182,7 +184,7 @@ def test_hf_import_refusals(tmp_path):
         d.mkdir()
         st.save_file({**state, extra: torch.ones(4)},
                      str(d / "model.safetensors"))
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+        with pytest.raises(ValueError, match="no place"):
             load_hf_weights(str(d), _port_llm())
     d = tmp_path / "missing"
     d.mkdir()
@@ -253,9 +255,67 @@ def test_export_shards_as_jax_does(tmp_path):
     back = load_hf_weights(str(tmp_path / "port"), _port_llm())
     for (n, a), b in zip(llm.named_parameters(), back.parameters()):
         assert torch.equal(a, b), n
-    for preset in ("llama3_8b", "qwen2_7b", "mistral_7b"):
+    for preset in ("llama3_8b", "qwen2_7b", "mistral_7b", "qwen3_8b",
+                   "gemma2_9b", "gemma3_12b", "mixtral_8x7b", "tiny_moe"):
         assert (to_hf_config(getattr(LLMConfig, preset)())
                 == jax_hf_config(getattr(JaxLLMConfig, preset)()))
+
+
+_GEMMA = dict(hidden_act="gelu_tanh", rms_norm_unit_offset=True,
+              scale_embeddings=True, tie_word_embeddings=True)
+FAMILIES = {
+    "qwen3": dict(qk_norm=True),
+    "gemma1": _GEMMA,
+    "gemma2": dict(_GEMMA, sandwich_norms=True, attn_logit_softcap=5.0,
+                   final_logit_softcap=3.0, query_scale=24.0,
+                   sliding_window=4),
+    "gemma3": dict(_GEMMA, sandwich_norms=True, qk_norm=True,
+                   query_scale=24.0, sliding_window=4,
+                   sliding_window_pattern=3, rope_local_base_freq=1e4,
+                   rope_scaling="linear", num_layers=3),
+    "mixtral": dict(num_experts=4, num_experts_per_tok=2),
+}
+
+
+def _perturbed_jax_llm(**overrides):
+    """_jax_llm with every norm scale + N(0, 0.1) (the unit-offset and q/k
+    norms are drawn as 0 or 1)."""
+    cfg, params = _jax_llm(**overrides)
+    noise = np.random.default_rng(8)
+    return cfg, jax.tree_util.tree_map_with_path(
+        lambda path, a: (a + noise.normal(size=a.shape).astype(np.float32)
+                         * 0.1) if path[-1].key == "scale" else np.asarray(a),
+        params)
+
+
+@pytest.mark.parametrize("family", list(FAMILIES))
+def test_family_hf_round_trip(tmp_path, family):
+    """JAX exports the family's HF directory (in shards): the port loads
+    it with JAX's logits (1e-5), exports it again with the same shards,
+    index and config.json dict and every tensor bit-identical (the files
+    differ only by the {"format": "pt"} metadata of the port's writer),
+    and JAX reads the port's export back into its own tree exactly."""
+    overrides = FAMILIES[family]
+    cfg, params = _perturbed_jax_llm(**overrides)
+    jax_export(params, cfg, str(tmp_path / "jax"), shard_gb=1e-5)
+    llm = load_hf_weights(str(tmp_path / "jax"), _port_llm(**overrides))
+    want = np.asarray(jax_forward(params, cfg, input_ids=jnp.asarray(IDS))[0])
+    np.testing.assert_allclose(_logits(llm), want, rtol=0, atol=ATOL)
+    export_hf_weights(llm, str(tmp_path / "port"), shard_gb=1e-5)
+    for name in ("config.json", st.INDEX_FILE):
+        assert (json.loads((tmp_path / "port" / name).read_text())
+                == json.loads((tmp_path / "jax" / name).read_text())), name
+    shards = sorted(p.name for p in (tmp_path / "jax").glob("*.safetensors"))
+    assert shards == sorted(p.name for p in
+                            (tmp_path / "port").glob("*.safetensors"))
+    for name in shards:
+        ours = dict(st.iter_file(str(tmp_path / "port" / name)))
+        theirs = safetensors.torch.load_file(str(tmp_path / "jax" / name))
+        assert list(ours) == list(theirs)
+        for k in theirs:
+            assert torch.equal(ours[k], theirs[k]), k
+    _assert_trees_equal(jax_import(str(tmp_path / "port"), cfg,
+                                   dtype=jnp.float32), params)
 
 
 # -- merge_lora ----------------------------------------------------------------
@@ -421,10 +481,27 @@ def test_refconvert_refuses_the_reference_cost_model(tmp_path):
 
 
 def test_dora_and_moe_leaves_are_refused():
-    """A DoRA magnitude or an MoE router in a JAX tree raises naming its
-    ROADMAP item: never dropped."""
+    """A DoRA magnitude in a JAX tree raises naming its ROADMAP item:
+    never dropped. An MoE tree (router [H, E], experts [E, in, out])
+    goes through the bridge both ways bit-identically, in f32 and bf16."""
     with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         state_dict_of({"q": {"a": np.ones((2, 1)), "b": np.ones((1, 2)),
                              "m": np.ones(2)}})
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        state_dict_of({"mlp": {"router": {"w": np.ones((2, 2))}}})
+    for jdt, tdt in ((jnp.float32, torch.float32),
+                     (jnp.bfloat16, torch.bfloat16)):
+        cfg, params = _jax_llm(dtype=jdt, num_experts=4,
+                               num_experts_per_tok=2)
+        params = jax.tree.map(np.asarray, params)
+        llm = _port_llm(dtype=tdt, num_experts=4, num_experts_per_tok=2)
+        llm.load_state_dict(llm_state_dict(params))
+        mlp = llm.layers[1].mlp
+        assert torch.equal(mlp.router.weight.T.float(), torch.from_numpy(
+            np.asarray(params["layers"][1]["mlp"]["router"]["w"],
+                       np.float32)))
+        assert tuple(mlp.experts.down.shape) == (4, 128, 64)
+        back = llm_tree(llm)
+        assert (jax.tree.structure(back)
+                == jax.tree.structure(jax.tree.map(lambda a: 0, params)))
+        for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(params)):
+            assert a.dtype == tdt and torch.equal(
+                a, torch.from_numpy(np.asarray(b, np.float32)).to(tdt))

@@ -1,7 +1,10 @@
 """llamole_tpu_torch LLM against llamole_tpu's gllm (f32, CPU).
 
 JAX params (+ LoRA) reach the port through llamole_tpu_torch.weights;
-token inputs come from seeded numpy.
+token inputs come from seeded numpy. Every family runs: llama / qwen2,
+qwen3, gemma-1/2/3 and tiny_moe (FAMILIES); the MoE router, drops and
+gradients are in tests/test_torch_moe.py, speculative decoding in
+tests/test_torch_speculative.py.
 """
 
 from dataclasses import replace
@@ -27,12 +30,44 @@ from llamole_tpu_torch.weights import llm_state_dict, state_dict_of
 
 ATOL = 1e-4   # f32 logits through a 2-layer stack
 
+_GEMMA = dict(hidden_act="gelu_tanh", rms_norm_unit_offset=True,
+              scale_embeddings=True, tie_word_embeddings=True)
+# the families, at the tiny width: gemma-2 with softcaps 5 / 3, a
+# query_scale (24) other than head_dim (16) and a window of 4 < the
+# sequence's 11; gemma-3 with pattern 3 (layers 0, 1 local, 2 global),
+# the dual rope and linear scaling; tiny_moe at the default capacity
+# factor 1.25 and at 0.5, tight enough that units drop
+FAMILIES = {
+    "qwen3": dict(qk_norm=True, rms_norm_eps=1e-6),
+    "gemma1": _GEMMA,
+    "gemma2": dict(_GEMMA, sandwich_norms=True, attn_logit_softcap=5.0,
+                   final_logit_softcap=3.0, query_scale=24.0,
+                   sliding_window=4),
+    "gemma3": dict(_GEMMA, sandwich_norms=True, qk_norm=True,
+                   query_scale=24.0, sliding_window=4,
+                   sliding_window_pattern=3, rope_local_base_freq=1e4,
+                   rope_scaling="linear", rope_scaling_factor=8.0,
+                   num_layers=3, rope_theta=1e6),
+    "moe": dict(num_experts=4, num_experts_per_tok=2),
+    "moe_drops": dict(num_experts=4, num_experts_per_tok=2,
+                      moe_capacity_factor=0.5),
+}
 
-def _pair(rank=4, **overrides):
+
+def _pair(rank=4, perturb_norms=False, **overrides):
+    """JAX params (+ a random LoRA) and the port's LLM holding them.
+    perturb_norms: every norm scale + N(0, 0.1), so that the unit-offset
+    and q/k norms (drawn as 0 or 1) are exercised."""
     jcfg = replace(JaxLLMConfig.tiny(), **overrides)
     params = jax.tree.map(np.asarray,
                           init_params(jax.random.PRNGKey(0), jcfg,
                                       jnp.float32))
+    if perturb_norms:
+        noise = np.random.default_rng(8)
+        params = jax.tree_util.tree_map_with_path(
+            lambda path, a: (a + noise.normal(size=a.shape).astype(
+                np.float32) * 0.1) if path[-1].key == "scale" else a,
+            params)
     rng = np.random.default_rng(1)
     lora = jax.tree.map(   # random B too, so the adapter changes outputs
         lambda a: rng.normal(size=np.shape(a)).astype(np.float32) * 0.05,
@@ -57,9 +92,11 @@ def _tokens(b=3, s=11, vocab=512, seed=3):
     {},                                               # tiny GQA 4q/2kv
     {"rope_scaling": "llama3", "rope_theta": 5e5},
     {"attention_bias": True},                         # qwen2-style
-])
+    *FAMILIES.values(),
+], ids=["tiny", "llama3", "qwen2", *FAMILIES])
 def test_forward_logits_match_jax(overrides):
-    jcfg, params, lora, scale, model = _pair(**overrides)
+    jcfg, params, lora, scale, model = _pair(
+        perturb_norms=overrides in FAMILIES.values(), **overrides)
     if overrides.get("attention_bias"):   # biases init to zero: perturb
         rng = np.random.default_rng(9)
         for layer in params["layers"]:
@@ -180,13 +217,83 @@ def test_greedy_generate_matches_jax(repetition_penalty):
 
 
 def test_unported_features_raise():
-    with pytest.raises(NotImplementedError, match="MoE"):
-        LLM(replace(LLMConfig.tiny(), num_experts=4), dtype=torch.float32)
-    _, _, _, _, model = _pair()
-    ids, mask = _tokens()
-    with pytest.raises(NotImplementedError, match="speculative"):
-        model.generate(torch.from_numpy(ids).long(), torch.from_numpy(mask),
-                       spec_tokens=2)
+    """S²-attn (shift_attn) is refused naming its ROADMAP item, and an
+    unknown KV cache dtype; every family config builds."""
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        LLM(replace(LLMConfig.tiny(), shift_attn=True), dtype=torch.float32)
+    with pytest.raises(ValueError, match="kv_cache_dtype"):
+        LLM(replace(LLMConfig.tiny(), kv_cache_dtype="fp8"),
+            dtype=torch.float32)
+    for overrides in FAMILIES.values():
+        LLM(replace(LLMConfig.tiny(), **overrides), dtype=torch.float32)
+
+
+def _family_cached_steps(model, ids, mask, p):
+    """Prefill the first p slots, then decode the rest one at a time;
+    returns the logits of every slot."""
+    b, s = ids.shape
+    ids_t, mask_t = torch.from_numpy(ids).long(), torch.from_numpy(mask)
+    positions = (mask_t.cumsum(-1) - 1).clamp_min(0)
+    cache = make_kv_cache(model.cfg, b, s, torch.float32, "cpu")
+    kv_valid = torch.zeros((b, s), dtype=torch.bool)
+    kv_valid[:, :p] = mask_t[:, :p] > 0
+    pre, _, cache = model(input_ids=ids_t[:, :p], attention_mask=mask_t[:, :p],
+                          positions=positions[:, :p], kv_cache=cache,
+                          cache_index=0, kv_valid=kv_valid)
+    steps = [pre]
+    for t in range(p, s):
+        kv_valid[:, t] = mask_t[:, t] > 0
+        step, _, cache = model(input_ids=ids_t[:, t:t + 1],
+                               positions=positions[:, t:t + 1],
+                               kv_cache=cache, cache_index=t,
+                               kv_valid=kv_valid)
+        steps.append(step)
+    return torch.cat(steps, 1).numpy()
+
+
+@pytest.mark.parametrize("family", list(FAMILIES))
+def test_family_cached_decode_equals_full_forward(family):
+    """Prefill 5 slots and decode 7 one at a time: the logits equal the
+    no-cache forward's (ATOL), across gemma-2's window of 4 and gemma-3's
+    local / global layers. Capacity drops make an MoE layer's output
+    depend on the tokens routed with it (a decode step routes one token a
+    row, the forward all of them), so the MoE cases run at a capacity
+    factor of E, where no unit drops."""
+    overrides = dict(FAMILIES[family])
+    if "num_experts" in overrides:
+        overrides["moe_capacity_factor"] = float(overrides["num_experts"])
+    _, _, _, _, model = _pair(perturb_norms=True, **overrides)
+    ids, mask = _tokens(s=12)
+    with torch.no_grad():
+        full, _, _ = model(input_ids=torch.from_numpy(ids).long(),
+                           attention_mask=torch.from_numpy(mask))
+        steps = _family_cached_steps(model, ids, mask, 5)
+    real = mask.astype(bool)
+    np.testing.assert_allclose(steps[real], full.numpy()[real], atol=ATOL)
+
+
+@pytest.mark.parametrize("family", list(FAMILIES))
+def test_family_greedy_generate_matches_jax(family):
+    """Greedy generate (the default: drafts on, except under gemma-2/3's
+    sliding windows) gives JAX's tokens, done flags and stop triggers on
+    left-padded prompts, with the adapter."""
+    from llamole_tpu.models.gllm import LLM as JaxLLM
+
+    jcfg, params, lora, scale, model = _pair(perturb_norms=True,
+                                             **FAMILIES[family])
+    ids, mask = _tokens(s=9, seed=5)
+    eos = (7, 11)
+    jout, jdone, jtrig = JaxLLM(jcfg, jnp.float32).generate(
+        params, jax.random.PRNGKey(0), jnp.asarray(ids), jnp.asarray(mask),
+        max_new_tokens=10, do_sample=False, eos_ids=eos, pad_id=258,
+        lora=lora, lora_scale=scale, return_trigger=True)
+    tout, tdone, ttrig = model.generate(
+        torch.from_numpy(ids).long(), torch.from_numpy(mask),
+        max_new_tokens=10, do_sample=False, eos_ids=eos, pad_id=258,
+        return_trigger=True)
+    np.testing.assert_array_equal(tout.numpy(), np.asarray(jout))
+    np.testing.assert_array_equal(tdone.numpy(), np.asarray(jdone))
+    np.testing.assert_array_equal(ttrig.numpy(), np.asarray(jtrig))
 
 
 def _labels(ids, mask, seed=4):
@@ -270,8 +377,10 @@ def test_int8_kv_cache_greedy_generate_matches_jax():
         max_new_tokens=8, do_sample=False, pad_id=0, lora=lora,
         lora_scale=scale, spec_tokens=0)
     args = (torch.from_numpy(ids).long(), torch.from_numpy(mask))
+    # spec_tokens=0: the per-token loop returns its decode state
     out8, _, state = int8.generate(*args, max_new_tokens=8, do_sample=False,
-                                   pad_id=0, return_decode_state=True)
+                                   pad_id=0, spec_tokens=0,
+                                   return_decode_state=True)
     entry = state["cache"][0]
     assert entry["k"].dtype == entry["v"].dtype == torch.int8
     assert entry["k_scale"].dtype == entry["v_scale"].dtype == torch.float32

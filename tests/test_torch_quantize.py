@@ -458,9 +458,11 @@ def test_int8_kv_cache_through_the_loader_with_a_dense_llm():
     model, _ = build_graph_lm(model_args, data_args, ft_args, device="cpu")
     assert model.llm.quant is None
     ids = torch.tensor([[5, 6, 7, 8]])
+    # spec_tokens=0: the per-token loop returns its decode state (greedy
+    # decode drafts by default, and its state is then None, as in JAX)
     _, _, state = model.llm.generate(ids, torch.ones_like(ids),
                                      max_new_tokens=3, do_sample=False,
-                                     return_decode_state=True)
+                                     spec_tokens=0, return_decode_state=True)
     assert state["cache"][0]["k"].dtype == torch.int8
     assert state["cache"][0]["k_scale"].dtype == torch.float32
 

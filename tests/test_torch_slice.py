@@ -114,7 +114,8 @@ def test_design_molecule_matches_jax(stacks):
         gen=JaxGen(max_new_tokens=12, do_sample=False, speculative_tokens=0))
     t_analysis, t_smiles = tm.design_molecule(
         ids, mask, props, gen=GenerationSettings(max_new_tokens=12,
-                                                 do_sample=False),
+                                                 do_sample=False,
+                                                 speculative_tokens=0),
         generator=torch.Generator().manual_seed(3))
 
     np.testing.assert_array_equal(t_analysis, np.asarray(j_analysis))
@@ -137,6 +138,7 @@ def test_design_molecule_matches_jax(stacks):
     tm.design_molecule(ids, mask, props,
                        gen=GenerationSettings(max_new_tokens=12,
                                               do_sample=False,
+                                              speculative_tokens=0,
                                               reuse_decode_cache=False))
     assert t_seen["hidden"] is None
     np.testing.assert_allclose(reforward[0].numpy(), j_hidden, atol=1e-4)
@@ -175,7 +177,8 @@ def test_design_molecule_on_an_int8_cache_matches_jax(stacks):
         gen=JaxGen(max_new_tokens=12, do_sample=False, speculative_tokens=0))
     t_analysis, _ = tm8.design_molecule(
         ids, mask, props, gen=GenerationSettings(max_new_tokens=12,
-                                                 do_sample=False),
+                                                 do_sample=False,
+                                                 speculative_tokens=0),
         generator=torch.Generator().manual_seed(3))
     np.testing.assert_array_equal(t_analysis, np.asarray(j_analysis))
     np.testing.assert_allclose(t_seen["hidden"].numpy(),
@@ -242,7 +245,8 @@ def test_design_with_spliced_molecules_matches_jax(stacks):
         jax.random.PRNGKey(0), ids, mask, props,
         gen=JaxGen(max_new_tokens=8, do_sample=False, speculative_tokens=0),
         molecule_batch=batch)
-    gen = GenerationSettings(max_new_tokens=8, do_sample=False)
+    gen = GenerationSettings(max_new_tokens=8, do_sample=False,
+                             speculative_tokens=0)
     got, _ = tm.design_molecule(ids, mask, props, gen=gen,
                                 molecule_batch=batch)
     np.testing.assert_array_equal(got, np.asarray(want))

@@ -426,3 +426,93 @@ def test_quantized_phase_gates_and_sizes():
     assert set(chip_smoke.QLORA_DEVIATIONS) == {
         "quantization_bit", "max_steps", "gradient_accumulation_steps"}
 
+
+
+# phase 15 (the other LLM families) at small sizes on the CPU: each
+# family's knobs at the tiny width (gemma-2 / 3 with a 16-token window, so
+# the 40-token prompt and the serving prompts cross it), the tiny slice's
+# graph modules
+_FAMILIES_CPU = {"prompts": 8, "greedy_tokens": 8, "spec_tokens": 2,
+                 "requests": 4, "max_new_tokens": 8, "retro_iterations": 1,
+                 "retro_max_time": 5.0, "long_prompt": 40,
+                 "long_prefill": 16, "long_steps": 4, "moe_layers": 2,
+                 "moe_tokens": 8, "train_batch": 2}
+
+
+def _family_cfgs():
+    from dataclasses import replace
+
+    from llamole_tpu_torch.models.gllm import LLMConfig
+
+    gemma = dict(hidden_act="gelu_tanh", rms_norm_unit_offset=True,
+                 scale_embeddings=True, tie_word_embeddings=True,
+                 sandwich_norms=True, query_scale=16.0, sliding_window=16)
+    tiny = LLMConfig.tiny()
+    return {"qwen3": replace(tiny, qk_norm=True, head_dim=16),
+            "gemma2": replace(tiny, attn_logit_softcap=50.0,
+                              final_logit_softcap=30.0, **gemma),
+            "gemma3": replace(tiny, qk_norm=True, num_layers=3,
+                              sliding_window_pattern=3,
+                              rope_local_base_freq=1e4,
+                              rope_scaling="linear", **gemma),
+            "mixtral": LLMConfig.tiny_moe()}
+
+
+def test_families_phase_runs_on_the_cpu(capsys):
+    """Phase 15 end to end at a small width in bf16: qwen3's cache and
+    drafts checks on both KV caches, gemma-2 answering 4 requests through
+    DesignServer, gemma-3's cache across its window and drafts off under
+    it, Mixtral's drops, checks and one loss + backward with the router
+    term."""
+    assert set(_FAMILIES_CPU) == set(chip_smoke.FAMILIES)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        launches = chip_smoke.run_families(
+            (), "CPU", device="cpu", sizes=_FAMILIES_CPU, build=_tiny_slice,
+            cfgs=_family_cfgs())
+    finally:
+        torch.set_num_threads(threads)
+    out = capsys.readouterr().out
+    assert launches == {"A": 0, "A_mma": 0, "A_fma": 0, "B": 0, "C": 0}
+    for line in ("qwen3 (compute KV cache): greedy decode",
+                 "qwen3 (int8 KV cache): greedy decode",
+                 "gemma-2 serving (bf16, compute-dtype KV cache): 4 answered",
+                 "gemma-3: 4 greedy steps on the 40-token prompt",
+                 "drafts off", "units dropped for capacity at prefill",
+                 "Mixtral loss + backward at batch 2"):
+        assert line in out, line
+
+
+def test_families_phase_sizes_are_the_presets():
+    """Phase 15 runs the presets at full size (counted on the meta device:
+    qwen3_8b 8.19B parameters, gemma2_9b 9.24B, gemma3_12b 11.77B; Mixtral
+    at 8 of 32 layers 11.87B, 23.7 GB in bf16 where all 32 take 93.4 GB),
+    a 1280-token prompt past gemma-3's 1024-token window, and phase 7's
+    serving settings."""
+    from dataclasses import replace
+
+    from llamole_tpu_torch.models.gllm import LLM, LLMConfig
+
+    sizes = chip_smoke.FAMILIES
+    assert sizes == {"prompts": 8, "greedy_tokens": 128, "spec_tokens": 2,
+                     "requests": 4, "max_new_tokens": 128,
+                     "retro_iterations": 100, "retro_max_time": 30.0,
+                     "long_prompt": 1280, "long_prefill": 1024,
+                     "long_steps": 32, "moe_layers": 8, "moe_tokens": 64,
+                     "train_batch": 2}
+    assert chip_smoke.CACHE_LOGIT_TOL == chip_smoke.MERGE_LOGIT_TOL
+
+    def count(cfg):
+        return sum(p.numel() for p in
+                   LLM(cfg, torch.bfloat16, "meta").parameters())
+
+    assert count(LLMConfig.qwen3_8b()) == 8190735360
+    assert count(LLMConfig.gemma2_9b()) == 9241705984
+    g3 = LLMConfig.gemma3_12b()
+    assert count(g3) == 11766034176
+    assert sizes["long_prompt"] > g3.sliding_window == sizes["long_prefill"]
+    assert sum(not g3.is_global_layer(i) for i in range(48)) == 40
+    mix = LLMConfig.mixtral_8x7b()
+    assert count(replace(mix, num_layers=8)) * 2 == 23744618496
+    assert count(mix) * 2 == 93405585408

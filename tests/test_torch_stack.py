@@ -49,7 +49,8 @@ SUPPORTED = {
     "mistral": {**_BASE, "model_type": "mistral", "rope_theta": 1e6,
                 "max_position_embeddings": 32768},
 }
-UNPORTED = {
+# the families the port runs since the qwen3 / gemma / Mixtral slice
+NEW_FAMILIES = {
     "gemma": {**_BASE, "model_type": "gemma", "hidden_act": "gelu",
               "head_dim": 16},
     "gemma2": {**_BASE, "model_type": "gemma2", "sliding_window": 4096,
@@ -73,16 +74,21 @@ def test_from_hf_config_equals_jax(family, tmp_path):
     assert dataclasses.asdict(got) == want
 
 
-@pytest.mark.parametrize("family", list(UNPORTED))
+@pytest.mark.parametrize("family", list(NEW_FAMILIES))
 def test_from_hf_config_of_unported_families_raises(family, tmp_path):
-    raw = UNPORTED[family]
-    assert (dataclasses.asdict(LLMConfig.from_hf_config(raw))
-            == dataclasses.asdict(JaxLLMConfig.from_hf_config(raw)))
-    with pytest.raises(NotImplementedError):
-        check_supported(LLMConfig.from_hf_config(raw))
+    """gemma-1/2, qwen3 and Mixtral configs resolve as in the JAX package
+    and build; what stays unported with them (S²-attn) raises."""
+    raw = NEW_FAMILIES[family]
+    want = dataclasses.asdict(JaxLLMConfig.from_hf_config(raw))
+    assert dataclasses.asdict(LLMConfig.from_hf_config(raw)) == want
+    check_supported(LLMConfig.from_hf_config(raw))
     (tmp_path / "config.json").write_text(json.dumps(raw))
-    with pytest.raises(NotImplementedError):
-        resolve_llm_config(SimpleNamespace(model_name_or_path=str(tmp_path)))
+    got = resolve_llm_config(SimpleNamespace(model_name_or_path=str(
+        tmp_path)))
+    assert dataclasses.asdict(got) == want
+    got.shift_attn = True
+    with pytest.raises(NotImplementedError, match="shift_attn"):
+        check_supported(got)
 
 
 @pytest.fixture(scope="module")
