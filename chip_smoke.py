@@ -140,7 +140,8 @@
    with one profiled run (decode_split); (e)
    quantize_denoiser_params on a copy of its GraphDiT: one forward within
    0.05 of bf16, a design batch of 8 at 100 steps on it (validity, A all
-   mma), ms per reverse step beside bf16's; (b) a bf16 8B LLM from a
+   mma), ms per reverse step beside bf16's; (b) a bf16 8B-width LLM
+   (24 of 32 layers since phase 16 joined) from a
    seed, rebuilt and quantized in place per scheme (int8, W8A8, int4):
    bytes (< 0.55x, 0.55x, 0.35x), every projection of the first and last
    layers and the head on the bf16 activations within the scheme's bound
@@ -156,7 +157,8 @@
    phase 9's.
 15. The LLM's other families at full width, after phase 14 on an emptied
    card (FAMILIES; bf16, random weights from seed 0, each model freed
-   before the next): (a) qwen3_8b (8.19B parameters): 8 prompts, 128
+   before the next; qwen3, gemma-2 and gemma-3 cut in depth to 9, 14
+   and 12 layers since phase 16 joined): (a) qwen3_8b: 8 prompts, 128
    greedy tokens per-token and with drafts (K=2), on the compute-dtype
    and on the int8 KV cache: tok/s each way, accepted drafts a verify
    step, the guard; the cache against the no-cache forward of prompt +
@@ -169,7 +171,7 @@
    at phase 7's settings: no "error", a "retro" block, A >= 28 x steps x
    design batches all mma, B >= 5 x (rounds + products), latencies and
    peak; (c) gemma3_12b on a 1280-token prompt: the cache against the
-   forward from slot 1024 on (past the 1024-token window of 40 of its 48
+   forward from slot 1024 on (past the 1024-token window of its sliding
    layers), and 32 greedy steps with drafts off (the auto rule under the
    window); (d) Mixtral at full width (4096 / 14336, 8 experts, top-2),
    8 of 32 layers: the units dropped for capacity at prefill and decode,
@@ -178,6 +180,26 @@
    backward at batch 2 (two training records, the router term in the LM
    loss, finite gradients on the attention LoRA and the connectors; B
    and C counted).
+16. The rest of training, after phase 15 on an emptied card (FINETUNE;
+   Llama-3.1-8B width, bf16, random weights from seed 0), each part
+   through run_mmsft with llama_lora.yaml's settings, 4 micro steps and
+   2 updates, no plain GIN call on the card: (a) DoRA + LoRA+ (ratio 16)
+   + shift_attn over phase 7's graph modules at 32 layers: finite
+   losses, m, the LoRA and the connectors changed and the base checksum
+   not, S²-attn in every layer of every training forward and never in
+   generation (s2_attention.calls), B >= 10 x 4 and C >= 4 x 4, each
+   micro step and the peak beside phase 9's; (b) PiSSA + DoRA through
+   the loader at pissa_layers: one SVD timed per projection shape, the
+   untrained last-token logits within MERGE_LOGIT_TOL of the unmodified
+   base's, the rank-16 export reloaded onto the original base through
+   build_graph_lm(load_adapter=True), within MERGE_LOGIT_TOL of the
+   trained model in f32 (in bf16 the gap is reported: two roundings of
+   one model); (c) GaLore (rank 16, interval 200, scale 0.25) with
+   full finetuning at galore_layers: its moments' bytes against AdamW's,
+   the refresh SVD at the embedding's shape, checkpoint-4 reloaded
+   bit-identically into a new Trainer; then BAdam (4 blocks, switching
+   every update) with full finetuning at badam_layers: only the active
+   block's leaves changed at each update.
 
 Prints, before the last line, one {"kernels": [...]} JSON line (per
 kernel: launches on the main path, max_abs_err, ms, plain_ms, device_ms,
@@ -193,7 +215,7 @@ launches_quantized, phase 14's: A's in its serving and int8-denoiser
 batch (per body too), B's in its serving and QLoRA training, C's in
 the latter; under launches_families, phase 15's: A's in the gemma-2
 serving (per body too), B's there and in the Mixtral loss, C's in the
-latter;
+latter; under launches_finetune, phase 16's B and C (its four runs);
 the last line is {"ok": true, "device": {...}}. Any
 failure exits non-zero.
 """
@@ -1547,8 +1569,9 @@ def _checksum(tensors) -> float:
 def run_training(model, tok, kernels, tag, out_dir):
     """Phase 9: run_mmsft at full width with llama_lora.yaml's settings,
     its output (the trained adapter and checkpoint-4) kept in out_dir for
-    phase 12. Returns the kernel-B and kernel-C launches of the run and
-    what checkpoint-4 saved (capture_checkpoints)."""
+    phase 12. Returns the kernel-B and kernel-C launches of the run, what
+    checkpoint-4 saved (capture_checkpoints), the peak, and the micro
+    steps' walls, tokens/s and the peak for phase 16."""
     from llamole_tpu_torch.train.workflow import run_mmsft
 
     fused, gin, gin_bwd = kernels[:3]
@@ -1657,7 +1680,11 @@ def run_training(model, tok, kernels, tag, out_dir):
           f"{metrics.get('eval_loss')}); peak memory {peak / 2**30:.2f} "
           f"GiB (torch.cuda.max_memory_allocated) [{tag}]", flush=True)
     profile_training_step(model, last_batch[0], tag)
-    return launches["B"], c_bodies, saved, f"{peak / 2**30:.2f} GiB"
+    walls = [st["forward_s"] + st["backward_s"] + st["optimizer_s"]
+             for st in steps]
+    phase9 = {"peak": f"{peak / 2**30:.2f} GiB", "step_s": walls,
+              "tok_s": [st["tokens"] / w for st, w in zip(steps, walls)]}
+    return launches["B"], c_bodies, saved, phase9["peak"], phase9
 
 
 def profile_training_step(model, batch, tag):
@@ -1942,22 +1969,12 @@ def run_stack(kernels, tag, device="cuda", sizes=None):
     from llamole_tpu_torch.models.graphdit import GraphDiT
     from llamole_tpu_torch.models.oracle import PropertyOracle
     from llamole_tpu_torch.models.retro import CostMLP, GraphPredictor
-    from llamole_tpu_torch.ops import gin_aggregate as G
     from llamole_tpu_torch.train import pretrain, stack
     from llamole_tpu_torch.train.workflow import run_mmsft
 
     sizes = sizes or STACK_SIZES
     on_card = device == "cuda"
     gin, gin_bwd = kernels[1:3] if on_card else (None, None)
-    plain_calls = [0]
-    references = (G.gin_aggregate_reference,
-                  G.gin_aggregate_backward_reference)
-
-    def counted(fn):
-        def call(*args):
-            plain_calls[0] += 1
-            return fn(*args)
-        return call
 
     def memory():
         return (torch.cuda.max_memory_allocated() / 2**30 if on_card
@@ -1980,70 +1997,70 @@ def run_stack(kernels, tag, device="cuda", sizes=None):
         saved, originals = _capture_saves((GraphDiT, GraphCLIP,
                                            GraphPredictor, CostMLP,
                                            PropertyOracle))
-        G.gin_aggregate_reference, G.gin_aggregate_backward_reference = (
-            counted(references[0]), counted(references[1]))
         launches = {"B": 0, "C": 0}
         try:
-            for stage, fn, out in (
-                    ("graphdit", pretrain.pretrain_graphdit, "graphdit"),
-                    ("predictor", pretrain.pretrain_predictor, "predictor"),
-                    ("cost_mlp", pretrain.pretrain_cost_mlp, "predictor"),
-                    ("graphclip", pretrain.pretrain_graphclip, "graphclip"),
-                    ("oracle", pretrain.pretrain_property_oracle,
-                     "oracle")):
-                kw = sizes[stage]
-                if on_card:
-                    torch.cuda.synchronize()
-                    torch.cuda.reset_peak_memory_stats()
-                    reset_counts(*kernels)
-                t0 = time.perf_counter()
-                m = fn(paths["corpus_train"], paths[out], seed=0,
-                       device=device, **kw)
-                if on_card:
-                    torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-                losses = np.asarray(m["losses"])
-                if len(losses) != kw["steps"] or not np.isfinite(
-                        losses).all():
-                    fail(f"{stage} pretraining losses {losses}")
-                line = (f"stack {stage}: {kw['steps']} steps in {wall:.2f} "
-                        f"s, loss first {losses[0]:.4f} last "
-                        f"{losses[-1]:.4f} (mean of the first 5 "
-                        f"{losses[:5].mean():.4f}, last 5 "
-                        f"{losses[-5:].mean():.4f}), peak "
-                        f"{memory():.2f} GiB")
-                if stage in STACK_FALLING and not (
-                        losses[-5:].mean() < losses[:5].mean()):
-                    fail(f"{stage} pretraining loss did not fall: {losses}")
-                if on_card and stage in STACK_GIN_LAYERS:
-                    layers = STACK_GIN_LAYERS[stage]
-                    layers = kw[layers] if isinstance(layers, str) else layers
-                    need = layers * kw["steps"]
-                    line += (f"; kernel B {gin.launches}, kernel C "
-                             f"{gin_bwd.launches} launches (need >= {need} "
-                             f"= {layers} layers x {kw['steps']} steps)")
-                    if min(gin.launches, gin_bwd.launches) < need:
-                        fail(f"{stage}: B {gin.launches} / C "
-                             f"{gin_bwd.launches} launches < {need}")
-                    launches["B"] += gin.launches
-                    launches["C"] += gin_bwd.launches
-                print(line + f" [{tag}]", flush=True)
-            large_n = _large_n_pretrain(records, d,
-                                        kernels if on_card else (), sizes,
-                                        device, tag)
-            if large_n:
-                launches["large_n"] = large_n
+            with plain_gin_calls(on_card) as plain_calls:
+                for stage, fn, out in (
+                        ("graphdit", pretrain.pretrain_graphdit, "graphdit"),
+                        ("predictor", pretrain.pretrain_predictor,
+                         "predictor"),
+                        ("cost_mlp", pretrain.pretrain_cost_mlp, "predictor"),
+                        ("graphclip", pretrain.pretrain_graphclip,
+                         "graphclip"),
+                        ("oracle", pretrain.pretrain_property_oracle,
+                         "oracle")):
+                    kw = sizes[stage]
+                    if on_card:
+                        torch.cuda.synchronize()
+                        torch.cuda.reset_peak_memory_stats()
+                        reset_counts(*kernels)
+                    t0 = time.perf_counter()
+                    m = fn(paths["corpus_train"], paths[out], seed=0,
+                           device=device, **kw)
+                    if on_card:
+                        torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                    losses = np.asarray(m["losses"])
+                    if len(losses) != kw["steps"] or not np.isfinite(
+                            losses).all():
+                        fail(f"{stage} pretraining losses {losses}")
+                    line = (f"stack {stage}: {kw['steps']} steps in "
+                            f"{wall:.2f} "
+                            f"s, loss first {losses[0]:.4f} last "
+                            f"{losses[-1]:.4f} (mean of the first 5 "
+                            f"{losses[:5].mean():.4f}, last 5 "
+                            f"{losses[-5:].mean():.4f}), peak "
+                            f"{memory():.2f} GiB")
+                    if stage in STACK_FALLING and not (
+                            losses[-5:].mean() < losses[:5].mean()):
+                        fail(f"{stage} pretraining loss did not fall: "
+                             f"{losses}")
+                    if on_card and stage in STACK_GIN_LAYERS:
+                        layers = STACK_GIN_LAYERS[stage]
+                        if isinstance(layers, str):
+                            layers = kw[layers]
+                        need = layers * kw["steps"]
+                        line += (f"; kernel B {gin.launches}, kernel C "
+                                 f"{gin_bwd.launches} launches (need >= "
+                                 f"{need} "
+                                 f"= {layers} layers x {kw['steps']} steps)")
+                        if min(gin.launches, gin_bwd.launches) < need:
+                            fail(f"{stage}: B {gin.launches} / C "
+                                 f"{gin_bwd.launches} launches < {need}")
+                        launches["B"] += gin.launches
+                        launches["C"] += gin_bwd.launches
+                    print(line + f" [{tag}]", flush=True)
+                large_n = _large_n_pretrain(records, d,
+                                            kernels if on_card else (), sizes,
+                                            device, tag)
+                if large_n:
+                    launches["large_n"] = large_n
         finally:
             for cls, orig in originals.items():
                 cls.save_pretrained = orig
-            (G.gin_aggregate_reference,
-             G.gin_aggregate_backward_reference) = references
         print(f"stack pretraining: kernel B {launches['B']}, kernel C "
               f"{launches['C']} launches; plain-version calls "
               f"{plain_calls[0]} [{tag}]", flush=True)
-        if on_card and plain_calls[0]:
-            fail(f"the pretraining path called a plain GIN version "
-                 f"{plain_calls[0]} times on the card")
 
         _reload_identical(saved, paths, records, device, tag)
         del saved
@@ -2138,6 +2155,7 @@ def capture_checkpoints():
             "params": _snapshot(self.params), "count": opt.count,
             "mini_step": opt.mini_step, "step": state.step,
             **{k: _snapshot(getattr(opt, k)) for k in ("mu", "nu", "acc")},
+            "proj": _snapshot(getattr(opt, "proj", {})),
             "generator": state.generator.get_state().clone(),
             "args": self.args, "updates": self.num_training_steps}
 
@@ -2512,9 +2530,12 @@ def _peak(on_card) -> str:
 # requests (the first asking for a route) through DesignServer with phase
 # 7's generation and retro settings; then the three schemes, the int8 KV
 # cache, LoRA over the int8 base through run_mmsft and the int8 denoiser
+# (b)'s LLM runs 24 of the 32 layers (since phase 16 joined, to keep the
+# script in its time limit; its bytes stay under BYTES_BOUNDS there: int8
+# 0.542x, int4 0.327x of the bf16 LLM's)
 QUANTIZED = {"requests": 4, "max_new_tokens": 128, "retro_iterations": 100,
              "retro_max_time": 30.0, "prefill_batch": 8, "decode_tokens": 32,
-             "train_steps": 2, "design_batch": 8}
+             "train_steps": 2, "design_batch": 8, "scheme_layers": 24}
 # Bounds, from the CPU tests of the same scheme: int8 0.05, W8A8 0.10 and
 # int4 0.15 (tests/test_quantize.py's bounds for the three schemes), the
 # int8 KV cache 0.02 (tests/test_llm.py's one-step logit fidelity), the
@@ -2986,15 +3007,21 @@ def run_schemes(cfg, tok, device, sizes, tag):
     return out
 
 
+def llama_lora_dict(out_dir):
+    """llama_lora_args' settings as the dict get_train_args reads,
+    llama_lora.yaml's method and precision keys included."""
+    args = {k: v for g in llama_lora_args(out_dir) for k, v in vars(g).items()}
+    args.update(stage="mmsft", do_train=True, lora_target="all", bf16=True,
+                pure_bf16=True)
+    return args
+
+
 def qlora_args(out_dir, sizes):
     """llama_lora_args' settings with QLORA_DEVIATIONS, as the dict
     get_train_args reads (llama_lora.yaml's method and precision keys
     included)."""
-    groups = llama_lora_args(out_dir)
-    args = {k: v for g in groups for k, v in vars(g).items()}
-    args.update(stage="mmsft", do_train=True, lora_target="all", bf16=True,
-                pure_bf16=True, quantization_bit=8,
-                gradient_accumulation_steps=1,
+    args = llama_lora_dict(out_dir)
+    args.update(quantization_bit=8, gradient_accumulation_steps=1,
                 max_steps=sizes["train_steps"])
     args.update({k: sizes[k] for k in ("model_name_or_path",) if k in sizes})
     return args
@@ -3090,7 +3117,9 @@ def run_quantized(kernels, tag, device="cuda", sizes=None, build=None,
     if on_card:
         torch.cuda.empty_cache()
     check_int_mm(device, llm_cfg, tag)
-    schemes = run_schemes(llm_cfg, offline_tokenizer(), device, sizes, tag)
+    schemes = run_schemes(
+        dataclasses.replace(llm_cfg, num_layers=sizes["scheme_layers"]),
+        offline_tokenizer(), device, sizes, tag)
     if on_card:
         torch.cuda.empty_cache()
     work = tempfile.mkdtemp(prefix="chip_smoke_qlora_")
@@ -3117,12 +3146,16 @@ def run_quantized(kernels, tag, device="cuda", sizes=None, build=None,
 # full width (4096 / 14336, 8 experts, top-2), 8 of its 32 layers (46.7B
 # parameters take 93 GB in bf16, and no expert is quantized): the cache
 # against the forward, 64 greedy tokens without and with drafts, the
-# capacity drops, one loss and backward at batch 2 with the router term
+# capacity drops, one loss and backward at batch 2 with the router term.
+# Since phase 16 joined (the script's time limit) qwen3 runs 9 of
+# its 36 layers, gemma-2 14 of 42 and gemma-3 12 of 48 (10 of them
+# windowed), all at full width
 FAMILIES = {"prompts": 8, "greedy_tokens": 128, "spec_tokens": 2,
             "requests": 4, "max_new_tokens": 128, "retro_iterations": 100,
             "retro_max_time": 30.0, "long_prompt": 1280,
             "long_prefill": 1024, "long_steps": 32, "moe_layers": 8,
-            "moe_tokens": 64, "train_batch": 2}
+            "moe_tokens": 64, "train_batch": 2, "qwen3_layers": 9,
+            "gemma2_layers": 14, "gemma3_layers": 12}
 # The cache-against-forward tolerance: max |cached - forward| over max
 # |forward| of the logits at every teacher-forced slot, in bf16: phase 12's
 # bound for two bf16 computations of the same logits (MERGE_LOGIT_TOL).
@@ -3287,7 +3320,8 @@ def run_qwen3(tok, tag, device="cuda", sizes=None, cfg=None):
     from llamole_tpu_torch.models.gllm import LLMConfig
 
     sizes = sizes or FAMILIES
-    cfg = cfg or LLMConfig.qwen3_8b()
+    cfg = cfg or dataclasses.replace(LLMConfig.qwen3_8b(),
+                                     num_layers=sizes["qwen3_layers"])
     t0 = time.perf_counter()
     llm = family_llm(cfg, device)
     print(f"qwen3 LLM ({sum(p.numel() for p in llm.parameters())} "
@@ -3333,7 +3367,8 @@ def run_gemma3(tok, tag, device="cuda", sizes=None, cfg=None):
     from llamole_tpu_torch.models.gllm import LLMConfig
 
     sizes = sizes or FAMILIES
-    cfg = cfg or LLMConfig.gemma3_12b()
+    cfg = cfg or dataclasses.replace(LLMConfig.gemma3_12b(),
+                                     num_layers=sizes["gemma3_layers"])
     llm = family_llm(cfg, device)
     n, steps = sizes["long_prompt"], sizes["long_steps"]
     ids, mask = long_prompt(tok, n, device)
@@ -3553,7 +3588,8 @@ def run_families(kernels, tag, device="cuda", sizes=None, build=None,
     freed()
     print(f"phase 15 (a) qwen3: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    llm = family_llm(cfgs.get("gemma2") or LLMConfig.gemma2_9b(), device)
+    llm = family_llm(cfgs.get("gemma2") or dataclasses.replace(
+        LLMConfig.gemma2_9b(), num_layers=sizes["gemma2_layers"]), device)
     model, stok = build(llm)
     del llm
     served = serve_quantized(model, stok, kernels, tag, sizes, phase7,
@@ -3577,6 +3613,538 @@ def run_families(kernels, tag, device="cuda", sizes=None, build=None,
     return {"A": served["A"], "A_mma": served["A_mma"],
             "A_fma": served["A_fma"], "B": served["B"] + trained["B"],
             "C": trained["C"]}
+
+
+# Phase 16, the rest of training (after phase 15, on an emptied card), at
+# the slice's Llama-3.1-8B width (bf16, random weights from seed 0): each
+# part runs run_mmsft through its normal entry with llama_lora.yaml's
+# settings and TRAIN_DEVIATIONS, 4 micro steps and 2 updates. (a) DoRA +
+# LoRA+ + shift_attn over phase 7's graph modules, (b) PiSSA + DoRA, (c)
+# GaLore and then BAdam with finetuning_type full; (b) and (c) build
+# through the loader (its random-init graph modules) from a config.json of
+# the 8B width at their depths, whose base the loader draws again from the
+# seed when it reloads an export.
+FINETUNE = {"dora_layers": 32, "pissa_layers": 2, "galore_layers": 2,
+            "badam_layers": 4, "loraplus_lr_ratio": 16.0, "galore_rank": 16,
+            "galore_update_interval": 200, "galore_scale": 0.25,
+            "badam_n_blocks": 4, "badam_switch_interval": 1}
+# (b)'s export is rank 2r: llama_lora.yaml's rank 8
+PISSA_EXPORT_RANK = 16
+
+
+def finetune_args(out_dir, model_dir=None, **finetuning):
+    """llama_lora_args' settings (TRAIN_DEVIATIONS; llama_lora.yaml's
+    method and precision keys included) with these finetuning arguments
+    and, when given, the LLM's config directory, through get_train_args."""
+    from llamole_tpu_torch.config import get_train_args
+
+    args = llama_lora_dict(out_dir)
+    args.update(finetuning)
+    if model_dir is not None:
+        args["model_name_or_path"] = model_dir
+    return get_train_args(args)
+
+
+def llm_config_dir(work, cfg, name):
+    """A directory holding cfg's config.json and no weights: the loader
+    resolves the config from it and draws the LLM from the seed."""
+    from llamole_tpu_torch.models.gllm.convert import to_hf_config
+
+    path = os.path.join(work, name)
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(to_hf_config(cfg), f)
+    return path
+
+
+def _last_logits(model, tok, device):
+    """The LLM's last-token logits (f32) of phase 12's PROMPT."""
+    ids = torch.tensor([tok.encode(PROMPT)], device=device)
+    with torch.no_grad():
+        logits, _, _ = model.llm(input_ids=ids,
+                                 attention_mask=torch.ones_like(ids),
+                                 last_logits_only=True)
+    return logits[:, -1].float()
+
+
+def _logit_gap(got, want) -> float:
+    return float((got - want).abs().max() / want.abs().max())
+
+
+@contextlib.contextmanager
+def plain_gin_calls(on_card):
+    """Counts the calls of the GIN plain versions (G.*_reference) inside
+    the block: on the card the path must launch kernels B and C only."""
+    from llamole_tpu_torch.ops import gin_aggregate as G
+
+    calls = [0]
+    refs = (G.gin_aggregate_reference, G.gin_aggregate_backward_reference)
+
+    def counted(fn):
+        def call(*args):
+            calls[0] += 1
+            return fn(*args)
+        return call
+
+    G.gin_aggregate_reference, G.gin_aggregate_backward_reference = (
+        counted(refs[0]), counted(refs[1]))
+    try:
+        yield calls
+    finally:
+        G.gin_aggregate_reference, G.gin_aggregate_backward_reference = refs
+    if on_card and calls[0]:
+        fail(f"the path called a plain GIN version {calls[0]} times on the "
+             "card")
+
+
+def _train_log(out_dir, steps, what):
+    with open(Path(out_dir) / "trainer_log.jsonl") as f:
+        log = [json.loads(line) for line in f]
+    if len(log) != steps:
+        fail(f"{what}: {len(log)} logged micro steps, expected {steps}")
+    for rec in log:
+        if not all(np.isfinite([rec[k] for k in (
+                "loss", "lm_loss", "design_loss", "retro_loss",
+                "grad_norm")])):
+            fail(f"{what}: non-finite loss in {rec}")
+    return log
+
+
+def _step_report(metrics, log, what, tag, beside=""):
+    for i, (st, rec) in enumerate(zip(metrics["step_times"], log)):
+        total = st["forward_s"] + st["backward_s"] + st["optimizer_s"]
+        print(f"{what} micro step {i + 1}: {st['tokens']} tokens, wall "
+              f"{total:.3f} s = forward {st['forward_s']:.3f} + backward "
+              f"{st['backward_s']:.3f} + optimizer {st['optimizer_s']:.3f};"
+              f" {st['tokens'] / total:.1f} tok/s; loss {rec['loss']:.4f}"
+              f"{beside} [{tag}]", flush=True)
+
+
+def run_dora(kernels, tag, device, sizes, build, phase9):
+    """Phase 16 (a): DoRA + LoRA+ + shift_attn over phase 7's graph
+    modules. Returns the B and C launches of run_mmsft."""
+    from llamole_tpu_torch.models.gllm import LLMConfig
+    from llamole_tpu_torch.models.gllm.model import s2_attention
+    from llamole_tpu_torch.train.workflow import run_mmsft
+
+    cfg = dataclasses.replace(sizes.get("cfg") or LLMConfig.llama3_8b(),
+                              num_layers=sizes["dora_layers"],
+                              shift_attn=True)
+    llm = family_llm(cfg, device)
+    model, tok = build(llm)
+    del llm
+    model.use_dora = True
+    model.init_pissa_dora()          # init_trainable's DoRA step: m = ||W||
+    cfg = model.llm.cfg
+    params = model.trainable_parameters()
+    start = _snapshot(params)
+    base = [p for n, p in model.llm.named_parameters() if "lora_" not in n]
+    base_sum = _checksum(base)
+    s2 = {"training": 0, "eval": 0, "generation": 0}
+    loss, generate = model.loss, model.llm.generate
+
+    def watched(batch, generator=None, train=True, noisy=None):
+        c0 = s2_attention.calls
+        out = loss(batch, generator, train, noisy)
+        s2["training" if train else "eval"] += s2_attention.calls - c0
+        return out
+
+    def generating(*args, **kwargs):
+        c0 = s2_attention.calls
+        out = generate(*args, **kwargs)
+        s2["generation"] += s2_attention.calls - c0
+        return out
+
+    model.loss, model.llm.generate = watched, generating
+    args = finetune_args(os.path.join(sizes["work"], "dora"), use_dora=True,
+                         loraplus_lr_ratio=sizes["loraplus_lr_ratio"])
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    reset_counts(*kernels)
+    try:
+        t0 = time.perf_counter()
+        metrics = run_mmsft(*args, prebuilt=(model, tok))
+        wall = time.perf_counter() - t0
+    finally:
+        del model.loss, model.llm.generate
+    peak = _peak(device == "cuda")
+    launches = ({"B": kernels[1].launches, "C": kernels[2].launches}
+                if device == "cuda" else {"B": 0, "C": 0})
+    log = _train_log(args[2].output_dir, 4, "DoRA")
+    # B starts at 0, so A's gradient is 0 until the first nonzero update
+    # moves B: "the LoRA" is A and B together, as in phase 9
+    groups = {"m": ("lora_m",), "LoRA": ("lora_a", "lora_b"),
+              "connectors": ("connectors.",)}
+    unchanged = [g for g, keys in groups.items()
+                 if not any(not torch.equal(params[n], start[n])
+                            for n in params if any(k in n for k in keys))]
+    if unchanged or not any("lora_m" in n for n in params):
+        fail(f"DoRA: unchanged after the second update: {unchanged}")
+    if _checksum(base) != base_sum:
+        fail("DoRA: the frozen base changed in training")
+    need = cfg.num_layers * 4
+    print(f"S²-attn calls (shift_attn, groups of a quarter of the "
+          f"sequence): in the training forwards {s2['training']} (need "
+          f"{need} = {cfg.num_layers} layers "
+          f"x 4 micro steps), in generation {s2['generation']} (need 0), in "
+          f"the held-out loss {s2['eval']} (JAX's loss_fn hands its LLM "
+          f"train=True too) [{tag}]", flush=True)
+    if s2["training"] != need or s2["generation"]:
+        fail(f"S²-attn ran {s2} times, expected {need} in training and none "
+             "in generation")
+    if device == "cuda":
+        check_launches("gin_aggregate_backward (DoRA training)",
+                       launches["C"], (GIN_LAYERS - 1) * 4,
+                       f"{GIN_LAYERS - 1} predictor layers x 4 micro steps")
+        check_launches("gin_aggregate (DoRA training)", launches["B"],
+                       2 * GIN_LAYERS * 4,
+                       f"({GIN_LAYERS} GraphCLIP + {GIN_LAYERS} predictor "
+                       "layers) x 4")
+    beside = ""
+    if phase9:
+        beside = (f"; phase 9 in this run: {min(phase9['step_s']):.3f}"
+                  f"-{max(phase9['step_s']):.3f} s a step, "
+                  f"{min(phase9['tok_s']):.1f}-{max(phase9['tok_s']):.1f} "
+                  "tok/s")
+    _step_report(metrics, log, "DoRA", tag, beside)
+    print(f"phase 16 (a) DoRA + LoRA+ ({sizes['loraplus_lr_ratio']}) + "
+          f"shift_attn at {cfg.num_layers} layers: run_mmsft {wall:.3f} s, "
+          f"m, the LoRA and the connectors changed, the base checksum "
+          f"{base_sum} unchanged; B {launches['B']}, C {launches['C']} "
+          f"launches; peak {peak}"
+          + (f" against phase 9's {phase9['peak']} in this run"
+             if phase9 else "") + f" [{tag}]", flush=True)
+    del model, tok, params, start, base
+    return launches
+
+
+def svd_seconds(shapes, device):
+    """One f32 torch.linalg.svd (full_matrices=False) of a random matrix of
+    each shape, timed between synchronizations."""
+    gen = torch.Generator(device=device).manual_seed(3)
+    out = {}
+    for shape in shapes:
+        w = torch.randn(shape, device=device, generator=gen)
+        _sync_card()
+        t0 = time.perf_counter()
+        torch.linalg.svd(w, full_matrices=False)
+        _sync_card()
+        out[shape] = time.perf_counter() - t0
+        del w
+    return out
+
+
+def run_pissa(kernels, tag, device, sizes):
+    """Phase 16 (b): PiSSA + DoRA through the loader at pissa_layers of
+    the 8B width, once with the LLM in bf16 and once in f32. Each: the
+    composite's last-token logits before training against the unmodified
+    base's, run_mmsft, the export's rank, and the export reloaded onto
+    the original base through build_graph_lm(load_adapter=True) against
+    the trained model. In bf16 the in-memory base is PiSSA's residual
+    rounded to bf16 (as in JAX) and the reloaded one the original
+    weights, two roundings of one f32 model that training pulls apart
+    (PERF.md §6), so the reload is held to MERGE_LOGIT_TOL in f32,
+    where both are the same model, and its bf16 gap is reported."""
+    from llamole_tpu_torch.models.gllm import LLMConfig
+
+    cfg = dataclasses.replace(sizes.get("cfg") or LLMConfig.llama3_8b(),
+                              num_layers=sizes["pissa_layers"])
+    h, inter, kv = (cfg.hidden_size, cfg.intermediate_size,
+                    cfg.num_kv_heads * cfg.head_dim_)
+    svd = svd_seconds(sorted({(h, h), (h, kv), (h, inter), (inter, h)}),
+                      device)
+    print("PiSSA: one f32 torch.linalg.svd a projection shape ([in, out]): "
+          + ", ".join(f"{s[0]} x {s[1]} {t:.3f} s" for s, t in svd.items())
+          + f"; {7 * cfg.num_layers} projections [{tag}]", flush=True)
+    model_dir = llm_config_dir(sizes["work"], cfg, "pissa_llm")
+    launches = {"B": 0, "C": 0}
+    for dtype in ("bfloat16", "float32"):
+        got = _pissa_export(kernels, tag, device, sizes, model_dir, dtype)
+        for k in launches:
+            launches[k] += got[k]
+    return launches
+
+
+def _pissa_export(kernels, tag, device, sizes, model_dir, dtype):
+    """One dtype of run_pissa; returns run_mmsft's B and C launches."""
+    from llamole_tpu_torch.models.loader import build_graph_lm
+    from llamole_tpu_torch.train.workflow import run_mmsft
+    from llamole_tpu_torch.utils.serialization import load_pytree
+
+    out_dir = os.path.join(sizes["work"], f"pissa_{dtype}")
+    plain = finetune_args(out_dir, model_dir)
+    args = finetune_args(out_dir, model_dir, use_dora=True, pissa_init=True)
+    for group in (plain, args):
+        group[0].compute_dtype = dtype
+    seed = args[2].seed
+    base, tok = build_graph_lm(*plain[:2], plain[3], device=device,
+                               seed=seed)
+    want = _last_logits(base, tok, device)
+    del base
+    gc.collect()
+    _sync_card()
+    t0 = time.perf_counter()
+    model, tok = build_graph_lm(*args[:2], args[3], device=device, seed=seed)
+    _sync_card()
+    built = time.perf_counter() - t0
+    gap = _logit_gap(_last_logits(model, tok, device), want)
+    print(f"PiSSA + DoRA build in {dtype} (the SVDs, the residual base, m): "
+          f"{built:.3f} s; last-token logits before training {gap:.3e} of "
+          f"the largest from the unmodified base's (bound "
+          f"{MERGE_LOGIT_TOL}) [{tag}]", flush=True)
+    if not gap < MERGE_LOGIT_TOL:
+        fail(f"PiSSA + DoRA ({dtype}) changed the untrained logits by {gap}")
+    reset_counts(*kernels)
+    metrics = run_mmsft(*args, prebuilt=(model, tok))
+    launches = ({"B": kernels[1].launches, "C": kernels[2].launches}
+                if device == "cuda" else {"B": 0, "C": 0})
+    _train_log(out_dir, 4, f"PiSSA ({dtype})")
+    trained = _last_logits(model, tok, device)
+    moved = _logit_gap(trained, want)
+    del model
+    gc.collect()
+    adapter = load_pytree(os.path.join(out_dir, "adapter.msgpack"))
+    q = adapter["layers"][0]["attn"]["q"]
+    rank = int(q["a"].shape[1])
+    if rank != PISSA_EXPORT_RANK or "m" not in q:
+        fail(f"the PiSSA export has rank {rank} (expected "
+             f"{PISSA_EXPORT_RANK}) and keys {sorted(q)}")
+    m2 = dataclasses.replace(args[0], adapter_name_or_path=out_dir)
+    reloaded, tok = build_graph_lm(m2, args[1], args[3], device=device,
+                                   seed=seed, load_adapter=True)
+    gap2 = _logit_gap(_last_logits(reloaded, tok, device), trained)
+    del reloaded
+    gc.collect()
+    held = dtype == "float32"
+    print(f"phase 16 (b) PiSSA + DoRA in {dtype} at "
+          f"{len(adapter['layers'])} layers: {metrics['train_steps']} micro "
+          f"steps (the logits moved {moved:.3e} of the largest from the "
+          f"base's); adapter.msgpack rank {rank} with m; reloaded onto the "
+          f"original base through build_graph_lm(load_adapter=True): "
+          f"last-token logits {gap2:.3e} of the largest from the trained "
+          f"model's" + (f" (bound {MERGE_LOGIT_TOL})" if held else
+                        " (two bf16 roundings of one model; held in f32)")
+          + f" [{tag}]", flush=True)
+    if held and not gap2 < MERGE_LOGIT_TOL:
+        fail(f"the PiSSA export reloaded {gap2} away in {dtype}")
+    return launches
+
+
+def _state_bytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def run_galore(kernels, tag, device, sizes):
+    """Phase 16 (c), GaLore with full finetuning at galore_layers: the
+    moments' bytes against AdamW's, the refresh SVD at the embedding's
+    shape, and checkpoint-4's opt_state reloaded bit-identically into a
+    new Trainer."""
+    from llamole_tpu_torch.models.gllm import LLMConfig
+    from llamole_tpu_torch.models.loader import build_graph_lm
+    from llamole_tpu_torch.train.optimizers import galore_basis
+    from llamole_tpu_torch.train.trainer import Trainer
+    from llamole_tpu_torch.train.workflow import run_mmsft
+
+    cfg = dataclasses.replace(sizes.get("cfg") or LLMConfig.llama3_8b(),
+                              num_layers=sizes["galore_layers"])
+    out_dir = os.path.join(sizes["work"], "galore")
+    args = finetune_args(
+        out_dir, llm_config_dir(sizes["work"], cfg, "galore_llm"),
+        finetuning_type="full", use_galore=True,
+        galore_rank=sizes["galore_rank"],
+        galore_update_interval=sizes["galore_update_interval"],
+        galore_scale=sizes["galore_scale"])
+    model, tok = build_graph_lm(*args[:2], args[3], device=device,
+                                seed=args[2].seed)
+    reset_counts(*kernels)
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    last_batch, loss = [], model.loss
+
+    def watched(batch, generator=None, train=True, noisy=None):
+        if train:
+            last_batch[:] = [batch]
+        return loss(batch, generator, train, noisy)
+
+    model.loss = watched
+    try:
+        with capture_checkpoints() as saved:
+            t0 = time.perf_counter()
+            metrics = run_mmsft(*args, prebuilt=(model, tok))
+            wall = time.perf_counter() - t0
+    finally:
+        del model.loss
+    peak = _peak(device == "cuda")
+    launches = ({"B": kernels[1].launches, "C": kernels[2].launches}
+                if device == "cuda" else {"B": 0, "C": 0})
+    log = _train_log(out_dir, 4, "GaLore")
+    params = model.trainable_parameters()
+    rec = saved["checkpoint-4"]
+    trainer = Trainer(lambda batch, gen: None, params,
+                      SimpleNamespace(**{**vars(rec["args"]),
+                                         "output_dir": None}),
+                      rec["updates"], finetuning_args=args[3])
+    state = trainer.load_checkpoint(trainer.init_state(1), os.path.join(
+        out_dir, "checkpoint-4"))
+    opt = trainer.optimizer
+    bad = [n for n in params if not torch.equal(params[n], rec["params"][n])]
+    bad += [f"{k}:{n}" for k in ("mu", "nu", "acc", "proj")
+            for n, t in getattr(opt, k).items()
+            if not torch.equal(t, rec[k][n])]
+    bad += [k for k, a, b in (("count", opt.count, rec["count"]),
+                              ("mini_step", opt.mini_step, rec["mini_step"]),
+                              ("step", state.step, rec["step"])) if a != b]
+    if bad:
+        fail(f"GaLore's checkpoint-4 did not reload bit-identically: "
+             f"{bad[:3]}")
+    low = sorted(opt.galore_names)
+    moments = _state_bytes([*opt.mu.values(), *opt.nu.values()])
+    adamw = 2 * _state_bytes(params.values())
+    # the refresh at the embedding, on its gradient of the last batch
+    # (rows zero but for the batch's tokens)
+    embed = model.llm.embed.weight
+    model.loss(last_batch[0], torch.Generator(device=device).manual_seed(0)
+               )[0].backward()
+    grad = embed.grad
+    for p in params.values():
+        p.grad = None
+    _sync_card()
+    t0 = time.perf_counter()
+    galore_basis(grad, sizes["galore_rank"])
+    _sync_card()
+    refresh = time.perf_counter() - t0
+    del grad
+    _step_report(metrics, log, "GaLore", tag)
+    print(f"phase 16 (c) GaLore (rank {sizes['galore_rank']}, interval "
+          f"{sizes['galore_update_interval']}, scale {sizes['galore_scale']})"
+          f", full finetuning at {cfg.num_layers} layers: run_mmsft "
+          f"{wall:.3f} s; {len(low)} of {len(params)} leaves projected; "
+          f"Adam moments {moments} bytes against AdamW's {adamw} "
+          f"({moments / adamw:.4f}); refresh SVD of the embedding's "
+          f"gradient [{embed.shape[0]}, {embed.shape[1]}] {refresh:.3f} s "
+          f"({'gesvd' if device == 'cuda' else 'LAPACK'}); checkpoint-4 "
+          f"(count {opt.count}, "
+          f"{len(low)} bases) reloaded bit-identically into a new Trainer; "
+          f"B {launches['B']}, C {launches['C']} launches; peak {peak} "
+          f"[{tag}]", flush=True)
+    del model, trainer, opt, params, saved, rec
+    return launches
+
+
+def run_badam(kernels, tag, device, sizes):
+    """Phase 16 (c), BAdam with full finetuning at badam_layers: only the
+    active block's leaves change at each update (the first update's
+    learning rate is 0: nothing changes)."""
+    from llamole_tpu_torch.models.gllm import LLMConfig
+    from llamole_tpu_torch.models.loader import build_graph_lm
+    from llamole_tpu_torch.train.optimizers import badam_blocks
+    from llamole_tpu_torch.train.workflow import run_mmsft
+
+    cfg = dataclasses.replace(sizes.get("cfg") or LLMConfig.llama3_8b(),
+                              num_layers=sizes["badam_layers"])
+    out_dir = os.path.join(sizes["work"], "badam")
+    args = finetune_args(
+        out_dir, llm_config_dir(sizes["work"], cfg, "badam_llm"),
+        finetuning_type="full", use_badam=True,
+        badam_n_blocks=sizes["badam_n_blocks"],
+        badam_switch_interval=sizes["badam_switch_interval"])
+    model, tok = build_graph_lm(*args[:2], args[3], device=device,
+                                seed=args[2].seed)
+    params = model.trainable_parameters()
+    block = badam_blocks(params, sizes["badam_n_blocks"])
+    seen = []
+    loss = model.loss
+
+    def watched(batch, generator=None, train=True, noisy=None):
+        if train and len(seen) in (0, 2):      # before updates 1 and 2
+            seen.append(_snapshot(params))
+        elif train:
+            seen.append(None)
+        return loss(batch, generator, train, noisy)
+
+    model.loss = watched
+    reset_counts(*kernels)
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    try:
+        t0 = time.perf_counter()
+        metrics = run_mmsft(*args, prebuilt=(model, tok))
+        wall = time.perf_counter() - t0
+    finally:
+        del model.loss
+    peak = _peak(device == "cuda")
+    launches = ({"B": kernels[1].launches, "C": kernels[2].launches}
+                if device == "cuda" else {"B": 0, "C": 0})
+    log = _train_log(out_dir, 4, "BAdam")
+    moved = []
+    for i, (before, after) in enumerate(((seen[0], seen[2]),
+                                         (seen[2], _snapshot(params)))):
+        changed = {n for n in params if not torch.equal(before[n], after[n])}
+        active = (i // sizes["badam_switch_interval"]) % sizes[
+            "badam_n_blocks"]
+        outside = sorted(n for n in changed if block[n] != active)
+        moved.append((active, len(changed), sum(
+            b == active for b in block.values())))
+        if outside:
+            fail(f"BAdam update {i + 1} (active block {active}) changed "
+                 f"{len(outside)} leaves of other blocks: {outside[:3]}")
+    if not moved[1][1]:
+        fail("BAdam: the second update changed nothing")
+    _step_report(metrics, log, "BAdam", tag)
+    print(f"phase 16 (c) BAdam ({sizes['badam_n_blocks']} blocks, switch "
+          f"every {sizes['badam_switch_interval']}), full finetuning at "
+          f"{cfg.num_layers} layers: run_mmsft {wall:.3f} s; (active block, "
+          f"leaves changed, leaves in the block) per update {moved} (update "
+          f"1's learning rate is 0); B {launches['B']}, C {launches['C']} "
+          f"launches; peak {peak} [{tag}]", flush=True)
+    del model, params, seen
+    return launches
+
+
+def run_finetune(kernels, tag, device="cuda", sizes=None, build=None,
+                 phase9=None):
+    """Phase 16 on an empty card: (a) run_dora, (b) run_pissa, (c)
+    run_galore then run_badam, each model freed before the next. Returns
+    the B and C launches of the four runs together (the fallback
+    predictor's in (b) and (c))."""
+    sizes = dict(sizes or FINETUNE)
+    build = build or build_slice
+    on_card = device == "cuda"
+    total = {"B": 0, "C": 0}
+
+    def freed():
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_finetune_")
+    sizes["work"] = work
+    try:
+        with plain_gin_calls(on_card) as plain:
+            for part, fn in (
+                    ("(a) DoRA", lambda: run_dora(kernels, tag, device, sizes,
+                                                  build, phase9)),
+                    ("(b) PiSSA", lambda: run_pissa(kernels, tag, device,
+                                                    sizes)),
+                    ("(c) GaLore", lambda: run_galore(kernels, tag, device,
+                                                      sizes)),
+                    ("(c) BAdam", lambda: run_badam(kernels, tag, device,
+                                                    sizes))):
+                t0 = time.perf_counter()
+                got = fn()
+                freed()
+                for k in total:
+                    total[k] += got[k]
+                print(f"phase 16 {part}: {time.perf_counter() - t0:.1f} s",
+                      flush=True)
+        print(f"phase 16: kernel B {total['B']}, kernel C {total['C']} "
+              f"launches; plain GIN calls {plain[0]} [{tag}]", flush=True)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return total
 
 
 def main() -> int:
@@ -3635,7 +4203,7 @@ def main() -> int:
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         train_dir = os.path.join(work, "mmsft")
-        b_training, c_training, saved, train_peak = run_training(
+        b_training, c_training, saved, train_peak, phase9 = run_training(
             model, tok, kernels, tag, train_dir)
         check_denoiser(model, tag)
         check_graphclip(model, tag)
@@ -3667,6 +4235,12 @@ def main() -> int:
     t0 = time.perf_counter()
     families = run_families(kernels, tag, phase7=phase7_latency)
     print(f"families phase: {time.perf_counter() - t0:.1f} s wall [{tag}]",
+          flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    finetune = run_finetune(kernels, tag, phase9=phase9)
+    print(f"finetune phase: {time.perf_counter() - t0:.1f} s wall [{tag}]",
           flush=True)
 
     def entry(name, source, replaces, rec, launches, **extra):
@@ -3708,6 +4282,7 @@ def main() -> int:
               launches_continuous=continuous["B"],
               launches_quantized=quantized["B"],
               launches_families=families["B"],
+              launches_finetune=finetune["B"],
               **{k: v for k, v in b.items() if k.startswith("train_")},
               shape=b["shape"], share=b["share"],
               pretrain_launches=stack_launches["B"],
@@ -3722,6 +4297,7 @@ def main() -> int:
               **{k: v for k, v in c.items() if k.startswith("second_body")},
               launches_quantized=quantized["C"],
               launches_families=families["C"],
+              launches_finetune=finetune["C"],
               launches_smem=c_training["launches_smem"],
               launches_global=c_training["launches_global"],
               pretrain_launches=stack_launches["C"],

@@ -1,5 +1,6 @@
 """Text-generation metrics: BLEU-4 and ROUGE-1/2/L over whitespace tokens
-(the text half of llamole_tpu/train/metric.py)."""
+(the text half of llamole_tpu/train/metric.py; train/metric.py imports
+them from here beside its token accuracy)."""
 
 import math
 from collections import Counter

@@ -31,8 +31,10 @@ Training (mmsft), `loss`:
      -> SiLU -> the predictor's template CE (its GIN backward is kernel C)
   total = w_lm * lm + w_design * design + w_retro * retro
 Only the trainable bundle has requires_grad: the connectors, plus the
-LoRA adapter ('lora') or the whole LLM ('full'); the graph modules and
-the base LLM are frozen.
+LoRA adapter ('lora', with DoRA's magnitudes under use_dora) or the whole
+LLM ('full'); the graph modules and the base LLM are frozen. With pissa
+the base holds PiSSA's residual and save_pretrained writes the adapter
+as a rank-2r LoRA over the original weights (gllm/lora.py).
 
 The module holds every sub-model and the three connectors, so a JAX
 (frozen, trainable) pair bridges whole (weights.graph_lm_state_dict).
@@ -54,8 +56,9 @@ from ..chem.featurize import smiles_to_graph
 from ..ops.nn import init_dense_
 from ..utils.constants import IGNORE_INDEX
 from ..utils.serialization import load_pytree, save_pytree
-from ..weights import trainable_tree, trainable_values
+from ..weights import bundle_tree, trainable_state_dict, trainable_values
 from .gllm import LLM, lora_scale
+from .gllm.lora import LoRALinear, dora_init_, pissa_init_, pissa_to_lora
 from .gllm.model import lm_loss
 from .graphclip import GraphCLIP
 from .graphdit import GraphDiT
@@ -106,10 +109,12 @@ class GraphLM(nn.Module):
                  finetuning_type: str = "lora", use_rslora: bool = False,
                  cost_mlp: Optional[CostMLP] = None,
                  loss_weight_lm: float = 1.0, loss_weight_design: float = 1.0,
-                 loss_weight_retro: float = 1.0):
+                 loss_weight_retro: float = 1.0, use_dora: bool = False,
+                 pissa: bool = False):
         """cost_mlp: the optional fingerprint value model of the planner
         (read when molecule_cost_weight > 0). loss_weight_*: the three
-        terms of the training loss."""
+        terms of the training loss. use_dora / pissa: init_trainable
+        makes the LoRA adapter DoRA / PiSSA (JAX init_trainable)."""
         super().__init__()
         if finetuning_type not in ("lora", "freeze", "full"):
             raise ValueError(f"unknown finetuning_type {finetuning_type!r}")
@@ -128,6 +133,11 @@ class GraphLM(nn.Module):
         self.loss_weight_retro = loss_weight_retro
         self.lora_scale = lora_scale(lora_rank, lora_alpha,
                                      use_rslora=use_rslora)
+        self.use_dora = use_dora
+        self.pissa = pissa
+        # PiSSA's initial factors {projection: (A0, B0)} (init_trainable)
+        self._pissa_init: Optional[Dict[str, Tuple[torch.Tensor,
+                                                   torch.Tensor]]] = None
         if finetuning_type == "lora":
             llm.add_lora(lora_rank, self.lora_scale)
         lm_h = llm.cfg.hidden_size
@@ -166,14 +176,39 @@ class GraphLM(nn.Module):
         require grad)."""
         return {n: p for n, p in self.named_parameters() if p.requires_grad}
 
+    def adapted_projections(self) -> Dict[str, LoRALinear]:
+        """{name: projection} of every LLM projection with an adapter."""
+        return {n: m for n, m in self.named_modules()
+                if isinstance(m, LoRALinear) and m.lora_a is not None}
+
     def init_trainable(self, generator: torch.Generator) -> None:
         """Random trainable bundle: connectors (xavier, zero bias) and, for
-        finetuning_type 'lora', the adapter (A ~ N(0,1)/r, B = 0)."""
+        finetuning_type 'lora', the adapter (A ~ N(0,1)/r, B = 0); then,
+        as JAX init_trainable: PiSSA replaces the base weights by their
+        residual and starts the adapter at their principal part (kept for
+        save_pretrained), and DoRA's magnitudes come from the effective
+        weight (base + scale * B A when PiSSA is on, the base otherwise)."""
         for name in ("graph_to_lm", "lm_to_graph_decoder",
                      "lm_to_graph_predictor"):
             init_dense_(self.connectors[name], generator)
-        if self.finetuning_type == "lora":
-            self.llm.reset_lora(generator)
+        if self.finetuning_type != "lora":
+            return
+        self.llm.reset_lora(generator)
+        self.init_pissa_dora()
+
+    def init_pissa_dora(self) -> None:
+        """init_trainable's last step on the adapter as it stands: PiSSA
+        (pissa) and then DoRA's magnitudes (use_dora); nothing when
+        neither is on."""
+        adapted = self.adapted_projections()
+        if self.pissa:
+            pissa_init_(adapted.values(), self.lora_scale)
+            self._pissa_init = {n: (m.lora_a.detach().clone(),
+                                    m.lora_b.detach().clone())
+                                for n, m in adapted.items()}
+        if self.use_dora:
+            dora_init_(adapted.values(),
+                       self.lora_scale if self.pissa else 0.0)
 
     # ------------------------------------------------------------------
     # token helpers (host side)
@@ -254,7 +289,7 @@ class GraphLM(nn.Module):
         moe = self.llm.cfg.num_experts > 0
         logits, hidden, _, *aux = self.llm(
             inputs_embeds=embeds, attention_mask=batch["attention_mask"],
-            return_moe_aux=moe)
+            return_moe_aux=moe, train=True)
         lm = lm_loss(logits, batch["labels"], IGNORE_INDEX)
         if moe:     # Mixtral's router load-balancing term rides the LM loss
             lm = lm + self.llm.cfg.moe_aux_loss_coef * aux[0]
@@ -309,9 +344,16 @@ class GraphLM(nn.Module):
         (full finetuning), connector/<name>.msgpack and
         graphllm_config.json; with save_graph_modules, the three graph
         modules' directories (graph_decoder/, graph_predictor/,
-        graph_encoder/) as well."""
+        graph_encoder/) as well. A PiSSA adapter is written converted
+        (pissa_to_lora: rank 2r over the original weights)."""
         os.makedirs(save_directory, exist_ok=True)
-        bundle = trainable_tree(self)
+        values = self.trainable_parameters()
+        if self._pissa_init is not None:
+            for name, (a0, b0) in self._pissa_init.items():
+                a, b = f"{name}.lora_a", f"{name}.lora_b"
+                values[a], values[b] = pissa_to_lora(values[a], values[b],
+                                                     a0, b0)
+        bundle = bundle_tree(values)
         if "lora" in bundle:
             save_pytree(bundle["lora"],
                         os.path.join(save_directory, "adapter.msgpack"))
@@ -343,11 +385,15 @@ class GraphLM(nn.Module):
     def load_trainable(self, save_directory: str) -> None:
         """Load what save_pretrained (either package's) wrote into this
         model's trainable bundle, in place: the connectors, plus
-        adapter.msgpack for LoRA or llm.msgpack for full finetuning. A
-        missing file or leaf, or an unknown one, raises. With
-        finetuning_type 'freeze' only the connectors are read (the JAX
-        package would also apply an adapter.msgpack found there, which a
-        merged export carries beside its merged weights)."""
+        adapter.msgpack for LoRA or llm.msgpack for full finetuning. An
+        adapter of another rank (a PiSSA export is rank 2r) or with or
+        without DoRA's magnitudes rebuilds the projections' adapters as
+        the file has them, at the model's scale (alpha / lora_rank), as
+        the JAX package reads whatever the file holds. A missing file or
+        leaf, or an unknown one, raises. With finetuning_type 'freeze'
+        only the connectors are read (the JAX package would also apply an
+        adapter.msgpack found there, which a merged export carries beside
+        its merged weights)."""
         bundle = {"connectors": {
             name: load_pytree(os.path.join(save_directory, "connector",
                                            f"{name}.msgpack"))
@@ -357,6 +403,9 @@ class GraphLM(nn.Module):
         if part is not None:
             key = "lora" if self.finetuning_type == "lora" else "llm"
             bundle[key] = load_pytree(os.path.join(save_directory, part))
+        if "lora" in bundle:
+            self._match_adapter(trainable_state_dict(
+                {"connectors": {}, "lora": bundle["lora"]}))
         params = self.trainable_parameters()
         values = trainable_values(bundle, params)
         for name, p in params.items():
@@ -365,6 +414,25 @@ class GraphLM(nn.Module):
                                  f"{tuple(values[name].shape)}, the model "
                                  f"{tuple(p.shape)}")
             p.copy_(values[name])
+
+    def _match_adapter(self, values: Dict[str, torch.Tensor]) -> None:
+        """Rebuild each projection's adapter at the rank, and with the DoRA
+        magnitude or not, that `values` (trainable-bundle names) hold."""
+        for name, m in self.adapted_projections().items():
+            a = values.get(f"{name}.lora_a")
+            if a is None:
+                continue
+            if a.shape[0] != m.lora_a.shape[0]:
+                m.add_lora(a.shape[0], m.lora_scale, dtype=m.lora_a.dtype)
+            has_m = f"{name}.lora_m" in values
+            if has_m and m.quant is not None:
+                raise ValueError(f"{name}: a DoRA adapter needs "
+                                 "full-precision weights; the base is "
+                                 f"quantized ({m.quant})")
+            if has_m and m.lora_m is None:
+                m.add_magnitude()
+            elif not has_m:
+                m.lora_m = None
 
     # ------------------------------------------------------------------
     # Phase 1

@@ -5,7 +5,7 @@ config describes a model in both packages. The port runs every family
 the JAX package builds: llama / qwen2 / mistral, qwen3 (q/k norms),
 gemma-1 / 2 / 3 (GeGLU, unit-offset norms, sandwich norms, softcaps,
 alternating sliding windows, gemma-3's dual rope) and the Mixtral sparse
-MoE; model.check_supported refuses S²-attn (shift_attn) alone.
+MoE, with LongLoRA's S²-attn in training (shift_attn, group_size_ratio).
 from_hf_config is the JAX package's, copied whole (an HF config.json
 dict -> LLMConfig, every family it knows).
 """
@@ -36,7 +36,8 @@ class LLMConfig:
     # recompute each decoder layer in the backward pass (training)
     remat: bool = False
     # the JAX package's TPU flash kernel (ignored here) and S²-attn
-    # (shift_attn: refused by model.check_supported, ROADMAP Queue 1 item 6)
+    # (shift_attn: training forwards attend within groups of
+    # int(S * group_size_ratio) tokens, model.s2_attention)
     use_flash: bool = False
     flash_min_seq: int = 1024
     shift_attn: bool = False

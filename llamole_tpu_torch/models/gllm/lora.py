@@ -29,6 +29,20 @@ buffers: nothing trains them. Under autograd the weight-only products
 keep the quantized weight for the backward, not a compute-dtype copy of
 it (the QLoRA path). `merge_lora` folds the adapters into a dense base
 (JAX lora.merge_lora) and refuses a quantized one.
+
+DoRA (arXiv 2402.09353; JAX dora_init and _proj's DoRA branch): the
+adapter gains a magnitude lora_m [out], and the projection is
+
+    W' = W + scale * B A   (f32),   y = x (m * W' / (||W'|| + 1e-6))^T
+
+with the norm of each output row over the inputs (JAX's axis 0 of its
+[in, out] leaf), not detached (as JAX; peft detaches it). Under autograd
+`_DoRAProduct` keeps x and the factors and rebuilds W' in the backward,
+so no f32 weight outlives its projection. PiSSA (arXiv 2404.02948; JAX
+pissa_init) starts the adapter at the principal rank-r part of each
+weight and leaves the residual as the base; `pissa_to_lora` turns a
+trained PiSSA adapter into a rank-2r LoRA over the original weights.
+DoRA and PiSSA need a dense base (a quantized one raises, as in JAX).
 """
 
 import contextlib
@@ -173,6 +187,66 @@ def quantized_product(x, q, scale, scheme: str) -> torch.Tensor:
     return _weight_only(x, q, scale, scheme)
 
 
+# ---------------------------------------------------------------------------
+# DoRA
+# ---------------------------------------------------------------------------
+
+def _dora_parts(weight, a, b, m, scale):
+    """(W' [out, in] f32, ||W'|| [out], m / (||W'|| + 1e-6) [out])."""
+    v = weight.float() + (b.float() @ a.float()) * scale
+    norm = torch.linalg.vector_norm(v, dim=1)
+    return v, norm, m.float() / (norm + 1e-6)
+
+
+def dora_weight(weight, a, b, m, scale) -> torch.Tensor:
+    """DoRA's effective weight m * W' / (||W'|| + 1e-6) [out, in] in f32
+    (JAX _proj: the norm over the inputs)."""
+    v, _, col = _dora_parts(weight, a, b, m, scale)
+    return v * col[:, None]
+
+
+class _DoRAProduct(torch.autograd.Function):
+    """x @ dora_weight(...)^T in x's dtype, whose backward rebuilds W'
+    from the saved factors instead of keeping it: the gradients of the
+    plain composition (autograd through dora_weight and F.linear) with
+    their rounding points (the weight cast to x's dtype, its gradient
+    taken in x's dtype and widened to f32)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, a, b, m, scale):
+        ctx.save_for_backward(x, weight, a, b, m)
+        ctx.scale = scale
+        return F.linear(x, dora_weight(weight, a, b, m, scale).to(x.dtype))
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, weight, a, b, m = ctx.saved_tensors
+        s = ctx.scale
+        v, norm, col = _dora_parts(weight, a, b, m, s)
+        n = norm + 1e-6
+        gx = None
+        if ctx.needs_input_grad[0]:
+            gx = grad @ (v * col[:, None]).to(x.dtype)
+        g2 = grad.reshape(-1, grad.shape[-1])
+        gw = (g2.t() @ x.reshape(-1, x.shape[-1])).float()   # [out, in]
+        gcol = (gw * v).sum(dim=1)
+        gn = -gcol * m.float() / (n * n)
+        gv = gw * col[:, None] + (gn / norm)[:, None] * v
+        del gw
+        ga = ((b.float().t() @ gv) * s).to(a.dtype)
+        gb = ((gv @ a.float().t()) * s).to(b.dtype)
+        return gx, None, ga, gb, (gcol / n).to(m.dtype), None
+
+
+def dora_product(x, weight, a, b, m, scale) -> torch.Tensor:
+    """DoRA's projection of x [..., in] -> [..., out] in x's dtype (no
+    bias)."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, a, b, m)):
+        return _DoRAProduct.apply(x, weight, a, b, m, scale)
+    return F.linear(x, dora_weight(weight, a, b, m, scale).to(x.dtype))
+
+
 class LoRALinear(nn.Module):
     """A bias-optional projection, dense or quantized, with an optional
     LoRA adapter."""
@@ -190,6 +264,7 @@ class LoRALinear(nn.Module):
         self.quant: Optional[str] = None
         self.lora_a = None
         self.lora_b = None
+        self.lora_m = None
         self.lora_scale = 1.0
 
     @property
@@ -221,7 +296,15 @@ class LoRALinear(nn.Module):
                                                dtype=dtype, device=dev))
         self.lora_b = nn.Parameter(torch.empty(self.out_features, rank,
                                                dtype=dtype, device=dev))
+        self.lora_m = None
         self.lora_scale = scale
+
+    def add_magnitude(self) -> None:
+        """Attach DoRA's (uninitialised) magnitude [out] in the adapter's
+        dtype; dora_init_ fills it."""
+        self.lora_m = nn.Parameter(torch.empty(
+            self.out_features, dtype=self.lora_a.dtype,
+            device=self.lora_a.device))
 
     @property
     def lora_enabled(self) -> bool:
@@ -237,6 +320,10 @@ class LoRALinear(nn.Module):
         self.lora_b.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.lora_m is not None and self.lora_enabled:
+            y = dora_product(x, self.weight, self.lora_a, self.lora_b,
+                             self.lora_m, self.lora_scale)
+            return y if self.bias is None else y + self.bias
         if self.quant is None:
             y = F.linear(x, self.weight)
         else:
@@ -257,9 +344,9 @@ def merge_lora(model: nn.Module) -> int:
     weights are written where they are, so an 8B LLM is not copied.
     Returns the number of projections merged. A quantized base is
     refused (ValueError) before anything is written, as the JAX
-    merge_lora reads a dense base["w"]. The port holds no DoRA
-    magnitude: a DoRA adapter is refused when it is loaded
-    (weights.state_dict_of)."""
+    merge_lora reads a dense base["w"]. A DoRA adapter merges as its
+    magnitude-scaled direction: W' = W + delta in f32, then each output
+    row times m / (||W'|| + 1e-6)."""
     adapted = [m for m in model.modules()
                if isinstance(m, LoRALinear) and m.lora_a is not None]
     quantized = sorted({m.quant for m in adapted if m.quant is not None})
@@ -268,7 +355,74 @@ def merge_lora(model: nn.Module) -> int:
                          "an adapter merges into a dense base only")
     for m in adapted:
         delta = (m.lora_b.float() @ m.lora_a.float()) * m.lora_scale
-        m.weight.copy_((m.weight.float() + delta).to(m.weight.dtype))
+        w = m.weight.float() + delta
+        if m.lora_m is not None:
+            w = w * (m.lora_m.float()
+                     / (torch.linalg.vector_norm(w, dim=1) + 1e-6))[:, None]
+        m.weight.copy_(w.to(m.weight.dtype))
         m.lora_a = None
         m.lora_b = None
+        m.lora_m = None
     return len(adapted)
+
+
+def svd(a: torch.Tensor):
+    """torch.linalg.svd(a, full_matrices=False); on the card through
+    cuSOLVER's QR-based gesvd: its default Jacobi method converges slowly
+    on rank-deficient matrices such as an embedding's gradient, whose
+    rows are zero but for the batch's tokens."""
+    return torch.linalg.svd(a, full_matrices=False,
+                            driver="gesvd" if a.is_cuda else None)
+
+
+def _dense(modules, what: str):
+    modules = list(modules)
+    quantized = sorted({m.quant for m in modules if m.quant is not None})
+    if quantized:
+        raise ValueError(f"{what} needs full-precision weights; the base is "
+                         f"quantized ({quantized})")
+    return modules
+
+
+@torch.no_grad()
+def pissa_init_(modules: Iterable[LoRALinear], scale: float) -> None:
+    """JAX pissa_init on adapted projections, in place: with W = U S V^T
+    (the JAX leaf [in, out], the port's weight transposed; an f32 SVD of
+    that orientation, as JAX takes it), A = U_r sqrt(S_r) / sqrt(scale),
+    B = sqrt(S_r) V_r^T / sqrt(scale), and the base becomes W - U_r S_r
+    V_r^T in its dtype, so base + scale * A B is W at init. Each singular
+    vector's sign is the SVD's own, which may differ from JAX's."""
+    root_scale = scale ** 0.5
+    for m in _dense(modules, "PiSSA"):
+        r = m.lora_a.shape[0]
+        w = m.weight.float().t()                  # JAX [in, out]
+        u, sv, vt = svd(w)
+        root = torch.sqrt(sv[:r])
+        a = u[:, :r] * root[None, :]              # [in, r]
+        b = root[:, None] * vt[:r]                # [r, out]
+        m.lora_a.copy_((a / root_scale).t().to(m.lora_a.dtype))
+        m.lora_b.copy_((b / root_scale).t().to(m.lora_b.dtype))
+        m.weight.copy_((w - a @ b).t().to(m.weight.dtype))
+
+
+@torch.no_grad()
+def dora_init_(modules: Iterable[LoRALinear], scale: float = 0.0) -> None:
+    """JAX dora_init, in place: each adapted projection gains lora_m, the
+    norm over the inputs of W + scale * B A (f32; no epsilon here), in
+    the adapter's dtype, so DoRA starts at the adapter's own output."""
+    for m in _dense(modules, "DoRA"):
+        w = m.weight.float()
+        if scale:
+            w = w + (m.lora_b.float() @ m.lora_a.float()) * scale
+        m.add_magnitude()
+        m.lora_m.copy_(torch.linalg.vector_norm(w, dim=1).to(
+            m.lora_m.dtype))
+
+
+def pissa_to_lora(a: torch.Tensor, b: torch.Tensor, a0: torch.Tensor,
+                  b0: torch.Tensor):
+    """JAX pissa_to_lora for one projection: the trained (a, b) and the
+    initial (a0, b0) PiSSA factors -> the rank-2r (A, B) of a LoRA over
+    the original weight, W_res + s A_t B_t = W + s [A_t | A_0] [B_t;
+    -B_0] (port layout: A [2r, in], B [out, 2r])."""
+    return torch.cat([a, a0], dim=0), torch.cat([b, -b0], dim=1)

@@ -25,10 +25,12 @@ rope, the router, attention logits and softmax in f32. Training is
 `forward` with autograd on plus `lm_loss` (and, for MoE, the aux loss of
 `forward(return_moe_aux=True)`); cfg.remat recomputes each decoder layer
 in the backward pass (torch.utils.checkpoint) instead of keeping its
-activations.
-
-Not ported yet: LongLoRA S²-attn (cfg.shift_attn, ROADMAP.md Queue 1 item
-6), which raises.
+activations. With cfg.shift_attn, a training forward (`train=True`, no
+cache) of plain causal attention (no softcap, query scale or sliding
+window) whose length divides into groups of int(S * group_size_ratio) >=
+2 tokens runs LongLoRA's S²-attn (`s2_attention`); any other length
+falls back to full attention without a word, as in the JAX package
+(`s2_attention.calls` counts the S² calls).
 """
 
 import math
@@ -49,14 +51,10 @@ _TOP_P_CANDIDATES = 256  # top-p nucleus cap; see _warped_candidates
 
 
 def check_supported(cfg: LLMConfig) -> None:
-    """Refuse the config features the port does not run yet."""
+    """Refuse a config value the model does not know."""
     if cfg.kv_cache_dtype not in ("compute", "int8"):
         raise ValueError(f"kv_cache_dtype must be 'compute' or 'int8', "
                          f"got {cfg.kv_cache_dtype!r}")
-    if cfg.shift_attn:
-        raise NotImplementedError(
-            "llamole_tpu_torch LLM does not support S²-attn (shift_attn) "
-            "yet (ROADMAP.md Queue 1 item 6)")
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float,
@@ -155,6 +153,50 @@ def attention(q, k, v, mask_bst, scale: Optional[float] = None,
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     out = torch.einsum("bkgst,btkd->bskgd", probs, v)
     return out.reshape(b, s, h * d)
+
+
+def s2_attention(q, k, v, attention_mask, group_size: int):
+    """LongLoRA S²-attn (JAX _s2_attention), training only: KV heads
+    expand to the query heads, the second half of the heads rolls by
+    -group_size // 2 along the sequence, attention runs causally within
+    groups of group_size tokens, and the outputs roll back. Each group's
+    key validity comes from attention_mask, rolled with the keys for the
+    shifted half (JAX's documented divergence from the reference, which
+    reuses the first group's mask). q [B, S, H, D], k / v [B, S, KV, D],
+    attention_mask [B, S] -> [B, S, H * D]."""
+    s2_attention.calls += 1
+    b, s, h, d = q.shape
+    kv = k.shape[2]
+    if kv != h:
+        k = k.repeat_interleave(h // kv, dim=2)
+        v = v.repeat_interleave(h // kv, dim=2)
+    ng, half, shift = s // group_size, h // 2, group_size // 2
+
+    def roll_half(x, amount):
+        return torch.cat([x[:, :, :half],
+                          torch.roll(x[:, :, half:], amount, dims=1)], dim=2)
+
+    def group(x):
+        return x.reshape(b * ng, group_size, h, d)
+
+    qg, kg, vg = (group(roll_half(t, -shift)) for t in (q, k, v))
+    causal = torch.ones((group_size, group_size), dtype=torch.bool,
+                        device=q.device).tril()
+    key_valid = attention_mask > 0
+    m_plain = causal[None] & key_valid.reshape(b * ng, group_size)[:, None]
+    m_shift = causal[None] & torch.roll(key_valid, -shift, dims=1).reshape(
+        b * ng, group_size)[:, None]
+    out_plain = attention(qg[:, :, :half], kg[:, :, :half], vg[:, :, :half],
+                          m_plain)
+    out_shift = attention(qg[:, :, half:], kg[:, :, half:], vg[:, :, half:],
+                          m_shift)
+    out = torch.cat([out_plain.reshape(b * ng, group_size, half, d),
+                     out_shift.reshape(b * ng, group_size, h - half, d)],
+                    dim=2).reshape(b, s, h, d)
+    return roll_half(out, shift).reshape(b, s, h * d)
+
+
+s2_attention.calls = 0
 
 
 KVCache = List[Dict[str, torch.Tensor]]
@@ -388,9 +430,23 @@ class DecoderLayer(nn.Module):
         self.attn_scale = (cfg.query_scale ** -0.5
                            if cfg.query_scale is not None else None)
 
+    def _s2_group(self, s: int, train: bool, cached: bool) -> int:
+        """S²-attn's group size for this forward, 0 for full attention
+        (JAX decoder_layer's gate)."""
+        cfg = self.cfg
+        groupsz = int(s * cfg.group_size_ratio)
+        plain_sdpa = (cfg.attn_logit_softcap is None
+                      and self.attn_scale is None
+                      and cfg.sliding_window is None)
+        if (cfg.shift_attn and train and not cached and groupsz >= 2
+                and s % groupsz == 0 and plain_sdpa):
+            return groupsz
+        return 0
+
     def forward(self, x, positions, inv_freq, mask, attention_mask=None,
-                cache_entry=None, cache_index=None):
-        """Returns (x, the MoE aux loss; None for a dense MLP)."""
+                cache_entry=None, cache_index=None, train=False):
+        """Returns (x, the MoE aux loss; None for a dense MLP). train:
+        a training forward (S²-attn may run)."""
         cfg = self.cfg
         b, s, _ = x.shape
         hd = cfg.head_dim_
@@ -406,8 +462,13 @@ class DecoderLayer(nn.Module):
         if cache_entry is not None:
             cache_append(cache_entry, k, v, cache_index)
             k, v = cache_read(cache_entry, x.dtype)
-        attn = self.attn["o"](attention(q, k, v, mask, self.attn_scale,
-                                        cfg.attn_logit_softcap))
+        group = self._s2_group(s, train, cache_entry is not None)
+        if group:
+            attn = s2_attention(q, k, v, attention_mask, group)
+        else:
+            attn = attention(q, k, v, mask, self.attn_scale,
+                             cfg.attn_logit_softcap)
+        attn = self.attn["o"](attn)
         if cfg.sandwich_norms:
             attn = self.post_attn_norm(attn)
         x = x + attn
@@ -558,7 +619,7 @@ class LLM(nn.Module):
                 kv_cache: Optional[KVCache] = None, cache_index=None,
                 kv_valid=None, last_logits_only: bool = False,
                 inputs_embeds: Optional[torch.Tensor] = None,
-                return_moe_aux: bool = False):
+                return_moe_aux: bool = False, train: bool = False):
         """Returns (logits [B,S,V] f32, hidden [B,S,H], kv_cache) and, with
         return_moe_aux, the MoE aux loss summed over the layers and divided
         by the depth (HF's pooled magnitude; 0 for a dense LLM and on the
@@ -568,7 +629,9 @@ class LLM(nn.Module):
         kv_cache, queries attend to the valid cache slots (kv_valid [B,T])
         at or before their own slot; the cache is written in place and
         returned. Sliding-window layers (cfg.is_global_layer) take the
-        windowed mask and, on gemma-3, the local rope table."""
+        windowed mask and, on gemma-3, the local rope table. train: a
+        training forward (GraphLM.loss), where cfg.shift_attn takes
+        S²-attn."""
         x = (self.embed_tokens(input_ids) if inputs_embeds is None
              else inputs_embeds)
         b, s, _ = x.shape
@@ -592,11 +655,12 @@ class LLM(nn.Module):
                     else self._inv_freq)
             if remat:
                 x, aux = checkpoint(layer, x, positions, freq, layer_mask,
-                                    attention_mask, use_reentrant=False)
+                                    attention_mask, None, None, train,
+                                    use_reentrant=False)
             else:
                 x, aux = layer(x, positions, freq, layer_mask, attention_mask,
                                None if kv_cache is None else kv_cache[i],
-                               cache_index)
+                               cache_index, train)
             if kv_cache is None and aux is not None:
                 aux_total = aux_total + aux
         logits, hidden = self.finalize_hidden(x, last_logits_only)

@@ -17,17 +17,20 @@ the documented random inits (GraphDiT 64 x 2, GraphCLIP 2 x 64, predictor
 save_pretrained files, or its newest committed checkpoint-N) loads into
 the trainable bundle. quantization_bit (4 or 8; quantization_scheme
 'weight_only' or 'w8a8', which needs 8) quantizes the LLM's projections
-in place once its weights are loaded or drawn, and kv_cache_dtype
+in place once its weights are loaded or drawn (before the adapter is
+made, so DoRA / PiSSA over it raise, as in the JAX loader), and
+kv_cache_dtype
 ('compute' or 'int8') picks the KV cache, with the JAX loader's errors
 for other values; num_experts / num_experts_per_tok (a from-scratch MoE
 config) and moe_aux_loss_coef override the resolved config as in the JAX
-loader. DoRA / PiSSA and S²-attn raise, naming ROADMAP.md Queue 1 item
-6.
+loader. use_dora / pissa_init make the adapter DoRA / PiSSA
+(GraphLM.init_trainable) unless a trained adapter is loaded (its file
+says what it is), and shift_attn turns on S²-attn for training.
 """
 
 import json
 import os
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -128,6 +131,8 @@ def build_graph_lm_from_configs(
     cost_mlp: Optional[CostMLP] = None,
     llm_weights: Optional[str] = None,
     llm: Optional[LLM] = None,
+    quantize: Optional[Tuple[int, bool]] = None,
+    use_dora: bool = False, pissa: bool = False,
 ) -> GraphLM:
     """Random-init GraphLM on `device` (weights drawn there, seeded).
     GraphCLIP and the predictor run in f32; their configs default to the
@@ -142,7 +147,9 @@ def build_graph_lm_from_configs(
     their random draw); llm: an LLM built and filled already (e.g. drawn
     straight into a quantized layout by quantize.init_quantized_), used
     in place of llm_cfg's build, its vocabulary covering the
-    tokenizer's."""
+    tokenizer's; quantize: (bits, act_int8) quantizes the LLM's
+    projections in place before the adapter is made; use_dora / pissa:
+    the adapter's kind (GraphLM.init_trainable)."""
     device = torch.device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     if llm is not None:
@@ -158,6 +165,10 @@ def build_graph_lm_from_configs(
         else:
             load_hf_weights(llm_weights, llm)
             logger.info("Loaded LLM weights from %s", llm_weights)
+    if quantize is not None:
+        quantize_llm_params(llm, bits=quantize[0], act_int8=quantize[1])
+        logger.info("LLM projections quantized to int%d (%s)", quantize[0],
+                    "w8a8" if quantize[1] else "weight_only")
     if graph_decoder is None:
         graph_decoder = GraphDiT(dit_cfg, data_info, dtype=graph_dtype,
                                  device=device)
@@ -181,7 +192,8 @@ def build_graph_lm_from_configs(
         lora_alpha=lora_alpha, finetuning_type=finetuning_type,
         use_rslora=use_rslora, cost_mlp=cost_mlp,
         loss_weight_lm=loss_weights[0],
-        loss_weight_design=loss_weights[1], loss_weight_retro=loss_weights[2])
+        loss_weight_design=loss_weights[1], loss_weight_retro=loss_weights[2],
+        use_dora=use_dora, pissa=pissa)
     model.init_trainable(gen)
     return model.eval()
 
@@ -288,10 +300,6 @@ def build_graph_lm(model_args, data_args, finetuning_args, *, device,
     Returns (model, tokenizer)."""
     device = torch.device(device)
     quant = llm_quantization(model_args)
-    if getattr(finetuning_args, "use_dora", False) or getattr(
-            finetuning_args, "pissa_init", False):
-        raise NotImplementedError("DoRA / PiSSA adapters are not ported yet "
-                                  "(ROADMAP.md Queue 1 item 6)")
     tokenizer = load_tokenizer(model_args, generate_mode=generate_mode)
     llm_cfg = resolve_llm_config(model_args)
     llm_cfg.shift_attn = bool(getattr(model_args, "shift_attn", False))
@@ -303,7 +311,7 @@ def build_graph_lm(model_args, data_args, finetuning_args, *, device,
         llm_cfg.num_experts_per_tok = int(model_args.num_experts_per_tok)
     if getattr(model_args, "moe_aux_loss_coef", None) is not None:
         llm_cfg.moe_aux_loss_coef = float(model_args.moe_aux_loss_coef)
-    check_supported(llm_cfg)     # S²-attn (shift_attn) raises here
+    check_supported(llm_cfg)
 
     weights = _llm_weights_dir(model_args.model_name_or_path or "")
     adapter_dir = None
@@ -333,11 +341,14 @@ def build_graph_lm(model_args, data_args, finetuning_args, *, device,
                            for k in ("lm", "design", "retro")),
         special_tokens=model_args.special_token_list() or SPECIAL_TOKENS,
         graph_decoder=decoder, graph_encoder=encoder,
-        graph_predictor=predictor, cost_mlp=cost_mlp, llm_weights=weights)
-    if quant is not None:
-        quantize_llm_params(model.llm, bits=quant[0], act_int8=quant[1])
-        logger.info("LLM projections quantized to int%d (%s)", quant[0],
-                    "w8a8" if quant[1] else "weight_only")
+        graph_predictor=predictor, cost_mlp=cost_mlp, llm_weights=weights,
+        quantize=quant,
+        # a trained adapter's file says whether it is DoRA (JAX skips
+        # init_trainable when it loads one)
+        use_dora=adapter_dir is None and bool(getattr(
+            finetuning_args, "use_dora", False)),
+        pissa=adapter_dir is None and bool(getattr(
+            finetuning_args, "pissa_init", False)))
     if adapter_dir is not None:
         model.load_trainable(adapter_dir)
         logger.info("Loaded adapter + connectors from %s", adapter_dir)

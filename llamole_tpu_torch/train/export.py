@@ -10,8 +10,10 @@ writes there: adapter.msgpack, connector/*.msgpack and
 graphllm_config.json (save_pretrained, before the merge), model.msgpack
 (the merged LLM's JAX tree), the merged HF checkpoint in export_size GB
 shards with config.json, and the tokenizer where it can save itself.
-A quantized base (quantization_bit set) is refused before anything is
-built or written.
+A DoRA adapter merges as its magnitude-scaled direction, a PiSSA export
+(rank 2r over the original weights) as any LoRA (gllm/lora.py
+merge_lora). A quantized base (quantization_bit set) is refused before
+anything is built or written.
 """
 
 import os

@@ -1,6 +1,8 @@
-"""The mmsft optimizer (counterpart of llamole_tpu/train/trainer.py
-create_optimizer): AdamW under global-norm clipping, wrapped in gradient
-accumulation, with the learning-rate schedules in closed form.
+"""The mmsft optimizers (counterpart of llamole_tpu/train/trainer.py
+create_optimizer and llamole_tpu/train/optimizers.py): AdamW under
+global-norm clipping, or the custom chain with GaLore, LoRA+ and BAdam,
+wrapped in gradient accumulation, with the learning-rate schedules in
+closed form.
 
 The JAX package builds it from optax:
 
@@ -15,14 +17,44 @@ moments are updated and bias-corrected, weight decay is added to the
 update (decoupled, as optax's add_decayed_weights), and the parameters
 move by -schedule(count) * update, count being the number of updates
 before this one (so a warmup schedule gives lr 0 at the first update).
-The custom optimizers of llamole_tpu/train/optimizers.py (GaLore, LoRA+,
-BAdam) are not ported.
+
+The custom chain (JAX build_custom_optimizer, `CustomAdamW`), when the
+finetuning arguments ask for GaLore, BAdam or LoRA+:
+
+    MultiSteps(chain(clip_by_global_norm(max_grad_norm),
+                     chain(core, [add_decayed_weights(wd)], [badam],
+                           [scale_lora_b(ratio)],
+                           scale_by_learning_rate(schedule))), k)
+
+  core   Adam over every leaf, or with GaLore (arXiv 2403.03507) the
+         leaves that are 2-D with min(shape) > rank take Adam in a
+         rank-r subspace: every update_interval updates the basis is
+         refreshed from the SVD of the gradient (the shorter side of the
+         JAX leaf: [in, r] left basis when in <= out, else [out, r]
+         right), the moments live in the projected space, and the update
+         is projected back and scaled; the other leaves take plain Adam.
+         Each leaf's basis and low-rank moments are held in the JAX
+         leaf's orientation ([in, out] for a projection whose port
+         weight is [out, in]), so the state equals JAX's leaf for leaf.
+  decay  weight decay added at full rank, after the back-projection
+  BAdam  layer-mode block descent: the leaves, in the JAX bundle tree's
+         flatten order (dict keys sorted, list items in order), are
+         dealt round-robin into n_blocks blocks; only the block
+         (start + count // switch_interval) % n_blocks moves. Every
+         leaf's moments still update.
+  LoRA+  the update of every leaf whose JAX path has a segment holding
+         "lora" and ends in "b" (the adapters' B) times the ratio
+  lr     times -schedule(count)
 """
 
 import math
-from typing import Callable, Dict
+from typing import Any, Callable, Dict, List, NamedTuple, Optional
 
 import torch
+
+from ..models.gllm.lora import svd
+from ..utils.serialization import to_state_dict
+from ..weights import bundle_path, bundle_tree, nest
 
 Schedule = Callable[[int], float]
 
@@ -89,11 +121,48 @@ def global_norm(tensors) -> torch.Tensor:
     return torch.sqrt(sum((t.float() * t.float()).sum() for t in tensors))
 
 
+def int32_scalar(v: int) -> torch.Tensor:
+    return torch.tensor(v, dtype=torch.int32)
+
+
+def load_into(want: Any, got: Any, where: str, counts: List[int]) -> None:
+    """Copy the state-dict tree `got` into the tensors of `want` (the
+    optimizer's own state in state-dict form: its leaves are views of the
+    optimizer's tensors); {} stands for a masked leaf; every "count"
+    leaf's value goes to `counts`. A key, shape or masking that differs
+    raises (ValueError); a key `got` holds an empty {} under (JAX's empty
+    groups) is ignored."""
+    if isinstance(want, torch.Tensor):
+        if (not isinstance(got, torch.Tensor)
+                or tuple(got.shape) != tuple(want.shape)):
+            shape = tuple(got.shape) if isinstance(got, torch.Tensor) else got
+            raise ValueError(f"opt_state leaf {where} does not match the "
+                             f"optimizer's: {shape} where it holds "
+                             f"{tuple(want.shape)}")
+        want.copy_(got.to(want.dtype))
+        return
+    if not isinstance(got, dict):
+        raise ValueError(f"opt_state leaf {where} does not match the "
+                         f"optimizer's: {type(got).__name__}")
+    keys = {k for k in got if k in want
+            or not (isinstance(got[k], dict) and not got[k])}
+    if keys != set(want):
+        raise ValueError(f"opt_state {where} does not match the optimizer's: "
+                         f"keys {sorted(keys)}, expected {sorted(want)}")
+    for k in want:
+        if k == "count":
+            counts.append(int(got[k]))
+        else:
+            load_into(want[k], got[k], f"{where}/{k}", counts)
+
+
 class AccumulatingAdamW:
     """optax.MultiSteps(chain(clip_by_global_norm, adamw)) over named
     parameters. `accumulate()` takes each parameter's .grad of one micro
     step and returns True when it completed a window and updated the
     parameters."""
+
+    CHAIN = "adamw"
 
     def __init__(self, params: Dict[str, torch.nn.Parameter],
                  schedule: Schedule, *, b1: float = 0.9, b2: float = 0.999,
@@ -108,8 +177,11 @@ class AccumulatingAdamW:
         self.count = 0        # updates applied
         self.mini_step = 0    # micro steps in the current window
         self.acc = {n: torch.zeros_like(p) for n, p in params.items()}
-        self.mu = {n: torch.zeros_like(p) for n, p in params.items()}
-        self.nu = {n: torch.zeros_like(p) for n, p in params.items()}
+        self.mu = {n: self._moment(n, p) for n, p in params.items()}
+        self.nu = {n: self._moment(n, p) for n, p in params.items()}
+
+    def _moment(self, name: str, p: torch.Tensor) -> torch.Tensor:
+        return torch.zeros_like(p)
 
     @torch.no_grad()
     def accumulate(self) -> bool:
@@ -127,6 +199,22 @@ class AccumulatingAdamW:
             acc.zero_()
         return True
 
+    def _adam(self, name: str, g: torch.Tensor, c1: float,
+              c2: float) -> torch.Tensor:
+        """Adam's bias-corrected direction; the moments update in place."""
+        mu, nu = self.mu[name], self.nu[name]
+        mu.mul_(self.b1).add_((1.0 - self.b1) * g)
+        nu.mul_(self.b2).add_((1.0 - self.b2) * g * g)
+        return (mu / c1) / (torch.sqrt(nu / c2) + self.eps)
+
+    def _direction(self, name: str, p: torch.Tensor, g: torch.Tensor,
+                   c1: float, c2: float) -> Optional[torch.Tensor]:
+        """The update the learning rate scales (None: the leaf stays)."""
+        update = self._adam(name, g, c1, c2)
+        if self.weight_decay:
+            update = update + self.weight_decay * p
+        return update
+
     def _update(self) -> None:
         grads = self.acc
         norm = global_norm(grads.values())
@@ -139,28 +227,224 @@ class AccumulatingAdamW:
             g = grads[name]
             if clip:
                 g = g / norm.to(g.dtype) * self.max_grad_norm
-            mu, nu = self.mu[name], self.nu[name]
-            mu.mul_(self.b1).add_((1.0 - self.b1) * g)
-            nu.mul_(self.b2).add_((1.0 - self.b2) * g * g)
-            update = (mu / c1) / (torch.sqrt(nu / c2) + self.eps)
-            if self.weight_decay:
-                update = update + self.weight_decay * p
-            p.add_(update.to(p.dtype), alpha=-lr)
+            update = self._direction(name, p, g, c1, c2)
+            if update is not None:
+                p.add_(update.to(p.dtype), alpha=-lr)
+
+    # -- the state in flax's state-dict layout --------------------------------
+    def chain_state(self) -> Dict[str, Any]:
+        """The state of the chain after clipping, as flax's to_state_dict
+        lays out JAX's optax state: adamw is chain(scale_by_adam,
+        add_decayed_weights, scale_by_learning_rate) = {"0":
+        ScaleByAdamState(count, mu, nu), "1": {}, "2": {count}}, the
+        moments as the bundle tree. Leaves are views of the optimizer's
+        tensors (load_chain_state writes through them)."""
+        c = int32_scalar(self.count)
+        return {"0": {"count": c, "mu": bundle_tree(self.mu),
+                      "nu": bundle_tree(self.nu)},
+                "1": {}, "2": {"count": int32_scalar(self.count)}}
+
+    @torch.no_grad()
+    def load_chain_state(self, chain: Dict[str, Any]) -> List[int]:
+        """chain_state's inverse: copies the moments from a state dict of
+        either package; returns every count it held. Other parts, keys,
+        shapes or masking raise (ValueError)."""
+        want = to_state_dict(self.chain_state())
+        if not isinstance(chain, dict) or set(chain) != set(want):
+            got = sorted(chain) if isinstance(chain, dict) else chain
+            raise ValueError(f"opt_state is not the optimizer's chain "
+                             f"({self.CHAIN}): parts {got}, expected "
+                             f"{sorted(want)}")
+        counts: List[int] = []
+        load_into(want, chain, "", counts)
+        return counts
+
+
+class GaLore(NamedTuple):
+    rank: int = 16
+    update_interval: int = 200
+    scale: float = 0.25
+
+
+class BAdam(NamedTuple):
+    n_blocks: int = 4
+    switch_interval: int = 50
+    start_block: int = 0
+
+
+def galore_basis(g: torch.Tensor, rank: int) -> torch.Tensor:
+    """The orthonormal basis of the shorter side of g [m, n] (JAX
+    _galore_core project_matrix): [m, r] left singular vectors when
+    m <= n, else [n, r] right ones, from an f32 SVD."""
+    m, n = g.shape
+    u, _, vt = svd(g.float())
+    return (u[:, :rank] if m <= n else vt[:rank].t()).contiguous()
+
+
+def _flatten_key(path: List[str]):
+    """jax.tree.flatten's order of a bundle path: dict keys sorted as
+    strings, list items (digit segments) by index."""
+    return tuple((0, int(k), "") if k.isdigit() else (1, 0, k) for k in path)
+
+
+def badam_blocks(names, n_blocks: int) -> Dict[str, int]:
+    """BAdam's block of each GraphLM trainable-bundle name: the leaves in
+    the JAX bundle tree's flatten order, dealt round-robin."""
+    order = sorted(names, key=lambda n: _flatten_key(bundle_path(n)[0]))
+    return {n: i % n_blocks for i, n in enumerate(order)}
+
+
+class CustomAdamW(AccumulatingAdamW):
+    """The custom chain (module docstring) over GraphLM trainable-bundle
+    names; galore / badam / loraplus_lr_ratio None leave a part out."""
+
+    CHAIN = "GaLore / Adam, decay, BAdam, LoRA+, schedule"
+
+    def __init__(self, params: Dict[str, torch.nn.Parameter],
+                 schedule: Schedule, *, galore: Optional[GaLore] = None,
+                 badam: Optional[BAdam] = None,
+                 loraplus_lr_ratio: Optional[float] = None, **kwargs):
+        self.paths = {n: bundle_path(n) for n in params}
+        self.galore = galore
+        self.galore_names = {
+            n for n, p in params.items()
+            if galore is not None and p.dim() == 2
+            and min(p.shape) > galore.rank}
+        self.proj = {n: self._oriented_zeros(n, params[n], basis=True)
+                     for n in sorted(self.galore_names)}
+        self.badam = badam
+        self.block = (badam_blocks(params, badam.n_blocks)
+                      if badam is not None else {})
+        self.loraplus_lr_ratio = loraplus_lr_ratio
+        self.lora_b = {n for n in params if loraplus_lr_ratio
+                       and self.paths[n][0][-1] == "b"
+                       and any("lora" in k for k in self.paths[n][0])}
+        super().__init__(params, schedule, **kwargs)
+
+    def _jax_shape(self, name: str, p: torch.Tensor):
+        """The JAX leaf's shape [m, n] of a 2-D parameter."""
+        return tuple(p.shape[::-1]) if self.paths[name][1] else tuple(p.shape)
+
+    def _oriented_zeros(self, name: str, p: torch.Tensor,
+                        basis: bool) -> torch.Tensor:
+        """GaLore's zero basis (f32) or low-rank moment (p's dtype) in the
+        JAX orientation: basis [m, r] and moments [r, n] when m <= n, else
+        [n, r] and [m, r]. JAX's initial basis is the SVD of a zero
+        gradient; any basis does, as the first update refreshes it."""
+        m, n = self._jax_shape(name, p)
+        r = self.galore.rank
+        if basis:
+            return torch.zeros((m, r) if m <= n else (n, r),
+                               dtype=torch.float32, device=p.device)
+        return torch.zeros((r, n) if m <= n else (m, r), dtype=p.dtype,
+                           device=p.device)
+
+    def _moment(self, name: str, p: torch.Tensor) -> torch.Tensor:
+        if name in self.galore_names:
+            return self._oriented_zeros(name, p, basis=False)
+        return torch.zeros_like(p)
+
+    def _galore(self, name: str, g: torch.Tensor, c1: float,
+                c2: float) -> torch.Tensor:
+        gj = g.t() if self.paths[name][1] else g    # JAX's [m, n]
+        m, n = gj.shape
+        if (self.count - 1) % self.galore.update_interval == 0:
+            self.proj[name] = galore_basis(gj, self.galore.rank)
+        proj = self.proj[name]
+        left = m <= n
+        low = proj.t().to(gj.dtype) @ gj if left else gj @ proj.to(gj.dtype)
+        u = self._adam(name, low, c1, c2)
+        full = proj.to(u.dtype) @ u if left else u @ proj.t().to(u.dtype)
+        full = (self.galore.scale * full).to(g.dtype)
+        return full.t() if self.paths[name][1] else full
+
+    def _direction(self, name, p, g, c1, c2):
+        if name in self.galore_names:
+            update = self._galore(name, g, c1, c2)
+        else:
+            update = self._adam(name, g, c1, c2)
+        if self.weight_decay:
+            update = update + self.weight_decay * p
+        if self.badam is not None:
+            b = self.badam
+            active = (b.start_block + (self.count - 1) // b.switch_interval
+                      ) % b.n_blocks
+            if self.block[name] != active:
+                return None
+        if name in self.lora_b:
+            update = update * self.loraplus_lr_ratio
+        return update
+
+    def _tree(self, values: Dict[str, torch.Tensor], names,
+              transpose: bool) -> Dict:
+        """The bundle tree of values[name] for `names`, {} (masked) at the
+        other leaves; transpose: lay 2-D leaves out as the JAX leaf."""
+        def leaf(n):
+            if n not in names:
+                return {}
+            t = values[n].detach()
+            return t.t() if transpose and self.paths[n][1] else t
+        return nest((self.paths[n][0], leaf(n)) for n in self.params)
+
+    def chain_state(self) -> Dict[str, Any]:
+        """JAX build_custom_optimizer's chain state: [core, decay?,
+        BAdamState(count)?, LoRA+ {}?, {count}] keyed "0", "1", ...; with
+        GaLore the core is multi_transform's {"inner_states": {"galore":
+        {"inner_state": GaLoreState(count, proj, inner=ScaleByAdamState)},
+        "plain": {"inner_state": ScaleByAdamState}}}, each group's trees
+        masked ({}) at the other group's leaves."""
+        c = self.count
+        everything = set(self.params)
+        if self.galore is None:
+            core = {"count": int32_scalar(c),
+                    "mu": self._tree(self.mu, everything, True),
+                    "nu": self._tree(self.nu, everything, True)}
+        else:
+            low, plain = self.galore_names, everything - self.galore_names
+            core = {"inner_states": {
+                "galore": {"inner_state": {
+                    "count": int32_scalar(c),
+                    "proj": self._tree(self.proj, low, False),
+                    "inner": {"count": int32_scalar(c),
+                              "mu": self._tree(self.mu, low, False),
+                              "nu": self._tree(self.nu, low, False)}}},
+                "plain": {"inner_state": {
+                    "count": int32_scalar(c),
+                    "mu": self._tree(self.mu, plain, True),
+                    "nu": self._tree(self.nu, plain, True)}}}}
+        parts = [core]
+        if self.weight_decay:
+            parts.append({})
+        if self.badam is not None:
+            parts.append({"count": int32_scalar(c)})
+        if self.loraplus_lr_ratio:
+            parts.append({})
+        parts.append({"count": int32_scalar(c)})
+        return {str(i): part for i, part in enumerate(parts)}
 
 
 def create_optimizer(args, num_training_steps: int,
                      params: Dict[str, torch.nn.Parameter],
                      finetuning_args=None):
     """(optimizer, schedule) from TrainingArguments; num_training_steps
-    counts optimizer updates."""
-    if wants_custom_optimizer(finetuning_args):
-        raise NotImplementedError(
-            "GaLore / LoRA+ / BAdam optimizers are not ported to "
-            "llamole_tpu_torch yet (ROADMAP.md)")
+    counts optimizer updates. finetuning_args asking for GaLore, BAdam or
+    LoRA+ give the custom chain (CustomAdamW, over GraphLM
+    trainable-bundle names)."""
     schedule = make_schedule(args, num_training_steps)
-    opt = AccumulatingAdamW(
-        params, schedule, b1=args.adam_beta1, b2=args.adam_beta2,
-        eps=args.adam_epsilon, weight_decay=args.weight_decay,
-        max_grad_norm=args.max_grad_norm,
-        accumulation_steps=args.gradient_accumulation_steps)
-    return opt, schedule
+    kwargs = dict(b1=args.adam_beta1, b2=args.adam_beta2,
+                  eps=args.adam_epsilon, weight_decay=args.weight_decay,
+                  max_grad_norm=args.max_grad_norm,
+                  accumulation_steps=args.gradient_accumulation_steps)
+    if not wants_custom_optimizer(finetuning_args):
+        return AccumulatingAdamW(params, schedule, **kwargs), schedule
+    ft = finetuning_args
+    galore = (GaLore(ft.galore_rank, ft.galore_update_interval,
+                     ft.galore_scale)
+              if getattr(ft, "use_galore", False) else None)
+    badam = (BAdam(max(ft.badam_n_blocks, 1), ft.badam_switch_interval,
+                   ft.badam_start_block)
+             if getattr(ft, "use_badam", False) else None)
+    return CustomAdamW(params, schedule, galore=galore, badam=badam,
+                       loraplus_lr_ratio=getattr(ft, "loraplus_lr_ratio",
+                                                 None) or None,
+                       **kwargs), schedule

@@ -1,7 +1,8 @@
 """The mmsft training loop (counterpart of llamole_tpu/train/trainer.py):
-AdamW + schedule with gradient accumulation and clipping
-(train/optimizers.py), trainer_log.jsonl records with the JAX package's
-keys, checkpoint-N directories with resume discovery.
+AdamW or the custom chain (GaLore, BAdam, LoRA+) + schedule with
+gradient accumulation and clipping (train/optimizers.py),
+trainer_log.jsonl records with the JAX package's keys, checkpoint-N
+directories with resume discovery.
 
 A micro step runs the loss forward, its backward and the optimizer's
 accumulate (which updates the parameters at the end of each window of
@@ -15,7 +16,7 @@ what the uninterrupted one would have. Checkpoints are the JAX package's
 checkpoint-N layout (msgpack), so a run resumes across the packages.
 Not ported (they raise): the `mesh` argument (data / tensor / pipeline
 parallel training) and orbax checkpoints (LLAMOLE_ORBAX, backend
-"orbax").
+"orbax"; ROADMAP.md Queue 1 item 9).
 """
 
 import glob
@@ -36,10 +37,11 @@ import torch
 from ..utils.constants import IGNORE_INDEX
 from ..utils.logging import JsonlLogger, get_logger
 from ..utils.serialization import (load_pytree, load_state, save_pytree,
-                                   save_state)
+                                   save_state, to_state_dict)
 from ..weights import bundle_tree, trainable_values
 
-from .optimizers import AccumulatingAdamW, create_optimizer, global_norm
+from .optimizers import (AccumulatingAdamW, create_optimizer, global_norm,
+                         int32_scalar, load_into)
 
 logger = get_logger(__name__)
 
@@ -78,8 +80,10 @@ class Trainer:
             raise NotImplementedError("mesh (parallel) training is not ported "
                                       "to llamole_tpu_torch yet (ROADMAP.md)")
         if os.environ.get("LLAMOLE_ORBAX"):
-            raise NotImplementedError("orbax checkpoints (LLAMOLE_ORBAX) are "
-                                      "not ported to llamole_tpu_torch")
+            raise NotImplementedError(
+                "orbax checkpoints (LLAMOLE_ORBAX) are not ported to "
+                "llamole_tpu_torch (ROADMAP.md Queue 1 item 9: they shard "
+                "state across chips, with parallelism)")
         if not params:
             raise ValueError("no trainable parameters")
         self.loss_fn = loss_fn
@@ -207,7 +211,8 @@ class Trainer:
         """The JAX package's msgpack checkpoint under path:
         trainable.msgpack (the bundle tree), opt_state.msgpack (the
         optimizer's state under the keys of the optax state JAX's
-        create_optimizer builds) and trainer_state.json (step, backend,
+        create_optimizer builds, AdamW or the custom chain) and
+        trainer_state.json (step, backend,
         a JAX key derived from the generator, and the generator's own
         state under "torch_generator")."""
         os.makedirs(path, exist_ok=True)
@@ -233,7 +238,7 @@ class Trainer:
         if backend != "msgpack":
             raise NotImplementedError(
                 f"{path}: {backend} checkpoints are not read by "
-                "llamole_tpu_torch (ROADMAP.md Queue 1 item 6: orbax)")
+                "llamole_tpu_torch (ROADMAP.md Queue 1 item 9: orbax)")
         saved = trainable_values(
             load_pytree(os.path.join(path, "trainable.msgpack")),
             self.params)
@@ -259,55 +264,42 @@ def jax_key_data(generator_state: torch.Tensor) -> List[int]:
     return [int(x) for x in np.frombuffer(digest[:8], dtype=">u4")]
 
 
-def _i32(v: int) -> torch.Tensor:
-    return torch.tensor(v, dtype=torch.int32)
-
-
 def optax_state(opt: AccumulatingAdamW) -> Dict[str, Any]:
     """The optimizer's state in the state-dict form of the optax state
-    create_optimizer builds: chain(clip_by_global_norm, adamw) is
-    {"0": {}, "1": {"0": ScaleByAdamState(count, mu, nu), "1": {},
-    "2": ScaleByScheduleState(count)}}, wrapped at accumulation k > 1 in
-    MultiStepsState(mini_step, gradient_step, inner_opt_state,
-    acc_grads, skip_state). Moments are laid out as the bundle tree."""
-    inner = {"0": {}, "1": {
-        "0": {"count": _i32(opt.count), "mu": bundle_tree(opt.mu),
-              "nu": bundle_tree(opt.nu)},
-        "1": {}, "2": {"count": _i32(opt.count)}}}
+    create_optimizer builds: chain(clip_by_global_norm, chain) is
+    {"0": {}, "1": opt.chain_state()} (AdamW's or the custom chain's
+    parts), wrapped at accumulation k > 1 in MultiStepsState(mini_step,
+    gradient_step, inner_opt_state, acc_grads, skip_state). Moments are
+    laid out as the bundle tree."""
+    inner = {"0": {}, "1": opt.chain_state()}
     if opt.k == 1:
         return inner
-    return {"mini_step": _i32(opt.mini_step),
-            "gradient_step": _i32(opt.count), "inner_opt_state": inner,
+    return {"mini_step": int32_scalar(opt.mini_step),
+            "gradient_step": int32_scalar(opt.count), "inner_opt_state": inner,
             "acc_grads": bundle_tree(opt.acc), "skip_state": {}}
 
 
 @torch.no_grad()
 def load_optax_state(opt: AccumulatingAdamW, state: Dict[str, Any]) -> None:
     """optax_state's inverse: a state dict of JAX's opt_state.msgpack (or
-    the port's) into the optimizer; a state of another accumulation, or
-    with unknown or missing leaves, raises."""
+    the port's) into the optimizer; a state of another accumulation or
+    chain, or with unknown or missing leaves, raises."""
     multi = "inner_opt_state" in state
     if multi != (opt.k > 1):
         raise ValueError(f"opt_state is {'' if multi else 'not '}a "
                          f"MultiSteps state; the optimizer accumulates "
                          f"{opt.k} steps")
     inner = state["inner_opt_state"] if multi else state
-    if set(inner) != {"0", "1"} or set(inner["1"]) != {"0", "1", "2"}:
+    if set(inner) != {"0", "1"}:
         raise ValueError(f"opt_state is not chain(clip_by_global_norm, "
-                         f"adamw): keys {sorted(inner)}")
-    adam = inner["1"]["0"]
-    counts = {int(adam["count"]), int(inner["1"]["2"]["count"])}
+                         f"{opt.CHAIN}): keys {sorted(inner)}")
+    counts = set(opt.load_chain_state(inner["1"]))
     if multi:
         counts.add(int(state["gradient_step"]))
+        load_into(to_state_dict(bundle_tree(opt.acc)), state["acc_grads"],
+                   "acc_grads", [])
     if len(counts) != 1:
         raise ValueError(f"opt_state counts disagree: {sorted(counts)}")
-    loaded = {"mu": adam["mu"], "nu": adam["nu"]}
-    if multi:
-        loaded["acc"] = state["acc_grads"]
-    for key, tree in loaded.items():
-        values = trainable_values(tree, opt.params)
-        for name, t in getattr(opt, key).items():
-            t.copy_(values[name])
     opt.count = counts.pop()
     opt.mini_step = int(state["mini_step"]) if multi else 0
     if not multi:

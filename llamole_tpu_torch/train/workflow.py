@@ -6,8 +6,11 @@ the MolQA records tokenised by the template, a val_size split off the
 front, SeqGraphCollator batches in a seeded per-epoch shuffle (a resumed
 run skips the batches it already consumed). The model trains on an
 explicit device ("cuda" by default; without a card that raises unless
-"cpu" is asked for). Outputs under output_dir: trainer_log.jsonl,
-checkpoint-N/, the trained bundle (GraphLM.save_pretrained),
+"cpu" is asked for), with the finetuning arguments' adapter (LoRA, DoRA,
+PiSSA), optimizer (AdamW, or GaLore / BAdam / LoRA+) and the model
+arguments' shift_attn (S²-attn). Outputs under output_dir: trainer_log.jsonl,
+checkpoint-N/, the trained bundle (GraphLM.save_pretrained: a PiSSA
+adapter is written as its rank-2r LoRA over the original weights),
 train_results.json, the loss plot when matplotlib exists, and after
 training the held-out eval loss and generated_predictions.jsonl.
 """
@@ -171,8 +174,8 @@ def predict_with_generate(model, val_inputs, tokenizer, generating_args,
     """Greedy continuations of held-out prompts (the label-masked prefix of
     each example) -> generated_predictions.jsonl ({"prompt", "label",
     "predict"}) and BLEU / ROUGE against the labels."""
-    from ..eval.metric import compute_text_metrics
     from ..models.composite import GenerationSettings
+    from .metric import compute_text_metrics
 
     gen = GenerationSettings(
         max_new_tokens=min(generating_args.max_new_tokens, 64),

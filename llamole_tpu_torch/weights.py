@@ -12,7 +12,9 @@ module names follow the JAX tree keys, so the mapping is structural:
                             int4       -> w_q [out, in / 2] uint8 (packed
                                           as gllm/lora.py pack_int4), scale
   {"scale", "bias"?}        norm       -> weight, bias
-  {"a": [in, r], "b": [r, out]}  LoRA  -> lora_a [r, in], lora_b [out, r]
+  {"a": [in, r], "b": [r, out], "m"?: [out]}
+                            LoRA (DoRA) -> lora_a [r, in], lora_b [out, r],
+                                          lora_m [out]
   {"router": {"w": [H, E]}, "experts": {"gate", "up", "down"}}
                             MoE        -> router.weight [E, H], experts.*
                                           [E, in, out] as they are
@@ -21,8 +23,8 @@ module names follow the JAX tree keys, so the mapping is structural:
 Stacked LLM layers ("layers_stacked", leading [L] axis, as
 init_params_quantized returns them) are unstacked. A quantized tree loads
 into a module built quantized the same way (`llm_quant_of` gives an LLM's
-quant=(scheme, group_size)). DoRA leaves are not ported yet and raise
-(ROADMAP.md Queue 1 item 6).
+quant=(scheme, group_size)). A DoRA adapter's magnitude m [out] maps to
+lora_m [out] as it is.
 
 `jax_tree_of` is the inverse: a port module -> the JAX-layout tree
 (dense weights back to w [in, out], norms to scale / bias, ModuleLists to
@@ -47,8 +49,6 @@ from .ops.nn import Int8Dense, LayerNorm
 from .utils.serialization import load_pytree, save_pytree
 
 StateDict = Dict[str, torch.Tensor]
-# JAX leaves the port does not hold: (keys, what, ROADMAP.md Queue 1 item)
-_UNPORTED_LEAVES = (({"m"}, "DoRA", 6),)
 _QUANTIZED = ("w_q", "w_qa", "w_q4")
 
 
@@ -63,14 +63,12 @@ def _tensor(a) -> torch.Tensor:
 
 def _walk(tree: Any, prefix: str, out: StateDict) -> None:
     if isinstance(tree, dict):
-        for keys, what, item in _UNPORTED_LEAVES:
-            if keys & set(tree):
-                raise NotImplementedError(
-                    f"{prefix or 'tree'}: {sorted(keys & set(tree))} leaves "
-                    f"({what}) are not ported yet (ROADMAP.md Queue 1 item "
-                    f"{item})")
         quant = [k for k in _QUANTIZED if k in tree]
         if "w" in tree:
+            if "m" in tree:
+                raise ValueError(
+                    f"{prefix or 'tree'}: a DoRA magnitude 'm' beside a dense "
+                    "weight; DoRA's m belongs to an adapter leaf {a, b, m}")
             out[prefix + "weight"] = _tensor(tree["w"]).T.contiguous()
             if "b" in tree:
                 out[prefix + "bias"] = _tensor(tree["b"])
@@ -82,6 +80,8 @@ def _walk(tree: Any, prefix: str, out: StateDict) -> None:
         elif "a" in tree:
             out[prefix + "lora_a"] = _tensor(tree["a"]).T.contiguous()
             out[prefix + "lora_b"] = _tensor(tree["b"]).T.contiguous()
+            if "m" in tree:
+                out[prefix + "lora_m"] = _tensor(tree["m"])
         elif "scale" in tree:
             out[prefix + "weight"] = _tensor(tree["scale"])
             if "bias" in tree:
@@ -222,12 +222,15 @@ def _llm_path(name: str) -> Tuple[List[str], bool]:
     tree, whether the JAX leaf is the transpose): projections, the MoE
     router and the head -> w [in, out], biases -> b, RMSNorm weights ->
     scale, the embedding -> weight, LoRA factors -> a [in, r] / b
-    [r, out], MoE experts -> their [E, in, out] leaves."""
+    [r, out], DoRA's magnitude -> m [out], MoE experts -> their [E, in,
+    out] leaves."""
     *owner, leaf = name.split(".")
     if owner and owner[-1] == "experts":     # [E, in, out] on both sides
         return owner + [leaf], False
     if leaf in ("lora_a", "lora_b"):
         return owner + [leaf[-1]], True
+    if leaf == "lora_m":
+        return owner + ["m"], False
     if leaf == "bias":
         return owner + ["b"], False
     if owner[-1] == "embed":
@@ -237,7 +240,7 @@ def _llm_path(name: str) -> Tuple[List[str], bool]:
     return owner + ["w"], True
 
 
-def _nest(items: Iterable[Tuple[List[str], Any]]) -> Dict:
+def nest(items: Iterable[Tuple[List[str], Any]]) -> Dict:
     """(key path, leaf) pairs -> nested dicts, a dict whose keys are
     0..n-1 becoming a list."""
     root: Dict = {}
@@ -269,11 +272,11 @@ def llm_tree(llm: LLM) -> Dict:
     """The JAX params tree of the LLM's base weights (no adapter). A
     quantized LLM raises (ValueError)."""
     _refuse_quantized(llm)
-    return _nest((_llm_path(n)[0], _leaf(p, _llm_path(n)[1]))
+    return nest((_llm_path(n)[0], _leaf(p, _llm_path(n)[1]))
                  for n, p in llm.named_parameters() if "lora_" not in n)
 
 
-def _bundle_path(name: str) -> Tuple[List[str], bool]:
+def bundle_path(name: str) -> Tuple[List[str], bool]:
     """A GraphLM trainable-bundle name -> (path in the JAX bundle,
     transposed)."""
     head, rest = name.split(".", 1)
@@ -286,7 +289,7 @@ def _bundle_path(name: str) -> Tuple[List[str], bool]:
 def bundle_tree(values: Dict[str, torch.Tensor]) -> Dict:
     """Tensors keyed by GraphLM trainable-bundle names (the parameters,
     or the optimizer's moments) laid out as the JAX bundle tree."""
-    return _nest((_bundle_path(n)[0], _leaf(t, _bundle_path(n)[1]))
+    return nest((bundle_path(n)[0], _leaf(t, bundle_path(n)[1]))
                  for n, t in values.items())
 
 

@@ -159,8 +159,9 @@ def test_full_llm_bundle_both_ways(setup, tmp_path):
 
 
 def test_adapter_refusals(setup, tmp_path):
-    """A missing adapter file, a missing leaf or an unknown one raise;
-    'freeze' reads the connectors alone."""
+    """A missing adapter file, a missing leaf or an unknown one raise; a
+    DoRA adapter (an "m" leaf) loads with its magnitude; 'freeze' reads
+    the connectors alone."""
     tok, jm, frozen, trainable, _ = setup
     tm = _torch_model(frozen, trainable)
     tm.save_pretrained(str(tmp_path / "ok"))
@@ -174,11 +175,15 @@ def test_adapter_refusals(setup, tmp_path):
     with pytest.raises(ValueError, match="missing"):
         tm.load_trainable(str(tmp_path / "short"))
     lora = _np(trainable["lora"])
-    lora["layers"][0]["attn"]["q"]["m"] = np.ones(4, np.float32)
+    q = lora["layers"][0]["attn"]["q"]
+    q["m"] = np.ones(q["b"].shape[1], np.float32)
     jm.save_pretrained({"connectors": trainable["connectors"], "lora": lora},
                        str(tmp_path / "dora"))
-    with pytest.raises(NotImplementedError, match="DoRA"):
-        tm.load_trainable(str(tmp_path / "dora"))
+    tm.load_trainable(str(tmp_path / "dora"))
+    q = tm.llm.layers[0].attn["q"]
+    assert torch.equal(q.lora_m, torch.ones(q.out_features))
+    assert tm.llm.layers[0].attn["k"].lora_m is None
+    assert "llm.layers.0.attn.q.lora_m" in tm.trainable_parameters()
     frozen_tm = _retyped(tm, "freeze")
     frozen_tm.load_trainable(str(tmp_path / "dora"))   # connectors only
     for name, p in frozen_tm.connectors.named_parameters():

@@ -224,13 +224,15 @@ _TINY_EVAL = {"model_name_or_path": "", "dataset": "molqa_drug_examples",
 
 
 def test_shift_attn_is_refused():
+    """(Named when it raised.) shift_attn now reaches the LLM's config:
+    training forwards take S²-attn (tests/test_torch_s2_attention.py)."""
     from llamole_tpu_torch.config import get_infer_args
     from llamole_tpu_torch.models.loader import build_graph_lm
     model_args, data_args, _, ft_args, _ = get_infer_args(
         {**_TINY_EVAL, "shift_attn": True})
     assert model_args.shift_attn
-    with pytest.raises(NotImplementedError, match="shift_attn"):
-        build_graph_lm(model_args, data_args, ft_args, device="cpu")
+    model, _ = build_graph_lm(model_args, data_args, ft_args, device="cpu")
+    assert model.llm.cfg.shift_attn and model.llm.cfg.group_size_ratio == 0.25
 
 
 def test_token_id_dict_follows_new_special_tokens():

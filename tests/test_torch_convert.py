@@ -481,12 +481,16 @@ def test_refconvert_refuses_the_reference_cost_model(tmp_path):
 
 
 def test_dora_and_moe_leaves_are_refused():
-    """A DoRA magnitude in a JAX tree raises naming its ROADMAP item:
-    never dropped. An MoE tree (router [H, E], experts [E, in, out])
-    goes through the bridge both ways bit-identically, in f32 and bf16."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        state_dict_of({"q": {"a": np.ones((2, 1)), "b": np.ones((1, 2)),
-                             "m": np.ones(2)}})
+    """(Named when DoRA raised.) A DoRA magnitude in a JAX adapter tree
+    maps to lora_m as it is, and one beside a dense weight raises: never
+    dropped. An MoE tree (router [H, E], experts [E, in, out]) goes
+    through the bridge both ways bit-identically, in f32 and bf16."""
+    got = state_dict_of({"q": {"a": np.ones((2, 1)), "b": np.ones((1, 2)),
+                               "m": np.arange(2.0)}})
+    assert sorted(got) == ["q.lora_a", "q.lora_b", "q.lora_m"]
+    assert got["q.lora_m"].tolist() == [0.0, 1.0]
+    with pytest.raises(ValueError, match="DoRA"):
+        state_dict_of({"q": {"w": np.ones((2, 2)), "m": np.ones(2)}})
     for jdt, tdt in ((jnp.float32, torch.float32),
                      (jnp.bfloat16, torch.bfloat16)):
         cfg, params = _jax_llm(dtype=jdt, num_experts=4,

@@ -217,10 +217,9 @@ def test_greedy_generate_matches_jax(repetition_penalty):
 
 
 def test_unported_features_raise():
-    """S²-attn (shift_attn) is refused naming its ROADMAP item, and an
-    unknown KV cache dtype; every family config builds."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        LLM(replace(LLMConfig.tiny(), shift_attn=True), dtype=torch.float32)
+    """(Named when S²-attn raised.) An unknown KV cache dtype is refused;
+    S²-attn (shift_attn) and every family config build."""
+    LLM(replace(LLMConfig.tiny(), shift_attn=True), dtype=torch.float32)
     with pytest.raises(ValueError, match="kv_cache_dtype"):
         LLM(replace(LLMConfig.tiny(), kv_cache_dtype="fp8"),
             dtype=torch.float32)

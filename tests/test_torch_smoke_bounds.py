@@ -354,7 +354,7 @@ def test_continuous_phase_sizes_are_phase_7s():
 _QUANTIZED_CPU = {"requests": 4, "max_new_tokens": 8, "retro_iterations": 1,
                   "retro_max_time": 5.0, "prefill_batch": 8,
                   "decode_tokens": 4, "train_steps": 2, "design_batch": 2,
-                  "model_name_or_path": ""}
+                  "scheme_layers": 4, "model_name_or_path": ""}
 
 
 def test_quantized_phase_runs_on_the_cpu(capsys):
@@ -400,26 +400,31 @@ def test_quantized_phase_gates_and_sizes():
     its requests phase 7's first 4 at phase 7's settings. At the 8B shape,
     counted on the meta device (nothing allocated): the bf16 LLM is phase
     12's 16060522496 bytes, int8 and W8A8 below 0.55x of it and packed
-    int4 below 0.35x."""
+    int4 below 0.35x, and so at the 24 of 32 layers (b) runs."""
+    from dataclasses import replace
+
     from llamole_tpu_torch.models.gllm import LLM, LLMConfig
     from llamole_tpu_torch.models.gllm.quantize import quantized_bytes
 
+    sizes = chip_smoke.QUANTIZED
     assert chip_smoke.QUANT_BOUNDS == {"int8": 0.05, "w8a8": 0.10,
                                        "int4": 0.15}
     assert (chip_smoke.KV_BOUND, chip_smoke.DENOISER_BOUND) == (0.02, 0.05)
     assert chip_smoke.BYTES_BOUNDS == {"int8": 0.55, "w8a8": 0.55,
                                        "int4": 0.35}
-    assert chip_smoke.QUANTIZED == {
+    assert sizes == {
         "requests": 4, "max_new_tokens": 128, "retro_iterations": 100,
         "retro_max_time": 30.0, "prefill_batch": 8, "decode_tokens": 32,
-        "train_steps": 2, "design_batch": 8}
+        "train_steps": 2, "design_batch": 8, "scheme_layers": 24}
     cfg = LLMConfig.llama3_8b()
-    dense = quantized_bytes(LLM(cfg, torch.bfloat16, "meta"))
-    assert dense == 16060522496
-    for scheme, group in (("int8", 0), ("w8a8", 0), ("int4", 128)):
-        got = quantized_bytes(LLM(cfg, torch.bfloat16, "meta",
-                                  quant=(scheme, group)))
-        assert got < chip_smoke.BYTES_BOUNDS[scheme] * dense, scheme
+    assert quantized_bytes(LLM(cfg, torch.bfloat16, "meta")) == 16060522496
+    for layers in (32, sizes["scheme_layers"]):
+        cut = replace(cfg, num_layers=layers)
+        dense = quantized_bytes(LLM(cut, torch.bfloat16, "meta"))
+        for scheme, group in (("int8", 0), ("w8a8", 0), ("int4", 128)):
+            got = quantized_bytes(LLM(cut, torch.bfloat16, "meta",
+                                      quant=(scheme, group)))
+            assert got < chip_smoke.BYTES_BOUNDS[scheme] * dense, scheme
     args = chip_smoke.qlora_args("out", chip_smoke.QUANTIZED)
     assert (args["quantization_bit"], args["max_steps"],
             args["gradient_accumulation_steps"]) == (8, 2, 1)
@@ -436,7 +441,8 @@ _FAMILIES_CPU = {"prompts": 8, "greedy_tokens": 8, "spec_tokens": 2,
                  "requests": 4, "max_new_tokens": 8, "retro_iterations": 1,
                  "retro_max_time": 5.0, "long_prompt": 40,
                  "long_prefill": 16, "long_steps": 4, "moe_layers": 2,
-                 "moe_tokens": 8, "train_batch": 2}
+                 "moe_tokens": 8, "train_batch": 2, "qwen3_layers": 2,
+                 "gemma2_layers": 2, "gemma3_layers": 3}
 
 
 def _family_cfgs():
@@ -485,11 +491,13 @@ def test_families_phase_runs_on_the_cpu(capsys):
 
 
 def test_families_phase_sizes_are_the_presets():
-    """Phase 15 runs the presets at full size (counted on the meta device:
+    """Phase 15 runs the presets at full width (counted on the meta device:
     qwen3_8b 8.19B parameters, gemma2_9b 9.24B, gemma3_12b 11.77B; Mixtral
     at 8 of 32 layers 11.87B, 23.7 GB in bf16 where all 32 take 93.4 GB),
-    a 1280-token prompt past gemma-3's 1024-token window, and phase 7's
-    serving settings."""
+    cut in depth since phase 16 joined: qwen3 to 9 of 36 layers, gemma-2
+    to 14 of 42 (alternating windows), gemma-3 to 12 of 48 (10 of them
+    windowed); a 1280-token prompt past gemma-3's 1024-token window, and
+    phase 7's serving settings."""
     from dataclasses import replace
 
     from llamole_tpu_torch.models.gllm import LLM, LLMConfig
@@ -500,7 +508,8 @@ def test_families_phase_sizes_are_the_presets():
                      "retro_iterations": 100, "retro_max_time": 30.0,
                      "long_prompt": 1280, "long_prefill": 1024,
                      "long_steps": 32, "moe_layers": 8, "moe_tokens": 64,
-                     "train_batch": 2}
+                     "train_batch": 2, "qwen3_layers": 9,
+                     "gemma2_layers": 14, "gemma3_layers": 12}
     assert chip_smoke.CACHE_LOGIT_TOL == chip_smoke.MERGE_LOGIT_TOL
 
     def count(cfg):
@@ -513,6 +522,73 @@ def test_families_phase_sizes_are_the_presets():
     assert count(g3) == 11766034176
     assert sizes["long_prompt"] > g3.sliding_window == sizes["long_prefill"]
     assert sum(not g3.is_global_layer(i) for i in range(48)) == 40
+    assert sum(not g3.is_global_layer(i)
+               for i in range(sizes["gemma3_layers"])) == 10
+    g2 = LLMConfig.gemma2_9b()
+    assert {g2.is_global_layer(i) for i in range(sizes["gemma2_layers"])
+            } == {True, False}
     mix = LLMConfig.mixtral_8x7b()
     assert count(replace(mix, num_layers=8)) * 2 == 23744618496
     assert count(mix) * 2 == 93405585408
+
+
+# phase 16 (the rest of training) at small sizes on the CPU: the tiny
+# LLM config at 2 layers in every part, the tiny slice's graph modules in
+# (a), the loader's in (b) and (c)
+_FINETUNE_CPU = {"dora_layers": 2, "pissa_layers": 2, "galore_layers": 2,
+                 "badam_layers": 2, "loraplus_lr_ratio": 16.0,
+                 "galore_rank": 16, "galore_update_interval": 200,
+                 "galore_scale": 0.25, "badam_n_blocks": 4,
+                 "badam_switch_interval": 1}
+
+
+def test_finetune_phase_runs_on_the_cpu(capsys):
+    """Phase 16 end to end at a small width in bf16: DoRA + LoRA+ +
+    S²-attn through run_mmsft (S² in every layer of every training
+    forward, none in generation), PiSSA + DoRA's untrained logits and
+    its rank-16 export reloaded onto the original base, GaLore's
+    checkpoint reloaded bit-identically, BAdam moving one block an
+    update."""
+    from llamole_tpu_torch.models.gllm import LLMConfig
+
+    assert set(_FINETUNE_CPU) == set(chip_smoke.FINETUNE)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        launches = chip_smoke.run_finetune(
+            (), "CPU", device="cpu",
+            sizes={**_FINETUNE_CPU, "cfg": LLMConfig.tiny()},
+            build=_tiny_slice)
+    finally:
+        torch.set_num_threads(threads)
+    out = capsys.readouterr().out
+    assert launches == {"B": 0, "C": 0}
+    for line in ("in the training forwards 8 (need 8 = 2 layers x 4 micro "
+                 "steps), in generation 0",
+                 "phase 16 (a) DoRA + LoRA+ (16.0) + shift_attn at 2 layers",
+                 "adapter.msgpack rank 16 with m",
+                 "reloaded bit-identically into a new Trainer",
+                 "phase 16 (c) BAdam (4 blocks, switch every 1)",
+                 "plain GIN calls"):
+        assert line in out, line
+
+
+def test_finetune_phase_sizes():
+    """Phase 16 runs (a) at all 32 layers and cuts (b) and (c) only in
+    depth; its optimizer settings are the finetuning arguments' defaults
+    but LoRA+'s ratio and BAdam's switch interval."""
+    from llamole_tpu_torch.config import FinetuningArguments
+
+    sizes = chip_smoke.FINETUNE
+    assert sizes["dora_layers"] == 32
+    assert all(1 <= sizes[k] <= 32 for k in ("pissa_layers",
+                                             "galore_layers",
+                                             "badam_layers"))
+    ft = FinetuningArguments()
+    assert (sizes["galore_rank"], sizes["galore_update_interval"],
+            sizes["galore_scale"], sizes["badam_n_blocks"]) == (
+        ft.galore_rank, ft.galore_update_interval, ft.galore_scale,
+        ft.badam_n_blocks)
+    assert (sizes["loraplus_lr_ratio"], sizes["badam_switch_interval"]) == (
+        16.0, 1)
+    assert chip_smoke.PISSA_EXPORT_RANK == 2 * 8

@@ -40,7 +40,8 @@ from llamole_tpu.models.loader import make_fallback_predictor
 from llamole_tpu.train.trainer import Trainer as JaxTrainer
 from llamole_tpu.train.trainer import create_optimizer as jax_optimizer
 from llamole_tpu.utils.constants import SPECIAL_TOKENS
-from llamole_tpu_torch.config import TrainingArguments, get_train_args
+from llamole_tpu_torch.config import (FinetuningArguments, TrainingArguments,
+                                      get_train_args)
 from llamole_tpu_torch.data.collator import SeqGraphCollator
 from llamole_tpu_torch.data.loader import get_dataset
 from llamole_tpu_torch.data.tokenizer import ByteTokenizer
@@ -53,7 +54,8 @@ from llamole_tpu_torch.models.graphdit import (GraphDiT, GraphDiTConfig,
                                                build_data_info_from_smiles)
 from llamole_tpu_torch.models.loader import (
     make_fallback_predictor as torch_predictor)
-from llamole_tpu_torch.train.optimizers import create_optimizer, make_schedule
+from llamole_tpu_torch.train.optimizers import (CustomAdamW, create_optimizer,
+                                               make_schedule)
 from llamole_tpu_torch.train.trainer import Trainer, token_accuracy
 from llamole_tpu_torch.train.workflow import run_mmsft
 from llamole_tpu_torch.utils.constants import \
@@ -402,9 +404,11 @@ def test_run_mmsft_writes_logs_checkpoints_and_resumes(tmp_path,
     monkeypatch.delenv("LLAMOLE_ORBAX")
     with pytest.raises(NotImplementedError, match="mesh"):
         run_mmsft(*_tiny_args(tmp_path / "z", mesh="dp:2"), device="cpu")
-    with pytest.raises(NotImplementedError, match="GaLore"):
-        create_optimizer(TrainingArguments(), 4, {},
-                         types.SimpleNamespace(use_galore=True))
+    # GaLore, BAdam and LoRA+ build the custom chain (once refused here;
+    # tests/test_torch_optimizers.py holds it to JAX's)
+    opt, _ = create_optimizer(TrainingArguments(), 4, {},
+                              FinetuningArguments(use_galore=True))
+    assert isinstance(opt, CustomAdamW) and opt.galore.rank == 16
 
 
 def test_cli_trains_and_loss_drops(tmp_path):
