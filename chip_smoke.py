@@ -157,8 +157,8 @@
    phase 9's.
 15. The LLM's other families at full width, after phase 14 on an emptied
    card (FAMILIES; bf16, random weights from seed 0, each model freed
-   before the next; qwen3, gemma-2 and gemma-3 cut in depth to 9, 14
-   and 12 layers since phase 16 joined): (a) qwen3_8b: 8 prompts, 128
+   before the next; qwen3 and gemma-3 cut in depth to 4 and 6 layers
+   since phase 16 joined): (a) qwen3_8b: 8 prompts, 128
    greedy tokens per-token and with drafts (K=2), on the compute-dtype
    and on the int8 KV cache: tok/s each way, accepted drafts a verify
    step, the guard; the cache against the no-cache forward of prompt +
@@ -183,18 +183,20 @@
 16. The rest of training, after phase 15 on an emptied card (FINETUNE;
    Llama-3.1-8B width, bf16, random weights from seed 0), each part
    through run_mmsft with llama_lora.yaml's settings, 4 micro steps and
-   2 updates, no plain GIN call on the card: (a) DoRA + LoRA+ (ratio 16)
-   + shift_attn over phase 7's graph modules at 32 layers: finite
+   2 updates, over phase 7's graph modules, B >= 10 x 4 and C >= 4 x 4
+   in each run and no plain GIN call on the card: (a) DoRA + LoRA+
+   (ratio 16) + shift_attn at 32 layers: finite
    losses, m, the LoRA and the connectors changed and the base checksum
    not, S²-attn in every layer of every training forward and never in
-   generation (s2_attention.calls), B >= 10 x 4 and C >= 4 x 4, each
-   micro step and the peak beside phase 9's; (b) PiSSA + DoRA through
+   generation (s2_attention.calls), each micro step and the peak
+   beside phase 9's; (b) PiSSA + DoRA through
    the loader at pissa_layers: one SVD timed per projection shape, the
    untrained last-token logits within MERGE_LOGIT_TOL of the unmodified
    base's, the rank-16 export reloaded onto the original base through
    build_graph_lm(load_adapter=True), within MERGE_LOGIT_TOL of the
-   trained model in f32 (in bf16 the gap is reported: two roundings of
-   one model); (c) GaLore (rank 16, interval 200, scale 0.25) with
+   trained model with both LLMs widened to f32 (in bf16 the gap is
+   reported beside the share of the update DoRA's bf16 weight cast keeps
+   in each model); (c) GaLore (rank 16, interval 200, scale 0.25) with
    full finetuning at galore_layers: its moments' bytes against AdamW's,
    the refresh SVD at the embedding's shape, checkpoint-4 reloaded
    bit-identically into a new Trainer; then BAdam (4 blocks, switching
@@ -3147,15 +3149,15 @@ def run_quantized(kernels, tag, device="cuda", sizes=None, build=None,
 # parameters take 93 GB in bf16, and no expert is quantized): the cache
 # against the forward, 64 greedy tokens without and with drafts, the
 # capacity drops, one loss and backward at batch 2 with the router term.
-# Since phase 16 joined (the script's time limit) qwen3 runs 9 of
-# its 36 layers, gemma-2 14 of 42 and gemma-3 12 of 48 (10 of them
-# windowed), all at full width
+# Since phase 16 joined (the script's time limit) qwen3 runs 4 of
+# its 36 layers and gemma-3 6 of 48 (5 of them windowed), at full width;
+# gemma-2 runs all 42
 FAMILIES = {"prompts": 8, "greedy_tokens": 128, "spec_tokens": 2,
             "requests": 4, "max_new_tokens": 128, "retro_iterations": 100,
             "retro_max_time": 30.0, "long_prompt": 1280,
             "long_prefill": 1024, "long_steps": 32, "moe_layers": 8,
-            "moe_tokens": 64, "train_batch": 2, "qwen3_layers": 9,
-            "gemma2_layers": 14, "gemma3_layers": 12}
+            "moe_tokens": 64, "train_batch": 2, "qwen3_layers": 4,
+            "gemma3_layers": 6}
 # The cache-against-forward tolerance: max |cached - forward| over max
 # |forward| of the logits at every teacher-forced slot, in bf16: phase 12's
 # bound for two bf16 computations of the same logits (MERGE_LOGIT_TOL).
@@ -3588,8 +3590,7 @@ def run_families(kernels, tag, device="cuda", sizes=None, build=None,
     freed()
     print(f"phase 15 (a) qwen3: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    llm = family_llm(cfgs.get("gemma2") or dataclasses.replace(
-        LLMConfig.gemma2_9b(), num_layers=sizes["gemma2_layers"]), device)
+    llm = family_llm(cfgs.get("gemma2") or LLMConfig.gemma2_9b(), device)
     model, stok = build(llm)
     del llm
     served = serve_quantized(model, stok, kernels, tag, sizes, phase7,
@@ -3616,14 +3617,14 @@ def run_families(kernels, tag, device="cuda", sizes=None, build=None,
 
 
 # Phase 16, the rest of training (after phase 15, on an emptied card), at
-# the slice's Llama-3.1-8B width (bf16, random weights from seed 0): each
-# part runs run_mmsft through its normal entry with llama_lora.yaml's
-# settings and TRAIN_DEVIATIONS, 4 micro steps and 2 updates. (a) DoRA +
-# LoRA+ + shift_attn over phase 7's graph modules, (b) PiSSA + DoRA, (c)
-# GaLore and then BAdam with finetuning_type full; (b) and (c) build
-# through the loader (its random-init graph modules) from a config.json of
-# the 8B width at their depths, whose base the loader draws again from the
-# seed when it reloads an export.
+# the slice's Llama-3.1-8B width (bf16, random weights from seed 0), over
+# phase 7's graph modules: each part runs run_mmsft through its normal
+# entry with llama_lora.yaml's settings and TRAIN_DEVIATIONS, 4 micro
+# steps and 2 updates. (a) DoRA + LoRA+ + shift_attn on the slice, (b)
+# PiSSA + DoRA, (c) GaLore and then BAdam with finetuning_type full; (b)
+# and (c) build through the loader from a config.json of the 8B width at
+# their depths (whose base it draws again from the seed when it reloads
+# an export) and from the graph modules (a) saved.
 FINETUNE = {"dora_layers": 32, "pissa_layers": 2, "galore_layers": 2,
             "badam_layers": 4, "loraplus_lr_ratio": 16.0, "galore_rank": 16,
             "galore_update_interval": 200, "galore_scale": 0.25,
@@ -3632,17 +3633,50 @@ FINETUNE = {"dora_layers": 32, "pissa_layers": 2, "galore_layers": 2,
 PISSA_EXPORT_RANK = 16
 
 
-def finetune_args(out_dir, model_dir=None, **finetuning):
+def finetune_args(out_dir, model_dir=None, modules=None, **finetuning):
     """llama_lora_args' settings (TRAIN_DEVIATIONS; llama_lora.yaml's
     method and precision keys included) with these finetuning arguments
-    and, when given, the LLM's config directory, through get_train_args."""
+    and, when given, the LLM's config directory and the directory of
+    save_graph_modules, through get_train_args."""
     from llamole_tpu_torch.config import get_train_args
 
     args = llama_lora_dict(out_dir)
     args.update(finetuning)
     if model_dir is not None:
         args["model_name_or_path"] = model_dir
+    if modules is not None:
+        args.update({f"{name}_path": os.path.join(modules, name)
+                     for name in GRAPH_MODULES})
     return get_train_args(args)
+
+
+GRAPH_MODULES = ("graph_decoder", "graph_encoder", "graph_predictor")
+
+
+def _graph_checksum(model) -> float:
+    return _checksum([p for name in GRAPH_MODULES
+                      for p in getattr(model, name).parameters()])
+
+
+def save_graph_modules(model, path):
+    """The composite's three graph modules, each in its directory under
+    path in the JAX package's layout (what the loader's graph_*_path
+    reads), and their checksum for check_graph_modules."""
+    for name in GRAPH_MODULES:
+        getattr(model, name).save_pretrained(os.path.join(path, name))
+    with open(os.path.join(path, "checksum.json"), "w") as f:
+        json.dump(_graph_checksum(model), f)
+
+
+def check_graph_modules(model, path, what):
+    """Fails unless the loader built model's graph modules from those
+    save_graph_modules wrote under path (their checksum)."""
+    with open(os.path.join(path, "checksum.json")) as f:
+        saved = json.load(f)
+    got = _graph_checksum(model)
+    if got != saved:
+        fail(f"{what}: the graph modules' checksum {got} is not that of "
+             f"the saved ones, {saved}")
 
 
 def llm_config_dir(work, cfg, name):
@@ -3720,9 +3754,23 @@ def _step_report(metrics, log, what, tag, beside=""):
               f"{beside} [{tag}]", flush=True)
 
 
-def run_dora(kernels, tag, device, sizes, build, phase9):
+def check_finetune_launches(launches, what):
+    """Kernels B and C launched on the GIN layers of run_mmsft's 4 micro
+    steps (the predictor's backward, GraphCLIP's and the predictor's
+    forwards)."""
+    check_launches(f"gin_aggregate_backward ({what})", launches["C"],
+                   (GIN_LAYERS - 1) * 4,
+                   f"{GIN_LAYERS - 1} predictor layers x 4 micro steps")
+    check_launches(f"gin_aggregate ({what})", launches["B"],
+                   2 * GIN_LAYERS * 4,
+                   f"({GIN_LAYERS} GraphCLIP + {GIN_LAYERS} predictor "
+                   "layers) x 4")
+
+
+def run_dora(kernels, tag, device, sizes, build, phase9, modules):
     """Phase 16 (a): DoRA + LoRA+ + shift_attn over phase 7's graph
-    modules. Returns the B and C launches of run_mmsft."""
+    modules, which it saves first under modules (save_graph_modules) for
+    (b) and (c). Returns the B and C launches of run_mmsft."""
     from llamole_tpu_torch.models.gllm import LLMConfig
     from llamole_tpu_torch.models.gllm.model import s2_attention
     from llamole_tpu_torch.train.workflow import run_mmsft
@@ -3733,6 +3781,10 @@ def run_dora(kernels, tag, device, sizes, build, phase9):
     llm = family_llm(cfg, device)
     model, tok = build(llm)
     del llm
+    t0 = time.perf_counter()
+    save_graph_modules(model, modules)
+    print(f"phase 7's graph modules saved for (b) and (c) in "
+          f"{time.perf_counter() - t0:.3f} s [{tag}]", flush=True)
     model.use_dora = True
     model.init_pissa_dora()          # init_trainable's DoRA step: m = ||W||
     cfg = model.llm.cfg
@@ -3794,13 +3846,7 @@ def run_dora(kernels, tag, device, sizes, build, phase9):
         fail(f"S²-attn ran {s2} times, expected {need} in training and none "
              "in generation")
     if device == "cuda":
-        check_launches("gin_aggregate_backward (DoRA training)",
-                       launches["C"], (GIN_LAYERS - 1) * 4,
-                       f"{GIN_LAYERS - 1} predictor layers x 4 micro steps")
-        check_launches("gin_aggregate (DoRA training)", launches["B"],
-                       2 * GIN_LAYERS * 4,
-                       f"({GIN_LAYERS} GraphCLIP + {GIN_LAYERS} predictor "
-                       "layers) x 4")
+        check_finetune_launches(launches, "DoRA training")
     beside = ""
     if phase9:
         beside = (f"; phase 9 in this run: {min(phase9['step_s']):.3f}"
@@ -3835,18 +3881,45 @@ def svd_seconds(shapes, device):
     return out
 
 
-def run_pissa(kernels, tag, device, sizes):
+def _f32_logits(model, tok, device):
+    """_last_logits with the LLM widened to f32 in place: its bf16 base
+    widens exactly, and DoRA's effective weight reaches each product
+    without the cast to the compute dtype."""
+    model.llm.float()
+    return _last_logits(model, tok, device)
+
+
+def _bf16_kept(before, after) -> float:
+    """The share of the f32 update after - before that reaches the tensor
+    rounded to bf16: <Q(after) - Q(before), d> / <d, d> with d = after -
+    before and Q the rounding (1 when the rounding keeps the update on
+    average, 0 when it drops it)."""
+    d = after - before
+    q = after.to(torch.bfloat16).float() - before.to(torch.bfloat16).float()
+    return float((q * d).sum() / (d * d).sum())
+
+
+def run_pissa(kernels, tag, device, sizes, modules):
     """Phase 16 (b): PiSSA + DoRA through the loader at pissa_layers of
-    the 8B width, once with the LLM in bf16 and once in f32. Each: the
+    the 8B width over phase 7's graph modules (under modules), bf16: the
     composite's last-token logits before training against the unmodified
     base's, run_mmsft, the export's rank, and the export reloaded onto
     the original base through build_graph_lm(load_adapter=True) against
-    the trained model. In bf16 the in-memory base is PiSSA's residual
-    rounded to bf16 (as in JAX) and the reloaded one the original
-    weights, two roundings of one f32 model that training pulls apart
-    (PERF.md §6), so the reload is held to MERGE_LOGIT_TOL in f32,
-    where both are the same model, and its bf16 gap is reported."""
+    the trained model. The reload is held to MERGE_LOGIT_TOL with both
+    LLMs widened to f32: the same bf16 bases and f32 adapters, without
+    the cast to bf16 that DoRA's effective weight takes before each
+    product (as in JAX's _proj). In bf16 that cast parts the two: the
+    reloaded base lies on the bf16 grid, so an update below half a bf16
+    step rounds away, while PiSSA's in-memory residual (rounded to bf16)
+    plus the f32 principal part lies off it and keeps the update on
+    average. The bf16 gap is reported beside the share of training's
+    update to layer 0 q's DoRA weight that survives the cast in each
+    model (_bf16_kept)."""
     from llamole_tpu_torch.models.gllm import LLMConfig
+    from llamole_tpu_torch.models.gllm.lora import dora_weight, pissa_to_lora
+    from llamole_tpu_torch.models.loader import build_graph_lm
+    from llamole_tpu_torch.train.workflow import run_mmsft
+    from llamole_tpu_torch.utils.serialization import load_pytree
 
     cfg = dataclasses.replace(sizes.get("cfg") or LLMConfig.llama3_8b(),
                               num_layers=sizes["pissa_layers"])
@@ -3858,25 +3931,10 @@ def run_pissa(kernels, tag, device, sizes):
           + ", ".join(f"{s[0]} x {s[1]} {t:.3f} s" for s, t in svd.items())
           + f"; {7 * cfg.num_layers} projections [{tag}]", flush=True)
     model_dir = llm_config_dir(sizes["work"], cfg, "pissa_llm")
-    launches = {"B": 0, "C": 0}
-    for dtype in ("bfloat16", "float32"):
-        got = _pissa_export(kernels, tag, device, sizes, model_dir, dtype)
-        for k in launches:
-            launches[k] += got[k]
-    return launches
-
-
-def _pissa_export(kernels, tag, device, sizes, model_dir, dtype):
-    """One dtype of run_pissa; returns run_mmsft's B and C launches."""
-    from llamole_tpu_torch.models.loader import build_graph_lm
-    from llamole_tpu_torch.train.workflow import run_mmsft
-    from llamole_tpu_torch.utils.serialization import load_pytree
-
-    out_dir = os.path.join(sizes["work"], f"pissa_{dtype}")
-    plain = finetune_args(out_dir, model_dir)
-    args = finetune_args(out_dir, model_dir, use_dora=True, pissa_init=True)
-    for group in (plain, args):
-        group[0].compute_dtype = dtype
+    out_dir = os.path.join(sizes["work"], "pissa")
+    plain = finetune_args(out_dir, model_dir, modules)
+    args = finetune_args(out_dir, model_dir, modules, use_dora=True,
+                         pissa_init=True)
     seed = args[2].seed
     base, tok = build_graph_lm(*plain[:2], plain[3], device=device,
                                seed=seed)
@@ -3888,46 +3946,67 @@ def _pissa_export(kernels, tag, device, sizes, model_dir, dtype):
     model, tok = build_graph_lm(*args[:2], args[3], device=device, seed=seed)
     _sync_card()
     built = time.perf_counter() - t0
+    check_graph_modules(model, modules, "PiSSA")
     gap = _logit_gap(_last_logits(model, tok, device), want)
-    print(f"PiSSA + DoRA build in {dtype} (the SVDs, the residual base, m): "
+    print(f"PiSSA + DoRA build (the SVDs, the residual base, m): "
           f"{built:.3f} s; last-token logits before training {gap:.3e} of "
           f"the largest from the unmodified base's (bound "
           f"{MERGE_LOGIT_TOL}) [{tag}]", flush=True)
     if not gap < MERGE_LOGIT_TOL:
-        fail(f"PiSSA + DoRA ({dtype}) changed the untrained logits by {gap}")
+        fail(f"PiSSA + DoRA changed the untrained logits by {gap}")
+    q = model.llm.layers[0].attn["q"]
+    scale = q.lora_scale
+    a0, b0, m0 = (t.detach().clone() for t in (q.lora_a, q.lora_b, q.lora_m))
+    untrained = dora_weight(q.weight, a0, b0, m0, scale)
     reset_counts(*kernels)
     metrics = run_mmsft(*args, prebuilt=(model, tok))
     launches = ({"B": kernels[1].launches, "C": kernels[2].launches}
                 if device == "cuda" else {"B": 0, "C": 0})
-    _train_log(out_dir, 4, f"PiSSA ({dtype})")
+    if device == "cuda":
+        check_finetune_launches(launches, "PiSSA training")
+    _train_log(out_dir, 4, "PiSSA")
     trained = _last_logits(model, tok, device)
     moved = _logit_gap(trained, want)
-    del model
+    with torch.no_grad():
+        kept_memory = _bf16_kept(untrained, dora_weight(
+            q.weight, q.lora_a, q.lora_b, q.lora_m, scale))
+    trained32 = _f32_logits(model, tok, device)
+    del model, q, untrained
     gc.collect()
     adapter = load_pytree(os.path.join(out_dir, "adapter.msgpack"))
-    q = adapter["layers"][0]["attn"]["q"]
-    rank = int(q["a"].shape[1])
-    if rank != PISSA_EXPORT_RANK or "m" not in q:
+    leaf = adapter["layers"][0]["attn"]["q"]
+    rank = int(leaf["a"].shape[1])
+    if rank != PISSA_EXPORT_RANK or "m" not in leaf:
         fail(f"the PiSSA export has rank {rank} (expected "
-             f"{PISSA_EXPORT_RANK}) and keys {sorted(q)}")
+             f"{PISSA_EXPORT_RANK}) and keys {sorted(leaf)}")
     m2 = dataclasses.replace(args[0], adapter_name_or_path=out_dir)
     reloaded, tok = build_graph_lm(m2, args[1], args[3], device=device,
                                    seed=seed, load_adapter=True)
-    gap2 = _logit_gap(_last_logits(reloaded, tok, device), trained)
+    gap16 = _logit_gap(_last_logits(reloaded, tok, device), trained)
+    rq = reloaded.llm.layers[0].attn["q"]
+    with torch.no_grad():
+        kept_reloaded = _bf16_kept(
+            dora_weight(rq.weight, *pissa_to_lora(a0, b0, a0, b0), m0,
+                        scale),
+            dora_weight(rq.weight, rq.lora_a, rq.lora_b, rq.lora_m, scale))
+    del rq
+    gap32 = _logit_gap(_f32_logits(reloaded, tok, device), trained32)
     del reloaded
     gc.collect()
-    held = dtype == "float32"
-    print(f"phase 16 (b) PiSSA + DoRA in {dtype} at "
-          f"{len(adapter['layers'])} layers: {metrics['train_steps']} micro "
-          f"steps (the logits moved {moved:.3e} of the largest from the "
-          f"base's); adapter.msgpack rank {rank} with m; reloaded onto the "
-          f"original base through build_graph_lm(load_adapter=True): "
-          f"last-token logits {gap2:.3e} of the largest from the trained "
-          f"model's" + (f" (bound {MERGE_LOGIT_TOL})" if held else
-                        " (two bf16 roundings of one model; held in f32)")
-          + f" [{tag}]", flush=True)
-    if held and not gap2 < MERGE_LOGIT_TOL:
-        fail(f"the PiSSA export reloaded {gap2} away in {dtype}")
+    print(f"phase 16 (b) PiSSA + DoRA at {len(adapter['layers'])} layers: "
+          f"{metrics['train_steps']} micro steps (the logits moved "
+          f"{moved:.3e} of the largest from the base's); adapter.msgpack "
+          f"rank {rank} with m; reloaded onto the original base through "
+          f"build_graph_lm(load_adapter=True): last-token logits with both "
+          f"LLMs widened to f32 {gap32:.3e} of the largest from the trained "
+          f"model's (bound {MERGE_LOGIT_TOL}), in bf16 {gap16:.3e}; the "
+          f"share of training's update to layer 0 q's DoRA weight that "
+          f"survives its bf16 cast: {kept_memory:.4f} in memory (the "
+          f"residual off the bf16 grid), {kept_reloaded:.4f} reloaded (the "
+          f"base on it) [{tag}]",
+          flush=True)
+    if not gap32 < MERGE_LOGIT_TOL:
+        fail(f"the PiSSA export reloaded {gap32} away (f32)")
     return launches
 
 
@@ -3935,11 +4014,12 @@ def _state_bytes(tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def run_galore(kernels, tag, device, sizes):
-    """Phase 16 (c), GaLore with full finetuning at galore_layers: the
-    moments' bytes against AdamW's, the refresh SVD at the embedding's
-    shape, and checkpoint-4's opt_state reloaded bit-identically into a
-    new Trainer."""
+def run_galore(kernels, tag, device, sizes, modules):
+    """Phase 16 (c), GaLore with full finetuning at galore_layers over
+    phase 7's graph modules (under modules): the moments' bytes against
+    AdamW's, the refresh SVD at the embedding's shape, and
+    checkpoint-4's opt_state reloaded bit-identically into a new
+    Trainer."""
     from llamole_tpu_torch.models.gllm import LLMConfig
     from llamole_tpu_torch.models.loader import build_graph_lm
     from llamole_tpu_torch.train.optimizers import galore_basis
@@ -3950,13 +4030,14 @@ def run_galore(kernels, tag, device, sizes):
                               num_layers=sizes["galore_layers"])
     out_dir = os.path.join(sizes["work"], "galore")
     args = finetune_args(
-        out_dir, llm_config_dir(sizes["work"], cfg, "galore_llm"),
+        out_dir, llm_config_dir(sizes["work"], cfg, "galore_llm"), modules,
         finetuning_type="full", use_galore=True,
         galore_rank=sizes["galore_rank"],
         galore_update_interval=sizes["galore_update_interval"],
         galore_scale=sizes["galore_scale"])
     model, tok = build_graph_lm(*args[:2], args[3], device=device,
                                 seed=args[2].seed)
+    check_graph_modules(model, modules, "GaLore")
     reset_counts(*kernels)
     if device == "cuda":
         torch.cuda.synchronize()
@@ -3979,6 +4060,8 @@ def run_galore(kernels, tag, device, sizes):
     peak = _peak(device == "cuda")
     launches = ({"B": kernels[1].launches, "C": kernels[2].launches}
                 if device == "cuda" else {"B": 0, "C": 0})
+    if device == "cuda":
+        check_finetune_launches(launches, "GaLore training")
     log = _train_log(out_dir, 4, "GaLore")
     params = model.trainable_parameters()
     rec = saved["checkpoint-4"]
@@ -4033,10 +4116,11 @@ def run_galore(kernels, tag, device, sizes):
     return launches
 
 
-def run_badam(kernels, tag, device, sizes):
-    """Phase 16 (c), BAdam with full finetuning at badam_layers: only the
-    active block's leaves change at each update (the first update's
-    learning rate is 0: nothing changes)."""
+def run_badam(kernels, tag, device, sizes, modules):
+    """Phase 16 (c), BAdam with full finetuning at badam_layers over phase
+    7's graph modules (under modules): only the active block's leaves
+    change at each update (the first update's learning rate is 0:
+    nothing changes)."""
     from llamole_tpu_torch.models.gllm import LLMConfig
     from llamole_tpu_torch.models.loader import build_graph_lm
     from llamole_tpu_torch.train.optimizers import badam_blocks
@@ -4046,12 +4130,13 @@ def run_badam(kernels, tag, device, sizes):
                               num_layers=sizes["badam_layers"])
     out_dir = os.path.join(sizes["work"], "badam")
     args = finetune_args(
-        out_dir, llm_config_dir(sizes["work"], cfg, "badam_llm"),
+        out_dir, llm_config_dir(sizes["work"], cfg, "badam_llm"), modules,
         finetuning_type="full", use_badam=True,
         badam_n_blocks=sizes["badam_n_blocks"],
         badam_switch_interval=sizes["badam_switch_interval"])
     model, tok = build_graph_lm(*args[:2], args[3], device=device,
                                 seed=args[2].seed)
+    check_graph_modules(model, modules, "BAdam")
     params = model.trainable_parameters()
     block = badam_blocks(params, sizes["badam_n_blocks"])
     seen = []
@@ -4078,6 +4163,8 @@ def run_badam(kernels, tag, device, sizes):
     peak = _peak(device == "cuda")
     launches = ({"B": kernels[1].launches, "C": kernels[2].launches}
                 if device == "cuda" else {"B": 0, "C": 0})
+    if device == "cuda":
+        check_finetune_launches(launches, "BAdam training")
     log = _train_log(out_dir, 4, "BAdam")
     moved = []
     for i, (before, after) in enumerate(((seen[0], seen[2]),
@@ -4107,9 +4194,9 @@ def run_badam(kernels, tag, device, sizes):
 def run_finetune(kernels, tag, device="cuda", sizes=None, build=None,
                  phase9=None):
     """Phase 16 on an empty card: (a) run_dora, (b) run_pissa, (c)
-    run_galore then run_badam, each model freed before the next. Returns
-    the B and C launches of the four runs together (the fallback
-    predictor's in (b) and (c))."""
+    run_galore then run_badam, each model freed before the next, all over
+    phase 7's graph modules ((a) saves them for the others). Returns the
+    B and C launches of the four runs together."""
     sizes = dict(sizes or FINETUNE)
     build = build or build_slice
     on_card = device == "cuda"
@@ -4122,17 +4209,18 @@ def run_finetune(kernels, tag, device="cuda", sizes=None, build=None,
 
     work = tempfile.mkdtemp(prefix="chip_smoke_finetune_")
     sizes["work"] = work
+    modules = os.path.join(work, "modules")
     try:
         with plain_gin_calls(on_card) as plain:
             for part, fn in (
                     ("(a) DoRA", lambda: run_dora(kernels, tag, device, sizes,
-                                                  build, phase9)),
+                                                  build, phase9, modules)),
                     ("(b) PiSSA", lambda: run_pissa(kernels, tag, device,
-                                                    sizes)),
+                                                    sizes, modules)),
                     ("(c) GaLore", lambda: run_galore(kernels, tag, device,
-                                                      sizes)),
+                                                      sizes, modules)),
                     ("(c) BAdam", lambda: run_badam(kernels, tag, device,
-                                                    sizes))):
+                                                    sizes, modules))):
                 t0 = time.perf_counter()
                 got = fn()
                 freed()

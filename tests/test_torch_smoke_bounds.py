@@ -442,7 +442,7 @@ _FAMILIES_CPU = {"prompts": 8, "greedy_tokens": 8, "spec_tokens": 2,
                  "retro_max_time": 5.0, "long_prompt": 40,
                  "long_prefill": 16, "long_steps": 4, "moe_layers": 2,
                  "moe_tokens": 8, "train_batch": 2, "qwen3_layers": 2,
-                 "gemma2_layers": 2, "gemma3_layers": 3}
+                 "gemma3_layers": 3}
 
 
 def _family_cfgs():
@@ -494,10 +494,10 @@ def test_families_phase_sizes_are_the_presets():
     """Phase 15 runs the presets at full width (counted on the meta device:
     qwen3_8b 8.19B parameters, gemma2_9b 9.24B, gemma3_12b 11.77B; Mixtral
     at 8 of 32 layers 11.87B, 23.7 GB in bf16 where all 32 take 93.4 GB),
-    cut in depth since phase 16 joined: qwen3 to 9 of 36 layers, gemma-2
-    to 14 of 42 (alternating windows), gemma-3 to 12 of 48 (10 of them
-    windowed); a 1280-token prompt past gemma-3's 1024-token window, and
-    phase 7's serving settings."""
+    gemma-2 at all 42 layers, qwen3 and gemma-3 cut in depth since phase
+    16 joined: qwen3 to 4 of 36 layers, gemma-3 to 6 of 48 (5 of them
+    windowed, one global); a 1280-token prompt past gemma-3's 1024-token
+    window, and phase 7's serving settings."""
     from dataclasses import replace
 
     from llamole_tpu_torch.models.gllm import LLM, LLMConfig
@@ -508,8 +508,8 @@ def test_families_phase_sizes_are_the_presets():
                      "retro_iterations": 100, "retro_max_time": 30.0,
                      "long_prompt": 1280, "long_prefill": 1024,
                      "long_steps": 32, "moe_layers": 8, "moe_tokens": 64,
-                     "train_batch": 2, "qwen3_layers": 9,
-                     "gemma2_layers": 14, "gemma3_layers": 12}
+                     "train_batch": 2, "qwen3_layers": 4,
+                     "gemma3_layers": 6}
     assert chip_smoke.CACHE_LOGIT_TOL == chip_smoke.MERGE_LOGIT_TOL
 
     def count(cfg):
@@ -523,10 +523,7 @@ def test_families_phase_sizes_are_the_presets():
     assert sizes["long_prompt"] > g3.sliding_window == sizes["long_prefill"]
     assert sum(not g3.is_global_layer(i) for i in range(48)) == 40
     assert sum(not g3.is_global_layer(i)
-               for i in range(sizes["gemma3_layers"])) == 10
-    g2 = LLMConfig.gemma2_9b()
-    assert {g2.is_global_layer(i) for i in range(sizes["gemma2_layers"])
-            } == {True, False}
+               for i in range(sizes["gemma3_layers"])) == 5
     mix = LLMConfig.mixtral_8x7b()
     assert count(replace(mix, num_layers=8)) * 2 == 23744618496
     assert count(mix) * 2 == 93405585408
@@ -534,7 +531,7 @@ def test_families_phase_sizes_are_the_presets():
 
 # phase 16 (the rest of training) at small sizes on the CPU: the tiny
 # LLM config at 2 layers in every part, the tiny slice's graph modules in
-# (a), the loader's in (b) and (c)
+# all four runs ((a) saves them, (b) and (c) load them)
 _FINETUNE_CPU = {"dora_layers": 2, "pissa_layers": 2, "galore_layers": 2,
                  "badam_layers": 2, "loraplus_lr_ratio": 16.0,
                  "galore_rank": 16, "galore_update_interval": 200,
@@ -566,7 +563,9 @@ def test_finetune_phase_runs_on_the_cpu(capsys):
     for line in ("in the training forwards 8 (need 8 = 2 layers x 4 micro "
                  "steps), in generation 0",
                  "phase 16 (a) DoRA + LoRA+ (16.0) + shift_attn at 2 layers",
+                 "phase 7's graph modules saved for (b) and (c)",
                  "adapter.msgpack rank 16 with m",
+                 "with both LLMs widened to f32",
                  "reloaded bit-identically into a new Trainer",
                  "phase 16 (c) BAdam (4 blocks, switch every 1)",
                  "plain GIN calls"):
