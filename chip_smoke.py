@@ -130,7 +130,8 @@
    see run_continuous.
 14. Quantized serving at the slice's Llama-3.1-8B shape, after phase 12
    on an emptied card (QUANTIZED): (a) the LLM drawn straight into int8
-   weights with the int8 KV cache (as bench.py's molqa cell builds it),
+   weights with the int8 KV cache (as bench.py's molqa cell builds it;
+   20 of 32 layers since phase 17 joined),
    the graph modules as in phase 7, 4 of phase 7's requests (the first
    asking for a route) through DesignServer at phase 7's settings: no
    "error", a "retro" block, A >= 28 x steps x design batches all on the
@@ -166,7 +167,8 @@
    each row where the drafted tokens part from the per-token ones must
    part where the per-token path's top-2 gap is at most twice that
    check's largest difference; (b) gemma2_9b (softcaps, sandwich norms,
-   GeGLU, sliding windows) serving 4 of phase 7's requests (the first
+   GeGLU, sliding windows; 22 of its 42 layers since phase 17 joined)
+   serving 4 of phase 7's requests (the first
    asking for a route) through DesignServer over phase 7's graph modules
    at phase 7's settings: no "error", a "retro" block, A >= 28 x steps x
    design batches all mma, B >= 5 x (rounds + products), latencies and
@@ -185,7 +187,7 @@
    through run_mmsft with llama_lora.yaml's settings, 4 micro steps and
    2 updates, over phase 7's graph modules, B >= 10 x 4 and C >= 4 x 4
    in each run and no plain GIN call on the card: (a) DoRA + LoRA+
-   (ratio 16) + shift_attn at 32 layers: finite
+   (ratio 16) + shift_attn at 16 of 32 layers (since phase 17 joined): finite
    losses, m, the LoRA and the connectors changed and the base checksum
    not, S²-attn in every layer of every training forward and never in
    generation (s2_attention.calls), each micro step and the peak
@@ -202,6 +204,28 @@
    bit-identically into a new Trainer; then BAdam (4 blocks, switching
    every update) with full finetuning at badam_layers: only the active
    block's leaves changed at each update.
+17. The entry points and tools (ENTRY), inside phase 12 once its merged
+   model is freed, over phase 12's files (the 8B base as HF
+   safetensors, phase 9's adapter, the graph modules, which load in f32:
+   A on its FMA body), kernel counts set to 0 before and read after each
+   part, a PhaseTimer over the parts: (a) `python -m llamole_tpu_torch
+   env` in a subprocess from the repo root names the card; (b)
+   validate_data on data/molqa_train_examples.json reports ok, then
+   `pretrain oracle` on it for 20 steps inside profiling.trace(): B and
+   C >= 3 layers x 20 steps, no plain GIN call, a Chrome trace naming
+   both kernels (its size printed); (c) `eval` on a YAML written with
+   utils/flat_yaml (llama_drug.yaml's settings, 64 new tokens, eval batch
+   2, over a 2-record copy of data/molqa_drug_examples.json): the results
+   JSON with its summary, no record with an "error", A >= 28 x steps x
+   design batches, B >= 5 x (rounds + products); (d) `parity` with
+   converted/ already holding the graph modules (nothing converts), (b)'s
+   oracle, 1 record and a 10 s wall: parity_table.json with the JAX
+   package's keys (PARITY_KEYS) and a validity, A and B as in (c); (e)
+   DesignUIServer on 127.0.0.1, port 0: the page equal to _render_page(),
+   /health, one design with {"HIV": 1.0, "SA": 2.5} (JAX's keys, an SVG
+   when valid, A and B as in (c); its wall and latency printed), a
+   malformed body answered 500 with an "error", /health after it, and the
+   server shut down in a finally.
 
 Prints, before the last line, one {"kernels": [...]} JSON line (per
 kernel: launches on the main path, max_abs_err, ms, plain_ms, device_ms,
@@ -217,7 +241,8 @@ launches_quantized, phase 14's: A's in its serving and int8-denoiser
 batch (per body too), B's in its serving and QLoRA training, C's in
 the latter; under launches_families, phase 15's: A's in the gemma-2
 serving (per body too), B's there and in the Mixtral loss, C's in the
-latter; under launches_finetune, phase 16's B and C (its four runs);
+latter; under launches_finetune, phase 16's B and C (its four runs); under
+launches_entry, phase 17's: A's (per body too), B's and C's;
 the last line is {"ok": true, "device": {...}}. Any
 failure exits non-zero.
 """
@@ -227,6 +252,7 @@ import copy
 import dataclasses
 import gc
 import hashlib
+import io
 import json
 import os
 import shutil
@@ -234,6 +260,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 from types import SimpleNamespace
@@ -2433,13 +2460,15 @@ def serve_interchange(model, tok, kernels, tag, sizes):
 
 
 def run_interchange(kernels, work, train_dir, tag, device="cuda",
-                    sizes=None):
+                    sizes=None, then=None):
     """Phase 12, steps 2-6, on an empty card: merge_adapter through its
     normal entry (work/base + phase 9's adapter + the graph modules ->
     work/merged), the unmerged and the merged model built through
     build_graph_lm, their tensors and logits held together, requests
-    served from the merged one. work/base and work/merged are deleted
-    whatever happens. Returns the A and B launches of the serving."""
+    served from the merged one; then `then()` (phase 17, which reads
+    work/base) once the card is empty again. work/base and work/merged
+    are deleted whatever happens. Returns the A and B launches of the
+    serving."""
     from llamole_tpu_torch.models import loader
     from llamole_tpu_torch.train import export
     from llamole_tpu_torch.train.export import merge_adapter
@@ -2509,7 +2538,12 @@ def run_interchange(kernels, work, train_dir, tag, device="cuda",
         launches = serve_interchange(reloaded, tok2, kernels, tag, sizes)
         print(f"interchange phase: peak {_peak(on_card)} over the two "
               f"models and the serving [{tag}]", flush=True)
-        del reloaded
+        del reloaded, tok2
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        if then is not None:
+            then()
     finally:
         for d in ("base", "merged"):
             shutil.rmtree(os.path.join(work, d), ignore_errors=True)
@@ -2517,6 +2551,386 @@ def run_interchange(kernels, work, train_dir, tag, device="cuda",
         if on_card:
             torch.cuda.empty_cache()
     return launches, rel
+
+
+# Phase 17, the entry points and tools at the Llama-3.1-8B width, inside
+# phase 12 once its merged model is freed: `python -m llamole_tpu_torch
+# env`, validate_data, `pretrain oracle` inside profiling.trace(), eval on
+# a YAML, parity and the web UI, each through cli.main or the UI server
+# from phase 12's files (the 8B base as HF safetensors, phase 9's adapter,
+# the graph modules). The eval YAML follows config/generate/llama_drug.yaml
+# but for its paths, 64 new tokens and an eval batch of 2; parity runs its
+# defaults (template default, 128 new tokens, top-k 50, 100 iterations)
+# on 1 record with a 10 s wall per molecule
+ENTRY = {"oracle_steps": 20, "eval_records": 2, "eval_batch": 2,
+         "max_new_tokens": 64, "cutoff_len": 128, "parity_records": 1,
+         "parity_wall": 10.0}
+# the keys of parity_table.json: the JAX package's _flatten_table
+# (tests/test_torch_parity.py holds them equal)
+PARITY_KEYS = ("validity", "retro_success", "acc_BBBP", "acc_HIV",
+               "acc_BACE", "mae_CO2", "mae_N2", "mae_O2", "mae_FFV",
+               "mae_TC", "mae_SC", "mae_SA", "bleu4", "rouge1", "rouge2",
+               "rougeL", "uniqueness", "novelty", "fgd", "num_records",
+               "molecules_per_min")
+UI_PROPERTIES = {"HIV": 1.0, "SA": 2.5}
+UI_KEYS = {"smiles", "valid", "text_html", "reactions_html", "mol_svg",
+           "route_svg", "route_found"}
+
+
+@contextlib.contextmanager
+def built_models():
+    """Every GraphLM the entry points build inside the block, with
+    PathTimers on its stages: a list of (model, timers). The caller
+    clears it so the models can go."""
+    from llamole_tpu_torch.models import loader
+
+    built, orig = [], loader.build_graph_lm
+
+    def build(*args, **kwargs):
+        model, tok = orig(*args, **kwargs)
+        built.append((model, PathTimers(model)))
+        return model, tok
+
+    loader.build_graph_lm = build
+    try:
+        yield built
+    finally:
+        loader.build_graph_lm = orig
+
+
+def _entry_launches(kernels, on_card):
+    if not on_card:
+        return {"A": 0, "A_mma": 0, "A_fma": 0, "B": 0, "C": 0}
+    fused, gin, gin_bwd = kernels[:3]
+    return {"A": fused.launches, "A_mma": fused.launches_mma,
+            "A_fma": fused.launches_fma, "B": gin.launches,
+            "C": gin_bwd.launches}
+
+
+def check_design_launches(built, launches, what, on_card, tag):
+    """Kernel A on every reverse step of every denoiser block of each
+    design batch, B on every GIN layer of each expansion round and each
+    product scored, in the models built for this part (one expected)."""
+    if len(built) != 1:
+        fail(f"{what}: the entry point built {len(built)} models, not 1")
+    model, timers = built[0]
+    print(f"{what}: fused_block_attention bodies mma {launches['A_mma']}, "
+          f"fma {launches['A_fma']}; {timers.count('design')} design "
+          f"batch(es) in {timers.seconds('design'):.3f} s (the sampler "
+          f"{timers.seconds('sampler'):.3f} s; the LLM's generate calls, "
+          f"design and retro, {timers.seconds('decode'):.3f} s in all), "
+          f"{timers.count('rounds')} expansion round(s), "
+          f"{timers.count('predictor')} product(s) scored [{tag}]",
+          flush=True)
+    timers.report_phase2(tag)
+    if not on_card:
+        return
+    steps, depth = diffusion_steps(model), model.graph_decoder.cfg.depth
+    batches = timers.count("design")
+    check_launches(f"fused_block_attention ({what})", launches["A"],
+                   depth * steps * batches, f"{depth} x {steps} x {batches}")
+    check_launches(f"gin_aggregate ({what})", launches["B"],
+                   timers.gin_floor(),
+                   f"{GIN_LAYERS} x ({timers.count('splice')} rounds + "
+                   f"{timers.count('predictor')} products)")
+
+
+def _free(built, on_card):
+    built.clear()
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
+
+def entry_env(device, tag):
+    """(a) `python -m llamole_tpu_torch env` in a subprocess from the
+    repo root: exit 0 and the device in its default_device line."""
+    root = Path(__file__).resolve().parent
+    cmd = [sys.executable, "-m", "llamole_tpu_torch", "env"]
+    if device != "cuda":
+        cmd += ["--device", device]
+    proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                          timeout=300)
+    want = (f"cuda:0 ({torch.cuda.get_device_name(0)})" if device == "cuda"
+            else device)
+    lines = dict(line.split(": ", 1) for line in proc.stdout.splitlines()
+                 if ": " in line)
+    print(f"phase 17 (a) python -m llamole_tpu_torch env: exit "
+          f"{proc.returncode}, {lines} [{tag}]", flush=True)
+    if proc.returncode != 0 or lines.get("default_device") != want:
+        fail(f"env: exit {proc.returncode}, default_device "
+             f"{lines.get('default_device')!r} (want {want!r}); "
+             f"{proc.stderr[-2000:]}")
+
+
+def entry_pretrain(kernels, entry, device, tag, sizes):
+    """(b) validate_data on the training examples, then `pretrain oracle`
+    on them inside profiling.trace(): B and C on every GIN layer of every
+    step, no plain GIN call on the card, and a trace that names both
+    kernels. Returns the oracle's directory and the launches."""
+    from llamole_tpu_torch import cli
+    from llamole_tpu_torch.utils import profiling
+
+    on_card = device == "cuda"
+    corpus = str(Path(__file__).resolve().parent / "data"
+                 / "molqa_train_examples.json")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli.main(["validate_data", corpus])
+    report = json.loads(out.getvalue())
+    print(f"phase 17 (b) validate_data: ok {report['ok']}, "
+          f"{report['records']} records, property coverage "
+          f"{report['property_coverage']} [{tag}]", flush=True)
+    if not report["ok"]:
+        fail(f"validate_data: {report}")
+    oracle = os.path.join(entry, "oracle")
+    traces = os.path.join(entry, "trace")
+    steps = sizes["oracle_steps"]
+    reset_counts(*kernels)
+    t0 = time.perf_counter()
+    with plain_gin_calls(on_card) as plain, profiling.trace(traces):
+        cli.main(["pretrain", "oracle", corpus, oracle, f"steps={steps}",
+                  "--device", device])
+    wall = time.perf_counter() - t0
+    launches = _entry_launches(kernels, on_card)
+    files = os.listdir(traces)
+    if len(files) != 1:
+        fail(f"pretrain oracle under trace(): {files} in {traces}")
+    path = os.path.join(traces, files[0])
+    with open(path) as f:
+        names = {str(e.get("name")) for e in json.load(f)["traceEvents"]}
+    kernel_names = sorted(n for n in names if "gin_aggregate_kernel" in n
+                          or "gin_backward" in n)
+    print(f"phase 17 (b) pretrain oracle ({steps} steps) under trace(): "
+          f"{wall:.3f} s, trace {os.path.getsize(path)} bytes, "
+          f"{len(names)} event names, GIN kernels named {kernel_names}; "
+          f"plain GIN calls {plain[0]} [{tag}]", flush=True)
+    if on_card:
+        from llamole_tpu_torch.models.oracle import PropertyOracleConfig
+        layers = PropertyOracleConfig().num_layer
+        check_launches("gin_aggregate (pretrain oracle)", launches["B"],
+                       layers * steps, f"{layers} layers x {steps} steps")
+        check_launches("gin_aggregate_backward (pretrain oracle)",
+                       launches["C"], layers * steps,
+                       f"{layers} layers x {steps} steps")
+        for want in ("gin_aggregate_kernel", "gin_backward"):
+            if not any(want in n for n in kernel_names):
+                fail(f"the trace names no {want} kernel")
+    if not os.path.exists(os.path.join(oracle, "model.msgpack")):
+        fail(f"pretrain oracle wrote no model.msgpack under {oracle}")
+    return oracle, launches
+
+
+def _entry_config(work, train_dir, sizes, **extra):
+    """config/generate/llama_drug.yaml's settings over phase 12's files."""
+    mods = os.path.join(work, "modules")
+    return {"model_name_or_path": os.path.join(work, "base"),
+            "adapter_name_or_path": train_dir,
+            "graph_decoder_path": os.path.join(mods, "graph_decoder"),
+            "graph_encoder_path": os.path.join(mods, "graph_encoder"),
+            "graph_predictor_path": os.path.join(mods, "graph_predictor"),
+            "max_new_tokens": sizes["max_new_tokens"], "temperature": 0.6,
+            "top_p": 0.9, "finetuning_type": "lora", "lora_rank": 8,
+            "do_train": False, "learned_query_size": 8,
+            "template": "llama3", "cutoff_len": sizes["cutoff_len"],
+            "bf16": True, "pure_bf16": True, **extra}
+
+
+def entry_eval(kernels, work, train_dir, entry, device, tag, sizes):
+    """(c) `eval <yaml>` on a YAML written here, over a copy of the first
+    records of data/molqa_drug_examples.json: the results JSON with its
+    summary, no record with an "error", A and B on the path."""
+    from llamole_tpu_torch import cli
+    from llamole_tpu_torch.utils.flat_yaml import dump_flat_yaml
+
+    on_card = device == "cuda"
+    data = os.path.join(entry, "data")
+    os.makedirs(data)
+    src = Path(__file__).resolve().parent / "data" / "molqa_drug_examples.json"
+    with open(src) as f:
+        records = json.load(f)[:sizes["eval_records"]]
+    with open(os.path.join(data, "molqa_drug_entry.json"), "w") as f:
+        json.dump(records, f)
+    out = os.path.join(entry, "eval")
+    yaml = os.path.join(entry, "eval.yaml")
+    with open(yaml, "w") as f:
+        f.write(dump_flat_yaml(_entry_config(
+            work, train_dir, sizes, dataset="molqa_drug_entry",
+            dataset_dir=data, output_dir=out,
+            per_device_eval_batch_size=sizes["eval_batch"])))
+    reset_counts(*kernels)
+    t0 = time.perf_counter()
+    with built_models() as built:
+        cli.main(["eval", yaml, "--device", device])
+        wall = time.perf_counter() - t0
+        launches = _entry_launches(kernels, on_card)
+        check_design_launches(built, launches, "phase 17 (c) eval", on_card,
+                              tag)
+        _free(built, on_card)
+    with open(os.path.join(out, "molqa_results.json")) as f:
+        written = json.load(f)
+    summary, results = written["summary"], written["results"]
+    print(f"phase 17 (c) eval {yaml}: {wall:.3f} s, summary "
+          f"{json.dumps(summary)} [{tag}]", flush=True)
+    errors = [r for r in results if "error" in r]
+    if summary["num_records"] != len(records) or errors:
+        fail(f"eval: {summary['num_records']} records, errors {errors[:2]}")
+    return launches
+
+
+def entry_parity(kernels, work, oracle, entry, device, tag, sizes):
+    """(d) `parity` over phase 12's files: converted/ already holds the
+    graph modules, so nothing converts; parity_table.json has the JAX
+    package's keys and a validity."""
+    from llamole_tpu_torch import cli
+
+    on_card = device == "cuda"
+    mods = os.path.join(work, "modules")
+    out = os.path.join(entry, "parity")
+    os.makedirs(os.path.join(out, "converted"))
+    for kind, name in (("graphdit", "graph_decoder"),
+                       ("encoder", "graph_encoder"),
+                       ("predictor", "graph_predictor")):
+        os.symlink(os.path.join(mods, name),
+                   os.path.join(out, "converted", kind))
+    reset_counts(*kernels)
+    t0 = time.perf_counter()
+    with built_models() as built:
+        cli.main(["parity", "--base-llm", os.path.join(work, "base"),
+                  "--graphdit", os.path.join(mods, "graph_decoder"),
+                  "--encoder", os.path.join(mods, "graph_encoder"),
+                  "--predictor", os.path.join(mods, "graph_predictor"),
+                  "--oracle", oracle,
+                  "--records", str(sizes["parity_records"]),
+                  "--max-planning-time", str(sizes["parity_wall"]),
+                  "--out", out, "--device", device])
+        wall = time.perf_counter() - t0
+        launches = _entry_launches(kernels, on_card)
+        check_design_launches(built, launches, "phase 17 (d) parity",
+                              on_card, tag)
+        _free(built, on_card)
+    with open(os.path.join(out, "parity_table.json")) as f:
+        table = json.load(f)
+    print(f"phase 17 (d) parity: {wall:.3f} s, table {json.dumps(table)} "
+          f"[{tag}]", flush=True)
+    if tuple(table) != PARITY_KEYS or table["validity"] is None:
+        fail(f"parity_table.json: keys {list(table)}, validity "
+             f"{table.get('validity')}")
+    return launches
+
+
+def _http(port, path, body=None, timeout=900):
+    """(status, body bytes) of one request to the UI."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=body,
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def entry_webui(kernels, work, train_dir, device, tag, sizes):
+    """(e) DesignUIServer on 127.0.0.1, port 0, from a config dict naming
+    phase 12's files: the page, /health, one design request (the JAX
+    package's keys, an SVG when the molecule is valid, A and B on the
+    path), a malformed request (500 with an "error") and /health after
+    it. The server is shut down whatever happens."""
+    from llamole_tpu_torch.webui.server import DesignUIServer, _render_page
+
+    on_card = device == "cuda"
+    reset_counts(*kernels)
+    with built_models() as built:
+        t0 = time.perf_counter()
+        ui = DesignUIServer(_entry_config(work, train_dir, sizes),
+                            host="127.0.0.1", port=0, device=device)
+        build = time.perf_counter() - t0
+        design_log = []
+        timed(ui, "design", design_log)
+        thread = threading.Thread(target=ui.serve_forever, daemon=True)
+        thread.start()
+        try:
+            status, page = _http(ui.port, "/")
+            if status != 200 or page.decode() != _render_page():
+                fail(f"UI page: status {status}, {len(page)} bytes")
+            status, health = _http(ui.port, "/health")
+            if status != 200 or not json.loads(health)["ok"]:
+                fail(f"UI /health: {status} {health!r}")
+            t0 = time.perf_counter()
+            status, body = _http(ui.port, "/api/design", json.dumps({
+                "instruction": PROMPT,
+                "properties": UI_PROPERTIES}).encode())
+            latency = time.perf_counter() - t0
+            launches = _entry_launches(kernels, on_card)
+            out = json.loads(body)
+            if status != 200 or set(out) != UI_KEYS:
+                fail(f"UI design: status {status}, {out}")
+            if out["valid"] and not out["mol_svg"].startswith("<svg"):
+                fail(f"UI design: a valid {out['smiles']!r} without an SVG")
+            check_design_launches(built, launches, "phase 17 (e) web UI",
+                                  on_card, tag)
+            status, bad = _http(ui.port, "/api/design", b"{not json")
+            if status != 500 or "error" not in json.loads(bad):
+                fail(f"UI malformed request: {status} {bad!r}")
+            status, _ = _http(ui.port, "/health")
+            if status != 200:
+                fail(f"UI /health after the malformed request: {status}")
+        finally:
+            ui.shutdown()
+            thread.join(timeout=60)
+        (design_wall, _), = design_log
+        print(f"phase 17 (e) web UI: built in {build:.3f} s; design "
+              f"request {latency:.3f} s (the design itself {design_wall:.3f}"
+              f" s), smiles {out['smiles']!r}, valid {out['valid']}, route "
+              f"found {out['route_found']}, SVG {len(out['mol_svg'])} "
+              f"bytes; malformed request 500: {json.loads(bad)} [{tag}]",
+              flush=True)
+        if thread.is_alive():
+            fail("the UI server's thread outlived shutdown")
+        del ui
+        _free(built, on_card)
+    return launches
+
+
+def run_entry_points(kernels, work, train_dir, tag, device="cuda",
+                     sizes=None):
+    """Phase 17 (ENTRY): (a)-(e) above, each timed by a PhaseTimer and
+    its kernel counts set to 0 before and read after it. Returns the
+    launches of A (per body), B and C summed over the parts."""
+    from llamole_tpu_torch.utils.profiling import PhaseTimer
+
+    sizes = sizes or ENTRY
+    on_card = device == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    entry = os.path.join(work, "entry")
+    os.makedirs(entry)
+    timer = PhaseTimer()
+    parts = []
+    with timer.phase("(a) env"):
+        entry_env(device, tag)
+    with timer.phase("(b) validate_data + pretrain oracle"):
+        oracle, got = entry_pretrain(kernels, entry, device, tag, sizes)
+        parts.append(got)
+    with timer.phase("(c) eval"):
+        parts.append(entry_eval(kernels, work, train_dir, entry, device, tag,
+                                sizes))
+    with timer.phase("(d) parity"):
+        parts.append(entry_parity(kernels, work, oracle, entry, device, tag,
+                                  sizes))
+    with timer.phase("(e) web UI"):
+        parts.append(entry_webui(kernels, work, train_dir, device, tag,
+                                 sizes))
+    total = {k: sum(p[k] for p in parts) for k in parts[0]}
+    walls = {k: round(v["total_s"], 3) for k, v in timer.summary().items()}
+    print(f"phase 17 (entry points): {sum(walls.values()):.1f} s; parts "
+          f"{json.dumps(walls)}; launches {total}; peak {_peak(on_card)} "
+          f"[{tag}]", flush=True)
+    return total
 
 
 def _peak(on_card) -> str:
@@ -2534,10 +2948,13 @@ def _peak(on_card) -> str:
 # cache, LoRA over the int8 base through run_mmsft and the int8 denoiser
 # (b)'s LLM runs 24 of the 32 layers (since phase 16 joined, to keep the
 # script in its time limit; its bytes stay under BYTES_BOUNDS there: int8
-# 0.542x, int4 0.327x of the bf16 LLM's)
+# 0.542x, int4 0.327x of the bf16 LLM's) and (a)'s 20 (since phase 17
+# joined: the fewest at which its int8 bytes stay under 0.55x, 0.5489x;
+# 16 layers hold 0.5582x, counted on the meta device)
 QUANTIZED = {"requests": 4, "max_new_tokens": 128, "retro_iterations": 100,
              "retro_max_time": 30.0, "prefill_batch": 8, "decode_tokens": 32,
-             "train_steps": 2, "design_batch": 8, "scheme_layers": 24}
+             "train_steps": 2, "design_batch": 8, "scheme_layers": 24,
+             "serving_layers": 20}
 # Bounds, from the CPU tests of the same scheme: int8 0.05, W8A8 0.10 and
 # int4 0.15 (tests/test_quantize.py's bounds for the three schemes), the
 # int8 KV cache 0.02 (tests/test_llm.py's one-step logit fidelity), the
@@ -3107,9 +3524,11 @@ def run_quantized(kernels, tag, device="cuda", sizes=None, build=None,
     llm_cfg = llm_cfg or LLMConfig.llama3_8b()
     on_card = device == "cuda"
     t0 = time.perf_counter()
-    model, tok = build(quantized_llm(llm_cfg, device))
+    model, tok = build(quantized_llm(dataclasses.replace(
+        llm_cfg, num_layers=sizes["serving_layers"]), device))
     check_bytes(model.llm, "int8", tag)
-    print(f"quantized slice built (int8 weights drawn on the {device}) in "
+    print(f"quantized slice built (int8 weights drawn on the {device}, "
+          f"{sizes['serving_layers']} of {llm_cfg.num_layers} layers) in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     served = serve_quantized(model, tok, kernels, tag, sizes, phase7)
     decode_split(model.llm, tok, tag, sizes)
@@ -3151,13 +3570,14 @@ def run_quantized(kernels, tag, device="cuda", sizes=None, build=None,
 # capacity drops, one loss and backward at batch 2 with the router term.
 # Since phase 16 joined (the script's time limit) qwen3 runs 4 of
 # its 36 layers and gemma-3 6 of 48 (5 of them windowed), at full width;
-# gemma-2 runs all 42
+# since phase 17 joined gemma-2 runs 22 of its 42 (an even count keeps its
+# local / global alternation: 11 of each)
 FAMILIES = {"prompts": 8, "greedy_tokens": 128, "spec_tokens": 2,
             "requests": 4, "max_new_tokens": 128, "retro_iterations": 100,
             "retro_max_time": 30.0, "long_prompt": 1280,
             "long_prefill": 1024, "long_steps": 32, "moe_layers": 8,
             "moe_tokens": 64, "train_batch": 2, "qwen3_layers": 4,
-            "gemma3_layers": 6}
+            "gemma3_layers": 6, "gemma2_layers": 22}
 # The cache-against-forward tolerance: max |cached - forward| over max
 # |forward| of the logits at every teacher-forced slot, in bf16: phase 12's
 # bound for two bf16 computations of the same logits (MERGE_LOGIT_TOL).
@@ -3590,7 +4010,8 @@ def run_families(kernels, tag, device="cuda", sizes=None, build=None,
     freed()
     print(f"phase 15 (a) qwen3: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    llm = family_llm(cfgs.get("gemma2") or LLMConfig.gemma2_9b(), device)
+    llm = family_llm(cfgs.get("gemma2") or dataclasses.replace(
+        LLMConfig.gemma2_9b(), num_layers=sizes["gemma2_layers"]), device)
     model, stok = build(llm)
     del llm
     served = serve_quantized(model, stok, kernels, tag, sizes, phase7,
@@ -3624,8 +4045,9 @@ def run_families(kernels, tag, device="cuda", sizes=None, build=None,
 # PiSSA + DoRA, (c) GaLore and then BAdam with finetuning_type full; (b)
 # and (c) build through the loader from a config.json of the 8B width at
 # their depths (whose base it draws again from the seed when it reloads
-# an export) and from the graph modules (a) saved.
-FINETUNE = {"dora_layers": 32, "pissa_layers": 2, "galore_layers": 2,
+# an export) and from the graph modules (a) saved. (a) runs 16 of the 32
+# layers since phase 17 joined (the script's time limit).
+FINETUNE = {"dora_layers": 16, "pissa_layers": 2, "galore_layers": 2,
             "badam_layers": 4, "loraplus_lr_ratio": 16.0, "galore_rank": 16,
             "galore_update_interval": 200, "galore_scale": 0.25,
             "badam_n_blocks": 4, "badam_switch_interval": 1}
@@ -4305,10 +4727,19 @@ def main() -> int:
               "GiB still allocated", flush=True)
         stack_launches, pretrain_bank = run_stack(kernels, tag)
         t0 = time.perf_counter()
-        inter, merge_rel = run_interchange(kernels, work, train_dir, tag)
-        print(f"interchange phase (steps 2-6): {time.perf_counter() - t0:.1f}"
-              f" s wall; base export {exported['export_s']:.3f} s [{tag}]",
-              flush=True)
+        phase17 = {}
+
+        def entry_points():
+            t1 = time.perf_counter()
+            phase17.update(run_entry_points(kernels, work, train_dir, tag))
+            phase17["wall"] = time.perf_counter() - t1
+
+        inter, merge_rel = run_interchange(kernels, work, train_dir, tag,
+                                           then=entry_points)
+        print(f"interchange phase (steps 2-6): "
+              f"{time.perf_counter() - t0 - phase17['wall']:.1f} s wall, "
+              f"then the entry-points phase {phase17['wall']:.1f} s; base "
+              f"export {exported['export_s']:.3f} s [{tag}]", flush=True)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     gc.collect()
@@ -4357,6 +4788,9 @@ def main() -> int:
               launches_families=families["A"],
               launches_families_mma=families["A_mma"],
               launches_families_fma=families["A_fma"],
+              launches_entry=phase17["A"],
+              launches_entry_mma=phase17["A_mma"],
+              launches_entry_fma=phase17["A_fma"],
               sdpa_floor_ms=a["sdpa_floor_ms"],
               sdpa_floor_device_ms=a["sdpa_floor_device_ms"],
               fma_ms=a["fma_ms"],
@@ -4371,6 +4805,7 @@ def main() -> int:
               launches_quantized=quantized["B"],
               launches_families=families["B"],
               launches_finetune=finetune["B"],
+              launches_entry=phase17["B"],
               **{k: v for k, v in b.items() if k.startswith("train_")},
               shape=b["shape"], share=b["share"],
               pretrain_launches=stack_launches["B"],
@@ -4386,6 +4821,7 @@ def main() -> int:
               launches_quantized=quantized["C"],
               launches_families=families["C"],
               launches_finetune=finetune["C"],
+              launches_entry=phase17["C"],
               launches_smem=c_training["launches_smem"],
               launches_global=c_training["launches_global"],
               pretrain_launches=stack_launches["C"],

@@ -35,6 +35,9 @@ Layering mirrors llamole_tpu:
   eval      run_molqa, the MolQA dataset and its scores
   train     run_mmsft, the Trainer and its AdamW (python -m
             llamole_tpu_torch.train <yaml>)
+  cli       python -m llamole_tpu_torch <command>: train, eval, export,
+            serve, pretrain, parity (eval/parity.py), validate_data, env
+  webui     the web UI (python -m llamole_tpu_torch.webui)
 """
 
 __version__ = "0.1.0"

@@ -13,6 +13,7 @@ carries a first-party chemistry stack:
   featurize.py    SMILES -> dense padded tensors for the graph models
   smarts.py       SMARTS pattern engine (subgraph matching)
   reaction.py     retro reaction-template application (rdchiral-lite)
+  depict.py       2D layout + SVG depiction of molecules and reactions
 
 Everything here is pure Python/numpy and runs on the host; device code
 never parses strings.

@@ -38,7 +38,7 @@ def remove_extra_spaces(text: str) -> str:
 
 def run_eval(args: Any = None, device="cuda") -> List[Dict[str, Any]]:
     """Config (YAML path / dict / argv) -> run_molqa on `device`."""
-    from ..config import get_infer_args   # needs PyYAML
+    from ..config import get_infer_args   # YAML through utils/flat_yaml.py
 
     return run_molqa(*get_infer_args(args), device=device)
 

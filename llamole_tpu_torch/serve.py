@@ -622,8 +622,8 @@ def resolve_device(device) -> torch.device:
 def _build_server(config_path, device="cuda"):
     """Config YAML (or dict) -> a started server on `device`:
     ContinuousDesignServer with continuous_batching, else DesignServer
-    (shared by the stdio and TCP entry points). The YAML parser is
-    config/ (needs PyYAML)."""
+    (shared by the stdio and TCP entry points). The YAML is read by
+    config/ through utils/flat_yaml.py."""
     device = resolve_device(device)
     from .config import get_infer_args
 

@@ -252,3 +252,71 @@ def test_retro_star_search_multi_routes_match():
     assert json.dumps(ours, sort_keys=True) == json.dumps(theirs,
                                                           sort_keys=True)
     assert ours["CC(=O)OCC"][0] and ours["CC(=O)NCC"][0]
+
+
+def _data_smiles():
+    """Every molecule of the repo's MolQA files (data/*.json)."""
+    from llamole_tpu.data.aligner import extract_all_smiles
+
+    found = []
+    for name in sorted(os.listdir(os.path.join(ROOT, "data"))):
+        if not name.startswith("molqa_"):
+            continue
+        with open(os.path.join(ROOT, "data", name)) as f:
+            for rec in json.load(f):
+                for key in ("instruction", "input", "output"):
+                    for smi in extract_all_smiles(rec.get(key) or ""):
+                        if smi not in found:
+                            found.append(smi)
+    return found
+
+
+def _depict_cases():
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    try:
+        from test_depict import CASES
+    finally:
+        sys.path.pop(0)
+    return list(CASES)
+
+
+# the data's molecules, tests/test_depict.py's cases and its stereo
+# molecules (wedges, a ring stereocentre), the smoke script's, and inputs
+# that must give None
+DEPICT = list(dict.fromkeys(
+    _data_smiles() + _depict_cases() + [
+        "N[C@@H](C)C(=O)O", "N[C@H](C)C(=O)O", "NC(C)C(=O)O",
+        "F[C@](Cl)(Br)I", "F[C@@](Cl)(Br)I", "O=C(O)[C@@H]1CCCN1", "CCN"]
+    + list(_SMOKE.MOLECULES) + ["garbage((", ""]))
+
+
+@pytest.mark.parametrize("smiles", DEPICT)
+def test_depiction_is_jax_byte_for_byte(smiles):
+    """layout_2d's coordinates (the same floats) and mol_to_svg's text."""
+    from llamole_tpu.chem import depict as jdepict
+    from llamole_tpu.chem.smiles import parse_smiles as jparse
+    from llamole_tpu_torch.chem import depict as tdepict
+    from llamole_tpu_torch.chem.smiles import parse_smiles as tparse
+
+    assert tdepict.mol_to_svg(smiles) == jdepict.mol_to_svg(smiles)
+    assert tdepict.mol_to_svg(smiles, width=500, height=300) == \
+        jdepict.mol_to_svg(smiles, width=500, height=300)
+    if jchem.canonical_smiles(smiles) is not None:
+        assert tdepict.layout_2d(tparse(smiles)) == \
+            jdepict.layout_2d(jparse(smiles))
+
+
+_REACTIONS = [
+    ("CC(=O)Oc1ccccc1C(=O)O", ["CC(=O)O", "Oc1ccccc1C(=O)O"]),
+    ("bad((", ["CCO"]),
+    ("CCO", ["C=C", "O", "garbage(("]),
+] + [(p, [r]) for p, r in zip(DEPICT[:6], DEPICT[1:7])]
+
+
+@pytest.mark.parametrize("product,reactants", _REACTIONS)
+def test_reaction_depiction_is_jax_byte_for_byte(product, reactants):
+    from llamole_tpu.chem import depict as jdepict
+    from llamole_tpu_torch.chem import depict as tdepict
+
+    assert tdepict.reaction_to_svg(product, reactants) == \
+        jdepict.reaction_to_svg(product, reactants)

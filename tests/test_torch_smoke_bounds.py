@@ -5,6 +5,8 @@ entries, and every other input and output once in full. And the training shape c
 the bank run_mmsft builds under its llama_lora settings. And phase 11
 (the learned-weights stack) runs end to end on the CPU at small sizes."""
 
+import json
+import os
 from types import SimpleNamespace
 
 import pytest
@@ -249,6 +251,66 @@ def test_interchange_phase_runs_on_the_cpu(tmp_path, capsys):
     assert not (tmp_path / "merged").exists()
 
 
+# phase 17 (the entry points) at a small width on the CPU
+_ENTRY_CPU = {"oracle_steps": 2, "eval_records": 2, "eval_batch": 2,
+              "max_new_tokens": 8, "cutoff_len": 96, "parity_records": 1,
+              "parity_wall": 2.0}
+
+
+def test_entry_points_phase_runs_on_the_cpu(tmp_path, capsys):
+    """Phase 17 end to end at a small width over phase 12's files (the
+    base exported as HF safetensors, run_mmsft's adapter, the saved graph
+    modules): env in a subprocess, validate_data and `pretrain oracle`
+    under trace(), eval on a written YAML, parity with nothing to convert
+    and the web UI's page, design and malformed requests."""
+    from llamole_tpu_torch.train.workflow import run_mmsft
+
+    assert set(_ENTRY_CPU) == set(chip_smoke.ENTRY)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        model, tok = _tiny_slice()
+        train_dir = str(tmp_path / "mmsft")
+        with chip_smoke.capture_checkpoints() as saved:
+            run_mmsft(*chip_smoke.llama_lora_args(train_dir),
+                      prebuilt=(model, tok))
+        chip_smoke.interchange_export(model, str(tmp_path), train_dir, saved,
+                                      "CPU", sizes=_INTERCHANGE_CPU)
+        del model
+        launches = chip_smoke.run_entry_points(
+            (), str(tmp_path), train_dir, "CPU", device="cpu",
+            sizes=_ENTRY_CPU)
+    finally:
+        torch.set_num_threads(threads)
+    out = capsys.readouterr().out
+    assert launches == {"A": 0, "A_mma": 0, "A_fma": 0, "B": 0, "C": 0}
+    for line in ("phase 17 (a) python -m llamole_tpu_torch env: exit 0",
+                 "phase 17 (b) validate_data: ok True, 5 records",
+                 "phase 17 (b) pretrain oracle (2 steps) under trace()",
+                 "plain GIN calls", "phase 17 (c) eval", "1 design batch(es)",
+                 "phase 17 (d) parity", "phase 17 (e) web UI: built in",
+                 "malformed request 500", "phase 17 (entry points)"):
+        assert line in out, line
+    table = json.loads((tmp_path / "entry" / "parity" /
+                        "parity_table.json").read_text())
+    assert tuple(table) == chip_smoke.PARITY_KEYS
+    assert len(os.listdir(tmp_path / "entry" / "trace")) == 1
+
+
+def test_entry_points_phase_sizes():
+    """Phase 17 on the card: 20 oracle steps, eval over 2 records at an
+    eval batch of 2 with 64 new tokens and the llama3 template, parity on
+    1 record with a 10 s wall, the UI's design with HIV and SA."""
+    sizes = chip_smoke.ENTRY
+    assert (sizes["oracle_steps"], sizes["eval_records"],
+            sizes["eval_batch"], sizes["max_new_tokens"]) == (20, 2, 2, 64)
+    assert (sizes["parity_records"], sizes["parity_wall"]) == (1, 10.0)
+    assert chip_smoke.UI_PROPERTIES == {"HIV": 1.0, "SA": 2.5}
+    config = chip_smoke._entry_config("w", "w/mmsft", sizes)
+    assert config["template"] == "llama3"
+    assert config["model_name_or_path"] == os.path.join("w", "base")
+
+
 def test_interchange_phase_sizes_are_the_8b_shape(monkeypatch):
     """Phase 12 runs on the slice's Llama-3.1-8B shape (vocab 128256,
     bf16, LoRA rank 8) and exports it in 5 GiB shards (the JAX rule:
@@ -354,7 +416,8 @@ def test_continuous_phase_sizes_are_phase_7s():
 _QUANTIZED_CPU = {"requests": 4, "max_new_tokens": 8, "retro_iterations": 1,
                   "retro_max_time": 5.0, "prefill_batch": 8,
                   "decode_tokens": 4, "train_steps": 2, "design_batch": 2,
-                  "scheme_layers": 4, "model_name_or_path": ""}
+                  "scheme_layers": 4, "serving_layers": 4,
+                  "model_name_or_path": ""}
 
 
 def test_quantized_phase_runs_on_the_cpu(capsys):
@@ -400,7 +463,8 @@ def test_quantized_phase_gates_and_sizes():
     its requests phase 7's first 4 at phase 7's settings. At the 8B shape,
     counted on the meta device (nothing allocated): the bf16 LLM is phase
     12's 16060522496 bytes, int8 and W8A8 below 0.55x of it and packed
-    int4 below 0.35x, and so at the 24 of 32 layers (b) runs."""
+    int4 below 0.35x, and so at the 24 of 32 layers (b) runs and the 20
+    (a) serves at."""
     from dataclasses import replace
 
     from llamole_tpu_torch.models.gllm import LLM, LLMConfig
@@ -415,10 +479,11 @@ def test_quantized_phase_gates_and_sizes():
     assert sizes == {
         "requests": 4, "max_new_tokens": 128, "retro_iterations": 100,
         "retro_max_time": 30.0, "prefill_batch": 8, "decode_tokens": 32,
-        "train_steps": 2, "design_batch": 8, "scheme_layers": 24}
+        "train_steps": 2, "design_batch": 8, "scheme_layers": 24,
+        "serving_layers": 20}
     cfg = LLMConfig.llama3_8b()
     assert quantized_bytes(LLM(cfg, torch.bfloat16, "meta")) == 16060522496
-    for layers in (32, sizes["scheme_layers"]):
+    for layers in (32, sizes["scheme_layers"], sizes["serving_layers"]):
         cut = replace(cfg, num_layers=layers)
         dense = quantized_bytes(LLM(cut, torch.bfloat16, "meta"))
         for scheme, group in (("int8", 0), ("w8a8", 0), ("int4", 128)):
@@ -442,7 +507,7 @@ _FAMILIES_CPU = {"prompts": 8, "greedy_tokens": 8, "spec_tokens": 2,
                  "retro_max_time": 5.0, "long_prompt": 40,
                  "long_prefill": 16, "long_steps": 4, "moe_layers": 2,
                  "moe_tokens": 8, "train_batch": 2, "qwen3_layers": 2,
-                 "gemma3_layers": 3}
+                 "gemma3_layers": 3, "gemma2_layers": 2}
 
 
 def _family_cfgs():
@@ -494,9 +559,10 @@ def test_families_phase_sizes_are_the_presets():
     """Phase 15 runs the presets at full width (counted on the meta device:
     qwen3_8b 8.19B parameters, gemma2_9b 9.24B, gemma3_12b 11.77B; Mixtral
     at 8 of 32 layers 11.87B, 23.7 GB in bf16 where all 32 take 93.4 GB),
-    gemma-2 at all 42 layers, qwen3 and gemma-3 cut in depth since phase
-    16 joined: qwen3 to 4 of 36 layers, gemma-3 to 6 of 48 (5 of them
-    windowed, one global); a 1280-token prompt past gemma-3's 1024-token
+    qwen3 and gemma-3 cut in depth since phase 16 joined: qwen3 to 4 of
+    36 layers, gemma-3 to 6 of 48 (5 of them windowed, one global);
+    gemma-2 since phase 17 joined to 22 of 42 (11 local, 11 global, as
+    the 42 alternate); a 1280-token prompt past gemma-3's 1024-token
     window, and phase 7's serving settings."""
     from dataclasses import replace
 
@@ -509,7 +575,7 @@ def test_families_phase_sizes_are_the_presets():
                      "long_prompt": 1280, "long_prefill": 1024,
                      "long_steps": 32, "moe_layers": 8, "moe_tokens": 64,
                      "train_batch": 2, "qwen3_layers": 4,
-                     "gemma3_layers": 6}
+                     "gemma3_layers": 6, "gemma2_layers": 22}
     assert chip_smoke.CACHE_LOGIT_TOL == chip_smoke.MERGE_LOGIT_TOL
 
     def count(cfg):
@@ -517,7 +583,11 @@ def test_families_phase_sizes_are_the_presets():
                    LLM(cfg, torch.bfloat16, "meta").parameters())
 
     assert count(LLMConfig.qwen3_8b()) == 8190735360
-    assert count(LLMConfig.gemma2_9b()) == 9241705984
+    g2 = LLMConfig.gemma2_9b()
+    assert count(g2) == 9241705984
+    assert sum(not g2.is_global_layer(i) for i in range(42)) == 21
+    assert sum(not g2.is_global_layer(i)
+               for i in range(sizes["gemma2_layers"])) == 11
     g3 = LLMConfig.gemma3_12b()
     assert count(g3) == 11766034176
     assert sizes["long_prompt"] > g3.sliding_window == sizes["long_prefill"]
@@ -573,13 +643,14 @@ def test_finetune_phase_runs_on_the_cpu(capsys):
 
 
 def test_finetune_phase_sizes():
-    """Phase 16 runs (a) at all 32 layers and cuts (b) and (c) only in
-    depth; its optimizer settings are the finetuning arguments' defaults
-    but LoRA+'s ratio and BAdam's switch interval."""
+    """Phase 16 runs (a) at 16 of 32 layers (since phase 17 joined: the
+    script's time limit) and cuts (b) and (c) only in depth; its
+    optimizer settings are the finetuning arguments' defaults but LoRA+'s
+    ratio and BAdam's switch interval."""
     from llamole_tpu_torch.config import FinetuningArguments
 
     sizes = chip_smoke.FINETUNE
-    assert sizes["dora_layers"] == 32
+    assert sizes["dora_layers"] == 16
     assert all(1 <= sizes[k] <= 32 for k in ("pissa_layers",
                                              "galore_layers",
                                              "badam_layers"))
