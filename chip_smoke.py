@@ -71,6 +71,9 @@
    on its tensor-core body, and kernel B >= 5 x (expansion rounds +
    products scored). Every kernel count is set to 0 just before and read
    just after each of phases 7-9. Sampler ms per reverse step printed.
+   First, on the slice's LLM: generate's per-token decode replayed as a
+   CUDA graph against the eager loop (check_decode_graphs: greedy and
+   sampled tokens bit-equal, ms a step each way at batch 8).
 8. run_molqa (the eval entry point) on the same model: 2 records of
    data/molqa_drug_examples.json, frontier width 8, one shared 30 s
    planning wall, scores on (FGD through GraphCLIP, kernel B).
@@ -130,8 +133,7 @@
    see run_continuous.
 14. Quantized serving at the slice's Llama-3.1-8B shape, after phase 12
    on an emptied card (QUANTIZED): (a) the LLM drawn straight into int8
-   weights with the int8 KV cache (as bench.py's molqa cell builds it;
-   20 of 32 layers since phase 17 joined),
+   weights with the int8 KV cache (as bench.py's molqa cell builds it),
    the graph modules as in phase 7, 4 of phase 7's requests (the first
    asking for a route) through DesignServer at phase 7's settings: no
    "error", a "retro" block, A >= 28 x steps x design batches all on the
@@ -167,8 +169,7 @@
    each row where the drafted tokens part from the per-token ones must
    part where the per-token path's top-2 gap is at most twice that
    check's largest difference; (b) gemma2_9b (softcaps, sandwich norms,
-   GeGLU, sliding windows; 22 of its 42 layers since phase 17 joined)
-   serving 4 of phase 7's requests (the first
+   GeGLU, sliding windows; all 42 layers) serving 4 of phase 7's requests (the first
    asking for a route) through DesignServer over phase 7's graph modules
    at phase 7's settings: no "error", a "retro" block, A >= 28 x steps x
    design batches all mma, B >= 5 x (rounds + products), latencies and
@@ -187,7 +188,7 @@
    through run_mmsft with llama_lora.yaml's settings, 4 micro steps and
    2 updates, over phase 7's graph modules, B >= 10 x 4 and C >= 4 x 4
    in each run and no plain GIN call on the card: (a) DoRA + LoRA+
-   (ratio 16) + shift_attn at 16 of 32 layers (since phase 17 joined): finite
+   (ratio 16) + shift_attn at all 32 layers: finite
    losses, m, the LoRA and the connectors changed and the base checksum
    not, S²-attn in every layer of every training forward and never in
    generation (s2_attention.calls), each micro step and the peak
@@ -2948,13 +2949,11 @@ def _peak(on_card) -> str:
 # cache, LoRA over the int8 base through run_mmsft and the int8 denoiser
 # (b)'s LLM runs 24 of the 32 layers (since phase 16 joined, to keep the
 # script in its time limit; its bytes stay under BYTES_BOUNDS there: int8
-# 0.542x, int4 0.327x of the bf16 LLM's) and (a)'s 20 (since phase 17
-# joined: the fewest at which its int8 bytes stay under 0.55x, 0.5489x;
-# 16 layers hold 0.5582x, counted on the meta device)
+# 0.542x, int4 0.327x of the bf16 LLM's); (a)'s runs all 32
 QUANTIZED = {"requests": 4, "max_new_tokens": 128, "retro_iterations": 100,
              "retro_max_time": 30.0, "prefill_batch": 8, "decode_tokens": 32,
              "train_steps": 2, "design_batch": 8, "scheme_layers": 24,
-             "serving_layers": 20}
+             "serving_layers": 32}
 # Bounds, from the CPU tests of the same scheme: int8 0.05, W8A8 0.10 and
 # int4 0.15 (tests/test_quantize.py's bounds for the three schemes), the
 # int8 KV cache 0.02 (tests/test_llm.py's one-step logit fidelity), the
@@ -3271,6 +3270,47 @@ def _timed_generate(llm, ids, mask, steps):
 
 
 @torch.no_grad()
+def check_decode_graphs(llm, tok, tag, steps=32, rows=8):
+    """generate's per-token decode replayed as a CUDA graph
+    (LLM._decode_graph) against the eager loop, on the slice's LLM
+    (Llama-3.1-8B, 32 layers, the rank-8 adapter on) and `rows` prompts:
+    greedy and sampled tokens (one seed) equal bit for bit, the graph
+    replayed, and ms per decode step each way. Returns that record."""
+    from llamole_tpu_torch.models.gllm import LLM
+
+    ids, mask = _prompt_batch(tok, rows, llm.device)
+    runs = {}
+    try:
+        for graphs in (False, True):
+            llm.decode_graphs = graphs
+            llm.generate(ids, mask, max_new_tokens=2, do_sample=False,
+                         spec_tokens=0)   # warm
+            before = LLM.graph_replays
+            greedy, ms = _timed_generate(llm, ids, mask, steps)
+            sampled, _ = llm.generate(
+                ids, mask, max_new_tokens=steps, temperature=0.6, top_p=0.9,
+                generator=torch.Generator(device=llm.device).manual_seed(0))
+            runs[graphs] = (greedy, sampled, ms, LLM.graph_replays - before)
+    finally:
+        del llm.decode_graphs   # the class default: graphs on
+    (g0, s0, eager_ms, _), (g1, s1, graph_ms, replays) = runs[False], \
+        runs[True]
+    same = bool(torch.equal(g0, g1)) and bool(torch.equal(s0, s1))
+    print(f"decode graphs: {steps} steps at batch {rows}, greedy and "
+          f"sampled tokens equal to the eager loop's: {same}; {replays} "
+          f"replays; ms a decode step eager {eager_ms:.3f}, graph "
+          f"{graph_ms:.3f} ({eager_ms / graph_ms:.2f}x) [{tag}]", flush=True)
+    if runs[False][3] != 0 or replays < 2 * (steps - 1):
+        fail(f"decode graphs: {runs[False][3]} replays with graphs off, "
+             f"{replays} with them on (want >= {2 * (steps - 1)})")
+    if not same:
+        diff = (g0 != g1).float().argmax(-1).tolist()
+        fail(f"decode graphs: tokens differ from the eager loop's (greedy "
+             f"first differences per row {diff})")
+    return {"eager_ms": eager_ms, "graph_ms": graph_ms, "replays": replays}
+
+
+@torch.no_grad()
 def check_int_mm(device, cfg, tag):
     """torch._int_mm (through int8_matmul) at the decode's shapes equals
     the exact integer product (f64 sums of these products are exact)."""
@@ -3570,14 +3610,13 @@ def run_quantized(kernels, tag, device="cuda", sizes=None, build=None,
 # capacity drops, one loss and backward at batch 2 with the router term.
 # Since phase 16 joined (the script's time limit) qwen3 runs 4 of
 # its 36 layers and gemma-3 6 of 48 (5 of them windowed), at full width;
-# since phase 17 joined gemma-2 runs 22 of its 42 (an even count keeps its
-# local / global alternation: 11 of each)
+# gemma-2 runs all 42 (21 local, 21 global)
 FAMILIES = {"prompts": 8, "greedy_tokens": 128, "spec_tokens": 2,
             "requests": 4, "max_new_tokens": 128, "retro_iterations": 100,
             "retro_max_time": 30.0, "long_prompt": 1280,
             "long_prefill": 1024, "long_steps": 32, "moe_layers": 8,
             "moe_tokens": 64, "train_batch": 2, "qwen3_layers": 4,
-            "gemma3_layers": 6, "gemma2_layers": 22}
+            "gemma3_layers": 6, "gemma2_layers": 42}
 # The cache-against-forward tolerance: max |cached - forward| over max
 # |forward| of the logits at every teacher-forced slot, in bf16: phase 12's
 # bound for two bf16 computations of the same logits (MERGE_LOGIT_TOL).
@@ -4045,9 +4084,8 @@ def run_families(kernels, tag, device="cuda", sizes=None, build=None,
 # PiSSA + DoRA, (c) GaLore and then BAdam with finetuning_type full; (b)
 # and (c) build through the loader from a config.json of the 8B width at
 # their depths (whose base it draws again from the seed when it reloads
-# an export) and from the graph modules (a) saved. (a) runs 16 of the 32
-# layers since phase 17 joined (the script's time limit).
-FINETUNE = {"dora_layers": 16, "pissa_layers": 2, "galore_layers": 2,
+# an export) and from the graph modules (a) saved. (a) runs all 32 layers.
+FINETUNE = {"dora_layers": 32, "pissa_layers": 2, "galore_layers": 2,
             "badam_layers": 4, "loraplus_lr_ratio": 16.0, "galore_rank": 16,
             "galore_update_interval": 200, "galore_scale": 0.25,
             "badam_n_blocks": 4, "badam_switch_interval": 1}
@@ -4695,6 +4733,7 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"slice built (random weights on the card) in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    check_decode_graphs(model.llm, tok, tag)
     timers = PathTimers(model)
     launches, phase7_latency = run_serving(model, tok, timers, kernels, tag)
     molqa = run_eval(model, tok, timers, kernels, tag)

@@ -15,7 +15,8 @@ every attention and dense-MLP projection, dense or quantized projections
 (int8, W8A8 or int4: gllm/quantize.py, gllm/lora.py), a preallocated KV
 cache written in place (in the compute dtype, or int8 with per-(token,
 head) scales when cfg.kv_cache_dtype is 'int8'), and `generate`: prefill,
-then a per-token decode loop that exits once every row has stopped, or
+then a per-token decode loop that exits once every row has stopped (on the
+card its step replays a CUDA graph: `_decode_graph`), or
 prompt-lookup speculative decoding (`_speculative_loop`: K drafts from the
 latest n-gram match in the history verified in one forward, delta-draft
 rejection sampling, an acceptance guard that falls back to the per-token
@@ -497,6 +498,11 @@ class LLM(nn.Module):
     way `self.quant` says what the projections hold (None: dense). An MoE
     LLM's router and experts stay in the compute dtype."""
 
+    # generate's per-token decode on the card replays a CUDA graph
+    # (_decode_graph); False keeps it eager. graph_replays counts replays.
+    decode_graphs = True
+    graph_replays = 0
+
     def __init__(self, cfg: LLMConfig, dtype=torch.bfloat16, device=None,
                  quant: Optional[Tuple[str, int]] = None):
         super().__init__()
@@ -788,16 +794,23 @@ class LLM(nn.Module):
             out = torch.full((b, max_new_tokens), pad_id, dtype=torch.long,
                              device=dev)
             iters = 0
+            graphed = (self._decode_graph(cache, kv_valid, tok, pos)
+                       if self._graphs_apply(dev) else None)
             for t in range(max_new_tokens):
                 if bool(done.all()):
                     break   # early exit: finished rows would only emit pad
                 out[:, t] = tok
                 kv_valid[:, p + t] = ~done
-                logits, _, cache = self(input_ids=tok[:, None],
-                                        positions=pos[:, None],
-                                        kv_cache=cache, cache_index=p + t,
-                                        kv_valid=kv_valid)
-                nxt = pick(logits[:, -1])
+                if graphed is None:
+                    logits, _, cache = self(input_ids=tok[:, None],
+                                            positions=pos[:, None],
+                                            kv_cache=cache,
+                                            cache_index=p + t,
+                                            kv_valid=kv_valid)
+                    last = logits[:, -1]
+                else:
+                    last = graphed(tok, pos, p + t)
+                nxt = pick(last)
                 stopped = ~done & torch.isin(nxt, eos)
                 trigger = torch.where(stopped, nxt, trigger)
                 done = done | stopped
@@ -813,6 +826,64 @@ class LLM(nn.Module):
         if return_decode_state:
             res += (state,)
         return res
+
+    def _graphs_apply(self, dev) -> bool:
+        """Whether generate's per-token steps replay a CUDA graph: on the
+        card unless decode_graphs is off, for a dense MLP (MoE routing
+        sizes its dispatch on the host) and no W8A8 projection (its
+        int8_matmul counts calls on the host, once per capture there)."""
+        return (self.decode_graphs and dev.type == "cuda"
+                and self.cfg.num_experts == 0
+                and not any(m.quant == "w8a8" for m in projections(self)))
+
+    def _decode_graph(self, cache, kv_valid, tok, pos):
+        """generate's per-token forward recorded once as a CUDA graph:
+        step(tok [B], pos [B], index) -> the last logits [B, V]. The
+        first call runs the forward eagerly on a side stream (its result
+        is that step's, and it warms the stream for capture), then
+        records it; later calls copy their inputs into the graph's and
+        replay it. The cache and kv_valid are read and written where
+        they lie, so the loop's in-place updates of kv_valid reach the
+        graph; the cache index goes in as a [B] tensor (every row writes
+        slot `index`), whose writes and masks equal the int index's.
+        The step's host cost (some hundred aten calls a layer) is what
+        bounds an eager decode at small batch; a replay is one launch.
+        LLM.graph_replays counts the replays."""
+        dev = kv_valid.device
+        tok_in, pos_in = tok[:, None].clone(), pos[:, None].clone()
+        idx_in = torch.zeros(tok.shape[0], dtype=torch.long, device=dev)
+        state = {}
+
+        def forward():
+            logits, _, _ = self(input_ids=tok_in, positions=pos_in,
+                                kv_cache=cache, cache_index=idx_in,
+                                kv_valid=kv_valid)
+            return logits[:, -1]
+
+        def step(tok, pos, index):
+            tok_in.copy_(tok[:, None])
+            pos_in.copy_(pos[:, None])
+            idx_in.fill_(index)
+            if "graph" in state:
+                state["graph"].replay()
+                LLM.graph_replays += 1
+                return state["out"]
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                first = forward()
+            torch.cuda.current_stream(dev).wait_stream(side)
+            first.record_stream(torch.cuda.current_stream(dev))
+            graph = torch.cuda.CUDAGraph()
+            # thread_local: another thread's work on the card (the
+            # continuous server's design thread) may go on meanwhile
+            with torch.cuda.graph(graph, stream=side,
+                                  capture_error_mode="thread_local"):
+                state["out"] = forward()
+            state["graph"] = graph
+            return first
+
+        return step
 
     def _speculative_loop(self, cache, kv_valid, x0, pos0, done0, trigger0,
                           generator, input_ids, attention_mask, *, p: int,

@@ -463,8 +463,8 @@ def test_quantized_phase_gates_and_sizes():
     its requests phase 7's first 4 at phase 7's settings. At the 8B shape,
     counted on the meta device (nothing allocated): the bf16 LLM is phase
     12's 16060522496 bytes, int8 and W8A8 below 0.55x of it and packed
-    int4 below 0.35x, and so at the 24 of 32 layers (b) runs and the 20
-    (a) serves at."""
+    int4 below 0.35x, and so at the 24 of 32 layers (b) runs; (a) serves
+    at all 32."""
     from dataclasses import replace
 
     from llamole_tpu_torch.models.gllm import LLM, LLMConfig
@@ -480,7 +480,7 @@ def test_quantized_phase_gates_and_sizes():
         "requests": 4, "max_new_tokens": 128, "retro_iterations": 100,
         "retro_max_time": 30.0, "prefill_batch": 8, "decode_tokens": 32,
         "train_steps": 2, "design_batch": 8, "scheme_layers": 24,
-        "serving_layers": 20}
+        "serving_layers": 32}
     cfg = LLMConfig.llama3_8b()
     assert quantized_bytes(LLM(cfg, torch.bfloat16, "meta")) == 16060522496
     for layers in (32, sizes["scheme_layers"], sizes["serving_layers"]):
@@ -561,9 +561,8 @@ def test_families_phase_sizes_are_the_presets():
     at 8 of 32 layers 11.87B, 23.7 GB in bf16 where all 32 take 93.4 GB),
     qwen3 and gemma-3 cut in depth since phase 16 joined: qwen3 to 4 of
     36 layers, gemma-3 to 6 of 48 (5 of them windowed, one global);
-    gemma-2 since phase 17 joined to 22 of 42 (11 local, 11 global, as
-    the 42 alternate); a 1280-token prompt past gemma-3's 1024-token
-    window, and phase 7's serving settings."""
+    gemma-2 at all 42 (21 local, 21 global); a 1280-token prompt past
+    gemma-3's 1024-token window, and phase 7's serving settings."""
     from dataclasses import replace
 
     from llamole_tpu_torch.models.gllm import LLM, LLMConfig
@@ -575,7 +574,7 @@ def test_families_phase_sizes_are_the_presets():
                      "long_prompt": 1280, "long_prefill": 1024,
                      "long_steps": 32, "moe_layers": 8, "moe_tokens": 64,
                      "train_batch": 2, "qwen3_layers": 4,
-                     "gemma3_layers": 6, "gemma2_layers": 22}
+                     "gemma3_layers": 6, "gemma2_layers": 42}
     assert chip_smoke.CACHE_LOGIT_TOL == chip_smoke.MERGE_LOGIT_TOL
 
     def count(cfg):
@@ -587,7 +586,7 @@ def test_families_phase_sizes_are_the_presets():
     assert count(g2) == 9241705984
     assert sum(not g2.is_global_layer(i) for i in range(42)) == 21
     assert sum(not g2.is_global_layer(i)
-               for i in range(sizes["gemma2_layers"])) == 11
+               for i in range(sizes["gemma2_layers"])) == 21
     g3 = LLMConfig.gemma3_12b()
     assert count(g3) == 11766034176
     assert sizes["long_prompt"] > g3.sliding_window == sizes["long_prefill"]
@@ -643,14 +642,13 @@ def test_finetune_phase_runs_on_the_cpu(capsys):
 
 
 def test_finetune_phase_sizes():
-    """Phase 16 runs (a) at 16 of 32 layers (since phase 17 joined: the
-    script's time limit) and cuts (b) and (c) only in depth; its
-    optimizer settings are the finetuning arguments' defaults but LoRA+'s
-    ratio and BAdam's switch interval."""
+    """Phase 16 runs (a) at all 32 layers and cuts (b) and (c) only in
+    depth; its optimizer settings are the finetuning arguments' defaults
+    but LoRA+'s ratio and BAdam's switch interval."""
     from llamole_tpu_torch.config import FinetuningArguments
 
     sizes = chip_smoke.FINETUNE
-    assert sizes["dora_layers"] == 16
+    assert sizes["dora_layers"] == 32
     assert all(1 <= sizes[k] <= 32 for k in ("pissa_layers",
                                              "galore_layers",
                                              "badam_layers"))
