@@ -227,6 +227,21 @@
    when valid, A and B as in (c); its wall and latency printed), a
    malformed body answered 500 with an "error", /health after it, and the
    server shut down in a finally.
+18. Mesh training (MESH), once phase 12's export has read phase 9's
+   model, on that model (Llama-3.1-8B width, 32 layers, rank-8 LoRA):
+   run_mmsft with phase 9's settings (its trainable bundle restored to
+   phase 9's start, save_steps 2) on a world-size-1 NCCL mesh dp:1,tp:1
+   (the LLM's sharded leaves DTensors), (a) at zero stage 1 and (b) at
+   zero stage 3 (FSDP2 over the frozen LLM) under LLAMOLE_ORBAX=1, whose
+   checkpoint-2 is DCP's async save; then (c) (b) resumed from
+   checkpoint-2. Kernel counts set to 0 before (a) and read after (c):
+   B >= 10 x 10 and C >= 4 x 10 launches (10 micro steps), and B and C
+   on the last batch's retro bank held to their plain versions on the
+   CPU (check_predictor). Each micro step's loss beside phase 9's (one
+   card shows no collective that splits work: every micro step of (a)
+   and (b) must be within MESH["loss_gap"] of phase 9's), (c)'s equal to
+   (b)'s steps 3-4; step walls, peaks, the DCP save wall (the call, then
+   the wait) and its bytes.
 
 Prints, before the last line, one {"kernels": [...]} JSON line (per
 kernel: launches on the main path, max_abs_err, ms, plain_ms, device_ms,
@@ -243,7 +258,8 @@ batch (per body too), B's in its serving and QLoRA training, C's in
 the latter; under launches_families, phase 15's: A's in the gemma-2
 serving (per body too), B's there and in the Mixtral loss, C's in the
 latter; under launches_finetune, phase 16's B and C (its four runs); under
-launches_entry, phase 17's: A's (per body too), B's and C's;
+launches_entry, phase 17's: A's (per body too), B's and C's; under
+launches_mesh, phase 18's B and C;
 the last line is {"ok": true, "device": {...}}. Any
 failure exits non-zero.
 """
@@ -1509,15 +1525,19 @@ def check_graph_attention(attn, reference, tag):
             "fma_device_ms": fma["device_ms"], "launches": launches}
 
 
-def check_predictor(model, tag):
+def check_predictor(model, tag, bank=None):
     """Phase 10: full-width predictor, f32, forward and backward on the card
     (kernels B and C) against the same weights on the CPU (plain
     versions): logits, the text condition's gradient and the bond tables'
-    gradients."""
+    gradients. bank: (atoms, edges, node mask) to run on (phase 18: a
+    training batch's retro bank), else path graphs at GIN_TRAIN."""
     cards = copy.deepcopy(model.graph_predictor)
     cpu = copy.deepcopy(model.graph_predictor).cpu()
-    b, n = GIN_TRAIN[:2]
-    atoms, edges, mask, _ = path_graphs(b, n)
+    if bank is None:
+        atoms, edges, mask, _ = path_graphs(*GIN_TRAIN[:2])
+    else:
+        atoms, edges, mask = bank
+    b = atoms.shape[0]
     w = torch.randn(b, cards.cfg.out_dim,
                     generator=torch.Generator().manual_seed(5))
     c0 = torch.randn(b, cards.text_input_size,
@@ -1713,8 +1733,210 @@ def run_training(model, tok, kernels, tag, out_dir):
     walls = [st["forward_s"] + st["backward_s"] + st["optimizer_s"]
              for st in steps]
     phase9 = {"peak": f"{peak / 2**30:.2f} GiB", "step_s": walls,
-              "tok_s": [st["tokens"] / w for st, w in zip(steps, walls)]}
+              "tok_s": [st["tokens"] / w for st, w in zip(steps, walls)],
+              "losses": [rec["loss"] for rec in log], "start": start,
+              "final": _snapshot(params)}
     return launches["B"], c_bodies, saved, phase9["peak"], phase9
+
+
+# phase 18: mesh training on one card. loss_gap / bundle_gap: how far a
+# micro step's loss and the trained bundle after update 2 may be from
+# phase 9's. A world-size-1 mesh runs the same arithmetic in the same
+# order (its losses equal phase 9's bit for bit on the H100), so the
+# bounds only leave room for nondeterministic kernels; update 2 moves an
+# element by up to about the peak learning rate, 1e-4, so a wrong tp or
+# ZeRO-1 gradient or update shows in the bundle far above bundle_gap.
+MESH = {"mesh": "dp:1,tp:1", "save_steps": 2, "loss_gap": 1e-3,
+        "bundle_gap": 1e-6}
+
+
+def _dir_bytes(path) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
+
+
+def _snapshot_local(model):
+    """The trainable bundle's local tensors (whole on a world-size-1
+    mesh), in f32."""
+    from llamole_tpu_torch.train.optimizers import local_data
+    return {n: local_data(p).detach().float().clone()
+            for n, p in model.trainable_parameters().items()}
+
+
+def run_mesh_training(model, tok, kernels, tag, work, phase9):
+    """Phase 18 (module docstring): run_mmsft on a world-size-1 NCCL mesh
+    at zero stages 1 and 3, DCP's async save and the resume. Returns B's
+    and C's launches. On the CPU (tests/test_torch_smoke_bounds.py) the
+    group is gloo and the wrappers run their plain versions: no launch
+    floors."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from llamole_tpu_torch.train import trainer as trainer_mod
+    from llamole_tpu_torch.train.optimizers import local_data
+    from llamole_tpu_torch.train.workflow import run_mmsft
+
+    gin, gin_bwd = kernels[1:3]
+    out_dir = os.path.join(work, "mesh")
+    Trainer = trainer_mod.Trainer
+    save, wait = Trainer.save_checkpoint, Trainer.wait_for_checkpoints
+    saves = []
+
+    def timed_save(self, state, path):
+        t0 = time.perf_counter()
+        save(self, state, path)
+        saves.append({"path": path, "dcp": self._use_dcp(),
+                      "call_s": time.perf_counter() - t0, "wait_s": 0.0})
+
+    def timed_wait(self):
+        pending = self._pending is not None
+        t0 = time.perf_counter()
+        wait(self)
+        if pending and saves:
+            saves[-1]["wait_s"] += time.perf_counter() - t0
+
+    on_card = model.device.type == "cuda"
+    last_batch = []
+    loss = model.loss
+
+    def watched(batch, generator=None, train=True, noisy=None):
+        if train:
+            last_batch[:] = [batch]
+        return loss(batch, generator, train, noisy)
+
+    def run(name, zero, dcp, resume=None):
+        args = list(llama_lora_args(os.path.join(out_dir, name)))
+        args[2] = SimpleNamespace(**{
+            **vars(args[2]), "mesh": MESH["mesh"], "zero_stage": zero,
+            "save_steps": MESH["save_steps"],
+            "resume_from_checkpoint": resume})
+        if dcp:
+            os.environ["LLAMOLE_ORBAX"] = "1"
+        else:
+            os.environ.pop("LLAMOLE_ORBAX", None)
+        if resume is None:      # phase 9's start; a resume loads its own
+            with torch.no_grad():
+                for n, p in model.trainable_parameters().items():
+                    local_data(p).copy_(phase9["start"][n])
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        metrics = run_mmsft(*args, prebuilt=(model, tok))
+        wall = time.perf_counter() - t0
+        with open(Path(out_dir) / name / "trainer_log.jsonl") as f:
+            losses = [json.loads(line)["loss"] for line in f]
+        return {"losses": losses, "steps": metrics["step_times"],
+                "peak": torch.cuda.max_memory_allocated() if on_card else 0,
+                "wall": wall,
+                "eval_loss": metrics.get("eval_loss")}
+
+    model.loss = watched
+    Trainer.save_checkpoint, Trainer.wait_for_checkpoints = (timed_save,
+                                                            timed_wait)
+    reset_counts(*kernels)
+    try:
+        runs = {"a": run("a", 1, False)}
+        finals = {"a": _snapshot_local(model)}
+        runs["b"] = run("b", 3, True)
+        finals["b"] = b_final = _snapshot_local(model)
+        runs["c"] = run("c", 3, True, resume=os.path.join(out_dir, "b",
+                                                          "checkpoint-2"))
+    finally:
+        del model.loss
+        Trainer.save_checkpoint, Trainer.wait_for_checkpoints = save, wait
+        os.environ.pop("LLAMOLE_ORBAX", None)
+    launches = {"B": gin.launches, "C": gin_bwd.launches}
+    backend = "nccl" if on_card else "gloo"
+    if not dist.is_initialized() or dist.get_backend() != backend or \
+            dist.get_world_size() != 1:
+        fail(f"phase 18 did not run on a world-size-1 {backend} group")
+    llm = model.llm
+    sharded = [n for n, p in llm.named_parameters()
+               if isinstance(p, DTensor)]
+    print(f"mesh {MESH['mesh']} over {backend}: {len(sharded)} of "
+          f"{len(list(llm.parameters()))} LLM leaves are DTensors, "
+          f"{sum(1 for m in llm.modules() if 'FSDP' in type(m).__name__)} "
+          f"FSDP2 units [{tag}]", flush=True)
+    if not sharded:
+        fail("phase 18: no LLM leaf is a DTensor")
+    micro = sum(len(r["losses"]) for r in runs.values())
+    if [len(runs[k]["losses"]) for k in "abc"] != [4, 4, 2]:
+        fail(f"phase 18: micro steps {[len(r['losses']) for r in runs]}")
+    base = phase9["losses"]
+    gaps = {}
+    for k in "ab":
+        got = runs[k]["losses"]
+        if not all(np.isfinite(got)):
+            fail(f"phase 18 ({k}): non-finite loss {got}")
+        gaps[k] = max(abs(x - y) for x, y in zip(got, base))
+        for i, (x, y) in enumerate(zip(got, base)):
+            print(f"mesh ({k}) zero {1 if k == 'a' else 3} micro step "
+                  f"{i + 1}: loss {x:.6f}, phase 9 {y:.6f} (gap "
+                  f"{abs(x - y):.3e}) [{tag}]", flush=True)
+        print(f"mesh ({k}): largest gap to phase 9 {gaps[k]:.3e} (limit "
+              f"{MESH['loss_gap']})", flush=True)
+        if gaps[k] > MESH["loss_gap"]:
+            fail(f"phase 18 ({k}) strays from phase 9: {gaps[k]}")
+        final = phase9["final"]
+        bundle_gap = max(float((finals[k][n] - final[n].float()).abs().max())
+                         for n in final)
+        moved = max(float((final[n].float() - phase9["start"][n].float())
+                          .abs().max()) for n in final)
+        print(f"mesh ({k}): trained bundle after update 2 differs from "
+              f"phase 9's by {bundle_gap:.3e} (max abs; phase 9 moved an "
+              f"element by up to {moved:.3e}; limit {MESH['bundle_gap']}) "
+              f"[{tag}]", flush=True)
+        if set(finals[k]) != set(final) or bundle_gap > MESH["bundle_gap"]:
+            fail(f"phase 18 ({k}): the trained bundle strays from phase "
+                 f"9's: {bundle_gap}")
+    resumed = runs["c"]["losses"]
+    want = runs["b"]["losses"][2:]
+    print(f"mesh (c) resumed from (b)'s DCP checkpoint-2: losses "
+          f"{resumed} against (b)'s steps 3-4 {want}", flush=True)
+    if resumed != want:
+        fail(f"phase 18: the resumed losses {resumed} differ from {want}")
+    drift = max(float((local_data(p) - b_final[n]).abs().max())
+                for n, p in model.trainable_parameters().items())
+    print(f"mesh (c): trained bundle after update 2 differs from (b)'s by "
+          f"{drift:.3e} (max abs)", flush=True)
+    if drift != 0.0:
+        fail(f"phase 18: the resumed run's bundle differs by {drift}")
+    for k, r in runs.items():
+        walls = [st["forward_s"] + st["backward_s"] + st["optimizer_s"]
+                 for st in r["steps"]]
+        split = [tuple(round(st[x], 3) for x in ("forward_s", "backward_s",
+                                                 "optimizer_s"))
+                 for st in r["steps"]]
+        print(f"mesh ({k}): step walls {[round(w, 3) for w in walls]} s "
+              f"(forward, backward, optimizer: {split}), "
+              f"tokens/s {[round(st['tokens'] / w, 1) for st, w in zip(r['steps'], walls)]}, "
+              f"run_mmsft {r['wall']:.3f} s, peak "
+              f"{r['peak'] / 2**30:.2f} GiB (phase 9 {phase9['peak']}), "
+              f"eval_loss {r['eval_loss']} [{tag}]", flush=True)
+    for sv in saves:
+        if sv["dcp"]:
+            nbytes = _dir_bytes(Path(sv["path"]) / "dcp_state")
+            print(f"DCP async save {Path(sv['path']).name}: call "
+                  f"{sv['call_s']:.3f} s, wait {sv['wait_s']:.3f} s, "
+                  f"{nbytes} bytes ({nbytes / 2**20:.1f} MiB) [{tag}]",
+                  flush=True)
+    if not any(sv["dcp"] for sv in saves):
+        fail("phase 18: no DCP save")
+    layers = model.graph_predictor.cfg.num_layer
+    if on_card:
+        check_launches("gin_aggregate (mesh)", launches["B"],
+                       2 * layers * micro,
+                       f"({layers} GraphCLIP + {layers} predictor layers) "
+                       f"x {micro}")
+        check_launches("gin_aggregate_backward (mesh)", launches["C"],
+                       (layers - 1) * micro,
+                       f"{layers - 1} predictor layers x {micro}")
+    if on_card:   # B and C at the last batch's retro bank vs the CPU
+        batch = model.batch_to_device(last_batch[0])
+        check_predictor(model, tag, bank=(
+            batch["retro_atoms"], batch["retro_edges"],
+            batch["retro_node_mask"] & batch["retro_valid"][:, None]))
+    dist.destroy_process_group()
+    return launches
 
 
 def profile_training_step(model, batch, tag):
@@ -4758,6 +4980,10 @@ def main() -> int:
         check_graphclip(model, tag)
         check_predictor(model, tag)
         exported = interchange_export(model, work, train_dir, saved, tag)
+        t0 = time.perf_counter()
+        mesh = run_mesh_training(model, tok, kernels, tag, work, phase9)
+        print(f"mesh phase: {time.perf_counter() - t0:.1f} s wall [{tag}]",
+              flush=True)
         # phases 11 and 12 start from an empty card: the slice goes first
         del model, tok, timers, saved
         gc.collect()
@@ -4844,7 +5070,7 @@ def main() -> int:
               launches_quantized=quantized["B"],
               launches_families=families["B"],
               launches_finetune=finetune["B"],
-              launches_entry=phase17["B"],
+              launches_entry=phase17["B"], launches_mesh=mesh["B"],
               **{k: v for k, v in b.items() if k.startswith("train_")},
               shape=b["shape"], share=b["share"],
               pretrain_launches=stack_launches["B"],
@@ -4860,7 +5086,7 @@ def main() -> int:
               launches_quantized=quantized["C"],
               launches_families=families["C"],
               launches_finetune=finetune["C"],
-              launches_entry=phase17["C"],
+              launches_entry=phase17["C"], launches_mesh=mesh["C"],
               launches_smem=c_training["launches_smem"],
               launches_global=c_training["launches_global"],
               pretrain_launches=stack_launches["C"],

@@ -4,6 +4,7 @@
 
 Usage:
     python -m llamole_tpu_torch train  config/train/llama_lora.yaml
+    torchrun --nproc-per-node N -m llamole_tpu_torch train <yaml with mesh>
     python -m llamole_tpu_torch eval   config/generate/llama_drug.yaml
     python -m llamole_tpu_torch export config/export.yaml
     python -m llamole_tpu_torch serve  config/generate/llama_drug.yaml
@@ -143,9 +144,22 @@ def _config(args):
 
 
 def _train(args, device):
+    """run_mmsft on the config. A config that sets `mesh` trains on a
+    mesh, one process per rank started by torchrun (`torchrun
+    --nproc-per-node N -m llamole_tpu_torch train <yaml>`, N the mesh's
+    product): each rank joins the process group from torchrun's
+    environment (NCCL on the card, gloo with --device cpu) and leaves it
+    at the end."""
+    import torch.distributed as dist
+
     from .config import get_train_args
     from .train.workflow import run_mmsft
-    run_mmsft(*get_train_args(_config(args)), device=device)
+    parsed = get_train_args(_config(args))
+    try:
+        run_mmsft(*parsed, device=device)
+    finally:
+        if parsed[2].mesh and dist.is_initialized():
+            dist.destroy_process_group()
 
 
 def _eval(args, device):

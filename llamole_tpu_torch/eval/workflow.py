@@ -60,8 +60,9 @@ def run_molqa(model_args, data_args, training_args, finetuning_args,
     before the LLM rollback. The summary records both."""
     if getattr(training_args, "mesh", ""):
         raise NotImplementedError("mesh (dp-sharded) evaluation is not "
-                                  "ported to llamole_tpu_torch yet "
-                                  "(ROADMAP.md: parallelism)")
+                                  "ported to llamole_tpu_torch yet: the "
+                                  "dp / tp inference legs are ROADMAP.md "
+                                  "Queue 1 item 9b")
     if prebuilt is not None:
         model, tokenizer = prebuilt
     else:

@@ -77,8 +77,9 @@ _LIKERT_COSTS = np.asarray([0.0, 1.0, 2.5, 4.5, 7.0])
 def _no_mesh(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError("mesh (dp-sharded) generation is not "
-                                  "ported to llamole_tpu_torch yet "
-                                  "(ROADMAP.md: parallelism)")
+                                  "ported to llamole_tpu_torch yet: the "
+                                  "dp / tp inference legs are ROADMAP.md "
+                                  "Queue 1 item 9b")
 
 
 @dataclass
@@ -135,6 +136,9 @@ class GraphLM(nn.Module):
                                      use_rslora=use_rslora)
         self.use_dora = use_dora
         self.pissa = pissa
+        # mesh training (parallel/sharding.py shard_graph_lm): the data
+        # group the loss normalises over, None without a mesh
+        self.mesh_groups = None
         # PiSSA's initial factors {projection: (A0, B0)} (init_trainable)
         self._pissa_init: Optional[Dict[str, Tuple[torch.Tensor,
                                                    torch.Tensor]]] = None
@@ -279,45 +283,74 @@ class GraphLM(nn.Module):
         "design_loss", "retro_loss"}), differentiable in the trainable
         bundle. generator draws the design branch's noise level, noised
         graph and (train) condition dropout; noisy feeds a given draw to
-        GraphDiT.loss instead (a test seam)."""
+        GraphDiT.loss instead (a test seam).
+
+        On a mesh (`mesh_groups`, set by parallel/sharding.py
+        shard_graph_lm) the batch holds this rank's rows offset..offset+b
+        of the whole batch's total (its "row_shard" = [offset, total]; the
+        Trainer's place_batch) and the whole graph banks. Molecule slots,
+        design rows and retro entries of other ranks' rows are left out
+        here, each loss term is this rank's sum over the count of every
+        rank (all-reduced over the data group), so the ranks' totals sum
+        to the mesh-less loss, and the design noise is drawn for the whole
+        batch (every rank draws the same) and this rank's rows kept."""
         if not isinstance(next(iter(batch.values())), torch.Tensor):
             batch = self.batch_to_device(batch)
+        dev = batch["input_ids"].device
+        b = batch["input_ids"].shape[0]
+        off, total, count = 0, b, None
+        if self.mesh_groups is not None:
+            from ..parallel.comm import all_gather_dim, all_reduce_
+            groups = self.mesh_groups
+            off, total = (int(v) for v in batch["row_shard"])
+
+            def count(n):
+                return all_reduce_(n.detach().clone(), groups.data_group)
+        mol_rows = batch["mol_rows"].long() - off
         embeds = self._splice_molecule_embeds(
             batch["input_ids"], batch["mol_atoms"], batch["mol_edges"],
-            batch["mol_node_mask"], batch["mol_valid"], batch["mol_rows"],
-            batch["mol_cols"])
+            batch["mol_node_mask"],
+            batch["mol_valid"].bool() & (mol_rows >= 0) & (mol_rows < b),
+            mol_rows, batch["mol_cols"])
         moe = self.llm.cfg.num_experts > 0
         logits, hidden, _, *aux = self.llm(
             inputs_embeds=embeds, attention_mask=batch["attention_mask"],
             return_moe_aux=moe, train=True)
-        lm = lm_loss(logits, batch["labels"], IGNORE_INDEX)
+        lm = lm_loss(logits, batch["labels"], IGNORE_INDEX, count)
         if moe:     # Mixtral's router load-balancing term rides the LM loss
             lm = lm + self.llm.cfg.moe_aux_loss_coef * aux[0]
         del logits   # [B, L, vocab] f32 (1.2 GB at 8B); autograd keeps its own
 
         # design branch
-        b = hidden.shape[0]
         d_start = batch["design_start_pos"]
-        d_graph = batch["design_graph_index"]
-        d_idx = d_graph.clamp_min(0)
-        d_valid = (d_start >= 0) & (d_graph >= 0)
         design_hidden = self._mean_body_hidden(
-            hidden, torch.arange(b, device=hidden.device),
-            d_start.clamp_min(0))
+            hidden, torch.arange(b, device=dev), d_start.clamp_min(0))
         conn = self.connectors["lm_to_graph_decoder"]
         design_cond = F.silu(conn(design_hidden.to(conn.weight.dtype)))
+        rows = None
+        d_graph = batch["design_graph_index"]
+        if b < total:     # the whole batch's design rows, for its draws
+            both = all_gather_dim(torch.stack([d_start, d_graph], 1), 0,
+                                  groups.data, groups.data_group)
+            d_start, d_graph = both[:, 0], both[:, 1]
+        if count is not None:
+            rows = (off, total)
+        d_idx = d_graph.clamp_min(0)
+        d_valid = (d_start >= 0) & (d_graph >= 0)
         design = self.graph_decoder.loss(
             generator, batch["mol_atoms"][d_idx], batch["mol_edges"][d_idx],
             batch["mol_node_mask"][d_idx] & d_valid[:, None],
             batch["molecule_properties"], design_cond.float(), train=train,
-            noisy=noisy)
+            noisy=noisy, rows=rows, count=count)
 
         # retro branch
-        retro_hidden = self._mean_body_hidden(hidden, batch["retro_rows"],
-                                              batch["retro_cols"])
+        retro_rows = batch["retro_rows"].long() - off
+        mine = (retro_rows >= 0) & (retro_rows < b)
+        retro_hidden = self._mean_body_hidden(
+            hidden, retro_rows.clamp(0, b - 1), batch["retro_cols"])
         conn = self.connectors["lm_to_graph_predictor"]
         retro_cond = F.silu(conn(retro_hidden.to(conn.weight.dtype)))
-        valid = batch["retro_valid"]
+        valid = batch["retro_valid"].bool() & mine
         retro_logits = self.graph_predictor(
             batch["retro_atoms"], batch["retro_edges"],
             batch["retro_node_mask"] & valid[:, None], retro_cond)
@@ -325,7 +358,8 @@ class GraphLM(nn.Module):
                                                     retro_logits.shape[-1] - 1)
         logp = torch.log_softmax(retro_logits.float(), dim=-1)
         nll = -logp.gather(1, labels[:, None])[:, 0]
-        retro = torch.where(valid, nll, 0.0).sum() / valid.sum().clamp_min(1)
+        n_valid = valid.sum() if count is None else count(valid.sum())
+        retro = torch.where(valid, nll, 0.0).sum() / n_valid.clamp_min(1)
 
         total = (self.loss_weight_lm * lm + self.loss_weight_design * design
                  + self.loss_weight_retro * retro)
@@ -346,8 +380,12 @@ class GraphLM(nn.Module):
         modules' directories (graph_decoder/, graph_predictor/,
         graph_encoder/) as well. A PiSSA adapter is written converted
         (pissa_to_lora: rank 2r over the original weights)."""
+        from ..parallel.sharding import full
+        values = {n: full(p) for n, p in self.trainable_parameters().items()}
+        if (self.mesh_groups is not None
+                and torch.distributed.get_rank() != 0):
+            return       # on a mesh every rank gathers, rank 0 writes
         os.makedirs(save_directory, exist_ok=True)
-        values = self.trainable_parameters()
         if self._pissa_init is not None:
             for name, (a0, b0) in self._pissa_init.items():
                 a, b = f"{name}.lora_a", f"{name}.lora_b"

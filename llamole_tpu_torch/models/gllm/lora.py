@@ -191,17 +191,24 @@ def quantized_product(x, q, scale, scheme: str) -> torch.Tensor:
 # DoRA
 # ---------------------------------------------------------------------------
 
-def _dora_parts(weight, a, b, m, scale):
-    """(W' [out, in] f32, ||W'|| [out], m / (||W'|| + 1e-6) [out])."""
+def _dora_parts(weight, a, b, m, scale, group=None):
+    """(W' [out, in] f32, ||W'|| [out], m / (||W'|| + 1e-6) [out]). group:
+    W' holds this rank's columns of the inputs (row-parallel) and the
+    squares are summed over the group."""
     v = weight.float() + (b.float() @ a.float()) * scale
-    norm = torch.linalg.vector_norm(v, dim=1)
+    if group is None:
+        norm = torch.linalg.vector_norm(v, dim=1)
+    else:
+        sq = (v * v).sum(dim=1)
+        torch.distributed.all_reduce(sq, group=group)
+        norm = torch.sqrt(sq)
     return v, norm, m.float() / (norm + 1e-6)
 
 
-def dora_weight(weight, a, b, m, scale) -> torch.Tensor:
+def dora_weight(weight, a, b, m, scale, group=None) -> torch.Tensor:
     """DoRA's effective weight m * W' / (||W'|| + 1e-6) [out, in] in f32
-    (JAX _proj: the norm over the inputs)."""
-    v, _, col = _dora_parts(weight, a, b, m, scale)
+    (JAX _proj: the norm over the inputs; group as in _dora_parts)."""
+    v, _, col = _dora_parts(weight, a, b, m, scale, group)
     return v * col[:, None]
 
 
@@ -210,19 +217,22 @@ class _DoRAProduct(torch.autograd.Function):
     from the saved factors instead of keeping it: the gradients of the
     plain composition (autograd through dora_weight and F.linear) with
     their rounding points (the weight cast to x's dtype, its gradient
-    taken in x's dtype and widened to f32)."""
+    taken in x's dtype and widened to f32). Row-parallel (group): the
+    norm's gradient needs the sum over the group of gw . W' per row; the
+    gradients of b and m stay this rank's parts (to_tp sums them)."""
 
     @staticmethod
-    def forward(ctx, x, weight, a, b, m, scale):
+    def forward(ctx, x, weight, a, b, m, scale, group):
         ctx.save_for_backward(x, weight, a, b, m)
-        ctx.scale = scale
-        return F.linear(x, dora_weight(weight, a, b, m, scale).to(x.dtype))
+        ctx.scale, ctx.group = scale, group
+        return F.linear(x, dora_weight(weight, a, b, m, scale,
+                                       group).to(x.dtype))
 
     @staticmethod
     def backward(ctx, grad):
         x, weight, a, b, m = ctx.saved_tensors
         s = ctx.scale
-        v, norm, col = _dora_parts(weight, a, b, m, s)
+        v, norm, col = _dora_parts(weight, a, b, m, s, ctx.group)
         n = norm + 1e-6
         gx = None
         if ctx.needs_input_grad[0]:
@@ -230,21 +240,24 @@ class _DoRAProduct(torch.autograd.Function):
         g2 = grad.reshape(-1, grad.shape[-1])
         gw = (g2.t() @ x.reshape(-1, x.shape[-1])).float()   # [out, in]
         gcol = (gw * v).sum(dim=1)
+        gm = (gcol / n).to(m.dtype)
+        if ctx.group is not None:
+            torch.distributed.all_reduce(gcol, group=ctx.group)
         gn = -gcol * m.float() / (n * n)
         gv = gw * col[:, None] + (gn / norm)[:, None] * v
         del gw
         ga = ((b.float().t() @ gv) * s).to(a.dtype)
         gb = ((gv @ a.float().t()) * s).to(b.dtype)
-        return gx, None, ga, gb, (gcol / n).to(m.dtype), None
+        return gx, None, ga, gb, gm, None, None
 
 
-def dora_product(x, weight, a, b, m, scale) -> torch.Tensor:
+def dora_product(x, weight, a, b, m, scale, group=None) -> torch.Tensor:
     """DoRA's projection of x [..., in] -> [..., out] in x's dtype (no
-    bias)."""
+    bias; group as in _dora_parts)."""
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, a, b, m)):
-        return _DoRAProduct.apply(x, weight, a, b, m, scale)
-    return F.linear(x, dora_weight(weight, a, b, m, scale).to(x.dtype))
+        return _DoRAProduct.apply(x, weight, a, b, m, scale, group)
+    return F.linear(x, dora_weight(weight, a, b, m, scale, group).to(x.dtype))
 
 
 class LoRALinear(nn.Module):
@@ -266,6 +279,10 @@ class LoRALinear(nn.Module):
         self.lora_b = None
         self.lora_m = None
         self.lora_scale = 1.0
+
+    # the tensor-parallel role (parallel/sharding.py shard_llm): None, or
+    # a TP whose style is "col" (output sharded) or "row" (input sharded)
+    tp = None
 
     @property
     def _device(self) -> torch.device:
@@ -320,20 +337,48 @@ class LoRALinear(nn.Module):
         self.lora_b.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.lora_m is not None and self.lora_enabled:
-            y = dora_product(x, self.weight, self.lora_a, self.lora_b,
-                             self.lora_m, self.lora_scale)
-            return y if self.bias is None else y + self.bias
-        if self.quant is None:
-            y = F.linear(x, self.weight)
+        """The projection over this rank's tensors. Tensor-parallel
+        (parallel/comm.py), column style: x and the replicated A enter
+        through to_tp, the output is this rank's slice of out. Row style:
+        x is this rank's slice of in, the replicated B and DoRA's m enter
+        through to_tp, DoRA's row norm sums its squares over the ranks
+        and the partial products are summed by from_tp. Without tp every
+        hook is the identity."""
+        tp = self.tp
+        col = tp is not None and tp.style == "col"
+        row = tp is not None and tp.style == "row"
+        if tp is not None:
+            from ...parallel.comm import from_tp, to_tp
+            from ...parallel.sharding import local
+
+        def enter(t, replicated):
+            # a replicated tensor entering a product with this rank's
+            # shards: its gradient is summed over the ranks
+            return to_tp(t, tp.group) if replicated else t
+
+        def mine(t):
+            return t if t is None or tp is None else local(t)
+
+        x = enter(x, col)
+        adapter = self.lora_a is not None and self.lora_enabled
+        if adapter:
+            a = enter(mine(self.lora_a), col)
+            b = enter(mine(self.lora_b), row)
+        if adapter and self.lora_m is not None:
+            y = dora_product(x, mine(self.weight), a, b,
+                             enter(mine(self.lora_m), row), self.lora_scale,
+                             tp.group if row else None)
         else:
-            y = quantized_product(x, self.w_q, self.scale, self.quant)
-        if self.lora_a is not None and self.lora_enabled:
-            xa = F.linear(x.to(self.lora_a.dtype), self.lora_a)
-            y = y + (F.linear(xa, self.lora_b) * self.lora_scale).to(y.dtype)
-        if self.bias is not None:
-            y = y + self.bias
-        return y
+            if self.quant is None:
+                y = F.linear(x, mine(self.weight))
+            else:
+                y = quantized_product(x, self.w_q, self.scale, self.quant)
+            if adapter:
+                xa = F.linear(x.to(a.dtype), a)
+                y = y + (F.linear(xa, b) * self.lora_scale).to(y.dtype)
+        if row:
+            y = from_tp(y, tp.group)
+        return y if self.bias is None else y + mine(self.bias)
 
 
 @torch.no_grad()

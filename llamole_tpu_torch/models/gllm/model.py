@@ -452,9 +452,10 @@ class DecoderLayer(nn.Module):
         b, s, _ = x.shape
         hd = cfg.head_dim_
         h = self.input_norm(x)
-        q = self.attn["q"](h).reshape(b, s, cfg.num_heads, hd)
-        k = self.attn["k"](h).reshape(b, s, cfg.num_kv_heads, hd)
-        v = self.attn["v"](h).reshape(b, s, cfg.num_kv_heads, hd)
+        # the heads this rank holds (all of them without tensor parallelism)
+        q = self.attn["q"](h).reshape(b, s, -1, hd)
+        k = self.attn["k"](h).reshape(b, s, -1, hd)
+        v = self.attn["v"](h).reshape(b, s, -1, hd)
         if cfg.qk_norm:
             q = self.q_norm(q)
             k = self.k_norm(k)
@@ -488,6 +489,25 @@ class DecoderLayer(nn.Module):
         return x + out, None
 
 
+class Embedding(nn.Embedding):
+    """nn.Embedding; under tensor parallelism (`tp`, a vocab-sharded
+    table: parallel/sharding.py) each rank looks up the ids of its rows,
+    zero elsewhere, and the ranks' lookups are summed."""
+
+    tp = None
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        if self.tp is None:
+            return super().forward(ids)
+        from ...parallel.comm import from_tp
+        from ...parallel.sharding import local
+        w = local(self.weight)
+        lo = self.tp.rank * w.shape[0]
+        inside = (ids >= lo) & (ids < lo + w.shape[0])
+        e = F.embedding((ids - lo).clamp(0, w.shape[0] - 1), w)
+        return from_tp(e * inside[..., None].to(e.dtype), self.tp.group)
+
+
 class LLM(nn.Module):
     """Parameters are uninitialised until `reset_parameters(generator)`,
     `load_state_dict` (weights.llm_state_dict) or, for a quantized LLM,
@@ -502,6 +522,9 @@ class LLM(nn.Module):
     # (_decode_graph); False keeps it eager. graph_replays counts replays.
     decode_graphs = True
     graph_replays = 0
+    # tensor parallelism (parallel/sharding.py shard_llm): the vocab TP
+    # role, whose logits are gathered over the tp ranks
+    tp = None
 
     def __init__(self, cfg: LLMConfig, dtype=torch.bfloat16, device=None,
                  quant: Optional[Tuple[str, int]] = None):
@@ -511,8 +534,7 @@ class LLM(nn.Module):
         self.dtype = dtype
         h = cfg.hidden_size
         meta = torch.device("meta")   # allocate once, uninitialised, below
-        self.embed = nn.Embedding(cfg.vocab_size, h, dtype=dtype,
-                                  device=meta)
+        self.embed = Embedding(cfg.vocab_size, h, dtype=dtype, device=meta)
         self.layers = nn.ModuleList(DecoderLayer(cfg, dtype, meta)
                                     for _ in range(cfg.num_layers))
         self.final_norm = RMSNorm(h, cfg.rms_norm_eps, dtype, meta,
@@ -682,10 +704,21 @@ class LLM(nn.Module):
         (logits f32, hidden)."""
         hidden = self.final_norm(x)
         head_in = hidden[:, -1:] if last_only else hidden
-        if self.lm_head is None:
+        if self.lm_head is not None:
+            logits = self.lm_head(head_in)
+        elif self.tp is None:
             logits = F.linear(head_in, self.embed.weight)
         else:
-            logits = self.lm_head(head_in)
+            from ...parallel.comm import to_tp
+            from ...parallel.sharding import local
+            logits = F.linear(to_tp(head_in, self.tp.group),
+                              local(self.embed.weight))
+        if self.tp is not None:
+            # the vocab-sharded logits, gathered once: every rank then
+            # computes the same loss on the whole vocabulary
+            from ...parallel.comm import gather_last
+            logits = gather_last(logits, self.tp.group, self.tp.size,
+                                 self.tp.rank)
         logits = logits.float()
         cap = self.cfg.final_logit_softcap
         if cap is not None:
@@ -1099,15 +1132,18 @@ def ngram_drafts(hist: torch.Tensor, hvalid: torch.Tensor, gen: torch.Tensor,
 
 
 def lm_loss(logits: torch.Tensor, labels: torch.Tensor,
-            ignore_index: int = -100) -> torch.Tensor:
+            ignore_index: int = -100, count=None) -> torch.Tensor:
     """Shifted causal-LM CE: the mean over the label positions that are
-    not ignore_index (0 when there is none)."""
+    not ignore_index (0 when there is none). count: a function of the
+    local count giving the normaliser (data parallelism: the count over
+    every rank's rows)."""
     shift_labels = labels[:, 1:].long()
     mask = shift_labels != ignore_index
     nll = F.cross_entropy(logits[:, :-1].float().reshape(-1, logits.shape[-1]),
                           shift_labels.reshape(-1),
                           ignore_index=ignore_index, reduction="sum")
-    return nll / mask.sum().clamp_min(1)
+    n = mask.sum()
+    return nll / (n if count is None else count(n)).clamp_min(1)
 
 
 def _normal_(p: torch.Tensor, std: float, generator) -> None:

@@ -77,22 +77,33 @@ class GraphDiT(nn.Module):
 
     def loss(self, generator: Optional[torch.Generator], atom_codes,
              edge_classes, node_mask, properties, text_emb,
-             train: bool = True, noisy=None) -> torch.Tensor:
+             train: bool = True, noisy=None, rows=None,
+             count=None) -> torch.Tensor:
         """lambda-weighted node / edge CE of the denoiser on one noise
         level per graph. properties [B, ydim] (NO_LABEL_INDEX = absent),
         text_emb [B, text_dim]. noisy: a given {"t", "X_t", "E_t"} draw in
         place of apply_noise's (a test seam: the JAX package's draw can be
-        fed to both)."""
+        fed to both). rows = (offset, total), data parallelism: the graphs
+        (atom_codes, edge_classes, node_mask, noisy) are the whole
+        batch's, properties and text_emb this rank's rows offset..; the
+        noise is drawn for the whole batch and this rank's rows kept, and
+        count (a function of the local count) gives the CE's normaliser
+        over every rank's rows."""
         y = torch.where(properties == NO_LABEL_INDEX, float("nan"),
                         properties.float())
         X, E = self.codes_to_onehot(atom_codes, edge_classes, node_mask)
         if noisy is None:
             noisy = apply_noise(generator, X, E, node_mask, self.schedule,
                                 self.parts, train=train)
+        if rows is not None:
+            mine = slice(rows[0], rows[0] + text_emb.shape[0])
+            X, E, node_mask = X[mine], E[mine], node_mask[mine]
+            noisy = {k: v[mine] for k, v in noisy.items()}
         pred_X, pred_E = self.denoiser(noisy["X_t"], noisy["E_t"], node_mask,
                                        y, text_emb, noisy["t"], train=train,
-                                       generator=generator)
-        return train_loss(pred_X, pred_E, X, E, tuple(self.cfg.lambda_train))
+                                       generator=generator, rows=rows)
+        return train_loss(pred_X, pred_E, X, E, tuple(self.cfg.lambda_train),
+                          count)
 
     @torch.no_grad()
     def sample(self, generator: torch.Generator, y: torch.Tensor,

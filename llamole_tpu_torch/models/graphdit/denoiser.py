@@ -90,9 +90,10 @@ class ConditionEmbedder(nn.Module):
             torch.empty(ydim, h, dtype=dtype, device=device))
 
     def forward(self, y, unconditioned: bool, dtype, train: bool = False,
-                drop_prob: float = 0.0, generator=None):
+                drop_prob: float = 0.0, generator=None, rows=None):
         """train: each channel drops with probability drop_prob and every
-        channel's embedding gets N(0, 1) noise (dropped ones too)."""
+        channel's embedding gets N(0, 1) noise (dropped ones too). rows:
+        see _draw."""
         total = None
         for d, p in enumerate(self.mlps):
             label = y[:, d:d + 1].to(dtype)
@@ -100,22 +101,35 @@ class ConditionEmbedder(nn.Module):
             drop = torch.ones_like(nan) if unconditioned else nan
             if train and not unconditioned and drop_prob > 0:
                 drop = drop | _bernoulli(label.shape, drop_prob, generator,
-                                         y.device)
+                                         y.device, rows)
             # resolve NaN before any matmul: NaN * 0 would poison rows
             safe = torch.where(nan, torch.zeros_like(label), label)
             hid = torch.softmax(p.fc1(safe).float(), dim=1).to(dtype)
             emb = torch.where(drop, self.null_embedding[d][None, :],
                               p.fc2(hid))
             if train:
-                emb = emb + torch.randn(emb.shape, generator=generator,
-                                        device=emb.device).to(dtype)
+                emb = emb + _draw(lambda shape: torch.randn(
+                    shape, generator=generator, device=emb.device),
+                    emb.shape, rows).to(dtype)
             total = emb if total is None else total + emb
         return total
 
 
-def _bernoulli(shape, prob: float, generator, device) -> torch.Tensor:
+def _draw(fn, shape, rows):
+    """fn(shape); with rows = (offset, total), a window of a batch's rows
+    (data parallelism): fn over the whole batch's rows, this window's
+    kept, so every rank draws what the mesh-less run draws."""
+    if rows is None:
+        return fn(shape)
+    off, total = rows
+    return fn((total, *shape[1:]))[off:off + shape[0]]
+
+
+def _bernoulli(shape, prob: float, generator, device,
+               rows=None) -> torch.Tensor:
     """True with probability prob (the JAX uniform < prob)."""
-    return torch.rand(shape, generator=generator, device=device) < prob
+    return _draw(lambda sh: torch.rand(sh, generator=generator,
+                                       device=device), shape, rows) < prob
 
 
 class _TextEmbedder(nn.Module):
@@ -126,14 +140,14 @@ class _TextEmbedder(nn.Module):
             torch.empty(1, h, dtype=dtype, device=device))
 
     def forward(self, txt, unconditioned: bool, dtype, train: bool = False,
-                drop_prob: float = 0.0, generator=None):
+                drop_prob: float = 0.0, generator=None, rows=None):
         nan = torch.isnan(txt)
         drop = torch.isnan(txt.float().sum(dim=1, keepdim=True))   # [B, 1]
         if unconditioned:
             drop = torch.ones_like(drop)
         elif train and drop_prob > 0:
             drop = drop | _bernoulli(drop.shape, drop_prob, generator,
-                                     txt.device)
+                                     txt.device, rows)
         safe = torch.where(nan, torch.zeros_like(txt), txt).to(dtype)
         return torch.where(drop, self.null_embedding[0][None, :],
                            self.linear(safe))
@@ -234,12 +248,14 @@ class Denoiser(nn.Module):
 
     def forward(self, X_in, E_in, node_mask, y, txt, t,
                 unconditioned: bool = False, train: bool = False,
-                generator=None):
+                generator=None, rows=None):
         """X_in [B,N,Xdim], E_in [B,N,N,Edim] one-hot; node_mask [B,N]
         bool; y [B,ydim] (NaN = unconditioned channel); txt [B,text_dim];
         t [B] normalized timestep -> (X_logits, E_logits), masked.
         train: the training path (plain attention, condition dropout and
-        property noise drawn from `generator`)."""
+        property noise drawn from `generator`). rows = (offset, total):
+        the batch is rows offset.. of a batch of total (data
+        parallelism), whose draws are the whole batch's."""
         emb = self.x_embedder
         dtype = (emb.norm.weight.dtype if isinstance(emb.linear, Int8Dense)
                  else emb.linear.weight.dtype)
@@ -252,9 +268,10 @@ class Denoiser(nn.Module):
         x = self.x_embedder.norm(self.x_embedder.linear(tokens))
         c = self.t_embedder(t, dtype)
         p = self.cfg.drop_condition
-        c = c + self.y_embedder(y, unconditioned, dtype, train, p, generator)
+        c = c + self.y_embedder(y, unconditioned, dtype, train, p, generator,
+                                rows)
         c = c + self.txt_embedder(txt, unconditioned, dtype, train, p,
-                                  generator)
+                                  generator, rows)
         for blk in self.blocks:
             x = blk(x, c, node_mask, train)
 

@@ -186,18 +186,22 @@ def apply_noise(generator, X, E, node_mask, schedule: NoiseSchedule,
             "X_t": Xh, "E_t": Eh}
 
 
-def _masked_ce(pred, true):
-    """Mean CE over the rows with any one-hot mass (the rest are padding)."""
+def _masked_ce(pred, true, count=None):
+    """Mean CE over the rows with any one-hot mass (the rest are padding).
+    count: a function of the local count giving the normaliser (data
+    parallelism: the count over every rank's rows)."""
     pred = pred.reshape(-1, pred.shape[-1]).float()
     true = true.reshape(-1, true.shape[-1]).float()
     mask = (true != 0.0).any(dim=-1)
     target = true.argmax(dim=-1)
     nll = -torch.log_softmax(pred, dim=-1).gather(1, target[:, None])[:, 0]
     nll = torch.where(mask, nll, 0.0)
-    return nll.sum() / mask.sum().clamp_min(1)
+    n = mask.sum()
+    return nll.sum() / (n if count is None else count(n)).clamp_min(1)
 
 
-def train_loss(pred_X, pred_E, true_X, true_E, lambda_train) -> torch.Tensor:
+def train_loss(pred_X, pred_E, true_X, true_E, lambda_train,
+               count=None) -> torch.Tensor:
     """lambda-weighted node + edge CE over valid rows."""
-    return (lambda_train[0] * _masked_ce(pred_X, true_X)
-            + lambda_train[1] * _masked_ce(pred_E, true_E))
+    return (lambda_train[0] * _masked_ce(pred_X, true_X, count)
+            + lambda_train[1] * _masked_ce(pred_E, true_E, count))

@@ -1,0 +1,174 @@
+"""Collectives of mesh training, with the gradients they need.
+
+The tensor-parallel LLM runs Megatron's two conjugate operators on each
+rank's local shards (arXiv 1909.08053, section 3):
+
+  to_tp     identity forward, all-reduce backward: a replicated tensor
+            entering a product with sharded weights (its gradient comes
+            back partial on each rank);
+  from_tp   all-reduce forward, identity backward: partial products of
+            row-sharded weights summed into the replicated activation.
+
+`gather_last` all-gathers the vocab-sharded logits (its backward takes
+this rank's slice back); DoRA's row norm under row-parallel o / down
+sums its squares in models/gllm/lora.py. The other helpers are the
+optimizer's and the loss's plain, gradient-free reductions; the
+optimizer's go in buckets, one collective per bucket of tensors of one
+dtype rather than one per parameter.
+"""
+
+from typing import Dict, List
+
+import torch
+import torch.distributed as dist
+
+
+class _ToTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+class _FromTP(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        x = x.contiguous()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _GatherLast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, size, rank):
+        ctx.rank, ctx.width = rank, x.shape[-1]
+        parts = [torch.empty_like(x) for _ in range(size)]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        return torch.cat(parts, dim=-1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        w = ctx.width
+        return grad[..., ctx.rank * w:(ctx.rank + 1) * w], None, None, None
+
+
+def to_tp(x: torch.Tensor, group) -> torch.Tensor:
+    return _ToTP.apply(x, group)
+
+
+def from_tp(x: torch.Tensor, group) -> torch.Tensor:
+    return _FromTP.apply(x, group)
+
+
+def gather_last(x: torch.Tensor, group, size: int, rank: int
+                ) -> torch.Tensor:
+    return _GatherLast.apply(x, group, size, rank)
+
+
+def all_reduce_(t: torch.Tensor, group=None) -> torch.Tensor:
+    """Sum over the group, in place (no gradient)."""
+    dist.all_reduce(t, group=group)
+    return t
+
+
+# the bucketed collectives of the optimizer: one call per bucket of
+# tensors of one dtype, up to this many bytes (a larger tensor alone)
+BUCKET_BYTES = 1 << 28
+
+
+def _buckets(tensors: Dict[str, torch.Tensor]) -> List[List[str]]:
+    """The names of `tensors`, in order within each dtype, cut into
+    buckets of at most BUCKET_BYTES."""
+    by_dtype: Dict[torch.dtype, List[str]] = {}
+    for n, t in tensors.items():
+        by_dtype.setdefault(t.dtype, []).append(n)
+    out = []
+    for names in by_dtype.values():
+        cur: List[str] = []
+        nbytes = 0
+        for n in names:
+            b = tensors[n].numel() * tensors[n].element_size()
+            if cur and nbytes + b > BUCKET_BYTES:
+                out.append(cur)
+                cur, nbytes = [], 0
+            cur.append(n)
+            nbytes += b
+        if cur:
+            out.append(cur)
+    return out
+
+
+def all_reduce_many(tensors: Dict[str, torch.Tensor],
+                    group) -> Dict[str, torch.Tensor]:
+    """Each tensor summed over the group (new tensors), one all-reduce
+    per bucket."""
+    out = {}
+    for names in _buckets(tensors):
+        flat = torch.cat([tensors[n].reshape(-1) for n in names])
+        dist.all_reduce(flat, group=group)
+        parts = flat.split([tensors[n].numel() for n in names])
+        for n, part in zip(names, parts):
+            out[n] = part.view(tensors[n].shape)
+    return out
+
+
+def reduce_scatter_many(tensors: Dict[str, torch.Tensor],
+                        dims: Dict[str, int], size: int,
+                        group) -> Dict[str, torch.Tensor]:
+    """Each tensor summed over the group, of which this rank keeps its
+    chunk along dims[name] (ZeRO-1's gradient reduction), one
+    reduce-scatter per bucket: row r of the bucket holds every tensor's
+    chunk r."""
+    out = {}
+    for names in _buckets(tensors):
+        moved = {n: tensors[n].movedim(dims[n], 0) for n in names}
+        flat = torch.cat([moved[n].reshape(size, -1) for n in names], dim=1)
+        mine = torch.empty(flat.shape[1], dtype=flat.dtype,
+                           device=flat.device)
+        dist.reduce_scatter_tensor(mine, flat.reshape(-1), group=group)
+        parts = mine.split([moved[n].numel() // size for n in names])
+        for n, part in zip(names, parts):
+            m = moved[n]
+            out[n] = part.view(m.shape[0] // size,
+                               *m.shape[1:]).movedim(0, dims[n])
+    return out
+
+
+def all_gather_many(chunks: Dict[str, torch.Tensor], dims: Dict[str, int],
+                    size: int, group) -> Dict[str, torch.Tensor]:
+    """The group's chunks of each tensor joined along dims[name] in rank
+    order (reduce_scatter_many's layout), one all-gather per bucket."""
+    out = {}
+    for names in _buckets(chunks):
+        moved = {n: chunks[n].movedim(dims[n], 0) for n in names}
+        flat = torch.cat([moved[n].reshape(-1) for n in names])
+        parts = [torch.empty_like(flat) for _ in range(size)]
+        dist.all_gather(parts, flat, group=group)
+        whole = torch.stack(parts)
+        off = 0
+        for n in names:
+            m = moved[n]
+            k = m.numel()
+            out[n] = whole[:, off:off + k].reshape(
+                size * m.shape[0], *m.shape[1:]).movedim(0, dims[n])
+            off += k
+    return out
+
+
+def all_gather_dim(shard: torch.Tensor, dim: int, size: int,
+                   group) -> torch.Tensor:
+    """The chunks of the group's ranks along `dim`, in rank order."""
+    parts: List[torch.Tensor] = [torch.empty_like(shard.contiguous())
+                                 for _ in range(size)]
+    dist.all_gather(parts, shard.contiguous(), group=group)
+    return torch.cat(parts, dim=dim)

@@ -1,0 +1,233 @@
+"""The multi-process CPU rehearsal of mesh training (counterpart of
+__graft_entry__.py's training legs, beside it): `dryrun_multichip(n)`
+starts n gloo ranks on the CPU and runs, through run_mmsft on the tiny
+smoke config (config/smoke/tiny_train.yaml), the dp x tp step, ZeRO-1,
+ZeRO-3 and the dcn x dp step, each held to the same run without a mesh
+(every rank builds the same model from the seed), then prints
+"dryrun_multichip OK".
+
+`launch(target, n, ...)` is the harness: n processes of
+`python -m llamole_tpu_torch.parallel.dryrun --worker module:function`,
+joined through a FileStore, each calling function(rank, world, payload)
+and writing its JSON result; it waits at most `timeout` seconds, then
+kills every rank and raises, so a hang fails instead of stalling. A rank
+that imported JAX fails (the port imports none of it).
+
+    python -m llamole_tpu_torch.parallel.dryrun [N]      (N = 4)
+"""
+
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+from typing import Any, Dict, List, Optional, Sequence
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+TINY = os.path.join(ROOT, "config", "smoke", "tiny_train.yaml")
+
+
+def launch(target: str, n: int, payload: Any = None, timeout: float = 120.0,
+           workdir: Optional[str] = None,
+           path: Sequence[str] = ()) -> List[Any]:
+    """Run target ("module:function") in n gloo CPU ranks; returns each
+    rank's result. path: directories the ranks import from besides the
+    checkout. Raises on a rank's failure (with its stderr) or past
+    timeout seconds (every rank killed)."""
+    work = workdir or tempfile.mkdtemp(prefix="llamole-dryrun-")
+    os.makedirs(work, exist_ok=True)
+    with open(os.path.join(work, "payload.json"), "w") as f:
+        json.dump(payload, f)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [ROOT, *path, *filter(None, [env.get("PYTHONPATH")])])
+    env.setdefault("OMP_NUM_THREADS", "1")
+    procs, logs = [], []
+    for rank in range(n):
+        log = open(os.path.join(work, f"rank{rank}.log"), "w+")
+        logs.append(log)
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "llamole_tpu_torch.parallel.dryrun",
+             "--worker", target, str(rank), str(n), work],
+            stdout=log, stderr=subprocess.STDOUT, env=env, cwd=ROOT))
+    deadline = time.monotonic() + timeout
+    try:
+        while any(p.poll() is None for p in procs):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"{target} on {n} ranks passed {timeout} "
+                                   f"s:\n{_tails(logs)}")
+            if any(p.poll() not in (None, 0) for p in procs):
+                time.sleep(1.0)       # let the others print their errors
+                break
+            time.sleep(0.05)
+        bad = [r for r, p in enumerate(procs) if p.poll() != 0]
+        if bad:
+            raise RuntimeError(f"{target}: ranks {bad} failed:\n"
+                               f"{_tails(logs)}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for log in logs:
+            log.close()
+    out = []
+    for rank in range(n):
+        with open(os.path.join(work, f"result{rank}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def _tails(logs, lines: int = 30) -> str:
+    out = []
+    for rank, log in enumerate(logs):
+        log.flush()
+        log.seek(0)
+        text = log.read().splitlines()[-lines:]
+        out.append(f"--- rank {rank} ---\n" + "\n".join(text))
+    return "\n".join(out)
+
+
+def _worker(target: str, rank: int, world: int, work: str) -> None:
+    import importlib
+
+    import torch
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    module, _, fn = target.partition(":")
+    with open(os.path.join(work, "payload.json")) as f:
+        payload = json.load(f)
+    dist.init_process_group(
+        "gloo", store=dist.FileStore(os.path.join(work, "store"), world),
+        rank=rank, world_size=world)
+    try:
+        result = getattr(importlib.import_module(module), fn)(
+            rank, world, payload)
+    finally:
+        dist.destroy_process_group()
+    if "jax" in sys.modules:
+        raise RuntimeError(f"rank {rank} imported jax")
+    with open(os.path.join(work, f"result{rank}.json"), "w") as f:
+        json.dump(result, f)
+
+
+# -- the legs ------------------------------------------------------------------
+
+def _tiny_args(mesh: str, zero: int, **training):
+    from dataclasses import replace
+
+    from ..config import get_train_args
+    args = list(get_train_args(TINY))
+    # 4 examples in one batch an epoch: every mesh of 2 or 4 data ranks
+    # divides it, so no padding row changes the design branch's draws
+    # f32, so a mesh's other summation order stays within 1e-5; a
+    # constant learning rate, so the first update moves the adapter
+    args[0] = replace(args[0], compute_dtype="float32")
+    args[1] = replace(args[1], max_samples=4)
+    args[2] = replace(args[2], output_dir=None, mesh=mesh, zero_stage=zero,
+                      per_device_train_batch_size=4,
+                      gradient_accumulation_steps=2, max_steps=4,
+                      num_train_epochs=4.0, logging_steps=1,
+                      lr_scheduler_type="constant", **training)
+    return args
+
+
+def _losses(mesh: str, zero: int):
+    """(each micro step's loss, the Trainer, the GraphLM placed on the
+    mesh or None) of run_mmsft on the tiny config."""
+    from ..train import trainer as trainer_mod
+    from ..train.workflow import run_mmsft
+    from . import sharding
+    seen: List[float] = []
+    trainers, models = [], [None]
+    step, place = trainer_mod.Trainer._micro_step, sharding.shard_graph_lm
+
+    def record(self, state, batch):
+        out = step(self, state, batch)
+        seen.append(out["loss"])
+        trainers[:] = [self]
+        return out
+
+    def placed(model, groups, zero3):
+        models[:] = [model]
+        return place(model, groups, zero3)
+    trainer_mod.Trainer._micro_step = record
+    sharding.shard_graph_lm = placed
+    try:
+        run_mmsft(*_tiny_args(mesh, zero), device="cpu")
+    finally:
+        trainer_mod.Trainer._micro_step = step
+        sharding.shard_graph_lm = place
+    return seen, trainers[0], models[0]
+
+
+def _check(name: str, got: List[float], want: List[float]) -> None:
+    import numpy as np
+    if not (len(got) == len(want) == 4 and np.all(np.isfinite(got))):
+        raise RuntimeError(f"{name}: losses {got}, mesh-less {want}")
+    np.testing.assert_allclose(got, want, rtol=1e-5,
+                               err_msg=f"{name}: {got} vs mesh-less {want}")
+
+
+def _check_placement(name: str, trainer, model, zero: int) -> None:
+    """ZeRO-1: the largest parameter's moments are a 1/dp chunk; ZeRO-3:
+    the LLM's largest frozen leaf is stored in 1/(dp tp) per rank."""
+    from .sharding import local
+    gr = trainer.groups
+    if zero >= 1:
+        opt = trainer.optimizer
+        n = max(opt.params, key=lambda k: opt.params[k].numel())
+        if opt.mu[n].numel() * gr.dp != local(opt.params[n]).numel():
+            raise RuntimeError(f"{name}: moments of {n} not dp-sharded")
+    if zero >= 3:
+        big = max((p for p in model.llm.parameters()
+                   if not p.requires_grad), key=lambda p: p.numel())
+        if local(big).numel() * gr.dp * gr.tp != big.numel():
+            raise RuntimeError(f"{name}: frozen LLM not dp-sharded")
+
+
+def _legs(rank: int, world: int, payload) -> Dict[str, Any]:
+    """Every leg on this rank: {leg: its losses}; rank 0 prints."""
+    dp, tp = (world // 2, 2) if world % 2 == 0 and world > 2 else (world, 1)
+    plain = _losses("", 0)[0]
+    legs = {f"dp={dp} tp={tp}": (f"dp:{dp},tp:{tp}", 0),
+            f"zero1 dp={world}": (f"dp:{world}", 1),
+            f"zero3 dp={world}": (f"dp:{world}", 3)}
+    if world % 2 == 0:
+        legs[f"dcn=2 dp={world // 2}"] = (f"dcn:2,dp:{world // 2}", 0)
+    out = {"plain": plain}
+    for name, (mesh, zero) in legs.items():
+        got, trainer, model = _losses(mesh, zero)
+        _check(name, got, plain)
+        _check_placement(name, trainer, model, zero)
+        out[name] = got
+        if rank == 0:
+            print(f"dryrun {name} OK: losses {got[0]:.4f} .. {got[-1]:.4f} "
+                  f"== mesh-less", flush=True)
+    return out
+
+
+def dryrun_multichip(n: int = 4, timeout: float = 120.0,
+                     workdir: Optional[str] = None) -> Dict[str, Any]:
+    """The legs on n gloo CPU ranks (their store and logs in workdir, a
+    temporary directory by default); prints each and "dryrun_multichip
+    OK"; raises if a leg fails or the ranks pass the timeout."""
+    with tempfile.TemporaryDirectory(prefix="llamole-dryrun-") as tmp:
+        results = launch("llamole_tpu_torch.parallel.dryrun:_legs", n,
+                         timeout=timeout, workdir=workdir or tmp)
+    legs = results[0]
+    for name, losses in legs.items():
+        if name != "plain":
+            print(f"dryrun {name} OK: {len(losses)} micro steps, loss "
+                  f"{losses[-1]:.4f} == mesh-less {legs['plain'][-1]:.4f}")
+    print(f"dryrun_multichip OK: {n} gloo ranks")
+    return legs
+
+
+if __name__ == "__main__":
+    if len(sys.argv) > 1 and sys.argv[1] == "--worker":
+        _worker(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), sys.argv[5])
+    else:
+        dryrun_multichip(int(sys.argv[1]) if len(sys.argv) > 1 else 4)

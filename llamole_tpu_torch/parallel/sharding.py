@@ -1,0 +1,320 @@
+"""Partition specs of mesh training (counterpart of
+llamole_tpu/parallel/sharding.py) and their DTensor / FSDP2 placements.
+
+The three spec functions take the port's parameters by name ({name:
+tensor}, the LLM's own names) and return for each the JAX package's
+PartitionSpec as a tuple of axis names, one entry per dimension of the
+JAX leaf (weights.py's bridge: a projection's [in, out], the port's
+[out, in] transposed), so they equal JAX's spec for spec:
+
+  llm_param_pspecs   Megatron tensor parallelism: q / k / v / gate / up
+                     column-parallel (None, tp), o / down row-parallel
+                     (tp, None), the embedding vocab-sharded (tp, None),
+                     lm_head on its vocab dimension (None, tp); norms,
+                     biases and the router replicated (()); MoE experts
+                     on ep when it is given.
+  zero1_opt_pspecs   ZeRO-1: dp on the largest dp-divisible dimension of
+                     each optimizer-state leaf (ties: the later one).
+  fsdp_param_pspecs  ZeRO-3: dp on the largest dp-divisible dimension not
+                     taken by tp / ep, for every leaf of two dimensions
+                     or more.
+
+`spec_to_placements` maps a spec onto a mesh's DTensor placements in the
+port's orientation. `shard_llm` places the LLM on the tp axis (the
+adapter factor on a projection's sharded side follows its base weight:
+B [out, r] of a column-parallel projection, A [r, in] of a row-parallel
+one, DoRA's magnitude and a column-parallel bias on out): the sharded
+leaves become DTensors, the replicated ones stay plain tensors; and `fsdp_llm` shards the frozen LLM's storage over dp with
+FSDP2's fully_shard, one unit per decoder layer plus the embedding and
+the head, `shard_placement_fn` following fsdp_param_pspecs and the
+leaves that spec leaves replicated (norms, the adapter) ignored.
+"""
+
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from ..weights import _llm_path
+from .mesh import ITEM_9B
+
+Spec = Tuple[Optional[str], ...]
+
+_COLUMN = ("q", "k", "v", "gate", "up")
+_ROW = ("o", "down")
+
+
+def _jax_shape(name: str, shape) -> Tuple[int, ...]:
+    _, transposed = _llm_path(name)
+    shape = tuple(shape)
+    return shape[::-1] if transposed and len(shape) == 2 else shape
+
+
+def _spec_for(name: str, shape, tp_axis: str, ep_axis: Optional[str]
+              ) -> Spec:
+    keys, _ = _llm_path(name)
+    ndim = len(shape)
+    if "experts" in keys:
+        if ep_axis is None:
+            return ()
+        return (ep_axis,) + (None,) * (ndim - 1)
+    if "router" in keys or ndim <= 1:
+        return ()
+    if "embed" in keys:
+        return (tp_axis, None)
+    if "lm_head" in keys:
+        return (None, tp_axis)
+    owner = keys[-2] if len(keys) >= 2 else ""
+    if owner in _COLUMN:
+        return (None, tp_axis)
+    if owner in _ROW:
+        return (tp_axis, None)
+    return ()
+
+
+def llm_param_pspecs(params: Dict[str, torch.Tensor], tp_axis: str = "tp",
+                     ep_axis: Optional[str] = None) -> Dict[str, Spec]:
+    """{name: JAX spec} of the LLM's base parameters (names as
+    LLM.named_parameters() gives them, no adapter)."""
+    return {n: _spec_for(n, p.shape, tp_axis, ep_axis)
+            for n, p in params.items()}
+
+
+def _largest_divisible(shape, dp: int, taken=()) -> Optional[int]:
+    cands = [(d, i) for i, d in enumerate(shape)
+             if i not in taken and d % dp == 0 and d >= dp]
+    return max(cands)[1] if cands else None
+
+
+def zero1_opt_pspecs(state: Any, dp: int, axis: str = "dp") -> Any:
+    """The spec of every tensor leaf of `state` (nested dicts / lists, the
+    moments laid out as the JAX bundle tree): dp on its largest
+    dp-divisible dimension, () for scalars and indivisible leaves."""
+    if isinstance(state, dict):
+        return {k: zero1_opt_pspecs(v, dp, axis) for k, v in state.items()}
+    if isinstance(state, (list, tuple)):
+        return type(state)(zero1_opt_pspecs(v, dp, axis) for v in state)
+    shape = tuple(getattr(state, "shape", ()))
+    best = _largest_divisible(shape, dp) if shape else None
+    if best is None:
+        return ()
+    return tuple(axis if i == best else None for i in range(len(shape)))
+
+
+def fsdp_param_pspecs(params: Dict[str, torch.Tensor], dp: int,
+                      dp_axis: str = "dp", tp_axis: Optional[str] = None,
+                      ep_axis: Optional[str] = None) -> Dict[str, Spec]:
+    """{name: JAX spec} of ZeRO-3: llm_param_pspecs (when tp_axis or
+    ep_axis is given) with dp added on the largest dp-divisible free
+    dimension of each leaf of two dimensions or more."""
+    out = {}
+    for name, p in params.items():
+        shape = _jax_shape(name, p.shape)
+        spec = (_spec_for(name, shape, tp_axis, ep_axis)
+                if tp_axis or ep_axis else ())
+        if len(shape) < 2:
+            out[name] = spec
+            continue
+        full = list(spec) + [None] * (len(shape) - len(spec))
+        best = _largest_divisible(
+            shape, dp, taken={i for i, a in enumerate(full) if a is not None})
+        if best is None:
+            out[name] = spec
+            continue
+        full[best] = dp_axis
+        out[name] = tuple(full)
+    return out
+
+
+def port_dim(name: str, jax_dim: int, ndim: int) -> int:
+    """The port tensor's dimension of a JAX leaf's dimension."""
+    _, transposed = _llm_path(name)
+    return ndim - 1 - jax_dim if transposed and ndim == 2 else jax_dim
+
+
+def spec_to_placements(name: str, spec: Spec, ndim: int,
+                       mesh_axes: Sequence[str]):
+    """DTensor placements, one per mesh axis, of a port tensor whose JAX
+    spec is `spec`: Shard(port dimension) on each axis the spec names,
+    Replicate on the others."""
+    from torch.distributed.tensor import Replicate, Shard
+    where = {a: port_dim(name, i, ndim) for i, a in enumerate(spec)
+             if a is not None}
+    return [Shard(where[a]) if a in where else Replicate()
+            for a in mesh_axes]
+
+
+def shard_params(params: Dict[str, torch.Tensor], mesh,
+                 specs: Dict[str, Spec]) -> Dict[str, torch.Tensor]:
+    """{name: DTensor} of full (replicated, identical on every rank)
+    tensors placed on `mesh` by their JAX specs; each rank keeps its
+    chunks, without a collective."""
+    return {n: _place(t, mesh, spec_to_placements(
+        n, specs[n], t.dim(), mesh.mesh_dim_names)) for n, t in params.items()}
+
+
+def replicate(params: Dict[str, torch.Tensor], mesh
+              ) -> Dict[str, torch.Tensor]:
+    return shard_params(params, mesh, {n: () for n in params})
+
+
+def _place(t: torch.Tensor, mesh, placements):
+    """DTensor.from_local of this rank's chunk of a full tensor."""
+    from torch.distributed.tensor import DTensor, Shard
+    local = t.detach()
+    coord = mesh.get_coordinate()
+    for axis, pl in enumerate(placements):
+        if isinstance(pl, Shard):
+            local = local.chunk(mesh.mesh.shape[axis], dim=pl.dim)[
+                coord[axis]]
+    # a chunk gets storage of its own: a view would keep the whole tensor
+    local = local.contiguous() if local.numel() == t.numel() else \
+        local.clone(memory_format=torch.contiguous_format)
+    return DTensor.from_local(local, mesh, placements, run_check=False,
+                              shape=t.shape, stride=t.stride())
+
+
+def local(t: torch.Tensor) -> torch.Tensor:
+    """A DTensor's local shard; a plain tensor as it is."""
+    from torch.distributed.tensor import DTensor
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def full(t: torch.Tensor) -> torch.Tensor:
+    """The whole tensor on every rank (a collective for a sharded
+    DTensor): what the checkpoints write."""
+    from torch.distributed.tensor import DTensor
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+@dataclass
+class TP:
+    """A projection's (or the embedding's) tensor-parallel role."""
+    style: str       # "col" (output sharded), "row" (input sharded), "vocab"
+    group: Any
+    size: int
+    rank: int
+
+
+def _adapter_spec(owner_style: str, leaf: str) -> Optional[int]:
+    """The port dimension an adapter leaf shards on, following its base."""
+    if owner_style == "col" and leaf in ("lora_b", "lora_m", "bias"):
+        return 0
+    if owner_style == "row" and leaf == "lora_a":
+        return 1
+    return None
+
+
+def shard_llm(llm: nn.Module, groups) -> None:
+    """Place the LLM's parameters on the tp axis as DTensors (every rank
+    holds the same full LLM before; each keeps its chunks) and give each
+    projection, the embedding and the head their TP role. Refuses what
+    the tensor-parallel forward does not cover."""
+    from torch.distributed.tensor import DTensor, Shard
+    from ..models.gllm.lora import LoRALinear
+    cfg = llm.cfg
+    tp = groups.tp
+    if cfg.num_experts > 0:
+        raise NotImplementedError(f"MoE LLMs on a mesh: {ITEM_9B} (expert "
+                                  "parallelism)")
+    if llm.quant is not None or any(
+            isinstance(m, LoRALinear) and m.quant is not None
+            for m in llm.modules()):
+        raise NotImplementedError("a quantized LLM on a mesh is not ported")
+    if cfg.shift_attn and tp > 1:
+        raise NotImplementedError(f"S²-attn under tp > 1: {ITEM_9B}")
+    if cfg.qk_norm and tp > 1 and any(
+            p.requires_grad for n, p in llm.named_parameters()
+            if "q_norm" in n or "k_norm" in n):
+        # their one [head_dim] scale is shared by heads on every rank
+        raise NotImplementedError("training the per-head q / k norms under "
+                                  "tp > 1 is not ported")
+    for what, n in (("attention heads", cfg.num_heads),
+                    ("kv heads", cfg.num_kv_heads),
+                    ("intermediate size", cfg.intermediate_size),
+                    ("vocabulary", cfg.vocab_size)):
+        if n % tp:
+            raise ValueError(f"tp={tp} does not divide the {what} ({n})")
+    mesh = groups.mesh["tp"]
+    specs = llm_param_pspecs({n: p for n, p in llm.named_parameters()
+                              if "lora_" not in n})
+    role = {}
+    for name, m in llm.named_modules():
+        if isinstance(m, LoRALinear):
+            owner = name.split(".")[-1]
+            style = ("row" if owner in _ROW else "col")
+            m.tp = TP(style, groups.tp_group, tp, groups.tp_rank)
+            role[name] = style
+    llm.embed.tp = TP("vocab", groups.tp_group, tp, groups.tp_rank)
+    llm.tp = llm.embed.tp
+    for name in [n for n, _ in llm.named_parameters()]:
+        p = llm.get_parameter(name)   # one old parameter alive at a time
+        owner, leaf = name.rsplit(".", 1)
+        if isinstance(p, DTensor):
+            continue
+        if specs.get(name):
+            placed = shard_params({name: p.data}, mesh, specs)[name]
+        else:
+            d = _adapter_spec(role.get(owner, ""), leaf)
+            if d is None:
+                continue     # replicated leaves stay plain tensors
+            placed = _place(p.data, mesh, [Shard(d)])
+        setattr(llm.get_submodule(owner), leaf,
+                nn.Parameter(placed, requires_grad=p.requires_grad))
+
+
+def fsdp_llm(llm: nn.Module, groups) -> None:
+    """ZeRO-3: FSDP2 over the dp axis on the LLM's frozen storage, one
+    unit per decoder layer, the embedding and the head. Only the leaves
+    fsdp_param_pspecs gives dp are sharded (placement from the spec);
+    the rest (norms, indivisible leaves, every trainable leaf: the
+    optimizer reduces those itself) are ignored by FSDP."""
+    from torch.distributed.fsdp import FSDPModule, fully_shard
+    from torch.distributed.tensor import Shard
+    if llm.lm_head is None:
+        raise NotImplementedError("ZeRO-3 with tied embeddings (the head "
+                                  "reads the embedding outside its "
+                                  "module) is not ported")
+    names = {id(p): n for n, p in llm.named_parameters()}
+    frozen = {n: p for n, p in llm.named_parameters() if not p.requires_grad}
+    specs = fsdp_param_pspecs(frozen, groups.dp, tp_axis="tp")
+    dims = {}
+    for n, spec in specs.items():
+        if "dp" in spec:
+            dims[n] = port_dim(n, spec.index("dp"), frozen[n].dim())
+    ignored = {id(p) for n, p in llm.named_parameters() if n not in dims}
+    dp_mesh = groups.mesh["dp"]
+
+    def placement(p):
+        return Shard(dims[names[id(p)]])
+
+    # each unit is its own FSDP root (no wrapped parent), for which FSDP2
+    # would keep the gathered weights after the forward: reshard them, so
+    # at most one unit's weights are whole at a time (the ZeRO-3 dataflow;
+    # the backward gathers each layer again)
+    for unit in (*llm.layers, llm.embed, llm.lm_head):
+        if isinstance(unit, FSDPModule):      # placed by an earlier run
+            continue
+        fully_shard(unit, mesh=dp_mesh, reshard_after_forward=True,
+                    shard_placement_fn=placement,
+                    ignored_params={p for p in unit.parameters()
+                                    if id(p) in ignored})
+
+
+def shard_graph_lm(model: nn.Module, groups, zero3: bool) -> None:
+    """Place a GraphLM on the mesh for training: its LLM tensor-parallel
+    (shard_llm; a full-finetune LLM trains sharded), under ZeRO-3 the
+    LLM's frozen storage FSDP2-sharded over dp (fsdp_llm), and the loss
+    told its data group (GraphLM.mesh_groups). The graph modules and the
+    connectors stay plain tensors, replicated. A model placed before (an
+    earlier run on it) must be on a mesh of the same layout."""
+    old = model.mesh_groups
+    if old is not None and (old.size, old.coord) != (groups.size,
+                                                     groups.coord):
+        raise ValueError(f"the model is placed on a mesh {old.size}; "
+                         f"it cannot move to {groups.size}")
+    shard_llm(model.llm, groups)
+    if zero3:
+        fsdp_llm(model.llm, groups)
+    model.mesh_groups = groups

@@ -45,8 +45,22 @@ finetuning arguments ask for GaLore, BAdam or LoRA+:
   LoRA+  the update of every leaf whose JAX path has a segment holding
          "lora" and ends in "b" (the adapters' B) times the ratio
   lr     times -schedule(count)
+
+On a mesh (`groups`, parallel/mesh.py MeshGroups) each rank holds its
+tensor-parallel shard of every parameter (the optimizer works on the
+DTensors' local tensors) and the micro step's gradients are summed over
+the data group (dcn x dp) as they are accumulated. ZeRO-1 (`zero1`)
+shards the moments and the accumulator over dp on the dimension
+parallel/sharding.py zero1_opt_pspecs picks (the largest dp-divisible
+one of the JAX leaf; under tp the largest free one if that is the tp
+dimension): the gradient is reduce-scattered, the clip reads the global
+norm, the update runs on this rank's chunk and the parameter is
+all-gathered. The gradients' reductions and the all-gather go in buckets
+(parallel/comm.py): one collective per bucket, not per parameter. GaLore needs whole gradients: on a mesh with tp > 1 or
+ZeRO-1 over dp > 1 it raises (ROADMAP.md item 9b).
 """
 
+import contextlib
 import math
 from typing import Any, Callable, Dict, List, NamedTuple, Optional
 
@@ -167,7 +181,8 @@ class AccumulatingAdamW:
     def __init__(self, params: Dict[str, torch.nn.Parameter],
                  schedule: Schedule, *, b1: float = 0.9, b2: float = 0.999,
                  eps: float = 1e-8, weight_decay: float = 0.0,
-                 max_grad_norm: float = 1.0, accumulation_steps: int = 1):
+                 max_grad_norm: float = 1.0, accumulation_steps: int = 1,
+                 groups=None, zero1: bool = False):
         self.params = params
         self.schedule = schedule
         self.b1, self.b2, self.eps = b1, b2, eps
@@ -176,20 +191,79 @@ class AccumulatingAdamW:
         self.k = max(int(accumulation_steps), 1)
         self.count = 0        # updates applied
         self.mini_step = 0    # micro steps in the current window
-        self.acc = {n: torch.zeros_like(p) for n, p in params.items()}
+        self.groups = groups
+        self.shard_dim = ({n: zero1_dim(n, p, groups) for n, p in
+                           params.items()} if zero1 and groups else {})
+        self.last_grad_norm = float("nan")   # the last micro step's
+        self.acc = {n: torch.zeros_like(self._mine(n, p))
+                    for n, p in params.items()}
         self.mu = {n: self._moment(n, p) for n, p in params.items()}
         self.nu = {n: self._moment(n, p) for n, p in params.items()}
 
+    def _mine(self, name: str, p: torch.Tensor) -> torch.Tensor:
+        """The part of p (a view) this rank's optimizer state covers: its
+        tensor-parallel shard, and of that its ZeRO-1 chunk."""
+        t = local_data(p)
+        d = self.shard_dim.get(name)
+        if d is None:
+            return t
+        return t.chunk(self.groups.dp, dim=d)[self.groups.dp_rank]
+
     def _moment(self, name: str, p: torch.Tensor) -> torch.Tensor:
-        return torch.zeros_like(p)
+        return torch.zeros_like(self._mine(name, p))
+
+    def _sharded(self) -> Dict[str, int]:
+        """{name: its ZeRO-1 chunk's dimension} of the chunked names."""
+        return {n: d for n, d in self.shard_dim.items() if d is not None}
+
+    def _reduce(self, grads: Dict[str, torch.Tensor]
+                ) -> Dict[str, torch.Tensor]:
+        """A micro step's local gradients summed over the data group
+        (ZeRO-1: reduce-scattered to this rank's chunks over dp, then
+        summed over dcn), in bucketed collectives."""
+        from ..parallel.comm import all_reduce_many, reduce_scatter_many
+        gr = self.groups
+        if gr is None:
+            return grads
+        dims = self._sharded()
+        out = all_reduce_many({n: g for n, g in grads.items()
+                               if n not in dims}, gr.data_group)
+        part = reduce_scatter_many({n: g for n, g in grads.items()
+                                    if n in dims}, dims, gr.dp, gr.dp_group)
+        if gr.dcn_group is not None:
+            part = all_reduce_many(part, gr.dcn_group)
+        out.update(part)
+        return out
+
+    def _copies(self, name: str) -> int:
+        """How many ranks hold this name's optimizer part identically."""
+        gr = self.groups
+        distinct = (gr.tp if tp_sharded(self.params[name]) else 1) * (
+            gr.dp if self.shard_dim.get(name) is not None else 1)
+        return gr.world // distinct
+
+    def global_norm(self, values: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The global norm of {name: this rank's part}: on a mesh the
+        squares of every rank's parts, each copy counted once."""
+        if self.groups is None:
+            return global_norm(values.values())
+        from ..parallel.comm import all_reduce_
+        sq = sum((t.float() * t.float()).sum() / self._copies(n)
+                 for n, t in values.items())
+        return torch.sqrt(all_reduce_(sq))
 
     @torch.no_grad()
     def accumulate(self) -> bool:
         n_acc = self.mini_step
-        for name, p in self.params.items():
-            g = p.grad if p.grad is not None else torch.zeros_like(p)
+        grads = self._reduce({
+            name: (local_data(p.grad) if p.grad is not None
+                   else torch.zeros_like(local_data(p)))
+            for name, p in self.params.items()})
+        for name, g in grads.items():
             acc = self.acc[name]
             acc.add_((g.to(acc.dtype) - acc) / (n_acc + 1))
+        self.last_grad_norm = float(self.global_norm(grads))
+        del grads
         self.mini_step += 1
         if self.mini_step < self.k:
             return False
@@ -216,20 +290,97 @@ class AccumulatingAdamW:
         return update
 
     def _update(self) -> None:
+        from ..parallel.comm import all_gather_many
         grads = self.acc
-        norm = global_norm(grads.values())
+        norm = self.global_norm(grads)
         clip = bool(norm >= self.max_grad_norm)
         lr = self.schedule(self.count)
         self.count += 1
         c1 = 1.0 - self.b1 ** self.count
         c2 = 1.0 - self.b2 ** self.count
-        for name, p in self.params.items():
+        for name, param in self.params.items():
+            p = self._mine(name, param)
             g = grads[name]
             if clip:
                 g = g / norm.to(g.dtype) * self.max_grad_norm
             update = self._direction(name, p, g, c1, c2)
             if update is not None:
                 p.add_(update.to(p.dtype), alpha=-lr)
+        dims = self._sharded()
+        if dims:    # ZeRO-1: every rank's updated chunks
+            whole = all_gather_many({n: self._mine(n, self.params[n])
+                                     for n in dims}, dims, self.groups.dp,
+                                    self.groups.dp_group)
+            for n, t in whole.items():
+                local_data(self.params[n]).copy_(t)
+
+    # -- whole state, for checkpoints ----------------------------------------
+    def _wholes(self, parts: Dict[str, torch.Tensor]
+                ) -> Dict[str, torch.Tensor]:
+        """This rank's parts of the names' state -> the whole tensors (the
+        ranks' ZeRO-1 chunks gathered in bucketed calls, tensor-parallel
+        shards joined: collectives on a mesh). GaLore's leaves, which
+        run only where their state is whole, are taken as they are."""
+        from ..parallel.comm import all_gather_many
+        from ..parallel.sharding import full
+        whole = getattr(self, "galore_names", ())
+        dims = {n: d for n, d in self._sharded().items()
+                if n in parts and n not in whole}
+        out = dict(parts)
+        if dims:
+            out.update(all_gather_many({n: parts[n] for n in dims}, dims,
+                                       self.groups.dp, self.groups.dp_group))
+        for n, t in out.items():
+            p = self.params[n]
+            if tp_sharded(p) and n not in whole:
+                from torch.distributed.tensor import DTensor
+                out[n] = full(DTensor.from_local(
+                    t, p.device_mesh, p.placements, run_check=False,
+                    shape=p.shape, stride=p.stride()))
+        return out
+
+    def _part(self, name: str, whole: torch.Tensor,
+              zero1: bool = True) -> torch.Tensor:
+        """_wholes' inverse for one name: this rank's part of a whole
+        tensor (zero1 False: its tensor-parallel shard, as the parameter
+        holds it)."""
+        p = self.params[name]
+        if tp_sharded(p):
+            for axis, pl in enumerate(p.placements):
+                if hasattr(pl, "dim"):
+                    coord = p.device_mesh.get_coordinate()[axis]
+                    whole = whole.chunk(p.device_mesh.size(axis),
+                                        dim=pl.dim)[coord]
+        d = self.shard_dim.get(name) if zero1 else None
+        if d is not None:
+            whole = whole.chunk(self.groups.dp, dim=d)[self.groups.dp_rank]
+        return whole
+
+    STATE = ("acc", "mu", "nu")
+    EXTRA_STATE = ()    # state beyond STATE that a checkpoint keeps
+
+    @contextlib.contextmanager
+    def whole_state(self, load: bool = False):
+        """Inside the block the state (acc, mu, nu) holds whole tensors,
+        as the mesh-less optimizer's; with load, what the block wrote
+        into them is taken back into this rank's parts after it. Without
+        a mesh the state as it is."""
+        if self.groups is None:
+            yield
+            return
+        parts = {k: getattr(self, k) for k in self.STATE}
+        for k, d in parts.items():
+            setattr(self, k, self._wholes(d))
+        try:
+            yield
+            if load:
+                for k, d in parts.items():
+                    whole = getattr(self, k)
+                    for n, t in d.items():
+                        t.copy_(self._part(n, whole[n]))
+        finally:
+            for k, d in parts.items():
+                setattr(self, k, d)
 
     # -- the state in flax's state-dict layout --------------------------------
     def chain_state(self) -> Dict[str, Any]:
@@ -299,6 +450,7 @@ class CustomAdamW(AccumulatingAdamW):
     names; galore / badam / loraplus_lr_ratio None leave a part out."""
 
     CHAIN = "GaLore / Adam, decay, BAdam, LoRA+, schedule"
+    EXTRA_STATE = ("proj",)     # GaLore's bases ({} without GaLore)
 
     def __init__(self, params: Dict[str, torch.nn.Parameter],
                  schedule: Schedule, *, galore: Optional[GaLore] = None,
@@ -342,7 +494,7 @@ class CustomAdamW(AccumulatingAdamW):
     def _moment(self, name: str, p: torch.Tensor) -> torch.Tensor:
         if name in self.galore_names:
             return self._oriented_zeros(name, p, basis=False)
-        return torch.zeros_like(p)
+        return super()._moment(name, p)
 
     def _galore(self, name: str, g: torch.Tensor, c1: float,
                 c2: float) -> torch.Tensor:
@@ -423,24 +575,70 @@ class CustomAdamW(AccumulatingAdamW):
         return {str(i): part for i, part in enumerate(parts)}
 
 
+def local_data(t: torch.Tensor) -> torch.Tensor:
+    """The tensor's storage on this rank: a DTensor's local shard."""
+    from torch.distributed.tensor import DTensor
+    return t._local_tensor if isinstance(t, DTensor) else t.data
+
+
+def tp_sharded(p: torch.Tensor) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(p, DTensor) and any(hasattr(pl, "dim")
+                                          for pl in p.placements)
+
+
+def zero1_dim(name: str, p: torch.Tensor, groups) -> Optional[int]:
+    """The port dimension of p's ZeRO-1 chunk over dp (None: its state
+    replicates): zero1_opt_pspecs on the JAX leaf, or under tp, when that
+    is the tp-sharded dimension, the largest dp-divisible other one."""
+    from ..parallel.sharding import zero1_opt_pspecs
+    path, transposed = bundle_path(name)
+    shape = tuple(p.shape)
+    flip = transposed and len(shape) == 2
+    jax_shape = shape[::-1] if flip else shape
+    spec = zero1_opt_pspecs(torch.empty(jax_shape, device="meta"),
+                            groups.dp)
+    if not spec:
+        return None
+    d = spec.index("dp")
+    d = len(shape) - 1 - d if flip else d
+    taken = {pl.dim for pl in getattr(p, "placements", ())
+             if hasattr(pl, "dim")}
+    mine = local_data(p).shape
+    if d in taken or mine[d] % groups.dp:
+        free = [(mine[i], i) for i in range(len(mine))
+                if i not in taken and mine[i] % groups.dp == 0
+                and mine[i] >= groups.dp]
+        return max(free)[1] if free else None
+    return d
+
+
 def create_optimizer(args, num_training_steps: int,
                      params: Dict[str, torch.nn.Parameter],
-                     finetuning_args=None):
+                     finetuning_args=None, groups=None, zero1: bool = False):
     """(optimizer, schedule) from TrainingArguments; num_training_steps
     counts optimizer updates. finetuning_args asking for GaLore, BAdam or
     LoRA+ give the custom chain (CustomAdamW, over GraphLM
-    trainable-bundle names)."""
+    trainable-bundle names). groups / zero1: mesh training (module
+    docstring)."""
     schedule = make_schedule(args, num_training_steps)
     kwargs = dict(b1=args.adam_beta1, b2=args.adam_beta2,
                   eps=args.adam_epsilon, weight_decay=args.weight_decay,
                   max_grad_norm=args.max_grad_norm,
-                  accumulation_steps=args.gradient_accumulation_steps)
+                  accumulation_steps=args.gradient_accumulation_steps,
+                  groups=groups, zero1=zero1)
     if not wants_custom_optimizer(finetuning_args):
         return AccumulatingAdamW(params, schedule, **kwargs), schedule
     ft = finetuning_args
     galore = (GaLore(ft.galore_rank, ft.galore_update_interval,
                      ft.galore_scale)
               if getattr(ft, "use_galore", False) else None)
+    if galore is not None and groups is not None and (
+            groups.tp > 1 or (zero1 and groups.dp > 1)):
+        from ..parallel.mesh import ITEM_9B
+        raise NotImplementedError(
+            "GaLore on a mesh with tp > 1 or ZeRO-1 over dp > 1 (its SVD "
+            f"needs whole gradients): {ITEM_9B}")
     badam = (BAdam(max(ft.badam_n_blocks, 1), ft.badam_switch_interval,
                    ft.badam_start_block)
              if getattr(ft, "use_badam", False) else None)

@@ -14,9 +14,25 @@ Randomness comes from one torch.Generator on the model's device, which
 the loss advances; a checkpoint stores its state, so a resumed run draws
 what the uninterrupted one would have. Checkpoints are the JAX package's
 checkpoint-N layout (msgpack), so a run resumes across the packages.
-Not ported (they raise): the `mesh` argument (data / tensor / pipeline
-parallel training) and orbax checkpoints (LLAMOLE_ORBAX, backend
-"orbax"; ROADMAP.md Queue 1 item 9).
+
+Mesh training (`mesh`, the parallel/mesh.py MeshGroups of a DeviceMesh
+over dcn / dp / tp, on which the caller placed the model with
+parallel/sharding.py shard_graph_lm): one process per rank, all drawing
+the same random numbers. The LLM is tensor-parallel over tp (DTensors; a
+full-finetune LLM trains sharded), under ZeRO-3 (zero_stage >= 3) its
+frozen storage is sharded over dp with FSDP2, and the graph modules and
+connectors stay plain replicated tensors (kernels B and C never see a
+DTensor). Each batch's per-sequence rows shard over (dcn, dp) when they
+divide, else replicate (place_batch); the ranks' losses sum to the
+mesh-less loss (GraphLM.loss) and the optimizer sums their gradients
+(ZeRO-1 at zero_stage >= 1: reduce-scatter, shard-local update,
+all-gather; train/optimizers.py). Only rank 0 writes files. The msgpack
+checkpoints hold whole tensors (gathered), so a run resumes across
+packages and meshes; under LLAMOLE_ORBAX=1 the state is written sharded
+with torch.distributed.checkpoint's async_save into dcp_state/
+("backend": "dcp"), wait_for_checkpoints() being the barrier. A JAX orbax
+checkpoint raises: its format needs orbax / tensorstore. pp, sp and ep
+axes raise (ROADMAP.md Queue 1 item 9b).
 """
 
 import glob
@@ -40,8 +56,8 @@ from ..utils.serialization import (load_pytree, load_state, save_pytree,
                                    save_state, to_state_dict)
 from ..weights import bundle_tree, trainable_values
 
-from .optimizers import (AccumulatingAdamW, create_optimizer, global_norm,
-                         int32_scalar, load_into)
+from .optimizers import (AccumulatingAdamW, create_optimizer, int32_scalar,
+                         load_into, local_data)
 
 logger = get_logger(__name__)
 
@@ -74,28 +90,58 @@ class Trainer:
     def __init__(self, loss_fn: LossFn, params: Dict[str, torch.nn.Parameter],
                  args, num_training_steps: int, finetuning_args=None,
                  mesh=None):
-        """params: the trainable bundle (GraphLM.trainable_parameters());
-        num_training_steps counts optimizer updates."""
-        if mesh is not None:
-            raise NotImplementedError("mesh (parallel) training is not ported "
-                                      "to llamole_tpu_torch yet (ROADMAP.md)")
-        if os.environ.get("LLAMOLE_ORBAX"):
-            raise NotImplementedError(
-                "orbax checkpoints (LLAMOLE_ORBAX) are not ported to "
-                "llamole_tpu_torch (ROADMAP.md Queue 1 item 9: they shard "
-                "state across chips, with parallelism)")
+        """params: the trainable bundle (GraphLM.trainable_parameters(),
+        read after the model's placement on a mesh); num_training_steps
+        counts optimizer updates. mesh: the MeshGroups (parallel.mesh) of
+        the DeviceMesh the model was placed on."""
+        self.groups = mesh
         if not params:
             raise ValueError("no trainable parameters")
         self.loss_fn = loss_fn
         self.params = params
         self.args = args
-        self.device = next(iter(params.values())).device
+        self.device = local_data(next(iter(params.values()))).device
         self.num_training_steps = num_training_steps
         self.optimizer, self.schedule = create_optimizer(
-            args, num_training_steps, params, finetuning_args)
+            args, num_training_steps, params, finetuning_args,
+            groups=self.groups,
+            zero1=getattr(args, "zero_stage", 0) >= 1)
+        self.writer = self.groups is None or torch.distributed.get_rank() == 0
         self.jsonl = (JsonlLogger(os.path.join(args.output_dir,
                                                "trainer_log.jsonl"))
-                      if args.output_dir else None)
+                      if args.output_dir and self.writer else None)
+        self._pending = None      # an async DCP save in flight
+        self._dcp_group = None
+
+    # per-sequence arrays shard over (dcn, dp); graph banks replicate
+    # (their row indices span the whole batch)
+    _PER_SEQ = ("input_ids", "attention_mask", "labels",
+                "molecule_properties", "design_graph_index",
+                "design_start_pos")
+
+    def place_batch(self, batch: Dict[str, Any]) -> Dict[str, Any]:
+        """A collated batch as this rank computes it: on a mesh the rows
+        of its (dcn, dp) coordinate of every per-sequence key when they
+        divide, else all of them, with "row_shard" = [offset, rows]."""
+        if self.groups is None:
+            return batch
+        gr = self.groups
+        rows = np.asarray(batch["input_ids"]).shape[0]
+        per = rows // gr.data if rows % gr.data == 0 else rows
+        off = gr.data_rank * per if per < rows else 0
+        out = {k: (np.asarray(v)[off:off + per] if k in self._PER_SEQ else v)
+               for k, v in batch.items()}
+        out["row_shard"] = np.asarray([off, rows], np.int64)
+        return out
+
+    def _data_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """A loss value summed over the data group (the ranks' parts of
+        the mesh-less value); as it is without a mesh."""
+        if self.groups is None:
+            return t.detach()
+        from ..parallel.comm import all_reduce_
+        return all_reduce_(t.detach().float().clone(),
+                           self.groups.data_group)
 
     def init_state(self, seed: int) -> TrainState:
         gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -103,24 +149,22 @@ class Trainer:
 
     def _micro_step(self, state: TrainState, batch) -> Dict[str, Any]:
         t0 = time.perf_counter()
-        loss, aux = self.loss_fn(batch, state.generator)
+        loss, aux = self.loss_fn(self.place_batch(batch), state.generator)
         _sync(self.device)
         t1 = time.perf_counter()
         loss.backward()
         _sync(self.device)
         t2 = time.perf_counter()
-        with torch.no_grad():
-            gnorm = float(global_norm(p.grad for p in self.params.values()
-                                      if p.grad is not None))
         self.optimizer.accumulate()
         for p in self.params.values():
             p.grad = None
         _sync(self.device)
         t3 = time.perf_counter()
-        return {"loss": loss.item(), "aux": {k: v.item()
-                                             for k, v in aux.items()},
-                "grad_norm": gnorm, "forward_s": t1 - t0,
-                "backward_s": t2 - t1, "optimizer_s": t3 - t2}
+        return {"loss": self._data_sum(loss).item(),
+                "aux": {k: self._data_sum(v).item() for k, v in aux.items()},
+                "grad_norm": self.optimizer.last_grad_norm,
+                "forward_s": t1 - t0, "backward_s": t2 - t1,
+                "optimizer_s": t3 - t2}
 
     def train(self, state: TrainState,
               batches: Iterator[Dict[str, np.ndarray]],
@@ -198,6 +242,7 @@ class Trainer:
                                     "total_steps": total_micro_steps,
                                     "eval_loss": ev})
         losses.extend(window)
+        self.wait_for_checkpoints()   # async DCP saves commit before exit
         metrics = {
             "train_loss": float(np.mean(losses)) if losses else float("nan"),
             "train_steps": state.step,
@@ -207,45 +252,158 @@ class Trainer:
         return state, metrics
 
     # -- checkpointing ------------------------------------------------------
+    def _use_dcp(self) -> bool:
+        """LLAMOLE_ORBAX=1: the JAX package's switch to orbax, here
+        torch.distributed.checkpoint."""
+        return bool(os.environ.get("LLAMOLE_ORBAX"))
+
+    def wait_for_checkpoints(self) -> None:
+        """Block until the async DCP save in flight has committed."""
+        if self._pending is not None:
+            pending, self._pending = self._pending, None
+            pending.result()
+
+    def _dcp_kwargs(self) -> Dict[str, Any]:
+        """DCP's coordination group: a gloo group of every rank of its
+        own (made once). async_save stages on the host, so its group must
+        be CPU-capable, and it exchanges its plan and metadata on a
+        thread while training goes on: on the default group (which a
+        mesh axis spanning the world also uses) the two threads'
+        collectives would interleave and deadlock."""
+        if self.groups is None:
+            return {}
+        if self._dcp_group is None:
+            self._dcp_group = torch.distributed.new_group(backend="gloo")
+        return {"process_group": self._dcp_group}
+
+    def _dcp_state(self) -> Dict[str, Dict[str, torch.Tensor]]:
+        """The parameters and the optimizer's whole state (GaLore's bases
+        among it), each rank's parts as DTensors on the whole mesh (dcn
+        and dp replicate, ZeRO-1 parts shard on dp, tensor-parallel parts
+        keep their tp placement), so DCP writes each distinct part once;
+        plain tensors without a mesh. GaLore's leaves run unsharded (its
+        state has its own low-rank shapes) and replicate. Scalars go to
+        trainer_state.json."""
+        opt = self.optimizer
+        state = {"params": {n: local_data(p).detach()
+                            for n, p in self.params.items()}}
+        for k in opt.STATE + opt.EXTRA_STATE:
+            if getattr(opt, k):
+                state[k] = dict(getattr(opt, k))
+        if self.groups is None:
+            return state
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+        mesh = self.groups.mesh
+        low_rank = getattr(opt, "galore_names", ())
+
+        def on_mesh(name, t, zero1):
+            p = self.params[name]
+            if zero1 and name in low_rank:
+                return DTensor.from_local(t.detach(), mesh,
+                                          [Replicate()] * mesh.ndim,
+                                          run_check=False)
+            tp_pl = p.placements[0] if hasattr(p, "placements") else \
+                Replicate()
+            d = opt.shard_dim.get(name) if zero1 else None
+            pl = [Replicate()] * mesh.ndim
+            names = mesh.mesh_dim_names
+            pl[names.index("tp")] = tp_pl
+            if d is not None:
+                pl[names.index("dp")] = Shard(d)
+            return DTensor.from_local(t.detach(), mesh, pl, run_check=False,
+                                      shape=p.shape, stride=p.stride())
+        return {k: {n: on_mesh(n, t, k != "params") for n, t in v.items()}
+                for k, v in state.items()}
+
     def save_checkpoint(self, state: TrainState, path: str) -> None:
-        """The JAX package's msgpack checkpoint under path:
-        trainable.msgpack (the bundle tree), opt_state.msgpack (the
-        optimizer's state under the keys of the optax state JAX's
-        create_optimizer builds, AdamW or the custom chain) and
-        trainer_state.json (step, backend,
-        a JAX key derived from the generator, and the generator's own
-        state under "torch_generator")."""
-        os.makedirs(path, exist_ok=True)
-        save_pytree(bundle_tree(self.params),
-                    os.path.join(path, "trainable.msgpack"))
-        save_state(optax_state(self.optimizer),
-                   os.path.join(path, "opt_state.msgpack"))
+        """The JAX package's checkpoint under path: trainable.msgpack (the
+        bundle tree), opt_state.msgpack (the optimizer's state under the
+        keys of the optax state JAX's create_optimizer builds, AdamW or
+        the custom chain) and trainer_state.json (step, backend, a JAX
+        key derived from the generator, the generator's own state under
+        "torch_generator", and under DCP the optimizer's counters). On a
+        mesh every rank calls it (the tensors are gathered) and rank 0
+        writes. Under LLAMOLE_ORBAX=1 the parameters and the optimizer's
+        state go sharded to dcp_state/ by an async DCP save instead; the
+        previous one is waited for first."""
+        from ..parallel.sharding import full
+        if self.writer:
+            os.makedirs(path, exist_ok=True)
+        meta = {"step": state.step}
+        if self._use_dcp():
+            import torch.distributed.checkpoint as dcp
+            self.wait_for_checkpoints()
+            opt = self.optimizer
+            meta.update(backend="dcp", count=opt.count,
+                        mini_step=opt.mini_step,
+                        chain=type(opt).__name__)
+            self._pending = dcp.async_save(
+                self._dcp_state(),
+                checkpoint_id=os.path.join(os.path.abspath(path),
+                                           "dcp_state"),
+                **self._dcp_kwargs())
+        else:
+            values = {n: full(p) for n, p in self.params.items()}
+            with self.optimizer.whole_state():
+                opt_state = optax_state(self.optimizer)
+                if self.writer:
+                    save_pytree(bundle_tree(values),
+                                os.path.join(path, "trainable.msgpack"))
+                    save_state(opt_state,
+                               os.path.join(path, "opt_state.msgpack"))
+            meta["backend"] = "msgpack"
         gen_state = state.generator.get_state()
-        meta = {"step": state.step, "rng": jax_key_data(gen_state),
-                "backend": "msgpack",
-                "torch_generator": gen_state.tolist()}
-        with open(os.path.join(path, "trainer_state.json"), "w") as f:
-            json.dump(meta, f)
+        meta.update(rng=jax_key_data(gen_state),
+                    torch_generator=gen_state.tolist())
+        if self.writer:
+            with open(os.path.join(path, "trainer_state.json"), "w") as f:
+                json.dump(meta, f)
 
     @torch.no_grad()
     def load_checkpoint(self, state: TrainState, path: str) -> TrainState:
-        """Resume from a checkpoint-N either package wrote. A JAX one has
-        no generator state: the generator is seeded from its rng key
-        (random draws differ between the packages anyway)."""
+        """Resume from a checkpoint-N either package wrote (msgpack), or
+        this package's DCP one. A JAX one has no generator state: the
+        generator is seeded from its rng key (random draws differ
+        between the packages anyway). On a mesh every rank reads the
+        whole tensors and keeps its parts. A JAX orbax checkpoint raises:
+        its format needs orbax / tensorstore, which the port does not
+        use."""
+        from ..parallel.sharding import local
         with open(os.path.join(path, "trainer_state.json")) as f:
             meta = json.load(f)
         backend = meta.get("backend", "msgpack")
-        if backend != "msgpack":
+        opt = self.optimizer
+        if backend == "dcp":
+            import torch.distributed.checkpoint as dcp
+            self.wait_for_checkpoints()
+            if meta.get("chain") != type(opt).__name__:
+                raise ValueError(f"{path}: a {meta.get('chain')} state, the "
+                                 f"optimizer is {type(opt).__name__}")
+            target = self._dcp_state()
+            dcp.load(target, checkpoint_id=os.path.join(
+                os.path.abspath(path), "dcp_state"), **self._dcp_kwargs())
+            mine = self._dcp_state()
+            for k, part in target.items():
+                for n, t in part.items():
+                    local_data(mine[k][n]).copy_(local(t))
+            opt.count, opt.mini_step = int(meta["count"]), int(
+                meta["mini_step"])
+        elif backend != "msgpack":
             raise NotImplementedError(
                 f"{path}: {backend} checkpoints are not read by "
-                "llamole_tpu_torch (ROADMAP.md Queue 1 item 9: orbax)")
-        saved = trainable_values(
-            load_pytree(os.path.join(path, "trainable.msgpack")),
-            self.params)
-        for name, p in self.params.items():
-            p.copy_(saved[name])
-        load_optax_state(self.optimizer, load_state(
-            os.path.join(path, "opt_state.msgpack")))
+                "llamole_tpu_torch (the JAX package's orbax format needs "
+                "orbax / tensorstore; the port's sharded checkpoints are "
+                "DCP, backend \"dcp\")")
+        else:
+            saved = trainable_values(
+                load_pytree(os.path.join(path, "trainable.msgpack")),
+                self.params)
+            for name, p in self.params.items():
+                local_data(p).copy_(opt._part(name, saved[name],
+                                              zero1=False))
+            with opt.whole_state(load=True):
+                load_optax_state(opt, load_state(
+                    os.path.join(path, "opt_state.msgpack")))
         if "torch_generator" in meta:
             state.generator.set_state(torch.tensor(meta["torch_generator"],
                                                    dtype=torch.uint8))
@@ -361,6 +519,8 @@ def _checkpoint_complete(d: str) -> bool:
         return False
     if backend == "orbax":   # discovered as JAX does; loading it raises
         return os.path.isdir(os.path.join(d, "orbax_state"))
+    if backend == "dcp":     # DCP writes .metadata when the save commits
+        return os.path.exists(os.path.join(d, "dcp_state", ".metadata"))
     return os.path.exists(os.path.join(d, "trainable.msgpack"))
 
 

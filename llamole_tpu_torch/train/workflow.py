@@ -13,6 +13,14 @@ checkpoint-N/, the trained bundle (GraphLM.save_pretrained: a PiSSA
 adapter is written as its rank-2r LoRA over the original weights),
 train_results.json, the loss plot when matplotlib exists, and after
 training the held-out eval loss and generated_predictions.jsonl.
+
+With training_args.mesh ('dp:2', 'dp:2,tp:2', 'dcn:2,dp:4', ...) the run
+is one rank of mesh training (train/trainer.py; torchrun starts the
+ranks, each calling run_mmsft): the process group starts from
+torchrun's environment (NCCL on the card, gloo on the CPU), batches are
+padded to a multiple of dp with inert rows (_pad_batch_rows, as the JAX
+package pads) and zero_stage picks ZeRO-1 / ZeRO-3. Generation on a mesh
+is ROADMAP.md item 9b: generated_predictions.jsonl is not written there.
 """
 
 import json
@@ -26,7 +34,7 @@ import torch
 
 from ..data.collator import SeqGraphCollator
 from ..data.loader import get_dataset
-from ..utils.constants import IGNORE_INDEX
+from ..utils.constants import IGNORE_INDEX, NO_LABEL_INDEX
 from ..utils.logging import get_logger
 
 from .trainer import Trainer, find_last_checkpoint
@@ -34,12 +42,35 @@ from .trainer import Trainer, find_last_checkpoint
 logger = get_logger(__name__)
 
 
+def _pad_batch_rows(batch: Dict[str, np.ndarray], rows: int,
+                    pad_id: int) -> Dict[str, np.ndarray]:
+    """Append `rows` inert rows (no loss contribution) so dp divides the
+    batch (JAX workflow._pad_batch_rows)."""
+    if rows <= 0:
+        return batch
+    out = dict(batch)
+    width = batch["input_ids"].shape[1]
+    out["input_ids"] = np.concatenate(
+        [batch["input_ids"], np.full((rows, width), pad_id, np.int32)])
+    out["attention_mask"] = np.concatenate(
+        [batch["attention_mask"], np.zeros((rows, width), np.int32)])
+    out["labels"] = np.concatenate(
+        [batch["labels"], np.full((rows, width), IGNORE_INDEX, np.int32)])
+    out["molecule_properties"] = np.concatenate(
+        [batch["molecule_properties"],
+         np.full((rows, 10), float(NO_LABEL_INDEX), np.float32)])
+    for key in ("design_graph_index", "design_start_pos"):
+        out[key] = np.concatenate([batch[key], np.full(rows, -1, np.int32)])
+    return out
+
+
 def _epoch_batches(inputs: List[Dict], collator, batch_size: int,
-                   epochs: float, seed: int,
+                   epochs: float, seed: int, dp: int = 1, pad_id: int = 0,
                    skip: int = 0) -> Iterator[Dict[str, np.ndarray]]:
     """Seeded per-epoch shuffle; `skip` fast-forwards past the first
     `skip` batches without collating them (the shuffle is deterministic,
-    so a resumed run sees the uninterrupted run's data order)."""
+    so a resumed run sees the uninterrupted run's data order). dp > 1:
+    each batch padded to a multiple of dp rows."""
     n_epochs = int(math.ceil(epochs))
     frac_last = epochs - int(epochs)
     rng = random.Random(seed)
@@ -55,17 +86,27 @@ def _epoch_batches(inputs: List[Dict], collator, batch_size: int,
         start = skip * batch_size
         skip = 0
         for i in range(start, len(order), batch_size):
-            yield collator([inputs[j] for j in order[i:i + batch_size]])
+            batch = collator([inputs[j] for j in order[i:i + batch_size]])
+            if dp > 1:
+                batch = _pad_batch_rows(
+                    batch, (-batch["input_ids"].shape[0]) % dp, pad_id)
+            yield batch
 
 
-def _eval_loss(model, batches) -> float:
+def _eval_loss(model, batches, trainer=None) -> float:
     """Mean loss(train=False) over the batches, each drawn with a
-    generator seeded 0 (the JAX package's PRNGKey(0))."""
+    generator seeded 0 (the JAX package's PRNGKey(0)); on a mesh each
+    batch placed and its loss summed over the ranks by the trainer."""
     losses = []
     with torch.no_grad():
         for batch in batches:
             gen = torch.Generator(device=model.device).manual_seed(0)
-            losses.append(float(model.loss(batch, gen, train=False)[0]))
+            if trainer is None:
+                losses.append(float(model.loss(batch, gen, train=False)[0]))
+            else:
+                loss = model.loss(trainer.place_batch(batch), gen,
+                                  train=False)[0]
+                losses.append(float(trainer._data_sum(loss)))
     return float(np.mean(losses))
 
 
@@ -77,9 +118,21 @@ def run_mmsft(model_args, data_args, training_args, finetuning_args,
     its own device); otherwise the model is built on `device`. Returns
     the metrics (train loss, steps, runtime, per-micro-step times, eval
     loss and prediction scores when there is a validation split)."""
-    if getattr(training_args, "mesh", ""):
-        raise NotImplementedError("mesh (parallel) training is not ported to "
-                                  "llamole_tpu_torch yet (ROADMAP.md)")
+    mesh = None
+    spec = getattr(training_args, "mesh", "")
+    if spec:
+        from ..parallel.mesh import (check_training_axes, check_world,
+                                     init_distributed, mesh_from_string,
+                                     parse_mesh)
+        dims = parse_mesh(spec)
+        check_training_axes(dims)
+        check_world(dims)
+        kind = (prebuilt[0].device.type if prebuilt is not None
+                else torch.device(device).type)
+        init_distributed(kind)
+        mesh = mesh_from_string(spec, kind)
+        logger.info("training mesh: %s", dict(zip(mesh.mesh_dim_names,
+                                                   mesh.mesh.shape)))
     if prebuilt is not None:
         model, tokenizer = prebuilt
     else:
@@ -111,9 +164,18 @@ def run_mmsft(model_args, data_args, training_args, finetuning_args,
     accum = max(training_args.gradient_accumulation_steps, 1)
     opt_steps = max(1, total_micro // accum)
 
+    groups = None
+    if mesh is not None:
+        from ..parallel.mesh import MeshGroups
+        from ..parallel.sharding import shard_graph_lm
+        groups = MeshGroups(mesh)
+        shard_graph_lm(model, groups, zero3=training_args.zero_stage >= 3)
     trainer = Trainer(lambda batch, gen: model.loss(batch, gen, train=True),
                       model.trainable_parameters(), training_args, opt_steps,
-                      finetuning_args=finetuning_args)
+                      finetuning_args=finetuning_args, mesh=groups)
+    on_mesh = trainer if mesh is not None else None
+    dp = groups.dp if mesh is not None else 1
+    pad_id = tokenizer.pad_token_id
     state = trainer.init_state(training_args.seed)
 
     resume = training_args.resume_from_checkpoint
@@ -130,36 +192,47 @@ def run_mmsft(model_args, data_args, training_args, finetuning_args,
 
     batches = _epoch_batches(inputs, collator, bsz,
                              training_args.num_train_epochs,
-                             training_args.seed, skip=state.step)
+                             training_args.seed, dp, pad_id, skip=state.step)
 
     eval_fn = None
     if (val_inputs and training_args.eval_strategy == "steps"
             and training_args.eval_steps):
-        val_batches = list(_epoch_batches(val_inputs, collator, bsz, 1.0, 0))
+        val_batches = list(_epoch_batches(val_inputs, collator, bsz, 1.0, 0,
+                                          dp, pad_id))
 
         def eval_fn(st):
-            return _eval_loss(model, val_batches)
+            return _eval_loss(model, val_batches, on_mesh)
 
     state, metrics = trainer.train(state, batches, total_micro,
                                    save_fn=save_fn, eval_fn=eval_fn)
 
     out_dir = training_args.output_dir
     if out_dir:
-        os.makedirs(out_dir, exist_ok=True)
         model.save_pretrained(out_dir)
-        trainer.save_checkpoint(state, os.path.join(
-            out_dir, f"checkpoint-{state.step}"))
-        with open(os.path.join(out_dir, "train_results.json"), "w") as f:
-            json.dump({k: v for k, v in metrics.items()
-                       if k != "step_times"}, f, indent=2)
-        if training_args.plot_loss:
-            plot_loss(out_dir)
+        if not (training_args.save_steps
+                and state.step % training_args.save_steps == 0):
+            # the loop wrote checkpoint-N itself at a save step
+            trainer.save_checkpoint(state, os.path.join(
+                out_dir, f"checkpoint-{state.step}"))
+        trainer.wait_for_checkpoints()
+        if trainer.writer:
+            with open(os.path.join(out_dir, "train_results.json"), "w") as f:
+                json.dump({k: v for k, v in metrics.items()
+                           if k != "step_times"}, f, indent=2)
+            if training_args.plot_loss:
+                plot_loss(out_dir)
 
     if val_inputs:
         metrics["eval_loss"] = _eval_loss(
-            model, _epoch_batches(val_inputs, collator, bsz, 1.0, 0))
+            model, _epoch_batches(val_inputs, collator, bsz, 1.0, 0, dp,
+                                  pad_id), on_mesh)
         logger.info("eval_loss: %.4f", metrics["eval_loss"])
-        if out_dir:
+        if out_dir and mesh is not None:
+            from ..parallel.mesh import ITEM_9B
+            metrics["predict"] = f"not run: generation on a mesh is {ITEM_9B}"
+            logger.warning("generated_predictions.jsonl not written: %s",
+                           metrics["predict"])
+        elif out_dir:
             metrics.update(predict_with_generate(
                 model, val_inputs, tokenizer, generating_args, out_dir,
                 seed=training_args.seed))

@@ -195,7 +195,8 @@ def _imports_of_the_jax_package(path):
 
 @pytest.mark.parametrize("path", sorted(
     [p for p in (ROOT / "llamole_tpu_torch").rglob("*.py")]
-    + [ROOT / "chip_smoke.py"]), ids=lambda p: str(p.relative_to(ROOT)))
+    + [ROOT / "chip_smoke.py", ROOT / "tests" / "torch_parallel_worker.py"]),
+    ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_source_of_the_port_imports_the_jax_package(path):
     assert _imports_of_the_jax_package(path) == []
 

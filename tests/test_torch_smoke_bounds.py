@@ -660,3 +660,45 @@ def test_finetune_phase_sizes():
     assert (sizes["loraplus_lr_ratio"], sizes["badam_switch_interval"]) == (
         16.0, 1)
     assert chip_smoke.PISSA_EXPORT_RANK == 2 * 8
+
+
+def test_mesh_phase_runs_on_the_cpu(tmp_path, capsys):
+    """Phase 18 end to end at a small width on a one-rank gloo group:
+    phase 9's run_mmsft, then (a) ZeRO-1, (b) ZeRO-3 with DCP saves and
+    (c) (b) resumed from its checkpoint-2, each loss and the bundles of
+    (a) and (b) held to phase 9's, the resumed losses and bundle equal to
+    (b)'s; the group is gone after."""
+    import torch.distributed as dist
+
+    from llamole_tpu_torch.ops import gin_aggregate as G
+    from llamole_tpu_torch.train.workflow import run_mmsft
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        model, tok = _tiny_slice()
+        start = {n: p.detach().clone()
+                 for n, p in model.trainable_parameters().items()}
+        p9 = tmp_path / "p9"
+        run_mmsft(*chip_smoke.llama_lora_args(str(p9)), prebuilt=(model, tok))
+        with open(p9 / "trainer_log.jsonl") as f:
+            losses = [json.loads(line)["loss"] for line in f]
+        final = {n: p.detach().clone()
+                 for n, p in model.trainable_parameters().items()}
+        launches = chip_smoke.run_mesh_training(
+            model, tok, (None, G.gin_aggregate, G.gin_aggregate_backward),
+            "CPU", str(tmp_path), {"losses": losses, "start": start,
+                                   "final": final, "peak": "0.00 GiB"})
+    finally:
+        torch.set_num_threads(threads)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    out = capsys.readouterr().out
+    assert launches == {"B": 0, "C": 0}
+    assert "mesh dp:1,tp:1 over gloo" in out
+    assert "FSDP2 units" in out and "DCP async save checkpoint-2" in out
+    assert "differs from (b)'s by 0.000e+00" in out
+    for k in "ab":
+        assert f"mesh ({k}): trained bundle after update 2 differs from " \
+            "phase 9's by" in out
+    assert not dist.is_initialized()

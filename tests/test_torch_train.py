@@ -398,11 +398,16 @@ def test_run_mmsft_writes_logs_checkpoints_and_resumes(tmp_path,
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         run_mmsft(*_tiny_args(tmp_path / "x"), device="cuda")
+    # LLAMOLE_ORBAX=1 writes DCP checkpoints (tests/test_torch_parallel.py
+    # resumes from them); a mesh needs as many ranks as it has places
     monkeypatch.setenv("LLAMOLE_ORBAX", "1")
-    with pytest.raises(NotImplementedError, match="orbax"):
-        run_mmsft(*_tiny_args(tmp_path / "y"), device="cpu")
+    run_mmsft(*_tiny_args(tmp_path / "y", max_steps=1), device="cpu")
+    with open(tmp_path / "y" / "checkpoint-1" / "trainer_state.json") as f:
+        assert json.load(f)["backend"] == "dcp"
+    assert (tmp_path / "y" / "checkpoint-1" / "dcp_state" / ".metadata"
+            ).exists()
     monkeypatch.delenv("LLAMOLE_ORBAX")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(ValueError, match="needs 2 ranks"):
         run_mmsft(*_tiny_args(tmp_path / "z", mesh="dp:2"), device="cpu")
     # GaLore, BAdam and LoRA+ build the custom chain (once refused here;
     # tests/test_torch_optimizers.py holds it to JAX's)
