@@ -242,6 +242,24 @@
    and (b) must be within MESH["loss_gap"] of phase 9's), (c)'s equal to
    (b)'s steps 3-4; step walls, peaks, the DCP save wall (the call, then
    the wait) and its bytes.
+19. Mesh inference and the pipeline (MESH_INFER), after phase 18 on its
+   model (Llama-3.1-8B width, 32 layers, phase 18's rank-8 LoRA; the LLM
+   copied back into plain tensors, phase 18's placed copy freed), on a
+   world-size-1 NCCL mesh dp:1,tp:1: (a) run_molqa's design phase on 2
+   records at phase 8's settings without the mesh (the decode graphed),
+   then with training_args.mesh (the group started, the LLM's leaves
+   DTensors, its decode eager by design); the analysis tokens, the
+   responses and the SMILES equal; batched_one_step_reaction on the
+   designed molecules (64 analysis tokens, greedy) with and without the
+   mesh: reactants, scores and analyses equal; a greedy 8 x 32 decode of
+   the placed LLM equal to the plain one's. Kernel counts set to 0 before
+   the mesh's run_molqa and read after its expansion: A >= 28 x steps,
+   all on the mma body; B >= 5 x (1 splice + the products). (b) One
+   forward and backward of pipeline_lm_loss on phase 9's batch with 2
+   microbatches (the mesh's pp axis 1) against the plain forward's
+   lm_loss, in turns (plain, pipeline, pipeline, plain): within 1e-3,
+   the LoRA gradients (one vector) within 1e-2 relative L2, the largest
+   leaf's within 5e-2; walls and peaks.
 
 Prints, before the last line, one {"kernels": [...]} JSON line (per
 kernel: launches on the main path, max_abs_err, ms, plain_ms, device_ms,
@@ -259,7 +277,8 @@ the latter; under launches_families, phase 15's: A's in the gemma-2
 serving (per body too), B's there and in the Mixtral loss, C's in the
 latter; under launches_finetune, phase 16's B and C (its four runs); under
 launches_entry, phase 17's: A's (per body too), B's and C's; under
-launches_mesh, phase 18's B and C;
+launches_mesh, phase 18's B and C; under launches_mesh_inference, phase
+19's A (per body too) and B;
 the last line is {"ok": true, "device": {...}}. Any
 failure exits non-zero.
 """
@@ -1735,7 +1754,7 @@ def run_training(model, tok, kernels, tag, out_dir):
     phase9 = {"peak": f"{peak / 2**30:.2f} GiB", "step_s": walls,
               "tok_s": [st["tokens"] / w for st, w in zip(steps, walls)],
               "losses": [rec["loss"] for rec in log], "start": start,
-              "final": _snapshot(params)}
+              "final": _snapshot(params), "batch": last_batch[0]}
     return launches["B"], c_bodies, saved, phase9["peak"], phase9
 
 
@@ -1937,6 +1956,295 @@ def run_mesh_training(model, tok, kernels, tag, work, phase9):
             batch["retro_node_mask"] & batch["retro_valid"][:, None]))
     dist.destroy_process_group()
     return launches
+
+
+# phase 19: mesh inference and the pipeline on one card (a world-size-1
+# NCCL mesh: NCCL refuses two ranks on one card). loss_gap: the pipelined
+# loss against the plain forward's; grad_rel: the relative L2 gap of the
+# LoRA gradients as one vector (bf16: each microbatch's products have
+# half the rows, so cuBLAS may round them otherwise); leaf_rel: the
+# largest single leaf's relative L2 gap (leaves near the noise floor
+# stray further: 1.308e-2 in each of three runs on an H100 at 700 W, so
+# a fault in one layer still shows, with room over that);
+# analysis_tokens: the expansion's analysis budget (the planner's
+# default is 512); decode_steps / decode_rows: the generate check.
+MESH_INFER = {"mesh": "dp:1,tp:1", "records": 2, "microbatches": 2,
+              "loss_gap": 1e-3, "grad_rel": 1e-2, "leaf_rel": 5e-2,
+              "analysis_tokens": 64,
+              "decode_steps": 32, "decode_rows": 8}
+
+
+def unplaced_copy(model, tok):
+    """A GraphLM of model's weights whose LLM is plain tensors again (a
+    new LLM holding each leaf's local shard: whole on a world of one;
+    model's own LLM, placed by phase 18 on a mesh that is gone, is
+    dropped), sharing the graph modules; its trainable bundle as model's."""
+    from llamole_tpu_torch.models.composite import GraphLM
+    from llamole_tpu_torch.models.gllm import LLM
+    from llamole_tpu_torch.train.optimizers import local_data
+    old = dict(model.named_parameters())
+    dev = model.device
+    llm = LLM(model.llm.cfg, dtype=model.llm.dtype, device=dev)
+    new = GraphLM(llm, model.graph_decoder, model.graph_predictor,
+                  model.graph_encoder, tok, model.token_id_dict,
+                  num_body_tokens=model.num_body_tokens,
+                  lora_rank=model.lora_rank, cost_mlp=model.cost_mlp)
+    if new.lora_scale != model.lora_scale:
+        fail(f"phase 19: the copy's LoRA scale {new.lora_scale} is not "
+             f"{model.lora_scale}")
+    with torch.no_grad():
+        for n, p in new.named_parameters():
+            if n.startswith(("llm.", "connectors.")):
+                p.copy_(local_data(old[n]))
+    del model.llm, old
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return new
+
+
+def _record_design(model, log):
+    """Wrap model.design_molecule: log gets each call's analysis rows."""
+    inner = model.design_molecule
+
+    def wrapper(*args, **kwargs):
+        analysis, smiles = inner(*args, **kwargs)
+        log.append(np.asarray(analysis).tolist())
+        return analysis, smiles
+
+    model.design_molecule = wrapper
+
+
+def _molqa(model, tok, mesh, sizes, designs):
+    """run_molqa's design phase over sizes["records"] records at phase 8's
+    settings (on `mesh` when given; the retro phase is held by
+    _expansion); returns (results, wall)."""
+    from llamole_tpu_torch.eval.workflow import run_molqa
+    data_dir = Path(__file__).resolve().parent / "data"
+    _record_design(model, designs)
+    try:
+        with tempfile.TemporaryDirectory() as out_dir:
+            args = dict(
+                model_args=SimpleNamespace(adapter_name_or_path=None,
+                                           property_oracle_path=None),
+                data_args=SimpleNamespace(
+                    dataset="molqa_drug_examples", dataset_dir=str(data_dir),
+                    template="llama3", cutoff_len=128),
+                training_args=SimpleNamespace(
+                    per_device_eval_batch_size=2, output_dir=out_dir, seed=0,
+                    mesh=mesh),
+                finetuning_args=SimpleNamespace(),
+                generating_args=SimpleNamespace(
+                    max_new_tokens=sizes["max_new_tokens"], temperature=0.6,
+                    top_p=0.9, do_sample=True, repetition_penalty=1.0,
+                    speculative_tokens=None, speculative_ngram=2,
+                    frontier_width=8))
+            _sync_card()
+            t0 = time.perf_counter()
+            results = run_molqa(**args, max_records=sizes["records"],
+                                prebuilt=(model, tok), do_retro=False,
+                                score=False)
+            _sync_card()
+            return results, time.perf_counter() - t0
+    finally:
+        del model.design_molecule
+
+
+def _expansion(model, smiles, sizes, mesh=None):
+    """One greedy batched_one_step_reaction -> ((reactants, scores,
+    analysis) per product, wall)."""
+    from llamole_tpu_torch.models.composite import GenerationSettings
+    gen = GenerationSettings(max_new_tokens=8, do_sample=False,
+                             speculative_tokens=0)
+    _sync_card()
+    t0 = time.perf_counter()
+    out = model.batched_one_step_reaction(
+        smiles, topk=16, gen=gen, analysis_tokens=sizes["analysis_tokens"],
+        generator=torch.Generator(device=model.device).manual_seed(0),
+        mesh=mesh)
+    _sync_card()
+    return ([(r["reactants"], [float(x) for x in r["scores"]],
+              r["analysis"]) for r in out], time.perf_counter() - t0)
+
+
+def _decode(llm, tok, sizes):
+    ids, mask = _prompt_batch(tok, sizes["decode_rows"], llm.device)
+    _sync_card()
+    t0 = time.perf_counter()
+    out, _ = llm.generate(ids, mask, max_new_tokens=sizes["decode_steps"],
+                          do_sample=False, spec_tokens=0)
+    _sync_card()
+    return out, time.perf_counter() - t0
+
+
+def _lora_grads(llm):
+    from llamole_tpu_torch.train.optimizers import local_data
+    grads = {n: local_data(p.grad).float().clone()
+             for n, p in llm.named_parameters()
+             if "lora_" in n and p.grad is not None}
+    for p in llm.parameters():
+        p.grad = None
+    return grads
+
+
+def run_pipeline_check(llm, groups, batch, tag, sizes):
+    """Phase 19 (b): forward and backward of pipeline_lm_loss on phase
+    9's batch with sizes["microbatches"] microbatches (the mesh's pp axis
+    1) against the plain forward's lm_loss, in turns (plain, pipeline,
+    pipeline, plain): the loss within loss_gap, the LoRA gradients (one
+    vector) within grad_rel relative L2 and each leaf within leaf_rel,
+    each run's wall and peak. Returns the record."""
+    from llamole_tpu_torch.models.gllm.model import lm_loss
+    from llamole_tpu_torch.parallel.pipeline import pipeline_lm_loss
+    from llamole_tpu_torch.utils.constants import IGNORE_INDEX
+    on_card = llm.device.type == "cuda"
+    b = {k: torch.as_tensor(np.asarray(batch[k]), device=llm.device)
+         for k in ("input_ids", "attention_mask", "labels")}
+    b["input_ids"] = b["input_ids"].long()
+    runs = []
+    for kind in ("plain", "pipeline", "pipeline", "plain"):
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        _sync_card()
+        t0 = time.perf_counter()
+        if kind == "pipeline":
+            loss = pipeline_lm_loss(llm, groups, b["input_ids"],
+                                    b["attention_mask"], b["labels"],
+                                    num_microbatches=sizes["microbatches"])
+        else:
+            logits, _, _ = llm(input_ids=b["input_ids"],
+                               attention_mask=b["attention_mask"])
+            loss = lm_loss(logits, b["labels"], IGNORE_INDEX)
+            del logits
+        loss.backward()
+        _sync_card()
+        runs.append({"kind": kind, "wall": time.perf_counter() - t0,
+                     "loss": float(loss.detach()), "grads": _lora_grads(llm),
+                     "peak": (torch.cuda.max_memory_allocated() / 2**30
+                              if on_card else 0.0)})
+        del loss
+    plain, pipe = runs[0], runs[1]
+    gap = abs(pipe["loss"] - plain["loss"])
+    names = sorted(plain["grads"])
+    diff = torch.stack([(pipe["grads"][n] - plain["grads"][n]).norm()
+                        for n in names if n in pipe["grads"]])
+    norm = torch.stack([plain["grads"][n].norm() for n in names])
+    rel = float(diff.norm() / norm.norm().clamp_min(1e-30))
+    leaf = (diff / norm.clamp_min(1e-30))
+    worst = names[int(leaf.argmax())]
+    repeat = (runs[2]["loss"] == pipe["loss"]
+              and runs[3]["loss"] == plain["loss"])
+    shape = tuple(b["input_ids"].shape)
+    print(f"phase 19 (b) pipeline_lm_loss on {shape} with "
+          f"{sizes['microbatches']} microbatches (pp 1): loss "
+          f"{pipe['loss']:.6f}, plain forward {plain['loss']:.6f} (gap "
+          f"{gap:.3e}, limit {sizes['loss_gap']}); {len(names)} LoRA "
+          f"gradients, relative L2 gap {rel:.3e} (limit "
+          f"{sizes['grad_rel']}), per leaf median "
+          f"{float(leaf.median()):.3e}, largest {float(leaf.max()):.3e} "
+          f"({worst}; limit {sizes['leaf_rel']}); forward + backward in turns "
+          f"{[(r['kind'], round(r['wall'], 3)) for r in runs]} s, peaks "
+          f"{[round(r['peak'], 2) for r in runs]} GiB; repeated losses "
+          f"equal: {repeat} [{tag}]", flush=True)
+    if not np.isfinite(pipe["loss"]) or gap > sizes["loss_gap"]:
+        fail(f"phase 19 (b): the pipelined loss {pipe['loss']} strays from "
+             f"the plain forward's {plain['loss']}")
+    if set(pipe["grads"]) != set(plain["grads"]) or not names \
+            or rel > sizes["grad_rel"]:
+        fail(f"phase 19 (b): the LoRA gradients stray ({rel})")
+    if float(leaf.max()) > sizes["leaf_rel"]:
+        fail(f"phase 19 (b): the LoRA gradient of {worst} strays "
+             f"({float(leaf.max())})")
+    return {"loss_gap": gap, "grad_rel": rel,
+            "leaf_max": float(leaf.max()),
+            "walls": [(r["kind"], r["wall"]) for r in runs],
+            "peaks": [r["peak"] for r in runs]}
+
+
+def run_mesh_inference(model, tok, kernels, tag, phase9, sizes=None):
+    """Phase 19 (module docstring), after phase 18 on its model: (a)
+    run_molqa, one expansion and a greedy decode without a mesh, then on
+    the world-size-1 mesh (the LLM placed as DTensors), each pair equal;
+    (b) run_pipeline_check. Returns A's and B's launches in (a)'s mesh
+    run. On the CPU (tests/test_torch_smoke_bounds.py) the group is gloo
+    and the wrappers run their plain versions: no launch floors."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from llamole_tpu_torch.parallel.mesh import MeshGroups, mesh_from_string
+    sizes = dict(sizes or {**MESH_INFER, "max_new_tokens": 128})
+    on_card = model.device.type == "cuda"
+    t_phase = time.perf_counter()
+    model = unplaced_copy(model, tok)
+    fused, gin = kernels[:2]
+    # (a) without the mesh: the LLM's decode replays its CUDA graph
+    plain_designs, mesh_designs = [], []
+    want, want_wall = _molqa(model, tok, "", sizes, plain_designs)
+    smiles = [r["llm_smiles"] for r in want if r["llm_smiles"]] or \
+        MOLECULES[:2]
+    want_exp, want_exp_s = _expansion(model, smiles, sizes)
+    want_dec, want_dec_s = _decode(model.llm, tok, sizes)
+    # on the mesh: run_molqa starts the group and places the LLM
+    # kernel counts from 0 over the mesh's design and expansion
+    reset_counts(*kernels)
+    got, got_wall = _molqa(model, tok, sizes["mesh"], sizes, mesh_designs)
+    backend = "nccl" if on_card else "gloo"
+    if not dist.is_initialized() or dist.get_backend() != backend or \
+            dist.get_world_size() != 1:
+        fail(f"phase 19 did not run on a world-size-1 {backend} group")
+    groups = MeshGroups(mesh_from_string(sizes["mesh"], model.device.type))
+    llm = model.llm
+    placed = [n for n, p in llm.named_parameters()
+              if isinstance(p, DTensor)]
+    got_exp, got_exp_s = _expansion(model, smiles, sizes, groups)
+    launches = {"A": getattr(fused, "launches", 0),
+                "A_mma": getattr(fused, "launches_mma", 0),
+                "A_fma": getattr(fused, "launches_fma", 0),
+                "B": getattr(gin, "launches", 0)}
+    got_dec, got_dec_s = _decode(llm, tok, sizes)
+    same = {
+        "analysis tokens": plain_designs == mesh_designs,
+        "SMILES": [r["llm_smiles"] for r in want]
+        == [r["llm_smiles"] for r in got],
+        "responses": [r["llm_response"] for r in want]
+        == [r["llm_response"] for r in got],
+        "expansion": want_exp == got_exp,
+        "decode": bool(torch.equal(want_dec, got_dec))}
+    print(f"phase 19 (a) mesh {sizes['mesh']} over {backend}: "
+          f"{len(placed)} of {len(list(llm.parameters()))} LLM leaves are "
+          f"DTensors; run_molqa on {len(got)} records {got_wall:.3f} s "
+          f"(without the mesh {want_wall:.3f} s"
+          f"{', its decode graphed' if on_card else ''}); "
+          f"expansion of {len(smiles)} molecules {got_exp_s:.3f} s "
+          f"({want_exp_s:.3f} s without); {sizes['decode_rows']} x "
+          f"{sizes['decode_steps']} greedy decode {got_dec_s:.3f} s eager "
+          f"on the mesh, {want_dec_s:.3f} s without; equal: {same}; "
+          f"A {launches['A']} (mma {launches['A_mma']}, fma "
+          f"{launches['A_fma']}), B {launches['B']} launches in the mesh's "
+          f"design and expansion [{tag}]", flush=True)
+    if not placed:
+        fail("phase 19: no LLM leaf is a DTensor")
+    bad = [k for k, ok in same.items() if not ok]
+    if bad:
+        fail(f"phase 19 (a): the mesh run differs from the mesh-less one in "
+             f"{bad}")
+    if len(got) != sizes["records"]:
+        fail(f"phase 19 (a): run_molqa answered {len(got)} records")
+    if on_card:
+        check_mma_only(fused, "phase 19 run_molqa on the mesh")
+        steps = diffusion_steps(model)
+        check_launches("fused_block_attention (mesh run_molqa)",
+                       launches["A"], model.graph_decoder.cfg.depth * steps,
+                       f"{model.graph_decoder.cfg.depth} x {steps} x 1 "
+                       "design batch")
+        check_launches("gin_aggregate (mesh expansion)", launches["B"],
+                       GIN_LAYERS * (1 + len(smiles)),
+                       f"{GIN_LAYERS} x (1 splice + {len(smiles)} products)")
+    pipe = run_pipeline_check(llm, groups, phase9["batch"], tag, sizes)
+    dist.destroy_process_group()
+    print(f"phase 19: {time.perf_counter() - t_phase:.1f} s [{tag}]",
+          flush=True)
+    return {**launches, "pipeline": pipe}
 
 
 def profile_training_step(model, batch, tag):
@@ -4984,6 +5292,10 @@ def main() -> int:
         mesh = run_mesh_training(model, tok, kernels, tag, work, phase9)
         print(f"mesh phase: {time.perf_counter() - t0:.1f} s wall [{tag}]",
               flush=True)
+        t0 = time.perf_counter()
+        mesh_infer = run_mesh_inference(model, tok, kernels, tag, phase9)
+        print(f"mesh inference phase: {time.perf_counter() - t0:.1f} s wall "
+              f"[{tag}]", flush=True)
         # phases 11 and 12 start from an empty card: the slice goes first
         del model, tok, timers, saved
         gc.collect()
@@ -5056,6 +5368,9 @@ def main() -> int:
               launches_entry=phase17["A"],
               launches_entry_mma=phase17["A_mma"],
               launches_entry_fma=phase17["A_fma"],
+              launches_mesh_inference=mesh_infer["A"],
+              launches_mesh_inference_mma=mesh_infer["A_mma"],
+              launches_mesh_inference_fma=mesh_infer["A_fma"],
               sdpa_floor_ms=a["sdpa_floor_ms"],
               sdpa_floor_device_ms=a["sdpa_floor_device_ms"],
               fma_ms=a["fma_ms"],
@@ -5071,6 +5386,7 @@ def main() -> int:
               launches_families=families["B"],
               launches_finetune=finetune["B"],
               launches_entry=phase17["B"], launches_mesh=mesh["B"],
+              launches_mesh_inference=mesh_infer["B"],
               **{k: v for k, v in b.items() if k.startswith("train_")},
               shape=b["shape"], share=b["share"],
               pretrain_launches=stack_launches["B"],

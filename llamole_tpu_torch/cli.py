@@ -6,6 +6,7 @@ Usage:
     python -m llamole_tpu_torch train  config/train/llama_lora.yaml
     torchrun --nproc-per-node N -m llamole_tpu_torch train <yaml with mesh>
     python -m llamole_tpu_torch eval   config/generate/llama_drug.yaml
+    torchrun --nproc-per-node N -m llamole_tpu_torch eval <yaml with mesh>
     python -m llamole_tpu_torch export config/export.yaml
     python -m llamole_tpu_torch serve  config/generate/llama_drug.yaml
                                        [--tcp [PORT]]
@@ -163,8 +164,18 @@ def _train(args, device):
 
 
 def _eval(args, device):
-    from .eval.workflow import run_eval
-    run_eval(_config(args), device=device)
+    """run_molqa on the config; with `mesh` one rank of mesh inference,
+    started by torchrun as `train` is."""
+    import torch.distributed as dist
+
+    from .config import get_infer_args
+    from .eval.workflow import run_molqa
+    parsed = get_infer_args(_config(args))
+    try:
+        run_molqa(*parsed, device=device)
+    finally:
+        if parsed[2].mesh and dist.is_initialized():
+            dist.destroy_process_group()
 
 
 def _export(args, device):

@@ -8,6 +8,14 @@ Writes the reference's result schema (qa_idx / instruction / input /
 llm_response / llm_smiles / property / llm_reactions) and the summary
 (validity, retro success, throughput, planner effort, generation-quality
 scores) to <output_dir>/molqa_results.json.
+
+With training_args.mesh ('dp:2', 'dp:2,tp:2', ...) the run is one rank
+of mesh inference (torchrun starts the ranks, each calling run_molqa;
+the world size equals the mesh): the process group starts from
+torchrun's environment (NCCL on the card, gloo on the CPU), the LLM is
+placed on the tp axis (parallel/sharding.py shard_llm) and both phases
+run GraphLM's dp legs (models/composite.py). Every rank returns the same
+results; rank 0 alone writes the file.
 """
 
 import json
@@ -57,12 +65,20 @@ def run_molqa(model_args, data_args, training_args, finetuning_args,
     eval's (topk 50, 100 iterations, 30 s per molecule);
     share_planning_wall=False plans each molecule under its own wall, as
     the reference does. design_resamples redraws failed diffusion samples
-    before the LLM rollback. The summary records both."""
-    if getattr(training_args, "mesh", ""):
-        raise NotImplementedError("mesh (dp-sharded) evaluation is not "
-                                  "ported to llamole_tpu_torch yet: the "
-                                  "dp / tp inference legs are ROADMAP.md "
-                                  "Queue 1 item 9b")
+    before the LLM rollback. The summary records both. training_args.mesh:
+    mesh inference (module docstring)."""
+    groups = None
+    spec = getattr(training_args, "mesh", "")
+    if spec:
+        from ..parallel.mesh import (MeshGroups, check_world,
+                                     init_distributed, mesh_from_string,
+                                     parse_mesh)
+        check_world(parse_mesh(spec))
+        kind = (prebuilt[0].device.type if prebuilt is not None
+                else torch.device(device).type)
+        init_distributed(kind)
+        groups = MeshGroups(mesh_from_string(spec, kind))
+        logger.info("inference mesh: %s", groups.size)
     if prebuilt is not None:
         model, tokenizer = prebuilt
     else:
@@ -72,6 +88,9 @@ def run_molqa(model_args, data_args, training_args, finetuning_args,
             model_args, data_args, finetuning_args,
             device=resolve_device(device), generate_mode=True,
             load_adapter=bool(model_args.adapter_name_or_path))
+    if groups is not None:
+        from ..parallel.sharding import shard_llm
+        shard_llm(model.llm, groups)
     template = get_template(data_args.template, tokenizer)
     path = resolve_dataset_path(data_args.dataset, data_args.dataset_dir)
     with open(path) as f:
@@ -99,7 +118,7 @@ def run_molqa(model_args, data_args, training_args, finetuning_args,
         info = model.generate(
             batch["input_ids"], batch["attention_mask"], batch["property"],
             generator=generator, do_molecular_design=True,
-            do_retrosynthesis=False, rollback=True, gen=gen)
+            do_retrosynthesis=False, rollback=True, gen=gen, mesh=groups)
         for i, smi in enumerate(info["smiles_list"]):
             rec = records[start + i]
             response = "".join(x for x in info["text_lists"][i] if x)
@@ -133,7 +152,7 @@ def run_molqa(model_args, data_args, training_args, finetuning_args,
                 max_planning_time=max_planning_time,
                 share_planning_wall=share_planning_wall,
                 min_expansions_per_mol=min_expansions_per_mol, gen=gen,
-                frontier_width=getattr(ga, "frontier_width", 1))
+                frontier_width=getattr(ga, "frontier_width", 1), mesh=groups)
             for i in range(n):
                 result = results[idx + i]
                 plan = info["retro_plan_dict"].get(result["llm_smiles"], {})
@@ -186,7 +205,8 @@ def run_molqa(model_args, data_args, training_args, finetuning_args,
                                                    device=model.device))
     logger.info("molqa eval summary: %s", summary)
 
-    if training_args.output_dir:
+    writer = groups is None or torch.distributed.get_rank() == 0
+    if training_args.output_dir and writer:
         os.makedirs(training_args.output_dir, exist_ok=True)
         with open(os.path.join(training_args.output_dir,
                                "molqa_results.json"), "w") as f:

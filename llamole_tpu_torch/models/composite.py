@@ -21,6 +21,26 @@ Phase 2, retrosynthesis (Retro* from the port's planner/):
   4. nodes are valued by the base LLM's (adapter off) likert last logits
      plus the optional CostMLP
 
+On a mesh (`mesh=` of design_molecule, design_from_analysis,
+batched_one_step_reaction, retrosynthesize(_batch) and generate; the
+DeviceMesh or MeshGroups of parallel/mesh.py, the LLM placed on its tp
+axis by parallel/sharding.py shard_llm) every rank runs these methods
+with the same arguments and returns the same result. The rows are
+padded to a multiple of dp by repeating the last row (JAX _place_dp);
+each dp rank runs the decode, the query extension or re-forward, the
+connector, GraphDiT's sampler (kernel A), GraphCLIP's splice and the
+predictor (kernel B) on its block of rows, and the results are
+all-gathered over dp (parallel/comm.py). Every random draw is made for
+the caller's rows on every rank, each rank keeping its own and a pad row
+taking the last row's: the decode's (LLM.generate rows=) and GraphDiT's
+noise (rows=); the dp ranks of a decode stop in lockstep (generate
+group=). So each analysis and molecule equals the mesh-less run's, sampled
+or greedy, and the ranks' generators stay alike. The host decisions that
+follow (resampling, rollback, the Retro* search's stop: planner/search.py
+`decide`) are taken on the gathered rows, or from rank 0, alike on every
+rank. Value scoring and rollback decodes run whole on every rank, as JAX
+runs them without the mesh.
+
 Training (mmsft), `loss`:
   1. token embeddings with every <molecule> slot replaced, out of place
      so graph_to_lm gets its gradient, by SiLU(graph_to_lm(GraphCLIP))
@@ -30,6 +50,9 @@ Training (mmsft), `loss`:
   4. retro: mean hidden of the <retro_body> tokens -> lm_to_graph_predictor
      -> SiLU -> the predictor's template CE (its GIN backward is kernel C)
   total = w_lm * lm + w_design * design + w_retro * retro
+With a pipeline (`pipeline_mesh=` / enable_pipeline, a mesh with a pp
+axis) the LLM's layer stack in step 2 runs through the GPipe schedule of
+parallel/pipeline.py, and each pp rank returns its 1/pp share.
 Only the trainable bundle has requires_grad: the connectors, plus the
 LoRA adapter ('lora', with DoRA's magnitudes under use_dora) or the whole
 LLM ('full'); the graph modules and the base LLM are frozen. With pissa
@@ -55,6 +78,7 @@ from ..chem import canonical_smiles, recanonicalize
 from ..chem.featurize import smiles_to_graph
 from ..ops.nn import init_dense_
 from ..utils.constants import IGNORE_INDEX
+from ..utils.logging import get_logger
 from ..utils.serialization import load_pytree, save_pytree
 from ..weights import bundle_tree, trainable_state_dict, trainable_values
 from .gllm import LLM, lora_scale
@@ -63,6 +87,8 @@ from .gllm.model import lm_loss
 from .graphclip import GraphCLIP
 from .graphdit import GraphDiT
 from .retro import CostMLP, GraphPredictor
+
+logger = get_logger(__name__)
 
 _LIKERT_ANSWERS = (
     "All readily available",
@@ -74,12 +100,48 @@ _LIKERT_ANSWERS = (
 _LIKERT_COSTS = np.asarray([0.0, 1.0, 2.5, 4.5, 7.0])
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError("mesh (dp-sharded) generation is not "
-                                  "ported to llamole_tpu_torch yet: the "
-                                  "dp / tp inference legs are ROADMAP.md "
-                                  "Queue 1 item 9b")
+def _mesh_groups(mesh):
+    """The MeshGroups (parallel/mesh.py) of an inference leg's `mesh` (a
+    DeviceMesh or MeshGroups), None without one."""
+    if mesh is None:
+        return None
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from ..parallel.mesh import MeshGroups
+    if isinstance(mesh, MeshGroups):
+        return mesh
+    if not isinstance(mesh, DeviceMesh):
+        raise TypeError(f"mesh must be a DeviceMesh or MeshGroups "
+                        f"(parallel/mesh.py), not {type(mesh).__name__}")
+    return MeshGroups(mesh)
+
+
+def _decide(groups):
+    """The planner's stop decision on a mesh: rank 0's, broadcast to
+    every rank (their clocks differ); None without a mesh."""
+    if groups is None:
+        return None
+    from ..parallel.comm import broadcast_object
+    return broadcast_object
+
+
+def _pad_rows(arrays, dp: int):
+    """Each array's rows padded to a multiple of dp by repeating its last
+    row (JAX GraphLM._place_dp)."""
+    out = []
+    for a in arrays:
+        a = np.asarray(a)
+        pad = (-a.shape[0]) % dp
+        out.append(np.concatenate([a, np.repeat(a[-1:], pad, axis=0)])
+                   if pad else a)
+    return out
+
+
+def _my_rows(groups, n: int) -> slice:
+    """This dp rank's block of n rows (n a multiple of dp): JAX's
+    P('dp') placement of the padded batch."""
+    per = n // groups.dp
+    return slice(groups.dp_rank * per, (groups.dp_rank + 1) * per)
 
 
 @dataclass
@@ -111,11 +173,13 @@ class GraphLM(nn.Module):
                  cost_mlp: Optional[CostMLP] = None,
                  loss_weight_lm: float = 1.0, loss_weight_design: float = 1.0,
                  loss_weight_retro: float = 1.0, use_dora: bool = False,
-                 pissa: bool = False):
+                 pissa: bool = False, pipeline_mesh=None,
+                 pipeline_microbatches: int = 1):
         """cost_mlp: the optional fingerprint value model of the planner
         (read when molecule_cost_weight > 0). loss_weight_*: the three
         terms of the training loss. use_dora / pissa: init_trainable
-        makes the LoRA adapter DoRA / PiSSA (JAX init_trainable)."""
+        makes the LoRA adapter DoRA / PiSSA (JAX init_trainable).
+        pipeline_mesh / pipeline_microbatches: enable_pipeline's."""
         super().__init__()
         if finetuning_type not in ("lora", "freeze", "full"):
             raise ValueError(f"unknown finetuning_type {finetuning_type!r}")
@@ -139,6 +203,12 @@ class GraphLM(nn.Module):
         # mesh training (parallel/sharding.py shard_graph_lm): the data
         # group the loss normalises over, None without a mesh
         self.mesh_groups = None
+        # the pipeline (enable_pipeline): (MeshGroups, microbatches) or
+        # None; pp_freed: the storage of the other stages' layers
+        # (parallel/pipeline.py place_stages, gather_stages)
+        self._pipeline = None
+        self.pp_freed = []
+        self._loss_traced = False
         # PiSSA's initial factors {projection: (A0, B0)} (init_trainable)
         self._pissa_init: Optional[Dict[str, Tuple[torch.Tensor,
                                                    torch.Tensor]]] = None
@@ -158,6 +228,41 @@ class GraphLM(nn.Module):
         # base weight would hold another 16 GB
         for name, p in self.named_parameters():
             p.requires_grad_(self._in_trainable_bundle(name))
+        if pipeline_mesh is not None:
+            self.enable_pipeline(pipeline_mesh, pipeline_microbatches)
+
+    def enable_pipeline(self, mesh, num_microbatches: int = 1) -> None:
+        """Route the training LLM forward through the GPipe schedule
+        (parallel/pipeline.py) over the mesh's pp axis (a DeviceMesh or
+        MeshGroups). As in the JAX package it must come before the first
+        loss, and an MoE LLM raises (the router's aux loss does not pass
+        the pipeline)."""
+        if self._loss_traced:
+            # the JAX package's refusal, kept so that the two packages
+            # accept the same call sequences (there the jitted loss keeps
+            # the path it was traced with; here nothing else forbids it)
+            raise RuntimeError(
+                "enable_pipeline() after the first loss: the pipeline is "
+                "chosen before the model computes a loss. Pass "
+                "pipeline_mesh= to the GraphLM constructor or call "
+                "enable_pipeline before the first loss.")
+        if self.llm.cfg.num_experts > 0:
+            raise ValueError(
+                "pipeline parallelism does not plumb the MoE router "
+                "load-balancing loss — experts would collapse silently. "
+                "Use the ep axis for MoE models (mesh='ep:N,dp:M').")
+        self._pipeline = (_mesh_groups(mesh), max(int(num_microbatches), 1))
+
+    def _pipelined_lm(self, embeds, attention_mask):
+        """(logits, hidden) of the LLM forward with the layer stack
+        pipelined over pp."""
+        from ..parallel.pipeline import pipeline_decoder_forward
+        groups, m = self._pipeline
+        positions = (attention_mask.cumsum(-1) - 1).clamp_min(0)
+        x = pipeline_decoder_forward(self.llm, embeds, attention_mask,
+                                     positions, groups, num_microbatches=m,
+                                     train=True)
+        return self.llm.finalize_hidden(x)
 
     @property
     def device(self) -> torch.device:
@@ -294,6 +399,7 @@ class GraphLM(nn.Module):
         rank (all-reduced over the data group), so the ranks' totals sum
         to the mesh-less loss, and the design noise is drawn for the whole
         batch (every rank draws the same) and this rank's rows kept."""
+        self._loss_traced = True
         if not isinstance(next(iter(batch.values())), torch.Tensor):
             batch = self.batch_to_device(batch)
         dev = batch["input_ids"].device
@@ -313,9 +419,18 @@ class GraphLM(nn.Module):
             batch["mol_valid"].bool() & (mol_rows >= 0) & (mol_rows < b),
             mol_rows, batch["mol_cols"])
         moe = self.llm.cfg.num_experts > 0
-        logits, hidden, _, *aux = self.llm(
-            inputs_embeds=embeds, attention_mask=batch["attention_mask"],
-            return_moe_aux=moe, train=True)
+        share = 1.0
+        if self._pipeline is not None:
+            from ..parallel.pipeline import check_pipeline
+            check_pipeline(self.llm.cfg, self._pipeline[0].pp, total,
+                           self._pipeline[1], True)
+            logits, hidden = self._pipelined_lm(embeds,
+                                                batch["attention_mask"])
+            share = 1.0 / self._pipeline[0].pp
+        else:
+            logits, hidden, _, *aux = self.llm(
+                inputs_embeds=embeds, attention_mask=batch["attention_mask"],
+                return_moe_aux=moe, train=True)
         lm = lm_loss(logits, batch["labels"], IGNORE_INDEX, count)
         if moe:     # Mixtral's router load-balancing term rides the LM loss
             lm = lm + self.llm.cfg.moe_aux_loss_coef * aux[0]
@@ -363,6 +478,9 @@ class GraphLM(nn.Module):
 
         total = (self.loss_weight_lm * lm + self.loss_weight_design * design
                  + self.loss_weight_retro * retro)
+        if share != 1.0:     # this pp rank's share
+            total, lm, design, retro = (v * share for v in (total, lm, design,
+                                                            retro))
         return total, {"lm_loss": lm, "design_loss": design,
                        "retro_loss": retro}
 
@@ -379,9 +497,16 @@ class GraphLM(nn.Module):
         graphllm_config.json; with save_graph_modules, the three graph
         modules' directories (graph_decoder/, graph_predictor/,
         graph_encoder/) as well. A PiSSA adapter is written converted
-        (pissa_to_lora: rank 2r over the original weights)."""
+        (pissa_to_lora: rank 2r over the original weights). On a mesh
+        every rank calls it; each pipeline stage contributes its layers'
+        leaves (pipeline.gather_stage_dicts)."""
         from ..parallel.sharding import full
-        values = {n: full(p) for n, p in self.trainable_parameters().items()}
+        groups = self.mesh_groups
+        values = {n: full(p) for n, p in self.named_parameters()
+                  if p.requires_grad}
+        if groups is not None and groups.pp > 1:
+            from ..parallel.pipeline import gather_stage_dicts
+            values = gather_stage_dicts(values, groups)
         if (self.mesh_groups is not None
                 and torch.distributed.get_rank() != 0):
             return       # on a mesh every rank gathers, rank 0 writes
@@ -477,7 +602,19 @@ class GraphLM(nn.Module):
     # ------------------------------------------------------------------
     def _generate_tokens(self, input_ids, attention_mask, generator,
                          gen: GenerationSettings, eos_ids,
-                         want_state: bool = False, inputs_embeds=None):
+                         want_state: bool = False, inputs_embeds=None,
+                         dp=None):
+        """The LLM's decode of a left-padded batch. dp = (groups, rows,
+        total): a dp leg's block, these being rows `rows` (a slice) of
+        the padded batch whose first `total` rows are the caller's (a pad
+        row repeats the last): LLM.generate draws for the `total` rows
+        and stops in lockstep over the dp group."""
+        rows = group = None
+        if dp is not None:
+            groups, mine, total = dp
+            rows = (torch.arange(mine.start, mine.stop, device=self.device)
+                    .clamp_max(total - 1), total)
+            group = groups.dp_group
         outs = self.llm.generate(
             self._tensor(input_ids), self._tensor(attention_mask),
             generator=generator, max_new_tokens=gen.max_new_tokens,
@@ -490,7 +627,7 @@ class GraphLM(nn.Module):
             return_decode_state=want_state,
             # room for <start> + K body tokens: no grow-copy of the cache
             reserve_cache_slots=(1 + self.num_body_tokens) if want_state
-            else 0, inputs_embeds=inputs_embeds)
+            else 0, inputs_embeds=inputs_embeds, rows=rows, group=group)
         toks, done = outs[0].cpu().numpy(), outs[1].cpu().numpy()
         # the state is None after speculative decoding (its cache has
         # holes): callers re-forward, as the JAX package does
@@ -550,13 +687,28 @@ class GraphLM(nn.Module):
                         gen: GenerationSettings = GenerationSettings(),
                         rollback: bool = False,
                         generator: Optional[torch.Generator] = None,
-                        molecule_batch=None):
+                        molecule_batch=None, mesh=None):
         """Phase-1 design: analysis decode -> query extension -> GraphDiT.
         input_ids [B, P] left-padded; molecule_properties [B, 10] (NaN or
         NO_LABEL_INDEX = absent). molecule_batch (numpy mol_atoms,
         mol_edges, mol_node_mask, mol_valid, mol_rows, mol_cols) splices
-        GraphCLIP embeddings at <molecule> slots of the prompt. Returns
-        (analysis_tokens [B, T] numpy, smiles list)."""
+        GraphCLIP embeddings at <molecule> slots of the prompt. mesh: the
+        dp leg (module docstring; ignored, with JAX's warning, beside
+        molecule_batch, whose graph banks span the unpadded batch).
+        Returns (analysis_tokens [B, T] numpy, smiles list)."""
+        groups = _mesh_groups(mesh)
+        if groups is not None and molecule_batch is not None:
+            logger.warning("design_molecule: mesh ignored with "
+                           "molecule_batch (spliced-embed path)")
+            groups = None
+        input_ids = np.asarray(input_ids)
+        attention_mask = np.asarray(attention_mask)
+        true_b = input_ids.shape[0]
+        mine = slice(None)
+        if groups is not None:
+            input_ids, attention_mask = _pad_rows([input_ids,
+                                                   attention_mask], groups.dp)
+            mine = _my_rows(groups, input_ids.shape[0])
         inputs_embeds = None
         if molecule_batch is not None:
             mb = molecule_batch
@@ -566,10 +718,11 @@ class GraphLM(nn.Module):
                 self._tensor(mb["mol_node_mask"], torch.bool),
                 self._tensor(mb["mol_valid"], torch.bool),
                 self._tensor(mb["mol_rows"]), self._tensor(mb["mol_cols"]))
-        outs = self._generate_tokens(input_ids, attention_mask, generator,
-                                     gen, self._eos_ids(),
-                                     want_state=gen.reuse_decode_cache,
-                                     inputs_embeds=inputs_embeds)
+        outs = self._generate_tokens(
+            input_ids[mine], attention_mask[mine], generator, gen,
+            self._eos_ids(), want_state=gen.reuse_decode_cache,
+            inputs_embeds=inputs_embeds,
+            dp=None if groups is None else (groups, mine, true_b))
         analysis = outs[0]
         design_hidden = None
         if gen.reuse_decode_cache and outs[2] is not None:
@@ -580,13 +733,22 @@ class GraphLM(nn.Module):
             design_hidden = self._body_hidden_extend(
                 state["cache"], state["kv_valid"], self._tensor(ext))
             del state, outs   # free the cache before the diffusion stage
-        input_ids = np.asarray(input_ids)
-        prompts = [self._strip_pads(r) for r in input_ids]
-        analyses = [self._strip_pads(r) for r in analysis]
+        if groups is not None:
+            analysis = self._gather_rows_array(analysis, groups)
+        prompts = [self._strip_pads(r) for r in input_ids[:true_b]]
+        analyses = [self._strip_pads(r) for r in analysis[:true_b]]
         smiles = self.design_from_analysis(
-            generator, prompts, analyses, molecule_properties, gen=gen,
-            rollback=rollback, design_hidden=design_hidden)
-        return analysis, smiles
+            generator, prompts, analyses,
+            np.asarray(molecule_properties)[:true_b], gen=gen,
+            rollback=rollback, design_hidden=design_hidden, mesh=groups)
+        return analysis[:true_b], smiles
+
+    @staticmethod
+    def _gather_rows_array(local: np.ndarray, groups):
+        """The dp ranks' row blocks of a numpy array joined in row
+        order."""
+        from ..parallel.comm import gather_rows
+        return np.stack(gather_rows(list(local), groups.dp_group, groups.dp))
 
     @torch.no_grad()
     def design_from_analysis(
@@ -596,27 +758,49 @@ class GraphLM(nn.Module):
         molecule_properties: np.ndarray, *,
         gen: GenerationSettings = GenerationSettings(),
         rollback: bool = False, true_b: Optional[int] = None,
-        design_hidden: Optional[torch.Tensor] = None,
+        design_hidden: Optional[torch.Tensor] = None, mesh=None,
     ) -> List[Optional[str]]:
         """Post-decode stages: token surgery -> body hidden (re-forward
-        unless given) -> connector -> GraphDiT -> redraws -> rollback."""
+        unless given) -> connector -> GraphDiT -> redraws -> rollback.
+        mesh: the dp leg over the given rows (padded to a multiple of dp;
+        design_hidden, when given, holds this rank's block of the padded
+        rows). The sampler draws for the given rows, each pad row taking
+        the last one's draw, so every row equals the mesh-less call's."""
+        groups = _mesh_groups(mesh)
         ds = self.token_id_dict["<design_start>"]
         body = self.token_id_dict["<design_body>"]
         seqs = [list(p) + list(a) + [ds] + [body] * self.num_body_tokens
                 for p, a in zip(prompt_token_lists, analysis_token_lists)]
+        n = len(seqs)
+        props = np.asarray(molecule_properties)
+        mine, rows = slice(None), None
+        if groups is not None:
+            (props,) = _pad_rows([props], groups.dp)
+            mine = _my_rows(groups, props.shape[0])
+            rows = (torch.arange(mine.start, mine.stop,
+                                 device=self.device).clamp_max(n - 1), n)
         if design_hidden is None:
-            ids, mask = self._left_pad(seqs)
-            design_hidden = self._body_hidden(self._tensor(ids),
-                                              self._tensor(mask))
+            padded = seqs + [seqs[-1]] * (props.shape[0] - n)
+            ids, mask = self._left_pad(padded)
+            design_hidden = self._body_hidden(self._tensor(ids[mine]),
+                                              self._tensor(mask[mine]))
         conn = self.connectors["lm_to_graph_decoder"]
         cond = F.silu(conn(design_hidden.to(conn.weight.dtype))).float()
-        props = self._tensor(molecule_properties, torch.float32)
-        smiles = self.graph_decoder.generate(generator, props, cond)
-        true_b = len(seqs) if true_b is None else true_b
+        props = self._tensor(props[mine], torch.float32)
+
+        def sample():
+            got = self.graph_decoder.generate(generator, props, cond, rows)
+            if groups is None:
+                return got
+            from ..parallel.comm import gather_rows
+            return gather_rows(got, groups.dp_group, groups.dp)[:n]
+
+        smiles = sample()
+        true_b = n if true_b is None else true_b
         for _ in range(max(0, gen.design_resamples)):
             if all(s is not None for s in smiles[:true_b]):
                 break
-            redraw = self.graph_decoder.generate(generator, props, cond)
+            redraw = sample()
             smiles = [a if a is not None else b
                       for a, b in zip(smiles, redraw)]
         smiles = smiles[:true_b]
@@ -688,12 +872,18 @@ class GraphLM(nn.Module):
         padded to that width by repeating the last product (pad rows are
         dropped from the result). Prompts and retro queries left-pad to
         256-token bands; the analysis budget is at least analysis_tokens
-        (default 512, the reference's)."""
-        _no_mesh(mesh)
+        (default 512, the reference's). mesh: the dp leg (the width
+        padded to its least common multiple with dp, as JAX pads it; each
+        dp rank splices, decodes, re-forwards and scores its block of
+        rows, the results all-gathered)."""
+        import math
+        groups = _mesh_groups(mesh)
         n_real = len(product_smiles_list)
         if n_real == 0:
             return []
-        w = max(n_real, pad_rows_to or 0)
+        w = w_plain = max(n_real, pad_rows_to or 0)
+        if groups is not None:
+            w = w * groups.dp // math.gcd(w, groups.dp)
         if (design_text is None or isinstance(design_text, str)
                 or len(design_text) == 0):
             texts = [design_text if isinstance(design_text, str) else None
@@ -735,19 +925,25 @@ class GraphLM(nn.Module):
             if pos.size:
                 cols[i] = pos[-1]
                 valid[i] = True
+        mine = slice(0, w) if groups is None else _my_rows(groups, w)
         embeds = self._splice_molecule_embeds(
-            self._tensor(ids), self._tensor(atoms),
-            self._tensor(edges, torch.int32), self._tensor(gmask, torch.bool),
-            self._tensor(valid, torch.bool), self._tensor(np.arange(w)),
-            self._tensor(cols))
+            self._tensor(ids[mine]), self._tensor(atoms[mine]),
+            self._tensor(edges[mine], torch.int32),
+            self._tensor(gmask[mine], torch.bool),
+            self._tensor(valid[mine], torch.bool),
+            self._tensor(np.arange(mine.stop - mine.start)),
+            self._tensor(cols[mine]))
 
         floor = analysis_tokens or 512
         gen_a = dc_replace(gen, max_new_tokens=(
             max(gen.max_new_tokens, floor) if gen.max_new_tokens else floor))
-        analysis, _ = self._generate_tokens(ids, mask, generator, gen_a,
-                                            self._eos_ids(),
-                                            inputs_embeds=embeds)
+        analysis, _ = self._generate_tokens(
+            ids[mine], mask[mine], generator, gen_a, self._eos_ids(),
+            inputs_embeds=embeds,
+            dp=None if groups is None else (groups, mine, w_plain))
         del embeds
+        if groups is not None:
+            analysis = self._gather_rows_array(analysis, groups)
 
         rs = self.token_id_dict["<retro_start>"]
         body = self.token_id_dict["<retro_body>"]
@@ -755,28 +951,31 @@ class GraphLM(nn.Module):
         retro_ids, retro_mask = self._left_pad(
             [a + [rs] + [body] * self.num_body_tokens for a in a_tokens],
             bucket=256)
-        hidden = self._body_hidden(self._tensor(retro_ids),
-                                   self._tensor(retro_mask))
+        hidden = self._body_hidden(self._tensor(retro_ids[mine]),
+                                   self._tensor(retro_mask[mine]))
         conn = self.connectors["lm_to_graph_predictor"]
         cond = F.silu(conn(hidden.to(conn.weight.dtype))).float()
 
         results = []
-        for i, (smi, g) in enumerate(zip(product_smiles_list,
-                                         graphs[:n_real])):
+        for i in range(mine.start, min(mine.stop, n_real)):
+            smi, g = product_smiles_list[i], graphs[i]
             if g is None:
                 results.append({"reactants": [], "scores": [],
                                 "templates": [],
                                 "analysis": self.tokenizer.encode(
                                     "Invalid product SMILES")})
                 continue
-            reactants, scores, templates = \
-                self.graph_predictor.sample_templates(g, cond[i], smi, topk)
+            reactants, scores, templates = self.graph_predictor.\
+                sample_templates(g, cond[i - mine.start], smi, topk)
             results.append({
                 "reactants": reactants, "scores": scores,
                 "templates": templates,
                 "analysis": self.tokenizer.encode(
                     f"To synthesize {smi}, follow these procedures: ")
                 + a_tokens[i]})
+        if groups is not None:
+            from ..parallel.comm import gather_rows
+            results = gather_rows(results, groups.dp_group, groups.dp)
         return results
 
     # ------------------------------------------------------------------
@@ -913,10 +1112,11 @@ class GraphLM(nn.Module):
         frontier_width: int = 1, mesh=None,
     ) -> Dict[str, Any]:
         """Plan a route for one molecule. frontier_width > 1 expands the W
-        best open nodes per iteration in one batch."""
+        best open nodes per iteration in one batch. mesh: the expansions
+        run the dp leg, the search stops at rank 0's decision."""
         from ..planner import retro_star_search
 
-        _no_mesh(mesh)
+        groups = _mesh_groups(mesh)
         starting_mols = self._starting_mols(starting_mols)
         if smiles is None:
             return self._failure_result(None)
@@ -936,7 +1136,7 @@ class GraphLM(nn.Module):
             return self.batched_one_step_reaction(
                 smiles_list, design_text=design_text, prefix_ids=prefix_ids,
                 topk=expansion_topk, gen=gen, pad_rows_to=frontier_width,
-                generator=generator)
+                generator=generator, mesh=groups)
 
         value_fn, batch_value_fn = self._value_fns(molecule_cost_weight,
                                                    language_cost_weight)
@@ -946,7 +1146,7 @@ class GraphLM(nn.Module):
             iterations=iterations, max_time=max_planning_time,
             expansion_width=frontier_width,
             batch_expand_fn=batch_expand_fn if frontier_width > 1 else None,
-            batch_value_fn=batch_value_fn)
+            batch_value_fn=batch_value_fn, decide=_decide(groups))
         if success:
             return self._success_result(target, route, iters,
                                         time.time() - t0)
@@ -979,10 +1179,10 @@ class GraphLM(nn.Module):
         lagging trees run past the shared wall, up to overtime_factor x
         the wall (PARITY.md, known divergence 6). Returns {target: result}
         keyed by the caller's spelling; "time" is the batch wall and
-        "expansions" the tree's iterations."""
+        "expansions" the tree's iterations. mesh: as retrosynthesize."""
         from ..planner import retro_star_search_multi
 
-        _no_mesh(mesh)
+        groups = _mesh_groups(mesh)
         starting_mols = self._starting_mols(starting_mols)
         design_text_map = design_text_map or {}
         prefix_ids_map = prefix_ids_map or {}
@@ -1023,7 +1223,7 @@ class GraphLM(nn.Module):
                     prefix_ids=[list(prefix_ids_map.get(t) or [])
                                 for t, _ in items],
                     topk=expansion_topk, gen=gen, pad_rows_to=total_width,
-                    generator=generator)
+                    generator=generator, mesh=groups)
 
             value_fn, batch_value_fn = self._value_fns(
                 molecule_cost_weight, language_cost_weight)
@@ -1037,7 +1237,7 @@ class GraphLM(nn.Module):
                 min_iters_per_target=(min_expansions_per_mol
                                       if share_planning_wall else 0),
                 max_time_hard=wall * max(overtime_factor, 1.0),
-                batch_value_fn=batch_value_fn)
+                batch_value_fn=batch_value_fn, decide=_decide(groups))
             total_time = time.time() - t0
             for t in targets:
                 success, route, iters = searched[t]
@@ -1104,8 +1304,9 @@ class GraphLM(nn.Module):
         min_expansions_per_mol: int = 0, mesh=None,
     ) -> Dict[str, Any]:
         """Design and / or plan, then the reference's interleaved
-        token_lists / text_lists per row."""
-        _no_mesh(mesh)
+        token_lists / text_lists per row. mesh: every stage's dp leg
+        (module docstring)."""
+        mesh = _mesh_groups(mesh)
         input_ids = np.asarray(input_ids)
         if attention_mask is None:
             attention_mask = np.ones_like(input_ids)
@@ -1117,7 +1318,7 @@ class GraphLM(nn.Module):
         if do_molecular_design:
             analysis, smiles_list = self.design_molecule(
                 input_ids, attention_mask, molecule_properties, gen=gen,
-                rollback=rollback, generator=generator)
+                rollback=rollback, generator=generator, mesh=mesh)
             info["design_analysis_tokens"] = analysis
             info["smiles_list"] = smiles_list
         elif input_smiles_list is not None:
@@ -1157,7 +1358,7 @@ class GraphLM(nn.Module):
                 design_text_map=design_map, prefix_ids_map=prefix_map,
                 gen=gen, total_width=frontier_width,
                 share_planning_wall=share_planning_wall,
-                min_expansions_per_mol=min_expansions_per_mol)
+                min_expansions_per_mol=min_expansions_per_mol, mesh=mesh)
         else:
             for i, smi in enumerate(info["smiles_list"]):
                 if smi in plans:
@@ -1169,7 +1370,7 @@ class GraphLM(nn.Module):
                     language_cost_weight=language_cost_weight,
                     max_planning_time=max_planning_time, rollback=rollback,
                     design_text=row_text(i), prefix_ids=row_prefix(i),
-                    gen=gen, frontier_width=frontier_width)
+                    gen=gen, frontier_width=frontier_width, mesh=mesh)
         info["retro_plan_dict"] = plans
 
         available = set(self.graph_predictor.available or [])

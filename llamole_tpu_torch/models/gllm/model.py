@@ -204,11 +204,12 @@ KVCache = List[Dict[str, torch.Tensor]]
 
 
 def make_kv_cache(cfg: LLMConfig, batch: int, total: int, dtype,
-                  device) -> KVCache:
+                  device, tp: int = 1) -> KVCache:
     """Per-layer {"k", "v"} of [B, T, KV, D] in the compute dtype, or, when
     cfg.kv_cache_dtype is 'int8', int8 {"k", "v"} plus f32 {"k_scale",
-    "v_scale"} of [B, T, KV] (JAX make_kv_cache)."""
-    shape = (batch, total, cfg.num_kv_heads, cfg.head_dim_)
+    "v_scale"} of [B, T, KV] (JAX make_kv_cache). tp: the tensor-parallel
+    degree of the LLM, whose rank holds KV / tp heads."""
+    shape = (batch, total, cfg.num_kv_heads // tp, cfg.head_dim_)
     int8 = cfg.kv_cache_dtype == "int8"
 
     def entry():
@@ -738,7 +739,9 @@ class LLM(nn.Module):
                  return_spec_iters: bool = False,
                  return_decode_state: bool = False,
                  reserve_cache_slots: int = 0,
-                 inputs_embeds: Optional[torch.Tensor] = None):
+                 inputs_embeds: Optional[torch.Tensor] = None,
+                 rows: Optional[Tuple[torch.Tensor, int]] = None,
+                 group=None):
         """Returns (new_tokens [B, T] int64, done [B] bool), then, each when
         asked: trigger [B] (the stop token that fired, -1 if none), the
         iterations run (speculative verify steps, or per-token steps) and
@@ -760,7 +763,17 @@ class LLM(nn.Module):
         drafts per live row and step fall below spec_min_accept
         finishes on the per-token loop. Greedy tokens, done and trigger
         equal the per-token loop's; sampled outputs follow its
-        distribution (delta-draft rejection sampling)."""
+        distribution (delta-draft rejection sampling).
+
+        rows, group: a data-parallel rank's block of a batch (the dp legs
+        of models/composite.py). rows = (idx [B], total): the batch rows
+        these are (a pad row repeats the last, idx clamped), whose every
+        draw is made for the whole batch of `total` rows and cut to idx,
+        so each row gets the mesh-less call's noise. group: the dp group,
+        over which every stop decision is taken (all rows stopped, the
+        drafts' acceptance guard): the ranks decode in lockstep, as one
+        program over the whole batch does, and their generators stay
+        alike."""
         cfg = self.cfg
         dev = input_ids.device
         b, p = input_ids.shape
@@ -775,7 +788,8 @@ class LLM(nn.Module):
                  + reserve_cache_slots)
         eos = torch.tensor(list(eos_ids) or [-1], device=dev)
         positions = (attention_mask.cumsum(-1) - 1).clamp_min(0)
-        cache = make_kv_cache(cfg, b, total, self.dtype, dev)
+        cache = make_kv_cache(cfg, b, total, self.dtype, dev,
+                              self.tp.size if self.tp is not None else 1)
         kv_valid = torch.cat([attention_mask > 0,
                               torch.zeros((b, total - p), dtype=torch.bool,
                                           device=dev)], dim=1)
@@ -787,7 +801,7 @@ class LLM(nn.Module):
                                 inputs_embeds=inputs_embeds)
 
         use_rep = repetition_penalty != 1.0
-        rows = torch.arange(b, device=dev)
+        every_row = torch.arange(b, device=dev)
         seen = None
         if use_rep:
             seen = torch.zeros((b, cfg.vocab_size), dtype=torch.bool,
@@ -801,9 +815,9 @@ class LLM(nn.Module):
                 step_logits = apply_repetition_penalty(
                     step_logits, seen, repetition_penalty)
             tok = sample_token(generator, step_logits, temperature, top_p,
-                               top_k, do_sample)
+                               top_k, do_sample, rows)
             if use_rep:
-                seen[rows, tok] = True
+                seen[every_row, tok] = True
             return tok
 
         tok = pick(logits[:, -1])
@@ -817,7 +831,7 @@ class LLM(nn.Module):
         if use_spec:
             out, done, trigger, iters = self._speculative_loop(
                 cache, kv_valid, tok, pos, done, trigger, generator,
-                input_ids, attention_mask, p=p,
+                input_ids, attention_mask, p=p, rows=rows, group=group,
                 max_new_tokens=max_new_tokens, K=spec_tokens,
                 ngram=max(1, min(spec_ngram, 4)), eos=eos, pad_id=pad_id,
                 probe_iters=spec_probe, min_accept=spec_min_accept,
@@ -830,7 +844,7 @@ class LLM(nn.Module):
             graphed = (self._decode_graph(cache, kv_valid, tok, pos)
                        if self._graphs_apply(dev) else None)
             for t in range(max_new_tokens):
-                if bool(done.all()):
+                if everywhere(done.all(), group):
                     break   # early exit: finished rows would only emit pad
                 out[:, t] = tok
                 kv_valid[:, p + t] = ~done
@@ -863,10 +877,12 @@ class LLM(nn.Module):
     def _graphs_apply(self, dev) -> bool:
         """Whether generate's per-token steps replay a CUDA graph: on the
         card unless decode_graphs is off, for a dense MLP (MoE routing
-        sizes its dispatch on the host) and no W8A8 projection (its
-        int8_matmul counts calls on the host, once per capture there)."""
+        sizes its dispatch on the host), no W8A8 projection (its
+        int8_matmul counts calls on the host, once per capture there)
+        and no tensor parallelism: a tp-sharded LLM (`tp`) decodes
+        eagerly by design, its step's collectives are not recorded."""
         return (self.decode_graphs and dev.type == "cuda"
-                and self.cfg.num_experts == 0
+                and self.cfg.num_experts == 0 and self.tp is None
                 and not any(m.quant == "w8a8" for m in projections(self)))
 
     def _decode_graph(self, cache, kv_valid, tok, pos):
@@ -920,6 +936,7 @@ class LLM(nn.Module):
 
     def _speculative_loop(self, cache, kv_valid, x0, pos0, done0, trigger0,
                           generator, input_ids, attention_mask, *, p: int,
+                          rows, group,
                           max_new_tokens: int, K: int, ngram: int, eos,
                           pad_id: int, temperature: float, top_p: float,
                           top_k: int, do_sample: bool, probe_iters: int,
@@ -941,10 +958,12 @@ class LLM(nn.Module):
         fills its budget without reaching the token after its last one
         takes one forward of the continuation for that boundary token, so
         that done and trigger are the per-token loop's (JAX's leave them
-        unset there). Returns (out [B, max_new], done, trigger,
-        iterations); self.spec_stats keeps the verify steps, the drafts
-        accepted over them, the live row-steps and whether the guard
-        tripped."""
+        unset there). rows, group: generate's (the draws made for the
+        whole batch, the stop flag and the guard's counts summed over the
+        group). Returns (out [B, max_new], done, trigger, iterations);
+        self.spec_stats keeps the verify steps, the drafts accepted over
+        them, the live row-steps and whether the guard tripped (this
+        rank's rows)."""
         dev = x0.device
         b = x0.shape[0]
         L = p + max_new_tokens          # history width (exact positions)
@@ -972,10 +991,14 @@ class LLM(nn.Module):
         tot_live = torch.zeros((), dtype=torch.long, device=dev)
         it = 0
         while it < max_new_tokens:
-            stop = (done | full).all()
+            running, acc, steps = (~(done | full)).sum(), tot_acc, tot_live
+            if group is not None:
+                counts = torch.stack([running, acc, steps])
+                torch.distributed.all_reduce(counts, group=group)
+                running, acc, steps = counts
+            stop = running == 0
             if it >= probe_iters:   # the acceptance guard
-                stop = stop | (tot_acc.float()
-                               < min_accept * tot_live.float())
+                stop = stop | (acc.float() < min_accept * steps.float())
             if bool(stop):
                 break
             live = ~(done | full)
@@ -1014,12 +1037,13 @@ class LLM(nn.Module):
                     p_draft = torch.where(
                         excluded, torch.exp(vals[:, :K] - lse[:, :K, None]),
                         0.0).sum(-1)
-                u = torch.rand((b, K), generator=generator, device=dev)
+                u = uniform_draw(generator, (b, K), dev, rows)
                 accept = u < p_draft
-                fresh = candidates_draw(generator, vals, idxs)  # [B, K+1]
+                fresh = candidates_draw(generator, vals, idxs,
+                                        rows)  # [B, K+1]
                 resid = candidates_draw(
                     generator, torch.where(excluded, _NEG, vals[:, :K]),
-                    None if idxs is None else idxs[:, :K])
+                    None if idxs is None else idxs[:, :K], rows)
             n_acc = torch.cumprod(accept.long(), dim=1).sum(dim=1)
             # the token at slot n_acc: the residual resample where a draft
             # was rejected, a fresh draw after K accepted drafts
@@ -1080,11 +1104,11 @@ class LLM(nn.Module):
         # not reach the next token) runs one more forward so that the
         # never-emitted boundary token still sets done / trigger.
         c0 = p + it * (K + 1)
-        rows = bidx[:, 0]
+        every_row = bidx[:, 0]
         fin = full & ~boundary
         for j in range(max_new_tokens + 1):
             live = ~(done | fin)
-            if not bool(live.any()):
+            if everywhere(~live.any(), group):
                 break
             at_boundary = gen >= max_new_tokens
             kv_valid[:, c0 + j] = live
@@ -1092,12 +1116,12 @@ class LLM(nn.Module):
                                     positions=pos_x[:, None], kv_cache=cache,
                                     cache_index=c0 + j, kv_valid=kv_valid)
             nxt = sample_token(generator, logits[:, -1], temperature, top_p,
-                               top_k, do_sample)
+                               top_k, do_sample, rows)
             stopped = live & torch.isin(nxt, eos)
             trigger = torch.where(stopped, nxt, trigger)
             emit = live & ~stopped & ~at_boundary
             col = torch.where(emit, gen, max_new_tokens)
-            out[rows, col] = torch.where(emit, nxt, pad_id)
+            out[every_row, col] = torch.where(emit, nxt, pad_id)
             gen = gen + emit.long()
             done = done | stopped
             fin = fin | (live & at_boundary)
@@ -1202,22 +1226,65 @@ def warped_candidates(logits, temperature: float, top_p: float, top_k: int,
     return vals, idxs
 
 
-def candidates_draw(generator, vals, idxs) -> torch.Tensor:
+def everywhere(flag: torch.Tensor, group=None) -> bool:
+    """Whether a stop flag holds on every rank of the group (as it is
+    without one): the dp ranks of a batch stop together."""
+    if group is None:
+        return bool(flag)
+    flag = flag.to(torch.int32).reshape(1)
+    torch.distributed.all_reduce(flag, torch.distributed.ReduceOp.MIN,
+                                 group=group)
+    return bool(flag)
+
+
+def _whole_batch(x: torch.Tensor, rows, fill: float) -> torch.Tensor:
+    """A rank's rows [B, ...] of a batch placed at their rows of the
+    whole one [total, ...] (rows = (idx, total); the other rows `fill`;
+    of repeated indices, the first row's)."""
+    idx, total = rows
+    first = torch.ones_like(idx, dtype=torch.bool)
+    first[1:] = idx[1:] != idx[:-1]
+    whole = x.new_full((total,) + tuple(x.shape[1:]), fill)
+    whole[idx[first]] = x[first]
+    return whole
+
+
+def uniform_draw(generator, shape, device, rows=None) -> torch.Tensor:
+    """U(0, 1) of the given shape; with rows, the rows of the whole
+    batch's draw."""
+    if rows is None:
+        return torch.rand(shape, generator=generator, device=device)
+    idx, total = rows
+    return torch.rand((total,) + tuple(shape[1:]), generator=generator,
+                      device=device)[idx]
+
+
+def candidates_draw(generator, vals, idxs, rows=None) -> torch.Tensor:
     """A vocab id drawn from each row of a (vals, idxs) candidate set
-    ([..., kk]; idxs None: vals covers the vocabulary) -> [...]."""
-    lead = vals.shape[:-1]
-    choice = torch.multinomial(torch.softmax(vals.reshape(-1, vals.shape[-1]),
-                                             dim=-1), 1, generator=generator)
+    ([B, ..., kk]; idxs None: vals covers the vocabulary) -> [B, ...].
+    rows (generate's): the draw is the whole batch's, its rows cut out
+    (torch.multinomial draws each row of its input from that row's noise
+    alone)."""
+    lead, kk = vals.shape[:-1], vals.shape[-1]
+    probs = torch.softmax(vals.reshape(-1, kk), dim=-1)
+    if rows is not None:
+        probs = _whole_batch(probs.view(lead + (kk,)), rows, 1.0 / kk)
+        probs = probs.reshape(-1, kk)
+    choice = torch.multinomial(probs, 1, generator=generator)
+    if rows is not None:
+        choice = choice.view((rows[1],) + tuple(lead[1:]))[rows[0]]
+        choice = choice.reshape(-1, 1)
     if idxs is not None:
         choice = torch.gather(idxs.reshape(-1, idxs.shape[-1]), 1, choice)
     return choice[:, 0].view(lead)
 
 
 def sample_token(generator, logits, temperature: float, top_p: float,
-                 top_k: int, do_sample: bool) -> torch.Tensor:
-    """One token per row: greedy, or a draw from the warped candidates."""
+                 top_k: int, do_sample: bool, rows=None) -> torch.Tensor:
+    """One token per row: greedy, or a draw from the warped candidates
+    (rows: candidates_draw's)."""
     vals, idxs = warped_candidates(logits, temperature, top_p, top_k,
                                    do_sample)
     if not do_sample or temperature <= 0:
         return idxs[:, 0]
-    return candidates_draw(generator, vals, idxs)
+    return candidates_draw(generator, vals, idxs, rows)

@@ -107,16 +107,29 @@ class GraphDiT(nn.Module):
 
     @torch.no_grad()
     def sample(self, generator: torch.Generator, y: torch.Tensor,
-               text_emb: torch.Tensor):
+               text_emb: torch.Tensor, rows=None):
         """Full reverse diffusion. y [B, ydim] f32 (NaN = absent),
         text_emb [B, text_dim] -> (atom_idx [B,N] active-space,
-        edge_cls [B,N,N], n_nodes [B])."""
+        edge_cls [B,N,N], n_nodes [B]). rows = (idx, total), data
+        parallelism: y and text_emb are the rows idx ([B] long, places in
+        the whole batch of `total` rows); every draw is made for the
+        whole batch and these rows kept (diffusion.py), so each row's
+        sample equals the run without a mesh."""
         cfg, sched = self.cfg, self.schedule
         dev = self._nodes_hist.device
         b, n = y.shape[0], cfg.max_n_nodes
-        n_nodes = sample_n_nodes(generator, self._nodes_hist, b)
-        node_mask = torch.arange(n, device=dev)[None, :] < n_nodes[:, None]
-        Xc, Ec = sample_limit_dist(generator, self.parts, node_mask)
+        if rows is None:
+            n_nodes = sample_n_nodes(generator, self._nodes_hist, b)
+            node_mask = (torch.arange(n, device=dev)[None, :]
+                         < n_nodes[:, None])
+            Xc, Ec = sample_limit_dist(generator, self.parts, node_mask)
+        else:
+            idx, total = rows
+            n_all = sample_n_nodes(generator, self._nodes_hist, total)
+            mask_all = torch.arange(n, device=dev)[None, :] < n_all[:, None]
+            Xc, Ec = sample_limit_dist(generator, self.parts, mask_all)
+            n_nodes, node_mask = n_all[idx], mask_all[idx]
+            Xc, Ec = Xc[idx], Ec[idx]
         X, E = one_hot_graph(Xc, Ec, cfg.Xdim, cfg.Edim, node_mask)
 
         use_cfg = cfg.guide_scale is not None and cfg.guide_scale != 1
@@ -163,7 +176,7 @@ class GraphDiT(nn.Module):
                 lX, lE = self.denoiser(X, E, node_mask, y, text_emb, t_norm)
                 prob_X, prob_E = to_probs(X, E, lX, lE, beta_t, a_s, a_t)
             Xs, Es = sample_discrete_features(generator, prob_X, prob_E,
-                                              node_mask)
+                                              node_mask, rows)
             X, E = one_hot_graph(Xs, Es, cfg.Xdim, cfg.Edim, node_mask)
 
         atom_idx = torch.argmax(X, dim=-1)
@@ -172,12 +185,14 @@ class GraphDiT(nn.Module):
         return atom_idx, torch.where(pair, edge_cls, 0), n_nodes
 
     def generate(self, generator: torch.Generator, properties: torch.Tensor,
-                 text_emb: torch.Tensor) -> List[Optional[str]]:
+                 text_emb: torch.Tensor, rows=None) -> List[Optional[str]]:
         """Sample molecules and assemble SMILES on the host. properties
-        [B, ydim]: NO_LABEL_INDEX or NaN = absent channel."""
+        [B, ydim]: NO_LABEL_INDEX or NaN = absent channel. rows: this
+        rank's rows of a data-parallel batch (sample)."""
         y = torch.where(properties == NO_LABEL_INDEX, float("nan"),
                         properties.float())
-        atom_idx, edge_cls, n_nodes = self.sample(generator, y, text_emb)
+        atom_idx, edge_cls, n_nodes = self.sample(generator, y, text_emb,
+                                                  rows)
         atom_idx = atom_idx.cpu().numpy()
         edge_cls = edge_cls.cpu().numpy()
         n_nodes = n_nodes.cpu().numpy()

@@ -14,6 +14,10 @@ torch.Generator; categorical sampling is Gumbel-max over log-probs, the
 same law as jax.random.categorical (the bits differ, so tests compare
 distributions). apply_noise and train_loss are the training half
 (diffusion.py apply_noise / train_loss).
+
+`rows` (idx, total), data parallelism: the draw is made for all `total`
+rows of the whole batch, as the run without a mesh makes it, and the
+rows `idx` (this rank's rows' places in it) are kept.
 """
 
 from dataclasses import dataclass
@@ -119,28 +123,35 @@ def posterior_unnormalized(X_t, E_t, pred_X, pred_E, beta_t, alpha_s_bar,
     return prob_X, prob_E
 
 
-def categorical(generator: torch.Generator,
-                logits: torch.Tensor) -> torch.Tensor:
+def categorical(generator: torch.Generator, logits: torch.Tensor,
+                rows=None) -> torch.Tensor:
     """One draw per row of `logits` [..., K] (Gumbel-max)."""
-    u = torch.rand(logits.shape, generator=generator, device=logits.device)
+    if rows is None:
+        u = torch.rand(logits.shape, generator=generator,
+                       device=logits.device)
+    else:
+        idx, total = rows
+        u = torch.rand((total, *logits.shape[1:]), generator=generator,
+                       device=logits.device)[idx]
     u = u.clamp_min(torch.finfo(torch.float32).tiny)
     return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
 
 
-def sample_discrete_features(generator, probX, probE, node_mask):
+def sample_discrete_features(generator, probX, probE, node_mask,
+                             rows=None):
     """Categorical node/edge sampling with masking and upper-triangle
     symmetrization. probX [B, N, dx], probE [B, N, N, de] (unnormalized
     ok), node_mask [B, N] bool -> (X [B, N], E [B, N, N]) int64."""
     n = probX.shape[1]
     dx, de = probX.shape[-1], probE.shape[-1]
     probX = torch.where(node_mask[..., None], probX, 1.0 / dx)
-    X = categorical(generator, torch.log(probX.clamp_min(1e-5)))
+    X = categorical(generator, torch.log(probX.clamp_min(1e-5)), rows)
 
     pair = node_mask[:, :, None] & node_mask[:, None, :]
     eye = torch.eye(n, dtype=torch.bool, device=probX.device)[None]
     valid = pair & ~eye
     probE = torch.where(valid[..., None], probE, 1.0 / de)
-    E = categorical(generator, torch.log(probE.clamp_min(1e-5)))
+    E = categorical(generator, torch.log(probE.clamp_min(1e-5)), rows)
     upper = torch.triu(E, diagonal=1)
     E = upper + upper.transpose(1, 2)
 
@@ -149,13 +160,15 @@ def sample_discrete_features(generator, probX, probE, node_mask):
     return X, E
 
 
-def sample_limit_dist(generator, parts: TransitionParts, node_mask):
+def sample_limit_dist(generator, parts: TransitionParts, node_mask,
+                      rows=None):
     """z_T ~ the limit distribution."""
     b, n = node_mask.shape
     x_lim, e_lim = parts.limit_dist()
     probX = x_lim.expand(b, n, x_lim.shape[0])
     probE = e_lim.expand(b, n, n, e_lim.shape[0])
-    return sample_discrete_features(generator, probX, probE, node_mask)
+    return sample_discrete_features(generator, probX, probE, node_mask,
+                                    rows)
 
 
 def one_hot_graph(X, E, dx: int, de: int, node_mask,
@@ -166,10 +179,11 @@ def one_hot_graph(X, E, dx: int, de: int, node_mask,
     return Xh, Eh
 
 
-def sample_n_nodes(generator, hist: torch.Tensor, batch: int) -> torch.Tensor:
+def sample_n_nodes(generator, hist: torch.Tensor, batch: int,
+                   rows=None) -> torch.Tensor:
     """Node counts drawn from the training histogram [max_n + 1]."""
     logits = torch.log(hist.clamp_min(1e-30))
-    return categorical(generator, logits.expand(batch, -1))
+    return categorical(generator, logits.expand(batch, -1), rows)
 
 
 def apply_noise(generator, X, E, node_mask, schedule: NoiseSchedule,

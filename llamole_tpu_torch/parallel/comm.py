@@ -15,9 +15,17 @@ sums its squares in models/gllm/lora.py. The other helpers are the
 optimizer's and the loss's plain, gradient-free reductions; the
 optimizer's go in buckets, one collective per bucket of tensors of one
 dtype rather than one per parameter.
+
+The inference legs run one process per rank, each executing the host
+code: `broadcast_object` hands every rank the host decision of a group's
+first rank (the planner's stop, a generator's state), `gather_rows`
+joins each dp rank's per-row results (token rows, SMILES, template
+proposals) in the global row order. Both pickle through
+torch.distributed's object collectives, which NCCL carries as byte
+tensors on the rank's card.
 """
 
-from typing import Dict, List
+from typing import Any, Dict, List, Sequence
 
 import torch
 import torch.distributed as dist
@@ -172,3 +180,22 @@ def all_gather_dim(shard: torch.Tensor, dim: int, size: int,
                                  for _ in range(size)]
     dist.all_gather(parts, shard.contiguous(), group=group)
     return torch.cat(parts, dim=dim)
+
+
+def broadcast_object(obj: Any, group=None) -> Any:
+    """The group's first rank's `obj` (picklable), on every rank of the
+    group (the default group when None)."""
+    src = 0 if group is None else dist.get_global_rank(group, 0)
+    box = [obj]
+    dist.broadcast_object_list(box, src=src, group=group)
+    return box[0]
+
+
+def gather_rows(rows: Sequence[Any], group, size: int) -> List[Any]:
+    """Each rank's list of per-row results joined in rank order (rank r
+    holds the r-th block of the global rows), on every rank."""
+    parts: List[Any] = [None] * size
+    dist.all_gather_object(parts, list(rows), group=group)
+    return [r for part in parts for r in part]
+
+

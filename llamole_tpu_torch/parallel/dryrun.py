@@ -1,10 +1,14 @@
-"""The multi-process CPU rehearsal of mesh training (counterpart of
-__graft_entry__.py's training legs, beside it): `dryrun_multichip(n)`
-starts n gloo ranks on the CPU and runs, through run_mmsft on the tiny
-smoke config (config/smoke/tiny_train.yaml), the dp x tp step, ZeRO-1,
-ZeRO-3 and the dcn x dp step, each held to the same run without a mesh
-(every rank builds the same model from the seed), then prints
-"dryrun_multichip OK".
+"""The multi-process CPU rehearsal of mesh training and inference
+(counterpart of __graft_entry__.py's legs, beside it):
+`dryrun_multichip(n)` starts n gloo ranks on the CPU and runs, through
+run_mmsft on the tiny smoke config (config/smoke/tiny_train.yaml), the
+dp x tp step, ZeRO-1, ZeRO-3, the dcn x dp step and the pipeline (pp:2
+over the rest as dp, 2 microbatches); then on the tiny config's GraphLM
+the dp inference leg (design_molecule on dp:n, a batch of n + 1 rows),
+the tp design leg (dp:2 x tp:n/2, 3 rows) and the dp retro leg
+(batched_one_step_reaction on dp:n, 5 products); each held to the same
+run without a mesh (every rank builds the same model from the seed),
+each printing its "dryrun ... OK" line, then "dryrun_multichip OK".
 
 `launch(target, n, ...)` is the harness: n processes of
 `python -m llamole_tpu_torch.parallel.dryrun --worker module:function`,
@@ -30,12 +34,14 @@ TINY = os.path.join(ROOT, "config", "smoke", "tiny_train.yaml")
 
 
 def launch(target: str, n: int, payload: Any = None, timeout: float = 120.0,
-           workdir: Optional[str] = None,
-           path: Sequence[str] = ()) -> List[Any]:
+           workdir: Optional[str] = None, path: Sequence[str] = (),
+           rank_env: Optional[Dict[int, Dict[str, str]]] = None
+           ) -> List[Any]:
     """Run target ("module:function") in n gloo CPU ranks; returns each
     rank's result. path: directories the ranks import from besides the
-    checkout. Raises on a rank's failure (with its stderr) or past
-    timeout seconds (every rank killed)."""
+    checkout; rank_env: environment variables of single ranks (say, a
+    PYTHONHASHSEED of their own). Raises on a rank's failure (with its
+    stderr) or past timeout seconds (every rank killed)."""
     work = workdir or tempfile.mkdtemp(prefix="llamole-dryrun-")
     os.makedirs(work, exist_ok=True)
     with open(os.path.join(work, "payload.json"), "w") as f:
@@ -51,7 +57,8 @@ def launch(target: str, n: int, payload: Any = None, timeout: float = 120.0,
         procs.append(subprocess.Popen(
             [sys.executable, "-m", "llamole_tpu_torch.parallel.dryrun",
              "--worker", target, str(rank), str(n), work],
-            stdout=log, stderr=subprocess.STDOUT, env=env, cwd=ROOT))
+            stdout=log, stderr=subprocess.STDOUT,
+            env={**env, **(rank_env or {}).get(rank, {})}, cwd=ROOT))
     deadline = time.monotonic() + timeout
     try:
         while any(p.poll() is None for p in procs):
@@ -130,7 +137,8 @@ def _tiny_args(mesh: str, zero: int, **training):
                       per_device_train_batch_size=4,
                       gradient_accumulation_steps=2, max_steps=4,
                       num_train_epochs=4.0, logging_steps=1,
-                      lr_scheduler_type="constant", **training)
+                      lr_scheduler_type="constant", pipeline_microbatches=2,
+                      **training)
     return args
 
 
@@ -189,7 +197,8 @@ def _check_placement(name: str, trainer, model, zero: int) -> None:
 
 
 def _legs(rank: int, world: int, payload) -> Dict[str, Any]:
-    """Every leg on this rank: {leg: its losses}; rank 0 prints."""
+    """Every leg on this rank: {leg: its losses}, and under "inference"
+    the inference legs' OK lines."""
     dp, tp = (world // 2, 2) if world % 2 == 0 and world > 2 else (world, 1)
     plain = _losses("", 0)[0]
     legs = {f"dp={dp} tp={tp}": (f"dp:{dp},tp:{tp}", 0),
@@ -197,16 +206,109 @@ def _legs(rank: int, world: int, payload) -> Dict[str, Any]:
             f"zero3 dp={world}": (f"dp:{world}", 3)}
     if world % 2 == 0:
         legs[f"dcn=2 dp={world // 2}"] = (f"dcn:2,dp:{world // 2}", 0)
+        legs["pipeline"] = (f"pp:2,dp:{world // 2}", 0)
     out = {"plain": plain}
     for name, (mesh, zero) in legs.items():
         got, trainer, model = _losses(mesh, zero)
         _check(name, got, plain)
         _check_placement(name, trainer, model, zero)
         out[name] = got
-        if rank == 0:
-            print(f"dryrun {name} OK: losses {got[0]:.4f} .. {got[-1]:.4f} "
-                  f"== mesh-less", flush=True)
+    out["inference"] = _inference_legs(world)
     return out
+
+
+def _tiny_model(mesh: str = ""):
+    """The tiny config's GraphLM (f32, from its seed) and, with mesh, its
+    MeshGroups with the LLM placed on the tp axis."""
+    from ..models.loader import build_graph_lm
+    from .mesh import MeshGroups, mesh_from_string
+    from .sharding import shard_llm
+    args = _tiny_args("", 0)
+    model, _ = build_graph_lm(args[0], args[1], args[3], device="cpu",
+                              seed=args[2].seed, generate_mode=True)
+    if not mesh:
+        return model, None
+    groups = MeshGroups(mesh_from_string(mesh, "cpu"))
+    shard_llm(model.llm, groups)
+    return model, groups
+
+
+def _design(model, rows: int, groups=None):
+    """design_molecule of `rows` copies of one prompt (greedy, drafts off
+    so the query extension runs on the decode cache)."""
+    import numpy as np
+    import torch
+
+    from ..models.composite import GenerationSettings
+    enc = model.tokenizer.encode("Design a soluble aromatic molecule.")
+    ids = np.tile(np.asarray(enc, np.int64)[None, :], (rows, 1))
+    props = np.full((rows, 10), np.nan, np.float32)
+    props[:, 1] = 1.0
+    gen = GenerationSettings(max_new_tokens=8, do_sample=False,
+                             speculative_tokens=0)
+    analysis, smiles = model.design_molecule(
+        ids, np.ones_like(ids), props, gen=gen,
+        generator=torch.Generator().manual_seed(3), mesh=groups)
+    return analysis.tolist(), smiles
+
+
+PRODUCTS = ["CC(=O)Oc1ccccc1C(=O)O", "CCOC(=O)c1ccccc1", "CC(N)C(=O)OCC",
+            "c1ccc(COC(C)=O)cc1", "CCO"]
+
+
+def _retro(model, groups=None):
+    import torch
+
+    from ..models.composite import GenerationSettings
+    gen = GenerationSettings(max_new_tokens=8, do_sample=False,
+                             speculative_tokens=0)
+    out = model.batched_one_step_reaction(
+        PRODUCTS, topk=10, gen=gen, analysis_tokens=16,
+        generator=torch.Generator().manual_seed(6), mesh=groups)
+    return [(r["reactants"], [round(float(x), 6) for x in r["scores"]],
+             r["templates"]) for r in out]
+
+
+def _inference_legs(world: int) -> List[str]:
+    """The dp inference, tp design and dp retro legs of __graft_entry__.py
+    (:546, :587, :636), each equal to the mesh-less run: JAX's OK lines."""
+    lines = []
+    b = world + 1       # not a dp multiple: the rows pad
+    padded = -(-b // world) * world
+    want = _design(_tiny_model()[0], b)
+    model, groups = _tiny_model(f"dp:{world}")
+    got = _design(model, b, groups)
+    _same("dp inference", got, want)
+    lines.append(f"dryrun dp-inference OK: mesh dp={world}, batch {b} "
+                 f"(padded to {padded}), {_assembled(got)}/{b} assembled "
+                 "== mesh-less")
+    if world >= 4 and world % 2 == 0:
+        dp, tp = 2, world // 2
+        want = _design(_tiny_model()[0], dp + 1)
+        model, groups = _tiny_model(f"dp:{dp},tp:{tp}")
+        got = _design(model, dp + 1, groups)
+        _same("tp design", got, want)
+        lines.append(f"dryrun tp-design OK: mesh dp={dp} tp={tp}, batch "
+                     f"{dp + 1}, {_assembled(got)}/{dp + 1} assembled == "
+                     "mesh-less")
+    want = _retro(_tiny_model()[0])
+    model, groups = _tiny_model(f"dp:{world}")
+    got = _retro(model, groups)
+    _same("dp retro", got, want)
+    lines.append(f"dryrun dp-retro OK: mesh dp={world}, frontier "
+                 f"{len(PRODUCTS)} (padded to {-(-len(PRODUCTS) // world) * world}), "
+                 f"{sum(len(r[0]) for r in got)} proposals == mesh-less")
+    return lines
+
+
+def _assembled(design) -> int:
+    return sum(s is not None for s in design[1])
+
+
+def _same(name: str, got, want) -> None:
+    if got != want:
+        raise RuntimeError(f"{name}: the mesh's {got} differs from the "
+                           f"mesh-less run's {want}")
 
 
 def dryrun_multichip(n: int = 4, timeout: float = 120.0,
@@ -219,9 +321,16 @@ def dryrun_multichip(n: int = 4, timeout: float = 120.0,
                          timeout=timeout, workdir=workdir or tmp)
     legs = results[0]
     for name, losses in legs.items():
-        if name != "plain":
+        if name == "pipeline":     # JAX's line
+            print(f"dryrun pipeline OK: mesh pp=2 dp={n // 2}, "
+                  f"loss={losses[-1]:.4f} == mesh-less "
+                  f"{legs['plain'][-1]:.4f} ({len(losses)} micro steps, 2 "
+                  "microbatches)")
+        elif name not in ("plain", "inference"):
             print(f"dryrun {name} OK: {len(losses)} micro steps, loss "
                   f"{losses[-1]:.4f} == mesh-less {legs['plain'][-1]:.4f}")
+    for line in legs["inference"]:
+        print(line)
     print(f"dryrun_multichip OK: {n} gloo ranks")
     return legs
 

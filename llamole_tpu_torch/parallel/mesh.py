@@ -20,7 +20,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-ITEM_9B = "ROADMAP.md Queue 1 item 9b"
+ITEM_9C = "ROADMAP.md Queue 1 item 9c"
 AXES = ("dcn", "pp", "dp", "ep", "sp", "tp")
 
 
@@ -40,12 +40,12 @@ def parse_mesh(spec: str) -> Dict[str, int]:
 
 
 def check_training_axes(dims: Dict[str, int]) -> None:
-    """Mesh training runs dcn, dp and tp; pp, sp and ep raise."""
-    refused = [n for n in ("pp", "sp", "ep") if dims.get(n, 1) > 1]
+    """Mesh training runs dcn, pp, dp and tp; sp and ep raise."""
+    refused = [n for n in ("sp", "ep") if dims.get(n, 1) > 1]
     if refused:
         raise NotImplementedError(
-            f"mesh axes {refused}: the pipeline schedule, ring attention "
-            f"and MoE expert parallelism are {ITEM_9B}")
+            f"mesh axes {refused}: ring attention and MoE expert "
+            f"parallelism are {ITEM_9C}")
 
 
 def mesh_layout(dp: int = 1, tp: int = 1, sp: int = 1, pp: int = 1,
@@ -166,9 +166,10 @@ def _free_port() -> int:
 
 
 class MeshGroups:
-    """What the trainer, the optimizer and the loss need of a mesh: each
-    axis's size, this rank's coordinate, the tp group, and the data
-    group over (dcn, dp) together (the gradient reduction's)."""
+    """What the trainer, the optimizer, the loss and the inference legs
+    need of a mesh: each axis's size, this rank's coordinate, the tp
+    group, the pp group (None without a pp axis), and the data group
+    over (dcn, dp) together (the gradient reduction's)."""
 
     def __init__(self, mesh):
         self.mesh = mesh
@@ -179,7 +180,10 @@ class MeshGroups:
         self.coord = dict(zip(names, coord))
         self.dp, self.tp = self.size["dp"], self.size["tp"]
         self.dcn = self.size.get("dcn", 1)
+        self.pp = self.size.get("pp", 1)
         self.dp_rank, self.tp_rank = self.coord["dp"], self.coord["tp"]
+        self.pp_rank = self.coord.get("pp", 0)
+        self.pp_group = mesh.get_group("pp") if self.pp > 1 else None
         self.tp_group = mesh.get_group("tp")
         self.dp_group = mesh.get_group("dp")
         self.dcn_group = mesh.get_group("dcn") if self.dcn > 1 else None
@@ -187,7 +191,7 @@ class MeshGroups:
         self.data_rank = self.coord.get("dcn", 0) * self.dp + self.dp_rank
         self.data_group = (self._flat_group(("dcn", "dp")) if self.dcn > 1
                            else self.dp_group)
-        self.world = self.data * self.tp
+        self.world = self.data * self.tp * self.pp
 
     def _flat_group(self, axes) -> "dist.ProcessGroup":
         """The process group over `axes` together that holds this rank

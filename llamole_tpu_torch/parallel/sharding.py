@@ -37,7 +37,7 @@ import torch
 from torch import nn
 
 from ..weights import _llm_path
-from .mesh import ITEM_9B
+from .mesh import ITEM_9C
 
 Spec = Tuple[Optional[str], ...]
 
@@ -216,14 +216,14 @@ def shard_llm(llm: nn.Module, groups) -> None:
     cfg = llm.cfg
     tp = groups.tp
     if cfg.num_experts > 0:
-        raise NotImplementedError(f"MoE LLMs on a mesh: {ITEM_9B} (expert "
+        raise NotImplementedError(f"MoE LLMs on a mesh: {ITEM_9C} (expert "
                                   "parallelism)")
     if llm.quant is not None or any(
             isinstance(m, LoRALinear) and m.quant is not None
             for m in llm.modules()):
         raise NotImplementedError("a quantized LLM on a mesh is not ported")
     if cfg.shift_attn and tp > 1:
-        raise NotImplementedError(f"S²-attn under tp > 1: {ITEM_9B}")
+        raise NotImplementedError(f"S²-attn under tp > 1: {ITEM_9C}")
     if cfg.qk_norm and tp > 1 and any(
             p.requires_grad for n, p in llm.named_parameters()
             if "q_norm" in n or "k_norm" in n):
@@ -305,16 +305,23 @@ def fsdp_llm(llm: nn.Module, groups) -> None:
 def shard_graph_lm(model: nn.Module, groups, zero3: bool) -> None:
     """Place a GraphLM on the mesh for training: its LLM tensor-parallel
     (shard_llm; a full-finetune LLM trains sharded), under ZeRO-3 the
-    LLM's frozen storage FSDP2-sharded over dp (fsdp_llm), and the loss
-    told its data group (GraphLM.mesh_groups). The graph modules and the
-    connectors stay plain tensors, replicated. A model placed before (an
-    earlier run on it) must be on a mesh of the same layout."""
+    LLM's frozen storage FSDP2-sharded over dp (fsdp_llm), with a pp axis
+    each stage's trainable layer leaves on their stage (pipeline.py
+    place_stages; ZeRO-3 beside pp only with dp 1, where it shards
+    nothing, as in JAX), and the loss told its data group
+    (GraphLM.mesh_groups). The graph modules and the connectors stay
+    plain tensors, replicated. A model placed before (an earlier run on
+    it) must be on a mesh of the same layout."""
+    from .pipeline import check_pipeline_zero, place_stages
     old = model.mesh_groups
     if old is not None and (old.size, old.coord) != (groups.size,
                                                      groups.coord):
         raise ValueError(f"the model is placed on a mesh {old.size}; "
                          f"it cannot move to {groups.size}")
+    check_pipeline_zero(groups.size, 3 if zero3 else 0)
     shard_llm(model.llm, groups)
-    if zero3:
+    if zero3 and groups.pp == 1:
         fsdp_llm(model.llm, groups)
+    if groups.pp > 1:
+        place_stages(model, groups)
     model.mesh_groups = groups

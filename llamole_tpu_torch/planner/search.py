@@ -10,7 +10,7 @@ supplies both; unit tests use fakes (the one mockable seam, SURVEY §4d).
 import os
 import time
 from collections import deque
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -153,8 +153,17 @@ def retro_star_search(
     expansion_width: int = 1,
     batch_expand_fn: Optional[Callable[[List[str]], List[Optional[Dict]]]] = None,
     batch_value_fn: Optional[Callable[[List[str]], List[float]]] = None,
+    decide: Optional[Callable[[Any], Any]] = None,
 ) -> Tuple[bool, Optional[SynthesisRoute], int]:
     """Returns (success, best_route, iterations_used).
+
+    decide: on a mesh every rank runs this search in lockstep (each
+    expansion is a collective), so the one decision a rank's own clock
+    would make, stopping at the wall, is rank 0's: decide(value) returns
+    rank 0's value on every rank (parallel/comm.py broadcast_object).
+    The rest (the iteration budget, the frontier, the early stops) follows
+    from the gathered results and the sorted orders here, alike on every
+    rank.
 
     With expansion_width > 1 the search expands the W best open nodes per
     iteration via batch_expand_fn, amortizing device latency across the
@@ -168,7 +177,10 @@ def retro_star_search(
     used = 0
     if not tree.succ:
         for used in range(1, iterations + 1):
-            if time.time() - start > max_time:
+            stop = time.time() - start > max_time
+            if decide is not None:
+                stop = decide(stop)
+            if stop:
                 break
             nodes = tree.open_frontier(max(1, expansion_width))
             if not nodes:
@@ -229,6 +241,7 @@ def retro_star_search_multi(
     batch_value_fn: Optional[Callable[[List[str]], List[float]]] = None,
     min_iters_per_target: int = 0,
     max_time_hard: Optional[float] = None,
+    decide: Optional[Callable[[Any], Any]] = None,
 ) -> Dict[str, Tuple[bool, Optional[SynthesisRoute], int]]:
     """Interleaved Retro* over MANY targets sharing one device batch.
 
@@ -261,6 +274,9 @@ def retro_star_search_multi(
     sequential engine budget, eval/workflow.py:172-173). This closes
     the shared-wall divergence where a large batch starves individual
     trees below the reference's delivered per-molecule effort.
+
+    decide: as retro_star_search's; the wall's two decisions (overtime,
+    stop) are rank 0's.
     """
     uniq = list(dict.fromkeys(targets))
     shared_cache: Dict[str, float] = {}
@@ -281,7 +297,10 @@ def retro_star_search_multi(
     while True:
         elapsed = time.time() - start
         overtime = elapsed > max_time
-        if overtime and (min_iters_per_target <= 0 or elapsed > hard):
+        stop = overtime and (min_iters_per_target <= 0 or elapsed > hard)
+        if decide is not None:
+            overtime, stop = decide((overtime, stop))
+        if stop:
             break
         active = []
         for t in uniq:

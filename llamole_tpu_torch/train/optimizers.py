@@ -57,7 +57,7 @@ dimension): the gradient is reduce-scattered, the clip reads the global
 norm, the update runs on this rank's chunk and the parameter is
 all-gathered. The gradients' reductions and the all-gather go in buckets
 (parallel/comm.py): one collective per bucket, not per parameter. GaLore needs whole gradients: on a mesh with tp > 1 or
-ZeRO-1 over dp > 1 it raises (ROADMAP.md item 9b).
+ZeRO-1 over dp > 1 it raises (ROADMAP.md item 9c).
 """
 
 import contextlib
@@ -233,13 +233,25 @@ class AccumulatingAdamW:
         if gr.dcn_group is not None:
             part = all_reduce_many(part, gr.dcn_group)
         out.update(part)
+        if gr.pp > 1:   # leaves outside the layer stack: every pp share
+            out.update(all_reduce_many({n: g for n, g in out.items()
+                                        if not self._staged(n)},
+                                       gr.pp_group))
         return out
+
+    def _staged(self, name: str) -> bool:
+        """A leaf of one pipeline stage's layers (its stage alone holds
+        it), rather than one replicated over pp."""
+        from ..parallel.pipeline import layer_index
+        return (self.groups is not None and self.groups.pp > 1
+                and name.startswith("llm.") and layer_index(name) is not None)
 
     def _copies(self, name: str) -> int:
         """How many ranks hold this name's optimizer part identically."""
         gr = self.groups
         distinct = (gr.tp if tp_sharded(self.params[name]) else 1) * (
-            gr.dp if self.shard_dim.get(name) is not None else 1)
+            gr.dp if self.shard_dim.get(name) is not None else 1) * (
+            gr.pp if self._staged(name) else 1)
         return gr.world // distinct
 
     def global_norm(self, values: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -370,7 +382,11 @@ class AccumulatingAdamW:
             return
         parts = {k: getattr(self, k) for k in self.STATE}
         for k, d in parts.items():
-            setattr(self, k, self._wholes(d))
+            whole = self._wholes(d)
+            if self.groups.pp > 1:    # and every pipeline stage's leaves
+                from ..parallel.pipeline import gather_stage_dicts
+                whole = gather_stage_dicts(whole, self.groups)
+            setattr(self, k, whole)
         try:
             yield
             if load:
@@ -629,16 +645,21 @@ def create_optimizer(args, num_training_steps: int,
                   groups=groups, zero1=zero1)
     if not wants_custom_optimizer(finetuning_args):
         return AccumulatingAdamW(params, schedule, **kwargs), schedule
+    if groups is not None and getattr(groups, "pp", 1) > 1:
+        from ..parallel.mesh import ITEM_9C
+        raise NotImplementedError("GaLore, BAdam and LoRA+ beside a pp "
+                                  f"axis (their state spans the stages): "
+                                  f"{ITEM_9C}")
     ft = finetuning_args
     galore = (GaLore(ft.galore_rank, ft.galore_update_interval,
                      ft.galore_scale)
               if getattr(ft, "use_galore", False) else None)
     if galore is not None and groups is not None and (
             groups.tp > 1 or (zero1 and groups.dp > 1)):
-        from ..parallel.mesh import ITEM_9B
+        from ..parallel.mesh import ITEM_9C
         raise NotImplementedError(
             "GaLore on a mesh with tp > 1 or ZeRO-1 over dp > 1 (its SVD "
-            f"needs whole gradients): {ITEM_9B}")
+            f"needs whole gradients): {ITEM_9C}")
     badam = (BAdam(max(ft.badam_n_blocks, 1), ft.badam_switch_interval,
                    ft.badam_start_block)
              if getattr(ft, "use_badam", False) else None)

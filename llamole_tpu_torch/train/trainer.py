@@ -31,8 +31,14 @@ checkpoints hold whole tensors (gathered), so a run resumes across
 packages and meshes; under LLAMOLE_ORBAX=1 the state is written sharded
 with torch.distributed.checkpoint's async_save into dcp_state/
 ("backend": "dcp"), wait_for_checkpoints() being the barrier. A JAX orbax
-checkpoint raises: its format needs orbax / tensorstore. pp, sp and ep
-axes raise (ROADMAP.md Queue 1 item 9b).
+checkpoint raises: its format needs orbax / tensorstore. With a pp axis
+(the model pipelined: GraphLM.enable_pipeline) each stage trains its own
+layers' leaves, the replicated ones are summed over pp as well, the
+batch's rows shard over dp only when the microbatch rows divide (else
+they replicate, as JAX's pipeline does), a msgpack checkpoint gathers
+every stage's part for rank 0; resuming a pipelined run and DCP
+checkpoints beside pp raise (ROADMAP.md Queue 1 item 9c), as do the sp
+and ep axes.
 """
 
 import glob
@@ -97,6 +103,9 @@ class Trainer:
         self.groups = mesh
         if not params:
             raise ValueError("no trainable parameters")
+        if mesh is not None:
+            from ..parallel.pipeline import check_pipeline_zero
+            check_pipeline_zero(mesh.size, getattr(args, "zero_stage", 0))
         self.loss_fn = loss_fn
         self.params = params
         self.args = args
@@ -125,10 +134,11 @@ class Trainer:
         divide, else all of them, with "row_shard" = [offset, rows]."""
         if self.groups is None:
             return batch
+        from ..parallel.pipeline import data_rows
         gr = self.groups
         rows = np.asarray(batch["input_ids"]).shape[0]
-        per = rows // gr.data if rows % gr.data == 0 else rows
-        off = gr.data_rank * per if per < rows else 0
+        off, per = data_rows(rows, gr, max(self.args.pipeline_microbatches,
+                                           1) if gr.pp > 1 else None)
         out = {k: (np.asarray(v)[off:off + per] if k in self._PER_SEQ else v)
                for k, v in batch.items()}
         out["row_shard"] = np.asarray([off, rows], np.int64)
@@ -140,8 +150,10 @@ class Trainer:
         if self.groups is None:
             return t.detach()
         from ..parallel.comm import all_reduce_
-        return all_reduce_(t.detach().float().clone(),
-                           self.groups.data_group)
+        out = all_reduce_(t.detach().float().clone(), self.groups.data_group)
+        if self.groups.pp > 1:     # and the pp ranks' shares
+            all_reduce_(out, self.groups.pp_group)
+        return out
 
     def init_state(self, seed: int) -> TrainState:
         gen = torch.Generator(device=self.device).manual_seed(seed)
@@ -254,8 +266,16 @@ class Trainer:
     # -- checkpointing ------------------------------------------------------
     def _use_dcp(self) -> bool:
         """LLAMOLE_ORBAX=1: the JAX package's switch to orbax, here
-        torch.distributed.checkpoint."""
-        return bool(os.environ.get("LLAMOLE_ORBAX"))
+        torch.distributed.checkpoint (not beside pp: item 9c)."""
+        dcp = bool(os.environ.get("LLAMOLE_ORBAX"))
+        if dcp and self._pipelined():
+            from ..parallel.mesh import ITEM_9C
+            raise NotImplementedError(f"DCP checkpoints of a pipelined run "
+                                      f"(pp > 1): {ITEM_9C}")
+        return dcp
+
+    def _pipelined(self) -> bool:
+        return self.groups is not None and self.groups.pp > 1
 
     def wait_for_checkpoints(self) -> None:
         """Block until the async DCP save in flight has committed."""
@@ -344,6 +364,9 @@ class Trainer:
                 **self._dcp_kwargs())
         else:
             values = {n: full(p) for n, p in self.params.items()}
+            if self._pipelined():
+                from ..parallel.pipeline import gather_stage_dicts
+                values = gather_stage_dicts(values, self.groups)
             with self.optimizer.whole_state():
                 opt_state = optax_state(self.optimizer)
                 if self.writer:
@@ -369,6 +392,10 @@ class Trainer:
         its format needs orbax / tensorstore, which the port does not
         use."""
         from ..parallel.sharding import local
+        if self._pipelined():
+            from ..parallel.mesh import ITEM_9C
+            raise NotImplementedError(f"resuming a pipelined run (pp > 1): "
+                                      f"{ITEM_9C}")
         with open(os.path.join(path, "trainer_state.json")) as f:
             meta = json.load(f)
         backend = meta.get("backend", "msgpack")

@@ -14,13 +14,16 @@ adapter is written as its rank-2r LoRA over the original weights),
 train_results.json, the loss plot when matplotlib exists, and after
 training the held-out eval loss and generated_predictions.jsonl.
 
-With training_args.mesh ('dp:2', 'dp:2,tp:2', 'dcn:2,dp:4', ...) the run
-is one rank of mesh training (train/trainer.py; torchrun starts the
-ranks, each calling run_mmsft): the process group starts from
+With training_args.mesh ('dp:2', 'dp:2,tp:2', 'dcn:2,dp:4', 'pp:2,dp:2',
+...) the run is one rank of mesh training (train/trainer.py; torchrun
+starts the ranks, each calling run_mmsft): the process group starts from
 torchrun's environment (NCCL on the card, gloo on the CPU), batches are
 padded to a multiple of dp with inert rows (_pad_batch_rows, as the JAX
-package pads) and zero_stage picks ZeRO-1 / ZeRO-3. Generation on a mesh
-is ROADMAP.md item 9b: generated_predictions.jsonl is not written there.
+package pads) and zero_stage picks ZeRO-1 / ZeRO-3. A pp axis pipelines
+the LLM's layer stack with pipeline_microbatches microbatches
+(GraphLM.enable_pipeline, parallel/pipeline.py; zero_stage 3 with dp > 1
+raises, as in JAX). generated_predictions.jsonl comes from the dp leg:
+each dp rank decodes its share of the held-out prompts, rank 0 writes.
 """
 
 import json
@@ -126,6 +129,8 @@ def run_mmsft(model_args, data_args, training_args, finetuning_args,
                                      parse_mesh)
         dims = parse_mesh(spec)
         check_training_axes(dims)
+        from ..parallel.pipeline import check_pipeline_zero
+        check_pipeline_zero(dims, training_args.zero_stage)
         check_world(dims)
         kind = (prebuilt[0].device.type if prebuilt is not None
                 else torch.device(device).type)
@@ -169,6 +174,11 @@ def run_mmsft(model_args, data_args, training_args, finetuning_args,
         from ..parallel.mesh import MeshGroups
         from ..parallel.sharding import shard_graph_lm
         groups = MeshGroups(mesh)
+        if groups.pp > 1:
+            microbatches = max(training_args.pipeline_microbatches, 1)
+            model.enable_pipeline(groups, microbatches)
+            logger.info("pipeline parallelism on: pp=%d, microbatches=%d",
+                        groups.pp, microbatches)
         shard_graph_lm(model, groups, zero3=training_args.zero_stage >= 3)
     trainer = Trainer(lambda batch, gen: model.loss(batch, gen, train=True),
                       model.trainable_parameters(), training_args, opt_steps,
@@ -227,15 +237,14 @@ def run_mmsft(model_args, data_args, training_args, finetuning_args,
             model, _epoch_batches(val_inputs, collator, bsz, 1.0, 0, dp,
                                   pad_id), on_mesh)
         logger.info("eval_loss: %.4f", metrics["eval_loss"])
-        if out_dir and mesh is not None:
-            from ..parallel.mesh import ITEM_9B
-            metrics["predict"] = f"not run: generation on a mesh is {ITEM_9B}"
-            logger.warning("generated_predictions.jsonl not written: %s",
-                           metrics["predict"])
-        elif out_dir:
+        if out_dir:
+            if groups is not None and groups.pp > 1:
+                # the decode runs every layer: each stage's come back
+                from ..parallel.pipeline import gather_stages
+                gather_stages(model, groups)
             metrics.update(predict_with_generate(
                 model, val_inputs, tokenizer, generating_args, out_dir,
-                seed=training_args.seed))
+                seed=training_args.seed, mesh=groups))
     logger.info("train metrics: %s", {k: v for k, v in metrics.items()
                                       if k != "step_times"})
     return metrics
@@ -243,10 +252,13 @@ def run_mmsft(model_args, data_args, training_args, finetuning_args,
 
 def predict_with_generate(model, val_inputs, tokenizer, generating_args,
                           output_dir: str, seed: int = 0,
-                          max_examples: int = 16) -> Dict[str, float]:
+                          max_examples: int = 16, mesh=None
+                          ) -> Dict[str, float]:
     """Greedy continuations of held-out prompts (the label-masked prefix of
-    each example) -> generated_predictions.jsonl ({"prompt", "label",
-    "predict"}) and BLEU / ROUGE against the labels."""
+    each example, one at a time) -> generated_predictions.jsonl
+    ({"prompt", "label", "predict"}) and BLEU / ROUGE against the labels.
+    mesh (MeshGroups): the dp leg, dp rank r decoding the examples
+    i % dp == r, the predictions all-gathered; rank 0 writes."""
     from ..models.composite import GenerationSettings
     from .metric import compute_text_metrics
 
@@ -255,7 +267,7 @@ def predict_with_generate(model, val_inputs, tokenizer, generating_args,
         temperature=generating_args.temperature,
         top_p=generating_args.top_p, do_sample=False)
     generator = torch.Generator(device=model.device).manual_seed(seed)
-    preds, refs, prompts = [], [], []
+    refs, prompts = [], []
     for ex in val_inputs[:max_examples]:
         ids = list(ex["input_ids"])
         labels = list(ex["labels"])
@@ -263,26 +275,33 @@ def predict_with_generate(model, val_inputs, tokenizer, generating_args,
                       if lab != IGNORE_INDEX), None)
         if not first:
             continue
-        prompt = ids[:first]
-        reference = tokenizer.decode([lab for lab in labels
+        prompts.append(ids[:first])
+        refs.append(tokenizer.decode([lab for lab in labels
                                       if lab != IGNORE_INDEX],
-                                     skip_special_tokens=True)
-        p_ids, p_mask = model._left_pad([prompt])
+                                     skip_special_tokens=True))
+    if not prompts:
+        return {}
+    dp, rank = (mesh.dp, mesh.dp_rank) if mesh is not None else (1, 0)
+    preds = []
+    for i in range(rank, len(prompts), dp):
+        p_ids, p_mask = model._left_pad([prompts[i]])
         with torch.no_grad():
             toks, _ = model._generate_tokens(p_ids, p_mask, generator, gen,
                                              model._eos_ids())
-        preds.append(tokenizer.decode(model._strip_pads(toks[0]),
-                                      skip_special_tokens=True))
-        refs.append(reference)
-        prompts.append(tokenizer.decode(prompt, skip_special_tokens=True))
-    if not preds:
-        return {}
+        preds.append((i, tokenizer.decode(model._strip_pads(toks[0]),
+                                          skip_special_tokens=True)))
+    if mesh is not None:
+        from ..parallel.comm import gather_rows
+        preds = sorted(gather_rows(preds, mesh.dp_group, dp))
+    preds = [p for _, p in preds]
     scores = compute_text_metrics(preds, refs)
-    with open(os.path.join(output_dir, "generated_predictions.jsonl"),
-              "w") as f:
-        for t, p, r in zip(prompts, preds, refs):
-            f.write(json.dumps({"prompt": t, "label": r, "predict": p})
-                    + "\n")
+    if mesh is None or torch.distributed.get_rank() == 0:
+        with open(os.path.join(output_dir, "generated_predictions.jsonl"),
+                  "w") as f:
+            for t, p, r in zip(prompts, preds, refs):
+                t = tokenizer.decode(t, skip_special_tokens=True)
+                f.write(json.dumps({"prompt": t, "label": r, "predict": p})
+                        + "\n")
     logger.info("prediction metrics: %s", scores)
     return {f"predict_{k}": v for k, v in scores.items()}
 

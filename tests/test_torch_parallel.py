@@ -14,7 +14,7 @@ whole batch's noise) and the JAX Trainer on the same mesh string (design
 weight 0: torch and JAX draw different numbers). Kernels B and C run as
 their plain versions on the CPU. Then the checkpoints (msgpack across
 packages and meshes, DCP's async save and resume), the refusals (item
-9b), and dryrun_multichip(4).
+9c, and the pipeline's equal to JAX's), and dryrun_multichip(4).
 """
 
 import dataclasses
@@ -54,6 +54,7 @@ from llamole_tpu_torch.config import FinetuningArguments
 from llamole_tpu_torch.data.collator import SeqGraphCollator
 from llamole_tpu_torch.data.loader import get_dataset
 from llamole_tpu_torch.data.tokenizer import ByteTokenizer
+from llamole_tpu_torch.models.composite import GraphLM
 from llamole_tpu_torch.models.gllm import LLM, LLMConfig
 from llamole_tpu_torch.parallel import dryrun
 from llamole_tpu_torch.parallel.mesh import (_dcn_grouped, check_training_axes,
@@ -110,8 +111,9 @@ def test_mesh_errors_equal_jax():
     with pytest.raises(ValueError, match="needs 2 ranks, the process group "
                        "has 1"):
         mesh_from_string("dp:2")
-    for axes in ("pp:2,dp:2", "sp:2,dp:2", "ep:2,dp:2"):
-        with pytest.raises(NotImplementedError, match="item 9b"):
+    check_training_axes(parse_mesh("pp:2,dp:2"))   # the pipeline trains
+    for axes in ("sp:2,dp:2", "ep:2,dp:2"):
+        with pytest.raises(NotImplementedError, match="item 9c"):
             check_training_axes(parse_mesh(axes))
 
 
@@ -168,7 +170,7 @@ def test_llm_and_fsdp_specs_equal_jax(tiny_llm):
 
 def test_expert_specs_equal_jax():
     """With ep_axis the MoE experts shard their expert dimension, as in
-    JAX; applying them is item 9b (shard_llm refuses MoE on a mesh)."""
+    JAX; applying them is item 9c (shard_llm refuses MoE on a mesh)."""
     llm = LLM(LLMConfig.tiny_moe(), dtype=torch.float32)
     llm.reset_parameters(torch.Generator().manual_seed(0))
     named = dict(llm.named_parameters())
@@ -177,7 +179,7 @@ def test_expert_specs_equal_jax():
     got = llm_param_pspecs(named, ep_axis="ep")
     assert {n: _jax_spec(want, n) for n in named} == got
     assert got["layers.0.mlp.experts.gate"] == ("ep", None, None)
-    with pytest.raises(NotImplementedError, match="item 9b"):
+    with pytest.raises(NotImplementedError, match="item 9c"):
         shard_llm(llm, types.SimpleNamespace(tp=1))
 
 
@@ -574,44 +576,118 @@ def test_jax_orbax_checkpoint_raises(setup, tmp_path):
 
 def test_galore_on_a_sharded_mesh_raises():
     """GaLore's SVD needs whole gradients: with tp > 1, or ZeRO-1 over
-    dp > 1, it raises naming item 9b (dp alone at stage 0 runs it)."""
+    dp > 1, it raises naming item 9c (dp alone at stage 0 runs it)."""
     from llamole_tpu_torch.train.optimizers import create_optimizer
     ft = FinetuningArguments(use_galore=True)
     for groups, zero1 in ((types.SimpleNamespace(tp=2, dp=1), False),
                           (types.SimpleNamespace(tp=1, dp=2), True)):
-        with pytest.raises(NotImplementedError, match="item 9b"):
+        with pytest.raises(NotImplementedError, match="item 9c"):
             create_optimizer(worker.train_args(None), 2, {}, ft,
                              groups=groups, zero1=zero1)
 
 
 def test_refusals_name_item_9b(tmp_path):
+    """Item 9b is done: the pp axis trains and the inference legs take a
+    mesh, where both raised naming it. What stops them now is JAX's: a
+    mesh needs as many ranks as it has places."""
     from llamole_tpu_torch.config import get_train_args
     from llamole_tpu_torch.eval.workflow import run_molqa
-    from llamole_tpu_torch.models.composite import _no_mesh
     args = list(get_train_args(os.path.join(ROOT, "config", "smoke",
                                             "tiny_train.yaml")))
-    for spec, zero in (("pp:2,dp:2", 0), ("pp:2,dp:2", 3), ("sp:2,dp:2", 1),
-                       ("ep:2,dp:2", 0)):
-        args[2] = dataclasses.replace(args[2], mesh=spec, zero_stage=zero,
+    check_training_axes(parse_mesh("pp:2,dp:2"))
+    for spec in ("pp:2,dp:2", "dp:4"):
+        args[2] = dataclasses.replace(args[2], mesh=spec, zero_stage=0,
                                       output_dir=str(tmp_path))
-        with pytest.raises(NotImplementedError, match="item 9b"):
+        with pytest.raises(ValueError, match="world size must equal the "
+                           "mesh"):
             run_mmsft(*args, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        _no_mesh(object())         # GraphLM's generation on a mesh
-    with pytest.raises(NotImplementedError, match="item 9b"):
+    with pytest.raises(ValueError, match="world size must equal the mesh"):
         run_molqa(None, None, types.SimpleNamespace(mesh="dp:2"), None,
                   None)
-    args[2] = dataclasses.replace(args[2], mesh="dp:4", zero_stage=0)
-    with pytest.raises(ValueError, match="world size must equal the mesh"):
+
+
+def test_refusals_name_item_9c(setup, tmp_path):
+    """sp and ep still raise, naming item 9c; the pipeline refuses what
+    JAX's refuses, with JAX's messages: ZeRO-3 beside pp (dp > 1), MoE
+    training, a sliding window, microbatches that do not divide the
+    batch, stages that do not divide the depth, and enable_pipeline after
+    the first loss."""
+    from llamole_tpu.parallel.pipeline import (
+        pipeline_decoder_forward as jax_pipeline_forward)
+    from llamole_tpu_torch.config import get_train_args
+    from llamole_tpu_torch.parallel.pipeline import (check_pipeline,
+                                                     check_pipeline_zero)
+    args = list(get_train_args(os.path.join(ROOT, "config", "smoke",
+                                            "tiny_train.yaml")))
+    for spec, zero in (("sp:2,dp:2", 1), ("ep:2,dp:2", 0)):
+        args[2] = dataclasses.replace(args[2], mesh=spec, zero_stage=zero,
+                                      output_dir=str(tmp_path))
+        with pytest.raises(NotImplementedError, match="item 9c"):
+            run_mmsft(*args, device="cpu")
+    # ZeRO-3 with pp: the JAX Trainer's ValueError, before any placement
+    jm = _jax_model(setup.tok)
+    j_args = JaxTrainingArguments(output_dir=None, zero_stage=3)
+    with pytest.raises(ValueError) as jax_err:
+        JaxTrainer(jm.loss_fn, jax.tree.map(jnp.asarray, setup.frozen),
+                   j_args, 2, mesh=jax_mesh_from_string("pp:2,dp:2"))
+    with pytest.raises(ValueError) as err:
+        check_pipeline_zero(parse_mesh("pp:2,dp:2"), 3)
+    assert str(err.value) == str(jax_err.value)
+    args[2] = dataclasses.replace(args[2], mesh="pp:2,dp:2", zero_stage=3)
+    with pytest.raises(ValueError, match="zero_stage=3 with pipeline"):
         run_mmsft(*args, device="cpu")
+    check_pipeline_zero(parse_mesh("pp:2"), 3)     # dp 1: JAX's is inert
+    # the schedule's refusals, in JAX's order and words
+    mesh = jax_mesh_from_string("pp:2,dp:4")
+    x = jnp.zeros((4, 8, 64), jnp.float32)
+    mask = jnp.ones((4, 8), jnp.int32)
+    jt, pt = JaxLLMConfig.tiny(), LLMConfig.tiny()
+    cases = [  # (JAX config, the port's, depth, train, microbatches)
+        (JaxLLMConfig.tiny_moe(), LLMConfig.tiny_moe(), 2, True, 2),
+        (dataclasses.replace(jt, sliding_window=4),
+         dataclasses.replace(pt, sliding_window=4), 2, False, 2),
+        (jt, dataclasses.replace(pt, num_layers=3), 3, True, 2),
+        (jt, pt, 2, True, 3)]
+    for jcfg, pcfg, depth, train, m in cases:
+        with pytest.raises(ValueError) as jax_err:
+            jax_pipeline_forward(
+                {"layers_stacked": {"w": jnp.zeros((depth, 1))}}, x, mask,
+                mask, jcfg, mesh, num_microbatches=m, train=train)
+        with pytest.raises(ValueError) as err:
+            check_pipeline(pcfg, 2, 4, m, train)
+        assert str(err.value) == str(jax_err.value)
+    # enable_pipeline: MoE raises as JAX's does, and so does a call after
+    # the first loss
+    model = worker.tiny_model(setup.state)
+    moe = GraphLM(LLM(LLMConfig.tiny_moe(), dtype=torch.float32),
+                  model.graph_decoder, model.graph_predictor,
+                  model.graph_encoder, model.tokenizer,
+                  model.token_id_dict, lora_rank=4)
+    j_moe = JaxGraphLM(
+        llm=JaxLLM(JaxLLMConfig.tiny_moe(), dtype=jnp.float32),
+        graph_decoder=jm.graph_decoder, graph_predictor=jm.graph_predictor,
+        graph_encoder=jm.graph_encoder, tokenizer=setup.tok,
+        token_id_dict=jm.token_id_dict, lora_rank=4)
+    with pytest.raises(ValueError) as jax_err:
+        j_moe.enable_pipeline(mesh, 2)
+    with pytest.raises(ValueError) as err:
+        moe.enable_pipeline(None, 2)
+    assert str(err.value) == str(jax_err.value)
+    model.loss(setup.stream[0], torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="after the first loss"):
+        model.enable_pipeline(None, 2)
 
 
 def test_dryrun_multichip_prints_ok(launched):
-    """The dp x tp, ZeRO-1, ZeRO-3 and dcn x dp legs on 4 gloo ranks,
-    each equal to the mesh-less run."""
+    """The dp x tp, ZeRO-1, ZeRO-3, dcn x dp and pipeline legs and the dp
+    inference, tp design and dp retro legs on 4 gloo ranks, each equal to
+    the mesh-less run."""
     proc = launched["dryrun"].result()
     assert proc.returncode == 0, proc.stderr[-3000:]
     out = proc.stdout
     assert "dryrun_multichip OK" in out
-    for leg in ("dp=2 tp=2", "zero1 dp=4", "zero3 dp=4", "dcn=2 dp=2"):
+    for leg in ("dp=2 tp=2", "zero1 dp=4", "zero3 dp=4", "dcn=2 dp=2",
+                "pipeline", "dp-inference", "tp-design", "dp-retro"):
         assert f"dryrun {leg} OK" in out
+    assert "dryrun dp-inference OK: mesh dp=4, batch 5 (padded to 8)" in out
+    assert "dryrun pipeline OK: mesh pp=2 dp=2" in out

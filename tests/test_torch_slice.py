@@ -278,7 +278,8 @@ def test_rollback_and_phase2_surface(stacks):
     bad = plans["C1=C=C=1"]
     assert bad["success"] is False and isinstance(bad["analysis_tokens"],
                                                   list)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # the dp leg takes a DeviceMesh or MeshGroups; anything else raises
+    with pytest.raises(TypeError, match="mesh must be a DeviceMesh"):
         tm.retrosynthesize_batch(["CCO"], mesh=object())
 
 

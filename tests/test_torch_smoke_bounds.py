@@ -702,3 +702,69 @@ def test_mesh_phase_runs_on_the_cpu(tmp_path, capsys):
         assert f"mesh ({k}): trained bundle after update 2 differs from " \
             "phase 9's by" in out
     assert not dist.is_initialized()
+
+
+def test_mesh_inference_phase_sizes():
+    """Phase 19 on the card: a world-size-1 mesh dp:1,tp:1 (one card),
+    phase 8's 2 records, the pipeline at 2 microbatches held to the plain
+    forward within 1e-3 (loss), 1e-2 (relative L2 of the LoRA gradients
+    as one vector) and 5e-2 (of the largest leaf), a 64-token expansion
+    and an 8 x 32 greedy decode."""
+    sizes = chip_smoke.MESH_INFER
+    assert sizes["mesh"] == "dp:1,tp:1"
+    assert (sizes["records"], sizes["microbatches"]) == (2, 2)
+    assert (sizes["loss_gap"], sizes["grad_rel"],
+            sizes["leaf_rel"]) == (1e-3, 1e-2, 5e-2)
+    assert (sizes["analysis_tokens"], sizes["decode_rows"],
+            sizes["decode_steps"]) == (64, 8, 32)
+
+
+def test_mesh_inference_phase_runs_on_the_cpu(tmp_path, capsys):
+    """Phase 19 end to end at a small width on a one-rank gloo group,
+    after phase 9's run_mmsft: the LLM copied back into plain tensors,
+    run_molqa's design, an expansion and a greedy decode equal with and
+    without the mesh (the LLM's leaves DTensors on it), and the pipelined
+    loss and LoRA gradients on phase 9's last batch held to the plain
+    forward's; the group is gone after."""
+    import torch.distributed as dist
+
+    from llamole_tpu_torch.ops import fused_attention as A
+    from llamole_tpu_torch.ops import gin_aggregate as G
+    from llamole_tpu_torch.train.workflow import run_mmsft
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        model, tok = _tiny_slice()
+        batches, loss = [], model.loss
+
+        def watched(batch, generator=None, train=True, noisy=None):
+            if train:
+                batches[:] = [batch]
+            return loss(batch, generator, train, noisy)
+
+        model.loss = watched
+        run_mmsft(*chip_smoke.llama_lora_args(str(tmp_path / "p9")),
+                  prebuilt=(model, tok))
+        del model.loss
+        got = chip_smoke.run_mesh_inference(
+            model, tok, (A.fused_block_attention, G.gin_aggregate), "CPU",
+            {"batch": batches[0]},
+            sizes={**chip_smoke.MESH_INFER, "max_new_tokens": 8,
+                   "analysis_tokens": 8, "decode_steps": 4})
+    finally:
+        torch.set_num_threads(threads)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    out = capsys.readouterr().out
+    assert {k: got[k] for k in ("A", "A_mma", "A_fma", "B")} == {
+        "A": 0, "A_mma": 0, "A_fma": 0, "B": 0}
+    assert "phase 19 (a) mesh dp:1,tp:1 over gloo" in out
+    assert ("equal: {'analysis tokens': True, 'SMILES': True, 'responses': "
+            "True, 'expansion': True, 'decode': True}") in out
+    assert "phase 19 (b) pipeline_lm_loss on (4, " in out
+    assert got["pipeline"]["loss_gap"] <= 1e-3
+    assert got["pipeline"]["grad_rel"] <= 1e-2
+    assert got["pipeline"]["leaf_max"] <= 5e-2
+    assert "llm" not in dict(model.named_children())   # phase 18's copy freed
+    assert not dist.is_initialized()
