@@ -260,6 +260,21 @@
    lm_loss, in turns (plain, pipeline, pipeline, plain): within 1e-3,
    the LoRA gradients (one vector) within 1e-2 relative L2, the largest
    leaf's within 5e-2; walls and peaks.
+20. Ring attention, MoE expert parallelism and S²-attn under tp
+   (PHASE20), each on a world-size-1 process group (NCCL refuses two
+   ranks on one card, so the splitting itself is held by the gloo
+   tests): (b) inside phase 15 (d), on its Mixtral model (8 of 32
+   layers, capacity factor 1.25: units drop), GraphLM.loss and backward
+   with the LLM placed (the MoE layers on their MoEMesh) against (d)'s
+   mesh-less loss and gradients, B >= 5 and C >= 4 launches; (c) inside
+   phase 16 (a), on its model after its run_mmsft, one LongLoRA micro
+   step without the mesh and then on the tp mesh, S²-attn in every
+   layer; both gated as phase 19 (b) gates its pipeline (the loss within
+   1e-3 relative, the gradients within 1e-2 relative L2 as one vector,
+   the largest leaf within 5e-2); (a) after phase 16, ring_attention at
+   [1, 4096, 32, 128] bf16 with the last 512 keys padded, forward and
+   backward in turns with the plain causal attention (output and
+   gradient gaps gated by PHASE20); each part's wall and their sum.
 
 Prints, before the last line, one {"kernels": [...]} JSON line (per
 kernel: launches on the main path, max_abs_err, ms, plain_ms, device_ms,
@@ -278,7 +293,8 @@ serving (per body too), B's there and in the Mixtral loss, C's in the
 latter; under launches_finetune, phase 16's B and C (its four runs); under
 launches_entry, phase 17's: A's (per body too), B's and C's; under
 launches_mesh, phase 18's B and C; under launches_mesh_inference, phase
-19's A (per body too) and B;
+19's A (per body too) and B; under launches_moe_ep and launches_s2_tp,
+phase 20 (b)'s and (c)'s B and C;
 the last line is {"ok": true, "device": {...}}. Any
 failure exits non-zero.
 """
@@ -4436,16 +4452,17 @@ def moe_train_batch(tok, rows, device):
 
 
 def run_mixtral(kernels, tag, device="cuda", sizes=None, cfg=None,
-                build=None):
+                build=None, phase20=None):
     """Phase 15 (d). In bf16: the capacity drops at the preset's factor,
     64 greedy tokens per-token and with drafts, the cache against the
     forward at a capacity of E (not gated: there a router's top two
     probabilities tie often enough in bf16 that the two paths send a
     token to other experts, which changes its output wholesale; the
-    routing differences are printed), one loss and backward. Then in f32
-    (the same seed's weights before their bf16 rounding) at a capacity of
-    E: the gated cache and drafts checks of (a). Returns the B and C
-    launches of the loss and backward, and its records."""
+    routing differences are printed), one loss and backward, and on its
+    model phase 20 (b) (run_moe_ep; its record into phase20 when given).
+    Then in f32 (the same seed's weights before their bf16 rounding) at
+    a capacity of E: the gated cache and drafts checks of (a). Returns
+    the B and C launches of the loss and backward, and its records."""
     from llamole_tpu_torch.models.gllm import LLMConfig
 
     sizes = sizes or FAMILIES
@@ -4528,7 +4545,12 @@ def run_mixtral(kernels, tag, device="cuda", sizes=None, cfg=None,
           f"tensors with finite gradients (attention LoRA + connectors); B "
           f"{launches['B']}, C {launches['C']} launches; {wall:.3f} s; "
           f"peak {_peak(on_card)} [{tag}]", flush=True)
-    del model, total, parts, params, grads
+    want = (float(total.detach()), _grads(params))
+    del total, parts, params, grads
+    ep = run_moe_ep(model, batch, want, kernels, tag, device)
+    if phase20 is not None:
+        phase20["b"] = ep
+    del model, want
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
@@ -4555,11 +4577,12 @@ def run_mixtral(kernels, tag, device="cuda", sizes=None, cfg=None,
 
 
 def run_families(kernels, tag, device="cuda", sizes=None, build=None,
-                 cfgs=None, phase7=None):
+                 cfgs=None, phase7=None, phase20=None):
     """Phase 15 on an empty card: (a) qwen3, (b) gemma-2 serving, (c)
-    gemma-3, (d) Mixtral, each model freed before the next. cfgs: the
-    four LLM configs (the presets by default). Returns the A, B and C
-    launches of (b) and (d)."""
+    gemma-3, (d) Mixtral (and phase 20 (b) on its model: phase20 takes
+    its record), each model freed before the next. cfgs: the four LLM
+    configs (the presets by default). Returns the A, B and C launches of
+    (b) and (d)."""
     from llamole_tpu_torch.models.gllm import LLMConfig
     from llamole_tpu_torch.models.loader import offline_tokenizer
 
@@ -4597,7 +4620,7 @@ def run_families(kernels, tag, device="cuda", sizes=None, build=None,
           flush=True)
     t0 = time.perf_counter()
     trained, _ = run_mixtral(kernels, tag, device, sizes, cfgs.get("mixtral"),
-                             build)
+                             build, phase20)
     freed()
     print(f"phase 15 (d) Mixtral: {time.perf_counter() - t0:.1f} s",
           flush=True)
@@ -4757,10 +4780,13 @@ def check_finetune_launches(launches, what):
                    "layers) x 4")
 
 
-def run_dora(kernels, tag, device, sizes, build, phase9, modules):
+def run_dora(kernels, tag, device, sizes, build, phase9, modules,
+             phase20=None):
     """Phase 16 (a): DoRA + LoRA+ + shift_attn over phase 7's graph
     modules, which it saves first under modules (save_graph_modules) for
-    (b) and (c). Returns the B and C launches of run_mmsft."""
+    (b) and (c); then phase 20 (c) on its model and its last training
+    batch (run_s2_tp; its record into phase20 when given). Returns the B
+    and C launches of run_mmsft."""
     from llamole_tpu_torch.models.gllm import LLMConfig
     from llamole_tpu_torch.models.gllm.model import s2_attention
     from llamole_tpu_torch.train.workflow import run_mmsft
@@ -4784,11 +4810,14 @@ def run_dora(kernels, tag, device, sizes, build, phase9, modules):
     base_sum = _checksum(base)
     s2 = {"training": 0, "eval": 0, "generation": 0}
     loss, generate = model.loss, model.llm.generate
+    last_batch = []
 
     def watched(batch, generator=None, train=True, noisy=None):
         c0 = s2_attention.calls
         out = loss(batch, generator, train, noisy)
         s2["training" if train else "eval"] += s2_attention.calls - c0
+        if train:
+            last_batch[:] = [batch]
         return out
 
     def generating(*args, **kwargs):
@@ -4851,7 +4880,11 @@ def run_dora(kernels, tag, device, sizes, build, phase9, modules):
           f"launches; peak {peak}"
           + (f" against phase 9's {phase9['peak']} in this run"
              if phase9 else "") + f" [{tag}]", flush=True)
-    del model, tok, params, start, base
+    del params, start, base
+    s2_tp = run_s2_tp(model, last_batch[0], kernels, tag, device)
+    if phase20 is not None:
+        phase20["c"] = s2_tp
+    del model, tok, last_batch
     return launches
 
 
@@ -5182,11 +5215,12 @@ def run_badam(kernels, tag, device, sizes, modules):
 
 
 def run_finetune(kernels, tag, device="cuda", sizes=None, build=None,
-                 phase9=None):
-    """Phase 16 on an empty card: (a) run_dora, (b) run_pissa, (c)
-    run_galore then run_badam, each model freed before the next, all over
-    phase 7's graph modules ((a) saves them for the others). Returns the
-    B and C launches of the four runs together."""
+                 phase9=None, phase20=None):
+    """Phase 16 on an empty card: (a) run_dora (and phase 20 (c) on its
+    model: phase20 takes its record), (b) run_pissa, (c) run_galore then
+    run_badam, each model freed before the next, all over phase 7's graph
+    modules ((a) saves them for the others). Returns the B and C
+    launches of the four runs together."""
     sizes = dict(sizes or FINETUNE)
     build = build or build_slice
     on_card = device == "cuda"
@@ -5204,7 +5238,8 @@ def run_finetune(kernels, tag, device="cuda", sizes=None, build=None,
         with plain_gin_calls(on_card) as plain:
             for part, fn in (
                     ("(a) DoRA", lambda: run_dora(kernels, tag, device, sizes,
-                                                  build, phase9, modules)),
+                                                  build, phase9, modules,
+                                                  phase20)),
                     ("(b) PiSSA", lambda: run_pissa(kernels, tag, device,
                                                     sizes, modules)),
                     ("(c) GaLore", lambda: run_galore(kernels, tag, device,
@@ -5223,6 +5258,233 @@ def run_finetune(kernels, tag, device="cuda", sizes=None, build=None,
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return total
+
+
+# Phase 20: ring attention on the sp axis, MoE expert parallelism and
+# S²-attn under tp, each on a world-size-1 process group (NCCL on the
+# card, which refuses two ranks on one card: the splitting itself, the
+# ring's rotation, ep's combine and the dp count exchange, is held by the
+# gloo tests). (a) ring_attention at the 8B attention width (32 heads x
+# 128, bf16, B 1, S 4096, the last 512 keys padded), forward and backward
+# against the plain causal attention with f32 logits; (b) inside phase 15
+# (d), on its Mixtral model: GraphLM.loss and backward with the LLM
+# placed on the mesh (shard_graph_lm: the MoE layers route through the
+# count exchange and the aux's all-reduce) against (d)'s mesh-less loss
+# and gradients, at the preset's capacity factor, where units drop;
+# (c) inside phase 16 (a), on its DoRA + LoRA+ + shift_attn model after
+# its run_mmsft: one more LongLoRA micro step without the mesh, then the
+# same on the world-size-1 tp mesh (S²-attn with its global head offset).
+# Gates: ring_out / ring_grad, the output's max |gap| / max |plain| and
+# each gradient's relative L2 gap to the plain attention's (bf16: the
+# ring divides by the softmax sum after its value product, the plain
+# version before it; 3.984e-03 and 2.516e-03-2.644e-03 on an H100 at
+# 700 W, so a fault in the online softmax shows with room over them);
+# loss_gap (relative), grad_rel (the trainable
+# gradients as one vector, relative L2) and leaf_rel (the largest
+# single leaf) for (b) and (c), as phase 19 gates its pipeline.
+PHASE20 = {"mesh": "dp:1,tp:1", "heads": 32, "head_dim": 128, "batch": 1,
+           "seq": 4096, "padded": 512, "ring_out": 1e-2, "ring_grad": 1e-2,
+           "loss_gap": 1e-3, "grad_rel": 1e-2, "leaf_rel": 5e-2}
+
+
+@contextlib.contextmanager
+def one_rank_group(device):
+    """A world-size-1 process group for the block (NCCL on the card, gloo
+    on the CPU), destroyed after it; yields the group."""
+    import torch.distributed as dist
+    from llamole_tpu_torch.parallel.mesh import init_distributed
+    init_distributed(torch.device(device).type)
+    try:
+        yield dist.group.WORLD
+    finally:
+        dist.destroy_process_group()
+
+
+def _grads(params):
+    from llamole_tpu_torch.train.optimizers import local_data
+    return {n: local_data(p.grad).float().clone()
+            for n, p in params.items() if p.grad is not None}
+
+
+def _grad_gaps(got, want):
+    """(the gradients as one vector's relative L2 gap, the largest single
+    leaf's and its name)."""
+    names = sorted(want)
+    if set(got) != set(want) or not names:
+        fail(f"phase 20: gradients of {sorted(set(got) ^ set(want))[:3]} "
+             "on one side only")
+    diff = torch.stack([(got[n] - want[n]).norm() for n in names])
+    norm = torch.stack([want[n].norm() for n in names])
+    leaf = diff / norm.clamp_min(1e-30)
+    return (float(diff.norm() / norm.norm().clamp_min(1e-30)),
+            float(leaf.max()), names[int(leaf.argmax())])
+
+
+def _gate_step(what, loss, want_loss, got, want, sizes, tag, extra=""):
+    """Print and gate a placed step against its mesh-less one."""
+    gap = abs(loss - want_loss) / max(abs(want_loss), 1e-30)
+    rel, leaf, worst = _grad_gaps(got, want)
+    print(f"{what}: loss {loss:.6f}, without the mesh {want_loss:.6f} "
+          f"(relative gap {gap:.3e}, limit {sizes['loss_gap']}); {len(want)} "
+          f"trainable gradients, relative L2 gap {rel:.3e} (limit "
+          f"{sizes['grad_rel']}), largest leaf {leaf:.3e} ({worst}; limit "
+          f"{sizes['leaf_rel']}){extra} [{tag}]", flush=True)
+    if not np.isfinite(loss) or gap > sizes["loss_gap"]:
+        fail(f"{what}: the loss {loss} strays from {want_loss}")
+    if rel > sizes["grad_rel"] or leaf > sizes["leaf_rel"]:
+        fail(f"{what}: the gradients stray ({rel}, {worst} {leaf})")
+    return {"loss_gap": gap, "grad_rel": rel, "leaf_rel": leaf}
+
+
+def _mesh_step(model, batch, device, sizes):
+    """Place the GraphLM on a world-size-1 mesh (shard_graph_lm) and run
+    one loss and backward on the whole batch (generator seed 0) ->
+    (loss, the trainable gradients, seconds). The caller holds the
+    group."""
+    from llamole_tpu_torch.parallel.mesh import MeshGroups, mesh_from_string
+    from llamole_tpu_torch.parallel.sharding import shard_graph_lm
+    groups = MeshGroups(mesh_from_string(sizes["mesh"],
+                                         torch.device(device).type))
+    shard_graph_lm(model, groups, zero3=False)
+    rows = len(np.asarray(batch["input_ids"]))
+    batch = {**batch, "row_shard": np.asarray([0, rows], np.int64)}
+    params = model.trainable_parameters()
+    for p in params.values():
+        p.grad = None
+    _sync_card()
+    t0 = time.perf_counter()
+    total, _ = model.loss(batch, torch.Generator(device=device).manual_seed(0),
+                          train=True)
+    total.backward()
+    _sync_card()
+    return float(total.detach()), _grads(params), time.perf_counter() - t0
+
+
+def run_moe_ep(model, batch, want, kernels, tag, device, sizes=None):
+    """Phase 20 (b), on phase 15 (d)'s model right after its mesh-less loss
+    and backward (want: its loss and trainable gradients): the same on
+    the world-size-1 mesh, the MoE layers on their MoEMesh. Returns the
+    gaps, B's and C's launches and the wall."""
+    sizes = sizes or PHASE20
+    t_part = time.perf_counter()
+    with one_rank_group(device):
+        reset_counts(*kernels)
+        loss, grads, wall = _mesh_step(model, batch, device, sizes)
+        launches = ({"B": kernels[1].launches, "C": kernels[2].launches}
+                    if device == "cuda" else {"B": 0, "C": 0})
+        mesh = model.llm.moe_mesh
+        if mesh is None or not mesh.split_rows:
+            fail("phase 20 (b): the MoE layers did not route on the mesh")
+        out = _gate_step(
+            f"phase 20 (b) Mixtral on the mesh {sizes['mesh']} (MoE layers "
+            f"on their MoEMesh: data 1, ep 1)", loss, want[0], grads,
+            want[1], sizes, tag,
+            f"; capacity factor {model.llm.cfg.moe_capacity_factor}; "
+            f"loss + backward {wall:.3f} s; B {launches['B']}, C "
+            f"{launches['C']} launches")
+    if device == "cuda":
+        layers = model.graph_predictor.cfg.num_layer
+        check_launches("gin_aggregate (phase 20 (b))", launches["B"], layers,
+                       f"{layers} predictor layers")
+        check_launches("gin_aggregate_backward (phase 20 (b))", launches["C"],
+                       layers - 1, f"{layers - 1} predictor layers")
+    return {**out, **launches, "wall": time.perf_counter() - t_part}
+
+
+def run_s2_tp(model, batch, kernels, tag, device, sizes=None):
+    """Phase 20 (c), on phase 16 (a)'s model after its run_mmsft: one
+    LongLoRA micro step (GraphLM.loss with shift_attn and its backward)
+    without the mesh, then on the world-size-1 tp mesh. Returns the gaps,
+    the S²-attn calls of the mesh's step, B's and C's launches and the
+    wall."""
+    from llamole_tpu_torch.models.gllm.model import s2_attention
+    sizes = sizes or PHASE20
+    t_part = time.perf_counter()
+    params = model.trainable_parameters()
+    for p in params.values():
+        p.grad = None
+    total, _ = model.loss(batch, torch.Generator(device=device).manual_seed(0),
+                          train=True)
+    total.backward()
+    want = (float(total.detach()), _grads(params))
+    del total
+    with one_rank_group(device):
+        calls = s2_attention.calls
+        reset_counts(*kernels)
+        loss, grads, wall = _mesh_step(model, batch, device, sizes)
+        s2 = s2_attention.calls - calls
+        launches = ({"B": kernels[1].launches, "C": kernels[2].launches}
+                    if device == "cuda" else {"B": 0, "C": 0})
+        layers = model.llm.cfg.num_layers
+        out = _gate_step(
+            f"phase 20 (c) LongLoRA micro step on the tp mesh "
+            f"{sizes['mesh']}", loss, want[0], grads, want[1], sizes, tag,
+            f"; S²-attn calls {s2} (need {layers}); loss + backward "
+            f"{wall:.3f} s; B {launches['B']}, C {launches['C']} launches")
+    if s2 != layers:
+        fail(f"phase 20 (c): S²-attn ran {s2} times, need {layers}")
+    return {**out, **launches, "s2_calls": s2,
+            "wall": time.perf_counter() - t_part}
+
+
+def run_ring(tag, device="cuda", sizes=None):
+    """Phase 20 (a): ring_attention on the world-size-1 sp group against
+    the plain causal attention (gllm attention: f32 logits, probabilities
+    in bf16 before the value product), forward and backward, in turns
+    (plain, ring, ring, plain). Returns the gaps and the walls."""
+    from llamole_tpu_torch.models.gllm.model import attention
+    from llamole_tpu_torch.ops.ring_attention import ring_attention
+    sizes = sizes or PHASE20
+    t_part = time.perf_counter()
+    b, s, h, d = (sizes[k] for k in ("batch", "seq", "heads", "head_dim"))
+    gen = torch.Generator(device=device).manual_seed(0)
+    q, k, v, cot = (torch.randn((b, s, h, d), generator=gen, device=device)
+                    .to(torch.bfloat16) for _ in range(4))
+    mask = torch.ones((b, s), dtype=torch.int32, device=device)
+    mask[:, s - sizes["padded"]:] = 0
+    allowed = (torch.ones((s, s), dtype=torch.bool, device=device).tril()[None]
+               & (mask > 0)[:, None, :])
+    with one_rank_group(device) as group:
+        runs = {}
+        for kind in ("plain", "ring", "ring", "plain"):
+            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            if device == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            _sync_card()
+            t0 = time.perf_counter()
+            if kind == "ring":
+                out = ring_attention(*leaves, mask, group)
+            else:
+                out = attention(*leaves, allowed).view(b, s, h, d)
+            out.backward(cot)
+            _sync_card()
+            wall = time.perf_counter() - t0
+            runs.setdefault(kind, {"out": out.detach().float(),
+                                   "grads": [t.grad.float()
+                                             for t in leaves],
+                                   "walls": [], "peak": _peak(
+                                       device == "cuda")})
+            runs[kind]["walls"].append(wall)
+            del out, leaves
+    ring, plain = runs["ring"], runs["plain"]
+    out_gap = _rel(ring["out"], plain["out"])
+    grad_gaps = [_rel_l2(g, w) for g, w in zip(ring["grads"], plain["grads"])]
+    print(f"phase 20 (a) ring_attention on the world-size-1 sp group at "
+          f"[{b}, {s}, {h}, {d}] bf16, the last {sizes['padded']} keys "
+          f"padded: output max |gap| / max |plain| {out_gap:.3e} (limit "
+          f"{sizes['ring_out']}), dq / dk / dv relative L2 gaps "
+          f"{', '.join(f'{g:.3e}' for g in grad_gaps)} (limit "
+          f"{sizes['ring_grad']}); forward + backward in turns: ring "
+          f"{[round(w, 4) for w in ring['walls']]} s (peak {ring['peak']}), "
+          f"plain {[round(w, 4) for w in plain['walls']]} s (peak "
+          f"{plain['peak']}) [{tag}]", flush=True)
+    if not torch.isfinite(ring["out"]).all() or out_gap > sizes["ring_out"]:
+        fail(f"phase 20 (a): the ring's output strays ({out_gap})")
+    if max(grad_gaps) > sizes["ring_grad"]:
+        fail(f"phase 20 (a): the ring's gradients stray ({grad_gaps})")
+    return {"out_gap": out_gap, "grad_gaps": grad_gaps,
+            "ring_s": min(ring["walls"]), "plain_s": min(plain["walls"]),
+            "wall": time.perf_counter() - t_part}
 
 
 def main() -> int:
@@ -5329,15 +5591,25 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    families = run_families(kernels, tag, phase7=phase7_latency)
+    phase20 = {}
+    families = run_families(kernels, tag, phase7=phase7_latency,
+                            phase20=phase20)
     print(f"families phase: {time.perf_counter() - t0:.1f} s wall [{tag}]",
           flush=True)
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    finetune = run_finetune(kernels, tag, phase9=phase9)
+    finetune = run_finetune(kernels, tag, phase9=phase9, phase20=phase20)
     print(f"finetune phase: {time.perf_counter() - t0:.1f} s wall [{tag}]",
           flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase20["a"] = run_ring(tag)
+    print(f"phase 20: (a) ring {phase20['a']['wall']:.1f} s, (b) MoE on the "
+          f"mesh {phase20['b']['wall']:.1f} s (inside phase 15 (d)), (c) "
+          f"S²-attn under tp {phase20['c']['wall']:.1f} s (inside phase 16 "
+          f"(a)); {sum(phase20[k]['wall'] for k in 'abc'):.1f} s in all "
+          f"[{tag}]", flush=True)
 
     def entry(name, source, replaces, rec, launches, **extra):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -5387,6 +5659,8 @@ def main() -> int:
               launches_finetune=finetune["B"],
               launches_entry=phase17["B"], launches_mesh=mesh["B"],
               launches_mesh_inference=mesh_infer["B"],
+              launches_moe_ep=phase20["b"]["B"],
+              launches_s2_tp=phase20["c"]["B"],
               **{k: v for k, v in b.items() if k.startswith("train_")},
               shape=b["shape"], share=b["share"],
               pretrain_launches=stack_launches["B"],
@@ -5403,6 +5677,8 @@ def main() -> int:
               launches_families=families["C"],
               launches_finetune=finetune["C"],
               launches_entry=phase17["C"], launches_mesh=mesh["C"],
+              launches_moe_ep=phase20["b"]["C"],
+              launches_s2_tp=phase20["c"]["C"],
               launches_smem=c_training["launches_smem"],
               launches_global=c_training["launches_global"],
               pretrain_launches=stack_launches["C"],

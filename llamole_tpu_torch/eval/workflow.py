@@ -13,8 +13,9 @@ With training_args.mesh ('dp:2', 'dp:2,tp:2', ...) the run is one rank
 of mesh inference (torchrun starts the ranks, each calling run_molqa;
 the world size equals the mesh): the process group starts from
 torchrun's environment (NCCL on the card, gloo on the CPU), the LLM is
-placed on the tp axis (parallel/sharding.py shard_llm) and both phases
-run GraphLM's dp legs (models/composite.py). Every rank returns the same
+placed on the tp axis (parallel/sharding.py shard_llm; an MoE LLM's
+experts on ep, its routing over the dp ranks' rows) and both phases run
+GraphLM's dp legs (models/composite.py). Every rank returns the same
 results; rank 0 alone writes the file.
 """
 

@@ -419,6 +419,12 @@ class GraphLM(nn.Module):
             batch["mol_valid"].bool() & (mol_rows >= 0) & (mol_rows < b),
             mol_rows, batch["mol_cols"])
         moe = self.llm.cfg.num_experts > 0
+        moe_mesh = self.llm.moe_mesh
+        if moe_mesh is not None:
+            # the MoE routes over the data ranks' blocks (one rank's block
+            # is the batch), or this batch whole where every rank holds
+            # all of its rows
+            moe_mesh.split_rows = b < total or moe_mesh.data == 1
         share = 1.0
         if self._pipeline is not None:
             from ..parallel.pipeline import check_pipeline

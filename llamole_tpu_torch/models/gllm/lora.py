@@ -365,9 +365,11 @@ class LoRALinear(nn.Module):
             a = enter(mine(self.lora_a), col)
             b = enter(mine(self.lora_b), row)
         if adapter and self.lora_m is not None:
+            # the row norm's sum over the ranks (one rank: its own norm,
+            # rounded as without a mesh)
             y = dora_product(x, mine(self.weight), a, b,
                              enter(mine(self.lora_m), row), self.lora_scale,
-                             tp.group if row else None)
+                             tp.group if row and tp.size > 1 else None)
         else:
             if self.quant is None:
                 y = F.linear(x, mine(self.weight))

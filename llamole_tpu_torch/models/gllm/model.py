@@ -35,7 +35,8 @@ falls back to full attention without a word, as in the JAX package
 """
 
 import math
-from typing import Dict, List, Optional, Sequence, Tuple
+from dataclasses import dataclass
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -156,7 +157,8 @@ def attention(q, k, v, mask_bst, scale: Optional[float] = None,
     return out.reshape(b, s, h * d)
 
 
-def s2_attention(q, k, v, attention_mask, group_size: int):
+def s2_attention(q, k, v, attention_mask, group_size: int,
+                 head_offset: int = 0, num_heads: Optional[int] = None):
     """LongLoRA S²-attn (JAX _s2_attention), training only: KV heads
     expand to the query heads, the second half of the heads rolls by
     -group_size // 2 along the sequence, attention runs causally within
@@ -164,14 +166,19 @@ def s2_attention(q, k, v, attention_mask, group_size: int):
     key validity comes from attention_mask, rolled with the keys for the
     shifted half (JAX's documented divergence from the reference, which
     reuses the first group's mask). q [B, S, H, D], k / v [B, S, KV, D],
-    attention_mask [B, S] -> [B, S, H * D]."""
+    attention_mask [B, S] -> [B, S, H * D]. Under tensor parallelism q /
+    k / v hold this rank's heads: head_offset is the global index of its
+    first query head and num_heads the model's count, so the heads whose
+    global index is num_heads // 2 or more are the shifted ones."""
     s2_attention.calls += 1
     b, s, h, d = q.shape
     kv = k.shape[2]
     if kv != h:
         k = k.repeat_interleave(h // kv, dim=2)
         v = v.repeat_interleave(h // kv, dim=2)
-    ng, half, shift = s // group_size, h // 2, group_size // 2
+    ng, shift = s // group_size, group_size // 2
+    # this rank's first shifted head
+    half = min(max((num_heads or h) // 2 - head_offset, 0), h)
 
     def roll_half(x, amount):
         return torch.cat([x[:, :, :half],
@@ -184,16 +191,21 @@ def s2_attention(q, k, v, attention_mask, group_size: int):
     causal = torch.ones((group_size, group_size), dtype=torch.bool,
                         device=q.device).tril()
     key_valid = attention_mask > 0
-    m_plain = causal[None] & key_valid.reshape(b * ng, group_size)[:, None]
-    m_shift = causal[None] & torch.roll(key_valid, -shift, dims=1).reshape(
-        b * ng, group_size)[:, None]
-    out_plain = attention(qg[:, :, :half], kg[:, :, :half], vg[:, :, :half],
-                          m_plain)
-    out_shift = attention(qg[:, :, half:], kg[:, :, half:], vg[:, :, half:],
-                          m_shift)
-    out = torch.cat([out_plain.reshape(b * ng, group_size, half, d),
-                     out_shift.reshape(b * ng, group_size, h - half, d)],
-                    dim=2).reshape(b, s, h, d)
+    parts = []
+    if half:
+        m_plain = causal[None] & key_valid.reshape(b * ng,
+                                                   group_size)[:, None]
+        parts.append(attention(qg[:, :, :half], kg[:, :, :half],
+                               vg[:, :, :half], m_plain)
+                     .reshape(b * ng, group_size, half, d))
+    if half < h:
+        m_shift = causal[None] & torch.roll(key_valid, -shift, dims=1
+                                            ).reshape(b * ng,
+                                                      group_size)[:, None]
+        parts.append(attention(qg[:, :, half:], kg[:, :, half:],
+                               vg[:, :, half:], m_shift)
+                     .reshape(b * ng, group_size, h - half, d))
+    out = torch.cat(parts, dim=2).reshape(b, s, h, d)
     return roll_half(out, shift).reshape(b, s, h * d)
 
 
@@ -302,11 +314,28 @@ class Experts(nn.Module):
         self.down = leaf(e, inter, h)
 
 
+@dataclass
+class MoEMesh:
+    """An MoE layer's place on a mesh (parallel/sharding.py shard_llm):
+    the data group (dcn x dp) its routing spans and the ep group its
+    experts split over (this rank computes experts [ep_rank E/ep,
+    (ep_rank + 1) E/ep)). split_rows: the data ranks hold consecutive
+    equal blocks of the batch's rows (False: every rank holds all of
+    them; GraphLM.loss sets it from the batch's row shard)."""
+    data_group: Any
+    data: int
+    data_rank: int
+    ep_group: Any
+    ep: int
+    ep_rank: int
+    split_rows: bool = True
+
+
 class MoEMLP(nn.Module):
     """Mixtral's block: the router ([E, H], no bias, never adapted nor
     quantized) and the experts. drop_count: set it to a scalar tensor and
     each forward adds the valid (token, slot) units it dropped for
-    capacity, on the device (no sync)."""
+    capacity, on the device (no sync). mesh: its MoEMesh on a mesh."""
 
     def __init__(self, cfg: LLMConfig, dtype, device):
         super().__init__()
@@ -315,6 +344,7 @@ class MoEMLP(nn.Module):
                                 bias=False, dtype=dtype, device=device)
         self.experts = Experts(cfg, dtype, device)
         self.drop_count: Optional[torch.Tensor] = None
+        self.mesh: Optional[MoEMesh] = None
 
     def forward(self, x, token_valid=None):
         y, aux, dropped = moe_mlp(self, x, self.cfg, token_valid)
@@ -324,17 +354,27 @@ class MoEMLP(nn.Module):
 
 
 def moe_dispatch(top_idx: torch.Tensor, valid: torch.Tensor, num_experts: int,
-                 capacity_factor: float):
+                 capacity_factor: float, before: Optional[torch.Tensor] = None,
+                 units_total: Optional[int] = None,
+                 experts: Optional[Tuple[int, int]] = None):
     """The static-capacity assignment of JAX _moe_mlp. top_idx [T, k]
     expert per (token, slot) unit, valid [T] f32 (1 = a real token).
     Units sort stably by expert id (invalid units to a virtual expert E
     past every real one), so an expert's units keep their arrival order
-    and the first C = max(ceil(factor * T*k / E), 1) of them are kept.
-    Returns (order [U] the sort, slot [U] each sorted unit's row of the
-    [E*C (+1 junk)] buffer, keep [U] sorted units kept, C)."""
+    and the first C = max(ceil(factor * U / E), 1) of them are kept, U =
+    T*k. On a mesh these T rows are one data rank's block of the batch:
+    units_total is the whole batch's U, and before [E] the valid units of
+    each expert on the earlier blocks, which come first in the arrival
+    order (JAX's one stable sort over the concatenated batch keeps the
+    same units). experts (first, count): the experts whose buffer rows
+    this rank holds (all of them by default). Returns (order [U] the
+    sort, slot [U] each sorted unit's row of the [count*C (+1 junk)]
+    buffer, the junk row for a unit dropped or of another rank's expert,
+    keep [U] sorted units kept, C)."""
     t, k = top_idx.shape
     units = t * k
-    cap = max(int(math.ceil(capacity_factor * units / num_experts)), 1)
+    cap = max(int(math.ceil(capacity_factor * (units_total or units)
+                            / num_experts)), 1)
     unit_valid = (valid[:, None] > 0).expand(t, k).reshape(units)
     sort_key = torch.where(unit_valid, top_idx.reshape(units), num_experts)
     order = torch.argsort(sort_key, stable=True)
@@ -343,11 +383,24 @@ def moe_dispatch(top_idx: torch.Tensor, valid: torch.Tensor, num_experts: int,
                          device=top_idx.device).scatter_add_(
         0, sort_key, torch.ones_like(sort_key))   # bincount syncs on CUDA
     starts = torch.cumsum(counts, 0) - counts
+    if before is not None:
+        starts = starts - torch.cat([before, before.new_zeros(1)])
     rank = torch.arange(units, device=top_idx.device) - starts[sorted_e]
     keep = (rank < cap) & (sorted_e < num_experts)
-    slot = torch.where(keep, sorted_e * cap + rank.clamp(0, cap - 1),
-                       num_experts * cap)
+    first, count = experts or (0, num_experts)
+    mine = keep & (sorted_e >= first) & (sorted_e < first + count)
+    slot = torch.where(mine, (sorted_e - first) * cap + rank.clamp(0, cap - 1),
+                       count * cap)
     return order, slot, keep, cap
+
+
+def expert_counts(top_idx: torch.Tensor, valid: torch.Tensor,
+                  num_experts: int) -> torch.Tensor:
+    """[E] valid units routed to each expert."""
+    unit_valid = (valid[:, None] > 0).expand_as(top_idx)
+    return torch.zeros(num_experts, dtype=torch.long,
+                       device=top_idx.device).scatter_add_(
+        0, top_idx[unit_valid], torch.ones_like(top_idx[unit_valid]))
 
 
 def moe_mlp(mlp: MoEMLP, x: torch.Tensor, cfg: LLMConfig, token_valid=None):
@@ -360,35 +413,73 @@ def moe_mlp(mlp: MoEMLP, x: torch.Tensor, cfg: LLMConfig, token_valid=None):
         aux = E * sum_e (sum_slots mean_valid mask_e) * mean_valid P_e.
     Dispatch and combine go through an [E*C + 1, H] buffer (the last row
     takes the dropped units and is never read); the products over the
-    experts are batched matmuls."""
+    experts are batched matmuls.
+
+    On a mesh (mlp.mesh) it keeps JAX's global semantics over the data
+    ranks' blocks of the batch: C from the whole batch's units, each
+    unit's place in its expert after the earlier blocks' units (their
+    per-expert counts all-gathered), the aux loss from the means over
+    the whole batch (its sums all-reduced, differentiably) and returned
+    as this rank's share 1/data (the ranks' losses sum to the loss), and
+    dropped counting the whole batch's units. Each ep rank computes its
+    E/ep experts: the tokens reach them through to_tp and their outputs
+    are summed over ep by from_tp before the routing weights multiply
+    them, so the router's gradient is whole on every rank."""
     b, s, h = x.shape
     t = b * s
     k, e = cfg.num_experts_per_tok, cfg.num_experts
+    mesh = mlp.mesh
+    split = mesh is not None and mesh.split_rows
     xf = x.reshape(t, h)
     probs = torch.softmax(F.linear(xf, mlp.router.weight).float(), dim=-1)
     top_vals, top_idx = torch.topk(probs, k, dim=-1)
     weights = top_vals / top_vals.sum(-1, keepdim=True).clamp_min(1e-9)
     valid = (torch.ones(t, device=x.device) if token_valid is None
              else token_valid.reshape(t).float())
-    n_valid = valid.sum().clamp_min(1.0)
     sel = F.one_hot(top_idx, e).float() * valid[:, None, None]
-    f = sel.sum(dim=(0, 1)) / n_valid
-    p_mean = (probs * valid[:, None]).sum(dim=0) / n_valid
-    aux = e * (f * p_mean).sum()
+    sums = torch.cat([sel.sum(dim=(0, 1)), (probs * valid[:, None]).sum(0),
+                      valid.sum()[None]])
+    before = units_total = None
+    if split:
+        from ...parallel.comm import all_reduce_sum, gather_counts
+        sums = all_reduce_sum(sums, mesh.data_group)
+        counts = gather_counts(expert_counts(top_idx, valid, e),
+                               mesh.data_rank, mesh.data, mesh.data_group)
+        before = counts[:mesh.data_rank].sum(0)
+        units_total = t * k * mesh.data
+    n_valid = sums[-1].clamp_min(1.0)
+    aux = e * ((sums[:e] / n_valid) * (sums[e:2 * e] / n_valid)).sum()
+    if mesh is not None and mesh.data > 1:
+        aux = aux / mesh.data
 
+    ep = mesh.ep if mesh is not None else 1
+    per = e // ep
+    first = mesh.ep_rank * per if ep > 1 else 0
     order, slot, keep, cap = moe_dispatch(top_idx, valid, e,
-                                          cfg.moe_capacity_factor)
+                                          cfg.moe_capacity_factor, before,
+                                          units_total, (first, per))
+    if ep > 1:
+        from ...parallel.comm import from_tp, to_tp
+        xf = to_tp(xf, mesh.ep_group)
+    from ...parallel.sharding import local
     xu = xf.repeat_interleave(k, dim=0)                      # [U, H]
-    buf = x.new_zeros(e * cap + 1, h).index_put((slot,), xu[order])
-    xe = buf[:e * cap].view(e, cap, h)
+    buf = x.new_zeros(per * cap + 1, h).index_put((slot,), xu[order])
+    xe = buf[:per * cap].view(per, cap, h)
     ex = mlp.experts
-    hidden = F.silu(torch.bmm(xe, ex.gate)) * torch.bmm(xe, ex.up)
-    de = torch.bmm(hidden, ex.down).reshape(e * cap, h)
+    hidden = (F.silu(torch.bmm(xe, local(ex.gate)))
+              * torch.bmm(xe, local(ex.up)))
+    de = torch.bmm(hidden, local(ex.down)).reshape(per * cap, h)
     de = torch.cat([de, de.new_zeros(1, h)], dim=0)
-    yu_sorted = torch.where(keep[:, None], de[slot], 0.0).to(x.dtype)
+    yu_sorted = torch.where((slot < per * cap)[:, None], de[slot],
+                            0.0).to(x.dtype)
     yu = torch.empty_like(yu_sorted).index_put((order,), yu_sorted)
+    if ep > 1:
+        yu = from_tp(yu, mesh.ep_group)
     y = (yu * weights.reshape(-1, 1).to(x.dtype)).view(t, k, h).sum(dim=1)
     dropped = (valid > 0).sum() * k - keep.sum()
+    if split:
+        from ...parallel.comm import all_reduce_
+        dropped = all_reduce_(dropped.clone(), mesh.data_group)
     return y.view(b, s, h), aux, dropped
 
 
@@ -467,7 +558,10 @@ class DecoderLayer(nn.Module):
             k, v = cache_read(cache_entry, x.dtype)
         group = self._s2_group(s, train, cache_entry is not None)
         if group:
-            attn = s2_attention(q, k, v, attention_mask, group)
+            tp = self.attn["q"].tp
+            attn = s2_attention(q, k, v, attention_mask, group,
+                                0 if tp is None else tp.rank * q.shape[2],
+                                cfg.num_heads)
         else:
             attn = attention(q, k, v, mask, self.attn_scale,
                              cfg.attn_logit_softcap)
@@ -526,6 +620,8 @@ class LLM(nn.Module):
     # tensor parallelism (parallel/sharding.py shard_llm): the vocab TP
     # role, whose logits are gathered over the tp ranks
     tp = None
+    # an MoE LLM on a mesh: the MoEMesh its MoE layers share
+    moe_mesh = None
 
     def __init__(self, cfg: LLMConfig, dtype=torch.bfloat16, device=None,
                  quant: Optional[Tuple[str, int]] = None):

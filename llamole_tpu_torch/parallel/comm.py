@@ -9,6 +9,17 @@ rank's local shards (arXiv 1909.08053, section 3):
   from_tp   all-reduce forward, identity backward: partial products of
             row-sharded weights summed into the replicated activation.
 
+The expert-parallel MoE (models/gllm/model.py moe_mlp) runs the same
+pair over the ep axis: to_tp brings the tokens to this rank's experts,
+from_tp sums the ranks' expert outputs. `all_reduce_sum` is the sum
+over a group whose every rank goes on to its own loss (its backward
+sums the ranks' gradients: the router's load-balancing statistics over
+the data group), and `gather_counts` all-gathers a small integer vector
+(the per-expert unit counts) in a given rank order. `ring_exchange` is
+ring attention's rotation step (ops/ring_attention.py): each rank sends
+its tensors to the next rank of the ring and receives the previous
+rank's, point to point.
+
 `gather_last` all-gathers the vocab-sharded logits (its backward takes
 this rank's slice back); DoRA's row norm under row-parallel o / down
 sums its squares in models/gllm/lora.py. The other helpers are the
@@ -70,6 +81,21 @@ class _GatherLast(torch.autograd.Function):
         return grad[..., ctx.rank * w:(ctx.rank + 1) * w], None, None, None
 
 
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        x = x.contiguous().clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
 def to_tp(x: torch.Tensor, group) -> torch.Tensor:
     return _ToTP.apply(x, group)
 
@@ -81,6 +107,44 @@ def from_tp(x: torch.Tensor, group) -> torch.Tensor:
 def gather_last(x: torch.Tensor, group, size: int, rank: int
                 ) -> torch.Tensor:
     return _GatherLast.apply(x, group, size, rank)
+
+
+def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of x over the group on every rank, differentiable when
+    each rank's result feeds a loss of its own: the gradient of x is the
+    sum of the ranks' gradients of the result."""
+    return _AllReduceSum.apply(x, group)
+
+
+def gather_counts(counts: torch.Tensor, order: int, size: int,
+                  group) -> torch.Tensor:
+    """[size, n] of every rank's integer vector counts [n], row i being
+    the rank whose `order` is i (a group's rank order need not be the
+    mesh coordinate's)."""
+    mine = torch.cat([counts.new_tensor([order]), counts])
+    parts = [torch.empty_like(mine) for _ in range(size)]
+    dist.all_gather(parts, mine, group=group)
+    rows = torch.stack(parts)
+    return rows[rows[:, 0].argsort()][:, 1:]
+
+
+def ring_exchange(tensors: Sequence[torch.Tensor], group
+                  ) -> List[torch.Tensor]:
+    """One step of a ring: each tensor sent to the next rank of the group
+    (group rank i to i + 1, the last to the first), the previous rank's
+    received in its place, in one batch of point-to-point operations."""
+    size = dist.get_world_size(group)
+    me = dist.get_rank(group)
+    nxt = dist.get_global_rank(group, (me + 1) % size)
+    prv = dist.get_global_rank(group, (me - 1) % size)
+    out = [torch.empty_like(t) for t in tensors]
+    ops = []
+    for t, r in zip(tensors, out):
+        ops.append(dist.P2POp(dist.isend, t.contiguous(), nxt, group))
+        ops.append(dist.P2POp(dist.irecv, r, prv, group))
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return out
 
 
 def all_reduce_(t: torch.Tensor, group=None) -> torch.Tensor:

@@ -2,12 +2,20 @@
 (counterpart of __graft_entry__.py's legs, beside it):
 `dryrun_multichip(n)` starts n gloo ranks on the CPU and runs, through
 run_mmsft on the tiny smoke config (config/smoke/tiny_train.yaml), the
-dp x tp step, ZeRO-1, ZeRO-3, the dcn x dp step and the pipeline (pp:2
-over the rest as dp, 2 microbatches); then on the tiny config's GraphLM
-the dp inference leg (design_molecule on dp:n, a batch of n + 1 rows),
-the tp design leg (dp:2 x tp:n/2, 3 rows) and the dp retro leg
-(batched_one_step_reaction on dp:n, 5 products); each held to the same
-run without a mesh (every rank builds the same model from the seed),
+dp x tp step, ZeRO-1, ZeRO-3, the dcn x dp step, the pipeline (pp:2
+over the rest as dp, 2 microbatches), the sp x dp step (the ranks along
+sp repeat it), the dp x tp step with shift_attn (S²-attn, its heads
+split over tp; held to the same run without a mesh) and the MoE step
+on ep:2 over the rest as dp (the tiny config with 4 experts, top-2, at
+a capacity factor that drops units; held to the same MoE run without a
+mesh); the ring-sp leg (a training
+step of ring attention on sp:2 over the rest as dp, its loss and
+gradients held to the whole sequence's on one rank); then on the tiny
+config's GraphLM the dp inference leg (design_molecule on dp:n, a batch
+of n + 1 rows), the tp design leg (dp:2 x tp:n/2, 3 rows), the MoE
+design leg (the MoE GraphLM on dp:2 x ep:n/2, 4 rows) and the dp retro
+leg (batched_one_step_reaction on dp:n, 5 products); each held to the
+same run without a mesh (every rank builds the same model from the seed),
 each printing its "dryrun ... OK" line, then "dryrun_multichip OK".
 
 `launch(target, n, ...)` is the harness: n processes of
@@ -122,7 +130,13 @@ def _worker(target: str, rank: int, world: int, work: str) -> None:
 
 # -- the legs ------------------------------------------------------------------
 
-def _tiny_args(mesh: str, zero: int, **training):
+# the MoE legs' model: the tiny LLM with 4 experts, top-2 (JAX's moe-ep
+# leg's), at a capacity factor under 1 so that units drop
+MOE = {"num_experts": 4, "num_experts_per_tok": 2}
+MOE_CAPACITY = 0.75
+
+
+def _tiny_args(mesh: str, zero: int, model=None, **training):
     from dataclasses import replace
 
     from ..config import get_train_args
@@ -131,7 +145,7 @@ def _tiny_args(mesh: str, zero: int, **training):
     # divides it, so no padding row changes the design branch's draws
     # f32, so a mesh's other summation order stays within 1e-5; a
     # constant learning rate, so the first update moves the adapter
-    args[0] = replace(args[0], compute_dtype="float32")
+    args[0] = replace(args[0], compute_dtype="float32", **(model or {}))
     args[1] = replace(args[1], max_samples=4)
     args[2] = replace(args[2], output_dir=None, mesh=mesh, zero_stage=zero,
                       per_device_train_batch_size=4,
@@ -142,9 +156,10 @@ def _tiny_args(mesh: str, zero: int, **training):
     return args
 
 
-def _losses(mesh: str, zero: int):
+def _losses(mesh: str, zero: int, model=None):
     """(each micro step's loss, the Trainer, the GraphLM placed on the
-    mesh or None) of run_mmsft on the tiny config."""
+    mesh or None) of run_mmsft on the tiny config with the model
+    arguments `model` (MOE's experts run at MOE_CAPACITY)."""
     from ..train import trainer as trainer_mod
     from ..train.workflow import run_mmsft
     from . import sharding
@@ -163,8 +178,17 @@ def _losses(mesh: str, zero: int):
         return place(model, groups, zero3)
     trainer_mod.Trainer._micro_step = record
     sharding.shard_graph_lm = placed
+    args = _tiny_args(mesh, zero, model)
+    build = None
+    if model and model.get("num_experts"):
+        from ..models.loader import build_graph_lm
+        model, tok = build_graph_lm(args[0], args[1], args[3], device="cpu",
+                                    seed=args[2].seed)
+        model.llm.cfg.moe_capacity_factor = MOE_CAPACITY
+        models[:] = [model]
+        build = (model, tok)
     try:
-        run_mmsft(*_tiny_args(mesh, zero), device="cpu")
+        run_mmsft(*args, device="cpu", prebuilt=build)
     finally:
         trainer_mod.Trainer._micro_step = step
         sharding.shard_graph_lm = place
@@ -207,25 +231,106 @@ def _legs(rank: int, world: int, payload) -> Dict[str, Any]:
     if world % 2 == 0:
         legs[f"dcn=2 dp={world // 2}"] = (f"dcn:2,dp:{world // 2}", 0)
         legs["pipeline"] = (f"pp:2,dp:{world // 2}", 0)
+        legs[f"sp=2 dp={world // 2}"] = (f"dp:{world // 2},sp:2", 0)
     out = {"plain": plain}
     for name, (mesh, zero) in legs.items():
         got, trainer, model = _losses(mesh, zero)
         _check(name, got, plain)
         _check_placement(name, trainer, model, zero)
         out[name] = got
+    if world % 2 == 0:     # S²-attn with its heads split over tp
+        from ..models.gllm.model import s2_attention
+        s2 = {"shift_attn": True}
+        out["plain s2"] = _losses("", 0, s2)[0]
+        calls = s2_attention.calls
+        out["s2 tp"] = _losses(f"dp:{world // 2},tp:2", 0, s2)[0]
+        _check("s2 tp", out["s2 tp"], out["plain s2"])
+        if s2_attention.calls == calls:
+            raise RuntimeError("s2 tp: S²-attn did not run")
+        out["plain moe"], _, model = _losses("", 0, MOE)
+        got, _, model = _losses(f"ep:2,dp:{world // 2}", 0, MOE)
+        _check("moe-ep", got, out["plain moe"])
+        experts = model.llm.layers[0].mlp.experts.gate
+        if experts.to_local().shape[0] * 2 != experts.shape[0]:
+            raise RuntimeError("moe-ep: the experts are not split over ep")
+        out["moe-ep"] = got
+        out["ring-sp"] = _ring_leg(world)
     out["inference"] = _inference_legs(world)
     return out
 
 
-def _tiny_model(mesh: str = ""):
-    """The tiny config's GraphLM (f32, from its seed) and, with mesh, its
-    MeshGroups with the LLM placed on the tp axis."""
+def _ring_qkv(b: int, s: int):
+    """The ring-sp leg's q, k, v, target (JAX's leg's shapes, from seed
+    0) and key mask (the last 4 keys of row 0 padded)."""
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(0)
+    arrs = [torch.tensor(rng.normal(size=(b, s, 2, 8)), dtype=torch.float32)
+            for _ in range(4)]
+    mask = torch.ones((b, s), dtype=torch.int32)
+    mask[0, -4:] = 0
+    return arrs, mask
+
+
+def _ring_step(q, k, v, target, mask, count, group=None):
+    """The leg's loss (its squared error over `count` elements of the
+    whole batch) and the gradients of q, k and v."""
+    import torch
+
+    from ..ops.ring_attention import ring_attention
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = ring_attention(*leaves, mask, group)
+    loss = ((out - target) ** 2).sum() / count
+    loss.backward()
+    return loss.detach(), [t.grad for t in leaves]
+
+
+def _ring_leg(world: int) -> Dict[str, Any]:
+    """JAX's ring-sp leg: a training step of ring attention on dp x sp
+    (sp = 2; rows over dp, the sequence over sp) against the whole batch
+    on one rank. Returns the loss, the mesh-less loss and the largest
+    gradient gap."""
+    import torch
+
+    from .comm import all_gather_dim, all_reduce_
+    from .mesh import MeshGroups, mesh_from_string
+    sp, dp = 2, world // 2
+    groups = MeshGroups(mesh_from_string(f"dp:{dp},sp:{sp}", "cpu"))
+    b, s = 2 * dp, 32
+    (q, k, v, target), mask = _ring_qkv(b, s)
+    count = target.numel()
+    want, want_grads = _ring_step(q, k, v, target, mask, count)
+    rows = slice(groups.dp_rank * 2, groups.dp_rank * 2 + 2)
+    cols = slice(groups.sp_rank * (s // sp), (groups.sp_rank + 1) * (s // sp))
+    loss, grads = _ring_step(*(t[rows, cols] for t in (q, k, v, target)),
+                             mask[rows, cols], count, groups.sp_group)
+    loss = all_reduce_(all_reduce_(loss.clone(), groups.sp_group),
+                       groups.dp_group)
+    gap = 0.0
+    for g, w in zip(grads, want_grads):
+        whole = all_gather_dim(all_gather_dim(g, 1, sp, groups.sp_group), 0,
+                               dp, groups.dp_group)
+        gap = max(gap, float((whole - w).abs().max()))
+    if not torch.isfinite(loss) or abs(float(loss) - float(want)) > 1e-5 \
+            or gap > 1e-5:
+        raise RuntimeError(f"ring-sp: loss {float(loss)} (mesh-less "
+                           f"{float(want)}), gradient gap {gap}")
+    return {"sp": sp, "dp": dp, "loss": float(loss),
+            "plain": float(want), "grad_gap": gap}
+
+
+def _tiny_model(mesh: str = "", moe: bool = False):
+    """The tiny config's GraphLM (f32, from its seed; moe: with MOE's
+    experts at MOE_CAPACITY) and, with mesh, its MeshGroups with the LLM
+    placed on the tp axis (and the experts on ep)."""
     from ..models.loader import build_graph_lm
     from .mesh import MeshGroups, mesh_from_string
     from .sharding import shard_llm
-    args = _tiny_args("", 0)
+    args = _tiny_args("", 0, MOE if moe else None)
     model, _ = build_graph_lm(args[0], args[1], args[3], device="cpu",
                               seed=args[2].seed, generate_mode=True)
+    if moe:
+        model.llm.cfg.moe_capacity_factor = MOE_CAPACITY
     if not mesh:
         return model, None
     groups = MeshGroups(mesh_from_string(mesh, "cpu"))
@@ -291,6 +396,15 @@ def _inference_legs(world: int) -> List[str]:
         lines.append(f"dryrun tp-design OK: mesh dp={dp} tp={tp}, batch "
                      f"{dp + 1}, {_assembled(got)}/{dp + 1} assembled == "
                      "mesh-less")
+        # an MoE GraphLM: every forward routes over both dp blocks
+        ep = world // 2
+        want = _design(_tiny_model(moe=True)[0], 2 * dp)
+        model, groups = _tiny_model(f"dp:{dp},ep:{ep}", moe=True)
+        got = _design(model, 2 * dp, groups)
+        _same("moe design", got, want)
+        lines.append(f"dryrun moe-design OK: mesh dp={dp} ep={ep}, batch "
+                     f"{2 * dp}, {_assembled(got)}/{2 * dp} assembled == "
+                     "mesh-less")
     want = _retro(_tiny_model()[0])
     model, groups = _tiny_model(f"dp:{world}")
     got = _retro(model, groups)
@@ -326,7 +440,21 @@ def dryrun_multichip(n: int = 4, timeout: float = 120.0,
                   f"loss={losses[-1]:.4f} == mesh-less "
                   f"{legs['plain'][-1]:.4f} ({len(losses)} micro steps, 2 "
                   "microbatches)")
-        elif name not in ("plain", "inference"):
+        elif name == "moe-ep":     # JAX's line
+            print(f"dryrun moe-ep OK: mesh ep=2 dp={n // 2}, "
+                  f"loss={losses[-1]:.4f} == mesh-less "
+                  f"{legs['plain moe'][-1]:.4f} ({len(losses)} micro steps, "
+                  f"capacity factor {MOE_CAPACITY})")
+        elif name == "s2 tp":
+            print(f"dryrun s2-tp OK: mesh dp={n // 2} tp=2, shift_attn, "
+                  f"{len(losses)} micro steps, loss {losses[-1]:.4f} == "
+                  f"mesh-less {legs['plain s2'][-1]:.4f}")
+        elif name == "ring-sp":    # JAX's line
+            print(f"dryrun ring-sp OK: mesh sp={losses['sp']} "
+                  f"dp={losses['dp']}, loss={losses['loss']:.4f} == "
+                  f"mesh-less {losses['plain']:.4f} (gradients within "
+                  f"{losses['grad_gap']:.1e})")
+        elif name not in ("plain", "plain moe", "plain s2", "inference"):
             print(f"dryrun {name} OK: {len(losses)} micro steps, loss "
                   f"{losses[-1]:.4f} == mesh-less {legs['plain'][-1]:.4f}")
     for line in legs["inference"]:

@@ -20,7 +20,10 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-ITEM_9C = "ROADMAP.md Queue 1 item 9c"
+# the mesh placements JAX runs that the port does not yet: a quantized
+# LLM, the per-head q / k norms trained under tp, ZeRO-3 with tied
+# embeddings
+ITEM_9D = "ROADMAP.md Queue 1 item 9d"
 AXES = ("dcn", "pp", "dp", "ep", "sp", "tp")
 
 
@@ -37,15 +40,6 @@ def parse_mesh(spec: str) -> Dict[str, int]:
                 raise ValueError(f"unknown mesh axis {name!r}")
             dims[name] = int(num)
     return dims
-
-
-def check_training_axes(dims: Dict[str, int]) -> None:
-    """Mesh training runs dcn, pp, dp and tp; sp and ep raise."""
-    refused = [n for n in ("sp", "ep") if dims.get(n, 1) > 1]
-    if refused:
-        raise NotImplementedError(
-            f"mesh axes {refused}: ring attention and MoE expert "
-            f"parallelism are {ITEM_9C}")
 
 
 def mesh_layout(dp: int = 1, tp: int = 1, sp: int = 1, pp: int = 1,
@@ -168,14 +162,20 @@ def _free_port() -> int:
 class MeshGroups:
     """What the trainer, the optimizer, the loss and the inference legs
     need of a mesh: each axis's size, this rank's coordinate, the tp
-    group, the pp group (None without a pp axis), and the data group
-    over (dcn, dp) together (the gradient reduction's)."""
+    group, the pp, ep and sp groups (None without their axis), and the
+    data group over (dcn, dp) together (the gradient reduction's).
+
+    As in JAX, a batch's rows shard over (dcn, dp) only: ep shards the
+    MoE experts (the ranks along it hold the same rows and sum their
+    experts' outputs), and sp carries ring attention's sequence shards
+    (ops/ring_attention.py); a training step holds no sp work of its own,
+    so the ranks along sp repeat it and the loss's data group stays
+    (dcn, dp)."""
 
     def __init__(self, mesh):
         self.mesh = mesh
         names = tuple(mesh.mesh_dim_names)
         self.size = dict(zip(names, mesh.mesh.shape))
-        check_training_axes(self.size)
         coord = mesh.get_coordinate()
         self.coord = dict(zip(names, coord))
         self.dp, self.tp = self.size["dp"], self.size["tp"]
@@ -184,6 +184,11 @@ class MeshGroups:
         self.dp_rank, self.tp_rank = self.coord["dp"], self.coord["tp"]
         self.pp_rank = self.coord.get("pp", 0)
         self.pp_group = mesh.get_group("pp") if self.pp > 1 else None
+        self.ep, self.sp = self.size.get("ep", 1), self.size.get("sp", 1)
+        self.ep_rank = self.coord.get("ep", 0)
+        self.sp_rank = self.coord.get("sp", 0)
+        self.ep_group = mesh.get_group("ep") if self.ep > 1 else None
+        self.sp_group = mesh.get_group("sp") if self.sp > 1 else None
         self.tp_group = mesh.get_group("tp")
         self.dp_group = mesh.get_group("dp")
         self.dcn_group = mesh.get_group("dcn") if self.dcn > 1 else None
@@ -191,7 +196,7 @@ class MeshGroups:
         self.data_rank = self.coord.get("dcn", 0) * self.dp + self.dp_rank
         self.data_group = (self._flat_group(("dcn", "dp")) if self.dcn > 1
                            else self.dp_group)
-        self.world = self.data * self.tp * self.pp
+        self.world = self.data * self.tp * self.pp * self.ep * self.sp
 
     def _flat_group(self, axes) -> "dist.ProcessGroup":
         """The process group over `axes` together that holds this rank

@@ -370,15 +370,21 @@ def gather_stages(model, groups) -> None:
             dist.broadcast(local_data(t), src, group=groups.pp_group)
 
 
+def every_stage(obj, groups) -> list:
+    """Each pp rank's picklable `obj`, in stage order (an object
+    all-gather over the pp group)."""
+    every = [None] * groups.pp
+    dist.all_gather_object(every, obj, group=groups.pp_group)
+    return every
+
+
 def gather_stage_dicts(parts: Dict[str, torch.Tensor], groups
                        ) -> Dict[str, torch.Tensor]:
     """{name: tensor} of this pp rank joined with every other pp rank's
-    (a checkpoint's state): an object all-gather over the pp group, each
-    stage's own leaves taken from it (leaves replicated over pp are equal
-    on every stage)."""
-    host = {n: t.detach().cpu() for n, t in parts.items()}
-    every = [None] * groups.pp
-    dist.all_gather_object(every, host, group=groups.pp_group)
+    (a checkpoint's state), each stage's own leaves taken from it (leaves
+    replicated over pp are equal on every stage)."""
+    every = every_stage({n: t.detach().cpu() for n, t in parts.items()},
+                        groups)
     dev = next(iter(parts.values())).device if parts else None
     out = {}
     for stage_parts in every:

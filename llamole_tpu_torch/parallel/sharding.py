@@ -12,7 +12,7 @@ JAX leaf (weights.py's bridge: a projection's [in, out], the port's
                      (tp, None), the embedding vocab-sharded (tp, None),
                      lm_head on its vocab dimension (None, tp); norms,
                      biases and the router replicated (()); MoE experts
-                     on ep when it is given.
+                     on ep when it is given (replicated otherwise).
   zero1_opt_pspecs   ZeRO-1: dp on the largest dp-divisible dimension of
                      each optimizer-state leaf (ties: the later one).
   fsdp_param_pspecs  ZeRO-3: dp on the largest dp-divisible dimension not
@@ -23,11 +23,13 @@ JAX leaf (weights.py's bridge: a projection's [in, out], the port's
 port's orientation. `shard_llm` places the LLM on the tp axis (the
 adapter factor on a projection's sharded side follows its base weight:
 B [out, r] of a column-parallel projection, A [r, in] of a row-parallel
-one, DoRA's magnitude and a column-parallel bias on out): the sharded
-leaves become DTensors, the replicated ones stay plain tensors; and `fsdp_llm` shards the frozen LLM's storage over dp with
-FSDP2's fully_shard, one unit per decoder layer plus the embedding and
-the head, `shard_placement_fn` following fsdp_param_pspecs and the
-leaves that spec leaves replicated (norms, the adapter) ignored.
+one, DoRA's magnitude and a column-parallel bias on out) and an MoE
+LLM's experts on the ep axis: the sharded leaves become DTensors, the
+replicated ones stay plain tensors; and `fsdp_llm` shards the frozen
+LLM's storage over dp with FSDP2's fully_shard, one unit per decoder
+layer plus the embedding and the head, `shard_placement_fn` following
+fsdp_param_pspecs (with ep composed) and the leaves that spec leaves
+replicated (norms, the adapter) ignored.
 """
 
 from dataclasses import dataclass
@@ -37,7 +39,7 @@ import torch
 from torch import nn
 
 from ..weights import _llm_path
-from .mesh import ITEM_9C
+from .mesh import ITEM_9D
 
 Spec = Tuple[Optional[str], ...]
 
@@ -209,27 +211,31 @@ def _adapter_spec(owner_style: str, leaf: str) -> Optional[int]:
 def shard_llm(llm: nn.Module, groups) -> None:
     """Place the LLM's parameters on the tp axis as DTensors (every rank
     holds the same full LLM before; each keeps its chunks) and give each
-    projection, the embedding and the head their TP role. Refuses what
-    the tensor-parallel forward does not cover."""
+    projection, the embedding and the head their TP role. An MoE LLM's
+    experts split their expert dimension over ep (whole on every rank
+    when ep is 1) and its MoE layers get their MoEMesh (models/gllm/
+    model.py moe_mlp: routing over the data ranks, experts over ep);
+    the router stays replicated. Refuses what the tensor-parallel
+    forward does not cover."""
     from torch.distributed.tensor import DTensor, Shard
     from ..models.gllm.lora import LoRALinear
+    from ..models.gllm.model import MoEMesh
     cfg = llm.cfg
     tp = groups.tp
-    if cfg.num_experts > 0:
-        raise NotImplementedError(f"MoE LLMs on a mesh: {ITEM_9C} (expert "
-                                  "parallelism)")
+    ep = getattr(groups, "ep", 1)
     if llm.quant is not None or any(
             isinstance(m, LoRALinear) and m.quant is not None
             for m in llm.modules()):
-        raise NotImplementedError("a quantized LLM on a mesh is not ported")
-    if cfg.shift_attn and tp > 1:
-        raise NotImplementedError(f"S²-attn under tp > 1: {ITEM_9C}")
+        raise NotImplementedError(f"a quantized LLM on a mesh: {ITEM_9D}")
     if cfg.qk_norm and tp > 1 and any(
             p.requires_grad for n, p in llm.named_parameters()
             if "q_norm" in n or "k_norm" in n):
         # their one [head_dim] scale is shared by heads on every rank
         raise NotImplementedError("training the per-head q / k norms under "
-                                  "tp > 1 is not ported")
+                                  f"tp > 1: {ITEM_9D}")
+    if cfg.num_experts % ep:
+        raise ValueError(f"ep={ep} does not divide the experts "
+                         f"({cfg.num_experts})")
     for what, n in (("attention heads", cfg.num_heads),
                     ("kv heads", cfg.num_kv_heads),
                     ("intermediate size", cfg.intermediate_size),
@@ -239,6 +245,12 @@ def shard_llm(llm: nn.Module, groups) -> None:
     mesh = groups.mesh["tp"]
     specs = llm_param_pspecs({n: p for n, p in llm.named_parameters()
                               if "lora_" not in n})
+    if cfg.num_experts > 0:
+        llm.moe_mesh = MoEMesh(groups.data_group, groups.data,
+                               groups.data_rank, groups.ep_group, ep,
+                               groups.ep_rank)
+        for layer in llm.layers:
+            layer.mlp.mesh = llm.moe_mesh
     role = {}
     for name, m in llm.named_modules():
         if isinstance(m, LoRALinear):
@@ -253,7 +265,11 @@ def shard_llm(llm: nn.Module, groups) -> None:
         owner, leaf = name.rsplit(".", 1)
         if isinstance(p, DTensor):
             continue
-        if specs.get(name):
+        if ".experts." in name:
+            if ep == 1:
+                continue     # whole on every rank
+            placed = _place(p.data, groups.mesh["ep"], [Shard(0)])
+        elif specs.get(name):
             placed = shard_params({name: p.data}, mesh, specs)[name]
         else:
             d = _adapter_spec(role.get(owner, ""), leaf)
@@ -275,10 +291,12 @@ def fsdp_llm(llm: nn.Module, groups) -> None:
     if llm.lm_head is None:
         raise NotImplementedError("ZeRO-3 with tied embeddings (the head "
                                   "reads the embedding outside its "
-                                  "module) is not ported")
+                                  f"module): {ITEM_9D}")
     names = {id(p): n for n, p in llm.named_parameters()}
     frozen = {n: p for n, p in llm.named_parameters() if not p.requires_grad}
-    specs = fsdp_param_pspecs(frozen, groups.dp, tp_axis="tp")
+    specs = fsdp_param_pspecs(frozen, groups.dp, tp_axis="tp",
+                              ep_axis="ep" if getattr(groups, "ep", 1) > 1
+                              else None)
     dims = {}
     for n, spec in specs.items():
         if "dp" in spec:

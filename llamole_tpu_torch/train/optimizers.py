@@ -56,8 +56,16 @@ one of the JAX leaf; under tp the largest free one if that is the tp
 dimension): the gradient is reduce-scattered, the clip reads the global
 norm, the update runs on this rank's chunk and the parameter is
 all-gathered. The gradients' reductions and the all-gather go in buckets
-(parallel/comm.py): one collective per bucket, not per parameter. GaLore needs whole gradients: on a mesh with tp > 1 or
-ZeRO-1 over dp > 1 it raises (ROADMAP.md item 9c).
+(parallel/comm.py): one collective per bucket, not per parameter. A leaf
+sharded over ep (an MoE expert) is summed over the data group like any
+other. GaLore on a part of a leaf (its tp shard, its ZeRO-1 chunk)
+gathers the leaf's whole gradient for the SVD at a refresh (every rank
+gets the same basis), projects its own part through the basis rows of
+its part, summing the partial products over the ranks that split the
+basis's side, and keeps its part of the projected moments (split on
+the other side). Beside a pp axis each stage's optimizer holds its own
+leaves; BAdam's blocks are dealt over every stage's names, as JAX's one
+optimizer over the whole tree deals them.
 """
 
 import contextlib
@@ -192,6 +200,14 @@ class AccumulatingAdamW:
         self.count = 0        # updates applied
         self.mini_step = 0    # micro steps in the current window
         self.groups = groups
+        # every pipeline stage's names (ours without pp): the checkpoints'
+        # view, as JAX's one optimizer over the whole tree
+        self.all_names = list(params)
+        if groups is not None and groups.pp > 1:
+            from ..parallel.pipeline import every_stage
+            self.all_names = list(dict.fromkeys(
+                n for names in every_stage(list(params), groups)
+                for n in names))
         self.shard_dim = ({n: zero1_dim(n, p, groups) for n, p in
                            params.items()} if zero1 and groups else {})
         self.last_grad_norm = float("nan")   # the last micro step's
@@ -249,7 +265,7 @@ class AccumulatingAdamW:
     def _copies(self, name: str) -> int:
         """How many ranks hold this name's optimizer part identically."""
         gr = self.groups
-        distinct = (gr.tp if tp_sharded(self.params[name]) else 1) * (
+        distinct = sharded_ways(self.params[name]) * (
             gr.dp if self.shard_dim.get(name) is not None else 1) * (
             gr.pp if self._staged(name) else 1)
         return gr.world // distinct
@@ -327,32 +343,29 @@ class AccumulatingAdamW:
                 local_data(self.params[n]).copy_(t)
 
     # -- whole state, for checkpoints ----------------------------------------
-    def _wholes(self, parts: Dict[str, torch.Tensor]
+    def _wholes(self, parts: Dict[str, torch.Tensor], key: str = "acc"
                 ) -> Dict[str, torch.Tensor]:
-        """This rank's parts of the names' state -> the whole tensors (the
-        ranks' ZeRO-1 chunks gathered in bucketed calls, tensor-parallel
-        shards joined: collectives on a mesh). GaLore's leaves, which
-        run only where their state is whole, are taken as they are."""
+        """This rank's parts of the names' state `key` -> the whole
+        tensors (the ranks' ZeRO-1 chunks gathered in bucketed calls,
+        tensor-parallel shards joined: collectives on a mesh)."""
         from ..parallel.comm import all_gather_many
         from ..parallel.sharding import full
-        whole = getattr(self, "galore_names", ())
-        dims = {n: d for n, d in self._sharded().items()
-                if n in parts and n not in whole}
+        dims = {n: d for n, d in self._sharded().items() if n in parts}
         out = dict(parts)
         if dims:
             out.update(all_gather_many({n: parts[n] for n in dims}, dims,
                                        self.groups.dp, self.groups.dp_group))
         for n, t in out.items():
             p = self.params[n]
-            if tp_sharded(p) and n not in whole:
+            if tp_sharded(p):
                 from torch.distributed.tensor import DTensor
                 out[n] = full(DTensor.from_local(
                     t, p.device_mesh, p.placements, run_check=False,
                     shape=p.shape, stride=p.stride()))
         return out
 
-    def _part(self, name: str, whole: torch.Tensor,
-              zero1: bool = True) -> torch.Tensor:
+    def _part(self, name: str, whole: torch.Tensor, zero1: bool = True,
+              key: str = "acc") -> torch.Tensor:
         """_wholes' inverse for one name: this rank's part of a whole
         tensor (zero1 False: its tensor-parallel shard, as the parameter
         holds it)."""
@@ -373,16 +386,17 @@ class AccumulatingAdamW:
 
     @contextlib.contextmanager
     def whole_state(self, load: bool = False):
-        """Inside the block the state (acc, mu, nu) holds whole tensors,
-        as the mesh-less optimizer's; with load, what the block wrote
-        into them is taken back into this rank's parts after it. Without
-        a mesh the state as it is."""
+        """Inside the block the state (acc, mu, nu and EXTRA_STATE) holds
+        whole tensors, as the mesh-less optimizer's, of every pipeline
+        stage's leaves; with load, what the block wrote into them is
+        taken back into this rank's parts after it. Without a mesh the
+        state as it is."""
         if self.groups is None:
             yield
             return
-        parts = {k: getattr(self, k) for k in self.STATE}
+        parts = {k: getattr(self, k) for k in self.STATE + self.EXTRA_STATE}
         for k, d in parts.items():
-            whole = self._wholes(d)
+            whole = self._wholes(d, k)
             if self.groups.pp > 1:    # and every pipeline stage's leaves
                 from ..parallel.pipeline import gather_stage_dicts
                 whole = gather_stage_dicts(whole, self.groups)
@@ -393,7 +407,7 @@ class AccumulatingAdamW:
                 for k, d in parts.items():
                     whole = getattr(self, k)
                     for n, t in d.items():
-                        t.copy_(self._part(n, whole[n]))
+                        t.copy_(self._part(n, whole[n], key=k))
         finally:
             for k, d in parts.items():
                 setattr(self, k, d)
@@ -478,34 +492,70 @@ class CustomAdamW(AccumulatingAdamW):
             n for n, p in params.items()
             if galore is not None and p.dim() == 2
             and min(p.shape) > galore.rank}
-        self.proj = {n: self._oriented_zeros(n, params[n], basis=True)
-                     for n in sorted(self.galore_names)}
         self.badam = badam
-        self.block = (badam_blocks(params, badam.n_blocks)
-                      if badam is not None else {})
         self.loraplus_lr_ratio = loraplus_lr_ratio
         self.lora_b = {n for n in params if loraplus_lr_ratio
                        and self.paths[n][0][-1] == "b"
                        and any("lora" in k for k in self.paths[n][0])}
+        self.proj = {n: self._oriented_zeros(n, params[n], basis=True)
+                     for n in sorted(self.galore_names)}
         super().__init__(params, schedule, **kwargs)
+        # BAdam deals, and a whole state lays out, every stage's leaves
+        self.block = (badam_blocks(self.all_names, badam.n_blocks)
+                      if badam is not None else {})
+        self.galore_all = set(self.galore_names)
+        if self.groups is not None and self.groups.pp > 1:
+            from ..parallel.pipeline import every_stage
+            self.galore_all = {n for low in every_stage(
+                sorted(self.galore_names), self.groups) for n in low}
+
+    def _path(self, name: str):
+        return self.paths.get(name) or bundle_path(name)
 
     def _jax_shape(self, name: str, p: torch.Tensor):
         """The JAX leaf's shape [m, n] of a 2-D parameter."""
         return tuple(p.shape[::-1]) if self.paths[name][1] else tuple(p.shape)
 
+    def _galore_split(self, name: str) -> Dict[int, tuple]:
+        """{JAX dimension: (process group, ranks, this rank's index, mesh
+        axis)} of the dimensions on which this rank's gradient of a
+        GaLore leaf is a part of the whole: its tensor-parallel shard and
+        its ZeRO-1 chunk (empty without a mesh)."""
+        p, flip = self.params[name], self.paths[name][1]
+        out = {}
+        if tp_sharded(p):
+            mesh = p.device_mesh
+            for axis, pl in enumerate(p.placements):
+                if hasattr(pl, "dim"):
+                    out[1 - pl.dim if flip else pl.dim] = (
+                        mesh.get_group(axis), mesh.size(axis),
+                        mesh.get_coordinate()[axis],
+                        mesh.mesh_dim_names[axis])
+        d = self.shard_dim.get(name)
+        if d is not None:
+            gr = self.groups
+            out[1 - d if flip else d] = (gr.dp_group, gr.dp, gr.dp_rank,
+                                         "dp")
+        return out
+
     def _oriented_zeros(self, name: str, p: torch.Tensor,
                         basis: bool) -> torch.Tensor:
         """GaLore's zero basis (f32) or low-rank moment (p's dtype) in the
         JAX orientation: basis [m, r] and moments [r, n] when m <= n, else
-        [n, r] and [m, r]. JAX's initial basis is the SVD of a zero
-        gradient; any basis does, as the first update refreshes it."""
+        [n, r] and [m, r], the moments this rank's part of their side.
+        JAX's initial basis is the SVD of a zero gradient; any basis
+        does, as the first update refreshes it."""
         m, n = self._jax_shape(name, p)
         r = self.galore.rank
         if basis:
             return torch.zeros((m, r) if m <= n else (n, r),
                                dtype=torch.float32, device=p.device)
-        return torch.zeros((r, n) if m <= n else (m, r), dtype=p.dtype,
-                           device=p.device)
+        split = self._galore_split(name)
+        if m <= n:
+            shape = (r, n // split.get(1, (None, 1))[1])
+        else:
+            shape = (m // split.get(0, (None, 1))[1], r)
+        return torch.zeros(shape, dtype=p.dtype, device=p.device)
 
     def _moment(self, name: str, p: torch.Tensor) -> torch.Tensor:
         if name in self.galore_names:
@@ -514,17 +564,59 @@ class CustomAdamW(AccumulatingAdamW):
 
     def _galore(self, name: str, g: torch.Tensor, c1: float,
                 c2: float) -> torch.Tensor:
-        gj = g.t() if self.paths[name][1] else g    # JAX's [m, n]
-        m, n = gj.shape
+        from ..parallel.comm import all_gather_dim, all_reduce_
+        gj = g.t() if self.paths[name][1] else g    # (this rank's part of)
+        m, n = self._jax_shape(name, self.params[name])  # JAX's [m, n]
+        split = self._galore_split(name)
         if (self.count - 1) % self.galore.update_interval == 0:
-            self.proj[name] = galore_basis(gj, self.galore.rank)
+            whole = gj
+            for dim, (group, size, _, _) in split.items():
+                whole = all_gather_dim(whole, dim, size, group)
+            self.proj[name] = galore_basis(whole, self.galore.rank)
         proj = self.proj[name]
         left = m <= n
+        side = split.get(0 if left else 1)     # the basis's side split
+        if side is not None:
+            proj = proj.chunk(side[1])[side[2]]
         low = proj.t().to(gj.dtype) @ gj if left else gj @ proj.to(gj.dtype)
+        if side is not None:
+            low = all_reduce_(low.contiguous(), side[0])
         u = self._adam(name, low, c1, c2)
         full = proj.to(u.dtype) @ u if left else u @ proj.t().to(u.dtype)
         full = (self.galore.scale * full).to(g.dtype)
         return full.t() if self.paths[name][1] else full
+
+    def _moment_side(self, name: str):
+        """(dimension, split) of a GaLore leaf's moments that this rank
+        holds a part of, or None."""
+        m, n = self._jax_shape(name, self.params[name])
+        dim = 1 if m <= n else 0
+        split = self._galore_split(name).get(dim)
+        return None if split is None else (dim, split)
+
+    def _wholes(self, parts, key="acc"):
+        if key == "proj":
+            return dict(parts)
+        if key not in ("mu", "nu"):
+            return super()._wholes(parts, key)
+        low = {n: t for n, t in parts.items() if n in self.galore_names}
+        out = super()._wholes({n: t for n, t in parts.items()
+                               if n not in low}, key)
+        from ..parallel.comm import all_gather_dim
+        for n, t in low.items():
+            side = self._moment_side(n)
+            out[n] = t if side is None else all_gather_dim(
+                t, side[0], side[1][1], side[1][0])
+        return out
+
+    def _part(self, name, whole, zero1=True, key="acc"):
+        if key == "proj":
+            return whole
+        if key in ("mu", "nu") and name in self.galore_names:
+            side = self._moment_side(name)
+            return whole if side is None else whole.chunk(
+                side[1][1], dim=side[0])[side[1][2]]
+        return super()._part(name, whole, zero1, key)
 
     def _direction(self, name, p, g, c1, c2):
         if name in self.galore_names:
@@ -551,8 +643,10 @@ class CustomAdamW(AccumulatingAdamW):
             if n not in names:
                 return {}
             t = values[n].detach()
-            return t.t() if transpose and self.paths[n][1] else t
-        return nest((self.paths[n][0], leaf(n)) for n in self.params)
+            return t.t() if transpose and self._path(n)[1] else t
+        # every leaf the state holds: each stage's in a whole state
+        return nest((self._path(n)[0], leaf(n)) for n in self.all_names
+                    if n in self.mu)
 
     def chain_state(self) -> Dict[str, Any]:
         """JAX build_custom_optimizer's chain state: [core, decay?,
@@ -562,13 +656,14 @@ class CustomAdamW(AccumulatingAdamW):
         "plain": {"inner_state": ScaleByAdamState}}}, each group's trees
         masked ({}) at the other group's leaves."""
         c = self.count
-        everything = set(self.params)
+        everything = set(self.mu)
         if self.galore is None:
             core = {"count": int32_scalar(c),
                     "mu": self._tree(self.mu, everything, True),
                     "nu": self._tree(self.nu, everything, True)}
         else:
-            low, plain = self.galore_names, everything - self.galore_names
+            low = self.galore_all & everything
+            plain = everything - low
             core = {"inner_states": {
                 "galore": {"inner_state": {
                     "count": int32_scalar(c),
@@ -598,9 +693,23 @@ def local_data(t: torch.Tensor) -> torch.Tensor:
 
 
 def tp_sharded(p: torch.Tensor) -> bool:
+    """Whether p is a DTensor sharded on an axis of its mesh (tp, or ep
+    for an MoE expert)."""
     from torch.distributed.tensor import DTensor
     return isinstance(p, DTensor) and any(hasattr(pl, "dim")
                                           for pl in p.placements)
+
+
+def sharded_ways(p: torch.Tensor) -> int:
+    """Into how many distinct parts a DTensor's placements cut it (1 for
+    a plain tensor)."""
+    if not tp_sharded(p):
+        return 1
+    out = 1
+    for axis, pl in enumerate(p.placements):
+        if hasattr(pl, "dim"):
+            out *= p.device_mesh.size(axis)
+    return out
 
 
 def zero1_dim(name: str, p: torch.Tensor, groups) -> Optional[int]:
@@ -645,21 +754,10 @@ def create_optimizer(args, num_training_steps: int,
                   groups=groups, zero1=zero1)
     if not wants_custom_optimizer(finetuning_args):
         return AccumulatingAdamW(params, schedule, **kwargs), schedule
-    if groups is not None and getattr(groups, "pp", 1) > 1:
-        from ..parallel.mesh import ITEM_9C
-        raise NotImplementedError("GaLore, BAdam and LoRA+ beside a pp "
-                                  f"axis (their state spans the stages): "
-                                  f"{ITEM_9C}")
     ft = finetuning_args
     galore = (GaLore(ft.galore_rank, ft.galore_update_interval,
                      ft.galore_scale)
               if getattr(ft, "use_galore", False) else None)
-    if galore is not None and groups is not None and (
-            groups.tp > 1 or (zero1 and groups.dp > 1)):
-        from ..parallel.mesh import ITEM_9C
-        raise NotImplementedError(
-            "GaLore on a mesh with tp > 1 or ZeRO-1 over dp > 1 (its SVD "
-            f"needs whole gradients): {ITEM_9C}")
     badam = (BAdam(max(ft.badam_n_blocks, 1), ft.badam_switch_interval,
                    ft.badam_start_block)
              if getattr(ft, "use_badam", False) else None)

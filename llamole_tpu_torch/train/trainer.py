@@ -16,7 +16,7 @@ what the uninterrupted one would have. Checkpoints are the JAX package's
 checkpoint-N layout (msgpack), so a run resumes across the packages.
 
 Mesh training (`mesh`, the parallel/mesh.py MeshGroups of a DeviceMesh
-over dcn / dp / tp, on which the caller placed the model with
+over dcn / pp / dp / ep / sp / tp, on which the caller placed the model with
 parallel/sharding.py shard_graph_lm): one process per rank, all drawing
 the same random numbers. The LLM is tensor-parallel over tp (DTensors; a
 full-finetune LLM trains sharded), under ZeRO-3 (zero_stage >= 3) its
@@ -36,9 +36,11 @@ checkpoint raises: its format needs orbax / tensorstore. With a pp axis
 layers' leaves, the replicated ones are summed over pp as well, the
 batch's rows shard over dp only when the microbatch rows divide (else
 they replicate, as JAX's pipeline does), a msgpack checkpoint gathers
-every stage's part for rank 0; resuming a pipelined run and DCP
-checkpoints beside pp raise (ROADMAP.md Queue 1 item 9c), as do the sp
-and ep axes.
+every stage's part for rank 0 and a resume keeps this stage's leaves of
+it, and a DCP checkpoint has each stage write and read its own leaves
+and their optimizer state. An MoE LLM's experts split over ep
+(shard_graph_lm, as JAX's _ep_axis places them); the ranks along ep and
+sp hold the same rows (place_batch shards over (dcn, dp) only).
 """
 
 import glob
@@ -266,13 +268,8 @@ class Trainer:
     # -- checkpointing ------------------------------------------------------
     def _use_dcp(self) -> bool:
         """LLAMOLE_ORBAX=1: the JAX package's switch to orbax, here
-        torch.distributed.checkpoint (not beside pp: item 9c)."""
-        dcp = bool(os.environ.get("LLAMOLE_ORBAX"))
-        if dcp and self._pipelined():
-            from ..parallel.mesh import ITEM_9C
-            raise NotImplementedError(f"DCP checkpoints of a pipelined run "
-                                      f"(pp > 1): {ITEM_9C}")
-        return dcp
+        torch.distributed.checkpoint."""
+        return bool(os.environ.get("LLAMOLE_ORBAX"))
 
     def _pipelined(self) -> bool:
         return self.groups is not None and self.groups.pp > 1
@@ -298,12 +295,12 @@ class Trainer:
 
     def _dcp_state(self) -> Dict[str, Dict[str, torch.Tensor]]:
         """The parameters and the optimizer's whole state (GaLore's bases
-        among it), each rank's parts as DTensors on the whole mesh (dcn
-        and dp replicate, ZeRO-1 parts shard on dp, tensor-parallel parts
-        keep their tp placement), so DCP writes each distinct part once;
-        plain tensors without a mesh. GaLore's leaves run unsharded (its
-        state has its own low-rank shapes) and replicate. Scalars go to
-        trainer_state.json."""
+        among it), each rank's parts as DTensors on the whole mesh (the
+        axes that shard a part place it: tp or ep as the parameter, dp
+        for a ZeRO-1 chunk or a GaLore moment's part; the others
+        replicate), so DCP writes each distinct part once; plain tensors
+        without a mesh. Beside pp each rank holds its stage's leaves, and
+        writes and reads those. Scalars go to trainer_state.json."""
         opt = self.optimizer
         state = {"params": {n: local_data(p).detach()
                             for n, p in self.params.items()}}
@@ -314,25 +311,33 @@ class Trainer:
             return state
         from torch.distributed.tensor import DTensor, Replicate, Shard
         mesh = self.groups.mesh
+        axes = list(mesh.mesh_dim_names)
         low_rank = getattr(opt, "galore_names", ())
 
-        def on_mesh(name, t, zero1):
+        def on_mesh(key, name, t):
             p = self.params[name]
-            if zero1 and name in low_rank:
-                return DTensor.from_local(t.detach(), mesh,
-                                          [Replicate()] * mesh.ndim,
-                                          run_check=False)
-            tp_pl = p.placements[0] if hasattr(p, "placements") else \
-                Replicate()
-            d = opt.shard_dim.get(name) if zero1 else None
             pl = [Replicate()] * mesh.ndim
-            names = mesh.mesh_dim_names
-            pl[names.index("tp")] = tp_pl
-            if d is not None:
-                pl[names.index("dp")] = Shard(d)
-            return DTensor.from_local(t.detach(), mesh, pl, run_check=False,
-                                      shape=p.shape, stride=p.stride())
-        return {k: {n: on_mesh(n, t, k != "params") for n, t in v.items()}
+            shape = list(t.shape)
+            if key in ("mu", "nu") and name in low_rank:
+                side = opt._moment_side(name)
+                if side is not None:
+                    dim, (_, size, _, axis) = side
+                    pl[axes.index(axis)] = Shard(dim)
+                    shape[dim] *= size
+            elif key != "proj":
+                if isinstance(p, DTensor):
+                    for axis, ppl in zip(p.device_mesh.mesh_dim_names,
+                                         p.placements):
+                        pl[axes.index(axis)] = ppl
+                d = opt.shard_dim.get(name) if key != "params" else None
+                if d is not None:
+                    pl[axes.index("dp")] = Shard(d)
+                shape = list(p.shape)
+            return DTensor.from_local(
+                t.detach(), mesh, pl, run_check=False,
+                shape=torch.Size(shape),
+                stride=torch.empty(shape, device="meta").stride())
+        return {k: {n: on_mesh(k, n, t) for n, t in v.items()}
                 for k, v in state.items()}
 
     def save_checkpoint(self, state: TrainState, path: str) -> None:
@@ -392,10 +397,6 @@ class Trainer:
         its format needs orbax / tensorstore, which the port does not
         use."""
         from ..parallel.sharding import local
-        if self._pipelined():
-            from ..parallel.mesh import ITEM_9C
-            raise NotImplementedError(f"resuming a pipelined run (pp > 1): "
-                                      f"{ITEM_9C}")
         with open(os.path.join(path, "trainer_state.json")) as f:
             meta = json.load(f)
         backend = meta.get("backend", "msgpack")
@@ -422,9 +423,10 @@ class Trainer:
                 "orbax / tensorstore; the port's sharded checkpoints are "
                 "DCP, backend \"dcp\")")
         else:
+            # every stage's leaves are in the file: this rank keeps its own
             saved = trainable_values(
                 load_pytree(os.path.join(path, "trainable.msgpack")),
-                self.params)
+                opt.all_names)
             for name, p in self.params.items():
                 local_data(p).copy_(opt._part(name, saved[name],
                                               zero1=False))

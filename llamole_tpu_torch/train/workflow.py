@@ -124,11 +124,9 @@ def run_mmsft(model_args, data_args, training_args, finetuning_args,
     mesh = None
     spec = getattr(training_args, "mesh", "")
     if spec:
-        from ..parallel.mesh import (check_training_axes, check_world,
-                                     init_distributed, mesh_from_string,
-                                     parse_mesh)
+        from ..parallel.mesh import (check_world, init_distributed,
+                                     mesh_from_string, parse_mesh)
         dims = parse_mesh(spec)
-        check_training_axes(dims)
         from ..parallel.pipeline import check_pipeline_zero
         check_pipeline_zero(dims, training_args.zero_stage)
         check_world(dims)

@@ -11,7 +11,22 @@ the LoRA factors are not (min(shape) = 4). GaLore's basis comes from an
 SVD whose singular-vector signs differ between torch and jnp, so the
 trajectories are compared while no refresh follows the first one, and
 past a refresh once JAX's state (its basis) is loaded into the port.
+
+On a mesh (gloo ranks: parallel/dryrun.py launch of
+tests/torch_ep_sp_worker.py) the whole chain with GaLore at rank 2 (the
+LoRA factors project too), refreshing every 3 updates, runs 4 updates
+past a refresh on tp:2 (each 2-D leaf a DTensor sharded on alternating
+sides), ZeRO-1 dp:2, both at once on tp:2,dp:2, and beside pp:2 (each
+layer's leaves on their stage); its parameters equal the mesh-less
+port's within 1e-5 relative, its bases the mesh-less ones up to a sign
+per basis vector (1e-5), its moments within 1e-4 relative (GaLore's
+joined from the ranks' parts; where a rank holds part of the basis's
+side the projected gradient is a sum of the ranks' partial products,
+rounded in another order), and its state dict has the mesh-less one's
+layout.
 """
+
+import os
 
 import jax
 import jax.numpy as jnp
@@ -27,6 +42,7 @@ from llamole_tpu.train.trainer import create_optimizer as jax_optimizer
 from llamole_tpu.utils.serialization import load_state as jax_load_state
 from llamole_tpu.utils.serialization import save_state as jax_save_state
 from llamole_tpu_torch.config import FinetuningArguments, TrainingArguments
+from llamole_tpu_torch.parallel import dryrun
 from llamole_tpu_torch.train.optimizers import (CustomAdamW, create_optimizer,
                                                galore_basis)
 from llamole_tpu_torch.train.trainer import load_optax_state, optax_state
@@ -316,3 +332,87 @@ def test_galore_moments_are_low_rank(data):
     assert tuple(opt.proj[name].shape) == (10, 4)
     full = sum(p.numel() for p in opt.params.values())
     assert sum(t.numel() for t in opt.mu.values()) < full
+
+
+# the mesh runs: GaLore at rank 2 (LoRA factors too), a refresh at
+# updates 1 and 4 of the 4; (ranks, ZeRO-1) of each mesh
+MESH_CHAIN = {**CHAINS["all"], "galore_rank": 2, "galore_update_interval": 3}
+MESH_RUNS = {"tp:2": (2, False), "dp:2": (2, True), "tp:2,dp:2": (4, True),
+             "pp:2": (2, False)}
+
+
+@pytest.fixture(scope="module")
+def mesh_runs(data, tmp_path_factory):
+    """Every mesh's ranks side by side on threads, and the mesh-less run
+    of the same chain."""
+    from concurrent.futures import ThreadPoolExecutor
+    params, grads = data
+    work = tmp_path_factory.mktemp("opt_mesh")
+    torch.save({"params": dict(trainable_state_dict(params)),
+                "grads": [dict(trainable_state_dict(g)) for g in grads]},
+               work / "data.pt")
+    wd, clip, accumulation = TRAINING["all"]
+    training = dict(learning_rate=1e-2, lr_scheduler_type="constant",
+                    weight_decay=wd, max_grad_norm=clip,
+                    gradient_accumulation_steps=accumulation)
+    here = os.path.dirname(os.path.abspath(__file__))
+
+    def go(spec):
+        ranks, zero1 = MESH_RUNS[spec]
+        out = work / spec.replace(":", "").replace(",", "_")
+        out.mkdir()
+        dryrun.launch("torch_ep_sp_worker:galore_mesh", ranks,
+                      {"mesh": spec, "zero1": zero1, "chain": MESH_CHAIN,
+                       "training": training, "data": str(work / "data.pt"),
+                       "out": str(out)},
+                      timeout=120, workdir=str(out / "ranks"), path=[here])
+        return [torch.load(out / f"rank{r}.pt") for r in range(ranks)]
+
+    with ThreadPoolExecutor(len(MESH_RUNS)) as pool:
+        futures = {spec: pool.submit(go, spec) for spec in MESH_RUNS}
+        opt = _port("all", params, galore_rank=2, galore_update_interval=3)
+        _port_steps(opt, grads)
+        yield futures, opt
+
+
+MOMENT_RTOL = 1e-4
+
+
+def _close(got, want, what, rtol=RTOL):
+    err = float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+    assert err <= rtol, (what, err)
+
+
+@pytest.mark.parametrize("spec", list(MESH_RUNS))
+def test_custom_chain_on_a_mesh_matches_the_mesh_less_port(mesh_runs, spec):
+    """GaLore past a refresh, BAdam and LoRA+ with weight decay, clipping
+    and accumulation 2 on the mesh: each rank's parameters, the bases (up
+    to a sign per basis vector) and the moments (GaLore's whole from the
+    ranks' parts) equal the mesh-less port's; the state dict's layout is
+    the mesh-less one's; beside pp every leaf lives on one stage or on
+    both, and BAdam dealt the blocks over every stage's names."""
+    futures, plain = mesh_runs
+    ranks = futures[spec].result()
+    assert len(plain.galore_names) > 3      # connectors and LoRA factors
+    seen = set()
+    for r in ranks:
+        for n, p in r["params"].items():
+            _close(p, plain.params[n].detach(), f"{spec} {n}")
+            seen.add(n)
+    assert seen == set(plain.params)
+    whole = ranks[0]
+    assert set(whole["proj"]) == set(plain.proj)
+    for n, want in plain.proj.items():
+        got = whole["proj"][n]
+        signs = torch.sign((got * want).sum(0))
+        np.testing.assert_allclose(got.numpy(), (want * signs).numpy(),
+                                   atol=1e-5, err_msg=f"{spec} basis {n}")
+        m, k = plain._jax_shape(n, plain.params[n])
+        mu = whole["mu"][n]
+        mu = mu * (signs[:, None] if m <= k else signs[None, :])
+        _close(mu, plain.mu[n], f"{spec} moment {n}", MOMENT_RTOL)
+    for n in set(plain.mu) - set(plain.proj):
+        _close(whole["mu"][n], plain.mu[n], f"{spec} moment {n}",
+               MOMENT_RTOL)
+    assert _shapes(whole["chain"]) == _shapes(
+        to_state_dict(plain.chain_state()))

@@ -13,8 +13,10 @@ the port's mesh-less Trainer (design branch on: every rank draws the
 whole batch's noise) and the JAX Trainer on the same mesh string (design
 weight 0: torch and JAX draw different numbers). Kernels B and C run as
 their plain versions on the CPU. Then the checkpoints (msgpack across
-packages and meshes, DCP's async save and resume), the refusals (item
-9c, and the pipeline's equal to JAX's), and dryrun_multichip(4).
+packages and meshes, DCP's async save and resume), the refusals (the
+world size, and the pipeline's equal to JAX's), and dryrun_multichip(4).
+The ep and sp axes are held by tests/test_torch_moe_ep.py and
+tests/test_torch_ring_attention.py.
 """
 
 import dataclasses
@@ -57,9 +59,8 @@ from llamole_tpu_torch.data.tokenizer import ByteTokenizer
 from llamole_tpu_torch.models.composite import GraphLM
 from llamole_tpu_torch.models.gllm import LLM, LLMConfig
 from llamole_tpu_torch.parallel import dryrun
-from llamole_tpu_torch.parallel.mesh import (_dcn_grouped, check_training_axes,
-                                             mesh_from_string, mesh_layout,
-                                             parse_mesh)
+from llamole_tpu_torch.parallel.mesh import (_dcn_grouped, mesh_from_string,
+                                             mesh_layout, parse_mesh)
 from llamole_tpu_torch.parallel.sharding import (fsdp_param_pspecs,
                                                  llm_param_pspecs, shard_llm,
                                                  zero1_opt_pspecs)
@@ -111,10 +112,12 @@ def test_mesh_errors_equal_jax():
     with pytest.raises(ValueError, match="needs 2 ranks, the process group "
                        "has 1"):
         mesh_from_string("dp:2")
-    check_training_axes(parse_mesh("pp:2,dp:2"))   # the pipeline trains
-    for axes in ("sp:2,dp:2", "ep:2,dp:2"):
-        with pytest.raises(NotImplementedError, match="item 9c"):
-            check_training_axes(parse_mesh(axes))
+    # every axis trains (the sp and ep axes since item 9c): only the
+    # world size stops a mesh here
+    for axes in ("pp:2,dp:2", "sp:2,dp:2", "ep:2,dp:2"):
+        with pytest.raises(ValueError, match="needs 4 ranks, the process "
+                           "group has 1"):
+            mesh_from_string(axes)
 
 
 def test_dcn_order_equals_jax():
@@ -170,7 +173,8 @@ def test_llm_and_fsdp_specs_equal_jax(tiny_llm):
 
 def test_expert_specs_equal_jax():
     """With ep_axis the MoE experts shard their expert dimension, as in
-    JAX; applying them is item 9c (shard_llm refuses MoE on a mesh)."""
+    JAX, and ZeRO-3's spec composes dp with it as JAX's does (shard_llm
+    and fsdp_llm apply them: tests/test_torch_moe_ep.py)."""
     llm = LLM(LLMConfig.tiny_moe(), dtype=torch.float32)
     llm.reset_parameters(torch.Generator().manual_seed(0))
     named = dict(llm.named_parameters())
@@ -179,8 +183,13 @@ def test_expert_specs_equal_jax():
     got = llm_param_pspecs(named, ep_axis="ep")
     assert {n: _jax_spec(want, n) for n in named} == got
     assert got["layers.0.mlp.experts.gate"] == ("ep", None, None)
-    with pytest.raises(NotImplementedError, match="item 9c"):
-        shard_llm(llm, types.SimpleNamespace(tp=1))
+    assert got["layers.0.mlp.router.weight"] == ()
+    for tp in (None, "tp"):
+        want = jax_fsdp_pspecs(tree, dp=2, tp_axis=tp, ep_axis="ep")
+        got = fsdp_param_pspecs(named, 2, tp_axis=tp, ep_axis="ep")
+        assert {n: _jax_spec(want, n) for n in named} == got
+    assert got["layers.0.mlp.experts.gate"][0] == "ep"
+    assert "dp" in got["layers.0.mlp.experts.gate"]
 
 
 def test_zero1_specs_equal_jax(tiny_llm):
@@ -575,15 +584,18 @@ def test_jax_orbax_checkpoint_raises(setup, tmp_path):
 
 
 def test_galore_on_a_sharded_mesh_raises():
-    """GaLore's SVD needs whole gradients: with tp > 1, or ZeRO-1 over
-    dp > 1, it raises naming item 9c (dp alone at stage 0 runs it)."""
-    from llamole_tpu_torch.train.optimizers import create_optimizer
-    ft = FinetuningArguments(use_galore=True)
-    for groups, zero1 in ((types.SimpleNamespace(tp=2, dp=1), False),
-                          (types.SimpleNamespace(tp=1, dp=2), True)):
-        with pytest.raises(NotImplementedError, match="item 9c"):
-            create_optimizer(worker.train_args(None), 2, {}, ft,
-                             groups=groups, zero1=zero1)
+    """It raised naming item 9c; since item 9c GaLore runs on a leaf's
+    parts (tp > 1, ZeRO-1 over dp > 1) and beside pp, so the custom chain
+    is built there (its runs against the mesh-less port:
+    tests/test_torch_optimizers.py, tests/test_torch_pipeline.py)."""
+    from llamole_tpu_torch.train.optimizers import CustomAdamW, create_optimizer
+    ft = FinetuningArguments(use_galore=True, use_badam=True,
+                             loraplus_lr_ratio=16.0)
+    for groups, zero1 in ((types.SimpleNamespace(tp=2, dp=1, pp=1), False),
+                          (types.SimpleNamespace(tp=1, dp=2, pp=1), True)):
+        opt, _ = create_optimizer(worker.train_args(None), 2, {}, ft,
+                                  groups=groups, zero1=zero1)
+        assert isinstance(opt, CustomAdamW) and opt.galore is not None
 
 
 def test_refusals_name_item_9b(tmp_path):
@@ -594,7 +606,6 @@ def test_refusals_name_item_9b(tmp_path):
     from llamole_tpu_torch.eval.workflow import run_molqa
     args = list(get_train_args(os.path.join(ROOT, "config", "smoke",
                                             "tiny_train.yaml")))
-    check_training_axes(parse_mesh("pp:2,dp:2"))
     for spec in ("pp:2,dp:2", "dp:4"):
         args[2] = dataclasses.replace(args[2], mesh=spec, zero_stage=0,
                                       output_dir=str(tmp_path))
@@ -607,11 +618,12 @@ def test_refusals_name_item_9b(tmp_path):
 
 
 def test_refusals_name_item_9c(setup, tmp_path):
-    """sp and ep still raise, naming item 9c; the pipeline refuses what
-    JAX's refuses, with JAX's messages: ZeRO-3 beside pp (dp > 1), MoE
-    training, a sliding window, microbatches that do not divide the
-    batch, stages that do not divide the depth, and enable_pipeline after
-    the first loss."""
+    """Item 9c is done: sp and ep meshes train, where they raised naming
+    it; what stops them here is JAX's, a mesh needs as many ranks as it
+    has places. The pipeline refuses what JAX's refuses, with JAX's
+    messages: ZeRO-3 beside pp (dp > 1), MoE training, a sliding window,
+    microbatches that do not divide the batch, stages that do not divide
+    the depth, and enable_pipeline after the first loss."""
     from llamole_tpu.parallel.pipeline import (
         pipeline_decoder_forward as jax_pipeline_forward)
     from llamole_tpu_torch.config import get_train_args
@@ -622,7 +634,8 @@ def test_refusals_name_item_9c(setup, tmp_path):
     for spec, zero in (("sp:2,dp:2", 1), ("ep:2,dp:2", 0)):
         args[2] = dataclasses.replace(args[2], mesh=spec, zero_stage=zero,
                                       output_dir=str(tmp_path))
-        with pytest.raises(NotImplementedError, match="item 9c"):
+        with pytest.raises(ValueError, match="world size must equal the "
+                           "mesh"):
             run_mmsft(*args, device="cpu")
     # ZeRO-3 with pp: the JAX Trainer's ValueError, before any placement
     jm = _jax_model(setup.tok)
@@ -678,16 +691,77 @@ def test_refusals_name_item_9c(setup, tmp_path):
         model.enable_pipeline(None, 2)
 
 
+def test_refusals_outside_9c_name_item_9d():
+    """Three mesh placements JAX runs (its forward, and its gradient where
+    it trains, on dp:2,tp:2 of conftest's virtual CPU devices equal the
+    mesh-less ones): a quantized LLM, the per-head q / k norms trained
+    under tp, and ZeRO-3's specs with tied embeddings. The port refuses
+    them, naming ROADMAP.md Queue 1 item 9d."""
+    from llamole_tpu.models.gllm.model import forward as jax_forward
+    from llamole_tpu.models.gllm.model import init_params as jax_init
+    from llamole_tpu.models.gllm.model import lm_loss as jax_lm_loss
+    from llamole_tpu.models.gllm.quantize import \
+        quantize_llm_params as jax_quantize
+    from llamole_tpu.parallel import shard_params as jax_shard_params
+    from llamole_tpu_torch.models.gllm.quantize import quantize_llm_params
+    from llamole_tpu_torch.parallel.sharding import fsdp_llm
+    mesh = jax_mesh_from_string("dp:2,tp:2")
+    ids = jnp.asarray(np.random.default_rng(0).integers(1, 500, (4, 16)),
+                      jnp.int32)
+    base = JaxLLMConfig.tiny()
+    cases = {
+        "quantized": (base, lambda p: jax_quantize(p, bits=8),
+                      jax_llm_pspecs, False),
+        "qk_norm": (dataclasses.replace(base, qk_norm=True), None,
+                    jax_llm_pspecs, True),
+        "tied": (dataclasses.replace(base, tie_word_embeddings=True), None,
+                 lambda p: jax_fsdp_pspecs(p, dp=2, tp_axis="tp"), True)}
+    for name, (cfg, prepare, specs, grad) in cases.items():
+        params = jax_init(jax.random.PRNGKey(0), cfg, jnp.float32)
+        if prepare is not None:
+            params = prepare(params)
+
+        def loss(p, cfg=cfg):
+            return jax_lm_loss(jax_forward(p, cfg, input_ids=ids)[0], ids)
+        f = jax.jit(jax.value_and_grad(loss) if grad else loss)
+        with jax.set_mesh(mesh):
+            on_mesh = f(jax_shard_params(params, mesh, specs(params)))
+        want = f(params)
+        np.testing.assert_allclose(
+            float(on_mesh[0] if grad else on_mesh),
+            float(want[0] if grad else want), rtol=1e-5, err_msg=name)
+    groups = types.SimpleNamespace(tp=2, ep=1, dp=2)
+    quantized = LLM(LLMConfig.tiny(), dtype=torch.float32)
+    quantized.reset_parameters(torch.Generator().manual_seed(0))
+    quantize_llm_params(quantized, bits=8)
+    with pytest.raises(NotImplementedError, match="quantized LLM on a mesh: "
+                       "ROADMAP.md Queue 1 item 9d"):
+        shard_llm(quantized, groups)
+    qk = LLM(dataclasses.replace(LLMConfig.tiny(), qk_norm=True),
+             dtype=torch.float32)
+    with pytest.raises(NotImplementedError, match="q / k norms under tp > 1: "
+                       "ROADMAP.md Queue 1 item 9d"):
+        shard_llm(qk, groups)
+    tied = LLM(dataclasses.replace(LLMConfig.tiny(), tie_word_embeddings=True),
+               dtype=torch.float32)
+    with pytest.raises(NotImplementedError, match="tied embeddings .*"
+                       "ROADMAP.md Queue 1 item 9d"):
+        fsdp_llm(tied, groups)
+
+
 def test_dryrun_multichip_prints_ok(launched):
-    """The dp x tp, ZeRO-1, ZeRO-3, dcn x dp and pipeline legs and the dp
-    inference, tp design and dp retro legs on 4 gloo ranks, each equal to
-    the mesh-less run."""
+    """The dp x tp, ZeRO-1, ZeRO-3, dcn x dp, pipeline, sp x dp, S²-attn
+    under tp and moe-ep legs, the ring-sp leg and the dp inference, tp design, MoE design and
+    dp retro legs on 4 gloo ranks, each equal to the mesh-less run."""
     proc = launched["dryrun"].result()
     assert proc.returncode == 0, proc.stderr[-3000:]
     out = proc.stdout
     assert "dryrun_multichip OK" in out
     for leg in ("dp=2 tp=2", "zero1 dp=4", "zero3 dp=4", "dcn=2 dp=2",
-                "pipeline", "dp-inference", "tp-design", "dp-retro"):
+                "pipeline", "sp=2 dp=2", "s2-tp", "moe-ep", "ring-sp",
+                "dp-inference", "tp-design", "moe-design", "dp-retro"):
         assert f"dryrun {leg} OK" in out
     assert "dryrun dp-inference OK: mesh dp=4, batch 5 (padded to 8)" in out
     assert "dryrun pipeline OK: mesh pp=2 dp=2" in out
+    assert "dryrun moe-ep OK: mesh ep=2 dp=2" in out
+    assert "dryrun ring-sp OK: mesh sp=2 dp=2" in out

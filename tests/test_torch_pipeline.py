@@ -18,7 +18,11 @@ draw:
   (rtol 1e-5) and the saved bundle (atol 1e-4) equal the mesh-less
   run_mmsft's; the saved bundle loads in JAX; with a held-out split the
   predictions (the dp leg over the stages' gathered adapter) equal the
-  mesh-less run's.
+  mesh-less run's; with LoRA+ and BAdam as well; a run resumed from the
+  zero-1 run's msgpack checkpoint-2, and one with GaLore, BAdam and
+  LoRA+ resumed from its own DCP checkpoint-2 (each stage writing and
+  reading its leaves and their optimizer state), give the uninterrupted
+  run's later losses and trained bundle.
 """
 
 import json
@@ -62,6 +66,15 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 LIMIT = 120       # seconds a launch of ranks may take
 REL = 1e-5        # losses
 ATOL = 1e-4       # gradients and trained parameters
+# the custom chain beside pp: LoRA+ and BAdam (every update switches the
+# block) held to the mesh-less run; with GaLore (rank 2, refreshed every
+# 3 updates) too, a DCP checkpoint after update 1 and the run resumed
+# from it (the rank-2 bases of the tiny leaves turn with the gradients'
+# last bits, so that run is held to its own uninterrupted run)
+CUSTOM = {"loraplus_lr_ratio": 16.0, "use_badam": True,
+          "badam_switch_interval": 1}
+ALL = {**CUSTOM, "use_galore": True, "galore_rank": 2,
+       "galore_update_interval": 3}
 # (mesh, microbatches) of the pipeline_lm_loss launches; JAX runs the
 # first and the last (4 microbatches are held to the mesh-less port)
 LOSS_MESHES = (("pp:2", 2), ("pp:2", 4), ("pp:2,dp:2", 2))
@@ -155,7 +168,14 @@ def launched(setup):
                       # 4 rows: the design weight 0 (the pad row changes
                       # the design noise's draws, as in JAX)
                       {"name": "predict", "zero": 1, "val_size": 0.4,
-                       "design": 0.0}]},
+                       "design": 0.0},
+                      {"name": "zero1_resume", "zero": 1,
+                       "resume": "zero1/checkpoint-2"},
+                      {"name": "custom", "zero": 1, "finetuning": CUSTOM},
+                      {"name": "dcp", "zero": 0, "dcp": True,
+                       "finetuning": ALL},
+                      {"name": "dcp_resume", "zero": 0, "dcp": True,
+                       "finetuning": ALL, "resume": "dcp/checkpoint-2"}]},
             timeout=LIMIT, workdir=str(out / "ranks"), path=[HERE]), out
 
     pool = ThreadPoolExecutor(len(LOSS_MESHES) + len(JAX_MESHES) + 1)
@@ -321,3 +341,33 @@ def test_pipeline_training_matches_the_mesh_less_port(setup, launched, run,
         with open(tmp_path / "generated_predictions.jsonl") as f:
             assert got_pred == f.read()
         assert len(got_pred.splitlines()) == 2
+
+
+def test_pipeline_custom_chain_matches_the_mesh_less_port(setup, launched,
+                                                         tmp_path):
+    """LoRA+ and BAdam beside pp:2,dp:2 (each stage's optimizer over its
+    leaves, BAdam's blocks dealt over every stage's names): the losses
+    and the saved bundle equal the mesh-less run's."""
+    _, out = launched["train"].result()
+    worker.train_mmsft(str(setup.work / "state.pt"), str(tmp_path), "", 0,
+                       0.0, 2, finetuning=CUSTOM)
+    np.testing.assert_allclose(_losses(out / "custom"), _losses(tmp_path),
+                               rtol=REL)
+    _assert_bundle(_bundle(out / "custom"), _bundle(tmp_path), "custom")
+
+
+@pytest.mark.parametrize("run,backend", [("zero1", "msgpack"),
+                                         ("dcp", "dcp")])
+def test_pipelined_resume_equals_the_uninterrupted_run(launched, run,
+                                                       backend):
+    """A pipelined run resumed from checkpoint-2 (msgpack: every stage's
+    leaves gathered, each stage keeps its own; DCP: each stage writes
+    and reads its own, GaLore's bases and moments among the optimizer
+    state) gives the uninterrupted run's steps 3-4 and trained bundle."""
+    _, out = launched["train"].result()
+    with open(out / run / "checkpoint-2" / "trainer_state.json") as f:
+        assert json.load(f)["backend"] == backend
+    np.testing.assert_allclose(_losses(out / f"{run}_resume"),
+                               _losses(out / run)[2:], rtol=REL)
+    _assert_bundle(_bundle(out / f"{run}_resume"), _bundle(out / run),
+                   f"{run} resumed")

@@ -6,9 +6,14 @@ padding on the shifted heads) and its gradients against jax.grad;
 `LLM.forward(train=True)` with shift_attn against JAX's forward; the gate
 (S²-attn or full attention) picks JAX's path for an undivisible length,
 a softcap / sliding-window family, eval and the cached path, which the
-call counter shows.
+call counter shows. Under tensor parallelism (tp:2 over gloo ranks,
+parallel/dryrun.py launch of tests/torch_ep_sp_worker.py) each rank
+shifts the heads whose global index is in the second half: the loss and
+the adapter's gradients equal JAX's forward(train=True) and the
+mesh-less port's.
 """
 
+import os
 from dataclasses import replace
 
 import jax
@@ -22,8 +27,10 @@ from llamole_tpu.models.gllm import init_lora
 from llamole_tpu.models.gllm.model import _s2_attention
 from llamole_tpu.models.gllm.model import forward as jax_forward
 from llamole_tpu.models.gllm.model import init_params
+from llamole_tpu.models.gllm.model import lm_loss as jax_lm_loss
 from llamole_tpu_torch.models.gllm import LLM, LLMConfig
-from llamole_tpu_torch.models.gllm.model import s2_attention
+from llamole_tpu_torch.models.gllm.model import lm_loss, s2_attention
+from llamole_tpu_torch.parallel import dryrun
 from llamole_tpu_torch.weights import llm_state_dict
 
 ATOL = 1e-5    # attention outputs and their gradients (f32)
@@ -171,3 +178,59 @@ def test_generation_never_runs_s2():
     model.generate(ids.long(), mask, max_new_tokens=4, do_sample=False,
                    spec_tokens=0)
     assert s2_attention.calls == calls
+
+
+def test_s2_under_tp_matches_jax_and_the_mesh_less_port(tmp_path):
+    """tp:2 with GQA (4 query heads and 2 KV heads: each rank 2 and 1, so
+    rank 0 holds the unshifted half and rank 1 the shifted one): the
+    training forward's LM loss (1e-5) and the adapter's gradients (1e-4)
+    equal jax.grad through JAX's forward(train=True) and the mesh-less
+    port's; S²-attn ran in every layer on every rank."""
+    jcfg, params, lora, model = _pair()
+    ids, mask = _tokens(2, 16)
+    labels = np.where(mask > 0, ids, -100).astype(np.int32)
+    torch.save({"cfg": model.cfg, "state": model.state_dict(),
+                "ids": torch.from_numpy(ids), "mask": torch.from_numpy(mask),
+                "labels": torch.from_numpy(labels)}, tmp_path / "data.pt")
+    here = os.path.dirname(os.path.abspath(__file__))
+    dryrun.launch("torch_ep_sp_worker:s2", 2,
+                  {"mesh": "tp:2", "data": str(tmp_path / "data.pt"),
+                   "out": str(tmp_path)}, timeout=120,
+                  workdir=str(tmp_path / "ranks"), path=[here])
+    ranks = [torch.load(tmp_path / f"rank{r}.pt") for r in range(2)]
+
+    j_params = jax.tree.map(jnp.asarray, params)
+
+    def j_loss(lo):
+        logits, _, _ = jax_forward(j_params, jcfg,
+                                   input_ids=jnp.asarray(ids),
+                                   attention_mask=jnp.asarray(mask), lora=lo,
+                                   lora_scale=2.0, train=True)
+        return jax_lm_loss(logits, jnp.asarray(labels))
+
+    want, want_g = jax.jit(jax.value_and_grad(j_loss))(
+        jax.tree.map(jnp.asarray, lora))
+    want_g = {n: t for n, t in llm_state_dict(
+        params, jax.tree.map(np.asarray, want_g)).items() if "lora_" in n}
+    for p in model.parameters():
+        p.requires_grad_(False)
+    for n, p in model.named_parameters():
+        p.requires_grad_("lora_" in n)
+    logits, _, _ = model(input_ids=torch.from_numpy(ids).long(),
+                         attention_mask=torch.from_numpy(mask), train=True)
+    plain = lm_loss(logits, torch.from_numpy(labels))
+    plain.backward()
+    for r in ranks:
+        assert r["s2_calls"] == jcfg.num_layers
+        np.testing.assert_allclose(r["loss"], float(want), rtol=1e-5)
+        np.testing.assert_allclose(r["loss"], float(plain.detach()),
+                                   rtol=1e-5)
+    got = ranks[0]["grads"]
+    assert set(got) == set(want_g)
+    for n, p in model.named_parameters():
+        if "lora_" not in n:
+            continue
+        np.testing.assert_allclose(got[n].numpy(), want_g[n].numpy(),
+                                   atol=1e-4, err_msg=n)
+        np.testing.assert_allclose(got[n].numpy(), p.grad.numpy(),
+                                   atol=1e-4, err_msg=n)

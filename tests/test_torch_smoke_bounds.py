@@ -534,18 +534,26 @@ def test_families_phase_runs_on_the_cpu(capsys):
     drafts checks on both KV caches, gemma-2 answering 4 requests through
     DesignServer, gemma-3's cache across its window and drafts off under
     it, Mixtral's drops, checks and one loss + backward with the router
-    term."""
+    term, and on its model phase 20 (b) on a one-rank gloo group: the
+    loss and gradients with the LLM placed equal the mesh-less ones."""
+    import torch.distributed as dist
+
     assert set(_FAMILIES_CPU) == set(chip_smoke.FAMILIES)
     threads = torch.get_num_threads()
     torch.set_num_threads(2)
+    phase20 = {}
     try:
         launches = chip_smoke.run_families(
             (), "CPU", device="cpu", sizes=_FAMILIES_CPU, build=_tiny_slice,
-            cfgs=_family_cfgs())
+            cfgs=_family_cfgs(), phase20=phase20)
     finally:
         torch.set_num_threads(threads)
     out = capsys.readouterr().out
     assert launches == {"A": 0, "A_mma": 0, "A_fma": 0, "B": 0, "C": 0}
+    assert "phase 20 (b) Mixtral on the mesh dp:1,tp:1" in out
+    assert phase20["b"]["loss_gap"] <= 1e-6
+    assert phase20["b"]["grad_rel"] <= 1e-5
+    assert not dist.is_initialized()
     for line in ("qwen3 (compute KV cache): greedy decode",
                  "qwen3 (int8 KV cache): greedy decode",
                  "gemma-2 serving (bf16, compute-dtype KV cache): 4 answered",
@@ -620,15 +628,20 @@ def test_finetune_phase_runs_on_the_cpu(capsys):
     assert set(_FINETUNE_CPU) == set(chip_smoke.FINETUNE)
     threads = torch.get_num_threads()
     torch.set_num_threads(2)
+    phase20 = {}
     try:
         launches = chip_smoke.run_finetune(
             (), "CPU", device="cpu",
             sizes={**_FINETUNE_CPU, "cfg": LLMConfig.tiny()},
-            build=_tiny_slice)
+            build=_tiny_slice, phase20=phase20)
     finally:
         torch.set_num_threads(threads)
     out = capsys.readouterr().out
     assert launches == {"B": 0, "C": 0}
+    # phase 20 (c) on (a)'s model: its LongLoRA step on the tp mesh
+    assert "phase 20 (c) LongLoRA micro step on the tp mesh dp:1,tp:1" in out
+    assert phase20["c"]["s2_calls"] == 2
+    assert phase20["c"]["loss_gap"] <= 1e-6
     for line in ("in the training forwards 8 (need 8 = 2 layers x 4 micro "
                  "steps), in generation 0",
                  "phase 16 (a) DoRA + LoRA+ (16.0) + shift_attn at 2 layers",
@@ -701,6 +714,35 @@ def test_mesh_phase_runs_on_the_cpu(tmp_path, capsys):
     for k in "ab":
         assert f"mesh ({k}): trained bundle after update 2 differs from " \
             "phase 9's by" in out
+    assert not dist.is_initialized()
+
+
+def test_phase20_sizes():
+    """Phase 20 on the card: a world-size-1 mesh dp:1,tp:1, the ring at
+    the 8B attention width (32 heads of 128) over 4096 tokens with 512
+    padded, (b) and (c) gated as phase 19 gates its pipeline."""
+    sizes = chip_smoke.PHASE20
+    assert sizes["mesh"] == "dp:1,tp:1"
+    assert (sizes["heads"], sizes["head_dim"], sizes["batch"], sizes["seq"],
+            sizes["padded"]) == (32, 128, 1, 4096, 512)
+    for k in ("loss_gap", "grad_rel", "leaf_rel"):
+        assert sizes[k] == chip_smoke.MESH_INFER[k]
+
+
+def test_ring_phase_runs_on_the_cpu(capsys):
+    """Phase 20 (a) at a small size on a one-rank gloo group: the ring's
+    output and gradients against the plain causal attention in bf16,
+    within the phase's bounds; the group is gone after."""
+    import torch.distributed as dist
+
+    got = chip_smoke.run_ring("CPU", "cpu", {
+        **chip_smoke.PHASE20, "heads": 2, "head_dim": 16, "seq": 64,
+        "padded": 8})
+    out = capsys.readouterr().out
+    assert "phase 20 (a) ring_attention on the world-size-1 sp group at " \
+        "[1, 64, 2, 16] bf16, the last 8 keys padded" in out
+    assert got["out_gap"] <= chip_smoke.PHASE20["ring_out"]
+    assert max(got["grad_gaps"]) <= chip_smoke.PHASE20["ring_grad"]
     assert not dist.is_initialized()
 
 

@@ -149,18 +149,22 @@ def pipeline_train(rank, world, payload):
     each run of payload["runs"] ({"name", "zero", "val_size"}), into
     out/<name>; rank 0 writes the log, the bundle and the predictions."""
     for run in payload["runs"]:
-        train_mmsft(payload["state"], os.path.join(payload["out"],
-                                                   run["name"]),
+        out = payload["out"]
+        train_mmsft(payload["state"], os.path.join(out, run["name"]),
                     payload["mesh"], run["zero"], run.get("val_size", 0.0),
-                    payload["microbatches"], run.get("design", 1.0))
+                    payload["microbatches"], run.get("design", 1.0),
+                    run.get("finetuning"), run.get("dcp", False),
+                    run.get("resume") and os.path.join(out, run["resume"]))
     return [r["name"] for r in payload["runs"]]
 
 
 def train_mmsft(state, out_dir, mesh, zero, val_size, microbatches,
-                design=1.0):
+                design=1.0, finetuning=None, dcp=False, resume=None):
     """run_mmsft on the tiny model (design: its design loss weight) over
     the shipped training examples (batch 4, 4 micro steps, 2 updates, a
-    constant learning rate; f32): with or without a mesh."""
+    constant learning rate; f32; checkpoint-2 and -4, DCP ones with dcp):
+    with or without a mesh; finetuning: FinetuningArguments fields (the
+    custom chain); resume: a checkpoint to start from."""
     from dataclasses import replace
 
     from llamole_tpu_torch.config import get_train_args
@@ -175,10 +179,17 @@ def train_mmsft(state, out_dir, mesh, zero, val_size, microbatches,
                       gradient_accumulation_steps=2, max_steps=4,
                       num_train_epochs=4.0, logging_steps=1, save_steps=2,
                       lr_scheduler_type="constant",
-                      pipeline_microbatches=microbatches)
+                      pipeline_microbatches=microbatches,
+                      resume_from_checkpoint=resume)
+    args[3] = replace(args[3], **(finetuning or {}))
     args[4] = replace(args[4], max_new_tokens=8)
     model = base.tiny_model(torch.load(state), design)
-    return run_mmsft(*args, prebuilt=(model, model.tokenizer))
+    if dcp:
+        os.environ["LLAMOLE_ORBAX"] = "1"
+    try:
+        return run_mmsft(*args, prebuilt=(model, model.tokenizer))
+    finally:
+        os.environ.pop("LLAMOLE_ORBAX", None)
 
 
 if __name__ == "__main__":

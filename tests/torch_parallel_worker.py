@@ -103,8 +103,15 @@ def train(rank, world, payload):
                       save_fn=trainer.save_checkpoint)
         bundle = {n: full(p).detach().clone()
                   for n, p in trainer.params.items()}
+        opt = trainer.optimizer
+        with opt.whole_state():
+            moments = {n: t.clone() for n, t in opt.mu.items()}
         if rank == 0:
             torch.save(bundle, out + ".pt")
+            # GaLore's bases (every rank holds them whole) and the first
+            # moments joined from the ranks' parts
+            torch.save({"proj": dict(getattr(opt, "proj", {})),
+                        "mu": moments}, out + ".opt.pt")
         done.append(run["name"])
     os.environ.pop("LLAMOLE_ORBAX", None)
     return done
