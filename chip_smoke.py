@@ -275,6 +275,20 @@
    [1, 4096, 32, 128] bf16 with the last 512 keys padded, forward and
    backward in turns with the plain causal attention (output and
    gradient gaps gated by PHASE20); each part's wall and their sum.
+21. The mesh placements of ROADMAP.md item 9d (PHASE21), each on a
+   world-size-1 process group: (a) inside phase 14 on the int8
+   Llama-3.1-8B at full width and depth: run_molqa's design on 2
+   records (64 new tokens) with the int8 base placed equal to the
+   mesh-less run (analyses, responses, SMILES; A >= 28 x steps, all
+   mma), the int4 and W8A8 LLMs of 14 (b) placed with their logits
+   within 5e-2 of the largest mesh-less logit, and 14 (d)'s QLoRA
+   through run_mmsft at ZeRO-3 (the int8 buffers in dp chunks) with each
+   micro step's loss within 1e-3 of 14 (d)'s; peaks. (b) inside phase
+   15 (a), qwen3 freeze-tuned with its q / k norms trainable, one LM
+   loss and backward placed on tp against the mesh-less one; (c) inside
+   phase 15 (b), gemma-2's LoRA GraphLM.loss and backward at ZeRO-3 (its
+   tied embedding under FSDP2) against the mesh-less one; (b) and (c)
+   gated as phase 20 (b) and (c). Each part's wall and their sum.
 
 Prints, before the last line, one {"kernels": [...]} JSON line (per
 kernel: launches on the main path, max_abs_err, ms, plain_ms, device_ms,
@@ -294,7 +308,9 @@ latter; under launches_finetune, phase 16's B and C (its four runs); under
 launches_entry, phase 17's: A's (per body too), B's and C's; under
 launches_mesh, phase 18's B and C; under launches_mesh_inference, phase
 19's A (per body too) and B; under launches_moe_ep and launches_s2_tp,
-phase 20 (b)'s and (c)'s B and C;
+phase 20 (b)'s and (c)'s B and C; under launches_placements, phase 21's:
+A's in (a)'s run_molqa on the mesh (per body too), B's and C's in (a)'s
+QLoRA at ZeRO-3 and (c)'s gemma-2 step;
 the last line is {"ok": true, "device": {...}}. Any
 failure exits non-zero.
 """
@@ -3938,7 +3954,7 @@ def check_kv_cache(llm, ids, mask, steps, tag):
 
 
 @torch.no_grad()
-def run_schemes(cfg, tok, device, sizes, tag):
+def run_schemes(cfg, tok, device, sizes, tag, phase21=None):
     """Phase 14 (b) and (c): a bf16 LLM of cfg from seed 0, whose prefill
     of a batch of PROMPT_HEADER prompts records the bf16 projections of
     the first and last layers and the head, its last-position logits and
@@ -3947,7 +3963,8 @@ def run_schemes(cfg, tok, device, sizes, tag):
     bytes, each recorded projection on its recorded input (QUANT_BOUNDS),
     the prefill's last-position logits (max rel err, top-1 agreement) and
     ms per greedy decode step; every W8A8 projection runs torch._int_mm.
-    Returns {scheme: record}."""
+    With phase21, the int4 and W8A8 LLMs are then placed on the mesh
+    (phase 21 (a): check_placed_scheme). Returns {scheme: record}."""
     from llamole_tpu_torch.models.gllm import LLM
     from llamole_tpu_torch.models.gllm.quantize import quantize_llm_params
     from llamole_tpu_torch.ops.nn import int8_matmul
@@ -4007,7 +4024,11 @@ def run_schemes(cfg, tok, device, sizes, tag):
                  f"{want_mm}")
         out[scheme] = {"bytes": nbytes, "proj": proj, "logits": rel,
                        "logits_l2": rel2, "top1": top1, "ms": ms}
-        del llm, modules
+        if phase21 is not None and scheme in ("int4", "w8a8"):
+            phase21["a"][scheme] = check_placed_scheme(
+                llm, ids, mask, logits[:, -1], scheme, tag, device,
+                phase21.get("sizes"))
+        del llm, modules, logits
     gc.collect()
     return out
 
@@ -4032,18 +4053,22 @@ def qlora_args(out_dir, sizes):
     return args
 
 
-def run_qlora(kernels, tag, out_dir, sizes, device, phase9_peak=None):
+def run_qlora(kernels, tag, out_dir, sizes, device, phase9_peak=None,
+              phase21=None):
     """Phase 14 (d): the loader builds the GraphLM with quantization_bit=8
     (the LLM drawn in bf16 from the seed, then quantized in place) and
     run_mmsft trains it with phase 9's settings and QLORA_DEVIATIONS:
     finite losses, the LoRA and the connectors changed, the int8 base's
-    checksum unchanged; the training peak beside phase 9's. Returns the
-    B and C launches of run_mmsft (on the card)."""
+    checksum unchanged; the training peak beside phase 9's. With
+    phase21, then phase 21 (a)'s run of the same at ZeRO-3 on the mesh
+    (run_qlora_zero3). Returns the B and C launches of run_mmsft (on the
+    card)."""
     from llamole_tpu_torch.config import get_train_args
     from llamole_tpu_torch.models.loader import build_graph_lm
     from llamole_tpu_torch.train.workflow import run_mmsft
 
-    args = get_train_args(qlora_args(out_dir, sizes))
+    raw = qlora_args(out_dir, sizes)
+    args = get_train_args(raw)
     m_args, d_args, t_args, f_args, _ = args
     model, tok = build_graph_lm(m_args, d_args, f_args, device=device,
                                 seed=t_args.seed)
@@ -4090,18 +4115,25 @@ def run_qlora(kernels, tag, out_dir, sizes, device, phase9_peak=None):
           f"connectors changed, the int8 base's checksum {base_sum} "
           f"unchanged; B {launches['B']} and C {launches['C']} launches; "
           f"peak {peak}{beside} [{tag}]", flush=True)
+    del base     # the int8 base's old buffers go when ZeRO-3 cuts them
+    if phase21 is not None:
+        phase21["a"]["qlora"] = run_qlora_zero3(
+            model, tok, raw, start, [r["loss"] for r in log], kernels, tag,
+            device, phase21.get("sizes"))
     return launches
 
 
 def run_quantized(kernels, tag, device="cuda", sizes=None, build=None,
-                  llm_cfg=None, phase7=None, phase9_peak=None):
+                  llm_cfg=None, phase7=None, phase9_peak=None, phase21=None):
     """Phase 14 on an empty card: (a) quantized serving and (e) the int8
     denoiser on one slice, then (b) the three schemes with (c) the int8
     KV cache, and (d) QLoRA through run_mmsft. build(llm) makes the slice
     around a prebuilt LLM (build_slice by default); llm_cfg is the LLM's
-    config (Llama-3.1-8B's by default). Returns the A launches of (a) and
-    (e), the B launches of (a) and (d) and the C launches of (d), and the
-    schemes' records."""
+    config (Llama-3.1-8B's by default). With phase21 (a dict), phase 21
+    (a) runs on the slice, the schemes and the QLoRA model, its records
+    into phase21["a"]. Returns the A launches of (a) and (e), the B
+    launches of (a) and (d) and the C launches of (d), and the schemes'
+    records."""
     from llamole_tpu_torch.models.gllm import LLMConfig
     from llamole_tpu_torch.models.loader import offline_tokenizer
 
@@ -4119,6 +4151,9 @@ def run_quantized(kernels, tag, device="cuda", sizes=None, build=None,
     served = serve_quantized(model, tok, kernels, tag, sizes, phase7)
     decode_split(model.llm, tok, tag, sizes)
     denoiser = check_int8_denoiser(model, kernels, tag, sizes)
+    if phase21 is not None:
+        phase21["a"] = {"molqa": run_quant_molqa(model, tok, kernels, tag,
+                                                 device, phase21.get("sizes"))}
     del model
     gc.collect()
     if on_card:
@@ -4126,12 +4161,13 @@ def run_quantized(kernels, tag, device="cuda", sizes=None, build=None,
     check_int_mm(device, llm_cfg, tag)
     schemes = run_schemes(
         dataclasses.replace(llm_cfg, num_layers=sizes["scheme_layers"]),
-        offline_tokenizer(), device, sizes, tag)
+        offline_tokenizer(), device, sizes, tag, phase21)
     if on_card:
         torch.cuda.empty_cache()
     work = tempfile.mkdtemp(prefix="chip_smoke_qlora_")
     try:
-        qlora = run_qlora(kernels, tag, work, sizes, device, phase9_peak)
+        qlora = run_qlora(kernels, tag, work, sizes, device, phase9_peak,
+                          phase21)
     finally:
         shutil.rmtree(work, ignore_errors=True)
         gc.collect()
@@ -4322,8 +4358,9 @@ def _spec_report(llm):
             f"{st.get('guard_tripped')}")
 
 
-def run_qwen3(tok, tag, device="cuda", sizes=None, cfg=None):
-    """Phase 15 (a). Returns its records."""
+def run_qwen3(tok, tag, device="cuda", sizes=None, cfg=None, phase21=None):
+    """Phase 15 (a), and with phase21 then phase 21 (b) on its LLM (its
+    record into phase21["b"]). Returns its records."""
     from llamole_tpu_torch.models.gllm import LLMConfig
 
     sizes = sizes or FAMILIES
@@ -4356,6 +4393,9 @@ def run_qwen3(tok, tag, device="cuda", sizes=None, cfg=None):
                            "stats": stats, "agree": agree, "diff": diff}
     finally:
         llm.cfg = base
+    if phase21 is not None:
+        phase21["b"] = run_qk_norm_tp(llm, ids, mask, tag, device,
+                                      phase21.get("sizes"))
     return records
 
 
@@ -4577,12 +4617,13 @@ def run_mixtral(kernels, tag, device="cuda", sizes=None, cfg=None,
 
 
 def run_families(kernels, tag, device="cuda", sizes=None, build=None,
-                 cfgs=None, phase7=None, phase20=None):
+                 cfgs=None, phase7=None, phase20=None, phase21=None):
     """Phase 15 on an empty card: (a) qwen3, (b) gemma-2 serving, (c)
     gemma-3, (d) Mixtral (and phase 20 (b) on its model: phase20 takes
-    its record), each model freed before the next. cfgs: the four LLM
-    configs (the presets by default). Returns the A, B and C launches of
-    (b) and (d)."""
+    its record; with phase21, phase 21 (b) on (a)'s LLM and (c) on (b)'s
+    model), each model freed before the next. cfgs: the four LLM configs
+    (the presets by default). Returns the A, B and C launches of (b) and
+    (d)."""
     from llamole_tpu_torch.models.gllm import LLMConfig
     from llamole_tpu_torch.models.loader import offline_tokenizer
 
@@ -4598,7 +4639,7 @@ def run_families(kernels, tag, device="cuda", sizes=None, build=None,
             torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
-    run_qwen3(tok, tag, device, sizes, cfgs.get("qwen3"))
+    run_qwen3(tok, tag, device, sizes, cfgs.get("qwen3"), phase21)
     freed()
     print(f"phase 15 (a) qwen3: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
@@ -4609,6 +4650,10 @@ def run_families(kernels, tag, device="cuda", sizes=None, build=None,
     served = serve_quantized(model, stok, kernels, tag, sizes, phase7,
                              what="gemma-2 serving (bf16, compute-dtype "
                                   "KV cache)")
+    if phase21 is not None:
+        phase21["c"] = run_tied_zero3(
+            model, moe_train_batch(stok, sizes["train_batch"], device),
+            kernels, tag, device, phase21.get("sizes"))
     del model
     freed()
     print(f"phase 15 (b) gemma-2: {time.perf_counter() - t0:.1f} s",
@@ -5336,16 +5381,16 @@ def _gate_step(what, loss, want_loss, got, want, sizes, tag, extra=""):
     return {"loss_gap": gap, "grad_rel": rel, "leaf_rel": leaf}
 
 
-def _mesh_step(model, batch, device, sizes):
-    """Place the GraphLM on a world-size-1 mesh (shard_graph_lm) and run
-    one loss and backward on the whole batch (generator seed 0) ->
-    (loss, the trainable gradients, seconds). The caller holds the
-    group."""
+def _mesh_step(model, batch, device, sizes, zero3=False):
+    """Place the GraphLM on a world-size-1 mesh (shard_graph_lm, at
+    ZeRO-3 with zero3) and run one loss and backward on the whole batch
+    (generator seed 0) -> (loss, the trainable gradients, seconds). The
+    caller holds the group."""
     from llamole_tpu_torch.parallel.mesh import MeshGroups, mesh_from_string
     from llamole_tpu_torch.parallel.sharding import shard_graph_lm
     groups = MeshGroups(mesh_from_string(sizes["mesh"],
                                          torch.device(device).type))
-    shard_graph_lm(model, groups, zero3=False)
+    shard_graph_lm(model, groups, zero3=zero3)
     rows = len(np.asarray(batch["input_ids"]))
     batch = {**batch, "row_shard": np.asarray([0, rows], np.int64)}
     params = model.trainable_parameters()
@@ -5425,6 +5470,249 @@ def run_s2_tp(model, batch, kernels, tag, device, sizes=None):
         fail(f"phase 20 (c): S²-attn ran {s2} times, need {layers}")
     return {**out, **launches, "s2_calls": s2,
             "wall": time.perf_counter() - t_part}
+
+
+# Phase 21: the mesh placements of ROADMAP.md Queue 1 item 9d, each on a
+# world-size-1 process group (NCCL on the card: one card shows the
+# placement's arithmetic, no splitting collective; the splitting is held
+# by the gloo tests, tests/test_torch_mesh_placements.py). (a) inside
+# phase 14, the int8 Llama-3.1-8B (full width and depth): on its serving
+# slice (rank-8 LoRA, int8 KV cache) run_molqa's design on `records`
+# records at `max_new_tokens` new tokens without the mesh (its decode
+# graphed) and then with training_args.mesh (the int8 base placed, its
+# decode eager): analyses, responses and SMILES equal; per scheme of
+# phase 14 (b) (int4, W8A8, at its depth) the placed LLM's last-position
+# logits against the mesh-less ones (max |gap| over max |logit| within
+# logit_tol, the script's MERGE_LOGIT_TOL); phase 14 (d)'s QLoRA model,
+# its trainable bundle restored to its start, through run_mmsft again at
+# ZeRO-3 on the mesh (the int8 buffers in their dp chunks, all-gathered
+# per product): each micro step's loss within loss_gap of (d)'s. (b)
+# inside phase 15 (a), on its qwen3 LLM (full width, 4 of 36 layers),
+# freeze-tuned with the per-head q / k norms trainable: one LM loss and
+# backward without the mesh, then with the LLM placed on tp (the norms'
+# one scale entering through to_tp). (c) inside phase 15 (b), on its
+# gemma-2 GraphLM (full width, 42 layers, tied embeddings): one LoRA
+# GraphLM.loss and backward without the mesh, then with the model placed
+# at ZeRO-3 (the frozen tied embedding under FSDP2, the head reading it
+# through LLM.tied_zero). (b) and (c) are gated as phase 20 (b) and (c).
+PHASE21 = {"mesh": "dp:1,tp:1", "records": 2, "max_new_tokens": 64,
+           "logit_tol": MERGE_LOGIT_TOL, "loss_gap": 1e-3,
+           "grad_rel": 1e-2, "leaf_rel": 5e-2}
+
+
+def _mesh_groups(device, sizes):
+    from llamole_tpu_torch.parallel.mesh import MeshGroups, mesh_from_string
+    return MeshGroups(mesh_from_string(sizes["mesh"],
+                                       torch.device(device).type))
+
+
+def _is_placed(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def run_quant_molqa(model, tok, kernels, tag, device, sizes=None):
+    """Phase 21 (a), on phase 14 (a)'s int8 slice after its serving:
+    run_molqa's design without the mesh, then with it (kernel counts from
+    0 over the mesh's run). Returns A's launches, the walls and the
+    peak."""
+    sizes = sizes or PHASE21
+    on_card = device == "cuda"
+    fused = kernels[0] if kernels else None
+    t0 = time.perf_counter()
+    plain_designs, mesh_designs = [], []
+    want, want_wall = _molqa(model, tok, "", sizes, plain_designs)
+    with one_rank_group(device):
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        reset_counts(*kernels)
+        got, got_wall = _molqa(model, tok, sizes["mesh"], sizes,
+                               mesh_designs)
+        peak = _peak(on_card)
+    launches = {"A": getattr(fused, "launches", 0),
+                "A_mma": getattr(fused, "launches_mma", 0),
+                "A_fma": getattr(fused, "launches_fma", 0)}
+    q = model.llm.layers[0].attn["q"]
+    placed = _is_placed(q.w_q) and q.quant == "int8"
+    same = {
+        "analysis tokens": plain_designs == mesh_designs,
+        "SMILES": [r["llm_smiles"] for r in want]
+        == [r["llm_smiles"] for r in got],
+        "responses": [r["llm_response"] for r in want]
+        == [r["llm_response"] for r in got]}
+    print(f"phase 21 (a) int8 run_molqa on the mesh {sizes['mesh']}: the "
+          f"int8 base placed ({'w_q a DTensor' if placed else 'NOT placed'}"
+          f"), {len(got)} records at {sizes['max_new_tokens']} new tokens "
+          f"{got_wall:.3f} s (without the mesh {want_wall:.3f} s"
+          f"{', its decode graphed' if on_card else ''}); equal: {same}; "
+          f"A {launches['A']} (mma {launches['A_mma']}, fma "
+          f"{launches['A_fma']}) launches; peak {peak} [{tag}]", flush=True)
+    if not placed:
+        fail("phase 21 (a): the int8 base is not placed on the mesh")
+    bad = [k for k, ok in same.items() if not ok]
+    if bad:
+        fail(f"phase 21 (a): the int8 mesh run differs in {bad}")
+    if len(got) != sizes["records"]:
+        fail(f"phase 21 (a): run_molqa answered {len(got)} records")
+    if on_card:
+        check_mma_only(fused, "phase 21 (a) run_molqa on the mesh")
+        steps = diffusion_steps(model)
+        check_launches("fused_block_attention (phase 21 (a))",
+                       launches["A"], model.graph_decoder.cfg.depth * steps,
+                       f"{model.graph_decoder.cfg.depth} x {steps} x 1 "
+                       "design batch")
+    return {**launches, "wall": time.perf_counter() - t0,
+            "molqa_s": got_wall, "plain_molqa_s": want_wall, "peak": peak}
+
+
+@torch.no_grad()
+def check_placed_scheme(llm, ids, mask, want, scheme, tag, device,
+                        sizes=None):
+    """Phase 21 (a), inside phase 14 (b): the scheme's LLM placed on the
+    mesh (shard_llm), its prefill's last-position logits against the
+    mesh-less ones (want). Returns the gap and the wall."""
+    from llamole_tpu_torch.parallel.sharding import shard_llm
+    sizes = sizes or PHASE21
+    t0 = time.perf_counter()
+    with one_rank_group(device):
+        shard_llm(llm, _mesh_groups(device, sizes))
+        got = llm(input_ids=ids, attention_mask=mask,
+                  last_logits_only=True)[0][:, -1]
+    gap = _rel(got, want)
+    placed = _is_placed(llm.layers[0].attn["o"].w_q)
+    print(f"phase 21 (a) {scheme} placed on the mesh {sizes['mesh']} "
+          f"({'w_q a DTensor' if placed else 'NOT placed'}): the prefill's "
+          f"last-position logits against the mesh-less ones, max |gap| "
+          f"over max |logit| {gap:.4e} (limit {sizes['logit_tol']}) "
+          f"[{tag}]", flush=True)
+    if not placed or not gap <= sizes["logit_tol"]:
+        fail(f"phase 21 (a): {scheme} on the mesh strays ({gap})")
+    return {"gap": gap, "wall": time.perf_counter() - t0}
+
+
+def run_qlora_zero3(model, tok, args, start, want, kernels, tag, device,
+                    sizes=None):
+    """Phase 21 (a), inside phase 14 (d) on its QLoRA model: the
+    trainable bundle restored to `start`, run_mmsft (args: (d)'s
+    settings) at ZeRO-3 on the mesh; each micro step's loss against (d)'s
+    (want). Returns B's and C's launches, the gaps, the wall and the
+    peak."""
+    from llamole_tpu_torch.config import get_train_args
+    from llamole_tpu_torch.train.workflow import run_mmsft
+    sizes = sizes or PHASE21
+    on_card = device == "cuda"
+    out_dir = os.path.join(args["output_dir"], "zero3")
+    args = get_train_args({**args, "output_dir": out_dir,
+                           "mesh": sizes["mesh"], "zero_stage": 3})
+    with torch.no_grad():
+        for n, p in model.trainable_parameters().items():
+            p.copy_(start[n])
+    t0 = time.perf_counter()
+    with one_rank_group(device):
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        reset_counts(*kernels)
+        run_mmsft(*args, prebuilt=(model, tok))
+        peak = _peak(on_card)
+        launches = ({"B": kernels[1].launches, "C": kernels[2].launches}
+                    if on_card else {"B": 0, "C": 0})
+    wall = time.perf_counter() - t0
+    with open(Path(out_dir) / "trainer_log.jsonl") as f:
+        got = [json.loads(line)["loss"] for line in f]
+    q = model.llm.layers[0].attn["q"]
+    gaps = [abs(g - w) / max(abs(w), 1e-30) for g, w in zip(got, want)]
+    print(f"phase 21 (a) QLoRA at ZeRO-3 on the mesh {sizes['mesh']}: "
+          f"losses {[round(x, 6) for x in got]} against phase 14 (d)'s "
+          f"{[round(x, 6) for x in want]} (relative gaps "
+          f"{[float(f'{g:.3e}') for g in gaps]}, limit {sizes['loss_gap']})"
+          f"; the int8 base's buffers in dp chunks "
+          f"({'yes' if q.zero is not None else 'NO'}); {wall:.3f} s wall; "
+          f"B {launches['B']}, C {launches['C']} launches; peak {peak} "
+          f"[{tag}]", flush=True)
+    if q.zero is None or not _is_placed(q.w_q):
+        fail("phase 21 (a): the QLoRA base is not placed at ZeRO-3")
+    if len(got) != len(want) or not all(np.isfinite(got)) or \
+            max(gaps) > sizes["loss_gap"]:
+        fail(f"phase 21 (a): QLoRA at ZeRO-3 {got} strays from {want}")
+    return {**launches, "loss_gaps": gaps, "wall": wall, "peak": peak}
+
+
+def run_qk_norm_tp(llm, ids, mask, tag, device, sizes=None):
+    """Phase 21 (b), on phase 15 (a)'s qwen3 LLM after its decodes:
+    freeze-tuned with the per-head q / k norms trainable, one LM loss
+    (the prompts' tokens) and backward without the mesh, then with the
+    LLM placed on tp. Returns the gaps and the wall."""
+    from llamole_tpu_torch.models.gllm.model import lm_loss
+    from llamole_tpu_torch.parallel.sharding import shard_llm
+    sizes = sizes or PHASE21
+    t0 = time.perf_counter()
+    for n, p in llm.named_parameters():
+        p.requires_grad_(".q_norm." in n or ".k_norm." in n)
+    params = {n: p for n, p in llm.named_parameters() if p.requires_grad}
+    labels = torch.where(mask > 0, ids, -100)
+
+    def step():
+        for p in params.values():
+            p.grad = None
+        loss = lm_loss(llm(input_ids=ids, attention_mask=mask)[0], labels)
+        loss.backward()
+        return float(loss.detach()), _grads(params)
+
+    want = step()
+    with one_rank_group(device):
+        shard_llm(llm, _mesh_groups(device, sizes))
+        loss, grads = step()
+        out = _gate_step(
+            f"phase 21 (b) qwen3 freeze-tuned (the {len(params)} q / k "
+            f"norms trainable) on the tp mesh {sizes['mesh']}", loss,
+            want[0], grads, want[1], sizes, tag)
+    if llm.layers[0].q_norm.tp is None:
+        fail("phase 21 (b): the q / k norms have no tp role")
+    return {**out, "wall": time.perf_counter() - t0}
+
+
+def run_tied_zero3(model, batch, kernels, tag, device, sizes=None):
+    """Phase 21 (c), on phase 15 (b)'s gemma-2 GraphLM after its serving:
+    one LoRA GraphLM.loss and backward without the mesh, then with the
+    model placed at ZeRO-3 (the tied embedding under FSDP2). Returns the
+    gaps, B's and C's launches and the wall."""
+    from torch.distributed.fsdp import FSDPModule
+    sizes = sizes or PHASE21
+    t0 = time.perf_counter()
+    params = model.trainable_parameters()
+    for p in params.values():
+        p.grad = None
+    total, _ = model.loss(batch, torch.Generator(device=device).manual_seed(0),
+                          train=True)
+    total.backward()
+    want = (float(total.detach()), _grads(params))
+    del total
+    with one_rank_group(device):
+        reset_counts(*kernels)
+        loss, grads, wall = _mesh_step(model, batch, device, sizes,
+                                       zero3=True)
+        launches = ({"B": kernels[1].launches, "C": kernels[2].launches}
+                    if device == "cuda" else {"B": 0, "C": 0})
+        llm = model.llm
+        tied = (llm.lm_head is None and llm.tied_zero is not None
+                and isinstance(llm.embed, FSDPModule))
+        out = _gate_step(
+            f"phase 21 (c) gemma-2 LoRA step at ZeRO-3 on the mesh "
+            f"{sizes['mesh']} (tied embedding under FSDP2, the head "
+            f"gathering it: {tied})", loss, want[0], grads, want[1], sizes,
+            tag, f"; loss + backward {wall:.3f} s; B {launches['B']}, C "
+                 f"{launches['C']} launches")
+    if not tied:
+        fail("phase 21 (c): the tied embedding is not under FSDP2")
+    if device == "cuda":
+        layers = model.graph_predictor.cfg.num_layer
+        check_launches("gin_aggregate (phase 21 (c))", launches["B"], layers,
+                       f"{layers} predictor layers")
+        check_launches("gin_aggregate_backward (phase 21 (c))",
+                       launches["C"], layers - 1,
+                       f"{layers - 1} predictor layers")
+    return {**out, **launches, "wall": time.perf_counter() - t0}
 
 
 def run_ring(tag, device="cuda", sizes=None):
@@ -5584,8 +5872,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
+    phase21 = {}
     quantized, _ = run_quantized(kernels, tag, phase7=phase7_latency,
-                                 phase9_peak=train_peak)
+                                 phase9_peak=train_peak, phase21=phase21)
     print(f"quantized phase: {time.perf_counter() - t0:.1f} s wall [{tag}]",
           flush=True)
     gc.collect()
@@ -5593,7 +5882,7 @@ def main() -> int:
     t0 = time.perf_counter()
     phase20 = {}
     families = run_families(kernels, tag, phase7=phase7_latency,
-                            phase20=phase20)
+                            phase20=phase20, phase21=phase21)
     print(f"families phase: {time.perf_counter() - t0:.1f} s wall [{tag}]",
           flush=True)
     gc.collect()
@@ -5610,6 +5899,23 @@ def main() -> int:
           f"S²-attn under tp {phase20['c']['wall']:.1f} s (inside phase 16 "
           f"(a)); {sum(phase20[k]['wall'] for k in 'abc'):.1f} s in all "
           f"[{tag}]", flush=True)
+    quant21 = phase21["a"]
+    walls21 = {"a": sum(quant21[k]["wall"] for k in ("molqa", "int4",
+                                                      "w8a8", "qlora")),
+               "b": phase21["b"]["wall"], "c": phase21["c"]["wall"]}
+    print(f"phase 21: (a) {walls21['a']:.1f} s inside phase 14 (int8 "
+          f"run_molqa on the mesh {quant21['molqa']['wall']:.1f} s, int4 "
+          f"and W8A8 placed {quant21['int4']['wall']:.1f} and "
+          f"{quant21['w8a8']['wall']:.1f} s, QLoRA at ZeRO-3 "
+          f"{quant21['qlora']['wall']:.1f} s), (b) q / k norms under tp "
+          f"{walls21['b']:.1f} s inside phase 15 (a), (c) tied ZeRO-3 "
+          f"{walls21['c']:.1f} s inside phase 15 (b); "
+          f"{sum(walls21.values()):.1f} s in all [{tag}]", flush=True)
+    placements = {
+        "A": quant21["molqa"]["A"], "A_mma": quant21["molqa"]["A_mma"],
+        "A_fma": quant21["molqa"]["A_fma"],
+        "B": quant21["qlora"]["B"] + phase21["c"]["B"],
+        "C": quant21["qlora"]["C"] + phase21["c"]["C"]}
 
     def entry(name, source, replaces, rec, launches, **extra):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
@@ -5643,6 +5949,9 @@ def main() -> int:
               launches_mesh_inference=mesh_infer["A"],
               launches_mesh_inference_mma=mesh_infer["A_mma"],
               launches_mesh_inference_fma=mesh_infer["A_fma"],
+              launches_placements=placements["A"],
+              launches_placements_mma=placements["A_mma"],
+              launches_placements_fma=placements["A_fma"],
               sdpa_floor_ms=a["sdpa_floor_ms"],
               sdpa_floor_device_ms=a["sdpa_floor_device_ms"],
               fma_ms=a["fma_ms"],
@@ -5661,6 +5970,7 @@ def main() -> int:
               launches_mesh_inference=mesh_infer["B"],
               launches_moe_ep=phase20["b"]["B"],
               launches_s2_tp=phase20["c"]["B"],
+              launches_placements=placements["B"],
               **{k: v for k, v in b.items() if k.startswith("train_")},
               shape=b["shape"], share=b["share"],
               pretrain_launches=stack_launches["B"],
@@ -5679,6 +5989,7 @@ def main() -> int:
               launches_entry=phase17["C"], launches_mesh=mesh["C"],
               launches_moe_ep=phase20["b"]["C"],
               launches_s2_tp=phase20["c"]["C"],
+              launches_placements=placements["C"],
               launches_smem=c_training["launches_smem"],
               launches_global=c_training["launches_global"],
               pretrain_launches=stack_launches["C"],

@@ -30,6 +30,17 @@ keep the quantized weight for the backward, not a compute-dtype copy of
 it (the QLoRA path). `merge_lora` folds the adapters into a dense base
 (JAX lora.merge_lora) and refuses a quantized one.
 
+On a mesh (parallel/sharding.py) the buffers are placed as JAX places
+its w_q / w_qa / w_q4 and scale leaves: a column-parallel projection
+holds its rows of out and multiplies by its slice of the replicated
+per-channel scale (int4: its columns of the [groups, out] scale); a
+row-parallel one holds its columns of in (int4: in / 2 / tp packed
+bytes and groups / tp scale rows), its partial int8 products are summed
+over tp before the whole scale multiplies them, and W8A8 takes each
+token's amax over the whole of in (a MAX over tp) as JAX's one product
+does. Under ZeRO-3 (`zero`) each rank keeps its dp chunk of the
+buffers, all-gathered for each product and again for its backward.
+
 DoRA (arXiv 2402.09353; JAX dora_init and _proj's DoRA branch): the
 adapter gains a magnitude lora_m [out], and the projection is
 
@@ -125,12 +136,17 @@ def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
     return torch.stack([lo, hi], dim=-1).flatten(-2)
 
 
-def quantize_activations(x: torch.Tensor):
+def quantize_activations(x: torch.Tensor, group=None):
     """W8A8's per-token activation quantization (JAX _proj's w_qa branch):
     (int8 values, f32 scales [..., 1]); the amax is floored at 1e-6
-    before the division by 127."""
+    before the division by 127. group: x holds this rank's columns of
+    the input and the amax is the max over the group's."""
     x32 = x.float()
-    xs = x32.abs().amax(dim=-1, keepdim=True).clamp_min(1e-6) / 127.0
+    amax = x32.abs().amax(dim=-1, keepdim=True)
+    if group is not None:
+        from ...parallel.comm import all_reduce_max
+        amax = all_reduce_max(amax, group)
+    xs = amax.clamp_min(1e-6) / 127.0
     x8 = torch.clamp(torch.round(x32 / xs), -127, 127).to(torch.int8)
     return x8, xs
 
@@ -146,45 +162,69 @@ def _dequantize_int4(packed, scale, dtype) -> torch.Tensor:
     return w.view(out, in_dim)
 
 
-def _weight_only(x, q, scale, scheme):
-    if scheme == "int8":
-        return F.linear(x, q.to(x.dtype)) * scale.to(x.dtype)
-    return F.linear(x, _dequantize_int4(q, scale, x.dtype))
+def _weight_only(x, q, scale, scheme, group=None):
+    """The weight-only product; group: a row-parallel projection's tp
+    group, over which the partial products are summed (int8: before the
+    scale multiplies them, as JAX scales the whole product)."""
+    int8 = scheme == "int8"
+    y = F.linear(x, q.to(x.dtype) if int8
+                 else _dequantize_int4(q, scale, x.dtype))
+    if group is not None:
+        torch.distributed.all_reduce(y, group=group)
+    return y * scale.to(x.dtype) if int8 else y
 
 
 class _WeightOnlyProduct(torch.autograd.Function):
     """The weight-only product with a backward that rebuilds the compute
     dtype weight from the quantized one (what F.linear would keep is a
-    compute-dtype copy of every weight: 16 GB at 8B)."""
+    compute-dtype copy of every weight: 16 GB at 8B). gather: ZeRO-3's
+    (q, scale) from this rank's chunks, called again in the backward."""
 
     @staticmethod
-    def forward(ctx, x, q, scale, scheme):
+    def forward(ctx, x, q, scale, scheme, group, gather):
         ctx.save_for_backward(q, scale)
-        ctx.scheme = scheme
-        return _weight_only(x, q, scale, scheme)
+        ctx.scheme, ctx.gather = scheme, gather
+        if gather is not None:
+            q, scale = gather(q, scale)
+        return _weight_only(x, q, scale, scheme, group)
 
     @staticmethod
     def backward(ctx, grad):
         q, scale = ctx.saved_tensors
+        if ctx.gather is not None:
+            q, scale = ctx.gather(q, scale)
         if ctx.scheme == "int8":
             # d/dx (x W^T) * s = (g * s) W, at the forward's rounding
-            return (grad * scale.to(grad.dtype)) @ q.to(grad.dtype), \
-                None, None, None
-        return grad @ _dequantize_int4(q, scale, grad.dtype), None, None, \
-            None
+            gx = (grad * scale.to(grad.dtype)) @ q.to(grad.dtype)
+        else:
+            gx = grad @ _dequantize_int4(q, scale, grad.dtype)
+        return gx, None, None, None, None, None
 
 
-def quantized_product(x, q, scale, scheme: str) -> torch.Tensor:
-    """x [..., in] times the quantized base -> [..., out] in x's dtype."""
+def quantized_product(x, q, scale, scheme: str, group=None,
+                      gather=None) -> torch.Tensor:
+    """x [..., in] times the quantized base -> [..., out] in x's dtype.
+    group: a row-parallel projection's tp group (x and q hold this
+    rank's columns of in; the result is the whole product, summed over
+    the group). gather: ZeRO-3's (q, scale) -> the rank's whole q and
+    scale from its dp chunks (_WeightOnlyProduct)."""
     if scheme == "w8a8":
-        x8, xs = quantize_activations(x)
+        if gather is not None:
+            q, scale = gather(q, scale)
+        x8, xs = quantize_activations(x, group)
         lead = x.shape[:-1]
         y32 = int8_matmul(x8.reshape(-1, x.shape[-1]), q.t())
+        if group is not None:
+            # the int32 partial products, summed exactly as JAX's one
+            y32 = y32.contiguous()
+            torch.distributed.all_reduce(y32, group=group)
         y = y32.float().reshape(*lead, -1) * xs * scale.float()
         return y.to(x.dtype)
     if torch.is_grad_enabled() and x.requires_grad:
-        return _WeightOnlyProduct.apply(x, q, scale, scheme)
-    return _weight_only(x, q, scale, scheme)
+        return _WeightOnlyProduct.apply(x, q, scale, scheme, group, gather)
+    if gather is not None:
+        q, scale = gather(q, scale)
+    return _weight_only(x, q, scale, scheme, group)
 
 
 # ---------------------------------------------------------------------------
@@ -283,6 +323,9 @@ class LoRALinear(nn.Module):
     # the tensor-parallel role (parallel/sharding.py shard_llm): None, or
     # a TP whose style is "col" (output sharded) or "row" (input sharded)
     tp = None
+    # ZeRO-3 of a quantized base (parallel/sharding.py fsdp_llm): None, or
+    # a Zero that all-gathers the dp chunks of w_q / scale
+    zero = None
 
     @property
     def _device(self) -> torch.device:
@@ -336,14 +379,30 @@ class LoRALinear(nn.Module):
         self.lora_a.normal_(generator=generator).div_(rank)
         self.lora_b.zero_()
 
+    def _quantized_base(self):
+        """(w_q, scale) of this rank: its tensor-parallel shards (a
+        column-parallel int8 / W8A8 projection's slice of the replicated
+        per-channel scale) or, under ZeRO-3, their dp chunks."""
+        tp = self.tp
+        if tp is None and self.zero is None:
+            return self.w_q, self.scale
+        from ...parallel.sharding import local
+        q, scale = local(self.w_q), local(self.scale)
+        if (tp is not None and tp.style == "col" and scale.dim() == 1
+                and tp.size > 1):
+            n = self.out_features // tp.size
+            scale = scale[tp.rank * n:(tp.rank + 1) * n]
+        return q, scale
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """The projection over this rank's tensors. Tensor-parallel
         (parallel/comm.py), column style: x and the replicated A enter
         through to_tp, the output is this rank's slice of out. Row style:
         x is this rank's slice of in, the replicated B and DoRA's m enter
         through to_tp, DoRA's row norm sums its squares over the ranks
-        and the partial products are summed by from_tp. Without tp every
-        hook is the identity."""
+        and the partial products are summed by from_tp (a quantized base
+        sums its own, module docstring, and the adapter's delta is summed
+        apart). Without tp every hook is the identity."""
         tp = self.tp
         col = tp is not None and tp.style == "col"
         row = tp is not None and tp.style == "row"
@@ -364,6 +423,7 @@ class LoRALinear(nn.Module):
         if adapter:
             a = enter(mine(self.lora_a), col)
             b = enter(mine(self.lora_b), row)
+        summed = False     # a row-parallel quantized base sums its own
         if adapter and self.lora_m is not None:
             # the row norm's sum over the ranks (one rank: its own norm,
             # rounded as without a mesh)
@@ -374,11 +434,16 @@ class LoRALinear(nn.Module):
             if self.quant is None:
                 y = F.linear(x, mine(self.weight))
             else:
-                y = quantized_product(x, self.w_q, self.scale, self.quant)
+                group = tp.group if row and tp.size > 1 else None
+                y = quantized_product(
+                    x, *self._quantized_base(), self.quant, group,
+                    None if self.zero is None else self.zero.gather)
+                summed = group is not None
             if adapter:
                 xa = F.linear(x.to(a.dtype), a)
-                y = y + (F.linear(xa, b) * self.lora_scale).to(y.dtype)
-        if row:
+                delta = (F.linear(xa, b) * self.lora_scale).to(y.dtype)
+                y = y + (from_tp(delta, tp.group) if summed else delta)
+        if row and not summed:
             y = from_tp(y, tp.group)
         return y if self.bias is None else y + mine(self.bias)
 

@@ -72,6 +72,11 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float,
 
 
 class RMSNorm(nn.Module):
+    # a per-head q / k norm under tensor parallelism (parallel/sharding.py
+    # shard_llm): every rank's heads use its one scale, which enters
+    # through to_tp so that its gradient is summed over the ranks
+    tp = None
+
     def __init__(self, dim: int, eps: float, dtype, device,
                  unit_offset: bool = False):
         super().__init__()
@@ -81,7 +86,11 @@ class RMSNorm(nn.Module):
                                                device=device))
 
     def forward(self, x):
-        return rms_norm(x, self.weight, self.eps, self.unit_offset)
+        w = self.weight
+        if self.tp is not None:
+            from ...parallel.comm import to_tp
+            w = to_tp(w, self.tp.group)
+        return rms_norm(x, w, self.eps, self.unit_offset)
 
 
 def rope_frequencies(cfg: LLMConfig) -> np.ndarray:
@@ -622,6 +631,9 @@ class LLM(nn.Module):
     tp = None
     # an MoE LLM on a mesh: the MoEMesh its MoE layers share
     moe_mesh = None
+    # ZeRO-3 of a tied head (parallel/sharding.py fsdp_llm): (dim, dp,
+    # group) of the frozen embedding's dp chunks, gathered for the head
+    tied_zero = None
 
     def __init__(self, cfg: LLMConfig, dtype=torch.bfloat16, device=None,
                  quant: Optional[Tuple[str, int]] = None):
@@ -806,10 +818,12 @@ class LLM(nn.Module):
         elif self.tp is None:
             logits = F.linear(head_in, self.embed.weight)
         else:
-            from ...parallel.comm import to_tp
+            from ...parallel.comm import gathered_linear, to_tp
             from ...parallel.sharding import local
-            logits = F.linear(to_tp(head_in, self.tp.group),
-                              local(self.embed.weight))
+            head_in = to_tp(head_in, self.tp.group)
+            w = local(self.embed.weight)
+            logits = (F.linear(head_in, w) if self.tied_zero is None
+                      else gathered_linear(head_in, w, *self.tied_zero))
         if self.tp is not None:
             # the vocab-sharded logits, gathered once: every rank then
             # computes the same loss on the whole vocabulary

@@ -22,7 +22,8 @@ coexist whole:
       in_dim**-0.5 / 4.32, so the dequantized weights have std
       in_dim**-0.5; embeddings N(0, 0.02)); an LLM built with
       LLM(..., quant=...) never holds the dense weights at all
-  quantized_bytes(llm)  the bytes of its base weights
+  quantized_bytes(llm)  the bytes of its base weights (on a mesh, the
+      rank's own: its tensor-parallel shards and ZeRO-3 chunks)
 """
 
 from typing import Iterator, Tuple
@@ -202,7 +203,10 @@ def init_quantized_(llm: nn.Module, generator: torch.Generator,
 def quantized_bytes(llm: nn.Module) -> int:
     """Bytes of the LLM's base weights, quantized or not (its parameters
     and buffers, LoRA adapters left out): JAX quantized_bytes of the
-    params tree."""
+    params tree. A placed LLM counts this rank's bytes: the local parts
+    of its DTensors."""
+    from torch.distributed.tensor import DTensor
     tensors = list(llm.named_parameters()) + list(llm.named_buffers())
-    return sum(t.numel() * t.element_size() for n, t in tensors
-               if "lora_" not in n)
+    return sum(t.numel() * t.element_size() for t in (
+        p.to_local() if isinstance(p, DTensor) else p
+        for n, p in tensors if "lora_" not in n))

@@ -22,7 +22,14 @@ rank's, point to point.
 
 `gather_last` all-gathers the vocab-sharded logits (its backward takes
 this rank's slice back); DoRA's row norm under row-parallel o / down
-sums its squares in models/gllm/lora.py. The other helpers are the
+sums its squares in models/gllm/lora.py. `all_reduce_max` is W8A8's
+per-token amax over a row-parallel projection's input shards (its
+backward sends each row's gradient to the ranks that hold the row's
+max, as the gradient of one max over the whole row does), and
+`gathered_linear` is ZeRO-3's product with a frozen weight whose dp
+chunks no FSDP2 unit gathers for this use (the tied head reading the
+embedding): it all-gathers the weight in the forward and again in the
+backward rather than keeping it. The other helpers are the
 optimizer's and the loss's plain, gradient-free reductions; the
 optimizer's go in buckets, one collective per bucket of tensors of one
 dtype rather than one per parameter.
@@ -40,6 +47,7 @@ from typing import Any, Dict, List, Sequence
 
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
 
 
 class _ToTP(torch.autograd.Function):
@@ -96,6 +104,41 @@ class _AllReduceSum(torch.autograd.Function):
         return grad, None
 
 
+def _max_over(x: torch.Tensor, group) -> torch.Tensor:
+    out = x.contiguous().clone()
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
+    return out
+
+
+class _AllReduceMax(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        out = _max_over(x, group)
+        held = (x == out).to(x.dtype)
+        count = held.clone()
+        dist.all_reduce(count, group=group)
+        ctx.save_for_backward(held / count)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        share, = ctx.saved_tensors
+        return grad * share, None
+
+
+class _GatheredLinear(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, shard, dim, size, group):
+        ctx.save_for_backward(shard)
+        ctx.how = (dim, size, group)
+        return F.linear(x, all_gather_dim(shard, dim, size, group))
+
+    @staticmethod
+    def backward(ctx, grad):
+        shard, = ctx.saved_tensors
+        return grad @ all_gather_dim(shard, *ctx.how), None, None, None, None
+
+
 def to_tp(x: torch.Tensor, group) -> torch.Tensor:
     return _ToTP.apply(x, group)
 
@@ -107,6 +150,26 @@ def from_tp(x: torch.Tensor, group) -> torch.Tensor:
 def gather_last(x: torch.Tensor, group, size: int, rank: int
                 ) -> torch.Tensor:
     return _GatherLast.apply(x, group, size, rank)
+
+
+def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise max of x over the group, on every rank. Its
+    gradient goes to the ranks whose x equals the max (split evenly
+    between ties), when every rank's result feeds the same replicated
+    computation."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _AllReduceMax.apply(x, group)
+    return _max_over(x, group)
+
+
+def gathered_linear(x: torch.Tensor, shard: torch.Tensor, dim: int,
+                    size: int, group) -> torch.Tensor:
+    """F.linear(x, w) where w is the frozen weight whose chunks along
+    `dim` the group's ranks hold (this rank's: shard); w is all-gathered
+    for the product and again for x's gradient, never kept."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _GatheredLinear.apply(x, shard, dim, size, group)
+    return F.linear(x, all_gather_dim(shard, dim, size, group))
 
 
 def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:

@@ -8,7 +8,13 @@ sp repeat it), the dp x tp step with shift_attn (S²-attn, its heads
 split over tp; held to the same run without a mesh) and the MoE step
 on ep:2 over the rest as dp (the tiny config with 4 experts, top-2, at
 a capacity factor that drops units; held to the same MoE run without a
-mesh); the ring-sp leg (a training
+mesh), the quantized step (int8 QLoRA on dp x tp at ZeRO-3, each rank
+keeping its dp chunks of the int8 base; then the int8 base with the int8
+KV cache placed on tp decoding a design greedily), the q / k norm step
+(a qwen3-shaped tiny LLM, freeze-tuned with its per-head q / k norms
+trainable, on dp x tp) and the tied ZeRO-3 step (a gemma-shaped tiny LLM
+with tied embeddings on dp x tp at ZeRO-3), each held to its run without
+a mesh; the ring-sp leg (a training
 step of ring attention on sp:2 over the rest as dp, its loss and
 gradients held to the whole sequence's on one rank); then on the tiny
 config's GraphLM the dp inference leg (design_molecule on dp:n, a batch
@@ -134,6 +140,16 @@ def _worker(target: str, rank: int, world: int, work: str) -> None:
 # leg's), at a capacity factor under 1 so that units drop
 MOE = {"num_experts": 4, "num_experts_per_tok": 2}
 MOE_CAPACITY = 0.75
+# the item-9d legs: the int8 base with the int8 KV cache (QLoRA), and the
+# tiny LLM's config reshaped as qwen3's (per-head q / k norms) and as
+# gemma-2's (tied embeddings, unit-offset and sandwich norms, GeGLU,
+# scaled embeddings, soft caps)
+QUANT = {"quantization_bit": 8, "kv_cache_dtype": "int8"}
+QWEN3 = {"qk_norm": True}
+GEMMA = {"tie_word_embeddings": True, "rms_norm_unit_offset": True,
+         "sandwich_norms": True, "hidden_act": "gelu_tanh",
+         "scale_embeddings": True, "attn_logit_softcap": 50.0,
+         "final_logit_softcap": 30.0}
 
 
 def _tiny_args(mesh: str, zero: int, model=None, **training):
@@ -156,10 +172,16 @@ def _tiny_args(mesh: str, zero: int, model=None, **training):
     return args
 
 
-def _losses(mesh: str, zero: int, model=None):
+def _qk_norms(name: str) -> bool:
+    return ".q_norm." in name or ".k_norm." in name
+
+
+def _losses(mesh: str, zero: int, model=None, llm=None, freeze=False):
     """(each micro step's loss, the Trainer, the GraphLM placed on the
     mesh or None) of run_mmsft on the tiny config with the model
-    arguments `model` (MOE's experts run at MOE_CAPACITY)."""
+    arguments `model` (MOE's experts run at MOE_CAPACITY), its LLM config
+    changed by `llm` (QWEN3, GEMMA), and with freeze: freeze-tuned with
+    the q / k norms trainable beside the connectors."""
     from ..train import trainer as trainer_mod
     from ..train.workflow import run_mmsft
     from . import sharding
@@ -180,11 +202,16 @@ def _losses(mesh: str, zero: int, model=None):
     sharding.shard_graph_lm = placed
     args = _tiny_args(mesh, zero, model)
     build = None
-    if model and model.get("num_experts"):
-        from ..models.loader import build_graph_lm
-        model, tok = build_graph_lm(args[0], args[1], args[3], device="cpu",
-                                    seed=args[2].seed)
-        model.llm.cfg.moe_capacity_factor = MOE_CAPACITY
+    if freeze:
+        from dataclasses import replace
+        args[3] = replace(args[3], finetuning_type="freeze")
+    if (model and model.get("num_experts")) or llm or freeze:
+        model, tok = _build(args, llm=llm)
+        if model.llm.cfg.num_experts:
+            model.llm.cfg.moe_capacity_factor = MOE_CAPACITY
+        if freeze:
+            for n, p in model.llm.named_parameters():
+                p.requires_grad_(_qk_norms(n))
         models[:] = [model]
         build = (model, tok)
     try:
@@ -193,6 +220,23 @@ def _losses(mesh: str, zero: int, model=None):
         trainer_mod.Trainer._micro_step = step
         sharding.shard_graph_lm = place
     return seen, trainers[0], models[0]
+
+
+def _build(args, llm=None, **kw):
+    """build_graph_lm on the CPU from the tiny arguments, the LLM config
+    it resolves changed by `llm`."""
+    import dataclasses
+
+    from ..models import loader
+    resolve = loader.resolve_llm_config
+    if llm:
+        loader.resolve_llm_config = lambda a: dataclasses.replace(
+            resolve(a), **llm)
+    try:
+        return loader.build_graph_lm(args[0], args[1], args[3], device="cpu",
+                                     seed=args[2].seed, **kw)
+    finally:
+        loader.resolve_llm_config = resolve
 
 
 def _check(name: str, got: List[float], want: List[float]) -> None:
@@ -254,8 +298,48 @@ def _legs(rank: int, world: int, payload) -> Dict[str, Any]:
         if experts.to_local().shape[0] * 2 != experts.shape[0]:
             raise RuntimeError("moe-ep: the experts are not split over ep")
         out["moe-ep"] = got
+        out.update(_placement_legs(world))
         out["ring-sp"] = _ring_leg(world)
     out["inference"] = _inference_legs(world)
+    return out
+
+
+def _placement_legs(world: int) -> Dict[str, Any]:
+    """The quantized, q / k norm and tied ZeRO-3 steps on dp x tp (tp 2),
+    each against its own run without a mesh; the quantized leg's decode
+    (a greedy design on the int8 base with the int8 KV cache, the LLM on
+    tp) against the mesh-less one's."""
+    from .sharding import local
+    dp = world // 2
+    mesh = f"dp:{dp},tp:2"
+    out = {}
+    out["plain quant"] = _losses("", 0, QUANT)[0]
+    got, trainer, model = _losses(mesh, 3, QUANT)
+    _check("quant", got, out["plain quant"])
+    q = model.llm.layers[0].attn["q"]
+    if q.quant != "int8" or q.zero is None or \
+            local(q.w_q).numel() * 2 * dp != q.w_q.numel():
+        raise RuntimeError("quant: the int8 base is not split over dp x tp")
+    out["quant"] = got
+    want = _design(_tiny_model(model=QUANT)[0], dp + 1)
+    placed, groups = _tiny_model(mesh, model=QUANT)
+    got = _design(placed, dp + 1, groups)
+    _same("quant decode", got, want)
+    out["quant decode"] = f"{_assembled(got)}/{dp + 1}"
+    out["plain qk"] = _losses("", 0, llm=QWEN3, freeze=True)[0]
+    got, trainer, model = _losses(mesh, 0, llm=QWEN3, freeze=True)
+    _check("qk-norm", got, out["plain qk"])
+    if sum(_qk_norms(n) for n in trainer.params) != 4:
+        raise RuntimeError(f"qk-norm: trains {sorted(trainer.params)}")
+    out["qk-norm"] = got
+    out["plain tied"] = _losses("", 0, llm=GEMMA)[0]
+    got, trainer, model = _losses(mesh, 3, llm=GEMMA)
+    _check("zero3 tied", got, out["plain tied"])
+    _check_placement("zero3 tied", trainer, model, 3)
+    if model.llm.tied_zero is None:
+        raise RuntimeError("zero3 tied: the head does not gather the "
+                           "embedding's dp chunks")
+    out["zero3 tied"] = got
     return out
 
 
@@ -319,16 +403,15 @@ def _ring_leg(world: int) -> Dict[str, Any]:
             "plain": float(want), "grad_gap": gap}
 
 
-def _tiny_model(mesh: str = "", moe: bool = False):
+def _tiny_model(mesh: str = "", moe: bool = False, model=None):
     """The tiny config's GraphLM (f32, from its seed; moe: with MOE's
-    experts at MOE_CAPACITY) and, with mesh, its MeshGroups with the LLM
-    placed on the tp axis (and the experts on ep)."""
-    from ..models.loader import build_graph_lm
+    experts at MOE_CAPACITY; model: model arguments, QUANT) and, with
+    mesh, its MeshGroups with the LLM placed on the tp axis (and the
+    experts on ep)."""
     from .mesh import MeshGroups, mesh_from_string
     from .sharding import shard_llm
-    args = _tiny_args("", 0, MOE if moe else None)
-    model, _ = build_graph_lm(args[0], args[1], args[3], device="cpu",
-                              seed=args[2].seed, generate_mode=True)
+    args = _tiny_args("", 0, MOE if moe else model)
+    model, _ = _build(args, generate_mode=True)
     if moe:
         model.llm.cfg.moe_capacity_factor = MOE_CAPACITY
     if not mesh:
@@ -454,7 +537,25 @@ def dryrun_multichip(n: int = 4, timeout: float = 120.0,
                   f"dp={losses['dp']}, loss={losses['loss']:.4f} == "
                   f"mesh-less {losses['plain']:.4f} (gradients within "
                   f"{losses['grad_gap']:.1e})")
-        elif name not in ("plain", "plain moe", "plain s2", "inference"):
+        elif name == "quant":
+            print(f"dryrun quant dp={n // 2} tp=2 OK: int8 QLoRA at zero "
+                  f"stage 3, {len(losses)} micro steps, loss "
+                  f"{losses[-1]:.4f} == mesh-less "
+                  f"{legs['plain quant'][-1]:.4f}; int8-KV greedy design "
+                  f"{legs['quant decode']} assembled == mesh-less")
+        elif name == "qk-norm":
+            print(f"dryrun qk-norm tp=2 OK: mesh dp={n // 2} tp=2, "
+                  f"qwen3-shaped, freeze-tuned with the q / k norms, "
+                  f"{len(losses)} micro steps, loss {losses[-1]:.4f} == "
+                  f"mesh-less {legs['plain qk'][-1]:.4f}")
+        elif name == "zero3 tied":
+            print(f"dryrun zero3 tied dp={n // 2} tp=2 OK: gemma-shaped, "
+                  f"tied embeddings, {len(losses)} micro steps, loss "
+                  f"{losses[-1]:.4f} == mesh-less "
+                  f"{legs['plain tied'][-1]:.4f}")
+        elif name not in ("plain", "plain moe", "plain s2", "inference",
+                          "plain quant", "quant decode", "plain qk",
+                          "plain tied"):
             print(f"dryrun {name} OK: {len(losses)} micro steps, loss "
                   f"{losses[-1]:.4f} == mesh-less {legs['plain'][-1]:.4f}")
     for line in legs["inference"]:

@@ -20,10 +20,6 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-# the mesh placements JAX runs that the port does not yet: a quantized
-# LLM, the per-head q / k norms trained under tp, ZeRO-3 with tied
-# embeddings
-ITEM_9D = "ROADMAP.md Queue 1 item 9d"
 AXES = ("dcn", "pp", "dp", "ep", "sp", "tp")
 
 

@@ -2,10 +2,12 @@
 llamole_tpu/parallel/sharding.py) and their DTensor / FSDP2 placements.
 
 The three spec functions take the port's parameters by name ({name:
-tensor}, the LLM's own names) and return for each the JAX package's
-PartitionSpec as a tuple of axis names, one entry per dimension of the
-JAX leaf (weights.py's bridge: a projection's [in, out], the port's
-[out, in] transposed), so they equal JAX's spec for spec:
+tensor}, the LLM's own names; a quantized projection's w_q / scale
+buffers too) and return for each the JAX package's PartitionSpec as a
+tuple of axis names, one entry per dimension of the JAX leaf (weights.py's
+bridge: a projection's [in, out], the port's [out, in] transposed; int4's
+packed [out, in / 2] is JAX's [in, out]; scales [out] or [groups, out] on
+both sides), so they equal JAX's spec for spec:
 
   llm_param_pspecs   Megatron tensor parallelism: q / k / v / gate / up
                      column-parallel (None, tp), o / down row-parallel
@@ -23,13 +25,19 @@ JAX leaf (weights.py's bridge: a projection's [in, out], the port's
 port's orientation. `shard_llm` places the LLM on the tp axis (the
 adapter factor on a projection's sharded side follows its base weight:
 B [out, r] of a column-parallel projection, A [r, in] of a row-parallel
-one, DoRA's magnitude and a column-parallel bias on out) and an MoE
-LLM's experts on the ep axis: the sharded leaves become DTensors, the
-replicated ones stay plain tensors; and `fsdp_llm` shards the frozen
-LLM's storage over dp with FSDP2's fully_shard, one unit per decoder
-layer plus the embedding and the head, `shard_placement_fn` following
-fsdp_param_pspecs (with ep composed) and the leaves that spec leaves
-replicated (norms, the adapter) ignored.
+one, DoRA's magnitude and a column-parallel bias on out; a quantized
+base's buffers by their JAX specs, gllm/lora.py's module docstring) and
+an MoE LLM's experts on the ep axis: the sharded leaves become DTensors,
+the replicated ones stay plain tensors; the per-head q / k norms, whose
+one scale every rank's heads use, have their gradient summed over tp.
+`fsdp_llm` shards the frozen LLM's storage over dp with FSDP2's
+fully_shard, one unit per decoder layer plus the embedding and the
+head, `shard_placement_fn` following fsdp_param_pspecs (with ep
+composed) and the leaves that spec leaves replicated (norms, the
+adapter) ignored; a quantized base's buffers, which FSDP2 does not
+manage, are cut to their dp chunks by the same specs and all-gathered
+per product (`Zero`), and a tied head reads the frozen embedding's dp
+chunks through comm.gathered_linear.
 """
 
 from dataclasses import dataclass
@@ -39,7 +47,6 @@ import torch
 from torch import nn
 
 from ..weights import _llm_path
-from .mesh import ITEM_9D
 
 Spec = Tuple[Optional[str], ...]
 
@@ -47,9 +54,13 @@ _COLUMN = ("q", "k", "v", "gate", "up")
 _ROW = ("o", "down")
 
 
-def _jax_shape(name: str, shape) -> Tuple[int, ...]:
-    _, transposed = _llm_path(name)
-    shape = tuple(shape)
+def _jax_shape(name: str, t: torch.Tensor) -> Tuple[int, ...]:
+    """The JAX leaf's shape of a port tensor (int4's packed w_q: two
+    values a byte along in)."""
+    keys, transposed = _llm_path(name)
+    shape = tuple(t.shape)
+    if keys[-1] == "w_q" and t.dtype == torch.uint8:
+        shape = (shape[0], 2 * shape[1])
     return shape[::-1] if transposed and len(shape) == 2 else shape
 
 
@@ -78,7 +89,8 @@ def _spec_for(name: str, shape, tp_axis: str, ep_axis: Optional[str]
 def llm_param_pspecs(params: Dict[str, torch.Tensor], tp_axis: str = "tp",
                      ep_axis: Optional[str] = None) -> Dict[str, Spec]:
     """{name: JAX spec} of the LLM's base parameters (names as
-    LLM.named_parameters() gives them, no adapter)."""
+    LLM.named_parameters() gives them, no adapter; base_tensors adds a
+    quantized base's buffers)."""
     return {n: _spec_for(n, p.shape, tp_axis, ep_axis)
             for n, p in params.items()}
 
@@ -112,7 +124,7 @@ def fsdp_param_pspecs(params: Dict[str, torch.Tensor], dp: int,
     dimension of each leaf of two dimensions or more."""
     out = {}
     for name, p in params.items():
-        shape = _jax_shape(name, p.shape)
+        shape = _jax_shape(name, p)
         spec = (_spec_for(name, shape, tp_axis, ep_axis)
                 if tp_axis or ep_axis else ())
         if len(shape) < 2:
@@ -127,6 +139,29 @@ def fsdp_param_pspecs(params: Dict[str, torch.Tensor], dp: int,
         full[best] = dp_axis
         out[name] = tuple(full)
     return out
+
+
+def base_tensors(llm: nn.Module) -> Dict[str, torch.Tensor]:
+    """{name: tensor} of the LLM's base: its parameters and its quantized
+    projections' w_q / scale buffers, the adapter left out."""
+    out = {n: p for n, p in llm.named_parameters() if "lora_" not in n}
+    out.update(llm.named_buffers())
+    return out
+
+
+def check_divisible(name: str, t: torch.Tensor, spec: Spec,
+                    sizes: Dict[str, int]) -> None:
+    """JAX's device_put refusal of a spec that does not divide its leaf
+    (the words after the sharding it names)."""
+    shape = _jax_shape(name, t)
+    for i, axis in enumerate(spec):
+        n = sizes.get(axis, 1) if axis is not None else 1
+        if shape[i] % n:
+            raise ValueError(
+                f"{name}: the spec {spec} on the mesh {sizes} implies that "
+                f"the global size of its dimension {i} should be divisible "
+                f"by {n}, but it is equal to {shape[i]} (full shape: "
+                f"{shape})")
 
 
 def port_dim(name: str, jax_dim: int, ndim: int) -> int:
@@ -192,11 +227,34 @@ def full(t: torch.Tensor) -> torch.Tensor:
 
 @dataclass
 class TP:
-    """A projection's (or the embedding's) tensor-parallel role."""
-    style: str       # "col" (output sharded), "row" (input sharded), "vocab"
+    """A projection's (or the embedding's, or a q / k norm's)
+    tensor-parallel role."""
+    style: str       # "col" (output sharded), "row" (input sharded),
+    #                  "vocab", "heads" (a norm over this rank's heads)
     group: Any
     size: int
     rank: int
+
+
+@dataclass
+class Zero:
+    """ZeRO-3 of a quantized projection's base: the port dimension of w_q
+    and of scale whose chunks the dp ranks hold (None: whole on each)."""
+    group: Any
+    size: int
+    q_dim: Optional[int]
+    scale_dim: Optional[int]
+
+    def gather(self, q: torch.Tensor, scale: torch.Tensor):
+        """This rank's whole (tensor-parallel) w_q and scale from its dp
+        chunks."""
+        from .comm import all_gather_dim
+        if self.q_dim is not None:
+            q = all_gather_dim(q, self.q_dim, self.size, self.group)
+        if self.scale_dim is not None:
+            scale = all_gather_dim(scale, self.scale_dim, self.size,
+                                   self.group)
+        return q, scale
 
 
 def _adapter_spec(owner_style: str, leaf: str) -> Optional[int]:
@@ -209,30 +267,22 @@ def _adapter_spec(owner_style: str, leaf: str) -> Optional[int]:
 
 
 def shard_llm(llm: nn.Module, groups) -> None:
-    """Place the LLM's parameters on the tp axis as DTensors (every rank
-    holds the same full LLM before; each keeps its chunks) and give each
-    projection, the embedding and the head their TP role. An MoE LLM's
-    experts split their expert dimension over ep (whole on every rank
-    when ep is 1) and its MoE layers get their MoEMesh (models/gllm/
-    model.py moe_mlp: routing over the data ranks, experts over ep);
-    the router stays replicated. Refuses what the tensor-parallel
-    forward does not cover."""
+    """Place the LLM's parameters, and a quantized base's buffers, on the
+    tp axis as DTensors (every rank holds the same full LLM before; each
+    keeps its chunks) and give each projection, the embedding, the head
+    and the q / k norms their TP role. An MoE LLM's experts split their
+    expert dimension over ep (whole on every rank when ep is 1) and its
+    MoE layers get their MoEMesh (models/gllm/model.py moe_mlp: routing
+    over the data ranks, experts over ep); the router stays replicated.
+    A spec that does not divide its leaf (say, a row-parallel int4
+    projection whose in / tp is not a multiple of the group size) raises
+    as JAX's placement does."""
     from torch.distributed.tensor import DTensor, Shard
     from ..models.gllm.lora import LoRALinear
     from ..models.gllm.model import MoEMesh
     cfg = llm.cfg
     tp = groups.tp
     ep = getattr(groups, "ep", 1)
-    if llm.quant is not None or any(
-            isinstance(m, LoRALinear) and m.quant is not None
-            for m in llm.modules()):
-        raise NotImplementedError(f"a quantized LLM on a mesh: {ITEM_9D}")
-    if cfg.qk_norm and tp > 1 and any(
-            p.requires_grad for n, p in llm.named_parameters()
-            if "q_norm" in n or "k_norm" in n):
-        # their one [head_dim] scale is shared by heads on every rank
-        raise NotImplementedError("training the per-head q / k norms under "
-                                  f"tp > 1: {ITEM_9D}")
     if cfg.num_experts % ep:
         raise ValueError(f"ep={ep} does not divide the experts "
                          f"({cfg.num_experts})")
@@ -242,9 +292,12 @@ def shard_llm(llm: nn.Module, groups) -> None:
                     ("vocabulary", cfg.vocab_size)):
         if n % tp:
             raise ValueError(f"tp={tp} does not divide the {what} ({n})")
+    base = base_tensors(llm)
+    specs = llm_param_pspecs(base)
+    for name, t in base.items():
+        if not isinstance(t, DTensor):
+            check_divisible(name, t, specs[name], {"tp": tp})
     mesh = groups.mesh["tp"]
-    specs = llm_param_pspecs({n: p for n, p in llm.named_parameters()
-                              if "lora_" not in n})
     if cfg.num_experts > 0:
         llm.moe_mesh = MoEMesh(groups.data_group, groups.data,
                                groups.data_rank, groups.ep_group, ep,
@@ -260,6 +313,10 @@ def shard_llm(llm: nn.Module, groups) -> None:
             role[name] = style
     llm.embed.tp = TP("vocab", groups.tp_group, tp, groups.tp_rank)
     llm.tp = llm.embed.tp
+    if cfg.qk_norm:
+        for layer in llm.layers:
+            layer.q_norm.tp = layer.k_norm.tp = TP(
+                "heads", groups.tp_group, tp, groups.tp_rank)
     for name in [n for n, _ in llm.named_parameters()]:
         p = llm.get_parameter(name)   # one old parameter alive at a time
         owner, leaf = name.rsplit(".", 1)
@@ -278,6 +335,46 @@ def shard_llm(llm: nn.Module, groups) -> None:
             placed = _place(p.data, mesh, [Shard(d)])
         setattr(llm.get_submodule(owner), leaf,
                 nn.Parameter(placed, requires_grad=p.requires_grad))
+    for name, b in list(llm.named_buffers()):
+        if specs.get(name) and not isinstance(b, DTensor):
+            owner, leaf = name.rsplit(".", 1)
+            setattr(llm.get_submodule(owner), leaf,
+                    shard_params({name: b}, mesh, specs)[name])
+
+
+def _dp_chunk(t: torch.Tensor, dim: int, groups) -> torch.Tensor:
+    """A tp-placed DTensor (or a plain tensor, replicated over tp) ->
+    the DTensor on the (dp, tp) mesh of this rank's chunk along `dim`
+    over dp, the rest freed."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    tp_place = t.placements[0] if isinstance(t, DTensor) else Replicate()
+    chunk = local(t).chunk(groups.dp, dim=dim)[groups.dp_rank].clone(
+        memory_format=torch.contiguous_format)
+    stride = torch.empty(t.shape, device="meta").stride()
+    return DTensor.from_local(chunk, groups.mesh["dp", "tp"],
+                              [Shard(dim), tp_place], run_check=False,
+                              shape=t.shape, stride=stride)
+
+
+def _zero_quantized(llm: nn.Module, groups) -> None:
+    """ZeRO-3 of the quantized projections' buffers (FSDP2 manages
+    parameters only): each w_q / scale that fsdp_param_pspecs gives dp
+    keeps this rank's dp chunk, and the projection its Zero."""
+    from ..models.gllm.lora import LoRALinear
+    for name, m in llm.named_modules():
+        if (not isinstance(m, LoRALinear) or m.quant is None
+                or m.zero is not None):
+            continue
+        leaves = {f"{name}.w_q": m.w_q, f"{name}.scale": m.scale}
+        specs = fsdp_param_pspecs(leaves, groups.dp, tp_axis="tp")
+        dims = [port_dim(n, specs[n].index("dp"), t.dim())
+                if "dp" in specs[n] else None for n, t in leaves.items()]
+        if dims == [None, None]:
+            continue
+        for leaf, d in zip(("w_q", "scale"), dims):
+            if d is not None:
+                setattr(m, leaf, _dp_chunk(getattr(m, leaf), d, groups))
+        m.zero = Zero(groups.dp_group, groups.dp, *dims)
 
 
 def fsdp_llm(llm: nn.Module, groups) -> None:
@@ -285,13 +382,15 @@ def fsdp_llm(llm: nn.Module, groups) -> None:
     unit per decoder layer, the embedding and the head. Only the leaves
     fsdp_param_pspecs gives dp are sharded (placement from the spec);
     the rest (norms, indivisible leaves, every trainable leaf: the
-    optimizer reduces those itself) are ignored by FSDP."""
+    optimizer reduces those itself) are ignored by FSDP, and a unit left
+    with nothing to shard is not wrapped. A quantized base's buffers
+    keep their dp chunks (_zero_quantized). With tied embeddings the
+    head reads the embedding outside its unit: a frozen, dp-sharded one
+    through LLM.tied_zero (comm.gathered_linear gathers it for the
+    product and again for the backward); a trainable one stays outside
+    FSDP, whole on each dp rank."""
     from torch.distributed.fsdp import FSDPModule, fully_shard
     from torch.distributed.tensor import Shard
-    if llm.lm_head is None:
-        raise NotImplementedError("ZeRO-3 with tied embeddings (the head "
-                                  "reads the embedding outside its "
-                                  f"module): {ITEM_9D}")
     names = {id(p): n for n, p in llm.named_parameters()}
     frozen = {n: p for n, p in llm.named_parameters() if not p.requires_grad}
     specs = fsdp_param_pspecs(frozen, groups.dp, tp_axis="tp",
@@ -312,12 +411,17 @@ def fsdp_llm(llm: nn.Module, groups) -> None:
     # at most one unit's weights are whole at a time (the ZeRO-3 dataflow;
     # the backward gathers each layer again)
     for unit in (*llm.layers, llm.embed, llm.lm_head):
-        if isinstance(unit, FSDPModule):      # placed by an earlier run
+        if unit is None or isinstance(unit, FSDPModule):
+            continue         # tied, or placed by an earlier run
+        if all(id(p) in ignored for p in unit.parameters()):
             continue
         fully_shard(unit, mesh=dp_mesh, reshard_after_forward=True,
                     shard_placement_fn=placement,
                     ignored_params={p for p in unit.parameters()
                                     if id(p) in ignored})
+    _zero_quantized(llm, groups)
+    if llm.lm_head is None and "embed.weight" in dims:
+        llm.tied_zero = (dims["embed.weight"], groups.dp, groups.dp_group)
 
 
 def shard_graph_lm(model: nn.Module, groups, zero3: bool) -> None:

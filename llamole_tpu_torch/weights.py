@@ -233,6 +233,10 @@ def _llm_path(name: str) -> Tuple[List[str], bool]:
         return owner + ["m"], False
     if leaf == "bias":
         return owner + ["b"], False
+    if leaf == "w_q":          # a quantized base: w_q / w_qa / w_q4 in JAX
+        return owner + ["w_q"], True
+    if leaf == "scale":        # its scales, [out] or [groups, out] on both
+        return owner + ["scale"], False
     if owner[-1] == "embed":
         return owner + ["weight"], False
     if owner[-1].endswith("norm"):

@@ -16,7 +16,8 @@ their plain versions on the CPU. Then the checkpoints (msgpack across
 packages and meshes, DCP's async save and resume), the refusals (the
 world size, and the pipeline's equal to JAX's), and dryrun_multichip(4).
 The ep and sp axes are held by tests/test_torch_moe_ep.py and
-tests/test_torch_ring_attention.py.
+tests/test_torch_ring_attention.py, the quantized, q / k norm and tied
+ZeRO-3 placements by tests/test_torch_mesh_placements.py.
 """
 
 import dataclasses
@@ -62,7 +63,7 @@ from llamole_tpu_torch.parallel import dryrun
 from llamole_tpu_torch.parallel.mesh import (_dcn_grouped, mesh_from_string,
                                              mesh_layout, parse_mesh)
 from llamole_tpu_torch.parallel.sharding import (fsdp_param_pspecs,
-                                                 llm_param_pspecs, shard_llm,
+                                                 llm_param_pspecs,
                                                  zero1_opt_pspecs)
 from llamole_tpu_torch.train.trainer import Trainer, find_last_checkpoint
 from llamole_tpu_torch.train.workflow import _epoch_batches, run_mmsft
@@ -691,74 +692,19 @@ def test_refusals_name_item_9c(setup, tmp_path):
         model.enable_pipeline(None, 2)
 
 
-def test_refusals_outside_9c_name_item_9d():
-    """Three mesh placements JAX runs (its forward, and its gradient where
-    it trains, on dp:2,tp:2 of conftest's virtual CPU devices equal the
-    mesh-less ones): a quantized LLM, the per-head q / k norms trained
-    under tp, and ZeRO-3's specs with tied embeddings. The port refuses
-    them, naming ROADMAP.md Queue 1 item 9d."""
-    from llamole_tpu.models.gllm.model import forward as jax_forward
-    from llamole_tpu.models.gllm.model import init_params as jax_init
-    from llamole_tpu.models.gllm.model import lm_loss as jax_lm_loss
-    from llamole_tpu.models.gllm.quantize import \
-        quantize_llm_params as jax_quantize
-    from llamole_tpu.parallel import shard_params as jax_shard_params
-    from llamole_tpu_torch.models.gllm.quantize import quantize_llm_params
-    from llamole_tpu_torch.parallel.sharding import fsdp_llm
-    mesh = jax_mesh_from_string("dp:2,tp:2")
-    ids = jnp.asarray(np.random.default_rng(0).integers(1, 500, (4, 16)),
-                      jnp.int32)
-    base = JaxLLMConfig.tiny()
-    cases = {
-        "quantized": (base, lambda p: jax_quantize(p, bits=8),
-                      jax_llm_pspecs, False),
-        "qk_norm": (dataclasses.replace(base, qk_norm=True), None,
-                    jax_llm_pspecs, True),
-        "tied": (dataclasses.replace(base, tie_word_embeddings=True), None,
-                 lambda p: jax_fsdp_pspecs(p, dp=2, tp_axis="tp"), True)}
-    for name, (cfg, prepare, specs, grad) in cases.items():
-        params = jax_init(jax.random.PRNGKey(0), cfg, jnp.float32)
-        if prepare is not None:
-            params = prepare(params)
-
-        def loss(p, cfg=cfg):
-            return jax_lm_loss(jax_forward(p, cfg, input_ids=ids)[0], ids)
-        f = jax.jit(jax.value_and_grad(loss) if grad else loss)
-        with jax.set_mesh(mesh):
-            on_mesh = f(jax_shard_params(params, mesh, specs(params)))
-        want = f(params)
-        np.testing.assert_allclose(
-            float(on_mesh[0] if grad else on_mesh),
-            float(want[0] if grad else want), rtol=1e-5, err_msg=name)
-    groups = types.SimpleNamespace(tp=2, ep=1, dp=2)
-    quantized = LLM(LLMConfig.tiny(), dtype=torch.float32)
-    quantized.reset_parameters(torch.Generator().manual_seed(0))
-    quantize_llm_params(quantized, bits=8)
-    with pytest.raises(NotImplementedError, match="quantized LLM on a mesh: "
-                       "ROADMAP.md Queue 1 item 9d"):
-        shard_llm(quantized, groups)
-    qk = LLM(dataclasses.replace(LLMConfig.tiny(), qk_norm=True),
-             dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="q / k norms under tp > 1: "
-                       "ROADMAP.md Queue 1 item 9d"):
-        shard_llm(qk, groups)
-    tied = LLM(dataclasses.replace(LLMConfig.tiny(), tie_word_embeddings=True),
-               dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="tied embeddings .*"
-                       "ROADMAP.md Queue 1 item 9d"):
-        fsdp_llm(tied, groups)
-
-
 def test_dryrun_multichip_prints_ok(launched):
     """The dp x tp, ZeRO-1, ZeRO-3, dcn x dp, pipeline, sp x dp, S²-attn
-    under tp and moe-ep legs, the ring-sp leg and the dp inference, tp design, MoE design and
-    dp retro legs on 4 gloo ranks, each equal to the mesh-less run."""
+    under tp and moe-ep legs, the ring-sp leg, the quantized (int8 QLoRA
+    on dp x tp at ZeRO-3, then an int8-KV decode), q / k norm (tp) and
+    tied ZeRO-3 legs, and the dp inference, tp design, MoE design and dp
+    retro legs on 4 gloo ranks, each equal to the mesh-less run."""
     proc = launched["dryrun"].result()
     assert proc.returncode == 0, proc.stderr[-3000:]
     out = proc.stdout
     assert "dryrun_multichip OK" in out
     for leg in ("dp=2 tp=2", "zero1 dp=4", "zero3 dp=4", "dcn=2 dp=2",
                 "pipeline", "sp=2 dp=2", "s2-tp", "moe-ep", "ring-sp",
+                "quant dp=2 tp=2", "qk-norm tp=2", "zero3 tied dp=2 tp=2",
                 "dp-inference", "tp-design", "moe-design", "dp-retro"):
         assert f"dryrun {leg} OK" in out
     assert "dryrun dp-inference OK: mesh dp=4, batch 5 (padded to 8)" in out

@@ -420,19 +420,29 @@ _QUANTIZED_CPU = {"requests": 4, "max_new_tokens": 8, "retro_iterations": 1,
                   "model_name_or_path": ""}
 
 
+# phase 21 at small sizes on the CPU: 8 new tokens in its run_molqa
+_PHASE21_CPU = {**chip_smoke.PHASE21, "max_new_tokens": 8}
+
+
 def test_quantized_phase_runs_on_the_cpu(capsys):
     """Phase 14 end to end at a small width: 4 requests answered from the
     int8 slice (int8 KV cache), the int8 denoiser within its bound and
     its design batch, the three schemes' projections within their bounds
     with every W8A8 projection through torch._int_mm, the KV check, and
     QLoRA through run_mmsft changing the LoRA and the connectors, not the
-    int8 base."""
+    int8 base. With it phase 21 (a) on one-rank gloo groups: run_molqa
+    on the int8 slice equal with and without the mesh, the int4 and W8A8
+    LLMs placed within the logit gate, QLoRA at ZeRO-3 within the loss
+    gate of (d)'s; the group is gone after."""
+    import torch.distributed as dist
+
     from llamole_tpu_torch.models.gllm import LLMConfig
 
     assert set(_QUANTIZED_CPU) - {"model_name_or_path"} == set(
         chip_smoke.QUANTIZED)
     threads = torch.get_num_threads()
     torch.set_num_threads(2)
+    phase21 = {"sizes": _PHASE21_CPU}
     try:
         launches, schemes = chip_smoke.run_quantized(
             (), "CPU", device="cpu", sizes=_QUANTIZED_CPU,
@@ -441,11 +451,23 @@ def test_quantized_phase_runs_on_the_cpu(capsys):
                               intermediate_size=512, num_layers=4,
                               num_heads=4, num_kv_heads=2,
                               rope_theta=10000.0),
-            phase7={"decode_tok_s": 1.0})
+            phase7={"decode_tok_s": 1.0}, phase21=phase21)
     finally:
         torch.set_num_threads(threads)
     out = capsys.readouterr().out
     assert launches == {"A": 0, "A_mma": 0, "A_fma": 0, "B": 0, "C": 0}
+    assert "phase 21 (a) int8 run_molqa on the mesh dp:1,tp:1: the int8 " \
+        "base placed (w_q a DTensor)" in out
+    assert "equal: {'analysis tokens': True, 'SMILES': True, " \
+        "'responses': True}" in out
+    for scheme in ("int4", "w8a8"):
+        assert f"phase 21 (a) {scheme} placed on the mesh dp:1,tp:1" in out
+        assert phase21["a"][scheme]["gap"] <= \
+            chip_smoke.PHASE21["logit_tol"]
+    assert "phase 21 (a) QLoRA at ZeRO-3 on the mesh dp:1,tp:1" in out
+    assert max(phase21["a"]["qlora"]["loss_gaps"]) <= \
+        chip_smoke.PHASE21["loss_gap"]
+    assert not dist.is_initialized()
     assert "quantized serving (int8 weights, int8 KV cache): 4 answered" \
         in out
     assert "int8 base's checksum" in out and "unchanged" in out
@@ -541,11 +563,11 @@ def test_families_phase_runs_on_the_cpu(capsys):
     assert set(_FAMILIES_CPU) == set(chip_smoke.FAMILIES)
     threads = torch.get_num_threads()
     torch.set_num_threads(2)
-    phase20 = {}
+    phase20, phase21 = {}, {"sizes": _PHASE21_CPU}
     try:
         launches = chip_smoke.run_families(
             (), "CPU", device="cpu", sizes=_FAMILIES_CPU, build=_tiny_slice,
-            cfgs=_family_cfgs(), phase20=phase20)
+            cfgs=_family_cfgs(), phase20=phase20, phase21=phase21)
     finally:
         torch.set_num_threads(threads)
     out = capsys.readouterr().out
@@ -553,6 +575,15 @@ def test_families_phase_runs_on_the_cpu(capsys):
     assert "phase 20 (b) Mixtral on the mesh dp:1,tp:1" in out
     assert phase20["b"]["loss_gap"] <= 1e-6
     assert phase20["b"]["grad_rel"] <= 1e-5
+    # phase 21 (b) on qwen3's LLM and (c) on gemma-2's model
+    assert "phase 21 (b) qwen3 freeze-tuned (the 4 q / k norms " \
+        "trainable) on the tp mesh dp:1,tp:1" in out
+    assert "phase 21 (c) gemma-2 LoRA step at ZeRO-3 on the mesh " \
+        "dp:1,tp:1 (tied embedding under FSDP2, the head gathering it: " \
+        "True)" in out
+    for part in "bc":
+        assert phase21[part]["loss_gap"] <= 1e-6, part
+        assert phase21[part]["grad_rel"] <= 1e-5, part
     assert not dist.is_initialized()
     for line in ("qwen3 (compute KV cache): greedy decode",
                  "qwen3 (int8 KV cache): greedy decode",
@@ -727,6 +758,22 @@ def test_phase20_sizes():
             sizes["padded"]) == (32, 128, 1, 4096, 512)
     for k in ("loss_gap", "grad_rel", "leaf_rel"):
         assert sizes[k] == chip_smoke.MESH_INFER[k]
+
+
+def test_phase21_sizes():
+    """Phase 21 on the card: world-size-1 meshes dp:1,tp:1; run_molqa on
+    phase 8's 2 records at 64 new tokens (phase 8's 128 halved: the
+    placed int8 LLM decodes eagerly, and the phase's time budget is about
+    90 s of the script's); the schemes' placed logits within the script's
+    5e-2 of the largest logit (MERGE_LOGIT_TOL), the QLoRA losses within
+    1e-3, (b) and (c) gated as phase 20 (b) and (c)."""
+    sizes = chip_smoke.PHASE21
+    assert sizes["mesh"] == "dp:1,tp:1"
+    assert (sizes["records"], sizes["max_new_tokens"]) == (
+        chip_smoke.MESH_INFER["records"], 64)
+    assert sizes["logit_tol"] == chip_smoke.MERGE_LOGIT_TOL == 5e-2
+    for k in ("loss_gap", "grad_rel", "leaf_rel"):
+        assert sizes[k] == chip_smoke.PHASE20[k]
 
 
 def test_ring_phase_runs_on_the_cpu(capsys):
