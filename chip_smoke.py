@@ -11,12 +11,14 @@
    4) and (8, 64, 256, 8), in f32 (tolerance 1e-4, the JAX kernel's
    contract) and bf16 (2e-2 absolute: the output is a convex combination
    of O(1) v rows and bf16 rounds at ~4e-3), on rows whose node is kept.
-   At the main shape in bf16 (the tensor-core body): call time (CUDA
-   events), device time (torch.profiler, else CUDA-graph replay), the
-   same for the FMA body on the same inputs, the plain version's time,
-   the bound (bytes and operations from the shape, H100 peaks) and, as a
-   floor for the attention part only, F.scaled_dot_product_attention on
-   the already-normalised heads.
+   At the main shape in bf16 (the tensor-core body) and in f32 (the
+   split-TF32 tensor-core body, the route of every GraphDiT loaded from a
+   checkpoint): call time (CUDA events), device time (torch.profiler,
+   else CUDA-graph replay), the same for the FMA body on the same inputs
+   (its error gated too), the plain version's time, the bound (bytes and
+   operations from the shape, H100 peaks) and, as a floor for the
+   attention part only, F.scaled_dot_product_attention on the
+   already-normalised heads (TF32 off, as main() sets it).
 4. Kernel B check: the GIN aggregation against its plain version at the
    path shapes (8, 56, 300) and (1, 24, 300) in f32, at (3, 11, 40) and
    (2, 17, 64) in f32 and bf16, at H = 42 and 150 (the scalar lanes) and
@@ -53,8 +55,9 @@
 6. Kernel D check: the pre-split graph attention against masked_attention
    at the JAX contract shapes (f32, 2e-5) and the denoiser's head shape
    (16, 16, 50, 64) in f32 (1e-4) and bf16 (2e-2, as A); timed there in
-   bf16 as A is (both bodies), beside its bound and the one-call library
-   equivalent F.scaled_dot_product_attention with the key mask. Kernel D
+   bf16 and in f32 as A is (the routed body and the FMA body), beside its
+   bound and the one-call library equivalent
+   F.scaled_dot_product_attention with the key mask. Kernel D
    is on no path of the JAX package or of the port: its launches are
    those of this check.
 7. Design + retrosynthesis at full width through the serving entry
@@ -126,7 +129,8 @@
    MERGE_LOGIT_TOL and the reloaded LLM's msgpack, streamed again, of
    model.msgpack's size and sha256, then 3 requests (64 new tokens, the first with a
    route, 10 s retro wall) served from the merged model: no error, A >=
-   28 x reverse steps x design batches, B >= 5 x (rounds + products);
+   28 x reverse steps x design batches, all on the split-TF32 body (the
+   reloaded GraphDiT is f32), B >= 5 x (rounds + products);
    peak memory; base/ and merged/ deleted in a finally.
 13. Continuous serving (after phase 8, on a slice of its own whose LLM
    is Llama-3.1-8B's width at 8 of its 32 layers, CONTINUOUS_LAYERS):
@@ -208,7 +212,7 @@
 17. The entry points and tools (ENTRY), inside phase 12 once its merged
    model is freed, over phase 12's files (the 8B base as HF
    safetensors, phase 9's adapter, the graph modules, which load in f32:
-   A on its FMA body), kernel counts set to 0 before and read after each
+   A on its split-TF32 body), kernel counts set to 0 before and read after each
    part, a PhaseTimer over the parts: (a) `python -m llamole_tpu_torch
    env` in a subprocess from the repo root names the card; (b)
    validate_data on data/molqa_train_examples.json reports ok, then
@@ -218,7 +222,8 @@
    utils/flat_yaml (llama_drug.yaml's settings, 64 new tokens, eval batch
    2, over a 2-record copy of data/molqa_drug_examples.json): the results
    JSON with its summary, no record with an "error", A >= 28 x steps x
-   design batches, B >= 5 x (rounds + products); (d) `parity` with
+   design batches, every launch on the split-TF32 body, B >= 5 x (rounds
+   + products); (d) `parity` with
    converted/ already holding the graph modules (nothing converts), (b)'s
    oracle, 1 record and a 10 s wall: parity_table.json with the JAX
    package's keys (PARITY_KEYS) and a validity, A and B as in (c); (e)
@@ -293,7 +298,11 @@
 Prints, before the last line, one {"kernels": [...]} JSON line (per
 kernel: launches on the main path, max_abs_err, ms, plain_ms, device_ms,
 bound_ms, bound_by, library_ms; for A and D the launches of each body
-and the FMA body's times; for B its launches in run_molqa and in
+and the FMA body's times; an A_tf32x3 entry for A's f32 route, the
+split-TF32 body: its launches in phase 12's serving and phase 17
+(launches_interchange, launches_entry) and its times, bound and share at
+the main shape in f32 beside the FMA body's and SDPA's; D's f32 times
+under f32_* keys; for B its launches in run_molqa and in
 training and its times, bound and share at the training bank under
 train_* keys, with the molecules in the last rows under train_last_*;
 for B and C their launches in the phase-11 pretrainings and their
@@ -545,15 +554,62 @@ def time_kernel(name, fn, plain, kernel_key, tag):
             "plain_ms": plain_ms}
 
 
-def check_kernel(fused, reference, tag):
-    """Phase 3 (kernel A). Returns the record of its JSON line: errors,
-    times and bound at the main shape in bf16 (tensor-core body), the FMA
-    body's times there, and SDPA on the normalised heads as a floor for
-    the attention part."""
+def time_fused(fused, reference, args, err, body, tag):
+    """Kernel A at MAIN_SHAPE on `args` through its routed body, the FMA
+    body on the same inputs (its error gated too), the plain version,
+    SDPA on the normalised heads as a floor for the attention part (the
+    port never calls it; A has no one-call equivalent: its LayerNorms come
+    first) and the bound. Returns the record of its JSON entry."""
     import torch.nn.functional as F
     from llamole_tpu_torch.ops.nn import layer_norm
+    qkv, mask, qs, qb, ks, kb, heads = args
+    b, n, three_h = qkv.shape
+    dh, dt = three_h // 3 // heads, qkv.dtype
+    name = f"fused attention at {MAIN_SHAPE} {dt}"
+    rec = time_kernel(f"{name}, {body} body", lambda: fused(*args),
+                      lambda: reference(*args),
+                      f"attention_{body}_kernel", tag)
+    old = fma_body("fused", args)
+    fma_err = float(((old().float() - reference(*args).float())
+                     * mask[..., None]).abs().max())
+    if not fma_err < TOL[dt]:
+        fail(f"the FMA body disagrees at {MAIN_SHAPE} {dt}: {fma_err}")
+    fma = time_kernel(f"{name}, fma body (max_abs_err {fma_err:.3e})", old,
+                      lambda: reference(*args), "attention_fma_kernel", tag)
+    q, k, v = (t.contiguous() for t in qkv.reshape(
+        b, n, 3, heads, dh).permute(2, 0, 3, 1, 4))
+    q, k = layer_norm(q, qs, qb), layer_norm(k, ks, kb)
+    key_mask = mask[:, None, None, :]
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=key_mask)
+
+    floor = cuda_ms(sdpa)
+    floor_dev = device_ms(sdpa, None)
+    bound_ms, bound_by = attention_bound(b, n, heads, dh, dt, layernorm=True)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    print(f"{name}: bound {bound_ms * 1e3:.3f} us ({bound_by}); {body} body "
+          f"at {100 * bound_ms / rec['device_ms']:.1f}% of it (fma body "
+          f"{100 * bound_ms / fma['device_ms']:.1f}%); SDPA on the "
+          f"normalised heads (a floor for the attention part, no LayerNorm;"
+          f" torch.backends.cuda.matmul.allow_tf32={tf32}) {floor:.4f} ms a"
+          f" call, device {floor_dev} ms [{tag}]", flush=True)
+    return {"max_abs_err": err, **rec, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None,
+            "share": bound_ms / rec["device_ms"],
+            "sdpa_floor_ms": floor, "sdpa_floor_device_ms": floor_dev,
+            "sdpa_allow_tf32": tf32, "fma_ms": fma["ms"],
+            "fma_device_ms": fma["device_ms"], "fma_max_abs_err": fma_err}
+
+
+def check_kernel(fused, reference, tag):
+    """Phase 3 (kernel A). Returns the records of its JSON entries: at
+    the main shape in bf16 (the tensor-core body) and in f32 (the
+    split-TF32 body), each with the FMA body's times on the same inputs
+    and SDPA on the normalised heads as a floor for the attention part."""
+    from llamole_tpu_torch.ops.fused_attention import attention_body
     gen = torch.Generator(device="cuda").manual_seed(0)
-    main_err = None
+    main = {}
     for (b, n, h, heads) in CHECK_SHAPES:
         for dt in (torch.float32, torch.bfloat16):
             dh = h // heads
@@ -569,49 +625,16 @@ def check_kernel(fused, reference, tag):
                 fail(f"kernel output {tuple(out.shape)} not finite/shaped")
             err = ((out.float() - ref.float()) * mask[..., None]).abs().max()
             err = float(err)
-            print(f"kernel check B,N,H,heads={b},{n},{h},{heads} {dt}: "
-                  f"max_abs_err={err:.3e} (tol {TOL[dt]:g})", flush=True)
+            print(f"kernel check B,N,H,heads={b},{n},{h},{heads} {dt} "
+                  f"({attention_body(n, dh, dt)} body): max_abs_err="
+                  f"{err:.3e} (tol {TOL[dt]:g})", flush=True)
             if not err < TOL[dt]:
                 fail(f"fused attention disagrees: {err} >= {TOL[dt]}")
-            if (b, n, h, heads) == MAIN_SHAPE and dt == torch.bfloat16:
-                main_err = err
-                args = (qkv, mask, *norms, heads)
-    rec = time_kernel(f"fused attention at {MAIN_SHAPE} bf16, mma body",
-                      lambda: fused(*args), lambda: reference(*args),
-                      "attention_mma_kernel", tag)
-    old = fma_body("fused", args)
-    fma_err = float(((old().float() - reference(*args).float())
-                     * args[1][..., None]).abs().max())
-    fma = time_kernel(f"fused attention at {MAIN_SHAPE} bf16, fma body "
-                      f"(max_abs_err {fma_err:.3e})", old,
-                      lambda: reference(*args), "attention_fma_kernel", tag)
-    # SDPA on the already-normalised heads: a floor for the attention part
-    # of A (it has no LayerNorm); the port never calls it
-    qkv, mask, qs, qb, ks, kb, heads = args
-    b, n, three_h = qkv.shape
-    q, k, v = (t.contiguous() for t in qkv.reshape(
-        b, n, 3, heads, three_h // 3 // heads).permute(2, 0, 3, 1, 4))
-    q, k = layer_norm(q, qs, qb), layer_norm(k, ks, kb)
-    key_mask = mask[:, None, None, :]
-
-    def sdpa():
-        return F.scaled_dot_product_attention(q, k, v, attn_mask=key_mask)
-
-    floor = cuda_ms(sdpa)
-    floor_dev = device_ms(sdpa, None)
-    bound_ms, bound_by = attention_bound(b, n, heads, three_h // 3 // heads,
-                                         torch.bfloat16, layernorm=True)
-    print(f"fused attention bound {bound_ms * 1e3:.3f} us ({bound_by}); "
-          f"mma body at {100 * bound_ms / rec['device_ms']:.1f}% of it "
-          f"(fma body {100 * bound_ms / fma['device_ms']:.1f}%); SDPA on the "
-          f"normalised heads (a floor for the attention part, no LayerNorm)"
-          f" {floor:.4f} ms a call, device {floor_dev} ms [{tag}]",
-          flush=True)
-    return {"max_abs_err": main_err, **rec, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None,
-            "sdpa_floor_ms": floor, "sdpa_floor_device_ms": floor_dev,
-            "fma_ms": fma["ms"],
-            "fma_device_ms": fma["device_ms"]}
+            if (b, n, h, heads) == MAIN_SHAPE:
+                main[dt] = ((qkv, mask, *norms, heads), err)
+    return tuple(time_fused(fused, reference, *main[dt], body, tag)
+                 for dt, body in ((torch.bfloat16, "mma"),
+                                  (torch.float32, "tf32x3")))
 
 
 def molecular_graphs(n_pad: int, device="cuda"):
@@ -858,20 +881,23 @@ class PathTimers:
 def reset_counts(*wrappers):
     """Every launch count of these kernel wrappers to 0."""
     for w in wrappers:
-        for key in ("launches", "launches_mma", "launches_fma",
-                    "launches_smem", "launches_global"):
+        for key in ("launches", "launches_mma", "launches_tf32x3",
+                    "launches_fma", "launches_smem", "launches_global"):
             if hasattr(w, key):
                 setattr(w, key, 0)
 
 
-def check_mma_only(fused, what):
-    """Every main-path launch of kernel A went through the tensor-core
-    body."""
+def check_one_body(fused, body, what):
+    """Every main-path launch of kernel A went through `body`: "mma" for
+    a bf16 GraphDiT, "tf32x3" for an f32 one (every GraphDiT loaded from
+    a checkpoint); none through the FMA body."""
     print(f"fused_block_attention bodies ({what}): mma "
-          f"{fused.launches_mma}, fma {fused.launches_fma}", flush=True)
-    if fused.launches_fma or fused.launches_mma != fused.launches:
-        fail(f"{what}: {fused.launches_fma} kernel-A launches took the FMA "
-             "body")
+          f"{fused.launches_mma}, tf32x3 {fused.launches_tf32x3}, fma "
+          f"{fused.launches_fma}", flush=True)
+    if getattr(fused, f"launches_{body}") != fused.launches:
+        fail(f"{what}: {fused.launches} kernel-A launches, "
+             f"{getattr(fused, f'launches_{body}')} on the {body} body "
+             f"(fma {fused.launches_fma})")
 
 
 def check_launches(name, launches, need, how):
@@ -913,8 +939,9 @@ def run_serving(model, tok, timers, kernels, tag):
     finally:
         server.stop()
     launches = {"A": fused.launches, "A_mma": fused.launches_mma,
+                "A_tf32x3": fused.launches_tf32x3,
                 "A_fma": fused.launches_fma, "B": gin.launches}
-    check_mma_only(fused, "serving")
+    check_one_body(fused, "mma", "serving")
     peak = torch.cuda.max_memory_allocated()
 
     errors = [r["error"] for r in results if "error" in r]
@@ -1002,7 +1029,7 @@ def run_eval(model, tok, timers, kernels, tag):
         with open(Path(out_dir) / "molqa_results.json") as f:
             summary = json.load(f)["summary"]
     launches = fused.launches, gin.launches
-    check_mma_only(fused, "run_molqa")
+    check_one_body(fused, "mma", "run_molqa")
     if len(results) != 2 or summary["num_records"] != 2:
         fail(f"run_molqa answered {len(results)} records")
     for r in results:
@@ -1250,7 +1277,7 @@ def run_continuous(model, tok, timers, kernels, tag, sizes=None,
         fused, gin = kernels[:2]
         launches = {"A": fused.launches, "A_mma": fused.launches_mma,
                     "A_fma": fused.launches_fma, "B": gin.launches}
-        check_mma_only(fused, "continuous serving")
+        check_one_body(fused, "mma", "continuous serving")
         depth = model.graph_decoder.cfg.depth
         check_launches("fused_block_attention (continuous)", launches["A"],
                        depth * diffusion_steps(model) * server.batches_run,
@@ -1510,14 +1537,62 @@ def check_gin_backward(bwd, reference, tag):
             "second_body_share": bound_ms / second["second_body_device_ms"]}
 
 
+def time_graph(attn, reference, args, err, body, tag):
+    """Kernel D at ATTN_MAIN on `args` through its routed body, the FMA
+    body on the same inputs, the plain version, its one-call library
+    equivalent F.scaled_dot_product_attention with the key mask, and the
+    bound. Returns the record of its JSON entry."""
+    import torch.nn.functional as F
+    q, k, v, mask = args
+    name = f"graph_attention at {ATTN_MAIN} {q.dtype}"
+
+    def plain():
+        return reference(q, k, v, key_mask=mask)
+
+    rec = time_kernel(f"{name}, {body} body", lambda: attn(*args), plain,
+                      f"attention_{body}_kernel", tag)
+    old = fma_body("graph", args)
+    fma_err = float((old().float() - plain().float()).abs().max())
+    if not fma_err < TOL[q.dtype]:
+        fail(f"D's FMA body disagrees at {ATTN_MAIN} {q.dtype}: {fma_err}")
+    fma = time_kernel(f"{name}, fma body (max_abs_err {fma_err:.3e})", old,
+                      plain, "attention_fma_kernel", tag)
+    key_mask = mask[:, None, None, :]
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=key_mask)
+
+    sdpa_err = float((sdpa().float() - plain().float()).abs().max())
+    library_ms = cuda_ms(sdpa)
+    library_dev = device_ms(sdpa, None)
+    b, h, n, dh = ATTN_MAIN
+    bound_ms, bound_by = attention_bound(b, n, h, dh, q.dtype,
+                                         layernorm=False)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    print(f"{name}: bound {bound_ms * 1e3:.3f} us ({bound_by}); {body} body "
+          f"at {100 * bound_ms / rec['device_ms']:.1f}% of it (fma body "
+          f"{100 * bound_ms / fma['device_ms']:.1f}%); "
+          f"F.scaled_dot_product_attention with the key mask "
+          f"(torch.backends.cuda.matmul.allow_tf32={tf32}): call "
+          f"{library_ms:.4f} ms, device {library_dev} ms, max_abs_err "
+          f"{sdpa_err:.3e} [{tag}]", flush=True)
+    return {"max_abs_err": err, **rec, "bound_ms": bound_ms,
+            "bound_by": bound_by, "share": bound_ms / rec["device_ms"],
+            "library_ms": library_ms, "library_device_ms": library_dev,
+            "library_allow_tf32": tf32, "fma_ms": fma["ms"],
+            "fma_device_ms": fma["device_ms"], "fma_max_abs_err": fma_err}
+
+
 def check_graph_attention(attn, reference, tag):
     """Phase 6: kernel D against masked_attention. Returns the record of
-    its JSON line (error, times and bound at ATTN_MAIN in bf16, the FMA
-    body's times, SDPA's as library_ms, the launches of this check)."""
-    import torch.nn.functional as F
+    its JSON line: error, times and bound at ATTN_MAIN in bf16 (the mma
+    body) and, under f32_* keys, in f32 (the tf32x3 body), each with the
+    FMA body's times and SDPA's as library_ms; the launches of this check
+    in all and per body."""
     gen = torch.Generator(device="cuda").manual_seed(4)
-    before = attn.launches, attn.launches_mma, attn.launches_fma
-    main_err = None
+    counts = ("launches", "launches_mma", "launches_tf32x3", "launches_fma")
+    before = [getattr(attn, c) for c in counts]
+    main = {}
     cases = ([(s, torch.float32, 2e-5) for s in ATTN_CONTRACT]
              + [(ATTN_MAIN, torch.float32, 1e-4),
                 (ATTN_MAIN, torch.bfloat16, 2e-2)])
@@ -1536,44 +1611,13 @@ def check_graph_attention(attn, reference, tag):
               f"max_abs_err={err:.3e} (tol {tol:g})", flush=True)
         if not err < tol:
             fail(f"graph_attention disagrees: {err} >= {tol}")
-        if (b, h, n, dh) == ATTN_MAIN and dt == torch.bfloat16:
-            main_err, args = err, (q, k, v, mask)
-    launches = [now - was for now, was in zip(
-        (attn.launches, attn.launches_mma, attn.launches_fma), before)]
-
-    def plain():
-        return reference(*args[:3], key_mask=args[3])
-
-    rec = time_kernel(f"graph_attention at {ATTN_MAIN} bf16, mma body",
-                      lambda: attn(*args), plain, "attention_mma_kernel",
-                      tag)
-    old = fma_body("graph", args)
-    fma_err = float((old().float() - plain().float()).abs().max())
-    fma = time_kernel(f"graph_attention at {ATTN_MAIN} bf16, fma body "
-                      f"(max_abs_err {fma_err:.3e})", old, plain,
-                      "attention_fma_kernel", tag)
-    q, k, v, mask = args
-    key_mask = mask[:, None, None, :]
-
-    def sdpa():
-        return F.scaled_dot_product_attention(q, k, v, attn_mask=key_mask)
-
-    sdpa_err = float((sdpa().float() - plain().float()).abs().max())
-    library_ms = cuda_ms(sdpa)
-    library_dev = device_ms(sdpa, None)
-    b, h, n, dh = ATTN_MAIN
-    bound_ms, bound_by = attention_bound(b, n, h, dh, torch.bfloat16,
-                                         layernorm=False)
-    print(f"graph_attention bound {bound_ms * 1e3:.3f} us ({bound_by}); "
-          f"mma body at {100 * bound_ms / rec['device_ms']:.1f}% of it "
-          f"(fma body {100 * bound_ms / fma['device_ms']:.1f}%); "
-          f"F.scaled_dot_product_attention with the key mask: call "
-          f"{library_ms:.4f} ms, device {library_dev} ms, max_abs_err "
-          f"{sdpa_err:.3e} [{tag}]", flush=True)
-    return {"max_abs_err": main_err, **rec, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms,
-            "library_device_ms": library_dev, "fma_ms": fma["ms"],
-            "fma_device_ms": fma["device_ms"], "launches": launches}
+        if (b, h, n, dh) == ATTN_MAIN:
+            main[dt] = ((q, k, v, mask), err)
+    launches = [getattr(attn, c) - was for c, was in zip(counts, before)]
+    rec = time_graph(attn, reference, *main[torch.bfloat16], "mma", tag)
+    rec32 = time_graph(attn, reference, *main[torch.float32], "tf32x3", tag)
+    return {**rec, **{f"f32_{k}": v for k, v in rec32.items()},
+            "launches": launches}
 
 
 def check_predictor(model, tag, bank=None):
@@ -2263,7 +2307,7 @@ def run_mesh_inference(model, tok, kernels, tag, phase9, sizes=None):
     if len(got) != sizes["records"]:
         fail(f"phase 19 (a): run_molqa answered {len(got)} records")
     if on_card:
-        check_mma_only(fused, "phase 19 run_molqa on the mesh")
+        check_one_body(fused, "mma", "phase 19 run_molqa on the mesh")
         steps = diffusion_steps(model)
         check_launches("fused_block_attention (mesh run_molqa)",
                        launches["A"], model.graph_decoder.cfg.depth * steps,
@@ -3008,7 +3052,10 @@ def serve_interchange(model, tok, kernels, tag, sizes):
     if on_card:
         fused, gin = kernels[:2]
         launches = {"A": fused.launches, "A_mma": fused.launches_mma,
+                    "A_tf32x3": fused.launches_tf32x3,
                     "A_fma": fused.launches_fma, "B": gin.launches}
+        # the reloaded GraphDiT is f32: every launch on the split-TF32 body
+        check_one_body(fused, "tf32x3", "interchange serving")
         steps = diffusion_steps(model)
         depth = model.graph_decoder.cfg.depth
         batches = timers.count("design")
@@ -3163,22 +3210,26 @@ def built_models():
 
 def _entry_launches(kernels, on_card):
     if not on_card:
-        return {"A": 0, "A_mma": 0, "A_fma": 0, "B": 0, "C": 0}
+        return {"A": 0, "A_mma": 0, "A_tf32x3": 0, "A_fma": 0, "B": 0,
+                "C": 0}
     fused, gin, gin_bwd = kernels[:3]
     return {"A": fused.launches, "A_mma": fused.launches_mma,
-            "A_fma": fused.launches_fma, "B": gin.launches,
-            "C": gin_bwd.launches}
+            "A_tf32x3": fused.launches_tf32x3, "A_fma": fused.launches_fma,
+            "B": gin.launches, "C": gin_bwd.launches}
 
 
 def check_design_launches(built, launches, what, on_card, tag):
     """Kernel A on every reverse step of every denoiser block of each
     design batch, B on every GIN layer of each expansion round and each
-    product scored, in the models built for this part (one expected)."""
+    product scored, in the models built for this part (one expected); on
+    the card every A launch on the split-TF32 body (the graph modules load
+    in f32)."""
     if len(built) != 1:
         fail(f"{what}: the entry point built {len(built)} models, not 1")
     model, timers = built[0]
     print(f"{what}: fused_block_attention bodies mma {launches['A_mma']}, "
-          f"fma {launches['A_fma']}; {timers.count('design')} design "
+          f"tf32x3 {launches['A_tf32x3']}, fma {launches['A_fma']}; "
+          f"{timers.count('design')} design "
           f"batch(es) in {timers.seconds('design'):.3f} s (the sampler "
           f"{timers.seconds('sampler'):.3f} s; the LLM's generate calls, "
           f"design and retro, {timers.seconds('decode'):.3f} s in all), "
@@ -3188,6 +3239,10 @@ def check_design_launches(built, launches, what, on_card, tag):
     timers.report_phase2(tag)
     if not on_card:
         return
+    if launches["A_tf32x3"] != launches["A"]:
+        fail(f"{what}: {launches['A']} kernel-A launches, "
+             f"{launches['A_tf32x3']} on the tf32x3 body (mma "
+             f"{launches['A_mma']}, fma {launches['A_fma']})")
     steps, depth = diffusion_steps(model), model.graph_decoder.cfg.depth
     batches = timers.count("design")
     check_launches(f"fused_block_attention ({what})", launches["A"],
@@ -3648,7 +3703,7 @@ def serve_quantized(model, tok, kernels, tag, sizes, phase7,
         fused, gin = kernels[:2]
         launches = {"A": fused.launches, "A_mma": fused.launches_mma,
                     "A_fma": fused.launches_fma, "B": gin.launches}
-        check_mma_only(fused, what)
+        check_one_body(fused, "mma", what)
         steps = diffusion_steps(model)
         depth = model.graph_decoder.cfg.depth
         batches = timers.count("design")
@@ -3777,7 +3832,7 @@ def check_int8_denoiser(model, kernels, tag, sizes):
         fused = kernels[0]
         launches = {"A": fused.launches, "A_mma": fused.launches_mma,
                     "A_fma": fused.launches_fma}
-        check_mma_only(fused, "int8 denoiser")
+        check_one_body(fused, "mma", "int8 denoiser")
         check_launches("fused_block_attention (int8 denoiser)",
                        fused.launches, cfg.depth * steps,
                        f"{cfg.depth} x {steps}")
@@ -5555,7 +5610,7 @@ def run_quant_molqa(model, tok, kernels, tag, device, sizes=None):
     if len(got) != sizes["records"]:
         fail(f"phase 21 (a): run_molqa answered {len(got)} records")
     if on_card:
-        check_mma_only(fused, "phase 21 (a) run_molqa on the mesh")
+        check_one_body(fused, "mma", "phase 21 (a) run_molqa on the mesh")
         steps = diffusion_steps(model)
         check_launches("fused_block_attention (phase 21 (a))",
                        launches["A"], model.graph_decoder.cfg.depth * steps,
@@ -5801,7 +5856,8 @@ def main() -> int:
         if "Used" in line or "spill" in line:
             print("  ptxas:", line.strip())
 
-    a = check_kernel(fused_block_attention, fused_attention_reference, tag)
+    a, a32 = check_kernel(fused_block_attention, fused_attention_reference,
+                          tag)
     b = check_gin(gin_aggregate, gin_aggregate_reference, tag)
     c = check_gin_backward(gin_aggregate_backward,
                            gin_aggregate_backward_reference, tag)
@@ -5930,9 +5986,11 @@ def main() -> int:
         entry("fused_block_attention", attn_src,
               "llamole_tpu/ops/pallas/fused_attention.py:91", a,
               launches["A"], launches_mma=launches["A_mma"],
+              launches_tf32x3=launches["A_tf32x3"],
               launches_fma=launches["A_fma"],
               launches_interchange=inter["A"],
               launches_interchange_mma=inter["A_mma"],
+              launches_interchange_tf32x3=inter["A_tf32x3"],
               launches_interchange_fma=inter["A_fma"],
               launches_continuous=continuous["A"],
               launches_continuous_mma=continuous["A_mma"],
@@ -5945,6 +6003,7 @@ def main() -> int:
               launches_families_fma=families["A_fma"],
               launches_entry=phase17["A"],
               launches_entry_mma=phase17["A_mma"],
+              launches_entry_tf32x3=phase17["A_tf32x3"],
               launches_entry_fma=phase17["A_fma"],
               launches_mesh_inference=mesh_infer["A"],
               launches_mesh_inference_mma=mesh_infer["A_mma"],
@@ -5952,10 +6011,24 @@ def main() -> int:
               launches_placements=placements["A"],
               launches_placements_mma=placements["A_mma"],
               launches_placements_fma=placements["A_fma"],
-              sdpa_floor_ms=a["sdpa_floor_ms"],
+              share=a["share"], sdpa_floor_ms=a["sdpa_floor_ms"],
               sdpa_floor_device_ms=a["sdpa_floor_device_ms"],
               fma_ms=a["fma_ms"],
               fma_device_ms=a["fma_device_ms"]),
+        # A's f32 route, the split-TF32 body: the launches of every
+        # GraphDiT loaded from a checkpoint (phase 12's serving and phase
+        # 17's eval, parity and UI design), its times, bound and share at
+        # the main shape in f32, the FMA body's and SDPA's on the same
+        # inputs
+        entry("A_tf32x3", attn_src,
+              "llamole_tpu/ops/pallas/fused_attention.py:91", a32,
+              inter["A_tf32x3"] + phase17["A_tf32x3"],
+              launches_interchange=inter["A_tf32x3"],
+              launches_entry=phase17["A_tf32x3"],
+              **{k: a32[k] for k in (
+                  "graph_ms", "share", "fma_ms", "fma_device_ms",
+                  "fma_max_abs_err", "sdpa_floor_ms", "sdpa_floor_device_ms",
+                  "sdpa_allow_tf32")}),
         # B: launches in serving, times at the splice's shape; the
         # training path's launches and times under their own keys
         entry("gin_aggregate", gin_src,
@@ -5997,14 +6070,17 @@ def main() -> int:
                  for k, v in stack_launches["large_n"].items()},
               **pretrain_bank["gin_aggregate_backward"]),
         # kernel D is on no path of either package: its launches are
-        # those of its check (phase 6), all on the mma or fma body there
+        # those of its check (phase 6), per body; its f32 route (the
+        # tf32x3 body) timed under f32_* keys
         entry("graph_attention", attn_src,
               "llamole_tpu/ops/pallas/graph_attention.py:69", d,
               d["launches"][0], launches_mma=d["launches"][1],
-              launches_fma=d["launches"][2],
+              launches_tf32x3=d["launches"][2],
+              launches_fma=d["launches"][3],
               launches_from="its check (on no path)",
               library_device_ms=d["library_device_ms"], fma_ms=d["fma_ms"],
-              fma_device_ms=d["fma_device_ms"])]}))
+              fma_device_ms=d["fma_device_ms"], share=d["share"],
+              **{k: v for k, v in d.items() if k.startswith("f32_")})]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -21,7 +21,7 @@
 // these keep them out too: each input byte is read once and each output
 // byte written once.
 //
-// Two bodies, one block per (graph, head) in both:
+// Three bodies, one block per (graph, head) in each:
 //
 // * attention_mma_kernel, bf16 with N <= 64 and dh in {16, 32, 64, 128}
 //   (the denoiser's path). cp.async copies the head's q, k, v rows (16
@@ -44,10 +44,32 @@
 //   of the main shape are resident at once on 132 SMs: one block per
 //   head keeps that parallelism, packing heads would only halve it.
 //
-// * attention_fma_kernel, f32 (the JAX f32 contract and the f32
-//   denoiser), and bf16 shapes outside the limits above: q, k, v and the
-//   N x N f32 logits in shared memory and plain FMA loops, with the same
-//   rounding points.
+// * attention_tf32x3_kernel, f32 within the same limits: the f32 GraphDiT
+//   that every model loaded from a checkpoint builds (as JAX's
+//   from_pretrained, dtype float32), and D's f32 calls. The same block
+//   shape as the bf16 body: cp.async into f32 tiles of [N rounded up to
+//   16, dh + 4] (the 4-float pad puts each fragment read on 32 distinct
+//   banks), A's LayerNorm in f32 with no rounding while v lands, four
+//   warps of 16 query rows, the softmax in registers. Tensor cores take
+//   f32 only as TF32 (11 significant bits, ~3 decimal digits), and one
+//   TF32 pass errs by ~1e-3 on these outputs, where the contract is 1e-4
+//   (A) and 2e-5 (D at JAX's shapes). So every operand is split as hi =
+//   cvt.rna.tf32(x), lo = cvt.rna.tf32(x - hi), and each product is three
+//   mma.sync m16n8k8 TF32 products into f32 registers (lo.hi + hi.lo +
+//   hi.hi): only lo.lo, ~2^-22 relative, is dropped, which is f32's own
+//   order of error. P goes from the logits' accumulators to the A
+//   fragments of P.V without shuffles by summing each 8-key step in a
+//   permuted key order that v's rows are read in too; v is split as it
+//   is read from shared memory. ~52 KB of shared memory at dh = 64 (the
+//   opt-in above 48 KB; ~100 KB at dh = 128). Bound: at the main shape
+//   the 13.1 MB of f32 q, k, v, out (3.9 us at 3.35 TB/s) bind, against
+//   0.16 GFLOP of products (2.4 us at the f32 rate); the three passes
+//   triple the tensor work but leave it under the bytes at TF32's rate.
+//
+// * attention_fma_kernel, f32 and bf16 shapes outside the limits above:
+//   q, k, v and the N x N f32 logits in shared memory and plain FMA
+//   loops, with the same rounding points. It was the f32 route at every
+//   shape before the split-TF32 body.
 //
 // The wrappers (ops/fused_attention.py, ops/graph_attention.py) route a
 // call by attention_body(N, dh, dtype) and count each body's launches.
@@ -56,6 +78,9 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <atomic>
+#include <type_traits>
 
 namespace {
 
@@ -490,7 +515,269 @@ __global__ void __launch_bounds__(kMmaThreads) attention_mma_kernel(
   }
 }
 
+// ---- the f32 split-TF32 tensor-core body -----------------------------
+
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo with both parts TF32 (11 significant bits each, rounded to
+// nearest, ties away from zero): x - hi is exact in f32, so hi + lo keeps
+// 22 of x's 24 bits
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// d (16x8 f32) += a (16x8 tf32, row) * b (8x8 tf32, col)
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a * b as three TF32 products, the two small ones first: a.lo * b.hi
+// + a.hi * b.lo + a.hi * b.hi; only a.lo * b.lo (~2^-22 relative) is dropped
+__device__ __forceinline__ void mma_tf32x3(float (&d)[4], const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], uint32_t bh0,
+                                           uint32_t bh1, uint32_t bl0, uint32_t bl1) {
+  mma_tf32(d, al, bh0, bh1);
+  mma_tf32(d, ah, bl0, bl1);
+  mma_tf32(d, ah, bh0, bh1);
+}
+
+// Shared memory: q, k, v as [np][DH + 4] f32 tiles (np = N rounded up to
+// 16; the 4-float pad puts the 8 rows x 4 columns of every fragment read
+// on 32 distinct banks), then the [np] f32 additive key mask. Keep in step
+// with ops/fused_attention.py shared_bytes.
+template <int DH>
+__host__ __device__ constexpr size_t tf32_shared_bytes(int np) {
+  return (size_t)3 * np * (DH + 4) * sizeof(float) + (size_t)np * sizeof(float);
+}
+
+template <int DH, bool kQkNorm>
+__global__ void __launch_bounds__(kMmaThreads) attention_tf32x3_kernel(
+    const float* __restrict__ qs, const float* __restrict__ ks,
+    const float* __restrict__ vs, const uint8_t* __restrict__ mask,
+    const float* __restrict__ q_scale, const float* __restrict__ q_bias,
+    const float* __restrict__ k_scale, const float* __restrict__ k_bias,
+    float* __restrict__ out, Layout lay, int N, int heads, float eps) {
+  static_assert(DH % 16 == 0 && DH <= 128, "head width");
+  constexpr int LD = DH + 4;            // tile row stride, floats
+  constexpr int CH = DH / 4;            // 16-byte chunks a row
+  constexpr int NT = kMmaMaxNodes / 8;  // 8-key tiles at most
+  extern __shared__ __align__(16) unsigned char smem_tf32[];
+  const int np = (N + 15) & ~15;
+  float* q = reinterpret_cast<float*>(smem_tf32);
+  float* k = q + np * LD;
+  float* v = k + np * LD;
+  float* key_add = v + np * LD;
+
+  const int b = blockIdx.x / heads;
+  const int h = blockIdx.x % heads;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const long long in_off = b * lay.in_graph + h * lay.in_head;
+
+  // copy group 0: q and k rows; group 1: v rows (lands during the norm)
+  for (int e = tid; e < 2 * N * CH; e += kMmaThreads) {
+    const int is_k = e >= N * CH;
+    const int rc = e - is_k * N * CH;
+    const int r = rc / CH, c = rc % CH;
+    cp_async16((is_k ? k : q) + r * LD + c * 4,
+               (is_k ? ks : qs) + in_off + r * lay.in_row + c * 4);
+  }
+  cp_async_commit();
+  for (int e = tid; e < N * CH; e += kMmaThreads) {
+    const int r = e / CH, c = e % CH;
+    cp_async16(v + r * LD + c * 4, vs + in_off + r * lay.in_row + c * 4);
+  }
+  cp_async_commit();
+  // padded rows (N <= r < np) of all three tiles at 0, padded key columns
+  // at -inf, masked real keys at -1e30: as in the bf16 body
+  const int pad = np - N;
+  for (int e = tid; e < 3 * pad * CH; e += kMmaThreads) {
+    const int t = e / (pad * CH);
+    const int rc = e - t * pad * CH;
+    *reinterpret_cast<float4*>(q + t * np * LD + (N + rc / CH) * LD + (rc % CH) * 4) =
+        make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  for (int j = tid; j < np; j += kMmaThreads)
+    key_add[j] = j < N ? (mask[(size_t)b * N + j] ? 0.f : kNeg) : -INFINITY;
+  cp_async_wait<1>();
+  __syncthreads();
+
+  if constexpr (kQkNorm) {
+    // LayerNorm over dh of every q and k row in f32 (two-pass
+    // mean/variance like jnp.var), DH / 4 lanes a row, each lane one
+    // 16-byte chunk of it, in place with no rounding
+    constexpr int L = DH / 4;
+    constexpr int kGroups = kMmaThreads / L;
+    const int part = lane % L;
+    const int group = tid / L;
+    const int d0 = part * 4;
+    const float4 sq = make_float4(q_scale[d0], q_scale[d0 + 1], q_scale[d0 + 2], q_scale[d0 + 3]);
+    const float4 bq = make_float4(q_bias[d0], q_bias[d0 + 1], q_bias[d0 + 2], q_bias[d0 + 3]);
+    const float4 sk = make_float4(k_scale[d0], k_scale[d0 + 1], k_scale[d0 + 2], k_scale[d0 + 3]);
+    const float4 bk = make_float4(k_bias[d0], k_bias[d0 + 1], k_bias[d0 + 2], k_bias[d0 + 3]);
+    for (int r0 = 0; r0 < 2 * N; r0 += kGroups) {  // uniform trip count
+      const int r = r0 + group;
+      const bool live = r < 2 * N;
+      const bool is_q = r < N;
+      float4* chunk = reinterpret_cast<float4*>(
+          (is_q ? q + r * LD : k + (r - N) * LD) + part * 4);
+      const float4 x = live ? *chunk : make_float4(0.f, 0.f, 0.f, 0.f);
+      const float mean = group_sum<L>(x.x + x.y + x.z + x.w) / DH;
+      const float cx = x.x - mean, cy = x.y - mean, cz = x.z - mean, cw = x.w - mean;
+      const float rstd =
+          rsqrtf(group_sum<L>(cx * cx + cy * cy + cz * cz + cw * cw) / DH + eps);
+      if (live) {
+        const float4 s = is_q ? sq : sk;
+        const float4 o = is_q ? bq : bk;
+        *chunk = make_float4(cx * rstd * s.x + o.x, cy * rstd * s.y + o.y,
+                             cz * rstd * s.z + o.z, cw * rstd * s.w + o.w);
+      }
+    }
+    __syncthreads();
+  }
+
+  const int g = lane >> 2;   // fragment row (and row + 8)
+  const int t4 = lane & 3;   // fragment column
+  const int m0 = warp * 16;      // this warp's query rows
+  const int nt8 = (N + 7) / 8;   // 8-key tiles over N rounded up to 8
+  const bool active = m0 < N;    // warp-uniform; warps 4-7 never are
+  float s[NT][4];                // logits, then probabilities
+
+  if (active) {
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+#pragma unroll
+    for (int c = 0; c < DH / 8; ++c) {  // 8 dims a step
+      const float* qr = q + (m0 + g) * LD + c * 8 + t4;
+      uint32_t ah[4], al[4];
+      split_tf32(qr[0], ah[0], al[0]);
+      split_tf32(qr[8 * LD], ah[1], al[1]);
+      split_tf32(qr[4], ah[2], al[2]);
+      split_tf32(qr[8 * LD + 4], ah[3], al[3]);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        if (nt < nt8) {
+          const float* kr = k + (nt * 8 + g) * LD + c * 8 + t4;
+          uint32_t bh0, bl0, bh1, bl1;
+          split_tf32(kr[0], bh0, bl0);
+          split_tf32(kr[4], bh1, bl1);
+          mma_tf32x3(s[nt], ah, al, bh0, bh1, bl0, bl1);
+        }
+      }
+    }
+    const float scale = 1.0f / sqrtf((float)DH);
+    float mx0 = -INFINITY, mx1 = -INFINITY;  // rows g and g + 8
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      if (nt < nt8) {
+        const float a0 = key_add[nt * 8 + 2 * t4], a1 = key_add[nt * 8 + 2 * t4 + 1];
+        s[nt][0] = s[nt][0] * scale + a0;
+        s[nt][1] = s[nt][1] * scale + a1;
+        s[nt][2] = s[nt][2] * scale + a0;
+        s[nt][3] = s[nt][3] * scale + a1;
+        mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
+        mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
+      }
+    }
+    mx0 = quad_max(mx0);
+    mx1 = quad_max(mx1);
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      if (nt < nt8) {
+        s[nt][0] = expf(s[nt][0] - mx0);
+        s[nt][1] = expf(s[nt][1] - mx0);
+        s[nt][2] = expf(s[nt][2] - mx1);
+        s[nt][3] = expf(s[nt][3] - mx1);
+        sum0 += s[nt][0] + s[nt][1];
+        sum1 += s[nt][2] + s[nt][3];
+      }
+    }
+    const float inv0 = 1.f / quad_sum(sum0);
+    const float inv1 = 1.f / quad_sum(sum1);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      s[nt][0] *= inv0;
+      s[nt][1] *= inv0;
+      s[nt][2] *= inv1;
+      s[nt][3] *= inv1;
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every thread's v rows have landed
+  if (!active) return;
+
+  // P.V, 8 keys a step. A thread holds the probabilities of keys 2 t4 and
+  // 2 t4 + 1 of each tile (the logits' accumulator layout), where the A
+  // fragment wants keys t4 and t4 + 4: the step's keys are summed in the
+  // permuted order (position t4 <-> key 2 t4, t4 + 4 <-> 2 t4 + 1) and v's
+  // rows are read in the same order, so P goes to the A fragments as it is
+  float o[DH / 8][4];
+#pragma unroll
+  for (int dt = 0; dt < DH / 8; ++dt) o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
+#pragma unroll
+  for (int kt = 0; kt < NT; ++kt) {
+    if (kt < nt8) {
+      uint32_t ph[4], pl[4];
+      split_tf32(s[kt][0], ph[0], pl[0]);  // row g, key 2 t4
+      split_tf32(s[kt][2], ph[1], pl[1]);  // row g + 8, key 2 t4
+      split_tf32(s[kt][1], ph[2], pl[2]);  // row g, key 2 t4 + 1
+      split_tf32(s[kt][3], ph[3], pl[3]);  // row g + 8, key 2 t4 + 1
+      const float* vr = v + (kt * 8 + 2 * t4) * LD + g;
+#pragma unroll
+      for (int dt = 0; dt < DH / 8; ++dt) {
+        uint32_t bh0, bl0, bh1, bl1;
+        split_tf32(vr[dt * 8], bh0, bl0);
+        split_tf32(vr[LD + dt * 8], bh1, bl1);
+        mma_tf32x3(o[dt], ph, pl, bh0, bh1, bl0, bl1);
+      }
+    }
+  }
+  float* dst = out + b * lay.out_graph + h * lay.out_head;
+  const int r0 = m0 + g, r1 = m0 + g + 8;
+#pragma unroll
+  for (int dt = 0; dt < DH / 8; ++dt) {
+    const int d = dt * 8 + 2 * t4;
+    if (r0 < N)
+      *reinterpret_cast<float2*>(dst + r0 * lay.out_row + d) = make_float2(o[dt][0], o[dt][1]);
+    if (r1 < N)
+      *reinterpret_cast<float2*>(dst + r1 * lay.out_row + d) = make_float2(o[dt][2], o[dt][3]);
+  }
+}
+
 // ---- launchers -----------------------------------------------------------
+
+// A launch that asks for more than 48 KB of dynamic shared memory needs the
+// kernel's cap raised first. cudaFuncSetAttribute cost about 0.01 ms of
+// host time a call, as much as the launch itself, so the cap is raised
+// once per device (bit d of `raised`) to the card's opt-in limit: each
+// launch still asks only for what its shape needs, and one past the limit
+// is refused at launch.
+cudaError_t allow_shared(const void* kernel, size_t smem, std::atomic<uint64_t>& raised) {
+  if (smem <= kDefaultShared) return cudaSuccess;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
+  if (raised.load(std::memory_order_relaxed) & bit) return cudaSuccess;
+  int limit = 0;
+  err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, limit);
+  if (err == cudaSuccess) raised.fetch_or(bit, std::memory_order_relaxed);
+  return err;
+}
 
 template <typename T, bool kQkNorm>
 int launch_fma(const T* q, const T* k, const T* v, const void* mask,
@@ -499,12 +786,10 @@ int launch_fma(const T* q, const T* k, const T* v, const void* mask,
                int heads, void* stream) {
   if (B <= 0 || N <= 0 || dh <= 0 || heads <= 0) return (int)cudaSuccess;
   const size_t smem = (size_t)(3 * N * (dh + 1) + N * (N + 1)) * sizeof(float);
-  if (smem > kDefaultShared) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        attention_fma_kernel<T, kQkNorm>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
+  static std::atomic<uint64_t> raised{0};
+  const cudaError_t err =
+      allow_shared((const void*)attention_fma_kernel<T, kQkNorm>, smem, raised);
+  if (err != cudaSuccess) return (int)err;
   attention_fma_kernel<T, kQkNorm><<<B * heads, kThreads, smem, (cudaStream_t)stream>>>(
       q, k, v, (const uint8_t*)mask, (const T*)q_scale, (const T*)q_bias,
       (const T*)k_scale, (const T*)k_bias, (T*)out, lay, N, dh, heads, 1e-5f);
@@ -517,41 +802,69 @@ int launch_mma_dh(const bf16* q, const bf16* k, const bf16* v, const void* mask,
                   const void* k_bias, void* out, Layout lay, int B, int N,
                   int heads, void* stream) {
   const size_t smem = mma_shared_bytes<DH>((N + 15) & ~15);
-  if (smem > kDefaultShared) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        attention_mma_kernel<DH, kQkNorm>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
+  static std::atomic<uint64_t> raised{0};
+  const cudaError_t err =
+      allow_shared((const void*)attention_mma_kernel<DH, kQkNorm>, smem, raised);
+  if (err != cudaSuccess) return (int)err;
   attention_mma_kernel<DH, kQkNorm><<<B * heads, kMmaThreads, smem, (cudaStream_t)stream>>>(
       q, k, v, (const uint8_t*)mask, (const bf16*)q_scale, (const bf16*)q_bias,
       (const bf16*)k_scale, (const bf16*)k_bias, (bf16*)out, lay, N, heads, 1e-5f);
   return (int)cudaGetLastError();
 }
 
-// The tensor-core body takes N <= 64 and dh in {16, 32, 64, 128}, with
-// 16-byte aligned rows (the wrapper checks the base pointers); anything
-// else is refused here as well as by the wrapper's routing.
+// The tensor-core bodies (bf16 and split-TF32) take N <= 64 and dh in
+// {16, 32, 64, 128}, with 16-byte aligned rows (the wrapper checks the
+// base pointers); anything else is refused here as well as by the
+// wrapper's routing. `launch` gets dh as std::integral_constant<int, dh>.
+template <typename Launch>
+int launch_tensor_core(int B, int N, int dh, int heads, Launch&& launch) {
+  if (B <= 0 || heads <= 0) return (int)cudaSuccess;
+  if (N <= 0 || N > kMmaMaxNodes) return (int)cudaErrorInvalidValue;
+  switch (dh) {
+    case 16: return launch(std::integral_constant<int, 16>{});
+    case 32: return launch(std::integral_constant<int, 32>{});
+    case 64: return launch(std::integral_constant<int, 64>{});
+    case 128: return launch(std::integral_constant<int, 128>{});
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 template <bool kQkNorm>
 int launch_mma(const bf16* q, const bf16* k, const bf16* v, const void* mask,
                const void* q_scale, const void* q_bias, const void* k_scale,
                const void* k_bias, void* out, Layout lay, int B, int N, int dh,
                int heads, void* stream) {
-  if (B <= 0 || heads <= 0) return (int)cudaSuccess;
-  if (N <= 0 || N > kMmaMaxNodes) return (int)cudaErrorInvalidValue;
-  switch (dh) {
-#define LLAMOLE_MMA_CASE(D)                                                       \
-  case D:                                                                         \
-    return launch_mma_dh<D, kQkNorm>(q, k, v, mask, q_scale, q_bias, k_scale,     \
-                                     k_bias, out, lay, B, N, heads, stream);
-    LLAMOLE_MMA_CASE(16)
-    LLAMOLE_MMA_CASE(32)
-    LLAMOLE_MMA_CASE(64)
-    LLAMOLE_MMA_CASE(128)
-#undef LLAMOLE_MMA_CASE
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return launch_tensor_core(B, N, dh, heads, [&](auto d) {
+    return launch_mma_dh<decltype(d)::value, kQkNorm>(
+        q, k, v, mask, q_scale, q_bias, k_scale, k_bias, out, lay, B, N, heads, stream);
+  });
+}
+
+template <int DH, bool kQkNorm>
+int launch_tf32x3_dh(const float* q, const float* k, const float* v, const void* mask,
+                     const void* q_scale, const void* q_bias, const void* k_scale,
+                     const void* k_bias, void* out, Layout lay, int B, int N,
+                     int heads, void* stream) {
+  const size_t smem = tf32_shared_bytes<DH>((N + 15) & ~15);
+  static std::atomic<uint64_t> raised{0};
+  const cudaError_t err =
+      allow_shared((const void*)attention_tf32x3_kernel<DH, kQkNorm>, smem, raised);
+  if (err != cudaSuccess) return (int)err;
+  attention_tf32x3_kernel<DH, kQkNorm><<<B * heads, kMmaThreads, smem, (cudaStream_t)stream>>>(
+      q, k, v, (const uint8_t*)mask, (const float*)q_scale, (const float*)q_bias,
+      (const float*)k_scale, (const float*)k_bias, (float*)out, lay, N, heads, 1e-5f);
+  return (int)cudaGetLastError();
+}
+
+template <bool kQkNorm>
+int launch_tf32x3(const float* q, const float* k, const float* v, const void* mask,
+                  const void* q_scale, const void* q_bias, const void* k_scale,
+                  const void* k_bias, void* out, Layout lay, int B, int N, int dh,
+                  int heads, void* stream) {
+  return launch_tensor_core(B, N, dh, heads, [&](auto d) {
+    return launch_tf32x3_dh<decltype(d)::value, kQkNorm>(
+        q, k, v, mask, q_scale, q_bias, k_scale, k_bias, out, lay, B, N, heads, stream);
+  });
 }
 
 // kernel A: raw [B, N, 3H] qkv -> head-concatenated [B, N, H]
@@ -603,6 +916,17 @@ int llamole_fused_attention_mma_bf16(const void* qkv, const void* mask,
                           H / heads, heads, stream);
 }
 
+int llamole_fused_attention_tf32x3_f32(const void* qkv, const void* mask,
+                                       const void* q_scale, const void* q_bias,
+                                       const void* k_scale, const void* k_bias,
+                                       void* out, int B, int N, int H, int heads,
+                                       void* stream) {
+  const float* x = (const float*)qkv;
+  return launch_tf32x3<true>(x, x + H, x + 2 * H, mask, q_scale, q_bias, k_scale,
+                             k_bias, out, fused_layout(N, H, heads), B, N,
+                             H / heads, heads, stream);
+}
+
 int llamole_graph_attention_fma_f32(const void* q, const void* k, const void* v,
                                     const void* mask, void* out, int B, int heads,
                                     int N, int dh, void* stream) {
@@ -627,6 +951,14 @@ int llamole_graph_attention_mma_bf16(const void* q, const void* k, const void* v
   return launch_mma<false>((const bf16*)q, (const bf16*)k, (const bf16*)v, mask,
                            nullptr, nullptr, nullptr, nullptr, out,
                            split_layout(N, dh, heads), B, N, dh, heads, stream);
+}
+
+int llamole_graph_attention_tf32x3_f32(const void* q, const void* k, const void* v,
+                                       const void* mask, void* out, int B, int heads,
+                                       int N, int dh, void* stream) {
+  return launch_tf32x3<false>((const float*)q, (const float*)k, (const float*)v, mask,
+                              nullptr, nullptr, nullptr, nullptr, out,
+                              split_layout(N, dh, heads), B, N, dh, heads, stream);
 }
 
 const char* llamole_cuda_error_string(int code) {

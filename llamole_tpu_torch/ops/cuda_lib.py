@@ -52,7 +52,8 @@ class KernelLibrary:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         for name in ("llamole_fused_attention_fma_f32",
                      "llamole_fused_attention_fma_bf16",
-                     "llamole_fused_attention_mma_bf16"):
+                     "llamole_fused_attention_mma_bf16",
+                     "llamole_fused_attention_tf32x3_f32"):
             fn = getattr(self.cdll, name)
             # qkv, mask, q_scale, q_bias, k_scale, k_bias, out,
             # B, N, H, heads, stream
@@ -60,7 +61,8 @@ class KernelLibrary:
             fn.restype = i32
         for name in ("llamole_graph_attention_fma_f32",
                      "llamole_graph_attention_fma_bf16",
-                     "llamole_graph_attention_mma_bf16"):
+                     "llamole_graph_attention_mma_bf16",
+                     "llamole_graph_attention_tf32x3_f32"):
             fn = getattr(self.cdll, name)
             # q, k, v, mask, out, B, heads, N, dh, stream
             fn.argtypes = [ptr] * 5 + [i32] * 4 + [ptr]

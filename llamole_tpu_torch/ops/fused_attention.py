@@ -7,17 +7,28 @@ every head and returns the head-concatenated [B, N, H] tensor.
 
 On a CUDA tensor it launches the hand-written kernel
 (csrc/fused_attention.cu, the port of llamole_tpu/ops/pallas/
-fused_attention.py `_kernel`) or raises: `attention_body(N, dh, dtype)`
-picks its bf16 tensor-core body ("mma", the denoiser's path) or its FMA
-body ("fma": f32, and bf16 shapes outside the tensor-core limits), and
-the wrapper counts the launches of each (`launches_mma`,
-`launches_fma`; `launches` is their sum). On a CPU tensor it runs
-`fused_attention_reference`, the plain PyTorch version of the same
-function (counterpart of `_fused_attention_reference`), which the tests
-and chip_smoke.py also compare the kernel against. The kernel has no
-backward (nor has the TPU one): on the card it refuses inputs that would
-record an autograd graph. The denoiser's training path (Denoiser(train=
-True)) runs the plain attention instead, as the JAX package does.
+fused_attention.py `_kernel`) or raises. `attention_body(N, dh, dtype)`
+picks one of its three bodies:
+
+- "mma": bf16 on the tensor cores, for N <= 64 and dh in MMA_HEAD_DIMS
+  (the denoiser built with random weights in bf16);
+- "tf32x3": f32 on the tensor cores within the same limits (the f32
+  denoiser that every model loaded from a checkpoint builds). TF32 keeps
+  11 significant bits, and one pass errs by ~1e-3 where f32's contract
+  is 1e-4, so each operand is split into a TF32 hi and lo part and each
+  product is taken in three passes (lo.hi + hi.lo + hi.hi). Its device
+  memory traffic bounds it, the three passes notwithstanding;
+- "fma": plain FMA loops, for f32 or bf16 outside those limits.
+
+The wrapper counts the launches of each (`launches_mma`,
+`launches_tf32x3`, `launches_fma`; `launches` is their sum). On a CPU
+tensor it runs `fused_attention_reference`, the plain PyTorch version
+of the same function (counterpart of `_fused_attention_reference`),
+which the tests and chip_smoke.py also compare the kernel against. The
+kernel has no backward (nor has the TPU one): on the card it refuses
+inputs that would record an autograd graph. The denoiser's training
+path (Denoiser(train=True)) runs the plain attention instead, as the JAX
+package does.
 """
 
 import torch
@@ -27,29 +38,37 @@ from .attention import masked_attention
 from .cuda_lib import MAX_SHARED_BYTES, launch
 from .nn import layer_norm
 
-# the tensor-core body: four warps of 16 query rows, mma.sync over dh in
-# steps of 16 (csrc/fused_attention.cu attention_mma_kernel)
+# the tensor-core bodies: four warps of 16 query rows, mma.sync over dh
+# in steps of 16 (bf16, attention_mma_kernel) or 8 (f32 split into TF32
+# parts, attention_tf32x3_kernel; csrc/fused_attention.cu)
 MMA_MAX_NODES = 64
 MMA_HEAD_DIMS = (16, 32, 64, 128)
+BODIES = ("mma", "tf32x3", "fma")
 
 
 def attention_body(n: int, dh: int, dtype: torch.dtype) -> str:
-    """The body a kernel A or D call launches on the card: "mma" (bf16
-    tensor cores) for bf16 with N <= 64 and dh in MMA_HEAD_DIMS, else
-    "fma" (plain FMA loops; f32, or bf16 outside those limits)."""
-    if (dtype == torch.bfloat16 and 1 <= n <= MMA_MAX_NODES
-            and dh in MMA_HEAD_DIMS):
-        return "mma"
+    """The body a kernel A or D call launches on the card: with N <= 64
+    and dh in MMA_HEAD_DIMS, "mma" (bf16 tensor cores) for bf16 and
+    "tf32x3" (f32 in three TF32 tensor-core passes) for f32; else "fma"
+    (plain FMA loops)."""
+    if 1 <= n <= MMA_MAX_NODES and dh in MMA_HEAD_DIMS:
+        if dtype == torch.bfloat16:
+            return "mma"
+        if dtype == torch.float32:
+            return "tf32x3"
     return "fma"
 
 
 def shared_bytes(n: int, dh: int, body: str) -> int:
     """Dynamic shared memory of one (graph, head) block. mma: q, k, v as
-    [N rounded up to 16, dh + 8] bf16 tiles and an f32 key-mask row; fma:
-    q, k, v as [N, dh + 1] and the [N, N + 1] logits, all f32."""
+    [N rounded up to 16, dh + 8] bf16 tiles and an f32 key-mask row;
+    tf32x3: the same as [N rounded up to 16, dh + 4] f32 tiles; fma: q,
+    k, v as [N, dh + 1] and the [N, N + 1] logits, all f32."""
+    rows = -(-n // 16) * 16
     if body == "mma":
-        rows = -(-n // 16) * 16
         return 3 * rows * (dh + 8) * 2 + rows * 4
+    if body == "tf32x3":
+        return 3 * rows * (dh + 4) * 4 + rows * 4
     return (3 * n * (dh + 1) + n * (n + 1)) * 4
 
 
@@ -62,27 +81,27 @@ def kernel_entry(kind: str, body: str, dtype: torch.dtype):
 
 def check_body(body: str, n: int, dh: int, tensors) -> None:
     """Refuse what the chosen body cannot take: its shared memory, and for
-    the tensor-core body rows that are not 16-byte aligned."""
+    the tensor-core bodies rows that are not 16-byte aligned."""
     need = shared_bytes(n, dh, body)
     if need > MAX_SHARED_BYTES:
         raise ValueError(f"N={n}, dh={dh} needs {need} bytes of shared "
                          f"memory; the kernel holds at most "
                          f"{MAX_SHARED_BYTES}")
-    if body == "mma" and any(t.data_ptr() % 16 for t in tensors):
-        raise ValueError("the bf16 tensor-core body copies 16-byte rows: "
-                         "its inputs must start 16-byte aligned")
+    if body != "fma" and any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"the tensor-core body ({body}) copies 16-byte "
+                         "rows: its inputs must start 16-byte aligned")
 
 
 def count_launch(wrapper, body: str) -> None:
     wrapper.launches += 1
-    if body == "mma":
-        wrapper.launches_mma += 1
-    else:
-        wrapper.launches_fma += 1
+    setattr(wrapper, f"launches_{body}", getattr(wrapper,
+                                                 f"launches_{body}") + 1)
 
 
 def reset_launches(wrapper) -> None:
-    wrapper.launches = wrapper.launches_mma = wrapper.launches_fma = 0
+    wrapper.launches = 0
+    for body in BODIES:
+        setattr(wrapper, f"launches_{body}", 0)
 
 
 def fused_attention_reference(qkv, node_mask, q_scale, q_bias, k_scale,

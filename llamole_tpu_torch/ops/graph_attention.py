@@ -9,7 +9,8 @@ dtype.
 On a CUDA tensor it launches kernel D (csrc/fused_attention.cu built with
 kQkNorm = false, the port of llamole_tpu/ops/pallas/graph_attention.py
 `_attn_kernel`) or raises, through the body that
-fused_attention.attention_body picks (launches counted per body as for
+fused_attention.attention_body picks (bf16 "mma", f32 "tf32x3" within
+the tensor-core limits, else "fma"; launches counted per body as for
 kernel A); on a CPU tensor it runs the plain version,
 ops.attention.masked_attention, which the tests and chip_smoke.py also
 compare the kernel against. Like the TPU kernel it has no backward: on the

@@ -123,6 +123,28 @@ def test_tensor_core_body_matches_plain(cuda, shape):
     assert float((out.float() - ref.float()).abs().max()) < 2e-2
 
 
+@pytest.mark.parametrize("shape", [(4, 64, 512, 4),    # N 64, dh 128
+                                   (4, 64, 64, 4)])    # N 64, dh 16
+def test_tf32x3_body_matches_plain(cuda, shape):
+    """Kernel A's f32 tensor-core body at its largest N and at both ends
+    of its head widths, with a padded and a fully masked graph, against
+    the plain version at the f32 contract; the launch on its counter."""
+    b, n, h, heads = shape
+    assert attention_body(n, h // heads, torch.float32) == "tf32x3"
+    qkv, _, norms = _inputs(cuda, torch.float32, *shape, seed=11)
+    mask = _padded_masks(cuda, torch.Generator(device=cuda).manual_seed(12),
+                         b, n)
+    before = (fused_block_attention.launches_tf32x3,
+              fused_block_attention.launches_fma)
+    out = fused_block_attention(qkv, mask, *norms, heads)
+    torch.cuda.synchronize()
+    assert (fused_block_attention.launches_tf32x3,
+            fused_block_attention.launches_fma) == (before[0] + 1, before[1])
+    ref = fused_attention_reference(qkv, mask, *norms, heads)
+    assert torch.isfinite(out).all()
+    assert float((out - ref).abs().max()) < 1e-4
+
+
 # kernel B (GIN aggregation): the path shapes (GraphCLIP splice of a width-8
 # frontier, one predictor product, the training bank's shape), two odd
 # ones, H not a multiple of 4 (the scalar lanes), and dense graphs with N
@@ -494,3 +516,23 @@ def test_graph_attention_tensor_core_body_matches_plain(cuda, shape):
     ref = masked_attention(q, k, v, key_mask=mask)
     assert torch.isfinite(out).all()
     assert float((out.float() - ref.float()).abs().max()) < 2e-2
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 64, 128), (3, 4, 64, 16)])
+def test_graph_attention_tf32x3_body_matches_plain(cuda, shape):
+    """Kernel D's f32 tensor-core body at N 64 with dh 128 and dh 16, a
+    padded and a fully masked graph among them, within JAX's f32 contract
+    (2e-5), on the tf32x3 counter."""
+    assert attention_body(shape[2], shape[3], torch.float32) == "tf32x3"
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    q, k, v = (torch.randn(shape, device=cuda, generator=gen)
+               for _ in range(3))
+    mask = _padded_masks(cuda, gen, shape[0], shape[2])
+    before = graph_attention.launches_tf32x3, graph_attention.launches_fma
+    out = graph_attention(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert (graph_attention.launches_tf32x3, graph_attention.launches_fma) == (
+        before[0] + 1, before[1])
+    ref = masked_attention(q, k, v, key_mask=mask)
+    assert torch.isfinite(out).all()
+    assert float((out - ref).abs().max()) < 2e-5

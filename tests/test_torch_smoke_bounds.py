@@ -283,7 +283,8 @@ def test_entry_points_phase_runs_on_the_cpu(tmp_path, capsys):
     finally:
         torch.set_num_threads(threads)
     out = capsys.readouterr().out
-    assert launches == {"A": 0, "A_mma": 0, "A_fma": 0, "B": 0, "C": 0}
+    assert launches == {"A": 0, "A_mma": 0, "A_tf32x3": 0, "A_fma": 0,
+                        "B": 0, "C": 0}
     for line in ("phase 17 (a) python -m llamole_tpu_torch env: exit 0",
                  "phase 17 (b) validate_data: ok True, 5 records",
                  "phase 17 (b) pretrain oracle (2 steps) under trace()",
