@@ -294,6 +294,37 @@
    phase 15 (b), gemma-2's LoRA GraphLM.loss and backward at ZeRO-3 (its
    tied embedding under FSDP2) against the mesh-less one; (b) and (c)
    gated as phase 20 (b) and (c). Each part's wall and their sum.
+22. Kernel E, the LLM's flash route (use_flash; PHASE22), right after
+   phase 9 on its model (Llama-3.1-8B at full width and depth, rank-8
+   LoRA, bf16): (a) E's forward, dq and dkv kernels against
+   flash_attention_reference (output and dq / dk / dv) at (B, S, H, KV,
+   D) = (1, 2048, 32, 8, 128), (2, 1024, 32, 8, 128) and (1, 1024, 16,
+   16, 256) in bf16 and (1, 1024, 32, 8, 128) in f32, row 0 left-padded
+   and the last right-padded: f32 within 1e-4; bf16 each tile of 64
+   positions of a head within 2 x the plain version's gap to the plain
+   version in f32 on the same inputs plus one bf16 step of the tile
+   (flash_gate); two backward
+   runs bit-equal; at (1, 2048, 32, 8, 128) bf16 the call ms (CUDA
+   events) of the forward and of forward + backward, each kernel's device
+   ms from CUDA-graph replay of its launcher, the plain version's,
+   F.scaled_dot_product_attention's with the segment mask and, as a
+   floor, causal without segments, and the bound of each half
+   (flash_bound); (b) the LLM's causal-LM loss + backward through
+   LLM.forward(train=True) on [1, 2048] seeded tokens, all real, with
+   use_flash off and on, in turns: the losses within 5e-2 of the loss,
+   the LoRA gradients within 5e-2 (relative L2), walls and peaks, and the
+   flash steps' kernel counts set to 0 before and read after: 32 forward
+   launches (64 under remat) and 32 of each backward kernel, no plain
+   attention call; then GraphLM.loss on the first training record
+   collated to [1, 2048] (a right-padded tail), flash on and off, held
+   alike; (c) the causal-LM flash step at [1, 4096], all real: its wall
+   and peak (the plain attention would save ~103 GB of probabilities
+   there). Run alone (about 1.5 min on one H100, on a fresh random
+   slice):
+   python3 -c "import torch, chip_smoke as s; from llamole_tpu_torch.ops
+   import cuda_lib; cuda_lib.library(); torch.backends.cuda.matmul.
+   allow_tf32 = False; m, t = s.build_slice(); s.run_flash(m, t,
+   s.card_tag())"
 
 Prints, before the last line, one {"kernels": [...]} JSON line (per
 kernel: launches on the main path, max_abs_err, ms, plain_ms, device_ms,
@@ -319,7 +350,11 @@ launches_mesh, phase 18's B and C; under launches_mesh_inference, phase
 19's A (per body too) and B; under launches_moe_ep and launches_s2_tp,
 phase 20 (b)'s and (c)'s B and C; under launches_placements, phase 21's:
 A's in (a)'s run_molqa on the mesh (per body too), B's and C's in (a)'s
-QLoRA at ZeRO-3 and (c)'s gemma-2 step;
+QLoRA at ZeRO-3 and (c)'s gemma-2 step; a flash_attention entry for
+kernel E: one forward + backward at (1, 2048, 32, 8, 128) bf16 under the
+main keys, each half under fwd_* / bwd_* (device ms per kernel: fwd,
+dq, dkv), its launches those of phase 22 (b)'s causal-LM flash step (per
+kernel under launches_fwd / _dq / _dkv, (c)'s under long_*);
 the last line is {"ok": true, "device": {...}}. Any
 failure exits non-zero.
 """
@@ -5830,6 +5865,470 @@ def run_ring(tag, device="cuda", sizes=None):
             "wall": time.perf_counter() - t_part}
 
 
+# Phase 22: kernel E (the LLM's flash route, use_flash) on phase 9's model.
+# checks: (B, S, H, KV, D, dtype) held to flash_attention_reference, row 0
+# left-padded by left_pad and the last row right-padded by right_pad (a
+# single row both). f32: each output within f32_atol of the plain version.
+# bf16: an absolute limit cannot hold, since dk and dv reach ~8 at S = 2048,
+# where one bf16 step is 3.1e-2 and the plain version in bf16 is itself
+# 2.8e-2 from the exact result; and one relative to the largest value
+# misses a fault on the later rows, whose values are ~0.05. So out, dq, dk
+# and dv are held to the plain version in f32 on the same bf16 inputs
+# ("exact"), tile by tile of 64 positions of a head: max |kernel - exact|
+# within bf16_gap x max |plain - exact| (the plain version has jaxlib's
+# rounding points, as the kernel has) plus one bf16 step of the tile's
+# largest |exact| (flash_gate). main: the shape timed, the 8B's attention
+# at the training step's length; train_seq / long_seq: the micro steps of
+# (b) and (c); loss_gap (of the loss) and grad_rel (relative L2 of the
+# LoRA gradients as one vector): how far (b)'s flash steps may be from
+# their plain ones
+PHASE22 = {"checks": ((1, 2048, 32, 8, 128, "bf16"),
+                      (2, 1024, 32, 8, 128, "bf16"),
+                      (1, 1024, 16, 16, 256, "bf16"),
+                      (1, 1024, 32, 8, 128, "f32")),
+           "main": (1, 2048, 32, 8, 128), "left_pad": 37, "right_pad": 301,
+           "f32_atol": TOL[torch.float32], "bf16_gap": 2.0,
+           "train_seq": 2048, "long_seq": 4096, "loss_gap": 5e-2,
+           "grad_rel": 5e-2}
+FLASH_COUNTS = ("launches_fwd", "launches_dq", "launches_dkv")
+DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
+
+
+def flash_inputs(shape, dtype, sizes, device="cuda", seed=0):
+    """Seeded q, k, v, dO and segment ids (the attention mask): row 0
+    left-padded, the last row right-padded."""
+    b, s, h, kv, d = shape
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def draw(*dims):
+        return torch.randn(dims, generator=gen, device=device).to(dtype)
+
+    q, k, v, dout = (draw(b, s, h, d), draw(b, s, kv, d), draw(b, s, kv, d),
+                     draw(b, s, h * d))
+    seg = torch.ones((b, s), dtype=torch.int32, device=device)
+    seg[0, :sizes["left_pad"]] = 0
+    seg[-1, s - sizes["right_pad"]:] = 0
+    return q, k, v, dout, seg
+
+
+def flash_allowed(seg):
+    """[B, S, S]: query i attends key j iff j <= i in the same segment."""
+    s = seg.shape[1]
+    causal = torch.ones((s, s), dtype=torch.bool, device=seg.device).tril()
+    return causal[None] & (seg[:, :, None] == seg[:, None, :])
+
+
+def flash_bound(shape, dtype, pairs, backward):
+    """Kernel E: each input read once and each output written once --
+    forward: q, k and v (GQA's KV heads, not a copy per query head), the
+    segment ids, the output and the f32 log-sum-exp; backward: q, k, v,
+    the segment ids, out, dO and the log-sum-exp read, dq, dk, dv written
+    -- and the products over the pairs this run's segment ids attend
+    (`pairs` a row: causal and same-segment), two in the forward (q.k,
+    P.v) and five in the backward (q.k again, dO.v, P.dO, dS.q, dS.k), on
+    the tensor cores (bf16) or the f32 units, with ~6 f32 operations a
+    pair and head (scale and mask, max, exp, sums)."""
+    b, s, h, kv, d = shape
+    size = torch.tensor([], dtype=dtype).element_size()
+    q_bytes, kv_bytes = b * s * h * d * size, b * s * kv * d * size
+    small = b * s * 4 + b * h * s * 4              # segment ids, lse
+    if backward:
+        nbytes = 4 * q_bytes + 4 * kv_bytes + small
+    else:
+        nbytes = 2 * q_bytes + 2 * kv_bytes + small
+    mm = (5 if backward else 2) * 2 * h * d * pairs
+    kind = "bf16_tensor" if dtype == torch.bfloat16 else "f32_tensor"
+    return roofline(nbytes, {kind: mm, "f32": 6 * h * pairs})
+
+
+def bf16_step(x):
+    """One bf16 step (a unit in the last of its 8 significant bits) at
+    each |x|: 2^(e - 8) for |x| in [2^(e - 1), 2^e)."""
+    _, exp = torch.frexp(x.abs())
+    return torch.ldexp(torch.ones_like(x), exp - 8)
+
+
+def flash_gate(got, plain, exact, d, gap, tile=64):
+    """The bf16 check of one output ([B, S, heads * D] or [B, S, heads,
+    D]): over each tile of `tile` positions of one head, max |got - exact|
+    / (gap x max |plain - exact| + one bf16 step of the tile's largest
+    |exact|); the worst tile's, above 1 failing. A tile, not a row: a
+    row's own rounding error swings with the few terms that dominate it
+    (a segment's first query, one key, cancels to f32 noise), a tile's
+    maximum does not, and a fault on a key or query tile still fills
+    one."""
+    def tiles(t):
+        return t.float().reshape(t.shape[0], t.shape[1] // tile, tile, -1, d)
+    amax = lambda t: t.abs().amax(dim=(2, 4))
+    e = tiles(exact)
+    limit = gap * amax(tiles(plain) - e) + bf16_step(amax(e))
+    return float((amax(tiles(got) - e) / limit).max())
+
+
+def _flash_grads(fn, q, k, v, dout, seg):
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    out = fn(*leaves, seg)
+    return (out.detach(),
+            list(torch.autograd.grad(out, leaves, dout)))
+
+
+def check_flash_outputs(got, want, exact, shape, name, sizes):
+    """One check's gate over out, dq, dk, dv (kernel, plain version and,
+    in bf16, the plain version in f32 on the same inputs): prints the
+    readings, fails past the limits, returns the largest |kernel - plain|."""
+    names = ("out", "dq", "dk", "dv")
+    d = shape[-1]
+    for g in got:
+        if not torch.isfinite(g).all():
+            fail(f"kernel E at {shape} {name}: an output is not finite")
+    gaps = [float((g.float() - w.float()).abs().max())
+            for g, w in zip(got, want)]
+    head = (f"flash_attention check (B, S, H, KV, D)={tuple(shape)} {name} "
+            f"(row 0 left-padded by {sizes['left_pad']}, the last row "
+            f"right-padded by {sizes['right_pad']}): max |kernel - plain| "
+            "(max |plain|) "
+            + ", ".join(f"{n} {g:.3e} ({float(w.float().abs().max()):.3e})"
+                        for n, g, w in zip(names, gaps, want)))
+    if exact is None:
+        print(f"{head} (limit {sizes['f32_atol']:g})", flush=True)
+        if not max(gaps) <= sizes["f32_atol"]:
+            fail(f"kernel E disagrees at {shape} {name}: {gaps}")
+        return max(gaps)
+    ratios = [flash_gate(g, w, x, d, sizes["bf16_gap"])
+              for g, w, x in zip(got, want, exact)]
+    off = [(float((g.float() - x).abs().max()),
+            float((w.float() - x).abs().max()))
+           for g, w, x in zip(got, want, exact)]
+    print(f"{head}; max |kernel - f32| / max |plain - f32|: "
+          + ", ".join(f"{n} {a:.3e} / {b:.3e}" for n, (a, b) in zip(names,
+                                                                     off))
+          + "; the worst tile's (64 positions of a head) max |kernel - f32| "
+          f"over ({sizes['bf16_gap']:g} x max |plain - f32| + one bf16 step "
+          "of max |f32|), limit 1: "
+          + ", ".join(f"{n} {r:.3f}" for n, r in zip(names, ratios)),
+          flush=True)
+    if not max(ratios) <= 1.0:
+        fail(f"kernel E disagrees at {shape} {name}: worst tiles "
+             f"{dict(zip(names, ratios))}")
+    return max(gaps)
+
+
+def check_flash(flash, reference, tag, sizes=None):
+    """Phase 22 (a): kernel E's forward, dq and dkv kernels against
+    flash_attention_reference at sizes["checks"] (output and dq / dk / dv,
+    padded rows included; the limits at PHASE22); at the main shape two
+    backward runs bit-equal, then times: call ms (CUDA events) of the
+    forward and of forward + backward, each kernel's device ms from
+    CUDA-graph replay of its launcher (device time plus the gaps between
+    launches, an upper bound), the plain version's,
+    F.scaled_dot_product_attention's with the [B, 1, S, S] segment mask
+    (the one PyTorch call of the same function) and, as a floor, causal
+    with no segments on the same tensors; the bound of each half. Returns
+    the record of E's JSON entry."""
+    import torch.nn.functional as F
+    from llamole_tpu_torch.ops import flash_attention as E
+    sizes = sizes or PHASE22
+    errs = {"bf16": 0.0, "f32": 0.0}
+    for *shape, name in sizes["checks"]:
+        dt = DTYPES[name]
+        q, k, v, dout, seg = flash_inputs(shape, dt, sizes)
+        out, grads = _flash_grads(flash, q, k, v, dout, seg)
+        torch.cuda.synchronize()
+        ref, ref_grads = _flash_grads(reference, q, k, v, dout, seg)
+        exact = None
+        if dt != torch.float32:
+            exact = _flash_grads(reference,
+                                 *(t.float() for t in (q, k, v, dout)), seg)
+            exact = (exact[0], *exact[1])
+        errs[name] = max(errs[name], check_flash_outputs(
+            (out, *grads), (ref, *ref_grads), exact, shape, name, sizes))
+        del q, k, v, dout, out, grads, ref, ref_grads, exact
+
+    shape = sizes["main"]
+    dt = torch.bfloat16
+    q, k, v, dout, seg = flash_inputs(shape, dt, sizes)
+    first = _flash_grads(flash, q, k, v, dout, seg)[1]
+    again = _flash_grads(flash, q, k, v, dout, seg)[1]
+    if not all(torch.equal(a, b) for a, b in zip(first, again)):
+        fail("kernel E's backward gave other bits on a second run")
+    del first, again
+
+    def timed_pair(fn, layout=lambda t: t, grad_out=dout):
+        """(forward, forward + backward) of fn on this shape's inputs."""
+        ins = [layout(t) for t in (q, k, v)]
+        req = [t.clone().requires_grad_(True) for t in ins]
+
+        def fwd():
+            with torch.no_grad():
+                return fn(*ins)
+
+        def step():
+            out = fn(*req)
+            return torch.autograd.grad(out, req, grad_out)
+        return fwd, step
+
+    kernel = timed_pair(lambda a, b, c: flash(a, b, c, seg))
+    plain = timed_pair(lambda a, b, c: reference(a, b, c, seg))
+    rec = {"ms": cuda_ms(kernel[1]), "fwd_ms": cuda_ms(kernel[0]),
+           "plain_ms": cuda_ms(plain[1], launches=5, repeats=5),
+           "plain_fwd_ms": cuda_ms(plain[0], launches=5, repeats=5)}
+    out, lse = E.flash_forward(q, k, v, seg)
+    _, delta = E.flash_backward_dq(q, k, v, seg, out, dout, lse)
+    rec["fwd_device_ms"] = graph_ms(lambda: E.flash_forward(q, k, v, seg))
+    rec["dq_device_ms"] = graph_ms(lambda: E.flash_backward_dq(
+        q, k, v, seg, out, dout, lse))
+    rec["dkv_device_ms"] = graph_ms(lambda: E.flash_backward_dkv(
+        q, k, v, seg, dout, lse, delta))
+    rec["bwd_device_ms"] = rec["dq_device_ms"] + rec["dkv_device_ms"]
+    rec["device_ms"] = rec["fwd_device_ms"] + rec["bwd_device_ms"]
+    rec["device_from"] = "CUDA-graph replay of each launcher"
+    del out, lse, delta
+    # SDPA in its [B, H, S, D] layout, the GQA heads expanded by the call
+    bhsd = lambda t: t.transpose(1, 2).contiguous()
+    b, s, h, kv, d = shape
+    dout_t = dout.reshape(b, s, h, d).transpose(1, 2).contiguous()
+    mask = flash_allowed(seg)[:, None]
+    rec["library_ms"] = rec["library_fwd_ms"] = None
+    rec["sdpa_causal_ms"] = rec["sdpa_causal_fwd_ms"] = None
+    try:
+        lib = timed_pair(lambda a, b, c: F.scaled_dot_product_attention(
+            a, b, c, attn_mask=mask, enable_gqa=True), bhsd, dout_t)
+        rec["library_ms"], rec["library_fwd_ms"] = (cuda_ms(lib[1]),
+                                                    cuda_ms(lib[0]))
+        floor = timed_pair(lambda a, b, c: F.scaled_dot_product_attention(
+            a, b, c, is_causal=True, enable_gqa=True), bhsd, dout_t)
+        rec["sdpa_causal_ms"], rec["sdpa_causal_fwd_ms"] = (
+            cuda_ms(floor[1]), cuda_ms(floor[0]))
+    except RuntimeError as exc:      # a yardstick only: the port never calls it
+        print(f"F.scaled_dot_product_attention not timed: {exc}", flush=True)
+    pairs = int(flash_allowed(seg).sum())
+    fwd_bound = flash_bound(shape, dt, pairs, backward=False)
+    bwd_bound = flash_bound(shape, dt, pairs, backward=True)
+    rec.update(fwd_bound_ms=fwd_bound[0], fwd_bound_by=fwd_bound[1],
+               bwd_bound_ms=bwd_bound[0], bwd_bound_by=bwd_bound[1],
+               bound_ms=fwd_bound[0] + bwd_bound[0],
+               bound_by=("operations" if "operations" in (fwd_bound[1],
+                                                           bwd_bound[1])
+                         else "bytes"),
+               pairs=pairs, shape=list(shape), max_abs_err=errs["bf16"],
+               f32_max_abs_err=errs["f32"],
+               share=(fwd_bound[0] + bwd_bound[0]) / rec["device_ms"],
+               fwd_share=fwd_bound[0] / rec["fwd_device_ms"],
+               bwd_share=bwd_bound[0] / rec["bwd_device_ms"])
+    fmt = lambda x: "not measured" if x is None else f"{x:.4f}"
+    print(f"flash_attention at (B, S, H, KV, D)={shape} bf16, {pairs} "
+          f"attended pairs a head (device times from {rec['device_from']}"
+          f"): forward call {rec['fwd_ms']:.4f} ms, device "
+          f"{rec['fwd_device_ms']:.4f} ms, bound {1e3 * fwd_bound[0]:.2f} "
+          f"us ({fwd_bound[1]}), share {rec['fwd_share']:.4f}; backward "
+          f"device {rec['bwd_device_ms']:.4f} ms (dq "
+          f"{rec['dq_device_ms']:.4f} + dkv {rec['dkv_device_ms']:.4f}), "
+          f"bound {1e3 * bwd_bound[0]:.2f} us ({bwd_bound[1]}), share "
+          f"{rec['bwd_share']:.4f}; forward + backward call "
+          f"{rec['ms']:.4f} ms; plain version {rec['plain_fwd_ms']:.4f} / "
+          f"{rec['plain_ms']:.4f} ms (forward / forward + backward); SDPA "
+          f"with the segment mask {fmt(rec['library_fwd_ms'])} / "
+          f"{fmt(rec['library_ms'])} ms, SDPA causal without segments (a "
+          f"floor) {fmt(rec['sdpa_causal_fwd_ms'])} / "
+          f"{fmt(rec['sdpa_causal_ms'])} ms [{tag}]", flush=True)
+    return rec
+
+
+def flash_lm_batch(vocab, length, device, seed=0):
+    """[1, length] token ids drawn from a seed, every one real and its own
+    label: the causal-LM loss reads every position, so E's backward
+    carries gradient on every key tile."""
+    gen = torch.Generator().manual_seed(seed)
+    ids = torch.randint(0, vocab, (1, length), generator=gen).to(device)
+    return {"input_ids": ids, "attention_mask": torch.ones_like(ids),
+            "labels": ids}
+
+
+def flash_train_batch(tok, length):
+    """The first record of data/molqa_train_examples.json collated as
+    run_mmsft collates it (phase 9's llama3 template and cutoff), padded
+    on the right to `length` tokens: a [1, length] batch."""
+    from llamole_tpu_torch.data.collator import SeqGraphCollator
+    from llamole_tpu_torch.data.loader import get_dataset
+
+    data_args = SimpleNamespace(
+        dataset="molqa_train_examples",
+        dataset_dir=str(Path(__file__).resolve().parent / "data"),
+        max_samples=None, template="llama3", learned_query_size=8,
+        cutoff_len=2048, train_on_prompt=False)
+    bank, inputs = get_dataset(None, data_args, None, tok)
+    collate = SeqGraphCollator(tokenizer=tok, mol_id_to_graph=bank,
+                               max_len=length, max_nodes=MAX_NODES,
+                               max_graphs=16, max_retro=16,
+                               pad_to_multiple_of=length)
+    return collate(inputs[:1])
+
+
+@contextlib.contextmanager
+def counted_plain_attention(log):
+    """Count the LLM's plain attention calls in log["plain"]."""
+    from llamole_tpu_torch.models.gllm import model as gllm
+    plain = gllm.attention
+
+    def counted(*args, **kwargs):
+        log["plain"] += 1
+        return plain(*args, **kwargs)
+    gllm.attention = counted
+    try:
+        yield
+    finally:
+        gllm.attention = plain
+
+
+def lm_step_loss(model, batch):
+    """The LLM's causal-LM loss through LLM.forward(train=True)."""
+    from llamole_tpu_torch.models.gllm.model import lm_loss
+    from llamole_tpu_torch.utils.constants import IGNORE_INDEX
+    logits, _, _ = model.llm(input_ids=batch["input_ids"],
+                             attention_mask=batch["attention_mask"],
+                             train=True)
+    loss = lm_loss(logits, batch["labels"], IGNORE_INDEX)
+    return loss, loss
+
+
+def graph_lm_step_loss(model, batch):
+    """GraphLM.loss, the loss run_mmsft takes, and its LM part."""
+    gen = torch.Generator(device=model.llm.device).manual_seed(0)
+    total, parts = model.loss(batch, gen)
+    return total, parts["lm_loss"]
+
+
+def flash_step(model, batch, use_flash, device, loss_fn=lm_step_loss):
+    """One loss_fn forward + backward (no update) with the LLM's use_flash
+    set: the losses, the LoRA gradients, the wall, the peak and the
+    kernel-E and plain-attention calls."""
+    from llamole_tpu_torch.ops import flash_attention as E
+    llm = model.llm
+    on_card = device == "cuda"
+    for p in model.parameters():
+        p.grad = None
+    E.reset_launches()
+    log = {"plain": 0}
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    llm.cfg.use_flash = use_flash
+    try:
+        with counted_plain_attention(log):
+            _sync_card()
+            t0 = time.perf_counter()
+            total, lm = loss_fn(model, batch)
+            total.backward()
+            _sync_card()
+            wall = time.perf_counter() - t0
+    finally:
+        llm.cfg.use_flash = False
+    grads = torch.cat([p.grad.float().reshape(-1)
+                       for n, p in sorted(model.named_parameters())
+                       if "lora_" in n and p.grad is not None])
+    for p in model.parameters():
+        p.grad = None
+    return {"loss": float(total.detach()), "lm_loss": float(lm.detach()),
+            "grads": grads, "wall": wall, "peak": _peak(on_card),
+            "plain": log["plain"],
+            **{k: getattr(E.flash_attention, k) for k in FLASH_COUNTS}}
+
+
+def flash_pair(model, batch, device, sizes, loss_fn, order, what, need,
+               tag):
+    """loss_fn's step with use_flash off and on in `order` (each True /
+    False; the walls the faster of each kind, the losses and gradients
+    the first's), held: the losses within loss_gap of the loss, the LoRA
+    gradients within grad_rel, the flash steps on kernel E in every layer
+    (`need` launches of each kernel, on the card) and never on the plain
+    attention."""
+    runs = {True: [], False: []}
+    for on in order:
+        runs[on].append(flash_step(model, batch, on, device, loss_fn))
+    plain, flash = runs[False][0], runs[True][0]
+    for run, kind in ((plain, False), (flash, True)):
+        run["walls"] = [r["wall"] for r in runs[kind]]
+        run["wall"] = min(run["walls"])
+    gap = abs(flash["loss"] - plain["loss"])
+    rel = _rel_l2(flash["grads"], plain["grads"])
+    real = int(batch["attention_mask"].sum())
+    print(f"phase 22 {what} at [1, {batch['input_ids'].shape[1]}] ({real} "
+          f"real tokens): loss plain {plain['loss']:.6f} (lm "
+          f"{plain['lm_loss']:.6f}), flash {flash['loss']:.6f} (lm "
+          f"{flash['lm_loss']:.6f}), gap {gap:.3e} (limit "
+          f"{sizes['loss_gap']} x loss); LoRA gradients relative L2 "
+          f"{rel:.3e} (limit {sizes['grad_rel']}); walls plain "
+          f"{[round(w, 3) for w in plain['walls']]} s, flash "
+          f"{[round(w, 3) for w in flash['walls']]} s; peak plain "
+          f"{plain['peak']}, flash {flash['peak']}; kernel E launches "
+          f"forward {flash['launches_fwd']}, dq {flash['launches_dq']}, dkv "
+          f"{flash['launches_dkv']} (need {need['launches_fwd']}, "
+          f"{need['launches_dq']}, {need['launches_dkv']}), plain "
+          f"attention calls {flash['plain']} (plain step {plain['plain']}) "
+          f"[{tag}]", flush=True)
+    if not (np.isfinite(flash["loss"])
+            and gap <= sizes["loss_gap"] * abs(plain["loss"])):
+        fail(f"phase 22 {what}: the flash loss {flash['loss']} strays from "
+             f"the plain {plain['loss']}")
+    if not rel < sizes["grad_rel"]:
+        fail(f"phase 22 {what}: the LoRA gradients stray ({rel})")
+    if flash["plain"] or (device == "cuda" and any(
+            flash[k] != n for k, n in need.items())):
+        fail(f"phase 22 {what}: not every layer ran kernel E ({flash})")
+    del plain["grads"], flash["grads"]
+    return {"plain": plain, "flash": flash, "loss_gap": gap,
+            "grad_rel": rel}
+
+
+def run_flash(model, tok, tag, device="cuda", sizes=None):
+    """Phase 22 on phase 9's model: (a) check_flash on the card; (b) one
+    training micro step of the LLM's causal-LM loss (LLM.forward(train=
+    True)) at [1, train_seq] on real tokens only, with use_flash off and
+    on in turns (flash_pair); then GraphLM.loss, the loss run_mmsft takes,
+    on the first training record collated with a right-padded tail to the
+    same length, flash on and off (the loss reads the record's tokens
+    only); (c) the causal-LM step at [1, long_seq] with use_flash, where
+    the plain attention's saved probabilities would not fit. Returns E's
+    JSON record and the parts' walls."""
+    from llamole_tpu_torch.ops import flash_attention as E
+    sizes = sizes or PHASE22
+    on_card = device == "cuda"
+    t_phase = time.perf_counter()
+    rec = (check_flash(E.flash_attention, E.flash_attention_reference, tag,
+                       sizes) if on_card else {})
+    t_a = time.perf_counter() - t_phase
+    cfg = model.llm.cfg
+    layers = cfg.num_layers
+    need = {"launches_fwd": layers * (2 if cfg.remat else 1),
+            "launches_dq": layers, "launches_dkv": layers}
+    train = flash_pair(model, flash_lm_batch(cfg.vocab_size,
+                                             sizes["train_seq"], device),
+                       device, sizes, lm_step_loss,
+                       (False, True, True, False),
+                       "(b) causal-LM loss + backward", need, tag)
+    padded = flash_pair(model, flash_train_batch(tok, sizes["train_seq"]),
+                        device, sizes, graph_lm_step_loss, (True, False),
+                        "(b) GraphLM.loss + backward, a right-padded tail,",
+                        need, tag)
+    t_b = time.perf_counter() - t_phase - t_a
+    long = flash_step(model, flash_lm_batch(cfg.vocab_size,
+                                            sizes["long_seq"], device),
+                      True, device)
+    print(f"phase 22 (c) causal-LM loss + backward at [1, "
+          f"{sizes['long_seq']}] ({sizes['long_seq']} real tokens) with "
+          f"use_flash: loss {long['loss']:.6f}, wall {long['wall']:.3f} s, "
+          f"peak {long['peak']}; kernel E launches forward "
+          f"{long['launches_fwd']}, dq {long['launches_dq']}, dkv "
+          f"{long['launches_dkv']}, plain attention calls {long['plain']} "
+          f"[{tag}]", flush=True)
+    if (not np.isfinite(long["loss"]) or long["plain"]
+            or (on_card and any(long[k] != n for k, n in need.items()))):
+        fail(f"phase 22 (c): {long}")
+    del long["grads"]
+    t_c = time.perf_counter() - t_phase - t_a - t_b
+    return {**rec, "train": train, "padded": padded, "long": long,
+            "walls": {"a": t_a, "b": t_b, "c": t_c}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5890,6 +6389,15 @@ def main() -> int:
         train_dir = os.path.join(work, "mmsft")
         b_training, c_training, saved, train_peak, phase9 = run_training(
             model, tok, kernels, tag, train_dir)
+        phase22 = run_flash(model, tok, tag)
+        walls22 = phase22["walls"]
+        print(f"phase 22: (a) kernel E's checks and times "
+              f"{walls22['a']:.1f} s, (b) the training steps with and "
+              f"without use_flash {walls22['b']:.1f} s, (c) the flash step "
+              f"at [1, {PHASE22['long_seq']}] {walls22['c']:.1f} s; "
+              f"{sum(walls22.values()):.1f} s in all [{tag}]", flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
         check_denoiser(model, tag)
         check_graphclip(model, tag)
         check_predictor(model, tag)
@@ -5980,6 +6488,7 @@ def main() -> int:
                 "replaces": replaces, "launches": launches,
                 **{k: rec[k] for k in keys}, **extra}
 
+    flash22 = phase22["train"]["flash"]
     attn_src = "llamole_tpu_torch/csrc/fused_attention.cu"
     gin_src = "llamole_tpu_torch/csrc/gin_aggregate.cu"
     print(json.dumps({"kernels": [
@@ -6080,7 +6589,39 @@ def main() -> int:
               launches_from="its check (on no path)",
               library_device_ms=d["library_device_ms"], fma_ms=d["fma_ms"],
               fma_device_ms=d["fma_device_ms"], share=d["share"],
-              **{k: v for k, v in d.items() if k.startswith("f32_")})]}))
+              **{k: v for k, v in d.items() if k.startswith("f32_")}),
+        # kernel E: the main keys are one forward + backward at the 8B's
+        # attention shape (the three kernels a training layer runs), the
+        # halves under fwd_* / bwd_* (per kernel: fwd, dq, dkv), the
+        # launches those of phase 22 (b)'s causal-LM flash step (under
+        # long_*, (c)'s); train_* (b)'s causal-LM pair, padded_* its
+        # GraphLM.loss pair
+        entry("flash_attention", "llamole_tpu_torch/csrc/flash_attention.cu",
+              "llamole_tpu/models/gllm/model.py:281 (jaxlib "
+              "jax/experimental/pallas/ops/tpu/flash_attention.py:758 "
+              "_flash_attention_impl, :1121 _flash_attention_bwd_dkv, "
+              ":1456 _flash_attention_bwd_dq)", phase22,
+              sum(flash22[k] for k in FLASH_COUNTS),
+              **{k: flash22[k] for k in FLASH_COUNTS},
+              **{f"long_{k}": phase22["long"][k] for k in FLASH_COUNTS},
+              **{k: phase22[k] for k in (
+                  "share", "device_from", "fwd_ms", "fwd_device_ms",
+                  "dq_device_ms", "dkv_device_ms", "bwd_device_ms",
+                  "fwd_bound_ms",
+                  "fwd_bound_by", "bwd_bound_ms", "bwd_bound_by",
+                  "fwd_share", "bwd_share", "plain_fwd_ms",
+                  "library_fwd_ms", "sdpa_causal_ms", "sdpa_causal_fwd_ms",
+                  "f32_max_abs_err", "pairs", "shape")},
+              train_loss_gap=phase22["train"]["loss_gap"],
+              train_grad_rel=phase22["train"]["grad_rel"],
+              train_wall_s={k: phase22["train"][k]["wall"]
+                            for k in ("plain", "flash")},
+              train_peak={k: phase22["train"][k]["peak"]
+                          for k in ("plain", "flash")},
+              padded_loss_gap=phase22["padded"]["loss_gap"],
+              padded_grad_rel=phase22["padded"]["grad_rel"],
+              long_wall_s=phase22["long"]["wall"],
+              long_peak=phase22["long"]["peak"])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,0 +1,959 @@
+// Causal, segment-masked, grouped-query flash attention for the LLM: kernel E.
+//
+// Kernel E replaces the three Pallas TPU kernels that the JAX LLM's flash
+// route reaches (llamole_tpu/models/gllm/model.py `_flash_attention`, which
+// calls jaxlib's jax/experimental/pallas/ops/tpu/flash_attention.py):
+// the forward `_flash_attention_impl` (body `_flash_attention_kernel`), and
+// the backward's `_flash_attention_bwd_dkv` and `_flash_attention_bwd_dq`.
+// The function: q [B, S, H, D], k / v [B, S, KV, D], segment ids [B, S]
+// (the LLM's attention mask). Query i attends key j iff j <= i and
+// seg[i] == seg[j]; logits q.k * (1 / sqrt(D)) in f32, masked ones at
+// jaxlib's DEFAULT_MASK_VALUE (-0.7 * FLT_MAX); the probabilities are
+// rounded to v's type before P.V; query head h reads KV head h / (H / KV)
+// in place (no repeated copy of k and v). Outputs: [B, S, H * D] in the
+// input type and the f32 log-sum-exp [B, H, S] that the backward reads.
+//
+// What bounds it on an H100: at the 8B's shape (1, 2048, 32, 8, 128) bf16
+// the causal forward is ~34.4 GFLOP of tensor-core products (~35 us at 989
+// TFLOP/s) against ~42 MB of q, k, v and out (~13 us at 3.35 TB/s), and the
+// backward's five products are ~2.5 times the forward's two: operations
+// bind both. What the design keeps out of device memory is what the TPU
+// kernel kept out: the [B, H, S, S] logits and probabilities, which plain
+// attention saves for its backward (~0.8 GB a layer at that shape).
+//
+// Bodies, one set per input type:
+//
+// * bf16 (the LLM's type), mma.sync m16n8k16 with f32 sums, as kernel A's
+//   attention_mma_kernel. The forward takes one 4-warp block per (b, head,
+//   64 query rows), the longest rows launched first; each warp owns 16
+//   rows. Key tiles (64 keys at D = 128, 32 at D = 256) stream through
+//   shared memory by cp.async (k and v as two groups, so the logits start
+//   while v lands); the logits stay in registers, scaled and masked there,
+//   an online softmax (running max and sum a row, quad shuffles) rescales
+//   the f32 output accumulators, and the probabilities go to bf16 A
+//   fragments of P.V without touching shared memory. Key tiles wholly
+//   above the block's diagonal are never loaded; a warp skips the products
+//   of a tile wholly above its own rows.
+//   The backward is two kernels, as jaxlib's. flash_bwd_dq: one block per
+//   (b, head, 64 query rows); it first forms delta = rowsum(dO * O) of its
+//   rows (f32, written out for the other kernel) and then, per key tile up
+//   to the diagonal, recomputes P = exp(s - lse), dP = dO.V^T,
+//   dS = P * (dP - delta) * scale (rounded to bf16, as jaxlib casts ds to
+//   k's type) and dQ += dS.K. flash_bwd_dkv runs after it: one block per
+//   (b, KV head, 64 keys) loops over the G = H / KV query heads of its
+//   group and the 32-query tiles at or below the diagonal, recomputing P^T
+//   and dP^T with the keys as rows, and sums dV += P^T.dO and
+//   dK += dS^T.Q in registers. The group's heads are summed inside the
+//   block: GQA's dK and dV need no float atomics, and two runs give the
+//   same bits. Each warp holds 16 keys by 128 dims of dK and dV; at
+//   D = 256 eight warps split the dims in two and both halves recompute
+//   the block's P^T and dP^T.
+// * f32, plain FMA loops (a correct body; the LLM never runs in f32 on the
+//   card's main path): 32-row tiles, eight threads a row, the same online
+//   softmax and the same three kernels.
+//
+// D is 128 or 256 and S a multiple of 64 (the route sends S % 128 == 0);
+// the wrapper (ops/flash_attention.py) refuses anything else, and so do
+// the launchers. More than 48 KB of shared memory is asked for through
+// allow_shared, once per device.
+
+#include <math.h>
+
+#include "mma.cuh"
+
+namespace {
+
+constexpr float kMaskValue = -0.7f * 3.40282346638528859812e+38f;
+constexpr int kBQ = 64;         // query rows of a forward / dq block
+constexpr int kThreads = 128;   // 4 warps of 16 rows
+constexpr int kBKV = 64;        // keys of a dkv block
+constexpr int kBQ2 = 32;        // queries a dkv step
+constexpr int kF = 32;          // rows and keys of an f32 tile
+constexpr int kFThreads = 256;  // 8 threads a row
+
+struct Dims {
+  int B, S, H, KV;
+};
+
+// ---- the bf16 tensor-core bodies ---------------------------------------
+
+template <int D>
+__host__ __device__ constexpr int key_tile() {
+  return D == 128 ? 64 : 32;
+}
+
+template <int D>
+constexpr size_t fwd_shared_bytes() {
+  return (size_t)(kBQ + 2 * key_tile<D>()) * (D + 8) * sizeof(bf16) +
+         key_tile<D>() * sizeof(int);
+}
+
+template <int D>
+constexpr size_t dq_shared_bytes() {
+  return (size_t)(2 * kBQ + 2 * key_tile<D>()) * (D + 8) * sizeof(bf16) +
+         key_tile<D>() * sizeof(int) + kBQ * sizeof(float);
+}
+
+template <int D>
+constexpr size_t dkv_shared_bytes() {
+  return (size_t)(2 * kBKV + 2 * kBQ2) * (D + 8) * sizeof(bf16) +
+         3 * kBQ2 * sizeof(float);
+}
+
+// copy `rows` rows of D bf16 (global row stride `stride`) into a tile of
+// row stride D + 8, 16 bytes a thread
+template <int D, int kNThreads>
+__device__ __forceinline__ void copy_rows(bf16* dst, const bf16* src, long long stride,
+                                          int rows, int tid) {
+  constexpr int CH = D / 8;
+  for (int e = tid; e < rows * CH; e += kNThreads) {
+    const int r = e / CH, c = e % CH;
+    cp_async16(dst + r * (D + 8) + c * 8, src + r * stride + c * 8);
+  }
+}
+
+// The block's (b, head, query tile) with the longest rows first.
+struct QueryBlock {
+  int b, h, q0;
+};
+
+__device__ __forceinline__ QueryBlock query_block(const Dims& dm, int rows) {
+  const int nq = dm.S / rows;
+  const int bh = blockIdx.x % (dm.B * dm.H);
+  return {bh / dm.H, bh % dm.H, (nq - 1 - (int)blockIdx.x / (dm.B * dm.H)) * rows};
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads) flash_fwd_mma_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const int* __restrict__ seg, bf16* __restrict__ out, float* __restrict__ lse, Dims dm,
+    float scale) {
+  constexpr int BK = key_tile<D>();
+  constexpr int LD = D + 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [kBQ][LD]
+  bf16* ks = qs + kBQ * LD;                       // [BK][LD]
+  bf16* vs = ks + BK * LD;                        // [BK][LD]
+  int* kseg = reinterpret_cast<int*>(vs + BK * LD);
+
+  const QueryBlock blk = query_block(dm, kBQ);
+  const int S = dm.S;
+  const long long q_row = (long long)dm.H * D, kv_row = (long long)dm.KV * D;
+  const int kvh = blk.h / (dm.H / dm.KV);
+  const bf16* qg = q + (long long)blk.b * S * q_row + (long long)blk.h * D;
+  const bf16* kg = k + (long long)blk.b * S * kv_row + (long long)kvh * D;
+  const bf16* vg = v + (long long)blk.b * S * kv_row + (long long)kvh * D;
+  const int* sg = seg + (long long)blk.b * S;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+
+  copy_rows<D, kThreads>(qs, qg + blk.q0 * q_row, q_row, kBQ, tid);
+  cp_async_commit();
+
+  const int r0 = blk.q0 + warp * 16 + g, r1 = r0 + 8;  // this thread's rows
+  const int seg0 = sg[r0], seg1 = sg[r1];
+  const int warp_last = blk.q0 + warp * 16 + 15;
+  float o[D / 8][4];
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+  const int nkt = (blk.q0 + kBQ - 1) / BK + 1;  // tiles at or left of the diagonal
+
+  for (int kt = 0; kt < nkt; ++kt) {
+    const int j0 = kt * BK;
+    __syncthreads();  // every warp is done with the last tile
+    copy_rows<D, kThreads>(ks, kg + j0 * kv_row, kv_row, BK, tid);
+    cp_async_commit();
+    copy_rows<D, kThreads>(vs, vg + j0 * kv_row, kv_row, BK, tid);
+    cp_async_commit();
+    for (int j = tid; j < BK; j += kThreads) kseg[j] = sg[j0 + j];
+    cp_async_wait<1>();  // q and this tile's k
+    __syncthreads();
+    const bool live = j0 <= warp_last;  // warp-uniform
+    uint32_t pa[BK / 16][4];
+    if (live) {
+      float s[BK / 8][4];
+#pragma unroll
+      for (int i = 0; i < BK / 8; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
+#pragma unroll
+      for (int c = 0; c < D / 16; ++c) {
+        uint32_t qa[4];
+        ldmatrix_x4(qa, qs + (warp * 16 + (lane & 15)) * LD + c * 16 + (lane >> 4) * 8);
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) {
+          uint32_t kb[4];
+          ldmatrix_x4(kb, ks + (kk * 16 + (lane & 7) + (lane >> 4) * 8) * LD + c * 16 +
+                              ((lane >> 3) & 1) * 8);
+          mma_bf16(s[2 * kk], qa, kb[0], kb[1]);
+          mma_bf16(s[2 * kk + 1], qa, kb[2], kb[3]);
+        }
+      }
+      float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+      for (int nt = 0; nt < BK / 8; ++nt) {
+        const int jj = nt * 8 + 2 * t4;
+        const int ja = j0 + jj;
+        const int sa = kseg[jj], sb = kseg[jj + 1];
+        s[nt][0] = (ja <= r0 && sa == seg0) ? s[nt][0] * scale : kMaskValue;
+        s[nt][1] = (ja + 1 <= r0 && sb == seg0) ? s[nt][1] * scale : kMaskValue;
+        s[nt][2] = (ja <= r1 && sa == seg1) ? s[nt][2] * scale : kMaskValue;
+        s[nt][3] = (ja + 1 <= r1 && sb == seg1) ? s[nt][3] * scale : kMaskValue;
+        mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
+        mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
+      }
+      // online softmax: a tile whose keys are all masked for a row leaves
+      // its max at the mask value; the row's first real key then rescales
+      // what that tile added by exp(mask - real) = 0
+      const float mn0 = fmaxf(m0, quad_max(mx0)), mn1 = fmaxf(m1, quad_max(mx1));
+      const float a0 = expf(m0 - mn0), a1 = expf(m1 - mn1);
+      m0 = mn0;
+      m1 = mn1;
+      float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < BK / 8; ++nt) {
+        s[nt][0] = expf(s[nt][0] - mn0);
+        s[nt][1] = expf(s[nt][1] - mn0);
+        s[nt][2] = expf(s[nt][2] - mn1);
+        s[nt][3] = expf(s[nt][3] - mn1);
+        ps0 += s[nt][0] + s[nt][1];
+        ps1 += s[nt][2] + s[nt][3];
+      }
+      l0 = l0 * a0 + ps0;  // this thread's share of the row sum
+      l1 = l1 * a1 + ps1;
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i) {
+        o[i][0] *= a0;
+        o[i][1] *= a0;
+        o[i][2] *= a1;
+        o[i][3] *= a1;
+      }
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        pa[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+        pa[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+        pa[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+        pa[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // v has landed
+    if (live) {
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+#pragma unroll
+        for (int c = 0; c < D / 16; ++c) {
+          uint32_t vb[4];
+          ldmatrix_x4_trans(vb, vs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+                                    c * 16 + (lane >> 4) * 8);
+          mma_bf16(o[2 * c], pa[kk], vb[0], vb[1]);
+          mma_bf16(o[2 * c + 1], pa[kk], vb[2], vb[3]);
+        }
+      }
+    }
+  }
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+  const float i0 = 1.f / l0, i1 = 1.f / l1;
+  bf16* og = out + (long long)blk.b * S * q_row + (long long)blk.h * D;
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) {
+    const int d = i * 8 + 2 * t4;
+    *reinterpret_cast<__nv_bfloat162*>(og + r0 * q_row + d) =
+        __floats2bfloat162_rn(o[i][0] * i0, o[i][1] * i0);
+    *reinterpret_cast<__nv_bfloat162*>(og + r1 * q_row + d) =
+        __floats2bfloat162_rn(o[i][2] * i1, o[i][3] * i1);
+  }
+  if (t4 == 0) {
+    float* lg = lse + ((long long)blk.b * dm.H + blk.h) * S;
+    lg[r0] = m0 + logf(l0);
+    lg[r1] = m1 + logf(l1);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads) flash_bwd_dq_mma_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const int* __restrict__ seg, const bf16* __restrict__ out, const bf16* __restrict__ dout,
+    const float* __restrict__ lse, float* __restrict__ delta, bf16* __restrict__ dq, Dims dm,
+    float scale) {
+  constexpr int BK = key_tile<D>();
+  constexpr int LD = D + 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [kBQ][LD]
+  bf16* dos = qs + kBQ * LD;                      // [kBQ][LD]
+  bf16* ks = dos + kBQ * LD;                      // [BK][LD]
+  bf16* vs = ks + BK * LD;                        // [BK][LD]
+  int* kseg = reinterpret_cast<int*>(vs + BK * LD);
+  float* rowd = reinterpret_cast<float*>(kseg + BK);  // [kBQ] delta
+
+  const QueryBlock blk = query_block(dm, kBQ);
+  const int S = dm.S;
+  const long long q_row = (long long)dm.H * D, kv_row = (long long)dm.KV * D;
+  const int kvh = blk.h / (dm.H / dm.KV);
+  const long long q_off = (long long)blk.b * S * q_row + (long long)blk.h * D;
+  const bf16* kg = k + (long long)blk.b * S * kv_row + (long long)kvh * D;
+  const bf16* vg = v + (long long)blk.b * S * kv_row + (long long)kvh * D;
+  const int* sg = seg + (long long)blk.b * S;
+  const long long head_rows = ((long long)blk.b * dm.H + blk.h) * S;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+
+  copy_rows<D, kThreads>(qs, q + q_off + blk.q0 * q_row, q_row, kBQ, tid);
+  copy_rows<D, kThreads>(dos, dout + q_off + blk.q0 * q_row, q_row, kBQ, tid);
+  cp_async_commit();
+  // delta = rowsum(dO * O) in f32, one warp a row (jaxlib's di)
+  for (int i = 0; i < 16; ++i) {
+    const int r = warp * 16 + i;
+    const bf16* orow = out + q_off + (blk.q0 + r) * q_row;
+    const bf16* drow = dout + q_off + (blk.q0 + r) * q_row;
+    float acc = 0.f;
+    for (int d = lane; d < D; d += 32)
+      acc += __bfloat162float(orow[d]) * __bfloat162float(drow[d]);
+    acc = warp_sum(acc);
+    if (lane == 0) {
+      rowd[r] = acc;
+      delta[head_rows + blk.q0 + r] = acc;
+    }
+  }
+
+  const int r0 = blk.q0 + warp * 16 + g, r1 = r0 + 8;
+  const int seg0 = sg[r0], seg1 = sg[r1];
+  const float L0 = lse[head_rows + r0], L1 = lse[head_rows + r1];
+  const int warp_last = blk.q0 + warp * 16 + 15;
+  float acc[D / 8][4];
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  const int nkt = (blk.q0 + kBQ - 1) / BK + 1;
+
+  for (int kt = 0; kt < nkt; ++kt) {
+    const int j0 = kt * BK;
+    __syncthreads();
+    copy_rows<D, kThreads>(ks, kg + j0 * kv_row, kv_row, BK, tid);
+    copy_rows<D, kThreads>(vs, vg + j0 * kv_row, kv_row, BK, tid);
+    cp_async_commit();
+    for (int j = tid; j < BK; j += kThreads) kseg[j] = sg[j0 + j];
+    cp_async_wait<0>();
+    __syncthreads();
+    if (j0 > warp_last) continue;  // warp-uniform: every key is above its rows
+    const float d0 = rowd[warp * 16 + g], d1 = rowd[warp * 16 + g + 8];
+    float s[BK / 8][4], dp[BK / 8][4];
+#pragma unroll
+    for (int i = 0; i < BK / 8; ++i) {
+      s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
+      dp[i][0] = dp[i][1] = dp[i][2] = dp[i][3] = 0.f;
+    }
+#pragma unroll
+    for (int c = 0; c < D / 16; ++c) {
+      uint32_t qa[4], da[4];
+      ldmatrix_x4(qa, qs + (warp * 16 + (lane & 15)) * LD + c * 16 + (lane >> 4) * 8);
+      ldmatrix_x4(da, dos + (warp * 16 + (lane & 15)) * LD + c * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        const int at = (kk * 16 + (lane & 7) + (lane >> 4) * 8) * LD + c * 16 +
+                       ((lane >> 3) & 1) * 8;
+        uint32_t kb[4], vb[4];
+        ldmatrix_x4(kb, ks + at);
+        ldmatrix_x4(vb, vs + at);
+        mma_bf16(s[2 * kk], qa, kb[0], kb[1]);
+        mma_bf16(s[2 * kk + 1], qa, kb[2], kb[3]);
+        mma_bf16(dp[2 * kk], da, vb[0], vb[1]);
+        mma_bf16(dp[2 * kk + 1], da, vb[2], vb[3]);
+      }
+    }
+    uint32_t dsa[BK / 16][4];
+#pragma unroll
+    for (int nt = 0; nt < BK / 8; ++nt) {
+      const int jj = nt * 8 + 2 * t4;
+      const int ja = j0 + jj;
+      const int sa = kseg[jj], sb = kseg[jj + 1];
+      const float p0 = (ja <= r0 && sa == seg0) ? expf(s[nt][0] * scale - L0) : 0.f;
+      const float p1 = (ja + 1 <= r0 && sb == seg0) ? expf(s[nt][1] * scale - L0) : 0.f;
+      const float p2 = (ja <= r1 && sa == seg1) ? expf(s[nt][2] * scale - L1) : 0.f;
+      const float p3 = (ja + 1 <= r1 && sb == seg1) ? expf(s[nt][3] * scale - L1) : 0.f;
+      s[nt][0] = p0 * (dp[nt][0] - d0) * scale;
+      s[nt][1] = p1 * (dp[nt][1] - d0) * scale;
+      s[nt][2] = p2 * (dp[nt][2] - d1) * scale;
+      s[nt][3] = p3 * (dp[nt][3] - d1) * scale;
+    }
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      dsa[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      dsa[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      dsa[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      dsa[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+    }
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+#pragma unroll
+      for (int c = 0; c < D / 16; ++c) {
+        uint32_t kb[4];
+        ldmatrix_x4_trans(kb, ks + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+                                  c * 16 + (lane >> 4) * 8);
+        mma_bf16(acc[2 * c], dsa[kk], kb[0], kb[1]);
+        mma_bf16(acc[2 * c + 1], dsa[kk], kb[2], kb[3]);
+      }
+    }
+  }
+  bf16* dg = dq + q_off;
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) {
+    const int d = i * 8 + 2 * t4;
+    *reinterpret_cast<__nv_bfloat162*>(dg + r0 * q_row + d) =
+        __floats2bfloat162_rn(acc[i][0], acc[i][1]);
+    *reinterpret_cast<__nv_bfloat162*>(dg + r1 * q_row + d) =
+        __floats2bfloat162_rn(acc[i][2], acc[i][3]);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads * (D / 128)) flash_bwd_dkv_mma_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const int* __restrict__ seg, const bf16* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv, Dims dm,
+    float scale) {
+  constexpr int NT = kThreads * (D / 128);
+  constexpr int LD = D + 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);  // [kBKV][LD]
+  bf16* vs = ks + kBKV * LD;                      // [kBKV][LD]
+  bf16* qs = vs + kBKV * LD;                      // [kBQ2][LD]
+  bf16* dos = qs + kBQ2 * LD;                     // [kBQ2][LD]
+  int* qseg = reinterpret_cast<int*>(dos + kBQ2 * LD);
+  float* qlse = reinterpret_cast<float*>(qseg + kBQ2);
+  float* qdel = qlse + kBQ2;
+
+  const int S = dm.S, G = dm.H / dm.KV;
+  const int bk = blockIdx.x % (dm.B * dm.KV);
+  const int b = bk / dm.KV, kvh = bk % dm.KV;
+  const int j0 = (int)(blockIdx.x / (dm.B * dm.KV)) * kBKV;  // the most queries first
+  const long long q_row = (long long)dm.H * D, kv_row = (long long)dm.KV * D;
+  const long long kv_off = (long long)b * S * kv_row + (long long)kvh * D;
+  const int* sg = seg + (long long)b * S;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int kg = warp & 3;          // this warp's 16 keys
+  const int c0 = (warp >> 2) * 128;  // and its 128 dims
+
+  copy_rows<D, NT>(ks, k + kv_off + j0 * kv_row, kv_row, kBKV, tid);
+  copy_rows<D, NT>(vs, v + kv_off + j0 * kv_row, kv_row, kBKV, tid);
+  cp_async_commit();
+
+  const int jr0 = j0 + kg * 16 + g, jr1 = jr0 + 8;  // this thread's keys
+  const int sj0 = sg[jr0], sj1 = sg[jr1];
+  const int warp_first = j0 + kg * 16;
+  float dka[16][4], dva[16][4];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    dka[i][0] = dka[i][1] = dka[i][2] = dka[i][3] = 0.f;
+    dva[i][0] = dva[i][1] = dva[i][2] = dva[i][3] = 0.f;
+  }
+
+  for (int gi = 0; gi < G; ++gi) {
+    const int h = kvh * G + gi;
+    const long long q_off = (long long)b * S * q_row + (long long)h * D;
+    const long long head_rows = ((long long)b * dm.H + h) * S;
+    for (int i0 = j0; i0 < S; i0 += kBQ2) {  // query tiles at or below the diagonal
+      __syncthreads();
+      copy_rows<D, NT>(qs, q + q_off + i0 * q_row, q_row, kBQ2, tid);
+      copy_rows<D, NT>(dos, dout + q_off + i0 * q_row, q_row, kBQ2, tid);
+      cp_async_commit();
+      for (int i = tid; i < kBQ2; i += NT) {
+        qseg[i] = sg[i0 + i];
+        qlse[i] = lse[head_rows + i0 + i];
+        qdel[i] = delta[head_rows + i0 + i];
+      }
+      cp_async_wait<0>();
+      __syncthreads();
+      if (i0 + kBQ2 - 1 < warp_first) continue;  // warp-uniform: every query precedes its keys
+      // S^T = K.Q^T and dP^T = V.dO^T: 16 keys x 32 queries
+      float s[4][4], dp[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
+        dp[i][0] = dp[i][1] = dp[i][2] = dp[i][3] = 0.f;
+      }
+#pragma unroll 4
+      for (int c = 0; c < D / 16; ++c) {
+        uint32_t ka[4], va[4];
+        ldmatrix_x4(ka, ks + (kg * 16 + (lane & 15)) * LD + c * 16 + (lane >> 4) * 8);
+        ldmatrix_x4(va, vs + (kg * 16 + (lane & 15)) * LD + c * 16 + (lane >> 4) * 8);
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) {
+          const int at = (kk * 16 + (lane & 7) + (lane >> 4) * 8) * LD + c * 16 +
+                         ((lane >> 3) & 1) * 8;
+          uint32_t qb[4], db[4];
+          ldmatrix_x4(qb, qs + at);
+          ldmatrix_x4(db, dos + at);
+          mma_bf16(s[2 * kk], ka, qb[0], qb[1]);
+          mma_bf16(s[2 * kk + 1], ka, qb[2], qb[3]);
+          mma_bf16(dp[2 * kk], va, db[0], db[1]);
+          mma_bf16(dp[2 * kk + 1], va, db[2], db[3]);
+        }
+      }
+      // [0], [1]: key jr0, queries i0 + ic and + 1; [2], [3]: key jr1
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int ic = nt * 8 + 2 * t4;
+        const int ia = i0 + ic;
+        const int sa = qseg[ic], sb = qseg[ic + 1];
+        const float La = qlse[ic], Lb = qlse[ic + 1];
+        const float Da = qdel[ic], Db = qdel[ic + 1];
+        const float p0 = (jr0 <= ia && sj0 == sa) ? expf(s[nt][0] * scale - La) : 0.f;
+        const float p1 = (jr0 <= ia + 1 && sj0 == sb) ? expf(s[nt][1] * scale - Lb) : 0.f;
+        const float p2 = (jr1 <= ia && sj1 == sa) ? expf(s[nt][2] * scale - La) : 0.f;
+        const float p3 = (jr1 <= ia + 1 && sj1 == sb) ? expf(s[nt][3] * scale - Lb) : 0.f;
+        s[nt][0] = p0;
+        s[nt][1] = p1;
+        s[nt][2] = p2;
+        s[nt][3] = p3;
+        dp[nt][0] = p0 * (dp[nt][0] - Da) * scale;
+        dp[nt][1] = p1 * (dp[nt][1] - Db) * scale;
+        dp[nt][2] = p2 * (dp[nt][2] - Da) * scale;
+        dp[nt][3] = p3 * (dp[nt][3] - Db) * scale;
+      }
+      uint32_t pa[2][4], dsa[2][4];
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        pa[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+        pa[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+        pa[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+        pa[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+        dsa[kk][0] = pack_bf16(dp[2 * kk][0], dp[2 * kk][1]);
+        dsa[kk][1] = pack_bf16(dp[2 * kk][2], dp[2 * kk][3]);
+        dsa[kk][2] = pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]);
+        dsa[kk][3] = pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3]);
+      }
+      // dV += P^T.dO and dK += dS^T.Q over this warp's 128 dims
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          const int at = (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + c0 + c * 16 +
+                         (lane >> 4) * 8;
+          uint32_t db[4], qb[4];
+          ldmatrix_x4_trans(db, dos + at);
+          ldmatrix_x4_trans(qb, qs + at);
+          mma_bf16(dva[2 * c], pa[kk], db[0], db[1]);
+          mma_bf16(dva[2 * c + 1], pa[kk], db[2], db[3]);
+          mma_bf16(dka[2 * c], dsa[kk], qb[0], qb[1]);
+          mma_bf16(dka[2 * c + 1], dsa[kk], qb[2], qb[3]);
+        }
+      }
+    }
+  }
+  bf16* dkg = dk + kv_off;
+  bf16* dvg = dv + kv_off;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int d = c0 + i * 8 + 2 * t4;
+    *reinterpret_cast<__nv_bfloat162*>(dkg + jr0 * kv_row + d) =
+        __floats2bfloat162_rn(dka[i][0], dka[i][1]);
+    *reinterpret_cast<__nv_bfloat162*>(dkg + jr1 * kv_row + d) =
+        __floats2bfloat162_rn(dka[i][2], dka[i][3]);
+    *reinterpret_cast<__nv_bfloat162*>(dvg + jr0 * kv_row + d) =
+        __floats2bfloat162_rn(dva[i][0], dva[i][1]);
+    *reinterpret_cast<__nv_bfloat162*>(dvg + jr1 * kv_row + d) =
+        __floats2bfloat162_rn(dva[i][2], dva[i][3]);
+  }
+}
+
+// ---- the f32 FMA bodies ----------------------------------------------------
+
+// Thread (r, c) = (tid / 8, tid % 8) owns row r of a 32-row tile, its
+// columns c + 8u of the 32 x 32 logits and its dims c + 8i; the eight
+// threads of a row are neighbouring lanes of one warp.
+
+__device__ __forceinline__ float row8_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 4));
+}
+
+__device__ __forceinline__ float row8_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  v += __shfl_xor_sync(0xffffffffu, v, 2);
+  return v + __shfl_xor_sync(0xffffffffu, v, 4);
+}
+
+// rows of D floats (global row stride `stride`) into a [kF][D + 1] tile
+template <int D>
+__device__ __forceinline__ void load_f32_rows(float* dst, const float* src, long long stride,
+                                              int tid) {
+  for (int e = tid; e < kF * D; e += kFThreads) {
+    const int r = e / D, d = e % D;
+    dst[r * (D + 1) + d] = src[r * stride + d];
+  }
+}
+
+template <int D>
+__device__ __forceinline__ float dot_rows(const float* a, const float* b) {
+  float acc = 0.f;
+#pragma unroll 8
+  for (int d = 0; d < D; ++d) acc = fmaf(a[d], b[d], acc);
+  return acc;
+}
+
+template <int D>
+constexpr size_t fma_fwd_shared_bytes() {
+  return ((size_t)3 * kF * (D + 1) + kF * (kF + 1)) * sizeof(float) + kF * sizeof(int);
+}
+
+template <int D>
+constexpr size_t fma_dq_shared_bytes() {
+  return ((size_t)4 * kF * (D + 1) + kF * (kF + 1)) * sizeof(float) + kF * sizeof(int);
+}
+
+template <int D>
+constexpr size_t fma_dkv_shared_bytes() {
+  return ((size_t)4 * kF * (D + 1) + 2 * kF * (kF + 1) + 2 * kF) * sizeof(float) +
+         kF * sizeof(int);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kFThreads) flash_fwd_fma_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const int* __restrict__ seg, float* __restrict__ out, float* __restrict__ lse, Dims dm,
+    float scale) {
+  constexpr int LD = D + 1;
+  extern __shared__ float smem_f32[];
+  float* qs = smem_f32;       // [kF][LD]
+  float* ks = qs + kF * LD;   // [kF][LD]
+  float* vs = ks + kF * LD;   // [kF][LD]
+  float* ps = vs + kF * LD;   // [kF][kF + 1]
+  int* kseg = reinterpret_cast<int*>(ps + kF * (kF + 1));
+
+  const QueryBlock blk = query_block(dm, kF);
+  const int S = dm.S;
+  const long long q_row = (long long)dm.H * D, kv_row = (long long)dm.KV * D;
+  const int kvh = blk.h / (dm.H / dm.KV);
+  const long long q_off = (long long)blk.b * S * q_row + (long long)blk.h * D;
+  const float* kg = k + (long long)blk.b * S * kv_row + (long long)kvh * D;
+  const float* vg = v + (long long)blk.b * S * kv_row + (long long)kvh * D;
+  const int* sg = seg + (long long)blk.b * S;
+  const int tid = threadIdx.x, r = tid >> 3, c = tid & 7;
+  const int row = blk.q0 + r, srow = sg[row];
+
+  load_f32_rows<D>(qs, q + q_off + blk.q0 * q_row, q_row, tid);
+  float o[D / 8];
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) o[i] = 0.f;
+  float m = -INFINITY, l = 0.f;
+  for (int j0 = 0; j0 <= blk.q0; j0 += kF) {
+    __syncthreads();
+    load_f32_rows<D>(ks, kg + j0 * kv_row, kv_row, tid);
+    load_f32_rows<D>(vs, vg + j0 * kv_row, kv_row, tid);
+    for (int j = tid; j < kF; j += kFThreads) kseg[j] = sg[j0 + j];
+    __syncthreads();
+    float sv[4];
+    float mx = -INFINITY;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int j = c + 8 * u;
+      const float x = dot_rows<D>(qs + r * LD, ks + j * LD);
+      sv[u] = (j0 + j <= row && kseg[j] == srow) ? x * scale : kMaskValue;
+      mx = fmaxf(mx, sv[u]);
+    }
+    const float mn = fmaxf(m, row8_max(mx));
+    const float a = expf(m - mn);
+    m = mn;
+    float part = 0.f;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      sv[u] = expf(sv[u] - mn);
+      part += sv[u];
+      ps[r * (kF + 1) + c + 8 * u] = sv[u];
+    }
+    l = l * a + row8_sum(part);
+    __syncwarp();  // the row's eight threads share one warp
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) o[i] *= a;
+    for (int j = 0; j < kF; ++j) {
+      const float p = ps[r * (kF + 1) + j];
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i) o[i] = fmaf(p, vs[j * LD + c + 8 * i], o[i]);
+    }
+  }
+  const float inv = 1.f / l;
+  float* og = out + q_off + row * q_row;
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) og[c + 8 * i] = o[i] * inv;
+  if (c == 0) lse[((long long)blk.b * dm.H + blk.h) * S + row] = m + logf(l);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kFThreads) flash_bwd_dq_fma_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const int* __restrict__ seg, const float* __restrict__ out, const float* __restrict__ dout,
+    const float* __restrict__ lse, float* __restrict__ delta, float* __restrict__ dq, Dims dm,
+    float scale) {
+  constexpr int LD = D + 1;
+  extern __shared__ float smem_f32[];
+  float* qs = smem_f32;        // [kF][LD]
+  float* dos = qs + kF * LD;   // [kF][LD]
+  float* ks = dos + kF * LD;   // [kF][LD]
+  float* vs = ks + kF * LD;    // [kF][LD]
+  float* dss = vs + kF * LD;   // [kF][kF + 1]
+  int* kseg = reinterpret_cast<int*>(dss + kF * (kF + 1));
+
+  const QueryBlock blk = query_block(dm, kF);
+  const int S = dm.S;
+  const long long q_row = (long long)dm.H * D, kv_row = (long long)dm.KV * D;
+  const int kvh = blk.h / (dm.H / dm.KV);
+  const long long q_off = (long long)blk.b * S * q_row + (long long)blk.h * D;
+  const float* kg = k + (long long)blk.b * S * kv_row + (long long)kvh * D;
+  const float* vg = v + (long long)blk.b * S * kv_row + (long long)kvh * D;
+  const int* sg = seg + (long long)blk.b * S;
+  const long long head_rows = ((long long)blk.b * dm.H + blk.h) * S;
+  const int tid = threadIdx.x, r = tid >> 3, c = tid & 7;
+  const int row = blk.q0 + r, srow = sg[row];
+
+  load_f32_rows<D>(qs, q + q_off + blk.q0 * q_row, q_row, tid);
+  load_f32_rows<D>(dos, dout + q_off + blk.q0 * q_row, q_row, tid);
+  float part = 0.f;
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) {
+    const long long at = q_off + row * q_row + c + 8 * i;
+    part = fmaf(out[at], dout[at], part);
+  }
+  const float dl = row8_sum(part);
+  if (c == 0) delta[head_rows + row] = dl;
+  const float L = lse[head_rows + row];
+  float acc[D / 8];
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) acc[i] = 0.f;
+  for (int j0 = 0; j0 <= blk.q0; j0 += kF) {
+    __syncthreads();
+    load_f32_rows<D>(ks, kg + j0 * kv_row, kv_row, tid);
+    load_f32_rows<D>(vs, vg + j0 * kv_row, kv_row, tid);
+    for (int j = tid; j < kF; j += kFThreads) kseg[j] = sg[j0 + j];
+    __syncthreads();
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int j = c + 8 * u;
+      float ds = 0.f;
+      if (j0 + j <= row && kseg[j] == srow) {
+        const float p = expf(dot_rows<D>(qs + r * LD, ks + j * LD) * scale - L);
+        ds = p * (dot_rows<D>(dos + r * LD, vs + j * LD) - dl) * scale;
+      }
+      dss[r * (kF + 1) + j] = ds;
+    }
+    __syncwarp();
+    for (int j = 0; j < kF; ++j) {
+      const float ds = dss[r * (kF + 1) + j];
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i) acc[i] = fmaf(ds, ks[j * LD + c + 8 * i], acc[i]);
+    }
+  }
+  float* dg = dq + q_off + row * q_row;
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) dg[c + 8 * i] = acc[i];
+}
+
+template <int D>
+__global__ void __launch_bounds__(kFThreads) flash_bwd_dkv_fma_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const int* __restrict__ seg, const float* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv, Dims dm,
+    float scale) {
+  constexpr int LD = D + 1;
+  extern __shared__ float smem_f32[];
+  float* ks = smem_f32;        // [kF][LD]
+  float* vs = ks + kF * LD;    // [kF][LD]
+  float* qs = vs + kF * LD;    // [kF][LD]
+  float* dos = qs + kF * LD;   // [kF][LD]
+  float* pp = dos + kF * LD;   // [kF][kF + 1] P^T
+  float* dd = pp + kF * (kF + 1);  // [kF][kF + 1] dS^T
+  float* qlse = dd + kF * (kF + 1);
+  float* qdel = qlse + kF;
+  int* qseg = reinterpret_cast<int*>(qdel + kF);
+
+  const int S = dm.S, G = dm.H / dm.KV;
+  const int bk = blockIdx.x % (dm.B * dm.KV);
+  const int b = bk / dm.KV, kvh = bk % dm.KV;
+  const int j0 = (int)(blockIdx.x / (dm.B * dm.KV)) * kF;
+  const long long q_row = (long long)dm.H * D, kv_row = (long long)dm.KV * D;
+  const long long kv_off = (long long)b * S * kv_row + (long long)kvh * D;
+  const int* sg = seg + (long long)b * S;
+  const int tid = threadIdx.x, r = tid >> 3, c = tid & 7;
+  const int key = j0 + r, skey = sg[key];
+
+  load_f32_rows<D>(ks, k + kv_off + j0 * kv_row, kv_row, tid);
+  load_f32_rows<D>(vs, v + kv_off + j0 * kv_row, kv_row, tid);
+  float dka[D / 8], dva[D / 8];
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) dka[i] = dva[i] = 0.f;
+  for (int gi = 0; gi < G; ++gi) {
+    const int h = kvh * G + gi;
+    const long long q_off = (long long)b * S * q_row + (long long)h * D;
+    const long long head_rows = ((long long)b * dm.H + h) * S;
+    for (int i0 = j0; i0 < S; i0 += kF) {
+      __syncthreads();
+      load_f32_rows<D>(qs, q + q_off + i0 * q_row, q_row, tid);
+      load_f32_rows<D>(dos, dout + q_off + i0 * q_row, q_row, tid);
+      for (int i = tid; i < kF; i += kFThreads) {
+        qseg[i] = sg[i0 + i];
+        qlse[i] = lse[head_rows + i0 + i];
+        qdel[i] = delta[head_rows + i0 + i];
+      }
+      __syncthreads();
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int i = c + 8 * u;
+        float p = 0.f, ds = 0.f;
+        if (key <= i0 + i && qseg[i] == skey) {
+          p = expf(dot_rows<D>(ks + r * LD, qs + i * LD) * scale - qlse[i]);
+          ds = p * (dot_rows<D>(vs + r * LD, dos + i * LD) - qdel[i]) * scale;
+        }
+        pp[r * (kF + 1) + i] = p;
+        dd[r * (kF + 1) + i] = ds;
+      }
+      __syncwarp();
+      for (int i = 0; i < kF; ++i) {
+        const float p = pp[r * (kF + 1) + i], ds = dd[r * (kF + 1) + i];
+#pragma unroll
+        for (int x = 0; x < D / 8; ++x) {
+          dva[x] = fmaf(p, dos[i * LD + c + 8 * x], dva[x]);
+          dka[x] = fmaf(ds, qs[i * LD + c + 8 * x], dka[x]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int x = 0; x < D / 8; ++x) {
+    dk[kv_off + key * kv_row + c + 8 * x] = dka[x];
+    dv[kv_off + key * kv_row + c + 8 * x] = dva[x];
+  }
+}
+
+// ---- launchers -----------------------------------------------------------
+
+// 1 / sqrt(D) rounded once to f32, as jaxlib's sm_scale = 1 / np.sqrt(D)
+float softmax_scale(int D) { return (float)(1.0 / sqrt((double)D)); }
+
+bool dims_ok(const Dims& dm, int D) {
+  return dm.B > 0 && dm.S > 0 && dm.H > 0 && dm.KV > 0 && dm.H % dm.KV == 0 &&
+         dm.S % kBQ == 0 && (D == 128 || D == 256);
+}
+
+// launch kernel<<<grid, threads, smem>>>(args...) after raising its shared
+// memory cap where it needs more than 48 KB
+template <typename... Params, typename... Args>
+int launch_one(void (*kernel)(Params...), int grid, int threads, size_t smem,
+               std::atomic<uint64_t>& raised, void* stream, Args... args) {
+  const cudaError_t err = allow_shared((const void*)kernel, smem, raised);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int fwd_bf16(const void* q, const void* k, const void* v, const void* seg, void* out, void* lse,
+             Dims dm, void* stream) {
+  static std::atomic<uint64_t> raised{0};
+  return launch_one(flash_fwd_mma_kernel<D>, dm.B * dm.H * (dm.S / kBQ), kThreads,
+                    fwd_shared_bytes<D>(), raised, stream, (const bf16*)q, (const bf16*)k,
+                    (const bf16*)v, (const int*)seg, (bf16*)out, (float*)lse, dm,
+                    softmax_scale(D));
+}
+
+template <int D>
+int fwd_f32(const void* q, const void* k, const void* v, const void* seg, void* out, void* lse,
+            Dims dm, void* stream) {
+  static std::atomic<uint64_t> raised{0};
+  return launch_one(flash_fwd_fma_kernel<D>, dm.B * dm.H * (dm.S / kF), kFThreads,
+                    fma_fwd_shared_bytes<D>(), raised, stream, (const float*)q, (const float*)k,
+                    (const float*)v, (const int*)seg, (float*)out, (float*)lse, dm,
+                    softmax_scale(D));
+}
+
+template <int D>
+int dq_bf16(const void* q, const void* k, const void* v, const void* seg, const void* out,
+            const void* dout, const void* lse, void* delta, void* dq, Dims dm, void* stream) {
+  static std::atomic<uint64_t> raised{0};
+  return launch_one(flash_bwd_dq_mma_kernel<D>, dm.B * dm.H * (dm.S / kBQ), kThreads,
+                    dq_shared_bytes<D>(), raised, stream, (const bf16*)q, (const bf16*)k,
+                    (const bf16*)v, (const int*)seg, (const bf16*)out, (const bf16*)dout,
+                    (const float*)lse, (float*)delta, (bf16*)dq, dm, softmax_scale(D));
+}
+
+template <int D>
+int dq_f32(const void* q, const void* k, const void* v, const void* seg, const void* out,
+           const void* dout, const void* lse, void* delta, void* dq, Dims dm, void* stream) {
+  static std::atomic<uint64_t> raised{0};
+  return launch_one(flash_bwd_dq_fma_kernel<D>, dm.B * dm.H * (dm.S / kF), kFThreads,
+                    fma_dq_shared_bytes<D>(), raised, stream, (const float*)q, (const float*)k,
+                    (const float*)v, (const int*)seg, (const float*)out, (const float*)dout,
+                    (const float*)lse, (float*)delta, (float*)dq, dm, softmax_scale(D));
+}
+
+template <int D>
+int dkv_bf16(const void* q, const void* k, const void* v, const void* seg, const void* dout,
+             const void* lse, const void* delta, void* dk, void* dv, Dims dm, void* stream) {
+  static std::atomic<uint64_t> raised{0};
+  return launch_one(flash_bwd_dkv_mma_kernel<D>, dm.B * dm.KV * (dm.S / kBKV),
+                    kThreads * (D / 128), dkv_shared_bytes<D>(), raised, stream,
+                    (const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)seg,
+                    (const bf16*)dout, (const float*)lse, (const float*)delta, (bf16*)dk,
+                    (bf16*)dv, dm, softmax_scale(D));
+}
+
+template <int D>
+int dkv_f32(const void* q, const void* k, const void* v, const void* seg, const void* dout,
+            const void* lse, const void* delta, void* dk, void* dv, Dims dm, void* stream) {
+  static std::atomic<uint64_t> raised{0};
+  return launch_one(flash_bwd_dkv_fma_kernel<D>, dm.B * dm.KV * (dm.S / kF), kFThreads,
+                    fma_dkv_shared_bytes<D>(), raised, stream, (const float*)q,
+                    (const float*)k, (const float*)v, (const int*)seg, (const float*)dout,
+                    (const float*)lse, (const float*)delta, (float*)dk, (float*)dv, dm,
+                    softmax_scale(D));
+}
+
+}  // namespace
+
+extern "C" {
+
+// q [B, S, H, D], k / v [B, S, KV, D], seg [B, S] int32 -> out [B, S, H * D],
+// lse [B, H, S] f32
+#define LLAMOLE_FLASH_FWD(suffix, impl)                                                     \
+  int llamole_flash_attention_fwd_##suffix(const void* q, const void* k, const void* v,    \
+                                           const void* seg, void* out, void* lse, int B,   \
+                                           int S, int H, int KV, int D, void* stream) {    \
+    const Dims dm{B, S, H, KV};                                                             \
+    if (!dims_ok(dm, D)) return (int)cudaErrorInvalidValue;                                 \
+    return D == 128 ? impl<128>(q, k, v, seg, out, lse, dm, stream)                         \
+                    : impl<256>(q, k, v, seg, out, lse, dm, stream);                        \
+  }
+
+// + out, dout [B, S, H * D] and lse -> delta [B, H, S] f32 (read by the dkv
+// kernel, launched after this one) and dq [B, S, H, D]
+#define LLAMOLE_FLASH_DQ(suffix, impl)                                                      \
+  int llamole_flash_attention_bwd_dq_##suffix(                                              \
+      const void* q, const void* k, const void* v, const void* seg, const void* out,        \
+      const void* dout, const void* lse, void* delta, void* dq, int B, int S, int H, int KV, \
+      int D, void* stream) {                                                                \
+    const Dims dm{B, S, H, KV};                                                             \
+    if (!dims_ok(dm, D)) return (int)cudaErrorInvalidValue;                                 \
+    return D == 128 ? impl<128>(q, k, v, seg, out, dout, lse, delta, dq, dm, stream)        \
+                    : impl<256>(q, k, v, seg, out, dout, lse, delta, dq, dm, stream);       \
+  }
+
+// + dout, lse and delta -> dk, dv [B, S, KV, D]
+#define LLAMOLE_FLASH_DKV(suffix, impl)                                                     \
+  int llamole_flash_attention_bwd_dkv_##suffix(                                             \
+      const void* q, const void* k, const void* v, const void* seg, const void* dout,       \
+      const void* lse, const void* delta, void* dk, void* dv, int B, int S, int H, int KV,  \
+      int D, void* stream) {                                                                \
+    const Dims dm{B, S, H, KV};                                                             \
+    if (!dims_ok(dm, D)) return (int)cudaErrorInvalidValue;                                 \
+    return D == 128 ? impl<128>(q, k, v, seg, dout, lse, delta, dk, dv, dm, stream)         \
+                    : impl<256>(q, k, v, seg, dout, lse, delta, dk, dv, dm, stream);        \
+  }
+
+LLAMOLE_FLASH_FWD(bf16, fwd_bf16)
+LLAMOLE_FLASH_FWD(f32, fwd_f32)
+LLAMOLE_FLASH_DQ(bf16, dq_bf16)
+LLAMOLE_FLASH_DQ(f32, dq_f32)
+LLAMOLE_FLASH_DKV(bf16, dkv_bf16)
+LLAMOLE_FLASH_DKV(f32, dkv_f32)
+
+}  // extern "C"

@@ -74,17 +74,13 @@
 // The wrappers (ops/fused_attention.py, ops/graph_attention.py) route a
 // call by attention_body(N, dh, dtype) and count each body's launches.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
 
-#include <atomic>
 #include <type_traits>
 
-namespace {
+#include "mma.cuh"
 
-using bf16 = __nv_bfloat16;
+namespace {
 
 constexpr int kThreads = 256;   // FMA body
 constexpr int kWarps = kThreads / 32;
@@ -93,7 +89,6 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kMmaThreads = 256;
 constexpr int kMmaMaxNodes = 64;
 constexpr float kNeg = -1e30f;
-constexpr size_t kDefaultShared = 48 * 1024;   // more needs an opt-in
 
 template <typename T> __device__ __forceinline__ float to_f32(T x);
 template <> __device__ __forceinline__ float to_f32<float>(float x) { return x; }
@@ -109,16 +104,6 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 
 template <typename T> __device__ __forceinline__ float round_to(float x) {
   return to_f32<T>(from_f32<T>(x));
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
 }
 
 // Block (b, h) reads row r of q at qs + b * in_graph + h * in_head +
@@ -221,62 +206,6 @@ __global__ void __launch_bounds__(kThreads) attention_fma_kernel(
 }
 
 // ---- the bf16 tensor-core body -----------------------------------------
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
-
-// four 8x8 bf16 matrices; lane l supplies the address of one row
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// d (16x8 f32) += a (16x16 bf16, row) * b (16x8 bf16, col)
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);  // .x = lo: the lower index
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
 
 // sum over aligned groups of kLanes lanes
 template <int kLanes>
@@ -757,27 +686,6 @@ __global__ void __launch_bounds__(kMmaThreads) attention_tf32x3_kernel(
 }
 
 // ---- launchers -----------------------------------------------------------
-
-// A launch that asks for more than 48 KB of dynamic shared memory needs the
-// kernel's cap raised first. cudaFuncSetAttribute cost about 0.01 ms of
-// host time a call, as much as the launch itself, so the cap is raised
-// once per device (bit d of `raised`) to the card's opt-in limit: each
-// launch still asks only for what its shape needs, and one past the limit
-// is refused at launch.
-cudaError_t allow_shared(const void* kernel, size_t smem, std::atomic<uint64_t>& raised) {
-  if (smem <= kDefaultShared) return cudaSuccess;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const uint64_t bit = dev < 64 ? uint64_t{1} << dev : 0;
-  if (raised.load(std::memory_order_relaxed) & bit) return cudaSuccess;
-  int limit = 0;
-  err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, limit);
-  if (err == cudaSuccess) raised.fetch_or(bit, std::memory_order_relaxed);
-  return err;
-}
 
 template <typename T, bool kQkNorm>
 int launch_fma(const T* q, const T* k, const T* v, const void* mask,

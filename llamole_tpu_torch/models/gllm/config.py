@@ -35,9 +35,11 @@ class LLMConfig:
     rope_original_max_position: int = 8192
     # recompute each decoder layer in the backward pass (training)
     remat: bool = False
-    # the JAX package's TPU flash kernel (ignored here) and S²-attn
-    # (shift_attn: training forwards attend within groups of
-    # int(S * group_size_ratio) tokens, model.s2_attention)
+    # use_flash: no-cache forwards on the card with S >= flash_min_seq,
+    # S % 128 == 0 and head_dim 128 or 256 run kernel E (model.flash_ok,
+    # ops/flash_attention.py), where the JAX package runs its TPU flash
+    # kernel; and S²-attn (shift_attn: training forwards attend within
+    # groups of int(S * group_size_ratio) tokens, model.s2_attention)
     use_flash: bool = False
     flash_min_seq: int = 1024
     shift_attn: bool = False

@@ -31,7 +31,13 @@ cache) of plain causal attention (no softcap, query scale or sliding
 window) whose length divides into groups of int(S * group_size_ratio) >=
 2 tokens runs LongLoRA's S²-attn (`s2_attention`); any other length
 falls back to full attention without a word, as in the JAX package
-(`s2_attention.calls` counts the S² calls).
+(`s2_attention.calls` counts the S² calls). With cfg.use_flash, any other
+no-cache forward of plain causal attention on a CUDA device with
+S >= cfg.flash_min_seq, S % 128 == 0 and head_dim 128 or 256
+(`flash_ok`, JAX's `_flash_ok` with its TPU clause read as CUDA) runs
+kernel E (ops/flash_attention.py) with the attention mask as segment ids,
+as JAX's route runs jaxlib's Pallas flash kernel: a pad query attends the
+pad keys before it, where the masked path attends only real keys.
 """
 
 import math
@@ -44,6 +50,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ...ops.flash_attention import flash_attention
 from .config import LLMConfig
 from .lora import LoRALinear, adapters_off, lora_targets
 from .quantize import empty_quantized_, projections
@@ -492,6 +499,24 @@ def moe_mlp(mlp: MoEMLP, x: torch.Tensor, cfg: LLMConfig, token_valid=None):
     return y.view(b, s, h), aux, dropped
 
 
+def plain_sdpa(cfg: LLMConfig) -> bool:
+    """Plain scaled-dot-product causal attention: no softcap, query scale
+    or sliding window (JAX decoder_layer's plain_sdpa, which S²-attn and
+    the flash route assume)."""
+    return (cfg.attn_logit_softcap is None and cfg.query_scale is None
+            and cfg.sliding_window is None)
+
+
+def flash_ok(cfg: LLMConfig, s: int, device) -> bool:
+    """A no-cache forward of length s takes the flash route (kernel E):
+    JAX's `_flash_ok` and plain_sdpa, with "the platform is a TPU" read
+    as "the tensors are on a CUDA device". The layer asks S²-attn first,
+    as JAX does."""
+    return (cfg.use_flash and torch.device(device).type == "cuda"
+            and s >= cfg.flash_min_seq and s % 128 == 0
+            and cfg.head_dim_ in (128, 256) and plain_sdpa(cfg))
+
+
 class DecoderLayer(nn.Module):
     def __init__(self, cfg: LLMConfig, dtype, device):
         super().__init__()
@@ -537,11 +562,8 @@ class DecoderLayer(nn.Module):
         (JAX decoder_layer's gate)."""
         cfg = self.cfg
         groupsz = int(s * cfg.group_size_ratio)
-        plain_sdpa = (cfg.attn_logit_softcap is None
-                      and self.attn_scale is None
-                      and cfg.sliding_window is None)
         if (cfg.shift_attn and train and not cached and groupsz >= 2
-                and s % groupsz == 0 and plain_sdpa):
+                and s % groupsz == 0 and plain_sdpa(cfg)):
             return groupsz
         return 0
 
@@ -571,6 +593,9 @@ class DecoderLayer(nn.Module):
             attn = s2_attention(q, k, v, attention_mask, group,
                                 0 if tp is None else tp.rank * q.shape[2],
                                 cfg.num_heads)
+        elif cache_entry is None and flash_ok(cfg, s, q.device):
+            # under tp, q / k / v hold this rank's heads (GQA's ratio kept)
+            attn = flash_attention(q, k, v, attention_mask)
         else:
             attn = attention(q, k, v, mask, self.attn_scale,
                              cfg.attn_logit_softcap)

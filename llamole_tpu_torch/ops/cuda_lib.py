@@ -25,8 +25,10 @@ import torch
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-# fused_attention.cu holds kernels A and D, gin_aggregate.cu B and C
-SOURCES = ("fused_attention.cu", "gin_aggregate.cu")
+# fused_attention.cu holds kernels A and D, gin_aggregate.cu B and C,
+# flash_attention.cu E; the headers they include are hashed with them
+SOURCES = ("fused_attention.cu", "gin_aggregate.cu", "flash_attention.cu")
+HEADERS = ("mma.cuh",)
 # -Xptxas -v makes ptxas report registers, shared memory and spills per
 # kernel; the report is kept in KernelLibrary.build_log
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -80,6 +82,15 @@ class KernelLibrary:
             # staged (the body), stream
             fn.argtypes = [ptr] * 7 + [i32] * 4 + [ptr]
             fn.restype = i32
+        for suffix in ("bf16", "f32"):
+            # fwd: q, k, v, seg, out, lse; bwd_dq: q, k, v, seg, out, dout,
+            # lse, delta, dq; bwd_dkv: q, k, v, seg, dout, lse, delta, dk,
+            # dv; then B, S, H, KV, D, stream
+            for name, ptrs in (("fwd", 6), ("bwd_dq", 9), ("bwd_dkv", 9)):
+                fn = getattr(self.cdll,
+                             f"llamole_flash_attention_{name}_{suffix}")
+                fn.argtypes = [ptr] * ptrs + [i32] * 5 + [ptr]
+                fn.restype = i32
         self.cdll.llamole_cuda_error_string.argtypes = [i32]
         self.cdll.llamole_cuda_error_string.restype = ctypes.c_char_p
 
@@ -112,7 +123,7 @@ def _run(cmd) -> str:
 def _build() -> KernelLibrary:
     srcs = [CSRC / s for s in SOURCES]
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
+    for s in (*srcs, *(CSRC / h for h in HEADERS)):
         digest.update(s.read_bytes())
     out = BUILD_DIR / f"libllamole_kernels_{digest.hexdigest()[:16]}.so"
     if out.exists():

@@ -10,6 +10,7 @@ which has no JAX, runs it without the suite's conftest:
 import pytest
 import torch
 
+from llamole_tpu_torch.ops import flash_attention as E
 from llamole_tpu_torch.ops.attention import masked_attention
 from llamole_tpu_torch.ops.fused_attention import (
     attention_body, fused_attention_reference, fused_block_attention)
@@ -536,3 +537,74 @@ def test_graph_attention_tf32x3_body_matches_plain(cuda, shape):
     ref = masked_attention(q, k, v, key_mask=mask)
     assert torch.isfinite(out).all()
     assert float((out - ref).abs().max()) < 2e-5
+
+
+def _flash_inputs(dev, dtype, b, s, h, kv, d, seed=17):
+    """Seeded q, k, v, dO and segment ids: row 0 left-padded, the last
+    row right-padded (a single row both)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(b, s, h, d, device=dev, generator=gen).to(dtype)
+    k, v = (torch.randn(b, s, kv, d, device=dev, generator=gen).to(dtype)
+            for _ in range(2))
+    dout = torch.randn(b, s, h * d, device=dev, generator=gen).to(dtype)
+    seg = torch.ones(b, s, dtype=torch.int32, device=dev)
+    seg[0, :11] = 0
+    seg[-1, s - 19:] = 0
+    return q, k, v, dout, seg
+
+
+def _flash_grads(fn, q, k, v, dout, seg):
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = fn(*leaves, seg)
+    out.backward(dout)
+    return out.detach(), [t.grad for t in leaves]
+
+
+@pytest.mark.parametrize("shape", [(2, 256, 4, 2, 128), (1, 128, 2, 1, 256)],
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("dtype,tol", [
+    (torch.float32, 1e-4),     # FMA bodies, f32 sums in another order
+    (torch.bfloat16, 2e-2),    # bf16 operands and outputs, ~4e-3 relative
+])
+def test_flash_attention_matches_plain(cuda, shape, dtype, tol):
+    """Kernel E's forward, dq and dkv kernels against
+    flash_attention_reference and its autograd at a padded GQA shape: the
+    output and dq / dk / dv (pad rows included), one launch of each."""
+    q, k, v, dout, seg = _flash_inputs(cuda, dtype, *shape)
+    E.reset_launches()
+    out, grads = _flash_grads(E.flash_attention, q, k, v, dout, seg)
+    torch.cuda.synchronize()
+    assert (E.flash_attention.launches_fwd, E.flash_attention.launches_dq,
+            E.flash_attention.launches_dkv) == (1, 1, 1)
+    ref, ref_grads = _flash_grads(E.flash_attention_reference, q, k, v,
+                                  dout, seg)
+    assert out.shape == ref.shape and out.dtype == dtype
+    for name, got, want in zip(("out", "dq", "dk", "dv"), (out, *grads),
+                               (ref, *ref_grads)):
+        assert torch.isfinite(got).all(), name
+        err = float((got.float() - want.float()).abs().max())
+        assert err < tol, (name, err)
+
+
+def test_flash_attention_backward_gives_the_same_bits(cuda):
+    """No float atomics: two backward runs give equal dq, dk, dv."""
+    q, k, v, dout, seg = _flash_inputs(cuda, torch.bfloat16, 1, 256, 8, 2,
+                                       128)
+    first = _flash_grads(E.flash_attention, q, k, v, dout, seg)[1]
+    second = _flash_grads(E.flash_attention, q, k, v, dout, seg)[1]
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_flash_attention_rejects_what_it_does_not_take(cuda):
+    q, k, v, _, seg = _flash_inputs(cuda, torch.float32, 1, 128, 4, 2, 128)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        E.flash_attention(q.half(), k.half(), v.half(), seg)
+    with pytest.raises(ValueError, match="head_dim"):
+        E.flash_attention(q[..., :64], k[..., :64], v[..., :64], seg)
+    with pytest.raises(ValueError, match="multiple of"):
+        E.flash_attention(q[:, :96], k[:, :96], v[:, :96], seg[:, :96])
+    with pytest.raises(ValueError, match="KV heads"):
+        E.flash_attention(q[:, :, :3], k, v, seg)
+    with pytest.raises(ValueError, match="segment_ids"):
+        E.flash_attention(q, k, v, seg.bool())

@@ -858,3 +858,137 @@ def test_mesh_inference_phase_runs_on_the_cpu(tmp_path, capsys):
     assert got["pipeline"]["leaf_max"] <= 5e-2
     assert "llm" not in dict(model.named_children())   # phase 18's copy freed
     assert not dist.is_initialized()
+
+
+def test_flash_phase_sizes():
+    """Phase 22 on the card: kernel E at the 8B's attention (32 query
+    heads, 8 KV heads of 128) at the training step's 2048 tokens and at
+    batch 2 x 1024, at head_dim 256 and in f32, padded on both sides;
+    f32 within 1e-4 (the script's TOL), bf16 rows within 2 x the plain
+    version's gap to the exact result plus a bf16 step; the steps at
+    [1, 2048] and [1, 4096]."""
+    from llamole_tpu_torch.models.gllm import LLMConfig
+    sizes = chip_smoke.PHASE22
+    cfg = LLMConfig.llama3_8b()
+    main = (1, 2048, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_)
+    assert sizes["main"] == main and main + ("bf16",) in sizes["checks"]
+    assert (2, 1024, 32, 8, 128, "bf16") in sizes["checks"]
+    assert {c[4] for c in sizes["checks"]} == {128, 256}
+    assert {c[5] for c in sizes["checks"]} == {"bf16", "f32"}
+    assert sizes["f32_atol"] == 1e-4 and sizes["bf16_gap"] == 2.0
+    assert (sizes["train_seq"], sizes["long_seq"]) == (2048, 4096)
+    assert sizes["left_pad"] > 0 and sizes["right_pad"] > 0
+
+
+def test_flash_bound_counts_the_causal_half_and_gqa_reads():
+    """flash_bound at (1, 2048, 32, 8, 128) bf16 with no padding: the
+    forward's two products over the causal half (~34.4 GFLOP) bind it at
+    ~35 us, and the backward's five are 2.5 times that; k and v are read
+    at their 8 KV heads."""
+    s = 2048
+    pairs = s * (s + 1) // 2
+    seg = torch.ones((1, s), dtype=torch.int32)
+    assert int(chip_smoke.flash_allowed(seg).sum()) == pairs
+    fwd = chip_smoke.flash_bound((1, s, 32, 8, 128), torch.bfloat16, pairs,
+                                 backward=False)
+    bwd = chip_smoke.flash_bound((1, s, 32, 8, 128), torch.bfloat16, pairs,
+                                 backward=True)
+    flops = 4 * 32 * 128 * pairs
+    assert abs(flops - 34.4e9) < 0.1e9
+    assert fwd[1] == bwd[1] == "operations"
+    assert fwd[0] == pytest.approx(flops / 989e12 * 1e3
+                                   + 6 * 32 * pairs / 67e12 * 1e3)
+    assert bwd[0] == pytest.approx(2.5 * flops / 989e12 * 1e3
+                                   + 6 * 32 * pairs / 67e12 * 1e3)
+    padded = seg.clone()
+    padded[0, -300:] = 0
+    assert int(chip_smoke.flash_allowed(padded).sum()) == (
+        pairs - 300 * (s - 300))
+
+
+def test_bf16_step_is_one_unit_in_the_last_place():
+    """bf16_step: 2^-7 at 1, 2^-5 (3.125e-2) in [4, 8), 2^-12 at 0.05:
+    adding it to a bf16 value gives the next bf16 value."""
+    x = torch.tensor([1.0, -1.5, 4.0, 7.9, 0.05, 3e-3])
+    step = chip_smoke.bf16_step(x)
+    assert step[:4].tolist() == [2 ** -7, 2 ** -7, 2 ** -5, 2 ** -5]
+    assert step[4] == 2 ** -12
+    b = x.abs().to(torch.bfloat16)
+    up = (b.float() + step).to(torch.bfloat16).float()
+    assert torch.equal(up - b.float(), step)
+
+
+def test_flash_gate_passes_the_plain_version_and_fails_a_late_fault():
+    """The bf16 check of phase 22 (a) (flash_gate, tile by tile) on the
+    CPU at the main shape's length, two query heads on one KV head,
+    padded: the plain version in bf16 held as the kernel passes it; the
+    same with dv zeroed on a late tile of 64 keys or with out off by 5%
+    on a late tile of 64 rows fails it, where the former limit, 2e-2 x
+    max(1, max |plain|), passes both. (The faults sit on real rows before
+    the right-padded tail, whose pad keys the pad queries attend with
+    large weights.)"""
+    from llamole_tpu_torch.ops.flash_attention import (
+        flash_attention_reference as ref)
+    sizes = chip_smoke.PHASE22
+    shape = (1, 2048, 2, 1, 128)
+    q, k, v, dout, seg = chip_smoke.flash_inputs(
+        shape, torch.bfloat16, {"left_pad": 9, "right_pad": 40}, "cpu")
+    out, grads = chip_smoke._flash_grads(ref, q, k, v, dout, seg)
+    plain = (out, *grads)
+    exact = chip_smoke._flash_grads(ref, *(t.float() for t in (q, k, v,
+                                                                dout)), seg)
+    exact = (exact[0], *exact[1])
+    gap = sizes["bf16_gap"]
+    for got, want, x in zip(plain, plain, exact):
+        assert chip_smoke.flash_gate(got, want, x, 128, gap) <= 0.5
+    tile = slice(shape[1] - 128, shape[1] - 64)
+    dv = plain[3].clone()
+    dv[:, tile] = 0
+    late = plain[0].clone()
+    late[:, tile] = (late[:, tile].float() * 1.05).to(torch.bfloat16)
+    for got, want, x in ((dv, plain[3], exact[3]),
+                         (late, plain[0], exact[0])):
+        assert chip_smoke.flash_gate(got, want, x, 128, gap) > 1.0
+        old = float((got.float() - want.float()).abs().max()) / max(
+            1.0, float(want.float().abs().max()))
+        assert old < 2e-2
+
+
+def test_flash_phase_runs_on_the_cpu(capsys, monkeypatch):
+    """Phase 22 (b) and (c) at a small width on the CPU, the route forced
+    on (the gate reads a CUDA device; here the plain version runs): the
+    causal-LM and GraphLM.loss flash steps' losses and LoRA gradients
+    held to the plain steps', no plain attention call in the flash
+    steps, the LLM's use_flash off again after."""
+    import llamole_tpu_torch.models.gllm.model as gllm
+    from llamole_tpu_torch.models.gllm import LLM, LLMConfig
+
+    gate = gllm.flash_ok
+    monkeypatch.setattr(gllm, "flash_ok",
+                        lambda cfg, s, device: gate(cfg, s, "cuda"))
+    cfg = LLMConfig(vocab_size=512, hidden_size=256, intermediate_size=256, num_layers=2,
+                    num_heads=2, num_kv_heads=1, head_dim=128,
+                    rope_theta=10000.0, rope_scaling=None,
+                    max_position_embeddings=4096, flash_min_seq=128)
+    llm = LLM(cfg, dtype=torch.bfloat16)
+    llm.reset_parameters(torch.Generator().manual_seed(0))
+    model, tok = _tiny_slice(llm)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        got = chip_smoke.run_flash(model, tok, "CPU", "cpu", {
+            **chip_smoke.PHASE22, "train_seq": 512, "long_seq": 1024})
+    finally:
+        torch.set_num_threads(threads)
+    out = capsys.readouterr().out
+    assert ("phase 22 (b) causal-LM loss + backward at [1, 512] (512 "
+            "real tokens)") in out
+    assert "phase 22 (b) GraphLM.loss + backward, a right-padded tail," in out
+    assert ("phase 22 (c) causal-LM loss + backward at [1, 1024] (1024 "
+            "real tokens)") in out
+    for pair in (got["train"], got["padded"]):
+        assert pair["plain"]["plain"] == cfg.num_layers
+        assert pair["flash"]["plain"] == 0
+        assert pair["grad_rel"] < chip_smoke.PHASE22["grad_rel"]
+    assert got["long"]["plain"] == 0
+    assert not model.llm.cfg.use_flash
