@@ -307,8 +307,9 @@
    runs bit-equal; at (1, 2048, 32, 8, 128) bf16 the call ms (CUDA
    events) of the forward and of forward + backward, each kernel's device
    ms from CUDA-graph replay of its launcher, the plain version's,
-   F.scaled_dot_product_attention's with the segment mask and, as a
-   floor, causal without segments, and the bound of each half
+   F.scaled_dot_product_attention's with the segment mask (call ms and,
+   from graph replay, device ms, the forward and the backward apart)
+   and, as a floor, causal without segments, and the bound of each half
    (flash_bound); (b) the LLM's causal-LM loss + backward through
    LLM.forward(train=True) on [1, 2048] seeded tokens, all real, with
    use_flash off and on, in turns: the losses within 5e-2 of the loss,
@@ -6022,9 +6023,11 @@ def check_flash(flash, reference, tag, sizes=None):
     CUDA-graph replay of its launcher (device time plus the gaps between
     launches, an upper bound), the plain version's,
     F.scaled_dot_product_attention's with the [B, 1, S, S] segment mask
-    (the one PyTorch call of the same function) and, as a floor, causal
-    with no segments on the same tensors; the bound of each half. Returns
-    the record of E's JSON entry."""
+    (the one PyTorch call of the same function; its call ms and, by the
+    same graph replay, its device ms, the backward as forward + backward
+    less the forward) and, as a floor, causal with no segments on the
+    same tensors; the bound of each half. Returns the record of E's JSON
+    entry."""
     import torch.nn.functional as F
     from llamole_tpu_torch.ops import flash_attention as E
     sizes = sizes or PHASE22
@@ -6088,8 +6091,10 @@ def check_flash(flash, reference, tag, sizes=None):
     b, s, h, kv, d = shape
     dout_t = dout.reshape(b, s, h, d).transpose(1, 2).contiguous()
     mask = flash_allowed(seg)[:, None]
-    rec["library_ms"] = rec["library_fwd_ms"] = None
-    rec["sdpa_causal_ms"] = rec["sdpa_causal_fwd_ms"] = None
+    for key in ("library_ms", "library_fwd_ms", "library_device_ms",
+                "library_fwd_device_ms", "sdpa_causal_ms",
+                "sdpa_causal_fwd_ms"):
+        rec[key] = None
     try:
         lib = timed_pair(lambda a, b, c: F.scaled_dot_product_attention(
             a, b, c, attn_mask=mask, enable_gqa=True), bhsd, dout_t)
@@ -6099,8 +6104,21 @@ def check_flash(flash, reference, tag, sizes=None):
             a, b, c, is_causal=True, enable_gqa=True), bhsd, dout_t)
         rec["sdpa_causal_ms"], rec["sdpa_causal_fwd_ms"] = (
             cuda_ms(floor[1]), cuda_ms(floor[0]))
-    except RuntimeError as exc:      # a yardstick only: the port never calls it
+    except RuntimeError as exc:  # a yardstick only: the port never calls it
         print(f"F.scaled_dot_product_attention not timed: {exc}", flush=True)
+    if rec["library_ms"] is not None:
+        try:  # its device time on E's terms: graph replay, halves apart
+            rec["library_fwd_device_ms"] = graph_ms(lib[0])
+            rec["library_device_ms"] = graph_ms(lib[1])
+        except RuntimeError as exc:
+            rec["library_fwd_device_ms"] = rec["library_device_ms"] = None
+            print(f"SDPA's graph capture failed, its device time not "
+                  f"measured: {exc}", flush=True)
+    diff = lambda a, b: None if a is None or b is None else a - b
+    rec["bwd_ms"] = rec["ms"] - rec["fwd_ms"]
+    rec["library_bwd_ms"] = diff(rec["library_ms"], rec["library_fwd_ms"])
+    rec["library_bwd_device_ms"] = diff(rec["library_device_ms"],
+                                        rec["library_fwd_device_ms"])
     pairs = int(flash_allowed(seg).sum())
     fwd_bound = flash_bound(shape, dt, pairs, backward=False)
     bwd_bound = flash_bound(shape, dt, pairs, backward=True)
@@ -6125,11 +6143,16 @@ def check_flash(flash, reference, tag, sizes=None):
           f"{rec['dq_device_ms']:.4f} + dkv {rec['dkv_device_ms']:.4f}), "
           f"bound {1e3 * bwd_bound[0]:.2f} us ({bwd_bound[1]}), share "
           f"{rec['bwd_share']:.4f}; forward + backward call "
-          f"{rec['ms']:.4f} ms; plain version {rec['plain_fwd_ms']:.4f} / "
-          f"{rec['plain_ms']:.4f} ms (forward / forward + backward); SDPA "
-          f"with the segment mask {fmt(rec['library_fwd_ms'])} / "
-          f"{fmt(rec['library_ms'])} ms, SDPA causal without segments (a "
-          f"floor) {fmt(rec['sdpa_causal_fwd_ms'])} / "
+          f"{rec['ms']:.4f} ms; backward call E {rec['bwd_ms']:.4f} ms, "
+          f"SDPA with the segment mask {fmt(rec['library_bwd_ms'])} ms; "
+          f"backward device E {rec['bwd_device_ms']:.4f} ms, SDPA "
+          f"{fmt(rec['library_bwd_device_ms'])} ms; plain version "
+          f"{rec['plain_fwd_ms']:.4f} / {rec['plain_ms']:.4f} ms (forward / "
+          f"forward + backward); SDPA with the segment mask call "
+          f"{fmt(rec['library_fwd_ms'])} / {fmt(rec['library_ms'])} ms, "
+          f"device {fmt(rec['library_fwd_device_ms'])} / "
+          f"{fmt(rec['library_device_ms'])} ms; SDPA causal without "
+          f"segments (a floor) {fmt(rec['sdpa_causal_fwd_ms'])} / "
           f"{fmt(rec['sdpa_causal_ms'])} ms [{tag}]", flush=True)
     return rec
 
@@ -6610,7 +6633,10 @@ def main() -> int:
                   "fwd_bound_ms",
                   "fwd_bound_by", "bwd_bound_ms", "bwd_bound_by",
                   "fwd_share", "bwd_share", "plain_fwd_ms",
-                  "library_fwd_ms", "sdpa_causal_ms", "sdpa_causal_fwd_ms",
+                  "library_fwd_ms", "bwd_ms", "library_bwd_ms",
+                  "library_device_ms", "library_fwd_device_ms",
+                  "library_bwd_device_ms", "sdpa_causal_ms",
+                  "sdpa_causal_fwd_ms",
                   "f32_max_abs_err", "pairs", "shape")},
               train_loss_gap=phase22["train"]["loss_gap"],
               train_grad_rel=phase22["train"]["grad_rel"],

@@ -23,8 +23,8 @@
 //
 // Bodies, one set per input type:
 //
-// * bf16 (the LLM's type), mma.sync m16n8k16 with f32 sums, as kernel A's
-//   attention_mma_kernel. The forward takes one 4-warp block per (b, head,
+// * bf16 (the LLM's type), f32 sums. The forward is mma.sync m16n8k16, as
+//   kernel A's attention_mma_kernel: it takes one 4-warp block per (b, head,
 //   64 query rows), the longest rows launched first; each warp owns 16
 //   rows. Key tiles (64 keys at D = 128, 32 at D = 256) stream through
 //   shared memory by cp.async (k and v as two groups, so the logits start
@@ -34,32 +34,48 @@
 //   fragments of P.V without touching shared memory. Key tiles wholly
 //   above the block's diagonal are never loaded; a warp skips the products
 //   of a tile wholly above its own rows.
-//   The backward is two kernels, as jaxlib's. flash_bwd_dq: one block per
-//   (b, head, 64 query rows); it first forms delta = rowsum(dO * O) of its
-//   rows (f32, written out for the other kernel) and then, per key tile up
-//   to the diagonal, recomputes P = exp(s - lse), dP = dO.V^T,
-//   dS = P * (dP - delta) * scale (rounded to bf16, as jaxlib casts ds to
-//   k's type) and dQ += dS.K. flash_bwd_dkv runs after it: one block per
-//   (b, KV head, 64 keys) loops over the G = H / KV query heads of its
-//   group and the 32-query tiles at or below the diagonal, recomputing P^T
-//   and dP^T with the keys as rows, and sums dV += P^T.dO and
-//   dK += dS^T.Q in registers. The group's heads are summed inside the
-//   block: GQA's dK and dV need no float atomics, and two runs give the
-//   same bits. Each warp holds 16 keys by 128 dims of dK and dV; at
-//   D = 256 eight warps split the dims in two and both halves recompute
-//   the block's P^T and dP^T.
+//   The backward is two kernels, as jaxlib's: dq first, which also forms
+//   delta = rowsum(dO * O) (f32, from the bf16 output) and writes it out,
+//   then dkv. Both recompute P = exp(s - lse) and dP = dO.V^T and round
+//   dS = P * (dP - delta) * scale to bf16 (jaxlib casts ds to k's type);
+//   dV takes P in dO's type. At D = 128 (the Llama, Qwen, Mistral and
+//   Mixtral families; gemma's is 256) both are warpgroup bodies (wgmma,
+//   wgmma.cuh), two warpgroups a block, tiles in the 128-byte swizzled
+//   layout through a 2-stage cp.async ring, nothing global read inside a
+//   step, exponentials on ex2.approx:
+//   - flash_bwd_dq_wgmma: one block per (b, head, 128 query rows), the
+//     longest first; delta by 16-byte loads of the rows' O and dO; per
+//     64-key step S = Q.K^T and dP = dO.V^T read both operands from shared
+//     memory, dQ += dS.K takes dS from registers and K transposed.
+//   - flash_bwd_dkv_wgmma: jaxlib's dkv grid, one block per (b, query
+//     head, 128 keys), the keys with the most queries first: 8x as many
+//     blocks of 1/G the work as a block per KV head, so no SM draws a
+//     group's whole diagonal. Per 64-query step S^T = K.Q^T and
+//     dP^T = V.dO^T from shared memory, dV += P^T.dO and dK += dS^T.Q from
+//     registers; each warpgroup keeps 64 keys x 128 dims of both in f32.
+//     With G = H / KV > 1 a block writes its head's f32 partials to a
+//     workspace [2, G, B, S, KV, D], and flash_group_sum adds the G
+//     partials in head order and casts once: no float atomics, and two
+//     runs give the same bits. With G = 1 the block writes bf16.
+//   At D = 256 the dK / dV registers of 128 keys do not fit, so the
+//   mma.sync bodies stay: flash_bwd_dq_mma (64 query rows a block, 32-key
+//   tiles) and flash_bwd_dkv_mma (one block per (b, KV head, 64 keys)
+//   looping over the group's heads and 32-query tiles, eight warps
+//   splitting the dims, the group summed in registers).
 // * f32, plain FMA loops (a correct body; the LLM never runs in f32 on the
 //   card's main path): 32-row tiles, eight threads a row, the same online
 //   softmax and the same three kernels.
 //
-// D is 128 or 256 and S a multiple of 64 (the route sends S % 128 == 0);
-// the wrapper (ops/flash_attention.py) refuses anything else, and so do
-// the launchers. More than 48 KB of shared memory is asked for through
+// D is 128 or 256 and S a multiple of 128 (the backward's 128-row and
+// 128-key blocks; the route sends S % 128 == 0); the wrapper
+// (ops/flash_attention.py) refuses anything else, and so do the
+// launchers. More than 48 KB of shared memory is asked for through
 // allow_shared, once per device.
 
 #include <math.h>
 
 #include "mma.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -70,6 +86,7 @@ constexpr int kBKV = 64;        // keys of a dkv block
 constexpr int kBQ2 = 32;        // queries a dkv step
 constexpr int kF = 32;          // rows and keys of an f32 tile
 constexpr int kFThreads = 256;  // 8 threads a row
+constexpr int kSeqMultiple = 128;  // the backward's 128-row / 128-key blocks
 
 struct Dims {
   int B, S, H, KV;
@@ -557,6 +574,383 @@ __global__ void __launch_bounds__(kThreads * (D / 128)) flash_bwd_dkv_mma_kernel
   }
 }
 
+// ---- the bf16 warpgroup bodies of the backward at D = 128 -----------------
+//
+// Two warpgroups a block (8 warps); every product is a wgmma on tiles in the
+// 128-byte swizzled layout of wgmma.cuh, which cp.async fills through a ring
+// of kStages stages: the copies of step i + 1 land while step i multiplies
+// (on an H100, 2 stages timed 0-3% faster than 3 at the 8B's shape). A step
+// waits for its own stage (per-stage cp.async groups), fences the
+// generic-proxy writes for wgmma's async proxy and synchronises the block
+// once; each warpgroup waits for its own products before that barrier comes
+// round again, so the stage it read is free to be refilled.
+
+constexpr int kWgThreads = 256;  // two warpgroups of 64 rows (or keys)
+constexpr int kDkvKeys = 128;    // keys a dkv block
+constexpr int kDkvRows = 64;     // queries a dkv step
+constexpr int kDqRows = 128;     // query rows a dq block
+constexpr int kDqKeys = 64;      // keys a dq step
+constexpr int kStages = 2;       // the copy ring's depth
+constexpr int kRowBytes = 128 * 2;  // one row of D = 128 bf16
+
+constexpr size_t round_1k(size_t x) { return (x + 1023) / 1024 * 1024; }
+
+// a dkv stage: Q and dO [64][128] swizzled, then the 64 queries' segment
+// ids, log-sum-exps and deltas
+constexpr size_t kDkvStageBytes = round_1k(2 * kDkvRows * kRowBytes + 3 * kDkvRows * 4);
+constexpr size_t kDkvSharedBytes = 1024 + 2 * kDkvKeys * kRowBytes + kStages * kDkvStageBytes;
+// a dq stage: K and V [64][128] swizzled, then the 64 keys' segment ids
+constexpr size_t kDqStageBytes = round_1k(2 * kDqKeys * kRowBytes + kDqKeys * 4);
+constexpr size_t kDqSharedBytes =
+    1024 + 2 * kDqRows * kRowBytes + kStages * kDqStageBytes + kDqRows * 4;
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x on the special-function unit (ex2.approx, ~2 ulp): the backward's
+// P = exp(s * scale - lse) is taken as 2^(s * scale log2 e - lse log2 e),
+// two instructions where expf takes about ten
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// the 1024-byte aligned start of dynamic shared memory (the swizzle's repeat)
+__device__ __forceinline__ char* align_1k(unsigned char* p) {
+  return reinterpret_cast<char*>(p) + ((1024 - (smem_addr(p) & 1023)) & 1023);
+}
+
+// A (64 rows) . B^T over D = 128 for one warpgroup: two K-major tiles, the
+// A rows starting at row0 of a tile of a_rows rows
+__device__ __forceinline__ void product_qk(float (&d)[32], const void* a, int a_rows, int row0,
+                                           const void* b, int b_rows) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+    wgmma_64x64_ss(d, desc_k_major(a, a_rows, row0, kk), desc_k_major(b, b_rows, 0, kk), kk);
+}
+
+// d += A (64 x 64, four k steps of register fragments) . B (64 x 128, an
+// MN-major tile of 64 depth rows)
+__device__ __forceinline__ void product_pv(float (&d)[64], const uint32_t (&a)[4][4],
+                                           const void* b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_64x128_rs(d, a[kk], desc_mn_major(b, 64, kk), 1);
+}
+
+// a 64 x 64 accumulator's registers as four 16-deep A fragments, in bf16
+__device__ __forceinline__ void to_a_fragments(uint32_t (&a)[4][4], const float (&x)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    a[kk][0] = pack_bf16(x[8 * kk], x[8 * kk + 1]);
+    a[kk][1] = pack_bf16(x[8 * kk + 2], x[8 * kk + 3]);
+    a[kk][2] = pack_bf16(x[8 * kk + 4], x[8 * kk + 5]);
+    a[kk][3] = pack_bf16(x[8 * kk + 6], x[8 * kk + 7]);
+  }
+}
+
+// dQ for 128 query rows of one head (the longest rows first); warpgroup w
+// owns rows 64 w..64 w + 63. Delta = rowsum(dO * O) of the rows comes first,
+// from 16-byte loads while the first copies land.
+__global__ void __launch_bounds__(kWgThreads, 1) flash_bwd_dq_wgmma_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const int* __restrict__ seg, const bf16* __restrict__ out, const bf16* __restrict__ dout,
+    const float* __restrict__ lse, float* __restrict__ delta, bf16* __restrict__ dq, Dims dm,
+    float scale) {
+  constexpr int D = 128;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  char* base = align_1k(smem_raw);
+  char* qs = base;                              // [128][D]
+  char* dos = qs + kDqRows * kRowBytes;         // [128][D]
+  char* stages = dos + kDqRows * kRowBytes;     // kStages x (K, V, key segments)
+  float* rowd = reinterpret_cast<float*>(stages + kStages * kDqStageBytes);
+
+  const QueryBlock blk = query_block(dm, kDqRows);
+  const int S = dm.S;
+  const long long q_row = (long long)dm.H * D, kv_row = (long long)dm.KV * D;
+  const int kvh = blk.h / (dm.H / dm.KV);
+  const long long q_off = (long long)blk.b * S * q_row + (long long)blk.h * D;
+  const bf16* kg = k + (long long)blk.b * S * kv_row + (long long)kvh * D;
+  const bf16* vg = v + (long long)blk.b * S * kv_row + (long long)kvh * D;
+  const int* sg = seg + (long long)blk.b * S;
+  const long long head_rows = ((long long)blk.b * dm.H + blk.h) * S;
+  const int tid = threadIdx.x, wg = tid >> 7, wr = (tid >> 5) & 3, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int nkt = (blk.q0 + kDqRows) / kDqKeys;  // key tiles at or left of the diagonal
+
+  auto load_stage = [&](int kt) {
+    char* st = stages + (kt % kStages) * kDqStageBytes;
+    const int j0 = kt * kDqKeys;
+    copy_tile_sw128<kDqKeys, D, kWgThreads>(st, kg + j0 * kv_row, kv_row, tid);
+    copy_tile_sw128<kDqKeys, D, kWgThreads>(st + kDqKeys * kRowBytes, vg + j0 * kv_row, kv_row,
+                                            tid);
+    if (tid < kDqKeys / 4) cp_async16(st + 2 * kDqKeys * kRowBytes + tid * 16, sg + j0 + tid * 4);
+  };
+  copy_tile_sw128<kDqRows, D, kWgThreads>(qs, q + q_off + blk.q0 * q_row, q_row, tid);
+  copy_tile_sw128<kDqRows, D, kWgThreads>(dos, dout + q_off + blk.q0 * q_row, q_row, tid);
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {  // Q and dO join the first group
+    if (s < nkt) load_stage(s);
+    cp_async_commit();
+  }
+  {  // delta, two threads a row
+    const int r = tid >> 1, half = tid & 1;
+    const long long at = q_off + (blk.q0 + r) * q_row + half * 64;
+    float acc = 0.f;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const uint4 o4 = *reinterpret_cast<const uint4*>(out + at + c * 8);
+      const uint4 d4 = *reinterpret_cast<const uint4*>(dout + at + c * 8);
+      const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&o4);
+      const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&d4);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 of = __bfloat1622float2(o2[e]), df = __bfloat1622float2(d2[e]);
+        acc += of.x * df.x;
+        acc += of.y * df.y;
+      }
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    if (!half) {
+      rowd[r] = acc;
+      delta[head_rows + blk.q0 + r] = acc;
+    }
+  }
+
+  const int lr0 = wg * 64 + wr * 16 + g;  // this thread's rows in the block
+  const int r0 = blk.q0 + lr0, r1 = r0 + 8;
+  const int seg0 = sg[r0], seg1 = sg[r1];
+  const float M0 = lse[head_rows + r0] * kLog2e, M1 = lse[head_rows + r1] * kLog2e;
+  const float scale2 = scale * kLog2e;
+  const int wg_last = blk.q0 + wg * 64 + 63;
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+
+  for (int kt = 0; kt < nkt; ++kt) {
+    cp_async_wait<kStages - 2>();  // this step's stage has landed
+    fence_async_shared();
+    __syncthreads();
+    if (kt + kStages - 1 < nkt) load_stage(kt + kStages - 1);  // into the stage step kt - 1 read
+    cp_async_commit();
+    const int j0 = kt * kDqKeys;
+    if (j0 > wg_last) continue;  // warpgroup-uniform: every key is above its rows
+    const char* ks = stages + (kt % kStages) * kDqStageBytes;
+    const char* vs = ks + kDqKeys * kRowBytes;
+    const int* kseg = reinterpret_cast<const int*>(vs + kDqKeys * kRowBytes);
+    float s[32], dp[32];
+    wgmma_fence();
+    product_qk(s, qs, kDqRows, wg * 64, ks, kDqKeys);     // S = Q.K^T
+    product_qk(dp, dos, kDqRows, wg * 64, vs, kDqKeys);   // dP = dO.V^T
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+    const float d0 = rowd[lr0], d1 = rowd[lr0 + 8];
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const int jj = nt * 8 + 2 * t4;
+      const int ja = j0 + jj;
+      const int sa = kseg[jj], sb = kseg[jj + 1];
+      const float p0 = (ja <= r0 && sa == seg0) ? exp2_approx(fmaf(s[4 * nt], scale2, -M0)) : 0.f;
+      const float p1 =
+          (ja + 1 <= r0 && sb == seg0) ? exp2_approx(fmaf(s[4 * nt + 1], scale2, -M0)) : 0.f;
+      const float p2 =
+          (ja <= r1 && sa == seg1) ? exp2_approx(fmaf(s[4 * nt + 2], scale2, -M1)) : 0.f;
+      const float p3 =
+          (ja + 1 <= r1 && sb == seg1) ? exp2_approx(fmaf(s[4 * nt + 3], scale2, -M1)) : 0.f;
+      s[4 * nt] = p0 * (dp[4 * nt] - d0) * scale;
+      s[4 * nt + 1] = p1 * (dp[4 * nt + 1] - d0) * scale;
+      s[4 * nt + 2] = p2 * (dp[4 * nt + 2] - d1) * scale;
+      s[4 * nt + 3] = p3 * (dp[4 * nt + 3] - d1) * scale;
+    }
+    uint32_t dsa[4][4];
+    to_a_fragments(dsa, s);  // dS in bf16, as jaxlib casts ds to k's type
+    wgmma_fence();
+    product_pv(acc, dsa, ks);  // dQ += dS.K
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+  }
+  bf16* dg = dq + q_off;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int d = i * 8 + 2 * t4;
+    *reinterpret_cast<__nv_bfloat162*>(dg + r0 * q_row + d) =
+        __floats2bfloat162_rn(acc[4 * i], acc[4 * i + 1]);
+    *reinterpret_cast<__nv_bfloat162*>(dg + r1 * q_row + d) =
+        __floats2bfloat162_rn(acc[4 * i + 2], acc[4 * i + 3]);
+  }
+}
+
+// dK and dV of 128 keys for ONE query head h (jaxlib's dkv grid, which runs
+// per head on the repeated k / v): B * H * S / 128 blocks, the keys with the
+// most queries first; warpgroup w owns keys 64 w..64 w + 63. With G = H / KV
+// = 1 the block writes bf16 dK and dV; otherwise its f32 partials go to
+// head h % G's slice of the workspace [2][G][B][S][KV][D], and
+// flash_group_sum_kernel adds the G slices in head order and casts once.
+__global__ void __launch_bounds__(kWgThreads, 1) flash_bwd_dkv_wgmma_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const int* __restrict__ seg, const bf16* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv,
+    float* __restrict__ work, Dims dm, float scale) {
+  constexpr int D = 128;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  char* base = align_1k(smem_raw);
+  char* ks = base;                              // [128][D]
+  char* vs = ks + kDkvKeys * kRowBytes;         // [128][D]
+  char* stages = vs + kDkvKeys * kRowBytes;     // kStages x (Q, dO, seg, lse, delta)
+
+  const int S = dm.S, G = dm.H / dm.KV;
+  const int bh = blockIdx.x % (dm.B * dm.H);
+  const int b = bh / dm.H, h = bh % dm.H, kvh = h / G;
+  const int j0 = (int)(blockIdx.x / (dm.B * dm.H)) * kDkvKeys;  // the most queries first
+  const long long q_row = (long long)dm.H * D, kv_row = (long long)dm.KV * D;
+  const long long kv_off = (long long)b * S * kv_row + (long long)kvh * D;
+  const long long q_off = (long long)b * S * q_row + (long long)h * D;
+  const long long head_rows = ((long long)b * dm.H + h) * S;
+  const int* sg = seg + (long long)b * S;
+  const int tid = threadIdx.x, wg = tid >> 7, wr = (tid >> 5) & 3, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int nsteps = (S - j0) / kDkvRows;  // query tiles at or below the diagonal
+
+  auto load_stage = [&](int it) {
+    char* st = stages + (it % kStages) * kDkvStageBytes;
+    const int i0 = j0 + it * kDkvRows;
+    copy_tile_sw128<kDkvRows, D, kWgThreads>(st, q + q_off + i0 * q_row, q_row, tid);
+    copy_tile_sw128<kDkvRows, D, kWgThreads>(st + kDkvRows * kRowBytes,
+                                             dout + q_off + i0 * q_row, q_row, tid);
+    if (tid < 3 * kDkvRows / 4) {  // 16 chunks each of seg, lse and delta
+      const int which = tid / (kDkvRows / 4), c = tid % (kDkvRows / 4);
+      const void* src = which == 0   ? static_cast<const void*>(sg + i0 + c * 4)
+                        : which == 1 ? static_cast<const void*>(lse + head_rows + i0 + c * 4)
+                                     : static_cast<const void*>(delta + head_rows + i0 + c * 4);
+      cp_async16(st + 2 * kDkvRows * kRowBytes + which * kDkvRows * 4 + c * 16, src);
+    }
+  };
+  copy_tile_sw128<kDkvKeys, D, kWgThreads>(ks, k + kv_off + j0 * kv_row, kv_row, tid);
+  copy_tile_sw128<kDkvKeys, D, kWgThreads>(vs, v + kv_off + j0 * kv_row, kv_row, tid);
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {  // K and V join the first group
+    if (s < nsteps) load_stage(s);
+    cp_async_commit();
+  }
+
+  const int jr0 = j0 + wg * 64 + wr * 16 + g, jr1 = jr0 + 8;  // this thread's keys
+  const int sj0 = sg[jr0], sj1 = sg[jr1];
+  const float scale2 = scale * kLog2e;
+  const int wg_first = j0 + wg * 64;
+  float dka[64], dva[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) dka[i] = dva[i] = 0.f;
+
+  for (int it = 0; it < nsteps; ++it) {
+    cp_async_wait<kStages - 2>();  // this step's stage has landed
+    fence_async_shared();
+    __syncthreads();
+    if (it + kStages - 1 < nsteps) load_stage(it + kStages - 1);  // into the stage step it - 1 read
+    cp_async_commit();
+    const int i0 = j0 + it * kDkvRows;
+    if (i0 + kDkvRows - 1 < wg_first) continue;  // warpgroup-uniform: every query precedes its keys
+    const char* qs = stages + (it % kStages) * kDkvStageBytes;
+    const char* dos = qs + kDkvRows * kRowBytes;
+    const int* qseg = reinterpret_cast<const int*>(dos + kDkvRows * kRowBytes);
+    const float* qlse = reinterpret_cast<const float*>(qseg + kDkvRows);
+    const float* qdel = qlse + kDkvRows;
+    float s[32], dp[32];
+    wgmma_fence();
+    product_qk(s, ks, kDkvKeys, wg * 64, qs, kDkvRows);   // S^T = K.Q^T
+    product_qk(dp, vs, kDkvKeys, wg * 64, dos, kDkvRows);  // dP^T = V.dO^T
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+    // [4 nt], [4 nt + 1]: key jr0, queries i0 + ic and + 1; [+ 2], [+ 3]: key jr1
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const int ic = nt * 8 + 2 * t4;
+      const int ia = i0 + ic;
+      const int sa = qseg[ic], sb = qseg[ic + 1];
+      const float Ma = qlse[ic] * kLog2e, Mb = qlse[ic + 1] * kLog2e;
+      const float Da = qdel[ic], Db = qdel[ic + 1];
+      const float p0 = (jr0 <= ia && sj0 == sa) ? exp2_approx(fmaf(s[4 * nt], scale2, -Ma)) : 0.f;
+      const float p1 =
+          (jr0 <= ia + 1 && sj0 == sb) ? exp2_approx(fmaf(s[4 * nt + 1], scale2, -Mb)) : 0.f;
+      const float p2 =
+          (jr1 <= ia && sj1 == sa) ? exp2_approx(fmaf(s[4 * nt + 2], scale2, -Ma)) : 0.f;
+      const float p3 =
+          (jr1 <= ia + 1 && sj1 == sb) ? exp2_approx(fmaf(s[4 * nt + 3], scale2, -Mb)) : 0.f;
+      s[4 * nt] = p0;
+      s[4 * nt + 1] = p1;
+      s[4 * nt + 2] = p2;
+      s[4 * nt + 3] = p3;
+      dp[4 * nt] = p0 * (dp[4 * nt] - Da) * scale;
+      dp[4 * nt + 1] = p1 * (dp[4 * nt + 1] - Db) * scale;
+      dp[4 * nt + 2] = p2 * (dp[4 * nt + 2] - Da) * scale;
+      dp[4 * nt + 3] = p3 * (dp[4 * nt + 3] - Db) * scale;
+    }
+    uint32_t pa[4][4], dsa[4][4];
+    to_a_fragments(pa, s);    // P^T in dO's type
+    to_a_fragments(dsa, dp);  // dS^T in q's type
+    wgmma_fence();
+    product_pv(dva, pa, dos);  // dV += P^T.dO
+    product_pv(dka, dsa, qs);  // dK += dS^T.Q
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dva);
+    fence_regs(dka);
+  }
+  if (G == 1) {
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int d = i * 8 + 2 * t4;
+      *reinterpret_cast<__nv_bfloat162*>(dk + kv_off + jr0 * kv_row + d) =
+          __floats2bfloat162_rn(dka[4 * i], dka[4 * i + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dk + kv_off + jr1 * kv_row + d) =
+          __floats2bfloat162_rn(dka[4 * i + 2], dka[4 * i + 3]);
+      *reinterpret_cast<__nv_bfloat162*>(dv + kv_off + jr0 * kv_row + d) =
+          __floats2bfloat162_rn(dva[4 * i], dva[4 * i + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dv + kv_off + jr1 * kv_row + d) =
+          __floats2bfloat162_rn(dva[4 * i + 2], dva[4 * i + 3]);
+    }
+    return;
+  }
+  const long long part = (long long)dm.B * S * kv_row;  // one slice of the workspace
+  float* wk = work + (h % G) * part + kv_off;
+  float* wv = work + (G + h % G) * part + kv_off;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int d = i * 8 + 2 * t4;
+    *reinterpret_cast<float2*>(wk + jr0 * kv_row + d) = make_float2(dka[4 * i], dka[4 * i + 1]);
+    *reinterpret_cast<float2*>(wk + jr1 * kv_row + d) =
+        make_float2(dka[4 * i + 2], dka[4 * i + 3]);
+    *reinterpret_cast<float2*>(wv + jr0 * kv_row + d) = make_float2(dva[4 * i], dva[4 * i + 1]);
+    *reinterpret_cast<float2*>(wv + jr1 * kv_row + d) =
+        make_float2(dva[4 * i + 2], dva[4 * i + 3]);
+  }
+}
+
+// dK (blockIdx.y 0) or dV (1) = the sum of the workspace's G slices of n
+// elements, in head order in f32, cast once to bf16; four elements a thread
+__global__ void __launch_bounds__(256) flash_group_sum_kernel(const float* __restrict__ work,
+                                                              bf16* __restrict__ dk,
+                                                              bf16* __restrict__ dv,
+                                                              long long n, int G) {
+  const long long i = ((long long)blockIdx.x * 256 + threadIdx.x) * 4;
+  if (i >= n) return;
+  const float* src = work + (long long)blockIdx.y * G * n + i;
+  float4 acc = *reinterpret_cast<const float4*>(src);
+  for (int gi = 1; gi < G; ++gi) {
+    const float4 x = *reinterpret_cast<const float4*>(src + gi * n);
+    acc.x += x.x;
+    acc.y += x.y;
+    acc.z += x.z;
+    acc.w += x.w;
+  }
+  bf16* dst = (blockIdx.y ? dv : dk) + i;
+  reinterpret_cast<__nv_bfloat162*>(dst)[0] = __floats2bfloat162_rn(acc.x, acc.y);
+  reinterpret_cast<__nv_bfloat162*>(dst)[1] = __floats2bfloat162_rn(acc.z, acc.w);
+}
+
 // ---- the f32 FMA bodies ----------------------------------------------------
 
 // Thread (r, c) = (tid / 8, tid % 8) owns row r of a 32-row tile, its
@@ -832,7 +1226,7 @@ float softmax_scale(int D) { return (float)(1.0 / sqrt((double)D)); }
 
 bool dims_ok(const Dims& dm, int D) {
   return dm.B > 0 && dm.S > 0 && dm.H > 0 && dm.KV > 0 && dm.H % dm.KV == 0 &&
-         dm.S % kBQ == 0 && (D == 128 || D == 256);
+         dm.S % kSeqMultiple == 0 && (D == 128 || D == 256);
 }
 
 // launch kernel<<<grid, threads, smem>>>(args...) after raising its shared
@@ -870,10 +1264,17 @@ template <int D>
 int dq_bf16(const void* q, const void* k, const void* v, const void* seg, const void* out,
             const void* dout, const void* lse, void* delta, void* dq, Dims dm, void* stream) {
   static std::atomic<uint64_t> raised{0};
-  return launch_one(flash_bwd_dq_mma_kernel<D>, dm.B * dm.H * (dm.S / kBQ), kThreads,
-                    dq_shared_bytes<D>(), raised, stream, (const bf16*)q, (const bf16*)k,
-                    (const bf16*)v, (const int*)seg, (const bf16*)out, (const bf16*)dout,
-                    (const float*)lse, (float*)delta, (bf16*)dq, dm, softmax_scale(D));
+  if constexpr (D == 128) {
+    return launch_one(flash_bwd_dq_wgmma_kernel, dm.B * dm.H * (dm.S / kDqRows), kWgThreads,
+                      kDqSharedBytes, raised, stream, (const bf16*)q, (const bf16*)k,
+                      (const bf16*)v, (const int*)seg, (const bf16*)out, (const bf16*)dout,
+                      (const float*)lse, (float*)delta, (bf16*)dq, dm, softmax_scale(D));
+  } else {
+    return launch_one(flash_bwd_dq_mma_kernel<D>, dm.B * dm.H * (dm.S / kBQ), kThreads,
+                      dq_shared_bytes<D>(), raised, stream, (const bf16*)q, (const bf16*)k,
+                      (const bf16*)v, (const int*)seg, (const bf16*)out, (const bf16*)dout,
+                      (const float*)lse, (float*)delta, (bf16*)dq, dm, softmax_scale(D));
+  }
 }
 
 template <int D>
@@ -888,18 +1289,35 @@ int dq_f32(const void* q, const void* k, const void* v, const void* seg, const v
 
 template <int D>
 int dkv_bf16(const void* q, const void* k, const void* v, const void* seg, const void* dout,
-             const void* lse, const void* delta, void* dk, void* dv, Dims dm, void* stream) {
+             const void* lse, const void* delta, void* dk, void* dv, void* work, Dims dm,
+             void* stream) {
   static std::atomic<uint64_t> raised{0};
-  return launch_one(flash_bwd_dkv_mma_kernel<D>, dm.B * dm.KV * (dm.S / kBKV),
-                    kThreads * (D / 128), dkv_shared_bytes<D>(), raised, stream,
-                    (const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)seg,
-                    (const bf16*)dout, (const float*)lse, (const float*)delta, (bf16*)dk,
-                    (bf16*)dv, dm, softmax_scale(D));
+  if constexpr (D != 128) {
+    return launch_one(flash_bwd_dkv_mma_kernel<D>, dm.B * dm.KV * (dm.S / kBKV),
+                      kThreads * (D / 128), dkv_shared_bytes<D>(), raised, stream,
+                      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)seg,
+                      (const bf16*)dout, (const float*)lse, (const float*)delta, (bf16*)dk,
+                      (bf16*)dv, dm, softmax_scale(D));
+  }
+  const int G = dm.H / dm.KV;
+  if (G > 1 && work == nullptr) return (int)cudaErrorInvalidValue;
+  const int err = launch_one(flash_bwd_dkv_wgmma_kernel, dm.B * dm.H * (dm.S / kDkvKeys),
+                             kWgThreads, kDkvSharedBytes, raised, stream, (const bf16*)q,
+                             (const bf16*)k, (const bf16*)v, (const int*)seg, (const bf16*)dout,
+                             (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv,
+                             (float*)work, dm, softmax_scale(D));
+  if (err != 0 || G == 1) return err;
+  const long long n = (long long)dm.B * dm.S * dm.KV * D;
+  flash_group_sum_kernel<<<dim3((unsigned)((n / 4 + 255) / 256), 2), 256, 0,
+                           (cudaStream_t)stream>>>((const float*)work, (bf16*)dk, (bf16*)dv, n,
+                                                   G);
+  return (int)cudaGetLastError();
 }
 
 template <int D>
 int dkv_f32(const void* q, const void* k, const void* v, const void* seg, const void* dout,
-            const void* lse, const void* delta, void* dk, void* dv, Dims dm, void* stream) {
+            const void* lse, const void* delta, void* dk, void* dv, void*, Dims dm,
+            void* stream) {
   static std::atomic<uint64_t> raised{0};
   return launch_one(flash_bwd_dkv_fma_kernel<D>, dm.B * dm.KV * (dm.S / kF), kFThreads,
                     fma_dkv_shared_bytes<D>(), raised, stream, (const float*)q,
@@ -937,16 +1355,18 @@ extern "C" {
                     : impl<256>(q, k, v, seg, out, dout, lse, delta, dq, dm, stream);       \
   }
 
-// + dout, lse and delta -> dk, dv [B, S, KV, D]
+// + dout, lse and delta -> dk, dv [B, S, KV, D]; work: the f32 workspace
+// [2, H / KV, B, S, KV, D] of the bf16 body at D = 128 with H > KV, else
+// unused (may be null)
 #define LLAMOLE_FLASH_DKV(suffix, impl)                                                     \
   int llamole_flash_attention_bwd_dkv_##suffix(                                             \
       const void* q, const void* k, const void* v, const void* seg, const void* dout,       \
-      const void* lse, const void* delta, void* dk, void* dv, int B, int S, int H, int KV,  \
-      int D, void* stream) {                                                                \
+      const void* lse, const void* delta, void* dk, void* dv, void* work, int B, int S,     \
+      int H, int KV, int D, void* stream) {                                                 \
     const Dims dm{B, S, H, KV};                                                             \
     if (!dims_ok(dm, D)) return (int)cudaErrorInvalidValue;                                 \
-    return D == 128 ? impl<128>(q, k, v, seg, dout, lse, delta, dk, dv, dm, stream)         \
-                    : impl<256>(q, k, v, seg, dout, lse, delta, dk, dv, dm, stream);        \
+    return D == 128 ? impl<128>(q, k, v, seg, dout, lse, delta, dk, dv, work, dm, stream)   \
+                    : impl<256>(q, k, v, seg, dout, lse, delta, dk, dv, work, dm, stream);  \
   }
 
 LLAMOLE_FLASH_FWD(bf16, fwd_bf16)

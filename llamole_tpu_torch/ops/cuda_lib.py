@@ -28,7 +28,7 @@ BUILD_DIR = _PKG / "_build"
 # fused_attention.cu holds kernels A and D, gin_aggregate.cu B and C,
 # flash_attention.cu E; the headers they include are hashed with them
 SOURCES = ("fused_attention.cu", "gin_aggregate.cu", "flash_attention.cu")
-HEADERS = ("mma.cuh",)
+HEADERS = ("mma.cuh", "wgmma.cuh")
 # -Xptxas -v makes ptxas report registers, shared memory and spills per
 # kernel; the report is kept in KernelLibrary.build_log
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -85,8 +85,8 @@ class KernelLibrary:
         for suffix in ("bf16", "f32"):
             # fwd: q, k, v, seg, out, lse; bwd_dq: q, k, v, seg, out, dout,
             # lse, delta, dq; bwd_dkv: q, k, v, seg, dout, lse, delta, dk,
-            # dv; then B, S, H, KV, D, stream
-            for name, ptrs in (("fwd", 6), ("bwd_dq", 9), ("bwd_dkv", 9)):
+            # dv, work; then B, S, H, KV, D, stream
+            for name, ptrs in (("fwd", 6), ("bwd_dq", 9), ("bwd_dkv", 10)):
                 fn = getattr(self.cdll,
                              f"llamole_flash_attention_{name}_{suffix}")
                 fn.argtypes = [ptr] * ptrs + [i32] * 5 + [ptr]

@@ -17,8 +17,10 @@ log-sum-exp [B, H, S]) and, in the backward of its autograd Function, the
 dq kernel (which also forms delta = rowsum(dO * O)) and then the dkv
 kernel, the counterparts of jaxlib's `_flash_attention_impl`,
 `_flash_attention_bwd_dq` and `_flash_attention_bwd_dkv`. It takes bf16
-(mma.sync bodies) and f32 (FMA bodies), D in HEAD_DIMS and S a multiple
-of SEQ_MULTIPLE. The wrapper counts each kernel's launches
+(an mma.sync forward; at D = 128 warpgroup (wgmma) dq and dkv bodies, the
+dkv kernel per query head with its f32 partials summed over the GQA group
+in `dkv_workspace`; mma.sync ones at D = 256) and f32 (FMA bodies), D in
+HEAD_DIMS and S a multiple of SEQ_MULTIPLE. The wrapper counts each kernel's launches
 (`launches_fwd`, `launches_dq`, `launches_dkv`; `launches` is their
 sum). On a CPU tensor it runs `flash_attention_reference`, the plain
 PyTorch version of the same function with jaxlib's rounding points in
@@ -36,7 +38,7 @@ from .cuda_lib import launch
 # jaxlib's DEFAULT_MASK_VALUE
 MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 HEAD_DIMS = (128, 256)
-SEQ_MULTIPLE = 64
+SEQ_MULTIPLE = 128
 COUNTS = ("launches", "launches_fwd", "launches_dq", "launches_dkv")
 
 
@@ -143,15 +145,28 @@ def flash_backward_dq(q, k, v, seg, out, dout, lse):
     return dq, delta
 
 
+def dkv_workspace(dtype, b, s, h, kv, d, device):
+    """The f32 workspace [2, G, B, S, KV, D] (G = H / KV) in which the bf16
+    dkv body at D = 128 keeps each query head's dK and dV before it sums
+    them over the group in head order; None where no body needs one."""
+    g = h // kv
+    if dtype != torch.bfloat16 or d != 128 or g == 1:
+        return None
+    return torch.empty((2, g, b, s, kv, d), dtype=torch.float32,
+                       device=device)
+
+
 def flash_backward_dkv(q, k, v, seg, dout, lse, delta):
     """The dkv kernel's launch on the dq kernel's delta: (dk, dv)."""
     b, s, h, kv, d = _dims(q, k)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
+    work = dkv_workspace(q.dtype, b, s, h, kv, d, q.device)
     launch(_entry("bwd_dkv", q.dtype), q.device, "flash_attention dkv",
            q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-           dk.data_ptr(), dv.data_ptr(), b, s, h, kv, d)
+           dk.data_ptr(), dv.data_ptr(),
+           0 if work is None else work.data_ptr(), b, s, h, kv, d)
     _count("launches_dkv")
     return dk, dv
 

@@ -1,0 +1,54 @@
+"""Time kernel E's two backward kernels on the card, one JSON line.
+
+Graph-replay device ms (chip_smoke.graph_ms) of `flash_backward_dq` and
+`flash_backward_dkv` at phase 22's main shape, (1, 2048, 32, 8, 128) bf16
+with its padding (chip_smoke.PHASE22, flash_inputs), and of the two
+together, with the card's name and power limit. It imports only the tree
+it runs in, so the same file copied into an unpacked older tree times that
+tree's kernels; run trees in turns (old, new, new, old) in one call to
+compare them on one card:
+
+    python3 scripts/time_flash_backward.py [--label NAME] [--repeats N]
+"""
+
+import argparse
+import json
+import os
+import sys
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import torch  # noqa: E402
+
+import chip_smoke as s  # noqa: E402
+from llamole_tpu_torch.ops import cuda_lib  # noqa: E402
+from llamole_tpu_torch.ops import flash_attention as E  # noqa: E402
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--label", default=os.getcwd())
+    parser.add_argument("--repeats", type=int, default=3)
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA card")
+    cuda_lib.library()
+    shape = s.PHASE22["main"]
+    q, k, v, dout, seg = s.flash_inputs(shape, torch.bfloat16, s.PHASE22)
+    out, lse = E.flash_forward(q, k, v, seg)
+    _, delta = E.flash_backward_dq(q, k, v, seg, out, dout, lse)
+    times = {"dq": [], "dkv": [], "backward": []}
+    for _ in range(args.repeats):
+        times["dq"].append(s.graph_ms(lambda: E.flash_backward_dq(
+            q, k, v, seg, out, dout, lse)))
+        times["dkv"].append(s.graph_ms(lambda: E.flash_backward_dkv(
+            q, k, v, seg, dout, lse, delta)))
+        times["backward"].append(s.graph_ms(lambda: E.flash_backward(
+            q, k, v, seg, out, dout, lse)))
+    print(json.dumps({"label": args.label, "shape": list(shape),
+                      "device_ms": times, "card": s.card_tag()}),
+          flush=True)
+
+
+if __name__ == "__main__":
+    main()
