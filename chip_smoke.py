@@ -310,7 +310,9 @@
    F.scaled_dot_product_attention's with the segment mask (call ms and,
    from graph replay, device ms, the forward and the backward apart)
    and, as a floor, causal without segments, and the bound of each half
-   (flash_bound); (b) the LLM's causal-LM loss + backward through
+   (flash_bound); at (1, 1024, 16, 16, 256) bf16 each half's device ms,
+   bound and share and SDPA-with-mask's device ms (time_flash_wide); (b)
+   the LLM's causal-LM loss + backward through
    LLM.forward(train=True) on [1, 2048] seeded tokens, all real, with
    use_flash off and on, in turns: the losses within 5e-2 of the loss,
    the LoRA gradients within 5e-2 (relative L2), walls and peaks, and the
@@ -355,7 +357,9 @@ QLoRA at ZeRO-3 and (c)'s gemma-2 step; a flash_attention entry for
 kernel E: one forward + backward at (1, 2048, 32, 8, 128) bf16 under the
 main keys, each half under fwd_* / bwd_* (device ms per kernel: fwd,
 dq, dkv), its launches those of phase 22 (b)'s causal-LM flash step (per
-kernel under launches_fwd / _dq / _dkv, (c)'s under long_*);
+kernel under launches_fwd / _dq / _dkv, (c)'s under long_*), the
+forward's body per head dim under fwd_body and the head_dim-256 times
+under d256;
 the last line is {"ok": true, "device": {...}}. Any
 failure exits non-zero.
 """
@@ -6056,20 +6060,8 @@ def check_flash(flash, reference, tag, sizes=None):
         fail("kernel E's backward gave other bits on a second run")
     del first, again
 
-    def timed_pair(fn, layout=lambda t: t, grad_out=dout):
-        """(forward, forward + backward) of fn on this shape's inputs."""
-        ins = [layout(t) for t in (q, k, v)]
-        req = [t.clone().requires_grad_(True) for t in ins]
-
-        def fwd():
-            with torch.no_grad():
-                return fn(*ins)
-
-        def step():
-            out = fn(*req)
-            return torch.autograd.grad(out, req, grad_out)
-        return fwd, step
-
+    timed_pair = lambda fn, layout=lambda t: t, grad_out=dout: (
+        flash_timed_pair(fn, [layout(t) for t in (q, k, v)], grad_out))
     kernel = timed_pair(lambda a, b, c: flash(a, b, c, seg))
     plain = timed_pair(lambda a, b, c: reference(a, b, c, seg))
     rec = {"ms": cuda_ms(kernel[1]), "fwd_ms": cuda_ms(kernel[0]),
@@ -6087,10 +6079,7 @@ def check_flash(flash, reference, tag, sizes=None):
     rec["device_from"] = "CUDA-graph replay of each launcher"
     del out, lse, delta
     # SDPA in its [B, H, S, D] layout, the GQA heads expanded by the call
-    bhsd = lambda t: t.transpose(1, 2).contiguous()
-    b, s, h, kv, d = shape
-    dout_t = dout.reshape(b, s, h, d).transpose(1, 2).contiguous()
-    mask = flash_allowed(seg)[:, None]
+    bhsd, dout_t, mask = sdpa_layout(shape, dout, seg)
     for key in ("library_ms", "library_fwd_ms", "library_device_ms",
                 "library_fwd_device_ms", "sdpa_causal_ms",
                 "sdpa_causal_fwd_ms"):
@@ -6132,7 +6121,8 @@ def check_flash(flash, reference, tag, sizes=None):
                f32_max_abs_err=errs["f32"],
                share=(fwd_bound[0] + bwd_bound[0]) / rec["device_ms"],
                fwd_share=fwd_bound[0] / rec["fwd_device_ms"],
-               bwd_share=bwd_bound[0] / rec["bwd_device_ms"])
+               bwd_share=bwd_bound[0] / rec["bwd_device_ms"],
+               fwd_body={str(d): E.forward_body(dt, d) for d in E.HEAD_DIMS})
     fmt = lambda x: "not measured" if x is None else f"{x:.4f}"
     print(f"flash_attention at (B, S, H, KV, D)={shape} bf16, {pairs} "
           f"attended pairs a head (device times from {rec['device_from']}"
@@ -6154,6 +6144,85 @@ def check_flash(flash, reference, tag, sizes=None):
           f"{fmt(rec['library_device_ms'])} ms; SDPA causal without "
           f"segments (a floor) {fmt(rec['sdpa_causal_fwd_ms'])} / "
           f"{fmt(rec['sdpa_causal_ms'])} ms [{tag}]", flush=True)
+    wide = next(tuple(c[:5]) for c in sizes["checks"]
+                if c[4] == 256 and c[5] == "bf16")
+    del q, k, v, dout, seg, kernel, plain
+    rec["d256"] = time_flash_wide(wide, sizes, tag)
+    return rec
+
+
+def flash_timed_pair(fn, ins, grad_out):
+    """(forward without autograd, forward + backward) of fn(*ins)."""
+    req = [t.clone().requires_grad_(True) for t in ins]
+
+    def fwd():
+        with torch.no_grad():
+            return fn(*ins)
+
+    def step():
+        out = fn(*req)
+        return torch.autograd.grad(out, req, grad_out)
+    return fwd, step
+
+
+def sdpa_layout(shape, dout, seg):
+    """F.scaled_dot_product_attention's [B, H, S, D] layout of E's inputs:
+    the transpose, dO in it, and the [B, 1, S, S] segment mask."""
+    b, s, h, _, d = shape
+    bhsd = lambda t: t.transpose(1, 2).contiguous()
+    return (bhsd, dout.reshape(b, s, h, d).transpose(1, 2).contiguous(),
+            flash_allowed(seg)[:, None])
+
+
+def time_flash_wide(shape, sizes, tag):
+    """Kernel E at head_dim 256 (gemma under use_flash) in bf16 on
+    flash_inputs' padding: the forward's and backward's (dq + dkv) device
+    ms by CUDA-graph replay of each launcher, each half's flash_bound and
+    share, and SDPA-with-mask's forward and backward device ms by the same
+    replay (None where it cannot run or be captured)."""
+    import torch.nn.functional as F
+    from llamole_tpu_torch.ops import flash_attention as E
+    dt = torch.bfloat16
+    q, k, v, dout, seg = flash_inputs(shape, dt, sizes)
+    out, lse = E.flash_forward(q, k, v, seg)
+    _, delta = E.flash_backward_dq(q, k, v, seg, out, dout, lse)
+    rec = {"shape": list(shape), "fwd_body": E.forward_body(dt, shape[-1]),
+           "fwd_device_ms": graph_ms(lambda: E.flash_forward(q, k, v, seg)),
+           "dq_device_ms": graph_ms(lambda: E.flash_backward_dq(
+               q, k, v, seg, out, dout, lse)),
+           "dkv_device_ms": graph_ms(lambda: E.flash_backward_dkv(
+               q, k, v, seg, dout, lse, delta)),
+           "library_fwd_device_ms": None, "library_bwd_device_ms": None}
+    rec["bwd_device_ms"] = rec["dq_device_ms"] + rec["dkv_device_ms"]
+    pairs = int(flash_allowed(seg).sum())
+    for half, backward in (("fwd", False), ("bwd", True)):
+        bound, by = flash_bound(shape, dt, pairs, backward)
+        rec.update({f"{half}_bound_ms": bound, f"{half}_bound_by": by,
+                    f"{half}_share": bound / rec[f"{half}_device_ms"]})
+    rec["pairs"] = pairs
+    bhsd, dout_t, mask = sdpa_layout(shape, dout, seg)
+    try:
+        lib = flash_timed_pair(lambda a, b, c: F.scaled_dot_product_attention(
+            a, b, c, attn_mask=mask, enable_gqa=True),
+            [bhsd(t) for t in (q, k, v)], dout_t)
+        rec["library_fwd_device_ms"] = graph_ms(lib[0])
+        rec["library_bwd_device_ms"] = (graph_ms(lib[1])
+                                        - rec["library_fwd_device_ms"])
+    except RuntimeError as exc:  # a yardstick only: the port never calls it
+        print(f"SDPA at {shape} not timed: {exc}", flush=True)
+    fmt = lambda x: "not measured" if x is None else f"{x:.4f}"
+    print(f"flash_attention at (B, S, H, KV, D)={shape} bf16, {pairs} "
+          f"attended pairs a head (device times from CUDA-graph replay of "
+          f"each launcher; the forward on its {rec['fwd_body']} body): "
+          f"forward {rec['fwd_device_ms']:.4f} ms, bound "
+          f"{1e3 * rec['fwd_bound_ms']:.2f} us, share {rec['fwd_share']:.4f}; "
+          f"backward {rec['bwd_device_ms']:.4f} ms (dq "
+          f"{rec['dq_device_ms']:.4f} + dkv {rec['dkv_device_ms']:.4f}), "
+          f"bound {1e3 * rec['bwd_bound_ms']:.2f} us, share "
+          f"{rec['bwd_share']:.4f}; SDPA with the segment mask "
+          f"{fmt(rec['library_fwd_device_ms'])} / "
+          f"{fmt(rec['library_bwd_device_ms'])} ms (forward / backward) "
+          f"[{tag}]", flush=True)
     return rec
 
 
@@ -6637,7 +6706,8 @@ def main() -> int:
                   "library_device_ms", "library_fwd_device_ms",
                   "library_bwd_device_ms", "sdpa_causal_ms",
                   "sdpa_causal_fwd_ms",
-                  "f32_max_abs_err", "pairs", "shape")},
+                  "f32_max_abs_err", "pairs", "shape", "fwd_body",
+                  "d256")},
               train_loss_gap=phase22["train"]["loss_gap"],
               train_grad_rel=phase22["train"]["grad_rel"],
               train_wall_s={k: phase22["train"][k]["wall"]

@@ -23,26 +23,23 @@
 //
 // Bodies, one set per input type:
 //
-// * bf16 (the LLM's type), f32 sums. The forward is mma.sync m16n8k16, as
-//   kernel A's attention_mma_kernel: it takes one 4-warp block per (b, head,
-//   64 query rows), the longest rows launched first; each warp owns 16
-//   rows. Key tiles (64 keys at D = 128, 32 at D = 256) stream through
-//   shared memory by cp.async (k and v as two groups, so the logits start
-//   while v lands); the logits stay in registers, scaled and masked there,
-//   an online softmax (running max and sum a row, quad shuffles) rescales
-//   the f32 output accumulators, and the probabilities go to bf16 A
-//   fragments of P.V without touching shared memory. Key tiles wholly
-//   above the block's diagonal are never loaded; a warp skips the products
-//   of a tile wholly above its own rows.
+// * bf16 (the LLM's type), f32 sums, every body on the tensor cores. The
+//   forward and, at D = 128 (the Llama, Qwen, Mistral and Mixtral
+//   families; gemma's is 256), the backward are warpgroup bodies (wgmma,
+//   wgmma.cuh), two warpgroups a block, tiles in the 128-byte swizzled
+//   layout through a 2-stage cp.async ring, nothing global read inside a
+//   step, exponentials on ex2.approx:
+//   - flash_fwd_wgmma: one block per (b, head, 128 query rows), the
+//     longest first; per step of 128 keys (64 at D = 256) S = Q.K^T from
+//     shared memory, an online softmax in the log2 domain with a finite
+//     mask, O += P.V with P from registers and V transposed; a step whose
+//     keys lie wholly outside the rows' one segment is skipped, one
+//     wholly inside it and before every row runs without the mask.
 //   The backward is two kernels, as jaxlib's: dq first, which also forms
 //   delta = rowsum(dO * O) (f32, from the bf16 output) and writes it out,
 //   then dkv. Both recompute P = exp(s - lse) and dP = dO.V^T and round
 //   dS = P * (dP - delta) * scale to bf16 (jaxlib casts ds to k's type);
-//   dV takes P in dO's type. At D = 128 (the Llama, Qwen, Mistral and
-//   Mixtral families; gemma's is 256) both are warpgroup bodies (wgmma,
-//   wgmma.cuh), two warpgroups a block, tiles in the 128-byte swizzled
-//   layout through a 2-stage cp.async ring, nothing global read inside a
-//   step, exponentials on ex2.approx:
+//   dV takes P in dO's type.
 //   - flash_bwd_dq_wgmma: one block per (b, head, 128 query rows), the
 //     longest first; delta by 16-byte loads of the rows' O and dO; per
 //     64-key step S = Q.K^T and dP = dO.V^T read both operands from shared
@@ -57,17 +54,17 @@
 //     workspace [2, G, B, S, KV, D], and flash_group_sum adds the G
 //     partials in head order and casts once: no float atomics, and two
 //     runs give the same bits. With G = 1 the block writes bf16.
-//   At D = 256 the dK / dV registers of 128 keys do not fit, so the
-//   mma.sync bodies stay: flash_bwd_dq_mma (64 query rows a block, 32-key
-//   tiles) and flash_bwd_dkv_mma (one block per (b, KV head, 64 keys)
-//   looping over the group's heads and 32-query tiles, eight warps
-//   splitting the dims, the group summed in registers).
+//   At D = 256 the backward's dK / dV registers of 128 keys do not fit,
+//   so mma.sync (m16n8k16) bodies take it: flash_bwd_dq_mma (64 query
+//   rows a block, 32-key tiles) and flash_bwd_dkv_mma (one block per (b,
+//   KV head, 64 keys) looping over the group's heads and 32-query tiles,
+//   eight warps splitting the dims, the group summed in registers).
 // * f32, plain FMA loops (a correct body; the LLM never runs in f32 on the
 //   card's main path): 32-row tiles, eight threads a row, the same online
 //   softmax and the same three kernels.
 //
-// D is 128 or 256 and S a multiple of 128 (the backward's 128-row and
-// 128-key blocks; the route sends S % 128 == 0); the wrapper
+// D is 128 or 256 and S a multiple of 128 (the 128-row and 128-key
+// blocks; the route sends S % 128 == 0); the wrapper
 // (ops/flash_attention.py) refuses anything else, and so do the
 // launchers. More than 48 KB of shared memory is asked for through
 // allow_shared, once per device.
@@ -80,13 +77,13 @@
 namespace {
 
 constexpr float kMaskValue = -0.7f * 3.40282346638528859812e+38f;
-constexpr int kBQ = 64;         // query rows of a forward / dq block
+constexpr int kBQ = 64;         // query rows of an mma.sync dq block
 constexpr int kThreads = 128;   // 4 warps of 16 rows
 constexpr int kBKV = 64;        // keys of a dkv block
 constexpr int kBQ2 = 32;        // queries a dkv step
 constexpr int kF = 32;          // rows and keys of an f32 tile
 constexpr int kFThreads = 256;  // 8 threads a row
-constexpr int kSeqMultiple = 128;  // the backward's 128-row / 128-key blocks
+constexpr int kSeqMultiple = 128;  // the 128-row / 128-key blocks
 
 struct Dims {
   int B, S, H, KV;
@@ -97,12 +94,6 @@ struct Dims {
 template <int D>
 __host__ __device__ constexpr int key_tile() {
   return D == 128 ? 64 : 32;
-}
-
-template <int D>
-constexpr size_t fwd_shared_bytes() {
-  return (size_t)(kBQ + 2 * key_tile<D>()) * (D + 8) * sizeof(bf16) +
-         key_tile<D>() * sizeof(int);
 }
 
 template <int D>
@@ -138,153 +129,6 @@ __device__ __forceinline__ QueryBlock query_block(const Dims& dm, int rows) {
   const int nq = dm.S / rows;
   const int bh = blockIdx.x % (dm.B * dm.H);
   return {bh / dm.H, bh % dm.H, (nq - 1 - (int)blockIdx.x / (dm.B * dm.H)) * rows};
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_fwd_mma_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const int* __restrict__ seg, bf16* __restrict__ out, float* __restrict__ lse, Dims dm,
-    float scale) {
-  constexpr int BK = key_tile<D>();
-  constexpr int LD = D + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [kBQ][LD]
-  bf16* ks = qs + kBQ * LD;                       // [BK][LD]
-  bf16* vs = ks + BK * LD;                        // [BK][LD]
-  int* kseg = reinterpret_cast<int*>(vs + BK * LD);
-
-  const QueryBlock blk = query_block(dm, kBQ);
-  const int S = dm.S;
-  const long long q_row = (long long)dm.H * D, kv_row = (long long)dm.KV * D;
-  const int kvh = blk.h / (dm.H / dm.KV);
-  const bf16* qg = q + (long long)blk.b * S * q_row + (long long)blk.h * D;
-  const bf16* kg = k + (long long)blk.b * S * kv_row + (long long)kvh * D;
-  const bf16* vg = v + (long long)blk.b * S * kv_row + (long long)kvh * D;
-  const int* sg = seg + (long long)blk.b * S;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t4 = lane & 3;
-
-  copy_rows<D, kThreads>(qs, qg + blk.q0 * q_row, q_row, kBQ, tid);
-  cp_async_commit();
-
-  const int r0 = blk.q0 + warp * 16 + g, r1 = r0 + 8;  // this thread's rows
-  const int seg0 = sg[r0], seg1 = sg[r1];
-  const int warp_last = blk.q0 + warp * 16 + 15;
-  float o[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
-  const int nkt = (blk.q0 + kBQ - 1) / BK + 1;  // tiles at or left of the diagonal
-
-  for (int kt = 0; kt < nkt; ++kt) {
-    const int j0 = kt * BK;
-    __syncthreads();  // every warp is done with the last tile
-    copy_rows<D, kThreads>(ks, kg + j0 * kv_row, kv_row, BK, tid);
-    cp_async_commit();
-    copy_rows<D, kThreads>(vs, vg + j0 * kv_row, kv_row, BK, tid);
-    cp_async_commit();
-    for (int j = tid; j < BK; j += kThreads) kseg[j] = sg[j0 + j];
-    cp_async_wait<1>();  // q and this tile's k
-    __syncthreads();
-    const bool live = j0 <= warp_last;  // warp-uniform
-    uint32_t pa[BK / 16][4];
-    if (live) {
-      float s[BK / 8][4];
-#pragma unroll
-      for (int i = 0; i < BK / 8; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
-#pragma unroll
-      for (int c = 0; c < D / 16; ++c) {
-        uint32_t qa[4];
-        ldmatrix_x4(qa, qs + (warp * 16 + (lane & 15)) * LD + c * 16 + (lane >> 4) * 8);
-#pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk) {
-          uint32_t kb[4];
-          ldmatrix_x4(kb, ks + (kk * 16 + (lane & 7) + (lane >> 4) * 8) * LD + c * 16 +
-                              ((lane >> 3) & 1) * 8);
-          mma_bf16(s[2 * kk], qa, kb[0], kb[1]);
-          mma_bf16(s[2 * kk + 1], qa, kb[2], kb[3]);
-        }
-      }
-      float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-      for (int nt = 0; nt < BK / 8; ++nt) {
-        const int jj = nt * 8 + 2 * t4;
-        const int ja = j0 + jj;
-        const int sa = kseg[jj], sb = kseg[jj + 1];
-        s[nt][0] = (ja <= r0 && sa == seg0) ? s[nt][0] * scale : kMaskValue;
-        s[nt][1] = (ja + 1 <= r0 && sb == seg0) ? s[nt][1] * scale : kMaskValue;
-        s[nt][2] = (ja <= r1 && sa == seg1) ? s[nt][2] * scale : kMaskValue;
-        s[nt][3] = (ja + 1 <= r1 && sb == seg1) ? s[nt][3] * scale : kMaskValue;
-        mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
-        mx1 = fmaxf(mx1, fmaxf(s[nt][2], s[nt][3]));
-      }
-      // online softmax: a tile whose keys are all masked for a row leaves
-      // its max at the mask value; the row's first real key then rescales
-      // what that tile added by exp(mask - real) = 0
-      const float mn0 = fmaxf(m0, quad_max(mx0)), mn1 = fmaxf(m1, quad_max(mx1));
-      const float a0 = expf(m0 - mn0), a1 = expf(m1 - mn1);
-      m0 = mn0;
-      m1 = mn1;
-      float ps0 = 0.f, ps1 = 0.f;
-#pragma unroll
-      for (int nt = 0; nt < BK / 8; ++nt) {
-        s[nt][0] = expf(s[nt][0] - mn0);
-        s[nt][1] = expf(s[nt][1] - mn0);
-        s[nt][2] = expf(s[nt][2] - mn1);
-        s[nt][3] = expf(s[nt][3] - mn1);
-        ps0 += s[nt][0] + s[nt][1];
-        ps1 += s[nt][2] + s[nt][3];
-      }
-      l0 = l0 * a0 + ps0;  // this thread's share of the row sum
-      l1 = l1 * a1 + ps1;
-#pragma unroll
-      for (int i = 0; i < D / 8; ++i) {
-        o[i][0] *= a0;
-        o[i][1] *= a0;
-        o[i][2] *= a1;
-        o[i][3] *= a1;
-      }
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        pa[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-        pa[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-        pa[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-        pa[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      }
-    }
-    cp_async_wait<0>();
-    __syncthreads();  // v has landed
-    if (live) {
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-#pragma unroll
-        for (int c = 0; c < D / 16; ++c) {
-          uint32_t vb[4];
-          ldmatrix_x4_trans(vb, vs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
-                                    c * 16 + (lane >> 4) * 8);
-          mma_bf16(o[2 * c], pa[kk], vb[0], vb[1]);
-          mma_bf16(o[2 * c + 1], pa[kk], vb[2], vb[3]);
-        }
-      }
-    }
-  }
-  l0 = quad_sum(l0);
-  l1 = quad_sum(l1);
-  const float i0 = 1.f / l0, i1 = 1.f / l1;
-  bf16* og = out + (long long)blk.b * S * q_row + (long long)blk.h * D;
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) {
-    const int d = i * 8 + 2 * t4;
-    *reinterpret_cast<__nv_bfloat162*>(og + r0 * q_row + d) =
-        __floats2bfloat162_rn(o[i][0] * i0, o[i][1] * i0);
-    *reinterpret_cast<__nv_bfloat162*>(og + r1 * q_row + d) =
-        __floats2bfloat162_rn(o[i][2] * i1, o[i][3] * i1);
-  }
-  if (t4 == 0) {
-    float* lg = lse + ((long long)blk.b * dm.H + blk.h) * S;
-    lg[r0] = m0 + logf(l0);
-    lg[r1] = m1 + logf(l1);
-  }
 }
 
 template <int D>
@@ -574,7 +418,7 @@ __global__ void __launch_bounds__(kThreads * (D / 128)) flash_bwd_dkv_mma_kernel
   }
 }
 
-// ---- the bf16 warpgroup bodies of the backward at D = 128 -----------------
+// ---- the bf16 warpgroup bodies: the forward, and the backward at D = 128 ----
 //
 // Two warpgroups a block (8 warps); every product is a wgmma on tiles in the
 // 128-byte swizzled layout of wgmma.cuh, which cp.async fills through a ring
@@ -593,7 +437,7 @@ constexpr int kDqKeys = 64;      // keys a dq step
 constexpr int kStages = 2;       // the copy ring's depth
 constexpr int kRowBytes = 128 * 2;  // one row of D = 128 bf16
 
-constexpr size_t round_1k(size_t x) { return (x + 1023) / 1024 * 1024; }
+__host__ __device__ constexpr size_t round_1k(size_t x) { return (x + 1023) / 1024 * 1024; }
 
 // a dkv stage: Q and dO [64][128] swizzled, then the 64 queries' segment
 // ids, log-sum-exps and deltas
@@ -620,31 +464,243 @@ __device__ __forceinline__ char* align_1k(unsigned char* p) {
   return reinterpret_cast<char*>(p) + ((1024 - (smem_addr(p) & 1023)) & 1023);
 }
 
-// A (64 rows) . B^T over D = 128 for one warpgroup: two K-major tiles, the
-// A rows starting at row0 of a tile of a_rows rows
-__device__ __forceinline__ void product_qk(float (&d)[32], const void* a, int a_rows, int row0,
+// A (64 rows) . B^T over depth D for one warpgroup: two K-major tiles, the
+// A rows starting at row0 of a tile of a_rows rows, B's b_rows (64, or 128
+// for a 64-register d) the product's columns
+template <int D = 128, int R>
+__device__ __forceinline__ void product_qk(float (&d)[R], const void* a, int a_rows, int row0,
                                            const void* b, int b_rows) {
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk)
-    wgmma_64x64_ss(d, desc_k_major(a, a_rows, row0, kk), desc_k_major(b, b_rows, 0, kk), kk);
+  for (int kk = 0; kk < D / 16; ++kk) {
+    if constexpr (R == 32)
+      wgmma_64x64_ss(d, desc_k_major(a, a_rows, row0, kk), desc_k_major(b, b_rows, 0, kk), kk);
+    else
+      wgmma_64x128_ss(d, desc_k_major(a, a_rows, row0, kk), desc_k_major(b, b_rows, 0, kk), kk);
+  }
 }
 
-// d += A (64 x 64, four k steps of register fragments) . B (64 x 128, an
-// MN-major tile of 64 depth rows)
-__device__ __forceinline__ void product_pv(float (&d)[64], const uint32_t (&a)[4][4],
+// d += A (64 x 16 K, K k steps of register fragments) . B (16 K x 128, an
+// MN-major tile of 16 K depth rows; b is the first of its two 64-wide blocks)
+template <int K>
+__device__ __forceinline__ void product_pv(float (&d)[64], const uint32_t (&a)[K][4],
                                            const void* b) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) wgmma_64x128_rs(d, a[kk], desc_mn_major(b, 64, kk), 1);
+  for (int kk = 0; kk < K; ++kk) wgmma_64x128_rs(d, a[kk], desc_mn_major(b, 16 * K, kk), 1);
 }
 
-// a 64 x 64 accumulator's registers as four 16-deep A fragments, in bf16
-__device__ __forceinline__ void to_a_fragments(uint32_t (&a)[4][4], const float (&x)[32]) {
+// a 64 x 16 K accumulator's registers as K 16-deep A fragments, in bf16
+template <int K>
+__device__ __forceinline__ void to_a_fragments(uint32_t (&a)[K][4], const float (&x)[8 * K]) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < K; ++kk) {
     a[kk][0] = pack_bf16(x[8 * kk], x[8 * kk + 1]);
     a[kk][1] = pack_bf16(x[8 * kk + 2], x[8 * kk + 3]);
     a[kk][2] = pack_bf16(x[8 * kk + 4], x[8 * kk + 5]);
     a[kk][3] = pack_bf16(x[8 * kk + 6], x[8 * kk + 7]);
+  }
+}
+
+// The forward for 128 query rows of one head (the longest rows first, the
+// head fastest, so a KV group's G heads run side by side and share K / V in
+// L2); warpgroup w owns rows 64 w..64 w + 63. Per step of BK keys (128 at
+// D = 128; 64 at D = 256, where two stages of 128 would not fit): S = Q.K^T
+// from shared memory, an online softmax in the log2 domain on ex2.approx,
+// O += P.V with P from registers and V transposed. The logits are scaled by
+// scale log2 e; a masked one is kMaskValue itself, finite, so a row whose
+// keys so far are all masked keeps max kMaskValue and adds 2^0 per key, as
+// jaxlib's body adds exp(0), and its first real key rescales that by
+// 2^(kMaskValue - m) = 0 (kMaskValue x log2 e would be -inf, and
+// -inf - -inf NaN). Each step reads the segment ids of its keys against
+// the warpgroup's rows: where the rows lie in one segment and no key is in
+// it, every pair is masked and the step changes no result (what it would
+// add before the row's first real key, that key wipes), so the warpgroup
+// skips it; where every key is in it and precedes every row, the step
+// skips the mask and the scale folds into the exponent's FMA. lse goes out
+// in natural log: (m + log2 l) ln 2.
+constexpr int kFwdRows = 128;  // query rows a forward block
+constexpr float kLn2 = 0.6931471805599453f;
+
+template <int D>
+__host__ __device__ constexpr int fwd_keys() {
+  return D == 128 ? 128 : 64;
+}
+
+// a forward stage: K and V [BK][D] swizzled, then the BK keys' segment ids
+template <int D>
+__host__ __device__ constexpr size_t fwd_stage_bytes() {
+  return round_1k(2 * fwd_keys<D>() * D * 2 + fwd_keys<D>() * 4);
+}
+
+template <int D>
+constexpr size_t fwd_wgmma_shared_bytes() {
+  return 1024 + kFwdRows * D * 2 + kStages * fwd_stage_bytes<D>();
+}
+
+template <int D>
+__global__ void __launch_bounds__(kWgThreads, 1) flash_fwd_wgmma_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const int* __restrict__ seg, bf16* __restrict__ out, float* __restrict__ lse, Dims dm,
+    float scale) {
+  constexpr int BK = fwd_keys<D>();
+  constexpr int kRow = D * 2;  // bytes of one row
+  constexpr size_t kStage = fwd_stage_bytes<D>();
+  constexpr int kHalves = D / 128;  // O's 128-wide column halves
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  char* qs = align_1k(smem_raw);          // [128][D]
+  char* stages = qs + kFwdRows * kRow;    // kStages x (K, V, key segments)
+
+  const QueryBlock blk = query_block(dm, kFwdRows);
+  const int S = dm.S;
+  const long long q_row = (long long)dm.H * D, kv_row = (long long)dm.KV * D;
+  const int kvh = blk.h / (dm.H / dm.KV);
+  const long long q_off = (long long)blk.b * S * q_row + (long long)blk.h * D;
+  const bf16* kg = k + (long long)blk.b * S * kv_row + (long long)kvh * D;
+  const bf16* vg = v + (long long)blk.b * S * kv_row + (long long)kvh * D;
+  const int* sg = seg + (long long)blk.b * S;
+  const int tid = threadIdx.x, wg = tid >> 7, wr = (tid >> 5) & 3, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int nkt = (blk.q0 + kFwdRows) / BK;  // key tiles at or left of the diagonal
+
+  auto load_stage = [&](int kt) {
+    char* st = stages + (kt % kStages) * kStage;
+    const int j0 = kt * BK;
+    copy_tile_sw128<BK, D, kWgThreads>(st, kg + j0 * kv_row, kv_row, tid);
+    copy_tile_sw128<BK, D, kWgThreads>(st + BK * kRow, vg + j0 * kv_row, kv_row, tid);
+    if (tid < BK / 4) cp_async16(st + 2 * BK * kRow + tid * 16, sg + j0 + tid * 4);
+  };
+  copy_tile_sw128<kFwdRows, D, kWgThreads>(qs, q + q_off + blk.q0 * q_row, q_row, tid);
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {  // Q joins the first group
+    if (s < nkt) load_stage(s);
+    cp_async_commit();
+  }
+
+  const int r0 = blk.q0 + wg * 64 + wr * 16 + g, r1 = r0 + 8;  // this thread's rows
+  const int seg0 = sg[r0], seg1 = sg[r1];
+  const int wg_first = blk.q0 + wg * 64, wg_last = wg_first + 63;
+  // whether the warpgroup's 64 rows lie in one segment, wseg (each warp reads all 64)
+  const int wseg = sg[wg_first];
+  const bool rows_one =
+      __all_sync(0xffffffffu, sg[wg_first + lane] == wseg && sg[wg_first + 32 + lane] == wseg);
+  const float scale2 = scale * kLog2e;
+  float o[kHalves][64];
+#pragma unroll
+  for (int h = 0; h < kHalves; ++h)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) o[h][i] = 0.f;
+  // running max (log2 domain) and this thread's share of the row sums
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+
+  for (int kt = 0; kt < nkt; ++kt) {
+    cp_async_wait<kStages - 2>();  // this step's stage has landed
+    fence_async_shared();
+    __syncthreads();
+    if (kt + kStages - 1 < nkt) load_stage(kt + kStages - 1);  // into the stage step kt - 1 read
+    cp_async_commit();
+    const int j0 = kt * BK;
+    if (j0 > wg_last) continue;  // warpgroup-uniform: every key is above its rows
+    const char* ks = stages + (kt % kStages) * kStage;
+    const char* vs = ks + BK * kRow;
+    const int* kseg = reinterpret_cast<const int*>(vs + BK * kRow);
+    float s[BK / 2];
+    wgmma_fence();
+    product_qk<D>(s, qs, kFwdRows, wg * 64, ks, BK);  // S = Q.K^T
+    wgmma_commit();
+    // while it runs, warpgroup-uniform: the step's keys all in the rows'
+    // one segment, or none (read before the product, they would delay it)
+    bool keys_in = true, keys_out = true;
+#pragma unroll
+    for (int c = 0; c < BK / 32; ++c) {
+      const int sj = kseg[lane + 32 * c];
+      keys_in = keys_in && sj == wseg;
+      keys_out = keys_out && sj != wseg;
+    }
+    keys_in = rows_one && __all_sync(0xffffffffu, keys_in);
+    keys_out = rows_one && __all_sync(0xffffffffu, keys_out);
+    const bool unmasked = keys_in && j0 + BK - 1 <= wg_first;
+    wgmma_wait<0>();
+    fence_regs(s);
+    if (keys_out) continue;  // every pair masked
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+    if (unmasked) {
+#pragma unroll
+      for (int nt = 0; nt < BK / 8; ++nt) {
+        mx0 = fmaxf(mx0, fmaxf(s[4 * nt], s[4 * nt + 1]));
+        mx1 = fmaxf(mx1, fmaxf(s[4 * nt + 2], s[4 * nt + 3]));
+      }
+      mx0 = quad_max(mx0) * scale2;
+      mx1 = quad_max(mx1) * scale2;
+    } else {
+#pragma unroll
+      for (int nt = 0; nt < BK / 8; ++nt) {
+        const int jj = nt * 8 + 2 * t4;
+        const int ja = j0 + jj;
+        const int sa = kseg[jj], sb = kseg[jj + 1];
+        s[4 * nt] = (ja <= r0 && sa == seg0) ? s[4 * nt] * scale2 : kMaskValue;
+        s[4 * nt + 1] = (ja + 1 <= r0 && sb == seg0) ? s[4 * nt + 1] * scale2 : kMaskValue;
+        s[4 * nt + 2] = (ja <= r1 && sa == seg1) ? s[4 * nt + 2] * scale2 : kMaskValue;
+        s[4 * nt + 3] = (ja + 1 <= r1 && sb == seg1) ? s[4 * nt + 3] * scale2 : kMaskValue;
+        mx0 = fmaxf(mx0, fmaxf(s[4 * nt], s[4 * nt + 1]));
+        mx1 = fmaxf(mx1, fmaxf(s[4 * nt + 2], s[4 * nt + 3]));
+      }
+      mx0 = quad_max(mx0);
+      mx1 = quad_max(mx1);
+    }
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float a0 = exp2_approx(m0 - mn0), a1 = exp2_approx(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    // P = 2^(s - m): the scale folds into an FMA where the logits are unscaled
+    const float f = unmasked ? scale2 : 1.f;
+    float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < BK / 8; ++nt) {
+      s[4 * nt] = exp2_approx(fmaf(s[4 * nt], f, -mn0));
+      s[4 * nt + 1] = exp2_approx(fmaf(s[4 * nt + 1], f, -mn0));
+      s[4 * nt + 2] = exp2_approx(fmaf(s[4 * nt + 2], f, -mn1));
+      s[4 * nt + 3] = exp2_approx(fmaf(s[4 * nt + 3], f, -mn1));
+      ps0 += s[4 * nt] + s[4 * nt + 1];
+      ps1 += s[4 * nt + 2] + s[4 * nt + 3];
+    }
+    l0 = l0 * a0 + ps0;
+    l1 = l1 * a1 + ps1;
+#pragma unroll
+    for (int h = 0; h < kHalves; ++h)
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        o[h][4 * i] *= a0;
+        o[h][4 * i + 1] *= a0;
+        o[h][4 * i + 2] *= a1;
+        o[h][4 * i + 3] *= a1;
+      }
+    uint32_t pa[BK / 16][4];
+    to_a_fragments(pa, s);  // P in v's type
+    wgmma_fence();
+#pragma unroll
+    for (int h = 0; h < kHalves; ++h) product_pv(o[h], pa, vs + h * 2 * BK * 128);  // O += P.V
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int h = 0; h < kHalves; ++h) fence_regs(o[h]);
+  }
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+  const float i0 = 1.f / l0, i1 = 1.f / l1;
+  bf16* og = out + q_off;
+#pragma unroll
+  for (int h = 0; h < kHalves; ++h)
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int d = h * 128 + i * 8 + 2 * t4;
+      *reinterpret_cast<__nv_bfloat162*>(og + r0 * q_row + d) =
+          __floats2bfloat162_rn(o[h][4 * i] * i0, o[h][4 * i + 1] * i0);
+      *reinterpret_cast<__nv_bfloat162*>(og + r1 * q_row + d) =
+          __floats2bfloat162_rn(o[h][4 * i + 2] * i1, o[h][4 * i + 3] * i1);
+    }
+  if (t4 == 0) {
+    float* lg = lse + ((long long)blk.b * dm.H + blk.h) * S;
+    lg[r0] = (m0 + log2f(l0)) * kLn2;
+    lg[r1] = (m1 + log2f(l1)) * kLn2;
   }
 }
 
@@ -1244,10 +1300,10 @@ template <int D>
 int fwd_bf16(const void* q, const void* k, const void* v, const void* seg, void* out, void* lse,
              Dims dm, void* stream) {
   static std::atomic<uint64_t> raised{0};
-  return launch_one(flash_fwd_mma_kernel<D>, dm.B * dm.H * (dm.S / kBQ), kThreads,
-                    fwd_shared_bytes<D>(), raised, stream, (const bf16*)q, (const bf16*)k,
-                    (const bf16*)v, (const int*)seg, (bf16*)out, (float*)lse, dm,
-                    softmax_scale(D));
+  return launch_one(flash_fwd_wgmma_kernel<D>, dm.B * dm.H * (dm.S / kFwdRows), kWgThreads,
+                    fwd_wgmma_shared_bytes<D>(), raised, stream, (const bf16*)q,
+                    (const bf16*)k, (const bf16*)v, (const int*)seg, (bf16*)out, (float*)lse,
+                    dm, softmax_scale(D));
 }
 
 template <int D>

@@ -17,15 +17,17 @@ log-sum-exp [B, H, S]) and, in the backward of its autograd Function, the
 dq kernel (which also forms delta = rowsum(dO * O)) and then the dkv
 kernel, the counterparts of jaxlib's `_flash_attention_impl`,
 `_flash_attention_bwd_dq` and `_flash_attention_bwd_dkv`. It takes bf16
-(an mma.sync forward; at D = 128 warpgroup (wgmma) dq and dkv bodies, the
-dkv kernel per query head with its f32 partials summed over the GQA group
-in `dkv_workspace`; mma.sync ones at D = 256) and f32 (FMA bodies), D in
-HEAD_DIMS and S a multiple of SEQ_MULTIPLE. The wrapper counts each kernel's launches
-(`launches_fwd`, `launches_dq`, `launches_dkv`; `launches` is their
-sum). On a CPU tensor it runs `flash_attention_reference`, the plain
-PyTorch version of the same function with jaxlib's rounding points in
-its backward too, which the tests and chip_smoke.py also hold the
-kernels against.
+(a warpgroup (wgmma) forward at both head dims; at D = 128 wgmma dq and
+dkv bodies, the dkv kernel per query head with its f32 partials summed
+over the GQA group in `dkv_workspace`; mma.sync ones at D = 256) and f32
+(FMA bodies), D in HEAD_DIMS and S a multiple of SEQ_MULTIPLE
+(`forward_body` names the forward's body). The wrapper counts each
+kernel's launches (`launches_fwd`, `launches_dq`, `launches_dkv`;
+`launches` is their sum). On a CPU tensor it runs
+`flash_attention_reference`, the plain PyTorch version of the same
+function with jaxlib's rounding points in its backward too, which the
+tests and chip_smoke.py also hold the kernels against
+(`flash_forward_reference` for the forward's output and log-sum-exp).
 """
 
 import math
@@ -42,8 +44,17 @@ SEQ_MULTIPLE = 128
 COUNTS = ("launches", "launches_fwd", "launches_dq", "launches_dkv")
 
 
-def _probs(q, k, segment_ids) -> torch.Tensor:
-    """f32 probabilities [B, KV, G, S, S] of the kernels' logits."""
+def forward_body(dtype: torch.dtype, d: int) -> str:
+    """The forward kernel's body for an input type and head dim, as
+    csrc/flash_attention.cu routes it: "wgmma" (bf16, D = 128 or 256) or
+    "fma" (f32)."""
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head_dim {d}: the kernel takes {HEAD_DIMS}")
+    return "wgmma" if dtype == torch.bfloat16 else "fma"
+
+
+def _logits(q, k, segment_ids) -> torch.Tensor:
+    """f32 masked logits [B, KV, G, S, S] as the kernels form them."""
     b, s, h, d = q.shape
     kv = k.shape[2]
     qg = q.reshape(b, s, kv, h // kv, d)
@@ -52,8 +63,17 @@ def _probs(q, k, segment_ids) -> torch.Tensor:
     pos = torch.arange(s, device=q.device)
     allowed = ((pos[:, None] >= pos[None, :])[None]
                & (segment_ids[:, :, None] == segment_ids[:, None, :]))
-    logits = torch.where(allowed[:, None, None], logits, MASK_VALUE)
-    return torch.softmax(logits, dim=-1)
+    return torch.where(allowed[:, None, None], logits, MASK_VALUE)
+
+
+def _probs(q, k, segment_ids) -> torch.Tensor:
+    """f32 probabilities [B, KV, G, S, S] of the kernels' logits."""
+    return torch.softmax(_logits(q, k, segment_ids), dim=-1)
+
+
+def _value_product(probs, v) -> torch.Tensor:
+    """P cast to v's dtype, times v: [B, S, KV, G, D]."""
+    return torch.einsum("bkgst,btkd->bskgd", probs.to(v.dtype), v)
 
 
 class _Reference(torch.autograd.Function):
@@ -67,8 +87,7 @@ class _Reference(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, segment_ids):
         b, s, h, d = q.shape
-        probs = _probs(q, k, segment_ids)
-        out = torch.einsum("bkgst,btkd->bskgd", probs.to(v.dtype), v)
+        out = _value_product(_probs(q, k, segment_ids), v)
         ctx.save_for_backward(q, k, v, segment_ids, out)
         return out.reshape(b, s, h * d)
 
@@ -96,6 +115,18 @@ def flash_attention_reference(q, k, v, segment_ids) -> torch.Tensor:
     """Plain PyTorch composition with the kernels' semantics and
     rounding points (_Reference), differentiable in q, k and v."""
     return _Reference.apply(q, k, v, segment_ids)
+
+
+def flash_forward_reference(q, k, v, segment_ids):
+    """The plain version of `flash_forward`: (out [B, S, H * D] in q's
+    dtype, the natural-log log-sum-exp [B, H, S] f32 of the masked
+    logits), without autograd."""
+    b, s, h, d = q.shape
+    with torch.no_grad():
+        logits = _logits(q, k, segment_ids)
+        out = _value_product(torch.softmax(logits, dim=-1), v)
+        lse = torch.logsumexp(logits, dim=-1)
+    return out.reshape(b, s, h * d), lse.reshape(b, h, s)
 
 
 def _entry(name: str, dtype: torch.dtype):

@@ -1,12 +1,16 @@
-"""Time kernel E's two backward kernels on the card, one JSON line.
+"""Time kernel E's forward and its two backward kernels on the card, one
+JSON line.
 
-Graph-replay device ms (chip_smoke.graph_ms) of `flash_backward_dq` and
-`flash_backward_dkv` at phase 22's main shape, (1, 2048, 32, 8, 128) bf16
-with its padding (chip_smoke.PHASE22, flash_inputs), and of the two
-together, with the card's name and power limit. It imports only the tree
-it runs in, so the same file copied into an unpacked older tree times that
-tree's kernels; run trees in turns (old, new, new, old) in one call to
-compare them on one card:
+Graph-replay device ms (chip_smoke.graph_ms) of `flash_forward`,
+`flash_backward_dq` and `flash_backward_dkv` at phase 22's main shape,
+(1, 2048, 32, 8, 128) bf16 with its padding (chip_smoke.PHASE22,
+flash_inputs), of the two backward kernels together, and of
+`flash_forward` at the main shape with no padding (the causal-LM step's
+all-real rows) and at phase 22's head_dim-256 check shape, with the
+card's name and power limit. It imports only the tree it runs in, so the same
+file copied into an unpacked older tree times that tree's kernels; run
+trees in turns (old, new, new, old) in one call to compare them on one
+card:
 
     python3 scripts/time_flash_backward.py [--label NAME] [--repeats N]
 """
@@ -34,20 +38,31 @@ def main() -> None:
         raise SystemExit("needs a CUDA card")
     cuda_lib.library()
     shape = s.PHASE22["main"]
+    wide = next(tuple(c[:5]) for c in s.PHASE22["checks"]
+                if c[4] == 256 and c[5] == "bf16")
     q, k, v, dout, seg = s.flash_inputs(shape, torch.bfloat16, s.PHASE22)
+    qw, kw, vw, _, segw = s.flash_inputs(wide, torch.bfloat16, s.PHASE22)
+    real = s.flash_inputs(shape, torch.bfloat16,
+                          {"left_pad": 0, "right_pad": 0})[4]
     out, lse = E.flash_forward(q, k, v, seg)
     _, delta = E.flash_backward_dq(q, k, v, seg, out, dout, lse)
-    times = {"dq": [], "dkv": [], "backward": []}
+    times = {"fwd": [], "dq": [], "dkv": [], "backward": [], "fwd_unpadded": [],
+             "fwd_d256": []}
     for _ in range(args.repeats):
+        times["fwd"].append(s.graph_ms(lambda: E.flash_forward(q, k, v, seg)))
         times["dq"].append(s.graph_ms(lambda: E.flash_backward_dq(
             q, k, v, seg, out, dout, lse)))
         times["dkv"].append(s.graph_ms(lambda: E.flash_backward_dkv(
             q, k, v, seg, dout, lse, delta)))
         times["backward"].append(s.graph_ms(lambda: E.flash_backward(
             q, k, v, seg, out, dout, lse)))
+        times["fwd_unpadded"].append(s.graph_ms(lambda: E.flash_forward(
+            q, k, v, real)))
+        times["fwd_d256"].append(s.graph_ms(lambda: E.flash_forward(
+            qw, kw, vw, segw)))
     print(json.dumps({"label": args.label, "shape": list(shape),
-                      "device_ms": times, "card": s.card_tag()}),
-          flush=True)
+                      "shape_d256": list(wide), "device_ms": times,
+                      "card": s.card_tag()}), flush=True)
 
 
 if __name__ == "__main__":

@@ -541,10 +541,11 @@ def test_graph_attention_tf32x3_body_matches_plain(cuda, shape):
     assert float((out - ref).abs().max()) < 2e-5
 
 
-def _flash_inputs(dev, dtype, b, s, h, kv, d, seed=17, split=None):
+def _flash_inputs(dev, dtype, b, s, h, kv, d, seed=17, split=None,
+                  right=19):
     """Seeded q, k, v, dO and segment ids: row 0 left-padded, the last
-    row right-padded (a single row both); `split` starts a second segment
-    (id 2) in the last row there, as packed sequences do."""
+    row right-padded by `right` keys (a single row both); `split` starts a
+    second segment (id 2) in the last row there, as packed sequences do."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn(b, s, h, d, device=dev, generator=gen).to(dtype)
     k, v = (torch.randn(b, s, kv, d, device=dev, generator=gen).to(dtype)
@@ -554,7 +555,7 @@ def _flash_inputs(dev, dtype, b, s, h, kv, d, seed=17, split=None):
     seg[0, :11] = 0
     if split is not None:
         seg[-1, split:] = 2
-    seg[-1, s - 19:] = 0
+    seg[-1, s - right:] = 0
     return q, k, v, dout, seg
 
 
@@ -622,6 +623,55 @@ def test_flash_attention_matches_plain(cuda, shape, split, one_step, dtype,
             assert err < tol or err <= step, (name, err, step)
         else:
             assert err < tol, (name, err)
+
+
+# the forward alone: FLASH_SHAPES (right-padded by 19), then two rows of
+# which the last is right-padded by 200 keys: its pad rows' first two
+# 128-key steps are all masked (rows 312-319 run them masked, the
+# warpgroups of rows 320-511 skip them)
+FORWARD_SHAPES = [pytest.param(*p.values, 19, id=p.id) for p in FLASH_SHAPES] + [
+    pytest.param((2, 512, 4, 2, 128), None, True, 200,
+                 id="2x512x4x2x128-right200")]
+
+
+@pytest.mark.parametrize("shape,split,one_step,right", FORWARD_SHAPES)
+@pytest.mark.parametrize("dtype,tol", [
+    (torch.float32, 1e-4),
+    (torch.bfloat16, 2e-2),
+])
+def test_flash_forward_matches_plain(cuda, shape, split, one_step, right,
+                                     dtype, tol):
+    """The forward kernel alone (flash_forward, one launch) against
+    flash_forward_reference: the output held as
+    test_flash_attention_matches_plain holds it, the f32 log-sum-exp that
+    the backward reads within 1e-3, pad rows included."""
+    q, k, v, _, seg = _flash_inputs(cuda, dtype, *shape, split=split,
+                                    right=right)
+    E.reset_launches()
+    out, lse = E.flash_forward(q, k, v, seg)
+    torch.cuda.synchronize()
+    assert E.flash_attention.launches_fwd == 1
+    ref, ref_lse = E.flash_forward_reference(q, k, v, seg)
+    assert out.shape == ref.shape and out.dtype == dtype
+    assert lse.shape == ref_lse.shape and lse.dtype == torch.float32
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+    err = float((out.float() - ref.float()).abs().max())
+    if one_step and dtype == torch.bfloat16:
+        step = _bf16_step(float(ref.float().abs().max()))
+        assert err < tol or err <= step, (err, step)
+    else:
+        assert err < tol, err
+    assert float((lse - ref_lse).abs().max()) < 1e-3
+
+
+@pytest.mark.parametrize("shape", [(1, 512, 16, 4, 128), (1, 256, 4, 4, 256)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_flash_forward_gives_the_same_bits(cuda, shape):
+    """Two forward runs give equal outputs and log-sum-exps."""
+    q, k, v, _, seg = _flash_inputs(cuda, torch.bfloat16, *shape)
+    first = E.flash_forward(q, k, v, seg)
+    second = E.flash_forward(q, k, v, seg)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 @pytest.mark.parametrize("shape", [(1, 256, 8, 2, 128), (1, 512, 16, 4, 128)],
