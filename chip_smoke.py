@@ -298,20 +298,23 @@
    phase 9 on its model (Llama-3.1-8B at full width and depth, rank-8
    LoRA, bf16): (a) E's forward, dq and dkv kernels against
    flash_attention_reference (output and dq / dk / dv) at (B, S, H, KV,
-   D) = (1, 2048, 32, 8, 128), (2, 1024, 32, 8, 128) and (1, 1024, 16,
-   16, 256) in bf16 and (1, 1024, 32, 8, 128) in f32, row 0 left-padded
-   and the last right-padded: f32 within 1e-4; bf16 each tile of 64
-   positions of a head within 2 x the plain version's gap to the plain
-   version in f32 on the same inputs plus one bf16 step of the tile
-   (flash_gate); two backward
-   runs bit-equal; at (1, 2048, 32, 8, 128) bf16 the call ms (CUDA
-   events) of the forward and of forward + backward, each kernel's device
-   ms from CUDA-graph replay of its launcher, the plain version's,
-   F.scaled_dot_product_attention's with the segment mask (call ms and,
-   from graph replay, device ms, the forward and the backward apart)
-   and, as a floor, causal without segments, and the bound of each half
-   (flash_bound); at (1, 1024, 16, 16, 256) bf16 each half's device ms,
-   bound and share and SDPA-with-mask's device ms (time_flash_wide); (b)
+   D) = (1, 2048, 32, 8, 128), (2, 1024, 32, 8, 128), (1, 1024, 16, 16,
+   256), (1, 1024, 16, 8, 256) and (1, 2048, 16, 16, 256) (gemma-7b's
+   heads at (d)'s length) in bf16 and (1, 1024, 32, 8, 128) in f32, row
+   0 left-padded and the last right-padded: f32 within 1e-4;
+   bf16 each tile of 64 positions of a head within 2 x the plain
+   version's gap to the plain version in f32 on the same inputs plus one
+   bf16 step of the tile (flash_gate); two backward runs bit-equal at
+   the main shape and at the three head_dim-256 shapes; at (1, 2048, 32, 8,
+   128) bf16 the call ms (CUDA events) of the forward and of forward +
+   backward, each kernel's device ms from CUDA-graph replay of its
+   launcher, the plain version's, F.scaled_dot_product_attention's with
+   the segment mask (call ms and, from graph replay, device ms, the
+   forward and the backward apart) and, as a floor, causal without
+   segments, and the bound of each half (flash_bound); the same but the
+   floor at (1, 1024, 16, 16, 256) bf16 (gemma-7b's heads; the backward
+   on its wgmma_wide bodies) and at (1, 1024, 32, 8, 128) f32 (the FMA
+   bodies, SDPA with TF32 off) (time_flash_wide); (b)
    the LLM's causal-LM loss + backward through
    LLM.forward(train=True) on [1, 2048] seeded tokens, all real, with
    use_flash off and on, in turns: the losses within 5e-2 of the loss,
@@ -322,12 +325,22 @@
    collated to [1, 2048] (a right-padded tail), flash on and off, held
    alike; (c) the causal-LM flash step at [1, 4096], all real: its wall
    and peak (the plain attention would save ~103 GB of probabilities
-   there). Run alone (about 1.5 min on one H100, on a fresh random
-   slice):
-   python3 -c "import torch, chip_smoke as s; from llamole_tpu_torch.ops
-   import cuda_lib; cuda_lib.library(); torch.backends.cuda.matmul.
-   allow_tf32 = False; m, t = s.build_slice(); s.run_flash(m, t,
-   s.card_tag())"
+   there); (d) gemma-1 at gemma-7b's published widths (PHASE22
+   ["gemma7b"], 3072 wide, 16 heads of 256 with one KV head each, 28
+   layers, vocabulary 256000; random weights in a rank-8 LoRA slice of
+   its own, built once phase 9's slice is freed after phase 19): (b)'s
+   causal-LM pair at [1, 2048] under its gates, 28 launches of each of
+   E's kernels (56 forward under remat); then time_flash_wide at the
+   step's shape (1, 2048, 16, 16, 256) with every token real, E's
+   device time inside the step each kernel's launches x its replay ms;
+   the first path through a model that launches E at head_dim 256
+   (run_flash_gemma). Run alone (about 2 min on one H100, on a fresh
+   random slice):
+   python3 -c "import gc, torch, chip_smoke as s; from
+   llamole_tpu_torch.ops import cuda_lib; cuda_lib.library(); torch.
+   backends.cuda.matmul.allow_tf32 = False; m, t = s.build_slice(); s.
+   run_flash(m, t, s.card_tag()); del m, t; gc.collect(); s.
+   run_flash_gemma(s.card_tag())"
 
 Prints, before the last line, one {"kernels": [...]} JSON line (per
 kernel: launches on the main path, max_abs_err, ms, plain_ms, device_ms,
@@ -358,10 +371,13 @@ kernel E: one forward + backward at (1, 2048, 32, 8, 128) bf16 under the
 main keys, each half under fwd_* / bwd_* (device ms per kernel: fwd,
 dq, dkv), its launches those of phase 22 (b)'s causal-LM flash step (per
 kernel under launches_fwd / _dq / _dkv, (c)'s under long_*), the
-forward's body per head dim under fwd_body and the head_dim-256 times
-under d256;
-the last line is {"ok": true, "device": {...}}. Any
-failure exits non-zero.
+bodies per head dim under fwd_body / bwd_body, the head_dim-256 times
+under d256 and the f32 ones under f32, and (d)'s launches under
+launches_d256_fwd / _dq / _dkv with its walls, peaks and gaps under
+d256_*, E's times at its step's shape under d256_step and E's device
+time inside its step (launches x replay ms) under d256_step_kernel_ms;
+before it, the whole script's wall; the last line is {"ok": true,
+"device": {...}}. Any failure exits non-zero.
 """
 
 import contextlib
@@ -5885,16 +5901,35 @@ def run_ring(tag, device="cuda", sizes=None):
 # largest |exact| (flash_gate). main: the shape timed, the 8B's attention
 # at the training step's length; train_seq / long_seq: the micro steps of
 # (b) and (c); loss_gap (of the loss) and grad_rel (relative L2 of the
-# LoRA gradients as one vector): how far (b)'s flash steps may be from
-# their plain ones
+# LoRA gradients as one vector): how far (b)'s and (d)'s flash steps may be
+# from their plain ones. The head_dim-256 checks are gemma-7b's heads (16
+# of 256, one KV head each), timed at S = 1024 (time_flash_wide), the same
+# with two query heads a KV head, and gemma-7b's heads at (d)'s length,
+# the shape (d)'s step sends the kernels.
+# gemma7b: (d)'s model, the published google/gemma-7b config.json
+# (Hugging Face) as from_hf_config reads it, tie_word_embeddings written
+# out (HF's default for gemma, which the file leaves out); gemma_layers:
+# the depth (d) runs it at
 PHASE22 = {"checks": ((1, 2048, 32, 8, 128, "bf16"),
                       (2, 1024, 32, 8, 128, "bf16"),
                       (1, 1024, 16, 16, 256, "bf16"),
+                      (1, 1024, 16, 8, 256, "bf16"),
+                      (1, 2048, 16, 16, 256, "bf16"),
                       (1, 1024, 32, 8, 128, "f32")),
            "main": (1, 2048, 32, 8, 128), "left_pad": 37, "right_pad": 301,
            "f32_atol": TOL[torch.float32], "bf16_gap": 2.0,
            "train_seq": 2048, "long_seq": 4096, "loss_gap": 5e-2,
-           "grad_rel": 5e-2}
+           "grad_rel": 5e-2,
+           "gemma7b": {"model_type": "gemma", "vocab_size": 256000,
+                       "hidden_size": 3072, "intermediate_size": 24576,
+                       "num_hidden_layers": 28, "num_attention_heads": 16,
+                       "num_key_value_heads": 16, "head_dim": 256,
+                       "hidden_act": "gelu", "rms_norm_eps": 1e-6,
+                       "rope_theta": 10000.0,
+                       "max_position_embeddings": 8192,
+                       "attention_bias": False, "rope_scaling": None,
+                       "tie_word_embeddings": True},
+           "gemma_layers": 28}
 FLASH_COUNTS = ("launches_fwd", "launches_dq", "launches_dkv")
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 
@@ -6053,12 +6088,19 @@ def check_flash(flash, reference, tag, sizes=None):
 
     shape = sizes["main"]
     dt = torch.bfloat16
+    wide = [tuple(c[:5]) for c in sizes["checks"]
+            if c[4] == 256 and c[5] == "bf16"]
+    for bits in (shape, *wide):
+        q, k, v, dout, seg = flash_inputs(bits, dt, sizes)
+        first = _flash_grads(flash, q, k, v, dout, seg)[1]
+        again = _flash_grads(flash, q, k, v, dout, seg)[1]
+        if not all(torch.equal(a, b) for a, b in zip(first, again)):
+            fail(f"kernel E's backward at {bits} gave other bits on a "
+                 "second run")
+        del q, k, v, dout, seg, first, again
+    print(f"flash_attention backward: two runs bit-equal at "
+          f"{[shape, *wide]}", flush=True)
     q, k, v, dout, seg = flash_inputs(shape, dt, sizes)
-    first = _flash_grads(flash, q, k, v, dout, seg)[1]
-    again = _flash_grads(flash, q, k, v, dout, seg)[1]
-    if not all(torch.equal(a, b) for a, b in zip(first, again)):
-        fail("kernel E's backward gave other bits on a second run")
-    del first, again
 
     timed_pair = lambda fn, layout=lambda t: t, grad_out=dout: (
         flash_timed_pair(fn, [layout(t) for t in (q, k, v)], grad_out))
@@ -6122,7 +6164,8 @@ def check_flash(flash, reference, tag, sizes=None):
                share=(fwd_bound[0] + bwd_bound[0]) / rec["device_ms"],
                fwd_share=fwd_bound[0] / rec["fwd_device_ms"],
                bwd_share=bwd_bound[0] / rec["bwd_device_ms"],
-               fwd_body={str(d): E.forward_body(dt, d) for d in E.HEAD_DIMS})
+               fwd_body={str(d): E.forward_body(dt, d) for d in E.HEAD_DIMS},
+               bwd_body={str(d): E.backward_body(dt, d) for d in E.HEAD_DIMS})
     fmt = lambda x: "not measured" if x is None else f"{x:.4f}"
     print(f"flash_attention at (B, S, H, KV, D)={shape} bf16, {pairs} "
           f"attended pairs a head (device times from {rec['device_from']}"
@@ -6144,10 +6187,11 @@ def check_flash(flash, reference, tag, sizes=None):
           f"{fmt(rec['library_device_ms'])} ms; SDPA causal without "
           f"segments (a floor) {fmt(rec['sdpa_causal_fwd_ms'])} / "
           f"{fmt(rec['sdpa_causal_ms'])} ms [{tag}]", flush=True)
-    wide = next(tuple(c[:5]) for c in sizes["checks"]
-                if c[4] == 256 and c[5] == "bf16")
     del q, k, v, dout, seg, kernel, plain
-    rec["d256"] = time_flash_wide(wide, sizes, tag)
+    rec["d256"] = time_flash_wide(wide[0], dt, sizes, tag)
+    rec["f32"] = time_flash_wide(next(tuple(c[:5]) for c in sizes["checks"]
+                                      if c[5] == "f32"),
+                                 torch.float32, sizes, tag)
     return rec
 
 
@@ -6174,25 +6218,40 @@ def sdpa_layout(shape, dout, seg):
             flash_allowed(seg)[:, None])
 
 
-def time_flash_wide(shape, sizes, tag):
-    """Kernel E at head_dim 256 (gemma under use_flash) in bf16 on
-    flash_inputs' padding: the forward's and backward's (dq + dkv) device
-    ms by CUDA-graph replay of each launcher, each half's flash_bound and
-    share, and SDPA-with-mask's forward and backward device ms by the same
-    replay (None where it cannot run or be captured)."""
+def time_flash_wide(shape, dt, sizes, tag):
+    """Kernel E at one more shape in dt on flash_inputs' padding at sizes'
+    left_pad / right_pad (bf16 at head_dim 256, gemma's heads, padded as
+    the checks are and, for (d), at its step's shape with no padding;
+    f32, the FMA bodies): the forward's and
+    each backward kernel's device ms by CUDA-graph replay of its
+    launcher, each half's flash_bound and share, the call ms (CUDA
+    events) of the forward and of forward + backward through
+    flash_attention, the plain version's forward + backward, and
+    SDPA-with-mask's call ms and device ms (the forward and the backward
+    apart; None where it cannot run or be captured), with the bodies'
+    names. In f32 the card's TF32 setting is recorded beside SDPA's
+    times (main() turns it off), and each time is taken over 5 x 5
+    calls (they last milliseconds; the script's time limit)."""
     import torch.nn.functional as F
     from llamole_tpu_torch.ops import flash_attention as E
-    dt = torch.bfloat16
+    d = shape[-1]
+    reps = {} if dt == torch.bfloat16 else {"launches": 5, "repeats": 5}
     q, k, v, dout, seg = flash_inputs(shape, dt, sizes)
     out, lse = E.flash_forward(q, k, v, seg)
     _, delta = E.flash_backward_dq(q, k, v, seg, out, dout, lse)
-    rec = {"shape": list(shape), "fwd_body": E.forward_body(dt, shape[-1]),
-           "fwd_device_ms": graph_ms(lambda: E.flash_forward(q, k, v, seg)),
+    rec = {"shape": list(shape), "dtype": str(dt).split(".")[-1],
+           "pads": [sizes["left_pad"], sizes["right_pad"]],
+           "fwd_body": E.forward_body(dt, d), "bwd_body": E.backward_body(dt, d),
+           "fwd_device_ms": graph_ms(lambda: E.flash_forward(q, k, v, seg),
+                                     **reps),
            "dq_device_ms": graph_ms(lambda: E.flash_backward_dq(
-               q, k, v, seg, out, dout, lse)),
+               q, k, v, seg, out, dout, lse), **reps),
            "dkv_device_ms": graph_ms(lambda: E.flash_backward_dkv(
-               q, k, v, seg, dout, lse, delta)),
-           "library_fwd_device_ms": None, "library_bwd_device_ms": None}
+               q, k, v, seg, dout, lse, delta), **reps),
+           "library_fwd_ms": None, "library_ms": None,
+           "library_fwd_device_ms": None, "library_bwd_device_ms": None,
+           "allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+    del out, lse, delta
     rec["bwd_device_ms"] = rec["dq_device_ms"] + rec["dkv_device_ms"]
     pairs = int(flash_allowed(seg).sum())
     for half, backward in (("fwd", False), ("bwd", True)):
@@ -6200,29 +6259,47 @@ def time_flash_wide(shape, sizes, tag):
         rec.update({f"{half}_bound_ms": bound, f"{half}_bound_by": by,
                     f"{half}_share": bound / rec[f"{half}_device_ms"]})
     rec["pairs"] = pairs
+    kernel = flash_timed_pair(lambda a, b, c: E.flash_attention(a, b, c, seg),
+                              [q, k, v], dout)
+    plain = flash_timed_pair(
+        lambda a, b, c: E.flash_attention_reference(a, b, c, seg), [q, k, v],
+        dout)
+    rec.update(fwd_ms=cuda_ms(kernel[0], **reps),
+               ms=cuda_ms(kernel[1], **reps),
+               plain_ms=cuda_ms(plain[1], launches=5, repeats=5))
+    del kernel, plain
     bhsd, dout_t, mask = sdpa_layout(shape, dout, seg)
     try:
         lib = flash_timed_pair(lambda a, b, c: F.scaled_dot_product_attention(
             a, b, c, attn_mask=mask, enable_gqa=True),
             [bhsd(t) for t in (q, k, v)], dout_t)
-        rec["library_fwd_device_ms"] = graph_ms(lib[0])
-        rec["library_bwd_device_ms"] = (graph_ms(lib[1])
+        rec["library_fwd_ms"], rec["library_ms"] = (cuda_ms(lib[0], **reps),
+                                                    cuda_ms(lib[1], **reps))
+        rec["library_fwd_device_ms"] = graph_ms(lib[0], **reps)
+        rec["library_bwd_device_ms"] = (graph_ms(lib[1], **reps)
                                         - rec["library_fwd_device_ms"])
     except RuntimeError as exc:  # a yardstick only: the port never calls it
         print(f"SDPA at {shape} not timed: {exc}", flush=True)
     fmt = lambda x: "not measured" if x is None else f"{x:.4f}"
-    print(f"flash_attention at (B, S, H, KV, D)={shape} bf16, {pairs} "
-          f"attended pairs a head (device times from CUDA-graph replay of "
-          f"each launcher; the forward on its {rec['fwd_body']} body): "
-          f"forward {rec['fwd_device_ms']:.4f} ms, bound "
+    print(f"flash_attention at (B, S, H, KV, D)={shape} {rec['dtype']} "
+          f"(row 0 left-padded by {sizes['left_pad']}, the last row "
+          f"right-padded by {sizes['right_pad']}), "
+          f"{pairs} attended pairs a head (device times from CUDA-graph "
+          f"replay of each launcher; the forward on its {rec['fwd_body']} "
+          f"body, dq and dkv on their {rec['bwd_body']} bodies): forward "
+          f"{rec['fwd_device_ms']:.4f} ms, bound "
           f"{1e3 * rec['fwd_bound_ms']:.2f} us, share {rec['fwd_share']:.4f}; "
           f"backward {rec['bwd_device_ms']:.4f} ms (dq "
           f"{rec['dq_device_ms']:.4f} + dkv {rec['dkv_device_ms']:.4f}), "
-          f"bound {1e3 * rec['bwd_bound_ms']:.2f} us, share "
-          f"{rec['bwd_share']:.4f}; SDPA with the segment mask "
-          f"{fmt(rec['library_fwd_device_ms'])} / "
-          f"{fmt(rec['library_bwd_device_ms'])} ms (forward / backward) "
-          f"[{tag}]", flush=True)
+          f"bound {1e3 * rec['bwd_bound_ms']:.2f} us ({rec['bwd_bound_by']}), "
+          f"share {rec['bwd_share']:.4f}; call forward {rec['fwd_ms']:.4f} / "
+          f"forward + backward {rec['ms']:.4f} ms, plain version forward + "
+          f"backward {rec['plain_ms']:.4f} ms; SDPA with the segment mask "
+          f"device {fmt(rec['library_fwd_device_ms'])} / "
+          f"{fmt(rec['library_bwd_device_ms'])} ms (forward / backward), "
+          f"call {fmt(rec['library_fwd_ms'])} / {fmt(rec['library_ms'])} ms "
+          f"(forward / forward + backward; TF32 "
+          f"{'on' if rec['allow_tf32'] else 'off'}) [{tag}]", flush=True)
     return rec
 
 
@@ -6421,7 +6498,65 @@ def run_flash(model, tok, tag, device="cuda", sizes=None):
             "walls": {"a": t_a, "b": t_b, "c": t_c}}
 
 
+def run_flash_gemma(tag, device="cuda", sizes=None, build=None):
+    """Phase 22 (d): gemma-1 at gemma-7b's published widths (sizes
+    ["gemma7b"] through LLMConfig.from_hf_config: 16 heads of 256, one KV
+    head each, no softcap, window or query scale, so use_flash takes
+    kernel E at head_dim 256) at gemma_layers layers, random bf16 weights
+    (family_llm) in a rank-8 LoRA GraphLM (build, build_slice by
+    default), run once phase 9's slice is freed; the causal-LM loss +
+    backward on [1, train_seq] seeded real tokens with use_flash off and
+    on in turns (flash_pair, phase 22 (b)'s gates: every layer on kernel
+    E, no plain attention call), then, on the card, E at the step's shape
+    with every token real (time_flash_wide), its kernels' time inside the
+    step each kernel's launches x its replay ms. Returns flash_pair's
+    record, the timing record, the in-step kernel ms and the part's
+    wall."""
+    from llamole_tpu_torch.models.gllm import LLMConfig
+    sizes = sizes or PHASE22
+    build = build or build_slice
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(LLMConfig.from_hf_config(sizes["gemma7b"]),
+                              num_layers=sizes["gemma_layers"])
+    model, _ = build(family_llm(cfg, device))
+    layers = cfg.num_layers
+    need = {"launches_fwd": layers * (2 if cfg.remat else 1),
+            "launches_dq": layers, "launches_dkv": layers}
+    batch = flash_lm_batch(cfg.vocab_size, sizes["train_seq"], device)
+    pair = flash_pair(model, batch, device, sizes, lm_step_loss,
+                      (False, True, True, False),
+                      f"(d) gemma-7b ({cfg.hidden_size} wide, "
+                      f"{cfg.num_heads} x {cfg.head_dim_} heads, {layers} "
+                      f"layers) causal-LM loss + backward", need, tag)
+    del model, batch
+    gc.collect()
+    timed, kernels = {}, {}
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        shape = (1, sizes["train_seq"], cfg.num_heads, cfg.num_kv_heads,
+                 cfg.head_dim_)
+        timed = time_flash_wide(shape, torch.bfloat16,
+                                {**sizes, "left_pad": 0, "right_pad": 0},
+                                tag)
+        for kind in ("fwd", "dq", "dkv"):
+            n = pair["flash"][f"launches_{kind}"]
+            each = timed[f"{kind}_device_ms"]
+            kernels[kind] = {"launches": n, "device_ms": each,
+                             "ms": n * each}
+        print(f"phase 22 (d): kernel E's device time inside the flash step "
+              f"(launches x CUDA-graph replay ms at {shape}, every token "
+              f"real), "
+              + ", ".join(f"{kind} {r['launches']} x {r['device_ms']:.4f} = "
+                          f"{r['ms']:.3f} ms" for kind, r in kernels.items())
+              + f"; {sum(r['ms'] for r in kernels.values()):.3f} ms of the "
+              f"flash step's {pair['flash']['wall'] * 1e3:.1f} ms wall "
+              f"[{tag}]", flush=True)
+    return {**pair, "timed": timed, "kernels": kernels,
+            "wall": time.perf_counter() - t0}
+
+
 def main() -> int:
+    t_script = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -6482,12 +6617,6 @@ def main() -> int:
         b_training, c_training, saved, train_peak, phase9 = run_training(
             model, tok, kernels, tag, train_dir)
         phase22 = run_flash(model, tok, tag)
-        walls22 = phase22["walls"]
-        print(f"phase 22: (a) kernel E's checks and times "
-              f"{walls22['a']:.1f} s, (b) the training steps with and "
-              f"without use_flash {walls22['b']:.1f} s, (c) the flash step "
-              f"at [1, {PHASE22['long_seq']}] {walls22['c']:.1f} s; "
-              f"{sum(walls22.values()):.1f} s in all [{tag}]", flush=True)
         gc.collect()
         torch.cuda.empty_cache()
         check_denoiser(model, tag)
@@ -6508,6 +6637,17 @@ def main() -> int:
         torch.cuda.empty_cache()
         print(f"slice freed: {torch.cuda.memory_allocated() / 2**30:.2f} "
               "GiB still allocated", flush=True)
+        # phase 22 (d): gemma-7b's ~17 GB of weights on a card of its own
+        gemma22 = run_flash_gemma(tag)
+        walls22 = {**phase22["walls"], "d": gemma22["wall"]}
+        print(f"phase 22: (a) kernel E's checks and times "
+              f"{walls22['a']:.1f} s, (b) the training steps with and "
+              f"without use_flash {walls22['b']:.1f} s, (c) the flash step "
+              f"at [1, {PHASE22['long_seq']}] {walls22['c']:.1f} s, (d) "
+              f"gemma-7b's steps and E at their shape {walls22['d']:.1f} s; "
+              f"{sum(walls22.values()):.1f} s in all [{tag}]", flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
         stack_launches, pretrain_bank = run_stack(kernels, tag)
         t0 = time.perf_counter()
         phase17 = {}
@@ -6581,6 +6721,8 @@ def main() -> int:
                 **{k: rec[k] for k in keys}, **extra}
 
     flash22 = phase22["train"]["flash"]
+    print(f"chip_smoke: the whole script took "
+          f"{time.perf_counter() - t_script:.1f} s [{tag}]", flush=True)
     attn_src = "llamole_tpu_torch/csrc/fused_attention.cu"
     gin_src = "llamole_tpu_torch/csrc/gin_aggregate.cu"
     print(json.dumps({"kernels": [
@@ -6707,7 +6849,16 @@ def main() -> int:
                   "library_bwd_device_ms", "sdpa_causal_ms",
                   "sdpa_causal_fwd_ms",
                   "f32_max_abs_err", "pairs", "shape", "fwd_body",
-                  "d256")},
+                  "bwd_body", "d256", "f32")},
+              # phase 22 (d): gemma-7b's flash step, E at head_dim 256
+              **{f"launches_d256_{k[len('launches_'):]}": gemma22["flash"][k]
+                 for k in FLASH_COUNTS},
+              d256_step=gemma22["timed"],
+              d256_step_kernel_ms=gemma22["kernels"],
+              d256_loss_gap=gemma22["loss_gap"],
+              d256_grad_rel=gemma22["grad_rel"],
+              d256_wall_s={k: gemma22[k]["wall"] for k in ("plain", "flash")},
+              d256_peak={k: gemma22[k]["peak"] for k in ("plain", "flash")},
               train_loss_gap=phase22["train"]["loss_gap"],
               train_grad_rel=phase22["train"]["grad_rel"],
               train_wall_s={k: phase22["train"][k]["wall"]

@@ -23,12 +23,10 @@
 //
 // Bodies, one set per input type:
 //
-// * bf16 (the LLM's type), f32 sums, every body on the tensor cores. The
-//   forward and, at D = 128 (the Llama, Qwen, Mistral and Mixtral
-//   families; gemma's is 256), the backward are warpgroup bodies (wgmma,
-//   wgmma.cuh), two warpgroups a block, tiles in the 128-byte swizzled
-//   layout through a 2-stage cp.async ring, nothing global read inside a
-//   step, exponentials on ex2.approx:
+// * bf16 (the LLM's type), f32 sums, every body a warpgroup body on the
+//   tensor cores (wgmma, wgmma.cuh), two warpgroups a block, tiles in the
+//   128-byte swizzled layout through a 2-stage cp.async ring, nothing
+//   global read inside a step, exponentials on ex2.approx:
 //   - flash_fwd_wgmma: one block per (b, head, 128 query rows), the
 //     longest first; per step of 128 keys (64 at D = 256) S = Q.K^T from
 //     shared memory, an online softmax in the log2 domain with a finite
@@ -39,7 +37,8 @@
 //   delta = rowsum(dO * O) (f32, from the bf16 output) and writes it out,
 //   then dkv. Both recompute P = exp(s - lse) and dP = dO.V^T and round
 //   dS = P * (dP - delta) * scale to bf16 (jaxlib casts ds to k's type);
-//   dV takes P in dO's type.
+//   dV takes P in dO's type. At D = 128 (the Llama, Qwen, Mistral and
+//   Mixtral families):
 //   - flash_bwd_dq_wgmma: one block per (b, head, 128 query rows), the
 //     longest first; delta by 16-byte loads of the rows' O and dO; per
 //     64-key step S = Q.K^T and dP = dO.V^T read both operands from shared
@@ -54,17 +53,17 @@
 //     workspace [2, G, B, S, KV, D], and flash_group_sum adds the G
 //     partials in head order and casts once: no float atomics, and two
 //     runs give the same bits. With G = 1 the block writes bf16.
-//   At D = 256 the backward's dK / dV registers of 128 keys do not fit,
-//   so mma.sync (m16n8k16) bodies take it: flash_bwd_dq_mma (64 query
-//   rows a block, 32-key tiles) and flash_bwd_dkv_mma (one block per (b,
-//   KV head, 64 keys) looping over the group's heads and 32-query tiles,
-//   eight warps splitting the dims, the group summed in registers).
+//   At D = 256 (gemma) 64-row blocks whose warpgroups split a step's work
+//   (flash_bwd_dq_wide: the step's keys, each warpgroup a partial dQ over
+//   D, added once at the end; flash_bwd_dkv_wide: warpgroup 0 forms P and
+//   dV, warpgroup 1 dS and dK, P handed over in shared memory), the same
+//   grids, workspace and group sum (the section "the backward at D = 256").
 // * f32, plain FMA loops (a correct body; the LLM never runs in f32 on the
 //   card's main path): 32-row tiles, eight threads a row, the same online
 //   softmax and the same three kernels.
 //
 // D is 128 or 256 and S a multiple of 128 (the 128-row and 128-key
-// blocks; the route sends S % 128 == 0); the wrapper
+// blocks at D = 128; the route sends S % 128 == 0); the wrapper
 // (ops/flash_attention.py) refuses anything else, and so do the
 // launchers. More than 48 KB of shared memory is asked for through
 // allow_shared, once per device.
@@ -77,10 +76,6 @@
 namespace {
 
 constexpr float kMaskValue = -0.7f * 3.40282346638528859812e+38f;
-constexpr int kBQ = 64;         // query rows of an mma.sync dq block
-constexpr int kThreads = 128;   // 4 warps of 16 rows
-constexpr int kBKV = 64;        // keys of a dkv block
-constexpr int kBQ2 = 32;        // queries a dkv step
 constexpr int kF = 32;          // rows and keys of an f32 tile
 constexpr int kFThreads = 256;  // 8 threads a row
 constexpr int kSeqMultiple = 128;  // the 128-row / 128-key blocks
@@ -88,37 +83,6 @@ constexpr int kSeqMultiple = 128;  // the 128-row / 128-key blocks
 struct Dims {
   int B, S, H, KV;
 };
-
-// ---- the bf16 tensor-core bodies ---------------------------------------
-
-template <int D>
-__host__ __device__ constexpr int key_tile() {
-  return D == 128 ? 64 : 32;
-}
-
-template <int D>
-constexpr size_t dq_shared_bytes() {
-  return (size_t)(2 * kBQ + 2 * key_tile<D>()) * (D + 8) * sizeof(bf16) +
-         key_tile<D>() * sizeof(int) + kBQ * sizeof(float);
-}
-
-template <int D>
-constexpr size_t dkv_shared_bytes() {
-  return (size_t)(2 * kBKV + 2 * kBQ2) * (D + 8) * sizeof(bf16) +
-         3 * kBQ2 * sizeof(float);
-}
-
-// copy `rows` rows of D bf16 (global row stride `stride`) into a tile of
-// row stride D + 8, 16 bytes a thread
-template <int D, int kNThreads>
-__device__ __forceinline__ void copy_rows(bf16* dst, const bf16* src, long long stride,
-                                          int rows, int tid) {
-  constexpr int CH = D / 8;
-  for (int e = tid; e < rows * CH; e += kNThreads) {
-    const int r = e / CH, c = e % CH;
-    cp_async16(dst + r * (D + 8) + c * 8, src + r * stride + c * 8);
-  }
-}
 
 // The block's (b, head, query tile) with the longest rows first.
 struct QueryBlock {
@@ -131,294 +95,7 @@ __device__ __forceinline__ QueryBlock query_block(const Dims& dm, int rows) {
   return {bh / dm.H, bh % dm.H, (nq - 1 - (int)blockIdx.x / (dm.B * dm.H)) * rows};
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_mma_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const int* __restrict__ seg, const bf16* __restrict__ out, const bf16* __restrict__ dout,
-    const float* __restrict__ lse, float* __restrict__ delta, bf16* __restrict__ dq, Dims dm,
-    float scale) {
-  constexpr int BK = key_tile<D>();
-  constexpr int LD = D + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [kBQ][LD]
-  bf16* dos = qs + kBQ * LD;                      // [kBQ][LD]
-  bf16* ks = dos + kBQ * LD;                      // [BK][LD]
-  bf16* vs = ks + BK * LD;                        // [BK][LD]
-  int* kseg = reinterpret_cast<int*>(vs + BK * LD);
-  float* rowd = reinterpret_cast<float*>(kseg + BK);  // [kBQ] delta
-
-  const QueryBlock blk = query_block(dm, kBQ);
-  const int S = dm.S;
-  const long long q_row = (long long)dm.H * D, kv_row = (long long)dm.KV * D;
-  const int kvh = blk.h / (dm.H / dm.KV);
-  const long long q_off = (long long)blk.b * S * q_row + (long long)blk.h * D;
-  const bf16* kg = k + (long long)blk.b * S * kv_row + (long long)kvh * D;
-  const bf16* vg = v + (long long)blk.b * S * kv_row + (long long)kvh * D;
-  const int* sg = seg + (long long)blk.b * S;
-  const long long head_rows = ((long long)blk.b * dm.H + blk.h) * S;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t4 = lane & 3;
-
-  copy_rows<D, kThreads>(qs, q + q_off + blk.q0 * q_row, q_row, kBQ, tid);
-  copy_rows<D, kThreads>(dos, dout + q_off + blk.q0 * q_row, q_row, kBQ, tid);
-  cp_async_commit();
-  // delta = rowsum(dO * O) in f32, one warp a row (jaxlib's di)
-  for (int i = 0; i < 16; ++i) {
-    const int r = warp * 16 + i;
-    const bf16* orow = out + q_off + (blk.q0 + r) * q_row;
-    const bf16* drow = dout + q_off + (blk.q0 + r) * q_row;
-    float acc = 0.f;
-    for (int d = lane; d < D; d += 32)
-      acc += __bfloat162float(orow[d]) * __bfloat162float(drow[d]);
-    acc = warp_sum(acc);
-    if (lane == 0) {
-      rowd[r] = acc;
-      delta[head_rows + blk.q0 + r] = acc;
-    }
-  }
-
-  const int r0 = blk.q0 + warp * 16 + g, r1 = r0 + 8;
-  const int seg0 = sg[r0], seg1 = sg[r1];
-  const float L0 = lse[head_rows + r0], L1 = lse[head_rows + r1];
-  const int warp_last = blk.q0 + warp * 16 + 15;
-  float acc[D / 8][4];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  const int nkt = (blk.q0 + kBQ - 1) / BK + 1;
-
-  for (int kt = 0; kt < nkt; ++kt) {
-    const int j0 = kt * BK;
-    __syncthreads();
-    copy_rows<D, kThreads>(ks, kg + j0 * kv_row, kv_row, BK, tid);
-    copy_rows<D, kThreads>(vs, vg + j0 * kv_row, kv_row, BK, tid);
-    cp_async_commit();
-    for (int j = tid; j < BK; j += kThreads) kseg[j] = sg[j0 + j];
-    cp_async_wait<0>();
-    __syncthreads();
-    if (j0 > warp_last) continue;  // warp-uniform: every key is above its rows
-    const float d0 = rowd[warp * 16 + g], d1 = rowd[warp * 16 + g + 8];
-    float s[BK / 8][4], dp[BK / 8][4];
-#pragma unroll
-    for (int i = 0; i < BK / 8; ++i) {
-      s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
-      dp[i][0] = dp[i][1] = dp[i][2] = dp[i][3] = 0.f;
-    }
-#pragma unroll
-    for (int c = 0; c < D / 16; ++c) {
-      uint32_t qa[4], da[4];
-      ldmatrix_x4(qa, qs + (warp * 16 + (lane & 15)) * LD + c * 16 + (lane >> 4) * 8);
-      ldmatrix_x4(da, dos + (warp * 16 + (lane & 15)) * LD + c * 16 + (lane >> 4) * 8);
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        const int at = (kk * 16 + (lane & 7) + (lane >> 4) * 8) * LD + c * 16 +
-                       ((lane >> 3) & 1) * 8;
-        uint32_t kb[4], vb[4];
-        ldmatrix_x4(kb, ks + at);
-        ldmatrix_x4(vb, vs + at);
-        mma_bf16(s[2 * kk], qa, kb[0], kb[1]);
-        mma_bf16(s[2 * kk + 1], qa, kb[2], kb[3]);
-        mma_bf16(dp[2 * kk], da, vb[0], vb[1]);
-        mma_bf16(dp[2 * kk + 1], da, vb[2], vb[3]);
-      }
-    }
-    uint32_t dsa[BK / 16][4];
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-      const int jj = nt * 8 + 2 * t4;
-      const int ja = j0 + jj;
-      const int sa = kseg[jj], sb = kseg[jj + 1];
-      const float p0 = (ja <= r0 && sa == seg0) ? expf(s[nt][0] * scale - L0) : 0.f;
-      const float p1 = (ja + 1 <= r0 && sb == seg0) ? expf(s[nt][1] * scale - L0) : 0.f;
-      const float p2 = (ja <= r1 && sa == seg1) ? expf(s[nt][2] * scale - L1) : 0.f;
-      const float p3 = (ja + 1 <= r1 && sb == seg1) ? expf(s[nt][3] * scale - L1) : 0.f;
-      s[nt][0] = p0 * (dp[nt][0] - d0) * scale;
-      s[nt][1] = p1 * (dp[nt][1] - d0) * scale;
-      s[nt][2] = p2 * (dp[nt][2] - d1) * scale;
-      s[nt][3] = p3 * (dp[nt][3] - d1) * scale;
-    }
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      dsa[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      dsa[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      dsa[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      dsa[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-    }
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-#pragma unroll
-      for (int c = 0; c < D / 16; ++c) {
-        uint32_t kb[4];
-        ldmatrix_x4_trans(kb, ks + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
-                                  c * 16 + (lane >> 4) * 8);
-        mma_bf16(acc[2 * c], dsa[kk], kb[0], kb[1]);
-        mma_bf16(acc[2 * c + 1], dsa[kk], kb[2], kb[3]);
-      }
-    }
-  }
-  bf16* dg = dq + q_off;
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) {
-    const int d = i * 8 + 2 * t4;
-    *reinterpret_cast<__nv_bfloat162*>(dg + r0 * q_row + d) =
-        __floats2bfloat162_rn(acc[i][0], acc[i][1]);
-    *reinterpret_cast<__nv_bfloat162*>(dg + r1 * q_row + d) =
-        __floats2bfloat162_rn(acc[i][2], acc[i][3]);
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads * (D / 128)) flash_bwd_dkv_mma_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const int* __restrict__ seg, const bf16* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv, Dims dm,
-    float scale) {
-  constexpr int NT = kThreads * (D / 128);
-  constexpr int LD = D + 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);  // [kBKV][LD]
-  bf16* vs = ks + kBKV * LD;                      // [kBKV][LD]
-  bf16* qs = vs + kBKV * LD;                      // [kBQ2][LD]
-  bf16* dos = qs + kBQ2 * LD;                     // [kBQ2][LD]
-  int* qseg = reinterpret_cast<int*>(dos + kBQ2 * LD);
-  float* qlse = reinterpret_cast<float*>(qseg + kBQ2);
-  float* qdel = qlse + kBQ2;
-
-  const int S = dm.S, G = dm.H / dm.KV;
-  const int bk = blockIdx.x % (dm.B * dm.KV);
-  const int b = bk / dm.KV, kvh = bk % dm.KV;
-  const int j0 = (int)(blockIdx.x / (dm.B * dm.KV)) * kBKV;  // the most queries first
-  const long long q_row = (long long)dm.H * D, kv_row = (long long)dm.KV * D;
-  const long long kv_off = (long long)b * S * kv_row + (long long)kvh * D;
-  const int* sg = seg + (long long)b * S;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int kg = warp & 3;          // this warp's 16 keys
-  const int c0 = (warp >> 2) * 128;  // and its 128 dims
-
-  copy_rows<D, NT>(ks, k + kv_off + j0 * kv_row, kv_row, kBKV, tid);
-  copy_rows<D, NT>(vs, v + kv_off + j0 * kv_row, kv_row, kBKV, tid);
-  cp_async_commit();
-
-  const int jr0 = j0 + kg * 16 + g, jr1 = jr0 + 8;  // this thread's keys
-  const int sj0 = sg[jr0], sj1 = sg[jr1];
-  const int warp_first = j0 + kg * 16;
-  float dka[16][4], dva[16][4];
-#pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    dka[i][0] = dka[i][1] = dka[i][2] = dka[i][3] = 0.f;
-    dva[i][0] = dva[i][1] = dva[i][2] = dva[i][3] = 0.f;
-  }
-
-  for (int gi = 0; gi < G; ++gi) {
-    const int h = kvh * G + gi;
-    const long long q_off = (long long)b * S * q_row + (long long)h * D;
-    const long long head_rows = ((long long)b * dm.H + h) * S;
-    for (int i0 = j0; i0 < S; i0 += kBQ2) {  // query tiles at or below the diagonal
-      __syncthreads();
-      copy_rows<D, NT>(qs, q + q_off + i0 * q_row, q_row, kBQ2, tid);
-      copy_rows<D, NT>(dos, dout + q_off + i0 * q_row, q_row, kBQ2, tid);
-      cp_async_commit();
-      for (int i = tid; i < kBQ2; i += NT) {
-        qseg[i] = sg[i0 + i];
-        qlse[i] = lse[head_rows + i0 + i];
-        qdel[i] = delta[head_rows + i0 + i];
-      }
-      cp_async_wait<0>();
-      __syncthreads();
-      if (i0 + kBQ2 - 1 < warp_first) continue;  // warp-uniform: every query precedes its keys
-      // S^T = K.Q^T and dP^T = V.dO^T: 16 keys x 32 queries
-      float s[4][4], dp[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
-        dp[i][0] = dp[i][1] = dp[i][2] = dp[i][3] = 0.f;
-      }
-#pragma unroll 4
-      for (int c = 0; c < D / 16; ++c) {
-        uint32_t ka[4], va[4];
-        ldmatrix_x4(ka, ks + (kg * 16 + (lane & 15)) * LD + c * 16 + (lane >> 4) * 8);
-        ldmatrix_x4(va, vs + (kg * 16 + (lane & 15)) * LD + c * 16 + (lane >> 4) * 8);
-#pragma unroll
-        for (int kk = 0; kk < 2; ++kk) {
-          const int at = (kk * 16 + (lane & 7) + (lane >> 4) * 8) * LD + c * 16 +
-                         ((lane >> 3) & 1) * 8;
-          uint32_t qb[4], db[4];
-          ldmatrix_x4(qb, qs + at);
-          ldmatrix_x4(db, dos + at);
-          mma_bf16(s[2 * kk], ka, qb[0], qb[1]);
-          mma_bf16(s[2 * kk + 1], ka, qb[2], qb[3]);
-          mma_bf16(dp[2 * kk], va, db[0], db[1]);
-          mma_bf16(dp[2 * kk + 1], va, db[2], db[3]);
-        }
-      }
-      // [0], [1]: key jr0, queries i0 + ic and + 1; [2], [3]: key jr1
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int ic = nt * 8 + 2 * t4;
-        const int ia = i0 + ic;
-        const int sa = qseg[ic], sb = qseg[ic + 1];
-        const float La = qlse[ic], Lb = qlse[ic + 1];
-        const float Da = qdel[ic], Db = qdel[ic + 1];
-        const float p0 = (jr0 <= ia && sj0 == sa) ? expf(s[nt][0] * scale - La) : 0.f;
-        const float p1 = (jr0 <= ia + 1 && sj0 == sb) ? expf(s[nt][1] * scale - Lb) : 0.f;
-        const float p2 = (jr1 <= ia && sj1 == sa) ? expf(s[nt][2] * scale - La) : 0.f;
-        const float p3 = (jr1 <= ia + 1 && sj1 == sb) ? expf(s[nt][3] * scale - Lb) : 0.f;
-        s[nt][0] = p0;
-        s[nt][1] = p1;
-        s[nt][2] = p2;
-        s[nt][3] = p3;
-        dp[nt][0] = p0 * (dp[nt][0] - Da) * scale;
-        dp[nt][1] = p1 * (dp[nt][1] - Db) * scale;
-        dp[nt][2] = p2 * (dp[nt][2] - Da) * scale;
-        dp[nt][3] = p3 * (dp[nt][3] - Db) * scale;
-      }
-      uint32_t pa[2][4], dsa[2][4];
-#pragma unroll
-      for (int kk = 0; kk < 2; ++kk) {
-        pa[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-        pa[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-        pa[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-        pa[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-        dsa[kk][0] = pack_bf16(dp[2 * kk][0], dp[2 * kk][1]);
-        dsa[kk][1] = pack_bf16(dp[2 * kk][2], dp[2 * kk][3]);
-        dsa[kk][2] = pack_bf16(dp[2 * kk + 1][0], dp[2 * kk + 1][1]);
-        dsa[kk][3] = pack_bf16(dp[2 * kk + 1][2], dp[2 * kk + 1][3]);
-      }
-      // dV += P^T.dO and dK += dS^T.Q over this warp's 128 dims
-#pragma unroll
-      for (int kk = 0; kk < 2; ++kk) {
-#pragma unroll
-        for (int c = 0; c < 8; ++c) {
-          const int at = (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + c0 + c * 16 +
-                         (lane >> 4) * 8;
-          uint32_t db[4], qb[4];
-          ldmatrix_x4_trans(db, dos + at);
-          ldmatrix_x4_trans(qb, qs + at);
-          mma_bf16(dva[2 * c], pa[kk], db[0], db[1]);
-          mma_bf16(dva[2 * c + 1], pa[kk], db[2], db[3]);
-          mma_bf16(dka[2 * c], dsa[kk], qb[0], qb[1]);
-          mma_bf16(dka[2 * c + 1], dsa[kk], qb[2], qb[3]);
-        }
-      }
-    }
-  }
-  bf16* dkg = dk + kv_off;
-  bf16* dvg = dv + kv_off;
-#pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    const int d = c0 + i * 8 + 2 * t4;
-    *reinterpret_cast<__nv_bfloat162*>(dkg + jr0 * kv_row + d) =
-        __floats2bfloat162_rn(dka[i][0], dka[i][1]);
-    *reinterpret_cast<__nv_bfloat162*>(dkg + jr1 * kv_row + d) =
-        __floats2bfloat162_rn(dka[i][2], dka[i][3]);
-    *reinterpret_cast<__nv_bfloat162*>(dvg + jr0 * kv_row + d) =
-        __floats2bfloat162_rn(dva[i][0], dva[i][1]);
-    *reinterpret_cast<__nv_bfloat162*>(dvg + jr1 * kv_row + d) =
-        __floats2bfloat162_rn(dva[i][2], dva[i][3]);
-  }
-}
-
-// ---- the bf16 warpgroup bodies: the forward, and the backward at D = 128 ----
+// ---- the bf16 warpgroup bodies: the forward and the backward ---------------
 //
 // Two warpgroups a block (8 warps); every product is a wgmma on tiles in the
 // 128-byte swizzled layout of wgmma.cuh, which cp.async fills through a ring
@@ -465,27 +142,32 @@ __device__ __forceinline__ char* align_1k(unsigned char* p) {
 }
 
 // A (64 rows) . B^T over depth D for one warpgroup: two K-major tiles, the
-// A rows starting at row0 of a tile of a_rows rows, B's b_rows (64, or 128
-// for a 64-register d) the product's columns
+// A rows starting at row0 of a tile of a_rows rows, B's 2 R / 4 rows (32,
+// 64 or 128 for a 16-, 32- or 64-register d) the product's columns, from
+// b, a row of a tile of b_rows rows (a multiple of 8: the swizzle's repeat)
 template <int D = 128, int R>
 __device__ __forceinline__ void product_qk(float (&d)[R], const void* a, int a_rows, int row0,
                                            const void* b, int b_rows) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
-    if constexpr (R == 32)
-      wgmma_64x64_ss(d, desc_k_major(a, a_rows, row0, kk), desc_k_major(b, b_rows, 0, kk), kk);
+    const uint64_t da = desc_k_major(a, a_rows, row0, kk), db = desc_k_major(b, b_rows, 0, kk);
+    if constexpr (R == 16)
+      wgmma_64x32_ss(d, da, db, kk);
+    else if constexpr (R == 32)
+      wgmma_64x64_ss(d, da, db, kk);
     else
-      wgmma_64x128_ss(d, desc_k_major(a, a_rows, row0, kk), desc_k_major(b, b_rows, 0, kk), kk);
+      wgmma_64x128_ss(d, da, db, kk);
   }
 }
 
 // d += A (64 x 16 K, K k steps of register fragments) . B (16 K x 128, an
-// MN-major tile of 16 K depth rows; b is the first of its two 64-wide blocks)
+// MN-major tile of `rows` depth rows, its first 16 K from b; b is in the
+// first of the two 64-wide blocks)
 template <int K>
 __device__ __forceinline__ void product_pv(float (&d)[64], const uint32_t (&a)[K][4],
-                                           const void* b) {
+                                           const void* b, int rows = 16 * K) {
 #pragma unroll
-  for (int kk = 0; kk < K; ++kk) wgmma_64x128_rs(d, a[kk], desc_mn_major(b, 16 * K, kk), 1);
+  for (int kk = 0; kk < K; ++kk) wgmma_64x128_rs(d, a[kk], desc_mn_major(b, rows, kk), 1);
 }
 
 // a 64 x 16 K accumulator's registers as K 16-deep A fragments, in bf16
@@ -497,6 +179,40 @@ __device__ __forceinline__ void to_a_fragments(uint32_t (&a)[K][4], const float 
     a[kk][1] = pack_bf16(x[8 * kk + 2], x[8 * kk + 3]);
     a[kk][2] = pack_bf16(x[8 * kk + 4], x[8 * kk + 5]);
     a[kk][3] = pack_bf16(x[8 * kk + 6], x[8 * kk + 7]);
+  }
+}
+
+// N accumulator registers of each of a warpgroup's 128 threads into shared
+// memory, register-major (thread t's register i at i * 128 + t): no bank
+// conflicts, and thread t of the other warpgroup reads its own fragment
+template <int N>
+__device__ __forceinline__ void spill_regs(float* dst, const float (&x)[N], int t) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) dst[i * 128 + t] = x[i];
+}
+
+// a 64 x 128 f32 accumulator of one warpgroup written as bf16 rows r0 / r1
+// (row stride `row`) of dst, at dims 128 h0..128 h0 + 127
+__device__ __forceinline__ void store_rows_bf16(bf16* dst, long long row, int r0, int r1, int t4,
+                                                const float (&x)[64], int h0) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int d = h0 * 128 + i * 8 + 2 * t4;
+    *reinterpret_cast<__nv_bfloat162*>(dst + r0 * row + d) =
+        __floats2bfloat162_rn(x[4 * i], x[4 * i + 1]);
+    *reinterpret_cast<__nv_bfloat162*>(dst + r1 * row + d) =
+        __floats2bfloat162_rn(x[4 * i + 2], x[4 * i + 3]);
+  }
+}
+
+// the same in f32
+__device__ __forceinline__ void store_rows_f32(float* dst, long long row, int r0, int r1, int t4,
+                                               const float (&x)[64], int h0) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int d = h0 * 128 + i * 8 + 2 * t4;
+    *reinterpret_cast<float2*>(dst + r0 * row + d) = make_float2(x[4 * i], x[4 * i + 1]);
+    *reinterpret_cast<float2*>(dst + r1 * row + d) = make_float2(x[4 * i + 2], x[4 * i + 3]);
   }
 }
 
@@ -827,15 +543,7 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_bwd_dq_wgmma_kernel(
     wgmma_wait<0>();
     fence_regs(acc);
   }
-  bf16* dg = dq + q_off;
-#pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    const int d = i * 8 + 2 * t4;
-    *reinterpret_cast<__nv_bfloat162*>(dg + r0 * q_row + d) =
-        __floats2bfloat162_rn(acc[4 * i], acc[4 * i + 1]);
-    *reinterpret_cast<__nv_bfloat162*>(dg + r1 * q_row + d) =
-        __floats2bfloat162_rn(acc[4 * i + 2], acc[4 * i + 3]);
-  }
+  store_rows_bf16(dq + q_off, q_row, r0, r1, t4, acc, 0);
 }
 
 // dK and dV of 128 keys for ONE query head h (jaxlib's dkv grid, which runs
@@ -956,33 +664,322 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_bwd_dkv_wgmma_kernel(
     fence_regs(dka);
   }
   if (G == 1) {
-#pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      const int d = i * 8 + 2 * t4;
-      *reinterpret_cast<__nv_bfloat162*>(dk + kv_off + jr0 * kv_row + d) =
-          __floats2bfloat162_rn(dka[4 * i], dka[4 * i + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(dk + kv_off + jr1 * kv_row + d) =
-          __floats2bfloat162_rn(dka[4 * i + 2], dka[4 * i + 3]);
-      *reinterpret_cast<__nv_bfloat162*>(dv + kv_off + jr0 * kv_row + d) =
-          __floats2bfloat162_rn(dva[4 * i], dva[4 * i + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(dv + kv_off + jr1 * kv_row + d) =
-          __floats2bfloat162_rn(dva[4 * i + 2], dva[4 * i + 3]);
-    }
+    store_rows_bf16(dk + kv_off, kv_row, jr0, jr1, t4, dka, 0);
+    store_rows_bf16(dv + kv_off, kv_row, jr0, jr1, t4, dva, 0);
     return;
   }
   const long long part = (long long)dm.B * S * kv_row;  // one slice of the workspace
-  float* wk = work + (h % G) * part + kv_off;
-  float* wv = work + (G + h % G) * part + kv_off;
+  store_rows_f32(work + (h % G) * part + kv_off, kv_row, jr0, jr1, t4, dka, 0);
+  store_rows_f32(work + (G + h % G) * part + kv_off, kv_row, jr0, jr1, t4, dva, 0);
+}
+
+// ---- the backward at D = 256 ----------------------------------------------
+//
+// At D = 256 the D = 128 layouts do not fit: a 128-row dq block keeps 128
+// KB of Q and dO beside 64 KB a 64-key K / V stage, and a 128-key dkv
+// block would hold dK and dV as 128 x 512 f32, 256 registers a thread on
+// two warpgroups. So both kernels take 64 rows (keys) a block, and the
+// two warpgroups split each step's work instead of its rows; each keeps
+// one 64 x 256 f32 accumulator (128 registers) and every product is a
+// wgmma (S and dP 64 wide or 32, dQ / dK / dV in two 128-wide halves of D
+// with the A operand from registers). At gemma-7b's shape (16 heads, S =
+// 1024) that is 256 blocks, one an SM, the longest first: counted in
+// steps, the busiest of 132 SMs draws 1.03 times the mean work, where
+// 128 blocks of 128 rows (under one wave) would let the longest set the
+// time at 1.9 times.
+// * flash_bwd_dq_wide: one block per (b, head, 64 query rows). Warpgroup w
+//   takes keys 32 w..32 w + 31 of each 64-key step for all 64 rows: S =
+//   Q.K^T and dP = dO.V^T (m64n32k16 from shared memory), dS, dQ_w +=
+//   dS.K. At the end the two partial dQ go through shared memory: each
+//   warpgroup adds the other's half of D to its own and writes it (one f32
+//   addition, the same bits either way round).
+// * flash_bwd_dkv_wide: one block per (b, query head, 64 keys), the keys
+//   with the most queries first. Per 64-query step warpgroup 0 forms S^T =
+//   K.Q^T, P = exp(s - lse) (f32), hands P to warpgroup 1 through shared
+//   memory on a named barrier and adds dV += P^T.dO; warpgroup 1 forms
+//   dP^T = V.dO^T, waits for P, forms dS = P (dP - delta) scale and adds
+//   dK += dS^T.Q: two of the five products each. G > 1 uses the D = 128
+//   body's workspace and flash_group_sum_kernel.
+constexpr int kWideRows = 64;                     // rows (keys) a block, keys (queries) a step
+constexpr int kWideTile = kWideRows * 256 * 2;    // one [64][256] bf16 tile, 32 KB
+// a dq stage: K and V, then the 64 keys' segment ids
+constexpr size_t kDqWideStage = round_1k(2 * kWideTile + kWideRows * 4);
+constexpr size_t kDqWideShared = 1024 + 2 * kWideTile + kStages * kDqWideStage + kWideRows * 4;
+// a dkv stage: Q and dO, then the 64 queries' segment ids, lse and delta;
+// after the stages, P in f32 in the accumulators' layout
+constexpr size_t kDkvWideStage = round_1k(2 * kWideTile + 3 * kWideRows * 4);
+constexpr size_t kDkvWideShared =
+    1024 + 2 * kWideTile + kStages * kDkvWideStage + 32 * 128 * sizeof(float);
+
+__global__ void __launch_bounds__(kWgThreads, 1) flash_bwd_dq_wide_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const int* __restrict__ seg, const bf16* __restrict__ out, const bf16* __restrict__ dout,
+    const float* __restrict__ lse, float* __restrict__ delta, bf16* __restrict__ dq, Dims dm,
+    float scale) {
+  constexpr int D = 256, R = kWideRows;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  char* qs = align_1k(smem_raw);               // [64][D]
+  char* dos = qs + kWideTile;                   // [64][D]
+  char* stages = dos + kWideTile;               // kStages x (K, V, key segments)
+  float* rowd = reinterpret_cast<float*>(stages + kStages * kDqWideStage);
+
+  const QueryBlock blk = query_block(dm, R);
+  const int S = dm.S;
+  const long long q_row = (long long)dm.H * D, kv_row = (long long)dm.KV * D;
+  const int kvh = blk.h / (dm.H / dm.KV);
+  const long long q_off = (long long)blk.b * S * q_row + (long long)blk.h * D;
+  const bf16* kg = k + (long long)blk.b * S * kv_row + (long long)kvh * D;
+  const bf16* vg = v + (long long)blk.b * S * kv_row + (long long)kvh * D;
+  const int* sg = seg + (long long)blk.b * S;
+  const long long head_rows = ((long long)blk.b * dm.H + blk.h) * S;
+  const int tid = threadIdx.x, wg = tid >> 7, wr = (tid >> 5) & 3, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3, t = tid & 127;
+  const int nkt = (blk.q0 + R) / R;  // 64-key steps at or left of the diagonal
+
+  auto load_stage = [&](int kt) {
+    char* st = stages + (kt % kStages) * kDqWideStage;
+    const int j0 = kt * R;
+    copy_tile_sw128<R, D, kWgThreads>(st, kg + j0 * kv_row, kv_row, tid);
+    copy_tile_sw128<R, D, kWgThreads>(st + kWideTile, vg + j0 * kv_row, kv_row, tid);
+    if (tid < R / 4) cp_async16(st + 2 * kWideTile + tid * 16, sg + j0 + tid * 4);
+  };
+  copy_tile_sw128<R, D, kWgThreads>(qs, q + q_off + blk.q0 * q_row, q_row, tid);
+  copy_tile_sw128<R, D, kWgThreads>(dos, dout + q_off + blk.q0 * q_row, q_row, tid);
 #pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    const int d = i * 8 + 2 * t4;
-    *reinterpret_cast<float2*>(wk + jr0 * kv_row + d) = make_float2(dka[4 * i], dka[4 * i + 1]);
-    *reinterpret_cast<float2*>(wk + jr1 * kv_row + d) =
-        make_float2(dka[4 * i + 2], dka[4 * i + 3]);
-    *reinterpret_cast<float2*>(wv + jr0 * kv_row + d) = make_float2(dva[4 * i], dva[4 * i + 1]);
-    *reinterpret_cast<float2*>(wv + jr1 * kv_row + d) =
-        make_float2(dva[4 * i + 2], dva[4 * i + 3]);
+  for (int s = 0; s < kStages - 1; ++s) {  // Q and dO join the first group
+    if (s < nkt) load_stage(s);
+    cp_async_commit();
   }
+  {  // delta, four threads a row of 64 dims each, added pairwise
+    const int r = tid >> 2, quarter = tid & 3;
+    const long long at = q_off + (blk.q0 + r) * q_row + quarter * 64;
+    float acc = 0.f;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const uint4 o4 = *reinterpret_cast<const uint4*>(out + at + c * 8);
+      const uint4 d4 = *reinterpret_cast<const uint4*>(dout + at + c * 8);
+      const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&o4);
+      const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&d4);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 of = __bfloat1622float2(o2[e]), df = __bfloat1622float2(d2[e]);
+        acc += of.x * df.x;
+        acc += of.y * df.y;
+      }
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+    if (!quarter) {
+      rowd[r] = acc;
+      delta[head_rows + blk.q0 + r] = acc;
+    }
+  }
+
+  const int lr0 = wr * 16 + g;  // this thread's rows in the block (both warpgroups')
+  const int r0 = blk.q0 + lr0, r1 = r0 + 8;
+  const int seg0 = sg[r0], seg1 = sg[r1];
+  const float M0 = lse[head_rows + r0] * kLog2e, M1 = lse[head_rows + r1] * kLog2e;
+  const float scale2 = scale * kLog2e;
+  const int kw = wg * 32;  // this warpgroup's keys in a step
+  float acc[2][64];        // its dQ over the block's rows, two 128-wide halves of D
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[0][i] = acc[1][i] = 0.f;
+
+  for (int kt = 0; kt < nkt; ++kt) {
+    cp_async_wait<kStages - 2>();  // this step's stage has landed
+    fence_async_shared();
+    __syncthreads();
+    if (kt + kStages - 1 < nkt) load_stage(kt + kStages - 1);  // into the stage step kt - 1 read
+    cp_async_commit();
+    const int j0 = kt * R;
+    const char* ks = stages + (kt % kStages) * kDqWideStage;
+    const char* vs = ks + kWideTile;
+    const int* kseg = reinterpret_cast<const int*>(vs + kWideTile);
+    float s[16], dp[16];
+    wgmma_fence();
+    product_qk<D>(s, qs, R, 0, ks + kw * 128, R);    // S = Q.K^T, 32 keys
+    product_qk<D>(dp, dos, R, 0, vs + kw * 128, R);  // dP = dO.V^T
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+    const float d0 = rowd[lr0], d1 = rowd[lr0 + 8];
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int jj = kw + nt * 8 + 2 * t4;
+      const int ja = j0 + jj;
+      const int sa = kseg[jj], sb = kseg[jj + 1];
+      const float p0 = (ja <= r0 && sa == seg0) ? exp2_approx(fmaf(s[4 * nt], scale2, -M0)) : 0.f;
+      const float p1 =
+          (ja + 1 <= r0 && sb == seg0) ? exp2_approx(fmaf(s[4 * nt + 1], scale2, -M0)) : 0.f;
+      const float p2 =
+          (ja <= r1 && sa == seg1) ? exp2_approx(fmaf(s[4 * nt + 2], scale2, -M1)) : 0.f;
+      const float p3 =
+          (ja + 1 <= r1 && sb == seg1) ? exp2_approx(fmaf(s[4 * nt + 3], scale2, -M1)) : 0.f;
+      s[4 * nt] = p0 * (dp[4 * nt] - d0) * scale;
+      s[4 * nt + 1] = p1 * (dp[4 * nt + 1] - d0) * scale;
+      s[4 * nt + 2] = p2 * (dp[4 * nt + 2] - d1) * scale;
+      s[4 * nt + 3] = p3 * (dp[4 * nt + 3] - d1) * scale;
+    }
+    uint32_t dsa[2][4];
+    to_a_fragments(dsa, s);  // dS in bf16, as jaxlib casts ds to k's type
+    wgmma_fence();
+#pragma unroll
+    for (int h = 0; h < 2; ++h)  // dQ_w += dS.K over each 128-wide half of D
+      product_pv(acc[h], dsa, ks + kw * 128 + h * 2 * R * 128, R);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc[0]);
+    fence_regs(acc[1]);
+  }
+  // the two warpgroups' partials: each hands over the half of D it does
+  // not write (the last step's products are done: the stages are free)
+  __syncthreads();
+  float* half0 = reinterpret_cast<float*>(stages);  // warpgroup 1's half 0
+  float* half1 = half0 + 64 * 128;                   // warpgroup 0's half 1
+  if (wg == 0)
+    spill_regs(half1, acc[1], t);
+  else
+    spill_regs(half0, acc[0], t);
+  __syncthreads();
+  bf16* dg = dq + q_off;
+  if (wg == 0) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[0][i] += half0[i * 128 + t];
+    store_rows_bf16(dg, q_row, r0, r1, t4, acc[0], 0);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[1][i] += half1[i * 128 + t];
+    store_rows_bf16(dg, q_row, r0, r1, t4, acc[1], 1);
+  }
+}
+
+__global__ void __launch_bounds__(kWgThreads, 1) flash_bwd_dkv_wide_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const int* __restrict__ seg, const bf16* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv,
+    float* __restrict__ work, Dims dm, float scale) {
+  constexpr int D = 256, R = kWideRows;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  char* ks = align_1k(smem_raw);                // [64][D]
+  char* vs = ks + kWideTile;                    // [64][D]
+  char* stages = vs + kWideTile;                // kStages x (Q, dO, seg, lse, delta)
+  float* pbuf = reinterpret_cast<float*>(stages + kStages * kDkvWideStage);  // P [32][128]
+
+  const int S = dm.S, G = dm.H / dm.KV;
+  const int bh = blockIdx.x % (dm.B * dm.H);
+  const int b = bh / dm.H, h = bh % dm.H, kvh = h / G;
+  const int j0 = (int)(blockIdx.x / (dm.B * dm.H)) * R;  // the most queries first
+  const long long q_row = (long long)dm.H * D, kv_row = (long long)dm.KV * D;
+  const long long kv_off = (long long)b * S * kv_row + (long long)kvh * D;
+  const long long q_off = (long long)b * S * q_row + (long long)h * D;
+  const long long head_rows = ((long long)b * dm.H + h) * S;
+  const int* sg = seg + (long long)b * S;
+  const int tid = threadIdx.x, wg = tid >> 7, wr = (tid >> 5) & 3, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3, t = tid & 127;
+  const int nsteps = (S - j0) / R;  // query steps at or below the diagonal
+
+  auto load_stage = [&](int it) {
+    char* st = stages + (it % kStages) * kDkvWideStage;
+    const int i0 = j0 + it * R;
+    copy_tile_sw128<R, D, kWgThreads>(st, q + q_off + i0 * q_row, q_row, tid);
+    copy_tile_sw128<R, D, kWgThreads>(st + kWideTile, dout + q_off + i0 * q_row, q_row, tid);
+    if (tid < 3 * R / 4) {  // 16 chunks each of seg, lse and delta
+      const int which = tid / (R / 4), c = tid % (R / 4);
+      const void* src = which == 0   ? static_cast<const void*>(sg + i0 + c * 4)
+                        : which == 1 ? static_cast<const void*>(lse + head_rows + i0 + c * 4)
+                                     : static_cast<const void*>(delta + head_rows + i0 + c * 4);
+      cp_async16(st + 2 * kWideTile + which * R * 4 + c * 16, src);
+    }
+  };
+  copy_tile_sw128<R, D, kWgThreads>(ks, k + kv_off + j0 * kv_row, kv_row, tid);
+  copy_tile_sw128<R, D, kWgThreads>(vs, v + kv_off + j0 * kv_row, kv_row, tid);
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {  // K and V join the first group
+    if (s < nsteps) load_stage(s);
+    cp_async_commit();
+  }
+
+  const int jr0 = j0 + wr * 16 + g, jr1 = jr0 + 8;  // this thread's keys
+  const int sj0 = sg[jr0], sj1 = sg[jr1];
+  const float scale2 = scale * kLog2e;
+  // warpgroup 0 multiplies K by Q into P and adds dV; warpgroup 1 V by dO
+  // into dS and adds dK
+  const char* a_tile = wg ? vs : ks;
+  float acc[2][64];  // dV (warpgroup 0) or dK (1) of the block's keys, two halves of D
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[0][i] = acc[1][i] = 0.f;
+
+  for (int it = 0; it < nsteps; ++it) {
+    cp_async_wait<kStages - 2>();  // this step's stage has landed
+    fence_async_shared();
+    __syncthreads();
+    if (it + kStages - 1 < nsteps) load_stage(it + kStages - 1);  // into the stage step it - 1 read
+    cp_async_commit();
+    const int i0 = j0 + it * R;
+    const char* qs = stages + (it % kStages) * kDkvWideStage;
+    const char* dos = qs + kWideTile;
+    const int* qseg = reinterpret_cast<const int*>(dos + kWideTile);
+    const float* qlse = reinterpret_cast<const float*>(qseg + R);
+    const float* qdel = qlse + R;
+    float x[32];  // S^T, then P^T (warpgroup 0); dP^T, then dS^T (1)
+    wgmma_fence();
+    product_qk<D>(x, a_tile, R, 0, wg ? dos : qs, R);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(x);
+    // [4 nt], [4 nt + 1]: key jr0, queries i0 + ic and + 1; [+ 2], [+ 3]: key jr1
+    if (wg == 0) {
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const int ic = nt * 8 + 2 * t4;
+        const int ia = i0 + ic;
+        const int sa = qseg[ic], sb = qseg[ic + 1];
+        const float Ma = qlse[ic] * kLog2e, Mb = qlse[ic + 1] * kLog2e;
+        x[4 * nt] = (jr0 <= ia && sj0 == sa) ? exp2_approx(fmaf(x[4 * nt], scale2, -Ma)) : 0.f;
+        x[4 * nt + 1] =
+            (jr0 <= ia + 1 && sj0 == sb) ? exp2_approx(fmaf(x[4 * nt + 1], scale2, -Mb)) : 0.f;
+        x[4 * nt + 2] =
+            (jr1 <= ia && sj1 == sa) ? exp2_approx(fmaf(x[4 * nt + 2], scale2, -Ma)) : 0.f;
+        x[4 * nt + 3] =
+            (jr1 <= ia + 1 && sj1 == sb) ? exp2_approx(fmaf(x[4 * nt + 3], scale2, -Mb)) : 0.f;
+      }
+      spill_regs(pbuf, x, t);
+      named_arrive(1, kWgThreads);
+    } else {
+      named_sync(1, kWgThreads);  // P of this step is in pbuf
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const int ic = nt * 8 + 2 * t4;
+        const float Da = qdel[ic], Db = qdel[ic + 1];
+        x[4 * nt] = pbuf[(4 * nt) * 128 + t] * (x[4 * nt] - Da) * scale;
+        x[4 * nt + 1] = pbuf[(4 * nt + 1) * 128 + t] * (x[4 * nt + 1] - Db) * scale;
+        x[4 * nt + 2] = pbuf[(4 * nt + 2) * 128 + t] * (x[4 * nt + 2] - Da) * scale;
+        x[4 * nt + 3] = pbuf[(4 * nt + 3) * 128 + t] * (x[4 * nt + 3] - Db) * scale;
+      }
+    }
+    uint32_t xa[4][4];
+    to_a_fragments(xa, x);  // P^T in dO's type, or dS^T in q's
+    const char* b_tile = wg ? qs : dos;
+    wgmma_fence();
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)  // dV += P^T.dO, or dK += dS^T.Q, by halves of D
+      product_pv(acc[hh], xa, b_tile + hh * 2 * R * 128, R);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc[0]);
+    fence_regs(acc[1]);
+  }
+  if (G == 1) {
+    bf16* dst = (wg ? dk : dv) + kv_off;
+    store_rows_bf16(dst, kv_row, jr0, jr1, t4, acc[0], 0);
+    store_rows_bf16(dst, kv_row, jr0, jr1, t4, acc[1], 1);
+    return;
+  }
+  const long long part = (long long)dm.B * S * kv_row;  // one slice of the workspace
+  float* dst = work + ((wg ? 0 : G) + h % G) * part + kv_off;
+  store_rows_f32(dst, kv_row, jr0, jr1, t4, acc[0], 0);
+  store_rows_f32(dst, kv_row, jr0, jr1, t4, acc[1], 1);
 }
 
 // dK (blockIdx.y 0) or dV (1) = the sum of the workspace's G slices of n
@@ -1320,17 +1317,13 @@ template <int D>
 int dq_bf16(const void* q, const void* k, const void* v, const void* seg, const void* out,
             const void* dout, const void* lse, void* delta, void* dq, Dims dm, void* stream) {
   static std::atomic<uint64_t> raised{0};
-  if constexpr (D == 128) {
-    return launch_one(flash_bwd_dq_wgmma_kernel, dm.B * dm.H * (dm.S / kDqRows), kWgThreads,
-                      kDqSharedBytes, raised, stream, (const bf16*)q, (const bf16*)k,
-                      (const bf16*)v, (const int*)seg, (const bf16*)out, (const bf16*)dout,
-                      (const float*)lse, (float*)delta, (bf16*)dq, dm, softmax_scale(D));
-  } else {
-    return launch_one(flash_bwd_dq_mma_kernel<D>, dm.B * dm.H * (dm.S / kBQ), kThreads,
-                      dq_shared_bytes<D>(), raised, stream, (const bf16*)q, (const bf16*)k,
-                      (const bf16*)v, (const int*)seg, (const bf16*)out, (const bf16*)dout,
-                      (const float*)lse, (float*)delta, (bf16*)dq, dm, softmax_scale(D));
-  }
+  const auto kernel = D == 128 ? flash_bwd_dq_wgmma_kernel : flash_bwd_dq_wide_kernel;
+  constexpr int rows = D == 128 ? kDqRows : kWideRows;
+  constexpr size_t smem = D == 128 ? kDqSharedBytes : kDqWideShared;
+  return launch_one(kernel, dm.B * dm.H * (dm.S / rows), kWgThreads, smem, raised, stream,
+                    (const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)seg,
+                    (const bf16*)out, (const bf16*)dout, (const float*)lse, (float*)delta,
+                    (bf16*)dq, dm, softmax_scale(D));
 }
 
 template <int D>
@@ -1348,20 +1341,16 @@ int dkv_bf16(const void* q, const void* k, const void* v, const void* seg, const
              const void* lse, const void* delta, void* dk, void* dv, void* work, Dims dm,
              void* stream) {
   static std::atomic<uint64_t> raised{0};
-  if constexpr (D != 128) {
-    return launch_one(flash_bwd_dkv_mma_kernel<D>, dm.B * dm.KV * (dm.S / kBKV),
-                      kThreads * (D / 128), dkv_shared_bytes<D>(), raised, stream,
-                      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const int*)seg,
-                      (const bf16*)dout, (const float*)lse, (const float*)delta, (bf16*)dk,
-                      (bf16*)dv, dm, softmax_scale(D));
-  }
+  const auto kernel = D == 128 ? flash_bwd_dkv_wgmma_kernel : flash_bwd_dkv_wide_kernel;
+  constexpr int keys = D == 128 ? kDkvKeys : kWideRows;
+  constexpr size_t smem = D == 128 ? kDkvSharedBytes : kDkvWideShared;
   const int G = dm.H / dm.KV;
   if (G > 1 && work == nullptr) return (int)cudaErrorInvalidValue;
-  const int err = launch_one(flash_bwd_dkv_wgmma_kernel, dm.B * dm.H * (dm.S / kDkvKeys),
-                             kWgThreads, kDkvSharedBytes, raised, stream, (const bf16*)q,
-                             (const bf16*)k, (const bf16*)v, (const int*)seg, (const bf16*)dout,
-                             (const float*)lse, (const float*)delta, (bf16*)dk, (bf16*)dv,
-                             (float*)work, dm, softmax_scale(D));
+  const int err = launch_one(kernel, dm.B * dm.H * (dm.S / keys), kWgThreads, smem, raised,
+                             stream, (const bf16*)q, (const bf16*)k, (const bf16*)v,
+                             (const int*)seg, (const bf16*)dout, (const float*)lse,
+                             (const float*)delta, (bf16*)dk, (bf16*)dv, (float*)work, dm,
+                             softmax_scale(D));
   if (err != 0 || G == 1) return err;
   const long long n = (long long)dm.B * dm.S * dm.KV * D;
   flash_group_sum_kernel<<<dim3((unsigned)((n / 4 + 255) / 256), 2), 256, 0,
@@ -1412,8 +1401,9 @@ extern "C" {
   }
 
 // + dout, lse and delta -> dk, dv [B, S, KV, D]; work: the f32 workspace
-// [2, H / KV, B, S, KV, D] of the bf16 body at D = 128 with H > KV, else
-// unused (may be null)
+// [2, H / KV, B, S, KV, D] of the bf16 bodies (D = 128 and 256) with
+// H > KV, where each query head's partials wait for the group sum; unused
+// (may be null) with H = KV and in f32
 #define LLAMOLE_FLASH_DKV(suffix, impl)                                                     \
   int llamole_flash_attention_bwd_dkv_##suffix(                                             \
       const void* q, const void* k, const void* v, const void* seg, const void* dout,       \

@@ -17,12 +17,13 @@ log-sum-exp [B, H, S]) and, in the backward of its autograd Function, the
 dq kernel (which also forms delta = rowsum(dO * O)) and then the dkv
 kernel, the counterparts of jaxlib's `_flash_attention_impl`,
 `_flash_attention_bwd_dq` and `_flash_attention_bwd_dkv`. It takes bf16
-(a warpgroup (wgmma) forward at both head dims; at D = 128 wgmma dq and
-dkv bodies, the dkv kernel per query head with its f32 partials summed
-over the GQA group in `dkv_workspace`; mma.sync ones at D = 256) and f32
-(FMA bodies), D in HEAD_DIMS and S a multiple of SEQ_MULTIPLE
-(`forward_body` names the forward's body). The wrapper counts each
-kernel's launches (`launches_fwd`, `launches_dq`, `launches_dkv`;
+(warpgroup (wgmma) bodies at both head dims: the forward; dq and dkv on
+128-row blocks at D = 128 and on 64-row blocks whose two warpgroups
+split each step's work at D = 256; the dkv kernel per query head, its
+f32 partials summed over the GQA group in `dkv_workspace`) and f32 (FMA
+bodies), D in HEAD_DIMS and S a multiple of SEQ_MULTIPLE
+(`forward_body` and `backward_body` name the bodies). The wrapper counts
+each kernel's launches (`launches_fwd`, `launches_dq`, `launches_dkv`;
 `launches` is their sum). On a CPU tensor it runs
 `flash_attention_reference`, the plain PyTorch version of the same
 function with jaxlib's rounding points in its backward too, which the
@@ -51,6 +52,18 @@ def forward_body(dtype: torch.dtype, d: int) -> str:
     if d not in HEAD_DIMS:
         raise ValueError(f"head_dim {d}: the kernel takes {HEAD_DIMS}")
     return "wgmma" if dtype == torch.bfloat16 else "fma"
+
+
+def backward_body(dtype: torch.dtype, d: int) -> str:
+    """The dq and dkv kernels' body for an input type and head dim, as
+    csrc/flash_attention.cu routes them: "wgmma" (bf16, D = 128: 128-row
+    blocks), "wgmma_wide" (bf16, D = 256: 64-row blocks whose two
+    warpgroups split each step's work) or "fma" (f32)."""
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head_dim {d}: the kernel takes {HEAD_DIMS}")
+    if dtype != torch.bfloat16:
+        return "fma"
+    return "wgmma" if d == 128 else "wgmma_wide"
 
 
 def _logits(q, k, segment_ids) -> torch.Tensor:
@@ -178,10 +191,11 @@ def flash_backward_dq(q, k, v, seg, out, dout, lse):
 
 def dkv_workspace(dtype, b, s, h, kv, d, device):
     """The f32 workspace [2, G, B, S, KV, D] (G = H / KV) in which the bf16
-    dkv body at D = 128 keeps each query head's dK and dV before it sums
-    them over the group in head order; None where no body needs one."""
+    dkv bodies (both head dims) keep each query head's dK and dV before
+    a second launch sums them over the group in head order; None where
+    no body needs one (G = 1, where a block writes bf16, and f32)."""
     g = h // kv
-    if dtype != torch.bfloat16 or d != 128 or g == 1:
+    if dtype != torch.bfloat16 or g == 1:
         return None
     return torch.empty((2, g, b, s, kv, d), dtype=torch.float32,
                        device=device)

@@ -6,8 +6,9 @@ Graph-replay device ms (chip_smoke.graph_ms) of `flash_forward`,
 (1, 2048, 32, 8, 128) bf16 with its padding (chip_smoke.PHASE22,
 flash_inputs), of the two backward kernels together, and of
 `flash_forward` at the main shape with no padding (the causal-LM step's
-all-real rows) and at phase 22's head_dim-256 check shape, with the
-card's name and power limit. It imports only the tree it runs in, so the same
+all-real rows), and of the forward and each backward kernel at phase
+22's head_dim-256 check shape (gemma-7b's heads), with the card's name
+and power limit. It imports only the tree it runs in, so the same
 file copied into an unpacked older tree times that tree's kernels; run
 trees in turns (old, new, new, old) in one call to compare them on one
 card:
@@ -41,13 +42,15 @@ def main() -> None:
     wide = next(tuple(c[:5]) for c in s.PHASE22["checks"]
                 if c[4] == 256 and c[5] == "bf16")
     q, k, v, dout, seg = s.flash_inputs(shape, torch.bfloat16, s.PHASE22)
-    qw, kw, vw, _, segw = s.flash_inputs(wide, torch.bfloat16, s.PHASE22)
+    qw, kw, vw, doutw, segw = s.flash_inputs(wide, torch.bfloat16, s.PHASE22)
     real = s.flash_inputs(shape, torch.bfloat16,
                           {"left_pad": 0, "right_pad": 0})[4]
     out, lse = E.flash_forward(q, k, v, seg)
     _, delta = E.flash_backward_dq(q, k, v, seg, out, dout, lse)
+    outw, lsew = E.flash_forward(qw, kw, vw, segw)
+    _, deltaw = E.flash_backward_dq(qw, kw, vw, segw, outw, doutw, lsew)
     times = {"fwd": [], "dq": [], "dkv": [], "backward": [], "fwd_unpadded": [],
-             "fwd_d256": []}
+             "fwd_d256": [], "dq_d256": [], "dkv_d256": [], "backward_d256": []}
     for _ in range(args.repeats):
         times["fwd"].append(s.graph_ms(lambda: E.flash_forward(q, k, v, seg)))
         times["dq"].append(s.graph_ms(lambda: E.flash_backward_dq(
@@ -60,6 +63,12 @@ def main() -> None:
             q, k, v, real)))
         times["fwd_d256"].append(s.graph_ms(lambda: E.flash_forward(
             qw, kw, vw, segw)))
+        times["dq_d256"].append(s.graph_ms(lambda: E.flash_backward_dq(
+            qw, kw, vw, segw, outw, doutw, lsew)))
+        times["dkv_d256"].append(s.graph_ms(lambda: E.flash_backward_dkv(
+            qw, kw, vw, segw, doutw, lsew, deltaw)))
+        times["backward_d256"].append(s.graph_ms(lambda: E.flash_backward(
+            qw, kw, vw, segw, outw, doutw, lsew)))
     print(json.dumps({"label": args.label, "shape": list(shape),
                       "shape_d256": list(wide), "device_ms": times,
                       "card": s.card_tag()}), flush=True)

@@ -625,6 +625,44 @@ def test_flash_attention_matches_plain(cuda, shape, split, one_step, dtype,
             assert err < tol, (name, err)
 
 
+# the backward at head_dim 256 (its wgmma_wide bodies: 64-row blocks,
+# 64-key / 64-query steps): G = 1 (dK and dV written in bf16 by the
+# block) at 8 steps, G = 2 (the dkv workspace and its group sum) with B =
+# 2 and a second segment from key 200 (inside the fourth 64-key step),
+# and G = 4 right-padded past a whole step
+D256_SHAPES = [
+    pytest.param(shape, split, right, id="x".join(map(str, shape))
+                 + ("" if split is None else f"-split{split}")
+                 + f"-right{right}")
+    for shape, split, right in (((1, 512, 4, 4, 256), None, 19),
+                                ((2, 384, 4, 2, 256), 200, 19),
+                                ((1, 256, 8, 2, 256), None, 100))]
+
+
+@pytest.mark.parametrize("shape,split,right", D256_SHAPES)
+def test_flash_backward_d256_matches_plain(cuda, shape, split, right):
+    """Kernel E's bf16 dq and dkv kernels at head_dim 256 (one launch of
+    each, on the wgmma_wide bodies) against flash_attention_reference's
+    autograd, pad rows included: dq / dk / dv within 2e-2 or one bf16
+    step of the largest value (f32 sums in other orders), as
+    test_flash_attention_matches_plain holds its later shapes."""
+    assert E.backward_body(torch.bfloat16, 256) == "wgmma_wide"
+    q, k, v, dout, seg = _flash_inputs(cuda, torch.bfloat16, *shape,
+                                       split=split, right=right)
+    E.reset_launches()
+    _, grads = _flash_grads(E.flash_attention, q, k, v, dout, seg)
+    torch.cuda.synchronize()
+    assert (E.flash_attention.launches_dq,
+            E.flash_attention.launches_dkv) == (1, 1)
+    _, ref_grads = _flash_grads(E.flash_attention_reference, q, k, v, dout,
+                                seg)
+    for name, got, want in zip(("dq", "dk", "dv"), grads, ref_grads):
+        assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+        err = float((got.float() - want.float()).abs().max())
+        step = _bf16_step(float(want.float().abs().max()))
+        assert err < 2e-2 or err <= step, (name, err, step)
+
+
 # the forward alone: FLASH_SHAPES (right-padded by 19), then two rows of
 # which the last is right-padded by 200 keys: its pad rows' first two
 # 128-key steps are all masked (rows 312-319 run them masked, the
@@ -674,11 +712,13 @@ def test_flash_forward_gives_the_same_bits(cuda, shape):
     assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
-@pytest.mark.parametrize("shape", [(1, 256, 8, 2, 128), (1, 512, 16, 4, 128)],
+@pytest.mark.parametrize("shape", [(1, 256, 8, 2, 128), (1, 512, 16, 4, 128),
+                                   (1, 512, 8, 8, 256), (1, 512, 8, 4, 256)],
                          ids=lambda s: "x".join(map(str, s)))
 def test_flash_attention_backward_gives_the_same_bits(cuda, shape):
     """No float atomics: two backward runs give equal dq, dk, dv (the
-    second shape: G = 4 through the dkv workspace, four 128-key tiles)."""
+    second shape: G = 4 through the dkv workspace, four 128-key tiles;
+    the last two: head_dim 256 at G = 1 and G = 2)."""
     q, k, v, dout, seg = _flash_inputs(cuda, torch.bfloat16, *shape)
     first = _flash_grads(E.flash_attention, q, k, v, dout, seg)[1]
     second = _flash_grads(E.flash_attention, q, k, v, dout, seg)[1]

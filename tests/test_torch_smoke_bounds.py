@@ -992,3 +992,66 @@ def test_flash_phase_runs_on_the_cpu(capsys, monkeypatch):
         assert pair["grad_rel"] < chip_smoke.PHASE22["grad_rel"]
     assert got["long"]["plain"] == 0
     assert not model.llm.cfg.use_flash
+
+
+def test_flash_gemma_config_is_gemma_7b():
+    """Phase 22 (d)'s model: PHASE22["gemma7b"] is google/gemma-7b's
+    published config.json, and from_hf_config reads it as gemma-1 at full
+    width (3072 wide, 24576 MLP, 16 heads of 256 with one KV head each,
+    256000 tokens, tied embeddings) with no softcap, window or query
+    scale, so the flash route takes it at head_dim 256 on the card; (d)
+    runs it at all 28 layers, and phase 22 (a) checks the kernels at its
+    step's shape."""
+    import llamole_tpu_torch.models.gllm.model as gllm
+    from llamole_tpu_torch.models.gllm import LLMConfig
+    sizes = chip_smoke.PHASE22
+    cfg = LLMConfig.from_hf_config(sizes["gemma7b"])
+    assert (cfg.hidden_size, cfg.intermediate_size, cfg.num_layers,
+            cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_,
+            cfg.vocab_size) == (3072, 24576, 28, 16, 16, 256, 256000)
+    assert cfg.tie_word_embeddings and cfg.hidden_act == "gelu_tanh"
+    assert cfg.rms_norm_unit_offset and cfg.scale_embeddings
+    assert (cfg.attn_logit_softcap, cfg.query_scale,
+            cfg.sliding_window) == (None, None, None)
+    assert sizes["gemma_layers"] == cfg.num_layers
+    cfg.use_flash = True
+    assert gllm.flash_ok(cfg, sizes["train_seq"], "cuda")
+    assert not gllm.flash_ok(cfg, sizes["train_seq"], "cpu")
+    wide = [c for c in sizes["checks"] if c[4] == 256]
+    assert (1, 1024, cfg.num_heads, cfg.num_kv_heads, 256, "bf16") == wide[0]
+    assert {c[2] // c[3] for c in wide} == {1, 2}
+    # the kernels are held to the plain version at the shape (d) sends them
+    assert (1, sizes["train_seq"], cfg.num_heads, cfg.num_kv_heads, 256,
+            "bf16") in wide
+
+
+def test_flash_gemma_phase_runs_on_the_cpu(capsys, monkeypatch):
+    """Phase 22 (d) at a small width on the CPU: gemma-7b's config dict
+    with 2 layers of 2 heads of 256 (the route's head dim), 256 wide,
+    through from_hf_config, the route forced on (here the plain version
+    runs): the flash step's loss and LoRA gradients held to the plain
+    step's, every layer on the route and none on the plain attention,
+    the slice freed after."""
+    import llamole_tpu_torch.models.gllm.model as gllm
+
+    gate = gllm.flash_ok
+    monkeypatch.setattr(gllm, "flash_ok",
+                        lambda cfg, s, device: gate(cfg, s, "cuda"))
+    sizes = {**chip_smoke.PHASE22, "gemma_layers": 2, "train_seq": 1024,
+             "gemma7b": {**chip_smoke.PHASE22["gemma7b"], "vocab_size": 512,
+                         "hidden_size": 256, "intermediate_size": 256,
+                         "num_attention_heads": 2,
+                         "num_key_value_heads": 2}}
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        got = chip_smoke.run_flash_gemma("CPU", "cpu", sizes, _tiny_slice)
+    finally:
+        torch.set_num_threads(threads)
+    out = capsys.readouterr().out
+    assert ("phase 22 (d) gemma-7b (256 wide, 2 x 256 heads, 2 layers) "
+            "causal-LM loss + backward at [1, 1024] (1024 real tokens)") in out
+    assert got["plain"]["plain"] == 2 and got["flash"]["plain"] == 0
+    assert got["loss_gap"] <= sizes["loss_gap"] * abs(got["plain"]["loss"])
+    assert got["grad_rel"] < sizes["grad_rel"]
+    assert got["kernels"] == {} and got["timed"] == {} and got["wall"] > 0
