@@ -300,12 +300,14 @@
    flash_attention_reference (output and dq / dk / dv) at (B, S, H, KV,
    D) = (1, 2048, 32, 8, 128), (2, 1024, 32, 8, 128), (1, 1024, 16, 16,
    256), (1, 1024, 16, 8, 256) and (1, 2048, 16, 16, 256) (gemma-7b's
-   heads at (d)'s length) in bf16 and (1, 1024, 32, 8, 128) in f32, row
-   0 left-padded and the last right-padded: f32 within 1e-4;
+   heads at (d)'s length) in bf16 and (1, 1024, 32, 8, 128) and (1,
+   1024, 16, 8, 256) in f32, row 0 left-padded and the last
+   right-padded: f32 within 1e-4;
    bf16 each tile of 64 positions of a head within 2 x the plain
    version's gap to the plain version in f32 on the same inputs plus one
    bf16 step of the tile (flash_gate); two backward runs bit-equal at
-   the main shape and at the three head_dim-256 shapes; at (1, 2048, 32, 8,
+   the main shape, at the three head_dim-256 shapes and at both f32
+   shapes; at (1, 2048, 32, 8,
    128) bf16 the call ms (CUDA events) of the forward and of forward +
    backward, each kernel's device ms from CUDA-graph replay of its
    launcher, the plain version's, F.scaled_dot_product_attention's with
@@ -313,8 +315,8 @@
    forward and the backward apart) and, as a floor, causal without
    segments, and the bound of each half (flash_bound); the same but the
    floor at (1, 1024, 16, 16, 256) bf16 (gemma-7b's heads; the backward
-   on its wgmma_wide bodies) and at (1, 1024, 32, 8, 128) f32 (the FMA
-   bodies, SDPA with TF32 off) (time_flash_wide); (b)
+   on its wgmma_wide bodies) and at both f32 shapes (the FMA forward and
+   the split-TF32 backward, SDPA with TF32 off) (time_flash_wide); (b)
    the LLM's causal-LM loss + backward through
    LLM.forward(train=True) on [1, 2048] seeded tokens, all real, with
    use_flash off and on, in turns: the losses within 5e-2 of the loss,
@@ -334,13 +336,23 @@
    step's shape (1, 2048, 16, 16, 256) with every token real, E's
    device time inside the step each kernel's launches x its replay ms;
    the first path through a model that launches E at head_dim 256
-   (run_flash_gemma). Run alone (about 2 min on one H100, on a fresh
+   (run_flash_gemma); (e) Llama-3.1-8B at full width and all 32 layers in
+   f32 (what both packages build from fp16: true; random f32 weights in
+   a rank-8 LoRA slice of its own after (d)): the causal-LM pair at [1,
+   1024] (PHASE22 f32_seq, the route's shortest sequence; the plain f32
+   step at 2048 would not fit), 32 launches of each of E's kernels (the
+   f32 forward, the split-TF32 dq and dkv), no plain attention call, the
+   loss within 1e-4 x loss and the LoRA gradients within 1e-3 (relative
+   L2) of the plain f32 step's, walls and peaks; then time_flash_wide
+   at (1, 1024, 32, 8, 128) f32 unpadded, E inside the step as in (d)
+   (run_flash_f32). Run alone (about 2 min on one H100, on a fresh
    random slice):
    python3 -c "import gc, torch, chip_smoke as s; from
    llamole_tpu_torch.ops import cuda_lib; cuda_lib.library(); torch.
    backends.cuda.matmul.allow_tf32 = False; m, t = s.build_slice(); s.
    run_flash(m, t, s.card_tag()); del m, t; gc.collect(); s.
-   run_flash_gemma(s.card_tag())"
+   run_flash_gemma(s.card_tag()); gc.collect(); torch.cuda.
+   empty_cache(); s.run_flash_f32(s.card_tag())"
 
 Prints, before the last line, one {"kernels": [...]} JSON line (per
 kernel: launches on the main path, max_abs_err, ms, plain_ms, device_ms,
@@ -477,9 +489,14 @@ def graph_ms(fn, launches: int = 20, repeats: int = 11) -> float:
     return cuda_ms(graph.replay, launches=1, repeats=repeats) / launches
 
 
-# H100 SXM datasheet peaks (700 W): HBM bytes/s and operations/s by type
+# H100 SXM datasheet peaks (700 W): HBM bytes/s and operations/s by type.
+# f32_tensor: f32-accurate products on the tensor cores, three TF32 passes a
+# product (split TF32, as kernels A, D and E's f32 bodies take them) at the
+# dense TF32 rate, 494.7e12 / 3; the FMA units' 67e12 is slower, so this is
+# the least time for the same f32 products
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bf16_tensor": 989e12, "f32_tensor": 67e12, "f32": 67e12}
+PEAK_OPS_PER_S = {"bf16_tensor": 989e12, "f32_tensor": 494.7e12 / 3,
+                  "f32": 67e12}
 
 
 def roofline(nbytes: float, ops: dict):
@@ -4319,11 +4336,12 @@ FAMILIES = {"prompts": 8, "greedy_tokens": 128, "spec_tokens": 2,
 CACHE_LOGIT_TOL = MERGE_LOGIT_TOL
 
 
-def family_llm(cfg, device, seed=0):
-    """cfg's LLM in bf16, random weights drawn on `device` from `seed`."""
+def family_llm(cfg, device, seed=0, dtype=torch.bfloat16):
+    """cfg's LLM in `dtype` (bf16 unless asked), random weights drawn on
+    `device` from `seed`."""
     from llamole_tpu_torch.models.gllm import LLM
 
-    llm = LLM(cfg, dtype=torch.bfloat16, device=device)
+    llm = LLM(cfg, dtype=dtype, device=device)
     llm.reset_parameters(torch.Generator(device=device).manual_seed(seed))
     return llm.eval()
 
@@ -5909,13 +5927,18 @@ def run_ring(tag, device="cuda", sizes=None):
 # gemma7b: (d)'s model, the published google/gemma-7b config.json
 # (Hugging Face) as from_hf_config reads it, tie_word_embeddings written
 # out (HF's default for gemma, which the file leaves out); gemma_layers:
-# the depth (d) runs it at
+# the depth (d) runs it at. The f32 checks are the 8B's heads and 16 query
+# heads of 256 on 8 KV heads, at S = 1024 (the split-TF32 backward at both
+# head dims). f32_seq, f32_loss_gap (of the loss), f32_grad_rel: (e)'s
+# step, the 8B in f32 (what fp16: true builds), and how far its flash step
+# may be from its plain one: both f32, so far tighter than bf16's
 PHASE22 = {"checks": ((1, 2048, 32, 8, 128, "bf16"),
                       (2, 1024, 32, 8, 128, "bf16"),
                       (1, 1024, 16, 16, 256, "bf16"),
                       (1, 1024, 16, 8, 256, "bf16"),
                       (1, 2048, 16, 16, 256, "bf16"),
-                      (1, 1024, 32, 8, 128, "f32")),
+                      (1, 1024, 32, 8, 128, "f32"),
+                      (1, 1024, 16, 8, 256, "f32")),
            "main": (1, 2048, 32, 8, 128), "left_pad": 37, "right_pad": 301,
            "f32_atol": TOL[torch.float32], "bf16_gap": 2.0,
            "train_seq": 2048, "long_seq": 4096, "loss_gap": 5e-2,
@@ -5929,7 +5952,8 @@ PHASE22 = {"checks": ((1, 2048, 32, 8, 128, "bf16"),
                        "max_position_embeddings": 8192,
                        "attention_bias": False, "rope_scaling": None,
                        "tie_word_embeddings": True},
-           "gemma_layers": 28}
+           "gemma_layers": 28, "f32_seq": 1024, "f32_loss_gap": 1e-4,
+           "f32_grad_rel": 1e-3}
 FLASH_COUNTS = ("launches_fwd", "launches_dq", "launches_dkv")
 DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 
@@ -6090,16 +6114,19 @@ def check_flash(flash, reference, tag, sizes=None):
     dt = torch.bfloat16
     wide = [tuple(c[:5]) for c in sizes["checks"]
             if c[4] == 256 and c[5] == "bf16"]
-    for bits in (shape, *wide):
-        q, k, v, dout, seg = flash_inputs(bits, dt, sizes)
+    f32 = [tuple(c[:5]) for c in sizes["checks"] if c[5] == "f32"]
+    same = [(bits, dt) for bits in (shape, *wide)] + [
+        (bits, torch.float32) for bits in f32]
+    for bits, kind in same:
+        q, k, v, dout, seg = flash_inputs(bits, kind, sizes)
         first = _flash_grads(flash, q, k, v, dout, seg)[1]
         again = _flash_grads(flash, q, k, v, dout, seg)[1]
         if not all(torch.equal(a, b) for a, b in zip(first, again)):
-            fail(f"kernel E's backward at {bits} gave other bits on a "
-                 "second run")
+            fail(f"kernel E's backward at {bits} {kind} gave other bits on "
+                 "a second run")
         del q, k, v, dout, seg, first, again
     print(f"flash_attention backward: two runs bit-equal at "
-          f"{[shape, *wide]}", flush=True)
+          f"{[shape, *wide]} bf16 and {f32} f32", flush=True)
     q, k, v, dout, seg = flash_inputs(shape, dt, sizes)
 
     timed_pair = lambda fn, layout=lambda t: t, grad_out=dout: (
@@ -6189,9 +6216,10 @@ def check_flash(flash, reference, tag, sizes=None):
           f"{fmt(rec['sdpa_causal_ms'])} ms [{tag}]", flush=True)
     del q, k, v, dout, seg, kernel, plain
     rec["d256"] = time_flash_wide(wide[0], dt, sizes, tag)
-    rec["f32"] = time_flash_wide(next(tuple(c[:5]) for c in sizes["checks"]
-                                      if c[5] == "f32"),
-                                 torch.float32, sizes, tag)
+    rec["f32"] = time_flash_wide(f32[0], torch.float32, sizes, tag)
+    rec["f32_d256"] = time_flash_wide(f32[1], torch.float32, sizes, tag)
+    rec["f32_bwd_body"] = {str(d): E.backward_body(torch.float32, d)
+                           for d in E.HEAD_DIMS}
     return rec
 
 
@@ -6222,7 +6250,8 @@ def time_flash_wide(shape, dt, sizes, tag):
     """Kernel E at one more shape in dt on flash_inputs' padding at sizes'
     left_pad / right_pad (bf16 at head_dim 256, gemma's heads, padded as
     the checks are and, for (d), at its step's shape with no padding;
-    f32, the FMA bodies): the forward's and
+    f32 at both head dims, the FMA forward and the split-TF32 backward,
+    and for (e) at its step's shape): the forward's and
     each backward kernel's device ms by CUDA-graph replay of its
     launcher, each half's flash_bound and share, the call ms (CUDA
     events) of the forward and of forward + backward through
@@ -6231,7 +6260,7 @@ def time_flash_wide(shape, dt, sizes, tag):
     apart; None where it cannot run or be captured), with the bodies'
     names. In f32 the card's TF32 setting is recorded beside SDPA's
     times (main() turns it off), and each time is taken over 5 x 5
-    calls (they last milliseconds; the script's time limit)."""
+    calls (they last up to milliseconds; the script's time limit)."""
     import torch.nn.functional as F
     from llamole_tpu_torch.ops import flash_attention as E
     d = shape[-1]
@@ -6498,44 +6527,33 @@ def run_flash(model, tok, tag, device="cuda", sizes=None):
             "walls": {"a": t_a, "b": t_b, "c": t_c}}
 
 
-def run_flash_gemma(tag, device="cuda", sizes=None, build=None):
-    """Phase 22 (d): gemma-1 at gemma-7b's published widths (sizes
-    ["gemma7b"] through LLMConfig.from_hf_config: 16 heads of 256, one KV
-    head each, no softcap, window or query scale, so use_flash takes
-    kernel E at head_dim 256) at gemma_layers layers, random bf16 weights
-    (family_llm) in a rank-8 LoRA GraphLM (build, build_slice by
-    default), run once phase 9's slice is freed; the causal-LM loss +
-    backward on [1, train_seq] seeded real tokens with use_flash off and
-    on in turns (flash_pair, phase 22 (b)'s gates: every layer on kernel
-    E, no plain attention call), then, on the card, E at the step's shape
-    with every token real (time_flash_wide), its kernels' time inside the
-    step each kernel's launches x its replay ms. Returns flash_pair's
-    record, the timing record, the in-step kernel ms and the part's
-    wall."""
-    from llamole_tpu_torch.models.gllm import LLMConfig
-    sizes = sizes or PHASE22
-    build = build or build_slice
+def flash_model_pair(cfg, dtype, part, what, seq, sizes, tag, device,
+                     build):
+    """Phase 22 (d) and (e): cfg's LLM in `dtype`, random weights
+    (family_llm) in a rank-8 LoRA GraphLM (build), run once phase 9's
+    slice is freed; the causal-LM loss + backward on [1, seq] seeded real
+    tokens with use_flash off and on in turns (flash_pair under sizes'
+    loss_gap and grad_rel: every layer on kernel E, no plain attention
+    call), then, on the card, E at the step's shape with every token real
+    (time_flash_wide), its kernels' time inside the step each kernel's
+    launches x its replay ms. Returns flash_pair's record, the timing
+    record, the in-step kernel ms and the part's wall."""
     t0 = time.perf_counter()
-    cfg = dataclasses.replace(LLMConfig.from_hf_config(sizes["gemma7b"]),
-                              num_layers=sizes["gemma_layers"])
-    model, _ = build(family_llm(cfg, device))
+    model, _ = build(family_llm(cfg, device, dtype=dtype))
     layers = cfg.num_layers
     need = {"launches_fwd": layers * (2 if cfg.remat else 1),
             "launches_dq": layers, "launches_dkv": layers}
-    batch = flash_lm_batch(cfg.vocab_size, sizes["train_seq"], device)
+    batch = flash_lm_batch(cfg.vocab_size, seq, device)
     pair = flash_pair(model, batch, device, sizes, lm_step_loss,
                       (False, True, True, False),
-                      f"(d) gemma-7b ({cfg.hidden_size} wide, "
-                      f"{cfg.num_heads} x {cfg.head_dim_} heads, {layers} "
-                      f"layers) causal-LM loss + backward", need, tag)
+                      f"({part}) {what} causal-LM loss + backward", need, tag)
     del model, batch
     gc.collect()
     timed, kernels = {}, {}
     if device == "cuda":
         torch.cuda.empty_cache()
-        shape = (1, sizes["train_seq"], cfg.num_heads, cfg.num_kv_heads,
-                 cfg.head_dim_)
-        timed = time_flash_wide(shape, torch.bfloat16,
+        shape = (1, seq, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_)
+        timed = time_flash_wide(shape, dtype,
                                 {**sizes, "left_pad": 0, "right_pad": 0},
                                 tag)
         for kind in ("fwd", "dq", "dkv"):
@@ -6543,9 +6561,9 @@ def run_flash_gemma(tag, device="cuda", sizes=None, build=None):
             each = timed[f"{kind}_device_ms"]
             kernels[kind] = {"launches": n, "device_ms": each,
                              "ms": n * each}
-        print(f"phase 22 (d): kernel E's device time inside the flash step "
-              f"(launches x CUDA-graph replay ms at {shape}, every token "
-              f"real), "
+        print(f"phase 22 ({part}): kernel E's device time inside the flash "
+              f"step (launches x CUDA-graph replay ms at {shape}, every "
+              f"token real), "
               + ", ".join(f"{kind} {r['launches']} x {r['device_ms']:.4f} = "
                           f"{r['ms']:.3f} ms" for kind, r in kernels.items())
               + f"; {sum(r['ms'] for r in kernels.values()):.3f} ms of the "
@@ -6553,6 +6571,45 @@ def run_flash_gemma(tag, device="cuda", sizes=None, build=None):
               f"[{tag}]", flush=True)
     return {**pair, "timed": timed, "kernels": kernels,
             "wall": time.perf_counter() - t0}
+
+
+def run_flash_gemma(tag, device="cuda", sizes=None, build=None):
+    """Phase 22 (d): gemma-1 at gemma-7b's published widths (sizes
+    ["gemma7b"] through LLMConfig.from_hf_config: 16 heads of 256, one KV
+    head each, no softcap, window or query scale, so use_flash takes
+    kernel E at head_dim 256) at gemma_layers layers in bf16, its
+    causal-LM pair at [1, train_seq] (flash_model_pair; build,
+    build_slice by default): the first path through a model that
+    launches E at head_dim 256."""
+    from llamole_tpu_torch.models.gllm import LLMConfig
+    sizes = sizes or PHASE22
+    cfg = dataclasses.replace(LLMConfig.from_hf_config(sizes["gemma7b"]),
+                              num_layers=sizes["gemma_layers"])
+    return flash_model_pair(
+        cfg, torch.bfloat16, "d",
+        f"gemma-7b ({cfg.hidden_size} wide, {cfg.num_heads} x "
+        f"{cfg.head_dim_} heads, {cfg.num_layers} layers)",
+        sizes["train_seq"], sizes, tag, device, build or build_slice)
+
+
+def run_flash_f32(tag, device="cuda", sizes=None, build=None, cfg=None):
+    """Phase 22 (e): Llama-3.1-8B (cfg, LLMConfig.llama3_8b() by default)
+    at full width and depth in f32, as both packages build the LLM from a
+    config with fp16: true (compute_dtype "float16"), its causal-LM pair
+    at [1, f32_seq] (flash_model_pair; build, build_slice by default) held
+    to f32_loss_gap and f32_grad_rel: the path that launches E's f32
+    bodies (the FMA forward, the split-TF32 dq and dkv)."""
+    from llamole_tpu_torch.models.gllm import LLMConfig
+    sizes = sizes or PHASE22
+    cfg = cfg or LLMConfig.llama3_8b()
+    return flash_model_pair(
+        cfg, torch.float32, "e",
+        f"Llama-3.1-8B in f32 ({cfg.hidden_size} wide, {cfg.num_heads} x "
+        f"{cfg.head_dim_} heads, {cfg.num_kv_heads} KV heads, "
+        f"{cfg.num_layers} layers)",
+        sizes["f32_seq"], {**sizes, "loss_gap": sizes["f32_loss_gap"],
+                           "grad_rel": sizes["f32_grad_rel"]},
+        tag, device, build or build_slice)
 
 
 def main() -> int:
@@ -6637,15 +6694,22 @@ def main() -> int:
         torch.cuda.empty_cache()
         print(f"slice freed: {torch.cuda.memory_allocated() / 2**30:.2f} "
               "GiB still allocated", flush=True)
-        # phase 22 (d): gemma-7b's ~17 GB of weights on a card of its own
+        # phase 22 (d): gemma-7b's ~17 GB of weights on a card of its own;
+        # (e): the 8B's ~32 GB in f32 after it
         gemma22 = run_flash_gemma(tag)
-        walls22 = {**phase22["walls"], "d": gemma22["wall"]}
+        gc.collect()
+        torch.cuda.empty_cache()
+        f32_22 = run_flash_f32(tag)
+        walls22 = {**phase22["walls"], "d": gemma22["wall"],
+                   "e": f32_22["wall"]}
         print(f"phase 22: (a) kernel E's checks and times "
               f"{walls22['a']:.1f} s, (b) the training steps with and "
               f"without use_flash {walls22['b']:.1f} s, (c) the flash step "
               f"at [1, {PHASE22['long_seq']}] {walls22['c']:.1f} s, (d) "
-              f"gemma-7b's steps and E at their shape {walls22['d']:.1f} s; "
-              f"{sum(walls22.values()):.1f} s in all [{tag}]", flush=True)
+              f"gemma-7b's steps and E at their shape {walls22['d']:.1f} s, "
+              f"(e) the 8B's f32 steps and E at their shape "
+              f"{walls22['e']:.1f} s; {sum(walls22.values()):.1f} s in all "
+              f"[{tag}]", flush=True)
         gc.collect()
         torch.cuda.empty_cache()
         stack_launches, pretrain_bank = run_stack(kernels, tag)
@@ -6849,7 +6913,7 @@ def main() -> int:
                   "library_bwd_device_ms", "sdpa_causal_ms",
                   "sdpa_causal_fwd_ms",
                   "f32_max_abs_err", "pairs", "shape", "fwd_body",
-                  "bwd_body", "d256", "f32")},
+                  "bwd_body", "d256", "f32", "f32_d256", "f32_bwd_body")},
               # phase 22 (d): gemma-7b's flash step, E at head_dim 256
               **{f"launches_d256_{k[len('launches_'):]}": gemma22["flash"][k]
                  for k in FLASH_COUNTS},
@@ -6859,6 +6923,15 @@ def main() -> int:
               d256_grad_rel=gemma22["grad_rel"],
               d256_wall_s={k: gemma22[k]["wall"] for k in ("plain", "flash")},
               d256_peak={k: gemma22[k]["peak"] for k in ("plain", "flash")},
+              # phase 22 (e): the 8B's f32 flash step, E's f32 bodies
+              **{f"launches_f32_{k[len('launches_'):]}": f32_22["flash"][k]
+                 for k in FLASH_COUNTS},
+              f32_step=f32_22["timed"],
+              f32_step_kernel_ms=f32_22["kernels"],
+              f32_loss_gap=f32_22["loss_gap"],
+              f32_grad_rel=f32_22["grad_rel"],
+              f32_wall_s={k: f32_22[k]["wall"] for k in ("plain", "flash")},
+              f32_peak={k: f32_22[k]["peak"] for k in ("plain", "flash")},
               train_loss_gap=phase22["train"]["loss_gap"],
               train_grad_rel=phase22["train"]["grad_rel"],
               train_wall_s={k: phase22["train"][k]["wall"]

@@ -58,9 +58,13 @@
 //   D, added once at the end; flash_bwd_dkv_wide: warpgroup 0 forms P and
 //   dV, warpgroup 1 dS and dK, P handed over in shared memory), the same
 //   grids, workspace and group sum (the section "the backward at D = 256").
-// * f32, plain FMA loops (a correct body; the LLM never runs in f32 on the
-//   card's main path): 32-row tiles, eight threads a row, the same online
-//   softmax and the same three kernels.
+// * f32 (an LLM built with compute_dtype other than bfloat16, as fp16:
+//   true gives it): the forward in plain FMA loops (flash_fwd_fma: 32-row
+//   tiles, eight threads a row, the same online softmax); the backward on
+//   the tensor cores in split TF32, three mma.sync m16n8k8 TF32 passes a
+//   product (flash_bwd_dq_tf32, flash_bwd_dkv_tf32: the section "the f32
+//   backward"), the dkv kernel per query head with the same workspace and
+//   group sum.
 //
 // D is 128 or 256 and S a multiple of 128 (the 128-row and 128-key
 // blocks at D = 128; the route sends S % 128 == 0); the wrapper
@@ -983,11 +987,22 @@ __global__ void __launch_bounds__(kWgThreads, 1) flash_bwd_dkv_wide_kernel(
 }
 
 // dK (blockIdx.y 0) or dV (1) = the sum of the workspace's G slices of n
-// elements, in head order in f32, cast once to bf16; four elements a thread
+// elements, in head order in f32, cast once to T (bf16, or f32 as it is);
+// four elements a thread
+__device__ __forceinline__ void store4(bf16* dst, float4 x) {
+  reinterpret_cast<__nv_bfloat162*>(dst)[0] = __floats2bfloat162_rn(x.x, x.y);
+  reinterpret_cast<__nv_bfloat162*>(dst)[1] = __floats2bfloat162_rn(x.z, x.w);
+}
+
+__device__ __forceinline__ void store4(float* dst, float4 x) {
+  *reinterpret_cast<float4*>(dst) = x;
+}
+
+template <typename T>
 __global__ void __launch_bounds__(256) flash_group_sum_kernel(const float* __restrict__ work,
-                                                              bf16* __restrict__ dk,
-                                                              bf16* __restrict__ dv,
-                                                              long long n, int G) {
+                                                              T* __restrict__ dk,
+                                                              T* __restrict__ dv, long long n,
+                                                              int G) {
   const long long i = ((long long)blockIdx.x * 256 + threadIdx.x) * 4;
   if (i >= n) return;
   const float* src = work + (long long)blockIdx.y * G * n + i;
@@ -999,12 +1014,443 @@ __global__ void __launch_bounds__(256) flash_group_sum_kernel(const float* __res
     acc.z += x.z;
     acc.w += x.w;
   }
-  bf16* dst = (blockIdx.y ? dv : dk) + i;
-  reinterpret_cast<__nv_bfloat162*>(dst)[0] = __floats2bfloat162_rn(acc.x, acc.y);
-  reinterpret_cast<__nv_bfloat162*>(dst)[1] = __floats2bfloat162_rn(acc.z, acc.w);
+  store4((blockIdx.y ? dv : dk) + i, acc);
 }
 
-// ---- the f32 FMA bodies ----------------------------------------------------
+// ---- the f32 backward: split TF32 on the tensor cores ----------------------
+//
+// Every product is three mma.sync m16n8k8 TF32 passes into f32 registers
+// (mma.cuh: lo.hi + hi.lo + hi.hi with hi = cvt.rna.tf32(x), lo =
+// cvt.rna.tf32(x - hi)): f32-accurate (~2e-6 relative, where one TF32 pass
+// errs ~1e-3) at a third of the TF32 rate, ~165 TFLOP/s of f32 work where
+// the FMA units give 67. mma.sync and not wgmma: wgmma takes TF32 only with
+// both shared-memory operands K-major, and dV, dK and dQ reduce over rows
+// that lie D-contiguous in dO, Q and K (each would need a transposed tile),
+// where mma.sync fragments are loaded by hand in either orientation; each
+// element is split into hi and lo as its fragment is loaded. Tiles are f32
+// rows of D + 4 floats (the pad puts the 8 rows x 4 columns of a fragment
+// read, and the 4 x 2 rows x 8 columns of a transposed one, on 32 distinct
+// banks), filled through the 2-stage cp.async ring; a warp owns 16 rows (or
+// keys). The arithmetic is the bf16 bodies' in f32: P = 2^(s scale log2 e -
+// lse log2 e) on ex2.approx, dS = P (dP - delta) scale, delta = rowsum(dO *
+// O) formed by dq; a warp skips a step wholly above the diagonal, and one
+// where its rows (keys) lie in one segment and no key (query) of the step
+// is in it: such a step adds 0.
+// * flash_bwd_dq_tf32<D>: one block of 8 warps per (b, head, kRows query
+//   rows), the longest first; per step of kKeys keys S = Q.K^T and dP =
+//   dO.V^T, dS, dQ += dS.K. At D = 128 128 rows, a warp per 16, 32-key
+//   steps. At D = 256 Q and dO alone take 130 KB: 64 rows and 16-key
+//   steps, and warps w and w + 4 share rows 16 w..16 w + 15, each over
+//   one half of D: each adds the other's partial S and dP (shared memory,
+//   named barrier 1 + w) and keeps a 16 x 128 dQ: 8 warps, where a warp
+//   per 16 rows would leave 4 a block, one a scheduler, to wait on each
+//   product's latency.
+// * flash_bwd_dkv_tf32<D>: jaxlib's dkv grid as the bf16 bodies have it,
+//   one block per (b, query head, 64 keys), the keys with the most queries
+//   first; warps w and w + 4 own keys 16 w..16 w + 15: warp w forms S^T =
+//   K.Q^T, P and dV += P^T.dO and hands P to warp w + 4 through shared
+//   memory on named barrier 1 + w; warp w + 4 forms dP^T = V.dO^T, dS and
+//   dK += dS^T.Q: two of the five products each, one 16 x D accumulator
+//   each. Per step of kRows queries (64; 16 at D = 256, where K and V
+//   alone take 130 KB). With G > 1 the f32 partials go to the workspace and
+//   flash_group_sum_kernel<float> adds them in head order.
+
+template <int D>
+struct Tf32Dq {
+  static constexpr int kRows = D == 128 ? 128 : 64;  // query rows a block
+  static constexpr int kKeys = D == 128 ? 32 : 16;   // keys a step
+  static constexpr int kThreads = 256;               // 8 warps
+  static constexpr int kSplit = 8 * 16 / kRows;      // warps (parts of D) a row tile
+  static constexpr int kSets = 2;                    // product_abt_tf32's sets of sums
+  // floats of a stage: K and V [kKeys][D + 4], then the keys' segment ids
+  static constexpr int kStage = 2 * kKeys * (D + 4) + kKeys;
+  // floats of a warp's partial S and dP where warps split D: 2 x kKeys / 8
+  // fragments of 4 floats for each of 32 lanes, register-major
+  static constexpr int kPartial = kSplit > 1 ? kKeys * 32 : 0;
+  // Q and dO [kRows][D + 4], the stages, the rows' delta, the partials
+  static constexpr size_t kShared =
+      ((size_t)2 * kRows * (D + 4) + kStages * kStage + kRows + 8 * kPartial) * sizeof(float);
+};
+
+template <int D>
+struct Tf32Dkv {
+  static constexpr int kKeys = 64;                   // keys a block
+  static constexpr int kRows = D == 128 ? 64 : 16;   // queries a step
+  static constexpr int kThreads = 256;               // two warps per 16 keys
+  // S^T (dP^T) in two sets of sums where a step has 16 queries
+  static constexpr int kSets = D == 128 ? 1 : 2;
+  // floats of a stage: Q and dO [kRows][D + 4], then the queries' segment
+  // ids, log-sum-exps and deltas
+  static constexpr int kStage = 2 * kRows * (D + 4) + 3 * kRows;
+  // K and V [64][D + 4], the stages, P of the four warp pairs
+  static constexpr size_t kShared =
+      ((size_t)2 * kKeys * (D + 4) + kStages * kStage + (size_t)kKeys * kRows) * sizeof(float);
+};
+
+// ROWS rows of D floats (global row stride `stride`) into a [ROWS][D + 4]
+// tile, 16 bytes a cp.async
+template <int ROWS, int D, int THREADS>
+__device__ __forceinline__ void copy_rows_f32(float* dst, const float* src, long long stride,
+                                              int tid) {
+  constexpr int kChunks = D / 4;
+  static_assert(ROWS * kChunks % THREADS == 0, "whole copies a thread");
+#pragma unroll
+  for (int i = 0; i < ROWS * kChunks / THREADS; ++i) {
+    const int e = tid + i * THREADS, r = e / kChunks, c = e % kChunks;
+    cp_async16(dst + r * (D + 4) + c * 4, src + r * stride + c * 4);
+  }
+}
+
+// d[c % SETS][nt] += A (16 rows of a tile from a) . B^T (rows 8 nt..8 nt + 7
+// of a tile from b) over depth chunk c (8 wide) of the W columns from a and
+// b (tiles of row stride LD), split TF32; with SETS = 2 the even and odd
+// chunks sum apart (the caller adds the two), for twice the independent
+// products where NT is small
+template <int LD, int W, int NT, int SETS>
+__device__ __forceinline__ void product_abt_tf32(float (&d)[SETS][NT][4], const float* a,
+                                                 const float* b, int g, int t4) {
+  const float* ar = a + g * LD + t4;
+  const float* br = b + g * LD + t4;
+#pragma unroll
+  for (int c = 0; c < W / 8; ++c) {
+    uint32_t ah[4], al[4], bh[NT][2], bl[NT][2];
+    split_tf32(ar[c * 8], ah[0], al[0]);               // row g, depth t4
+    split_tf32(ar[8 * LD + c * 8], ah[1], al[1]);      // row g + 8
+    split_tf32(ar[c * 8 + 4], ah[2], al[2]);           // row g, depth t4 + 4
+    split_tf32(ar[8 * LD + c * 8 + 4], ah[3], al[3]);  // row g + 8
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      split_tf32(br[nt * 8 * LD + c * 8], bh[nt][0], bl[nt][0]);
+      split_tf32(br[nt * 8 * LD + c * 8 + 4], bh[nt][1], bl[nt][1]);
+    }
+    mma_tf32x3_n<NT>(d[c % SETS], 0, ah, al, bh, bl);
+  }
+}
+
+// d[dt] (16 rows x W) += X . B, split TF32: X 16 rows x 8 KT columns in a
+// score product's accumulator layout (x[kt]: rows g, g + 8 at columns 8 kt +
+// 2 t4 and + 1), B rows 8 kt.. and W columns from b (a tile of row stride
+// LD). The A fragment wants columns t4 and t4 + 4 of a chunk where a thread
+// holds 2 t4 and 2 t4 + 1: the chunk is summed in the permuted order
+// (position t4 <-> column 2 t4, t4 + 4 <-> 2 t4 + 1) and b's rows are read
+// in the same order, so X goes to the fragments as it is. Four W tiles at
+// a time.
+template <int LD, int W, int KT>
+__device__ __forceinline__ void product_xb_tf32(float (&d)[W / 8][4], const float (&x)[KT][4],
+                                                const float* b, int g, int t4) {
+#pragma unroll
+  for (int kt = 0; kt < KT; ++kt) {
+    uint32_t ah[4], al[4];
+    split_tf32(x[kt][0], ah[0], al[0]);  // row g, column 2 t4
+    split_tf32(x[kt][2], ah[1], al[1]);  // row g + 8, column 2 t4
+    split_tf32(x[kt][1], ah[2], al[2]);  // row g, column 2 t4 + 1
+    split_tf32(x[kt][3], ah[3], al[3]);  // row g + 8, column 2 t4 + 1
+    const float* br = b + (kt * 8 + 2 * t4) * LD + g;
+#pragma unroll
+    for (int d0 = 0; d0 < W / 8; d0 += 4) {
+      uint32_t bh[4][2], bl[4][2];
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        split_tf32(br[(d0 + n) * 8], bh[n][0], bl[n][0]);
+        split_tf32(br[LD + (d0 + n) * 8], bh[n][1], bl[n][1]);
+      }
+      mma_tf32x3_n<4>(d, d0, ah, al, bh, bl);
+    }
+  }
+}
+
+// a warp's 16 x W f32 accumulator (rows r0 / r1 of row stride `row`) to dst
+template <int W>
+__device__ __forceinline__ void store_rows_tf32(float* dst, long long row, int r0, int r1, int t4,
+                                                const float (&x)[W / 8][4]) {
+#pragma unroll
+  for (int dt = 0; dt < W / 8; ++dt) {
+    const int d = dt * 8 + 2 * t4;
+    *reinterpret_cast<float2*>(dst + r0 * row + d) = make_float2(x[dt][0], x[dt][1]);
+    *reinterpret_cast<float2*>(dst + r1 * row + d) = make_float2(x[dt][2], x[dt][3]);
+  }
+}
+
+// the score product's two sets of sums added (SETS = 2), or its one set
+template <int SETS, int NT>
+__device__ __forceinline__ void sum_sets(float (&z)[4], const float (&y)[SETS][NT][4], int nt) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) z[e] = SETS > 1 ? y[0][nt][e] + y[SETS - 1][nt][e] : y[0][nt][e];
+}
+
+template <int D>
+__global__ void __launch_bounds__(Tf32Dq<D>::kThreads, 1) flash_bwd_dq_tf32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const int* __restrict__ seg, const float* __restrict__ out, const float* __restrict__ dout,
+    const float* __restrict__ lse, float* __restrict__ delta, float* __restrict__ dq, Dims dm,
+    float scale) {
+  using P = Tf32Dq<D>;
+  constexpr int R = P::kRows, BK = P::kKeys, T = P::kThreads, LD = D + 4, NT = BK / 8;
+  constexpr int SETS = P::kSets, RT = R / 16, DP = D / P::kSplit, TPR = T / R;
+  extern __shared__ __align__(16) float smem_tf32[];
+  float* qs = smem_tf32;                        // [R][LD]
+  float* dos = qs + R * LD;                     // [R][LD]
+  float* stages = dos + R * LD;                 // kStages x (K, V, key segments)
+  float* rowd = stages + kStages * P::kStage;   // delta of the block's rows
+  float* partials = rowd + R;                   // each warp's partial S and dP
+
+  const QueryBlock blk = query_block(dm, R);
+  const int S = dm.S;
+  const long long q_row = (long long)dm.H * D, kv_row = (long long)dm.KV * D;
+  const int kvh = blk.h / (dm.H / dm.KV);
+  const long long q_off = (long long)blk.b * S * q_row + (long long)blk.h * D;
+  const float* kg = k + (long long)blk.b * S * kv_row + (long long)kvh * D;
+  const float* vg = v + (long long)blk.b * S * kv_row + (long long)kvh * D;
+  const int* sg = seg + (long long)blk.b * S;
+  const long long head_rows = ((long long)blk.b * dm.H + blk.h) * S;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int rw = warp % RT, d0 = warp / RT * DP;  // the warp's row tile and first dim
+  const int nkt = (blk.q0 + R) / BK;  // key steps at or left of the diagonal
+
+  auto load_stage = [&](int kt) {
+    float* st = stages + (kt % kStages) * P::kStage;
+    const int j0 = kt * BK;
+    copy_rows_f32<BK, D, T>(st, kg + j0 * kv_row, kv_row, tid);
+    copy_rows_f32<BK, D, T>(st + BK * LD, vg + j0 * kv_row, kv_row, tid);
+    if (tid < BK / 4) cp_async16(st + 2 * BK * LD + tid * 4, sg + j0 + tid * 4);
+  };
+  copy_rows_f32<R, D, T>(qs, q + q_off + blk.q0 * q_row, q_row, tid);
+  copy_rows_f32<R, D, T>(dos, dout + q_off + blk.q0 * q_row, q_row, tid);
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {  // Q and dO join the first group
+    if (s < nkt) load_stage(s);
+    cp_async_commit();
+  }
+  {  // delta, TPR neighbouring threads a row of D / TPR dims each, from
+     // 16-byte loads, added pairwise
+    const int r = tid / TPR, sub = tid % TPR;
+    const long long at = q_off + (blk.q0 + r) * q_row + sub * (D / TPR);
+    const float4* o4 = reinterpret_cast<const float4*>(out + at);
+    const float4* d4 = reinterpret_cast<const float4*>(dout + at);
+    float acc = 0.f;
+#pragma unroll
+    for (int c = 0; c < D / TPR / 4; ++c) {
+      const float4 a = o4[c], b = d4[c];
+      acc = fmaf(a.x, b.x, acc);
+      acc = fmaf(a.y, b.y, acc);
+      acc = fmaf(a.z, b.z, acc);
+      acc = fmaf(a.w, b.w, acc);
+    }
+#pragma unroll
+    for (int o = 1; o < TPR; o <<= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+    if (!sub) {
+      rowd[r] = acc;
+      delta[head_rows + blk.q0 + r] = acc;
+    }
+  }
+
+  const int lr0 = rw * 16 + g;  // this thread's rows in the block
+  const int r0 = blk.q0 + lr0, r1 = r0 + 8;
+  const int seg0 = sg[r0], seg1 = sg[r1];
+  const float M0 = lse[head_rows + r0] * kLog2e, M1 = lse[head_rows + r1] * kLog2e;
+  const float scale2 = scale * kLog2e;
+  const int w_first = blk.q0 + rw * 16, w_last = w_first + 15;
+  // whether the warp's 16 rows lie in one segment, wseg
+  const int wseg = sg[w_first];
+  const bool rows_one = __all_sync(0xffffffffu, sg[w_first + (lane & 15)] == wseg);
+  const float* qw = qs + rw * 16 * LD + d0;
+  const float* dow = dos + rw * 16 * LD + d0;
+  float* mine = partials + warp * P::kPartial;
+  const float* theirs = partials + (warp + RT) % (T / 32) * P::kPartial;  // the other half's
+  float acc[DP / 8][4];  // dQ of the warp's rows at dims d0..d0 + DP - 1
+#pragma unroll
+  for (int i = 0; i < DP / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+
+  for (int kt = 0; kt < nkt; ++kt) {
+    cp_async_wait<kStages - 2>();  // this step's stage has landed
+    __syncthreads();
+    if (kt + kStages - 1 < nkt) load_stage(kt + kStages - 1);  // into the stage step kt - 1 read
+    cp_async_commit();
+    const int j0 = kt * BK;
+    if (j0 > w_last) continue;  // warp-uniform (and row-tile-uniform): every key is above its rows
+    const float* ks = stages + (kt % kStages) * P::kStage;
+    const float* vs = ks + BK * LD;
+    const int* kseg = reinterpret_cast<const int*>(vs + BK * LD);
+    if (rows_one) {  // the same: no key of the step in the rows' segment
+      bool none = true;
+      for (int j = lane; j < BK; j += 32) none = none && kseg[j] != wseg;
+      if (__all_sync(0xffffffffu, none)) continue;
+    }
+    float s[SETS][NT][4] = {}, dp[SETS][NT][4] = {};
+    product_abt_tf32<LD, DP, NT, SETS>(s, qw, ks + d0, g, t4);    // S = Q.K^T
+    product_abt_tf32<LD, DP, NT, SETS>(dp, dow, vs + d0, g, t4);  // dP = dO.V^T
+    float x[NT][4], y[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      sum_sets(x[nt], s, nt);
+      sum_sets(y[nt], dp, nt);
+    }
+    if constexpr (P::kSplit > 1) {  // the row tile's two halves of D: add the other's sums
+#pragma unroll
+      for (int i = 0; i < NT * 4; ++i) {
+        mine[i * 32 + lane] = x[i / 4][i % 4];
+        mine[(NT * 4 + i) * 32 + lane] = y[i / 4][i % 4];
+      }
+      named_sync(1 + rw, 64);  // both warps' partials are in
+#pragma unroll
+      for (int i = 0; i < NT * 4; ++i) {  // a + b = b + a: both warps get the same bits
+        x[i / 4][i % 4] += theirs[i * 32 + lane];
+        y[i / 4][i % 4] += theirs[(NT * 4 + i) * 32 + lane];
+      }
+    }
+    const float d0r = rowd[lr0], d1r = rowd[lr0 + 8];
+    // ds[nt][0], [1]: row r0, keys j0 + jj and + 1; [2], [3]: row r1
+    float ds[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int jj = nt * 8 + 2 * t4;
+      const int ja = j0 + jj;
+      const int sa = kseg[jj], sb = kseg[jj + 1];
+      const float p0 = (ja <= r0 && sa == seg0) ? exp2_approx(fmaf(x[nt][0], scale2, -M0)) : 0.f;
+      const float p1 =
+          (ja + 1 <= r0 && sb == seg0) ? exp2_approx(fmaf(x[nt][1], scale2, -M0)) : 0.f;
+      const float p2 = (ja <= r1 && sa == seg1) ? exp2_approx(fmaf(x[nt][2], scale2, -M1)) : 0.f;
+      const float p3 =
+          (ja + 1 <= r1 && sb == seg1) ? exp2_approx(fmaf(x[nt][3], scale2, -M1)) : 0.f;
+      ds[nt][0] = p0 * (y[nt][0] - d0r) * scale;
+      ds[nt][1] = p1 * (y[nt][1] - d0r) * scale;
+      ds[nt][2] = p2 * (y[nt][2] - d1r) * scale;
+      ds[nt][3] = p3 * (y[nt][3] - d1r) * scale;
+    }
+    product_xb_tf32<LD, DP, NT>(acc, ds, ks + d0, g, t4);  // dQ += dS.K
+  }
+  store_rows_tf32<DP>(dq + q_off + d0, q_row, r0, r1, t4, acc);
+}
+
+template <int D>
+__global__ void __launch_bounds__(Tf32Dkv<D>::kThreads, 1) flash_bwd_dkv_tf32_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const int* __restrict__ seg, const float* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv,
+    float* __restrict__ work, Dims dm, float scale) {
+  using P = Tf32Dkv<D>;
+  constexpr int KB = P::kKeys, BQ = P::kRows, T = P::kThreads, LD = D + 4, NT = BQ / 8;
+  constexpr int SETS = P::kSets;
+  extern __shared__ __align__(16) float smem_tf32[];
+  float* ks = smem_tf32;                        // [64][LD]
+  float* vs = ks + KB * LD;                     // [64][LD]
+  float* stages = vs + KB * LD;                 // kStages x (Q, dO, seg, lse, delta)
+  float* pbuf = stages + kStages * P::kStage;   // each warp pair's P, register-major
+
+  const int S = dm.S, G = dm.H / dm.KV;
+  const int bh = blockIdx.x % (dm.B * dm.H);
+  const int b = bh / dm.H, h = bh % dm.H, kvh = h / G;
+  const int j0 = (int)(blockIdx.x / (dm.B * dm.H)) * KB;  // the most queries first
+  const long long q_row = (long long)dm.H * D, kv_row = (long long)dm.KV * D;
+  const long long kv_off = (long long)b * S * kv_row + (long long)kvh * D;
+  const long long q_off = (long long)b * S * q_row + (long long)h * D;
+  const long long head_rows = ((long long)b * dm.H + h) * S;
+  const int* sg = seg + (long long)b * S;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int pair = warp & 3;         // keys 16 pair..16 pair + 15
+  const bool makes_p = warp < 4;     // S^T, P and dV; the pair's other warp dP^T, dS and dK
+  const int nsteps = (S - j0) / BQ;  // query steps at or below the diagonal
+
+  auto load_stage = [&](int it) {
+    float* st = stages + (it % kStages) * P::kStage;
+    const int i0 = j0 + it * BQ;
+    copy_rows_f32<BQ, D, T>(st, q + q_off + i0 * q_row, q_row, tid);
+    copy_rows_f32<BQ, D, T>(st + BQ * LD, dout + q_off + i0 * q_row, q_row, tid);
+    if (tid < 3 * BQ / 4) {  // BQ / 4 chunks each of seg, lse and delta
+      const int which = tid / (BQ / 4), c = tid % (BQ / 4);
+      const void* src = which == 0   ? static_cast<const void*>(sg + i0 + c * 4)
+                        : which == 1 ? static_cast<const void*>(lse + head_rows + i0 + c * 4)
+                                     : static_cast<const void*>(delta + head_rows + i0 + c * 4);
+      cp_async16(st + 2 * BQ * LD + which * BQ + c * 4, src);
+    }
+  };
+  copy_rows_f32<KB, D, T>(ks, k + kv_off + j0 * kv_row, kv_row, tid);
+  copy_rows_f32<KB, D, T>(vs, v + kv_off + j0 * kv_row, kv_row, tid);
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {  // K and V join the first group
+    if (s < nsteps) load_stage(s);
+    cp_async_commit();
+  }
+
+  const int p_first = j0 + pair * 16;
+  const int kr0 = p_first + g, kr1 = kr0 + 8;  // this thread's keys
+  const int sk0 = sg[kr0], sk1 = sg[kr1];
+  // whether the pair's 16 keys lie in one segment, pseg
+  const int pseg = sg[p_first];
+  const bool keys_one = __all_sync(0xffffffffu, sg[p_first + (lane & 15)] == pseg);
+  const float scale2 = scale * kLog2e;
+  const float* aw = (makes_p ? ks : vs) + pair * 16 * LD;  // the pair's K or V rows
+  float* pw = pbuf + pair * (BQ / 2) * 32;  // the pair's P: register i of lane l at i * 32 + l
+  float acc[D / 8][4];  // dV (makes_p) or dK of the pair's keys
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+
+  for (int it = 0; it < nsteps; ++it) {
+    cp_async_wait<kStages - 2>();  // this step's stage has landed
+    __syncthreads();
+    if (it + kStages - 1 < nsteps) load_stage(it + kStages - 1);  // into the stage step it - 1 read
+    cp_async_commit();
+    const int i0 = j0 + it * BQ;
+    if (i0 + BQ - 1 < p_first) continue;  // pair-uniform: every query precedes its keys
+    const float* qst = stages + (it % kStages) * P::kStage;
+    const float* dost = qst + BQ * LD;
+    const int* qseg = reinterpret_cast<const int*>(dost + BQ * LD);
+    const float* qlse = reinterpret_cast<const float*>(qseg + BQ);
+    const float* qdel = qlse + BQ;
+    if (keys_one) {  // pair-uniform: no query of the step in the keys' segment
+      bool none = true;
+      for (int i = lane; i < BQ; i += 32) none = none && qseg[i] != pseg;
+      if (__all_sync(0xffffffffu, none)) continue;
+    }
+    float y[SETS][NT][4] = {};
+    product_abt_tf32<LD, D, NT, SETS>(y, aw, makes_p ? qst : dost, g, t4);  // S^T or dP^T
+    // x[nt][0], [1]: key kr0, queries i0 + ic and + 1; [2], [3]: key kr1
+    float x[NT][4];
+    if (makes_p) {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int ic = nt * 8 + 2 * t4;
+        const int ia = i0 + ic;
+        const int sa = qseg[ic], sb = qseg[ic + 1];
+        const float Ma = qlse[ic] * kLog2e, Mb = qlse[ic + 1] * kLog2e;
+        float z[4];
+        sum_sets(z, y, nt);
+        x[nt][0] = (kr0 <= ia && sk0 == sa) ? exp2_approx(fmaf(z[0], scale2, -Ma)) : 0.f;
+        x[nt][1] = (kr0 <= ia + 1 && sk0 == sb) ? exp2_approx(fmaf(z[1], scale2, -Mb)) : 0.f;
+        x[nt][2] = (kr1 <= ia && sk1 == sa) ? exp2_approx(fmaf(z[2], scale2, -Ma)) : 0.f;
+        x[nt][3] = (kr1 <= ia + 1 && sk1 == sb) ? exp2_approx(fmaf(z[3], scale2, -Mb)) : 0.f;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) pw[(nt * 4 + e) * 32 + lane] = x[nt][e];
+      }
+      named_arrive(1 + pair, 64);
+    } else {
+      named_sync(1 + pair, 64);  // P of this step is in pw
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int ic = nt * 8 + 2 * t4;
+        const float Da = qdel[ic], Db = qdel[ic + 1];
+        float z[4];
+        sum_sets(z, y, nt);
+        x[nt][0] = pw[(nt * 4) * 32 + lane] * (z[0] - Da) * scale;
+        x[nt][1] = pw[(nt * 4 + 1) * 32 + lane] * (z[1] - Db) * scale;
+        x[nt][2] = pw[(nt * 4 + 2) * 32 + lane] * (z[2] - Da) * scale;
+        x[nt][3] = pw[(nt * 4 + 3) * 32 + lane] * (z[3] - Db) * scale;
+      }
+    }
+    product_xb_tf32<LD, D, NT>(acc, x, makes_p ? dost : qst, g, t4);  // dV += P^T.dO or dK += dS^T.Q
+  }
+  if (G == 1) {
+    store_rows_tf32<D>((makes_p ? dv : dk) + kv_off, kv_row, kr0, kr1, t4, acc);
+    return;
+  }
+  const long long part = (long long)dm.B * S * kv_row;  // one slice of the workspace
+  store_rows_tf32<D>(work + ((makes_p ? G : 0) + h % G) * part + kv_off, kv_row, kr0, kr1, t4,
+                     acc);
+}
+
+// ---- the f32 FMA forward ---------------------------------------------------
 
 // Thread (r, c) = (tid / 8, tid % 8) owns row r of a 32-row tile, its
 // columns c + 8u of the 32 x 32 logits and its dims c + 8i; the eight
@@ -1043,17 +1489,6 @@ __device__ __forceinline__ float dot_rows(const float* a, const float* b) {
 template <int D>
 constexpr size_t fma_fwd_shared_bytes() {
   return ((size_t)3 * kF * (D + 1) + kF * (kF + 1)) * sizeof(float) + kF * sizeof(int);
-}
-
-template <int D>
-constexpr size_t fma_dq_shared_bytes() {
-  return ((size_t)4 * kF * (D + 1) + kF * (kF + 1)) * sizeof(float) + kF * sizeof(int);
-}
-
-template <int D>
-constexpr size_t fma_dkv_shared_bytes() {
-  return ((size_t)4 * kF * (D + 1) + 2 * kF * (kF + 1) + 2 * kF) * sizeof(float) +
-         kF * sizeof(int);
 }
 
 template <int D>
@@ -1127,151 +1562,6 @@ __global__ void __launch_bounds__(kFThreads) flash_fwd_fma_kernel(
   if (c == 0) lse[((long long)blk.b * dm.H + blk.h) * S + row] = m + logf(l);
 }
 
-template <int D>
-__global__ void __launch_bounds__(kFThreads) flash_bwd_dq_fma_kernel(
-    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    const int* __restrict__ seg, const float* __restrict__ out, const float* __restrict__ dout,
-    const float* __restrict__ lse, float* __restrict__ delta, float* __restrict__ dq, Dims dm,
-    float scale) {
-  constexpr int LD = D + 1;
-  extern __shared__ float smem_f32[];
-  float* qs = smem_f32;        // [kF][LD]
-  float* dos = qs + kF * LD;   // [kF][LD]
-  float* ks = dos + kF * LD;   // [kF][LD]
-  float* vs = ks + kF * LD;    // [kF][LD]
-  float* dss = vs + kF * LD;   // [kF][kF + 1]
-  int* kseg = reinterpret_cast<int*>(dss + kF * (kF + 1));
-
-  const QueryBlock blk = query_block(dm, kF);
-  const int S = dm.S;
-  const long long q_row = (long long)dm.H * D, kv_row = (long long)dm.KV * D;
-  const int kvh = blk.h / (dm.H / dm.KV);
-  const long long q_off = (long long)blk.b * S * q_row + (long long)blk.h * D;
-  const float* kg = k + (long long)blk.b * S * kv_row + (long long)kvh * D;
-  const float* vg = v + (long long)blk.b * S * kv_row + (long long)kvh * D;
-  const int* sg = seg + (long long)blk.b * S;
-  const long long head_rows = ((long long)blk.b * dm.H + blk.h) * S;
-  const int tid = threadIdx.x, r = tid >> 3, c = tid & 7;
-  const int row = blk.q0 + r, srow = sg[row];
-
-  load_f32_rows<D>(qs, q + q_off + blk.q0 * q_row, q_row, tid);
-  load_f32_rows<D>(dos, dout + q_off + blk.q0 * q_row, q_row, tid);
-  float part = 0.f;
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) {
-    const long long at = q_off + row * q_row + c + 8 * i;
-    part = fmaf(out[at], dout[at], part);
-  }
-  const float dl = row8_sum(part);
-  if (c == 0) delta[head_rows + row] = dl;
-  const float L = lse[head_rows + row];
-  float acc[D / 8];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) acc[i] = 0.f;
-  for (int j0 = 0; j0 <= blk.q0; j0 += kF) {
-    __syncthreads();
-    load_f32_rows<D>(ks, kg + j0 * kv_row, kv_row, tid);
-    load_f32_rows<D>(vs, vg + j0 * kv_row, kv_row, tid);
-    for (int j = tid; j < kF; j += kFThreads) kseg[j] = sg[j0 + j];
-    __syncthreads();
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int j = c + 8 * u;
-      float ds = 0.f;
-      if (j0 + j <= row && kseg[j] == srow) {
-        const float p = expf(dot_rows<D>(qs + r * LD, ks + j * LD) * scale - L);
-        ds = p * (dot_rows<D>(dos + r * LD, vs + j * LD) - dl) * scale;
-      }
-      dss[r * (kF + 1) + j] = ds;
-    }
-    __syncwarp();
-    for (int j = 0; j < kF; ++j) {
-      const float ds = dss[r * (kF + 1) + j];
-#pragma unroll
-      for (int i = 0; i < D / 8; ++i) acc[i] = fmaf(ds, ks[j * LD + c + 8 * i], acc[i]);
-    }
-  }
-  float* dg = dq + q_off + row * q_row;
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) dg[c + 8 * i] = acc[i];
-}
-
-template <int D>
-__global__ void __launch_bounds__(kFThreads) flash_bwd_dkv_fma_kernel(
-    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    const int* __restrict__ seg, const float* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv, Dims dm,
-    float scale) {
-  constexpr int LD = D + 1;
-  extern __shared__ float smem_f32[];
-  float* ks = smem_f32;        // [kF][LD]
-  float* vs = ks + kF * LD;    // [kF][LD]
-  float* qs = vs + kF * LD;    // [kF][LD]
-  float* dos = qs + kF * LD;   // [kF][LD]
-  float* pp = dos + kF * LD;   // [kF][kF + 1] P^T
-  float* dd = pp + kF * (kF + 1);  // [kF][kF + 1] dS^T
-  float* qlse = dd + kF * (kF + 1);
-  float* qdel = qlse + kF;
-  int* qseg = reinterpret_cast<int*>(qdel + kF);
-
-  const int S = dm.S, G = dm.H / dm.KV;
-  const int bk = blockIdx.x % (dm.B * dm.KV);
-  const int b = bk / dm.KV, kvh = bk % dm.KV;
-  const int j0 = (int)(blockIdx.x / (dm.B * dm.KV)) * kF;
-  const long long q_row = (long long)dm.H * D, kv_row = (long long)dm.KV * D;
-  const long long kv_off = (long long)b * S * kv_row + (long long)kvh * D;
-  const int* sg = seg + (long long)b * S;
-  const int tid = threadIdx.x, r = tid >> 3, c = tid & 7;
-  const int key = j0 + r, skey = sg[key];
-
-  load_f32_rows<D>(ks, k + kv_off + j0 * kv_row, kv_row, tid);
-  load_f32_rows<D>(vs, v + kv_off + j0 * kv_row, kv_row, tid);
-  float dka[D / 8], dva[D / 8];
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) dka[i] = dva[i] = 0.f;
-  for (int gi = 0; gi < G; ++gi) {
-    const int h = kvh * G + gi;
-    const long long q_off = (long long)b * S * q_row + (long long)h * D;
-    const long long head_rows = ((long long)b * dm.H + h) * S;
-    for (int i0 = j0; i0 < S; i0 += kF) {
-      __syncthreads();
-      load_f32_rows<D>(qs, q + q_off + i0 * q_row, q_row, tid);
-      load_f32_rows<D>(dos, dout + q_off + i0 * q_row, q_row, tid);
-      for (int i = tid; i < kF; i += kFThreads) {
-        qseg[i] = sg[i0 + i];
-        qlse[i] = lse[head_rows + i0 + i];
-        qdel[i] = delta[head_rows + i0 + i];
-      }
-      __syncthreads();
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int i = c + 8 * u;
-        float p = 0.f, ds = 0.f;
-        if (key <= i0 + i && qseg[i] == skey) {
-          p = expf(dot_rows<D>(ks + r * LD, qs + i * LD) * scale - qlse[i]);
-          ds = p * (dot_rows<D>(vs + r * LD, dos + i * LD) - qdel[i]) * scale;
-        }
-        pp[r * (kF + 1) + i] = p;
-        dd[r * (kF + 1) + i] = ds;
-      }
-      __syncwarp();
-      for (int i = 0; i < kF; ++i) {
-        const float p = pp[r * (kF + 1) + i], ds = dd[r * (kF + 1) + i];
-#pragma unroll
-        for (int x = 0; x < D / 8; ++x) {
-          dva[x] = fmaf(p, dos[i * LD + c + 8 * x], dva[x]);
-          dka[x] = fmaf(ds, qs[i * LD + c + 8 * x], dka[x]);
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int x = 0; x < D / 8; ++x) {
-    dk[kv_off + key * kv_row + c + 8 * x] = dka[x];
-    dv[kv_off + key * kv_row + c + 8 * x] = dva[x];
-  }
-}
-
 // ---- launchers -----------------------------------------------------------
 
 // 1 / sqrt(D) rounded once to f32, as jaxlib's sm_scale = 1 / np.sqrt(D)
@@ -1329,11 +1619,22 @@ int dq_bf16(const void* q, const void* k, const void* v, const void* seg, const 
 template <int D>
 int dq_f32(const void* q, const void* k, const void* v, const void* seg, const void* out,
            const void* dout, const void* lse, void* delta, void* dq, Dims dm, void* stream) {
+  using P = Tf32Dq<D>;
   static std::atomic<uint64_t> raised{0};
-  return launch_one(flash_bwd_dq_fma_kernel<D>, dm.B * dm.H * (dm.S / kF), kFThreads,
-                    fma_dq_shared_bytes<D>(), raised, stream, (const float*)q, (const float*)k,
+  return launch_one(flash_bwd_dq_tf32_kernel<D>, dm.B * dm.H * (dm.S / P::kRows), P::kThreads,
+                    P::kShared, raised, stream, (const float*)q, (const float*)k,
                     (const float*)v, (const int*)seg, (const float*)out, (const float*)dout,
                     (const float*)lse, (float*)delta, (float*)dq, dm, softmax_scale(D));
+}
+
+// the group sum of a dkv launch with G = H / KV > 1 into dk / dv of type T
+template <typename T>
+int group_sum(const void* work, void* dk, void* dv, Dims dm, int D, void* stream) {
+  const long long n = (long long)dm.B * dm.S * dm.KV * D;
+  flash_group_sum_kernel<T><<<dim3((unsigned)((n / 4 + 255) / 256), 2), 256, 0,
+                              (cudaStream_t)stream>>>((const float*)work, (T*)dk, (T*)dv, n,
+                                                      dm.H / dm.KV);
+  return (int)cudaGetLastError();
 }
 
 template <int D>
@@ -1352,23 +1653,24 @@ int dkv_bf16(const void* q, const void* k, const void* v, const void* seg, const
                              (const float*)delta, (bf16*)dk, (bf16*)dv, (float*)work, dm,
                              softmax_scale(D));
   if (err != 0 || G == 1) return err;
-  const long long n = (long long)dm.B * dm.S * dm.KV * D;
-  flash_group_sum_kernel<<<dim3((unsigned)((n / 4 + 255) / 256), 2), 256, 0,
-                           (cudaStream_t)stream>>>((const float*)work, (bf16*)dk, (bf16*)dv, n,
-                                                   G);
-  return (int)cudaGetLastError();
+  return group_sum<bf16>(work, dk, dv, dm, D, stream);
 }
 
 template <int D>
 int dkv_f32(const void* q, const void* k, const void* v, const void* seg, const void* dout,
-            const void* lse, const void* delta, void* dk, void* dv, void*, Dims dm,
+            const void* lse, const void* delta, void* dk, void* dv, void* work, Dims dm,
             void* stream) {
+  using P = Tf32Dkv<D>;
   static std::atomic<uint64_t> raised{0};
-  return launch_one(flash_bwd_dkv_fma_kernel<D>, dm.B * dm.KV * (dm.S / kF), kFThreads,
-                    fma_dkv_shared_bytes<D>(), raised, stream, (const float*)q,
-                    (const float*)k, (const float*)v, (const int*)seg, (const float*)dout,
-                    (const float*)lse, (const float*)delta, (float*)dk, (float*)dv, dm,
-                    softmax_scale(D));
+  const int G = dm.H / dm.KV;
+  if (G > 1 && work == nullptr) return (int)cudaErrorInvalidValue;
+  const int err = launch_one(flash_bwd_dkv_tf32_kernel<D>, dm.B * dm.H * (dm.S / P::kKeys),
+                             P::kThreads, P::kShared, raised, stream, (const float*)q,
+                             (const float*)k, (const float*)v, (const int*)seg,
+                             (const float*)dout, (const float*)lse, (const float*)delta,
+                             (float*)dk, (float*)dv, (float*)work, dm, softmax_scale(D));
+  if (err != 0 || G == 1) return err;
+  return group_sum<float>(work, dk, dv, dm, D, stream);
 }
 
 }  // namespace
@@ -1388,7 +1690,8 @@ extern "C" {
   }
 
 // + out, dout [B, S, H * D] and lse -> delta [B, H, S] f32 (read by the dkv
-// kernel, launched after this one) and dq [B, S, H, D]
+// kernel, launched after this one) and dq [B, S, H, D]; bf16 launches the
+// wgmma bodies, f32 flash_bwd_dq_tf32_kernel<D>
 #define LLAMOLE_FLASH_DQ(suffix, impl)                                                      \
   int llamole_flash_attention_bwd_dq_##suffix(                                              \
       const void* q, const void* k, const void* v, const void* seg, const void* out,        \
@@ -1401,9 +1704,10 @@ extern "C" {
   }
 
 // + dout, lse and delta -> dk, dv [B, S, KV, D]; work: the f32 workspace
-// [2, H / KV, B, S, KV, D] of the bf16 bodies (D = 128 and 256) with
-// H > KV, where each query head's partials wait for the group sum; unused
-// (may be null) with H = KV and in f32
+// [2, H / KV, B, S, KV, D] of every dkv body (bf16 and f32, D = 128 and
+// 256) with H > KV, where each query head's partials wait for the group
+// sum; unused (may be null) with H = KV. f32 launches the split-TF32
+// bodies (flash_bwd_dq_tf32_kernel<D>, flash_bwd_dkv_tf32_kernel<D>)
 #define LLAMOLE_FLASH_DKV(suffix, impl)                                                     \
   int llamole_flash_attention_bwd_dkv_##suffix(                                             \
       const void* q, const void* k, const void* v, const void* seg, const void* dout,       \

@@ -446,39 +446,7 @@ __global__ void __launch_bounds__(kMmaThreads) attention_mma_kernel(
 
 // ---- the f32 split-TF32 tensor-core body -----------------------------
 
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x = hi + lo with both parts TF32 (11 significant bits each, rounded to
-// nearest, ties away from zero): x - hi is exact in f32, so hi + lo keeps
-// 22 of x's 24 bits
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32_rna(x);
-  lo = tf32_rna(x - __uint_as_float(hi));
-}
-
-// d (16x8 f32) += a (16x8 tf32, row) * b (8x8 tf32, col)
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d += a * b as three TF32 products, the two small ones first: a.lo * b.hi
-// + a.hi * b.lo + a.hi * b.hi; only a.lo * b.lo (~2^-22 relative) is dropped
-__device__ __forceinline__ void mma_tf32x3(float (&d)[4], const uint32_t (&ah)[4],
-                                           const uint32_t (&al)[4], uint32_t bh0,
-                                           uint32_t bh1, uint32_t bl0, uint32_t bl1) {
-  mma_tf32(d, al, bh0, bh1);
-  mma_tf32(d, ah, bl0, bl1);
-  mma_tf32(d, ah, bh0, bh1);
-}
+// tf32_rna, split_tf32, mma_tf32 and mma_tf32x3 are in mma.cuh.
 
 // Shared memory: q, k, v as [np][DH + 4] f32 tiles (np = N rounded up to
 // 16; the 4-float pad puts the 8 rows x 4 columns of every fragment read

@@ -1,6 +1,7 @@
 // Device helpers shared by the attention kernels (fused_attention.cu, A and
 // D; flash_attention.cu, E): warp reductions, cp.async copies, ldmatrix and
-// mma.sync m16n8k16 on bf16, and the once-per-device shared-memory opt-in.
+// mma.sync m16n8k16 on bf16, the split-TF32 products (three mma.sync
+// m16n8k8 TF32 passes), and the once-per-device shared-memory opt-in.
 // They sit in an anonymous namespace: each source that includes the header
 // compiles its own copy.
 
@@ -72,6 +73,59 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);  // .x = lo: the lower index
   return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// ---- split TF32: f32-accurate products on the TF32 tensor cores
+
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo with both parts TF32 (11 significant bits each, rounded to
+// nearest, ties away from zero): x - hi is exact in f32, so hi + lo keeps
+// 22 of x's 24 bits
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// d (16x8 f32) += a (16x8 tf32, row) * b (8x8 tf32, col)
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a * b as three TF32 products, the two small ones first: a.lo * b.hi
+// + a.hi * b.lo + a.hi * b.hi; only a.lo * b.lo (~2^-22 relative) is dropped
+__device__ __forceinline__ void mma_tf32x3(float (&d)[4], const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], uint32_t bh0,
+                                           uint32_t bh1, uint32_t bl0, uint32_t bl1) {
+  mma_tf32(d, al, bh0, bh1);
+  mma_tf32(d, ah, bl0, bl1);
+  mma_tf32(d, ah, bh0, bh1);
+}
+
+// mma_tf32x3 on N tiles d[off..off + N - 1] that share one A fragment, pass
+// by pass (every tile's a.lo * b.hi, then every a.hi * b.lo, then every
+// a.hi * b.hi): each tile sums in mma_tf32x3's order, and N independent
+// products are in flight where one tile's three passes would wait on each
+// other
+template <int N, int M>
+__device__ __forceinline__ void mma_tf32x3_n(float (&d)[M][4], int off, const uint32_t (&ah)[4],
+                                             const uint32_t (&al)[4], const uint32_t (&bh)[N][2],
+                                             const uint32_t (&bl)[N][2]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma_tf32(d[off + n], al, bh[n][0], bh[n][1]);
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma_tf32(d[off + n], ah, bl[n][0], bl[n][1]);
+#pragma unroll
+  for (int n = 0; n < N; ++n) mma_tf32(d[off + n], ah, bh[n][0], bh[n][1]);
 }
 
 __device__ __forceinline__ float quad_max(float v) {

@@ -19,10 +19,12 @@ kernel, the counterparts of jaxlib's `_flash_attention_impl`,
 `_flash_attention_bwd_dq` and `_flash_attention_bwd_dkv`. It takes bf16
 (warpgroup (wgmma) bodies at both head dims: the forward; dq and dkv on
 128-row blocks at D = 128 and on 64-row blocks whose two warpgroups
-split each step's work at D = 256; the dkv kernel per query head, its
-f32 partials summed over the GQA group in `dkv_workspace`) and f32 (FMA
-bodies), D in HEAD_DIMS and S a multiple of SEQ_MULTIPLE
-(`forward_body` and `backward_body` name the bodies). The wrapper counts
+split each step's work at D = 256) and f32 (an FMA forward; dq and dkv
+on the tensor cores in split TF32, three mma.sync TF32 passes a
+product), the dkv kernel per query head in both, its f32 partials
+summed over the GQA group in `dkv_workspace`; D in HEAD_DIMS and S a
+multiple of SEQ_MULTIPLE (`forward_body` and `backward_body` name the
+bodies). The wrapper counts
 each kernel's launches (`launches_fwd`, `launches_dq`, `launches_dkv`;
 `launches` is their sum). On a CPU tensor it runs
 `flash_attention_reference`, the plain PyTorch version of the same
@@ -58,11 +60,13 @@ def backward_body(dtype: torch.dtype, d: int) -> str:
     """The dq and dkv kernels' body for an input type and head dim, as
     csrc/flash_attention.cu routes them: "wgmma" (bf16, D = 128: 128-row
     blocks), "wgmma_wide" (bf16, D = 256: 64-row blocks whose two
-    warpgroups split each step's work) or "fma" (f32)."""
+    warpgroups split each step's work) or "tf32x3" (f32, both head dims:
+    split TF32 on mma.sync, `flash_bwd_dq_tf32_kernel` /
+    `flash_bwd_dkv_tf32_kernel`)."""
     if d not in HEAD_DIMS:
         raise ValueError(f"head_dim {d}: the kernel takes {HEAD_DIMS}")
     if dtype != torch.bfloat16:
-        return "fma"
+        return "tf32x3"
     return "wgmma" if d == 128 else "wgmma_wide"
 
 
@@ -189,13 +193,14 @@ def flash_backward_dq(q, k, v, seg, out, dout, lse):
     return dq, delta
 
 
-def dkv_workspace(dtype, b, s, h, kv, d, device):
-    """The f32 workspace [2, G, B, S, KV, D] (G = H / KV) in which the bf16
-    dkv bodies (both head dims) keep each query head's dK and dV before
-    a second launch sums them over the group in head order; None where
-    no body needs one (G = 1, where a block writes bf16, and f32)."""
+def dkv_workspace(b, s, h, kv, d, device):
+    """The f32 workspace [2, G, B, S, KV, D] (G = H / KV) in which every
+    dkv body (bf16 and f32, both head dims) keeps each query head's dK
+    and dV before a second launch sums them over the group in head order
+    and writes them in the input type; None with G = 1, where a block
+    writes dK and dV itself."""
     g = h // kv
-    if dtype != torch.bfloat16 or g == 1:
+    if g == 1:
         return None
     return torch.empty((2, g, b, s, kv, d), dtype=torch.float32,
                        device=device)
@@ -206,7 +211,7 @@ def flash_backward_dkv(q, k, v, seg, dout, lse, delta):
     b, s, h, kv, d = _dims(q, k)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    work = dkv_workspace(q.dtype, b, s, h, kv, d, q.device)
+    work = dkv_workspace(b, s, h, kv, d, q.device)
     launch(_entry("bwd_dkv", q.dtype), q.device, "flash_attention dkv",
            q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),

@@ -281,19 +281,18 @@ def test_planted_mutants_fail(mutant):
 
 def test_the_wrapper_routes_head_dim_256_to_the_wide_bodies():
     """backward_body names the bodies csrc/flash_attention.cu routes to
-    ("wgmma" at D = 128, "wgmma_wide" at 256 in bf16, "fma" in f32), and
-    dkv_workspace gives both bf16 head dims with G > 1 the f32 workspace
-    [2, G, B, S, KV, D] that the group sum reads (None with G = 1 or in
-    f32)."""
+    ("wgmma" at D = 128, "wgmma_wide" at 256 in bf16, "tf32x3" in f32),
+    and dkv_workspace gives both head dims with G > 1 the f32 workspace
+    [2, G, B, S, KV, D] that the group sum reads (None with G = 1), in
+    bf16 and f32 alike."""
     from llamole_tpu_torch.ops import flash_attention as E
     bf16, f32 = torch.bfloat16, torch.float32
     assert [E.backward_body(bf16, d) for d in (128, 256)] == ["wgmma",
                                                               "wgmma_wide"]
-    assert {E.backward_body(f32, d) for d in (128, 256)} == {"fma"}
+    assert {E.backward_body(f32, d) for d in (128, 256)} == {"tf32x3"}
     with pytest.raises(ValueError, match="head_dim"):
         E.backward_body(bf16, 64)
     for d in (128, 256):
-        work = E.dkv_workspace(bf16, 1, 256, 4, 2, d, "cpu")
+        work = E.dkv_workspace(1, 256, 4, 2, d, "cpu")
         assert work.shape == (2, 2, 1, 256, 2, d) and work.dtype == f32
-        assert E.dkv_workspace(bf16, 1, 256, 4, 4, d, "cpu") is None
-        assert E.dkv_workspace(f32, 1, 256, 4, 2, d, "cpu") is None
+        assert E.dkv_workspace(1, 256, 4, 4, d, "cpu") is None

@@ -580,7 +580,8 @@ def _bf16_step(x: float) -> float:
 # where a step is 3.1e-2), G = 1 (no workspace: dK and dV written in
 # bf16 by the block), B = 2 with a segment boundary at key 200 (inside
 # the second 128-key tile, off the 64-row steps), the smallest S the
-# kernels take
+# kernels take, and G = 1 at head_dim 256 (in f32 dK and dV written by
+# the split-TF32 dkv block itself)
 FLASH_SHAPES = [
     pytest.param(shape, split, one_step, id="x".join(map(str, shape))
                  + ("" if split is None else f"-split{split}"))
@@ -589,12 +590,13 @@ FLASH_SHAPES = [
                                    ((1, 256, 8, 1, 128), None, True),
                                    ((1, 256, 4, 4, 128), None, True),
                                    ((2, 256, 4, 2, 128), 200, True),
-                                   ((1, 128, 2, 1, 128), None, True))]
+                                   ((1, 128, 2, 1, 128), None, True),
+                                   ((1, 256, 2, 2, 256), None, True))]
 
 
 @pytest.mark.parametrize("shape,split,one_step", FLASH_SHAPES)
 @pytest.mark.parametrize("dtype,tol", [
-    (torch.float32, 1e-4),     # FMA bodies, f32 sums in another order
+    (torch.float32, 1e-4),     # FMA forward, split-TF32 backward
     (torch.bfloat16, 2e-2),    # bf16 operands and outputs, ~4e-3 relative
 ])
 def test_flash_attention_matches_plain(cuda, shape, split, one_step, dtype,

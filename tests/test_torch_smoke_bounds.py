@@ -906,6 +906,33 @@ def test_flash_bound_counts_the_causal_half_and_gqa_reads():
         pairs - 300 * (s - 300))
 
 
+def test_flash_bound_takes_f32_products_at_the_split_tf32_rate():
+    """f32_tensor, the rate of f32 products on the tensor cores, is the
+    dense TF32 rate over three passes (494.7 / 3 TFLOP/s, above the FMA
+    units' 67): E's f32 check shape (1, 1024, 32, 8, 128), padded as
+    phase 22 pads it (292,932 pairs a head), is bound by its operations
+    at ~30 us forward and ~74 us backward (12.0 GFLOP of products), and
+    kernel A's f32 main shape stays bound by its bytes."""
+    assert chip_smoke.PEAK_OPS_PER_S["f32_tensor"] == pytest.approx(
+        494.7e12 / 3)
+    shape = (1, 1024, 32, 8, 128)
+    seg = chip_smoke.flash_inputs(shape, torch.float32, chip_smoke.PHASE22,
+                                  "cpu")[4]
+    pairs = int(chip_smoke.flash_allowed(seg).sum())
+    assert pairs == 292932
+    fwd = chip_smoke.flash_bound(shape, torch.float32, pairs, backward=False)
+    bwd = chip_smoke.flash_bound(shape, torch.float32, pairs, backward=True)
+    products = 5 * 2 * 32 * 128 * pairs
+    assert abs(products - 12.0e9) < 0.05e9
+    assert fwd[1] == bwd[1] == "operations"
+    assert bwd[0] == pytest.approx(products / (494.7e12 / 3) * 1e3
+                                   + 6 * 32 * pairs / 67e12 * 1e3)
+    assert 0.029 < fwd[0] < 0.031 and 0.073 < bwd[0] < 0.075
+    b, n, h, heads = chip_smoke.MAIN_SHAPE
+    assert chip_smoke.attention_bound(b, n, heads, h // heads,
+                                      torch.float32, True)[1] == "bytes"
+
+
 def test_bf16_step_is_one_unit_in_the_last_place():
     """bf16_step: 2^-7 at 1, 2^-5 (3.125e-2) in [4, 8), 2^-12 at 0.05:
     adding it to a bf16 value gives the next bf16 value."""
@@ -1054,4 +1081,64 @@ def test_flash_gemma_phase_runs_on_the_cpu(capsys, monkeypatch):
     assert got["plain"]["plain"] == 2 and got["flash"]["plain"] == 0
     assert got["loss_gap"] <= sizes["loss_gap"] * abs(got["plain"]["loss"])
     assert got["grad_rel"] < sizes["grad_rel"]
+    assert got["kernels"] == {} and got["timed"] == {} and got["wall"] > 0
+
+
+def test_flash_f32_phase_sizes():
+    """Phase 22 (e) and its checks: the 8B (4096 wide, 14336 MLP, 32 heads
+    of 128 on 8 KV heads, 128256 tokens, all 32 layers) in f32 at [1,
+    1024], the route's shortest sequence, every layer one launch of each
+    of E's kernels (no remat); the loss within 1e-4 of the loss and the
+    LoRA gradients within 1e-3 (relative L2), far tighter than bf16's 5e-2;
+    phase 22 (a) checks the f32 kernels at the 8B's heads and at 16 heads
+    of 256 on 8 KV heads, and the f32 route routes there."""
+    import llamole_tpu_torch.models.gllm.model as gllm
+    from llamole_tpu_torch.models.gllm import LLMConfig
+    from llamole_tpu_torch.ops import flash_attention as E
+    sizes = chip_smoke.PHASE22
+    cfg = LLMConfig.llama3_8b()
+    assert (cfg.hidden_size, cfg.intermediate_size, cfg.num_heads,
+            cfg.num_kv_heads, cfg.head_dim_, cfg.vocab_size,
+            cfg.num_layers) == (4096, 14336, 32, 8, 128, 128256, 32)
+    assert not cfg.remat
+    assert sizes["f32_seq"] == cfg.flash_min_seq == 1024
+    assert (sizes["f32_loss_gap"], sizes["f32_grad_rel"]) == (1e-4, 1e-3)
+    f32 = [tuple(c[:5]) for c in sizes["checks"] if c[5] == "f32"]
+    assert f32 == [(1, 1024, 32, 8, 128), (1, 1024, 16, 8, 256)]
+    assert {E.backward_body(torch.float32, c[4]) for c in f32} == {"tf32x3"}
+    cfg.use_flash = True
+    assert gllm.flash_ok(cfg, sizes["f32_seq"], "cuda")
+    assert not gllm.flash_ok(cfg, sizes["f32_seq"] - 128, "cuda")
+
+
+def test_flash_f32_phase_runs_on_the_cpu(capsys, monkeypatch):
+    """Phase 22 (e) at a small width on the CPU: a 2-layer LLM of two
+    query heads of 128 on one KV head in f32 (LLM.dtype), the route forced
+    on (here the plain version runs): the flash step's loss within 1e-4 x
+    loss and its LoRA gradients within 1e-3 of the plain f32 step's, every
+    layer on the route and none on the plain attention, no card times."""
+    import llamole_tpu_torch.models.gllm.model as gllm
+    from llamole_tpu_torch.models.gllm import LLMConfig
+
+    gate = gllm.flash_ok
+    monkeypatch.setattr(gllm, "flash_ok",
+                        lambda cfg, s, device: gate(cfg, s, "cuda"))
+    cfg = LLMConfig(vocab_size=512, hidden_size=256, intermediate_size=256,
+                    num_layers=2, num_heads=2, num_kv_heads=1, head_dim=128,
+                    rope_theta=10000.0, rope_scaling=None,
+                    max_position_embeddings=4096, flash_min_seq=128)
+    sizes = {**chip_smoke.PHASE22, "f32_seq": 256}
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        got = chip_smoke.run_flash_f32("CPU", "cpu", sizes, _tiny_slice, cfg)
+    finally:
+        torch.set_num_threads(threads)
+    out = capsys.readouterr().out
+    assert ("phase 22 (e) Llama-3.1-8B in f32 (256 wide, 2 x 128 heads, 1 "
+            "KV heads, 2 layers) causal-LM loss + backward at [1, 256] (256 "
+            "real tokens)") in out
+    assert got["plain"]["plain"] == 2 and got["flash"]["plain"] == 0
+    assert got["loss_gap"] <= 1e-4 * abs(got["plain"]["loss"])
+    assert got["grad_rel"] < 1e-3
     assert got["kernels"] == {} and got["timed"] == {} and got["wall"] > 0
