@@ -315,8 +315,8 @@
    forward and the backward apart) and, as a floor, causal without
    segments, and the bound of each half (flash_bound); the same but the
    floor at (1, 1024, 16, 16, 256) bf16 (gemma-7b's heads; the backward
-   on its wgmma_wide bodies) and at both f32 shapes (the FMA forward and
-   the split-TF32 backward, SDPA with TF32 off) (time_flash_wide); (b)
+   on its wgmma_wide bodies) and at both f32 shapes (every f32 body in
+   split TF32, SDPA with TF32 off) (time_flash_wide); (b)
    the LLM's causal-LM loss + backward through
    LLM.forward(train=True) on [1, 2048] seeded tokens, all real, with
    use_flash off and on, in turns: the losses within 5e-2 of the loss,
@@ -345,14 +345,19 @@
    loss within 1e-4 x loss and the LoRA gradients within 1e-3 (relative
    L2) of the plain f32 step's, walls and peaks; then time_flash_wide
    at (1, 1024, 32, 8, 128) f32 unpadded, E inside the step as in (d)
-   (run_flash_f32). Run alone (about 2 min on one H100, on a fresh
-   random slice):
+   (run_flash_f32); (f) (d)'s gemma-7b in f32 (what fp16: true builds,
+   all 28 layers; a slice of its own after (e)): (e)'s pair and gates at
+   [1, f32_seq], 28 launches of each of E's kernels at head_dim 256 in
+   f32, then time_flash_wide at (1, 1024, 16, 16, 256) f32 unpadded, E
+   inside the step as in (d) (run_flash_f32_gemma). Run alone (about 3
+   min on one H100, on a fresh random slice):
    python3 -c "import gc, torch, chip_smoke as s; from
    llamole_tpu_torch.ops import cuda_lib; cuda_lib.library(); torch.
    backends.cuda.matmul.allow_tf32 = False; m, t = s.build_slice(); s.
    run_flash(m, t, s.card_tag()); del m, t; gc.collect(); s.
    run_flash_gemma(s.card_tag()); gc.collect(); torch.cuda.
-   empty_cache(); s.run_flash_f32(s.card_tag())"
+   empty_cache(); s.run_flash_f32(s.card_tag()); gc.collect(); torch.
+   cuda.empty_cache(); s.run_flash_f32_gemma(s.card_tag())"
 
 Prints, before the last line, one {"kernels": [...]} JSON line (per
 kernel: launches on the main path, max_abs_err, ms, plain_ms, device_ms,
@@ -384,10 +389,13 @@ main keys, each half under fwd_* / bwd_* (device ms per kernel: fwd,
 dq, dkv), its launches those of phase 22 (b)'s causal-LM flash step (per
 kernel under launches_fwd / _dq / _dkv, (c)'s under long_*), the
 bodies per head dim under fwd_body / bwd_body, the head_dim-256 times
-under d256 and the f32 ones under f32, and (d)'s launches under
-launches_d256_fwd / _dq / _dkv with its walls, peaks and gaps under
-d256_*, E's times at its step's shape under d256_step and E's device
-time inside its step (launches x replay ms) under d256_step_kernel_ms;
+under d256 and the f32 ones under f32 / f32_d256, and (d)'s launches
+under launches_d256_fwd / _dq / _dkv with its walls, peaks and gaps
+under d256_*, E's times at its step's shape under d256_step and E's
+device time inside its step (launches x replay ms) under
+d256_step_kernel_ms; (e)'s the same under launches_f32_* and f32_*,
+(f)'s under launches_f32_d256_* and f32_d256_* (its step's times under
+f32_d256_step);
 before it, the whole script's wall; the last line is {"ok": true,
 "device": {...}}. Any failure exits non-zero.
 """
@@ -5924,14 +5932,15 @@ def run_ring(tag, device="cuda", sizes=None):
 # of 256, one KV head each), timed at S = 1024 (time_flash_wide), the same
 # with two query heads a KV head, and gemma-7b's heads at (d)'s length,
 # the shape (d)'s step sends the kernels.
-# gemma7b: (d)'s model, the published google/gemma-7b config.json
-# (Hugging Face) as from_hf_config reads it, tie_word_embeddings written
-# out (HF's default for gemma, which the file leaves out); gemma_layers:
-# the depth (d) runs it at. The f32 checks are the 8B's heads and 16 query
-# heads of 256 on 8 KV heads, at S = 1024 (the split-TF32 backward at both
-# head dims). f32_seq, f32_loss_gap (of the loss), f32_grad_rel: (e)'s
-# step, the 8B in f32 (what fp16: true builds), and how far its flash step
-# may be from its plain one: both f32, so far tighter than bf16's
+# gemma7b: (d)'s and (f)'s model, the published google/gemma-7b
+# config.json (Hugging Face) as from_hf_config reads it,
+# tie_word_embeddings written out (HF's default for gemma, which the file
+# leaves out); gemma_layers: the depth (d) and (f) run it at. The f32
+# checks are the 8B's heads and 16 query heads of 256 on 8 KV heads, at
+# S = 1024 (the split-TF32 bodies at both head dims). f32_seq,
+# f32_loss_gap (of the loss), f32_grad_rel: (e)'s and (f)'s steps, the 8B
+# and gemma-7b in f32 (what fp16: true builds), and how far their flash
+# steps may be from their plain ones: both f32, so far tighter than bf16's
 PHASE22 = {"checks": ((1, 2048, 32, 8, 128, "bf16"),
                       (2, 1024, 32, 8, 128, "bf16"),
                       (1, 1024, 16, 16, 256, "bf16"),
@@ -6250,8 +6259,8 @@ def time_flash_wide(shape, dt, sizes, tag):
     """Kernel E at one more shape in dt on flash_inputs' padding at sizes'
     left_pad / right_pad (bf16 at head_dim 256, gemma's heads, padded as
     the checks are and, for (d), at its step's shape with no padding;
-    f32 at both head dims, the FMA forward and the split-TF32 backward,
-    and for (e) at its step's shape): the forward's and
+    f32 at both head dims, every body in split TF32, and for (e) and (f)
+    at their steps' shapes): the forward's and
     each backward kernel's device ms by CUDA-graph replay of its
     launcher, each half's flash_bound and share, the call ms (CUDA
     events) of the forward and of forward + backward through
@@ -6573,6 +6582,14 @@ def flash_model_pair(cfg, dtype, part, what, seq, sizes, tag, device,
             "wall": time.perf_counter() - t0}
 
 
+def gemma7b_config(sizes):
+    """(d)'s and (f)'s LLMConfig: sizes["gemma7b"] through
+    LLMConfig.from_hf_config at gemma_layers layers."""
+    from llamole_tpu_torch.models.gllm import LLMConfig
+    return dataclasses.replace(LLMConfig.from_hf_config(sizes["gemma7b"]),
+                               num_layers=sizes["gemma_layers"])
+
+
 def run_flash_gemma(tag, device="cuda", sizes=None, build=None):
     """Phase 22 (d): gemma-1 at gemma-7b's published widths (sizes
     ["gemma7b"] through LLMConfig.from_hf_config: 16 heads of 256, one KV
@@ -6581,10 +6598,8 @@ def run_flash_gemma(tag, device="cuda", sizes=None, build=None):
     causal-LM pair at [1, train_seq] (flash_model_pair; build,
     build_slice by default): the first path through a model that
     launches E at head_dim 256."""
-    from llamole_tpu_torch.models.gllm import LLMConfig
     sizes = sizes or PHASE22
-    cfg = dataclasses.replace(LLMConfig.from_hf_config(sizes["gemma7b"]),
-                              num_layers=sizes["gemma_layers"])
+    cfg = gemma7b_config(sizes)
     return flash_model_pair(
         cfg, torch.bfloat16, "d",
         f"gemma-7b ({cfg.hidden_size} wide, {cfg.num_heads} x "
@@ -6598,7 +6613,8 @@ def run_flash_f32(tag, device="cuda", sizes=None, build=None, cfg=None):
     config with fp16: true (compute_dtype "float16"), its causal-LM pair
     at [1, f32_seq] (flash_model_pair; build, build_slice by default) held
     to f32_loss_gap and f32_grad_rel: the path that launches E's f32
-    bodies (the FMA forward, the split-TF32 dq and dkv)."""
+    bodies at head_dim 128 (the forward, dq and dkv, all in split
+    TF32)."""
     from llamole_tpu_torch.models.gllm import LLMConfig
     sizes = sizes or PHASE22
     cfg = cfg or LLMConfig.llama3_8b()
@@ -6607,9 +6623,29 @@ def run_flash_f32(tag, device="cuda", sizes=None, build=None, cfg=None):
         f"Llama-3.1-8B in f32 ({cfg.hidden_size} wide, {cfg.num_heads} x "
         f"{cfg.head_dim_} heads, {cfg.num_kv_heads} KV heads, "
         f"{cfg.num_layers} layers)",
-        sizes["f32_seq"], {**sizes, "loss_gap": sizes["f32_loss_gap"],
-                           "grad_rel": sizes["f32_grad_rel"]},
-        tag, device, build or build_slice)
+        sizes["f32_seq"], f32_gates(sizes), tag, device, build or build_slice)
+
+
+def f32_gates(sizes):
+    """sizes with (e)'s and (f)'s f32 limits as flash_pair's gates."""
+    return {**sizes, "loss_gap": sizes["f32_loss_gap"],
+            "grad_rel": sizes["f32_grad_rel"]}
+
+
+def run_flash_f32_gemma(tag, device="cuda", sizes=None, build=None):
+    """Phase 22 (f): (d)'s gemma-1 at gemma-7b's published widths and
+    gemma_layers layers, built in f32 as both packages build it from a
+    config with fp16: true, its causal-LM pair at [1, f32_seq]
+    (flash_model_pair; build, build_slice by default) held to
+    f32_loss_gap and f32_grad_rel: the path that launches E's f32 bodies
+    at head_dim 256."""
+    sizes = sizes or PHASE22
+    cfg = gemma7b_config(sizes)
+    return flash_model_pair(
+        cfg, torch.float32, "f",
+        f"gemma-7b in f32 ({cfg.hidden_size} wide, {cfg.num_heads} x "
+        f"{cfg.head_dim_} heads, {cfg.num_layers} layers)",
+        sizes["f32_seq"], f32_gates(sizes), tag, device, build or build_slice)
 
 
 def main() -> int:
@@ -6695,20 +6731,26 @@ def main() -> int:
         print(f"slice freed: {torch.cuda.memory_allocated() / 2**30:.2f} "
               "GiB still allocated", flush=True)
         # phase 22 (d): gemma-7b's ~17 GB of weights on a card of its own;
-        # (e): the 8B's ~32 GB in f32 after it
+        # (e): the 8B's ~32 GB in f32 after it; (f): gemma-7b's ~34 GB in
+        # f32 after that
         gemma22 = run_flash_gemma(tag)
         gc.collect()
         torch.cuda.empty_cache()
         f32_22 = run_flash_f32(tag)
+        gc.collect()
+        torch.cuda.empty_cache()
+        f32_gemma22 = run_flash_f32_gemma(tag)
         walls22 = {**phase22["walls"], "d": gemma22["wall"],
-                   "e": f32_22["wall"]}
+                   "e": f32_22["wall"], "f": f32_gemma22["wall"]}
         print(f"phase 22: (a) kernel E's checks and times "
               f"{walls22['a']:.1f} s, (b) the training steps with and "
               f"without use_flash {walls22['b']:.1f} s, (c) the flash step "
               f"at [1, {PHASE22['long_seq']}] {walls22['c']:.1f} s, (d) "
               f"gemma-7b's steps and E at their shape {walls22['d']:.1f} s, "
               f"(e) the 8B's f32 steps and E at their shape "
-              f"{walls22['e']:.1f} s; {sum(walls22.values()):.1f} s in all "
+              f"{walls22['e']:.1f} s, (f) gemma-7b's f32 steps and E at "
+              f"their shape {walls22['f']:.1f} s; "
+              f"{sum(walls22.values()):.1f} s in all "
               f"[{tag}]", flush=True)
         gc.collect()
         torch.cuda.empty_cache()
@@ -6932,6 +6974,18 @@ def main() -> int:
               f32_grad_rel=f32_22["grad_rel"],
               f32_wall_s={k: f32_22[k]["wall"] for k in ("plain", "flash")},
               f32_peak={k: f32_22[k]["peak"] for k in ("plain", "flash")},
+              # phase 22 (f): gemma-7b's f32 flash step, E's f32 bodies at
+              # head_dim 256
+              **{f"launches_f32_d256_{k[len('launches_'):]}":
+                 f32_gemma22["flash"][k] for k in FLASH_COUNTS},
+              f32_d256_step=f32_gemma22["timed"],
+              f32_d256_step_kernel_ms=f32_gemma22["kernels"],
+              f32_d256_loss_gap=f32_gemma22["loss_gap"],
+              f32_d256_grad_rel=f32_gemma22["grad_rel"],
+              f32_d256_wall_s={k: f32_gemma22[k]["wall"]
+                               for k in ("plain", "flash")},
+              f32_d256_peak={k: f32_gemma22[k]["peak"]
+                             for k in ("plain", "flash")},
               train_loss_gap=phase22["train"]["loss_gap"],
               train_grad_rel=phase22["train"]["grad_rel"],
               train_wall_s={k: phase22["train"][k]["wall"]

@@ -59,12 +59,12 @@
 //   dV, warpgroup 1 dS and dK, P handed over in shared memory), the same
 //   grids, workspace and group sum (the section "the backward at D = 256").
 // * f32 (an LLM built with compute_dtype other than bfloat16, as fp16:
-//   true gives it): the forward in plain FMA loops (flash_fwd_fma: 32-row
-//   tiles, eight threads a row, the same online softmax); the backward on
-//   the tensor cores in split TF32, three mma.sync m16n8k8 TF32 passes a
-//   product (flash_bwd_dq_tf32, flash_bwd_dkv_tf32: the section "the f32
-//   backward"), the dkv kernel per query head with the same workspace and
-//   group sum.
+//   true gives it): every body on the tensor cores in split TF32, three
+//   mma.sync m16n8k8 TF32 passes a product: the backward (flash_bwd_dq_tf32,
+//   flash_bwd_dkv_tf32: the section "the f32 backward"), the dkv kernel per
+//   query head with the same workspace and group sum, and the forward
+//   (flash_fwd_tf32: the section "the f32 forward"), the bf16 forward's
+//   online softmax on the backward's tiles.
 //
 // D is 128 or 256 and S a multiple of 128 (the 128-row and 128-key
 // blocks at D = 128; the route sends S % 128 == 0); the wrapper
@@ -80,8 +80,6 @@
 namespace {
 
 constexpr float kMaskValue = -0.7f * 3.40282346638528859812e+38f;
-constexpr int kF = 32;          // rows and keys of an f32 tile
-constexpr int kFThreads = 256;  // 8 threads a row
 constexpr int kSeqMultiple = 128;  // the 128-row / 128-key blocks
 
 struct Dims {
@@ -1450,61 +1448,69 @@ __global__ void __launch_bounds__(Tf32Dkv<D>::kThreads, 1) flash_bwd_dkv_tf32_ke
                      acc);
 }
 
-// ---- the f32 FMA forward ---------------------------------------------------
-
-// Thread (r, c) = (tid / 8, tid % 8) owns row r of a 32-row tile, its
-// columns c + 8u of the 32 x 32 logits and its dims c + 8i; the eight
-// threads of a row are neighbouring lanes of one warp.
-
-__device__ __forceinline__ float row8_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 4));
-}
-
-__device__ __forceinline__ float row8_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  v += __shfl_xor_sync(0xffffffffu, v, 2);
-  return v + __shfl_xor_sync(0xffffffffu, v, 4);
-}
-
-// rows of D floats (global row stride `stride`) into a [kF][D + 1] tile
-template <int D>
-__device__ __forceinline__ void load_f32_rows(float* dst, const float* src, long long stride,
-                                              int tid) {
-  for (int e = tid; e < kF * D; e += kFThreads) {
-    const int r = e / D, d = e % D;
-    dst[r * (D + 1) + d] = src[r * stride + d];
-  }
-}
-
-template <int D>
-__device__ __forceinline__ float dot_rows(const float* a, const float* b) {
-  float acc = 0.f;
-#pragma unroll 8
-  for (int d = 0; d < D; ++d) acc = fmaf(a[d], b[d], acc);
-  return acc;
-}
+// ---- the f32 forward: split TF32 on the tensor cores -----------------------
+//
+// flash_fwd_tf32<D>: the bf16 forward's arithmetic on the f32 backward's
+// machinery. Tiles of D + 4 floats come through the 2-stage cp.async ring;
+// every product is three mma.sync m16n8k8 TF32 passes (one pass errs ~1e-3,
+// three ~2e-6). One block of 8 warps per (b, head, kRows query rows), the
+// longest rows first with the head fastest, so a KV group's heads run side
+// by side and share K / V in L2; a warp owns 16 rows. Per step of kKeys
+// keys: S = Q.K^T (product_abt_tf32, Q read from shared memory), the online
+// softmax in the log2 domain on ex2.approx with a masked logit at kMaskValue
+// itself (finite: see the bf16 forward; kMaskValue x log2 e is -inf and
+// would give NaN), then O += P.V with P taken from S's registers as they
+// are (product_xb_tf32's permuted chunk order matches their layout: no
+// shuffle, no trip through shared memory). lse goes out in natural log,
+// (m + log2 l) ln 2, for the backward. mma.sync and not wgmma: wgmma takes
+// TF32 only with both operands K-major, and P.V reduces over keys that lie
+// D-contiguous in V (a transposed tile, two with the split). At D = 128 128
+// rows, 64-key steps
+// and a 16 x 128 O a warp. At D = 256 Q alone takes 65 KB: 64 rows, 32-key
+// steps, and warps w and w + 4 share rows 16 w..16 w + 15, each over one
+// half of D: each forms a partial S over its half, adds the other's
+// (shared memory, named barrier 1 + w; a + b = b + a, so both warps form
+// the same P bits) and keeps a 16 x 128 O of its half, where one warp per
+// 16 x 256 O would leave no registers for the step's S. A warp skips a
+// step wholly above its rows, and one where its rows lie in one segment
+// and no key of the step does (what it would add before the row's first
+// real key, that key rescales by 0); a step wholly inside that segment and
+// before every row runs without the mask, its scale folded into the
+// exponent's FMA. Both warps of a pair read the same rows and keys, so
+// they skip alike and meet at every barrier.
 
 template <int D>
-constexpr size_t fma_fwd_shared_bytes() {
-  return ((size_t)3 * kF * (D + 1) + kF * (kF + 1)) * sizeof(float) + kF * sizeof(int);
-}
+struct Tf32Fwd {
+  static constexpr int kRows = D == 128 ? 128 : 64;  // query rows a block
+  static constexpr int kKeys = D == 128 ? 64 : 32;   // keys a step
+  static constexpr int kThreads = 256;               // 8 warps
+  static constexpr int kSplit = 8 * 16 / kRows;      // warps (parts of D) a row tile
+  // product_abt_tf32's sets of sums: two where a step has 4 key tiles
+  static constexpr int kSets = kKeys / 8 >= 8 ? 1 : 2;
+  // floats of a stage: K and V [kKeys][D + 4], then the keys' segment ids
+  static constexpr int kStage = 2 * kKeys * (D + 4) + kKeys;
+  // floats of a warp's partial S where warps split D: kKeys / 8 fragments
+  // of 4 floats for each of 32 lanes, register-major
+  static constexpr int kPartial = kSplit > 1 ? kKeys * 16 : 0;
+  // Q [kRows][D + 4], the stages, the partials
+  static constexpr size_t kShared =
+      ((size_t)kRows * (D + 4) + kStages * kStage + 8 * kPartial) * sizeof(float);
+};
 
 template <int D>
-__global__ void __launch_bounds__(kFThreads) flash_fwd_fma_kernel(
+__global__ void __launch_bounds__(Tf32Fwd<D>::kThreads, 1) flash_fwd_tf32_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const int* __restrict__ seg, float* __restrict__ out, float* __restrict__ lse, Dims dm,
     float scale) {
-  constexpr int LD = D + 1;
-  extern __shared__ float smem_f32[];
-  float* qs = smem_f32;       // [kF][LD]
-  float* ks = qs + kF * LD;   // [kF][LD]
-  float* vs = ks + kF * LD;   // [kF][LD]
-  float* ps = vs + kF * LD;   // [kF][kF + 1]
-  int* kseg = reinterpret_cast<int*>(ps + kF * (kF + 1));
+  using P = Tf32Fwd<D>;
+  constexpr int R = P::kRows, BK = P::kKeys, T = P::kThreads, LD = D + 4, NT = BK / 8;
+  constexpr int SETS = P::kSets, RT = R / 16, DP = D / P::kSplit;
+  extern __shared__ __align__(16) float smem_tf32[];
+  float* qs = smem_tf32;                            // [R][LD]
+  float* stages = qs + R * LD;                      // kStages x (K, V, key segments)
+  float* partials = stages + kStages * P::kStage;   // each warp's partial S
 
-  const QueryBlock blk = query_block(dm, kF);
+  const QueryBlock blk = query_block(dm, R);
   const int S = dm.S;
   const long long q_row = (long long)dm.H * D, kv_row = (long long)dm.KV * D;
   const int kvh = blk.h / (dm.H / dm.KV);
@@ -1512,54 +1518,142 @@ __global__ void __launch_bounds__(kFThreads) flash_fwd_fma_kernel(
   const float* kg = k + (long long)blk.b * S * kv_row + (long long)kvh * D;
   const float* vg = v + (long long)blk.b * S * kv_row + (long long)kvh * D;
   const int* sg = seg + (long long)blk.b * S;
-  const int tid = threadIdx.x, r = tid >> 3, c = tid & 7;
-  const int row = blk.q0 + r, srow = sg[row];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int rw = warp % RT, d0 = warp / RT * DP;  // the warp's row tile and first dim
+  const int nkt = (blk.q0 + R) / BK;  // key steps at or left of the diagonal
 
-  load_f32_rows<D>(qs, q + q_off + blk.q0 * q_row, q_row, tid);
-  float o[D / 8];
+  auto load_stage = [&](int kt) {
+    float* st = stages + (kt % kStages) * P::kStage;
+    const int j0 = kt * BK;
+    copy_rows_f32<BK, D, T>(st, kg + j0 * kv_row, kv_row, tid);
+    copy_rows_f32<BK, D, T>(st + BK * LD, vg + j0 * kv_row, kv_row, tid);
+    if (tid < BK / 4) cp_async16(st + 2 * BK * LD + tid * 4, sg + j0 + tid * 4);
+  };
+  copy_rows_f32<R, D, T>(qs, q + q_off + blk.q0 * q_row, q_row, tid);
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i) o[i] = 0.f;
-  float m = -INFINITY, l = 0.f;
-  for (int j0 = 0; j0 <= blk.q0; j0 += kF) {
-    __syncthreads();
-    load_f32_rows<D>(ks, kg + j0 * kv_row, kv_row, tid);
-    load_f32_rows<D>(vs, vg + j0 * kv_row, kv_row, tid);
-    for (int j = tid; j < kF; j += kFThreads) kseg[j] = sg[j0 + j];
-    __syncthreads();
-    float sv[4];
-    float mx = -INFINITY;
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int j = c + 8 * u;
-      const float x = dot_rows<D>(qs + r * LD, ks + j * LD);
-      sv[u] = (j0 + j <= row && kseg[j] == srow) ? x * scale : kMaskValue;
-      mx = fmaxf(mx, sv[u]);
-    }
-    const float mn = fmaxf(m, row8_max(mx));
-    const float a = expf(m - mn);
-    m = mn;
-    float part = 0.f;
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      sv[u] = expf(sv[u] - mn);
-      part += sv[u];
-      ps[r * (kF + 1) + c + 8 * u] = sv[u];
-    }
-    l = l * a + row8_sum(part);
-    __syncwarp();  // the row's eight threads share one warp
-#pragma unroll
-    for (int i = 0; i < D / 8; ++i) o[i] *= a;
-    for (int j = 0; j < kF; ++j) {
-      const float p = ps[r * (kF + 1) + j];
-#pragma unroll
-      for (int i = 0; i < D / 8; ++i) o[i] = fmaf(p, vs[j * LD + c + 8 * i], o[i]);
-    }
+  for (int s = 0; s < kStages - 1; ++s) {  // Q joins the first group
+    if (s < nkt) load_stage(s);
+    cp_async_commit();
   }
-  const float inv = 1.f / l;
-  float* og = out + q_off + row * q_row;
+
+  const int r0 = blk.q0 + rw * 16 + g, r1 = r0 + 8;  // this thread's rows
+  const int seg0 = sg[r0], seg1 = sg[r1];
+  const float scale2 = scale * kLog2e;
+  const int w_first = blk.q0 + rw * 16, w_last = w_first + 15;
+  // whether the warp's 16 rows lie in one segment, wseg
+  const int wseg = sg[w_first];
+  const bool rows_one = __all_sync(0xffffffffu, sg[w_first + (lane & 15)] == wseg);
+  const float* qw = qs + rw * 16 * LD + d0;
+  float* mine = partials + warp * P::kPartial;
+  const float* theirs = partials + (warp + RT) % (T / 32) * P::kPartial;  // the other half's
+  float o[DP / 8][4];  // O of the warp's rows at dims d0..d0 + DP - 1
 #pragma unroll
-  for (int i = 0; i < D / 8; ++i) og[c + 8 * i] = o[i] * inv;
-  if (c == 0) lse[((long long)blk.b * dm.H + blk.h) * S + row] = m + logf(l);
+  for (int i = 0; i < DP / 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
+  // running max (log2 domain) and this thread's share of the row sums
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+
+  for (int kt = 0; kt < nkt; ++kt) {
+    cp_async_wait<kStages - 2>();  // this step's stage has landed
+    __syncthreads();
+    if (kt + kStages - 1 < nkt) load_stage(kt + kStages - 1);  // into the stage step kt - 1 read
+    cp_async_commit();
+    const int j0 = kt * BK;
+    if (j0 > w_last) continue;  // warp-uniform (and row-tile-uniform): every key is above its rows
+    const float* ks = stages + (kt % kStages) * P::kStage;
+    const float* vs = ks + BK * LD;
+    const int* kseg = reinterpret_cast<const int*>(vs + BK * LD);
+    // the same: the step's keys all in the rows' one segment, or none
+    bool keys_in = true, keys_out = true;
+#pragma unroll
+    for (int j = lane; j < BK; j += 32) {
+      keys_in = keys_in && kseg[j] == wseg;
+      keys_out = keys_out && kseg[j] != wseg;
+    }
+    keys_in = rows_one && __all_sync(0xffffffffu, keys_in);
+    if (rows_one && __all_sync(0xffffffffu, keys_out)) continue;  // every pair masked
+    const bool unmasked = keys_in && j0 + BK - 1 <= w_first;
+    float sc[SETS][NT][4] = {};
+    product_abt_tf32<LD, DP, NT, SETS>(sc, qw, ks + d0, g, t4);  // S = Q.K^T
+    // x[nt][0], [1]: row r0, keys j0 + 8 nt + 2 t4 and + 1; [2], [3]: row r1
+    float x[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) sum_sets(x[nt], sc, nt);
+    if constexpr (P::kSplit > 1) {  // the row tile's two halves of D: add the other's sums
+#pragma unroll
+      for (int i = 0; i < NT * 4; ++i) mine[i * 32 + lane] = x[i / 4][i % 4];
+      named_sync(1 + rw, 64);  // both warps' partials are in
+#pragma unroll
+      for (int i = 0; i < NT * 4; ++i) x[i / 4][i % 4] += theirs[i * 32 + lane];
+    }
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+    if (unmasked) {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        mx0 = fmaxf(mx0, fmaxf(x[nt][0], x[nt][1]));
+        mx1 = fmaxf(mx1, fmaxf(x[nt][2], x[nt][3]));
+      }
+      mx0 = quad_max(mx0) * scale2;
+      mx1 = quad_max(mx1) * scale2;
+    } else {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int jj = nt * 8 + 2 * t4;
+        const int ja = j0 + jj;
+        const int sa = kseg[jj], sb = kseg[jj + 1];
+        x[nt][0] = (ja <= r0 && sa == seg0) ? x[nt][0] * scale2 : kMaskValue;
+        x[nt][1] = (ja + 1 <= r0 && sb == seg0) ? x[nt][1] * scale2 : kMaskValue;
+        x[nt][2] = (ja <= r1 && sa == seg1) ? x[nt][2] * scale2 : kMaskValue;
+        x[nt][3] = (ja + 1 <= r1 && sb == seg1) ? x[nt][3] * scale2 : kMaskValue;
+        mx0 = fmaxf(mx0, fmaxf(x[nt][0], x[nt][1]));
+        mx1 = fmaxf(mx1, fmaxf(x[nt][2], x[nt][3]));
+      }
+      mx0 = quad_max(mx0);
+      mx1 = quad_max(mx1);
+    }
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float a0 = exp2_approx(m0 - mn0), a1 = exp2_approx(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    // P = 2^(s - m): the scale folds into the FMA where the logits are unscaled
+    const float f = unmasked ? scale2 : 1.f;
+    float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      x[nt][0] = exp2_approx(fmaf(x[nt][0], f, -mn0));
+      x[nt][1] = exp2_approx(fmaf(x[nt][1], f, -mn0));
+      x[nt][2] = exp2_approx(fmaf(x[nt][2], f, -mn1));
+      x[nt][3] = exp2_approx(fmaf(x[nt][3], f, -mn1));
+      ps0 += x[nt][0] + x[nt][1];
+      ps1 += x[nt][2] + x[nt][3];
+    }
+    l0 = l0 * a0 + ps0;
+    l1 = l1 * a1 + ps1;
+#pragma unroll
+    for (int i = 0; i < DP / 8; ++i) {
+      o[i][0] *= a0;
+      o[i][1] *= a0;
+      o[i][2] *= a1;
+      o[i][3] *= a1;
+    }
+    product_xb_tf32<LD, DP, NT>(o, x, vs + d0, g, t4);  // O += P.V
+  }
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+  const float i0 = 1.f / l0, i1 = 1.f / l1;
+#pragma unroll
+  for (int i = 0; i < DP / 8; ++i) {
+    o[i][0] *= i0;
+    o[i][1] *= i0;
+    o[i][2] *= i1;
+    o[i][3] *= i1;
+  }
+  store_rows_tf32<DP>(out + q_off + d0, q_row, r0, r1, t4, o);
+  if (d0 == 0 && t4 == 0) {
+    float* lg = lse + ((long long)blk.b * dm.H + blk.h) * S;
+    lg[r0] = (m0 + log2f(l0)) * kLn2;
+    lg[r1] = (m1 + log2f(l1)) * kLn2;
+  }
 }
 
 // ---- launchers -----------------------------------------------------------
@@ -1596,9 +1690,10 @@ int fwd_bf16(const void* q, const void* k, const void* v, const void* seg, void*
 template <int D>
 int fwd_f32(const void* q, const void* k, const void* v, const void* seg, void* out, void* lse,
             Dims dm, void* stream) {
+  using P = Tf32Fwd<D>;
   static std::atomic<uint64_t> raised{0};
-  return launch_one(flash_fwd_fma_kernel<D>, dm.B * dm.H * (dm.S / kF), kFThreads,
-                    fma_fwd_shared_bytes<D>(), raised, stream, (const float*)q, (const float*)k,
+  return launch_one(flash_fwd_tf32_kernel<D>, dm.B * dm.H * (dm.S / P::kRows), P::kThreads,
+                    P::kShared, raised, stream, (const float*)q, (const float*)k,
                     (const float*)v, (const int*)seg, (float*)out, (float*)lse, dm,
                     softmax_scale(D));
 }

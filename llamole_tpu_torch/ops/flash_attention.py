@@ -19,9 +19,9 @@ kernel, the counterparts of jaxlib's `_flash_attention_impl`,
 `_flash_attention_bwd_dq` and `_flash_attention_bwd_dkv`. It takes bf16
 (warpgroup (wgmma) bodies at both head dims: the forward; dq and dkv on
 128-row blocks at D = 128 and on 64-row blocks whose two warpgroups
-split each step's work at D = 256) and f32 (an FMA forward; dq and dkv
-on the tensor cores in split TF32, three mma.sync TF32 passes a
-product), the dkv kernel per query head in both, its f32 partials
+split each step's work at D = 256) and f32 (the forward, dq and dkv on
+the tensor cores in split TF32, three mma.sync TF32 passes a product),
+the dkv kernel per query head in both, its f32 partials
 summed over the GQA group in `dkv_workspace`; D in HEAD_DIMS and S a
 multiple of SEQ_MULTIPLE (`forward_body` and `backward_body` name the
 bodies). The wrapper counts
@@ -50,10 +50,11 @@ COUNTS = ("launches", "launches_fwd", "launches_dq", "launches_dkv")
 def forward_body(dtype: torch.dtype, d: int) -> str:
     """The forward kernel's body for an input type and head dim, as
     csrc/flash_attention.cu routes it: "wgmma" (bf16, D = 128 or 256) or
-    "fma" (f32)."""
+    "tf32x3" (f32, both head dims: split TF32 on mma.sync,
+    `flash_fwd_tf32_kernel`)."""
     if d not in HEAD_DIMS:
         raise ValueError(f"head_dim {d}: the kernel takes {HEAD_DIMS}")
-    return "wgmma" if dtype == torch.bfloat16 else "fma"
+    return "wgmma" if dtype == torch.bfloat16 else "tf32x3"
 
 
 def backward_body(dtype: torch.dtype, d: int) -> str:

@@ -235,7 +235,7 @@ def test_f32_routes_to_the_split_tf32_bodies_and_fits_shared_memory():
     and steps divide every S the route takes."""
     f32 = torch.float32
     assert [E.backward_body(f32, d) for d in E.HEAD_DIMS] == ["tf32x3"] * 2
-    assert E.forward_body(f32, 128) == "fma"
+    assert [E.forward_body(f32, d) for d in E.HEAD_DIMS] == ["tf32x3"] * 2
     assert E.dkv_workspace(1, 256, 4, 2, 128, "cpu").dtype == f32
     for d in E.HEAD_DIMS:
         row = d + 4

@@ -596,7 +596,7 @@ FLASH_SHAPES = [
 
 @pytest.mark.parametrize("shape,split,one_step", FLASH_SHAPES)
 @pytest.mark.parametrize("dtype,tol", [
-    (torch.float32, 1e-4),     # FMA forward, split-TF32 backward
+    (torch.float32, 1e-4),     # split-TF32 forward and backward
     (torch.bfloat16, 2e-2),    # bf16 operands and outputs, ~4e-3 relative
 ])
 def test_flash_attention_matches_plain(cuda, shape, split, one_step, dtype,

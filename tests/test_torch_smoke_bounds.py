@@ -1142,3 +1142,37 @@ def test_flash_f32_phase_runs_on_the_cpu(capsys, monkeypatch):
     assert got["loss_gap"] <= 1e-4 * abs(got["plain"]["loss"])
     assert got["grad_rel"] < 1e-3
     assert got["kernels"] == {} and got["timed"] == {} and got["wall"] > 0
+
+
+def test_flash_f32_gemma_phase_runs_on_the_cpu(capsys, monkeypatch):
+    """Phase 22 (f) at a small width on the CPU: gemma-7b's config dict
+    with 2 layers of 2 heads of 256 (the route's head dim), 256 wide,
+    through from_hf_config, in f32 (LLM.dtype), the route forced on (here
+    the plain version runs): the flash step's loss within 1e-4 x loss and
+    its LoRA gradients within 1e-3 of the plain f32 step's, every layer on
+    the route and none on the plain attention, no card times."""
+    import llamole_tpu_torch.models.gllm.model as gllm
+
+    gate = gllm.flash_ok
+    monkeypatch.setattr(gllm, "flash_ok",
+                        lambda cfg, s, device: gate(cfg, s, "cuda"))
+    sizes = {**chip_smoke.PHASE22, "gemma_layers": 2, "f32_seq": 1024,
+             "gemma7b": {**chip_smoke.PHASE22["gemma7b"], "vocab_size": 512,
+                         "hidden_size": 256, "intermediate_size": 256,
+                         "num_attention_heads": 2,
+                         "num_key_value_heads": 2}}
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        got = chip_smoke.run_flash_f32_gemma("CPU", "cpu", sizes,
+                                             _tiny_slice)
+    finally:
+        torch.set_num_threads(threads)
+    out = capsys.readouterr().out
+    assert ("phase 22 (f) gemma-7b in f32 (256 wide, 2 x 256 heads, 2 "
+            "layers) causal-LM loss + backward at [1, 1024] (1024 real "
+            "tokens)") in out
+    assert got["plain"]["plain"] == 2 and got["flash"]["plain"] == 0
+    assert got["loss_gap"] <= 1e-4 * abs(got["plain"]["loss"])
+    assert got["grad_rel"] < 1e-3
+    assert got["kernels"] == {} and got["timed"] == {} and got["wall"] > 0
