@@ -213,7 +213,7 @@
    model is freed, over phase 12's files (the 8B base as HF
    safetensors, phase 9's adapter, the graph modules, which load in f32:
    A on its split-TF32 body), kernel counts set to 0 before and read after each
-   part, a PhaseTimer over the parts: (a) `python -m llamole_tpu_torch
+   part, each part timed by the host clock: (a) `python -m llamole_tpu_torch
    env` in a subprocess from the repo root names the card; (b)
    validate_data on data/molqa_train_examples.json reports ok, then
    `pretrain oracle` on it for 20 steps inside profiling.trace(): B and
@@ -3597,35 +3597,35 @@ def entry_webui(kernels, work, train_dir, device, tag, sizes):
 
 def run_entry_points(kernels, work, train_dir, tag, device="cuda",
                      sizes=None):
-    """Phase 17 (ENTRY): (a)-(e) above, each timed by a PhaseTimer and
+    """Phase 17 (ENTRY): (a)-(e) above, each timed by the host clock and
     its kernel counts set to 0 before and read after it. Returns the
     launches of A (per body), B and C summed over the parts."""
-    from llamole_tpu_torch.utils.profiling import PhaseTimer
-
     sizes = sizes or ENTRY
     on_card = device == "cuda"
     if on_card:
         torch.cuda.reset_peak_memory_stats()
     entry = os.path.join(work, "entry")
     os.makedirs(entry)
-    timer = PhaseTimer()
-    parts = []
-    with timer.phase("(a) env"):
-        entry_env(device, tag)
-    with timer.phase("(b) validate_data + pretrain oracle"):
-        oracle, got = entry_pretrain(kernels, entry, device, tag, sizes)
-        parts.append(got)
-    with timer.phase("(c) eval"):
-        parts.append(entry_eval(kernels, work, train_dir, entry, device, tag,
-                                sizes))
-    with timer.phase("(d) parity"):
-        parts.append(entry_parity(kernels, work, oracle, entry, device, tag,
-                                  sizes))
-    with timer.phase("(e) web UI"):
-        parts.append(entry_webui(kernels, work, train_dir, device, tag,
-                                 sizes))
+    walls, parts = {}, []
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        walls[name] = round(time.perf_counter() - t0, 3)
+        return out
+
+    timed("(a) env", lambda: entry_env(device, tag))
+    oracle, got = timed("(b) validate_data + pretrain oracle",
+                        lambda: entry_pretrain(kernels, entry, device, tag,
+                                               sizes))
+    parts.append(got)
+    parts.append(timed("(c) eval", lambda: entry_eval(
+        kernels, work, train_dir, entry, device, tag, sizes)))
+    parts.append(timed("(d) parity", lambda: entry_parity(
+        kernels, work, oracle, entry, device, tag, sizes)))
+    parts.append(timed("(e) web UI", lambda: entry_webui(
+        kernels, work, train_dir, device, tag, sizes)))
     total = {k: sum(p[k] for p in parts) for k in parts[0]}
-    walls = {k: round(v["total_s"], 3) for k, v in timer.summary().items()}
     print(f"phase 17 (entry points): {sum(walls.values()):.1f} s; parts "
           f"{json.dumps(walls)}; launches {total}; peak {_peak(on_card)} "
           f"[{tag}]", flush=True)

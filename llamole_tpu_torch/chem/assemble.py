@@ -13,12 +13,11 @@ Behavioral counterpart of the reference's graph_to_smiles pipeline
 """
 
 import random
-from collections import Counter
-from contextlib import contextmanager
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..utils import profiling
 from .mol import Atom, Mol
 from .periodic import CORRECTION_VALENCY, SYMBOL_TO_Z, max_allowed_valence
 from .smiles import (SmilesError, canonical_smiles, mol_to_smiles,
@@ -26,31 +25,11 @@ from .smiles import (SmilesError, canonical_smiles, mol_to_smiles,
 
 _rng = random.Random(0)
 
-# -- assembly outcome taxonomy (diagnosing validity dips) ----------------
-# graph_to_smiles tallies each graph's terminal outcome (plus the
-# non-terminal "correction_failed" event) into the innermost active
-# collector so a bench/eval run can print a failure histogram instead of
-# a bare valid/total count.
-_stats_stack: List[Counter] = []
-
-
-@contextmanager
-def collect_assembly_stats():
-    """Yields a Counter that graph_to_smiles fills with outcome tallies:
-    terminal keys ok / write_failed / reparse_failed / fragment_too_small
-    / polymer_reject / exception, plus the non-terminal correction_failed
-    (correct_mol gave up and the raw build went on through the cascade)."""
-    c: Counter = Counter()
-    _stats_stack.append(c)
-    try:
-        yield c
-    finally:
-        _stats_stack.remove(c)
-
-
-def _tally(key: str) -> None:
-    if _stats_stack:
-        _stats_stack[-1][key] += 1
+# graph_to_smiles counts each graph's terminal outcome as the counter
+# assemble.<outcome> (utils/profiling.py): ok / write_failed /
+# reparse_failed / fragment_too_small / polymer_reject / exception, and the
+# non-terminal correction_failed (correct_mol gave up and the raw build
+# went on through the cascade)
 
 
 def build_molecule(
@@ -239,7 +218,7 @@ def graph_to_smiles(
                     break
             if mol_conn is None:
                 mol_conn = mol_init
-                _tally("correction_failed")
+                profiling.count("assemble.correction_failed")
             smiles = mol_to_valid_smiles(mol_conn)
             if not smiles:
                 # last resort: write without sanitize (parity: raw MolToSmiles)
@@ -248,13 +227,13 @@ def graph_to_smiles(
                 except Exception:
                     smiles = None
             if not smiles:
-                _tally("write_failed")
+                profiling.count("assemble.write_failed")
                 out.append(None)
                 continue
             try:
                 mol = parse_smiles(smiles, sanitize=True)
             except SmilesError:
-                _tally("reparse_failed")
+                profiling.count("assemble.reparse_failed")
                 out.append(None)
                 continue
             frags = mol.fragments()
@@ -265,13 +244,13 @@ def graph_to_smiles(
                               else mol_to_valid_smiles(mol.subgraph(largest)))
             if largest_smiles and len(largest_smiles) > 1:
                 if check_polymer(largest_smiles):
-                    _tally("ok")
+                    profiling.count("assemble.ok")
                     out.append(largest_smiles)
                 else:
-                    _tally("polymer_reject")
+                    profiling.count("assemble.polymer_reject")
                     out.append(None)
             elif check_polymer(smiles):
-                _tally("ok")
+                profiling.count("assemble.ok")
                 out.append(smiles)
             else:
                 # reaching here = the largest fragment was unusable AND
@@ -279,11 +258,11 @@ def graph_to_smiles(
                 # classify by what blocked the largest-fragment path
                 # (a polymer_reject arm here would be unreachable — the
                 # usable-largest branch above owns that check)
-                _tally("write_failed" if not largest_smiles
-                       else "fragment_too_small")
+                profiling.count("assemble.write_failed" if not largest_smiles
+                                else "assemble.fragment_too_small")
                 out.append(None)
         except Exception:
-            _tally("exception")
+            profiling.count("assemble.exception")
             out.append(None)
     return out
 

@@ -77,6 +77,7 @@ from torch import nn
 from ..chem import canonical_smiles, recanonicalize
 from ..chem.featurize import smiles_to_graph
 from ..ops.nn import init_dense_
+from ..utils import profiling
 from ..utils.constants import IGNORE_INDEX
 from ..utils.logging import get_logger
 from ..utils.serialization import load_pytree, save_pytree
@@ -724,11 +725,12 @@ class GraphLM(nn.Module):
                 self._tensor(mb["mol_node_mask"], torch.bool),
                 self._tensor(mb["mol_valid"], torch.bool),
                 self._tensor(mb["mol_rows"]), self._tensor(mb["mol_cols"]))
-        outs = self._generate_tokens(
-            input_ids[mine], attention_mask[mine], generator, gen,
-            self._eos_ids(), want_state=gen.reuse_decode_cache,
-            inputs_embeds=inputs_embeds,
-            dp=None if groups is None else (groups, mine, true_b))
+        with profiling.span("design.analysis"):
+            outs = self._generate_tokens(
+                input_ids[mine], attention_mask[mine], generator, gen,
+                self._eos_ids(), want_state=gen.reuse_decode_cache,
+                inputs_embeds=inputs_embeds,
+                dp=None if groups is None else (groups, mine, true_b))
         analysis = outs[0]
         design_hidden = None
         if gen.reuse_decode_cache and outs[2] is not None:
@@ -736,8 +738,9 @@ class GraphLM(nn.Module):
                           self.token_id_dict["<design_body>"], np.int64)
             ext[:, 0] = self.token_id_dict["<design_start>"]
             state = outs[2]
-            design_hidden = self._body_hidden_extend(
-                state["cache"], state["kv_valid"], self._tensor(ext))
+            with profiling.span("design.extend"):
+                design_hidden = self._body_hidden_extend(
+                    state["cache"], state["kv_valid"], self._tensor(ext))
             del state, outs   # free the cache before the diffusion stage
         if groups is not None:
             analysis = self._gather_rows_array(analysis, groups)
@@ -788,14 +791,18 @@ class GraphLM(nn.Module):
         if design_hidden is None:
             padded = seqs + [seqs[-1]] * (props.shape[0] - n)
             ids, mask = self._left_pad(padded)
-            design_hidden = self._body_hidden(self._tensor(ids[mine]),
-                                              self._tensor(mask[mine]))
+            with profiling.span("design.extend"):
+                design_hidden = self._body_hidden(self._tensor(ids[mine]),
+                                                  self._tensor(mask[mine]))
         conn = self.connectors["lm_to_graph_decoder"]
-        cond = F.silu(conn(design_hidden.to(conn.weight.dtype))).float()
+        with profiling.span("design.connector"):
+            cond = F.silu(conn(design_hidden.to(conn.weight.dtype))).float()
         props = self._tensor(props[mine], torch.float32)
 
         def sample():
-            got = self.graph_decoder.generate(generator, props, cond, rows)
+            with profiling.span("design.diffuse"):
+                got = self.graph_decoder.generate(generator, props, cond,
+                                                  rows)
             if groups is None:
                 return got
             from ..parallel.comm import gather_rows
@@ -803,9 +810,11 @@ class GraphLM(nn.Module):
 
         smiles = sample()
         true_b = n if true_b is None else true_b
+        profiling.count("design.rows", true_b)
         for _ in range(max(0, gen.design_resamples)):
             if all(s is not None for s in smiles[:true_b]):
                 break
+            profiling.count("design.redraws")
             redraw = sample()
             smiles = [a if a is not None else b
                       for a, b in zip(smiles, redraw)]
@@ -824,26 +833,28 @@ class GraphLM(nn.Module):
         none_idx = [i for i, s in enumerate(smiles_list) if s is None]
         if not none_idx:
             return smiles_list
-        rb = self.token_id_dict["<rollback_start>"]
-        rb_end = self.token_id_dict["<rollback_end>"]
-        ids, mask = self._left_pad([list(design_seqs[i]) + [rb]
-                                    for i in none_idx])
-        gen2 = dc_replace(gen, max_new_tokens=gen.max_new_tokens * 2)
-        # stop on rollback_end or eos only: the SMILES itself is plain text
-        toks, _ = self._generate_tokens(
-            ids, mask, generator, gen2,
-            (self.tokenizer.eos_token_id, rb_end))
-        smiles_list = list(smiles_list)
-        for row, i in zip(toks, none_idx):
-            text = self.tokenizer.decode(self._strip_pads(row),
-                                         skip_special_tokens=True).strip()
-            if not text:
-                smiles_list[i] = None
-                continue
-            # parseable text joins the canonical space; the rest passes
-            # through raw, as the reference takes the decoded string
-            canon = canonical_smiles(text)
-            smiles_list[i] = canon if canon is not None else text
+        profiling.count("design.rollback_rows", len(none_idx))
+        with profiling.span("design.rollback"):
+            rb = self.token_id_dict["<rollback_start>"]
+            rb_end = self.token_id_dict["<rollback_end>"]
+            ids, mask = self._left_pad([list(design_seqs[i]) + [rb]
+                                        for i in none_idx])
+            gen2 = dc_replace(gen, max_new_tokens=gen.max_new_tokens * 2)
+            # stop on rollback_end or eos only: a SMILES is plain text
+            toks, _ = self._generate_tokens(
+                ids, mask, generator, gen2,
+                (self.tokenizer.eos_token_id, rb_end))
+            smiles_list = list(smiles_list)
+            for row, i in zip(toks, none_idx):
+                text = self.tokenizer.decode(self._strip_pads(row),
+                                             skip_special_tokens=True).strip()
+                if not text:
+                    smiles_list[i] = None
+                    continue
+                # parseable text joins the canonical space; the rest passes
+                # through raw, as the reference takes the decoded string
+                canon = canonical_smiles(text)
+                smiles_list[i] = canon if canon is not None else text
         return smiles_list
 
     # ------------------------------------------------------------------

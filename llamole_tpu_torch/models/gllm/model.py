@@ -51,6 +51,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ...ops.flash_attention import flash_attention
+from ...utils import profiling
 from .config import LLMConfig
 from .lora import LoRALinear, adapters_off, lora_targets
 from .quantize import empty_quantized_, projections
@@ -921,29 +922,9 @@ class LLM(nn.Module):
                     and cfg.sliding_window is None)
         total = (p + max_new_tokens * ((spec_tokens + 1) if use_spec else 1)
                  + reserve_cache_slots)
-        eos = torch.tensor(list(eos_ids) or [-1], device=dev)
-        positions = (attention_mask.cumsum(-1) - 1).clamp_min(0)
-        cache = make_kv_cache(cfg, b, total, self.dtype, dev,
-                              self.tp.size if self.tp is not None else 1)
-        kv_valid = torch.cat([attention_mask > 0,
-                              torch.zeros((b, total - p), dtype=torch.bool,
-                                          device=dev)], dim=1)
-        logits, _, cache = self(input_ids=input_ids,
-                                attention_mask=attention_mask,
-                                positions=positions, kv_cache=cache,
-                                cache_index=0, kv_valid=kv_valid,
-                                last_logits_only=True,
-                                inputs_embeds=inputs_embeds)
-
         use_rep = repetition_penalty != 1.0
         every_row = torch.arange(b, device=dev)
         seen = None
-        if use_rep:
-            seen = torch.zeros((b, cfg.vocab_size), dtype=torch.bool,
-                               device=dev)
-            if inputs_embeds is None:
-                r, c = torch.nonzero(attention_mask > 0, as_tuple=True)
-                seen[r, input_ids[r, c]] = True
 
         def pick(step_logits):
             if use_rep:
@@ -955,11 +936,40 @@ class LLM(nn.Module):
                 seen[every_row, tok] = True
             return tok
 
-        tok = pick(logits[:, -1])
-        done = torch.isin(tok, eos)
-        trigger = torch.where(done, tok, -1)
-        tok = torch.where(done, pad_id, tok)
-        pos = positions[:, -1] + 1
+        def all_stopped(done) -> bool:
+            # the host's read of the stop flag: it waits for the step
+            profiling.count("llm.stop_reads")
+            with profiling.span("llm.stop_wait"):
+                return everywhere(done.all(), group)
+
+        profiling.count("llm.generate_calls")
+        with profiling.span("llm.prefill", dev):
+            eos = torch.tensor(list(eos_ids) or [-1], device=dev)
+            positions = (attention_mask.cumsum(-1) - 1).clamp_min(0)
+            cache = make_kv_cache(cfg, b, total, self.dtype, dev,
+                                  self.tp.size if self.tp is not None else 1)
+            kv_valid = torch.cat([attention_mask > 0,
+                                  torch.zeros((b, total - p),
+                                              dtype=torch.bool, device=dev)],
+                                 dim=1)
+            logits, _, cache = self(input_ids=input_ids,
+                                    attention_mask=attention_mask,
+                                    positions=positions, kv_cache=cache,
+                                    cache_index=0, kv_valid=kv_valid,
+                                    last_logits_only=True,
+                                    inputs_embeds=inputs_embeds)
+            if use_rep:
+                seen = torch.zeros((b, cfg.vocab_size), dtype=torch.bool,
+                                   device=dev)
+                if inputs_embeds is None:
+                    r, c = torch.nonzero(attention_mask > 0, as_tuple=True)
+                    seen[r, input_ids[r, c]] = True
+            tok = pick(logits[:, -1])
+            done = torch.isin(tok, eos)
+            trigger = torch.where(done, tok, -1)
+            tok = torch.where(done, pad_id, tok)
+            pos = positions[:, -1] + 1
+            finished = not use_spec and all_stopped(done)
         sampling = dict(temperature=temperature, top_p=top_p, top_k=top_k,
                         do_sample=do_sample)
 
@@ -978,27 +988,34 @@ class LLM(nn.Module):
             iters = 0
             graphed = (self._decode_graph(cache, kv_valid, tok, pos)
                        if self._graphs_apply(dev) else None)
-            for t in range(max_new_tokens):
-                if everywhere(done.all(), group):
-                    break   # early exit: finished rows would only emit pad
-                out[:, t] = tok
-                kv_valid[:, p + t] = ~done
-                if graphed is None:
-                    logits, _, cache = self(input_ids=tok[:, None],
-                                            positions=pos[:, None],
-                                            kv_cache=cache,
-                                            cache_index=p + t,
-                                            kv_valid=kv_valid)
-                    last = logits[:, -1]
-                else:
-                    last = graphed(tok, pos, p + t)
-                nxt = pick(last)
-                stopped = ~done & torch.isin(nxt, eos)
-                trigger = torch.where(stopped, nxt, trigger)
-                done = done | stopped
-                tok = torch.where(done, pad_id, nxt)
-                pos = pos + 1
-                iters += 1
+            # each step ends on the host's read of the stop flag (the
+            # early exit: finished rows would only emit pad); the first
+            # step of a call runs eagerly and captures the graph
+            for t in range(0 if finished else max_new_tokens):
+                profiling.count("llm.decode_steps")
+                with profiling.span("llm.step" if t else "llm.first_step"):
+                    with profiling.span("llm.forward", dev):
+                        out[:, t] = tok
+                        kv_valid[:, p + t] = ~done
+                        if graphed is None:
+                            logits, _, cache = self(input_ids=tok[:, None],
+                                                    positions=pos[:, None],
+                                                    kv_cache=cache,
+                                                    cache_index=p + t,
+                                                    kv_valid=kv_valid)
+                            last = logits[:, -1]
+                        else:
+                            last = graphed(tok, pos, p + t)
+                    with profiling.span("llm.pick", dev):
+                        nxt = pick(last)
+                        stopped = ~done & torch.isin(nxt, eos)
+                        trigger = torch.where(stopped, nxt, trigger)
+                        done = done | stopped
+                        tok = torch.where(done, pad_id, nxt)
+                        pos = pos + 1
+                    iters += 1
+                    if t + 1 < max_new_tokens and all_stopped(done):
+                        break
             state = {"cache": cache, "kv_valid": kv_valid}
         res = (out, done)
         if return_trigger:
@@ -1052,6 +1069,7 @@ class LLM(nn.Module):
                 state["graph"].replay()
                 LLM.graph_replays += 1
                 return state["out"]
+            profiling.count("llm.graph_captures")
             side = torch.cuda.Stream(dev)
             side.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(side):

@@ -22,6 +22,7 @@ from torch import nn
 
 from ...chem.assemble import check_valid as _check_valid
 from ...chem.assemble import graph_to_smiles as _graph_to_smiles
+from ...utils import profiling
 from ...utils.constants import NO_LABEL_INDEX
 
 from ...weights import load_module, save_module
@@ -153,31 +154,37 @@ class GraphDiT(nn.Module):
         grid = time_grid(sched.timesteps, cfg.sampling_steps)
         T = np.float32(sched.timesteps)
         for t_int, s_int in zip(grid[:-1].tolist(), grid[1:].tolist()):
-            a_s = sched.alphas_bar[s_int].expand(b)
-            a_t = sched.alphas_bar[t_int].expand(b)
-            # effective one-jump noise t -> s: exact when s = t-1
-            beta_t = 1.0 - a_t / a_s.clamp_min(1e-12)
-            t_norm = torch.full((b,), float(np.float32(t_int) / T),
-                                dtype=torch.float32, device=dev)
-            if use_cfg:
-                lX, lE = self.denoiser(torch.cat([X, X], 0),
-                                       torch.cat([E, E], 0), m2, y2, txt2,
-                                       torch.cat([t_norm, t_norm], 0))
-                prob_X, prob_E = to_probs(X, E, lX[:b], lE[:b], beta_t,
-                                          a_s, a_t)
-                un_X, un_E = to_probs(X, E, lX[b:], lE[b:], beta_t, a_s,
-                                      a_t)
-                g = cfg.guide_scale
-                prob_X = un_X * (prob_X / un_X.clamp_min(1e-5)) ** g
-                prob_E = un_E * (prob_E / un_E.clamp_min(1e-5)) ** g
-                prob_X = prob_X / prob_X.sum(-1, keepdim=True).clamp_min(1e-5)
-                prob_E = prob_E / prob_E.sum(-1, keepdim=True).clamp_min(1e-5)
-            else:
-                lX, lE = self.denoiser(X, E, node_mask, y, text_emb, t_norm)
-                prob_X, prob_E = to_probs(X, E, lX, lE, beta_t, a_s, a_t)
-            Xs, Es = sample_discrete_features(generator, prob_X, prob_E,
-                                              node_mask, rows)
-            X, E = one_hot_graph(Xs, Es, cfg.Xdim, cfg.Edim, node_mask)
+            profiling.count("graphdit.reverse_steps")
+            with profiling.span("graphdit.step", dev):
+                a_s = sched.alphas_bar[s_int].expand(b)
+                a_t = sched.alphas_bar[t_int].expand(b)
+                # effective one-jump noise t -> s: exact when s = t-1
+                beta_t = 1.0 - a_t / a_s.clamp_min(1e-12)
+                t_norm = torch.full((b,), float(np.float32(t_int) / T),
+                                    dtype=torch.float32, device=dev)
+                if use_cfg:
+                    lX, lE = self.denoiser(torch.cat([X, X], 0),
+                                           torch.cat([E, E], 0), m2, y2,
+                                           txt2, torch.cat([t_norm, t_norm],
+                                                           0))
+                    prob_X, prob_E = to_probs(X, E, lX[:b], lE[:b], beta_t,
+                                              a_s, a_t)
+                    un_X, un_E = to_probs(X, E, lX[b:], lE[b:], beta_t, a_s,
+                                          a_t)
+                    g = cfg.guide_scale
+                    prob_X = un_X * (prob_X / un_X.clamp_min(1e-5)) ** g
+                    prob_E = un_E * (prob_E / un_E.clamp_min(1e-5)) ** g
+                    prob_X = prob_X / prob_X.sum(-1, keepdim=True).clamp_min(
+                        1e-5)
+                    prob_E = prob_E / prob_E.sum(-1, keepdim=True).clamp_min(
+                        1e-5)
+                else:
+                    lX, lE = self.denoiser(X, E, node_mask, y, text_emb,
+                                           t_norm)
+                    prob_X, prob_E = to_probs(X, E, lX, lE, beta_t, a_s, a_t)
+                Xs, Es = sample_discrete_features(generator, prob_X, prob_E,
+                                                  node_mask, rows)
+                X, E = one_hot_graph(Xs, Es, cfg.Xdim, cfg.Edim, node_mask)
 
         atom_idx = torch.argmax(X, dim=-1)
         edge_cls = torch.argmax(E, dim=-1)
@@ -193,12 +200,14 @@ class GraphDiT(nn.Module):
                         properties.float())
         atom_idx, edge_cls, n_nodes = self.sample(generator, y, text_emb,
                                                   rows)
-        atom_idx = atom_idx.cpu().numpy()
-        edge_cls = edge_cls.cpu().numpy()
-        n_nodes = n_nodes.cpu().numpy()
+        with profiling.span("graphdit.fetch"):   # waits for the sampler
+            atom_idx = atom_idx.cpu().numpy()
+            edge_cls = edge_cls.cpu().numpy()
+            n_nodes = n_nodes.cpu().numpy()
         mols = [(atom_idx[i, :int(k)], edge_cls[i, :int(k), :int(k)])
                 for i, k in enumerate(n_nodes)]
-        return _graph_to_smiles(mols, self.atom_decoder)
+        with profiling.span("graphdit.assemble"):
+            return _graph_to_smiles(mols, self.atom_decoder)
 
     def check_valid(self, smiles: Optional[str]) -> bool:
         return _check_valid(smiles)

@@ -11,8 +11,9 @@ search (GraphLM.retrosynthesize_batch) over their designed molecules.
 
 Request (JSONL line / submit kwargs):
   {"prompt": str, "property": {name: value, ...}, "retro": bool}
-  {"stats": true} answers inline with the serving counters and latency
-  percentiles.
+  {"stats": true} answers inline with the serving counters, latency
+  percentiles and, under "counters", the program's counters
+  (utils/profiling.py: serve.*, design.*, llm.*, graphdit.*, assemble.*).
 Result:
   {"id": n, "text": str, "smiles": str | null, "latency_s": float,
    "retro": {"success": bool, "reactions": [...], "templates": [...],
@@ -41,6 +42,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from .utils import profiling
 from .utils.constants import MOL_PROPERTIES
 from .utils.logging import get_logger
 
@@ -153,10 +155,11 @@ class _DesignServerBase:
         return DesignHandle(pending)
 
     def stats(self) -> Dict[str, Any]:
-        """Serving counters + rolling latency percentiles."""
+        """Serving counters + rolling latency percentiles, and the
+        program's counters (utils/profiling.py) under "counters"."""
         return {"requests_served": self.requests_served,
                 "batches_run": self.batches_run, **self._extra_stats(),
-                **self._lat.summary()}
+                **self._lat.summary(), "counters": profiling.counters()}
 
     def _extra_stats(self) -> Dict[str, Any]:
         return {}
@@ -260,6 +263,19 @@ class DesignServer(_DesignServerBase):
 
     def _run_batch(self, batch: List[_Pending]) -> None:
         n_real = len(batch)
+        t_start = time.monotonic()
+        profiling.count("serve.requests", n_real)
+        profiling.add("serve.queue_wait_s",
+                      sum(t_start - p.t_submit for p in batch))
+        profiling.count("serve.rows_real", n_real)
+        profiling.count("serve.rows_run", self.batch_size)
+        with profiling.batch("serve.batch", self.batches_run):
+            self._design_batch(batch)
+        self.batches_run += 1
+        self.requests_served += n_real
+
+    def _design_batch(self, batch: List[_Pending]) -> None:
+        n_real = len(batch)
         rows = batch + [batch[-1]] * (self.batch_size - n_real)
         ids, mask = self.model._left_pad([p.prompt_ids for p in rows])
         props = np.stack([p.properties for p in rows])
@@ -269,17 +285,19 @@ class DesignServer(_DesignServerBase):
         # design-only rows are answered at once, not after the (possibly
         # long) retro search of the rows batched with them
         retro_rows = []
-        for i, p in enumerate(batch):
-            text = self.tokenizer.decode(self.model._strip_pads(analysis[i]),
-                                         skip_special_tokens=True)
-            result = {"text": text, "smiles": smiles[i]}
-            if p.retro and smiles[i] is not None:
-                p.result = result   # answered after the retro phase
-                retro_rows.append((i, p))
-                continue
-            if p.retro:   # nothing designed to plan for
-                result["retro"] = _retro_payload({})
-            self._resolve(p, result)
+        with profiling.span("serve.respond"):
+            for i, p in enumerate(batch):
+                text = self.tokenizer.decode(
+                    self.model._strip_pads(analysis[i]),
+                    skip_special_tokens=True)
+                result = {"text": text, "smiles": smiles[i]}
+                if p.retro and smiles[i] is not None:
+                    p.result = result   # answered after the retro phase
+                    retro_rows.append((i, p))
+                    continue
+                if p.retro:   # nothing designed to plan for
+                    result["retro"] = _retro_payload({})
+                self._resolve(p, result)
         if retro_rows:
             plans = self.model.retrosynthesize_batch(
                 [smiles[i] for i, _ in retro_rows],
@@ -290,8 +308,6 @@ class DesignServer(_DesignServerBase):
             for i, p in retro_rows:
                 p.result["retro"] = _retro_payload(plans.get(smiles[i], {}))
                 self._resolve(p, p.result)
-        self.batches_run += 1
-        self.requests_served += n_real
 
 
 class ContinuousDesignServer(_DesignServerBase):

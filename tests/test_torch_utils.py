@@ -1,6 +1,6 @@
 """The port's utils/misc.py and utils/profiling.py against the JAX
 package's (CPU): parameter counts, the environment dump's keys, the
-encoded-record dump's text, PhaseTimer, and trace(): a no-op without a
+encoded-record dump's text, and trace(): a no-op without a
 directory, a Chrome trace of the block's ops with one, and an error when
 the trace cannot be written."""
 
@@ -107,21 +107,6 @@ def test_print_supervised_dataset_example_equals_jax(capsys):
         out.append(capsys.readouterr().out)
     assert out[0] == out[1]
     assert out[0].count("input_ids:\n") == 5 and "<retro_start>" in out[0]
-
-
-def test_phase_timer_accumulates():
-    timer = profiling.PhaseTimer()
-    for _ in range(3):
-        with timer.phase("a"):
-            pass
-    with pytest.raises(ValueError):
-        with timer.phase("b"):
-            raise ValueError
-    summary = timer.summary()
-    assert set(summary) == {"a", "b"}
-    assert summary["a"]["count"] == 3 and summary["b"]["count"] == 1
-    assert summary["a"]["mean_s"] == pytest.approx(
-        summary["a"]["total_s"] / 3)
 
 
 def test_trace_is_a_noop_without_a_directory(tmp_path, monkeypatch):
